@@ -1,0 +1,208 @@
+"""DataFrame and session API (port of ``spark_rapids_tpu/api/dataframe.py``,
+the part the slice reaches).
+
+``TorchSession`` runs queries on one torch device, ``cuda`` unless the
+caller names another. Inputs are a dict of numpy arrays, or an Arrow
+table or pandas DataFrame when those packages are installed; results
+come back as rows (``collect``), numpy arrays (``collect_numpy``) or an
+Arrow table (``collect_arrow``).
+"""
+from __future__ import annotations
+
+import datetime
+from typing import List
+
+import numpy as np
+import torch
+
+from ..columnar.batch import HostTable
+from ..config import TpuConf
+from ..exec.base import ExecContext
+from ..exprs.aggregates import AggregateExpression
+from ..exprs.base import Alias, ColumnRef, Expression
+from ..plan import logical as L
+from ..plan.overrides import plan_query
+from ..types import DATE, TIMESTAMP, Schema
+from .functions import _to_expr
+
+__all__ = ["TorchSession", "DataFrame", "GroupedData"]
+
+
+def _as_expr(c) -> Expression:
+    if isinstance(c, str):
+        return ColumnRef(c)
+    return _to_expr(c)
+
+
+def _host_table(data) -> HostTable:
+    if isinstance(data, HostTable):
+        return data
+    if isinstance(data, dict):
+        return HostTable.from_dict(data)
+    mod = type(data).__module__.split(".")[0]
+    if mod == "pyarrow":
+        return HostTable.from_arrow(data)
+    if mod == "pandas":
+        import pyarrow as pa
+        return HostTable.from_arrow(pa.Table.from_pandas(
+            data, preserve_index=False))
+    raise TypeError(f"cannot make a table of {type(data).__name__}: give a "
+                    "dict of numpy arrays, a pyarrow Table or a pandas "
+                    "DataFrame")
+
+
+class TorchSession:
+    """Entry point: ``TorchSession(conf=None, device=None)``. ``conf`` is a
+    TpuConf or a dict with the reference's keys; ``device`` defaults to
+    ``cuda`` and must be given as ``"cpu"`` to run on the CPU."""
+
+    def __init__(self, conf=None, device=None):
+        if isinstance(conf, dict):
+            conf = TpuConf(conf)
+        self.conf = conf or TpuConf()
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "TorchSession runs on a CUDA device and none is "
+                    "available; pass device=\"cpu\" to run on the CPU")
+            device = "cuda"
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "device=\"cpu\" to run on the CPU")
+
+    def exec_context(self) -> ExecContext:
+        return ExecContext(self.conf, self.device)
+
+    def create_dataframe(self, data, num_partitions: int = 1) -> "DataFrame":
+        table = _host_table(data)
+        if num_partitions <= 1:
+            parts = [table]
+        else:
+            step = -(-table.num_rows // num_partitions)
+            parts = [table.slice(i * step, step)
+                     for i in range(num_partitions)]
+        return DataFrame(self, L.LogicalScan(parts, table.schema))
+
+
+def _py_values(vals: np.ndarray, valid: np.ndarray, dtype) -> list:
+    if dtype == DATE:
+        epoch = datetime.date(1970, 1, 1)
+        out = [epoch + datetime.timedelta(days=int(x)) for x in vals]
+    elif dtype == TIMESTAMP:
+        epoch = datetime.datetime(1970, 1, 1, tzinfo=datetime.timezone.utc)
+        out = [epoch + datetime.timedelta(microseconds=int(x)) for x in vals]
+    else:
+        out = vals.tolist()
+    return [x if ok else None for x, ok in zip(out, valid.tolist())]
+
+
+class DataFrame:
+    def __init__(self, session: TorchSession, plan: L.LogicalPlan):
+        self.session = session
+        self.plan = plan
+
+    def select(self, *cols) -> "DataFrame":
+        return DataFrame(self.session,
+                         L.Project([_as_expr(c) for c in cols], self.plan))
+
+    def with_column(self, name: str, c) -> "DataFrame":
+        exprs: List[Expression] = []
+        replaced = False
+        for f in self.plan.schema().fields:
+            if f.name == name:
+                exprs.append(Alias(_as_expr(c), name))
+                replaced = True
+            else:
+                exprs.append(ColumnRef(f.name))
+        if not replaced:
+            exprs.append(Alias(_as_expr(c), name))
+        return DataFrame(self.session, L.Project(exprs, self.plan))
+
+    withColumn = with_column
+
+    def filter(self, cond) -> "DataFrame":
+        return DataFrame(self.session, L.Filter(_as_expr(cond), self.plan))
+
+    where = filter
+
+    def group_by(self, *cols) -> "GroupedData":
+        return GroupedData(self, [_as_expr(c) for c in cols])
+
+    groupBy = group_by
+
+    def agg(self, *aggs) -> "DataFrame":
+        return GroupedData(self, []).agg(*aggs)
+
+    def schema(self) -> Schema:
+        return self.plan.schema()
+
+    @property
+    def columns(self) -> List[str]:
+        return self.plan.schema().names()
+
+    def _physical(self):
+        return plan_query(self.plan, self.session.conf)
+
+    def explain(self) -> str:
+        """Print and return the physical plan: ``*`` marks a device
+        operator."""
+        s = self._physical().tree_string()
+        print(s)
+        return s
+
+    def _collect_columns(self):
+        physical = self._physical()
+        return physical.output_schema(), physical.collect(
+            self.session.exec_context())
+
+    def collect_numpy(self) -> dict:
+        """name -> numpy masked array (masked where null); DATE columns as
+        datetime64[D], TIMESTAMP as datetime64[us]."""
+        schema, cols = self._collect_columns()
+        out = {}
+        for f, (vals, valid) in zip(schema.fields, cols):
+            if f.dtype == DATE:
+                vals = vals.astype("datetime64[D]")
+            elif f.dtype == TIMESTAMP:
+                vals = vals.astype("datetime64[us]")
+            out[f.name] = np.ma.MaskedArray(vals, mask=~valid)
+        return out
+
+    def collect(self) -> list:
+        """Rows as dicts, nulls as None (the reference's collect)."""
+        schema, cols = self._collect_columns()
+        names = schema.names()
+        py = [_py_values(v, m, f.dtype)
+              for f, (v, m) in zip(schema.fields, cols)]
+        return [dict(zip(names, row)) for row in zip(*py)] if py else []
+
+    def collect_arrow(self):
+        import pyarrow as pa
+        from ..types import to_arrow
+        schema, cols = self._collect_columns()
+        arrays = []
+        for f, (vals, valid) in zip(schema.fields, cols):
+            if f.dtype == DATE:
+                arr = pa.array(vals.astype(np.int32), mask=~valid,
+                               type=pa.int32()).cast(pa.date32())
+            elif f.dtype == TIMESTAMP:
+                arr = pa.array(vals.astype(np.int64), mask=~valid,
+                               type=pa.int64()).cast(to_arrow(f.dtype))
+            else:
+                arr = pa.array(vals, mask=~valid, type=to_arrow(f.dtype))
+            arrays.append(arr)
+        return pa.Table.from_arrays(arrays, names=schema.names())
+
+
+class GroupedData:
+    def __init__(self, df: DataFrame, keys: List[Expression]):
+        self.df = df
+        self.keys = keys
+
+    def agg(self, *aggs) -> DataFrame:
+        for a in aggs:
+            assert isinstance(a, AggregateExpression), \
+                f"expected aggregate function, got {a!r}"
+        return DataFrame(self.df.session,
+                         L.Aggregate(self.keys, list(aggs), self.df.plan))

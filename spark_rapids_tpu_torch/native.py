@@ -1,0 +1,77 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+A kernel library ``<name>`` is the file ``csrc/<name>.cu`` with a plain
+``extern "C"`` launcher, compiled by ``nvcc`` for ``sm_90a`` into
+``build/`` at the repository root, at first use. The library's file name
+carries a hash of every source in ``csrc/`` and the flags, so an edit
+rebuilds it. Libraries load with ``ctypes``; nothing includes PyTorch's
+headers.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+__all__ = ["library_path", "build", "load"]
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        p = Path(cand) / "bin" / "nvcc"
+        if cand and p.exists():
+            return str(p)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only "
+                           "where the CUDA toolkit is installed")
+    return found
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh", ".h"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless it is built already. Returns
+    nvcc's output ("" when nothing was built)."""
+    out = library_path(name)
+    if out.exists():
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+         str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+    os.replace(tmp, out)
+    return proc.stdout
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library, built first if needed."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        build(name)
+        lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+    return lib
