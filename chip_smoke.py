@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (spark_rapids_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--compare NAME=DIR ...]
 
 Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
   1. device  -- the card's name and power limit (nvidia-smi), CUDA version;
   2. build   -- every CUDA kernel of the port, built from csrc/ with nvcc;
+                ptxas must report no stack frame and no spills for any
+                function. ``--compare NAME=DIR`` also builds
+                DIR/rect_match.cu (another version of the kernel, e.g. the
+                parent commit's) alongside, to be timed beside the port's;
   3. kernels -- each kernel's wrapper on the card against its plain torch
-                version, exact, in every mode, then timed (CUDA events,
-                median of 20 after warm-up) beside its bound;
+                version, exact, in every mode and edge case; then timed with
+                the L2 cold (launches queued back to back over distinct
+                inputs, several times the L2) beside its bound from the data:
+                the main path's batches, every mode, every width;
   4. q6      -- TPC-H Q6 at SF1 (6,001,215 lineitem rows, 1,048,576-row
                 batches) through TorchSession/DataFrame on cuda, against a
                 numpy reference computed here from the same arrays;
   5. q_comment -- the LIKE '%special%' comment scan at SF1 with
                 spark.rapids.tpu.sql.pallas.enabled on (the match kernel
-                must launch once per batch) and off (it must not launch).
+                must launch once per batch) and off (it must not launch),
+                then once more under torch.profiler: where the warm wall
+                goes on the card.
 
 The data is generated here from a seed, with numpy only: this script
 imports neither JAX, pyarrow, pandas nor the JAX package. It prints a
@@ -25,12 +33,15 @@ imports neither JAX, pyarrow, pandas nor the JAX package. It prints a
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 
@@ -255,6 +266,19 @@ def q_comment_numpy(t: dict):
 # phases
 # ---------------------------------------------------------------------------
 
+MODES = ("contains", "startswith", "endswith", "equals", "locate")
+#: bytes of distinct inputs that a timed run rotates over: four times the
+#: H100's 50 MB L2, so that every launch finds its input cold, as each
+#: q_comment batch arrives
+COLD_BYTES = 200 << 20
+#: cycles per ms of the sleep that holds the stream while the host
+#: enqueues a timed run (the H100 SXM's 1.98 GHz boost clock; the sleep
+#: only has to outlast the enqueue, which _queued_ms checks)
+CYCLES_PER_MS = 1_980_000
+#: the main path's match: q_comment's LIKE '%special%'
+PATTERN = b"special"
+
+
 def _log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -268,22 +292,50 @@ def _rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-300)
 
 
-def _time_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Median ms of one call, by CUDA events around each call."""
+def _queued_ms(calls, label: str):
+    """(device ms, host ms) per call of ``calls`` run back to back. A sleep
+    kernel holds the stream while the host enqueues them, so the events
+    around the calls see device work only; the sleep is lengthened until
+    it outlasts the enqueue."""
     import torch
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    sleep_ms = 0.05 * len(calls) + 1.0
+    for _ in range(8):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(int(sleep_ms * CYCLES_PER_MS))
+        ev[1].record()
+        t0 = time.perf_counter()
+        for fn in calls:
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        ev[2].synchronize()
+        slept = ev[0].elapsed_time(ev[1])
+        if host_ms < slept:
+            return (ev[1].elapsed_time(ev[2]) / len(calls),
+                    host_ms / len(calls))
+        sleep_ms = 2 * max(host_ms, sleep_ms) + 1.0
+    raise AssertionError(f"{label}: the host's enqueue ({host_ms:.3f} ms) "
+                         f"outlasted the sleep ({slept:.3f} ms) 8 times")
+
+
+def _cold_ms(fn, inputs, label: str, rounds: int = 2, reps: int = 3):
+    """(device ms, host ms) per call of ``fn`` over ``inputs`` in turn
+    (distinct copies of at least COLD_BYTES in all, so each call finds its
+    input cold in L2), ``rounds`` passes a run; median of ``reps`` runs
+    after one untimed pass."""
+    calls = [lambda x=x: fn(*x) for x in inputs]
+    _queued_ms(calls, label)
+    runs = [_queued_ms(calls * rounds, label) for _ in range(reps)]
+    return (float(np.median([r[0] for r in runs])),
+            float(np.median([r[1] for r in runs])))
+
+
+def _copies(b, ln):
+    """``(b, ln)`` and clones of it, COLD_BYTES in all (at least two)."""
+    n = max(2, -(-COLD_BYTES // (b.nbytes + ln.nbytes)))
+    return [(b, ln)] + [(b.clone(), ln.clone()) for _ in range(n - 1)]
 
 
 def phase_device() -> str:
@@ -297,17 +349,93 @@ def phase_device() -> str:
     _log(line)
     _log(f"torch {torch.__version__} cuda {torch.version.cuda} numpy "
          f"{np.__version__} device {torch.cuda.get_device_name(0)}")
+    _check(hasattr(torch.cuda, "_sleep"),
+           "torch.cuda._sleep is missing: the kernel timings need it")
     return line
 
 
-def phase_build() -> None:
+def _ptxas_frames(log: str) -> list:
+    """(function, stack bytes, spill store bytes, spill load bytes) for
+    every function in nvcc's -Xptxas=-v output."""
+    out, fn = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out.append((fn,) + tuple(int(g) for g in m.groups()))
+    return out
+
+
+def _start_compare_build(name: str, src_dir: str):
+    """nvcc for another version of the rect_match kernel (``src_dir`` holds
+    its rect_match.cu and header: the parent commit's, or a variant),
+    started now and built like the port's own into build/."""
+    from spark_rapids_tpu_torch import native
+    native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = native.BUILD_DIR / f"librect_match_compare_{name}.so"
+    src = Path(src_dir) / "rect_match.cu"
+    _check(src.exists(), f"no rect_match.cu in {src_dir}")
+    proc = subprocess.Popen(
+        [native._nvcc(), *native.NVCC_FLAGS, "-I", str(src.parent), "-o",
+         str(out), str(src)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    return name, proc, out
+
+
+def _finish_compare_build(name, proc, out):
+    """The built kernel as a function with rect_match's arguments (and no
+    launch count: it is not on the port's path)."""
+    import ctypes
+
+    import torch
+    from spark_rapids_tpu_torch.exprs import rect_match as rm
+    log, _ = proc.communicate(timeout=600)
+    _check(proc.returncode == 0, f"nvcc failed for {name}:\n{log}")
+    frames = _ptxas_frames(log)
+    _log(f"  ptxas {name}: {len(frames)} functions, stack/spill bytes "
+         f"{sorted({f[1:] for f in frames})}")
+    fn = ctypes.CDLL(str(out)).rect_match_launch
+    fn.argtypes = rm._ARGTYPES
+    fn.restype = ctypes.c_int
+
+    def other(b, ln, pat, mode):
+        o = rm._out(b.shape[0], mode, b.device)
+        rc = fn(b.data_ptr(), ln.data_ptr(), b.shape[0], b.shape[1], pat,
+                len(pat), rm.MODES[mode], o.data_ptr(),
+                torch.cuda.current_stream(b.device).cuda_stream)
+        _check(rc == 0, f"{name} kernel launch failed: CUDA error {rc}")
+        return o
+    return other
+
+
+def phase_build(compare=()):
+    """Build the port's kernels (and the ones to compare, at the same
+    time); the ptxas report of every function of the port must show no
+    stack frame and no spills. Returns {name: launch function} of the
+    kernels to compare."""
     from spark_rapids_tpu_torch import native
     t0 = time.perf_counter()
-    log = native.build("rect_match")
+    started = [_start_compare_build(n, d) for n, d in compare]
+    log = native.build_log("rect_match")
     _log(f"build: rect_match in {time.perf_counter() - t0:.2f} s")
     for ln in log.splitlines():
         if "registers" in ln or "spill" in ln or "smem" in ln:
             _log(f"  ptxas rect_match: {ln.strip()}")
+    frames = _ptxas_frames(log)
+    _check(bool(frames), "nvcc printed no ptxas report for rect_match")
+    bad = [f for f in frames if f[1:] != (0, 0, 0)]
+    _check(not bad, f"rect_match functions with a stack frame or spills: "
+                    f"{bad}")
+    _log(f"  ptxas: {len(frames)} functions, every one with a 0-byte stack "
+         f"frame and 0 spill bytes")
+    fns = {s[0]: _finish_compare_build(*s) for s in started}
+    if fns:
+        _log(f"build: {', '.join(fns)} (to compare) done in "
+             f"{time.perf_counter() - t0:.2f} s")
+    return fns
 
 
 def _random_rect(rng, rows: int, width: int, pat: bytes):
@@ -332,38 +460,77 @@ def _random_rect(rng, rows: int, width: int, pat: bytes):
     return rect, lens
 
 
-def phase_kernels(comment_batch) -> dict:
-    """rect_match against rect_match_reference on the card: every mode
-    and edge case on a random 1,048,576 x 64 rectangle, then the timed
-    main-path call (contains 'special' over the first l_comment batch)."""
+def _edge_rect(rng, rows: int, width: int, pat: bytes):
+    """_random_rect, with lengths at the 16-byte chunk edges (16k - 1,
+    16k, 16k + 1) in a third of the rows and ``pat`` planted across each
+    chunk boundary, ending at the row's length, in another third."""
+    rect, lens = _random_rect(rng, rows, width, pat)
+    L = len(pat)
+    edges = np.array(sorted({e + d for e in range(0, width + 1, 16)
+                             for d in (-1, 0, 1) if 0 <= e + d <= width}))
+    lens[0::3] = edges[rng.randint(0, len(edges), len(lens[0::3]))]
+    starts = [b - j for b in range(16, width, 16) for j in range(1, L)
+              if 0 <= b - j <= width - L]
+    if starts:
+        for k, r in enumerate(range(1, rows, 3)):
+            s = starts[k % len(starts)]
+            rect[r, s:s + L] = np.frombuffer(pat, np.uint8)
+            lens[r] = s + L
+    rect[np.arange(width)[None, :] >= lens[:, None]] = 0
+    return rect, lens
+
+
+def _at_offset(t, mis: int):
+    """A contiguous copy of the 2-D tensor ``t`` whose base lies ``mis``
+    bytes past a 16-byte boundary (a storage offset into a larger
+    buffer)."""
+    import torch
+    buf = torch.zeros(t.numel() + 64, dtype=t.dtype, device=t.device)
+    start = (mis - buf.data_ptr()) % 16
+    out = buf[start:start + t.numel()].view(t.shape)
+    out.copy_(t)
+    _check(out.is_contiguous() and out.data_ptr() % 16 == mis,
+           f"could not place a tensor at base + {mis}")
+    return out
+
+
+def phase_exact() -> float:
+    """rect_match against rect_match_reference on the card, exactly: every
+    mode and edge case on a random 1,048,576 x 64 rectangle, every mode at
+    the other widths (8 to 1024, and 24), lengths and planted patterns at
+    the 16-byte chunk edges, and bases that are not 16-byte aligned.
+    Returns the largest absolute difference seen (0)."""
     import torch
     from spark_rapids_tpu_torch.exprs.rect_match import (
         rect_match, rect_match_reference)
     dev = torch.device("cuda")
     rng = np.random.RandomState(7)
-    pat = b"special"
-    rect, lens = _random_rect(rng, 1 << 20, 64, pat)
+    rect, lens = _random_rect(rng, 1 << 20, 64, PATTERN)
     b = torch.from_numpy(rect).to(dev)
     ln = torch.from_numpy(lens).to(dev)
-    cases = [(m, pat) for m in ("contains", "startswith", "endswith",
-                                "equals", "locate")]
-    cases += [("contains", b"ab"), ("locate", b"e"), ("equals", b""),
-              ("locate", b""), ("contains", b""), ("startswith", b"x" * 64),
-              ("contains", b"x" * 65), ("locate", b"y" * 65)]
+    cases = [(b, ln, PATTERN, MODES)]
+    cases += [(b, ln, p, (m,)) for m, p in (
+        ("contains", b"ab"), ("locate", b"e"), ("equals", b""),
+        ("locate", b""), ("contains", b""), ("startswith", b"x" * 64),
+        ("contains", b"x" * 65), ("locate", b"y" * 65))]
     for rows, width in ((1000, 8), (777, 16), (5000, 32), (3, 128),
-                        (0, 64)):
+                        (0, 64), (3000, 256), (1000, 1024), (999, 24)):
         r2, l2 = _random_rect(rng, rows, width, b"abc")
-        cases.append(((r2, l2), b"abc"))
-    checked = []
-    max_err = 0
-    for mode, p in cases:
-        if isinstance(mode, tuple):      # other widths, all modes
-            bb = torch.from_numpy(mode[0]).to(dev)
-            ll = torch.from_numpy(mode[1]).to(dev)
-            modes = ("contains", "startswith", "endswith", "equals",
-                     "locate")
-        else:
-            bb, ll, modes = b, ln, (mode,)
+        cases.append((torch.from_numpy(r2).to(dev),
+                      torch.from_numpy(l2).to(dev), b"abc", MODES))
+    for width, pat in ((64, PATTERN), (64, b"x" * 20), (256, b"ab" * 9),
+                       (1024, b"abc" * 11)):
+        r2, l2 = _edge_rect(rng, 4000, width, pat)
+        cases.append((torch.from_numpy(r2).to(dev),
+                      torch.from_numpy(l2).to(dev), pat, MODES))
+    # unaligned bases: a storage offset of 3, and rows 1.. of W = 8 (8-byte
+    # aligned only)
+    cases.append((_at_offset(b[:100_000], 3), ln[:100_000], PATTERN, MODES))
+    r8, l8 = _edge_rect(rng, 5001, 8, b"abc")
+    b8 = torch.from_numpy(r8).to(dev)
+    cases.append((b8[1:], torch.from_numpy(l8[1:]).to(dev), b"abc", MODES))
+    checked, max_err = [], 0
+    for bb, ll, p, modes in cases:
         for m in modes:
             got = rect_match(bb, ll, p, m)
             want = rect_match_reference(bb, ll, p, m)
@@ -372,64 +539,240 @@ def phase_kernels(comment_batch) -> dict:
                 max_err = max(max_err, int((got.to(torch.int64) - want.to(
                     torch.int64)).abs().max()))
             _check(got.dtype == want.dtype and torch.equal(got, want),
-                   f"rect_match {m} {p[:8]!r} W={bb.shape[1]} disagrees "
-                   f"with its plain version")
+                   f"rect_match {m} {p[:8]!r} W={bb.shape[1]} base%16="
+                   f"{bb.data_ptr() % 16} disagrees with its plain version")
             checked.append((m, len(p), int(bb.shape[1]),
+                            bb.data_ptr() % 16,
                             int(want.to(torch.int64).sum())))
     _log(f"kernel rect_match: {len(checked)} cases exact "
-         f"(mode, L, W, sum): {checked}")
+         f"(mode, L, W, base%16, sum): {checked}")
+    return float(max_err)
 
-    per_mode = {m: _time_ms(lambda m=m: rect_match(b, ln, pat, m), reps=10)
-                for m in ("contains", "startswith", "endswith", "equals",
-                          "locate")}
-    plain_mode = {m: _time_ms(lambda m=m: rect_match_reference(b, ln, pat, m),
-                              reps=10)
-                  for m in per_mode}
-    _log("kernel rect_match random 1048576x64 'special' ms: "
-         + ", ".join(f"{m} {per_mode[m]:.4f} (plain {plain_mode[m]:.4f})"
-                     for m in per_mode))
 
-    # timed at the main path's shape and data
-    cb = comment_batch
-    P, W = cb.data.shape
-    kern_ms = _time_ms(lambda: rect_match(cb.data, cb.lengths, pat,
-                                          "contains"))
-    plain_ms = _time_ms(lambda: rect_match_reference(cb.data, cb.lengths,
-                                                     pat, "contains"))
-    got = rect_match(cb.data, cb.lengths, pat, "contains")
-    want = rect_match_reference(cb.data, cb.lengths, pat, "contains")
-    _check(torch.equal(got, want), "rect_match disagrees on l_comment")
-    # work this data needs: a row is read only as far as its scan goes (its
-    # length, or the end of the first match), in the card's 32-byte
-    # sectors; bytes past the length are zero and decide nothing, so
-    # P*W is an upper count. One byte compare at least per scanned offset.
-    first = rect_match_reference(cb.data, cb.lengths, pat, "locate")
-    first = first.to(torch.int64)
-    seen = torch.clamp(cb.lengths.to(torch.int64), max=W)
-    need = torch.where(first > 0, first - 1 + len(pat), seen)
-    row_bytes = (need + 31) // 32 * 32 if W % 32 == 0 else need
-    scanned = torch.where(first > 0, first,
-                          torch.clamp(seen - len(pat) + 1, min=0))
-    ops = int(scanned.sum())
-    nbytes = int(row_bytes.sum()) + 4 * P + P
+def _window(lens, W: int, L: int, mode: str):
+    """Each row's window [lo, hi) (csrc/rect_match_row.cuh
+    rect_row_window), as int64 tensors."""
+    import torch
+    n = lens.to(torch.int64)
+    zero = torch.zeros_like(n)
+    if L == 0 or L > W:
+        return zero, zero
+    if mode in ("contains", "locate"):
+        c = n.clamp(max=W)
+        return zero, torch.where(c >= L, c, zero)
+    if mode == "startswith":
+        return zero, torch.where(n >= L, zero + L, zero)
+    if mode == "equals":
+        return zero, torch.where(n == L, zero + L, zero)
+    ok = (n >= L) & (n <= W)
+    return torch.where(ok, n - L, zero), torch.where(ok, n, zero)
+
+
+def rect_bound(b, ln, pat: bytes, mode: str) -> dict:
+    """The least work one rect_match call needs on this data: the 32-byte
+    sectors holding each row's window (cut at the end of the first match
+    for contains and locate, where the scan stops), each read once, plus
+    4P bytes of lengths and the output (P, or 4P for locate); and one byte
+    compare per offset tested. ``ms`` is the larger of the bytes at the
+    HBM rate and the compares at the 32-bit rate; ``ms_64`` the same with
+    the sectors counted in aligned pairs (None for a base that is not
+    64-byte aligned)."""
+    import torch
+    from spark_rapids_tpu_torch.exprs.rect_match import rect_match_reference
+    P, W = b.shape
+    L = len(pat)
+    lo, hi = _window(ln, W, L, mode)
+    tested = (hi > lo).to(torch.int64)
+    if mode in ("contains", "locate") and 0 < L <= W:
+        first = rect_match_reference(b, ln, pat, "locate").to(torch.int64)
+        tested = torch.where(first > 0, first, (hi - L + 1).clamp(min=0))
+        hi = torch.where(first > 0, first - 1 + L, hi)
+    on = hi > lo
+    start = b.data_ptr() % 32 + torch.arange(P, device=b.device) * W
+    s0 = (start + lo) // 32
+    s1 = (start + hi - 1) // 32
+    mark = torch.zeros(2 * ((b.data_ptr() % 32 + P * W) // 64 + 2),
+                       dtype=torch.bool, device=b.device)
+    for k in range((W + 31) // 32 + 1):
+        idx = s0 + k
+        sel = on & (idx <= s1)
+        mark[idx[sel]] = True
+    rest = 4 * P + (4 if mode == "locate" else 1) * P
+    nbytes = 32 * int(mark.sum()) + rest
+    # the same at a 64-byte access granularity (the H100's, by the copy
+    # test in phase_kernel_times): pairs of sectors
+    nbytes_64 = 64 * int(mark.view(-1, 2).any(1).sum()) if b.data_ptr() % 64 \
+        == 0 else None
+    ops = int(tested.sum())
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / SCALAR_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    _log(f"kernel rect_match contains P={P} W={W}: kernel {kern_ms:.4f} ms, "
-         f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-         f"({nbytes} bytes, of at most {P * W + 5 * P}; {ops} byte "
-         f"compares); max abs err {max_err}")
-    return {"name": "rect_match", "route": "cuda",
-            "source": "spark_rapids_tpu_torch/csrc/rect_match.cu",
-            "replaces": "spark_rapids_tpu/exprs/pallas_rect.py:57",
-            "modes": ["contains", "startswith", "endswith", "equals",
-                      "locate"],
-            "launches": None, "max_abs_err": float(max_err),
-            "exact": max_err == 0,
-            "ms": kern_ms, "kernel_ms": kern_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "shape": [P, W]}
+    return {"bytes": nbytes, "ops": ops, "ms": max(bytes_ms, ops_ms),
+            "by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_64": None if nbytes_64 is None else nbytes_64 + rest,
+            "ms_64": None if nbytes_64 is None else max(
+                (nbytes_64 + rest) / HBM_BYTES_PER_S * 1e3, ops_ms),
+            "whole_rows_bytes": P * W + rest}
+
+
+def _device_rect(rows: int, width: int, seed: int, lo: int = 0,
+                 hi: int = -1):
+    """Random printable-ASCII rows made on the card from ``seed``, lengths
+    uniform over [lo, hi] (hi -1: the width), zero past each length."""
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    rect = torch.randint(32, 127, (rows, width), generator=g, device="cuda",
+                         dtype=torch.uint8)
+    lens = torch.randint(lo, (width if hi < 0 else hi) + 1, (rows,),
+                         generator=g, device="cuda", dtype=torch.int32)
+    rect.masked_fill_(
+        torch.arange(width, device="cuda")[None, :] >= lens[:, None], 0)
+    return rect, lens
+
+
+def _timed_row(inputs, pat: bytes, mode: str, compare, label: str) -> dict:
+    """kernel, the kernels to compare and plain ms, cold, beside the
+    bound (averaged over ``inputs``, which are distinct)."""
+    from spark_rapids_tpu_torch.exprs.rect_match import (
+        rect_match, rect_match_reference)
+    row = {}
+    row["ms"], row["host_ms"] = _cold_ms(
+        lambda b, ln: rect_match(b, ln, pat, mode), inputs, label)
+    row["compare_ms"] = {
+        name: _cold_ms(lambda b, ln, f=f: f(b, ln, pat, mode), inputs,
+                       f"{label} {name}")[0]
+        for name, f in compare.items()}
+    row["plain_ms"], _ = _cold_ms(
+        lambda b, ln: rect_match_reference(b, ln, pat, mode), inputs, label,
+        rounds=1, reps=1)
+    bounds = [rect_bound(b, ln, pat, mode) for b, ln in inputs]
+    for k in ("bytes", "ops", "ms", "whole_rows_bytes", "bytes_64", "ms_64"):
+        row["bound_" + k] = float(np.mean(
+            [np.nan if x[k] is None else x[k] for x in bounds]))
+    row["bound_by"] = bounds[0]["by"]
+    return row
+
+
+def _fmt(label: str, row: dict) -> str:
+    other = "".join(f", {n} {ms:.4f}" for n, ms in row["compare_ms"].items())
+    return (f"{label}: kernel {row['ms']:.4f} ms{other}, plain "
+            f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
+            f"({row['bound_bytes']:.0f} B in 32-byte sectors; "
+            f"{row['bound_ms_64']:.4f} ms, {row['bound_bytes_64']:.0f} B in "
+            f"64-byte pairs; whole rows {row['bound_whole_rows_bytes']:.0f} "
+            f"B; {row['bound_ops']:.0f} compares), "
+            f"{row['bound_ms'] / row['ms']:.0%} of bound; host "
+            f"{row['host_ms']:.4f} ms a call")
+
+
+def phase_kernel_times(batches, compare) -> dict:
+    """rect_match timed with the L2 cold (COLD_BYTES of distinct inputs a
+    run), beside its bound from the data, its plain version and the
+    kernels to compare (``compare``: name -> launch function), each first
+    held equal to the plain version on the first batch:
+
+    - the main path: contains 'special' over q_comment's l_comment
+      batches, one run over all of them (as the query reads them);
+    - every mode on a random 1,048,576 x 64 rectangle;
+    - contains at every width from 8 to 1024 (64 MiB rectangles);
+    - the first 262,144 rows of the first batch warm in L2 and cold;
+    - DRAM access granularity: contains over the same 64-byte rows with
+      every length <= 16, in 17..32 and in 49..64, and two strided copies
+      that ask for the same bytes in 32- and in 64-byte pieces."""
+    import torch
+    from spark_rapids_tpu_torch.exprs.rect_match import (
+        rect_match, rect_match_reference)
+    b0, l0 = batches[0]
+    for name, f in compare.items():
+        for m in MODES:
+            _check(torch.equal(f(b0, l0, PATTERN, m),
+                               rect_match_reference(b0, l0, PATTERN, m)),
+                   f"{name} {m} disagrees with the plain version")
+    out = {}
+    main = _timed_row(batches, PATTERN, "contains", compare, "main path")
+    P, W = batches[0][0].shape
+    _log(_fmt(f"kernel rect_match main path, contains 'special' over "
+              f"{len(batches)} l_comment batches of {P} x {W}, cold", main))
+    out["main"] = main
+
+    rng = np.random.RandomState(7)
+    rect, lens = _random_rect(rng, 1 << 20, 64, PATTERN)
+    inputs = _copies(torch.from_numpy(rect).cuda(),
+                     torch.from_numpy(lens).cuda())
+    out["per_mode"] = {}
+    for m in MODES:
+        out["per_mode"][m] = row = _timed_row(inputs, PATTERN, m, compare,
+                                              f"mode {m}")
+        _log(_fmt(f"kernel rect_match {m} 'special', random 1048576 x 64, "
+                  f"{len(inputs)} copies, cold", row))
+    del inputs
+
+    out["per_width"] = {}
+    for k, w in enumerate((8, 16, 32, 64, 128, 256, 512, 1024)):
+        inputs = _copies(*_device_rect((64 << 20) // w, w, seed=100 + k))
+        out["per_width"][w] = row = _timed_row(
+            inputs, PATTERN, "contains", compare, f"width {w}")
+        _log(_fmt(f"kernel rect_match contains 'special', random "
+                  f"{(64 << 20) // w} x {w}, {len(inputs)} copies, cold",
+                  row))
+        del inputs
+
+    # the kernel on a slice that fits the L2, warm (the same slice over and
+    # over) against cold (distinct copies): how much of its time is DRAM
+    small = (b0[:1 << 18], l0[:1 << 18])
+    out["l2"] = {
+        "warm_ms": _cold_ms(lambda b, ln: rect_match(b, ln, PATTERN,
+                                                     "contains"),
+                            [small], "warm slice", rounds=8)[0],
+        "cold_ms": _cold_ms(lambda b, ln: rect_match(b, ln, PATTERN,
+                                                     "contains"),
+                            _copies(small[0].clone(), small[1].clone()),
+                            "cold slice")[0]}
+    _log(f"kernel rect_match contains 'special' over rows 0..262143 of the "
+         f"first batch: {out['l2']['warm_ms']:.4f} ms warm in L2, "
+         f"{out['l2']['cold_ms']:.4f} ms cold")
+    out["granularity"] = {}
+    base_rect, _ = _device_rect(1 << 20, 64, seed=200, lo=64, hi=64)
+    for k, (lo, hi) in enumerate(((1, 16), (17, 32), (49, 64))):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(300 + k)
+        ln = torch.randint(lo, hi + 1, (1 << 20,), generator=g,
+                           device="cuda", dtype=torch.int32)
+        inputs = _copies(base_rect, ln)
+        row = _timed_row(inputs, PATTERN, "contains", compare,
+                         f"lengths {lo}..{hi}")
+        out["granularity"][f"{lo}..{hi}"] = row
+        _log(_fmt(f"kernel rect_match contains over the same 1048576 x 64 "
+                  f"bytes, lengths {lo}..{hi}, cold", row))
+        del inputs
+    out["granularity"]["copy"] = _sector_copy_ms()
+    return out
+
+
+def _sector_copy_ms() -> dict:
+    """The card's DRAM access granularity, by two runs of PyTorch's strided
+    copy over one 256 MiB buffer, each with the same element count and the
+    same contiguous 128 MiB output: the first 32 bytes of every 64-byte
+    row, and the first 64 bytes of every 128-byte row. Both ask for half
+    the buffer; the first in 32-byte pieces, one in each 64-byte segment.
+    If the card read a 32-byte sector alone, the two would take the same
+    time; if it fetches 64 bytes, the first moves 1.5x the bytes of the
+    second."""
+    import torch
+    n = 1 << 22
+    buf = torch.zeros(n * 8, dtype=torch.int64, device="cuda")
+    dst = torch.empty(n * 4, dtype=torch.int64, device="cuda")
+    halves = buf.view(n, 8)[:, :4]
+    pairs = buf.view(n // 2, 16)[:, :8]
+    sector = _cold_ms(lambda s: dst.view(n, 4).copy_(s), [(halves,)],
+                      "32 of 64 bytes", rounds=4)[0]
+    segment = _cold_ms(lambda s: dst.view(n // 2, 8).copy_(s), [(pairs,)],
+                       "64 of 128 bytes", rounds=4)[0]
+    _log(f"DRAM granularity: strided copy of 32 of every 64 bytes of "
+         f"256 MiB {sector:.4f} ms; of 64 of every 128 bytes {segment:.4f} "
+         f"ms (ratio {sector / segment:.3f}; 1.0 if a 32-byte sector is "
+         "read alone, 1.5 if 64 bytes are fetched)")
+    return {"sector_ms": sector, "segment_ms": segment}
 
 
 def _profile_host_encode(fn, top: int = 6) -> None:
@@ -456,7 +799,104 @@ def _run_query(session, table, query):
     return rows, (time.perf_counter() - t0) * 1e3
 
 
-def main() -> int:
+def _device_time_us(e) -> float:
+    """An event's self time on the card, under either of the names
+    PyTorch has used for it."""
+    for k in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(e, k, None)
+        if v:
+            return float(v)
+    return 0.0
+
+
+def _idle_share(spans, busy):
+    """(window start, end, busy time, idle share): the window spans every
+    interval of ``spans``; busy is the length of the union of ``busy``."""
+    lo = min(s for s, _ in spans)
+    hi = max(t for _, t in spans)
+    union, end = 0.0, lo
+    for s, t in sorted(busy):
+        s = max(s, end)
+        if t > s:
+            union += t - s
+            end = t
+    return lo, hi, union, 1 - union / (hi - lo) if hi > lo else float("nan")
+
+
+def _profile_report(prof, wall_ms: float) -> dict:
+    """The top device operations of a profiled run, the match kernel's
+    share of device time, and the device's idle share of the profiled
+    window (the union of its operations' intervals against the span of
+    every event)."""
+    from torch.autograd import DeviceType
+    avg = prof.key_averages()
+    dev = sorted(((_device_time_us(e), e.key, e.count) for e in avg
+                  if _device_time_us(e) > 0), reverse=True)
+    if not dev:
+        _log("profile: key_averages() shows no device time; the CUDA-event "
+             "numbers above stand")
+        return {"device_time": False}
+    total = sum(t for t, _, _ in dev)
+    kern = sum(t for t, k, _ in dev if "rect_match" in k)
+    _log(f"profile of one warm q_comment (kernel on, wall {wall_ms:.1f} ms): "
+         f"{len(dev)} device operations, {total / 1e3:.4f} ms of device "
+         "time; top by time: " + "; ".join(
+             f"{k[:70]} {t / 1e3:.4f} ms x{n} ({t / total:.0%})"
+             for t, k, n in dev[:8]))
+    spans, busy = [], []
+    for e in prof.events():
+        tr = getattr(e, "time_range", None)
+        if tr is None:
+            continue
+        spans.append((tr.start, tr.end))
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            busy.append((tr.start, tr.end))
+    lo, hi, union, idle = _idle_share(spans, busy)
+    cpu = sorted(((e.self_cpu_time_total, e.key, e.count) for e in avg),
+                 reverse=True)
+    _log(f"profile: rect_match {kern / 1e3:.4f} ms, {kern / total:.1%} of "
+         f"device time; device busy {union / 1e3:.4f} ms of a "
+         f"{(hi - lo) / 1e3:.4f} ms window, idle {idle:.1%}; top host self "
+         "time: " + "; ".join(f"{k[:50]} {t / 1e3:.3f} ms x{n}"
+                              for t, k, n in cpu[:6]))
+    return {"device_time": True, "device_ms": total / 1e3,
+            "rect_match_ms": kern / 1e3, "rect_match_share": kern / total,
+            "window_ms": (hi - lo) / 1e3, "busy_ms": union / 1e3,
+            "idle_share": idle}
+
+
+def phase_profile(session, host, want) -> dict:
+    """One warm q_comment (kernel on) under torch.profiler: where its wall
+    goes on the card. The query's result is checked as any other; only
+    reading the trace may fail without failing the run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rows, wall = _run_query(session, host, q_comment)
+        torch.cuda.synchronize()
+    _check(rows[0]["n"] == want[0] and _rel(rows[0]["revenue"], want[1])
+           <= REL_TOL, f"q_comment under the profiler {rows} != numpy {want}")
+    try:
+        return _profile_report(prof, wall)
+    except Exception as e:  # the trace is read for information only
+        _log(f"profile: could not be read ({e!r}); the CUDA-event numbers "
+             "above stand")
+        return {"device_time": False, "error": repr(e)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--compare", metavar="NAME=DIR", action="append",
+                    default=[],
+                    help="also build DIR/rect_match.cu (another version of "
+                    "the kernel with the same launch signature, such as the "
+                    "parent commit's) and time it beside the port's; "
+                    "repeatable")
+    args = ap.parse_args(argv)
+    compare = [c.split("=", 1) for c in args.compare]
+    if any(len(c) != 2 for c in compare):
+        ap.error("--compare takes NAME=DIR")
     try:
         import torch
     except ImportError:
@@ -477,7 +917,7 @@ def main() -> int:
                                                      ColumnarBatch, HostTable)
         from spark_rapids_tpu_torch.exprs.rect_match import rect_match
         phase_device()
-        phase_build()
+        compare = phase_build(compare)
 
         t0 = time.perf_counter()
         table = gen_table(SF1_ROWS)
@@ -504,8 +944,18 @@ def main() -> int:
                and first.columns[0].width == 64,
                f"l_comment ingested as {first.columns[0]!r}, not a "
                "64-byte rectangle")
-        kernel = phase_kernels(first.columns[0])
+        # every l_comment batch of the query, as its scan makes them
+        comments = [(first.columns[0].data, first.columns[0].lengths)]
+        for i in range(1, n_batches):
+            c = ColumnarBatch.from_host(
+                host.select(["l_comment"]).slice(i * batch_rows, batch_rows),
+                "cuda", 64).columns[0]
+            comments.append((c.data, c.lengths))
         del first
+
+        max_err = phase_exact()
+        times = phase_kernel_times(comments, compare)
+        del comments
 
         conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows}
         session = TorchSession(conf)          # device defaults to cuda
@@ -547,14 +997,41 @@ def main() -> int:
              f"wall pallas.enabled=on {on_cold:.1f} ms cold, "
              f"{on_warm:.1f} ms warm; off {off_warm:.1f} ms warm; "
              f"rect_match launches {launches} over {n_batches} batches")
+        prof = phase_profile(on, host, (want_n, want_rev))
         _log(json.dumps({"queries": {
             "q6": {"rows": SF1_ROWS, "wall_ms_cold": ms_cold,
                    "wall_ms_warm": ms_warm},
             "q_comment": {"rows": SF1_ROWS, "batches": n_batches,
                           "wall_ms_on_cold": on_cold,
                           "wall_ms_on_warm": on_warm,
-                          "wall_ms_off_warm": off_warm}}}))
-        kernel["launches"] = launches
+                          "wall_ms_off_warm": off_warm,
+                          "profile_on_warm": prof}}}))
+        main_t = times["main"]
+        kernel = {
+            "name": "rect_match", "route": "cuda",
+            "source": "spark_rapids_tpu_torch/csrc/rect_match.cu",
+            "replaces": "spark_rapids_tpu/exprs/pallas_rect.py:57",
+            "launches": launches, "max_abs_err": max_err,
+            "exact": max_err == 0,
+            "ms": main_t["ms"], "kernel_ms": main_t["ms"],
+            "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
+            "bound_ms_64": main_t["bound_ms_64"],
+            "bound_by": main_t["bound_by"], "library_ms": None,
+            "compare_ms": main_t["compare_ms"],
+            "host_ms": main_t["host_ms"],
+            "timing": "device time per launch, launches queued back to "
+                      "back over distinct inputs (L2 cold)",
+            "shape": list(map(int, (batch_rows, 64))),
+            "per_mode": {m: {k: r[k] for k in ("ms", "compare_ms",
+                                                "plain_ms", "bound_ms")}
+                         for m, r in times["per_mode"].items()},
+            "per_width": {str(w): {k: r[k] for k in ("ms", "compare_ms",
+                                                      "plain_ms", "bound_ms")}
+                          for w, r in times["per_width"].items()},
+            "l2_slice": times["l2"],
+            "granularity": {k: (r["ms"] if "ms" in r else r)
+                            for k, r in times["granularity"].items()},
+        }
         _log(json.dumps({"kernels": [kernel]}))
     except Exception:
         traceback.print_exc()

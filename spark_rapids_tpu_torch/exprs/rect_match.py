@@ -3,10 +3,18 @@ kernel and its plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``spark_rapids_tpu/exprs/pallas_rect.py``
 (``_match_kernel``, reached through ``pallas_match``); the kernel is
-``csrc/rect_match.cu``, its per-row logic ``csrc/rect_match_row.cuh``.
-It reads each row as far as its scan goes (at most P*W bytes) and 4P
-bytes of lengths, and writes P (4P for locate), so it is bound by
-memory, not by its byte compares; see the CUDA source for its design.
+``csrc/rect_match.cu``, its per-row and per-chunk arithmetic
+``csrc/rect_match_row.cuh``. Its bound on the H100 is memory: each row
+only over its window (up to the length for contains and locate, the
+pattern's bytes at 0 or at len - L for the other modes), 4P bytes of
+lengths, P bytes out (4P for locate). A block copies a tile of rows into
+shared memory with coalesced 16-byte ``cp.async`` chunks that skip
+whatever no window needs, in a ring of stages, and scans each row there
+with SWAR arithmetic (the source's note gives the design). Measured with
+the L2 cold, as ``q_comment`` finds each batch, it runs at about 45% of
+that bound on ``l_comment``, 1.7x the first version's speed; it runs
+almost as fast cold as from L2, so the SM's instructions, not DRAM, hold
+it there (PERF.md).
 
 ``rect_match`` launches the kernel for a CUDA tensor and runs
 ``rect_match_reference`` for a CPU tensor. The reference is also the
@@ -96,6 +104,9 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 #: the widest pattern the kernel takes by value (csrc/rect_match.cu
 #: kMaxPattern); a wider one matters only in rows at least as wide
 MAX_PATTERN = 1024
+#: the widest row the kernel takes (csrc/rect_match_row.cuh
+#: kRectMaxWidth): three stages of one row fill a block's shared memory
+MAX_WIDTH = 65536
 
 
 def _launcher():
@@ -121,6 +132,9 @@ def rect_match(bytes_: torch.Tensor, lengths: torch.Tensor,
     if not (bytes_.is_contiguous() and lengths.is_contiguous()):
         raise ValueError("rect_match needs contiguous tensors")
     p, w = bytes_.shape
+    if w > MAX_WIDTH:
+        raise ValueError(f"rect_match takes rows of at most {MAX_WIDTH} "
+                         f"bytes, not {w}")
     if MAX_PATTERN < len(pattern) <= w:
         raise ValueError(f"rect_match takes patterns of at most "
                          f"{MAX_PATTERN} bytes, not {len(pattern)}")

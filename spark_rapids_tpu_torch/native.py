@@ -4,8 +4,9 @@ A kernel library ``<name>`` is the file ``csrc/<name>.cu`` with a plain
 ``extern "C"`` launcher, compiled by ``nvcc`` for ``sm_90a`` into
 ``build/`` at the repository root, at first use. The library's file name
 carries a hash of every source in ``csrc/`` and the flags, so an edit
-rebuilds it. Libraries load with ``ctypes``; nothing includes PyTorch's
-headers.
+rebuilds it; nvcc's report (ptxas's registers, stack frames and spills)
+is kept beside it as ``<library>.log``. Libraries load with ``ctypes``;
+nothing includes PyTorch's headers.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["library_path", "build", "load"]
+__all__ = ["library_path", "build", "build_log", "load"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -50,12 +51,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless it is built already. Returns
-    nvcc's output ("" when nothing was built)."""
+def build(name: str) -> None:
+    """Compile ``csrc/<name>.cu`` unless it is built already."""
     out = library_path(name)
     if out.exists():
-        return ""
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
@@ -64,8 +64,15 @@ def build(name: str) -> str:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stdout)
     os.replace(tmp, out)
-    return proc.stdout
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the built library ``name``, built first if
+    needed."""
+    build(name)
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:
