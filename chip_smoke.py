@@ -7,16 +7,22 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
   1. device  -- the card's name and power limit (nvidia-smi), CUDA version;
-  2. build   -- every CUDA kernel of the port, built from csrc/ with nvcc;
+  2. build   -- every CUDA kernel of the port (rect_match, dense_groupby),
+                built from csrc/ with one nvcc each, started together;
                 ptxas must report no stack frame and no spills for any
                 function. ``--compare NAME=DIR`` also builds
                 DIR/rect_match.cu (another version of the kernel, e.g. the
                 parent commit's) alongside, to be timed beside the port's;
   3. kernels -- each kernel's wrapper on the card against its plain torch
-                version, exact, in every mode and edge case; then timed with
-                the L2 cold (launches queued back to back over distinct
-                inputs, several times the L2) beside its bound from the data:
-                the main path's batches, every mode, every width;
+                version: rect_match exactly, in every mode and edge case;
+                dense_groupby with counts exact and float sums within a
+                stated tolerance, over G = 16 and 64, 1-8 value columns,
+                nulls, dead rows and q1's batch, two launches giving the
+                same bits. Then each timed with the L2 cold (launches
+                queued back to back over distinct inputs, several times the
+                L2) beside its bound from the data: rect_match over the
+                main path's batches, every mode, every width; dense_groupby
+                on q1's batch beside a loop of index_add_;
   4. q6      -- TPC-H Q6 at SF1 (6,001,215 lineitem rows, 1,048,576-row
                 batches) through TorchSession/DataFrame on cuda, against a
                 numpy reference computed here from the same arrays;
@@ -24,7 +30,11 @@ result line):
                 spark.rapids.tpu.sql.pallas.enabled on (the match kernel
                 must launch once per batch) and off (it must not launch),
                 then once more under torch.profiler: where the warm wall
-                goes on the card.
+                goes on the card;
+  6. q1      -- TPC-H Q1 at SF1 (the filter and projections fused into a
+                grouped aggregate over l_returnflag and l_linestatus, then
+                ORDER BY), cold and warm, against numpy: dense_groupby must
+                launch once per batch; then once more under torch.profiler.
 
 The data is generated here from a seed, with numpy only: this script
 imports neither JAX, pyarrow, pandas nor the JAX package. It prints a
@@ -57,7 +67,8 @@ REL_TOL = 1e-10
 
 
 # ---------------------------------------------------------------------------
-# data and queries: copies of benchmarks/tpch.py (gen_lineitem, q6) in numpy
+# data and queries: copies of benchmarks/tpch.py (gen_lineitem, q1, q6) in
+# numpy
 # ---------------------------------------------------------------------------
 
 def gen_lineitem(n_rows: int, seed: int = SEED) -> dict:
@@ -83,6 +94,27 @@ def gen_lineitem(n_rows: int, seed: int = SEED) -> dict:
             ["AIR", "MAIL", "RAIL", "SHIP", "TRUCK", "REG AIR", "FOB"],
             n_rows),
     }
+
+
+def q1(df, F):
+    """Pricing summary report (TPC-H Q1)."""
+    cutoff = np.datetime64("1998-12-01") - np.timedelta64(90, "D")
+    disc_price = F.col("l_extendedprice") * (F.lit(1.0) -
+                                             F.col("l_discount"))
+    charge = disc_price * (F.lit(1.0) + F.col("l_tax"))
+    return (df.filter(F.col("l_shipdate") <= F.lit(cutoff))
+            .with_column("disc_price", disc_price)
+            .with_column("charge", charge)
+            .group_by("l_returnflag", "l_linestatus")
+            .agg(F.sum(F.col("l_quantity")).with_name("sum_qty"),
+                 F.sum(F.col("l_extendedprice")).with_name("sum_base_price"),
+                 F.sum(F.col("disc_price")).with_name("sum_disc_price"),
+                 F.sum(F.col("charge")).with_name("sum_charge"),
+                 F.avg(F.col("l_quantity")).with_name("avg_qty"),
+                 F.avg(F.col("l_extendedprice")).with_name("avg_price"),
+                 F.avg(F.col("l_discount")).with_name("avg_disc"),
+                 F.count_star().with_name("count_order"))
+            .order_by("l_returnflag", "l_linestatus"))
 
 
 def q6(df, F):
@@ -257,6 +289,51 @@ def q6_numpy(t: dict) -> float:
     return float(np.sum(t["l_extendedprice"][keep] * t["l_discount"][keep]))
 
 
+def q1_numpy(t: dict) -> list:
+    """TPC-H Q1's rows (dicts in collect()'s form), sorted by the keys."""
+    keep = t["l_shipdate"] <= (np.datetime64("1998-12-01")
+                               - np.timedelta64(90, "D"))
+    flag, status = t["l_returnflag"][keep], t["l_linestatus"][keep]
+    qty, price = t["l_quantity"][keep], t["l_extendedprice"][keep]
+    disc, tax = t["l_discount"][keep], t["l_tax"][keep]
+    disc_price = price * (1.0 - disc)
+    charge = disc_price * (1.0 + tax)
+    rows = []
+    for f in np.unique(flag):
+        for s in np.unique(status):
+            g = (flag == f) & (status == s)
+            n = int(g.sum())
+            if not n:
+                continue
+            rows.append({
+                "l_returnflag": str(f), "l_linestatus": str(s),
+                "sum_qty": float(qty[g].sum()),
+                "sum_base_price": float(price[g].sum()),
+                "sum_disc_price": float(disc_price[g].sum()),
+                "sum_charge": float(charge[g].sum()),
+                "avg_qty": float(qty[g].sum()) / n,
+                "avg_price": float(price[g].sum()) / n,
+                "avg_disc": float(disc[g].sum()) / n,
+                "count_order": n})
+    return rows
+
+
+def q1_equal(got: list, want: list) -> bool:
+    """Keys, order and counts exactly; sums and averages to REL_TOL."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if g.keys() != w.keys():
+            return False
+        for k, v in w.items():
+            if isinstance(v, float):
+                if not _rel(g[k], v) <= REL_TOL:
+                    return False
+            elif g[k] != v:
+                return False
+    return True
+
+
 def q_comment_numpy(t: dict):
     hit = np.char.find(t["l_comment"], b"special") >= 0
     return int(hit.sum()), float(np.sum(t["l_extendedprice"][hit]))
@@ -411,26 +488,34 @@ def _finish_compare_build(name, proc, out):
     return other
 
 
+#: the port's kernel libraries (csrc/<name>.cu), built side by side
+KERNELS = ("rect_match", "dense_groupby")
+
+
 def phase_build(compare=()):
-    """Build the port's kernels (and the ones to compare, at the same
-    time); the ptxas report of every function of the port must show no
-    stack frame and no spills. Returns {name: launch function} of the
-    kernels to compare."""
+    """Build the port's kernels, one nvcc each, all started together (and
+    the ones to compare at the same time); the ptxas report of every
+    function of the port must show no stack frame and no spills. Returns
+    {name: launch function} of the kernels to compare."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from spark_rapids_tpu_torch import native
     t0 = time.perf_counter()
     started = [_start_compare_build(n, d) for n, d in compare]
-    log = native.build_log("rect_match")
-    _log(f"build: rect_match in {time.perf_counter() - t0:.2f} s")
-    for ln in log.splitlines():
-        if "registers" in ln or "spill" in ln or "smem" in ln:
-            _log(f"  ptxas rect_match: {ln.strip()}")
-    frames = _ptxas_frames(log)
-    _check(bool(frames), "nvcc printed no ptxas report for rect_match")
-    bad = [f for f in frames if f[1:] != (0, 0, 0)]
-    _check(not bad, f"rect_match functions with a stack frame or spills: "
-                    f"{bad}")
-    _log(f"  ptxas: {len(frames)} functions, every one with a 0-byte stack "
-         f"frame and 0 spill bytes")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        logs = dict(zip(KERNELS, pool.map(native.build_log, KERNELS)))
+    _log(f"build: {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s")
+    for name, log in logs.items():
+        for ln in log.splitlines():
+            if "registers" in ln or "spill" in ln or "smem" in ln:
+                _log(f"  ptxas {name}: {ln.strip()}")
+        frames = _ptxas_frames(log)
+        _check(bool(frames), f"nvcc printed no ptxas report for {name}")
+        bad = [f for f in frames if f[1:] != (0, 0, 0)]
+        _check(not bad, f"{name} functions with a stack frame or spills: "
+                        f"{bad}")
+        _log(f"  ptxas {name}: {len(frames)} functions, every one with a "
+             "0-byte stack frame and 0 spill bytes")
     fns = {s[0]: _finish_compare_build(*s) for s in started}
     if fns:
         _log(f"build: {', '.join(fns)} (to compare) done in "
@@ -775,7 +860,243 @@ def _sector_copy_ms() -> dict:
     return {"sector_ms": sector, "segment_ms": segment}
 
 
-def _profile_host_encode(fn, top: int = 6) -> None:
+#: the dense kernel's float sums against its plain version: |difference|
+#: at most DENSE_TOL times the group's sum of magnitudes. The two add the
+#: same values in different orders; each order's rounding error is at
+#: most about (rows a group) x 2^-53 of that scale.
+DENSE_TOL = 1e-12
+#: the H100 SXM's float64 rate outside the tensor cores (NVIDIA data
+#: sheet), for the dense kernel's additions
+FP64_OPS_PER_S = 34e12
+#: TPC-H Q1's ship-date cutoff
+Q1_CUTOFF = np.datetime64("1998-12-01") - np.timedelta64(90, "D")
+
+
+def _dense_case(rng, rows: int, cards, ncols: int, G: int, ints=False,
+                dead=False):
+    """dense_groupby's arguments on the card: per key, codes into a batch
+    dictionary of a random size below its card, a remap onto global codes
+    and ~10% nulls; a keep mask (all False when ``dead``); value columns
+    cycling float64, int64 and count-only (all int64 when ``ints``), ~15%
+    nulls."""
+    import torch
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa
+    keys, remaps = [], []
+    for c in cards:
+        local = rng.randint(1, c + 1)
+        remaps.append(t(rng.permutation(c)[:local].astype(np.int32)))
+        keys.append((t(rng.randint(0, local, rows).astype(np.int32)),
+                     t(rng.rand(rows) > 0.1)))
+    keep = t(np.zeros(rows, bool) if dead else rng.rand(rows) > 0.2)
+    values = []
+    for j in range(ncols):
+        valid = rng.rand(rows) > 0.15
+        kind = 1 if ints else j % 3
+        if kind == 0:
+            d = np.round(rng.uniform(-1e5, 1e5, rows), 2)
+        elif kind == 1:
+            d = rng.randint(-(1 << 40), 1 << 40, rows).astype(np.int64)
+        else:
+            d = None
+        if d is not None:
+            d[~valid] = 0
+        values.append((None if d is None else t(d), t(valid)))
+    return keys, remaps, list(cards), keep, values, G
+
+
+def _q1_batch(host, batch_rows: int):
+    """dense_groupby's arguments for q1's first batch, as the aggregate
+    gives them: l_returnflag and l_linestatus codes, the ship-date keep
+    mask, and the five distinct value columns of q1's aggregates
+    (quantity, price, disc_price, charge, discount; count(*) is the
+    occupancy)."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import ColumnarBatch
+    names = ["l_returnflag", "l_linestatus", "l_shipdate", "l_quantity",
+             "l_extendedprice", "l_discount", "l_tax"]
+    b = ColumnarBatch.from_host(host.select(names).slice(0, batch_rows),
+                                "cuda", 64)
+    rf, ls, sd, qty, price, disc, tax = b.columns
+    cutoff = int(Q1_CUTOFF.astype(np.int64))
+    keep = (sd.data <= cutoff) & sd.validity
+    disc_price = price.data * (1.0 - disc.data)
+    charge = disc_price * (1.0 + tax.data)
+    ok = price.validity & disc.validity & tax.validity
+    values = [(qty.data, qty.validity), (price.data, price.validity),
+              (disc_price, price.validity & disc.validity), (charge, ok),
+              (disc.data, disc.validity)]
+    cards = [len(rf.dictionary), len(ls.dictionary)]
+    remaps = [torch.arange(c, dtype=torch.int32, device="cuda")
+              for c in cards]
+    return ([(rf.data, rf.validity), (ls.data, ls.validity)], remaps, cards,
+            keep, values, 16)
+
+
+def _dense_check(args, label: str) -> float:
+    """dense_groupby against dense_groupby_reference on ``args``: counts
+    and occupancy exactly, int64 sums exactly, float64 sums within
+    DENSE_TOL of the group's scale; and a second launch gives the same
+    bits. Returns the largest absolute float difference."""
+    import torch
+    from spark_rapids_tpu_torch.exec.dense_groupby import (
+        dense_groupby, dense_groupby_reference)
+    keys, remaps, cards, keep, values, G = args
+    got = dense_groupby(*args)
+    again = dense_groupby(*args)
+    want = dense_groupby_reference(*args)
+    scale = dense_groupby_reference(
+        keys, remaps, cards, keep,
+        [(None if d is None else d.abs(), v) for d, v in values], G).sums
+    torch.cuda.synchronize()
+    _check(torch.equal(got.occupancy, want.occupancy)
+           and torch.equal(got.counts, want.counts),
+           f"dense_groupby {label}: counts differ from the plain version")
+    _check(torch.equal(got.occupancy, again.occupancy)
+           and torch.equal(got.counts, again.counts),
+           f"dense_groupby {label}: two launches counted differently")
+    err = 0.0
+    for a, b, c, sc in zip(got.sums, want.sums, again.sums, scale):
+        if a is None:
+            _check(b is None and c is None, f"{label}: a count-only sum")
+            continue
+        _check(torch.equal(a.view(torch.int64), c.view(torch.int64)),
+               f"dense_groupby {label}: two launches gave different bits")
+        if a.dtype == torch.int64:
+            _check(torch.equal(a, b), f"dense_groupby {label}: int sums")
+            continue
+        diff = (a - b).abs()
+        err = max(err, float(diff.max()))
+        _check(bool((diff <= DENSE_TOL * sc).all()),
+               f"dense_groupby {label}: float sums off by {diff.max()}")
+    return err
+
+
+def phase_dense_exact(q1_args) -> float:
+    """dense_groupby against its plain version on the card: G = 16 and 64,
+    K = 1..8 value columns (float64/int64/count-only, and all int64),
+    null keys and values, row counts that are not a multiple of a block's
+    2,048 rows, all rows dead, no rows, and q1's first batch; two launches
+    must give the same bits. Returns the largest absolute float
+    difference."""
+    rng = np.random.RandomState(17)
+    cases = []
+    for G, cards in ((16, (3, 2)), (64, (4, 3, 2))):
+        for K in range(1, 9):
+            for ints in (False, True):
+                rows = 262_144 + 7919 * K + (3 if ints else 0)
+                cases.append((f"G={G} K={K} ints={ints} rows={rows}",
+                              _dense_case(rng, rows, cards, K, G, ints)))
+    cases.append(("G=64 one key card 63",
+                  _dense_case(rng, 100_003, (63,), 4, 64)))
+    cases.append(("G=16 four keys", _dense_case(rng, 50_001, (1, 1, 1, 1),
+                                                 3, 16)))
+    cases.append(("all rows dead", _dense_case(rng, 70_001, (3, 2), 3, 16,
+                                               dead=True)))
+    cases.append(("no rows", _dense_case(rng, 0, (3, 2), 3, 16)))
+    cases.append(("q1 batch", q1_args))
+    err = max(_dense_check(a, label) for label, a in cases)
+    _log(f"kernel dense_groupby: {len(cases)} cases equal to the plain "
+         f"version (counts exact, int sums exact, float sums within "
+         f"{DENSE_TOL:g} of the group's magnitude sum, largest float "
+         f"difference {err:.3e}); two launches identical in every case: "
+         + "; ".join(label for label, _ in cases))
+    return err
+
+
+def dense_bound(args) -> dict:
+    """The least work one dense_groupby call needs on these inputs: each
+    key's codes (4 B) and validity (1 B), the keep mask (1 B), each value
+    column's 8 B and validity byte a row, its remaps, and the outputs
+    written once; the additions done (a count for every live row and
+    every valid live value, a sum for each valid live value). ``ms`` is
+    the larger of the bytes at the HBM rate and the additions at the
+    float64 rate."""
+    keys, remaps, cards, keep, values, G = args
+    p = int(keep.shape[0])
+    nbytes = p * (5 * len(keys) + 1) + sum(4 * len(r) for r in remaps)
+    ops = int(keep.sum())
+    for d, v in values:
+        nbytes += p * (1 + (8 if d is not None else 0))
+        n = int((v & keep).sum())
+        ops += n * (2 if d is not None else 1)
+    nbytes += len(values) * G * 16 + G * 8
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP64_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "ms": max(bytes_ms, ops_ms),
+            "by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _clone_args(args):
+    keys, remaps, cards, keep, values, G = args
+    return ([(c.clone(), v.clone()) for c, v in keys],
+            [r.clone() for r in remaps], cards, keep.clone(),
+            [(None if d is None else d.clone(), v.clone())
+             for d, v in values], G)
+
+
+def _index_add_loop(gid, masked, valid64, occ_ones, G: int):
+    """The library route: one index_add_ a sum and a count per column,
+    and one for occupancy, into G + 1 slots (dead rows in the last)."""
+    import torch
+    out = []
+    for m, v in zip(masked, valid64):
+        if m is not None:
+            out.append(torch.zeros(G + 1, dtype=m.dtype,
+                                   device=m.device).index_add_(0, gid, m))
+        out.append(torch.zeros(G + 1, dtype=torch.int64,
+                               device=v.device).index_add_(0, gid, v))
+    out.append(torch.zeros(G + 1, dtype=torch.int64,
+                           device=gid.device).index_add_(0, gid, occ_ones))
+    return out
+
+
+def phase_dense_times(args) -> dict:
+    """dense_groupby on q1's batch, timed with the L2 cold (distinct
+    copies of the inputs, COLD_BYTES in all), beside its bound, its plain
+    version, and a loop of index_add_ over the same columns (atomic, so
+    its float sums vary from run to run: it is a yardstick only; its
+    group ids and masked columns are made outside the timed window)."""
+    import torch
+    from spark_rapids_tpu_torch.exec.dense_groupby import (
+        dense_groupby, dense_groupby_reference)
+    b = dense_bound(args)
+    n = max(2, -(-COLD_BYTES // b["bytes"]))
+    inputs = [args] + [_clone_args(args) for _ in range(n - 1)]
+    row = {"bound_ms": b["ms"], "bound_by": b["by"],
+           "bound_bytes": b["bytes"], "bound_ops": b["ops"]}
+    row["ms"], row["host_ms"] = _cold_ms(dense_groupby, inputs,
+                                         "dense_groupby")
+    row["plain_ms"], _ = _cold_ms(dense_groupby_reference, inputs,
+                                  "dense_groupby plain", rounds=1, reps=1)
+    lib_inputs = []
+    for keys, remaps, cards, keep, values, G in inputs:
+        gid = torch.zeros(keep.shape[0], dtype=torch.int64, device="cuda")
+        stride = 1
+        for (codes, valid), remap, card in reversed(list(zip(keys, remaps,
+                                                             cards))):
+            g = torch.where(valid, remap[codes.long()].long(), card)
+            gid += g * stride
+            stride *= card + 1
+        gid = torch.where(keep, gid, G)
+        masked = [None if d is None else torch.where(v, d, 0)
+                  for d, v in values]
+        lib_inputs.append((gid, masked, [v.long() for _, v in values],
+                           keep.long(), G))
+    row["library_ms"], _ = _cold_ms(_index_add_loop, lib_inputs,
+                                    "index_add_ loop")
+    keys, _, cards, keep, values, G = args
+    _log(f"kernel dense_groupby on q1's batch ({keep.shape[0]} rows, "
+         f"{len(keys)} keys of cards {cards}, {len(values)} float64 "
+         f"columns, G = {G}), cold: kernel {row['ms']:.4f} ms, plain "
+         f"{row['plain_ms']:.4f}, index_add_ loop {row['library_ms']:.4f}, "
+         f"bound {row['bound_ms']:.4f} ({row['bound_bytes']} B, "
+         f"{row['bound_ops']} additions; by {row['bound_by']}), "
+         f"{row['bound_ms'] / row['ms']:.0%} of bound; host "
+         f"{row['host_ms']:.4f} ms a call; {n} input copies")
+    return row
+
+
+def _profile_host_encode(fn, label: str, top: int = 6) -> None:
     """Where the host encode of a batch goes: the calls with the most
     self time (the work is in a few numpy calls, so the profiler's
     per-call cost does not distort it)."""
@@ -787,7 +1108,7 @@ def _profile_host_encode(fn, top: int = 6) -> None:
     prof.disable()
     stats = pstats.Stats(prof).stats
     rows = sorted(((v[2], v[0], k) for k, v in stats.items()), reverse=True)
-    _log("host encode, self ms by call: " + "; ".join(
+    _log(f"host encode of {label}, self ms by call: " + "; ".join(
         f"{k[2]} ({k[0].rsplit('/', 1)[-1]}:{k[1]}) {t * 1e3:.1f} ms x{n}"
         for t, n, k in rows[:top]))
 
@@ -823,11 +1144,12 @@ def _idle_share(spans, busy):
     return lo, hi, union, 1 - union / (hi - lo) if hi > lo else float("nan")
 
 
-def _profile_report(prof, wall_ms: float) -> dict:
-    """The top device operations of a profiled run, the match kernel's
-    share of device time, and the device's idle share of the profiled
-    window (the union of its operations' intervals against the span of
-    every event)."""
+def _profile_report(prof, wall_ms: float, label: str, kernel: str) -> dict:
+    """The top device operations of a profiled run, the hand-written
+    kernel's share of device time (operations whose name holds
+    ``kernel``), and the device's idle share of the profiled window (the
+    union of its operations' intervals against the span of every
+    event)."""
     from torch.autograd import DeviceType
     avg = prof.key_averages()
     dev = sorted(((_device_time_us(e), e.key, e.count) for e in avg
@@ -837,8 +1159,8 @@ def _profile_report(prof, wall_ms: float) -> dict:
              "numbers above stand")
         return {"device_time": False}
     total = sum(t for t, _, _ in dev)
-    kern = sum(t for t, k, _ in dev if "rect_match" in k)
-    _log(f"profile of one warm q_comment (kernel on, wall {wall_ms:.1f} ms): "
+    kern = sum(t for t, k, _ in dev if kernel in k)
+    _log(f"profile of one warm {label} (wall {wall_ms:.1f} ms): "
          f"{len(dev)} device operations, {total / 1e3:.4f} ms of device "
          "time; top by time: " + "; ".join(
              f"{k[:70]} {t / 1e3:.4f} ms x{n} ({t / total:.0%})"
@@ -854,31 +1176,31 @@ def _profile_report(prof, wall_ms: float) -> dict:
     lo, hi, union, idle = _idle_share(spans, busy)
     cpu = sorted(((e.self_cpu_time_total, e.key, e.count) for e in avg),
                  reverse=True)
-    _log(f"profile: rect_match {kern / 1e3:.4f} ms, {kern / total:.1%} of "
+    _log(f"profile: {kernel} {kern / 1e3:.4f} ms, {kern / total:.1%} of "
          f"device time; device busy {union / 1e3:.4f} ms of a "
          f"{(hi - lo) / 1e3:.4f} ms window, idle {idle:.1%}; top host self "
          "time: " + "; ".join(f"{k[:50]} {t / 1e3:.3f} ms x{n}"
                               for t, k, n in cpu[:6]))
     return {"device_time": True, "device_ms": total / 1e3,
-            "rect_match_ms": kern / 1e3, "rect_match_share": kern / total,
+            "kernel_ms": kern / 1e3, "kernel_share": kern / total,
             "window_ms": (hi - lo) / 1e3, "busy_ms": union / 1e3,
             "idle_share": idle}
 
 
-def phase_profile(session, host, want) -> dict:
-    """One warm q_comment (kernel on) under torch.profiler: where its wall
-    goes on the card. The query's result is checked as any other; only
-    reading the trace may fail without failing the run."""
+def phase_profile(session, host, query, right, label: str,
+                  kernel: str) -> dict:
+    """One warm run of ``query`` under torch.profiler: where its wall goes
+    on the card. The result must satisfy ``right`` as any other run's;
+    only reading the trace may fail without failing the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        rows, wall = _run_query(session, host, q_comment)
+        rows, wall = _run_query(session, host, query)
         torch.cuda.synchronize()
-    _check(rows[0]["n"] == want[0] and _rel(rows[0]["revenue"], want[1])
-           <= REL_TOL, f"q_comment under the profiler {rows} != numpy {want}")
+    _check(right(rows), f"{label} under the profiler: wrong result {rows}")
     try:
-        return _profile_report(prof, wall)
+        return _profile_report(prof, wall, label, kernel)
     except Exception as e:  # the trace is read for information only
         _log(f"profile: could not be read ({e!r}); the CUDA-event numbers "
              "above stand")
@@ -915,6 +1237,7 @@ def main(argv=None) -> int:
         from spark_rapids_tpu_torch.api import TorchSession
         from spark_rapids_tpu_torch.columnar import (ByteRectColumn,
                                                      ColumnarBatch, HostTable)
+        from spark_rapids_tpu_torch.exec.dense_groupby import dense_groupby
         from spark_rapids_tpu_torch.exprs.rect_match import rect_match
         phase_device()
         compare = phase_build(compare)
@@ -939,7 +1262,8 @@ def main(argv=None) -> int:
         _log(f"ingest of one {batch_rows}-row l_comment batch: host encode "
              f"{ingest_ms[0]:.1f} ms; encode + copy to cuda "
              f"{ingest_ms[1]:.1f} ms first, {ingest_ms[2]:.1f} ms again")
-        _profile_host_encode(lambda: ColumnarBatch.from_host(src, "cpu", 64))
+        _profile_host_encode(lambda: ColumnarBatch.from_host(src, "cpu", 64),
+                             "one l_comment batch")
         _check(isinstance(first.columns[0], ByteRectColumn)
                and first.columns[0].width == 64,
                f"l_comment ingested as {first.columns[0]!r}, not a "
@@ -956,6 +1280,10 @@ def main(argv=None) -> int:
         max_err = phase_exact()
         times = phase_kernel_times(comments, compare)
         del comments
+        q1_args = _q1_batch(host, batch_rows)
+        dense_err = phase_dense_exact(q1_args)
+        dense_t = phase_dense_times(q1_args)
+        del q1_args
 
         conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows}
         session = TorchSession(conf)          # device defaults to cuda
@@ -997,7 +1325,39 @@ def main(argv=None) -> int:
              f"wall pallas.enabled=on {on_cold:.1f} ms cold, "
              f"{on_warm:.1f} ms warm; off {off_warm:.1f} ms warm; "
              f"rect_match launches {launches} over {n_batches} batches")
-        prof = phase_profile(on, host, (want_n, want_rev))
+        prof = phase_profile(
+            on, host, q_comment,
+            lambda r: r[0]["n"] == want_n
+            and _rel(r[0]["revenue"], want_rev) <= REL_TOL,
+            "q_comment (kernel on)", "rect_match")
+
+        want1 = q1_numpy(table)
+        dense_groupby.launches = 0
+        rect_match.launches = 0
+        rows, q1_cold = _run_query(session, host, q1)
+        q1_launches = dense_groupby.launches
+        _check(q1_launches == n_batches and rect_match.launches == 0,
+               f"q1 launched dense_groupby {q1_launches} times, expected "
+               f"{n_batches} (one per batch)")
+        dense_groupby.launches = 0
+        rows_warm, q1_warm = _run_query(session, host, q1)
+        _check(dense_groupby.launches == n_batches,
+               f"warm q1 launched dense_groupby {dense_groupby.launches} "
+               "times")
+        for r in (rows, rows_warm):
+            _check(q1_equal(r, want1), f"q1 {r} != numpy {want1}")
+        _log(f"q1 SF1: {len(rows)} groups equal to numpy (keys, order and "
+             f"counts exact, sums and averages within {REL_TOL:g}): "
+             f"{rows}; wall {q1_cold:.1f} ms cold, {q1_warm:.1f} ms warm; "
+             f"dense_groupby launches {q1_launches} over {n_batches} "
+             "batches")
+        keys = host.select(["l_returnflag", "l_linestatus"])
+        _profile_host_encode(
+            lambda: ColumnarBatch.from_host(keys.slice(0, batch_rows), "cpu",
+                                            64), "q1's key columns (one batch)")
+        prof1 = phase_profile(session, host, q1,
+                              lambda r: q1_equal(r, want1), "q1",
+                              "dense_groupby")
         _log(json.dumps({"queries": {
             "q6": {"rows": SF1_ROWS, "wall_ms_cold": ms_cold,
                    "wall_ms_warm": ms_warm},
@@ -1005,7 +1365,10 @@ def main(argv=None) -> int:
                           "wall_ms_on_cold": on_cold,
                           "wall_ms_on_warm": on_warm,
                           "wall_ms_off_warm": off_warm,
-                          "profile_on_warm": prof}}}))
+                          "profile_on_warm": prof},
+            "q1": {"rows": SF1_ROWS, "batches": n_batches, "groups":
+                   len(rows), "wall_ms_cold": q1_cold,
+                   "wall_ms_warm": q1_warm, "profile_warm": prof1}}}))
         main_t = times["main"]
         kernel = {
             "name": "rect_match", "route": "cuda",
@@ -1032,7 +1395,25 @@ def main(argv=None) -> int:
             "granularity": {k: (r["ms"] if "ms" in r else r)
                             for k, r in times["granularity"].items()},
         }
-        _log(json.dumps({"kernels": [kernel]}))
+        dense = {
+            "name": "dense_groupby", "route": "cuda",
+            "source": "spark_rapids_tpu_torch/csrc/dense_groupby.cu",
+            "replaces": "spark_rapids_tpu/exec/aggregate.py:797",
+            "launches": q1_launches, "max_abs_err": dense_err,
+            "tolerance": f"float sums within {DENSE_TOL:g} of the group's "
+                         "sum of magnitudes; counts and int sums exact; "
+                         "two launches bit-identical",
+            "ms": dense_t["ms"], "plain_ms": dense_t["plain_ms"],
+            "bound_ms": dense_t["bound_ms"], "bound_by": dense_t["bound_by"],
+            "library_ms": dense_t["library_ms"],
+            "library": "index_add_ loop (atomic, non-deterministic)",
+            "host_ms": dense_t["host_ms"],
+            "bound_bytes": dense_t["bound_bytes"],
+            "timing": "device time per launch, launches queued back to "
+                      "back over distinct inputs (L2 cold)",
+            "shape": [batch_rows, 2, 5, 16],
+        }
+        _log(json.dumps({"kernels": [kernel, dense]}))
     except Exception:
         traceback.print_exc()
         return 1

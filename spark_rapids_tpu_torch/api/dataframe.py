@@ -23,7 +23,7 @@ from ..exprs.base import Alias, ColumnRef, Expression
 from ..plan import logical as L
 from ..plan.overrides import plan_query
 from ..types import DATE, TIMESTAMP, Schema
-from .functions import _to_expr
+from .functions import Col, _to_expr
 
 __all__ = ["TorchSession", "DataFrame", "GroupedData"]
 
@@ -133,6 +133,23 @@ class DataFrame:
 
     def agg(self, *aggs) -> "DataFrame":
         return GroupedData(self, []).agg(*aggs)
+
+    def order_by(self, *orders) -> "DataFrame":
+        """Global sort: each order a SortOrder (``Col.asc``/``desc``), a
+        column name or a Col (ascending, nulls first)."""
+        os = []
+        for o in orders:
+            if isinstance(o, L.SortOrder):
+                os.append(o)
+            elif isinstance(o, str):
+                os.append(L.SortOrder(ColumnRef(o), True))
+            elif isinstance(o, Col):
+                os.append(L.SortOrder(o.expr, True))
+            else:
+                os.append(L.SortOrder(_to_expr(o), True))
+        return DataFrame(self.session, L.Sort(os, self.plan))
+
+    orderBy = sort = order_by
 
     def schema(self) -> Schema:
         return self.plan.schema()

@@ -1,16 +1,19 @@
 """Column DSL and functions (port of ``spark_rapids_tpu/api/functions.py``,
-the names TPC-H q6 and the comment scan use, with the same signatures).
+the names TPC-H q1, q6 and the comment scan use, with the same
+signatures).
 
     from spark_rapids_tpu_torch.api import functions as F
     df.filter(F.col("a") < F.lit(24.0)).agg(F.sum(F.col("b")))
 """
 from __future__ import annotations
 
-from .. import exprs as E
-from ..exprs.aggregates import Average, CountStar, Sum
+from typing import Optional
 
-__all__ = ["Col", "col", "lit", "sum", "count_star", "avg", "startswith",
-           "endswith", "locate", "instr"]
+from .. import exprs as E
+from ..exprs.aggregates import Average, Count, CountStar, Sum
+
+__all__ = ["Col", "col", "lit", "asc", "desc", "sum", "count",
+           "count_star", "avg", "startswith", "endswith", "locate", "instr"]
 
 
 def _to_expr(v) -> E.Expression:
@@ -51,6 +54,14 @@ class Col:
 
     def alias(self, name: str): return Col(E.Alias(self.expr, name))
 
+    def asc(self, nulls_first: Optional[bool] = None):
+        from ..plan.logical import SortOrder
+        return SortOrder(self.expr, True, nulls_first)
+
+    def desc(self, nulls_first: Optional[bool] = None):
+        from ..plan.logical import SortOrder
+        return SortOrder(self.expr, False, nulls_first)
+
     def __hash__(self):
         return id(self)
 
@@ -66,6 +77,14 @@ def lit(v) -> Col:
     return Col(E.Literal(v))
 
 
+def asc(name: str):
+    return col(name).asc()
+
+
+def desc(name: str):
+    return col(name).desc()
+
+
 def startswith(c, s) -> Col: return Col(E.StartsWith(_to_expr(c), s))
 def endswith(c, s) -> Col: return Col(E.EndsWith(_to_expr(c), s))
 def locate(substr, c) -> Col: return Col(E.StringLocate(substr, _to_expr(c)))
@@ -74,5 +93,6 @@ def instr(c, substr: str) -> Col:
 
 
 def sum(c): return Sum(_to_expr(c))
+def count(c): return Count(_to_expr(c))
 def count_star(): return CountStar()
 def avg(c): return Average(_to_expr(c))

@@ -20,7 +20,8 @@ from .column import DeviceColumn, DictColumn, HostColumn
 from .strrect import ByteRectColumn, encode_string_rect, utf8_bytes
 
 __all__ = ["ColumnarBatch", "HostTable", "batch_from_reference",
-           "DICT_ENCODE_MAX_FRACTION", "DICT_ENCODE_MAX_CARD"]
+           "concat_batches", "DICT_ENCODE_MAX_FRACTION",
+           "DICT_ENCODE_MAX_CARD"]
 
 #: dictionary-encode a string column when its cardinality is at most
 #: min(rows * fraction + 1, card); above that the byte rectangle takes
@@ -251,3 +252,80 @@ def batch_from_reference(columns: Sequence[dict], schema: Schema, device,
     if num_rows is None:
         num_rows = len(np.asarray(columns[0]["validity"])) if columns else 0
     return ColumnarBatch(cols, num_rows, schema)
+
+
+def _concat_dict(parts: List[DictColumn], rows: List[int]) -> DictColumn:
+    """Dictionary columns over one dictionary: the sorted union of theirs,
+    each part's codes remapped into it."""
+    first = parts[0].dictionary
+    if all(p.dictionary is first for p in parts):
+        union, remaps = first, [None] * len(parts)
+    else:
+        union = np.unique(np.concatenate([p.dictionary for p in parts]))
+        remaps = [np.searchsorted(union, p.dictionary).astype(np.int32)
+                  for p in parts]
+    codes = []
+    for p, n, remap in zip(parts, rows, remaps):
+        c = p.data[:n]
+        if remap is not None:
+            if len(remap):
+                table = torch.from_numpy(remap).to(c.device)
+                c = table[c.clamp(0, len(remap) - 1).long()]
+            else:
+                c = torch.zeros_like(c)
+        codes.append(c)
+    return DictColumn(torch.cat(codes),
+                      torch.cat([p.validity[:n] for p, n in zip(parts, rows)]),
+                      parts[0].dtype, union)
+
+
+def _concat_rect(parts: List[ByteRectColumn],
+                 rows: List[int]) -> ByteRectColumn:
+    """Byte rectangles, narrower ones padded with zeros to the widest."""
+    w = max(p.width for p in parts)
+    data = [torch.nn.functional.pad(p.data[:n], (0, w - p.width))
+            for p, n in zip(parts, rows)]
+    return ByteRectColumn(
+        torch.cat(data), torch.cat([p.validity[:n] for p, n in zip(parts,
+                                                                   rows)]),
+        torch.cat([p.lengths[:n] for p, n in zip(parts, rows)]),
+        ascii_only=all(p.ascii_only for p in parts))
+
+
+def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
+    """The rows of ``batches`` (one schema) in order, padding dropped, in
+    one batch (port of the reference's ``concat_batches``): device columns
+    concatenate on the device; dictionary columns over the sorted union of
+    their dictionaries; byte rectangles at the widest width."""
+    if not batches:
+        raise ValueError("concat_batches needs at least one batch")
+    if len(batches) == 1:
+        return batches[0]
+    schema = batches[0].schema
+    rows = [b.num_rows for b in batches]
+    cols: List = []
+    for i, f in enumerate(schema.fields):
+        parts = [b.columns[i] for b in batches]
+        kinds = {type(p) for p in parts}
+        if kinds == {DictColumn}:
+            cols.append(_concat_dict(parts, rows))
+        elif kinds == {ByteRectColumn}:
+            cols.append(_concat_rect(parts, rows))
+        elif kinds == {DeviceColumn}:
+            cols.append(DeviceColumn(
+                torch.cat([p.data[:n] for p, n in zip(parts, rows)]),
+                torch.cat([p.validity[:n] for p, n in zip(parts, rows)]),
+                f.dtype))
+        elif kinds == {HostColumn}:
+            cols.append(HostColumn(
+                np.concatenate([p.values[:n] for p, n in zip(parts, rows)]),
+                np.concatenate([p.validity[:n] for p, n in zip(parts,
+                                                               rows)]),
+                f.dtype))
+        else:
+            raise NotImplementedError(
+                f"column {f.name} arrives in different layouts "
+                f"({sorted(k.__name__ for k in kinds)}); concatenating a "
+                "dictionary with a byte rectangle or host strings arrives "
+                "with the strings slice")
+    return ColumnarBatch(cols, sum(rows), schema)

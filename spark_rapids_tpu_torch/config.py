@@ -12,7 +12,7 @@ import threading
 from typing import Any, Callable, Dict, Optional
 
 __all__ = ["ConfEntry", "TpuConf", "register",
-           "SQL_ENABLED", "BATCH_SIZE_ROWS"]
+           "SQL_ENABLED", "BATCH_SIZE_ROWS", "BATCH_SIZE_BYTES"]
 
 _LOCK = threading.Lock()
 _REGISTRY: Dict[str, "ConfEntry"] = {}
@@ -65,6 +65,12 @@ SQL_ENABLED = register(
 BATCH_SIZE_ROWS = register(
     "spark.rapids.tpu.sql.batchSizeRows", 1 << 20,
     "Maximum rows per columnar batch an in-memory scan produces.")
+
+BATCH_SIZE_BYTES = register(
+    "spark.rapids.tpu.sql.batchSizeBytes", 512 * 1024 * 1024,
+    "Largest input, in device bytes, that the global sort takes in memory "
+    "(the reference's batch-size goal); the out-of-core sort is not "
+    "ported yet.")
 
 
 class TpuConf:

@@ -1,27 +1,57 @@
-"""Hash-aggregate exec, keyless path (port of
-``spark_rapids_tpu/exec/aggregate.py``).
+"""Hash-aggregate exec (port of ``spark_rapids_tpu/exec/aggregate.py``).
 
 Per batch the fused pre-stages (filters and projections folded in by the
 planner, as the reference's ``_fold_stages`` does) run over the batch
 with a running keep-mask, then every aggregate's update reduces the kept
-rows to one partial. The partials of all batches merge in one more
-reduction, and finalize yields the one-row result.
+rows to partials; the partials of all batches merge in one more
+reduction, and finalize yields the result.
+
+Keyless, the update is one masked reduction per aggregate
+(``global_groupby``). Keyed, a batch takes one of two paths, as in the
+reference:
+
+  * dense: every key is a dictionary string column and the product of
+    (cardinality + 1) over the keys fits ``DIRECT_MAX_GROUPS``. The keys'
+    codes go through the exec-local dictionary (batch code -> global
+    code) and one ``dense_groupby`` kernel launch reduces all of the
+    batch's aggregates (exec/dense_groupby.py). Its partials are one row
+    per group slot, with a live mask for the occupied ones;
+  * sort: anything else (numeric keys, larger products):
+    ``segmented_groupby`` (exec/groupby_core.py), string keys as their
+    global codes.
+
+Both give global codes, so batches on either path merge together: one
+concatenation (``concat_batches``) and one ``segmented_groupby`` merge
+(keyless or keyed).
+Finalize turns the codes back into a dictionary column whose dictionary
+is sorted, so that ORDER BY over a string key orders as the strings do.
 """
 from __future__ import annotations
 
-from typing import Iterator, List, Optional, Sequence
+import math
+from typing import Dict, Iterator, List, Optional, Sequence
 
+import numpy as np
 import torch
 
-from ..columnar import ColumnarBatch, DeviceColumn
+from ..columnar import ColumnarBatch, DeviceColumn, DictColumn
+from ..columnar.batch import concat_batches
+from ..columnar.segmented import bucket_segments
 from ..exprs.aggregates import AggregateExpression
-from ..exprs.base import DVal, EvalContext
+from ..exprs.base import Alias, ColumnRef, DVal, EvalContext
 from ..exprs.compiler import batch_device, batch_dvals
-from ..types import Schema, StructField, torch_dtype
+from ..types import BOOL, INT32, STRING, Schema, StructField, torch_dtype
 from .base import ExecContext, TpuExec
-from .groupby_core import global_groupby
+from .dense_groupby import BUCKETS, dense_groupby, group_slots
+from .groupby_core import segmented_groupby
 
-__all__ = ["TpuHashAggregateExec"]
+__all__ = ["TpuHashAggregateExec", "DIRECT_MAX_GROUPS"]
+
+#: the largest product of (cardinality + 1) over the keys that the dense
+#: kernel takes; a larger one takes the sort path
+DIRECT_MAX_GROUPS = BUCKETS[-1]
+#: the partial batch's last column: which rows are groups
+_LIVE = "__live"
 
 
 def _apply_pre_stages(stages, in_schema: Schema, base_dvals, num_rows: int,
@@ -43,80 +73,254 @@ def _apply_pre_stages(stages, in_schema: Schema, base_dvals, num_rows: int,
     return ctx, keep
 
 
-class TpuHashAggregateExec(TpuExec):
-    """Keyless device aggregate with fused pre-stages."""
+def _column_ref(e) -> Optional[str]:
+    """The column name an expression passes through, else None."""
+    if isinstance(e, Alias):
+        e = e.children[0]
+    return e.name if isinstance(e, ColumnRef) else None
 
-    def __init__(self, groupings: Sequence, aggs:
-                 Sequence[AggregateExpression], child: TpuExec,
+
+class TpuHashAggregateExec(TpuExec):
+    """Device aggregate with fused pre-stages, keyless or keyed."""
+
+    def __init__(self, groupings: Sequence,
+                 aggs: Sequence[AggregateExpression], child: TpuExec,
                  pre_stages: Optional[list] = None,
                  eval_schema: Optional[Schema] = None):
         super().__init__([child])
-        if groupings:
-            raise NotImplementedError(
-                "keyed aggregation arrives with the q1 slice")
-        self.groupings: list = []
+        self.groupings = list(groupings)
         self.aggs = list(aggs)
         self.pre_stages = pre_stages or []
         self._eval_schema = eval_schema if eval_schema is not None \
             else child.output_schema()
         cs = self._eval_schema
-        self._schema = Schema([StructField(a.name_hint, a.data_type(cs), True)
-                               for a in self.aggs])
+        #: grouping ordinals that go through the string dictionary
+        self._dict_keys = [i for i, g in enumerate(self.groupings)
+                           if g.data_type(cs) == STRING]
+        fields = [StructField(g.name_hint, g.data_type(cs), True)
+                  for g in self.groupings]
+        fields += [StructField(a.name_hint, a.data_type(cs), True)
+                   for a in self.aggs]
+        self._schema = Schema(fields)
         self._partial_types = [a.partial_types(cs) for a in self.aggs]
+        # partials: keys (string keys as int32 global codes), each
+        # aggregate's partial columns, the live mask
+        key_types = [INT32 if i in self._dict_keys else g.data_type(cs)
+                     for i, g in enumerate(self.groupings)]
+        pfields = [StructField(f"_k{i}", t, True)
+                   for i, t in enumerate(key_types)]
+        pfields += [StructField(f"_a{ai}_{pi}", t, True)
+                    for ai, types in enumerate(self._partial_types)
+                    for pi, t in enumerate(types)]
+        self._partial_schema = Schema(pfields
+                                      + [StructField(_LIVE, BOOL, True)])
+        #: string -> global code, per dictionary key (one execution's)
+        self._dicts: List[Dict[str, int]] = []
+        self._slot_cache: Dict[tuple, list] = {}
 
     def output_schema(self) -> Schema:
         return self._schema
 
-    def _update(self, batch: ColumnarBatch):
-        device = batch_device(batch)
-        base = batch_dvals(batch)
-        in_schema = self.children[0].output_schema()
-        ctx, keep = _apply_pre_stages(self.pre_stages, in_schema, base,
-                                      batch.num_rows, batch.padded_len,
-                                      device)
-        vals = [[e.eval_device(ctx) for e in a.input_exprs()]
-                for a in self.aggs]
-        return global_groupby(vals, self.aggs, "update", keep)
+    def _pre_stages(self, batch: ColumnarBatch):
+        return _apply_pre_stages(self.pre_stages,
+                                 self.children[0].output_schema(),
+                                 batch_dvals(batch), batch.num_rows,
+                                 batch.padded_len, batch_device(batch))
 
-    def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
-        partials: List[list] = [self._update(b)
-                                for b in self.children[0].execute(ctx)]
-        # merge: partial column k of every batch side by side
-        cols = []
-        k = 0
-        for types in self._partial_types:
-            for pt in types:
-                if partials:
-                    d = torch.cat([p[k][0] for p in partials])
-                    v = torch.cat([p[k][1] for p in partials])
-                else:
-                    d = torch.zeros(0, dtype=torch_dtype(pt),
-                                    device=ctx.device)
-                    v = torch.zeros(0, dtype=torch.bool, device=ctx.device)
-                cols.append(DVal(d, v, pt))
-                k += 1
-        live = torch.ones(len(partials), dtype=torch.bool, device=ctx.device)
-        vals, pos = [], 0
-        for types in self._partial_types:
-            vals.append(cols[pos:pos + len(types)])
-            pos += len(types)
-        merged = global_groupby(vals, self.aggs, "merge", live)
-        out_cols, pos = [], 0
+    def _finalize_aggs(self, merged) -> List[DeviceColumn]:
+        out, pos = [], 0
+        nkeys = len(self.groupings)
         for a, types, f in zip(self.aggs, self._partial_types,
-                               self._schema.fields):
+                               self._schema.fields[nkeys:]):
             parts = [DVal(d, v, t) for (d, v), t
                      in zip(merged[pos:pos + len(types)], types)]
             pos += len(types)
             final = a.finalize(parts)
-            out_cols.append(DeviceColumn(final.data, final.validity,
-                                         f.dtype))
-        yield ColumnarBatch(out_cols, 1, self._schema)
+            out.append(DeviceColumn(final.data, final.validity, f.dtype))
+        return out
+
+    # -- string keys through the exec-local dictionary ---------------------
+    def _encode_key(self, j: int, i: int, batch: ColumnarBatch):
+        """(codes, validity, remap of the batch dictionary's codes to
+        global codes) of dictionary key ordinal j (grouping i). Only a key
+        that passes a dictionary column of the input batch through is
+        taken (the reference's DictColumn branch)."""
+        g = self.groupings[i]
+        name = _column_ref(g)
+        src = None
+        if name is not None and name in batch.schema.names() \
+                and self._passes_through(name):
+            src = batch.column_by_name(name)
+        if not isinstance(src, DictColumn):
+            raise NotImplementedError(
+                f"group key <{g.name_hint}> over {src!r}: string keys other "
+                "than dictionary columns (byte rectangles, computed strings) "
+                "arrive with the strings slice")
+        d = self._dicts[j]
+        gmap = np.asarray([d.setdefault(s, len(d)) for s in src.dictionary],
+                          dtype=np.int32)
+        return src.data, src.validity, torch.from_numpy(gmap).to(
+            src.data.device)
+
+    def _passes_through(self, name: str) -> bool:
+        """True when every fused projection passes column ``name`` on
+        unchanged, so the input batch's column is the key."""
+        for st in self.pre_stages:
+            if st[0] == "project" and not any(
+                    e.name_hint == name and _column_ref(e) == name
+                    for e in st[1]):
+                return False
+        return True
+
+    def _direct_operands(self, batch: ColumnarBatch):
+        """(key pairs, remaps, cardinalities, group bucket) when every key
+        is a dictionary key and their product fits the dense kernel, else
+        None."""
+        if not self.groupings or len(self._dict_keys) != len(self.groupings):
+            return None
+        pairs, remaps = [], []
+        for j, i in enumerate(self._dict_keys):
+            codes, valid, remap = self._encode_key(j, i, batch)
+            pairs.append((codes, valid))
+            remaps.append(remap)
+        cards = [max(len(d), 1) for d in self._dicts]
+        prod = math.prod(c + 1 for c in cards)
+        if prod > DIRECT_MAX_GROUPS:
+            return None
+        return pairs, remaps, cards, bucket_segments(prod)
+
+    def _dense_update(self, ops, keep, vals):
+        """One dense_groupby launch for every aggregate of the batch:
+        (key columns, partials, live) over the group slots."""
+        pairs, remaps, cards, G = ops
+        wants = [a.sum_inputs(vs) for a, vs in zip(self.aggs, vals)]
+        columns, index = [], {}
+        for want in wants:
+            for d, v in want:
+                k = (None if d is None else id(d), None if v is None
+                     else id(v))
+                if v is not None and k not in index:
+                    index[k] = len(columns)
+                    columns.append((d, v))
+        res = dense_groupby(pairs, remaps, cards, keep, columns, G)
+        partials = []
+        for a, want in zip(self.aggs, wants):
+            sums = []
+            for d, v in want:
+                if v is None:                    # every live row
+                    sums.append((None, res.occupancy))
+                else:
+                    k = index[(None if d is None else id(d), id(v))]
+                    sums.append((res.sums[k], res.counts[k]))
+            partials.extend(a.from_sums(sums))
+        ck = (tuple(cards), G, str(keep.device))
+        slots = self._slot_cache.get(ck)
+        if slots is None:
+            slots = self._slot_cache[ck] = [
+                (c.to(keep.device), v.to(keep.device))
+                for c, v in group_slots(cards, G)]
+        return slots, partials, res.occupancy > 0
+
+    def _sort_keys(self, batch: ColumnarBatch, ectx) -> List[DVal]:
+        """Key values for the sort path: string keys as global codes."""
+        by_dict = {i: j for j, i in enumerate(self._dict_keys)}
+        keys = []
+        for i, g in enumerate(self.groupings):
+            if i not in by_dict:
+                keys.append(g.eval_device(ectx))
+                continue
+            codes, valid, remap = self._encode_key(by_dict[i], i, batch)
+            if len(remap):
+                c = remap[codes.clamp(0, len(remap) - 1).long()]
+                c = torch.where(valid, c, torch.zeros_like(c))
+            else:
+                c = torch.zeros_like(codes)
+            keys.append(DVal(c, valid, INT32))
+        return keys
+
+    def _update(self, batch: ColumnarBatch) -> ColumnarBatch:
+        """One batch's partials (the partial schema, live column last)."""
+        ectx, keep = self._pre_stages(batch)
+        vals = [[e.eval_device(ectx) for e in a.input_exprs()]
+                for a in self.aggs]
+        ops = self._direct_operands(batch)
+        if ops is not None:
+            keys, partials, live = self._dense_update(ops, keep, vals)
+        else:
+            keys, partials, n = segmented_groupby(
+                self._sort_keys(batch, ectx), vals, self.aggs, "update",
+                keep)
+            live = torch.ones(n, dtype=torch.bool, device=keep.device)
+        cols = [DeviceColumn(d, v, f.dtype) for (d, v), f in
+                zip(keys + partials + [(live, live)],
+                    self._partial_schema.fields)]
+        return ColumnarBatch(cols, int(live.shape[0]), self._partial_schema)
+
+    def _empty_partials(self, device) -> ColumnarBatch:
+        cols = [DeviceColumn(torch.zeros(0, dtype=torch_dtype(f.dtype),
+                                         device=device),
+                             torch.zeros(0, dtype=torch.bool, device=device),
+                             f.dtype)
+                for f in self._partial_schema.fields]
+        return ColumnarBatch(cols, 0, self._partial_schema)
+
+    def _merge(self, partials: List[ColumnarBatch], device):
+        """One concatenation and one segmented_groupby merge."""
+        big = concat_batches(partials) if partials \
+            else self._empty_partials(device)
+        cols = big.columns
+        nkeys = len(self.groupings)
+        keys = [DVal(c.data, c.validity, f.dtype) for c, f in
+                zip(cols[:nkeys], self._partial_schema.fields)]
+        vals, pos = [], nkeys
+        for types in self._partial_types:
+            vals.append([DVal(cols[o].data, cols[o].validity, t)
+                         for o, t in zip(range(pos, pos + len(types)),
+                                         types)])
+            pos += len(types)
+        return segmented_groupby(keys, vals, self.aggs, "merge",
+                                 cols[-1].data)
+
+    def _decode_keys(self, keys) -> list:
+        """Dictionary keys back to DictColumns over their dictionary
+        sorted, codes replaced by their ranks; other keys as they are."""
+        out = []
+        by_dict = {i: j for j, i in enumerate(self._dict_keys)}
+        for i, ((d, v), f) in enumerate(zip(keys, self._schema.fields)):
+            if i not in by_dict:
+                out.append(DeviceColumn(d, v, f.dtype))
+                continue
+            inv = np.empty(len(self._dicts[by_dict[i]]), dtype=object)
+            for s, c in self._dicts[by_dict[i]].items():
+                inv[c] = s
+            if not len(inv):
+                out.append(DictColumn(torch.zeros_like(d), v, STRING, inv))
+                continue
+            order = np.argsort(inv, kind="stable")
+            rank = np.empty(len(inv), np.int32)
+            rank[order] = np.arange(len(inv), dtype=np.int32)
+            rank_t = torch.from_numpy(rank).to(d.device)
+            codes = rank_t[d.clamp(0, len(inv) - 1).long()]
+            out.append(DictColumn(torch.where(v, codes, 0), v, STRING,
+                                  inv[order]))
+        return out
+
+    def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        self._dicts = [dict() for _ in self._dict_keys]
+        # a batch of no rows adds no group (and its string columns may
+        # not have a dictionary form)
+        partials = [self._update(b) for b in self.children[0].execute(ctx)
+                    if b.num_rows]
+        keys, merged, n = self._merge(partials, ctx.device)
+        yield ColumnarBatch(self._decode_keys(keys)
+                            + self._finalize_aggs(merged), n, self._schema)
 
     def describe(self):
+        g = ", ".join(e.name_hint for e in self.groupings)
         a = ", ".join(x.name_hint for x in self.aggs)
         fused = ""
         if self.pre_stages:
             parts = [("filter" if s[0] == "filter" else "project")
                      for s in self.pre_stages]
             fused = f" fused=[{'+'.join(parts)}]"
-        return f"HashAggregate[keys=[], aggs=[{a}]]{fused}"
+        return f"HashAggregate[keys=[{g}], aggs=[{a}]]{fused}"

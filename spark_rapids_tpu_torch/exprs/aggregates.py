@@ -1,5 +1,5 @@
 """Aggregate functions (port of ``spark_rapids_tpu/exprs/aggregates.py``:
-Sum, Count, CountStar, Average over one segment).
+Sum, Count, CountStar, Average, keyless and keyed).
 
 Each aggregate declares
   update   : per-row values  -> partials     (per batch)
@@ -7,10 +7,18 @@ Each aggregate declares
   finalize : partials        -> result
 with Spark's null semantics: sum/avg ignore nulls and are null over no
 rows; count is never null.
+
+Every update here reduces to ``_seg_sum``: per group, the sum of a
+column over its valid live rows and the count of those rows. So each
+aggregate names those columns (``sum_inputs``) and builds its partials
+from their (sum, count) pairs (``from_sums``). ``update`` reduces them
+over a segment context (columnar/segmented.py); the dense groupby path
+reduces every aggregate's columns in one kernel launch and hands each
+aggregate its pairs (exec/aggregate.py).
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -19,10 +27,18 @@ from .base import DVal, Expression, Literal
 
 __all__ = ["AggregateExpression", "Sum", "Count", "CountStar", "Average"]
 
+#: a column to reduce: (data or None, validity or None). No data: only
+#: the count is needed. No validity: every live row counts.
+SumInput = Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
+
 
 def _seg_sum(data, valid, seg):
-    """(sum of the valid live values, count of them)."""
-    return seg.sum(data, valid), seg.count(valid)
+    """(sum of the valid live values, count of them) per segment of
+    ``seg``; the sum is None when ``data`` is."""
+    if valid is None:
+        valid = seg.live
+    s = None if data is None else seg.sum(data, valid)
+    return s, seg.count(valid)
 
 
 class AggregateExpression:
@@ -64,9 +80,20 @@ class AggregateExpression:
     def partial_types(self, schema: Schema) -> List[DataType]:
         raise NotImplementedError
 
-    def update(self, vals: List[DVal], seg, row_mask):
-        """per-row DVals -> list of (data, validity) partials."""
+    def sum_inputs(self, vals: List[DVal]) -> List[SumInput]:
+        """The columns whose per-group (sum, count) the update needs."""
         raise NotImplementedError
+
+    def from_sums(self, sums: list) -> list:
+        """(sum, count) per column of ``sum_inputs`` -> list of
+        (data, validity) partials."""
+        raise NotImplementedError
+
+    def update(self, vals: List[DVal], seg):
+        """per-row DVals -> list of (data, validity) partials over the
+        segments of ``seg`` (its live rows)."""
+        return self.from_sums([_seg_sum(d, v, seg)
+                               for d, v in self.sum_inputs(vals)])
 
     def merge(self, partials: List[DVal], seg):
         raise NotImplementedError
@@ -89,11 +116,14 @@ class Sum(AggregateExpression):
     def partial_types(self, schema):
         return [self.data_type(schema)]
 
-    def update(self, vals, seg, row_mask):
+    def sum_inputs(self, vals):
         v = vals[0]
         acc = torch.int64 if not v.data.is_floating_point() \
             else torch.float64
-        s, cnt = _seg_sum(v.data.to(acc), v.validity, seg)
+        return [(v.data.to(acc), v.validity)]
+
+    def from_sums(self, sums):
+        s, cnt = sums[0]
         return [(s, cnt > 0)]
 
     def merge(self, partials, seg):
@@ -112,8 +142,11 @@ class Count(AggregateExpression):
     def partial_types(self, schema):
         return [INT64]
 
-    def update(self, vals, seg, row_mask):
-        cnt = seg.count(vals[0].validity)
+    def sum_inputs(self, vals):
+        return [(None, vals[0].validity)]
+
+    def from_sums(self, sums):
+        cnt = sums[0][1]
         return [(cnt, torch.ones_like(cnt, dtype=torch.bool))]
 
     def merge(self, partials, seg):
@@ -138,9 +171,8 @@ class CountStar(Count):
     def input_exprs(self):
         return [Literal(1)]
 
-    def update(self, vals, seg, row_mask):
-        cnt = seg.count(row_mask)
-        return [(cnt, torch.ones_like(cnt, dtype=torch.bool))]
+    def sum_inputs(self, vals):
+        return [(None, None)]
 
 
 class Average(AggregateExpression):
@@ -150,9 +182,12 @@ class Average(AggregateExpression):
     def partial_types(self, schema):
         return [FLOAT64, INT64]      # sum, count
 
-    def update(self, vals, seg, row_mask):
+    def sum_inputs(self, vals):
         v = vals[0]
-        s, cnt = _seg_sum(v.data.to(torch.float64), v.validity, seg)
+        return [(v.data.to(torch.float64), v.validity)]
+
+    def from_sums(self, sums):
+        s, cnt = sums[0]
         return [(s, cnt > 0), (cnt, torch.ones_like(cnt, dtype=torch.bool))]
 
     def merge(self, partials, seg):

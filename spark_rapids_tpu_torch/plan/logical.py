@@ -1,5 +1,5 @@
 """Logical plan nodes (port of ``spark_rapids_tpu/plan/logical.py``: scan,
-project, filter, aggregate)."""
+project, filter, aggregate, sort)."""
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
@@ -7,7 +7,8 @@ from typing import List, Optional, Sequence
 from ..exprs.base import Expression
 from ..types import Schema, StructField
 
-__all__ = ["LogicalPlan", "LogicalScan", "Project", "Filter", "Aggregate"]
+__all__ = ["LogicalPlan", "LogicalScan", "Project", "Filter", "Aggregate",
+           "SortOrder", "Sort"]
 
 
 class LogicalPlan:
@@ -92,3 +93,32 @@ class Aggregate(LogicalPlan):
         g = ", ".join(e.name_hint for e in self.groupings)
         a = ", ".join(a.name_hint for a in self.aggs)
         return f"Aggregate[keys=[{g}], aggs=[{a}]]"
+
+
+class SortOrder:
+    def __init__(self, expr: Expression, ascending: bool = True,
+                 nulls_first: Optional[bool] = None):
+        self.expr = expr
+        self.ascending = ascending
+        # Spark default: nulls first for asc, nulls last for desc
+        self.nulls_first = nulls_first if nulls_first is not None \
+            else ascending
+
+    def __repr__(self):
+        d = "ASC" if self.ascending else "DESC"
+        n = "NULLS FIRST" if self.nulls_first else "NULLS LAST"
+        return f"{self.expr.name_hint} {d} {n}"
+
+
+class Sort(LogicalPlan):
+    """A global sort."""
+
+    def __init__(self, orders: Sequence[SortOrder], child: LogicalPlan):
+        self.orders = list(orders)
+        self.children = [child]
+
+    def schema(self) -> Schema:
+        return self.children[0].schema()
+
+    def describe(self):
+        return f"Sort[{', '.join(map(repr, self.orders))}]"

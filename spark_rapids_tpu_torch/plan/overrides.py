@@ -3,9 +3,11 @@
 
 ``plan_query`` prunes columns, tags and converts, with no cost optimizer
 (the reference with ``spark.rapids.tpu.sql.optimizer.enabled=false``) and
-no plan rewrites. A keyless aggregate folds the device filters and
-projections below it into its update (``_fold_stages``), as the
-reference's does.
+no plan rewrites. An aggregate, keyless or keyed, folds the device
+filters and projections below it into its update (``_fold_stages``), as
+the reference's does. String group and sort keys plan onto the device:
+the execs take them as dictionary columns and refuse other forms when
+the batch arrives.
 """
 from __future__ import annotations
 
@@ -15,8 +17,10 @@ from typing import Dict, Optional, Type
 from ..config import TpuConf
 from ..exec import aggregate as A
 from ..exec import basic as B
+from ..exec import sort as S
 from ..exec.base import TpuExec
 from ..exprs.base import Alias, ColumnRef, Expression
+from ..types import STRING
 from . import logical as L
 from .meta import PlanMeta
 
@@ -90,6 +94,12 @@ def prune_columns(plan: L.LogicalPlan,
             for e in a.input_exprs():
                 _expr_refs(e, child_req)
         return _rebuilt(plan, prune_columns(plan.children[0], child_req))
+    if isinstance(plan, L.Sort):
+        child_req = None if required is None else set(required)
+        if child_req is not None:
+            for o in plan.orders:
+                _expr_refs(o.expr, child_req)
+        return _rebuilt(plan, prune_columns(plan.children[0], child_req))
     return plan
 
 
@@ -142,13 +152,21 @@ class FilterMeta(PlanMeta):
         return B.TpuFilterExec(self.plan.condition, children[0])
 
 
+def _key_reason(e: Expression, schema) -> Optional[str]:
+    """Why a group or sort key cannot run on the device; a string key
+    passes (the exec takes it as a dictionary column)."""
+    r = e.fully_device_supported(schema)
+    return None if r is None or e.data_type(schema) == STRING else r
+
+
 @rule(L.Aggregate)
 class AggregateMeta(PlanMeta):
     def tag_self(self):
         schema = self.plan.children[0].schema()
-        if self.plan.groupings:
-            self.will_not_work_on_tpu(
-                "keyed aggregation arrives with the q1 slice")
+        for g in self.plan.groupings:
+            r = _key_reason(g, schema)
+            if r:
+                self.will_not_work_on_tpu(f"grouping <{g.name_hint}>: {r}")
         for a in self.plan.aggs:
             r = a.device_unsupported_reason(schema)
             if r:
@@ -156,8 +174,8 @@ class AggregateMeta(PlanMeta):
 
     def convert_to_tpu(self, children):
         child, stages, eval_schema = self._fold_stages(children[0])
-        return A.TpuHashAggregateExec([], self.plan.aggs, child,
-                                      pre_stages=stages,
+        return A.TpuHashAggregateExec(self.plan.groupings, self.plan.aggs,
+                                      child, pre_stages=stages,
                                       eval_schema=eval_schema)
 
     @staticmethod
@@ -182,3 +200,21 @@ class AggregateMeta(PlanMeta):
             return child, None, None
         stages.reverse()
         return node, stages, eval_schema
+
+
+@rule(L.Sort)
+class SortMeta(PlanMeta):
+    def tag_self(self):
+        schema = self.plan.children[0].schema()
+        for o in self.plan.orders:
+            r = _key_reason(o.expr, schema)
+            if r:
+                self.will_not_work_on_tpu(
+                    f"sort key <{o.expr.name_hint}>: {r}")
+        for f in schema.fields:
+            if not f.dtype.device_backed and f.dtype != STRING:
+                self.will_not_work_on_tpu(
+                    f"column {f.name}: {f.dtype.name} payload is host-only")
+
+    def convert_to_tpu(self, children):
+        return S.TpuSortExec(self.plan.orders, children[0])

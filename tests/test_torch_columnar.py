@@ -25,8 +25,14 @@ from spark_rapids_tpu_torch.columnar import (ByteRectColumn, ColumnarBatch,
                                              DictColumn, HostTable,
                                              batch_from_reference)
 from spark_rapids_tpu_torch.types import Schema, StructField, from_arrow
+from test_torch_slice import prebuild_reference_native
 
 N = 3000
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_native_built():
+    prebuild_reference_native()
 
 
 def _numpy_table(seed: int = 11) -> dict:
