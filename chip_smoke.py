@@ -11,18 +11,26 @@ result line):
                 built from csrc/ with one nvcc each, started together;
                 ptxas must report no stack frame and no spills for any
                 function. ``--compare NAME=DIR`` also builds
-                DIR/rect_match.cu (another version of the kernel, e.g. the
-                parent commit's) alongside, to be timed beside the port's;
+                DIR/rect_match.cu and/or DIR/dense_groupby.cu (another
+                version of a kernel with its header, e.g. the parent
+                commit's; dense_groupby with the C interface of commit
+                645412c) alongside, to be timed beside the port's;
   3. kernels -- each kernel's wrapper on the card against its plain torch
                 version: rect_match exactly, in every mode and edge case;
                 dense_groupby with counts exact and float sums within a
                 stated tolerance, over G = 16 and 64, 1-8 value columns,
-                nulls, dead rows and q1's batch, two launches giving the
-                same bits. Then each timed with the L2 cold (launches
-                queued back to back over distinct inputs, several times the
-                L2) beside its bound from the data: rect_match over the
-                main path's batches, every mode, every width; dense_groupby
-                on q1's batch beside a loop of index_add_;
+                nulls, dead rows, row counts off a warp's 32 rows and
+                the grid's, one group, a row per group, -0.0/NaN/+-inf,
+                unaligned views
+                and q1's batch, two launches giving the same bits. Then
+                each timed with the L2 cold (launches queued back to back
+                over distinct inputs, several times the L2) beside its
+                bound from the data: rect_match over the main path's
+                batches, every mode, every width; dense_groupby on q1's
+                batch (G = 16) and on a G = 64 shape, in turns with the
+                kernels to compare, beside a loop of index_add_, with
+                each instance's launch shape (residency, grid, registers,
+                shared memory);
   4. q6      -- TPC-H Q6 at SF1 (6,001,215 lineitem rows, 1,048,576-row
                 batches) through TorchSession/DataFrame on cuda, against a
                 numpy reference computed here from the same arrays;
@@ -34,7 +42,9 @@ result line):
   6. q1      -- TPC-H Q1 at SF1 (the filter and projections fused into a
                 grouped aggregate over l_returnflag and l_linestatus, then
                 ORDER BY), cold and warm, against numpy: dense_groupby must
-                launch once per batch; then once more under torch.profiler.
+                launch once per batch; then once more under torch.profiler,
+                and once with the operand copies of commit 645412c (stream
+                syncs and copies counted in both).
 
 The data is generated here from a seed, with numpy only: this script
 imports neither JAX, pyarrow, pandas nor the JAX package. It prints a
@@ -44,6 +54,7 @@ imports neither JAX, pyarrow, pandas nor the JAX package. It prints a
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -447,34 +458,35 @@ def _ptxas_frames(log: str) -> list:
 
 
 def _start_compare_build(name: str, src_dir: str):
-    """nvcc for another version of the rect_match kernel (``src_dir`` holds
-    its rect_match.cu and header: the parent commit's, or a variant),
-    started now and built like the port's own into build/."""
+    """nvcc for other versions of the port's kernels (``src_dir`` holds a
+    rect_match.cu and/or a dense_groupby.cu with their headers: the parent
+    commit's, or a variant), started now and built like the port's own
+    into build/. Returns [(name, kernel, process, library)]."""
     from spark_rapids_tpu_torch import native
     native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = native.BUILD_DIR / f"librect_match_compare_{name}.so"
-    src = Path(src_dir) / "rect_match.cu"
-    _check(src.exists(), f"no rect_match.cu in {src_dir}")
-    proc = subprocess.Popen(
-        [native._nvcc(), *native.NVCC_FLAGS, "-I", str(src.parent), "-o",
-         str(out), str(src)], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
-    return name, proc, out
+    started = []
+    for kernel in KERNELS:
+        src = Path(src_dir) / f"{kernel}.cu"
+        if not src.exists():
+            continue
+        out = native.BUILD_DIR / f"lib{kernel}_compare_{name}.so"
+        started.append((name, kernel, subprocess.Popen(
+            [native._nvcc(), *native.NVCC_FLAGS, "-I", str(src.parent),
+             "-o", str(out), str(src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), out))
+    _check(bool(started), f"no rect_match.cu or dense_groupby.cu in "
+                          f"{src_dir}")
+    return started
 
 
-def _finish_compare_build(name, proc, out):
-    """The built kernel as a function with rect_match's arguments (and no
+def _rect_match_compare(name, lib):
+    """rect_match_launch of another build, with rect_match's arguments (no
     launch count: it is not on the port's path)."""
     import ctypes
 
     import torch
     from spark_rapids_tpu_torch.exprs import rect_match as rm
-    log, _ = proc.communicate(timeout=600)
-    _check(proc.returncode == 0, f"nvcc failed for {name}:\n{log}")
-    frames = _ptxas_frames(log)
-    _log(f"  ptxas {name}: {len(frames)} functions, stack/spill bytes "
-         f"{sorted({f[1:] for f in frames})}")
-    fn = ctypes.CDLL(str(out)).rect_match_launch
+    fn = lib.rect_match_launch
     fn.argtypes = rm._ARGTYPES
     fn.restype = ctypes.c_int
 
@@ -488,6 +500,72 @@ def _finish_compare_build(name, proc, out):
     return other
 
 
+def _dense_groupby_compare(name, lib):
+    """A dense_groupby built with the C interface of commit 645412c (one
+    launch of block partials and a second that adds them, each pointer
+    array passed on its own), with dense_groupby's arguments and result;
+    no launch count."""
+    import ctypes
+
+    import torch
+    from spark_rapids_tpu_torch.exec.dense_groupby import DenseGroups
+    fn = lib.dense_groupby_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 6)
+    fn.restype = ctypes.c_int
+    lib.dense_groupby_rows_per_block.restype = ctypes.c_int
+    rows_per_block = lib.dense_groupby_rows_per_block()
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * max(len(ts), 1))(
+            *[None if t is None else t.data_ptr() for t in ts])
+
+    def other(keys, remaps, cards, keep, values, G):
+        K, p = len(values), keep.shape[0]
+        part = max(-(-p // rows_per_block), 1) * (K + 1) * G
+        buf = torch.empty(2 * part + 2 * K * G + G, dtype=torch.int64,
+                          device=keep.device)
+        sums = buf[2 * part:2 * part + K * G].view(K, G)
+        counts = buf[2 * part + K * G:2 * part + 2 * K * G].view(K, G)
+        occ = buf[2 * part + 2 * K * G:]
+        i32 = ctypes.c_int32 * len(keys)
+        rc = fn(len(keys), ptrs([c for c, _ in keys]),
+                ptrs([v for _, v in keys]), ptrs(remaps),
+                i32(*[len(r) for r in remaps]), i32(*[int(c) for c in cards]),
+                keep.data_ptr(), p, K, ptrs([d for d, _ in values]),
+                ptrs([v for _, v in values]),
+                (ctypes.c_uint8 * max(K, 1))(*[
+                    int(d is not None and d.dtype == torch.int64)
+                    for d, _ in values]),
+                G, buf.data_ptr(), buf.data_ptr() + 8 * part,
+                sums.data_ptr(), counts.data_ptr(), occ.data_ptr(),
+                torch.cuda.current_stream(keep.device).cuda_stream)
+        _check(rc == 0, f"{name} dense_groupby launch failed: CUDA error "
+                        f"{rc}")
+        return DenseGroups(
+            [None if d is None else (sums[k] if d.dtype == torch.int64
+                                     else sums[k].view(torch.float64))
+             for k, (d, _) in enumerate(values)], counts, occ)
+    return other
+
+
+def _finish_compare_build(name, kernel, proc, out):
+    """The built kernel as a function with the port's wrapper's arguments
+    (and no launch count: it is not on the port's path)."""
+    import ctypes
+    log, _ = proc.communicate(timeout=600)
+    _check(proc.returncode == 0, f"nvcc failed for {name} {kernel}:\n{log}")
+    frames = _ptxas_frames(log)
+    _log(f"  ptxas {name} {kernel}: {len(frames)} functions, stack/spill "
+         f"bytes {sorted({f[1:] for f in frames})}")
+    lib = ctypes.CDLL(str(out))
+    if kernel == "rect_match":
+        return _rect_match_compare(name, lib)
+    return _dense_groupby_compare(name, lib)
+
+
 #: the port's kernel libraries (csrc/<name>.cu), built side by side
 KERNELS = ("rect_match", "dense_groupby")
 
@@ -496,12 +574,12 @@ def phase_build(compare=()):
     """Build the port's kernels, one nvcc each, all started together (and
     the ones to compare at the same time); the ptxas report of every
     function of the port must show no stack frame and no spills. Returns
-    {name: launch function} of the kernels to compare."""
+    {kernel: {name: launch function}} of the kernels to compare."""
     from concurrent.futures import ThreadPoolExecutor
 
     from spark_rapids_tpu_torch import native
     t0 = time.perf_counter()
-    started = [_start_compare_build(n, d) for n, d in compare]
+    started = [b for n, d in compare for b in _start_compare_build(n, d)]
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         logs = dict(zip(KERNELS, pool.map(native.build_log, KERNELS)))
     _log(f"build: {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s")
@@ -516,10 +594,12 @@ def phase_build(compare=()):
                         f"{bad}")
         _log(f"  ptxas {name}: {len(frames)} functions, every one with a "
              "0-byte stack frame and 0 spill bytes")
-    fns = {s[0]: _finish_compare_build(*s) for s in started}
-    if fns:
-        _log(f"build: {', '.join(fns)} (to compare) done in "
-             f"{time.perf_counter() - t0:.2f} s")
+    fns = {k: {} for k in KERNELS}
+    for name, kernel, proc, out in started:
+        fns[kernel][name] = _finish_compare_build(name, kernel, proc, out)
+    if started:
+        _log(f"build: {', '.join(f'{n} {k}' for n, k, _, _ in started)} "
+             f"(to compare) done in {time.perf_counter() - t0:.2f} s")
     return fns
 
 
@@ -873,12 +953,12 @@ Q1_CUTOFF = np.datetime64("1998-12-01") - np.timedelta64(90, "D")
 
 
 def _dense_case(rng, rows: int, cards, ncols: int, G: int, ints=False,
-                dead=False):
+                dead=False, floats=False):
     """dense_groupby's arguments on the card: per key, codes into a batch
     dictionary of a random size below its card, a remap onto global codes
     and ~10% nulls; a keep mask (all False when ``dead``); value columns
-    cycling float64, int64 and count-only (all int64 when ``ints``), ~15%
-    nulls."""
+    cycling float64, int64 and count-only (all int64 when ``ints``, all
+    float64 when ``floats``), ~15% nulls."""
     import torch
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa
     keys, remaps = [], []
@@ -891,7 +971,7 @@ def _dense_case(rng, rows: int, cards, ncols: int, G: int, ints=False,
     values = []
     for j in range(ncols):
         valid = rng.rand(rows) > 0.15
-        kind = 1 if ints else j % 3
+        kind = 1 if ints else 0 if floats else j % 3
         if kind == 0:
             d = np.round(rng.uniform(-1e5, 1e5, rows), 2)
         elif kind == 1:
@@ -935,16 +1015,16 @@ def _q1_batch(host, batch_rows: int):
 def _dense_check(args, label: str) -> float:
     """dense_groupby against dense_groupby_reference on ``args``: counts
     and occupancy exactly, int64 sums exactly, float64 sums within
-    DENSE_TOL of the group's scale; and a second launch gives the same
-    bits. Returns the largest absolute float difference."""
+    DENSE_TOL of the group's scale (a sum that is not finite: the same
+    value); a second launch gives the same bits. Returns the largest
+    absolute float difference."""
     import torch
-    from spark_rapids_tpu_torch.exec.dense_groupby import (
-        dense_groupby, dense_groupby_reference)
+    from spark_rapids_tpu_torch.exec import dense_groupby as dg
     keys, remaps, cards, keep, values, G = args
-    got = dense_groupby(*args)
-    again = dense_groupby(*args)
-    want = dense_groupby_reference(*args)
-    scale = dense_groupby_reference(
+    got = dg.dense_groupby(*args)
+    again = dg.dense_groupby(*args)
+    want = dg.dense_groupby_reference(*args)
+    scale = dg.dense_groupby_reference(
         keys, remaps, cards, keep,
         [(None if d is None else d.abs(), v) for d, v in values], G).sums
     torch.cuda.synchronize()
@@ -954,30 +1034,106 @@ def _dense_check(args, label: str) -> float:
     _check(torch.equal(got.occupancy, again.occupancy)
            and torch.equal(got.counts, again.counts),
            f"dense_groupby {label}: two launches counted differently")
+    for a, c in zip(got.sums, again.sums):
+        _check((a is None and c is None) or torch.equal(
+            a.view(torch.int64), c.view(torch.int64)),
+            f"dense_groupby {label}: two launches gave different bits")
+    return _dense_sums_err(got, want, scale, label)
+
+
+def _dense_sums_err(got, want, scale, label: str) -> float:
+    import torch
     err = 0.0
-    for a, b, c, sc in zip(got.sums, want.sums, again.sums, scale):
+    for a, b, sc in zip(got.sums, want.sums, scale):
         if a is None:
-            _check(b is None and c is None, f"{label}: a count-only sum")
+            _check(b is None, f"{label}: a count-only sum")
             continue
-        _check(torch.equal(a.view(torch.int64), c.view(torch.int64)),
-               f"dense_groupby {label}: two launches gave different bits")
         if a.dtype == torch.int64:
             _check(torch.equal(a, b), f"dense_groupby {label}: int sums")
             continue
-        diff = (a - b).abs()
-        err = max(err, float(diff.max()))
-        _check(bool((diff <= DENSE_TOL * sc).all()),
-               f"dense_groupby {label}: float sums off by {diff.max()}")
+        fin = torch.isfinite(b)
+        _check(torch.equal(a[~fin].nan_to_num(posinf=1, neginf=-1, nan=0),
+                           b[~fin].nan_to_num(posinf=1, neginf=-1, nan=0))
+               and torch.equal(a[~fin].isnan(), b[~fin].isnan()),
+               f"dense_groupby {label}: sums that are not finite differ")
+        diff = (a[fin] - b[fin]).abs()
+        if diff.numel():
+            err = max(err, float(diff.max()))
+        _check(bool((diff <= DENSE_TOL * sc[fin]).all()),
+               f"dense_groupby {label}: float sums off by {err}")
     return err
 
 
-def phase_dense_exact(q1_args) -> float:
+def _one_group(args):
+    """Every live row's keys in one group: valid, batch code 0."""
+    import torch
+    keys, remaps, cards, keep, values, G = args
+    return ([(torch.zeros_like(c), torch.ones_like(v)) for c, v in keys],
+            remaps, cards, keep, values, G)
+
+
+def _row_per_group(rows: int, values_of):
+    """One key of 63 values, row r in group r % 63: a warp's 32 rows in 32
+    groups (G = 64)."""
+    import torch
+    codes = (torch.arange(rows, device="cuda") % 63).to(torch.int32)
+    remap = torch.arange(63, dtype=torch.int32, device="cuda")
+    keep = torch.ones(rows, dtype=torch.bool, device="cuda")
+    return ([(codes, torch.ones_like(keep))], [remap], [63], keep,
+            values_of, 64)
+
+
+def _nonfinite(args, rng):
+    """Float columns with -0.0 at 1% of the rows and NaN, +inf and -inf at
+    a few rows each, in a few groups."""
+    import torch
+    keys, remaps, cards, keep, values, G = args
+    out = []
+    for d, v in values:
+        if d is not None and d.dtype == torch.float64:
+            d = d.clone()
+            n = d.shape[0]
+            idx = torch.from_numpy(rng.permutation(n)[:n // 100 + 9]).cuda()
+            d[idx[9:]] = -0.0
+            d[idx[0:3]] = float("nan")
+            d[idx[3:6]] = float("inf")
+            d[idx[6:9]] = float("-inf")
+            d = torch.where(v, d, torch.zeros_like(d))
+        out.append((d, v))
+    return keys, remaps, cards, keep, out, G
+
+
+def _unaligned(args):
+    """Every array as a view whose base lies past a 16-byte boundary:
+    bool arrays 3 bytes, int32 4, 8-byte values 8."""
+    import torch
+    keys, remaps, cards, keep, values, G = args
+
+    def at(t):
+        es = t.element_size()
+        buf = torch.zeros(t.numel() + 64 // es, dtype=t.dtype,
+                          device=t.device)
+        start = ((3 if es == 1 else es) - buf.data_ptr()) % 16 // es
+        out = buf[start:start + t.numel()]
+        out.copy_(t)
+        _check(out.data_ptr() % 16 == (3 if es == 1 else es),
+               "could not place a view past a 16-byte boundary")
+        return out
+    return ([(at(c), at(v)) for c, v in keys], remaps, cards, at(keep),
+            [(None if d is None else at(d), at(v)) for d, v in values], G)
+
+
+def phase_dense_exact(q1_args, compare) -> float:
     """dense_groupby against its plain version on the card: G = 16 and 64,
     K = 1..8 value columns (float64/int64/count-only, and all int64),
-    null keys and values, row counts that are not a multiple of a block's
-    2,048 rows, all rows dead, no rows, and q1's first batch; two launches
-    must give the same bits. Returns the largest absolute float
-    difference."""
+    null keys and values, row counts off a warp's 32 rows and the grid's,
+    all rows dead, no rows, every row in one group, a row per group, -0.0,
+    NaN and +-inf, arrays at bases that are not 16-byte aligned, q1's first
+    batch and the G = 64 timing shape; two launches must give the same
+    bits. The kernels to compare are held to the plain version on q1's
+    batch. Returns the largest absolute float difference."""
+    from spark_rapids_tpu_torch.exec.dense_groupby import (
+        dense_groupby_reference, kernel_shape)
     rng = np.random.RandomState(17)
     cases = []
     for G, cards in ((16, (3, 2)), (64, (4, 3, 2))):
@@ -993,14 +1149,68 @@ def phase_dense_exact(q1_args) -> float:
     cases.append(("all rows dead", _dense_case(rng, 70_001, (3, 2), 3, 16,
                                                dead=True)))
     cases.append(("no rows", _dense_case(rng, 0, (3, 2), 3, 16)))
+    shape = kernel_shape(16, 5)
+    warps = shape["sms"] * shape["blocks_per_sm"] * shape["threads"] // 32
+    for rows in (31, 33, 255, 257, 32 * warps - 1, 32 * warps + 1,
+                 32 * warps * 7 + 17):
+        cases.append((f"G=16 rows={rows} ({warps} warps of 32 rows)",
+                      _dense_case(rng, rows, (3, 2), 5, 16, floats=True)))
+    cases.append(("G=16 every row in one group", _one_group(
+        _dense_case(rng, 300_001, (3, 2), 5, 16))))
+    cases.append(("G=64 every row in one group", _one_group(
+        _dense_case(rng, 300_001, (4, 3, 2), 5, 64, floats=True))))
+    cases.append(("G=64 a row per group", _row_per_group(
+        200_003, _dense_case(rng, 200_003, (1,), 5, 16)[4])))
+    cases.append(("G=16 -0.0, NaN, +-inf", _nonfinite(
+        _dense_case(rng, 200_003, (3, 2), 6, 16), rng)))
+    cases.append(("G=64 -0.0, NaN, +-inf", _nonfinite(
+        _dense_case(rng, 200_003, (4, 3, 2), 5, 64, floats=True), rng)))
+    cases.append(("G=16 unaligned views", _unaligned(
+        _dense_case(rng, 150_001, (3, 2), 6, 16))))
+    cases.append(("G=64 unaligned views", _unaligned(
+        _dense_case(rng, 150_001, (4, 3, 2), 5, 64, floats=True))))
     cases.append(("q1 batch", q1_args))
+    cases.append(("G=64 timing shape", _g64_args(np.random.RandomState(64),
+                                                 q1_args[3].shape[0])))
     err = max(_dense_check(a, label) for label, a in cases)
     _log(f"kernel dense_groupby: {len(cases)} cases equal to the plain "
          f"version (counts exact, int sums exact, float sums within "
-         f"{DENSE_TOL:g} of the group's magnitude sum, largest float "
-         f"difference {err:.3e}); two launches identical in every case: "
+         f"{DENSE_TOL:g} of the group's magnitude sum, sums that are not "
+         f"finite equal, largest float difference {err:.3e}); two "
+         "launches identical in every case: "
          + "; ".join(label for label, _ in cases))
+    import torch
+    for name, f in compare.items():
+        keys, remaps, cards, keep, values, G = q1_args
+        got = f(*q1_args)
+        want = dense_groupby_reference(*q1_args)
+        scale = dense_groupby_reference(
+            keys, remaps, cards, keep,
+            [(None if d is None else d.abs(), v) for d, v in values],
+            G).sums
+        torch.cuda.synchronize()
+        _check(torch.equal(got.counts, want.counts)
+               and torch.equal(got.occupancy, want.occupancy),
+               f"{name} dense_groupby counts differ on q1's batch")
+        _log(f"kernel dense_groupby {name}: equal to the plain version on "
+             f"q1's batch (largest float difference "
+             f"{_dense_sums_err(got, want, scale, name):.3e})")
     return err
+
+
+def _g64_args(rng, rows: int):
+    """The G = 64 timing shape: q1's batch rows, 3 keys of 4, 3 and 2
+    values (every value in every batch, no nulls: 24 of the 60 group ids
+    live), ~3% of the rows dead, 5 float64 columns without nulls."""
+    import torch
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa
+    cards = [4, 3, 2]
+    keys = [(t(rng.randint(0, c, rows).astype(np.int32)),
+             t(np.ones(rows, bool))) for c in cards]
+    remaps = [t(np.arange(c, dtype=np.int32)) for c in cards]
+    values = [(t(np.round(rng.uniform(900.0, 105000.0, rows), 2)),
+               t(np.ones(rows, bool))) for _ in range(5)]
+    return keys, remaps, cards, t(rng.rand(rows) > 0.03), values, 64
 
 
 def dense_bound(args) -> dict:
@@ -1050,24 +1260,59 @@ def _index_add_loop(gid, masked, valid64, occ_ones, G: int):
     return out
 
 
-def phase_dense_times(args) -> dict:
-    """dense_groupby on q1's batch, timed with the L2 cold (distinct
-    copies of the inputs, COLD_BYTES in all), beside its bound, its plain
-    version, and a loop of index_add_ over the same columns (atomic, so
-    its float sums vary from run to run: it is a yardstick only; its
-    group ids and masked columns are made outside the timed window)."""
+def _shape_line(args) -> dict:
+    """The instance's launch on this card for ``args``: threads a block,
+    shared memory, blocks an SM, SMs, registers, and the grid."""
+    from spark_rapids_tpu_torch.exec.dense_groupby import kernel_shape
+    keys, _, _, keep, values, G = args
+    sh = kernel_shape(G, len(values))
+    warps = sh["threads"] // 32
+    pieces = -(-int(keep.shape[0]) // 32)
+    sh["grid"] = max(1, min(-(-pieces // warps),
+                            sh["sms"] * sh["blocks_per_sm"]))
+    _log(f"  dense_groupby<{G}> on {keep.shape[0]} rows, {len(keys)} keys, "
+         f"{len(values)} columns: {sh['threads']} threads a block, "
+         f"{sh['registers']} registers a thread, {sh['local_bytes']} local "
+         f"bytes, {sh['smem_bytes']} B of shared memory, "
+         f"{sh['blocks_per_sm']} blocks an SM "
+         f"({sh['blocks_per_sm'] * warps} warps), grid {sh['grid']} on "
+         f"{sh['sms']} SMs")
+    return sh
+
+
+def phase_dense_times(args, label: str, compare) -> dict:
+    """dense_groupby on ``args``, timed with the L2 cold (distinct copies
+    of the inputs, COLD_BYTES in all), beside its bound: the kernel and
+    each kernel to compare in turns (kernel, others, others, kernel,
+    kernel, others), its plain version, and a
+    loop of index_add_ over the same columns (atomic, so its float sums
+    vary from run to run: a yardstick only; its group ids and masked
+    columns are made outside the timed window)."""
     import torch
-    from spark_rapids_tpu_torch.exec.dense_groupby import (
-        dense_groupby, dense_groupby_reference)
+    from spark_rapids_tpu_torch.exec import dense_groupby as dg
     b = dense_bound(args)
     n = max(2, -(-COLD_BYTES // b["bytes"]))
     inputs = [args] + [_clone_args(args) for _ in range(n - 1)]
     row = {"bound_ms": b["ms"], "bound_by": b["by"],
-           "bound_bytes": b["bytes"], "bound_ops": b["ops"]}
-    row["ms"], row["host_ms"] = _cold_ms(dense_groupby, inputs,
-                                         "dense_groupby")
-    row["plain_ms"], _ = _cold_ms(dense_groupby_reference, inputs,
-                                  "dense_groupby plain", rounds=1, reps=1)
+           "bound_bytes": b["bytes"], "bound_ops": b["ops"],
+           "shape": _shape_line(args)}
+    turns = {"kernel": []}
+    turns.update({name: [] for name in compare})
+    hosts = []
+    order = [("kernel", dg.dense_groupby)] + list(compare.items())
+    for who, f in order + order[::-1] + order:
+        ms, host = _cold_ms(f, inputs, f"dense_groupby {label} {who}")
+        turns[who].append(ms)
+        if who == "kernel":
+            hosts.append(host)
+    row["ms"] = float(np.mean(turns["kernel"]))
+    row["turns_ms"] = turns
+    row["host_ms"] = float(np.mean(hosts))
+    row["compare_ms"] = {name: float(np.mean(turns[name]))
+                         for name in compare}
+    row["plain_ms"], _ = _cold_ms(dg.dense_groupby_reference, inputs,
+                                  f"dense_groupby {label} plain", rounds=1,
+                                  reps=1)
     lib_inputs = []
     for keys, remaps, cards, keep, values, G in inputs:
         gid = torch.zeros(keep.shape[0], dtype=torch.int64, device="cuda")
@@ -1083,11 +1328,17 @@ def phase_dense_times(args) -> dict:
         lib_inputs.append((gid, masked, [v.long() for _, v in values],
                            keep.long(), G))
     row["library_ms"], _ = _cold_ms(_index_add_loop, lib_inputs,
-                                    "index_add_ loop")
+                                    f"{label} index_add_ loop")
+    del lib_inputs, inputs
     keys, _, cards, keep, values, G = args
-    _log(f"kernel dense_groupby on q1's batch ({keep.shape[0]} rows, "
+    others = "".join(f"; {name} {row['compare_ms'][name]:.4f} (turns "
+                     f"{', '.join(f'{t:.4f}' for t in turns[name])})"
+                     for name in compare)
+    _log(f"kernel dense_groupby on {label} ({keep.shape[0]} rows, "
          f"{len(keys)} keys of cards {cards}, {len(values)} float64 "
-         f"columns, G = {G}), cold: kernel {row['ms']:.4f} ms, plain "
+         f"columns, G = {G}), cold: kernel {row['ms']:.4f} ms (turns "
+         f"{', '.join(f'{t:.4f}' for t in turns['kernel'])}){others}; "
+         f"plain "
          f"{row['plain_ms']:.4f}, index_add_ loop {row['library_ms']:.4f}, "
          f"bound {row['bound_ms']:.4f} ({row['bound_bytes']} B, "
          f"{row['bound_ops']} additions; by {row['bound_by']}), "
@@ -1176,6 +1427,11 @@ def _profile_report(prof, wall_ms: float, label: str, kernel: str) -> dict:
     lo, hi, union, idle = _idle_share(spans, busy)
     cpu = sorted(((e.self_cpu_time_total, e.key, e.count) for e in avg),
                  reverse=True)
+    calls = {name: sum(e.count for e in avg if name in e.key)
+             for name in ("cudaStreamSynchronize", "cudaMemcpyAsync",
+                          "cudaLaunchKernel")}
+    _log(f"profile: host calls in one warm {label}: " + ", ".join(
+        f"{n} x{c}" for n, c in calls.items()))
     _log(f"profile: {kernel} {kern / 1e3:.4f} ms, {kern / total:.1%} of "
          f"device time; device busy {union / 1e3:.4f} ms of a "
          f"{(hi - lo) / 1e3:.4f} ms window, idle {idle:.1%}; top host self "
@@ -1184,7 +1440,25 @@ def _profile_report(prof, wall_ms: float, label: str, kernel: str) -> dict:
     return {"device_time": True, "device_ms": total / 1e3,
             "kernel_ms": kern / 1e3, "kernel_share": kern / total,
             "window_ms": (hi - lo) / 1e3, "busy_ms": union / 1e3,
-            "idle_share": idle}
+            "idle_share": idle, "host_calls": calls}
+
+
+@contextlib.contextmanager
+def _parent_operand_path():
+    """The dense path's operand copies as commit 645412c made them: each
+    key's remap copied from pageable memory with a stream wait, every
+    batch; the group slots once a query."""
+    from spark_rapids_tpu_torch.exec import aggregate as agg
+    to_device, operand = agg._to_device, agg._device_operand
+    agg._to_device = lambda t, dev: t.to(dev)
+    agg._device_operand = lambda key, make: (
+        make() if key[0] == "remap" else operand(key, make))
+    agg._DEVICE_OPERANDS.clear()
+    try:
+        yield
+    finally:
+        agg._to_device, agg._device_operand = to_device, operand
+        agg._DEVICE_OPERANDS.clear()
 
 
 def phase_profile(session, host, query, right, label: str,
@@ -1211,10 +1485,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", metavar="NAME=DIR", action="append",
                     default=[],
-                    help="also build DIR/rect_match.cu (another version of "
-                    "the kernel with the same launch signature, such as the "
-                    "parent commit's) and time it beside the port's; "
-                    "repeatable")
+                    help="also build DIR/rect_match.cu and/or "
+                    "DIR/dense_groupby.cu (another version of the kernel, "
+                    "such as the parent commit's: rect_match with the same "
+                    "launch signature, dense_groupby with that of commit "
+                    "645412c) and time it beside the port's; repeatable")
     args = ap.parse_args(argv)
     compare = [c.split("=", 1) for c in args.compare]
     if any(len(c) != 2 for c in compare):
@@ -1278,12 +1553,17 @@ def main(argv=None) -> int:
         del first
 
         max_err = phase_exact()
-        times = phase_kernel_times(comments, compare)
+        times = phase_kernel_times(comments, compare["rect_match"])
         del comments
         q1_args = _q1_batch(host, batch_rows)
-        dense_err = phase_dense_exact(q1_args)
-        dense_t = phase_dense_times(q1_args)
+        dense_err = phase_dense_exact(q1_args, compare["dense_groupby"])
+        dense_t = phase_dense_times(q1_args, "q1's batch",
+                                    compare["dense_groupby"])
         del q1_args
+        g64_args = _g64_args(np.random.RandomState(64), batch_rows)
+        dense_t64 = phase_dense_times(g64_args, "the G = 64 shape",
+                                      compare["dense_groupby"])
+        del g64_args
 
         conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows}
         session = TorchSession(conf)          # device defaults to cuda
@@ -1358,6 +1638,12 @@ def main(argv=None) -> int:
         prof1 = phase_profile(session, host, q1,
                               lambda r: q1_equal(r, want1), "q1",
                               "dense_groupby")
+        with _parent_operand_path():
+            prof1_parent = phase_profile(
+                session, host, q1, lambda r: q1_equal(r, want1),
+                "q1 (the operand path of 645412c: each remap copied from "
+                "pageable memory, waiting on the stream, every batch)",
+                "dense_groupby")
         _log(json.dumps({"queries": {
             "q6": {"rows": SF1_ROWS, "wall_ms_cold": ms_cold,
                    "wall_ms_warm": ms_warm},
@@ -1368,7 +1654,8 @@ def main(argv=None) -> int:
                           "profile_on_warm": prof},
             "q1": {"rows": SF1_ROWS, "batches": n_batches, "groups":
                    len(rows), "wall_ms_cold": q1_cold,
-                   "wall_ms_warm": q1_warm, "profile_warm": prof1}}}))
+                   "wall_ms_warm": q1_warm, "profile_warm": prof1,
+                   "profile_warm_parent_operands": prof1_parent}}}))
         main_t = times["main"]
         kernel = {
             "name": "rect_match", "route": "cuda",
@@ -1408,10 +1695,16 @@ def main(argv=None) -> int:
             "library_ms": dense_t["library_ms"],
             "library": "index_add_ loop (atomic, non-deterministic)",
             "host_ms": dense_t["host_ms"],
+            "compare_ms": dense_t["compare_ms"],
+            "turns_ms": dense_t["turns_ms"],
             "bound_bytes": dense_t["bound_bytes"],
             "timing": "device time per launch, launches queued back to "
                       "back over distinct inputs (L2 cold)",
             "shape": [batch_rows, 2, 5, 16],
+            "launch": dense_t["shape"],
+            "g64": {k: dense_t64[k] for k in (
+                "ms", "turns_ms", "compare_ms", "plain_ms", "library_ms", "bound_ms", "bound_bytes",
+                "host_ms", "shape")},
         }
         _log(json.dumps({"kernels": [kernel, dense]}))
     except Exception:

@@ -1,20 +1,26 @@
 // The arithmetic of the dense groupby kernel (dense_groupby.cu), as
 // __host__ __device__ functions, so that g++ compiles and tests it on a
 // machine with no CUDA toolkit (tests/test_torch_groupby.py runs the
-// kernel's block loop on the host through these functions).
+// kernel's warp loop, fold and combine on the host through these
+// functions, each ballot and shuffle emulated lane by lane).
 //
 // A row's group id packs up to kDgMaxKeys dictionary keys:
 //   gid = sum_i (valid_i ? remap_i[code_i] : card_i) * stride_i
 // where remap_i maps the batch dictionary's codes to the exec's global
 // codes in [0, card_i), card_i is the null slot, and stride_i is the
 // product of (card_j + 1) over the keys after i. A dead row (outside the
-// keep mask) gets the id G and drops out.
+// keep mask, or past the last row) gets the id G and drops out.
 //
-// Sums are deterministic: every thread adds its own rows, in row order,
-// into its own slots, and slots are combined in one fixed order: a lane
-// of a warp folds every 32nd slot in turn (dg_fold), then the warp adds
-// halves, lane l taking lane l + 16, 8, 4, 2, 1 (dg_warp_tree on the card,
-// dg_tree_host here). Only additions: no multiply to fuse, no atomics.
+// Sums are deterministic. A warp takes 32 rows at a time and orders them
+// by group id, stably (dg_rank: one ballot per bit of the id), so that
+// each group's rows sit in consecutive lanes in row order. A segmented
+// inclusive scan over the lanes (dg_scan_takes: a shuffle step for each
+// doubling up to the longest group, five at most, a lane adding the lane
+// d below it only inside its own group) leaves each group's sum in its
+// last lane, which adds it into the warp's own slot. The block adds its
+// warps' slots in warp order (dg_fold_warps) and the block partials are
+// added in block order (dg_combine). Counts are integers. Only
+// additions: no multiply to fuse, no atomics.
 #pragma once
 
 #include <stdint.h>
@@ -30,10 +36,20 @@
 
 constexpr int kDgMaxKeys = 4;
 constexpr int kDgMaxCols = 16;
-// rows a block owns: 8 a thread at G = 16 (256 threads), 16 at G = 64
-// (128 threads)
-constexpr int kDgRowsPerBlock = 2048;
 constexpr int kDgLanes = 32;
+// warps a block; each walks its own range of 32-row pieces
+constexpr int kDgWarps = 8;
+constexpr int kDgThreads = kDgWarps * kDgLanes;
+// blocks an SM the registers are bounded for (__launch_bounds__)
+constexpr int kDgMinBlocks = 4;
+// value columns whose loads a warp issues together
+constexpr int kDgColsAPass = 8;
+// blocks whose partials the last of them adds (the first level of the
+// combine); the last group to finish adds the group partials
+constexpr int kDgCombine = 16;
+// ticket counters at the start of the scratch; the last is the second
+// level's
+constexpr int kDgTickets = 64;
 
 // The dictionary keys of one launch (pointers into device memory).
 struct DgKeys {
@@ -59,77 +75,120 @@ __host__ __device__ inline int64_t dg_strides(DgKeys* k) {
 
 // Group id of row r, G when the row is dead. A code outside the remap is
 // clamped into it; an id outside [0, G) (a remap value past its card)
-// drops the row rather than write past the slots.
-// The loop over keys unrolls fully, so that on the card every field of
-// the keys (a kernel parameter) is read at a constant offset.
+// drops the row rather than write past the slots. Every load of the row
+// comes before any decision, so that a thread's rows load together; the
+// loop over keys unrolls fully, so that on the card every field of the
+// keys (a kernel parameter) is read at a constant offset.
 __host__ __device__ DG_INLINE int dg_group_id(const DgKeys& k,
                                               const uint8_t* keep, int64_t r,
                                               int G) {
-  if (!keep[r]) return G;
+  const bool live = keep[r];
   int64_t gid = 0;
 #pragma unroll
   for (int i = 0; i < kDgMaxKeys; ++i) {
     if (i < k.nkeys) {
+      const bool v = k.valid[i][r];
+      int32_t x = k.codes[i][r];
       int32_t c = k.card[i];
-      if (k.valid[i][r] && k.remap_len[i] > 0) {
-        int32_t code = k.codes[i][r];
-        code = code < 0 ? 0 : (code >= k.remap_len[i] ? k.remap_len[i] - 1
-                                                       : code);
-        c = k.remap[i][code];
+      if (v && k.remap_len[i] > 0) {
+        x = x < 0 ? 0 : (x >= k.remap_len[i] ? k.remap_len[i] - 1 : x);
+        c = k.remap[i][x];
       }
       gid += static_cast<int64_t>(c) * k.stride[i];
     }
   }
-  return (gid >= 0 && gid < G) ? static_cast<int>(gid) : G;
+  return (live && gid >= 0 && gid < G) ? static_cast<int>(gid) : G;
 }
 
-// Slot of group g of thread t among a block's tpb threads: slots of one
-// group lie side by side, so the 32 lanes of a warp touch 32 banks
-// whatever groups their rows fall in.
-__host__ __device__ DG_INLINE int dg_slot(int g, int t, int tpb) {
-  return g * tpb + t;
+// ---------------------------------------------------------------------------
+// the row schedule
+// ---------------------------------------------------------------------------
+
+// Pieces [*p0, *p1) of warp w among `warps` (a piece is 32 consecutive
+// rows): contiguous, counts differing by at most one, fixed by the row
+// count and the grid alone.
+__host__ __device__ DG_INLINE void dg_piece_range(int64_t pieces,
+                                                  int64_t warps, int64_t w,
+                                                  int64_t* p0, int64_t* p1) {
+  *p0 = pieces * w / warps;
+  *p1 = pieces * (w + 1) / warps;
 }
 
-// The rows a thread owns in a block of tpb threads: r0 + t + j * tpb for
-// j < R = kDgRowsPerBlock / tpb, those below r1. Its rows' group ids and
-// one column's values live in per-thread arrays of R (registers on the
-// card); every step below is unrolled over them, so that a thread's R
-// loads are in flight together.
+// Bytes of a block's shared memory: each warp's sums (ncols x G, 8
+// bytes), counts ((ncols + 1) x G, 4 bytes, occupancy last) and reorder
+// scratch (row and id a lane).
+__host__ __device__ DG_INLINE int64_t dg_warp_bytes(int G, int ncols) {
+  return static_cast<int64_t>(ncols) * G * 8
+         + static_cast<int64_t>(ncols + 1) * G * 4 + kDgLanes * 8;
+}
 
-// The group ids of a thread's rows (G for a dead row or one past r1),
-// counted into its occupancy slots.
-template <int R>
-__host__ __device__ DG_INLINE void dg_stage_ids(const DgKeys& k,
-                                               const uint8_t* keep,
-                                               int64_t r0, int64_t r1, int t,
-                                               int tpb, int G, int* g,
-                                               int32_t* cnts) {
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    const int64_t r = r0 + t + static_cast<int64_t>(j) * tpb;
-    g[j] = r < r1 ? dg_group_id(k, keep, r, G) : G;
+// ---------------------------------------------------------------------------
+// the warp loop: stable order by group id, then a segmented scan
+// ---------------------------------------------------------------------------
+
+__host__ __device__ DG_INLINE unsigned dg_popc(unsigned x) {
+#ifdef __CUDA_ARCH__
+  return __popc(x);
+#else
+  return static_cast<unsigned>(__builtin_popcount(x));
+#endif
+}
+
+// Bits of a group id, dead rows' G included.
+__host__ __device__ constexpr int dg_id_bits(int G) {
+  return G <= 16 ? 5 : 7;
+}
+
+// One bit of the ordering, most significant first: `ballot` has lane j's
+// bit b of its id. `lt` collects the lanes whose ids are smaller than
+// this lane's, `eq` keeps those equal so far (after the last bit: the
+// lanes with this lane's id).
+__host__ __device__ DG_INLINE void dg_rank_bit(int gid, int b, unsigned ballot,
+                                               unsigned* lt, unsigned* eq) {
+  if ((gid >> b) & 1) {
+    *lt |= *eq & ~ballot;
+    *eq &= ballot;
+  } else {
+    *eq &= ~ballot;
   }
-#pragma unroll
-  for (int j = 0; j < R; ++j)
-    if (g[j] < G) cnts[dg_slot(g[j], t, tpb)] += 1;
 }
 
-// Load one column over a thread's rows: the 8 bytes of each value (float64
-// or int64, as bits; 0 when data is null) and its validity byte.
-template <int R>
-__host__ __device__ DG_INLINE void dg_load_column(const int64_t* data,
-                                                 const uint8_t* valid,
-                                                 int64_t r0, int64_t r1,
-                                                 int t, int tpb, int64_t* x,
-                                                 uint8_t* v) {
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    const int64_t r = r0 + t + static_cast<int64_t>(j) * tpb;
-    const bool in = r < r1;
-    v[j] = in ? valid[r] : 0;
-    x[j] = in && data != nullptr ? data[r] : 0;
-  }
+// The lane's place in the stable order by id: the lanes with smaller ids,
+// then those with the same id below it.
+__host__ __device__ DG_INLINE int dg_rank(unsigned lt, unsigned eq,
+                                          int lane) {
+  return static_cast<int>(dg_popc(lt) + dg_popc(eq & ((1u << lane) - 1u)));
 }
+
+// In the ordered lanes: the first lane of this lane's group, from the
+// ballot of group heads (a lane whose id differs from the lane below).
+__host__ __device__ DG_INLINE int dg_seg_start(unsigned heads, int lane) {
+  const unsigned upto = lane == 31 ? 0xffffffffu : ((2u << lane) - 1u);
+  const unsigned h = heads & upto;     // lane 0 is always a head
+#ifdef __CUDA_ARCH__
+  return 31 - __clz(h);
+#else
+  return 31 - __builtin_clz(h);
+#endif
+}
+
+// The lanes of this lane's group up to this lane (all of the group at
+// its last lane).
+__host__ __device__ DG_INLINE unsigned dg_seg_mask(int start, int lane) {
+  const unsigned upto = lane == 31 ? 0xffffffffu : ((2u << lane) - 1u);
+  return upto & ~((1u << start) - 1u);
+}
+
+// Step d of the scan: whether the lane adds the value of lane - d. The
+// steps run while d is below the longest group's length in lanes (the
+// steps after would add nothing).
+__host__ __device__ DG_INLINE bool dg_scan_takes(int lane, int d, int start) {
+  return lane - d >= start;
+}
+
+// ---------------------------------------------------------------------------
+// values, the fold and the combine
+// ---------------------------------------------------------------------------
 
 // The 8 bytes of a value as type T.
 template <typename T>
@@ -151,51 +210,54 @@ __host__ __device__ DG_INLINE double dg_as<double>(int64_t bits) {
 #endif
 }
 
-// The accumulation step: a thread's loaded valid live rows of one column
-// into its slots, in row order, sum (unless count_only) and count.
-template <typename T, int R>
-__host__ __device__ DG_INLINE void dg_accumulate(const int* g,
-                                                const int64_t* x,
-                                                const uint8_t* v, int t,
-                                                int tpb, int G,
-                                                bool count_only, T* sums,
-                                                int32_t* cnts) {
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    if (g[j] < G && v[j]) {
-      if (!count_only) sums[dg_slot(g[j], t, tpb)] += dg_as<T>(x[j]);
-      cnts[dg_slot(g[j], t, tpb)] += 1;
-    }
-  }
-}
-
-// Lane `lane`'s fold of n values base[j * stride], j = lane, lane + 32,
-// ..., in that order, as accumulator type A.
-template <typename A, typename S>
-__host__ __device__ DG_INLINE A dg_fold(const S* base, int64_t stride,
-                                        int lane, int64_t n) {
-  A acc = 0;
-#pragma unroll 8
-  for (int64_t j = lane; j < n; j += kDgLanes) acc += static_cast<A>(
-      base[j * stride]);
-  return acc;
-}
-
-#ifdef __CUDACC__
-// The warp's tree over the lanes' folds: lane 0 ends with the total.
-template <typename T>
-__device__ DG_INLINE T dg_warp_tree(T v) {
-  for (int off = kDgLanes / 2; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
+__host__ __device__ DG_INLINE int64_t dg_bits(int64_t v) { return v; }
+__host__ __device__ DG_INLINE int64_t dg_bits(double v) {
+#ifdef __CUDA_ARCH__
+  return __double_as_longlong(v);
 #else
-// The same tree over 32 lane values on the host: lanes below each
-// distance take the lane that far above, as the shuffles do.
-template <typename T>
-inline T dg_tree_host(T* v) {
-  for (int off = kDgLanes / 2; off > 0; off >>= 1)
-    for (int l = 0; l < off; ++l) v[l] += v[l + off];
-  return v[0];
-}
+  int64_t out;
+  memcpy(&out, &v, sizeof(out));
+  return out;
 #endif
+}
+
+// Output o of a block: its warps' slots added in warp order (warp w's at
+// w * stride + o), as type T.
+template <typename T, typename S>
+__host__ __device__ DG_INLINE int64_t dg_fold_warps(const S* slot,
+                                                    int64_t stride, int warps,
+                                                    int64_t o) {
+  T s = 0;
+  for (int w = 0; w < warps; ++w)
+    s += dg_as<T>(static_cast<int64_t>(slot[w * stride + o]));
+  return dg_bits(s);
+}
+
+// A partial another block wrote: on the card read at L2, past this SM's
+// L1, which is not kept coherent with other SMs' writes.
+__host__ __device__ DG_INLINE int64_t dg_load_partial(const int64_t* p) {
+#ifdef __CUDA_ARCH__
+  return __ldcg(reinterpret_cast<const long long*>(p));
+#else
+  return *p;
+#endif
+}
+
+// Output o of n partials (partial j's at j * stride + o) added in order,
+// loaded kDgCombine at a time so that the loads are in flight together.
+template <typename T>
+__host__ __device__ DG_INLINE int64_t dg_combine(const int64_t* part,
+                                                 int64_t stride, int64_t n,
+                                                 int64_t o) {
+  T s = 0;
+  for (int64_t j0 = 0; j0 < n; j0 += kDgCombine) {
+    int64_t x[kDgCombine];
+#pragma unroll
+    for (int u = 0; u < kDgCombine; ++u)
+      x[u] = j0 + u < n ? dg_load_partial(part + (j0 + u) * stride + o) : 0;
+#pragma unroll
+    for (int u = 0; u < kDgCombine; ++u)
+      if (j0 + u < n) s += dg_as<T>(x[u]);
+  }
+  return dg_bits(s);
+}

@@ -29,7 +29,8 @@ is sorted, so that ORDER BY over a string key orders as the strings do.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, List, Optional, Sequence
+from collections import OrderedDict
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -52,6 +53,30 @@ __all__ = ["TpuHashAggregateExec", "DIRECT_MAX_GROUPS"]
 DIRECT_MAX_GROUPS = BUCKETS[-1]
 #: the partial batch's last column: which rows are groups
 _LIVE = "__live"
+#: small operands made on the host (dictionary remaps, group slots), kept
+#: on their device across batches and queries, so that a warm query
+#: copies none of them and never waits on the stream for one
+_DEVICE_OPERANDS: "OrderedDict[tuple, object]" = OrderedDict()
+_DEVICE_OPERANDS_MAX = 256
+#: remaps longer than this are copied every time rather than kept
+_CACHED_REMAP_MAX = 4096
+
+
+def _to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device``; to a card through pinned memory,
+    without waiting on the stream."""
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _device_operand(key: tuple, make: Callable[[], object]):
+    got = _DEVICE_OPERANDS.get(key)
+    if got is None:
+        got = _DEVICE_OPERANDS[key] = make()
+        if len(_DEVICE_OPERANDS) > _DEVICE_OPERANDS_MAX:
+            _DEVICE_OPERANDS.popitem(last=False)
+    return got
 
 
 def _apply_pre_stages(stages, in_schema: Schema, base_dvals, num_rows: int,
@@ -116,7 +141,6 @@ class TpuHashAggregateExec(TpuExec):
                                       + [StructField(_LIVE, BOOL, True)])
         #: string -> global code, per dictionary key (one execution's)
         self._dicts: List[Dict[str, int]] = []
-        self._slot_cache: Dict[tuple, list] = {}
 
     def output_schema(self) -> Schema:
         return self._schema
@@ -159,8 +183,14 @@ class TpuHashAggregateExec(TpuExec):
         d = self._dicts[j]
         gmap = np.asarray([d.setdefault(s, len(d)) for s in src.dictionary],
                           dtype=np.int32)
-        return src.data, src.validity, torch.from_numpy(gmap).to(
-            src.data.device)
+        dev = src.data.device
+        if len(gmap) > _CACHED_REMAP_MAX:
+            return src.data, src.validity, _to_device(torch.from_numpy(gmap),
+                                                      dev)
+        remap = _device_operand(
+            ("remap", str(dev), gmap.tobytes()),
+            lambda: _to_device(torch.from_numpy(gmap), dev))
+        return src.data, src.validity, remap
 
     def _passes_through(self, name: str) -> bool:
         """True when every fused projection passes column ``name`` on
@@ -213,12 +243,10 @@ class TpuHashAggregateExec(TpuExec):
                     k = index[(None if d is None else id(d), id(v))]
                     sums.append((res.sums[k], res.counts[k]))
             partials.extend(a.from_sums(sums))
-        ck = (tuple(cards), G, str(keep.device))
-        slots = self._slot_cache.get(ck)
-        if slots is None:
-            slots = self._slot_cache[ck] = [
-                (c.to(keep.device), v.to(keep.device))
-                for c, v in group_slots(cards, G)]
+        slots = _device_operand(
+            ("slots", tuple(cards), G, str(keep.device)),
+            lambda: [(_to_device(c, keep.device), _to_device(v, keep.device))
+                     for c, v in group_slots(cards, G)])
         return slots, partials, res.occupancy > 0
 
     def _sort_keys(self, batch: ColumnarBatch, ectx) -> List[DVal]:

@@ -12,13 +12,16 @@ and the count of live rows (occupancy): all of a batch's aggregates in
 one call (``exec/aggregate.py`` hands each aggregate its pairs).
 
 The kernel is ``csrc/dense_groupby.cu``, its arithmetic
-``csrc/dense_groupby_row.cuh``. It adds in a fixed order, with no atomics,
-so two launches give the same bits; its bound is memory, each input read
-once. ``dense_groupby`` launches it for CUDA tensors and runs
-``dense_groupby_reference`` for CPU tensors.
+``csrc/dense_groupby_row.cuh``. It adds floats in a fixed order, with no
+float atomics, so two launches give the same bits; its bound is memory,
+each input read once. ``dense_groupby`` launches it for CUDA tensors and
+runs ``dense_groupby_reference`` for CPU tensors. Its host side checks
+only what the C side cannot, and packs the launch's arguments into one
+vector for one ``ctypes`` call.
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
@@ -141,25 +144,128 @@ def dense_groupby_reference(keys: Sequence[Tuple[torch.Tensor,
     return DenseGroups(sums, counts_t, seg_count(keep, gid, G))
 
 
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_void_p,
-             ctypes.c_int64, ctypes.c_int] + [ctypes.c_void_p] * 3
-             + [ctypes.c_int] + [ctypes.c_void_p] * 6)
+_KERNEL: dict = {}
+#: (device index, stream) -> the kernel's scratch: ticket counters, which
+#: every launch leaves at zero, then block partials (never zeroed)
+_SCRATCH: dict = {}
 
 
-def _library():
-    from .. import native
-    lib = native.load("dense_groupby")
-    fn = lib.dense_groupby_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        lib.dense_groupby_rows_per_block.restype = ctypes.c_int
-    return lib
+def _kernel() -> dict:
+    """The library's functions, typed once."""
+    if not _KERNEL:
+        from .. import native
+        lib = native.load("dense_groupby")
+        lib.dense_groupby_launch.argtypes = [ctypes.c_void_p]
+        lib.dense_groupby_launch.restype = ctypes.c_int
+        lib.dense_groupby_scratch_bytes.argtypes = [ctypes.c_int,
+                                                    ctypes.c_int]
+        lib.dense_groupby_scratch_bytes.restype = ctypes.c_int64
+        lib.dense_groupby_describe.argtypes = [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        lib.dense_groupby_describe.restype = ctypes.c_int
+        _KERNEL.update(launch=lib.dense_groupby_launch,
+                       scratch_bytes=lib.dense_groupby_scratch_bytes,
+                       describe=lib.dense_groupby_describe, sizes={})
+    return _KERNEL
 
 
-def _ptrs(tensors) -> ctypes.Array:
-    return (ctypes.c_void_p * max(len(tensors), 1))(
-        *[None if t is None else t.data_ptr() for t in tensors])
+def _scratch(k: dict, dev: int, stream: int, G: int, K: int):
+    need = k["sizes"].get((G, K))
+    if need is None:
+        need = k["sizes"][(G, K)] = int(k["scratch_bytes"](G, K))
+    buf = _SCRATCH.get((dev, stream))
+    if buf is None or buf.numel() * 8 < need:
+        buf = _SCRATCH[(dev, stream)] = torch.zeros(
+            -(-need // 8), dtype=torch.int64, device=torch.device("cuda",
+                                                                  dev))
+    return buf
+
+
+def _refuse(keys, remaps, cards, keep, values, num_groups):
+    """The plain version's message for arguments the kernel refuses."""
+    _check(keys, remaps, cards, keep, values, num_groups)
+    return ValueError("dense_groupby needs contiguous 1-D tensors on one "
+                      "device")
+
+
+#: torch's raw current-stream getter (a Python int), where it has one
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _launch(keys, remaps, cards, keep, values, num_groups) -> DenseGroups:
+    """One kernel launch on CUDA tensors; raises on an error. It checks what the C side cannot see (counts, dtypes, devices, lengths,
+    contiguity; any contiguous tensor of the rows' count is read as a
+    vector) in the same pass that packs the launch's arguments."""
+    G, K = num_groups, len(values)
+    if G not in BUCKETS or not 1 <= len(keys) <= MAX_KEYS \
+            or not len(remaps) == len(keys) == len(cards) or K > MAX_COLS \
+            or min(cards) < 0 or math.prod(c + 1 for c in cards) > G \
+            or keep.dtype is not torch.bool or not keep.is_contiguous():
+        raise _refuse(keys, remaps, cards, keep, values, num_groups)
+    k = _KERNEL or _kernel()
+    dev, p = keep.get_device(), keep.numel()
+    stream = _RAW_STREAM(dev) if _RAW_STREAM is not None else \
+        torch.cuda.current_stream(dev).cuda_stream
+    scratch = _scratch(k, dev, stream, G, K)
+    out = torch.empty(2 * K * G + G, dtype=torch.int64, device=keep.device)
+    v = [len(keys), K, G, p, keep.data_ptr(), out.data_ptr(),
+         scratch.data_ptr(), scratch.numel() * 8, stream, 0]
+    b8, i32, i64 = torch.bool, torch.int32, torch.int64
+    for (codes, valid), remap, card in zip(keys, remaps, cards):
+        if codes.dtype is not i32 or valid.dtype is not b8 \
+                or remap.dtype is not i32 or not codes.is_contiguous() \
+                or not valid.is_contiguous() or codes.numel() != p \
+                or valid.numel() != p or not remap.is_contiguous() \
+                or codes.get_device() != dev or valid.get_device() != dev \
+                or remap.get_device() != dev:
+            raise _refuse(keys, remaps, cards, keep, values, num_groups)
+        v += (codes.data_ptr(), valid.data_ptr(), remap.data_ptr(),
+              remap.shape[0], card)
+    int_mask = 0
+    for c, (data, valid) in enumerate(values):
+        if valid.dtype is not b8 or not valid.is_contiguous() \
+                or valid.numel() != p or valid.get_device() != dev:
+            raise _refuse(keys, remaps, cards, keep, values, num_groups)
+        if data is None:
+            v += (0, valid.data_ptr())
+            continue
+        if (data.dtype is not torch.float64 and data.dtype is not i64) \
+                or not data.is_contiguous() or data.numel() != p \
+                or data.get_device() != dev:
+            raise _refuse(keys, remaps, cards, keep, values, num_groups)
+        v += (data.data_ptr(), valid.data_ptr())
+        if data.dtype is i64:
+            int_mask |= 1 << c
+    v[9] = int_mask
+    packed = array.array("q", v)
+    rc = k["launch"](packed.buffer_info()[0])
+    if rc != 0:
+        raise RuntimeError(f"dense_groupby kernel launch failed: CUDA error "
+                           f"{rc}")
+    dense_groupby.launches += 1
+    sums: List[Optional[torch.Tensor]] = [None] * K
+    if K:
+        block = out[:K * G]
+        floats = int_mask != (1 << K) - 1 and block.view(
+            torch.float64).view(K, G).unbind(0)
+        ints = int_mask and block.view(K, G).unbind(0)
+        for c, (data, _) in enumerate(values):
+            if data is not None:
+                sums[c] = ints[c] if (int_mask >> c) & 1 else floats[c]
+    return DenseGroups(sums, out[K * G:2 * K * G].view(K, G),
+                       out[2 * K * G:])
+
+
+def kernel_shape(num_groups: int, ncols: int) -> dict:
+    """The launch shape the kernel picks on the current card (threads a
+    block, shared memory, blocks an SM, SMs, registers), for reports."""
+    k = _kernel()
+    out = (ctypes.c_int64 * 6)()
+    rc = k["describe"](num_groups, ncols, out)
+    if rc != 0:
+        raise RuntimeError(f"dense_groupby_describe failed: CUDA error {rc}")
+    return dict(zip(("threads", "smem_bytes", "blocks_per_sm", "sms",
+                     "registers", "local_bytes"), out))
 
 
 def dense_groupby(keys: Sequence[Tuple[torch.Tensor, torch.Tensor]],
@@ -171,52 +277,13 @@ def dense_groupby(keys: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     below ``cards``; ``values`` are (float64 or int64 data or None, bool
     validity). On a CUDA tensor it launches the kernel (or raises); on a
     CPU tensor it runs ``dense_groupby_reference``."""
-    _check(keys, remaps, cards, keep, values, num_groups)
-    dev = keep.device
-    if dev.type == "cpu":
-        return dense_groupby_reference(keys, remaps, cards, keep, values,
-                                       num_groups)
-    if dev.type != "cuda":
-        raise ValueError(f"dense_groupby has no kernel for {dev}")
-    tensors = [t for k in keys for t in k] + list(remaps) + [keep] + [
-        t for col in values for t in col if t is not None]
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("dense_groupby needs contiguous tensors")
-    lib = _library()
-    G, K, p = num_groups, len(values), keep.shape[0]
-    # one allocation: block partials (sums, counts), then the outputs
-    part = max(-(-p // lib.dense_groupby_rows_per_block()), 1) * (K + 1) * G
-    buf = torch.empty(2 * part + 2 * K * G + G, dtype=torch.int64,
-                      device=dev)
-    sums = buf[2 * part:2 * part + K * G].view(K, G)
-    counts = buf[2 * part + K * G:2 * part + 2 * K * G].view(K, G)
-    occupancy = buf[2 * part + 2 * K * G:]
-    int32s = ctypes.c_int32 * len(keys)
-    rc = lib.dense_groupby_launch(
-        len(keys), _ptrs([c for c, _ in keys]), _ptrs([v for _, v in keys]),
-        _ptrs(remaps), int32s(*[len(r) for r in remaps]),
-        int32s(*[int(c) for c in cards]), keep.data_ptr(), p, K,
-        _ptrs([d for d, _ in values]), _ptrs([v for _, v in values]),
-        (ctypes.c_uint8 * max(K, 1))(*[
-            int(d is not None and d.dtype == torch.int64)
-            for d, _ in values]),
-        G, buf.data_ptr(), buf.data_ptr() + 8 * part, sums.data_ptr(),
-        counts.data_ptr(), occupancy.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"dense_groupby kernel launch failed: CUDA error "
-                           f"{rc}")
-    dense_groupby.launches += 1
-    out_sums = []
-    for k, (data, _) in enumerate(values):
-        if data is None:
-            out_sums.append(None)
-        else:
-            out_sums.append(sums[k] if data.dtype == torch.int64
-                            else sums[k].view(torch.float64))
-    return DenseGroups(out_sums, counts, occupancy)
+    if keep.is_cuda:
+        return _launch(keys, remaps, cards, keep, values, num_groups)
+    if keep.device.type != "cpu":
+        raise ValueError(f"dense_groupby has no kernel for {keep.device}")
+    return dense_groupby_reference(keys, remaps, cards, keep, values,
+                                   num_groups)
 
 
-#: kernel launches (calls of the kernel pair) since the count was last set
-#: to 0
+#: kernel launches since the count was last set to 0
 dense_groupby.launches = 0

@@ -23,13 +23,16 @@ the port:
   path adds in another order than the reference's, and across batches
   the two packages' partials reach the merge in different layouts);
 * the kernel's arithmetic (csrc/dense_groupby_row.cuh), built by g++,
-  driven through the kernel's block loop and its block-order combine on
-  the host, against the plain version: counts and integer sums exactly,
-  float sums to a relative 1e-12 (the kernel's fixed order is not the
-  one-hot's).
+  driven through the kernel's warp loop (every ballot and shuffle
+  emulated lane by lane), its fold in warp order and its two-level
+  combine on the host, against the plain version: counts and integer
+  sums exactly, float sums to a relative 1e-12 (the kernel's fixed order
+  is not the one-hot's), sums that are not finite equal; and with
+  blocks, warps and tickets taken in shuffled orders, the same bits.
 """
 import ctypes
 import math
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -384,138 +387,233 @@ def test_dense_wrapper_on_cpu_runs_the_plain_version():
 _HOST_SRC = r"""
 #include <stdint.h>
 #include <string.h>
+#include <algorithm>
+#include <random>
 #include <vector>
 #include "dense_groupby_row.cuh"
 
-// dense_groupby.cu's two launches, block by block and thread by thread,
-// in the order the card adds: per block, each thread's group ids and
-// occupancy (dg_stage_ids); per column, each thread's rows loaded
-// (dg_load_column) and added into its slots (dg_accumulate), then per
-// group the lanes' folds of every 32nd slot and the warp tree; then per
-// (column, group) the lanes' folds of every 32nd block and the tree.
-template <typename T>
-static void fold_block(const T* sums, const int32_t* cnts, int G, int tpb,
-                       int64_t* psum, int64_t* pcnt) {
-  for (int g = 0; g < G; ++g) {
-    int64_t n[kDgLanes];
-    T s[kDgLanes];
-    for (int l = 0; l < kDgLanes; ++l) {
-      n[l] = dg_fold<int64_t>(cnts + dg_slot(g, 0, tpb), 1, l, tpb);
-      s[l] = sums ? dg_fold<T>(sums + dg_slot(g, 0, tpb), 1, l, tpb) : T(0);
-    }
-    pcnt[g] = dg_tree_host(n);
-    T total = dg_tree_host(s);
-    memcpy(&psum[g], &total, 8);
+// dense_groupby.cu's launch on the host, through the same functions: each
+// warp's pieces of 32 rows lane by lane (every ballot and shuffle
+// emulated over the 32 lanes), the block's fold in warp order, and the
+// combine by the last block of each 16 and the last group; the blocks,
+// and the warps within a block, taken in orders drawn from `seed` (0: in
+// order).
+
+struct Launch {
+  DgKeys k;
+  const uint8_t* keep;
+  const uint8_t* data[kDgMaxCols];
+  const uint8_t* valid[kDgMaxCols];
+  int ncols, G;
+  uint32_t int_mask, data_mask;
+  int64_t rows;
+};
+
+// the segmented scan, steps while d < span
+static void scan(bool is_int, int64_t* x, const int* start, int span) {
+  for (int d = 1; d < span; d <<= 1) {
+    int64_t y[kDgLanes];
+    for (int l = 0; l < kDgLanes; ++l)       // __shfl_up_sync
+      y[l] = x[l >= d ? l - d : l];
+    for (int l = 0; l < kDgLanes; ++l)
+      if (dg_scan_takes(l, d, start[l]))
+        x[l] = is_int ? x[l] + y[l]
+                      : dg_bits(dg_as<double>(x[l]) + dg_as<double>(y[l]));
   }
 }
 
-template <typename T>
-static int64_t fold_blocks(const int64_t* part, int64_t stride,
-                           int64_t blocks) {
-  T v[kDgLanes];
+// piece p into one warp's slots; 0, or why the loop failed
+static int reduce_piece(const Launch& L, int64_t p, int64_t* w_sum,
+                        uint32_t* w_cnt) {
+  const int G = L.G;
+  int gid[kDgLanes];
+  bool in[kDgLanes];
+  for (int l = 0; l < kDgLanes; ++l) {
+    const int64_t row = p * kDgLanes + l;
+    in[l] = row < L.rows;
+    gid[l] = in[l] ? dg_group_id(L.k, L.keep, row, G) : G;
+  }
+  unsigned lt[kDgLanes], eq[kDgLanes];
+  for (int l = 0; l < kDgLanes; ++l) lt[l] = 0, eq[l] = 0xffffffffu;
+  for (int b = dg_id_bits(G) - 1; b >= 0; --b) {
+    unsigned ballot = 0;
+    for (int l = 0; l < kDgLanes; ++l) ballot |= ((gid[l] >> b) & 1u) << l;
+    for (int l = 0; l < kDgLanes; ++l)
+      dg_rank_bit(gid[l], b, ballot, &lt[l], &eq[l]);
+  }
+  int src[kDgLanes], gs[kDgLanes];
+  unsigned hit = 0;
+  for (int l = 0; l < kDgLanes; ++l) {
+    const int r = dg_rank(lt[l], eq[l], l);
+    if (r < 0 || r >= kDgLanes || ((hit >> r) & 1u)) return 2;
+    hit |= 1u << r;
+    src[r] = l;
+    gs[r] = gid[l];
+  }
+  for (int l = 1; l < kDgLanes; ++l)          // stable order by id
+    if (gs[l - 1] > gs[l] || (gs[l - 1] == gs[l] && src[l - 1] > src[l]))
+      return 3;
+  unsigned heads = 0;
   for (int l = 0; l < kDgLanes; ++l)
-    v[l] = dg_fold<T>(reinterpret_cast<const T*>(part), stride, l, blocks);
-  T total = dg_tree_host(v);
-  int64_t bits;
-  memcpy(&bits, &total, 8);
-  return bits;
-}
-
-template <int R>
-static int run(const DgKeys& k, const uint8_t* keep, int64_t rows,
-               int ncols, const void* const* data,
-               const uint8_t* const* valid, const uint8_t* is_int, int G,
-               int tpb, int64_t* sums, int64_t* counts, int64_t* occupancy) {
-  const int64_t blocks = (rows + kDgRowsPerBlock - 1) / kDgRowsPerBlock;
-  const int64_t stride = int64_t(ncols + 1) * G;
-  std::vector<int64_t> psum(blocks * stride), pcnt(blocks * stride);
-  std::vector<int64_t> s_sum(G * tpb);
-  std::vector<int32_t> s_cnt(G * tpb);
-  // each thread's registers: its rows' group ids, one column over them
-  std::vector<int> g(tpb * R);
-  std::vector<int64_t> x(tpb * R);
-  std::vector<uint8_t> v(tpb * R);
-  for (int64_t b = 0; b < blocks; ++b) {
-    const int64_t r0 = b * kDgRowsPerBlock;
-    const int64_t r1 = rows - r0 < kDgRowsPerBlock ? rows
-                                                   : r0 + kDgRowsPerBlock;
-    int64_t* ps = psum.data() + b * stride;
-    int64_t* pc = pcnt.data() + b * stride;
-    std::fill(s_cnt.begin(), s_cnt.end(), 0);
-    for (int t = 0; t < tpb; ++t)
-      dg_stage_ids<R>(k, keep, r0, r1, t, tpb, G, &g[t * R], s_cnt.data());
-    fold_block<int64_t>(nullptr, s_cnt.data(), G, tpb, ps + ncols * G,
-                        pc + ncols * G);
-    for (int c = 0; c < ncols; ++c) {
-      std::fill(s_sum.begin(), s_sum.end(), 0);
-      std::fill(s_cnt.begin(), s_cnt.end(), 0);
-      const bool count_only = data[c] == nullptr;
-      for (int t = 0; t < tpb; ++t) {
-        dg_load_column<R>(static_cast<const int64_t*>(data[c]), valid[c],
-                          r0, r1, t, tpb, &x[t * R], &v[t * R]);
-        if (is_int[c])
-          dg_accumulate<int64_t, R>(&g[t * R], &x[t * R], &v[t * R], t,
-                                    tpb, G, count_only, s_sum.data(),
-                                    s_cnt.data());
-        else
-          dg_accumulate<double, R>(&g[t * R], &x[t * R], &v[t * R], t, tpb,
-                                   G, count_only,
-                                   reinterpret_cast<double*>(s_sum.data()),
-                                   s_cnt.data());
+    heads |= (l == 0 || gs[l] != gs[l - 1] ? 1u : 0u) << l;
+  int start[kDgLanes], span = 0;
+  unsigned seg[kDgLanes];
+  bool last[kDgLanes];
+  for (int l = 0; l < kDgLanes; ++l) {
+    start[l] = dg_seg_start(heads, l);
+    seg[l] = dg_seg_mask(start[l], l);
+    last[l] = (l == kDgLanes - 1 || gs[l] != gs[l + 1]) && gs[l] < G;
+    span = std::max(span, l - start[l] + 1); // __reduce_max_sync
+    if (last[l]) w_cnt[L.ncols * G + gs[l]] += l - start[l] + 1;
+  }
+  for (int c = 0; c < L.ncols; ++c) {
+    uint8_t v[kDgLanes];
+    int64_t x[kDgLanes];
+    unsigned vb = 0;
+    for (int l = 0; l < kDgLanes; ++l) {
+      const int64_t row = p * kDgLanes + l;
+      v[l] = in[l] ? L.valid[c][row] : 0;
+      x[l] = 0;
+      if (in[l] && ((L.data_mask >> c) & 1u))
+        memcpy(&x[l], L.data[c] + 8 * row, 8);
+      vb |= (v[l] ? 1u : 0u) << l;
+    }
+    bool vs[kDgLanes];
+    unsigned vsb = 0;
+    for (int l = 0; l < kDgLanes; ++l) {
+      vs[l] = gs[l] < G && ((vb >> src[l]) & 1u);
+      vsb |= (vs[l] ? 1u : 0u) << l;
+    }
+    const bool is_int = (L.int_mask >> c) & 1u;
+    int64_t xs[kDgLanes];
+    for (int l = 0; l < kDgLanes; ++l) xs[l] = vs[l] ? x[src[l]] : 0;
+    if ((L.data_mask >> c) & 1u) scan(is_int, xs, start, span);
+    for (int l = 0; l < kDgLanes; ++l) {
+      const unsigned nv = dg_popc(vsb & seg[l]);
+      if (!(last[l] && nv)) continue;
+      if ((L.data_mask >> c) & 1u) {
+        int64_t* slot = w_sum + c * G + gs[l];
+        *slot = is_int ? *slot + xs[l]
+                       : dg_bits(dg_as<double>(*slot)
+                                 + dg_as<double>(xs[l]));
       }
-      if (is_int[c])
-        fold_block<int64_t>(count_only ? nullptr : s_sum.data(),
-                            s_cnt.data(), G, tpb, ps + c * G, pc + c * G);
-      else
-        fold_block<double>(count_only ? nullptr
-                           : reinterpret_cast<double*>(s_sum.data()),
-                           s_cnt.data(), G, tpb, ps + c * G, pc + c * G);
+      w_cnt[c * G + gs[l]] += nv;
     }
   }
-  for (int c = 0; c <= ncols; ++c)
-    for (int gr = 0; gr < G; ++gr) {
-      const int64_t w = int64_t(c) * G + gr;
-      const int64_t n = fold_blocks<int64_t>(pcnt.data() + w, stride,
-                                             blocks);
-      if (c == ncols) {
-        occupancy[gr] = n;
-        continue;
-      }
-      counts[w] = n;
-      const int64_t bits = is_int[c]
-          ? fold_blocks<int64_t>(psum.data() + w, stride, blocks)
-          : fold_blocks<double>(psum.data() + w, stride, blocks);
-      sums[w] = data[c] ? bits : 0;
-    }
   return 0;
 }
 
-extern "C" int dense_groupby_host(
-    int nkeys, const int32_t* const* codes, const uint8_t* const* kvalid,
-    const int32_t* const* remaps, const int32_t* remap_len,
-    const int32_t* cards, const uint8_t* keep, int64_t rows, int ncols,
-    const void* const* data, const uint8_t* const* valid,
-    const uint8_t* is_int, int G, int tpb, int64_t* sums, int64_t* counts,
-    int64_t* occupancy) {
-  DgKeys k = {};
-  k.nkeys = nkeys;
-  for (int i = 0; i < nkeys; ++i) {
-    k.codes[i] = codes[i];
-    k.valid[i] = kvalid[i];
-    k.remap[i] = remaps[i];
-    k.remap_len[i] = remap_len[i];
-    k.card[i] = cards[i];
+static void combine_into(const Launch& L, const int64_t* ps,
+                         const int64_t* pc, int64_t n, int64_t* dsum,
+                         int64_t* dcnt) {
+  const int kg = L.ncols * L.G;
+  for (int o = 0; o < kg + L.G; ++o) {
+    dcnt[o] = dg_combine<int64_t>(pc, kg + L.G, n, o);
+    if (o >= kg) continue;
+    const int c = o / L.G;
+    int64_t s = 0;
+    if ((L.data_mask >> c) & 1u)
+      s = ((L.int_mask >> c) & 1u) ? dg_combine<int64_t>(ps, kg, n, o)
+                                   : dg_combine<double>(ps, kg, n, o);
+    dsum[o] = s;
   }
-  if (dg_strides(&k) > G) return 1;
-  if (tpb == 256)
-    return run<kDgRowsPerBlock / 256>(k, keep, rows, ncols, data, valid,
-                                      is_int, G, tpb, sums, counts,
-                                      occupancy);
-  if (tpb == 128)
-    return run<kDgRowsPerBlock / 128>(k, keep, rows, ncols, data, valid,
-                                      is_int, G, tpb, sums, counts,
-                                      occupancy);
-  return 2;
+}
+
+// the packed arguments of dense_groupby_launch (scratch and stream
+// unused); `grid` blocks at most; returns 0, or why the loop failed
+extern "C" int dense_groupby_host(const int64_t* v, int64_t grid,
+                                  uint64_t seed) {
+  Launch L = {};
+  const int nk = static_cast<int>(v[0]);
+  L.ncols = static_cast<int>(v[1]);
+  L.G = static_cast<int>(v[2]);
+  L.rows = v[3];
+  L.keep = reinterpret_cast<const uint8_t*>(v[4]);
+  L.int_mask = static_cast<uint32_t>(v[9]);
+  const int64_t* kv = v + 10;
+  const int64_t* cv = kv + 5 * nk;
+  L.k.nkeys = nk;
+  for (int i = 0; i < nk; ++i) {
+    L.k.codes[i] = reinterpret_cast<const int32_t*>(kv[5 * i]);
+    L.k.valid[i] = reinterpret_cast<const uint8_t*>(kv[5 * i + 1]);
+    L.k.remap[i] = reinterpret_cast<const int32_t*>(kv[5 * i + 2]);
+    L.k.remap_len[i] = static_cast<int32_t>(kv[5 * i + 3]);
+    L.k.card[i] = static_cast<int32_t>(kv[5 * i + 4]);
+  }
+  if (dg_strides(&L.k) > L.G) return 1;
+  for (int c = 0; c < L.ncols; ++c) {
+    L.data[c] = reinterpret_cast<const uint8_t*>(cv[2 * c]);
+    L.valid[c] = reinterpret_cast<const uint8_t*>(cv[2 * c + 1]);
+    L.data_mask |= (cv[2 * c] != 0 ? 1u : 0u) << c;
+  }
+  const int G = L.G, kg = L.ncols * G;
+  const int64_t pieces = (L.rows + kDgLanes - 1) / kDgLanes;
+  grid = std::max<int64_t>(1, std::min<int64_t>(
+      grid, (pieces + kDgWarps - 1) / kDgWarps));
+  std::vector<int64_t> psum(grid * kg), pcnt(grid * (kg + G));
+  std::mt19937_64 rng(seed);
+  std::vector<int64_t> order(grid);
+  for (int64_t b = 0; b < grid; ++b) order[b] = b;
+  if (seed) std::shuffle(order.begin(), order.end(), rng);
+  for (int64_t b : order) {                   // blocks run in any order
+    std::vector<int64_t> w_sum(kDgWarps * kg, 0);
+    std::vector<uint32_t> w_cnt(kDgWarps * (kg + G), 0);
+    int warps[kDgWarps];                      // warps interleave freely
+    for (int w = 0; w < kDgWarps; ++w) warps[w] = w;
+    if (seed) std::shuffle(warps, warps + kDgWarps, rng);
+    for (int w : warps) {
+      int64_t p0, p1;
+      dg_piece_range(pieces, grid * kDgWarps, b * kDgWarps + w, &p0, &p1);
+      for (int64_t p = p0; p < p1; ++p) {
+        const int rc = reduce_piece(L, p, w_sum.data() + w * kg,
+                                    w_cnt.data() + w * (kg + G));
+        if (rc) return rc;
+      }
+    }
+    for (int o = 0; o < kg + G; ++o) {
+      pcnt[b * (kg + G) + o] =
+          dg_fold_warps<int64_t>(w_cnt.data(), kg + G, kDgWarps, o);
+      if (o >= kg) continue;
+      const int c = o / G;
+      int64_t s = 0;
+      if ((L.data_mask >> c) & 1u)
+        s = ((L.int_mask >> c) & 1u)
+                ? dg_fold_warps<int64_t>(w_sum.data(), kg, kDgWarps, o)
+                : dg_fold_warps<double>(w_sum.data(), kg, kDgWarps, o);
+      psum[b * kg + o] = s;
+    }
+  }
+  // tickets, taken as the blocks finish
+  int64_t* sums = reinterpret_cast<int64_t*>(v[5]);
+  int64_t* counts = sums + kg;
+  const int64_t groups = (grid + kDgCombine - 1) / kDgCombine;
+  std::vector<int64_t> gsum(groups * kg), gcnt(groups * (kg + G));
+  std::vector<int> tickets(groups, 0);
+  int last_groups = 0, combines = 0;
+  if (seed) std::shuffle(order.begin(), order.end(), rng);
+  for (int64_t b : order) {
+    const int64_t q = b / kDgCombine, first = q * kDgCombine;
+    const int64_t nq = std::min<int64_t>(kDgCombine, grid - first);
+    if (++tickets[q] != nq) continue;
+    ++combines;
+    if (groups == 1) {
+      combine_into(L, psum.data(), pcnt.data(), nq, sums, counts);
+      continue;
+    }
+    combine_into(L, psum.data() + first * kg,
+                 pcnt.data() + first * (kg + G), nq, gsum.data() + q * kg,
+                 gcnt.data() + q * (kg + G));
+    if (++last_groups == groups) {
+      combine_into(L, gsum.data(), gcnt.data(), groups, sums, counts);
+      ++combines;
+    }
+  }
+  return combines == groups + (groups > 1 ? 1 : 0) ? 0 : 5;
+}
+
+// a block's dynamic shared memory (kDgWarps x dg_warp_bytes)
+extern "C" int64_t dense_groupby_smem_host(int G, int ncols) {
+  return kDgWarps * dg_warp_bytes(G, ncols);
 }
 """
 
@@ -533,60 +631,71 @@ def host_lib(tmp_path_factory):
                     "-ffp-contract=off", "-I", str(CSRC), "-o", str(lib),
                     str(src)], check=True)
     lib = ctypes.CDLL(str(lib))
-    lib.dense_groupby_host.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int64,
-                                                  ctypes.c_int]
-        + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_void_p] * 3)
+    lib.dense_groupby_host.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                       ctypes.c_uint64]
     lib.dense_groupby_host.restype = ctypes.c_int
-    return lib.dense_groupby_host
+    lib.dense_groupby_smem_host.argtypes = [ctypes.c_int] * 2
+    lib.dense_groupby_smem_host.restype = ctypes.c_int64
+    return lib
 
 
-def _run_host(fn, case):
+def _at_offset(a: np.ndarray, mis: int) -> np.ndarray:
+    """A copy of ``a`` whose first byte lies ``mis`` bytes past a 16-byte
+    boundary (a view into a larger buffer, as a column view at an
+    offset)."""
+    buf = np.zeros(a.nbytes + 64, np.uint8)
+    start = (mis - buf.ctypes.data) % 16
+    out = buf[start:start + a.nbytes].view(a.dtype)
+    out[:] = a
+    assert out.ctypes.data % 16 == mis
+    return out
+
+
+def _run_host(lib, case, grid=1 << 20, seed=0, mis=None):
+    """The kernel's loop on the host over ``case``, with the wrapper's
+    packed arguments; ``mis`` places every array that many bytes (rounded
+    to its element size) past a 16-byte boundary."""
     keys, remaps, cards, keep, values, G = case
-    tpb = 256 if G <= 16 else 128            # dense_groupby.cu threads_of
     K = len(values)
-    keep_c = np.ascontiguousarray(keep.astype(np.uint8))
-    kcodes = [np.ascontiguousarray(c) for c, _ in keys]
-    kvalid = [np.ascontiguousarray(v.astype(np.uint8)) for _, v in keys]
-    rm = [np.ascontiguousarray(r) if len(r) else np.zeros(1, np.int32)
-          for r in remaps]
-    vdata = [None if d is None else np.ascontiguousarray(d)
-             for d, _ in values]
-    vvalid = [np.ascontiguousarray(v.astype(np.uint8)) for _, v in values]
 
-    def ptrs(arrs):
-        return (ctypes.c_void_p * max(len(arrs), 1))(
-            *[None if a is None else a.ctypes.data for a in arrs])
-    sums = np.zeros((K, G), np.int64)
-    counts = np.zeros((K, G), np.int64)
-    occ = np.zeros(G, np.int64)
-    i32 = ctypes.c_int32 * len(keys)
-    rc = fn(len(keys), ptrs(kcodes), ptrs(kvalid), ptrs(rm),
-            i32(*[len(r) for r in remaps]), i32(*cards), keep_c.ctypes.data,
-            len(keep), K, ptrs(vdata), ptrs(vvalid),
-            (ctypes.c_uint8 * max(K, 1))(*[int(d is not None and
-                                               d.dtype == np.int64)
-                                           for d, _ in values]),
-            G, tpb, sums.ctypes.data, counts.ctypes.data, occ.ctypes.data)
+    def arr(a, dtype):
+        a = np.ascontiguousarray(a.astype(dtype, copy=False))
+        if mis is not None:
+            a = _at_offset(a, mis - mis % a.itemsize)
+        return a
+    keep_c = arr(keep, np.uint8)
+    held = [keep_c]
+    out = np.zeros(2 * K * G + G, np.int64)
+    int_mask = sum(1 << c for c, (d, _) in enumerate(values)
+                   if d is not None and d.dtype == np.int64)
+    v = [len(keys), K, G, len(keep), keep_c.ctypes.data, out.ctypes.data,
+         0, 0, 0, int_mask]
+    for (codes, valid), remap, card in zip(keys, remaps, cards):
+        c, kv = arr(codes, np.int32), arr(valid, np.uint8)
+        r = np.ascontiguousarray(remap) if len(remap) else np.zeros(1,
+                                                                   np.int32)
+        held += [c, kv, r]
+        v += [c.ctypes.data, kv.ctypes.data, r.ctypes.data, len(remap), card]
+    for d, valid in values:
+        vv = arr(valid, np.uint8)
+        held.append(vv)
+        if d is None:
+            v += [0, vv.ctypes.data]
+        else:
+            dd = arr(d, d.dtype)
+            held.append(dd)
+            v += [dd.ctypes.data, vv.ctypes.data]
+    packed = np.asarray(v, np.int64)
+    rc = lib.dense_groupby_host(packed.ctypes.data, grid, seed)
     assert rc == 0
-    return sums, counts, occ
+    return out[:K * G].reshape(K, G), out[K * G:2 * K * G].reshape(K, G), \
+        out[2 * K * G:]
 
 
-@pytest.mark.parametrize("seed,rows,cards,ncols,G,dead", [
-    (10, 1, (2,), 1, 16, False),
-    (11, 2047, (3, 2), 3, 16, False),
-    (12, 70001, (3, 2), 8, 16, False),       # 35 blocks: lanes fold two
-    (13, 9000, (15,), 2, 16, False),
-    (14, 20000, (4, 3, 2), 6, 64, False),
-    (15, 4096, (63,), 4, 64, False),
-    (16, 5000, (3, 2), 3, 16, True),          # every row dead
-    (17, 3000, (2, 2), 0, 16, False),         # occupancy only
-])
-def test_kernel_block_loop_built_by_gxx(host_lib, seed, rows, cards, ncols,
-                                        G, dead):
-    case = _dense_case(seed, rows, cards, ncols, G, all_dead=dead)
-    sums, counts, occ = _run_host(host_lib, case)
+def _assert_host_equals_plain(case, got):
+    """Counts and int sums exactly; float sums to REL, and where the plain
+    version's sum is not finite, the same value."""
+    sums, counts, occ = got
     want = dense_groupby_reference(*_torch_case(case))
     np.testing.assert_array_equal(occ, want.occupancy.numpy())
     np.testing.assert_array_equal(counts, want.counts.numpy())
@@ -597,13 +706,141 @@ def test_kernel_block_loop_built_by_gxx(host_lib, seed, rows, cards, ncols,
             np.testing.assert_array_equal(sums[k], want.sums[k].numpy())
         else:
             for a, b in zip(sums[k].view(np.float64), want.sums[k].numpy()):
-                assert _rel_ok(a, b)
+                if math.isfinite(b):
+                    assert _rel_ok(a, b), (a, b)
+                else:
+                    assert a == b or (math.isnan(a) and math.isnan(b)), \
+                        (a, b)
+
+
+def _same_bits(a, b):
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("seed,rows,cards,ncols,G,dead", [
+    (10, 1, (2,), 1, 16, False),
+    (11, 2047, (3, 2), 3, 16, False),
+    (12, 70001, (3, 2), 8, 16, False),       # many tiles, several blocks
+    (13, 9000, (15,), 2, 16, False),
+    (14, 20000, (4, 3, 2), 6, 64, False),
+    (15, 4096, (63,), 4, 64, False),
+    (16, 5000, (3, 2), 3, 16, True),          # every row dead
+    (17, 3000, (2, 2), 0, 16, False),         # occupancy only
+])
+def test_kernel_block_loop_built_by_gxx(host_lib, seed, rows, cards, ncols,
+                                        G, dead):
+    case = _dense_case(seed, rows, cards, ncols, G, all_dead=dead)
+    got = _run_host(host_lib, case, grid=7)
+    _assert_host_equals_plain(case, got)
     if dead:
-        assert not occ.any() and not counts.any()
-    # the fixed order gives the same bits again
-    again = _run_host(host_lib, case)
-    for a, b in zip((sums, counts, occ), again):
-        np.testing.assert_array_equal(a, b)
+        assert not got[2].any() and not got[1].any()
+    # the fixed order gives the same bits again, and whatever the grid
+    # (one block, or more than 16: the second combine level)
+    _same_bits(got, _run_host(host_lib, case, grid=7))
+    for grid in (1, 40):
+        _assert_host_equals_plain(case, _run_host(host_lib, case, grid=grid))
+
+
+def _skewed(case, how: str):
+    """``case`` with its keys rewritten: every live row in one group, or
+    each of the first rows in a group of its own."""
+    keys, remaps, cards, keep, values, G = case
+    rows = len(keep)
+    keys = [(np.zeros(rows, np.int32) if how == "one" else
+             (np.arange(rows) % len(r)).astype(np.int32)
+             if len(cards) == 1 else c, np.ones(rows, bool))
+            for (c, _), r in zip(keys, remaps)]
+    return keys, remaps, cards, keep, values, G
+
+
+def _nonfinite(case, seed: int):
+    """``case`` with -0.0, NaN, +inf and -inf planted in its float
+    columns, a few rows each."""
+    keys, remaps, cards, keep, values, G = case
+    rng = np.random.RandomState(seed)
+    out = []
+    for d, v in values:
+        if d is not None and d.dtype == np.float64:
+            d = d.copy()
+            rows = rng.permutation(len(d))
+            d[rows[:50]] = -0.0
+            for k, x in enumerate((np.nan, np.inf, -np.inf)):
+                d[rows[50 + 3 * k:53 + 3 * k]] = x
+            d[~v] = 0
+        out.append((d, v))
+    return keys, remaps, cards, keep, out, G
+
+
+@pytest.mark.parametrize("name", [
+    "one_group_g16", "one_group_g64", "one_row_per_group_g64",
+    "one_row_per_group_g16", "nonfinite_g16", "nonfinite_g64"])
+def test_kernel_loop_skew_and_nonfinite(host_lib, name):
+    """Every live row in one group; one row per group (up to 63 distinct
+    groups in a warp's 32 rows at G = 64); -0.0, NaN and +-inf values."""
+    G = 64 if name.endswith("g64") else 16
+    cards = (63,) if name.startswith("one_row") and G == 64 else \
+        (15,) if name.startswith("one_row") else (3, 2)
+    case = _dense_case(len(name), 6000, cards, 4, G)
+    if name.startswith("one_group"):
+        case = _skewed(case, "one")
+    elif name.startswith("one_row"):
+        keys, remaps, cards, keep, values, G = case
+        remaps = [np.arange(cards[0], dtype=np.int32)]
+        case = _skewed((keys, remaps, cards, keep, values, G), "each")
+    else:
+        case = _nonfinite(case, 3)
+    got = _run_host(host_lib, case, grid=5)
+    _assert_host_equals_plain(case, got)
+    _same_bits(got, _run_host(host_lib, case, grid=5, seed=9))
+    if name.startswith("one_group"):
+        assert np.count_nonzero(got[2]) == 1
+
+
+@pytest.mark.parametrize("rows,grid", [
+    (31, 1), (32, 1), (33, 1), (255, 1), (257, 1), (257, 2), (8 * 32 * 3, 3),
+    (8 * 32 * 3 + 1, 3)])
+def test_kernel_loop_row_counts_at_piece_edges(host_lib, rows, grid):
+    """Row counts either side of a warp's 32-row piece, of a block's 8
+    warps' pieces, and of the grid's: the pieces split among the warps
+    with the ragged one last."""
+    case = _dense_case(rows, rows, (3, 2), 5, 16)
+    _assert_host_equals_plain(case, _run_host(host_lib, case, grid=grid))
+
+
+@pytest.mark.parametrize("mis", [1, 3, 4, 8, 12, 15])
+def test_kernel_loop_takes_column_views_at_any_offset(host_lib, mis):
+    """Every array placed ``mis`` bytes past a 16-byte boundary (rounded
+    down to its element size): the copies' plain ends and 16-byte aligned
+    middles in 16-byte pieces still put every byte where the loop reads
+    it."""
+    case = _dense_case(40 + mis, 5000 + mis, (4, 3, 2), 5, 64)
+    got = _run_host(host_lib, case, grid=3, mis=mis)
+    _assert_host_equals_plain(case, got)
+    _same_bits(got, _run_host(host_lib, case, grid=3))
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 4, 5])
+def test_blocks_finishing_in_any_order_give_the_same_bits(host_lib, seed):
+    """Blocks run, and take their tickets, in shuffled orders, and warps
+    interleave in shuffled orders: the bits never change, because every
+    addition happens in an order fixed by the data's place alone."""
+    case = _dense_case(77, 90001, (3, 2), 6, 16)
+    base = _run_host(host_lib, case, grid=37)
+    _same_bits(base, _run_host(host_lib, case, grid=37, seed=seed))
+    _assert_host_equals_plain(case, base)
+
+
+@pytest.mark.parametrize("G,ncols", [(16, 5), (64, 5), (64, 16), (16, 0)])
+def test_block_shared_memory_is_small(host_lib, G, ncols):
+    """A block's slots and scratch: a few KiB for q1's shape (G = 16) and
+    the G = 64 timing shape, so that shared memory does not bound how many
+    blocks an SM holds; the widest launch still fits one block."""
+    smem = host_lib.dense_groupby_smem_host(G, ncols)
+    assert smem == 8 * (ncols * G * 8 + (ncols + 1) * G * 4 + 32 * 8)
+    if ncols <= 5 and G == 16:
+        assert smem <= 16 * 1024
+    assert smem <= 227 * 1024
 
 
 def test_group_id_clamps_and_drops(host_lib):
@@ -737,6 +974,28 @@ def test_dense_path_grows_into_the_sort_path():
             PF).collect()
     _assert_rows_equal(got, want, ["g"])
     assert len(got) == 80
+
+
+def test_dense_operands_are_kept_across_queries():
+    """The dense path's remaps and group slots are made once and found
+    again by the next query over the same dictionaries (on the card that
+    spares a copy and a stream wait a key and batch); the answer is the
+    same."""
+    from spark_rapids_tpu_torch.exec import aggregate as agg
+    keys, q = _QUERIES["two_dict_keys"]
+    t = _table(2000)
+    conf = {**OFF, "spark.rapids.tpu.sql.batchSizeRows": 700}
+    agg._DEVICE_OPERANDS.clear()
+    first = q(TorchSession(conf, device="cpu").create_dataframe(t),
+              PF).collect()
+    kept = dict(agg._DEVICE_OPERANDS)
+    assert any(k[0] == "remap" for k in kept)
+    assert any(k[0] == "slots" for k in kept)
+    again = q(TorchSession(conf, device="cpu").create_dataframe(t),
+              PF).collect()
+    assert agg._DEVICE_OPERANDS.keys() == kept.keys()
+    assert all(agg._DEVICE_OPERANDS[k] is kept[k] for k in kept)
+    _assert_rows_equal(again, first, keys)
 
 
 @pytest.mark.parametrize("orders", [
