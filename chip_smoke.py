@@ -44,7 +44,20 @@ result line):
                 ORDER BY), cold and warm, against numpy: dense_groupby must
                 launch once per batch; then once more under torch.profiler,
                 and once with the operand copies of commit 645412c (stream
-                syncs and copies counted in both).
+                syncs and copies counted in both);
+  7. memory  -- string predicates in filters and the memory runtime, each
+                query cold and warm with its launches, the memory
+                manager's peak and spills and the caching allocator's
+                peaks: q12_modes (LIKE OR startswith over the
+                l_shipmode dictionary, dense_groupby once per batch),
+                q_comment_filter (NOT LIKE over the l_comment rectangle,
+                rect_match once per batch with the kernel on, never
+                with it off), q18_agg with the default budget and with
+                one of half its partials' bytes (partials reach the host
+                and the disk); the spill rates of one q18 partial; q1
+                under 2 injected RetryOOMs and 1 SplitAndRetryOOM; q6 and
+                q1 on two threads of one session with 1 and 2 device
+                permits; the leak audit at session close.
 
 The data is generated here from a seed, with numpy only: this script
 imports neither JAX, pyarrow, pandas nor the JAX package. It prints a
@@ -281,6 +294,45 @@ def q_comment(df, F):
                    F.sum(F.col("l_extendedprice")).with_name("revenue")))
 
 
+def q12_modes(df, F):
+    """TPC-H Q12's shipping-mode filter over lineitem alone: LIKE (the
+    dictionary's mask form) OR startswith (its code range), then a
+    grouped count and revenue by mode."""
+    lo = np.datetime64("1994-01-01")
+    hi = np.datetime64("1995-01-01")
+    return (df.filter((F.col("l_shipmode").like("MAIL")
+                       | F.startswith(F.col("l_shipmode"), "SH"))
+                      & (F.col("l_receiptdate") >= F.lit(lo))
+                      & (F.col("l_receiptdate") < F.lit(hi)))
+            .group_by("l_shipmode")
+            .agg(F.count_star().with_name("n"),
+                 F.sum(F.col("l_extendedprice")
+                       * (F.lit(1.0) - F.col("l_discount")))
+                 .with_name("revenue"))
+            .order_by("l_shipmode"))
+
+
+def q_comment_filter(df, F):
+    """The Q13 form: NOT LIKE '%special%' directly in the filter."""
+    return (df.filter(~F.col("l_comment").like("%special%"))
+            .agg(F.count_star().with_name("n"),
+                 F.sum(F.col("l_extendedprice")).with_name("revenue")))
+
+
+#: TPC-H Q18's quantity threshold (the spec's substitution value)
+Q18_QUANTITY = 300.0
+
+
+def q18_agg(df, F):
+    """TPC-H Q18's inner aggregate: the orders whose lines hold more than
+    300 units, largest first."""
+    return (df.group_by("l_orderkey")
+            .agg(F.sum(F.col("l_quantity")).with_name("sum_qty"),
+                 F.count_star().with_name("n"))
+            .filter(F.col("sum_qty") > F.lit(Q18_QUANTITY))
+            .order_by(F.col("sum_qty").desc(), F.col("l_orderkey").asc()))
+
+
 def gen_table(n_rows: int) -> dict:
     t = gen_lineitem(n_rows)
     t["l_comment"] = gen_comment(n_rows)
@@ -348,6 +400,49 @@ def q1_equal(got: list, want: list) -> bool:
 def q_comment_numpy(t: dict):
     hit = np.char.find(t["l_comment"], b"special") >= 0
     return int(hit.sum()), float(np.sum(t["l_extendedprice"][hit]))
+
+
+def q12_modes_numpy(t: dict) -> list:
+    rd = t["l_receiptdate"]
+    mode = t["l_shipmode"]
+    keep = (((mode == "MAIL") | np.char.startswith(mode, "SH"))
+            & (rd >= np.datetime64("1994-01-01"))
+            & (rd < np.datetime64("1995-01-01")))
+    rev = t["l_extendedprice"] * (1.0 - t["l_discount"])
+    return [{"l_shipmode": str(m), "n": int((keep & (mode == m)).sum()),
+             "revenue": float(rev[keep & (mode == m)].sum())}
+            for m in np.unique(mode[keep])]
+
+
+def q_comment_filter_numpy(t: dict):
+    miss = np.char.find(t["l_comment"], b"special") < 0
+    return int(miss.sum()), float(np.sum(t["l_extendedprice"][miss]))
+
+
+def q18_agg_numpy(t: dict) -> list:
+    keys, inv = np.unique(t["l_orderkey"], return_inverse=True)
+    qty = np.bincount(inv, weights=t["l_quantity"])
+    n = np.bincount(inv)
+    sel = np.flatnonzero(qty > Q18_QUANTITY)
+    sel = sel[np.lexsort((keys[sel], -qty[sel]))]
+    return [{"l_orderkey": int(keys[i]), "sum_qty": float(qty[i]),
+             "n": int(n[i])} for i in sel]
+
+
+def rows_equal(got: list, want: list) -> bool:
+    """Keys, order and counts exactly; float values to REL_TOL."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if g.keys() != w.keys():
+            return False
+        for k, v in w.items():
+            if isinstance(v, float):
+                if not _rel(g[k], v) <= REL_TOL:
+                    return False
+            elif g[k] != v:
+                return False
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -1481,6 +1576,318 @@ def phase_profile(session, host, query, right, label: str,
         return {"device_time": False, "error": repr(e)}
 
 
+# ---------------------------------------------------------------------------
+# string predicates in filters and the memory runtime
+# ---------------------------------------------------------------------------
+
+def _measured(session, host, query, right, label: str) -> dict:
+    """One run of ``query`` with its kernel launches (counts set to 0 just
+    before, read just after), the memory manager's peak and spills, and
+    the caching allocator's peaks; it fails on a wrong result."""
+    import torch
+    from spark_rapids_tpu_torch.exec.dense_groupby import dense_groupby
+    from spark_rapids_tpu_torch.exprs.rect_match import rect_match
+    mm = session.memory
+    st0 = mm.stats()
+    mm.reset_max_device_used()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rect_match.launches = 0
+    dense_groupby.launches = 0
+    rows, wall = _run_query(session, host, query)
+    launches = {"rect_match": rect_match.launches,
+                "dense_groupby": dense_groupby.launches}
+    st = mm.stats()
+    _check(right(rows), f"{label}: wrong result {rows[:4]}")
+    return {"wall_ms": wall, "rows": len(rows), "launches": launches,
+            "max_device_used": st["max_device_used"],
+            "spill_to_host_bytes": st["spill_to_host_bytes"]
+            - st0["spill_to_host_bytes"],
+            "spill_to_disk_bytes": st["spill_to_disk_bytes"]
+            - st0["spill_to_disk_bytes"],
+            "disk_store": st["disk_store"],
+            "budget": st["budget"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "max_memory_reserved": torch.cuda.max_memory_reserved(),
+            "retry": session.last_retry_stats.as_dict()}
+
+
+def _cold_warm(session, host, query, right, label: str) -> dict:
+    out = {"cold": _measured(session, host, query, right, label),
+           "warm": _measured(session, host, query, right, label)}
+    c, w = out["cold"], out["warm"]
+    _log(f"{label}: wall {c['wall_ms']:.1f} ms cold, {w['wall_ms']:.1f} ms "
+         f"warm; launches {c['launches']} / {w['launches']}; manager "
+         f"max_device_used {c['max_device_used']} B (budget {c['budget']}), "
+         f"spilled to host {c['spill_to_host_bytes']} / "
+         f"{w['spill_to_host_bytes']} B, to disk {c['spill_to_disk_bytes']} "
+         f"/ {w['spill_to_disk_bytes']} B ({c['disk_store']}); "
+         f"max_memory_allocated {c['max_memory_allocated']} / "
+         f"{w['max_memory_allocated']} B, max_memory_reserved "
+         f"{c['max_memory_reserved']} / {w['max_memory_reserved']} B; "
+         f"retry {c['retry']}")
+    return out
+
+
+def _q18_partial_bytes(session, host) -> list:
+    """The device bytes of each batch's partial of q18_agg's aggregate,
+    from the same update the query runs."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.exec.aggregate import TpuHashAggregateExec
+    agg = q18_agg(session.create_dataframe(host), F)._physical()
+    while not isinstance(agg, TpuHashAggregateExec):
+        agg = agg.children[0]
+    agg._dicts = []
+    return [agg._update(b).device_size_bytes()
+            for b in agg.children[0].execute(session.exec_context())]
+
+
+def phase_spill_rates(rows: int, spill_dir: str) -> dict:
+    """MB/s of each tier move for a q18-shaped partial of ``rows`` groups
+    on the card (int64 key, float64 sum, int64 count, live mask, each
+    with validity): device to host (pinned, blocking), host to disk (the
+    port's layout through the native slab store, into the page cache:
+    no fsync), disk to device, host to device. Median of 3."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import ColumnarBatch, DeviceColumn
+    from spark_rapids_tpu_torch.mem import MemoryManager, SpillableBatch
+    from spark_rapids_tpu_torch.types import (BOOL, FLOAT64, INT64, Schema,
+                                              StructField)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cols = [DeviceColumn(torch.randint(0, 1 << 40, (rows,), device=dev,
+                                       generator=g),
+                         torch.ones(rows, dtype=torch.bool, device=dev),
+                         INT64),
+            DeviceColumn(torch.rand(rows, device=dev, dtype=torch.float64,
+                                    generator=g),
+                         torch.ones(rows, dtype=torch.bool, device=dev),
+                         FLOAT64),
+            DeviceColumn(torch.randint(1, 9, (rows,), device=dev,
+                                       generator=g),
+                         torch.ones(rows, dtype=torch.bool, device=dev),
+                         INT64),
+            DeviceColumn(torch.ones(rows, dtype=torch.bool, device=dev),
+                         torch.ones(rows, dtype=torch.bool, device=dev),
+                         BOOL)]
+    schema = Schema([StructField(n, c.dtype, True) for n, c in
+                     zip(("_k0", "_a0_0", "_a1_0", "__live"), cols)])
+    batch = ColumnarBatch(cols, rows, schema)
+    want = [c.data.cpu() for c in cols]
+    mm = MemoryManager(1 << 40, 1 << 40, spill_dir)
+    times = {"to_host": [], "to_disk": [], "disk_to_device": [],
+             "host_to_device": []}
+    for _ in range(3):
+        sb = SpillableBatch(batch, mm)
+        for leg, fn in (("to_host", sb.spill_to_host),
+                        ("to_disk", sb.spill_to_disk),
+                        ("disk_to_device", sb.get),
+                        ("to_host", sb.spill_to_host),
+                        ("host_to_device", sb.get)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[leg].append(time.perf_counter() - t0)
+        back = sb.get()
+        _check(all(torch.equal(b.data.cpu(), w) for b, w in
+                   zip(back.columns, want)), "a spilled batch came back "
+               "different")
+        sb.close()
+    nbytes = batch.device_size_bytes()
+    out = {"bytes": nbytes, "rows": rows}
+    for leg, ts in times.items():
+        t = float(np.median(ts))
+        out[leg] = {"ms": t * 1e3, "MB_per_s": nbytes / t / 1e6}
+    _check(mm.audit_leaks() == [] and mm.device_used == 0,
+           "the spill timing leaked")
+    _log(f"spill of a {rows}-row q18-shaped partial ({nbytes} B): " + "; ".join(
+        f"{leg} {v['ms']:.2f} ms = {v['MB_per_s']:.0f} MB/s"
+        for leg, v in out.items() if isinstance(v, dict))
+         + f" (disk store: {mm.stats()['disk_store']})")
+    return out
+
+
+def phase_injected_q1(session, host, want1, n_batches: int) -> dict:
+    """q1 with 1 SplitAndRetryOOM injected into the update (the second
+    batch's step: the ladder answers it with a pressure spill, which
+    moves the first partial to the host) and 2 RetryOOMs into the merge
+    (the first reserve after the update's: the first partial's move back
+    to the card, absorbed where it reserves)."""
+    mm = session.memory
+    before = mm.injections_fired()
+    mm.force_split_and_retry_oom(1, skip=1)
+    mm.force_retry_oom(2, skip=n_batches - 1)
+    try:
+        run = _measured(session, host, q1, lambda r: q1_equal(r, want1),
+                        "q1 under injected OOMs")
+        fired = mm.injections_fired()
+    finally:
+        mm.clear_injections()
+    fired = {k: fired[k] - before[k] for k in fired}
+    _check(fired == {"retry": 2, "split": 1},
+           f"the injected OOMs did not all fire: {fired}")
+    _check(run["retry"]["pressure_spills"] == 1
+           and run["spill_to_host_bytes"] > 0,
+           f"the split did not reach the ladder: {run}")
+    _check(run["launches"]["dense_groupby"] == n_batches + 1,
+           f"q1 under injection launched dense_groupby "
+           f"{run['launches']['dense_groupby']} times, expected "
+           f"{n_batches + 1} (a batch's update ran twice)")
+    _log(f"q1 SF1 under 2 injected RetryOOMs and 1 SplitAndRetryOOM: equal "
+         f"to numpy; fired {fired}; RetryStats {run['retry']}; wall "
+         f"{run['wall_ms']:.1f} ms; spilled to host "
+         f"{run['spill_to_host_bytes']} B; launches {run['launches']}")
+    return {"fired": fired, **run}
+
+
+def phase_threads(conf, host, want1, want6) -> dict:
+    """q6 and q1 on two threads of one session, with 1 and then 2 device
+    permits: equal results, and never more holders than permits (the
+    semaphore's diagnostics sampled every 0.2 ms)."""
+    import threading
+    from spark_rapids_tpu_torch.api import TorchSession
+    out = {}
+    for permits in (1, 2):
+        s = TorchSession({**conf,
+                          "spark.rapids.tpu.sql.concurrentTpuTasks": permits,
+                          "spark.rapids.tpu.memory.leakDetection": True})
+        results, errors, peak = {}, [], [0]
+        done = threading.Event()
+
+        def run(name, q, s=s, results=results, errors=errors):
+            try:
+                for _ in range(2):
+                    results.setdefault(name, []).append(
+                        _run_query(s, host, q))
+            except BaseException as e:     # reported below
+                errors.append(e)
+
+        def sample(s=s, peak=peak, done=done):
+            while not done.is_set():
+                peak[0] = max(peak[0],
+                              len(s.semaphore.diagnostics()["holders"]))
+                time.sleep(0.0002)
+
+        sampler = threading.Thread(target=sample)
+        sampler.start()
+        t0 = time.perf_counter()
+        ths = [threading.Thread(target=run, args=("q1", q1)),
+               threading.Thread(target=run, args=("q6", q6))]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(timeout=600)
+        wall = (time.perf_counter() - t0) * 1e3
+        done.set()
+        sampler.join(timeout=10)
+        _check(not errors and not any(th.is_alive() for th in ths),
+               f"two-thread phase failed: {errors!r}")
+        for rows, _ in results["q1"]:
+            _check(q1_equal(rows, want1), f"q1 on a thread: {rows}")
+        for rows, _ in results["q6"]:
+            _check(_rel(rows[0]["revenue"], want6) <= REL_TOL,
+                   f"q6 on a thread: {rows}")
+        d = s.semaphore.diagnostics()
+        _check(1 <= peak[0] <= permits and not d["holders"],
+               f"{peak[0]} holders at once with {permits} permits: {d}")
+        s.close()
+        out[permits] = {
+            "wall_ms": wall, "max_holders": peak[0],
+            "acquires": s.semaphore.acquires,
+            "semaphore_wait_ms": s.semaphore.total_wait_s * 1e3,
+            "q1_ms": [w for _, w in results["q1"]],
+            "q6_ms": [w for _, w in results["q6"]]}
+        _log(f"two threads (q1 x2, q6 x2) on one session, {permits} "
+             f"permit(s): equal to numpy; wall {wall:.1f} ms; at most "
+             f"{peak[0]} holder(s) at once; {s.semaphore.acquires} acquires, "
+             f"{s.semaphore.total_wait_s * 1e3:.1f} ms waiting; q1 "
+             f"{[round(w, 1) for w in out[permits]['q1_ms']]} ms, q6 "
+             f"{[round(w, 1) for w in out[permits]['q6_ms']]} ms")
+    return out
+
+
+def phase_memory_slice(conf, table, host, n_batches: int) -> dict:
+    """The slice's queries at SF1: q12_modes, q_comment_filter (kernel on
+    and off), q18_agg without and with memory pressure; then the spill
+    rates, q1 under injected OOMs, two threads on one session, and the
+    leak audit."""
+    from spark_rapids_tpu_torch.api import TorchSession
+    from spark_rapids_tpu_torch.mem import MemoryManager
+    session = TorchSession({**conf,
+                            "spark.rapids.tpu.memory.leakDetection": True})
+    out = {}
+    want12 = q12_modes_numpy(table)
+    out["q12_modes"] = _cold_warm(session, host, q12_modes,
+                                  lambda r: rows_equal(r, want12),
+                                  "q12_modes SF1")
+    for run in out["q12_modes"].values():
+        _check(run["launches"] == {"rect_match": 0,
+                                   "dense_groupby": n_batches},
+               f"q12_modes launches {run['launches']}")
+    _log(f"q12_modes result {want12}")
+
+    want_n, want_rev = q_comment_filter_numpy(table)
+
+    def right_cf(r):
+        return r[0]["n"] == want_n and _rel(r[0]["revenue"],
+                                            want_rev) <= REL_TOL
+    on = TorchSession({**conf, "spark.rapids.tpu.sql.pallas.enabled": True,
+                       "spark.rapids.tpu.memory.leakDetection": True})
+    out["q_comment_filter_on"] = _cold_warm(on, host, q_comment_filter,
+                                            right_cf,
+                                            "q_comment_filter SF1 kernel on")
+    out["q_comment_filter_off"] = _cold_warm(session, host, q_comment_filter,
+                                             right_cf,
+                                             "q_comment_filter SF1 kernel off")
+    for run in out["q_comment_filter_on"].values():
+        _check(run["launches"]["rect_match"] == n_batches,
+               f"q_comment_filter (on) launched rect_match "
+               f"{run['launches']['rect_match']} times, expected "
+               f"{n_batches}")
+    for run in out["q_comment_filter_off"].values():
+        _check(run["launches"]["rect_match"] == 0,
+               "q_comment_filter (off) launched rect_match")
+    _log(f"q_comment_filter result n {want_n} revenue {want_rev!r}")
+
+    want18 = q18_agg_numpy(table)
+    right18 = lambda r: rows_equal(r, want18)  # noqa: E731
+    out["q18_agg"] = _cold_warm(session, host, q18_agg, right18,
+                                "q18_agg SF1, default budget")
+    parts = _q18_partial_bytes(session, host)
+    budget = max(sum(parts) // 2, 2 * max(parts))
+    _log(f"q18_agg: {len(want18)} rows; partials of {parts} B "
+         f"({sum(parts)} B in all); pressured budget {budget} B, host "
+         f"store {budget // 2} B")
+    pressured = TorchSession({
+        **conf, "spark.rapids.tpu.memory.hbm.limitBytes": budget,
+        "spark.rapids.tpu.memory.host.spillStorageSize": budget // 2,
+        "spark.rapids.tpu.memory.leakDetection": True})
+    out["q18_agg_pressured"] = _cold_warm(pressured, host, q18_agg, right18,
+                                          "q18_agg SF1 under pressure")
+    for run in out["q18_agg_pressured"].values():
+        _check(run["spill_to_host_bytes"] > 0
+               and run["spill_to_disk_bytes"] > 0
+               and run["max_device_used"] <= budget,
+               f"q18_agg under pressure did not spill to both tiers "
+               f"within the budget: {run}")
+    out["q18_partial_bytes"] = parts
+    out["q18_budget"] = budget
+    pressured.close()
+    out["spill_rates"] = phase_spill_rates(max(parts) // 29,
+                                           session.memory.spill_dir)
+
+    want1 = q1_numpy(table)
+    out["q1_injected"] = phase_injected_q1(session, host, want1, n_batches)
+    out["threads"] = phase_threads(conf, host, want1, q6_numpy(table))
+    session.close()
+    on.close()
+    leaks = MemoryManager.audit_all_leaks()
+    _check(leaks == [], f"leak audit: {leaks[:5]}")
+    _log("leak audit at session close: no live device buffer registration")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", metavar="NAME=DIR", action="append",
@@ -1644,6 +2051,7 @@ def main(argv=None) -> int:
                 "q1 (the operand path of 645412c: each remap copied from "
                 "pageable memory, waiting on the stream, every batch)",
                 "dense_groupby")
+        mem = phase_memory_slice(conf, table, host, n_batches)
         _log(json.dumps({"queries": {
             "q6": {"rows": SF1_ROWS, "wall_ms_cold": ms_cold,
                    "wall_ms_warm": ms_warm},
@@ -1655,13 +2063,17 @@ def main(argv=None) -> int:
             "q1": {"rows": SF1_ROWS, "batches": n_batches, "groups":
                    len(rows), "wall_ms_cold": q1_cold,
                    "wall_ms_warm": q1_warm, "profile_warm": prof1,
-                   "profile_warm_parent_operands": prof1_parent}}}))
+                   "profile_warm_parent_operands": prof1_parent},
+            **mem}}))
         main_t = times["main"]
         kernel = {
             "name": "rect_match", "route": "cuda",
             "source": "spark_rapids_tpu_torch/csrc/rect_match.cu",
             "replaces": "spark_rapids_tpu/exprs/pallas_rect.py:57",
             "launches": launches, "max_abs_err": max_err,
+            "paths": {"q_comment": launches,
+                      "q_comment_filter": mem["q_comment_filter_on"]["cold"][
+                          "launches"]["rect_match"]},
             "exact": max_err == 0,
             "ms": main_t["ms"], "kernel_ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
@@ -1687,6 +2099,11 @@ def main(argv=None) -> int:
             "source": "spark_rapids_tpu_torch/csrc/dense_groupby.cu",
             "replaces": "spark_rapids_tpu/exec/aggregate.py:797",
             "launches": q1_launches, "max_abs_err": dense_err,
+            "paths": {"q1": q1_launches,
+                      "q12_modes": mem["q12_modes"]["cold"]["launches"][
+                          "dense_groupby"],
+                      "q1_injected": mem["q1_injected"]["launches"][
+                          "dense_groupby"]},
             "tolerance": f"float sums within {DENSE_TOL:g} of the group's "
                          "sum of magnitudes; counts and int sums exact; "
                          "two launches bit-identical",

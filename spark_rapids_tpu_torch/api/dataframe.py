@@ -6,20 +6,29 @@ caller names another. Inputs are a dict of numpy arrays, or an Arrow
 table or pandas DataFrame when those packages are installed; results
 come back as rows (``collect``), numpy arrays (``collect_numpy``) or an
 Arrow table (``collect_arrow``).
+
+A session's queries share its memory manager (mem/manager.py, one per
+budget in the process) and one device semaphore
+(``spark.rapids.tpu.sql.concurrentTpuTasks`` permits), whatever the
+threads they run on; each query runs under
+``spark.rapids.tpu.query.timeout``. ``close()`` runs the leak audit when
+``spark.rapids.tpu.memory.leakDetection`` is on.
 """
 from __future__ import annotations
 
 import datetime
+import time
 from typing import List
 
 import numpy as np
 import torch
 
 from ..columnar.batch import HostTable
-from ..config import TpuConf
+from ..config import LEAK_DETECTION, QUERY_TIMEOUT, TpuConf
 from ..exec.base import ExecContext
 from ..exprs.aggregates import AggregateExpression
 from ..exprs.base import Alias, ColumnRef, Expression
+from ..mem.manager import MemoryManager
 from ..plan import logical as L
 from ..plan.overrides import plan_query
 from ..types import DATE, TIMESTAMP, Schema
@@ -70,9 +79,39 @@ class TorchSession:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass "
                                "device=\"cpu\" to run on the CPU")
+        # the services every query of the session shares
+        services = ExecContext(self.conf, self.device)
+        self.memory = services.memory
+        self.semaphore = services.semaphore
+        #: the OOM ladders' counts of the session's latest query
+        self.last_retry_stats = None
 
     def exec_context(self) -> ExecContext:
-        return ExecContext(self.conf, self.device)
+        """A query's context over the session's memory and semaphore."""
+        return ExecContext(self.conf, self.device, memory=self.memory,
+                           semaphore=self.semaphore)
+
+    def close(self) -> None:
+        """With spark.rapids.tpu.memory.leakDetection on, raise if a
+        device buffer registration outlived its query (the MemoryCleaner
+        shutdown check, ref Plugin.scala:573-588). The audit is process
+        wide, as the reference's: run it when no other session has a
+        query in flight."""
+        if self.conf.get(LEAK_DETECTION):
+            leaks = MemoryManager.audit_all_leaks()
+            if leaks:
+                raise AssertionError(
+                    f"{len(leaks)} leaked device buffer registration(s) "
+                    f"at session close: {leaks[:5]} (set "
+                    "SRTPU_LEAK_DEBUG=1 for creation sites)")
+
+    def __enter__(self) -> "TorchSession":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        # never mask the exception in flight with a leak assertion
+        if exc_type is None:
+            self.close()
 
     def create_dataframe(self, data, num_partitions: int = 1) -> "DataFrame":
         table = _host_table(data)
@@ -170,8 +209,14 @@ class DataFrame:
 
     def _collect_columns(self):
         physical = self._physical()
-        return physical.output_schema(), physical.collect(
-            self.session.exec_context())
+        ctx = self.session.exec_context()
+        self.session.last_retry_stats = ctx.retry_stats
+        qt = float(self.session.conf.get(QUERY_TIMEOUT))
+        ctx.set_query_deadline(time.monotonic() + qt if qt > 0 else None)
+        try:
+            return physical.output_schema(), physical.collect(ctx)
+        finally:
+            ctx.set_query_deadline(None)
 
     def collect_numpy(self) -> dict:
         """name -> numpy masked array (masked where null); DATE columns as

@@ -1,5 +1,5 @@
 """Column DSL and functions (port of ``spark_rapids_tpu/api/functions.py``,
-the names TPC-H q1, q6 and the comment scan use, with the same
+the names the slice's queries use, with the same
 signatures).
 
     from spark_rapids_tpu_torch.api import functions as F
@@ -45,6 +45,8 @@ class Col:
         return Col(E.GreaterThanOrEqual(self.expr, _to_expr(o)))
 
     def __and__(self, o): return Col(E.And(self.expr, _to_expr(o)))
+    def __or__(self, o): return Col(E.Or(self.expr, _to_expr(o)))
+    def __invert__(self): return Col(E.Not(self.expr))
 
     def contains(self, s): return Col(E.Contains(self.expr, s))
     def startswith(self, s): return Col(E.StartsWith(self.expr, s))

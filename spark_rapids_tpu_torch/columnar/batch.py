@@ -213,6 +213,25 @@ class ColumnarBatch:
                 cols.append(HostColumn(values, valid, f.dtype))
         return ColumnarBatch(cols, n, table.schema)
 
+    def slice(self, offset: int, length: int) -> "ColumnarBatch":
+        """Rows ``offset`` to ``offset + length`` (within num_rows), as
+        views."""
+        end = offset + length
+        cols: List = []
+        for c in self.columns:
+            if isinstance(c, ByteRectColumn):
+                cols.append(ByteRectColumn(c.data[offset:end],
+                                           c.validity[offset:end],
+                                           c.lengths[offset:end],
+                                           c.ascii_only))
+            elif isinstance(c, DeviceColumn):
+                cols.append(c.with_arrays(c.data[offset:end],
+                                          c.validity[offset:end]))
+            else:
+                cols.append(HostColumn(c.values[offset:end],
+                                       c.validity[offset:end], c.dtype))
+        return ColumnarBatch(cols, length, self.schema)
+
     def to_numpy(self) -> List[Tuple[np.ndarray, np.ndarray]]:
         """(values, validity) per column, truncated to num_rows."""
         return [c.to_numpy(self.num_rows) for c in self.columns]

@@ -20,15 +20,24 @@ reference:
     ``segmented_groupby`` (exec/groupby_core.py), string keys as their
     global codes.
 
-Both give global codes, so batches on either path merge together: one
-concatenation (``concat_batches``) and one ``segmented_groupby`` merge
-(keyless or keyed).
-Finalize turns the codes back into a dictionary column whose dictionary
-is sorted, so that ORDER BY over a string key orders as the strings do.
+Both give global codes, so batches on either path merge together
+(keyless or keyed) through ``segmented_groupby`` in merge mode.
+
+Memory (the reference's runtime, mem/): each batch's update runs under
+the device semaphore inside ``with_retry_no_split``, and its partials
+become a ``SpillableBatch``, which the memory manager may move to the
+host or the disk while later batches arrive. The merge is the
+reference's bounded fan-in tree (``_merge``): chunks of partials whose
+rows fit ``batchSizeRows`` merge level by level, each merge taking its
+inputs back to the device inside the retried closure; every path closes
+the partials it was handed. Finalize turns the codes back into a
+dictionary column whose dictionary is sorted, so that ORDER BY over a
+string key orders as the strings do.
 """
 from __future__ import annotations
 
 import math
+import threading
 from collections import OrderedDict
 from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
@@ -41,6 +50,8 @@ from ..columnar.segmented import bucket_segments
 from ..exprs.aggregates import AggregateExpression
 from ..exprs.base import Alias, ColumnRef, DVal, EvalContext
 from ..exprs.compiler import batch_device, batch_dvals
+from ..mem.retry import with_retry_no_split
+from ..mem.spillable import SpillableBatch
 from ..types import BOOL, INT32, STRING, Schema, StructField, torch_dtype
 from .base import ExecContext, TpuExec
 from .dense_groupby import BUCKETS, dense_groupby, group_slots
@@ -58,6 +69,7 @@ _LIVE = "__live"
 #: copies none of them and never waits on the stream for one
 _DEVICE_OPERANDS: "OrderedDict[tuple, object]" = OrderedDict()
 _DEVICE_OPERANDS_MAX = 256
+_DEVICE_OPERANDS_LOCK = threading.Lock()
 #: remaps longer than this are copied every time rather than kept
 _CACHED_REMAP_MAX = 4096
 
@@ -71,12 +83,13 @@ def _to_device(t: torch.Tensor, device) -> torch.Tensor:
 
 
 def _device_operand(key: tuple, make: Callable[[], object]):
-    got = _DEVICE_OPERANDS.get(key)
-    if got is None:
-        got = _DEVICE_OPERANDS[key] = make()
-        if len(_DEVICE_OPERANDS) > _DEVICE_OPERANDS_MAX:
-            _DEVICE_OPERANDS.popitem(last=False)
-    return got
+    with _DEVICE_OPERANDS_LOCK:
+        got = _DEVICE_OPERANDS.get(key)
+        if got is None:
+            got = _DEVICE_OPERANDS[key] = make()
+            if len(_DEVICE_OPERANDS) > _DEVICE_OPERANDS_MAX:
+                _DEVICE_OPERANDS.popitem(last=False)
+        return got
 
 
 def _apply_pre_stages(stages, in_schema: Schema, base_dvals, num_rows: int,
@@ -279,6 +292,9 @@ class TpuHashAggregateExec(TpuExec):
                 self._sort_keys(batch, ectx), vals, self.aggs, "update",
                 keep)
             live = torch.ones(n, dtype=torch.bool, device=keep.device)
+        return self._partial_batch(keys, partials, live)
+
+    def _partial_batch(self, keys, partials, live) -> ColumnarBatch:
         cols = [DeviceColumn(d, v, f.dtype) for (d, v), f in
                 zip(keys + partials + [(live, live)],
                     self._partial_schema.fields)]
@@ -292,10 +308,9 @@ class TpuHashAggregateExec(TpuExec):
                 for f in self._partial_schema.fields]
         return ColumnarBatch(cols, 0, self._partial_schema)
 
-    def _merge(self, partials: List[ColumnarBatch], device):
-        """One concatenation and one segmented_groupby merge."""
-        big = concat_batches(partials) if partials \
-            else self._empty_partials(device)
+    def _merge_batch(self, big: ColumnarBatch):
+        """One ``segmented_groupby`` merge of partial rows: (keys, merged
+        partials, groups)."""
         cols = big.columns
         nkeys = len(self.groupings)
         keys = [DVal(c.data, c.validity, f.dtype) for c, f in
@@ -308,6 +323,75 @@ class TpuHashAggregateExec(TpuExec):
             pos += len(types)
         return segmented_groupby(keys, vals, self.aggs, "merge",
                                  cols[-1].data)
+
+    def _merge(self, ctx: ExecContext,
+               partials: List[SpillableBatch]) -> ColumnarBatch:
+        """Merge the partials into the final batch, closing every one
+        (ref ``_merge``, aggregate.py:1445-1565). While their rows add up
+        to more than the cap (``batchSizeRows``, never below the largest
+        partial), chunks of partials whose rows fit it merge into one
+        spillable partial each, level by level; then one merge and the
+        finalize. Every merge takes its inputs back to the device inside
+        its retried closure, so a spill made for a retry really frees
+        the memory the retry needs."""
+        op = "HashAggregate.merge"
+        level: List[SpillableBatch] = list(partials)
+        merged_level: List[SpillableBatch] = []
+        try:
+            cap = max([ctx.conf.batch_size_rows]
+                      + [sb.padded_len for sb in level])
+            while len(level) > 1 and \
+                    sum(sb.padded_len for sb in level) > cap:
+                chunks, cur, acc = [], [], 0
+                for sb in level:
+                    if cur and acc + sb.padded_len > cap:
+                        chunks.append(cur)
+                        cur, acc = [], 0
+                    cur.append(sb)
+                    acc += sb.padded_len
+                chunks.append(cur)
+                merged_level = []
+                for chunk in chunks:
+                    if len(chunk) == 1:
+                        merged_level.append(chunk[0])
+                        continue
+
+                    def level_merge(c=chunk):
+                        with ctx.semaphore.held():
+                            keys, merged, n = self._merge_batch(
+                                concat_batches([s.get() for s in c]))
+                            live = torch.ones(n, dtype=torch.bool,
+                                              device=ctx.device)
+                            return SpillableBatch(
+                                self._partial_batch(keys, merged, live),
+                                ctx.memory)
+                    merged_level.append(with_retry_no_split(
+                        level_merge, ctx=ctx, op=op))
+                # the chunks' inputs live on in the level's outputs
+                for sb in level:
+                    if sb not in merged_level:
+                        sb.close()
+                stalled = len(merged_level) >= len(level)
+                level = merged_level
+                if stalled:
+                    # every chunk a single partial at the cap: one merge
+                    # over all of them rather than a loop without end
+                    break
+
+            def do_merge():
+                with ctx.semaphore.held():
+                    big = concat_batches([s.get() for s in level]) \
+                        if level else self._empty_partials(ctx.device)
+                    keys, merged, n = self._merge_batch(big)
+                    return ColumnarBatch(self._decode_keys(keys)
+                                         + self._finalize_aggs(merged), n,
+                                         self._schema)
+            return with_retry_no_split(do_merge, ctx=ctx, op=op)
+        finally:
+            # close() is idempotent: partials that moved between the
+            # lists close once
+            for sb in level + merged_level:
+                sb.close()
 
     def _decode_keys(self, keys) -> list:
         """Dictionary keys back to DictColumns over their dictionary
@@ -335,13 +419,26 @@ class TpuHashAggregateExec(TpuExec):
 
     def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         self._dicts = [dict() for _ in self._dict_keys]
-        # a batch of no rows adds no group (and its string columns may
-        # not have a dictionary form)
-        partials = [self._update(b) for b in self.children[0].execute(ctx)
-                    if b.num_rows]
-        keys, merged, n = self._merge(partials, ctx.device)
-        yield ColumnarBatch(self._decode_keys(keys)
-                            + self._finalize_aggs(merged), n, self._schema)
+        partials: List[SpillableBatch] = []
+        try:
+            for b in self.children[0].execute(ctx):
+                # a batch of no rows adds no group (and its string
+                # columns may not have a dictionary form)
+                if not b.num_rows:
+                    continue
+
+                def update(b=b):
+                    with ctx.semaphore.held():
+                        return SpillableBatch(self._update(b), ctx.memory)
+                partials.append(with_retry_no_split(
+                    update, ctx=ctx, op="HashAggregate.update"))
+        except BaseException:
+            # a fatal error or QueryTimeout mid-update: the partials must
+            # not outlive the query (the zero-leak audit)
+            for sb in partials:
+                sb.close()
+            raise
+        yield self._merge(ctx, partials)
 
     def describe(self):
         g = ", ".join(e.name_hint for e in self.groupings)

@@ -1,28 +1,66 @@
 """Physical operator base (port of ``spark_rapids_tpu/exec/base.py``).
 
 A TpuExec produces an iterator of ColumnarBatch on the context's device.
-The port's context carries the conf and the device; the reference's
-memory manager, semaphore, metrics and tracing wait for later slices.
+The context carries the conf, the device, the memory manager and the
+device semaphore (ref GpuSemaphore.scala:51), and the query's
+cooperative deadline; the reference's metrics and tracing wait for a
+later slice.
 """
 from __future__ import annotations
 
+import time
 from typing import Iterator, List, Optional
 
 import torch
 
 from ..columnar import ColumnarBatch
-from ..config import TpuConf
+from ..config import SEMAPHORE_WEDGE_TIMEOUT_MS, TASK_TIMEOUT, TpuConf
+from ..mem.manager import MemoryManager
+from ..mem.retry import RetryStats
+from ..mem.semaphore import DeviceSemaphore, QueryTimeout
 from ..types import Schema
 
-__all__ = ["ExecContext", "TpuExec"]
+__all__ = ["ExecContext", "TpuExec", "QueryTimeout"]
 
 
 class ExecContext:
-    """Per-query execution context: conf + device."""
+    """Per-query execution context: conf, device and the shared runtime
+    services (memory manager, semaphore), made here when not given."""
 
-    def __init__(self, conf: Optional[TpuConf] = None, device=None):
+    def __init__(self, conf: Optional[TpuConf] = None, device=None,
+                 memory: Optional[MemoryManager] = None,
+                 semaphore: Optional[DeviceSemaphore] = None):
         self.conf = conf or TpuConf()
         self.device = torch.device(device if device is not None else "cuda")
+        self.memory = memory or MemoryManager.get(self.conf, self.device)
+        self.semaphore = semaphore or DeviceSemaphore(
+            self.conf.concurrent_tpu_tasks,
+            timeout_s=float(self.conf.get(TASK_TIMEOUT)),
+            wedge_timeout_ms=int(self.conf.get(SEMAPHORE_WEDGE_TIMEOUT_MS)),
+            memory=self.memory)
+        #: what the OOM ladders of this query did (mem/retry.py)
+        self.retry_stats = RetryStats()
+        #: the query's cooperative deadline (time.monotonic instant, None
+        #: = no timeout); checked per produced batch and polled by the
+        #: semaphore's waits (api/dataframe.py sets it per query)
+        self.deadline: Optional[float] = None
+
+    def set_query_deadline(self, deadline: Optional[float]) -> None:
+        """Install (or with None clear) this query's deadline; the
+        semaphore polls the same instant, per thread (a shared semaphore
+        must not leak one query's deadline into another's wait)."""
+        self.deadline = deadline
+        self.semaphore.set_thread_deadline(deadline)
+
+    def check_cancelled(self) -> None:
+        """Cooperative cancellation point: raises QueryTimeout past the
+        deadline. Called at every produced batch (TpuExec.execute) and
+        from the retry ladder."""
+        dl = self.deadline
+        if dl is not None and time.monotonic() > dl:
+            raise QueryTimeout(
+                "query exceeded spark.rapids.tpu.query.timeout "
+                f"(deadline passed by {time.monotonic() - dl:.3f}s)")
 
 
 class TpuExec:
@@ -38,7 +76,11 @@ class TpuExec:
         raise NotImplementedError
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
-        return self.do_execute(ctx)
+        """The operator's batches, with the query's deadline checked at
+        each one."""
+        for b in self.do_execute(ctx):
+            ctx.check_cancelled()
+            yield b
 
     def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         raise NotImplementedError

@@ -4,6 +4,7 @@ TpuFilterExec).
 """
 from __future__ import annotations
 
+import threading
 import weakref
 from typing import Dict, Iterator, List, Optional, Sequence
 
@@ -34,44 +35,49 @@ _SCAN_CACHE: Dict[tuple, list] = {}
 _SCAN_LRU: Dict[tuple, int] = {}
 _SCAN_TABLES: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
 _TICK = [0]
+#: guards the four above: queries on several threads share the cache
+_SCAN_LOCK = threading.RLock()
 
 
 def _cache_evict_table(tid: int) -> None:
-    for k in [k for k in _SCAN_CACHE if k[0] == tid]:
-        del _SCAN_CACHE[k]
-        _SCAN_LRU.pop(k, None)
+    with _SCAN_LOCK:
+        for k in [k for k in _SCAN_CACHE if k[0] == tid]:
+            del _SCAN_CACHE[k]
+            _SCAN_LRU.pop(k, None)
 
 
 def _cache_get(table, key):
-    if _SCAN_TABLES.get(id(table)) is not table:
-        return None
-    k = (id(table),) + key
-    got = _SCAN_CACHE.get(k)
-    if got is not None:
-        _TICK[0] += 1
-        _SCAN_LRU[k] = _TICK[0]
-    return got
+    with _SCAN_LOCK:
+        if _SCAN_TABLES.get(id(table)) is not table:
+            return None
+        k = (id(table),) + key
+        got = _SCAN_CACHE.get(k)
+        if got is not None:
+            _TICK[0] += 1
+            _SCAN_LRU[k] = _TICK[0]
+        return got
 
 
 def _cache_put(table, key, batches, limit: int) -> None:
     size = sum(b.device_size_bytes() for b in batches)
     if limit <= 0 or size > limit:
         return
-    while _SCAN_CACHE and size + sum(
-            b.device_size_bytes() for bs in _SCAN_CACHE.values()
-            for b in bs) > limit:
-        coldest = min(_SCAN_LRU, key=_SCAN_LRU.get)
-        del _SCAN_CACHE[coldest]
-        del _SCAN_LRU[coldest]
-    tid = id(table)
-    if _SCAN_TABLES.get(tid) is not table:
-        _cache_evict_table(tid)
-        _SCAN_TABLES[tid] = table
-        weakref.finalize(table, _cache_evict_table, tid)
-    k = (tid,) + key
-    _SCAN_CACHE[k] = batches
-    _TICK[0] += 1
-    _SCAN_LRU[k] = _TICK[0]
+    with _SCAN_LOCK:
+        while _SCAN_CACHE and size + sum(
+                b.device_size_bytes() for bs in _SCAN_CACHE.values()
+                for b in bs) > limit:
+            coldest = min(_SCAN_LRU, key=_SCAN_LRU.get)
+            del _SCAN_CACHE[coldest]
+            del _SCAN_LRU[coldest]
+        tid = id(table)
+        if _SCAN_TABLES.get(tid) is not table:
+            _cache_evict_table(tid)
+            _SCAN_TABLES[tid] = table
+            weakref.finalize(table, _cache_evict_table, tid)
+        k = (tid,) + key
+        _SCAN_CACHE[k] = batches
+        _TICK[0] += 1
+        _SCAN_LRU[k] = _TICK[0]
 
 
 class InMemoryScanExec(TpuExec):
@@ -195,12 +201,14 @@ class TpuProjectExec(TpuExec):
             out: List = [None] * len(self.exprs)
             for i, name in self.passthrough.items():
                 out[i] = batch.column_by_name(name)
-            if self.device_idx:
-                for i, c in zip(self.device_idx, self._projector.run(batch)):
-                    out[i] = c
-            for i, (_, leaf) in self.rect_chain.items():
-                out[i] = self._rect_eval(i, batch.column_by_name(leaf),
-                                         use_kernel)
+            with ctx.semaphore.held():
+                if self.device_idx:
+                    for i, c in zip(self.device_idx,
+                                    self._projector.run(batch)):
+                        out[i] = c
+                for i, (_, leaf) in self.rect_chain.items():
+                    out[i] = self._rect_eval(i, batch.column_by_name(leaf),
+                                             use_kernel)
             yield ColumnarBatch(out, batch.num_rows, self._schema)
 
     def describe(self):
@@ -213,24 +221,45 @@ class TpuProjectExec(TpuExec):
 
 
 class TpuFilterExec(TpuExec):
-    """Device filter: keep-mask from the condition, then compaction."""
+    """Device filter: keep-mask from the condition, then compaction. A
+    condition holding string predicates over STRING columns runs through
+    the dictionary route (``compiler.DictFilterEvaluator``): each
+    predicate over the column's dictionary once, or over its ASCII byte
+    rectangle through the rect chain (the match kernel when
+    ``spark.rapids.tpu.sql.pallas.enabled`` is on)."""
 
     def __init__(self, condition: Expression, child: TpuExec):
         super().__init__([child])
         self.condition = condition
+        schema = child.output_schema()
+        self._dict_eval = None
         self._projector: Optional[DeviceProjector] = None
+        if condition.fully_device_supported(schema) is None:
+            self._projector = DeviceProjector([condition], schema)
+        else:
+            from ..exprs.compiler import build_dict_filter
+            self._dict_eval = build_dict_filter(condition, schema)
+            if self._dict_eval is None:
+                raise NotImplementedError(
+                    f"filter <{condition.name_hint}> has no device form in "
+                    "the port")
 
     def output_schema(self) -> Schema:
         return self.children[0].output_schema()
 
     def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
-        if self._projector is None:
-            self._projector = DeviceProjector(
-                [self.condition], self.children[0].output_schema())
+        from ..exprs.rect_match import PALLAS_ENABLED
+        use_kernel = bool(ctx.conf.get(PALLAS_ENABLED))
         for batch in self.children[0].execute(ctx):
-            col = self._projector.run(batch)[0]
-            yield filter_batch_by_mask(
-                batch, torch.logical_and(col.data, col.validity))
+            with ctx.semaphore.held():
+                if self._dict_eval is not None:
+                    keep = self._dict_eval.keep_mask(batch, use_kernel)
+                else:
+                    col = self._projector.run(batch)[0]
+                    keep = torch.logical_and(col.data, col.validity)
+                out = filter_batch_by_mask(batch, keep)
+            yield out
 
     def describe(self):
-        return f"Filter[{self.condition.name_hint}]"
+        tag = " dict_eval" if self._dict_eval is not None else ""
+        return f"Filter[{self.condition.name_hint}]{tag}"

@@ -24,6 +24,7 @@ from __future__ import annotations
 import array
 import ctypes
 import math
+import threading
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -148,11 +149,16 @@ _KERNEL: dict = {}
 #: (device index, stream) -> the kernel's scratch: ticket counters, which
 #: every launch leaves at zero, then block partials (never zeroed)
 _SCRATCH: dict = {}
+#: guards _KERNEL, _SCRATCH and the launch count: queries on several
+#: threads launch on one stream
+_LOCK = threading.Lock()
 
 
 def _kernel() -> dict:
     """The library's functions, typed once."""
-    if not _KERNEL:
+    with _LOCK:
+        if _KERNEL:
+            return _KERNEL
         from .. import native
         lib = native.load("dense_groupby")
         lib.dense_groupby_launch.argtypes = [ctypes.c_void_p]
@@ -166,7 +172,7 @@ def _kernel() -> dict:
         _KERNEL.update(launch=lib.dense_groupby_launch,
                        scratch_bytes=lib.dense_groupby_scratch_bytes,
                        describe=lib.dense_groupby_describe, sizes={})
-    return _KERNEL
+        return _KERNEL
 
 
 def _scratch(k: dict, dev: int, stream: int, G: int, K: int):
@@ -206,10 +212,9 @@ def _launch(keys, remaps, cards, keep, values, num_groups) -> DenseGroups:
     dev, p = keep.get_device(), keep.numel()
     stream = _RAW_STREAM(dev) if _RAW_STREAM is not None else \
         torch.cuda.current_stream(dev).cuda_stream
-    scratch = _scratch(k, dev, stream, G, K)
     out = torch.empty(2 * K * G + G, dtype=torch.int64, device=keep.device)
-    v = [len(keys), K, G, p, keep.data_ptr(), out.data_ptr(),
-         scratch.data_ptr(), scratch.numel() * 8, stream, 0]
+    v = [len(keys), K, G, p, keep.data_ptr(), out.data_ptr(), 0, 0,
+         stream, 0]
     b8, i32, i64 = torch.bool, torch.int32, torch.int64
     for (codes, valid), remap, card in zip(keys, remaps, cards):
         if codes.dtype is not i32 or valid.dtype is not b8 \
@@ -237,12 +242,15 @@ def _launch(keys, remaps, cards, keep, values, num_groups) -> DenseGroups:
         if data.dtype is i64:
             int_mask |= 1 << c
     v[9] = int_mask
-    packed = array.array("q", v)
-    rc = k["launch"](packed.buffer_info()[0])
-    if rc != 0:
-        raise RuntimeError(f"dense_groupby kernel launch failed: CUDA error "
-                           f"{rc}")
-    dense_groupby.launches += 1
+    with _LOCK:
+        scratch = _scratch(k, dev, stream, G, K)
+        v[6], v[7] = scratch.data_ptr(), scratch.numel() * 8
+        packed = array.array("q", v)
+        rc = k["launch"](packed.buffer_info()[0])
+        if rc != 0:
+            raise RuntimeError(f"dense_groupby kernel launch failed: CUDA "
+                               f"error {rc}")
+        dense_groupby.launches += 1
     sums: List[Optional[torch.Tensor]] = [None] * K
     if K:
         block = out[:K * G]

@@ -7,6 +7,11 @@ column is gathered once by the permutation. ``sort_batch_device`` takes
 the place of the reference's ``_build_sort_kernel`` and
 ``sort_batch_device`` both: eager torch ops need no kernel to build.
 
+The in-memory sort wraps its inputs as spillable batches and sorts
+inside ``with_retry_no_split`` under the device semaphore (ref
+``exec/sort.py:200-225``): the inputs come back to the device inside the
+retried closure.
+
 A dictionary string column sorts by its codes: dictionaries are sorted,
 so code order is string order (``concat_batches`` keeps that across
 batches). A key in byte-rectangle form waits for the strings slice, and
@@ -24,6 +29,7 @@ from ..columnar.batch import concat_batches
 from ..config import BATCH_SIZE_BYTES
 from ..exprs.base import EvalContext
 from ..exprs.compiler import batch_device, batch_dvals
+from ..mem.retry import with_retry_no_split, wrap_spillables
 from ..types import Schema
 from .base import ExecContext, TpuExec
 from .encoding import lexsort_permutation, order_key_operands
@@ -71,17 +77,29 @@ class TpuSortExec(TpuExec):
         return self.children[0].output_schema()
 
     def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
-        batches = list(self.children[0].execute(ctx))
-        if not batches:
+        spillables = wrap_spillables(self.children[0].execute(ctx),
+                                     ctx.memory)
+        if not spillables:
             return
-        total = sum(b.device_size_bytes() for b in batches)
-        limit = int(ctx.conf.get(BATCH_SIZE_BYTES))
-        if total > limit:
-            raise NotImplementedError(
-                f"sort input of {total} device bytes exceeds "
-                f"spark.rapids.tpu.sql.batchSizeBytes ({limit}): the "
-                "out-of-core sort arrives with slice 8 (ROADMAP.md)")
-        yield sort_batch_device(self.orders, concat_batches(batches))
+
+        def do_sort():
+            with ctx.semaphore.held():
+                big = concat_batches([sb.get() for sb in spillables])
+                return sort_batch_device(self.orders, big)
+
+        try:
+            total = sum(sb.device_bytes() for sb in spillables)
+            limit = int(ctx.conf.get(BATCH_SIZE_BYTES))
+            if total > limit:
+                raise NotImplementedError(
+                    f"sort input of {total} device bytes exceeds "
+                    f"spark.rapids.tpu.sql.batchSizeBytes ({limit}): the "
+                    "out-of-core sort arrives with slice 8 (ROADMAP.md)")
+            out = with_retry_no_split(do_sort, ctx=ctx, op="Sort")
+        finally:
+            for sb in spillables:
+                sb.close()
+        yield out
 
     def describe(self):
         return f"Sort[{', '.join(map(repr, self.orders))}]"

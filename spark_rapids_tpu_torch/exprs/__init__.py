@@ -5,7 +5,7 @@ from .base import (Alias, ColumnRef, DVal, EvalContext, Expression,
                    Literal, StrVal)
 from .comparison import (EqualTo, GreaterThan, GreaterThanOrEqual, LessThan,
                          LessThanOrEqual)
-from .logical import And
+from .logical import And, Not, Or
 from .string_fns import (Contains, EndsWith, Like, RLike, StartsWith,
                          StringInstr, StringLocate)
 
@@ -13,5 +13,5 @@ __all__ = ["AggregateExpression", "Average", "Count", "CountStar", "Sum",
            "Add", "Multiply", "Subtract", "Alias",
            "ColumnRef", "DVal", "EvalContext", "Expression", "Literal",
            "StrVal", "EqualTo", "GreaterThan", "GreaterThanOrEqual",
-           "LessThan", "LessThanOrEqual", "And", "Contains", "EndsWith",
-           "Like", "RLike", "StartsWith", "StringInstr", "StringLocate"]
+           "LessThan", "LessThanOrEqual", "And", "Or", "Not", "Contains",
+           "EndsWith", "Like", "RLike", "StartsWith", "StringInstr", "StringLocate"]

@@ -43,15 +43,18 @@ class DVal(NamedTuple):
 
 class EvalContext:
     """Context handed to Expression.eval_device: the input DVals by
-    ordinal, the true row count and the padded length, and the device."""
+    ordinal, the true row count and the padded length, the device, and
+    the values of a filter's dictionary slots (compiler.py _DictSlot)."""
 
     def __init__(self, schema: Schema, columns: Sequence[Optional[DVal]],
-                 num_rows: int, padded_len: int, device):
+                 num_rows: int, padded_len: int, device,
+                 slots: Sequence[DVal] = ()):
         self.schema = schema
         self.columns = list(columns)
         self.num_rows = num_rows
         self.padded_len = padded_len
         self.device = device
+        self.slots = slots
 
     def row_mask(self) -> torch.Tensor:
         """bool[P]: True for real rows, False for padding."""

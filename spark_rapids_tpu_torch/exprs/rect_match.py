@@ -24,6 +24,7 @@ place of the reference's XLA ops (exprs/string_rect.py).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -147,9 +148,11 @@ def rect_match(bytes_: torch.Tensor, lengths: torch.Tensor,
             torch.cuda.current_stream(bytes_.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rect_match kernel launch failed: CUDA error {rc}")
-    rect_match.launches += 1
+    with _COUNT_LOCK:           # queries on several threads launch it
+        rect_match.launches += 1
     return out
 
 
 #: kernel launches since the count was last set to 0
 rect_match.launches = 0
+_COUNT_LOCK = threading.Lock()

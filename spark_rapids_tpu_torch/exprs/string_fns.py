@@ -2,9 +2,11 @@
 ``spark_rapids_tpu/exprs/string_fns.py``: the classes of the literal
 match family, their types, keys and tagging).
 
-They have no row-wise device form of their own: a projection routes
-them over a byte-rectangle column through ``string_rect.eval_rect_expr``,
-and over a dictionary column through ``string_rect.match_dictionary``.
+They have no row-wise device form of their own: a projection or a filter
+routes them over a byte-rectangle column through
+``string_rect.eval_rect_expr``, and over a dictionary column through
+``string_rect.match_dictionary`` (in a filter: ``compiler.py``
+``DictFilterEvaluator``, in the form ``dict_form`` names).
 """
 from __future__ import annotations
 
@@ -23,6 +25,11 @@ class _HostStringExpr(Expression):
 
 
 class _PatternPredicate(_HostStringExpr):
+    #: "range": on the SORTED dictionary the matching codes are one
+    #: contiguous span -> (codes >= lo) & (codes < hi), no gather;
+    #: "mask": any match set -> one lookup in a small table
+    dict_form = "mask"
+
     def __init__(self, child, pattern: str):
         self.children = [child]
         self.pattern = pattern
@@ -40,7 +47,7 @@ class Contains(_PatternPredicate):
 
 
 class StartsWith(_PatternPredicate):
-    pass
+    dict_form = "range"     # a prefix match is a code range on a sorted dict
 
 
 class EndsWith(_PatternPredicate):

@@ -143,10 +143,14 @@ class FilterMeta(PlanMeta):
         schema = self.plan.children[0].schema()
         r = self.plan.condition.fully_device_supported(schema)
         if r:
+            # literal-match predicates over STRING columns run on the
+            # device over the dictionary or the byte rectangle
+            # (exprs/compiler.py DictFilterEvaluator)
+            from ..exprs.compiler import build_dict_filter
+            if build_dict_filter(self.plan.condition, schema) is not None:
+                return
             self.will_not_work_on_tpu(
-                f"filter condition <{self.plan.condition.name_hint}>: {r}; "
-                "a string predicate in a filter condition arrives with the "
-                "strings slice (project it to a column, then filter)")
+                f"filter condition <{self.plan.condition.name_hint}>: {r}")
 
     def convert_to_tpu(self, children):
         return B.TpuFilterExec(self.plan.condition, children[0])

@@ -245,9 +245,14 @@ def test_comments_follow_the_spec_domain():
 
 
 def test_filter_on_a_string_predicate_is_refused(lineitem):
+    """A string predicate inside a filter runs on the device over a
+    dictionary or an ASCII byte rectangle (tests/test_torch_filter.py);
+    over a host string column (here l_comment wider than the rectangle's
+    cap) the port, which has no host engine, refuses it."""
     t, _ = lineitem
-    df = _port().create_dataframe(t).filter(
-        PF.col("l_comment").contains("special")).agg(PF.count_star())
+    df = _port({"spark.rapids.tpu.sql.string.rect.maxBytes": 32}) \
+        .create_dataframe(t).filter(
+            PF.col("l_comment").contains("special")).agg(PF.count_star())
     with pytest.raises(NotImplementedError, match="strings slice"):
         df.collect()
 
