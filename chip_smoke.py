@@ -57,7 +57,20 @@ result line):
                 and the disk); the spill rates of one q18 partial; q1
                 under 2 injected RetryOOMs and 1 SplitAndRetryOOM; q6 and
                 q1 on two threads of one session with 1 and 2 device
-                permits; the leak audit at session close.
+                permits; the leak audit at session close;
+  8. parquet -- lineitem written to Parquet by the script's own writer
+                (numpy and zlib) and read by the port's reader, which
+                needs no pyarrow (its host library is built with g++ at
+                first use): q6, q1 and q_comment over the files equal the
+                in-memory results exactly, with dense_groupby and
+                rect_match once a batch; rung 1 (every ported arithmetic
+                expression in one filter and projection) cold and warm
+                against numpy; fault C1 at scale; row-group pruning of a
+                l_shipdate range; the cold wall split (file read, host
+                decode, string encode, copy, the rest) with the transfer
+                encode on and off; PERFILE against MULTITHREADED; the
+                host library's decode rate per encoding
+                (``phase_parquet``).
 
 The data is generated here from a seed, with numpy only: this script
 imports neither JAX, pyarrow, pandas nor the JAX package. It prints a
@@ -337,6 +350,328 @@ def gen_table(n_rows: int) -> dict:
     t = gen_lineitem(n_rows)
     t["l_comment"] = gen_comment(n_rows)
     return t
+
+
+# ---------------------------------------------------------------------------
+# a Parquet writer of the script's own (numpy and zlib; the card's machine
+# has no pyarrow)
+# ---------------------------------------------------------------------------
+
+#: TPC-H l_shipinstruct's four values (spec 4.2.3)
+_SHIPINSTRUCT = ("DELIVER IN PERSON", "COLLECT COD", "NONE",
+                 "TAKE BACK RETURN")
+#: the share of l_partkey left null: the files' one nullable column
+PARTKEY_NULLS = 0.01
+
+
+def gen_parquet_extra(n_rows: int, seed: int = SEED + 2) -> dict:
+    """Two lineitem columns that only the Parquet files carry:
+    ``l_partkey`` (SF1's 200,000 parts, 1% null, as a masked array) and
+    ``l_shipinstruct`` (the fourth low-cardinality string)."""
+    rng = np.random.RandomState(seed)
+    part = rng.randint(1, 200_001, n_rows).astype(np.int64)
+    null = rng.rand(n_rows) < PARTKEY_NULLS
+    return {"l_partkey": np.ma.MaskedArray(np.where(null, 0, part),
+                                           mask=null),
+            "l_shipinstruct": rng.choice(_SHIPINSTRUCT, n_rows)}
+
+
+class _Thrift:
+    """Thrift compact-protocol writer: a struct is a list of (field id,
+    kind, value), kind one of "i32", "i64", "bin", "bool", "struct",
+    ("list", element kind)."""
+
+    _TYPE = {"bool": 1, "i32": 5, "i64": 6, "bin": 8, "struct": 12}
+
+    def __init__(self):
+        self.out = bytearray()
+
+    def varint(self, v: int) -> None:
+        while True:
+            b = v & 0x7F
+            v >>= 7
+            if v:
+                self.out.append(b | 0x80)
+            else:
+                self.out.append(b)
+                return
+
+    def value(self, kind, v) -> None:
+        if kind in ("i32", "i64"):
+            self.varint((v << 1) ^ (v >> 63))
+        elif kind == "bin":
+            self.varint(len(v))
+            self.out += v
+        elif kind == "struct":
+            self.struct(v)
+        else:                                   # ("list", element kind)
+            ek = kind[1]
+            n = len(v)
+            et = self._TYPE[ek]
+            if n < 15:
+                self.out.append((n << 4) | et)
+            else:
+                self.out.append(0xF0 | et)
+                self.varint(n)
+            for x in v:
+                self.value(ek, x)
+
+    def struct(self, fields) -> None:
+        last = 0
+        for fid, kind, v in fields:
+            t = 1 if kind == "bool" and v else 2 if kind == "bool" \
+                else 9 if isinstance(kind, tuple) else self._TYPE[kind]
+            if 0 < fid - last <= 15:
+                self.out.append(((fid - last) << 4) | t)
+            else:
+                self.out.append(t)
+                self.varint((fid << 1) ^ (fid >> 63))
+            last = fid
+            if kind != "bool":
+                self.value(kind, v)
+        self.out.append(0)
+
+
+def _thrift(fields) -> bytes:
+    w = _Thrift()
+    w.struct(fields)
+    return bytes(w.out)
+
+
+def _bitpacked(values: np.ndarray, width: int) -> bytes:
+    """``values`` as one bit-packed run of the RLE/bit-packed hybrid (the
+    last group padded to 8 values)."""
+    n = len(values)
+    groups = -(-n // 8)
+    v = np.zeros(groups * 8, np.uint32)
+    v[:n] = values
+    bits = ((v[:, None] >> np.arange(width, dtype=np.uint32)) & 1) \
+        .astype(np.uint8).reshape(-1)
+    w = _Thrift()
+    w.varint((groups << 1) | 1)
+    return bytes(w.out) + np.packbits(bits, bitorder="little").tobytes()
+
+
+def _byte_array_plain(s: np.ndarray) -> bytes:
+    """PLAIN BYTE_ARRAY of an ``S`` array: a 4-byte length, then the
+    bytes, per value (vectorised in chunks of rows)."""
+    n, k = len(s), s.dtype.itemsize
+    lens = np.char.str_len(s).astype(np.int64)
+    starts = np.concatenate([[0], np.cumsum(4 + lens)[:-1]]) \
+        if n else np.zeros(0, np.int64)
+    out = np.zeros(int((4 + lens).sum()), np.uint8)
+    for b in range(4):
+        out[starts + b] = (lens >> (8 * b)) & 0xFF
+    raw = np.ascontiguousarray(s).view(np.uint8).reshape(n, k)
+    col = np.arange(k)
+    for lo in range(0, n, 1 << 16):
+        hi = min(lo + (1 << 16), n)
+        keep = col[None, :] < lens[lo:hi, None]
+        dest = (starts[lo:hi, None] + 4 + col[None, :])[keep]
+        out[dest] = raw[lo:hi][keep]
+    return out.tobytes()
+
+
+def _gzip(b: bytes) -> bytes:
+    import zlib
+    c = zlib.compressobj(6, zlib.DEFLATED, 31)     # 31: the gzip format
+    return c.compress(b) + c.flush()
+
+
+# physical types, converted types, encodings, page kinds
+_PQ_INT32, _PQ_INT64, _PQ_DOUBLE, _PQ_BYTE_ARRAY = 1, 2, 5, 6
+_PQ_UTF8, _PQ_DATE = 0, 6
+_PQ_PLAIN, _PQ_RLE, _PQ_RLE_DICT = 0, 3, 8
+
+
+def _parquet_column(name: str, values):
+    """(physical type, converted type, encoding, nullable, PLAIN values
+    or dictionary + indices, validity, statistics) of a lineitem
+    column."""
+    valid = None
+    if isinstance(values, np.ma.MaskedArray):
+        valid = ~np.ma.getmaskarray(values)
+        values = values.data
+    kind = values.dtype.kind
+    if kind == "M":
+        return dict(ptype=_PQ_INT32, conv=_PQ_DATE, enc=_PQ_PLAIN,
+                    values=values.astype("datetime64[D]").astype(np.int64)
+                    .astype("<i4"), valid=valid)
+    if kind == "f":
+        return dict(ptype=_PQ_DOUBLE, conv=None, enc=_PQ_PLAIN,
+                    values=values.astype("<f8"), valid=valid)
+    if kind == "i":
+        return dict(ptype=_PQ_INT64, conv=None, enc=_PQ_PLAIN,
+                    values=values.astype("<i8"), valid=valid)
+    if kind == "U":                          # a low-cardinality string
+        uniq, idx = np.unique(values, return_inverse=True)
+        return dict(ptype=_PQ_BYTE_ARRAY, conv=_PQ_UTF8, enc=_PQ_RLE_DICT,
+                    dictionary=np.char.encode(uniq, "utf-8"),
+                    values=idx.astype(np.uint32), valid=valid)
+    if kind == "S":
+        return dict(ptype=_PQ_BYTE_ARRAY, conv=_PQ_UTF8, enc=_PQ_PLAIN,
+                    values=values, valid=valid)
+    raise TypeError(f"{name}: {values.dtype}")
+
+
+def _column_chunk(spec: dict, lo: int, hi: int, page_rows: int, v2: bool,
+                  gzip: bool, offset: int):
+    """(chunk bytes, ColumnMetaData fields) of rows lo..hi."""
+    pages, chunk = [], bytearray()
+    valid = spec["valid"][lo:hi] if spec["valid"] is not None else None
+    vals = spec["values"][lo:hi]
+    enc = spec["enc"]
+    dict_off = None
+    total_unc = 0
+    if enc == _PQ_RLE_DICT:
+        d = spec["dictionary"]
+        width = max(1, int(len(d) - 1).bit_length())
+        body = _byte_array_plain(d)
+        comp = _gzip(body) if gzip else body
+        head = _thrift([(1, "i32", 2), (2, "i32", len(body)),
+                        (3, "i32", len(comp)),
+                        (7, "struct", [(1, "i32", len(d)),
+                                       (2, "i32", _PQ_PLAIN)])])
+        dict_off = offset
+        chunk += head + comp
+        total_unc += len(head) + len(body)
+    data_off = offset + len(chunk)
+    for p in range(lo, hi, page_rows):
+        q = min(p + page_rows, hi)
+        pv = vals[p - lo:q - lo]
+        pvalid = valid[p - lo:q - lo] if valid is not None else None
+        dense = pv if pvalid is None else pv[pvalid]
+        if enc == _PQ_RLE_DICT:
+            values = bytes([width]) + _bitpacked(dense, width)
+        elif spec["ptype"] == _PQ_BYTE_ARRAY:
+            values = _byte_array_plain(dense)
+        else:
+            values = np.ascontiguousarray(dense).tobytes()
+        levels = b""
+        if pvalid is not None:
+            levels = _bitpacked(pvalid.astype(np.uint32), 1)
+        n, nulls = q - p, 0 if pvalid is None else int((~pvalid).sum())
+        if v2:
+            comp = _gzip(values) if gzip else values
+            body = levels + comp
+            head = _thrift([(1, "i32", 3),
+                            (2, "i32", len(levels) + len(values)),
+                            (3, "i32", len(body)),
+                            (8, "struct", [(1, "i32", n), (2, "i32", nulls),
+                                           (3, "i32", n), (4, "i32", enc),
+                                           (5, "i32", len(levels)),
+                                           (6, "i32", 0),
+                                           (7, "bool", gzip)])])
+            total_unc += len(head) + len(levels) + len(values)
+        else:
+            if pvalid is not None:
+                levels = len(levels).to_bytes(4, "little") + levels
+            plain = levels + values
+            body = _gzip(plain) if gzip else plain
+            head = _thrift([(1, "i32", 0), (2, "i32", len(plain)),
+                            (3, "i32", len(body)),
+                            (5, "struct", [(1, "i32", n), (2, "i32", enc),
+                                           (3, "i32", _PQ_RLE),
+                                           (4, "i32", _PQ_RLE)])])
+            total_unc += len(head) + len(plain)
+        chunk += head + body
+    stats = [(3, "i64", 0 if valid is None else int((~valid).sum()))]
+    if spec["ptype"] != _PQ_BYTE_ARRAY and len(vals):
+        live = vals if valid is None else vals[valid]
+        if len(live):
+            stats += [(5, "bin", live.max().tobytes()),
+                      (6, "bin", live.min().tobytes())]
+    encs = sorted({enc, _PQ_RLE} | ({_PQ_PLAIN} if dict_off is not None
+                                     else set()))
+    meta = [(1, "i32", spec["ptype"]), (2, ("list", "i32"), encs),
+            (3, ("list", "bin"), [spec["name"].encode()]),
+            (4, "i32", 2 if gzip else 0), (5, "i64", hi - lo),
+            (6, "i64", total_unc), (7, "i64", len(chunk)),
+            (9, "i64", data_off)]
+    if dict_off is not None:
+        meta.append((11, "i64", dict_off))
+    meta.append((12, "struct", stats))
+    return bytes(chunk), meta
+
+
+def write_parquet(path: str, table: dict, group_rows: int, v2: bool = False,
+                  gzip: bool = False, page_rows: int = 1 << 18) -> int:
+    """Write ``table`` (name -> numpy array; a masked array is a nullable
+    column with definition levels) as one Parquet file of row groups of
+    ``group_rows`` rows: PLAIN numbers and dates (INT64, DOUBLE, INT32
+    DATE), RLE_DICTIONARY for ``U`` strings, PLAIN BYTE_ARRAY for ``S``
+    strings, data pages v1 or v2 of ``page_rows`` rows, UNCOMPRESSED or
+    GZIP, min/max statistics for fixed-width columns. Returns the
+    number of row groups."""
+    names = list(table)
+    rows = len(table[names[0]])
+    specs = []
+    for name in names:
+        spec = _parquet_column(name, table[name])
+        spec["name"] = name
+        specs.append(spec)
+    groups = []
+    with open(path, "wb") as f:
+        f.write(b"PAR1")
+        pos = 4
+        for lo in range(0, rows, group_rows):
+            hi = min(lo + group_rows, rows)
+            chunks, size = [], 0
+            for spec in specs:
+                data, meta = _column_chunk(spec, lo, hi, page_rows, v2,
+                                           gzip, pos)
+                f.write(data)
+                chunks.append([(2, "i64", pos), (3, "struct", meta)])
+                pos += len(data)
+                size += len(data)
+            groups.append([(1, ("list", "struct"), chunks),
+                           (2, "i64", size), (3, "i64", hi - lo)])
+        schema = [[(4, "bin", b"schema"), (5, "i32", len(specs))]]
+        for spec in specs:
+            el = [(1, "i32", spec["ptype"]),
+                  (3, "i32", 1 if spec["valid"] is not None else 0),
+                  (4, "bin", spec["name"].encode())]
+            if spec["conv"] is not None:
+                el.append((6, "i32", spec["conv"]))
+            schema.append(el)
+        footer = _thrift([(1, "i32", 1), (2, ("list", "struct"), schema),
+                          (3, "i64", rows),
+                          (4, ("list", "struct"), groups),
+                          (6, "bin", b"spark_rapids_tpu chip_smoke.py")])
+        f.write(footer + len(footer).to_bytes(4, "little") + b"PAR1")
+    return len(groups)
+
+
+def write_lineitem_parquet(table: dict, out_dir: str, files: int = 6,
+                           prune_group_rows: int = 1 << 16,
+                           batch_rows: int = 1 << 20) -> dict:
+    """The lineitem table as ``files`` files of one row group each,
+    rows i * batch_rows onwards (so the files are the in-memory scan's
+    batches), data pages v1 and v2 in turn, the last file in GZIP; and
+    one file sorted by l_shipdate in row groups of ``prune_group_rows``
+    (for pruning). Returns {"files": [(path, first row, end row)],
+    "prune": (path, 0, rows), "prune_order": the sort permutation}."""
+    import os
+    os.makedirs(out_dir, exist_ok=True)
+    rows = len(next(iter(table.values())))
+    step = max(batch_rows, -(-rows // files))
+    out = {"files": []}
+    for i in range(files):
+        lo, hi = i * step, min((i + 1) * step, rows)
+        if lo >= hi:
+            break
+        path = os.path.join(out_dir, f"lineitem-{i}.parquet")
+        write_parquet(path, {k: v[lo:hi] for k, v in table.items()},
+                      group_rows=hi - lo, v2=bool(i % 2),
+                      gzip=i == files - 1)
+        out["files"].append((path, lo, hi))
+    order = np.argsort(table["l_shipdate"], kind="stable")
+    path = os.path.join(out_dir, "lineitem-sorted.parquet")
+    write_parquet(path, {k: v[order] for k, v in table.items()},
+                  group_rows=prune_group_rows)
+    out["prune"] = (path, 0, rows)
+    out["prune_order"] = order
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1888,6 +2223,433 @@ def phase_memory_slice(conf, table, host, n_batches: int) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 8: Parquet
+# ---------------------------------------------------------------------------
+
+def q_codes(df, F):
+    """A count by return flag and shipping mode over two years of
+    l_shipdate: only int, date and dictionary-code columns, so its
+    batches are ones the transfer encode narrows (q1's float columns
+    keep its batches raw)."""
+    lo, hi = np.datetime64("1994-01-01"), np.datetime64("1996-01-01")
+    return (df.filter((F.col("l_shipdate") >= F.lit(lo))
+                      & (F.col("l_shipdate") < F.lit(hi)))
+            .group_by("l_returnflag", "l_shipmode")
+            .agg(F.count_star().with_name("n"),
+                 F.sum(F.col("l_orderkey")).with_name("sum_orderkey"))
+            .order_by("l_returnflag", "l_shipmode"))
+
+
+def q_codes_numpy(t: dict) -> list:
+    sd = t["l_shipdate"]
+    keep = (sd >= np.datetime64("1994-01-01")) & \
+        (sd < np.datetime64("1996-01-01"))
+    flag, mode = t["l_returnflag"][keep], t["l_shipmode"][keep]
+    ok = t["l_orderkey"][keep].astype(np.int64)
+    return [{"l_returnflag": str(f), "l_shipmode": str(m),
+             "n": int(((flag == f) & (mode == m)).sum()),
+             "sum_orderkey": int(ok[(flag == f) & (mode == m)].sum())}
+            for f in np.unique(flag) for m in np.unique(mode)
+            if ((flag == f) & (mode == m)).any()]
+
+
+def rung1(df, F):
+    """Ladder rung 1: a filter and a projection that use every ported
+    arithmetic expression, with divisors that are zero in some rows
+    (l_discount and l_tax are 0.00 in about one row in ten; the modular
+    divisors are 0 for one part key in 5, 7 or 9) and one nullable
+    operand (l_partkey)."""
+    ok, pk = F.col("l_orderkey"), F.col("l_partkey")
+    return (df.filter((F.col("l_quantity") >= F.lit(40.0))
+                      & (F.col("l_discount") <= F.lit(0.05)))
+            .select(
+                ok,
+                (F.col("l_extendedprice") / F.col("l_discount"))
+                .alias("price_per_disc"),
+                F.div(ok, pk % F.lit(7)).alias("ok_div"),
+                (ok % (pk % F.lit(5))).alias("ok_mod"),
+                F.pmod(-ok, pk % F.lit(9) - F.lit(4)).alias("ok_pmod"),
+                (F.col("l_quantity") % F.col("l_tax")).alias("qty_mod_tax"),
+                (-F.col("l_extendedprice")).alias("neg_price"),
+                F.abs(F.col("l_quantity") - F.lit(45.0)).alias("abs_qty"),
+                (+F.col("l_tax")).alias("pos_tax"),
+                ok.bitwiseAND(pk).alias("bit_and"),
+                ok.bitwiseOR(F.lit(0x55)).alias("bit_or"),
+                ok.bitwiseXOR(pk).alias("bit_xor"),
+                F.bitwise_not(pk).alias("bit_not"),
+                F.shiftleft(ok, F.lit(3)).alias("shl"),
+                F.shiftright(-pk, F.lit(2)).alias("shr"),
+                F.shiftrightunsigned(-ok, F.lit(60)).alias("shru")))
+
+
+def rung1_numpy(t: dict) -> dict:
+    """rung1's columns as (values, valid) from numpy: integers by Java's
+    rules, each float column one IEEE operation a row."""
+    keep = (t["l_quantity"] >= 40.0) & (t["l_discount"] <= 0.05)
+    ok = t["l_orderkey"][keep].astype(np.int64)
+    pkm = t["l_partkey"][keep]
+    pk, pv = pkm.data.astype(np.int64), ~np.ma.getmaskarray(pkm)
+    price, disc = t["l_extendedprice"][keep], t["l_discount"][keep]
+    qty, tax = t["l_quantity"][keep], t["l_tax"][keep]
+    ones = np.ones(len(ok), bool)
+
+    def jdiv(a, b):
+        b1 = np.where(b == 0, 1, b)
+        q = np.abs(a) // np.abs(b1)
+        return np.where((a < 0) != (b1 < 0), -q, q)
+
+    def jmod(a, b):
+        return np.fmod(a, np.where(b == 0, 1, b))
+
+    with np.errstate(all="ignore"):
+        out = {"l_orderkey": (ok, ones),
+               "price_per_disc": (price / np.where(disc == 0, 1.0, disc),
+                                  disc != 0)}
+        d7, d5, d9 = pk % 7, pk % 5, pk % 9 - 4
+        out["ok_div"] = (jdiv(ok, d7), pv & (d7 != 0))
+        out["ok_mod"] = (jmod(ok, d5), pv & (d5 != 0))
+        m = jmod(-ok, d9)
+        out["ok_pmod"] = (np.where(m < 0, jmod(m + d9, d9), m),
+                          pv & (d9 != 0))
+        out["qty_mod_tax"] = (np.fmod(qty, np.where(tax == 0, 1.0, tax)),
+                              tax != 0)
+    out["neg_price"] = (-price, ones)
+    out["abs_qty"] = (np.abs(qty - 45.0), ones)
+    out["pos_tax"] = (tax, ones)
+    out["bit_and"] = (ok & pk, pv)
+    out["bit_or"] = (ok | 0x55, ones)
+    out["bit_xor"] = (ok ^ pk, pv)
+    out["bit_not"] = (~pk, pv)
+    out["shl"] = (ok << 3, ones)
+    out["shr"] = ((-pk) >> 2, pv)
+    out["shru"] = (((-ok).view(np.uint64) >> np.uint64(60)).view(np.int64),
+                   ones)
+    return out
+
+
+def rung1_equal(got: dict, want: dict) -> list:
+    """The columns that differ: validity exactly, values exactly (floats
+    bit for bit) where valid."""
+    bad = []
+    for name, (w, wv) in want.items():
+        g = got[name]
+        gv = ~np.ma.getmaskarray(g)
+        gd = np.ma.getdata(g)
+        if len(gd) != len(w) or not np.array_equal(gv, wv):
+            bad.append(name)
+            continue
+        if w.dtype.kind == "f":
+            same = gd[wv].view(np.int64) == w[wv].view(np.int64)
+        else:
+            same = gd[wv] == w[wv]
+        if not same.all():
+            bad.append(name)
+    return bad
+
+
+def _scan_node(physical):
+    from spark_rapids_tpu_torch.io.parquet import ParquetScanExec
+    node = physical
+    while not isinstance(node, ParquetScanExec):
+        node = node.children[0]
+    return node
+
+
+def _timed_scan_query(session, paths, query):
+    """One run of ``query`` over ``paths`` with the scan's stage timings:
+    (rows, wall ms, the scan's timings)."""
+    import torch
+    from spark_rapids_tpu_torch.api import functions as F
+    t0 = time.perf_counter()
+    df = query(session.read_parquet(*paths), F)
+    physical = df._physical()
+    ctx = session.exec_context()
+    cols = physical.collect(ctx)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    names = physical.output_schema().names()
+    rows = [dict(zip(names, r)) for r in zip(*[
+        [None if not ok else (v.item() if hasattr(v, "item") else v)
+         for v, ok in zip(vals, valid)] for vals, valid in cols])]
+    return rows, wall, _scan_node(physical).timings
+
+
+def _split_line(label: str, wall: float, tm: dict) -> dict:
+    parts = {k: tm.get(k, 0.0) * 1e3 for k in ("read_s", "decode_s",
+                                              "encode_s", "copy_s")}
+    rest = wall - sum(parts.values())
+    _log(f"{label}: wall {wall:.1f} ms = file read {parts['read_s']:.1f} + "
+         f"host decode {parts['decode_s']:.1f} + string encode "
+         f"{parts['encode_s']:.1f} + host-to-device copy "
+         f"{parts['copy_s']:.1f} + the rest (device work and host dispatch)"
+         f" {rest:.1f} ms; {tm.get('file_bytes', 0)} file bytes, "
+         f"{tm.get('batches', 0)} batches")
+    return {"wall_ms": wall, **{k[:-2] + "_ms": v for k, v in parts.items()},
+            "rest_ms": rest, "file_bytes": tm.get("file_bytes", 0),
+            "batches": tm.get("batches", 0)}
+
+
+def _transfer_times(table: dict, batch_rows: int, card: str) -> dict:
+    """lineitem's int, date and dictionary-code columns of the first
+    batch through the transfer encode (q1's batch does not qualify: its
+    four float columns keep it above the ratio): the host encode, the
+    one pinned copy and the decode on the card (CUDA events over
+    repeated calls), beside the plain copies of the raw columns that the
+    encode-off route makes."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import transfer
+    from spark_rapids_tpu_torch.columnar.batch import _try_dict_encode
+    from spark_rapids_tpu_torch.columnar.strrect import utf8_bytes
+    sl = slice(0, batch_rows)
+    ones = np.ones(min(batch_rows, len(table["l_orderkey"])), bool)
+    pairs = [(table["l_orderkey"][sl].astype(np.int64), ones)]
+    for c in ("l_shipdate", "l_receiptdate"):
+        pairs.append((table[c][sl].astype("datetime64[D]").astype(np.int64)
+                      .astype(np.int32), ones))
+    for c in ("l_returnflag", "l_linestatus", "l_shipmode"):
+        pairs.append((_try_dict_encode(utf8_bytes(table[c][sl], ones), ones,
+                                       len(ones))[0], ones))
+    n = len(ones)
+    t0 = time.perf_counter()
+    flat, specs, params, ratio, raw = transfer.encode_columns(pairs)
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    _check(transfer.worthwhile(ratio, raw), "q1's batch does not encode")
+    reps = 20
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(reps):
+        dev = transfer.copy_to_device(flat, "cuda")
+    ev[1].record()
+    for _ in range(reps):
+        out = transfer.decode_columns(dev, specs, params, n, "cuda")
+    ev[2].record()
+    for _ in range(reps):
+        plain = [(torch.from_numpy(d).to("cuda"), torch.from_numpy(v)
+                  .to("cuda")) for d, v in pairs]
+    ev[3].record()
+    torch.cuda.synchronize()
+    for (d, v), (gd, gv) in zip(pairs, out):
+        _check(np.array_equal(gd.cpu().numpy(), d)
+               and np.array_equal(gv.cpu().numpy(), v),
+               "the transfer decode changed a column")
+    del plain
+    res = {"rows": n, "raw_bytes": raw,
+           "encoded_bytes": int(sum(a.nbytes for a in flat)),
+           "host_encode_ms": enc_ms,
+           "pinned_copy_ms": ev[0].elapsed_time(ev[1]) / reps,
+           "decode_ms": ev[1].elapsed_time(ev[2]) / reps,
+           "raw_copies_ms": ev[2].elapsed_time(ev[3]) / reps}
+    _log(f"transfer encode of a batch of lineitem's int, date and code "
+         f"columns ({n} rows, {len(pairs)} columns): "
+         f"{raw} B raw -> {res['encoded_bytes']} B; host encode "
+         f"{enc_ms:.2f} ms, one pinned copy {res['pinned_copy_ms']:.3f} ms,"
+         f" decode on the card {res['decode_ms']:.3f} ms a batch; the "
+         f"encode-off route's copies {res['raw_copies_ms']:.3f} ms [{card}]")
+    return res
+
+
+def phase_parquet(table: dict, inmem: dict, batch_rows: int,
+                  card: str) -> dict:
+    """Phase 8: lineitem written to Parquet by the script's own writer
+    and read back by the port's reader (no pyarrow), on the card.
+
+    The writer (numpy and zlib) makes six files of one row group each
+    (the in-memory scan's six batches), PLAIN numbers and dates,
+    RLE_DICTIONARY for the four low-cardinality strings, PLAIN
+    l_comment, the nullable l_partkey with definition levels, data pages
+    v1 and v2 in turn and the last file in GZIP; and one file sorted by
+    l_shipdate in row groups of 65,536 rows. Nothing on the card writes
+    SNAPPY: its decompression is the same g++ code on both machines, and
+    the CPU tests hold it against pyarrow's files.
+
+    Checks: q6, q1 and q_comment over the files equal the in-memory
+    results exactly, with dense_groupby and rect_match once a batch;
+    rung 1 cold and warm against numpy; q1 over the sorted file in
+    65,533-row batches (so that each row group ends in a 3-row batch,
+    a byte rectangle where its three return flags differ: fault C1) equal
+    to numpy; a l_shipdate range keeps the row groups numpy says may
+    match. Prints the cold wall split (file read, host decode, string
+    encode, copy, the rest) with the transfer encode on and off, for q1
+    and for q_codes (int, date and code columns only), PERFILE
+    against MULTITHREADED, the transfer decode's time a batch, and the
+    host library's decode rate per encoding; every reading with the
+    card's name and power limit."""
+    import torch
+    from spark_rapids_tpu_torch.api import TorchSession
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.columnar import ByteRectColumn, DeviceColumn
+    from spark_rapids_tpu_torch.exec.dense_groupby import dense_groupby
+    from spark_rapids_tpu_torch.exprs.rect_match import rect_match
+    from spark_rapids_tpu_torch.io.parquet import ParquetScanExec
+    from spark_rapids_tpu_torch.io.parquet_meta import read_footer
+
+    rows = len(table["l_orderkey"])
+    n_batches = math.ceil(rows / batch_rows)
+    out_dir = Path(__file__).resolve().parent / "build" / "parquet"
+    t0 = time.perf_counter()
+    full = {**table, **gen_parquet_extra(rows)}
+    written = write_lineitem_parquet(full, str(out_dir), files=n_batches,
+                                     batch_rows=batch_rows)
+    files = [p for p, _, _ in written["files"]]
+    prune = written["prune"][0]
+    nbytes = sum(Path(p).stat().st_size for p in files + [prune])
+    _log(f"parquet: {len(files)} files + the sorted one, {nbytes} bytes, "
+         f"written in {time.perf_counter() - t0:.2f} s")
+    base = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows}
+    res: dict = {"card": card, "file_bytes": nbytes}
+
+    # q6, q1, q_comment over the files == the in-memory results
+    on = TorchSession({**base, "spark.rapids.tpu.sql.pallas.enabled": True})
+    for name, query, kernel in (("q6", q6, None), ("q1", q1, dense_groupby),
+                                ("q_comment", q_comment, rect_match)):
+        dense_groupby.launches = rect_match.launches = 0
+        t1 = time.perf_counter()
+        got = query(on.read_parquet(*files), F).collect()
+        wall = (time.perf_counter() - t1) * 1e3
+        launches = {"dense_groupby": dense_groupby.launches,
+                    "rect_match": rect_match.launches}
+        _check(got == inmem[name], f"{name} over Parquet {got} != in-memory "
+               f"{inmem[name]}")
+        if kernel is not None:
+            _check(kernel.launches == n_batches,
+                   f"{name} over Parquet launched {kernel.launches} times, "
+                   f"expected {n_batches}")
+        _log(f"{name} over Parquet: equal to the in-memory result exactly; "
+             f"wall {wall:.1f} ms (each run reads the files); launches "
+             f"{launches} over {n_batches} batches [{card}]")
+        res[name] = {"wall_ms": wall, "launches": launches}
+
+    # rung 1, cold (first read of the query's columns) and warm
+    want = rung1_numpy(full)
+    r1 = {}
+    for label in ("cold", "warm"):
+        t1 = time.perf_counter()
+        got = rung1(on.read_parquet(*files), F).collect_numpy()
+        r1[label] = (time.perf_counter() - t1) * 1e3
+        bad = rung1_equal(got, want)
+        _check(not bad, f"rung 1 {label}: columns {bad} differ from numpy")
+    nulls = {k: int((~v).sum()) for k, (_, v) in want.items() if not v.all()}
+    _log(f"rung 1 over Parquet: {len(want['l_orderkey'][0])} rows x "
+         f"{len(want)} columns equal to numpy (integers exactly, floats bit "
+         f"for bit); nulls by column {nulls}; wall {r1['cold']:.1f} ms cold, "
+         f"{r1['warm']:.1f} ms warm [{card}]")
+    res["rung1"] = {"rows": len(want["l_orderkey"][0]), "nulls": nulls,
+                    "wall_ms_cold": r1["cold"], "wall_ms_warm": r1["warm"]}
+
+    # fault C1 at scale: 65,533-row batches over the sorted file
+    c1 = TorchSession({"spark.rapids.tpu.sql.batchSizeRows": 65533})
+    rects = total = 0
+    scan = _scan_node(c1.read_parquet(prune, columns=["l_returnflag"])
+                      ._physical())
+    for b in scan.execute(c1.exec_context()):
+        total += 1
+        c = b.columns[0]
+        _check(isinstance(c, DeviceColumn) and c.data.is_cuda,
+               f"the scan yielded {c!r} off the card")
+        rects += isinstance(c, ByteRectColumn)
+    want1 = q1_numpy(table)
+    got = q1(c1.read_parquet(prune), F).collect()
+    _check(rects > 0, "no l_returnflag batch arrived as a byte rectangle")
+    _check(q1_equal(got, want1), f"q1 over 65,533-row batches {got} != "
+           f"numpy {want1}")
+    _log(f"C1 at scale: q1 over {total} batches of the sorted file, "
+         f"{rects} of whose l_returnflag batches arrived as byte "
+         f"rectangles, equals numpy [{card}]")
+    res["c1"] = {"batches": total, "rect_batches": rects}
+
+    # pruning: a l_shipdate range over the sorted file
+    lo, hi = np.datetime64("1995-03-15"), np.datetime64("1995-06-01")
+    sd = full["l_shipdate"][written["prune_order"]]
+    g = 1 << 16
+    may = [i for i in range(-(-rows // g))
+           if sd[i * g] < hi and sd[min((i + 1) * g, rows) - 1] >= lo]
+    meas = TorchSession({**base, "spark.rapids.tpu.io.scanTimings.enabled":
+                         True})
+
+    def ranged(df, F):
+        return (df.filter((F.col("l_shipdate") >= F.lit(lo))
+                          & (F.col("l_shipdate") < F.lit(hi)))
+                .agg(F.count_star().with_name("n"),
+                     F.sum(F.col("l_extendedprice")).with_name("revenue")))
+    got, wall, tm = _timed_scan_query(meas, [prune], ranged)
+    keep = (full["l_shipdate"] >= lo) & (full["l_shipdate"] < hi)
+    kept = _scan_node(ranged(meas.read_parquet(prune), F)._physical()) \
+        ._filter_row_groups(read_footer(prune))
+    _check(kept == may, f"pruning kept row groups {kept}, numpy says {may}")
+    _check(tm["row_groups_read"] == len(may), f"read {tm['row_groups_read']}"
+           f" row groups, {len(may)} may match")
+    _check(got[0]["n"] == int(keep.sum()) and _rel(
+        got[0]["revenue"], float(full["l_extendedprice"][keep].sum()))
+        <= REL_TOL, f"pruned query {got} != numpy")
+    _log(f"pruning: l_shipdate in [{lo}, {hi}) read {tm['row_groups_read']}"
+         f" of {tm['row_groups']} row groups (numpy: {len(may)} may match); "
+         f"{got[0]['n']} rows; wall {wall:.1f} ms [{card}]")
+    res["pruning"] = {"read": tm["row_groups_read"],
+                      "of": tm["row_groups"], "wall_ms": wall}
+
+    # the cold wall split, transfer encode on and off, in turns: q1 (its
+    # batches stay raw either way) and q_codes (its batches narrow)
+    res["split"] = {}
+    want_codes = q_codes_numpy(full)
+    for name, query, right in (("q1", q1, lambda r: q1_equal(r, want1)),
+                               ("q_codes", q_codes,
+                                lambda r: r == want_codes)):
+        for turn, enc in enumerate((True, False, False, True)):
+            s = TorchSession({
+                **base, "spark.rapids.tpu.io.scanTimings.enabled": True,
+                "spark.rapids.tpu.sql.transferEncode.enabled": enc,
+                "spark.rapids.tpu.sql.format.parquet.reader.type":
+                "PERFILE"})
+            got, wall, tm = _timed_scan_query(s, files, query)
+            _check(right(got), f"{name} (encode {enc}) {got} != numpy")
+            res["split"].setdefault(name, {}).setdefault(
+                "on" if enc else "off", []).append(_split_line(
+                    f"{name} over Parquet, PERFILE, transfer encode "
+                    f"{'on' if enc else 'off'} (turn {turn + 1}) [{card}]",
+                    wall, tm))
+
+    res["transfer"] = _transfer_times(table, batch_rows, card)
+
+    # PERFILE against MULTITHREADED, in turns
+    res["modes"] = {}
+    for mode in ("PERFILE", "MULTITHREADED", "MULTITHREADED", "PERFILE"):
+        s = TorchSession({**base, "spark.rapids.tpu.sql.format.parquet"
+                          ".reader.type": mode})
+        t1 = time.perf_counter()
+        got = q1(s.read_parquet(*files), F).collect()
+        wall = (time.perf_counter() - t1) * 1e3
+        _check(q1_equal(got, want1), f"q1 ({mode}) {got} != numpy")
+        res["modes"].setdefault(mode, []).append(wall)
+    _log(f"q1 over Parquet by reader: PERFILE {res['modes']['PERFILE']} ms, "
+         f"MULTITHREADED {res['modes']['MULTITHREADED']} ms [{card}]")
+
+    # the host library's decode rate per encoding: every column of the
+    # six files, one reader thread
+    s = TorchSession({**base, "spark.rapids.tpu.io.scanTimings.enabled":
+                      True, "spark.rapids.tpu.sql.format.parquet.reader"
+                      ".type": "PERFILE"})
+    df = s.read_parquet(*files)
+    scan = ParquetScanExec(files, df.schema(), None, s.conf)
+    t1 = time.perf_counter()
+    n = sum(b.num_rows for b in scan.execute(s.exec_context()))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t1) * 1e3
+    _check(n == rows, f"full scan gave {n} rows")
+    rates = {k: {"bytes": b, "ms": t * 1e3, "mb_s": b / t / 1e6}
+             for k, (b, t) in scan.timings.get("rates", {}).items() if t}
+    _log("host decode rate by encoding (all columns of the six files): "
+         + "; ".join(f"{k} {v['mb_s']:.0f} MB/s ({v['bytes']} B in "
+                     f"{v['ms']:.1f} ms)" for k, v in sorted(rates.items()))
+         + f" [{card}]")
+    res["full_scan"] = _split_line(f"full scan, all columns [{card}]", wall,
+                                   scan.timings)
+    res["rates"] = rates
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", metavar="NAME=DIR", action="append",
@@ -1921,7 +2683,7 @@ def main(argv=None) -> int:
                                                      ColumnarBatch, HostTable)
         from spark_rapids_tpu_torch.exec.dense_groupby import dense_groupby
         from spark_rapids_tpu_torch.exprs.rect_match import rect_match
-        phase_device()
+        card = phase_device()
         compare = phase_build(compare)
 
         t0 = time.perf_counter()
@@ -1979,6 +2741,7 @@ def main(argv=None) -> int:
         want6 = q6_numpy(table)
         rect_match.launches = 0
         rows, ms_cold = _run_query(session, host, q6)
+        inmem = {"q6": rows}
         q6_launches = rect_match.launches
         rows2, ms_warm = _run_query(session, host, q6)
         got6 = rows[0]["revenue"]
@@ -1999,6 +2762,7 @@ def main(argv=None) -> int:
                f"q_comment launched rect_match {launches} times, "
                f"expected {n_batches} (one per batch)")
         rows_on, on_warm = _run_query(on, host, q_comment)
+        inmem["q_comment"] = rows_on
         rect_match.launches = 0
         rows_off, off_warm = _run_query(session, host, q_comment)
         _check(rect_match.launches == 0,
@@ -2022,6 +2786,7 @@ def main(argv=None) -> int:
         dense_groupby.launches = 0
         rect_match.launches = 0
         rows, q1_cold = _run_query(session, host, q1)
+        inmem["q1"] = rows
         q1_launches = dense_groupby.launches
         _check(q1_launches == n_batches and rect_match.launches == 0,
                f"q1 launched dense_groupby {q1_launches} times, expected "
@@ -2052,6 +2817,7 @@ def main(argv=None) -> int:
                 "pageable memory, waiting on the stream, every batch)",
                 "dense_groupby")
         mem = phase_memory_slice(conf, table, host, n_batches)
+        parquet = phase_parquet(table, inmem, batch_rows, card)
         _log(json.dumps({"queries": {
             "q6": {"rows": SF1_ROWS, "wall_ms_cold": ms_cold,
                    "wall_ms_warm": ms_warm},
@@ -2064,7 +2830,7 @@ def main(argv=None) -> int:
                    len(rows), "wall_ms_cold": q1_cold,
                    "wall_ms_warm": q1_warm, "profile_warm": prof1,
                    "profile_warm_parent_operands": prof1_parent},
-            **mem}}))
+            **mem, "parquet": parquet}}))
         main_t = times["main"]
         kernel = {
             "name": "rect_match", "route": "cuda",

@@ -2,8 +2,9 @@
 the part the slice reaches).
 
 ``TorchSession`` runs queries on one torch device, ``cuda`` unless the
-caller names another. Inputs are a dict of numpy arrays, or an Arrow
-table or pandas DataFrame when those packages are installed; results
+caller names another. Inputs are a dict of numpy arrays, an Arrow
+table or pandas DataFrame when those packages are installed, or Parquet
+files (``read_parquet``, read by the port's own reader); results
 come back as rows (``collect``), numpy arrays (``collect_numpy``) or an
 Arrow table (``collect_arrow``).
 
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import datetime
 import time
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -112,6 +113,22 @@ class TorchSession:
         # never mask the exception in flight with a leak assertion
         if exc_type is None:
             self.close()
+
+    def read_parquet(self, *paths: str,
+                     columns: Optional[List[str]] = None) -> "DataFrame":
+        """A DataFrame over Parquet files: files, directories (every
+        ``*.parquet`` below) or globs, after the path replacement rules;
+        the schema is the first file's. Read by the port's own reader
+        (io/), no pyarrow."""
+        from ..io.parquet import parquet_files
+        from ..io.parquet_meta import parquet_schema
+        files = parquet_files(self.conf, paths)
+        schema = parquet_schema(files[0])
+        if columns is not None:
+            missing = [c for c in columns if c not in schema.names()]
+            if missing:
+                raise KeyError(f"columns {missing} are not in {files[0]}")
+        return DataFrame(self, L.ParquetScan(files, schema, columns))
 
     def create_dataframe(self, data, num_partitions: int = 1) -> "DataFrame":
         table = _host_table(data)

@@ -13,7 +13,10 @@ from .. import exprs as E
 from ..exprs.aggregates import Average, Count, CountStar, Sum
 
 __all__ = ["Col", "col", "lit", "asc", "desc", "sum", "count",
-           "count_star", "avg", "startswith", "endswith", "locate", "instr"]
+           "count_star", "avg", "startswith", "endswith", "locate", "instr",
+           "abs", "div", "pmod", "negative", "positive", "bitwise_not",
+           "shiftleft", "shiftright", "shiftrightunsigned"]
+
 
 
 def _to_expr(v) -> E.Expression:
@@ -36,6 +39,21 @@ class Col:
     def __rsub__(self, o): return Col(E.Subtract(_to_expr(o), self.expr))
     def __mul__(self, o): return Col(E.Multiply(self.expr, _to_expr(o)))
     def __rmul__(self, o): return Col(E.Multiply(_to_expr(o), self.expr))
+    def __truediv__(self, o): return Col(E.Divide(self.expr, _to_expr(o)))
+    def __rtruediv__(self, o): return Col(E.Divide(_to_expr(o), self.expr))
+    def __mod__(self, o): return Col(E.Remainder(self.expr, _to_expr(o)))
+    def __rmod__(self, o): return Col(E.Remainder(_to_expr(o), self.expr))
+    def __neg__(self): return Col(E.UnaryMinus(self.expr))
+    def __pos__(self): return Col(E.UnaryPositive(self.expr))
+
+    def bitwiseAND(self, o):
+        return Col(E.BitwiseAnd(self.expr, _to_expr(o)))
+
+    def bitwiseOR(self, o):
+        return Col(E.BitwiseOr(self.expr, _to_expr(o)))
+
+    def bitwiseXOR(self, o):
+        return Col(E.BitwiseXor(self.expr, _to_expr(o)))
 
     def __eq__(self, o): return Col(E.EqualTo(self.expr, _to_expr(o)))
     def __lt__(self, o): return Col(E.LessThan(self.expr, _to_expr(o)))
@@ -92,6 +110,22 @@ def endswith(c, s) -> Col: return Col(E.EndsWith(_to_expr(c), s))
 def locate(substr, c) -> Col: return Col(E.StringLocate(substr, _to_expr(c)))
 def instr(c, substr: str) -> Col:
     return Col(E.StringInstr(_to_expr(c), _to_expr(substr)))
+
+
+def abs(c) -> Col: return Col(E.Abs(_to_expr(c)))
+def negative(c) -> Col: return Col(E.UnaryMinus(_to_expr(c)))
+def positive(c) -> Col: return Col(E.UnaryPositive(_to_expr(c)))
+def div(a, b) -> Col:
+    """Spark SQL's ``a div b``: integral division into a long."""
+    return Col(E.IntegralDivide(_to_expr(a), _to_expr(b)))
+def pmod(a, b) -> Col: return Col(E.Pmod(_to_expr(a), _to_expr(b)))
+def bitwise_not(c) -> Col: return Col(E.BitwiseNot(_to_expr(c)))
+def shiftleft(c, n) -> Col:
+    return Col(E.ShiftLeft(_to_expr(c), _to_expr(n)))
+def shiftright(c, n) -> Col:
+    return Col(E.ShiftRight(_to_expr(c), _to_expr(n)))
+def shiftrightunsigned(c, n) -> Col:
+    return Col(E.ShiftRightUnsigned(_to_expr(c), _to_expr(n)))
 
 
 def sum(c): return Sum(_to_expr(c))

@@ -9,6 +9,7 @@ batches carried across from the reference (``batch_from_reference``).
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -19,15 +20,81 @@ from ..types import (DATE, STRING, TIMESTAMP, Schema, StructField,
 from .column import DeviceColumn, DictColumn, HostColumn
 from .strrect import ByteRectColumn, encode_string_rect, utf8_bytes
 
-__all__ = ["ColumnarBatch", "HostTable", "batch_from_reference",
-           "concat_batches", "DICT_ENCODE_MAX_FRACTION",
-           "DICT_ENCODE_MAX_CARD"]
+__all__ = ["ColumnarBatch", "HostTable", "DictStrings",
+           "batch_from_reference",
+           "concat_batches", "dict_limit", "rect_to_dict", "dict_to_rect",
+           "DICT_ENCODE_MAX_FRACTION", "DICT_ENCODE_MAX_CARD"]
 
 #: dictionary-encode a string column when its cardinality is at most
 #: min(rows * fraction + 1, card); above that the byte rectangle takes
 #: over (the reference's thresholds, batch.py:38-39)
 DICT_ENCODE_MAX_FRACTION = 0.5
 DICT_ENCODE_MAX_CARD = 1 << 16
+
+
+class DictStrings:
+    """A host string column as int32 ``indices`` into ``dictionary``, a
+    numpy ``S`` array of UTF-8 values (as a dictionary-encoded Parquet
+    chunk holds it; entries may repeat across chunks). Null rows hold
+    index 0. Sliced like an array; ``encode`` gives a batch's codes and
+    sorted dictionary from the entries it uses, without a pass over the
+    strings."""
+
+    __slots__ = ("indices", "dictionary")
+
+    def __init__(self, indices: np.ndarray, dictionary: np.ndarray):
+        self.indices = indices
+        self.dictionary = dictionary
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def __getitem__(self, sl: slice) -> "DictStrings":
+        return DictStrings(self.indices[sl], self.dictionary)
+
+    def decode(self) -> np.ndarray:
+        """The values as an ``S`` array."""
+        if not len(self.dictionary):
+            return np.zeros(len(self.indices), "S1")
+        return self.dictionary[self.indices]
+
+    @staticmethod
+    def concat(parts: Sequence["DictStrings"]) -> "DictStrings":
+        offs = np.cumsum([0] + [len(p.dictionary) for p in parts[:-1]])
+        return DictStrings(
+            np.concatenate([p.indices + np.int32(o)
+                            for p, o in zip(parts, offs)]),
+            np.concatenate([p.dictionary for p in parts]))
+
+    def encode(self, valid: np.ndarray, n: int):
+        """(codes int32[n], sorted dictionary), exactly what
+        ``_try_dict_encode`` gives over ``decode()``, or None above the
+        threshold: only the entries the valid rows use are sorted."""
+        if n == 0 or DICT_ENCODE_MAX_FRACTION <= 0:
+            return None
+        limit = dict_limit(n)
+        used = np.zeros(len(self.dictionary), bool)
+        used[self.indices[valid]] = True
+        uniq, inv = np.unique(self.dictionary[used], return_inverse=True)
+        if len(uniq) > limit:
+            return None
+        remap = np.zeros(len(self.dictionary), np.int32)
+        remap[used] = inv.astype(np.int32)
+        codes = remap[self.indices] if len(remap) else \
+            np.zeros(n, np.int32)
+        if len(uniq):
+            # null slots hold the first value's code, as the reference's do
+            codes[~valid] = codes[np.argmax(valid)]
+        dictionary = np.char.decode(uniq, "utf-8").astype(object) \
+            if len(uniq) else np.zeros(0, object)
+        return codes, dictionary
+
+
+def _concat_values(parts: list) -> object:
+    if all(isinstance(p, DictStrings) for p in parts):
+        return DictStrings.concat(parts)
+    return np.concatenate([p.decode() if isinstance(p, DictStrings) else p
+                           for p in parts])
 
 
 class HostTable:
@@ -92,6 +159,16 @@ class HostTable:
         return HostTable({n: self.columns[n] for n in names},
                          Schema([self.schema[n] for n in names]))
 
+    @staticmethod
+    def concat(tables: Sequence["HostTable"]) -> "HostTable":
+        """The rows of ``tables`` (one schema) in order."""
+        if len(tables) == 1:
+            return tables[0]
+        return HostTable(
+            {n: (_concat_values([t.columns[n][0] for t in tables]),
+                 np.concatenate([t.columns[n][1] for t in tables]))
+             for n in tables[0].columns}, tables[0].schema)
+
     def slice(self, offset: int, length: int) -> "HostTable":
         return HostTable({n: (v[offset:offset + length],
                               m[offset:offset + length])
@@ -117,13 +194,22 @@ def _row_hashes(s: np.ndarray) -> np.ndarray:
     return h
 
 
-def _try_dict_encode(s: np.ndarray, valid: np.ndarray, n: int):
+def dict_limit(rows: int) -> float:
+    """The most distinct values a string column of ``rows`` rows may have
+    and still be dictionary-coded (the reference's thresholds)."""
+    return min(rows * DICT_ENCODE_MAX_FRACTION + 1, DICT_ENCODE_MAX_CARD)
+
+
+def _try_dict_encode(s: np.ndarray, valid: np.ndarray, n: int,
+                     limit: Optional[float] = None):
     """UTF-8 ``S`` array -> (codes int32[n], sorted dictionary) or None
-    when the cardinality is above the threshold. Codes index the
-    dictionary sorted in byte order, which is codepoint order."""
+    when the cardinality is above ``limit`` (default ``dict_limit(n)``).
+    Codes index the dictionary sorted in byte order, which is codepoint
+    order."""
     if n == 0 or DICT_ENCODE_MAX_FRACTION <= 0:
         return None
-    limit = min(n * DICT_ENCODE_MAX_FRACTION + 1, DICT_ENCODE_MAX_CARD)
+    if limit is None:
+        limit = dict_limit(n)
     vals = s[valid]
     # cheap proof of high cardinality: count distinct hashes by a sort
     # (np.unique may take a hash-table path that is far slower on 1M rows)
@@ -143,6 +229,42 @@ def _try_dict_encode(s: np.ndarray, valid: np.ndarray, n: int):
     return codes, dictionary
 
 
+def rect_to_dict(col: ByteRectColumn, n: int,
+                 limit: float) -> Optional[DictColumn]:
+    """The first ``n`` rows of a byte-rectangle column as a dictionary
+    column over their sorted distinct values (codes and dictionary as
+    ingest would give them over the same strings), or None when they
+    number more than ``limit``. The rectangle is read back to the host:
+    one that ``limit`` admits is a short batch."""
+    rect = np.ascontiguousarray(col.data[:n].cpu().numpy())
+    valid = col.validity[:n].cpu().numpy()
+    s = rect.view(f"S{col.width}").reshape(n)
+    enc = _try_dict_encode(s, valid, n, limit)
+    if enc is None:
+        return None
+    codes, dictionary = enc
+    return DictColumn(_to_device(codes, col.data.device), col.validity[:n],
+                      STRING, dictionary)
+
+
+def dict_to_rect(col: DictColumn, n: int) -> ByteRectColumn:
+    """The first ``n`` rows of a dictionary column as a byte rectangle:
+    the dictionary's entries encoded once, gathered by code."""
+    d = col.dictionary
+    ent = utf8_bytes(np.asarray(d, object), np.ones(len(d), bool)) \
+        if len(d) else np.zeros(1, "S1")
+    rect, lens, _, asc = encode_string_rect(ent, np.ones(len(ent), bool),
+                                            len(ent), 1 << 30)
+    dev = col.data.device
+    codes = col.data[:n].clamp(0, len(ent) - 1).long()
+    valid = col.validity[:n]
+    keep = valid.unsqueeze(1)
+    return ByteRectColumn(
+        torch.where(keep, _to_device(rect, dev)[codes], 0), valid,
+        torch.where(valid, _to_device(lens, dev)[codes], 0),
+        ascii_only=asc)
+
+
 def _to_device(a: np.ndarray, device) -> torch.Tensor:
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:
@@ -150,21 +272,26 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _ingest_string(values, valid, n, device, rect_cap):
+def _encode_string(values, valid, n, rect_cap):
+    """A host string column's device layout, still on the host:
+    ("dict", codes, dictionary) at low cardinality, ("rect", rect,
+    lengths, validity, ascii_only) up to ``rect_cap`` bytes wide, else
+    ("host", values as str objects)."""
+    if isinstance(values, DictStrings):
+        enc = values.encode(valid, n)
+        if enc is not None:
+            return ("dict",) + enc
+        values = values.decode()
     s = utf8_bytes(values, valid)
     enc = _try_dict_encode(s, valid, n)
     if enc is not None:
-        codes, dictionary = enc
-        return DictColumn(_to_device(codes, device), _to_device(valid, device),
-                          STRING, dictionary)
+        return ("dict",) + enc
     renc = encode_string_rect(s, valid, n, rect_cap)
     if renc is not None:
-        rect, lens, v, asc = renc
-        return ByteRectColumn(_to_device(rect, device), _to_device(v, device),
-                              _to_device(lens, device), ascii_only=asc)
+        return ("rect",) + renc
     strs = np.array([x.decode("utf-8") for x in s], dtype=object) \
         if values.dtype.kind == "S" else np.asarray(values, object)
-    return HostColumn(strs, valid, STRING)
+    return ("host", strs)
 
 
 class ColumnarBatch:
@@ -191,26 +318,66 @@ class ColumnarBatch:
                    if isinstance(c, DeviceColumn))
 
     @staticmethod
-    def from_host(table: HostTable, device, rect_cap: int) -> "ColumnarBatch":
+    def from_host(table: HostTable, device, rect_cap: int,
+                  encode: bool = True,
+                  timings: Optional[dict] = None) -> "ColumnarBatch":
         """Host table -> device batch: fixed-width columns copy over as
         (data, validity) with nulls at the dtype default; strings become
         dictionary codes (low cardinality), byte rectangles (up to
-        ``rect_cap`` bytes wide) or stay host."""
+        ``rect_cap`` bytes wide) or stay host. With ``encode``, the
+        fixed-width columns and codes go through the transfer encode when
+        it pays (columnar/transfer.py). ``timings``, when given, gains the
+        seconds of the host string encode (``encode_s``) and of the copy
+        with its decode (``copy_s``, waited for on a card)."""
+        from .transfer import (copy_to_device, decode_columns,
+                               encode_columns, may_pay, worthwhile)
+        t0 = time.perf_counter()
         n = table.num_rows
-        cols: List = []
-        for f in table.schema.fields:
+        cols: List = [None] * len(table.schema)
+        staged, pairs, rects = [], [], []
+        for i, f in enumerate(table.schema.fields):
             values, valid = table.columns[f.name]
             if f.dtype.device_backed:
                 d = np.asarray(values).astype(f.dtype.np_dtype, copy=False)
                 if not valid.all():
                     d = np.where(valid, d, f.dtype.np_dtype.type(0))
-                cols.append(DeviceColumn(_to_device(d, device),
-                                         _to_device(valid, device), f.dtype))
+                staged.append((i, f.dtype, None))
+                pairs.append((d, valid))
             elif f.dtype == STRING:
-                cols.append(_ingest_string(values, valid, n, device,
-                                           rect_cap))
+                enc = _encode_string(values, valid, n, rect_cap)
+                if enc[0] == "dict":
+                    staged.append((i, STRING, enc[2]))
+                    pairs.append((enc[1], valid))
+                elif enc[0] == "rect":
+                    rects.append((i, enc[1:]))
+                else:
+                    cols[i] = HostColumn(enc[1], valid, STRING)
             else:
-                cols.append(HostColumn(values, valid, f.dtype))
+                cols[i] = HostColumn(values, valid, f.dtype)
+        t1 = time.perf_counter()
+        put = None
+        if encode and pairs and may_pay(pairs):
+            flat, specs, params, ratio, raw = encode_columns(pairs)
+            if worthwhile(ratio, raw):
+                put = decode_columns(copy_to_device(flat, device), specs,
+                                     params, n, device)
+        if put is None:
+            put = [(_to_device(d, device), _to_device(v, device))
+                   for d, v in pairs]
+        for (i, dt, dictionary), (d, v) in zip(staged, put):
+            cols[i] = DeviceColumn(d, v, dt) if dictionary is None \
+                else DictColumn(d, v, dt, dictionary)
+        for i, (rect, lens, v, asc) in rects:
+            cols[i] = ByteRectColumn(_to_device(rect, device),
+                                     _to_device(v, device),
+                                     _to_device(lens, device),
+                                     ascii_only=asc)
+        if timings is not None:
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
+            t2 = time.perf_counter()
+            timings["encode_s"] = timings.get("encode_s", 0.0) + t1 - t0
+            timings["copy_s"] = timings.get("copy_s", 0.0) + t2 - t1
         return ColumnarBatch(cols, n, table.schema)
 
     def slice(self, offset: int, length: int) -> "ColumnarBatch":
@@ -311,11 +478,29 @@ def _concat_rect(parts: List[ByteRectColumn],
         ascii_only=all(p.ascii_only for p in parts))
 
 
+def _concat_mixed(parts: List, rows: List[int]):
+    """A string column that arrives as dictionaries in some batches and as
+    byte rectangles in others (a short batch of a low-cardinality column
+    is a rectangle): one dictionary column when the union of the values
+    stays under the dictionary threshold for all the rows, else one byte
+    rectangle."""
+    limit = dict_limit(sum(rows))
+    dicts = [rect_to_dict(p, n, limit) if isinstance(p, ByteRectColumn)
+             else p for p, n in zip(parts, rows)]
+    if all(d is not None for d in dicts) and len(
+            set().union(*(d.dictionary for d in dicts))) <= limit:
+        return _concat_dict([d.with_arrays(d.data[:n], d.validity[:n])
+                             for d, n in zip(dicts, rows)], rows)
+    return _concat_rect([dict_to_rect(p, n) if isinstance(p, DictColumn)
+                         else p for p, n in zip(parts, rows)], rows)
+
+
 def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
     """The rows of ``batches`` (one schema) in order, padding dropped, in
     one batch (port of the reference's ``concat_batches``): device columns
     concatenate on the device; dictionary columns over the sorted union of
-    their dictionaries; byte rectangles at the widest width."""
+    their dictionaries; byte rectangles at the widest width; a string column
+    in both layouts as one of them (``_concat_mixed``)."""
     if not batches:
         raise ValueError("concat_batches needs at least one batch")
     if len(batches) == 1:
@@ -335,6 +520,8 @@ def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
                 torch.cat([p.data[:n] for p, n in zip(parts, rows)]),
                 torch.cat([p.validity[:n] for p, n in zip(parts, rows)]),
                 f.dtype))
+        elif kinds == {DictColumn, ByteRectColumn}:
+            cols.append(_concat_mixed(parts, rows))
         elif kinds == {HostColumn}:
             cols.append(HostColumn(
                 np.concatenate([p.values[:n] for p, n in zip(parts, rows)]),
@@ -344,7 +531,7 @@ def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
         else:
             raise NotImplementedError(
                 f"column {f.name} arrives in different layouts "
-                f"({sorted(k.__name__ for k in kinds)}); concatenating a "
-                "dictionary with a byte rectangle or host strings arrives "
-                "with the strings slice")
+                f"({sorted(k.__name__ for k in kinds)}); concatenating "
+                "host strings with device strings arrives with the strings "
+                "slice")
     return ColumnarBatch(cols, sum(rows), schema)

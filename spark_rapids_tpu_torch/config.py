@@ -17,7 +17,8 @@ __all__ = ["ConfEntry", "TpuConf", "register",
            "CONCURRENT_TPU_TASKS", "ALLOC_FRACTION", "HBM_LIMIT_BYTES",
            "HOST_SPILL_LIMIT", "SPILL_DIR", "OOM_MAX_SPLIT_DEPTH",
            "LEAK_DETECTION", "TASK_TIMEOUT", "SEMAPHORE_WEDGE_TIMEOUT_MS",
-           "QUERY_TIMEOUT"]
+           "QUERY_TIMEOUT", "MULTITHREADED_READ_THREADS",
+           "IO_PATH_REPLACEMENT", "PARQUET_READER_TYPE"]
 
 _LOCK = threading.Lock()
 _REGISTRY: Dict[str, "ConfEntry"] = {}
@@ -139,6 +140,23 @@ QUERY_TIMEOUT = register(
     "through the normal exception path: the device semaphore is "
     "released and every spillable batch is closed (the zero-leak audit "
     "holds). Raises QueryTimeout. 0 disables.")
+
+
+MULTITHREADED_READ_THREADS = register(
+    "spark.rapids.tpu.sql.multiThreadedRead.numThreads", 8,
+    "Host read thread-pool size for cloud/coalescing file readers "
+    "(ref Plugin.scala:269-281).")
+
+IO_PATH_REPLACEMENT = register(
+    "spark.rapids.tpu.io.pathReplacementRules", "",
+    "Semicolon-separated 'prefix->replacement' rules applied to scan paths "
+    "before opening (ref AlluxioUtils.scala s3://->alluxio:// rewriting); "
+    "e.g. 's3://bucket->/mnt/alluxio/bucket'.")
+
+PARQUET_READER_TYPE = register(
+    "spark.rapids.tpu.sql.format.parquet.reader.type", "AUTO",
+    "PERFILE / COALESCING / MULTITHREADED / AUTO "
+    "(ref GpuParquetScan.scala reader factory:1070).")
 
 
 class TpuConf:

@@ -44,8 +44,9 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..columnar import ColumnarBatch, DeviceColumn, DictColumn
-from ..columnar.batch import concat_batches
+from ..columnar import (ByteRectColumn, ColumnarBatch, DeviceColumn,
+                        DictColumn)
+from ..columnar.batch import concat_batches, dict_limit, rect_to_dict
 from ..columnar.segmented import bucket_segments
 from ..exprs.aggregates import AggregateExpression
 from ..exprs.base import Alias, ColumnRef, DVal, EvalContext
@@ -154,6 +155,8 @@ class TpuHashAggregateExec(TpuExec):
                                       + [StructField(_LIVE, BOOL, True)])
         #: string -> global code, per dictionary key (one execution's)
         self._dicts: List[Dict[str, int]] = []
+        #: rows of the input batches so far (one execution's)
+        self._rows_in = 0
 
     def output_schema(self) -> Schema:
         return self._schema
@@ -181,19 +184,23 @@ class TpuHashAggregateExec(TpuExec):
         """(codes, validity, remap of the batch dictionary's codes to
         global codes) of dictionary key ordinal j (grouping i). Only a key
         that passes a dictionary column of the input batch through is
-        taken (the reference's DictColumn branch)."""
+        taken (the reference's DictColumn branch), or a byte rectangle that
+        ``_rect_key`` can take into the exec's dictionary."""
         g = self.groupings[i]
         name = _column_ref(g)
         src = None
         if name is not None and name in batch.schema.names() \
                 and self._passes_through(name):
             src = batch.column_by_name(name)
+        d = self._dicts[j]
+        if isinstance(src, ByteRectColumn):
+            src = self._rect_key(src, batch.num_rows, d)
         if not isinstance(src, DictColumn):
             raise NotImplementedError(
                 f"group key <{g.name_hint}> over {src!r}: string keys other "
-                "than dictionary columns (byte rectangles, computed strings) "
-                "arrive with the strings slice")
-        d = self._dicts[j]
+                "than dictionary columns (byte rectangles of high "
+                "cardinality, computed strings) arrive with the strings "
+                "slice")
         gmap = np.asarray([d.setdefault(s, len(d)) for s in src.dictionary],
                           dtype=np.int32)
         dev = src.data.device
@@ -204,6 +211,18 @@ class TpuHashAggregateExec(TpuExec):
             ("remap", str(dev), gmap.tobytes()),
             lambda: _to_device(torch.from_numpy(gmap), dev))
         return src.data, src.validity, remap
+
+    def _rect_key(self, src: ByteRectColumn, n: int, d: Dict[str, int]):
+        """A key batch that arrived as a byte rectangle (a short batch of a
+        low-cardinality column does) as a dictionary column, when the
+        exec's dictionary with its values added stays within the
+        dictionary threshold for every row seen so far; else ``src``."""
+        limit = dict_limit(self._rows_in)
+        conv = rect_to_dict(src, n, limit)
+        if conv is None or len(d) + sum(
+                s not in d for s in conv.dictionary) > limit:
+            return src
+        return conv
 
     def _passes_through(self, name: str) -> bool:
         """True when every fused projection passes column ``name`` on
@@ -419,6 +438,7 @@ class TpuHashAggregateExec(TpuExec):
 
     def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         self._dicts = [dict() for _ in self._dict_keys]
+        self._rows_in = 0
         partials: List[SpillableBatch] = []
         try:
             for b in self.children[0].execute(ctx):
@@ -426,6 +446,7 @@ class TpuHashAggregateExec(TpuExec):
                 # columns may not have a dictionary form)
                 if not b.num_rows:
                     continue
+                self._rows_in += b.num_rows
 
                 def update(b=b):
                     with ctx.semaphore.held():

@@ -13,6 +13,7 @@ import torch
 from ..columnar import (ByteRectColumn, ColumnarBatch, DeviceColumn,
                         DictColumn)
 from ..columnar.strrect import RECT_MAX_BYTES
+from ..columnar.transfer import TRANSFER_ENCODE
 from ..config import register
 from ..exprs.base import Alias, ColumnRef, Expression
 from ..exprs.compiler import (DeviceProjector, compile_rect_chain,
@@ -100,6 +101,7 @@ class InMemoryScanExec(TpuExec):
         names = tuple(self._schema.names())
         cap = int(ctx.conf.get(RECT_MAX_BYTES))
         limit = int(ctx.conf.get(SCAN_CACHE_MAX_BYTES))
+        encode = bool(ctx.conf.get(TRANSFER_ENCODE))
         for t in self.tables:
             key = (self.batch_rows, names, str(ctx.device), cap)
             cached = _cache_get(t, key)
@@ -110,7 +112,8 @@ class InMemoryScanExec(TpuExec):
             built = []
             for off in range(0, max(src.num_rows, 1), self.batch_rows):
                 b = ColumnarBatch.from_host(
-                    src.slice(off, self.batch_rows), ctx.device, cap)
+                    src.slice(off, self.batch_rows), ctx.device, cap,
+                    encode=encode)
                 built.append(b)
                 yield b
             _cache_put(t, key, built, limit)

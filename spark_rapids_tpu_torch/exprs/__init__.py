@@ -1,6 +1,9 @@
 """Expressions: trees evaluated eagerly as torch ops on device values."""
 from .aggregates import AggregateExpression, Average, Count, CountStar, Sum
-from .arithmetic import Add, Multiply, Subtract
+from .arithmetic import (Abs, Add, BitwiseAnd, BitwiseNot, BitwiseOr,
+                         BitwiseXor, Divide, IntegralDivide, Multiply, Pmod,
+                         Remainder, ShiftLeft, ShiftRight, ShiftRightUnsigned,
+                         Subtract, UnaryMinus, UnaryPositive)
 from .base import (Alias, ColumnRef, DVal, EvalContext, Expression,
                    Literal, StrVal)
 from .comparison import (EqualTo, GreaterThan, GreaterThanOrEqual, LessThan,
@@ -10,7 +13,10 @@ from .string_fns import (Contains, EndsWith, Like, RLike, StartsWith,
                          StringInstr, StringLocate)
 
 __all__ = ["AggregateExpression", "Average", "Count", "CountStar", "Sum",
-           "Add", "Multiply", "Subtract", "Alias",
+           "Add", "Multiply", "Subtract", "Divide", "IntegralDivide",
+           "Remainder", "Pmod", "UnaryMinus", "UnaryPositive", "Abs",
+           "BitwiseAnd", "BitwiseOr", "BitwiseXor", "BitwiseNot",
+           "ShiftLeft", "ShiftRight", "ShiftRightUnsigned", "Alias",
            "ColumnRef", "DVal", "EvalContext", "Expression", "Literal",
            "StrVal", "EqualTo", "GreaterThan", "GreaterThanOrEqual",
            "LessThan", "LessThanOrEqual", "And", "Or", "Not", "Contains",

@@ -7,8 +7,8 @@ from typing import List, Optional, Sequence
 from ..exprs.base import Expression
 from ..types import Schema, StructField
 
-__all__ = ["LogicalPlan", "LogicalScan", "Project", "Filter", "Aggregate",
-           "SortOrder", "Sort"]
+__all__ = ["LogicalPlan", "LogicalScan", "ParquetScan", "Project",
+           "Filter", "Aggregate", "SortOrder", "Sort"]
 
 
 class LogicalPlan:
@@ -45,6 +45,26 @@ class LogicalScan(LogicalPlan):
 
     def describe(self):
         return f"LogicalScan[{len(self.tables)} partitions]({self.schema()})"
+
+
+class ParquetScan(LogicalPlan):
+    """Parquet file source (ref GpuParquetScan.scala): the files, the
+    first file's schema, and ``columns`` (set by pruning)."""
+
+    def __init__(self, paths: Sequence[str], schema: Schema,
+                 columns: Optional[List[str]] = None):
+        self.paths = list(paths)
+        self._schema = schema
+        self.columns = columns
+        self.children = []
+
+    def schema(self) -> Schema:
+        if self.columns is None:
+            return self._schema
+        return Schema([self._schema[c] for c in self.columns])
+
+    def describe(self):
+        return f"ParquetScan[{len(self.paths)} files]({self.schema()})"
 
 
 class Project(LogicalPlan):

@@ -63,12 +63,14 @@ def prune_columns(plan: L.LogicalPlan,
                   required: Optional[set] = None) -> L.LogicalPlan:
     """Narrow every scan to the columns the plan above it reads;
     ``required`` = names needed from this node's output, None = all."""
-    if isinstance(plan, L.LogicalScan):
+    if isinstance(plan, (L.LogicalScan, L.ParquetScan)):
         names = plan.schema().names()
         if required is None or set(names) <= required:
             return plan
         keep = [n for n in names if n in required] or names[:1]
-        return L.LogicalScan(plan.tables, plan._schema, columns=keep)
+        node = copy.copy(plan)
+        node.columns = keep
+        return node
     if isinstance(plan, L.Project):
         exprs = plan.exprs
         if required is not None:
@@ -119,6 +121,19 @@ class ScanMeta(PlanMeta):
                                   columns=self.plan.columns)
 
 
+@rule(L.ParquetScan)
+class ParquetScanMeta(PlanMeta):
+    def tag_self(self):
+        from ..io.parquet import unsupported_columns
+        for r in unsupported_columns(self.plan.schema()):
+            self.will_not_work_on_tpu(r)
+
+    def convert_to_tpu(self, children):
+        from ..io.parquet import ParquetScanExec
+        return ParquetScanExec(self.plan.paths, self.plan._schema,
+                               self.plan.columns, self.conf)
+
+
 @rule(L.Project)
 class ProjectMeta(PlanMeta):
     def tag_self(self):
@@ -153,7 +168,27 @@ class FilterMeta(PlanMeta):
                 f"filter condition <{self.plan.condition.name_hint}>: {r}")
 
     def convert_to_tpu(self, children):
+        self._push_down_predicate(children[0])
         return B.TpuFilterExec(self.plan.condition, children[0])
+
+    def _push_down_predicate(self, child_exec):
+        """Predicate pushdown into a file scan for row-group skipping
+        (ref ``plan/overrides.py:_push_down_predicate``): through
+        projections that pass the referenced columns on unchanged. The
+        filter itself still runs; pruning is conservative."""
+        from ..io.file_scan import FileScanBase
+        cond = self.plan.condition
+        refs = set(cond.references())
+        node = child_exec
+        while isinstance(node, B.TpuProjectExec):
+            same_name = {n for i, n in node.passthrough.items()
+                         if node.exprs[i].name_hint == n}
+            if not refs <= same_name:
+                return
+            node = node.children[0]
+        if isinstance(node, FileScanBase) and node.predicate is None \
+                and refs <= set(node.output_schema().names()):
+            node.set_predicate(cond)
 
 
 def _key_reason(e: Expression, schema) -> Optional[str]:

@@ -124,9 +124,9 @@ class TypeSig:
         return TypeSig(self.types | other.types)
 
     def reason_not_supported(self, dt: DataType) -> Optional[str]:
-        enum = _ENUM[dt.name]
-        if enum not in self.types:
-            return f"{enum} is not supported"
+        enum = _ENUM.get(dt.name)
+        if enum is None or enum not in self.types:
+            return f"{enum or dt.name} is not supported"
         return None
 
 

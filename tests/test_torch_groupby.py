@@ -58,6 +58,8 @@ from spark_rapids_tpu import types as RT
 from spark_rapids_tpu_torch import types as PT
 from spark_rapids_tpu_torch.api import TorchSession
 from spark_rapids_tpu_torch.api import functions as PF
+from spark_rapids_tpu_torch.columnar import ByteRectColumn, ColumnarBatch
+from spark_rapids_tpu_torch.columnar.batch import HostTable
 from spark_rapids_tpu_torch.exec import encoding as enc
 from spark_rapids_tpu_torch.exec.dense_groupby import (
     dense_groupby, dense_groupby_reference)
@@ -1059,3 +1061,42 @@ def test_column_pruning_reaches_through_sort():
     want = TpuSession(OFF).create_dataframe(t).order_by(
         RF.col("k").desc(), "f").select("x").collect()
     assert got == want
+
+
+#: the shipping modes of TPC-H Q12, a low-cardinality string column
+_MODES = ["AIR", "MAIL", "RAIL", "SHIP", "TRUCK", "REG AIR", "FOB"]
+
+
+def _short_tail_table(n: int = 1003, seed: int = 12):
+    """Seven modes over ``n`` rows whose last three rows hold three
+    different modes: with 500-row batches the last batch (3 rows of 3
+    values) is above the dictionary threshold and ingests as a byte
+    rectangle, while the first two ingest as dictionaries."""
+    rng = np.random.RandomState(seed)
+    s = [_MODES[i] for i in rng.randint(0, len(_MODES), n)]
+    s[-3:] = ["TRUCK", "AIR", "FOB"]
+    return pa.table({"k": pa.array(rng.permutation(n).astype(np.int64)),
+                     "s": pa.array(s),
+                     "x": pa.array(np.round(rng.uniform(-1e3, 1e3, n), 2))})
+
+
+def test_group_by_a_string_column_whose_last_batch_is_a_rectangle():
+    """Fault C1: a low-cardinality key column whose short last batch
+    arrives as a byte rectangle groups and sorts as the reference does."""
+    t = _short_tail_table()
+    conf = {**OFF, "spark.rapids.tpu.sql.batchSizeRows": 500}
+    tail = ColumnarBatch.from_host(HostTable.from_arrow(t.slice(1000, 3)),
+                                   "cpu", 64)
+    assert isinstance(tail.column_by_name("s"), ByteRectColumn)
+
+    def q(df, F):
+        return df.group_by("s").agg(
+            F.count_star().with_name("n"),
+            F.sum(F.col("x")).with_name("sx")).order_by("s")
+    want = q(TpuSession(conf).create_dataframe(t), RF).collect()
+    got = q(TorchSession(conf, device="cpu").create_dataframe(t),
+            PF).collect()
+    assert [r["s"] for r in got] == [r["s"] for r in want] == sorted(_MODES)
+    assert [r["n"] for r in got] == [r["n"] for r in want]
+    for g, w in zip(got, want):
+        assert _rel_ok(g["sx"], w["sx"]), (g, w)

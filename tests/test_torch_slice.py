@@ -324,3 +324,19 @@ def test_no_port_file_imports_jax_or_the_jax_package():
         assert not roots & {"jax", "jaxlib", "spark_rapids_tpu"}, f
     assert not set(_imported_roots(REPO / "chip_smoke.py")) & {
         "pyarrow", "pandas"}
+
+
+def test_order_by_with_a_string_payload_whose_last_batch_is_a_rectangle():
+    """Fault C1: ORDER BY concatenates batches whose string column
+    arrives as dictionaries and, in the short last batch, as a byte
+    rectangle; every row comes back in the reference's order."""
+    from test_torch_groupby import _short_tail_table
+    t = _short_tail_table()
+    conf = {"spark.rapids.tpu.sql.batchSizeRows": 500}
+
+    def q(df, F):
+        return df.select("k", "s").order_by("k")
+    want = q(_ref(conf).create_dataframe(t), RF).collect()
+    got = q(_port(conf).create_dataframe(t), PF).collect()
+    assert len(got) == 1003
+    assert got == want
