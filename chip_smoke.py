@@ -7,8 +7,9 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
   1. device  -- the card's name and power limit (nvidia-smi), CUDA version;
-  2. build   -- every CUDA kernel of the port (rect_match, dense_groupby),
-                built from csrc/ with one nvcc each, started together;
+  2. build   -- every CUDA kernel of the port (rect_match, dense_groupby,
+                join_match), built from csrc/ with one nvcc each, started
+                together;
                 ptxas must report no stack frame and no spills for any
                 function. ``--compare NAME=DIR`` also builds
                 DIR/rect_match.cu and/or DIR/dense_groupby.cu (another
@@ -30,7 +31,12 @@ result line):
                 batch (G = 16) and on a G = 64 shape, in turns with the
                 kernels to compare, beside a loop of index_add_, with
                 each instance's launch shape (residency, grid, registers,
-                shared memory);
+                shared memory); join_match exactly equal to its plain
+                version for every join type (1,048,576 stream rows
+                against 100 and 100,000 distinct build keys of 1-8 rows,
+                5% null keys, float keys with NaN and +-0.0, keys of 1, 2
+                and 4 words), timed cold on q3's first join and on
+                100,000 build keys beside its bound;
   4. q6      -- TPC-H Q6 at SF1 (6,001,215 lineitem rows, 1,048,576-row
                 batches) through TorchSession/DataFrame on cuda, against a
                 numpy reference computed here from the same arrays;
@@ -70,7 +76,21 @@ result line):
                 decode, string encode, copy, the rest) with the transfer
                 encode on and off; PERFILE against MULTITHREADED; the
                 host library's decode rate per encoding
-                (``phase_parquet``).
+                (``phase_parquet``); q12_in over the files too;
+  9. gaps    -- (run before phase 7) q12_in (l_shipmode IN ('MAIL',
+                'SHIP'), the dictionary route, dense_groupby once a batch)
+                and q_extremes (count of l_comment, min/max/first/last of
+                l_extendedprice and l_shipdate by l_returnflag, the sort
+                path) cold and warm against numpy; (after phase 7) q18_agg
+                under PR 5's budget through the aggregate's repartitioned
+                merge;
+ 10. tpcds   -- TPC-DS q3 at SF10 (28,800,991 store_sales rows, the
+                generator of benchmarks/tpcds.py copied in numpy), the
+                broadcast plan (join_match twice a batch) and the shuffled
+                plan (sub-partitioned), cold and warm, each equal to numpy
+                and to the other, the broadcast plan once more under
+                torch.profiler; store_sales joined with the whole item
+                table as left, leftsemi and leftanti against numpy.
 
 The data is generated here from a seed, with numpy only: this script
 imports neither JAX, pyarrow, pandas nor the JAX package. It prints a
@@ -350,6 +370,105 @@ def gen_table(n_rows: int) -> dict:
     t = gen_lineitem(n_rows)
     t["l_comment"] = gen_comment(n_rows)
     return t
+
+
+# ---------------------------------------------------------------------------
+# TPC-DS: copies of benchmarks/tpcds.py (gen_store_sales, gen_date_dim,
+# gen_item, q3) in numpy, the same seeds and draws
+# ---------------------------------------------------------------------------
+
+#: store_sales rows at TPC-DS scale factor 10
+SF10_STORE_SALES = 28_800_991
+BRANDS = [f"brand#{i}" for i in range(1, 61)]
+
+
+def gen_store_sales(n_rows: int, seed: int = 7, n_items: int = 2000,
+                    n_dates: int = 1826) -> dict:
+    rng = np.random.RandomState(seed)
+    return {
+        "ss_sold_date_sk": rng.randint(0, n_dates, n_rows),
+        "ss_item_sk": rng.randint(0, n_items, n_rows),
+        "ss_customer_sk": rng.randint(0, n_rows // 8 + 2, n_rows),
+        "ss_quantity": rng.randint(1, 101, n_rows),
+        "ss_ext_sales_price": np.round(rng.uniform(1.0, 20000.0, n_rows), 2),
+        "ss_ext_discount_amt": np.round(rng.uniform(0.0, 1000.0, n_rows), 2),
+        "ss_net_paid": np.round(rng.uniform(1.0, 20000.0, n_rows), 2),
+        "ss_net_profit": np.round(rng.uniform(-5000.0, 5000.0, n_rows), 2),
+        "ss_list_price": np.round(rng.uniform(1.0, 200.0, n_rows), 2),
+        "ss_coupon_amt": np.round(rng.uniform(0.0, 500.0, n_rows), 2),
+        "ss_wholesale_cost": np.round(rng.uniform(1.0, 100.0, n_rows), 2),
+    }
+
+
+def gen_date_dim(n_dates: int = 1826, seed: int = 8) -> dict:
+    days = np.arange(n_dates)
+    dates = np.datetime64("1998-01-01") + days
+    years = dates.astype("datetime64[Y]").astype(int) + 1970
+    moys = dates.astype("datetime64[M]").astype(int) % 12 + 1
+    return {"d_date_sk": days, "d_date": dates.astype("datetime64[D]"),
+            "d_year": years.astype(np.int32), "d_moy": moys.astype(np.int32)}
+
+
+def gen_item(n_items: int = 2000, seed: int = 9) -> dict:
+    rng = np.random.RandomState(seed)
+    return {
+        "i_item_sk": np.arange(n_items),
+        "i_brand_id": rng.randint(1, 61, n_items).astype(np.int32),
+        "i_brand": np.array([BRANDS[b - 1] for b in
+                             rng.randint(1, 61, n_items)], dtype=object),
+        "i_manufact_id": rng.randint(1, 251, n_items).astype(np.int32),
+    }
+
+
+def q3(store_sales, date_dim, item, F, manufact_id: int = 128):
+    """Brand revenue by year for one manufacturer, November only."""
+    return (store_sales
+            .join(date_dim.filter(F.col("d_moy") == F.lit(11)),
+                  on=[("ss_sold_date_sk", "d_date_sk")])
+            .join(item.filter(F.col("i_manufact_id") == F.lit(manufact_id)),
+                  on=[("ss_item_sk", "i_item_sk")])
+            .group_by("d_year", "i_brand_id", "i_brand")
+            .agg(F.sum(F.col("ss_ext_sales_price")).with_name("sum_agg"))
+            .order_by("d_year", F.desc("sum_agg"), "i_brand_id"))
+
+
+def q3_numpy(ss: dict, dd: dict, it: dict, manufact_id: int = 128) -> list:
+    """q3's rows from the arrays: the two filters as lookup tables over the
+    keys, each group's sum by np.add.at in row order, q3's ORDER BY."""
+    year = np.full(len(dd["d_date_sk"]), -1, np.int64)
+    nov = dd["d_moy"] == 11
+    year[dd["d_date_sk"][nov]] = dd["d_year"][nov]
+    item = np.full(len(it["i_item_sk"]), -1, np.int64)
+    sel = it["i_manufact_id"] == manufact_id
+    item[it["i_item_sk"][sel]] = np.flatnonzero(sel)
+    y = year[ss["ss_sold_date_sk"]]
+    i = item[ss["ss_item_sk"]]
+    keep = (y >= 0) & (i >= 0)
+    y, i, p = y[keep], i[keep], ss["ss_ext_sales_price"][keep]
+    # a group is (year, brand id, brand): items of one brand merge
+    bid = it["i_brand_id"].astype(np.int64)
+    _, bcode = np.unique(it["i_brand"].astype(str), return_inverse=True)
+    code = (y * 61 + bid[i]) * len(BRANDS) + bcode[i]
+    groups, gid = np.unique(code, return_inverse=True)
+    sums = np.zeros(len(groups))
+    np.add.at(sums, gid, p)
+    first = np.zeros(len(groups), np.int64)
+    first[gid[::-1]] = np.arange(len(gid))[::-1]
+    rows = [{"d_year": int(y[f]), "i_brand_id": int(bid[i[f]]),
+             "i_brand": str(it["i_brand"][i[f]]), "sum_agg": float(s)}
+            for f, s in zip(first, sums)]
+    rows.sort(key=lambda r: (r["d_year"], -r["sum_agg"], r["i_brand_id"]))
+    return rows
+
+
+def q3_equal(got: list, want: list, rel: float = REL_TOL) -> bool:
+    """Same rows in the same order: keys exactly, sum_agg within ``rel``
+    (the rows reach the sum in another order)."""
+    return len(got) == len(want) and all(
+        (g["d_year"], g["i_brand_id"], g["i_brand"])
+        == (w["d_year"], w["i_brand_id"], w["i_brand"])
+        and _rel(g["sum_agg"], w["sum_agg"]) <= rel
+        for g, w in zip(got, want))
 
 
 # ---------------------------------------------------------------------------
@@ -997,7 +1116,7 @@ def _finish_compare_build(name, kernel, proc, out):
 
 
 #: the port's kernel libraries (csrc/<name>.cu), built side by side
-KERNELS = ("rect_match", "dense_groupby")
+KERNELS = ("rect_match", "dense_groupby", "join_match")
 
 
 def phase_build(compare=()):
@@ -1912,6 +2031,251 @@ def phase_profile(session, host, query, right, label: str,
 
 
 # ---------------------------------------------------------------------------
+# join_match: the equi-join's hash build and probe
+# ---------------------------------------------------------------------------
+
+JOIN_STREAM_ROWS = 1 << 20
+#: the join types join_match computes (exec/join_match.py JOIN_TYPES)
+JOIN_TYPES = ("inner", "left", "right", "full", "leftsemi", "leftanti",
+              "existence")
+
+
+def _key_batch(cols: dict, n: int):
+    """A device batch of key columns: name -> (numpy values, numpy
+    validity)."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import ColumnarBatch, DeviceColumn
+    from spark_rapids_tpu_torch.types import (Schema, StructField,
+                                              from_numpy_dtype)
+    fields, out = [], []
+    for name, (v, ok) in cols.items():
+        dt = from_numpy_dtype(v.dtype)
+        fields.append(StructField(name, dt, True))
+        out.append(DeviceColumn(torch.from_numpy(v).cuda(),
+                                torch.from_numpy(ok).cuda(), dt))
+    return ColumnarBatch(out, n, Schema(fields))
+
+
+def _join_case(rng, U: int, kinds, rows: int = JOIN_STREAM_ROWS):
+    """Stream and build key words for a join_match case: ``U`` unique build
+    keys of the column kinds ``kinds`` ("i64", "i32", "f64"; floats hold
+    NaN, 0.0 and -0.0), each 1-8 times on the build side; 5% null keys on
+    both sides; the stream draws 3 of every 4 rows from the build keys.
+    Encoded by the joins' own key encoding (exec/joins.py encode_keys)."""
+    from spark_rapids_tpu_torch.exec.joins import encode_keys
+    from spark_rapids_tpu_torch.exprs.base import ColumnRef
+    pool = []
+    for k in kinds:
+        if k == "f64":
+            v = np.round(rng.uniform(-1e6, 1e6, U), 2)
+            v[:3] = [np.nan, 0.0, -0.0][:min(3, U)]
+        elif k == "i32":
+            v = rng.randint(-2**31, 2**31 - 1, U).astype(np.int32)
+        else:
+            v = rng.randint(-2**62, 2**62, U).astype(np.int64)
+        pool.append(v)
+    dup = rng.randint(1, 9, U)
+    brow = rng.permutation(np.repeat(np.arange(U), dup))
+    pick = np.where(rng.rand(rows) < 0.75, rng.randint(0, U, rows), -1)
+    cols_b, cols_s = {}, {}
+    for j, v in enumerate(pool):
+        sv = np.where(pick >= 0, v[np.maximum(pick, 0)],
+                      (rng.uniform(2e6, 3e6, rows) if v.dtype.kind == "f"
+                       else rng.randint(0, 2**30, rows) * 2 + 1)
+                      .astype(v.dtype))
+        if v.dtype.kind == "f":
+            # another NaN's bits and a -0.0 for 0.0 on the stream side
+            sv[(pick == 0)] = -np.nan
+            sv[(pick == 2)] = 0.0
+        cols_b[f"k{j}"] = (v[brow], rng.rand(len(brow)) > 0.05)
+        cols_s[f"k{j}"] = (sv, rng.rand(rows) > 0.05)
+    keys = [ColumnRef(f"k{j}") for j in range(len(pool))]
+    sb, bb = _key_batch(cols_s, rows), _key_batch(cols_b, len(brow))
+    sw, sn, bw, bn = encode_keys(sb, keys, bb, keys)
+    return sw, sn, bw, bn
+
+
+def _maps_equal(a, b) -> bool:
+    import torch
+    return all((x is None and y is None) or (
+        x is not None and y is not None and x.shape == y.shape
+        and bool(torch.equal(x, y))) for x, y in zip(a, b))
+
+
+JOIN_CASES = (("100 keys, 1 int64 word", 100, ("i64",)),
+              ("100,000 keys, 1 int64 word", 100_000, ("i64",)),
+              ("100 keys, 1 float64 word (NaN, +-0.0)", 100, ("f64",)),
+              ("100,000 keys, 2 words (int32, int64)", 100_000,
+               ("i32", "i64")),
+              ("100,000 keys, 4 words (int64, float64, int32, int64)",
+               100_000, ("i64", "f64", "i32", "i64")))
+
+
+def phase_join_exact() -> int:
+    """join_match on the card against its plain version, exactly, for
+    every join type over JOIN_CASES (1,048,576 stream rows each). Returns
+    the largest difference of a map entry (0: exact)."""
+    import torch
+    from spark_rapids_tpu_torch.exec.join_match import (
+        build_table, join_match, join_match_reference)
+    rng = np.random.RandomState(7)
+    before = join_match.launches
+    checked, err = 0, 0.0
+    for label, U, kinds in JOIN_CASES:
+        sw, sn, bw, bn = _join_case(rng, U, kinds)
+        table = build_table(bw, bn)
+        _check(table.table is not None and int(table.ukeys.shape[0]) > 0,
+               f"{label}: no table was built on the card")
+        sizes = {}
+        for jt in JOIN_TYPES:
+            got = join_match(sw, sn, table, jt)
+            want = join_match_reference(sw, sn, table, jt)
+            torch.cuda.synchronize()
+            _check(_maps_equal(got, want),
+                   f"join_match {jt} over {label} differs from its plain "
+                   "version")
+            for x, y in zip(got, want):
+                if x is not None and x.numel():
+                    err = max(err, float((x.long() - y.long()).abs().max()))
+            sizes[jt] = int(got.stream.shape[0])
+            checked += sizes[jt]
+        _log(f"join_match exact over {label}: {int(table.ukeys.shape[0])} "
+             f"distinct build keys of {int(bw.shape[0])} rows, output rows "
+             f"{sizes}")
+    _check(join_match.launches - before == len(JOIN_CASES) * len(JOIN_TYPES),
+           "join_match did not launch once a call")
+    _log(f"join_match: {checked} output rows over {len(JOIN_CASES)} cases x "
+         f"{len(JOIN_TYPES)} join types equal to the plain version exactly")
+    return err
+
+
+def join_bound(sw, sn, table, out_rows: int) -> dict:
+    """The least bytes one inner probe and emit must move, each input read
+    once and each output written once: the stream keys (8 B a word) and
+    null flags, the build table (the hash slots, the distinct keys with
+    their starts and counts, the sorted build rows), and the pairs (two
+    int64 each). ``sector_bytes`` counts as well a 32-byte sector of the
+    table and of the key words for every non-null stream key, the count
+    that holds when the table does not stay in the L2 (a build side of
+    many keys)."""
+    n, W = int(sw.shape[0]), int(sw.shape[1])
+    build = sum(t.numel() * t.element_size() for t in (
+        table.table, table.ukeys, table.ustart, table.ucount,
+        table.sorted_rows))
+    nbytes = n * (8 * W + 1) + build + out_rows * 16
+    sectors = n * (8 * W + 1) + int((~sn).sum()) * 2 * 32 + out_rows * 16
+    return {"bytes": nbytes, "ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "by": "bytes", "sector_bytes": sectors,
+            "sector_ms": sectors / HBM_BYTES_PER_S * 1e3}
+
+
+def _raw_join_calls(sw, sn, table, join_type: str = "inner"):
+    """The probe and emit launches of one join_match call as functions of
+    (words, null) with their outputs made beforehand (outside the
+    wrapper: no launch count), and the output rows."""
+    import torch
+    from spark_rapids_tpu_torch.exec import join_match as jm
+    k = jm._kernel()
+    n, W = int(sw.shape[0]), int(sw.shape[1])
+    stream = torch.cuda.current_stream().cuda_stream
+    uid = torch.empty(n, dtype=torch.int32, device="cuda")
+    count = torch.empty(n, dtype=torch.int64, device="cuda")
+
+    def probe(w, nl):
+        rc = k["probe"](w.data_ptr(), nl.data_ptr(), n, W,
+                        table.table.data_ptr(), table.table.shape[0],
+                        table.ukeys.data_ptr(), table.ucount.data_ptr(),
+                        uid.data_ptr(), count.data_ptr(), None, stream)
+        _check(rc == 0, f"probe launch failed: CUDA error {rc}")
+    probe(sw, sn)
+    torch.cuda.synchronize()
+    offsets = torch.cumsum(count, 0) - count
+    total = int(count.sum())
+    s_map = torch.empty(total, dtype=torch.int64, device="cuda")
+    b_map = torch.empty(total, dtype=torch.int64, device="cuda")
+
+    def emit(w, nl):
+        rc = k["emit"](offsets.data_ptr(), count.data_ptr(), uid.data_ptr(),
+                       table.ustart.data_ptr(), table.sorted_rows.data_ptr(),
+                       n, 0, s_map.data_ptr(), b_map.data_ptr(), stream)
+        _check(rc == 0, f"emit launch failed: CUDA error {rc}")
+
+    def both(w, nl):
+        probe(w, nl)
+        emit(w, nl)
+    return both, total
+
+
+def q3_join_shape(rows: int = JOIN_STREAM_ROWS):
+    """q3's first join as the main path gives it: one store_sales batch's
+    ss_sold_date_sk against the November rows of date_dim, encoded."""
+    from spark_rapids_tpu_torch.exec.joins import encode_keys
+    from spark_rapids_tpu_torch.exprs.base import ColumnRef
+    ss = gen_store_sales(rows)
+    dd = gen_date_dim()
+    nov = dd["d_date_sk"][dd["d_moy"] == 11]
+    sb = _key_batch({"k": (ss["ss_sold_date_sk"], np.ones(rows, bool))},
+                    rows)
+    bb = _key_batch({"k": (nov, np.ones(len(nov), bool))}, len(nov))
+    k = [ColumnRef("k")]
+    return encode_keys(sb, k, bb, k)
+
+
+def phase_join_times(sw, sn, bw, bn, label: str) -> dict:
+    """join_match's kernels (probe and emit of an inner join) on ``label``,
+    timed with the L2 cold beside their bound; the whole wrapper call
+    (with its one host read of the total) and the plain version, each
+    timed by events around a synchronised call."""
+    import torch
+    from spark_rapids_tpu_torch.exec.join_match import (
+        build_table, join_match, join_match_reference)
+    table = build_table(bw, bn)
+    both, total = _raw_join_calls(sw, sn, table)
+    b = join_bound(sw, sn, table, total)
+    per = sw.nbytes + sn.nbytes
+    copies = [(sw, sn)] + [(sw.clone(), sn.clone()) for _ in range(
+        max(1, -(-COLD_BYTES // per) - 1))]
+    ms, _ = _cold_ms(both, copies, f"join_match {label}")
+
+    def wall(fn, reps=5):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            e0, e1 = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            t0 = time.perf_counter()
+            e0.record()
+            fn()
+            e1.record()
+            e1.synchronize()
+            out.append((e0.elapsed_time(e1),
+                        (time.perf_counter() - t0) * 1e3))
+        return (float(np.median([o[0] for o in out])),
+                float(np.median([o[1] for o in out])))
+    saved = join_match.launches
+    call_ms, host_ms = wall(lambda: join_match(sw, sn, table, "inner"))
+    join_match.launches = saved
+    plain_ms, _ = wall(lambda: join_match_reference(sw, sn, table,
+                                                    "inner"), reps=3)
+    row = {"ms": ms, "call_ms": call_ms, "host_ms": host_ms,
+           "plain_ms": plain_ms, "bound_ms": b["ms"], "bound_by": b["by"],
+           "bound_bytes": b["bytes"], "sector_ms": b["sector_ms"],
+           "library_ms": None,
+           "out_rows": total, "build_keys": int(table.ukeys.shape[0]),
+           "stream_rows": int(sw.shape[0])}
+    _log(f"kernel join_match on {label} ({row['stream_rows']} stream rows, "
+         f"{row['build_keys']} build keys, {total} pairs), cold: probe + "
+         f"emit {ms:.4f} ms, bound {b['ms']:.4f} ({b['bytes']} B; by "
+         f"bytes), {b['ms'] / ms:.0%} of bound (with a sector a lookup "
+         f"{b['sector_ms']:.4f} ms, {b['sector_bytes']} B); whole call "
+         f"(one host read "
+         f"of the total) {call_ms:.4f} ms on the card, {host_ms:.4f} ms on "
+         f"the host clock; plain {plain_ms:.4f} ms; library ms: none (no "
+         f"one PyTorch call computes it); {len(copies)} input copies")
+    return row
+
+
+# ---------------------------------------------------------------------------
 # string predicates in filters and the memory runtime
 # ---------------------------------------------------------------------------
 
@@ -2225,6 +2589,322 @@ def phase_memory_slice(conf, table, host, n_batches: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# TPC-DS q3 at SF10 (ladder rung 3) and joins at scale
+# ---------------------------------------------------------------------------
+
+def _q3_run(session, hosts, query=None, right=None, label="q3"):
+    """One run of ``query`` (q3 by default) over the three host tables:
+    rows, wall ms, join_match launches (count set to 0 just before, read
+    just after), the sub-partition counts of its shuffled joins and the
+    allocator's peak reservation."""
+    import torch
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.exec.join_match import join_match
+    from spark_rapids_tpu_torch.exec.joins import TpuHashJoinExec
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    join_match.launches = 0
+    t0 = time.perf_counter()
+    dfs = [session.create_dataframe(h) for h in hosts]
+    rows = (query or q3)(*dfs, F).collect()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = join_match.launches
+    subs = []
+
+    def walk(node):
+        if isinstance(node, TpuHashJoinExec):
+            subs.append(node.last_subpartitions)
+        for c in node.children:
+            walk(c)
+    walk(session.last_plan)
+    if right is not None:
+        _check(right(rows), f"{label}: wrong result {rows[:4]}")
+    return {"wall_ms": wall, "join_match_launches": launches,
+            "subpartitions": subs,
+            "max_memory_reserved": torch.cuda.max_memory_reserved(),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}, rows
+
+
+def _joins_by_type(store_sales, date_dim, item, F, how: str):
+    """store_sales joined with the whole item table, then a count and one
+    sum (no date_dim: the arguments follow q3's)."""
+    j = store_sales.join(item, on=[("ss_item_sk", "i_item_sk")], how=how)
+    aggs = [F.count_star().with_name("n"),
+            F.sum(F.col("ss_ext_sales_price")).with_name("s")]
+    if how == "left":
+        aggs.append(F.sum(F.col("i_brand_id")).with_name("b"))
+    return j.agg(*aggs)
+
+
+def joins_by_type_numpy(ss: dict, it: dict, how: str) -> dict:
+    known = np.zeros(max(len(it["i_item_sk"]), int(ss["ss_item_sk"].max())
+                         + 1), bool)
+    known[it["i_item_sk"]] = True
+    hit = known[ss["ss_item_sk"]]
+    keep = ~hit if how == "leftanti" else (hit if how == "leftsemi"
+                                           else np.ones(len(hit), bool))
+    out = {"n": int(keep.sum()),
+           "s": float(ss["ss_ext_sales_price"][keep].sum())
+           if keep.any() else None}
+    if how == "left":
+        bid = np.zeros(len(known), np.int64)
+        bid[it["i_item_sk"]] = it["i_brand_id"]
+        out["b"] = int(bid[ss["ss_item_sk"]][hit].sum())
+    return out
+
+
+def phase_tpcds(card: str, batch_rows: int) -> dict:
+    """TPC-DS q3 at SF10 (28,800,991 store_sales rows, 1,826 dates, 2,000
+    items, benchmarks/tpcds.py's generator) in 1,048,576-row batches:
+    the default plan (two broadcast hash joins) cold and warm, then
+    under torch.profiler; the shuffled plan
+    (autoBroadcastJoinThreshold=-1: both joins coalesced, the first
+    sub-partitioned at the 256 MiB default) cold and warm. Both equal
+    numpy (keys, order and counts exactly, sum_agg within REL_TOL) and
+    each other. Then store_sales joined with the whole item table as
+    left, leftsemi and leftanti against numpy."""
+    from spark_rapids_tpu_torch.api import TorchSession
+    from spark_rapids_tpu_torch.columnar import HostTable
+    t0 = time.perf_counter()
+    ss = gen_store_sales(SF10_STORE_SALES)
+    dd, it = gen_date_dim(), gen_item()
+    hosts = [HostTable.from_dict(ss), HostTable.from_dict(dd),
+             HostTable.from_dict(it)]
+    want = q3_numpy(ss, dd, it)
+    gen_s = time.perf_counter() - t0
+    n_batches = math.ceil(SF10_STORE_SALES / batch_rows)
+    _log(f"tpcds SF10: {SF10_STORE_SALES} store_sales rows "
+         f"({sum(v.nbytes for v in ss.values())} B in 11 columns), "
+         f"generated with numpy q3 in {gen_s:.2f} s; q3 numpy: {len(want)} "
+         f"rows [{card}]")
+    res = {"card": card, "rows": SF10_STORE_SALES, "groups": len(want)}
+    base = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows}
+    plans = {"broadcast": TorchSession(base),
+             "shuffled": TorchSession({
+                 **base, "spark.rapids.tpu.sql.autoBroadcastJoinThreshold":
+                 -1})}
+    results = {}
+    for name, session in plans.items():
+        runs = {}
+        for label in ("cold", "warm"):
+            runs[label], rows = _q3_run(
+                session, hosts, right=lambda r: q3_equal(r, want),
+                label=f"q3 {name} {label}")
+            results[(name, label)] = rows
+        plan = session.last_plan.tree_string()
+        _check(("BroadcastHashJoin" in plan) == (name == "broadcast"),
+               f"q3 {name} plan:\n{plan}")
+        c, w = runs["cold"], runs["warm"]
+        expect = 2 * n_batches if name == "broadcast" else None
+        for r in (c, w):
+            _check(r["join_match_launches"] > 0 and (
+                expect is None or r["join_match_launches"] == expect),
+                f"q3 {name}: join_match launched "
+                f"{r['join_match_launches']} times (expected "
+                f"{expect or 'some'})")
+        _log(f"q3 SF10 {name} plan: equal to numpy ({len(want)} rows; keys, "
+             f"order exact, sum_agg within {REL_TOL:g}); wall "
+             f"{c['wall_ms']:.1f} ms cold, {w['wall_ms']:.1f} ms warm; "
+             f"join_match launches {c['join_match_launches']} / "
+             f"{w['join_match_launches']}; sub-partitions of its coalesced "
+             f"joins {c['subpartitions']}; max_memory_reserved "
+             f"{c['max_memory_reserved']} / {w['max_memory_reserved']} B, "
+             f"max_memory_allocated {c['max_memory_allocated']} / "
+             f"{w['max_memory_allocated']} B [{card}]")
+        _log(f"q3 {name} physical plan:\n{plan}")
+        runs["plan"] = plan
+        res[name] = runs
+    _check(all(results[("broadcast", x)] == results[("broadcast", "cold")]
+               for x in ("warm",)) and all(
+        q3_equal(results[("shuffled", x)], results[("broadcast", "cold")],
+                 rel=REL_TOL) for x in ("cold", "warm")),
+        "q3's two plans disagree")
+    _log(f"q3 SF10 result: {want}")
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run, _ = _q3_run(plans["broadcast"], hosts,
+                         right=lambda r: q3_equal(r, want),
+                         label="q3 broadcast under the profiler")
+        torch.cuda.synchronize()
+    try:
+        res["profile_broadcast_warm"] = _profile_report(
+            prof, run["wall_ms"], "q3 SF10 broadcast", "join_match")
+    except Exception as e:  # the trace is read for information only
+        _log(f"profile: could not be read ({e!r})")
+        res["profile_broadcast_warm"] = {"device_time": False,
+                                         "error": repr(e)}
+
+    by_type = {}
+    for how in ("left", "leftsemi", "leftanti"):
+        w_ = joins_by_type_numpy(ss, it, how)
+        run, rows = _q3_run(
+            plans["broadcast"], hosts,
+            lambda a, b, c, F, how=how: _joins_by_type(a, b, c, F, how))
+        got = rows[0]
+        _check(got["n"] == w_["n"] and (
+            (got["s"] is None and w_["s"] is None)
+            or _rel(got["s"], w_["s"]) <= REL_TOL)
+            and got.get("b") == w_.get("b"),
+            f"store_sales {how} item: {got} != numpy {w_}")
+        _check(run["join_match_launches"] == n_batches,
+               f"{how}: join_match launched {run['join_match_launches']} "
+               f"times, expected {n_batches}")
+        by_type[how] = {**run, "result": got}
+        _log(f"store_sales {how} join item (SF10, broadcast): {got} equal to "
+             f"numpy; wall {run['wall_ms']:.1f} ms; join_match launches "
+             f"{run['join_match_launches']} [{card}]")
+    res["joins_by_type"] = by_type
+    for s in plans.values():
+        s.close()
+    return res
+
+
+
+# ---------------------------------------------------------------------------
+# the operator gaps: string IN, count(string), min/max/first/last, and the
+# aggregate's repartitioned merge
+# ---------------------------------------------------------------------------
+
+def q12_in(df, F):
+    """TPC-H Q12's shipping-mode filter as written there: l_shipmode IN
+    ('MAIL', 'SHIP') over a receipt-date year, then a count and revenue
+    by mode."""
+    return (df.filter(F.col("l_shipmode").isin("MAIL", "SHIP")
+                      & (F.col("l_receiptdate") >= F.lit(
+                          np.datetime64("1994-01-01")))
+                      & (F.col("l_receiptdate") < F.lit(
+                          np.datetime64("1995-01-01"))))
+            .group_by("l_shipmode")
+            .agg(F.count_star().with_name("n"),
+                 F.sum(F.col("l_extendedprice")
+                       * (F.lit(1.0) - F.col("l_discount")))
+                 .with_name("revenue"))
+            .order_by("l_shipmode"))
+
+
+def q12_in_numpy(t: dict) -> list:
+    rd, mode = t["l_receiptdate"], t["l_shipmode"]
+    keep = (((mode == "MAIL") | (mode == "SHIP"))
+            & (rd >= np.datetime64("1994-01-01"))
+            & (rd < np.datetime64("1995-01-01")))
+    rev = t["l_extendedprice"] * (1.0 - t["l_discount"])
+    return [{"l_shipmode": str(m), "n": int((keep & (mode == m)).sum()),
+             "revenue": float(rev[keep & (mode == m)].sum())}
+            for m in np.unique(mode[keep])]
+
+
+def q_extremes(df, F):
+    """count(l_comment), and min, max, first and last of l_extendedprice
+    and l_shipdate by l_returnflag."""
+    aggs = [F.count(F.col("l_comment")).with_name("n_comment")]
+    for c in ("l_extendedprice", "l_shipdate"):
+        aggs += [F.min(F.col(c)).with_name(f"min_{c}"),
+                 F.max(F.col(c)).with_name(f"max_{c}"),
+                 F.first(F.col(c)).with_name(f"first_{c}"),
+                 F.last(F.col(c)).with_name(f"last_{c}")]
+    return df.group_by("l_returnflag").agg(*aggs).order_by("l_returnflag")
+
+
+def q_extremes_numpy(t: dict) -> list:
+    import datetime
+    out = []
+    flags = t["l_returnflag"]
+    for f in np.unique(flags):
+        idx = np.flatnonzero(flags == f)
+        row = {"l_returnflag": str(f), "n_comment": len(idx)}
+        for c in ("l_extendedprice", "l_shipdate"):
+            v = t[c][idx]
+            vals = [v.min(), v.max(), v[0], v[-1]]
+            if c == "l_shipdate":
+                vals = [datetime.date(1970, 1, 1) + datetime.timedelta(
+                    days=int(x.astype("datetime64[D]").astype(np.int64)))
+                    for x in vals]
+            else:
+                vals = [float(x) for x in vals]
+            for k, x in zip(("min", "max", "first", "last"), vals):
+                row[f"{k}_{c}"] = x
+        out.append(row)
+    return out
+
+
+def phase_operator_gaps(conf, table, host, n_batches: int,
+                        card: str) -> dict:
+    """The operator gaps at SF1 on the card, each cold and warm against
+    numpy: q12_in (the IN filter over the l_shipmode dictionary; the
+    aggregate's dense_groupby once a batch), q_extremes (count of a string
+    column and min/max/first/last, which take the sort path: no
+    dense_groupby). Returns the runs and q12_in's rows (for the Parquet
+    phase)."""
+    from spark_rapids_tpu_torch.api import TorchSession
+    session = TorchSession(conf)
+    out = {}
+    want = q12_in_numpy(table)
+    out["q12_in"] = _cold_warm(session, host, q12_in,
+                               lambda r: rows_equal(r, want),
+                               f"q12_in SF1 [{card}]")
+    for run in out["q12_in"].values():
+        _check(run["launches"] == {"rect_match": 0,
+                                   "dense_groupby": n_batches},
+               f"q12_in launches {run['launches']}")
+    plan = session.last_plan.tree_string()
+    _check("dict_eval" in plan, f"q12_in's IN filter is not on the "
+                                f"dictionary route:\n{plan}")
+    _log(f"q12_in result {want}")
+    want_x = q_extremes_numpy(table)
+
+    def right_x(rows):
+        return len(rows) == len(want_x) and all(
+            all(g[k] == w[k] for k in w) for g, w in zip(rows, want_x))
+    out["q_extremes"] = _cold_warm(session, host, q_extremes, right_x,
+                                   f"q_extremes SF1 [{card}]")
+    for run in out["q_extremes"].values():
+        _check(run["launches"]["dense_groupby"] == 0,
+               "q_extremes launched dense_groupby: min/max/first/last must "
+               "take the sort path")
+    plan = session.last_plan.tree_string()
+    _check("route=sort" in plan, f"q_extremes' route is not in its "
+                                 f"plan:\n{plan}")
+    _log(f"q_extremes result {want_x}")
+    rows, _ = _run_query(session, host, q12_in)
+    session.close()
+    return out, rows
+
+
+def phase_q18_repartitioned(conf, host, table, parts, budget: int,
+                            card: str) -> dict:
+    """q18_agg under PR 5's spilling budget with batchSizeBytes at the
+    largest partial: the partials exceed it, so they merge through the
+    repartitioned merge instead of the fan-in tree."""
+    from spark_rapids_tpu_torch.api import TorchSession
+    from spark_rapids_tpu_torch.exec.aggregate import TpuHashAggregateExec
+    want18 = q18_agg_numpy(table)
+    session = TorchSession({
+        **conf, "spark.rapids.tpu.memory.hbm.limitBytes": budget,
+        "spark.rapids.tpu.memory.host.spillStorageSize": budget // 2,
+        "spark.rapids.tpu.sql.batchSizeBytes": max(parts),
+        "spark.rapids.tpu.memory.leakDetection": True})
+    out = _cold_warm(session, host, q18_agg,
+                     lambda r: rows_equal(r, want18),
+                     f"q18_agg SF1 under pressure, repartitioned merge "
+                     f"[{card}]")
+    node = session.last_plan
+    while not isinstance(node, TpuHashAggregateExec):
+        node = node.children[0]
+    _check(node.last_repartitions >= 2,
+           f"q18_agg did not take the repartitioned merge "
+           f"({node.last_repartitions} partitions)")
+    out["partitions"] = node.last_repartitions
+    out["batch_size_bytes"] = max(parts)
+    _log(f"q18_agg repartitioned merge: {node.last_repartitions} partitions "
+         f"(batchSizeBytes {max(parts)} B, partials {sum(parts)} B, budget "
+         f"{budget} B) [{card}]")
+    session.close()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 8: Parquet
 # ---------------------------------------------------------------------------
 
@@ -2504,7 +3184,8 @@ def phase_parquet(table: dict, inmem: dict, batch_rows: int,
     # q6, q1, q_comment over the files == the in-memory results
     on = TorchSession({**base, "spark.rapids.tpu.sql.pallas.enabled": True})
     for name, query, kernel in (("q6", q6, None), ("q1", q1, dense_groupby),
-                                ("q_comment", q_comment, rect_match)):
+                                ("q_comment", q_comment, rect_match),
+                                ("q12_in", q12_in, dense_groupby)):
         dense_groupby.launches = rect_match.launches = 0
         t1 = time.perf_counter()
         got = query(on.read_parquet(*files), F).collect()
@@ -2734,6 +3415,14 @@ def main(argv=None) -> int:
                                       compare["dense_groupby"])
         del g64_args
 
+        join_err = phase_join_exact()
+        join_t = phase_join_times(*q3_join_shape(),
+                                  "q3's first join (one store_sales batch "
+                                  "against November's dates)")
+        join_t100k = phase_join_times(
+            *_join_case(np.random.RandomState(100), 100_000, ("i64",)),
+            "100,000 build keys with 1-8 rows each")
+
         conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows}
         session = TorchSession(conf)          # device defaults to cuda
         _check(session.device.type == "cuda", "session is not on cuda")
@@ -2816,8 +3505,14 @@ def main(argv=None) -> int:
                 "q1 (the operand path of 645412c: each remap copied from "
                 "pageable memory, waiting on the stream, every batch)",
                 "dense_groupby")
+        gaps, inmem["q12_in"] = phase_operator_gaps(conf, table, host,
+                                                    n_batches, card)
         mem = phase_memory_slice(conf, table, host, n_batches)
+        mem["q18_agg_repartitioned"] = phase_q18_repartitioned(
+            conf, host, table, mem["q18_partial_bytes"], mem["q18_budget"],
+            card)
         parquet = phase_parquet(table, inmem, batch_rows, card)
+        tpcds = phase_tpcds(card, batch_rows)
         _log(json.dumps({"queries": {
             "q6": {"rows": SF1_ROWS, "wall_ms_cold": ms_cold,
                    "wall_ms_warm": ms_warm},
@@ -2830,7 +3525,7 @@ def main(argv=None) -> int:
                    len(rows), "wall_ms_cold": q1_cold,
                    "wall_ms_warm": q1_warm, "profile_warm": prof1,
                    "profile_warm_parent_operands": prof1_parent},
-            **mem, "parquet": parquet}}))
+            **mem, **gaps, "parquet": parquet, "tpcds": tpcds}}))
         main_t = times["main"]
         kernel = {
             "name": "rect_match", "route": "cuda",
@@ -2889,7 +3584,34 @@ def main(argv=None) -> int:
                 "ms", "turns_ms", "compare_ms", "plain_ms", "library_ms", "bound_ms", "bound_bytes",
                 "host_ms", "shape")},
         }
-        _log(json.dumps({"kernels": [kernel, dense]}))
+        q3b = tpcds["broadcast"]
+        join = {
+            "name": "join_match", "route": "cuda",
+            "source": "spark_rapids_tpu_torch/csrc/join_match.cu",
+            "replaces": "spark_rapids_tpu/exec/joins.py:55",
+            "launches": q3b["cold"]["join_match_launches"],
+            "max_abs_err": join_err, "exact": join_err == 0,
+            "paths": {"q3_broadcast": q3b["cold"]["join_match_launches"],
+                      "q3_shuffled": tpcds["shuffled"]["cold"][
+                          "join_match_launches"],
+                      **{f"ss_{k}_item": v["join_match_launches"]
+                         for k, v in tpcds["joins_by_type"].items()}},
+            "ms": join_t["ms"], "plain_ms": join_t["plain_ms"],
+            "bound_ms": join_t["bound_ms"], "bound_by": join_t["bound_by"],
+            "bound_bytes": join_t["bound_bytes"],
+            "bound_ms_sectors": join_t["sector_ms"], "library_ms": None,
+            "call_ms": join_t["call_ms"], "host_ms": join_t["host_ms"],
+            "timing": "probe and emit launches queued back to back over "
+                      "distinct inputs (L2 cold); call_ms: a whole "
+                      "wrapper call with its host read of the total",
+            "shape": [join_t["stream_rows"], join_t["build_keys"],
+                      join_t["out_rows"]],
+            "k100": {k: join_t100k[k] for k in (
+                "ms", "plain_ms", "bound_ms", "sector_ms", "call_ms",
+                "host_ms",
+                "stream_rows", "build_keys", "out_rows")},
+        }
+        _log(json.dumps({"kernels": [kernel, dense, join]}))
     except Exception:
         traceback.print_exc()
         return 1

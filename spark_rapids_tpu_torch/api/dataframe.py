@@ -86,6 +86,8 @@ class TorchSession:
         self.semaphore = services.semaphore
         #: the OOM ladders' counts of the session's latest query
         self.last_retry_stats = None
+        #: the physical plan of the session's latest query
+        self.last_plan = None
 
     def exec_context(self) -> ExecContext:
         """A query's context over the session's memory and semaphore."""
@@ -157,6 +159,76 @@ class DataFrame:
     def __init__(self, session: TorchSession, plan: L.LogicalPlan):
         self.session = session
         self.plan = plan
+        #: set by ``hint("broadcast")`` / ``functions.broadcast``
+        self._broadcast_hint = False
+
+    def hint(self, name: str) -> "DataFrame":
+        """Spark's plan hint; only "broadcast" means anything here."""
+        df = DataFrame(self.session, self.plan)
+        df._broadcast_hint = name.lower() == "broadcast"
+        return df
+
+    def join(self, other: "DataFrame", on=None, how: str = "inner",
+             condition=None) -> "DataFrame":
+        """Join with ``other`` (ref ``DataFrame.join``). ``on``: a column
+        name or a list of names (USING: one output column a key, keys
+        first), or (left, right) pairs of names or Cols; none for a cross
+        or condition-only join. ``condition``: a residual predicate over
+        both sides' columns."""
+        on_list = [on] if isinstance(on, str) else list(on or [])
+        bc = "right" if other._broadcast_hint else (
+            "left" if self._broadcast_hint else None)
+        cond = _as_expr(condition) if condition is not None else None
+        if not (on_list and all(isinstance(k, str) for k in on_list)):
+            lk, rk = [], []
+            for k in on_list:
+                if isinstance(k, str):
+                    lk.append(ColumnRef(k))
+                    rk.append(ColumnRef(k))
+                else:
+                    lk.append(_as_expr(k[0]))
+                    rk.append(_as_expr(k[1]))
+            return DataFrame(self.session, L.Join(
+                self.plan, other.plan, how, lk, rk, cond, broadcast=bc))
+        # USING-style join (PySpark): one column a key, left's values (the
+        # right side's for a right join, both coalesced for a full join).
+        # The right side's columns are renamed first so the two sides'
+        # names stay apart: keys to __ju_<i>, other clashes to <name>_r.
+        keyset = set(on_list)
+        lnames = self.plan.schema().names()
+        rcols = other.plan.schema().names()
+        taken = set(lnames) | set(rcols)
+        rmap = {k: f"__ju_{i}" for i, k in enumerate(on_list)}
+        for c in rcols:
+            if c in keyset or c not in lnames:
+                continue
+            alt = f"{c}_r"
+            while alt in taken:
+                alt += "_"
+            taken.add(alt)
+            rmap[c] = alt
+        right = other.select(*[Col(Alias(ColumnRef(c), rmap[c]))
+                               if c in rmap else c for c in rcols])
+        joined = L.Join(self.plan, right.plan, how,
+                        [ColumnRef(k) for k in on_list],
+                        [ColumnRef(rmap[k]) for k in on_list], cond,
+                        broadcast=bc)
+        if joined.join_type in ("leftsemi", "leftanti", "existence"):
+            return DataFrame(self.session, joined)
+        from ..exprs import Coalesce
+        exprs: List[Expression] = []
+        for k in on_list:
+            if joined.join_type == "right":
+                exprs.append(Alias(ColumnRef(rmap[k]), k))
+            elif joined.join_type == "full":
+                exprs.append(Alias(Coalesce(ColumnRef(k),
+                                            ColumnRef(rmap[k])), k))
+            else:
+                exprs.append(ColumnRef(k))
+        exprs += [ColumnRef(c) for c in lnames if c not in keyset]
+        exprs += [ColumnRef(rmap.get(c, c)) for c in rcols
+                  if c not in keyset]
+        return DataFrame(self.session, L.Project(exprs, joined))
 
     def select(self, *cols) -> "DataFrame":
         return DataFrame(self.session,
@@ -226,6 +298,7 @@ class DataFrame:
 
     def _collect_columns(self):
         physical = self._physical()
+        self.session.last_plan = physical
         ctx = self.session.exec_context()
         self.session.last_retry_stats = ctx.retry_stats
         qt = float(self.session.conf.get(QUERY_TIMEOUT))

@@ -10,10 +10,12 @@ from __future__ import annotations
 from typing import Optional
 
 from .. import exprs as E
-from ..exprs.aggregates import Average, Count, CountStar, Sum
+from ..exprs.aggregates import (Average, Count, CountStar, First, Last,
+                                Max, Min, Sum)
 
 __all__ = ["Col", "col", "lit", "asc", "desc", "sum", "count",
-           "count_star", "avg", "startswith", "endswith", "locate", "instr",
+           "count_star", "avg", "min", "max", "first", "last", "broadcast",
+           "startswith", "endswith", "locate", "instr",
            "abs", "div", "pmod", "negative", "positive", "bitwise_not",
            "shiftleft", "shiftright", "shiftrightunsigned"]
 
@@ -71,6 +73,12 @@ class Col:
     def endswith(self, s): return Col(E.EndsWith(self.expr, s))
     def like(self, pattern): return Col(E.Like(self.expr, pattern))
     def rlike(self, pattern): return Col(E.RLike(self.expr, pattern))
+
+    def isin(self, *vals):
+        vals = vals[0] if len(vals) == 1 and isinstance(vals[0],
+                                                        (list, tuple)) \
+            else vals
+        return Col(E.In(self.expr, vals))
 
     def alias(self, name: str): return Col(E.Alias(self.expr, name))
 
@@ -132,3 +140,22 @@ def sum(c): return Sum(_to_expr(c))
 def count(c): return Count(_to_expr(c))
 def count_star(): return CountStar()
 def avg(c): return Average(_to_expr(c))
+def min(c): return Min(_to_expr(c))
+def max(c): return Max(_to_expr(c))
+
+
+def first(c, ignorenulls: bool = True):
+    """The value of the first row in input order; with ``ignorenulls``
+    (the default, as the reference's ``first``) the first non-null one."""
+    return First(_to_expr(c), ignorenulls)
+
+
+def last(c, ignorenulls: bool = True):
+    """The value of the last row in input order (as ``first``)."""
+    return Last(_to_expr(c), ignorenulls)
+
+
+def broadcast(df):
+    """Mark a DataFrame as the build side of its next join (Spark's
+    ``functions.broadcast``): the planner broadcasts it."""
+    return df.hint("broadcast")

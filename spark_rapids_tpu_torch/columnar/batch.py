@@ -155,6 +155,14 @@ class HostTable:
             fields.append(StructField(name, dt, True))
         return HostTable(cols, Schema(fields))
 
+    @property
+    def nbytes(self) -> int:
+        """Host bytes of the values and validities (a string column's
+        array as numpy holds it)."""
+        return sum((v.indices.nbytes + v.dictionary.nbytes
+                    if isinstance(v, DictStrings) else v.nbytes) + m.nbytes
+                   for v, m in self.columns.values())
+
     def select(self, names: Sequence[str]) -> "HostTable":
         return HostTable({n: self.columns[n] for n in names},
                          Schema([self.schema[n] for n in names]))

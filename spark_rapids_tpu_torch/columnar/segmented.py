@@ -11,10 +11,14 @@ Three contexts an aggregate's ``_seg_sum`` reduces over:
     reduction over at most ``DENSE_MAX`` segments, the plain form of the
     dense groupby kernel (``exec/dense_groupby.py``).
 
-Every form is deterministic on the card: no atomics. Float sums over
-sorted segments are the reference's Hillis-Steele segmented scan
-(elementwise passes, read at each segment's last row); integer sums and
-counts are a prefix sum read at the segment ends, exact in any order.
+Every form is deterministic on the card. Float sums over sorted
+segments are the reference's Hillis-Steele segmented scan (elementwise
+passes, read at each segment's last row), with no atomics; integer sums
+and counts are a prefix sum read at the segment ends, exact in any
+order. Minimum and maximum (``seg_min``/``seg_max``) and the
+first/last-row selection (``select_by_rank``) are one ``scatter_reduce``
+over segment ids: a minimum is the same in any order, and floats reduce
+as the integers of their total order (NaN greatest, -0.0 equal to 0.0).
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ from typing import List, Optional
 import torch
 
 __all__ = ["DENSE_MAX", "GlobalSegments", "SortedSegments",
-           "bucket_segments", "prefix_sum", "seg_sum", "seg_count"]
+           "bucket_segments", "prefix_sum", "seg_sum", "seg_count",
+           "seg_min", "seg_max", "select_by_rank"]
 
 #: largest segment count the one-hot ``seg_sum`` takes
 DENSE_MAX = 4096
@@ -53,10 +58,20 @@ def prefix_sum(x: torch.Tensor, dtype=None) -> torch.Tensor:
 
 class GlobalSegments:
     """One segment over the rows where ``live`` holds; results are
-    shape-(1,) tensors."""
+    shape-(1,) tensors. ``orig_index`` (int64 per row) is the rank that
+    first/last select by."""
 
-    def __init__(self, live: torch.Tensor):
+    num_segments = 1
+
+    def __init__(self, live: torch.Tensor,
+                 orig_index: Optional[torch.Tensor] = None):
         self.live = live
+        self.orig_index = orig_index
+
+    @property
+    def seg_ids(self) -> torch.Tensor:
+        return torch.zeros(self.live.shape, dtype=torch.int64,
+                           device=self.live.device)
 
     def sum(self, data: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         ok = torch.logical_and(valid, self.live)
@@ -73,9 +88,12 @@ class SortedSegments:
     first) marks real rows, and flags lie on live rows only. Every
     reduction returns one value per segment."""
 
-    def __init__(self, flags: torch.Tensor, live: torch.Tensor):
+    def __init__(self, flags: torch.Tensor, live: torch.Tensor,
+                 orig_index: Optional[torch.Tensor] = None):
         self.flags = flags
         self.live = live
+        #: each sorted row's rank for first/last (its row in the input)
+        self.orig_index = orig_index
         self.starts = torch.nonzero(flags, as_tuple=True)[0]
         n_live = live.sum().reshape(1)
         self.ends = torch.cat([self.starts[1:], n_live])[
@@ -85,6 +103,11 @@ class SortedSegments:
     @property
     def num_segments(self) -> int:
         return int(self.starts.shape[0])
+
+    @property
+    def seg_ids(self) -> torch.Tensor:
+        """int64 segment of every row (live rows only are read)."""
+        return prefix_sum(self.flags) - 1
 
     def _flag_steps(self) -> List[tuple]:
         """(distance, flags before the pass) of each scan pass; the same
@@ -150,3 +173,66 @@ def seg_count(pred: torch.Tensor, gid, num_segments: int,
     if isinstance(gid, SortedSegments):
         return gid.count(pred, dtype)
     return seg_sum(pred.to(dtype), gid, num_segments)
+
+
+def _extreme(data: torch.Tensor, ok: torch.Tensor, seg, how: str):
+    """Per segment, the ``how`` ("amin"/"amax") of ``data`` over its rows
+    where ``ok`` (and live) holds, 0 where there is none."""
+    G = seg.num_segments
+    idx = torch.where(torch.logical_and(ok, seg.live), seg.seg_ids, G)
+    out = torch.zeros(G + 1, dtype=data.dtype, device=data.device)
+    return out.scatter_reduce_(0, idx, data, how, include_self=False)[:G]
+
+
+def _float_key(d: torch.Tensor) -> torch.Tensor:
+    from ..exec.encoding import _float_order_key
+    return _float_order_key(d)
+
+
+def _float_from_key(k: torch.Tensor, dtype) -> torch.Tensor:
+    """The inverse of the total-order key (the same xor undoes it)."""
+    low = torch.iinfo(k.dtype).max
+    return torch.where(k < 0, torch.bitwise_xor(k, low), k).view(dtype)
+
+
+def _seg_extreme(data: torch.Tensor, valid: torch.Tensor, seg, how: str):
+    if data.is_floating_point():
+        k = _extreme(_float_key(data), valid, seg, how)
+        return _float_from_key(k, data.dtype)
+    if data.dtype == torch.bool:
+        return _extreme(data.to(torch.int8), valid, seg, how).bool()
+    return _extreme(data, valid, seg, how)
+
+
+def seg_min(data: torch.Tensor, valid: torch.Tensor, seg) -> torch.Tensor:
+    """Per segment of ``seg`` (SortedSegments or GlobalSegments), the
+    least of ``data`` over its valid live rows in Spark's order (NaN
+    greatest, -0.0 as 0.0); 0 where a segment has no such row."""
+    return _seg_extreme(data, valid, seg, "amin")
+
+
+def seg_max(data: torch.Tensor, valid: torch.Tensor, seg) -> torch.Tensor:
+    """Per segment, the greatest of ``data`` (as ``seg_min``)."""
+    return _seg_extreme(data, valid, seg, "amax")
+
+
+def select_by_rank(rank: torch.Tensor, ok: torch.Tensor, seg, mode: str):
+    """Per segment, the row whose ``rank`` is least (mode "min") or
+    greatest ("max") among its live rows where ``ok`` holds; ranks are
+    distinct. Returns (row index per segment, 0 where none; whether the
+    segment has such a row)."""
+    how = "amin" if mode == "min" else "amax"
+    G = seg.num_segments
+    if not G:
+        return (torch.zeros(0, dtype=torch.int64, device=rank.device),
+                torch.zeros(0, dtype=torch.bool, device=rank.device))
+    best = _extreme(rank, ok, seg, how)
+    ids = seg.seg_ids
+    hit = torch.logical_and(torch.logical_and(ok, seg.live),
+                            rank == best[ids.clamp(0, G - 1)])
+    rows = torch.zeros(G + 1, dtype=torch.int64, device=rank.device)
+    rows[torch.where(hit, ids, G)] = torch.arange(
+        rank.shape[0], device=rank.device)
+    has = torch.zeros(G + 1, dtype=torch.bool, device=rank.device)
+    has[torch.where(hit, ids, G)] = True
+    return rows[:G], has[:G]

@@ -18,7 +18,8 @@ __all__ = ["ConfEntry", "TpuConf", "register",
            "HOST_SPILL_LIMIT", "SPILL_DIR", "OOM_MAX_SPLIT_DEPTH",
            "LEAK_DETECTION", "TASK_TIMEOUT", "SEMAPHORE_WEDGE_TIMEOUT_MS",
            "QUERY_TIMEOUT", "MULTITHREADED_READ_THREADS",
-           "IO_PATH_REPLACEMENT", "PARQUET_READER_TYPE"]
+           "IO_PATH_REPLACEMENT", "PARQUET_READER_TYPE",
+           "AUTO_BROADCAST_THRESHOLD", "JOIN_SUBPARTITION_SIZE"]
 
 _LOCK = threading.Lock()
 _REGISTRY: Dict[str, "ConfEntry"] = {}
@@ -157,6 +158,19 @@ PARQUET_READER_TYPE = register(
     "spark.rapids.tpu.sql.format.parquet.reader.type", "AUTO",
     "PERFILE / COALESCING / MULTITHREADED / AUTO "
     "(ref GpuParquetScan.scala reader factory:1070).")
+
+AUTO_BROADCAST_THRESHOLD = register(
+    "spark.rapids.tpu.sql.autoBroadcastJoinThreshold", 10 * 1024 * 1024,
+    "Equi-joins broadcast a side whose plan-time size estimate is at or "
+    "below this many bytes (ref Spark's autoBroadcastJoinThreshold). <= 0 "
+    "disables the choice; a broadcast hint still applies.")
+
+JOIN_SUBPARTITION_SIZE = register(
+    "spark.rapids.tpu.sql.join.subPartitionSizeBytes", 256 * 1024 * 1024,
+    "When the combined input of a coalesced equi-join exceeds this many "
+    "device bytes, the join hash-partitions both sides and runs N "
+    "independent sub-joins (ref GpuSubPartitionHashJoin.scala). <= 0 "
+    "disables sub-partitioning.")
 
 
 class TpuConf:

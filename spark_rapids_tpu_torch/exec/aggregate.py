@@ -30,9 +30,12 @@ host or the disk while later batches arrive. The merge is the
 reference's bounded fan-in tree (``_merge``): chunks of partials whose
 rows fit ``batchSizeRows`` merge level by level, each merge taking its
 inputs back to the device inside the retried closure; every path closes
-the partials it was handed. Finalize turns the codes back into a
-dictionary column whose dictionary is sorted, so that ORDER BY over a
-string key orders as the strings do.
+the partials it was handed. When a keyed aggregate's partials hold more
+than ``batchSizeBytes``, they are hash-split on the keys into 2-64
+partitions instead, and each partition merges and finalizes alone
+(``_repartitioned_merge``): a group's rows all land in one partition.
+Finalize turns the codes back into a dictionary column whose dictionary
+is sorted, so that ORDER BY over a string key orders as the strings do.
 """
 from __future__ import annotations
 
@@ -48,6 +51,7 @@ from ..columnar import (ByteRectColumn, ColumnarBatch, DeviceColumn,
                         DictColumn)
 from ..columnar.batch import concat_batches, dict_limit, rect_to_dict
 from ..columnar.segmented import bucket_segments
+from ..config import BATCH_SIZE_BYTES
 from ..exprs.aggregates import AggregateExpression
 from ..exprs.base import Alias, ColumnRef, DVal, EvalContext
 from ..exprs.compiler import batch_device, batch_dvals
@@ -112,6 +116,12 @@ def _apply_pre_stages(stages, in_schema: Schema, base_dvals, num_rows: int,
     return ctx, keep
 
 
+def _value(v: DVal) -> DVal:
+    """An aggregate's input; a string's data is dropped (only count reads
+    a string column, and only its validity)."""
+    return DVal(None, v.validity, v.dtype) if v.dtype == STRING else v
+
+
 def _column_ref(e) -> Optional[str]:
     """The column name an expression passes through, else None."""
     if isinstance(e, Alias):
@@ -157,6 +167,11 @@ class TpuHashAggregateExec(TpuExec):
         self._dicts: List[Dict[str, int]] = []
         #: rows of the input batches so far (one execution's)
         self._rows_in = 0
+        #: every aggregate is sums and counts: the dense kernel may run
+        self._dense_ok = all(a.dense_ok for a in self.aggs)
+        #: partitions of the latest execution's repartitioned merge (0:
+        #: it merged in one tree)
+        self.last_repartitions = 0
 
     def output_schema(self) -> Schema:
         return self._schema
@@ -298,18 +313,20 @@ class TpuHashAggregateExec(TpuExec):
             keys.append(DVal(c, valid, INT32))
         return keys
 
-    def _update(self, batch: ColumnarBatch) -> ColumnarBatch:
-        """One batch's partials (the partial schema, live column last)."""
+    def _update(self, batch: ColumnarBatch,
+                row_offset: int = 0) -> ColumnarBatch:
+        """One batch's partials (the partial schema, live column last);
+        ``row_offset`` is the batch's first row's position in the input."""
         ectx, keep = self._pre_stages(batch)
-        vals = [[e.eval_device(ectx) for e in a.input_exprs()]
+        vals = [[_value(e.eval_device(ectx)) for e in a.input_exprs()]
                 for a in self.aggs]
-        ops = self._direct_operands(batch)
+        ops = self._direct_operands(batch) if self._dense_ok else None
         if ops is not None:
             keys, partials, live = self._dense_update(ops, keep, vals)
         else:
             keys, partials, n = segmented_groupby(
                 self._sort_keys(batch, ectx), vals, self.aggs, "update",
-                keep)
+                keep, row_offset)
             live = torch.ones(n, dtype=torch.bool, device=keep.device)
         return self._partial_batch(keys, partials, live)
 
@@ -446,11 +463,13 @@ class TpuHashAggregateExec(TpuExec):
                 # columns may not have a dictionary form)
                 if not b.num_rows:
                     continue
+                offset = self._rows_in
                 self._rows_in += b.num_rows
 
-                def update(b=b):
+                def update(b=b, offset=offset):
                     with ctx.semaphore.held():
-                        return SpillableBatch(self._update(b), ctx.memory)
+                        return SpillableBatch(self._update(b, offset),
+                                              ctx.memory)
                 partials.append(with_retry_no_split(
                     update, ctx=ctx, op="HashAggregate.update"))
         except BaseException:
@@ -459,7 +478,66 @@ class TpuHashAggregateExec(TpuExec):
             for sb in partials:
                 sb.close()
             raise
+        total = sum(sb.device_bytes() for sb in partials)
+        self.last_repartitions = 0
+        if self.groupings and partials \
+                and total > int(ctx.conf.get(BATCH_SIZE_BYTES)) \
+                and self._repartitionable():
+            yield from self._repartitioned_merge(ctx, partials, total)
+            return
         yield self._merge(ctx, partials)
+
+    #: the repartition hash seed: not the shuffle seed (42), so that input
+    #: already partitioned on the keys does not fall into one partition
+    REPARTITION_SEED = 1879048201
+
+    def _repartitionable(self) -> bool:
+        from ..exprs.hash_fns import device_hashable
+        return not any(
+            device_hashable.reason_not_supported(f.dtype)
+            for f in self._partial_schema.fields[:len(self.groupings)])
+
+    def _repartitioned_merge(self, ctx: ExecContext,
+                             partials: List[SpillableBatch],
+                             total: int) -> Iterator[ColumnarBatch]:
+        """Hash-split the partials on their keys into 2-64 partitions
+        (ref ``_repartitioned_merge``) and merge and finalize each alone;
+        one output batch a partition."""
+        from ..shuffle.partitioning import (partition_batch,
+                                            scatter_spillables)
+        keys = [ColumnRef(f.name) for f in
+                self._partial_schema.fields[:len(self.groupings)]]
+        n_parts = min(1 << max(1, (int(total) // int(ctx.conf.get(
+            BATCH_SIZE_BYTES))).bit_length()), 64)
+        self.last_repartitions = n_parts
+        slots = scatter_spillables(
+            ctx, partials, lambda b: partition_batch(
+                b, keys, n_parts, self.REPARTITION_SEED), n_parts)
+        try:
+            for parts in slots:
+                if not parts:
+                    continue
+
+                def merge_part(parts=parts):
+                    with ctx.semaphore.held():
+                        keys_, merged, n = self._merge_batch(
+                            concat_batches([s.get() for s in parts]))
+                        return ColumnarBatch(
+                            self._decode_keys(keys_)
+                            + self._finalize_aggs(merged), n, self._schema)
+                try:
+                    out = with_retry_no_split(merge_part, ctx=ctx,
+                                              op="HashAggregate.merge")
+                finally:
+                    for s in parts:
+                        s.close()
+                yield out
+        finally:
+            # an error or an abandoned consumer: later partitions' slices
+            # must not outlive the query (close() is idempotent)
+            for slot in slots:
+                for s in slot:
+                    s.close()
 
     def describe(self):
         g = ", ".join(e.name_hint for e in self.groupings)
@@ -469,4 +547,9 @@ class TpuHashAggregateExec(TpuExec):
             parts = [("filter" if s[0] == "filter" else "project")
                      for s in self.pre_stages]
             fused = f" fused=[{'+'.join(parts)}]"
-        return f"HashAggregate[keys=[{g}], aggs=[{a}]]{fused}"
+        route = ""
+        if self._dict_keys and len(self._dict_keys) == len(self.groupings) \
+                and not self._dense_ok:
+            need = [x.name_hint for x in self.aggs if not x.dense_ok]
+            route = f" route=sort ({', '.join(need)}: not sums)"
+        return f"HashAggregate[keys=[{g}], aggs=[{a}]]{fused}{route}"

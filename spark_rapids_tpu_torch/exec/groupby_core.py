@@ -33,19 +33,28 @@ __all__ = ["global_groupby", "segmented_groupby", "stage_sort",
            "stage_scan", "stage_pack"]
 
 
+def _positions(n: int, offset: int, device) -> torch.Tensor:
+    return torch.arange(offset, offset + n, dtype=torch.int64,
+                        device=device)
+
+
 def global_groupby(vals: List[List[DVal]], aggs: Sequence, mode: str,
-                   row_mask: torch.Tensor):
+                   row_mask: torch.Tensor, row_offset: int = 0):
     """One segment over the rows where ``row_mask`` holds: every
     aggregate's update (or merge) is a masked vector reduction. Returns
-    the flat list of (data[1], validity[1]) partials."""
-    return _run_aggs(aggs, vals, GlobalSegments(row_mask), mode)
+    the flat list of (data[1], validity[1]) partials. ``row_offset`` is
+    the position of the first row in the input (first/last rank rows by
+    it)."""
+    seg = GlobalSegments(row_mask, _positions(row_mask.shape[0], row_offset,
+                                              row_mask.device))
+    return _run_aggs(aggs, vals, seg, mode)
 
 
 def stage_sort(keys: List[DVal], vals: List[List[DVal]],
                row_mask: torch.Tensor):
     """Sort the rows by the keys' grouping operands, live rows first.
     Returns (sorted operands, sorted keys, sorted values, sorted live
-    mask)."""
+    mask, the permutation)."""
     pad_flag = torch.logical_not(row_mask).to(torch.uint8)
     operands = [pad_flag]
     for k in keys:
@@ -55,22 +64,26 @@ def stage_sort(keys: List[DVal], vals: List[List[DVal]],
     s_keys = [DVal((canonicalize_floats(k.data) if k.data.is_floating_point()
                     else k.data)[perm], k.validity[perm], k.dtype)
               for k in keys]
-    s_vals = [[DVal(v.data[perm], v.validity[perm], v.dtype) for v in vs]
+    s_vals = [[DVal(None if v.data is None else v.data[perm],
+                    v.validity[perm], v.dtype) for v in vs]
               for vs in vals]
-    return s_ops, s_keys, s_vals, row_mask[perm]
+    return s_ops, s_keys, s_vals, row_mask[perm], perm
 
 
-def stage_scan(aggs: Sequence, mode: str, s_ops, s_vals, s_live):
+def stage_scan(aggs: Sequence, mode: str, s_ops, s_vals, s_live,
+               orig_index=None):
     """Segment starts where any key operand differs from the row before
     (on live rows), then the aggregates over the segments. Returns (the
-    segments, the flat list of per-group (data, validity) partials)."""
+    segments, the flat list of per-group (data, validity) partials).
+    ``orig_index``: each sorted row's position in the input."""
     n = s_live.shape[0]
     differs = torch.zeros(n, dtype=torch.bool, device=s_live.device)
     for op in s_ops:
         differs[1:] |= torch.logical_not(operands_equal(op[1:], op[:-1]))
     if n:
         differs[0] = True
-    seg = SortedSegments(torch.logical_and(differs, s_live), s_live)
+    seg = SortedSegments(torch.logical_and(differs, s_live), s_live,
+                         orig_index)
     return seg, _run_aggs(aggs, s_vals, seg, mode)
 
 
@@ -80,16 +93,19 @@ def stage_pack(seg: SortedSegments, s_keys: List[DVal]):
 
 
 def segmented_groupby(keys: List[DVal], vals: List[List[DVal]],
-                      aggs: Sequence, mode: str, row_mask: torch.Tensor):
+                      aggs: Sequence, mode: str, row_mask: torch.Tensor,
+                      row_offset: int = 0):
     """Group the rows where ``row_mask`` holds by ``keys``; mode 'update'
     runs each aggregate's update over ``vals``, 'merge' its merge over
     partial columns. Returns (key outputs [(data, validity)], partial
     outputs [(data, validity)], number of groups), one row per group in
-    key order."""
+    key order. ``row_offset``: the first row's position in the input."""
     if not keys:
-        return [], global_groupby(vals, aggs, mode, row_mask), 1
-    s_ops, s_keys, s_vals, s_live = stage_sort(keys, vals, row_mask)
-    seg, partials = stage_scan(aggs, mode, s_ops, s_vals, s_live)
+        return [], global_groupby(vals, aggs, mode, row_mask,
+                                  row_offset), 1
+    s_ops, s_keys, s_vals, s_live, perm = stage_sort(keys, vals, row_mask)
+    seg, partials = stage_scan(aggs, mode, s_ops, s_vals, s_live,
+                               perm + row_offset)
     return stage_pack(seg, s_keys), partials, seg.num_segments
 
 

@@ -1,18 +1,21 @@
 """Expressions: trees evaluated eagerly as torch ops on device values."""
-from .aggregates import AggregateExpression, Average, Count, CountStar, Sum
+from .aggregates import (AggregateExpression, Average, Count, CountStar,
+                         First, Last, Max, Min, Sum)
 from .arithmetic import (Abs, Add, BitwiseAnd, BitwiseNot, BitwiseOr,
                          BitwiseXor, Divide, IntegralDivide, Multiply, Pmod,
                          Remainder, ShiftLeft, ShiftRight, ShiftRightUnsigned,
                          Subtract, UnaryMinus, UnaryPositive)
 from .base import (Alias, ColumnRef, DVal, EvalContext, Expression,
                    Literal, StrVal)
-from .comparison import (EqualTo, GreaterThan, GreaterThanOrEqual, LessThan,
+from .comparison import (EqualTo, GreaterThan, GreaterThanOrEqual, In, LessThan,
                          LessThanOrEqual)
+from .conditional import Coalesce
 from .logical import And, Not, Or
 from .string_fns import (Contains, EndsWith, Like, RLike, StartsWith,
                          StringInstr, StringLocate)
 
 __all__ = ["AggregateExpression", "Average", "Count", "CountStar", "Sum",
+           "Min", "Max", "First", "Last", "In", "Coalesce",
            "Add", "Multiply", "Subtract", "Divide", "IntegralDivide",
            "Remainder", "Pmod", "UnaryMinus", "UnaryPositive", "Abs",
            "BitwiseAnd", "BitwiseOr", "BitwiseXor", "BitwiseNot",

@@ -1,5 +1,6 @@
 """Aggregate functions (port of ``spark_rapids_tpu/exprs/aggregates.py``:
-Sum, Count, CountStar, Average, keyless and keyed).
+Sum, Count, CountStar, Average, Min, Max, First, Last, keyless and
+keyed).
 
 Each aggregate declares
   update   : per-row values  -> partials     (per batch)
@@ -15,6 +16,14 @@ from their (sum, count) pairs (``from_sums``). ``update`` reduces them
 over a segment context (columnar/segmented.py); the dense groupby path
 reduces every aggregate's columns in one kernel launch and hands each
 aggregate its pairs (exec/aggregate.py).
+
+Min, Max, First and Last are no sums (``dense_ok`` False): an aggregate
+holding one takes the sort path. Min and Max follow Spark's float order
+(NaN greatest, -0.0 equal to 0.0, both come out canonical). First and
+Last pick the value of the first or last row in input order, over the
+valid rows with ``ignore_nulls`` (the reference's only form and the
+default here) or over every row without it; their partial keeps the
+row's position in the input, so partials merge in any order.
 """
 from __future__ import annotations
 
@@ -22,10 +31,12 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from ..types import DataType, FLOAT64, INT64, Schema
-from .base import DVal, Expression, Literal
+from ..columnar.segmented import seg_max, seg_min, select_by_rank
+from ..types import DataType, FLOAT64, INT64, STRING, Schema
+from .base import ColumnRef, DVal, Expression, Literal
 
-__all__ = ["AggregateExpression", "Sum", "Count", "CountStar", "Average"]
+__all__ = ["AggregateExpression", "Sum", "Count", "CountStar", "Average",
+           "Min", "Max", "First", "Last"]
 
 #: a column to reduce: (data or None, validity or None). No data: only
 #: the count is needed. No validity: every live row counts.
@@ -43,6 +54,10 @@ def _seg_sum(data, valid, seg):
 
 class AggregateExpression:
     """Not an Expression: it appears only in Aggregate nodes."""
+
+    #: its update is sums and counts (``sum_inputs``/``from_sums``), so the
+    #: dense groupby kernel can compute it
+    dense_ok = True
 
     def __init__(self, child: Optional[Expression],
                  name: Optional[str] = None):
@@ -139,6 +154,14 @@ class Count(AggregateExpression):
     def data_type(self, schema):
         return INT64
 
+    def device_unsupported_reason(self, schema):
+        # count(<string column>) reads only the validity, which every
+        # string layout holds on the device
+        if isinstance(self.child, ColumnRef) \
+                and self.child.data_type(schema) == STRING:
+            return None
+        return super().device_unsupported_reason(schema)
+
     def partial_types(self, schema):
         return [INT64]
 
@@ -200,3 +223,82 @@ class Average(AggregateExpression):
         ok = torch.logical_and(s.validity, c.data > 0)
         denom = torch.where(c.data > 0, c.data, torch.ones_like(c.data))
         return DVal(s.data / denom.to(torch.float64), ok, FLOAT64)
+
+
+class Min(AggregateExpression):
+    dense_ok = False
+    _reduce = staticmethod(seg_min)
+
+    def data_type(self, schema):
+        return self.child.data_type(schema)
+
+    def partial_types(self, schema):
+        return [self.data_type(schema)]
+
+    def _extreme(self, v: DVal, seg):
+        return [(self._reduce(v.data, v.validity, seg),
+                 seg.count(v.validity) > 0)]
+
+    def update(self, vals, seg):
+        return self._extreme(vals[0], seg)
+
+    def merge(self, partials, seg):
+        return self._extreme(partials[0], seg)
+
+    def finalize(self, partials):
+        return partials[0]
+
+
+class Max(Min):
+    _reduce = staticmethod(seg_max)
+
+
+def _take(data: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    if not data.shape[0]:
+        return torch.zeros(rows.shape, dtype=data.dtype, device=data.device)
+    return data[rows]
+
+
+class First(AggregateExpression):
+    """first(x, ignoreNulls): partials (value, position in the input)."""
+
+    dense_ok = False
+    mode = "min"
+
+    def __init__(self, child, ignore_nulls: bool = True,
+                 name: Optional[str] = None):
+        super().__init__(child, name)
+        self.ignore_nulls = ignore_nulls
+
+    def data_type(self, schema):
+        return self.child.data_type(schema)
+
+    def partial_types(self, schema):
+        return [self.data_type(schema), INT64]
+
+    def _select(self, data, valid, rank, ok, seg):
+        rows, has = select_by_rank(rank, ok, seg, self.mode)
+        return [(_take(data, rows), torch.logical_and(_take(valid, rows),
+                                                      has)),
+                (_take(rank, rows), has)]
+
+    def update(self, vals, seg):
+        v = vals[0]
+        ok = v.validity if self.ignore_nulls \
+            else torch.ones_like(v.validity)
+        return self._select(v.data, v.validity, seg.orig_index, ok, seg)
+
+    def merge(self, partials, seg):
+        val, pos = partials
+        return self._select(val.data, val.validity, pos.data, pos.validity,
+                            seg)
+
+    def finalize(self, partials):
+        return partials[0]
+
+    def key(self):
+        return f"{super().key()}[ignoreNulls={self.ignore_nulls}]"
+
+
+class Last(First):
+    mode = "max"

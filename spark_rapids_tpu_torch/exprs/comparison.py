@@ -1,10 +1,14 @@
 """Comparison predicates (port of ``spark_rapids_tpu/exprs/comparison.py``:
-=, <, <=, >, >=).
+=, <, <=, >, >= and IN against literals).
 
 Spark's float semantics: NaN == NaN is true and NaN is greater than every
-other value.
+other value. ``=`` and ``IN`` over a STRING column have no row-wise form
+here: a filter runs them over the column's dictionary or byte rectangle
+(``compiler.build_dict_filter``).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -12,7 +16,7 @@ from ..types import BOOL, DataType, Schema, comparable, torch_dtype
 from .base import DVal, EvalContext, Expression, null_and, promote_types
 
 __all__ = ["EqualTo", "LessThan", "LessThanOrEqual", "GreaterThan",
-           "GreaterThanOrEqual"]
+           "GreaterThanOrEqual", "In", "in_null_rule"]
 
 
 def _nan_eq(l, r):
@@ -103,3 +107,48 @@ class GreaterThanOrEqual(BinaryComparison):
     def eval_device(self, ctx):
         l, r, v = self._operands(ctx)
         return DVal(torch.logical_not(_nan_lt(l, r)), v, BOOL)
+
+
+def in_null_rule(hit: torch.Tensor, validity: torch.Tensor,
+                 values) -> torch.Tensor:
+    """Spark's three-valued IN: NULL IN (...) is NULL, and so is a value
+    that matches nothing in a list holding NULL."""
+    if any(v is None for v in values):
+        return torch.logical_and(validity, hit)
+    return validity
+
+
+class In(Expression):
+    """value IN (literals...) (ref ``comparison.py:In``, GpuInSet)."""
+
+    device_type_sig = comparable
+
+    def __init__(self, child: Expression, values):
+        self.children = [child]
+        self.values = tuple(values)
+
+    def data_type(self, schema: Schema) -> DataType:
+        return BOOL
+
+    def eval_device(self, ctx):
+        c = self.children[0].eval_device(ctx)
+        out = torch.zeros(ctx.padded_len, dtype=torch.bool,
+                          device=ctx.device)
+        fl = c.data.is_floating_point()
+        for v in self.values:
+            if v is None:
+                continue
+            if fl and isinstance(v, float) and math.isnan(v):
+                # NaN IN (NaN) is true, as for EqualTo
+                out = torch.logical_or(out, torch.isnan(c.data))
+            else:
+                out = torch.logical_or(out, c.data == v)
+        return DVal(out, in_null_rule(out, c.validity, self.values), BOOL)
+
+    def key(self):
+        return f"in({self.children[0].key()},{self.values!r})"
+
+    @property
+    def name_hint(self):
+        vals = ", ".join(repr(v) for v in self.values)
+        return f"({self.children[0].name_hint} IN ({vals}))"

@@ -18,9 +18,11 @@ import torch
 from ..columnar import (ByteRectColumn, ColumnarBatch, DeviceColumn,
                         DictColumn, HostColumn)
 from ..types import BOOL, STRING, Schema
-from .base import ColumnRef, DVal, EvalContext, Expression, StrVal
+from .base import ColumnRef, DVal, EvalContext, Expression, Literal, StrVal
+from .comparison import EqualTo, In, in_null_rule
 
 __all__ = ["DeviceProjector", "batch_dvals", "filter_batch_by_mask",
+           "gather_batch",
            "compile_rect_chain", "DictFilterFallback", "DictFilterEvaluator",
            "build_dict_filter"]
 
@@ -87,6 +89,50 @@ def filter_batch_by_mask(batch: ColumnarBatch,
             cols.append(HostColumn(c.values[np_idx], c.validity[np_idx],
                                    c.dtype))
     return ColumnarBatch(cols, int(idx.shape[0]), batch.schema)
+
+
+def gather_batch(batch: ColumnarBatch, idx: torch.Tensor,
+                 schema: Optional[Schema] = None) -> ColumnarBatch:
+    """The rows ``idx`` (int64, on the batch's device) of ``batch``; -1
+    gives a null row: validity false, the dtype's default value, a
+    dictionary code or rectangle row that is in range. Dictionary columns
+    keep their dictionary."""
+    n = int(idx.shape[0])
+    null = idx < 0
+    src_rows = batch.num_rows
+    safe = idx.clamp(0, max(src_rows - 1, 0))
+    np_idx = None
+    cols = []
+    for c in batch.columns:
+        if isinstance(c, HostColumn):
+            if np_idx is None:
+                np_idx = idx.cpu().numpy()
+            ok = np_idx >= 0
+            take = np_idx.clip(0, max(src_rows - 1, 0))
+            vals = c.values[take] if src_rows else \
+                np.zeros(n, c.values.dtype)
+            valid = (c.validity[take] if src_rows else
+                     np.zeros(n, bool)) & ok
+            cols.append(HostColumn(vals, valid, c.dtype))
+            continue
+        if not src_rows:
+            data = torch.zeros((n,) + tuple(c.data.shape[1:]),
+                               dtype=c.data.dtype, device=c.data.device)
+            valid = torch.zeros(n, dtype=torch.bool, device=c.data.device)
+        else:
+            data, valid = c.data[safe], c.validity[safe] & ~null
+            keep = valid.reshape((n,) + (1,) * (data.dim() - 1))
+            data = torch.where(keep, data, torch.zeros((), dtype=data.dtype,
+                                                       device=data.device))
+        if isinstance(c, ByteRectColumn):
+            lens = c.lengths[safe] if src_rows else torch.zeros(
+                n, dtype=c.lengths.dtype, device=c.lengths.device)
+            cols.append(ByteRectColumn(data, valid, torch.where(
+                valid, lens, torch.zeros_like(lens)), c.ascii_only))
+        else:
+            cols.append(c.with_arrays(data, valid))
+    return ColumnarBatch(cols, n, schema if schema is not None
+                         else batch.schema)
 
 
 def compile_rect_chain(expr: Expression, use_kernel: bool = False):
@@ -192,7 +238,17 @@ class DictFilterEvaluator:
                                          col.data < ops[2])
             else:
                 data = ops[1][col.data.clamp(0, len(ops[1]) - 1).long()]
-            return DVal(data, col.validity, BOOL)
+            valid = col.validity
+            if isinstance(pred, In):
+                valid = in_null_rule(data, valid, pred.values)
+            return DVal(data, valid, BOOL)
+        if isinstance(col, ByteRectColumn) and col.ascii_only \
+                and isinstance(pred, In):
+            from .string_rect import eval_rect_in
+            hit = eval_rect_in(pred.values, DVal(StrVal(
+                col.data, col.lengths), col.validity, STRING), use_kernel)
+            return DVal(hit, in_null_rule(hit, col.validity, pred.values),
+                        BOOL)
         if isinstance(col, ByteRectColumn) and col.ascii_only:
             from .string_rect import eval_rect_expr
             return eval_rect_expr(pred, DVal(StrVal(col.data, col.lengths),
@@ -212,17 +268,47 @@ class DictFilterEvaluator:
         return torch.logical_and(col.data, col.validity)
 
 
+def _string_set_match(e: Expression, schema: Schema):
+    """``e`` as ``In(column, literals)`` when it is ``=`` or ``IN`` between
+    a STRING column and string (or NULL) literals, else None."""
+    names = schema.names()
+
+    def string_col(c):
+        return isinstance(c, ColumnRef) and c.name in names \
+            and schema[c.name].dtype == STRING
+
+    def literal(c):
+        return isinstance(c, Literal) and (c.value is None
+                                           or isinstance(c.value, str))
+    if isinstance(e, In) and string_col(e.children[0]) and all(
+            v is None or isinstance(v, str) for v in e.values):
+        return e
+    if isinstance(e, EqualTo):
+        a, b = e.children
+        if string_col(b) and literal(a):
+            a, b = b, a
+        if string_col(a) and literal(b):
+            return In(a, (b.value,))
+    return None
+
+
 def build_dict_filter(cond: Expression,
                       schema: Schema) -> Optional[DictFilterEvaluator]:
     """Rewrite ``cond`` replacing literal-match predicates over STRING
-    column refs with _DictSlot placeholders; an evaluator when the
-    remainder is fully device-supported, else None."""
+    column refs (the pattern family, and ``=``/``IN`` against string
+    literals, as ``In`` in the mask form) with _DictSlot placeholders; an
+    evaluator when the remainder is fully device-supported, else None."""
     from .string_fns import _PatternPredicate
     from .string_rect import match_form
     names = schema.names()
     preds: list = []
 
     def rewrite(e):
+        in_form = _string_set_match(e, schema)
+        if in_form is not None:
+            ordinal = names.index(in_form.children[0].name)
+            preds.append((in_form, ordinal, "mask"))
+            return _DictSlot(len(preds) - 1, ordinal, "mask")
         if isinstance(e, _PatternPredicate):
             child = e.children[0]
             if isinstance(child, ColumnRef) and child.name in names \

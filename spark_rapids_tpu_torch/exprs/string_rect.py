@@ -22,7 +22,8 @@ from .base import ColumnRef, DVal, Expression, StrVal
 from .rect_match import rect_match, rect_match_reference
 
 __all__ = ["rect_supported_op", "rect_chain_leaf", "match_form",
-           "match_dictionary", "eval_rect_expr", "eval_rect_chain"]
+           "match_dictionary", "eval_rect_expr", "eval_rect_chain",
+           "eval_rect_in"]
 
 _REGEX_META = set(".^$*+?{}[]\\|()")
 
@@ -120,8 +121,13 @@ def match_dictionary(e: Expression, dictionary: np.ndarray) -> np.ndarray:
     """A literal-match op (``rect_supported_op``) over every entry of a
     string dictionary, by character: bool per entry, or int32 1-based
     position for locate."""
-    form, lit, _ = match_form(e)
+    from .comparison import In
     d = np.asarray(dictionary, dtype=str)
+    if isinstance(e, In):
+        listed = [v for v in e.values if v is not None]
+        return np.isin(d, np.asarray(listed, dtype=str)) if listed \
+            else np.zeros(len(d), bool)
+    form, lit, _ = match_form(e)
     if form == "contains":
         return np.char.find(d, lit) >= 0
     if form == "startswith":
@@ -142,6 +148,23 @@ def eval_rect_expr(e: Expression, child: DVal,
     fn = rect_match if use_kernel else rect_match_reference
     return DVal(fn(sv.bytes_, sv.lengths, lit.encode(), form),
                 child.validity, out_dt)
+
+
+def eval_rect_in(values, child: DVal, use_kernel: bool = False):
+    """bool per row: the string equals one of the non-null ``values``
+    (rect_match's ``equals`` mode once per value; a value that is not
+    ASCII matches no row of an ASCII rectangle)."""
+    sv: StrVal = child.data
+    fn = rect_match if use_kernel else rect_match_reference
+    import torch
+    hit = torch.zeros(sv.lengths.shape, dtype=torch.bool,
+                      device=sv.lengths.device)
+    for v in values:
+        lit = None if v is None else _ascii(v)
+        if lit is not None:
+            hit = torch.logical_or(hit, fn(sv.bytes_, sv.lengths, lit,
+                                           "equals"))
+    return hit
 
 
 def eval_rect_chain(e: Expression, leaf_val: DVal,

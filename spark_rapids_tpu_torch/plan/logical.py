@@ -1,14 +1,14 @@
 """Logical plan nodes (port of ``spark_rapids_tpu/plan/logical.py``: scan,
-project, filter, aggregate, sort)."""
+project, filter, aggregate, sort, join)."""
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
 from ..exprs.base import Expression
-from ..types import Schema, StructField
+from ..types import BOOL, Schema, StructField
 
 __all__ = ["LogicalPlan", "LogicalScan", "ParquetScan", "Project",
-           "Filter", "Aggregate", "SortOrder", "Sort"]
+           "Filter", "Aggregate", "SortOrder", "Sort", "Join"]
 
 
 class LogicalPlan:
@@ -42,6 +42,9 @@ class LogicalScan(LogicalPlan):
         if self.columns is None:
             return self._schema
         return Schema([self._schema[c] for c in self.columns])
+
+    def estimated_size_bytes(self) -> int:
+        return sum(t.nbytes for t in self.tables)
 
     def describe(self):
         return f"LogicalScan[{len(self.tables)} partitions]({self.schema()})"
@@ -142,3 +145,46 @@ class Sort(LogicalPlan):
 
     def describe(self):
         return f"Sort[{', '.join(map(repr, self.orders))}]"
+
+
+class Join(LogicalPlan):
+    JOIN_TYPES = ("inner", "left", "right", "full", "leftsemi", "leftanti",
+                  "cross", "existence")
+    _ALIASES = {"leftouter": "left", "rightouter": "right",
+                "fullouter": "full", "outer": "full", "semi": "leftsemi",
+                "anti": "leftanti"}
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 join_type: str, left_keys: Sequence[Expression] = (),
+                 right_keys: Sequence[Expression] = (),
+                 condition: Optional[Expression] = None,
+                 broadcast: Optional[str] = None):
+        jt = join_type.lower().replace("_", "")
+        jt = self._ALIASES.get(jt, jt)
+        if jt not in self.JOIN_TYPES:
+            raise ValueError(f"unknown join type {join_type!r}")
+        if broadcast not in (None, "left", "right"):
+            raise ValueError(f"broadcast is left, right or None, not "
+                             f"{broadcast!r}")
+        if len(left_keys) != len(right_keys):
+            raise ValueError("a join needs as many left keys as right keys")
+        self.join_type = jt
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.condition = condition
+        self.broadcast = broadcast
+        self.children = [left, right]
+
+    def schema(self) -> Schema:
+        l, r = self.children[0].schema(), self.children[1].schema()
+        if self.join_type in ("leftsemi", "leftanti"):
+            return l
+        if self.join_type == "existence":
+            return Schema(list(l.fields) +
+                          [StructField("exists", BOOL, nullable=False)])
+        return Schema(list(l.fields) + list(r.fields))
+
+    def describe(self):
+        k = ", ".join(f"{a.name_hint}={b.name_hint}"
+                      for a, b in zip(self.left_keys, self.right_keys))
+        return f"Join[{self.join_type}, keys=({k})]"

@@ -3,9 +3,12 @@
 
 ``plan_query`` prunes columns, tags and converts, with no cost optimizer
 (the reference with ``spark.rapids.tpu.sql.optimizer.enabled=false``) and
-no plan rewrites. An aggregate, keyless or keyed, folds the device
-filters and projections below it into its update (``_fold_stages``), as
-the reference's does. String group and sort keys plan onto the device:
+no plan rewrites. A join broadcasts the side its hint names, or else the
+smaller side whose plan-time size estimate is within
+``spark.rapids.tpu.sql.autoBroadcastJoinThreshold`` (estimates only:
+measured sizes wait for the adaptivity slice). An aggregate, keyless or
+keyed, folds the device filters and projections below it into its update
+(``_fold_stages``), as the reference's does. String group and sort keys plan onto the device:
 the execs take them as dictionary columns and refuse other forms when
 the batch arrives.
 """
@@ -20,11 +23,12 @@ from ..exec import basic as B
 from ..exec import sort as S
 from ..exec.base import TpuExec
 from ..exprs.base import Alias, ColumnRef, Expression
-from ..types import STRING
+from ..types import STRING, Schema
 from . import logical as L
 from .meta import PlanMeta
 
-__all__ = ["plan_query", "wrap_plan", "prune_columns"]
+__all__ = ["plan_query", "wrap_plan", "prune_columns",
+           "estimated_size_bytes"]
 
 _RULES: Dict[Type, Type[PlanMeta]] = {}
 
@@ -102,6 +106,25 @@ def prune_columns(plan: L.LogicalPlan,
             for o in plan.orders:
                 _expr_refs(o.expr, child_req)
         return _rebuilt(plan, prune_columns(plan.children[0], child_req))
+    if isinstance(plan, L.Join):
+        lnames = set(plan.children[0].schema().names())
+        rnames = set(plan.children[1].schema().names())
+        lreq = rreq = None
+        if required is not None:
+            refs: set = set()
+            for k in plan.left_keys + plan.right_keys:
+                _expr_refs(k, refs)
+            if plan.condition is not None:
+                _expr_refs(plan.condition, refs)
+            lreq = (set(required) | refs) & lnames
+            rreq = (set(required) | refs) & rnames
+        kids = [prune_columns(plan.children[0], lreq),
+                prune_columns(plan.children[1], rreq)]
+        if all(k is o for k, o in zip(kids, plan.children)):
+            return plan
+        node = copy.copy(plan)
+        node.children = kids
+        return node
     return plan
 
 
@@ -111,6 +134,25 @@ def _rebuilt(node, child):
     node = copy.copy(node)
     node.children = [child]
     return node
+
+
+def estimated_size_bytes(plan: L.LogicalPlan) -> Optional[int]:
+    """Plan-time size estimate (ref ``plan/rewrites.py``): known for
+    in-memory and file scans, passed up through filters, projections and
+    sorts (a filter keeps its child's estimate, as Spark does without
+    column statistics), None elsewhere."""
+    own = getattr(plan, "estimated_size_bytes", None)
+    if own is not None:
+        return own()
+    if isinstance(plan, L.ParquetScan):
+        import os
+        try:
+            return sum(os.path.getsize(p) for p in plan.paths)
+        except OSError:
+            return None
+    if isinstance(plan, (L.Filter, L.Sort, L.Project)):
+        return estimated_size_bytes(plan.children[0])
+    return None
 
 
 @rule(L.LogicalScan)
@@ -257,3 +299,70 @@ class SortMeta(PlanMeta):
 
     def convert_to_tpu(self, children):
         return S.TpuSortExec(self.plan.orders, children[0])
+
+
+def _join_key_reason(e: Expression, schema) -> Optional[str]:
+    """Why a join key cannot run on the device; a string column passes
+    (the join takes it as a dictionary column)."""
+    if isinstance(e, ColumnRef) and e.data_type(schema) == STRING:
+        return None
+    return e.fully_device_supported(schema)
+
+
+@rule(L.Join)
+class JoinMeta(PlanMeta):
+    def tag_self(self):
+        ls = self.plan.children[0].schema()
+        rs = self.plan.children[1].schema()
+        for side, keys, schema in (("left", self.plan.left_keys, ls),
+                                   ("right", self.plan.right_keys, rs)):
+            for k in keys:
+                r = _join_key_reason(k, schema)
+                if r:
+                    self.will_not_work_on_tpu(
+                        f"{side} key <{k.name_hint}>: {r}")
+        if self.plan.condition is not None:
+            joined = Schema(list(ls.fields) + list(rs.fields))
+            r = self.plan.condition.fully_device_supported(joined)
+            if r:
+                self.will_not_work_on_tpu(
+                    f"join condition <{self.plan.condition.name_hint}>: {r}")
+
+    def _auto_broadcast(self) -> Optional[str]:
+        """The side to broadcast when the user gave no hint: the smaller
+        of the sides the join type lets stream whose estimate is within
+        the threshold (ref ``_auto_broadcast``, estimates only)."""
+        from ..config import AUTO_BROADCAST_THRESHOLD
+        p = self.plan
+        thr = int(self.conf.get(AUTO_BROADCAST_THRESHOLD))
+        if thr <= 0:
+            return None
+        cand = []
+        if p.join_type in ("inner", "left", "leftsemi", "leftanti"):
+            cand.append((estimated_size_bytes(p.children[1]), "right"))
+        if p.join_type in ("inner", "right"):
+            cand.append((estimated_size_bytes(p.children[0]), "left"))
+        cand = [(sz, side) for sz, side in cand
+                if sz is not None and sz <= thr]
+        return min(cand)[1] if cand else None
+
+    def convert_to_tpu(self, children):
+        from ..exec.joins import (TpuBroadcastHashJoinExec, TpuHashJoinExec,
+                                  TpuNestedLoopJoinExec)
+        from ..shuffle.broadcast import BroadcastExchangeExec
+        p = self.plan
+        if p.join_type == "cross" or not p.left_keys:
+            return TpuNestedLoopJoinExec(children[0], children[1],
+                                         p.join_type, p.condition)
+        side = p.broadcast if p.broadcast is not None \
+            else self._auto_broadcast()
+        if side == "right":
+            return TpuBroadcastHashJoinExec(
+                children[0], BroadcastExchangeExec(children[1]), p.join_type,
+                p.left_keys, p.right_keys, p.condition, build_side="right")
+        if side == "left":
+            return TpuBroadcastHashJoinExec(
+                BroadcastExchangeExec(children[0]), children[1], p.join_type,
+                p.left_keys, p.right_keys, p.condition, build_side="left")
+        return TpuHashJoinExec(children[0], children[1], p.join_type,
+                               p.left_keys, p.right_keys, p.condition)

@@ -301,3 +301,120 @@ def test_filter_plans_the_dictionary_route():
     df = _port().create_dataframe(table).filter(
         ~PF.col("l_shipmode").like("MAIL"))
     assert "dict_eval" in df._physical().tree_string()
+
+
+# ---------------------------------------------------------------------------
+# = and IN against literals (Spark's three-valued IN)
+# ---------------------------------------------------------------------------
+
+#: name -> predicate over a STRING column, and whether it can match a row
+STRING_SETS = {
+    "in_two": lambda F, c: c.isin("MAIL", "SHIP"),
+    "in_list": lambda F, c: c.isin(["AIR", "REG AIR", "FOB"]),
+    "in_with_null": lambda F, c: c.isin("MAIL", None),
+    "in_none_match": lambda F, c: c.isin("BOAT", "TRAIN"),
+    "in_only_null": lambda F, c: c.isin(None),
+    "equals": lambda F, c: c == F.lit("TRUCK"),
+    "equals_reversed": lambda F, c: F.lit("RAIL") == c,
+    "not_in_with_null": lambda F, c: ~c.isin("MAIL", None),
+    "not_equals": lambda F, c: ~(c == F.lit("AIR")),
+}
+
+
+@pytest.mark.parametrize("shape", ["alone", "and", "or"])
+@pytest.mark.parametrize("pred", sorted(STRING_SETS))
+def test_string_in_and_equals_over_a_dictionary_equal_reference(pred,
+                                                                shape):
+    table = _mode_table(3000, 11)
+
+    def q(df, F):
+        cond = SHAPES[shape](F, STRING_SETS[pred](F, F.col("l_shipmode")))
+        return df.filter(cond).select("l_shipmode", "v")
+    _assert_equal(q, table)
+    df = q(_port().create_dataframe(table), PF)
+    assert "dict_eval" in df._physical().tree_string()
+
+
+@pytest.mark.parametrize("kernel", [True, False])
+@pytest.mark.parametrize("pred", ["in_with_null", "not_in_with_null",
+                                  "equals", "in_none_match"])
+def test_string_in_and_equals_over_a_rectangle_equal_reference(pred,
+                                                               kernel):
+    """A column of many distinct values ingests as a byte rectangle: the
+    rect chain's ``equals`` mode once per listed value (the match
+    kernel's plain version here: CPU tensors)."""
+    rng = np.random.RandomState(3)
+    words = np.array([f"MODE{i:04d}" for i in range(2000)] + ["MAIL",
+                                                             "TRUCK"])
+    vals = words[rng.randint(0, len(words), 3000)]
+    table = pa.table({"l_shipmode": pa.array(vals,
+                                             mask=rng.rand(3000) < 0.05),
+                      "v": pa.array(rng.randint(0, 100, 3000))})
+
+    def q(df, F):
+        return df.filter(STRING_SETS[pred](F, F.col("l_shipmode"))).select(
+            "l_shipmode", "v")
+    before = rect_match.launches
+    got = _assert_equal(q, table, {PALLAS: kernel})
+    assert rect_match.launches == before
+    # NOT (x IN (.., NULL)) is never true: false on a match, else NULL
+    assert (len(got) > 0) == (pred not in ("in_none_match",
+                                           "not_in_with_null"))
+
+
+@pytest.mark.parametrize("values", [(3, None), (float("nan"), 5.0),
+                                    (float("nan"), 1.0), (1, 2, 7),
+                                    (None,)])
+def test_numeric_in_equals_reference(values):
+    t = pa.table({"x": pa.array([3, 1, None, 7, 2], pa.int64()),
+                  "a": pa.array([float("nan"), 1.0, None, 2.0, 5.0])})
+
+    def q(df, F):
+        return df.select(F.col("x").isin(*values).alias("xi"),
+                         F.col("a").isin(*values).alias("ai"))
+    got = _assert_equal(q, t)
+    assert len(got) == 5
+
+
+@pytest.mark.parametrize("case", ["in_list_with_null_is_null_when_absent",
+                                  "nan_in_list", "nan_in_list_with_match"])
+def test_spark_semantics_in_cases(case):
+    """The IN cases of tests/test_spark_semantics.py, with the port's F."""
+    s = _port()
+    cases = {
+        "in_list_with_null_is_null_when_absent": (
+            pa.table({"x": pa.array([3, 1], pa.int64())}),
+            lambda F: F.col("x").isin(1, None), [None, True]),
+        "nan_in_list": (pa.table({"a": [float("nan"), 1.0, 2.0]}),
+                        lambda F: F.col("a").isin(float("nan"), 5.0),
+                        [True, False, False]),
+        "nan_in_list_with_match": (
+            pa.table({"a": [float("nan"), 1.0, None]}),
+            lambda F: F.col("a").isin(float("nan"), 1.0),
+            [True, True, None]),
+    }
+    t, pred, want = cases[case]
+    got = s.create_dataframe(t).select(pred(PF).alias("o")).collect()
+    assert [r["o"] for r in got] == want
+
+
+def test_q12_in_equals_reference_and_numpy(comments):
+    t, _ = comments
+    arrow = pa.table({k: pa.array(v) for k, v in t.items()
+                      if k != "l_comment"})
+    got = _assert_equal(chip_smoke.q12_in, arrow,
+                        {"spark.rapids.tpu.sql.batchSizeRows": 6000})
+    want = chip_smoke.q12_in_numpy(t)
+    assert list(got["l_shipmode"]) == [w["l_shipmode"] for w in want] \
+        == ["MAIL", "SHIP"]
+    assert list(got["n"]) == [w["n"] for w in want]
+
+
+def test_string_equals_null_keeps_no_row():
+    """x = NULL is NULL for every row (the reference's host filter raises
+    on the NULL string literal, so the oracle is Spark's rule)."""
+    table = _mode_table(500, 4)
+    df = _port().create_dataframe(table).filter(
+        PF.col("l_shipmode") == PF.lit(None))
+    assert "dict_eval" in df._physical().tree_string()
+    assert df.collect() == []

@@ -1100,3 +1100,135 @@ def test_group_by_a_string_column_whose_last_batch_is_a_rectangle():
     assert [r["n"] for r in got] == [r["n"] for r in want]
     for g, w in zip(got, want):
         assert _rel_ok(g["sx"], w["sx"]), (g, w)
+
+
+# ---------------------------------------------------------------------------
+# count(<string>), min, max, first, last; the repartitioned merge
+# ---------------------------------------------------------------------------
+
+def _extremes_table(n: int, seed: int = 5):
+    rng = np.random.RandomState(seed)
+    words = np.array([f"w{i:05d}" for i in range(n)])
+    return pa.table({
+        "f": pa.array(np.array(["A", "N", "R"])[rng.randint(0, 3, n)],
+                      mask=rng.rand(n) < 0.05),
+        "k": pa.array(rng.randint(0, 30, n), mask=rng.rand(n) < 0.05),
+        "i": pa.array(rng.randint(-1000, 1000, n).astype(np.int32),
+                      mask=rng.rand(n) < 0.2),
+        "z": pa.array(np.array([np.nan, -0.0, 0.0, 1.5, -2.5, np.inf,
+                                -np.inf])[rng.randint(0, 7, n)],
+                      mask=rng.rand(n) < 0.1),
+        "d": pa.array(rng.randint(8000, 11000, n).astype(np.int32),
+                      mask=rng.rand(n) < 0.1).cast(pa.date32()),
+        "s": pa.array(rng.choice(["x", "y"], n), mask=rng.rand(n) < 0.3),
+        "r": pa.array(words[rng.permutation(n)], mask=rng.rand(n) < 0.3),
+    })
+
+
+def _extreme_aggs(F, first_last=True):
+    out = [F.count(F.col("s")).with_name("cs"),
+           F.count(F.col("r")).with_name("cr")]
+    for c in ("i", "z", "d"):
+        out += [F.min(F.col(c)).with_name(f"min_{c}"),
+                F.max(F.col(c)).with_name(f"max_{c}")]
+        if first_last:
+            out += [F.first(F.col(c)).with_name(f"first_{c}"),
+                    F.last(F.col(c)).with_name(f"last_{c}")]
+    return out
+
+
+@pytest.mark.parametrize("keys", [[], ["f"], ["k"], ["f", "k"]])
+def test_count_string_min_max_first_last_equal_reference(keys):
+    """One batch (the reference's first/last rank rows within a batch):
+    keys, counts and values exactly (min/max of -0.0 and 0.0 compare
+    equal; NaN is the greatest)."""
+    t = _extremes_table(3000)
+    want = TpuSession(OFF).create_dataframe(t).group_by(*keys).agg(
+        *_extreme_aggs(RF)).collect()
+    df = TorchSession(OFF, device="cpu").create_dataframe(t).group_by(
+        *keys).agg(*_extreme_aggs(PF))
+    got = df.collect()
+    assert len(got) == len(want)
+    got = sorted(got, key=lambda r: _key(r, keys))
+    want = sorted(want, key=lambda r: _key(r, keys))
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for c in g:
+            a, b = g[c], w[c]
+            assert (a == b) or (isinstance(a, float) and math.isnan(a)
+                                and math.isnan(b)), (c, a, b)
+    if keys == ["f"]:
+        assert "route=sort" in df._physical().tree_string()
+
+
+def _numpy_first_last(t: pa.Table, key: str, col: str, ignore_nulls):
+    kv = t.column(key).to_pylist()
+    cv = t.column(col).to_pylist()
+    first, last = {}, {}
+    for k, v in zip(kv, cv):
+        if v is None and ignore_nulls:
+            continue
+        first.setdefault(k, v)
+        last[k] = v
+    return first, last
+
+
+@pytest.mark.parametrize("ignore_nulls", [True, False])
+@pytest.mark.parametrize("batch_rows", [700, 1 << 20])
+def test_first_last_follow_input_order_across_batches(ignore_nulls,
+                                                      batch_rows):
+    """Across batches and merges the first and last rows are the input's
+    (each partial keeps its row's position); without ignoreNulls a null
+    first or last row gives null."""
+    t = _extremes_table(3000, seed=8)
+    s = TorchSession({**OFF, "spark.rapids.tpu.sql.batchSizeRows":
+                      batch_rows}, device="cpu")
+    got = s.create_dataframe(t).group_by("k").agg(
+        PF.first(PF.col("i"), ignore_nulls).with_name("fi"),
+        PF.last(PF.col("i"), ignore_nulls).with_name("li")).collect()
+    first, last = _numpy_first_last(t, "k", "i", ignore_nulls)
+    assert {r["k"]: r["fi"] for r in got} == first
+    assert {r["k"]: r["li"] for r in got} == last
+
+
+@pytest.mark.parametrize("case,want", [("min_nan_is_greatest", 2.0),
+                                       ("max_picks_nan", "nan"),
+                                       ("min_of_zeros", 0.0)])
+def test_spark_semantics_min_max_cases(case, want):
+    vals = {"min_nan_is_greatest": [float("nan"), 2.0],
+            "max_picks_nan": [float("nan"), 2.0],
+            "min_of_zeros": [-0.0, 0.0, None]}[case]
+    F = PF
+    agg = F.max if case == "max_picks_nan" else F.min
+    got = TorchSession(OFF, device="cpu").create_dataframe(
+        pa.table({"v": vals})).agg(agg(F.col("v")).with_name("o")).collect()
+    o = got[0]["o"]
+    assert ("nan" if isinstance(o, float) and math.isnan(o) else o) == want
+
+
+def test_min_max_first_last_over_no_rows_are_null():
+    t = _extremes_table(100)
+    got = TorchSession(OFF, device="cpu").create_dataframe(t).filter(
+        PF.col("i") > PF.lit(10**6)).agg(*_extreme_aggs(PF)).collect()
+    assert got[0]["cs"] == 0 and all(
+        v is None for k, v in got[0].items() if k not in ("cs", "cr"))
+
+
+@pytest.mark.parametrize("keys", [["k"], ["f", "k"]])
+def test_repartitioned_merge_equals_reference(keys):
+    """Partials larger than batchSizeBytes hash-split on their keys and
+    merge partition by partition; the groups equal the reference's (float
+    sums to REL: the partials reach the merge in another order)."""
+    t = _table(6000)
+    conf = {**OFF, "spark.rapids.tpu.sql.batchSizeRows": 900,
+            "spark.rapids.tpu.sql.batchSizeBytes": 4000}
+    want = TpuSession(OFF).create_dataframe(t).group_by(*keys).agg(
+        *_AGGS(RF)).collect()
+    df = TorchSession(conf, device="cpu").create_dataframe(t).group_by(
+        *keys).agg(*_AGGS(PF), PF.min(PF.col("x")).with_name("mx"))
+    got = df.collect()
+    node = df.session.last_plan
+    assert node.last_repartitions >= 2
+    for r in got:
+        del r["mx"]
+    _assert_rows_equal(got, want, keys)
