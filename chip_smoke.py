@@ -32,11 +32,14 @@ result line):
                 kernels to compare, beside a loop of index_add_, with
                 each instance's launch shape (residency, grid, registers,
                 shared memory); join_match exactly equal to its plain
-                version for every join type (1,048,576 stream rows
-                against 100 and 100,000 distinct build keys of 1-8 rows,
-                5% null keys, float keys with NaN and +-0.0, keys of 1, 2
-                and 4 words), timed cold on q3's first join and on
-                100,000 build keys beside its bound;
+                version for every join type (about a million stream
+                rows, two cases ending in a partial tile, against 100
+                to 100,000 distinct build keys of 1-8 rows,
+                one row, two rows or one key of 11,000 rows, 5% null
+                keys, float keys with NaN and +-0.0, keys of 1-4 words:
+                both launch routes, the table in shared memory and
+                not), timed cold on q3's first join (one launch) and on
+                100,000 build keys (count and emit) beside its bound;
   4. q6      -- TPC-H Q6 at SF1 (6,001,215 lineitem rows, 1,048,576-row
                 batches) through TorchSession/DataFrame on cuda, against a
                 numpy reference computed here from the same arrays;
@@ -2056,12 +2059,15 @@ def _key_batch(cols: dict, n: int):
     return ColumnarBatch(out, n, Schema(fields))
 
 
-def _join_case(rng, U: int, kinds, rows: int = JOIN_STREAM_ROWS):
+def _join_case(rng, U: int, kinds, rows: int = JOIN_STREAM_ROWS,
+               dup: int = 0, skew: int = 0):
     """Stream and build key words for a join_match case: ``U`` unique build
     keys of the column kinds ``kinds`` ("i64", "i32", "f64"; floats hold
-    NaN, 0.0 and -0.0), each 1-8 times on the build side; 5% null keys on
-    both sides; the stream draws 3 of every 4 rows from the build keys.
-    Encoded by the joins' own key encoding (exec/joins.py encode_keys)."""
+    NaN, 0.0 and -0.0), each 1-8 times on the build side (``dup`` times
+    each when given; the first key ``skew`` times when given); 5% null
+    keys on both sides; the stream draws 3 of every 4 rows from the build
+    keys. Encoded by the joins' own key encoding (exec/joins.py
+    encode_keys)."""
     from spark_rapids_tpu_torch.exec.joins import encode_keys
     from spark_rapids_tpu_torch.exprs.base import ColumnRef
     pool = []
@@ -2074,7 +2080,9 @@ def _join_case(rng, U: int, kinds, rows: int = JOIN_STREAM_ROWS):
         else:
             v = rng.randint(-2**62, 2**62, U).astype(np.int64)
         pool.append(v)
-    dup = rng.randint(1, 9, U)
+    dup = np.full(U, dup) if dup else rng.randint(1, 9, U)
+    if skew:
+        dup[0] = skew
     brow = rng.permutation(np.repeat(np.arange(U), dup))
     pick = np.where(rng.rand(rows) < 0.75, rng.randint(0, U, rows), -1)
     cols_b, cols_s = {}, {}
@@ -2102,32 +2110,61 @@ def _maps_equal(a, b) -> bool:
         and bool(torch.equal(x, y))) for x, y in zip(a, b))
 
 
-JOIN_CASES = (("100 keys, 1 int64 word", 100, ("i64",)),
-              ("100,000 keys, 1 int64 word", 100_000, ("i64",)),
-              ("100 keys, 1 float64 word (NaN, +-0.0)", 100, ("f64",)),
+#: (label, distinct build keys, key columns, rows a key (0: 1-8 at
+#: random), rows of the first key (0: as the others), stream rows); each
+#: runs every join type. The inner join's route and whether its table
+#: sits in shared memory are printed beside each. Two cases end in a
+#: partial tile of stream rows.
+JOIN_CASES = (("100 keys, 1 int64 word", 100, ("i64",), 0, 0,
+               JOIN_STREAM_ROWS),
+              ("100,000 keys, 1 int64 word", 100_000, ("i64",), 0, 0,
+               JOIN_STREAM_ROWS),
+              ("100 keys, 1 float64 word (NaN, +-0.0)", 100, ("f64",), 0, 0,
+               JOIN_STREAM_ROWS),
               ("100,000 keys, 2 words (int32, int64)", 100_000,
-               ("i32", "i64")),
+               ("i32", "i64"), 0, 0, JOIN_STREAM_ROWS),
               ("100,000 keys, 4 words (int64, float64, int32, int64)",
-               100_000, ("i64", "f64", "i32", "i64")))
+               100_000, ("i64", "f64", "i32", "i64"), 0, 0,
+               JOIN_STREAM_ROWS),
+              ("150 keys of one row, 1 int64 word, 1,048,575 stream rows",
+               150, ("i64",), 1, 0, JOIN_STREAM_ROWS - 1),
+              ("100,000 keys of one row, 1 int64 word", 100_000, ("i64",),
+               1, 0, JOIN_STREAM_ROWS),
+              ("1,000 keys of two rows, 3 words (int64, int32, float64), "
+               "1,000,003 stream rows", 1000, ("i64", "i32", "f64"), 2, 0,
+               1_000_003),
+              ("1,000 keys, one of them in 11,000 build rows (10,000 or "
+               "more of them not null), 2 words (int32, int64)", 1000,
+               ("i32", "i64"), 0, 11_000, JOIN_STREAM_ROWS))
+
+
+def _route_label(table, n: int, join_type: str = "inner") -> str:
+    from spark_rapids_tpu_torch.exec import join_match as jm
+    return (f"route {jm.launch_route(table, n, join_type)}, table in "
+            f"{'shared memory' if table.shared else 'L1/L2'}")
 
 
 def phase_join_exact() -> int:
     """join_match on the card against its plain version, exactly, for
-    every join type over JOIN_CASES (1,048,576 stream rows each). Returns
-    the largest difference of a map entry (0: exact)."""
+    every join type over JOIN_CASES (about a million stream rows each):
+    both routes, the table in shared memory and not, keys of 1-4 words, a
+    skewed key, a partial last tile. Returns the largest difference of a
+    map entry (0: exact)."""
     import torch
     from spark_rapids_tpu_torch.exec.join_match import (
-        build_table, join_match, join_match_reference)
+        build_table, join_match, join_match_reference, launch_route)
     rng = np.random.RandomState(7)
     before = join_match.launches
     checked, err = 0, 0.0
-    for label, U, kinds in JOIN_CASES:
-        sw, sn, bw, bn = _join_case(rng, U, kinds)
+    routes = set()
+    for label, U, kinds, dup, skew, rows in JOIN_CASES:
+        sw, sn, bw, bn = _join_case(rng, U, kinds, rows, dup, skew)
         table = build_table(bw, bn)
         _check(table.table is not None and int(table.ukeys.shape[0]) > 0,
                f"{label}: no table was built on the card")
         sizes = {}
         for jt in JOIN_TYPES:
+            routes.add(launch_route(table, int(sw.shape[0]), jt))
             got = join_match(sw, sn, table, jt)
             want = join_match_reference(sw, sn, table, jt)
             torch.cuda.synchronize()
@@ -2140,10 +2177,13 @@ def phase_join_exact() -> int:
             sizes[jt] = int(got.stream.shape[0])
             checked += sizes[jt]
         _log(f"join_match exact over {label}: {int(table.ukeys.shape[0])} "
-             f"distinct build keys of {int(bw.shape[0])} rows, output rows "
-             f"{sizes}")
+             f"distinct build keys of {int(bw.shape[0])} rows (largest "
+             f"count {table.max_ucount}), inner join's "
+             f"{_route_label(table, int(sw.shape[0]))}; output rows {sizes}")
     _check(join_match.launches - before == len(JOIN_CASES) * len(JOIN_TYPES),
            "join_match did not launch once a call")
+    _check(routes == {"flags", "single", "count_emit"},
+           f"join_match's routes {routes}: not all were run")
     _log(f"join_match: {checked} output rows over {len(JOIN_CASES)} cases x "
          f"{len(JOIN_TYPES)} join types equal to the plain version exactly")
     return err
@@ -2152,16 +2192,21 @@ def phase_join_exact() -> int:
 def join_bound(sw, sn, table, out_rows: int) -> dict:
     """The least bytes one inner probe and emit must move, each input read
     once and each output written once: the stream keys (8 B a word) and
-    null flags, the build table (the hash slots, the distinct keys with
-    their starts and counts, the sorted build rows), and the pairs (two
-    int64 each). ``sector_bytes`` counts as well a 32-byte sector of the
-    table and of the key words for every non-null stream key, the count
-    that holds when the table does not stay in the L2 (a build side of
-    many keys)."""
+    null flags, the build side (the distinct keys with their starts and
+    counts, the sorted build rows, and a hash table of one 4-byte key id a
+    slot at twice the distinct keys, the least a probe needs; the
+    kernel's own table is larger by design, which the bound does not
+    count), and the pairs (two int64 each). ``sector_bytes``
+    counts as well a 32-byte sector of the table and of the key words for
+    every non-null stream key, the count that holds when the table does
+    not stay in the L2 (a build side of many keys)."""
     n, W = int(sw.shape[0]), int(sw.shape[1])
-    build = sum(t.numel() * t.element_size() for t in (
-        table.table, table.ukeys, table.ustart, table.ucount,
-        table.sorted_rows))
+    U = int(table.ukeys.shape[0])
+    slots = 2
+    while slots < 2 * U:
+        slots <<= 1
+    build = slots * 4 + sum(t.numel() * t.element_size() for t in (
+        table.ukeys, table.ustart, table.ucount, table.sorted_rows))
     nbytes = n * (8 * W + 1) + build + out_rows * 16
     sectors = n * (8 * W + 1) + int((~sn).sum()) * 2 * 32 + out_rows * 16
     return {"bytes": nbytes, "ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -2170,40 +2215,35 @@ def join_bound(sw, sn, table, out_rows: int) -> dict:
 
 
 def _raw_join_calls(sw, sn, table, join_type: str = "inner"):
-    """The probe and emit launches of one join_match call as functions of
-    (words, null) with their outputs made beforehand (outside the
-    wrapper: no launch count), and the output rows."""
+    """The launches of one join_match call as a function of (words, null)
+    with their outputs made beforehand (outside the wrapper: no launch
+    count): the one launch of the single route, or the count and the emit
+    launch of the count/emit route. Returns it, the output rows and the
+    route."""
     import torch
     from spark_rapids_tpu_torch.exec import join_match as jm
-    k = jm._kernel()
-    n, W = int(sw.shape[0]), int(sw.shape[1])
-    stream = torch.cuda.current_stream().cuda_stream
-    uid = torch.empty(n, dtype=torch.int32, device="cuda")
-    count = torch.empty(n, dtype=torch.int64, device="cuda")
-
-    def probe(w, nl):
-        rc = k["probe"](w.data_ptr(), nl.data_ptr(), n, W,
-                        table.table.data_ptr(), table.table.shape[0],
-                        table.ukeys.data_ptr(), table.ucount.data_ptr(),
-                        uid.data_ptr(), count.data_ptr(), None, stream)
-        _check(rc == 0, f"probe launch failed: CUDA error {rc}")
-    probe(sw, sn)
-    torch.cuda.synchronize()
-    offsets = torch.cumsum(count, 0) - count
-    total = int(count.sum())
-    s_map = torch.empty(total, dtype=torch.int64, device="cuda")
-    b_map = torch.empty(total, dtype=torch.int64, device="cuda")
-
-    def emit(w, nl):
-        rc = k["emit"](offsets.data_ptr(), count.data_ptr(), uid.data_ptr(),
-                       table.ustart.data_ptr(), table.sorted_rows.data_ptr(),
-                       n, 0, s_map.data_ptr(), b_map.data_ptr(), stream)
-        _check(rc == 0, f"emit launch failed: CUDA error {rc}")
+    n = int(sw.shape[0])
+    route = jm.launch_route(table, n, join_type)
+    launch = jm._card_launch(sw.get_device(), jm._stream(sw))
+    total = torch.empty(1, dtype=torch.int64, device="cuda")
+    if route == "single":
+        rows = jm._single_rows(table, n, join_type)
+    else:
+        launch(jm._pack(sw, sn, table, join_type, jm._COUNT,
+                        total.data_ptr()))
+        rows = int(total.item())
+    out = torch.empty(2 * rows, dtype=torch.int64, device="cuda")
 
     def both(w, nl):
-        probe(w, nl)
-        emit(w, nl)
-    return both, total
+        if route == "count_emit":
+            launch(jm._pack(w, nl, table, join_type, jm._COUNT,
+                            total.data_ptr()))
+        launch(jm._pack(w, nl, table, join_type, jm._EMIT, total.data_ptr(),
+                        0, out.data_ptr(), out.data_ptr() + rows * 8, 0,
+                        rows))
+    both(sw, sn)
+    torch.cuda.synchronize()
+    return both, int(total.item()), route
 
 
 def q3_join_shape(rows: int = JOIN_STREAM_ROWS):
@@ -2221,51 +2261,64 @@ def q3_join_shape(rows: int = JOIN_STREAM_ROWS):
     return encode_keys(sb, k, bb, k)
 
 
+def _call_ms(fn, reps: int = 5):
+    """(device ms, host ms) of one synchronised call of ``fn``: events
+    around it on the card, the host clock beside them; medians of
+    ``reps`` calls."""
+    import torch
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        out.append((e0.elapsed_time(e1), (time.perf_counter() - t0) * 1e3))
+    return (float(np.median([o[0] for o in out])),
+            float(np.median([o[1] for o in out])))
+
+
 def phase_join_times(sw, sn, bw, bn, label: str) -> dict:
-    """join_match's kernels (probe and emit of an inner join) on ``label``,
-    timed with the L2 cold beside their bound; the whole wrapper call
-    (with its one host read of the total) and the plain version, each
-    timed by events around a synchronised call."""
+    """join_match's launches for an inner join on ``label`` (one, or the
+    count and the emit), timed with the L2 cold beside their bound; the
+    whole wrapper call (with its host read of the total) and the plain
+    version, each timed by events around a synchronised call."""
     import torch
     from spark_rapids_tpu_torch.exec.join_match import (
         build_table, join_match, join_match_reference)
+    from spark_rapids_tpu_torch.exec.join_match import kernel_shape
     table = build_table(bw, bn)
-    both, total = _raw_join_calls(sw, sn, table)
+    both, total, route = _raw_join_calls(sw, sn, table)
+    shared = table.shared
+    shape = kernel_shape(int(sw.shape[1]), shared)
     b = join_bound(sw, sn, table, total)
     per = sw.nbytes + sn.nbytes
     copies = [(sw, sn)] + [(sw.clone(), sn.clone()) for _ in range(
         max(1, -(-COLD_BYTES // per) - 1))]
     ms, _ = _cold_ms(both, copies, f"join_match {label}")
 
-    def wall(fn, reps=5):
-        out = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            e0, e1 = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-            t0 = time.perf_counter()
-            e0.record()
-            fn()
-            e1.record()
-            e1.synchronize()
-            out.append((e0.elapsed_time(e1),
-                        (time.perf_counter() - t0) * 1e3))
-        return (float(np.median([o[0] for o in out])),
-                float(np.median([o[1] for o in out])))
     saved = join_match.launches
-    call_ms, host_ms = wall(lambda: join_match(sw, sn, table, "inner"))
+    call_ms, host_ms = _call_ms(lambda: join_match(sw, sn, table, "inner"))
     join_match.launches = saved
-    plain_ms, _ = wall(lambda: join_match_reference(sw, sn, table,
-                                                    "inner"), reps=3)
+    plain_ms, _ = _call_ms(lambda: join_match_reference(sw, sn, table,
+                                                        "inner"), reps=3)
     row = {"ms": ms, "call_ms": call_ms, "host_ms": host_ms,
            "plain_ms": plain_ms, "bound_ms": b["ms"], "bound_by": b["by"],
            "bound_bytes": b["bytes"], "sector_ms": b["sector_ms"],
            "library_ms": None,
            "out_rows": total, "build_keys": int(table.ukeys.shape[0]),
-           "stream_rows": int(sw.shape[0])}
+           "stream_rows": int(sw.shape[0]), "route": route,
+           "shared_table": shared, "launches_a_call":
+           1 if route == "single" else 2, "launch": shape}
     _log(f"kernel join_match on {label} ({row['stream_rows']} stream rows, "
-         f"{row['build_keys']} build keys, {total} pairs), cold: probe + "
-         f"emit {ms:.4f} ms, bound {b['ms']:.4f} ({b['bytes']} B; by "
+         f"{row['build_keys']} build keys, {total} pairs; route {route}, "
+         f"table in {'shared memory' if shared else 'L1/L2'}; "
+         f"{shape['registers']} registers, {shape['blocks_per_sm']} blocks "
+         f"an SM at its largest shared memory), cold: {row['launches_a_call']} launch(es) "
+         f"{ms:.4f} ms, bound {b['ms']:.4f} ({b['bytes']} B; by "
          f"bytes), {b['ms'] / ms:.0%} of bound (with a sector a lookup "
          f"{b['sector_ms']:.4f} ms, {b['sector_bytes']} B); whole call "
          f"(one host read "
@@ -3601,15 +3654,18 @@ def main(argv=None) -> int:
             "bound_bytes": join_t["bound_bytes"],
             "bound_ms_sectors": join_t["sector_ms"], "library_ms": None,
             "call_ms": join_t["call_ms"], "host_ms": join_t["host_ms"],
-            "timing": "probe and emit launches queued back to back over "
-                      "distinct inputs (L2 cold); call_ms: a whole "
-                      "wrapper call with its host read of the total",
+            "timing": "the call's launches (one; or count and emit) "
+                      "queued back to back over distinct inputs (L2 "
+                      "cold); call_ms: a whole wrapper call with its "
+                      "host read of the total",
+            "launch_route": join_t["route"],
+            "shared_table": join_t["shared_table"],
             "shape": [join_t["stream_rows"], join_t["build_keys"],
                       join_t["out_rows"]],
             "k100": {k: join_t100k[k] for k in (
                 "ms", "plain_ms", "bound_ms", "sector_ms", "call_ms",
-                "host_ms",
-                "stream_rows", "build_keys", "out_rows")},
+                "host_ms", "stream_rows", "build_keys", "out_rows",
+                "shared_table")}, "launch_route_k100": join_t100k["route"],
         }
         _log(json.dumps({"kernels": [kernel, dense, join]}))
     except Exception:

@@ -51,7 +51,8 @@ from .join_match import (MAX_OUTPUT_ROWS, BuildTable, build_table,
                          join_match)
 
 __all__ = ["TpuHashJoinExec", "TpuNestedLoopJoinExec",
-           "TpuBroadcastHashJoinExec", "empty_batch", "join_schema"]
+           "TpuBroadcastHashJoinExec", "empty_batch", "join_schema",
+           "encode_keys", "encode_one_side"]
 
 #: the join type seen from the other side (a left build side streams the
 #: right side)
@@ -150,22 +151,55 @@ def encode_keys(lb: ColumnarBatch, lkeys, rb: ColumnarBatch, rkeys):
             pairs = [(lw, lcol.validity), (rw, rcol.validity)]
         else:
             common = torch.promote_types(torch_dtype(ldt), torch_dtype(rdt))
-            pairs = []
-            for v in (la, ra):
-                d = v.data.to(common)
-                d = _float_order_key(d) if d.is_floating_point() else d
-                pairs.append((d.to(torch.int64), v.validity))
+            pairs = [(_number_words(v, common), v.validity)
+                     for v in (la, ra)]
         for (words, null), (w, valid), b in zip(sides, pairs, (lb, rb)):
-            w, valid = w[:b.num_rows], valid[:b.num_rows]
-            words.append(torch.where(valid, w, torch.zeros_like(w)))
-            null |= ~valid
-    out = []
-    for words, null in sides:
-        n = null.shape[0]
-        out += [torch.stack(words, dim=1) if words else
-                torch.zeros((n, 0), dtype=torch.int64, device=null.device),
-                null]
-    return tuple(out)
+            _add_word(words, null, w, valid, b.num_rows)
+    return _stack(*sides[0]) + _stack(*sides[1])
+
+
+def encode_one_side(batch: ColumnarBatch, keys, other_schema: Schema,
+                    other_keys):
+    """One side's (words, null) of ``encode_keys``, without the other
+    side's batch: each key promoted to the type it shares with the other
+    side's key, as ``encode_keys`` does. Non-string keys only (a string key
+    encodes against both sides' dictionaries): a broadcast join encodes
+    its build side once for the table and each stream batch alone."""
+    types = [(k.data_type(batch.schema), ok.data_type(other_schema))
+             for k, ok in zip(keys, other_keys)]
+    for k, (dt, odt) in zip(keys, types):
+        if dt == STRING or odt == STRING:
+            raise TypeError(f"join key <{k.name_hint}>: a string key "
+                            "encodes against both sides")
+    null = torch.zeros(batch.num_rows, dtype=torch.bool,
+                       device=batch_device(batch))
+    words: list = []
+    for (v, _), (dt, odt) in zip(_key_values(batch, keys), types):
+        _add_word(words, null, _number_words(v, torch.promote_types(
+            torch_dtype(dt), torch_dtype(odt))), v.validity, batch.num_rows)
+    return _stack(words, null)
+
+
+def _number_words(v, common: torch.dtype) -> torch.Tensor:
+    """A number, date or boolean key as int64 words of ``common``: floats
+    as the integers of their total order."""
+    d = v.data.to(common)
+    return (_float_order_key(d) if d.is_floating_point() else d).to(
+        torch.int64)
+
+
+def _add_word(words: list, null: torch.Tensor, w: torch.Tensor,
+              valid: torch.Tensor, rows: int) -> None:
+    w, valid = w[:rows], valid[:rows]
+    words.append(torch.where(valid, w, torch.zeros_like(w)))
+    null |= ~valid
+
+
+def _stack(words: list, null: torch.Tensor):
+    n = null.shape[0]
+    return (torch.stack(words, dim=1) if words else
+            torch.zeros((n, 0), dtype=torch.int64, device=null.device),
+            null)
 
 
 def _cat_columns(lo: ColumnarBatch, ro: ColumnarBatch,
@@ -369,6 +403,11 @@ class TpuHashJoinExec(TpuExec):
                                      self.right_keys)
         return sw, sn, bw, bn
 
+    def _side_keys(self, build_side: str):
+        """(stream keys, build keys)."""
+        return (self.left_keys, self.right_keys) if build_side == "right" \
+            else (self.right_keys, self.left_keys)
+
     def _join(self, lb: ColumnarBatch, rb: ColumnarBatch,
               build_side: str = "right",
               table: Optional[BuildTable] = None) -> ColumnarBatch:
@@ -379,9 +418,12 @@ class TpuHashJoinExec(TpuExec):
             li, ri = _cross_maps(lb.num_rows, rb.num_rows, batch_device(lb))
             return self._finish_cross(lb, rb, li, ri)
         stream, build = (lb, rb) if build_side == "right" else (rb, lb)
-        sw, sn, bw, bn = self._encode(stream, build, build_side)
         if table is None:
+            sw, sn, bw, bn = self._encode(stream, build, build_side)
             table = build_table(bw, bn)
+        else:                     # the build side's words are in the table
+            skeys, bkeys = self._side_keys(build_side)
+            sw, sn = encode_one_side(stream, skeys, build.schema, bkeys)
         if self.condition is not None and jt != "inner":
             maps = join_match(sw, sn, table, "inner")
             li, ri = (maps.stream, maps.build) if build_side == "right" \
@@ -488,9 +530,9 @@ class TpuBroadcastHashJoinExec(TpuHashJoinExec):
                     with ctx.semaphore.held():
                         bb = held.get()
                         if reuse and not table:
-                            _, _, bw, bn = self._encode(sb, bb,
-                                                        self.build_side)
-                            table.append(build_table(bw, bn))
+                            skeys, bkeys = self._side_keys(self.build_side)
+                            table.append(build_table(*encode_one_side(
+                                bb, bkeys, sb.schema, skeys)))
                         lb, rb = (sb, bb) if bi else (bb, sb)
                         return self._join(lb, rb, self.build_side,
                                           table[0] if table else None)
