@@ -8,8 +8,8 @@ result line):
 
   1. device  -- the card's name and power limit (nvidia-smi), CUDA version;
   2. build   -- every CUDA kernel of the port (rect_match, dense_groupby,
-                join_match), built from csrc/ with one nvcc each, started
-                together;
+                join_match, distinct_flag), built from csrc/ with one nvcc
+                each, started together;
                 ptxas must report no stack frame and no spills for any
                 function. ``--compare NAME=DIR`` also builds
                 DIR/rect_match.cu and/or DIR/dense_groupby.cu (another
@@ -93,7 +93,20 @@ result line):
                 plan (sub-partitioned), cold and warm, each equal to numpy
                 and to the other, the broadcast plan once more under
                 torch.profiler; store_sales joined with the whole item
-                table as left, leftsemi and leftanti against numpy.
+                table as left, leftsemi and leftanti against numpy;
+ 11. tpcds2  -- distinct_flag bit-identical to its plain version on the
+                card (NaN, +-0.0 and NULL values, a NULL group, float32
+                and int8 keys, one key filling a batch, 2M distinct keys
+                forcing two growths, keys repeating across batches, a
+                batch of one row), timed cold on q28's shape (the first
+                batch against fresh tables, and the last against the
+                table of the batches before it) beside its bound; then
+                TPC-DS q9 (CASE WHEN inside keyless aggregates over one
+                widened batch) and q28 (six filtered aggregates in a
+                union, run as one pass: a branch id through the dense
+                route and count(DISTINCT) through distinct_flag) at SF10
+                over phase 10's store_sales, cold and warm, against
+                numpy, each once more under torch.profiler.
 
 The data is generated here from a seed, with numpy only: this script
 imports neither JAX, pyarrow, pandas nor the JAX package. It prints a
@@ -1119,7 +1132,7 @@ def _finish_compare_build(name, kernel, proc, out):
 
 
 #: the port's kernel libraries (csrc/<name>.cu), built side by side
-KERNELS = ("rect_match", "dense_groupby", "join_match")
+KERNELS = ("rect_match", "dense_groupby", "join_match", "distinct_flag")
 
 
 def phase_build(compare=()):
@@ -2811,8 +2824,437 @@ def phase_tpcds(card: str, batch_rows: int) -> dict:
     res["joins_by_type"] = by_type
     for s in plans.values():
         s.close()
+    return res, ss, hosts[0]
+
+
+
+# ---------------------------------------------------------------------------
+# phase 11: TPC-DS q9 and q28 at SF10, and the distinct_flag kernel
+# ---------------------------------------------------------------------------
+
+def q9(store_sales, F):
+    """Bucketed quantity-range statistics via conditional aggregation."""
+    aggs = []
+    buckets = [(1, 20), (21, 40), (41, 60), (61, 80), (81, 100)]
+    for i, (lo, hi) in enumerate(buckets, 1):
+        in_b = ((F.col("ss_quantity") >= F.lit(lo))
+                & (F.col("ss_quantity") <= F.lit(hi)))
+        one_if = F.when(in_b, F.lit(1)).otherwise(F.lit(None))
+        price_if = F.when(in_b, F.col("ss_ext_sales_price")) \
+                    .otherwise(F.lit(None))
+        paid_if = F.when(in_b, F.col("ss_net_paid")).otherwise(F.lit(None))
+        aggs += [F.count(one_if).with_name(f"cnt{i}"),
+                 F.avg(price_if).with_name(f"avg_price{i}"),
+                 F.avg(paid_if).with_name(f"avg_paid{i}")]
+    return store_sales.agg(*aggs)
+
+
+Q28_BUCKETS = [(0, 5, 11, 460, 14930), (6, 10, 91, 1430, 32370),
+               (11, 15, 66, 1480, 3750), (16, 20, 142, 3270, 21910),
+               (21, 25, 135, 2450, 17300), (26, 30, 28, 2340, 33660)]
+
+
+def q28(store_sales, F):
+    """Bucketed list-price stats incl. distinct counts (6 buckets)."""
+    outs = []
+    for lo, hi, lp, cp, wc in Q28_BUCKETS:
+        b = store_sales.filter(
+            (F.col("ss_quantity") >= F.lit(lo))
+            & (F.col("ss_quantity") <= F.lit(hi))
+            & ((F.col("ss_list_price") >= F.lit(float(lp)))
+               | (F.col("ss_coupon_amt") >= F.lit(float(cp)))
+               | (F.col("ss_wholesale_cost") >= F.lit(float(wc)))))
+        outs.append(b.agg(
+            F.avg(F.col("ss_list_price")).with_name("b_avg"),
+            F.count(F.col("ss_list_price")).with_name("b_cnt"),
+            F.count_distinct(F.col("ss_list_price")).with_name("b_cntd")))
+    res = outs[0]
+    for o in outs[1:]:
+        res = res.union(o)
     return res
 
+
+def q9_numpy(ss: dict) -> list:
+    q = ss["ss_quantity"]
+    row = {}
+    for i, (lo, hi) in enumerate([(1, 20), (21, 40), (41, 60), (61, 80),
+                                  (81, 100)], 1):
+        m = (q >= lo) & (q <= hi)
+        n = int(m.sum())
+        row[f"cnt{i}"] = n
+        row[f"avg_price{i}"] = float(ss["ss_ext_sales_price"][m].mean()) \
+            if n else None
+        row[f"avg_paid{i}"] = float(ss["ss_net_paid"][m].mean()) \
+            if n else None
+    return [row]
+
+
+def q28_masks(ss: dict) -> list:
+    q, lpc = ss["ss_quantity"], ss["ss_list_price"]
+    return [(q >= lo) & (q <= hi) & ((lpc >= lp)
+                                     | (ss["ss_coupon_amt"] >= cp)
+                                     | (ss["ss_wholesale_cost"] >= wc))
+            for lo, hi, lp, cp, wc in Q28_BUCKETS]
+
+
+def q28_numpy(ss: dict) -> list:
+    rows = []
+    for m in q28_masks(ss):
+        p = ss["ss_list_price"][m]
+        rows.append({"b_avg": float(p.mean()) if len(p) else None,
+                     "b_cnt": int(len(p)),
+                     "b_cntd": int(len(np.unique(p)))})
+    return rows
+
+
+def stats_equal(got: list, want: list, rel: float = REL_TOL) -> bool:
+    """Same rows in order: ints and None exactly, floats within ``rel``
+    (the card adds the rows in another order)."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if set(g) != set(w):
+            return False
+        for k, wv in w.items():
+            gv = g[k]
+            if isinstance(wv, float) and gv is not None:
+                if _rel(gv, wv) > rel:
+                    return False
+            elif gv != wv:
+                return False
+    return True
+
+
+def _df_case(rng, n_batches: int, rows: int, vkind: str, gkind,
+             nulls: bool = True, hi: int = 1000):
+    """Batches of (value, validity, group, validity) on the card: values of
+    ``vkind`` in [0, hi) with NaN, +-0.0 and +-inf among floats, NULLs in
+    both columns, a group of ``gkind`` (None: no group)."""
+    import torch
+    out = []
+    specials = np.array([np.nan, -np.nan, -0.0, 0.0, np.inf, -np.inf])
+    for _ in range(n_batches):
+        v = rng.randint(0, hi, rows).astype(vkind)
+        if v.dtype.kind == "f":
+            sp = rng.rand(rows) < 0.2
+            v[sp] = specials[rng.randint(0, len(specials), sp.sum())]
+        vv = rng.rand(rows) > 0.1 if nulls else np.ones(rows, bool)
+        t = [torch.from_numpy(v).cuda(), torch.from_numpy(vv).cuda(), None,
+             None]
+        if gkind is not None:
+            t[2] = torch.from_numpy(rng.randint(-3, 4, rows).astype(
+                gkind)).cuda()
+            t[3] = torch.from_numpy(rng.rand(rows) > 0.1).cuda()
+        out.append(tuple(t))
+    return out
+
+
+def _df_stream(batches, min_slots: int = 1 << 16):
+    """The kernel's and the plain version's flags over ``batches`` on the
+    card, the table sized as the exec sizes it: (every batch bit-identical,
+    growths, slots, flags in all)."""
+    import torch
+    from spark_rapids_tpu_torch.exec import distinct_flag as dfl
+    table, seen, ub, growths, same, flagged = None, dfl.SeenKeys(), 0, 0, \
+        True, 0
+    for v, vv, g, gv in batches:
+        ub += int(v.shape[0])
+        table, grew = dfl.sized_table(table, v.device, ub, min_slots)
+        growths += grew
+        got = dfl.distinct_flag(table, v, vv, g, gv)
+        want = dfl.distinct_flag_reference(seen, v, vv, g, gv)
+        torch.cuda.synchronize()
+        same = same and torch.equal(got, want)
+        flagged += int(got.sum())
+    _check(not table.failed(), "distinct_flag set its error word")
+    return same, growths, table.capacity, flagged
+
+
+def phase_distinct_exact() -> dict:
+    """distinct_flag against its plain version on the card, bit for bit,
+    over the cases of the module doc; each case's route (the kernel's
+    table: its slots and growths) recorded."""
+    rng = np.random.RandomState(11)
+    one_key = np.full(1 << 20, 4.25)
+    spread = rng.permutation(2_000_000).astype(np.int64)
+    cases = {
+        "nan_zero_null_value_null_group_f64_i64": _df_case(
+            rng, 3, 200_000, np.float64, np.int64, hi=5000),
+        "float32_value_int8_group": _df_case(rng, 3, 100_000, np.float32,
+                                             np.int8, hi=300),
+        "int8_value_no_group": _df_case(rng, 2, 50_000, np.int8, None,
+                                        hi=100),
+        "one_key_fills_a_batch": [_df_tensors(one_key, None)] * 2,
+        "2M_distinct_keys_two_growths": [
+            _df_tensors(spread[i:i + 250_000], None)
+            for i in range(0, 2_000_000, 250_000)],
+        "keys_repeat_across_batches": _df_case(rng, 6, 150_000, np.float64,
+                                               np.int64, nulls=False,
+                                               hi=20_000),
+        "one_row": [_df_tensors(np.array([7.5]), np.array([3]))] * 2,
+    }
+    out = {}
+    for name, batches in cases.items():
+        same, growths, slots, flagged = _df_stream(batches)
+        _check(same, f"distinct_flag {name}: differs from its plain "
+                     "version")
+        out[name] = {"batches": len(batches), "growths": growths,
+                     "slots": slots, "flags": flagged,
+                     "route": "cuda kernel, table of "
+                              f"{slots} slots after {growths} growths"}
+    _check(out["2M_distinct_keys_two_growths"]["growths"] >= 2,
+           "the 2M-key case did not grow twice")
+    _log("kernel distinct_flag exact against its plain version (every "
+         "batch bit-identical): " + "; ".join(
+             f"{k}: {v['batches']} batches, {v['flags']} flags, "
+             f"{v['slots']} slots, {v['growths']} growths"
+             for k, v in out.items()))
+    return out
+
+
+def _df_tensors(values: np.ndarray, groups):
+    import torch
+    v = torch.from_numpy(values).cuda()
+    g = None if groups is None else torch.from_numpy(groups).cuda()
+    return (v, torch.ones_like(v, dtype=torch.bool), g,
+            None if g is None else torch.ones_like(g, dtype=torch.bool))
+
+
+def q28_flag_batches(ss: dict, batch_rows: int):
+    """The distinct flag's inputs as q28's plan gives them: per scan batch,
+    the rows some branch keeps (compacted), their branch id (int64) and
+    list price (float64), on the card."""
+    import torch
+    masks = q28_masks(ss)
+    bid = np.full(len(ss["ss_quantity"]), -1, np.int64)
+    for i in range(len(masks) - 1, -1, -1):
+        bid[masks[i]] = i
+    out = []
+    for off in range(0, len(bid), batch_rows):
+        b = bid[off:off + batch_rows]
+        keep = b >= 0
+        out.append(_df_tensors(
+            np.ascontiguousarray(ss["ss_list_price"][off:off + batch_rows][
+                keep]), np.ascontiguousarray(b[keep])))
+    return out
+
+
+def distinct_bound(rows: int, new_keys: int) -> dict:
+    """The least bytes one batch's flags need: the value and group words
+    (8 B each) and their validity (1 B each) read once, the flag (1 B)
+    written once, one 32-byte slot read a row and one written a new key."""
+    from spark_rapids_tpu_torch.exec.distinct_flag import SLOT_BYTES
+    nbytes = rows * (8 + 1 + 8 + 1 + 1 + SLOT_BYTES) + new_keys * SLOT_BYTES
+    return {"bytes": nbytes, "ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "by": "bytes"}
+
+
+def phase_distinct_times(batches, card: str) -> dict:
+    """distinct_flag on q28's shape, cold (queued behind a sleep, over
+    distinct inputs of at least COLD_BYTES): the first batch against a
+    fresh table, apart; then the last full batch (the stream's last is
+    the scan's short tail) against a table holding every earlier batch's
+    keys. The whole call (synchronised) and the plain version beside
+    them."""
+    import torch
+    from spark_rapids_tpu_torch.exec import distinct_flag as dfl
+    first = batches[0]
+    n0 = int(first[0].shape[0])
+    # first batch: a fresh table a call (the table is most of the bytes)
+    k = max(2, -(-COLD_BYTES // (tables_slots(n0) * dfl.SLOT_BYTES
+                                 + 18 * n0)))
+    tables = [dfl.sized_table(None, first[0].device, n0, 1 << 16)[0]
+              for _ in range(k)]
+    inputs = [tuple(None if t is None else t.clone() for t in first)
+              for _ in range(k)]
+    saved = dfl.distinct_flag.launches
+    torch.cuda.synchronize()
+    first_ms, first_host = _queued_ms(
+        [lambda t=t, x=x: dfl.distinct_flag(t, *x)
+         for t, x in zip(tables, inputs)], "distinct_flag first batch")
+    new0 = int(dfl.distinct_flag(dfl.sized_table(None, first[0].device, n0,
+                                                 1 << 16)[0], *first).sum())
+    del tables, inputs
+    # the last full batch against the table of the stream before it
+    at = max(len(batches) - 2, 0)
+    table, ub = None, 0
+    for v, vv, g, gv in batches[:at]:
+        ub += int(v.shape[0])
+        table, _ = dfl.sized_table(table, v.device, ub, 1 << 16)
+        dfl.distinct_flag(table, v, vv, g, gv)
+    last = batches[at]
+    n = int(last[0].shape[0])
+    table, _ = dfl.sized_table(table, last[0].device, ub + n, 1 << 16)
+    new_last = int(dfl.distinct_flag(table, *last).sum())
+    per = 18 * n
+    copies = [last] + [tuple(None if t is None else t.clone() for t in last)
+                       for _ in range(max(1, -(-COLD_BYTES // per) - 1))]
+    ms, host_ms = _cold_ms(lambda *x: dfl.distinct_flag(table, *x), copies,
+                           f"distinct_flag on q28's batch {at + 1}")
+    call_ms, call_host = _call_ms(lambda: dfl.distinct_flag(table, *last))
+    dfl.distinct_flag.launches = saved
+    seen = dfl.SeenKeys()
+    for v, vv, g, gv in batches[:at]:
+        dfl.distinct_flag_reference(seen, v, vv, g, gv)
+    plain_ms, _ = _call_ms(lambda: dfl.distinct_flag_reference(
+        seen, *last), reps=3)
+    _check(not table.failed(), "distinct_flag set its error word")
+    b = distinct_bound(n, 0)       # every key of the timed copies is found
+    b0 = distinct_bound(n0, new0)
+    shape = dfl.kernel_shape()
+    row = {"ms": ms, "host_ms": host_ms, "call_ms": call_ms,
+           "call_host_ms": call_host, "plain_ms": plain_ms,
+           "bound_ms": b["ms"], "bound_by": b["by"],
+           "bound_bytes": b["bytes"], "rows": n, "slots": table.capacity,
+           "batch": at + 1, "batches": len(batches),
+           "table_bytes": table.nbytes, "new_keys": new_last,
+           "first_batch": {"ms": first_ms, "host_ms": first_host,
+                           "rows": n0, "new_keys": new0,
+                           "bound_ms": b0["ms"], "bound_bytes": b0["bytes"],
+                           "tables": k},
+           "launch": shape, "input_copies": len(copies), "card": card}
+    _log(f"kernel distinct_flag on q28's batch {at + 1} of {len(batches)} "
+         f"({n} rows, {new_last} of their keys new, a table of "
+         f"{table.capacity} slots = {table.nbytes} B holding the earlier "
+         f"batches' keys; {shape['registers']} registers, "
+         f"{shape['blocks_per_sm']} blocks an SM), cold: two launches "
+         f"{ms:.4f} ms, bound {b['ms']:.4f} ms ({b['bytes']} B, by bytes), "
+         f"{b['ms'] / ms:.0%} of bound; host {host_ms:.4f} ms a call "
+         f"(enqueue); whole call synchronised {call_ms:.4f} ms on the card, "
+         f"{call_host:.4f} ms on the host clock; plain {plain_ms:.4f} ms; "
+         f"library ms: none (no PyTorch call computes this function); "
+         f"first batch ({n0} rows, {new0} new keys, a fresh table of "
+         f"{tables_slots(n0)} slots) {first_ms:.4f} ms, bound "
+         f"{b0['ms']:.4f} ms, host {first_host:.4f} ms; {len(copies)} input "
+         f"copies [{card}]")
+    return row
+
+
+def tables_slots(rows: int) -> int:
+    from spark_rapids_tpu_torch.exec import distinct_flag as dfl
+    return max(1 << 16, dfl._next_pow2(dfl.LOAD_NUM * rows))
+
+
+def _tpcds2_run(session, host, query, right, label: str) -> dict:
+    """One run of ``query`` with the launches of every kernel (counts set
+    to 0 just before, read just after) and its physical plan."""
+    import torch
+    from spark_rapids_tpu_torch.exec.dense_groupby import dense_groupby
+    from spark_rapids_tpu_torch.exec.distinct_flag import distinct_flag
+    from spark_rapids_tpu_torch.exec.join_match import join_match
+    from spark_rapids_tpu_torch.exprs.rect_match import rect_match
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = (rect_match, dense_groupby, join_match, distinct_flag)
+    for k in counts:
+        k.launches = 0
+    rows, wall = _run_query(session, host, query)
+    launches = {k.__name__: k.launches for k in counts}
+    _check(right(rows), f"{label}: wrong result {rows}")
+    return {"wall_ms": wall, "launches": launches,
+            "max_memory_reserved": torch.cuda.max_memory_reserved(),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}, rows
+
+
+def _plan_scan(node):
+    from spark_rapids_tpu_torch.exec.basic import InMemoryScanExec
+    while not isinstance(node, InMemoryScanExec):
+        node = node.children[0]
+    return node
+
+
+def phase_tpcds2(card: str, batch_rows: int, ss: dict, ss_host) -> dict:
+    """Phase 11: distinct_flag exact and timed, then q9 and q28 at SF10
+    over phase 10's store_sales, cold and warm, against numpy, each once
+    more under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from spark_rapids_tpu_torch.api import TorchSession
+    exact = phase_distinct_exact()
+    t0 = time.perf_counter()
+    flag_batches = q28_flag_batches(ss, batch_rows)
+    want9, want28 = q9_numpy(ss), q28_numpy(ss)
+    keys = sum(r["b_cntd"] for r in want28)
+    _log(f"tpcds2 SF10: q9 and q28 in numpy, q28's flag inputs "
+         f"({sum(int(b[0].shape[0]) for b in flag_batches)} rows in "
+         f"{len(flag_batches)} batches, {keys} distinct (branch, list "
+         f"price) keys) in {time.perf_counter() - t0:.2f} s [{card}]")
+    times = phase_distinct_times(flag_batches, card)
+    del flag_batches
+    session = TorchSession({"spark.rapids.tpu.sql.batchSizeRows":
+                            batch_rows})
+    res = {"card": card, "rows": SF10_STORE_SALES, "exact": exact,
+           "q28_distinct_keys": keys}
+    for name, query, want in (("q9", q9, want9), ("q28", q28, want28)):
+        runs = {}
+        for label in ("cold", "warm"):
+            runs[label], rows = _tpcds2_run(
+                session, ss_host, query,
+                lambda r, w=want: stats_equal(r, w),
+                f"{name} SF10 {label}")
+        plan = session.last_plan.tree_string()
+        scan = _plan_scan(session.last_plan)
+        runs["plan"] = plan
+        runs["scan_batch_rows"] = scan.batch_rows
+        c, w = runs["cold"], runs["warm"]
+        if name == "q9":
+            _check(scan.batch_rows >= SF10_STORE_SALES,
+                   f"q9's scan reads batches of {scan.batch_rows} rows, "
+                   "not one widened batch")
+        else:
+            _check("DistinctFlag" in plan and "BranchAlign" in plan
+                   and "Union" not in plan
+                   and plan.count("InMemoryScan") == 1
+                   and "route=dense" in plan, f"q28's plan:\n{plan}")
+            for r in (c, w):
+                _check(r["launches"]["distinct_flag"] > 0
+                       and r["launches"]["dense_groupby"] > 0,
+                       f"q28 launched {r['launches']}")
+        _log(f"{name} SF10: equal to numpy (counts exact, averages within "
+             f"{REL_TOL:g}): {rows}; wall {c['wall_ms']:.1f} ms cold, "
+             f"{w['wall_ms']:.1f} ms warm; launches {c['launches']} / "
+             f"{w['launches']}; scan batch rows {scan.batch_rows}; "
+             f"max_memory_reserved {c['max_memory_reserved']} / "
+             f"{w['max_memory_reserved']} B [{card}]")
+        _log(f"{name} physical plan:\n{plan}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run, _ = _tpcds2_run(session, ss_host, query,
+                                 lambda r, w=want: stats_equal(r, w),
+                                 f"{name} under the profiler")
+            torch.cuda.synchronize()
+        try:
+            runs["profile_warm"] = _profile_report(
+                prof, run["wall_ms"], f"{name} SF10",
+                "distinct_flag" if name == "q28" else "reduce")
+        except Exception as e:  # the trace is read for information only
+            _log(f"profile: could not be read ({e!r})")
+            runs["profile_warm"] = {"device_time": False, "error": repr(e)}
+        res[name] = runs
+    session.close()
+    q28c = res["q28"]["cold"]["launches"]
+    res["kernel"] = {
+        "name": "distinct_flag", "route": "cuda",
+        "source": "spark_rapids_tpu_torch/csrc/distinct_flag.cu",
+        "replaces": "spark_rapids_tpu/exec/distinct_flag.py:83",
+        "launches": q28c["distinct_flag"],
+        "paths": {"q28": q28c["distinct_flag"]},
+        "max_abs_err": 0.0, "exact": True,
+        "ms": times["ms"], "plain_ms": times["plain_ms"],
+        "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
+        "bound_bytes": times["bound_bytes"], "library_ms": None,
+        "library": "none: no PyTorch call computes this function",
+        "host_ms": times["host_ms"], "call_ms": times["call_ms"],
+        "first_batch": times["first_batch"],
+        "timing": "the two launches of q28's last full batch queued back "
+                  "to back over distinct inputs (L2 cold), against a table "
+                  "holding the earlier batches' keys; first_batch: "
+                  "against fresh tables",
+        "shape": [times["rows"], times["slots"]],
+        "launch": times["launch"],
+        "cases": {k: v["route"] for k, v in exact.items()},
+    }
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3476,7 +3918,11 @@ def main(argv=None) -> int:
             *_join_case(np.random.RandomState(100), 100_000, ("i64",)),
             "100,000 build keys with 1-8 rows each")
 
-        conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows}
+        # phases 4-9 keep 1,048,576-row batches under their keyless
+        # aggregates too (their per-batch launch counts and the Parquet
+        # comparison rest on it); phase 11 lets q9's scan widen
+        conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows,
+                "spark.rapids.tpu.sql.agg.wideBatchRows": batch_rows}
         session = TorchSession(conf)          # device defaults to cuda
         _check(session.device.type == "cuda", "session is not on cuda")
 
@@ -3565,7 +4011,9 @@ def main(argv=None) -> int:
             conf, host, table, mem["q18_partial_bytes"], mem["q18_budget"],
             card)
         parquet = phase_parquet(table, inmem, batch_rows, card)
-        tpcds = phase_tpcds(card, batch_rows)
+        tpcds, ss, ss_host = phase_tpcds(card, batch_rows)
+        tpcds2 = phase_tpcds2(card, batch_rows, ss, ss_host)
+        del ss, ss_host
         _log(json.dumps({"queries": {
             "q6": {"rows": SF1_ROWS, "wall_ms_cold": ms_cold,
                    "wall_ms_warm": ms_warm},
@@ -3578,7 +4026,9 @@ def main(argv=None) -> int:
                    len(rows), "wall_ms_cold": q1_cold,
                    "wall_ms_warm": q1_warm, "profile_warm": prof1,
                    "profile_warm_parent_operands": prof1_parent},
-            **mem, **gaps, "parquet": parquet, "tpcds": tpcds}}))
+            **mem, **gaps, "parquet": parquet, "tpcds": tpcds,
+            "tpcds2": {k: v for k, v in tpcds2.items()
+                       if k != "kernel"}}}))
         main_t = times["main"]
         kernel = {
             "name": "rect_match", "route": "cuda",
@@ -3667,7 +4117,10 @@ def main(argv=None) -> int:
                 "host_ms", "stream_rows", "build_keys", "out_rows",
                 "shared_table")}, "launch_route_k100": join_t100k["route"],
         }
-        _log(json.dumps({"kernels": [kernel, dense, join]}))
+        dense["paths"]["q28"] = tpcds2["q28"]["cold"]["launches"][
+            "dense_groupby"]
+        _log(json.dumps({"kernels": [kernel, dense, join,
+                                     tpcds2["kernel"]]}))
     except Exception:
         traceback.print_exc()
         return 1

@@ -262,6 +262,18 @@ class DataFrame:
     def agg(self, *aggs) -> "DataFrame":
         return GroupedData(self, []).agg(*aggs)
 
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """Every row of both (SQL UNION ALL): the columns pair by position
+        and must have the same types; the names are this side's."""
+        mine, theirs = self.plan.schema(), other.plan.schema()
+        if [f.dtype for f in mine.fields] != \
+                [f.dtype for f in theirs.fields]:
+            raise ValueError(f"union of two schemas that differ: {mine} "
+                             f"and {theirs}")
+        return DataFrame(self.session, L.Union([self.plan, other.plan]))
+
+    unionAll = union
+
     def order_by(self, *orders) -> "DataFrame":
         """Global sort: each order a SortOrder (``Col.asc``/``desc``), a
         column name or a Col (ascending, nulls first)."""
@@ -287,7 +299,8 @@ class DataFrame:
         return self.plan.schema().names()
 
     def _physical(self):
-        return plan_query(self.plan, self.session.conf)
+        return plan_query(self.plan, self.session.conf,
+                          self.session.memory.budget)
 
     def explain(self) -> str:
         """Print and return the physical plan: ``*`` marks a device

@@ -13,8 +13,10 @@ from .. import exprs as E
 from ..exprs.aggregates import (Average, Count, CountStar, First, Last,
                                 Max, Min, Sum)
 
-__all__ = ["Col", "col", "lit", "asc", "desc", "sum", "count",
-           "count_star", "avg", "min", "max", "first", "last", "broadcast",
+__all__ = ["Col", "col", "lit", "asc", "desc", "when", "sum", "count",
+           "count_star", "avg", "min", "max", "first", "last",
+           "count_distinct", "sum_distinct", "avg_distinct",
+           "countDistinct", "sumDistinct", "broadcast",
            "startswith", "endswith", "locate", "instr",
            "abs", "div", "pmod", "negative", "positive", "bitwise_not",
            "shiftleft", "shiftright", "shiftrightunsigned"]
@@ -68,6 +70,9 @@ class Col:
     def __or__(self, o): return Col(E.Or(self.expr, _to_expr(o)))
     def __invert__(self): return Col(E.Not(self.expr))
 
+    def isNull(self): return Col(E.IsNull(self.expr))
+    def isNotNull(self): return Col(E.IsNotNull(self.expr))
+
     def contains(self, s): return Col(E.Contains(self.expr, s))
     def startswith(self, s): return Col(E.StartsWith(self.expr, s))
     def endswith(self, s): return Col(E.EndsWith(self.expr, s))
@@ -105,6 +110,28 @@ def lit(v) -> Col:
     return Col(E.Literal(v))
 
 
+class _WhenBuilder:
+    """``when(c, v).when(c2, v2).otherwise(e)``: a CASE WHEN."""
+
+    def __init__(self, branches):
+        self.branches = branches
+
+    def when(self, cond, value) -> "_WhenBuilder":
+        return _WhenBuilder(self.branches
+                            + [(_to_expr(cond), _to_expr(value))])
+
+    def otherwise(self, value) -> Col:
+        return Col(E.CaseWhen(self.branches, _to_expr(value)))
+
+    @property
+    def col(self) -> Col:
+        return Col(E.CaseWhen(self.branches, None))
+
+
+def when(cond, value) -> _WhenBuilder:
+    return _WhenBuilder([(_to_expr(cond), _to_expr(value))])
+
+
 def asc(name: str):
     return col(name).asc()
 
@@ -140,6 +167,15 @@ def sum(c): return Sum(_to_expr(c))
 def count(c): return Count(_to_expr(c))
 def count_star(): return CountStar()
 def avg(c): return Average(_to_expr(c))
+def count_distinct(c): return Count(_to_expr(c)).as_distinct()
+def sum_distinct(c): return Sum(_to_expr(c)).as_distinct()
+def avg_distinct(c): return Average(_to_expr(c)).as_distinct()
+
+
+countDistinct = count_distinct
+sumDistinct = sum_distinct
+
+
 def min(c): return Min(_to_expr(c))
 def max(c): return Max(_to_expr(c))
 

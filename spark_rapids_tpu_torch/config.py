@@ -80,6 +80,14 @@ BATCH_SIZE_BYTES = register(
     "ported yet.")
 
 
+AGG_WIDE_BATCH_ROWS = register(
+    "spark.rapids.tpu.sql.agg.wideBatchRows", 0,
+    "Batch-width ceiling for in-memory scans feeding a keyless "
+    "aggregation, which has no group count to keep small and pays per "
+    "batch: the scan feeds the widest batches it can. 0 = auto: up to the "
+    "whole partition while one batch's estimated bytes fit half the "
+    "memory manager's budget; a row count pins the ceiling instead.")
+
 CONCURRENT_TPU_TASKS = register(
     "spark.rapids.tpu.sql.concurrentTpuTasks", 2,
     "Number of tasks that may hold the device semaphore concurrently "

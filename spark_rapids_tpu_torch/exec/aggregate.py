@@ -10,17 +10,21 @@ Keyless, the update is one masked reduction per aggregate
 (``global_groupby``). Keyed, a batch takes one of two paths, as in the
 reference:
 
-  * dense: every key is a dictionary string column and the product of
-    (cardinality + 1) over the keys fits ``DIRECT_MAX_GROUPS``. The keys'
+  * dense: every key is a dictionary string column or an integer key of
+    planner-proven cardinality (``int_key_cards``: values in [0, card),
+    the union-of-aggregates branch id), and the product of (cardinality
+    + 1) over the keys fits ``DIRECT_MAX_GROUPS``. A dictionary key's
     codes go through the exec-local dictionary (batch code -> global
-    code) and one ``dense_groupby`` kernel launch reduces all of the
-    batch's aggregates (exec/dense_groupby.py). Its partials are one row
-    per group slot, with a live mask for the occupied ones;
-  * sort: anything else (numeric keys, larger products):
+    code), an integer key's values are its codes (an identity remap),
+    and one ``dense_groupby`` kernel launch reduces all of the batch's
+    aggregates (exec/dense_groupby.py). Its partials are one row per
+    group slot, with a live mask for the occupied ones;
+  * sort: anything else (other numeric keys, larger products):
     ``segmented_groupby`` (exec/groupby_core.py), string keys as their
     global codes.
 
-Both give global codes, so batches on either path merge together
+Both give global codes (an integer key its own values), so batches on
+either path merge together
 (keyless or keyed) through ``segmented_groupby`` in merge mode.
 
 Memory (the reference's runtime, mem/): each batch's update runs under
@@ -57,7 +61,8 @@ from ..exprs.base import Alias, ColumnRef, DVal, EvalContext
 from ..exprs.compiler import batch_device, batch_dvals
 from ..mem.retry import with_retry_no_split
 from ..mem.spillable import SpillableBatch
-from ..types import BOOL, INT32, STRING, Schema, StructField, torch_dtype
+from ..types import (BOOL, INT8, INT16, INT32, INT64, STRING, Schema,
+                     StructField, torch_dtype)
 from .base import ExecContext, TpuExec
 from .dense_groupby import BUCKETS, dense_groupby, group_slots
 from .groupby_core import segmented_groupby
@@ -67,6 +72,8 @@ __all__ = ["TpuHashAggregateExec", "DIRECT_MAX_GROUPS"]
 #: the largest product of (cardinality + 1) over the keys that the dense
 #: kernel takes; a larger one takes the sort path
 DIRECT_MAX_GROUPS = BUCKETS[-1]
+#: the integer key types a proven cardinality may address directly
+_INT_TYPES = (INT8, INT16, INT32, INT64)
 #: the partial batch's last column: which rows are groups
 _LIVE = "__live"
 #: small operands made on the host (dictionary remaps, group slots), kept
@@ -135,7 +142,8 @@ class TpuHashAggregateExec(TpuExec):
     def __init__(self, groupings: Sequence,
                  aggs: Sequence[AggregateExpression], child: TpuExec,
                  pre_stages: Optional[list] = None,
-                 eval_schema: Optional[Schema] = None):
+                 eval_schema: Optional[Schema] = None,
+                 int_key_cards: Optional[Sequence] = None):
         super().__init__([child])
         self.groupings = list(groupings)
         self.aggs = list(aggs)
@@ -146,6 +154,10 @@ class TpuHashAggregateExec(TpuExec):
         #: grouping ordinals that go through the string dictionary
         self._dict_keys = [i for i, g in enumerate(self.groupings)
                            if g.data_type(cs) == STRING]
+        #: grouping ordinal -> proven cardinality of an integer key
+        self._int_cards = {
+            i: int(c) for i, c in enumerate(int_key_cards or [])
+            if c and self.groupings[i].data_type(cs) in _INT_TYPES}
         fields = [StructField(g.name_hint, g.data_type(cs), True)
                   for g in self.groupings]
         fields += [StructField(a.name_hint, a.data_type(cs), True)
@@ -249,18 +261,38 @@ class TpuHashAggregateExec(TpuExec):
                 return False
         return True
 
-    def _direct_operands(self, batch: ColumnarBatch):
+    def _dense_keys(self) -> bool:
+        """Every key is a dictionary key or a proven-cardinality integer
+        key, and the integer keys alone fit the dense kernel."""
+        return bool(self.groupings) and len(self._dict_keys) + len(
+            self._int_cards) == len(self.groupings) and math.prod(
+            c + 1 for c in self._int_cards.values()) <= DIRECT_MAX_GROUPS
+
+    def _direct_operands(self, batch: ColumnarBatch, ectx):
         """(key pairs, remaps, cardinalities, group bucket) when every key
-        is a dictionary key and their product fits the dense kernel, else
-        None."""
-        if not self.groupings or len(self._dict_keys) != len(self.groupings):
+        is a dictionary key or a proven-cardinality integer key and their
+        product fits the dense kernel, else None. An integer key's values
+        are its codes, through an identity remap."""
+        if not self._dense_keys():
             return None
-        pairs, remaps = [], []
-        for j, i in enumerate(self._dict_keys):
-            codes, valid, remap = self._encode_key(j, i, batch)
+        by_dict = {i: j for j, i in enumerate(self._dict_keys)}
+        pairs, remaps, cards = [], [], []
+        for i, g in enumerate(self.groupings):
+            if i in by_dict:
+                codes, valid, remap = self._encode_key(by_dict[i], i, batch)
+                card = max(len(self._dicts[by_dict[i]]), 1)
+            else:
+                card = self._int_cards[i]
+                v = g.eval_device(ectx)
+                codes, valid = v.data.to(torch.int32), v.validity
+                dev = codes.device
+                remap = _device_operand(
+                    ("identity", card, str(dev)),
+                    lambda: torch.arange(card, dtype=torch.int32,
+                                         device=dev))
             pairs.append((codes, valid))
             remaps.append(remap)
-        cards = [max(len(d), 1) for d in self._dicts]
+            cards.append(card)
         prod = math.prod(c + 1 for c in cards)
         if prod > DIRECT_MAX_GROUPS:
             return None
@@ -290,10 +322,16 @@ class TpuHashAggregateExec(TpuExec):
                     k = index[(None if d is None else id(d), id(v))]
                     sums.append((res.sums[k], res.counts[k]))
             partials.extend(a.from_sums(sums))
+        # a key's slots as the partials carry it: global codes, an
+        # integer key's values in its own type
+        types = tuple(torch_dtype(f.dtype) if i in self._int_cards
+                      else torch.int32 for i, f in enumerate(
+                          self._partial_schema.fields[:len(cards)]))
         slots = _device_operand(
-            ("slots", tuple(cards), G, str(keep.device)),
-            lambda: [(_to_device(c, keep.device), _to_device(v, keep.device))
-                     for c, v in group_slots(cards, G)])
+            ("slots", tuple(cards), G, types, str(keep.device)),
+            lambda: [(_to_device(c.to(t), keep.device),
+                      _to_device(v, keep.device))
+                     for (c, v), t in zip(group_slots(cards, G), types)])
         return slots, partials, res.occupancy > 0
 
     def _sort_keys(self, batch: ColumnarBatch, ectx) -> List[DVal]:
@@ -320,7 +358,8 @@ class TpuHashAggregateExec(TpuExec):
         ectx, keep = self._pre_stages(batch)
         vals = [[_value(e.eval_device(ectx)) for e in a.input_exprs()]
                 for a in self.aggs]
-        ops = self._direct_operands(batch) if self._dense_ok else None
+        ops = self._direct_operands(batch, ectx) if self._dense_ok \
+            else None
         if ops is not None:
             keys, partials, live = self._dense_update(ops, keep, vals)
         else:
@@ -548,8 +587,9 @@ class TpuHashAggregateExec(TpuExec):
                      for s in self.pre_stages]
             fused = f" fused=[{'+'.join(parts)}]"
         route = ""
-        if self._dict_keys and len(self._dict_keys) == len(self.groupings) \
-                and not self._dense_ok:
+        if self._dense_keys() and not self._dense_ok:
             need = [x.name_hint for x in self.aggs if not x.dense_ok]
             route = f" route=sort ({', '.join(need)}: not sums)"
+        elif self._int_cards and self._dense_keys():
+            route = " route=dense"
         return f"HashAggregate[keys=[{g}], aggs=[{a}]]{fused}{route}"

@@ -1,6 +1,7 @@
-"""Scan, project and filter operators (port of
-``spark_rapids_tpu/exec/basic.py``: InMemoryScanExec, TpuProjectExec,
-TpuFilterExec).
+"""Scan, project, filter, union, expand and branch-alignment operators
+(port of ``spark_rapids_tpu/exec/basic.py``: InMemoryScanExec,
+TpuProjectExec, TpuFilterExec, UnionExec, TpuExpandExec,
+BranchAlignExec).
 """
 from __future__ import annotations
 
@@ -8,10 +9,11 @@ import threading
 import weakref
 from typing import Dict, Iterator, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..columnar import (ByteRectColumn, ColumnarBatch, DeviceColumn,
-                        DictColumn)
+                        DictColumn, HostTable)
 from ..columnar.strrect import RECT_MAX_BYTES
 from ..columnar.transfer import TRANSFER_ENCODE
 from ..config import register
@@ -22,6 +24,7 @@ from ..types import Schema, StructField
 from .base import ExecContext, TpuExec
 
 __all__ = ["InMemoryScanExec", "TpuProjectExec", "TpuFilterExec",
+           "UnionExec", "TpuExpandExec", "BranchAlignExec",
            "SCAN_CACHE_MAX_BYTES"]
 
 SCAN_CACHE_MAX_BYTES = register(
@@ -266,3 +269,95 @@ class TpuFilterExec(TpuExec):
     def describe(self):
         tag = " dict_eval" if self._dict_eval is not None else ""
         return f"Filter[{self.condition.name_hint}]{tag}"
+
+
+class UnionExec(TpuExec):
+    """UNION ALL: the children's batches, child by child."""
+
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema()
+
+    def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        schema = self.output_schema()
+        for c in self.children:
+            for b in c.execute(ctx):
+                # the later children's names give way to the first's
+                yield ColumnarBatch(b.columns, b.num_rows, schema)
+
+    def describe(self):
+        return f"Union[{len(self.children)}]"
+
+
+class TpuExpandExec(TpuExec):
+    """Each input row emits one row per projection list (ref
+    GpuExpandExec): a batch a projection list, in list order."""
+
+    def __init__(self, projections, names, child: TpuExec):
+        super().__init__([child])
+        self.projections = [list(p) for p in projections]
+        self.names = list(names)
+        cs = child.output_schema()
+        self._schema = Schema([StructField(n, e.data_type(cs), True)
+                               for n, e in zip(self.names,
+                                               self.projections[0])])
+
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        cs = self.children[0].output_schema()
+        projectors = [DeviceProjector(p, cs) for p in self.projections]
+        for batch in self.children[0].execute(ctx):
+            for proj in projectors:
+                with ctx.semaphore.held():
+                    cols = proj.run(batch)
+                yield ColumnarBatch(cols, batch.num_rows, self._schema)
+
+    def describe(self):
+        return f"Expand[{len(self.projections)} x ({', '.join(self.names)})]"
+
+
+class BranchAlignExec(TpuExec):
+    """The union-of-aggregates result (plan/rewrites.py): the child's rows
+    are keyed by a branch id in its first column; the output is exactly
+    ``n`` rows in branch order, a branch without rows holding the empty
+    aggregate's values (0 where ``fill_zero``, else NULL), without the
+    id. At most ``n`` rows: assembled on the host in numpy, then one
+    batch on the device."""
+
+    def __init__(self, n: int, fill_zero: Sequence[bool], child: TpuExec):
+        super().__init__([child])
+        self.n = n
+        self.fill_zero = list(fill_zero)
+        self._schema = Schema(list(child.output_schema().fields)[1:])
+
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        cols = self.children[0].collect(ctx)
+        bid, bid_ok = cols[0]
+        rows = np.full(self.n, -1, np.int64)
+        live = bid_ok & (bid >= 0) & (bid < self.n)
+        rows[bid[live].astype(np.int64)] = np.flatnonzero(live)
+        have = rows >= 0
+        take = np.where(have, rows, 0)
+        out = {}
+        for f, (vals, ok), zero in zip(self._schema.fields, cols[1:],
+                                       self.fill_zero):
+            if len(vals):
+                v, m = vals[take], ok[take] & have
+            else:
+                v = np.zeros(self.n, vals.dtype)
+                m = np.zeros(self.n, bool)
+            if zero:
+                v = np.where(m, v, np.zeros((), v.dtype))
+                m = np.ones(self.n, bool)
+            out[f.name] = (v, m)
+        yield ColumnarBatch.from_host(HostTable(out, self._schema),
+                                      ctx.device,
+                                      int(ctx.conf.get(RECT_MAX_BYTES)),
+                                      encode=False)
+
+    def describe(self):
+        return f"BranchAlign[n={self.n}]"

@@ -7,15 +7,17 @@ from .arithmetic import (Abs, Add, BitwiseAnd, BitwiseNot, BitwiseOr,
                          Subtract, UnaryMinus, UnaryPositive)
 from .base import (Alias, ColumnRef, DVal, EvalContext, Expression,
                    Literal, StrVal)
-from .comparison import (EqualTo, GreaterThan, GreaterThanOrEqual, In, LessThan,
-                         LessThanOrEqual)
-from .conditional import Coalesce
+from .cast import Cast
+from .comparison import (EqualTo, GreaterThan, GreaterThanOrEqual, In,
+                         IsNotNull, IsNull, LessThan, LessThanOrEqual)
+from .conditional import CaseWhen, Coalesce, If
 from .logical import And, Not, Or
 from .string_fns import (Contains, EndsWith, Like, RLike, StartsWith,
                          StringInstr, StringLocate)
 
 __all__ = ["AggregateExpression", "Average", "Count", "CountStar", "Sum",
-           "Min", "Max", "First", "Last", "In", "Coalesce",
+           "Min", "Max", "First", "Last", "In", "IsNull", "IsNotNull",
+           "Cast", "If", "CaseWhen", "Coalesce",
            "Add", "Multiply", "Subtract", "Divide", "IntegralDivide",
            "Remainder", "Pmod", "UnaryMinus", "UnaryPositive", "Abs",
            "BitwiseAnd", "BitwiseOr", "BitwiseXor", "BitwiseNot",

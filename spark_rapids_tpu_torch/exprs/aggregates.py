@@ -58,18 +58,26 @@ class AggregateExpression:
     #: its update is sums and counts (``sum_inputs``/``from_sums``), so the
     #: dense groupby kernel can compute it
     dense_ok = True
+    #: the DISTINCT modifier (``agg(DISTINCT e)``): the planner rewrites
+    #: it away (plan/rewrites.py) before any exec sees it
+    distinct: bool = False
 
     def __init__(self, child: Optional[Expression],
                  name: Optional[str] = None):
         self.child = child
         self._name = name
 
+    def as_distinct(self) -> "AggregateExpression":
+        self.distinct = True
+        return self
+
     @property
     def name_hint(self) -> str:
         if self._name:
             return self._name
         cn = self.child.name_hint if self.child is not None else "*"
-        return f"{type(self).__name__.lower()}({cn})"
+        d = "DISTINCT " if self.distinct else ""
+        return f"{type(self).__name__.lower()}({d}{cn})"
 
     def with_name(self, name: str) -> "AggregateExpression":
         self._name = name
@@ -118,7 +126,8 @@ class AggregateExpression:
 
     def key(self) -> str:
         c = self.child.key() if self.child is not None else "*"
-        return f"{type(self).__name__}({c})"
+        d = "DISTINCT " if self.distinct else ""
+        return f"{type(self).__name__}({d}{c})"
 
 
 class Sum(AggregateExpression):

@@ -1,5 +1,5 @@
 """Comparison predicates (port of ``spark_rapids_tpu/exprs/comparison.py``:
-=, <, <=, >, >= and IN against literals).
+=, <, <=, >, >=, IN against literals, IS NULL and IS NOT NULL).
 
 Spark's float semantics: NaN == NaN is true and NaN is greater than every
 other value. ``=`` and ``IN`` over a STRING column have no row-wise form
@@ -16,7 +16,7 @@ from ..types import BOOL, DataType, Schema, comparable, torch_dtype
 from .base import DVal, EvalContext, Expression, null_and, promote_types
 
 __all__ = ["EqualTo", "LessThan", "LessThanOrEqual", "GreaterThan",
-           "GreaterThanOrEqual", "In", "in_null_rule"]
+           "GreaterThanOrEqual", "In", "IsNull", "IsNotNull", "in_null_rule"]
 
 
 def _nan_eq(l, r):
@@ -152,3 +152,55 @@ class In(Expression):
     def name_hint(self):
         vals = ", ".join(repr(v) for v in self.values)
         return f"({self.children[0].name_hint} IN ({vals}))"
+
+
+class IsNull(Expression):
+    """``e IS NULL``: never null itself (ref ``comparison.py:IsNull``)."""
+
+    def __init__(self, child: Expression):
+        self.children = [child]
+
+    def data_type(self, schema: Schema) -> DataType:
+        return BOOL
+
+    def device_unsupported_reason(self, schema: Schema):
+        return None
+
+    def eval_device(self, ctx):
+        c = self.children[0].eval_device(ctx)
+        # a padding row is no null row
+        out = torch.logical_and(torch.logical_not(c.validity),
+                                ctx.row_mask())
+        return DVal(out, torch.ones_like(out), BOOL)
+
+    def key(self):
+        return f"isnull({self.children[0].key()})"
+
+    @property
+    def name_hint(self):
+        return f"({self.children[0].name_hint} IS NULL)"
+
+
+class IsNotNull(Expression):
+    """``e IS NOT NULL``: never null itself (ref
+    ``comparison.py:IsNotNull``)."""
+
+    def __init__(self, child: Expression):
+        self.children = [child]
+
+    def data_type(self, schema: Schema) -> DataType:
+        return BOOL
+
+    def device_unsupported_reason(self, schema: Schema):
+        return None
+
+    def eval_device(self, ctx):
+        c = self.children[0].eval_device(ctx)
+        return DVal(c.validity, torch.ones_like(c.validity), BOOL)
+
+    def key(self):
+        return f"isnotnull({self.children[0].key()})"
+
+    @property
+    def name_hint(self):
+        return f"({self.children[0].name_hint} IS NOT NULL)"

@@ -1,14 +1,137 @@
 """Conditional expressions (port of ``spark_rapids_tpu/exprs/conditional.py``:
-``Coalesce``, which a USING-style full join projects its keys through).
+``If``, ``CaseWhen`` and ``Coalesce``).
+
+A NULL predicate picks the next branch (SQL: only TRUE selects), and the
+first matching branch wins. An untyped ``lit(None)`` else is the absent
+else: every row no branch takes is NULL. ``If`` and ``CaseWhen`` take
+numeric, bool, date and timestamp results here; a string-typed one is
+refused at planning until the strings slice.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from ..types import DataType, Schema, torch_dtype
+from ..types import NULLTYPE, STRING, DataType, Schema, torch_dtype
 from .base import DVal, Expression, promote_types
 
-__all__ = ["Coalesce"]
+__all__ = ["If", "CaseWhen", "Coalesce"]
+
+
+def _common_type(schema: Schema, exprs) -> DataType:
+    """The promoted type of ``exprs``, untyped NULLs aside."""
+    dt = None
+    for e in exprs:
+        edt = e.data_type(schema)
+        if edt == NULLTYPE:
+            continue
+        dt = edt if dt is None else promote_types(dt, edt)
+    return dt if dt is not None else exprs[0].data_type(schema)
+
+
+def _result_reason(expr: Expression, schema: Schema) -> Optional[str]:
+    dt = expr.data_type(schema)
+    if dt == STRING:
+        return (f"{type(expr).__name__} with a string result arrives with "
+                "slice 7 (string expressions)")
+    if not dt.device_backed:
+        return f"{type(expr).__name__}: result type {dt.name} is host-only"
+    return None
+
+
+def _select(branches, data, validity, tdt, ctx):
+    """Apply (predicate, value) branches in reverse, so the first match
+    wins; a NULL predicate selects nothing."""
+    for pred, val in reversed(branches):
+        p = pred.eval_device(ctx)
+        v = val.eval_device(ctx)
+        cond = torch.logical_and(p.data, p.validity)
+        data = torch.where(cond, v.data.to(tdt), data)
+        validity = torch.where(cond, v.validity, validity)
+    return data, validity
+
+
+class If(Expression):
+    """``if(pred, t, f)`` (ref ``conditional.py:If``)."""
+
+    def __init__(self, pred: Expression, if_true: Expression,
+                 if_false: Expression):
+        self.children = [pred, if_true, if_false]
+
+    def data_type(self, schema: Schema) -> DataType:
+        return _common_type(schema, self.children[1:])
+
+    def device_unsupported_reason(self, schema: Schema):
+        return _result_reason(self, schema) \
+            or super().device_unsupported_reason(schema)
+
+    def eval_device(self, ctx) -> DVal:
+        dt = self.data_type(ctx.schema)
+        tdt = torch_dtype(dt)
+        f = self.children[2].eval_device(ctx)
+        data, validity = _select([(self.children[0], self.children[1])],
+                                 f.data.to(tdt), f.validity, tdt, ctx)
+        return DVal(data, validity, dt)
+
+    def key(self):
+        return "if(" + ",".join(c.key() for c in self.children) + ")"
+
+
+class CaseWhen(Expression):
+    """``CASE WHEN p1 THEN v1 ... [ELSE e] END`` (ref
+    ``conditional.py:CaseWhen``)."""
+
+    def __init__(self, branches, else_value: Optional[Expression] = None):
+        self.branches = [tuple(b) for b in branches]
+        self.else_value = else_value
+        self.children = [e for p, v in self.branches for e in (p, v)] + (
+            [else_value] if else_value is not None else [])
+
+    def data_type(self, schema: Schema) -> DataType:
+        vals = [v for _, v in self.branches] + (
+            [self.else_value] if self.else_value is not None else [])
+        return _common_type(schema, vals)
+
+    def device_unsupported_reason(self, schema: Schema):
+        return _result_reason(self, schema) \
+            or super().device_unsupported_reason(schema)
+
+    def _typed_else(self, schema: Schema) -> Optional[Expression]:
+        """The else value; an untyped NULL literal (``otherwise(None)``)
+        counts as absent, its value being the all-NULL default."""
+        ev = self.else_value
+        if ev is not None and ev.data_type(schema) == NULLTYPE:
+            return None
+        return ev
+
+    def eval_device(self, ctx) -> DVal:
+        dt = self.data_type(ctx.schema)
+        tdt = torch_dtype(dt)
+        ev = self._typed_else(ctx.schema)
+        if ev is not None:
+            e = ev.eval_device(ctx)
+            data, validity = e.data.to(tdt), e.validity
+        else:
+            data = torch.zeros(ctx.padded_len, dtype=tdt, device=ctx.device)
+            validity = torch.zeros(ctx.padded_len, dtype=torch.bool,
+                                   device=ctx.device)
+        data, validity = _select(self.branches, data, validity, tdt, ctx)
+        return DVal(data, validity, dt)
+
+    def key(self):
+        parts = [f"{p.key()}->{v.key()}" for p, v in self.branches]
+        if self.else_value is not None:
+            parts.append(f"else {self.else_value.key()}")
+        return "casewhen(" + ",".join(parts) + ")"
+
+    @property
+    def name_hint(self):
+        parts = " ".join(f"WHEN {p.name_hint} THEN {v.name_hint}"
+                         for p, v in self.branches)
+        if self.else_value is not None:
+            parts += f" ELSE {self.else_value.name_hint}"
+        return f"CASE {parts} END"
 
 
 class Coalesce(Expression):

@@ -1,5 +1,6 @@
 """Logical plan nodes (port of ``spark_rapids_tpu/plan/logical.py``: scan,
-project, filter, aggregate, sort, join)."""
+project, filter, aggregate, sort, join, union, and the nodes the plan
+rewrites make: expand, branch alignment and the distinct flag)."""
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
@@ -8,7 +9,8 @@ from ..exprs.base import Expression
 from ..types import BOOL, Schema, StructField
 
 __all__ = ["LogicalPlan", "LogicalScan", "ParquetScan", "Project",
-           "Filter", "Aggregate", "SortOrder", "Sort", "Join"]
+           "Filter", "Aggregate", "SortOrder", "Sort", "Join", "Union",
+           "Expand", "BranchAlign", "DistinctFlag"]
 
 
 class LogicalPlan:
@@ -99,9 +101,21 @@ class Filter(LogicalPlan):
 class Aggregate(LogicalPlan):
     """groupings: expressions; aggs: AggregateExpressions with names."""
 
-    def __init__(self, groupings, aggs, child: LogicalPlan):
+    def __init__(self, groupings, aggs, child: LogicalPlan,
+                 many_groups_hint: bool = False, int_key_cards=None):
         self.groupings = list(groupings)
         self.aggs = list(aggs)
+        #: the planner knows the aggregate has many groups (the inner dedup
+        #: of a two-level DISTINCT); carried for the optimistic-groups
+        #: path, which the port does not have yet
+        self.many_groups_hint = many_groups_hint
+        #: per grouping, a PROVEN cardinality k (the key's values lie in
+        #: [0, k)) or None; set only by rewrites that make the key (the
+        #: union-of-aggregates branch id), so the exec may group it by
+        #: direct addressing
+        self.int_key_cards = (list(int_key_cards)
+                              if int_key_cards is not None
+                              else [None] * len(self.groupings))
         self.children = [child]
 
     def schema(self) -> Schema:
@@ -188,3 +202,78 @@ class Join(LogicalPlan):
         k = ", ".join(f"{a.name_hint}={b.name_hint}"
                       for a, b in zip(self.left_keys, self.right_keys))
         return f"Join[{self.join_type}, keys=({k})]"
+
+
+class Union(LogicalPlan):
+    """UNION ALL: the children's rows in order; columns pair by position."""
+
+    def __init__(self, children: Sequence[LogicalPlan]):
+        self.children = list(children)
+
+    def schema(self) -> Schema:
+        return self.children[0].schema()
+
+    def describe(self):
+        return f"Union[{len(self.children)}]"
+
+
+class Expand(LogicalPlan):
+    """Each input row emits one row per projection list (ref
+    GpuExpandExec)."""
+
+    def __init__(self, projections: Sequence[Sequence[Expression]],
+                 names: Sequence[str], child: LogicalPlan):
+        self.projections = [list(p) for p in projections]
+        self.names = list(names)
+        self.children = [child]
+
+    def schema(self) -> Schema:
+        cs = self.children[0].schema()
+        return Schema([StructField(n, e.data_type(cs), True)
+                       for n, e in zip(self.names, self.projections[0])])
+
+    def describe(self):
+        return f"Expand[{len(self.projections)} x ({', '.join(self.names)})]"
+
+
+class BranchAlign(LogicalPlan):
+    """The union-of-aggregates result: the child is an aggregate keyed by
+    a branch id (its first column); the output has exactly ``n`` rows in
+    branch order, a branch without rows filled with the empty aggregate's
+    values (a count 0, anything else NULL), and drops the id."""
+
+    def __init__(self, n: int, fill_zero: Sequence[bool],
+                 child: LogicalPlan):
+        self.n = n
+        self.fill_zero = list(fill_zero)
+        self.children = [child]
+
+    def schema(self) -> Schema:
+        return Schema(list(self.children[0].schema().fields)[1:])
+
+    def describe(self):
+        return f"BranchAlign[n={self.n}]"
+
+
+class DistinctFlag(LogicalPlan):
+    """Appends a bool column, true on the stream-global first occurrence
+    of each (key_exprs, value_expr) combination and false elsewhere (a
+    NULL value never flags). Made by the hash-distinct rewrite
+    (plan/rewrites.py); run by exec/distinct_flag.py."""
+
+    def __init__(self, key_exprs: Sequence[Expression],
+                 value_expr: Expression, flag_name: str,
+                 child: LogicalPlan):
+        self.key_exprs = list(key_exprs)
+        self.value_expr = value_expr
+        self.flag_name = flag_name
+        self.children = [child]
+
+    def schema(self) -> Schema:
+        return Schema(list(self.children[0].schema().fields)
+                      + [StructField(self.flag_name, BOOL, False)])
+
+    def describe(self):
+        k = ", ".join(e.name_hint for e in self.key_exprs)
+        return (f"DistinctFlag[keys=[{k}], value="
+                f"{self.value_expr.name_hint}]")

@@ -7,7 +7,7 @@ NotImplementedError with it.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 from ..config import TpuConf
 from ..exec.base import TpuExec
@@ -21,6 +21,9 @@ class PlanMeta:
         self.conf = conf
         self.reasons: List[str] = []
         self.child_metas: List[PlanMeta] = []
+        #: the device bytes of the memory manager the query runs under
+        #: (set by ``wrap_plan``; None: the conf's manager)
+        self.budget: Optional[int] = None
 
     def will_not_work_on_tpu(self, reason: str) -> None:
         if reason not in self.reasons:

@@ -1,11 +1,15 @@
 """Logical plan -> tagged meta -> physical exec (port of
 ``spark_rapids_tpu/plan/overrides.py``).
 
-``plan_query`` prunes columns, tags and converts, with no cost optimizer
-(the reference with ``spark.rapids.tpu.sql.optimizer.enabled=false``) and
-no plan rewrites. A join broadcasts the side its hint names, or else the
-smaller side whose plan-time size estimate is within
-``spark.rapids.tpu.sql.autoBroadcastJoinThreshold`` (estimates only:
+``plan_query`` rewrites (plan/rewrites.py: the union of aggregates in one
+pass, DISTINCT aggregates), prunes columns, tags and converts, with no
+cost optimizer (the reference with
+``spark.rapids.tpu.sql.optimizer.enabled=false``). A keyless aggregate
+over an in-memory scan widens the scan's batches up to the whole
+partition while one batch fits half the memory manager's budget
+(``AggregateMeta._widen_scan_batches``). A join broadcasts the side its
+hint names, or else the smaller side whose plan-time size estimate is
+within ``spark.rapids.tpu.sql.autoBroadcastJoinThreshold`` (estimates only:
 measured sizes wait for the adaptivity slice). An aggregate, keyless or
 keyed, folds the device filters and projections below it into its update
 (``_fold_stages``), as the reference's does. String group and sort keys plan onto the device:
@@ -46,15 +50,26 @@ class _FallbackMeta(PlanMeta):
             f"no device rule for {type(self.plan).__name__}")
 
 
-def wrap_plan(plan: L.LogicalPlan, conf: TpuConf) -> PlanMeta:
+def wrap_plan(plan: L.LogicalPlan, conf: TpuConf,
+              budget: Optional[int] = None) -> PlanMeta:
     m = _RULES.get(type(plan), _FallbackMeta)(plan, conf)
-    m.child_metas = [wrap_plan(c, conf) for c in plan.children]
+    m.budget = budget
+    m.child_metas = [wrap_plan(c, conf, budget) for c in plan.children]
     return m
 
 
-def plan_query(plan: L.LogicalPlan, conf: TpuConf) -> TpuExec:
-    """prune columns -> tag -> convert."""
-    meta = wrap_plan(prune_columns(plan), conf)
+def plan_query(plan: L.LogicalPlan, conf: TpuConf,
+               budget: Optional[int] = None) -> TpuExec:
+    """rewrite -> prune columns -> tag -> convert. The rewrites run before
+    pruning: the union rewrite keys on the identity of the shared
+    relation, which pruning's per-branch copies would break. ``budget``:
+    the device bytes of the memory manager the query will run under
+    (the session's; by default the conf's manager on the card, or on
+    the CPU where there is none)."""
+    from .rewrites import HASH_DISTINCT_ENABLED, rewrite_plan
+    if conf.sql_enabled:
+        plan = rewrite_plan(plan, bool(conf.get(HASH_DISTINCT_ENABLED)))
+    meta = wrap_plan(prune_columns(plan), conf, budget)
     meta.tag()
     return meta.convert()
 
@@ -118,21 +133,36 @@ def prune_columns(plan: L.LogicalPlan,
                 _expr_refs(plan.condition, refs)
             lreq = (set(required) | refs) & lnames
             rreq = (set(required) | refs) & rnames
-        kids = [prune_columns(plan.children[0], lreq),
-                prune_columns(plan.children[1], rreq)]
-        if all(k is o for k, o in zip(kids, plan.children)):
-            return plan
-        node = copy.copy(plan)
-        node.children = kids
-        return node
+        return _rebuilt(plan, prune_columns(plan.children[0], lreq),
+                        prune_columns(plan.children[1], rreq))
+    if isinstance(plan, L.Union):
+        # the children's columns pair by position and share the names
+        return _rebuilt(plan, *[prune_columns(c, required)
+                                for c in plan.children])
+    if isinstance(plan, L.Expand):
+        # every projection keeps every column: the rows pair by position
+        child_req = set()
+        for p in plan.projections:
+            for e in p:
+                _expr_refs(e, child_req)
+        return _rebuilt(plan, prune_columns(plan.children[0], child_req))
+    if isinstance(plan, L.DistinctFlag):
+        child_req = None if required is None \
+            else set(required) - {plan.flag_name}
+        if child_req is not None:
+            for e in plan.key_exprs + [plan.value_expr]:
+                _expr_refs(e, child_req)
+        return _rebuilt(plan, prune_columns(plan.children[0], child_req))
+    if isinstance(plan, L.BranchAlign):
+        return _rebuilt(plan, prune_columns(plan.children[0], None))
     return plan
 
 
-def _rebuilt(node, child):
-    if child is node.children[0]:
+def _rebuilt(node, *kids):
+    if all(k is o for k, o in zip(kids, node.children)):
         return node
     node = copy.copy(node)
-    node.children = [child]
+    node.children = list(kids)
     return node
 
 
@@ -252,12 +282,62 @@ class AggregateMeta(PlanMeta):
             r = a.device_unsupported_reason(schema)
             if r:
                 self.will_not_work_on_tpu(f"aggregate <{a.name_hint}>: {r}")
+            if a.distinct:
+                # the rewrites left it: several distinct children, or an
+                # aggregate that does not decompose
+                self.will_not_work_on_tpu(
+                    f"aggregate <{a.name_hint}>: this DISTINCT form has no "
+                    "device rewrite")
 
     def convert_to_tpu(self, children):
         child, stages, eval_schema = self._fold_stages(children[0])
+        if not self.plan.groupings:
+            self._widen_scan_batches(child)
         return A.TpuHashAggregateExec(self.plan.groupings, self.plan.aggs,
                                       child, pre_stages=stages,
-                                      eval_schema=eval_schema)
+                                      eval_schema=eval_schema,
+                                      int_key_cards=self.plan.int_key_cards)
+
+    def _widen_scan_batches(self, node) -> None:
+        """A keyless aggregate has no group count to keep small, and pays
+        per batch: feed it the widest batches the memory runtime allows
+        (ref ``_widen_scan_batches``). Through filters, projections and
+        a distinct flag down to an in-memory scan."""
+        from ..config import AGG_WIDE_BATCH_ROWS
+        from ..exec.distinct_flag import HashDistinctFlagExec
+        wide = int(self.conf.get(AGG_WIDE_BATCH_ROWS))
+        while isinstance(node, (B.TpuFilterExec, B.TpuProjectExec,
+                                HashDistinctFlagExec)):
+            node = node.children[0]
+        if not isinstance(node, B.InMemoryScanExec):
+            return
+        if wide <= 0:
+            total = max((t.num_rows for t in node.tables), default=0)
+            wide = min(total, self._wide_batch_row_cap(node))
+        node.batch_rows = max(node.batch_rows, wide, 1)
+
+    def _wide_batch_row_cap(self, scan) -> int:
+        """Rows of one batch of ``scan`` that fit half the memory
+        manager's budget (ref ``_wide_batch_row_cap``): a row's bytes are
+        the larger of the schema's estimate (fixed-width lanes, 16 bytes
+        for a string, and a validity byte each) and the tables' own bytes
+        a row."""
+        from ..mem.manager import MemoryManager
+        row_bytes = sum((f.dtype.np_dtype.itemsize
+                         if f.dtype.np_dtype is not None else 16) + 1
+                        for f in scan.output_schema().fields)
+        total_rows = sum(t.num_rows for t in scan.tables)
+        if total_rows:
+            names = scan.output_schema().names()
+            data_bytes = sum(t.select(names).nbytes for t in scan.tables)
+            row_bytes = max(row_bytes, -(-data_bytes // total_rows))
+        budget = self.budget
+        if budget is None:
+            import torch
+            budget = MemoryManager.get(
+                self.conf, "cuda" if torch.cuda.is_available()
+                else "cpu").budget
+        return max(1, (budget // 2) // max(1, row_bytes))
 
     @staticmethod
     def _fold_stages(child: TpuExec):
@@ -299,6 +379,51 @@ class SortMeta(PlanMeta):
 
     def convert_to_tpu(self, children):
         return S.TpuSortExec(self.plan.orders, children[0])
+
+
+@rule(L.Union)
+class UnionMeta(PlanMeta):
+    def convert_to_tpu(self, children):
+        return B.UnionExec(children)
+
+
+@rule(L.Expand)
+class ExpandMeta(PlanMeta):
+    def tag_self(self):
+        schema = self.plan.children[0].schema()
+        for p in self.plan.projections:
+            for e in p:
+                r = e.fully_device_supported(schema)
+                if r:
+                    self.will_not_work_on_tpu(f"expand <{e.name_hint}>: {r}")
+
+    def convert_to_tpu(self, children):
+        return B.TpuExpandExec(self.plan.projections, self.plan.names,
+                               children[0])
+
+
+@rule(L.DistinctFlag)
+class DistinctFlagMeta(PlanMeta):
+    def tag_self(self):
+        schema = self.plan.children[0].schema()
+        for e in self.plan.key_exprs + [self.plan.value_expr]:
+            r = e.fully_device_supported(schema)
+            if r:
+                self.will_not_work_on_tpu(
+                    f"distinct-flag <{e.name_hint}>: {r}")
+
+    def convert_to_tpu(self, children):
+        from ..exec.distinct_flag import HashDistinctFlagExec
+        p = self.plan
+        return HashDistinctFlagExec(p.key_exprs, p.value_expr, p.flag_name,
+                                    children[0])
+
+
+@rule(L.BranchAlign)
+class BranchAlignMeta(PlanMeta):
+    def convert_to_tpu(self, children):
+        return B.BranchAlignExec(self.plan.n, self.plan.fill_zero,
+                                 children[0])
 
 
 def _join_key_reason(e: Expression, schema) -> Optional[str]:
