@@ -98,15 +98,23 @@ result line):
                 card (NaN, +-0.0 and NULL values, a NULL group, float32
                 and int8 keys, one key filling a batch, 2M distinct keys
                 forcing two growths, keys repeating across batches, a
-                batch of one row), timed cold on q28's shape (the first
-                batch against fresh tables, and the last against the
-                table of the batches before it) beside its bound; then
+                batch of one row, repeated keys in every warp, batches
+                of more rows than the kernel's grid has threads, 40
+                batches queued behind a sleep with no synchronise, keys
+                outgrowing the table twice; each case's slots, growths
+                and launches printed), timed cold on q28's shape (the
+                first batch against fresh tables, and the last against
+                the table of the batches before it) beside its bound;
+                its sizing and launch over q28's batches under PyTorch's
+                sync debug mode "error" (no blocking host read); then
                 TPC-DS q9 (CASE WHEN inside keyless aggregates over one
                 widened batch) and q28 (six filtered aggregates in a
                 union, run as one pass: a branch id through the dense
-                route and count(DISTINCT) through distinct_flag) at SF10
-                over phase 10's store_sales, cold and warm, against
-                numpy, each once more under torch.profiler.
+                route and count(DISTINCT) through distinct_flag, one
+                launch a batch plus its growths, the table's final size
+                and the peak allocation printed) at SF10 over phase 10's
+                store_sales, cold and warm, against numpy, each once
+                more under torch.profiler.
 
 The data is generated here from a seed, with numpy only: this script
 imports neither JAX, pyarrow, pandas nor the JAX package. It prints a
@@ -393,6 +401,8 @@ def gen_table(n_rows: int) -> dict:
 # gen_item, q3) in numpy, the same seeds and draws
 # ---------------------------------------------------------------------------
 
+#: the H100's L2 cache
+L2_BYTES = 50 << 20
 #: store_sales rows at TPC-DS scale factor 10
 SF10_STORE_SALES = 28_800_991
 BRANDS = [f"brand#{i}" for i in range(1, 61)]
@@ -2949,34 +2959,61 @@ def _df_case(rng, n_batches: int, rows: int, vkind: str, gkind,
     return out
 
 
-def _df_stream(batches, min_slots: int = 1 << 16):
+def _df_stream(batches, min_slots: int = 1 << 16, hold_ms: float = 0.0):
     """The kernel's and the plain version's flags over ``batches`` on the
-    card, the table sized as the exec sizes it: (every batch bit-identical,
-    growths, slots, flags in all)."""
+    card, the table sized as the exec sizes it. Each batch is synchronised
+    and compared at once; with ``hold_ms``, a sleep of that long holds the
+    stream first and every batch is queued with no synchronise, compared
+    after the last (the key count then lags the launches). Returns
+    {same: every batch bit-identical, growths, slots, flags, launches,
+    carried: the most rows a bound carried beyond its batch's own}."""
     import torch
     from spark_rapids_tpu_torch.exec import distinct_flag as dfl
-    table, seen, ub, growths, same, flagged = None, dfl.SeenKeys(), 0, 0, \
-        True, 0
-    for v, vv, g, gv in batches:
-        ub += int(v.shape[0])
-        table, grew = dfl.sized_table(table, v.device, ub, min_slots)
-        growths += grew
-        got = dfl.distinct_flag(table, v, vv, g, gv)
-        want = dfl.distinct_flag_reference(seen, v, vv, g, gv)
+    table, growths, carried, got = None, 0, 0, []
+    saved = dfl.distinct_flag.launches
+    dfl.distinct_flag.launches = 0
+    seen, same = dfl.SeenKeys(), True
+    if hold_ms:
         torch.cuda.synchronize()
-        same = same and torch.equal(got, want)
-        flagged += int(got.sum())
+        torch.cuda._sleep(int(hold_ms * CYCLES_PER_MS))
+    for v, vv, g, gv in batches:
+        n = int(v.shape[0])
+        if table is not None:
+            carried = max(carried, table.key_bound(n)[1] - n)
+        table, grew = dfl.sized_table(table, v.device, n, min_slots)
+        growths += grew
+        got.append(dfl.distinct_flag(table, v, vv, g, gv))
+        if not hold_ms:
+            want = dfl.distinct_flag_reference(seen, v, vv, g, gv)
+            torch.cuda.synchronize()
+            same = same and torch.equal(got[-1], want)
+    launches = dfl.distinct_flag.launches
+    dfl.distinct_flag.launches = saved
+    if hold_ms:
+        for f, (v, vv, g, gv) in zip(got, batches):
+            same = same and torch.equal(
+                f, dfl.distinct_flag_reference(seen, v, vv, g, gv))
+    flagged = sum(int(f.sum()) for f in got)
     _check(not table.failed(), "distinct_flag set its error word")
-    return same, growths, table.capacity, flagged
+    return {"same": same, "growths": growths, "slots": table.capacity,
+            "flags": flagged, "launches": launches, "carried": carried}
 
 
 def phase_distinct_exact() -> dict:
     """distinct_flag against its plain version on the card, bit for bit,
     over the cases of the module doc; each case's route (the kernel's
-    table: its slots and growths) recorded."""
+    table: its slots, growths and launches) recorded. The last four
+    cases are: every 32-row piece with repeated keys (the rows of a key
+    in a warp race for one slot and its first row), batches of more rows
+    than the kernel's grid has threads (a thread's later rows through
+    scratch), 40 batches queued behind a sleep
+    with no synchronise (the key count lags, the bound carries rows), and
+    keys that outgrow the table twice."""
+    from spark_rapids_tpu_torch.exec import distinct_flag as dfl
     rng = np.random.RandomState(11)
     one_key = np.full(1 << 20, 4.25)
     spread = rng.permutation(2_000_000).astype(np.int64)
+    grid = dfl.kernel_shape()["grid_threads"]
     cases = {
         "nan_zero_null_value_null_group_f64_i64": _df_case(
             rng, 3, 200_000, np.float64, np.int64, hi=5000),
@@ -2992,23 +3029,41 @@ def phase_distinct_exact() -> dict:
                                                np.int64, nulls=False,
                                                hi=20_000),
         "one_row": [_df_tensors(np.array([7.5]), np.array([3]))] * 2,
+        "repeats_in_every_warp": _df_case(rng, 3, 200_000, np.int64,
+                                          np.int8, hi=4),
+        "more_rows_than_the_grid": _df_case(rng, 2, 4 * grid, np.float64,
+                                            np.int64, hi=100_000),
+        "40_batches_queued_unsynchronised": _df_case(
+            rng, 40, 50_000, np.float64, np.int64, hi=30_000),
+        "keys_outgrow_the_table_twice": [
+            _df_tensors(spread[i:i + 300_000] * 3 + 1, None)
+            for i in range(0, 1_500_000, 300_000)],
     }
     out = {}
     for name, batches in cases.items():
-        same, growths, slots, flagged = _df_stream(batches)
-        _check(same, f"distinct_flag {name}: differs from its plain "
-                     "version")
-        out[name] = {"batches": len(batches), "growths": growths,
-                     "slots": slots, "flags": flagged,
-                     "route": "cuda kernel, table of "
-                              f"{slots} slots after {growths} growths"}
-    _check(out["2M_distinct_keys_two_growths"]["growths"] >= 2,
-           "the 2M-key case did not grow twice")
+        r = _df_stream(batches, hold_ms=50.0 if name.startswith("40_")
+                       else 0.0)
+        _check(r["same"], f"distinct_flag {name}: differs from its plain "
+                          "version")
+        _check(r["launches"] == len(batches) + r["growths"],
+               f"distinct_flag {name}: {r['launches']} launches for "
+               f"{len(batches)} batches and {r['growths']} growths")
+        out[name] = {"batches": len(batches), **{
+            k: r[k] for k in ("growths", "slots", "flags", "launches",
+                              "carried")},
+            "route": f"cuda kernel, one launch a batch, table of "
+                     f"{r['slots']} slots after {r['growths']} growths"}
+    _check(out["2M_distinct_keys_two_growths"]["growths"] >= 2
+           and out["keys_outgrow_the_table_twice"]["growths"] >= 2,
+           "a growing case did not grow twice")
+    _check(out["40_batches_queued_unsynchronised"]["carried"] > 0,
+           "the queued stream's count never lagged its launches")
     _log("kernel distinct_flag exact against its plain version (every "
-         "batch bit-identical): " + "; ".join(
+         f"batch bit-identical; grid of {grid} threads): " + "; ".join(
              f"{k}: {v['batches']} batches, {v['flags']} flags, "
-             f"{v['slots']} slots, {v['growths']} growths"
-             for k, v in out.items()))
+             f"{v['slots']} slots, {v['growths']} growths, "
+             f"{v['launches']} launches, bound carried up to "
+             f"{v['carried']} rows" for k, v in out.items()))
     return out
 
 
@@ -3039,6 +3094,35 @@ def q28_flag_batches(ss: dict, batch_rows: int):
     return out
 
 
+def phase_distinct_nosync(batches) -> dict:
+    """HashDistinctFlagExec's sizing and the kernel over q28's batches with
+    PyTorch's sync debug mode at "error": any blocking host read in the
+    loop raises. The error word is read after, outside it."""
+    import torch
+    from spark_rapids_tpu_torch.exec import distinct_flag as dfl
+    torch.cuda.synchronize()
+    table, growths = None, 0
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for v, vv, g, gv in batches:
+            table, grew = dfl.sized_table(
+                table, v.device, int(v.shape[0]),
+                dfl.HashDistinctFlagExec._MIN_SLOTS)
+            growths += grew
+            dfl.distinct_flag(table, v, vv, g, gv)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    _check(not table.failed(), "distinct_flag set its error word")
+    _log(f"distinct_flag: sizing and kernel over q28's {len(batches)} "
+         f"batches under set_sync_debug_mode('error'): no blocking host "
+         f"read; {growths} growths, {table.capacity} slots at the end "
+         f"(keys counted {int(table.keys)}), {host_ms:.2f} ms on the host")
+    return {"batches": len(batches), "growths": growths,
+            "slots": table.capacity, "host_ms": host_ms}
+
+
 def distinct_bound(rows: int, new_keys: int) -> dict:
     """The least bytes one batch's flags need: the value and group words
     (8 B each) and their validity (1 B each) read once, the flag (1 B)
@@ -3060,9 +3144,9 @@ def phase_distinct_times(batches, card: str) -> dict:
     from spark_rapids_tpu_torch.exec import distinct_flag as dfl
     first = batches[0]
     n0 = int(first[0].shape[0])
+    slots0 = dfl.table_slots(0, n0, 1 << 16)
     # first batch: a fresh table a call (the table is most of the bytes)
-    k = max(2, -(-COLD_BYTES // (tables_slots(n0) * dfl.SLOT_BYTES
-                                 + 18 * n0)))
+    k = max(2, -(-COLD_BYTES // (slots0 * dfl.SLOT_BYTES + 18 * n0)))
     tables = [dfl.sized_table(None, first[0].device, n0, 1 << 16)[0]
               for _ in range(k)]
     inputs = [tuple(None if t is None else t.clone() for t in first)
@@ -3077,14 +3161,14 @@ def phase_distinct_times(batches, card: str) -> dict:
     del tables, inputs
     # the last full batch against the table of the stream before it
     at = max(len(batches) - 2, 0)
-    table, ub = None, 0
+    table = None
     for v, vv, g, gv in batches[:at]:
-        ub += int(v.shape[0])
-        table, _ = dfl.sized_table(table, v.device, ub, 1 << 16)
+        table, _ = dfl.sized_table(table, v.device, int(v.shape[0]),
+                                   1 << 16)
         dfl.distinct_flag(table, v, vv, g, gv)
     last = batches[at]
     n = int(last[0].shape[0])
-    table, _ = dfl.sized_table(table, last[0].device, ub + n, 1 << 16)
+    table, _ = dfl.sized_table(table, last[0].device, n, 1 << 16)
     new_last = int(dfl.distinct_flag(table, *last).sum())
     per = 18 * n
     copies = [last] + [tuple(None if t is None else t.clone() for t in last)
@@ -3107,7 +3191,8 @@ def phase_distinct_times(batches, card: str) -> dict:
            "bound_ms": b["ms"], "bound_by": b["by"],
            "bound_bytes": b["bytes"], "rows": n, "slots": table.capacity,
            "batch": at + 1, "batches": len(batches),
-           "table_bytes": table.nbytes, "new_keys": new_last,
+           "table_bytes": table.nbytes, "in_l2": table.nbytes <= L2_BYTES,
+           "new_keys": new_last,
            "first_batch": {"ms": first_ms, "host_ms": first_host,
                            "rows": n0, "new_keys": new0,
                            "bound_ms": b0["ms"], "bound_bytes": b0["bytes"],
@@ -3116,23 +3201,20 @@ def phase_distinct_times(batches, card: str) -> dict:
     _log(f"kernel distinct_flag on q28's batch {at + 1} of {len(batches)} "
          f"({n} rows, {new_last} of their keys new, a table of "
          f"{table.capacity} slots = {table.nbytes} B holding the earlier "
-         f"batches' keys; {shape['registers']} registers, "
-         f"{shape['blocks_per_sm']} blocks an SM), cold: two launches "
+         f"batches' keys, {'within' if row['in_l2'] else 'beyond'} the "
+         f"{L2_BYTES} B L2; {shape['registers']} registers, "
+         f"{shape['blocks_per_sm']} blocks an SM, a grid of up to "
+         f"{shape['grid_threads']} threads), cold: one launch "
          f"{ms:.4f} ms, bound {b['ms']:.4f} ms ({b['bytes']} B, by bytes), "
          f"{b['ms'] / ms:.0%} of bound; host {host_ms:.4f} ms a call "
          f"(enqueue); whole call synchronised {call_ms:.4f} ms on the card, "
          f"{call_host:.4f} ms on the host clock; plain {plain_ms:.4f} ms; "
          f"library ms: none (no PyTorch call computes this function); "
          f"first batch ({n0} rows, {new0} new keys, a fresh table of "
-         f"{tables_slots(n0)} slots) {first_ms:.4f} ms, bound "
+         f"{slots0} slots) {first_ms:.4f} ms, bound "
          f"{b0['ms']:.4f} ms, host {first_host:.4f} ms; {len(copies)} input "
          f"copies [{card}]")
     return row
-
-
-def tables_slots(rows: int) -> int:
-    from spark_rapids_tpu_torch.exec import distinct_flag as dfl
-    return max(1 << 16, dfl._next_pow2(dfl.LOAD_NUM * rows))
 
 
 def _tpcds2_run(session, host, query, right, label: str) -> dict:
@@ -3180,11 +3262,13 @@ def phase_tpcds2(card: str, batch_rows: int, ss: dict, ss_host) -> dict:
          f"{len(flag_batches)} batches, {keys} distinct (branch, list "
          f"price) keys) in {time.perf_counter() - t0:.2f} s [{card}]")
     times = phase_distinct_times(flag_batches, card)
+    nosync = phase_distinct_nosync(flag_batches)
+    n_flag_batches = len(flag_batches)
     del flag_batches
     session = TorchSession({"spark.rapids.tpu.sql.batchSizeRows":
                             batch_rows})
     res = {"card": card, "rows": SF10_STORE_SALES, "exact": exact,
-           "q28_distinct_keys": keys}
+           "q28_distinct_keys": keys, "nosync": nosync}
     for name, query, want in (("q9", q9, want9), ("q28", q28, want28)):
         runs = {}
         for label in ("cold", "warm"):
@@ -3192,6 +3276,12 @@ def phase_tpcds2(card: str, batch_rows: int, ss: dict, ss_host) -> dict:
                 session, ss_host, query,
                 lambda r, w=want: stats_equal(r, w),
                 f"{name} SF10 {label}")
+            if name == "q28":
+                flag = session.last_plan
+                while type(flag).__name__ != "HashDistinctFlagExec":
+                    flag = flag.children[0]
+                runs[label]["table_slots"] = flag.last_slots
+                runs[label]["table_growths"] = flag.last_growths
         plan = session.last_plan.tree_string()
         scan = _plan_scan(session.last_plan)
         runs["plan"] = plan
@@ -3207,9 +3297,25 @@ def phase_tpcds2(card: str, batch_rows: int, ss: dict, ss_host) -> dict:
                    and plan.count("InMemoryScan") == 1
                    and "route=dense" in plan, f"q28's plan:\n{plan}")
             for r in (c, w):
-                _check(r["launches"]["distinct_flag"] > 0
+                _check(r["launches"]["distinct_flag"]
+                       == n_flag_batches + r["table_growths"]
                        and r["launches"]["dense_groupby"] > 0,
-                       f"q28 launched {r['launches']}")
+                       f"q28 launched {r['launches']} over "
+                       f"{n_flag_batches} batches and "
+                       f"{r['table_growths']} growths")
+                # the row-bound sizing (commit 04f2565) ended at
+                # 33,554,432 slots
+                _check(r["table_slots"] < (1 << 25) // 8,
+                       f"q28's table ended at {r['table_slots']} slots")
+            runs["table_slots"] = w["table_slots"]
+            _log(f"q28 SF10: distinct_flag launches "
+                 f"{c['launches']['distinct_flag']} / "
+                 f"{w['launches']['distinct_flag']} ({n_flag_batches} "
+                 f"batches, {c['table_growths']} / {w['table_growths']} "
+                 f"growths); the table ends at {c['table_slots']} / "
+                 f"{w['table_slots']} slots ({w['table_slots'] * 32} B); "
+                 f"max_memory_allocated {c['max_memory_allocated']} / "
+                 f"{w['max_memory_allocated']} B (cold / warm) [{card}]")
         _log(f"{name} SF10: equal to numpy (counts exact, averages within "
              f"{REL_TOL:g}): {rows}; wall {c['wall_ms']:.1f} ms cold, "
              f"{w['wall_ms']:.1f} ms warm; launches {c['launches']} / "
@@ -3246,10 +3352,12 @@ def phase_tpcds2(card: str, batch_rows: int, ss: dict, ss_host) -> dict:
         "library": "none: no PyTorch call computes this function",
         "host_ms": times["host_ms"], "call_ms": times["call_ms"],
         "first_batch": times["first_batch"],
-        "timing": "the two launches of q28's last full batch queued back "
-                  "to back over distinct inputs (L2 cold), against a table "
-                  "holding the earlier batches' keys; first_batch: "
-                  "against fresh tables",
+        "table_bytes": times["table_bytes"], "in_l2": times["in_l2"],
+        "q28_table_slots": res["q28"]["table_slots"],
+        "timing": "the launch of q28's last full batch queued back to "
+                  "back over distinct inputs (L2 cold), against a table "
+                  "holding the earlier batches' keys, sized by the key "
+                  "count; first_batch: against fresh tables",
         "shape": [times["rows"], times["slots"]],
         "launch": times["launch"],
         "cases": {k: v["route"] for k, v in exact.items()},

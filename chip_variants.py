@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where the dense_groupby kernel's time goes, and join_match against
-the two-kernel design of commit 843e714, on one NVIDIA card.
+"""Where the dense_groupby kernel's time goes, join_match against the
+two-kernel design of commit 843e714, and distinct_flag against the
+two-launch design of commit 04f2565, on one NVIDIA card.
 
-    python3 chip_variants.py [dense_groupby] [join_match]
+    python3 chip_variants.py [dense_groupby] [join_match] [distinct_flag]
 
-(both sections when none is named)
+(every section when none is named)
 
 Builds variants of spark_rapids_tpu_torch/csrc/dense_groupby.cu, each the
 kernel with one part changed by a text substitution, into build/variants/,
@@ -38,9 +39,23 @@ first. Then variants of the port's kernel made by text substitution
 (JOIN_VARIANTS: no look-back, no emit, tickets only; their maps are
 wrong by design), timed cold beside it, and its timeline: the global
 timer at each phase of every tile, each phase's median and largest.
+
+distinct_flag (~70 s): commit 04f2565's kernel (an insert launch and a
+mark launch a batch, fences around each published slot; its source and
+header copied below and built into build/variants/distinct_flag_04f2565/)
+beside the port's one cooperative launch, on q28's shapes at SF10 (the
+batch before the last against a table of the earlier batches' keys, the
+first against fresh tables) at 04f2565's 1 GiB table and a 16 MiB one,
+in turns (04f2565, this, this, 04f2565), after both designs' flags are
+checked against the plain version on every batch. Then 04f2565's two
+launches apart, with an 8-byte count copy and event after them, and
+without its fences (DF_VARIANTS); and the port's kernel beside its
+variants (DF_NEW_VARIANTS: 04f2565's fences, no grid barrier), and the
+host microseconds a call of the port's wrapper and of its parts.
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import subprocess
 import sys
@@ -598,6 +613,780 @@ def join_section(old_build, variants) -> None:
                   flush=True)
 
 
+#: distinct_flag of commit 04f2565 (two launches a batch: insert, then
+#: mark), its header inlined: kept here only to be timed beside the
+#: port's kernel
+DISTINCT_FLAG_04F2565 = r"""// distinct_flag: the first stream occurrence of each (group, value) key,
+// through a persistent open-addressing hash table on the card.
+//
+// Replaces the reference's jitted jnp kernels of
+// spark_rapids_tpu/exec/distinct_flag.py: ``_probe_insert`` (:83, the
+// scatter-min claim rounds in a while_loop), ``_flag_kernel`` (:133) and
+// ``_rebuild_kernel`` (:166). The flags must be exactly the reference's:
+// true on the LOWEST row of the first batch that holds a key, false on
+// every other row and on every row whose value is NULL.
+//
+// Design (csrc/distinct_flag_row.cuh holds the per-row logic):
+//  * two launches a batch. Pass 1 (distinct_flag_insert_kernel): a
+//    thread a row inserts or finds its key by linear probing, claiming
+//    an EMPTY slot with atomicCAS (EMPTY -> BUSY), writing the key's
+//    words and its row, then publishing READY with the batch's epoch
+//    after a fence; a prober that meets BUSY reads the word again (the
+//    owner is one step from publishing; independent thread scheduling
+//    lets a spinning lane and its owner share a warp). A row whose key
+//    is new in this batch atomicMins its row into the slot's first-row
+//    word and keeps the slot's index in scratch; a key from an earlier
+//    batch gives -1. Pass 2 (distinct_flag_mark_kernel) flags a row
+//    whose slot's first row is the row. atomicCAS picks any winner
+//    among a batch's rows of one key; the min makes the flagged row
+//    the lowest, so the flags are the same bits every run.
+//  * no memset between batches: the host advances the epoch.
+//  * the table's size comes from a host-known bound on the rows
+//    inserted (load at most 1/2); growth is a rehash launch
+//    (distinct_flag_rehash_kernel) into a larger zeroed table. An insert
+//    that passes every slot sets the error word, which the host reads
+//    once at the end of the stream.
+//
+// Bound: memory. Each row's key words and validity are read once, its
+// flag written once, and one 32-byte slot (one sector) read, plus one
+// written for each new key; the row's 4-byte scratch slot index is
+// written and read as well.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// The per-row logic of the distinct_flag kernel (csrc/distinct_flag.cu):
+// the normalisation of a key word, the hash, the slot compare and the
+// insert-or-find step of the open-addressing table.
+// Everything here is __host__ __device__, so g++ builds it on a machine
+// without CUDA and the tests run the kernel's two passes on the host,
+// each row's steps interleaved in shuffled thread orders
+// (tests/test_torch_distinct.py).
+//
+// A key is (group word, group null bit, value word). A word is the
+// column's value normalised so that equal SQL values have equal words:
+// narrow integers sign-extend to 64 bits, floats are their bit patterns
+// with -0.0 as +0.0 and every NaN as one pattern (a float32's 32-bit
+// pattern, sign-extended). A NULL group is a real group: its word is 0
+// and its null bit 1. Full keys are stored and compared; no result
+// relies on the hash being unique.
+//
+// A slot is 32 bytes, one sector of device memory: the two key words, a
+// state word and the first row. The state word is EMPTY (0), BUSY (a
+// thread has claimed the slot and is writing its key) or READY:
+// (epoch << 1) | group null bit, where the epoch is the batch that
+// inserted the key (1, 2, ...; the host advances it every batch, so no
+// table is ever cleared between batches). ``first`` holds the lowest row
+// of that batch with the key (atomicMin).
+#pragma once
+#include <stdint.h>
+#include <string.h>
+
+#ifdef __CUDACC__
+#define DF_HD __host__ __device__ __forceinline__
+#else
+#define DF_HD inline
+#endif
+
+// the element type of a key column, read raw (the wrapper's
+// exec/distinct_flag.py _KIND); a bool column is read as int8
+enum DfKind { DF_I8 = 0, DF_I16 = 1, DF_I32 = 2, DF_I64 = 3, DF_F32 = 4,
+              DF_F64 = 5 };
+
+struct alignas(32) DfSlot {
+  int64_t val;
+  int64_t grp;
+  uint32_t state;
+  int32_t first;
+  int64_t pad;
+};
+static_assert(sizeof(DfSlot) == 32, "a slot is one 32-byte sector");
+
+constexpr uint32_t kDfEmpty = 0u;
+constexpr uint32_t kDfBusy = 0xFFFFFFFFu;
+// the largest epoch: READY words stay below BUSY
+constexpr int64_t kDfMaxEpoch = (int64_t)1 << 30;
+
+DF_HD uint32_t df_ready(int64_t epoch, bool gnull) {
+  return ((uint32_t)epoch << 1) | (gnull ? 1u : 0u);
+}
+DF_HD int64_t df_epoch(uint32_t state) { return (int64_t)(state >> 1); }
+DF_HD bool df_gnull(uint32_t state) { return (state & 1u) != 0; }
+
+DF_HD int64_t df_norm_f64(double d) {
+  if (d != d) return 0x7FF8000000000000LL;  // every NaN as numpy's nan
+  d = d == 0.0 ? 0.0 : d;                   // -0.0 as +0.0
+  int64_t bits;
+  memcpy(&bits, &d, sizeof bits);
+  return bits;
+}
+
+DF_HD int64_t df_norm_f32(float f) {
+  if (f != f) return 0x7FC00000LL;
+  f = f == 0.0f ? 0.0f : f;
+  int32_t bits;
+  memcpy(&bits, &f, sizeof bits);
+  return bits;  // sign-extended
+}
+
+// row i of a column of ``kind``, normalised
+DF_HD int64_t df_norm(const void* col, int kind, int64_t i) {
+  switch (kind) {
+    case DF_I8: return ((const int8_t*)col)[i];
+    case DF_I16: return ((const int16_t*)col)[i];
+    case DF_I32: return ((const int32_t*)col)[i];
+    case DF_I64: return ((const int64_t*)col)[i];
+    case DF_F32: return df_norm_f32(((const float*)col)[i]);
+    default: return df_norm_f64(((const double*)col)[i]);
+  }
+}
+
+// splitmix64's finaliser over the key's words
+DF_HD uint64_t df_hash(int64_t val, int64_t grp, bool gnull) {
+  uint64_t x = (uint64_t)val ^ ((uint64_t)grp * 0x9E3779B97F4A7C15ULL) ^
+               ((uint64_t)gnull << 1);
+  x ^= x >> 30;
+  x *= 0xBF58476D1CE4E5B9ULL;
+  x ^= x >> 27;
+  x *= 0x94D049BB133111EBULL;
+  return x ^ (x >> 31);
+}
+
+// One thread's probe: the slot it looks at, the slots it has passed, and
+// whether it has claimed the slot (then its next step writes the key).
+struct DfProbe {
+  int64_t pos;
+  int64_t steps;
+  int owned;
+};
+
+DF_HD DfProbe df_probe(int64_t val, int64_t grp, bool gnull, int64_t mask) {
+  DfProbe p;
+  p.pos = (int64_t)(df_hash(val, grp, gnull) & (uint64_t)mask);
+  p.steps = 0;
+  p.owned = 0;
+  return p;
+}
+
+enum DfStep { DF_AGAIN = 0, DF_DONE = 1, DF_FAIL = 2 };
+
+// One step of inserting or finding the key (val, grp, gnull) in a table
+// of mask + 1 slots. ``ready`` is the state word to publish for a new
+// key and ``first`` its row; ``copy`` (a rehash: every key is new)
+// fails on a key found. On DF_DONE, ``*slot`` is the key's slot when
+// the key is new in the epoch of ``ready`` (inserted now, or by another
+// row of this batch, whose ``first`` then takes the lower row), else -1.
+// DF_FAIL: every slot has been passed (the table is full) or a rehash
+// found its key.
+//
+// ``ops`` are the memory operations: on the card, volatile loads,
+// atomicCAS, a fence then atomicExch to publish, a fence after seeing
+// READY, and atomicMin; on the host, plain ones.
+template <class Ops>
+DF_HD int df_step(DfSlot* table, int64_t mask, int64_t val, int64_t grp,
+                  bool gnull, uint32_t ready, int32_t first, bool copy,
+                  DfProbe& p, int64_t* slot, const Ops& ops) {
+  DfSlot* s = table + p.pos;
+  if (p.owned) {
+    s->val = val;
+    s->grp = grp;
+    s->first = first;
+    ops.publish(&s->state, ready);
+    *slot = p.pos;
+    return DF_DONE;
+  }
+  uint32_t st = ops.load(&s->state);
+  if (st == kDfEmpty) {
+    st = ops.cas(&s->state, kDfEmpty, kDfBusy);
+    if (st == kDfEmpty) {
+      p.owned = 1;
+      return DF_AGAIN;
+    }
+  }
+  if (st == kDfBusy) return DF_AGAIN;  // the owner is writing: look again
+  ops.acquire();
+  if (df_gnull(st) == gnull && ops.load64(&s->val) == val &&
+      ops.load64(&s->grp) == grp) {
+    if (copy) return DF_FAIL;
+    if (df_epoch(st) == df_epoch(ready)) {
+      ops.min(&s->first, first);
+      *slot = p.pos;
+    } else {
+      *slot = -1;
+    }
+    return DF_DONE;
+  }
+  if (++p.steps > mask) return DF_FAIL;
+  p.pos = (p.pos + 1) & mask;
+  return DF_AGAIN;
+}
+
+// Pass 2's flag of row ``i`` whose pass 1 gave ``slot``: the row is the
+// first of its key in the stream.
+DF_HD bool df_flag(const DfSlot* table, int32_t slot, int64_t i) {
+  return slot >= 0 && (int64_t)table[slot].first == i;
+}
+
+namespace {
+
+constexpr int kThreads = 256;
+
+struct DeviceOps {
+  __device__ uint32_t load(uint32_t* w) const {
+    return *(volatile uint32_t*)w;
+  }
+  __device__ uint32_t cas(uint32_t* w, uint32_t expect,
+                          uint32_t value) const {
+    return atomicCAS(w, expect, value);
+  }
+  __device__ void publish(uint32_t* w, uint32_t value) const {
+    __threadfence();
+    atomicExch(w, value);
+  }
+  __device__ void acquire() const { __threadfence(); }
+  __device__ int64_t load64(int64_t* w) const {
+    return *(volatile int64_t*)w;
+  }
+  __device__ void min(int32_t* w, int32_t value) const { atomicMin(w, value); }
+};
+
+}  // namespace
+
+// One batch's launch arguments, 8 bytes a field (the wrapper's
+// exec/distinct_flag.py _pack order).
+struct DistinctFlagArgs {
+  const void* val;        // the value column, of kind vkind
+  int64_t vkind;
+  const uint8_t* vvalid;  // the value's validity (a NULL value never flags)
+  const void* grp;        // the group column, of kind gkind; null: none
+  int64_t gkind;
+  const uint8_t* gvalid;
+  int64_t n;              // rows
+  DfSlot* table;
+  int64_t capacity;       // slots, a power of two
+  int32_t* slot_of_row;   // scratch, n words: pass 1 -> pass 2
+  uint8_t* flags;         // n bools
+  int32_t* error;         // set when an insert passed every slot
+  int64_t epoch;          // this batch's, 1 .. kDfMaxEpoch
+};
+
+__global__ void __launch_bounds__(kThreads)
+    distinct_flag_insert_kernel(const DistinctFlagArgs a) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= a.n) return;
+  int64_t slot = -1;
+  if (a.vvalid[i]) {
+    const int64_t val = df_norm(a.val, (int)a.vkind, i);
+    bool gnull = false;
+    int64_t grp = 0;
+    if (a.grp != nullptr) {
+      gnull = a.gvalid[i] == 0;
+      grp = gnull ? 0 : df_norm(a.grp, (int)a.gkind, i);
+    }
+    const int64_t mask = a.capacity - 1;
+    const uint32_t ready = df_ready(a.epoch, gnull);
+    DfProbe p = df_probe(val, grp, gnull, mask);
+    int r;
+    do {
+      r = df_step(a.table, mask, val, grp, gnull, ready, (int32_t)i, false,
+                  p, &slot, DeviceOps());
+    } while (r == DF_AGAIN);
+    if (r == DF_FAIL) {
+      atomicOr(a.error, 1);
+      slot = -1;
+    }
+  }
+  a.slot_of_row[i] = (int32_t)slot;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    distinct_flag_mark_kernel(const DistinctFlagArgs a) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= a.n) return;
+  a.flags[i] = df_flag(a.table, a.slot_of_row[i], i) ? 1 : 0;
+}
+
+// Every READY slot of ``old`` into ``table`` with its state and first row
+// (the stored keys are distinct: each insert finds an EMPTY slot).
+__global__ void __launch_bounds__(kThreads)
+    distinct_flag_rehash_kernel(const DfSlot* old, int64_t old_capacity,
+                                DfSlot* table, int64_t capacity,
+                                int32_t* error) {
+  const int64_t j = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (j >= old_capacity) return;
+  const DfSlot s = old[j];
+  if (s.state == kDfEmpty) return;
+  const int64_t mask = capacity - 1;
+  const bool gnull = df_gnull(s.state);
+  DfProbe p = df_probe(s.val, s.grp, gnull, mask);
+  int64_t slot;
+  int r;
+  do {
+    r = df_step(table, mask, s.val, s.grp, gnull, s.state, s.first, true, p,
+                &slot, DeviceOps());
+  } while (r == DF_AGAIN);
+  if (r == DF_FAIL) atomicOr(error, 1);
+}
+
+static int64_t blocks_for(int64_t n) { return (n + kThreads - 1) / kThreads; }
+
+static bool valid_args(const DistinctFlagArgs* a) {
+  const uint64_t t = reinterpret_cast<uintptr_t>(a->table);
+  return a->capacity >= 2 && (a->capacity & (a->capacity - 1)) == 0 &&
+         a->capacity <= ((int64_t)1 << 31) && (t & 31) == 0 &&
+         a->epoch >= 1 && a->epoch <= kDfMaxEpoch &&
+         a->n < ((int64_t)1 << 31) &&
+         a->vkind >= DF_I8 && a->vkind <= DF_F64 &&
+         (a->grp == nullptr || (a->gkind >= DF_I8 && a->gkind <= DF_F64));
+}
+
+// Pass 1 over one batch (module doc); a batch of no rows launches nothing.
+extern "C" int distinct_flag_insert(const DistinctFlagArgs* a, void* stream) {
+  if (!valid_args(a)) return (int)cudaErrorInvalidValue;
+  if (a->n <= 0) return 0;
+  distinct_flag_insert_kernel<<<(unsigned)blocks_for(a->n), kThreads, 0,
+                                (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// Pass 2 over the same batch.
+extern "C" int distinct_flag_mark(const DistinctFlagArgs* a, void* stream) {
+  if (!valid_args(a)) return (int)cudaErrorInvalidValue;
+  if (a->n <= 0) return 0;
+  distinct_flag_mark_kernel<<<(unsigned)blocks_for(a->n), kThreads, 0,
+                              (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// Growth: ``old``'s keys into ``table``, which the caller has zeroed.
+extern "C" int distinct_flag_rehash(const DfSlot* old, int64_t old_capacity,
+                                    DfSlot* table, int64_t capacity,
+                                    int32_t* error, void* stream) {
+  if (capacity <= old_capacity || (capacity & (capacity - 1)) != 0 ||
+      capacity > ((int64_t)1 << 31) ||
+      (reinterpret_cast<uintptr_t>(table) & 31) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (old_capacity <= 0) return 0;
+  distinct_flag_rehash_kernel<<<(unsigned)blocks_for(old_capacity), kThreads,
+                                0, (cudaStream_t)stream>>>(
+      old, old_capacity, table, capacity, error);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int64_t distinct_flag_slot_bytes() { return sizeof(DfSlot); }
+
+// Registers a thread of the insert kernel (for reports).
+extern "C" int distinct_flag_describe(int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, distinct_flag_insert_kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[1], distinct_flag_insert_kernel, kThreads, 0);
+  return (int)err;
+}
+"""
+
+_PUBLISH = "    __threadfence();\n    atomicExch(w, value);\n"
+_ACQUIRE = "  __device__ void acquire() const { __threadfence(); }\n"
+#: commit 04f2565's kernel and its variants by text substitution:
+#: no_fence publishes READY by a plain store and meets it without a fence
+#: (wrong by design: only its time counts)
+DF_VARIANTS = {
+    "04f2565": [],
+    "04f2565_no_fence": [(_PUBLISH, "    *(volatile uint32_t*)w = value;\n"),
+                         (_ACQUIRE, "  __device__ void acquire() const {}\n")],
+}
+
+
+def _build_df_04f2565():
+    """Start one nvcc for commit 04f2565's distinct_flag and each of its
+    variants; {name: (process, library)}."""
+    from spark_rapids_tpu_torch import native
+    sources = {}
+    for name, subs in DF_VARIANTS.items():        # all checked, then built
+        s = DISTINCT_FLAG_04F2565
+        for old, new in subs:
+            cs._check(old in s, f"{name}: no {old!r} in the kernel")
+            s = s.replace(old, new)
+        sources[name] = s
+    started = {}
+    for name, s in sources.items():
+        d = native.BUILD_DIR / "variants" / f"distinct_flag_{name}"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "distinct_flag.cu").write_text(s)
+        lib = d / "libdistinct_flag.so"
+        started[name] = (subprocess.Popen(
+            [native._nvcc(), *native.NVCC_FLAGS, "-o", str(lib),
+             str(d / "distinct_flag.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), lib)
+    return started
+
+
+def _df_scratch(x):
+    """A batch's slot-of-row scratch and flags for commit 04f2565."""
+    import torch
+    n = int(x[0].shape[0])
+    return (torch.empty(n, dtype=torch.int32, device="cuda"),
+            torch.empty(n, dtype=torch.bool, device="cuda"))
+
+
+class _Flag04f2565:
+    """Commit 04f2565's launches over one zeroed table of ``capacity``
+    slots, with that commit's DistinctFlagArgs order (the host advances
+    the epoch a batch)."""
+
+    def __init__(self, lib, capacity: int):
+        import torch
+        self.lib, self.capacity, self.epoch = lib, capacity, 0
+        self.slots = torch.zeros(capacity * 4, dtype=torch.int64,
+                                 device="cuda")
+        self.error = torch.zeros(1, dtype=torch.int32, device="cuda")
+        self.stream = torch.cuda.current_stream().cuda_stream
+
+    def run(self, x, scratch, passes=("insert", "mark"), advance=True):
+        from spark_rapids_tpu_torch.exec.distinct_flag import _KIND
+        v, vv, g, gv = x
+        sor, flags = scratch
+        self.epoch += bool(advance)
+        packed = array.array("q", [
+            v.data_ptr(), _KIND[v.dtype], vv.data_ptr(),
+            0 if g is None else g.data_ptr(),
+            0 if g is None else _KIND[g.dtype],
+            0 if g is None else gv.data_ptr(), v.shape[0],
+            self.slots.data_ptr(), self.capacity, sor.data_ptr(),
+            flags.data_ptr(), self.error.data_ptr(), self.epoch])
+        for p in passes:
+            rc = getattr(self.lib, f"distinct_flag_{p}")(
+                packed.buffer_info()[0], self.stream)
+            cs._check(rc == 0, f"04f2565's {p} failed: CUDA error {rc}")
+        return flags
+
+
+def _df_old_times(lib, cap: int, batches, at: int, count_copy: bool):
+    """Commit 04f2565's launches (both, insert alone, mark alone) timed
+    cold on q28's batch ``at`` against a table of ``cap`` slots holding
+    the earlier batches' keys, and on the first batch against fresh
+    tables; with ``count_copy``, also both launches followed by an 8-byte
+    copy into pinned host memory and an event (a key count's read-back)."""
+    import torch
+    first, last = batches[0], batches[at]
+    n0, n = int(first[0].shape[0]), int(last[0].shape[0])
+    t = _Flag04f2565(lib, cap)
+    for x in batches[:at]:
+        t.run(x, _df_scratch(x))
+    copies = [last] + [tuple(None if c is None else c.clone() for c in last)
+                       for _ in range(max(1, -(-cs.COLD_BYTES // (18 * n))
+                                          - 1))]
+    inputs = [(x, _df_scratch(x)) for x in copies]
+    ms = {}
+    for label, passes in (("both", ("insert", "mark")),
+                          ("insert", ("insert",)), ("mark", ("mark",))):
+        ms[label] = cs._cold_ms(
+            lambda x, s, p=passes: t.run(x, s, p, advance=p[0] == "insert"),
+            inputs, f"04f2565 {label} {cap}")[0]
+    if count_copy:
+        word = torch.zeros(1, dtype=torch.int64, device="cuda")
+        host = torch.zeros(1, dtype=torch.int64, pin_memory=True)
+
+        def with_copy(x, s):
+            t.run(x, s)
+            host.copy_(word, non_blocking=True)
+            torch.cuda.Event().record()
+        ms["both + count copy"] = cs._cold_ms(with_copy, inputs,
+                                              f"04f2565 copy {cap}")[0]
+    cs._check(not bool(t.error.item()), "04f2565 set its error word")
+    del t, inputs, copies
+    k = max(2, -(-cs.COLD_BYTES // (cap * 32 + 18 * n0)))
+    scratch = [_df_scratch(first) for _ in range(k)]
+    xs = [tuple(None if c is None else c.clone() for c in first)
+          for _ in range(k)]
+    for label, passes in (("both", ("insert", "mark")),
+                          ("insert", ("insert",))):
+        tables = [_Flag04f2565(lib, cap) for _ in range(k)]
+        torch.cuda.synchronize()
+        ms[f"first {label}"] = cs._queued_ms(
+            [lambda t=t, x=x, s=s, p=passes: t.run(x, s, p)
+             for t, x, s in zip(tables, xs, scratch)],
+            f"04f2565 first {label} {cap}")[0]
+        if label == "insert":
+            ms["first mark"] = cs._queued_ms(
+                [lambda t=t, x=x, s=s: t.run(x, s, ("mark",), advance=False)
+                 for t, x, s in zip(tables, xs, scratch)],
+                f"04f2565 first mark {cap}")[0]
+        del tables
+    return ms, n, n0, k
+
+
+#: the port's distinct_flag with one part changed by text substitution:
+#: fences (04f2565's fences in place of the release store and acquire
+#: loads; flags still right), no_barrier (no grid barrier: wrong by
+#: design, only its time counts)
+DF_NEW_VARIANTS = {
+    "fences": [
+        ("    return StateRef(*w).load(cuda::memory_order_acquire);\n",
+         "    const uint32_t v = *(volatile uint32_t*)w;\n"
+         "    __threadfence();\n    return v;\n"),
+        ("    StateRef(*w).store(value, cuda::memory_order_release);\n",
+         "    __threadfence();\n    atomicExch(w, value);\n")],
+    "no_barrier": [("  cg::this_grid().sync();\n", "")],
+}
+
+
+def _build_df_variants():
+    """Start one nvcc a variant of the port's distinct_flag; {name:
+    (process, library)}."""
+    from spark_rapids_tpu_torch import native
+    src = (native.CSRC / "distinct_flag.cu").read_text()
+    sources = {}
+    for name, subs in DF_NEW_VARIANTS.items():    # all checked, then built
+        s = src
+        for old, new in subs:
+            cs._check(old in s, f"{name}: no {old!r} in the kernel")
+            s = s.replace(old, new)
+        sources[name] = s
+    started = {}
+    for name, s in sources.items():
+        d = native.BUILD_DIR / "variants" / f"distinct_flag_{name}"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "distinct_flag.cu").write_text(s)
+        lib = d / "libdistinct_flag.so"
+        started[name] = (subprocess.Popen(
+            [native._nvcc(), *native.NVCC_FLAGS, "-I", str(native.CSRC),
+             "-o", str(lib), str(d / "distinct_flag.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    return started
+
+
+def _finish(builds):
+    """Wait for nvcc; {name: library}, each reported and free of stack
+    frames and spills."""
+    libs = {}
+    for name, (proc, path) in builds.items():
+        log, _ = proc.communicate(timeout=600)
+        cs._check(proc.returncode == 0, f"nvcc failed for {name}:\n{log}")
+        frames = cs._ptxas_frames(log)
+        print(f"ptxas distinct_flag {name}: " + "; ".join(
+            ln.strip() for ln in log.splitlines() if "registers" in ln),
+            flush=True)
+        cs._check(all(f[1:] == (0, 0, 0) for f in frames),
+                  f"{name}: a stack frame or spills {frames}")
+        libs[name] = ctypes.CDLL(str(path))
+    return libs
+
+
+def _use_df(lib):
+    """Point the port's wrapper at another build of its kernel (None: its
+    own), with that build's grid."""
+    from spark_rapids_tpu_torch.exec import distinct_flag as dfl
+    dfl._KERNEL.clear()
+    k = dfl._kernel()
+    if lib is not None:
+        lib.distinct_flag_launch.argtypes = [ctypes.c_void_p] * 2
+        lib.distinct_flag_launch.restype = ctypes.c_int
+        lib.distinct_flag_describe.argtypes = [ctypes.c_void_p]
+        lib.distinct_flag_describe.restype = ctypes.c_int
+        k.update(launch=lib.distinct_flag_launch,
+                 describe=lib.distinct_flag_describe)
+
+
+def _clones(x, k: int):
+    return [x] + [tuple(None if c is None else c.clone() for c in x)
+                  for _ in range(k - 1)]
+
+
+def _turns(libs, batches, at: int, cap: int) -> dict:
+    """Cold device ms a call of 04f2565's two launches and the port's one,
+    in turns (04f2565, this, this, 04f2565), against tables of ``cap``
+    slots: on batch ``at`` with the earlier batches' keys in the table,
+    and on the first batch against fresh tables."""
+    import torch
+    from spark_rapids_tpu_torch.exec import distinct_flag as dfl
+    last, first = batches[at], batches[0]
+    n, n0 = int(last[0].shape[0]), int(first[0].shape[0])
+    old = _Flag04f2565(libs["04f2565"], cap)
+    new = dfl.DistinctTable("cuda", cap)
+    for x in batches[:at]:
+        old.run(x, _df_scratch(x))
+        dfl.distinct_flag(new, *x)
+    copies = _clones(last, max(2, -(-cs.COLD_BYTES // (18 * n))))
+    olds = [(x, _df_scratch(x)) for x in copies]
+    k = max(2, -(-cs.COLD_BYTES // (cap * 32 + 18 * n0)))
+    fresh = _clones(first, k)
+    scratch = [_df_scratch(first) for _ in range(k)]
+    out = {"late": {"04f2565": [], "this": []},
+           "first": {"04f2565": [], "this": []}}
+    for name in ("04f2565", "this", "this", "04f2565"):
+        if name == "04f2565":
+            ms = cs._cold_ms(lambda x, s: old.run(x, s), olds,
+                             f"04f2565 late {cap}")[0]
+            tables = [_Flag04f2565(libs["04f2565"], cap) for _ in range(k)]
+            calls = [lambda t=t, x=x, s=s: t.run(x, s)
+                     for t, x, s in zip(tables, fresh, scratch)]
+        else:
+            ms = cs._cold_ms(lambda *x: dfl.distinct_flag(new, *x), copies,
+                             f"this late {cap}")[0]
+            tables = [dfl.DistinctTable("cuda", cap) for _ in range(k)]
+            calls = [lambda t=t, x=x: dfl.distinct_flag(t, *x)
+                     for t, x in zip(tables, fresh)]
+        torch.cuda.synchronize()
+        out["late"][name].append(ms)
+        out["first"][name].append(cs._queued_ms(calls, f"{name} first")[0])
+        del tables, calls
+    cs._check(not bool(old.error.item()) and not new.failed(),
+              "an error word was set")
+    out.update(n=n, n0=n0, k=k)
+    return out
+
+
+def _host_us(fn, calls: int = 50, reps: int = 21) -> float:
+    """Median host microseconds a call of ``fn`` over ``reps`` loops of
+    ``calls`` calls, the card synchronised between loops (outside the
+    timing) so no queue backs up."""
+    import time
+    import torch
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) * 1e6 / calls)
+    torch.cuda.synchronize()
+    return float(np.median(out))
+
+
+def _host_split(x) -> dict:
+    """Host microseconds a call of the port's wrapper on batch ``x`` and
+    of its parts: without its event record, the bare ctypes launch over
+    packed arguments, the two per-batch allocations, an event record."""
+    import torch
+    from spark_rapids_tpu_torch.exec import distinct_flag as dfl
+    table = dfl.DistinctTable("cuda", 1 << 20)
+    n = int(x[0].shape[0])
+    out = {"wrapper": _host_us(lambda: dfl.distinct_flag(table, *x))}
+    ev, table.count._last = table.count._last, None
+    out["wrapper, no event"] = _host_us(lambda: dfl.distinct_flag(table, *x))
+    table.count._last = ev
+    sor = torch.empty(n, dtype=torch.int32, device="cuda")
+    flags = torch.empty(n, dtype=torch.bool, device="cuda")
+    packed = array.array("q", dfl._pack(table, *x, sor, flags))
+    fn, stream = dfl._kernel()["launch"], dfl._stream(x[0])
+    out["ctypes launch"] = _host_us(
+        lambda: fn(packed.buffer_info()[0], stream))
+    out["two allocations"] = _host_us(lambda: (
+        torch.empty(n, dtype=torch.int32, device="cuda"),
+        torch.empty(n, dtype=torch.bool, device="cuda")))
+    e = torch.cuda.Event()
+    out["event record"] = _host_us(e.record)
+    cs._check(not table.failed(), "the host split's table set its error")
+    return out
+
+
+def distinct_section(builds, new_builds) -> None:
+    """distinct_flag on q28's shapes at SF10 (its last full batch against a
+    table of the earlier batches' keys, its first against fresh tables):
+    commit 04f2565's two launches and the port's one in turns, at 04f2565's
+    1 GiB table and at a 16 MiB one; 04f2565's launches apart, with a key
+    count's copy after them, and its no_fence variant; the port's
+    variants."""
+    import torch
+    from spark_rapids_tpu_torch.exec import distinct_flag as dfl
+    libs = _finish(builds)
+    for lib in libs.values():
+        for f in (lib.distinct_flag_insert, lib.distinct_flag_mark):
+            f.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            f.restype = ctypes.c_int
+    new_libs = _finish(new_builds)
+    ss = cs.gen_store_sales(cs.SF10_STORE_SALES)
+    batches = cs.q28_flag_batches(ss, 1 << 20)
+    del ss
+    at = len(batches) - 2
+    # both designs' flags equal the plain version on every batch, each
+    # table sized as its own commit sizes it
+    old = _Flag04f2565(libs["04f2565"], 1 << 25)
+    seen, table, growths, new0 = dfl.SeenKeys(), None, 0, 0
+    for j, x in enumerate(batches):
+        table, grew = dfl.sized_table(table, x[0].device, int(x[0].shape[0]),
+                                      dfl.HashDistinctFlagExec._MIN_SLOTS)
+        growths += grew
+        got_old = old.run(x, _df_scratch(x))
+        got_new = dfl.distinct_flag(table, *x)
+        want = dfl.distinct_flag_reference(seen, *x)
+        cs._check(torch.equal(got_old, want) and torch.equal(got_new, want),
+                  f"the flags differ on batch {j + 1}")
+        new0 = new0 or int(want.sum())
+    cs._check(not bool(old.error.item()) and not table.failed(),
+              "an error word was set")
+    keys = int(seen.keys.shape[0])
+    del old, seen
+    b = cs.distinct_bound(int(batches[at][0].shape[0]), 0)
+    b0 = cs.distinct_bound(int(batches[0][0].shape[0]), new0)
+    print(f"distinct_flag: q28 at SF10 in {len(batches)} batches, {keys} "
+          f"keys; 04f2565's and this design's flags equal the plain version "
+          f"on every batch (this design's table: {table.capacity} slots "
+          f"after {growths} growths, {int(table.keys)} keys counted); bound "
+          f"on batch {at + 1} {b['ms']:.4f} ms ({b['bytes']} B), on the "
+          f"first ({new0} new keys) {b0['ms']:.4f} ms; "
+          f"{dfl.kernel_shape()}", flush=True)
+    del table
+    for cap in (1 << 25, 1 << 19):
+        t = _turns(libs, batches, at, cap)
+        print(f"distinct_flag in turns 04f2565, this, this, 04f2565, a "
+              f"table of {cap} slots ({cap * 32} B), cold device ms a call: "
+              f"batch {at + 1} ({t['n']} rows) "
+              f"{t['late']['04f2565'][0]:.4f}, {t['late']['this'][0]:.4f}, "
+              f"{t['late']['this'][1]:.4f}, {t['late']['04f2565'][1]:.4f}; "
+              f"first batch ({t['n0']} rows, {t['k']} fresh tables) "
+              f"{t['first']['04f2565'][0]:.4f}, {t['first']['this'][0]:.4f}, "
+              f"{t['first']['this'][1]:.4f}, "
+              f"{t['first']['04f2565'][1]:.4f}", flush=True)
+    for cap in (1 << 25, 1 << 19):
+        for name, lib in libs.items():
+            ms, n, n0, k = _df_old_times(lib, cap, batches, at,
+                                         name == "04f2565")
+            print(f"distinct_flag {name}, a table of {cap} slots "
+                  f"({cap * 32} B), cold device ms a call: batch {at + 1} "
+                  f"({n} rows) " + ", ".join(
+                      f"{lb} {v:.4f}" for lb, v in ms.items()
+                      if not lb.startswith("first"))
+                  + f"; first batch ({n0} rows, {k} fresh tables) "
+                  + ", ".join(f"{lb[6:]} {v:.4f}" for lb, v in ms.items()
+                              if lb.startswith("first")), flush=True)
+    cap = 1 << 19
+    ms = {}
+    for name in ["this", *DF_NEW_VARIANTS, "this again"]:
+        _use_df(None if name.startswith("this") else new_libs[name])
+        try:
+            t = dfl.DistinctTable("cuda", cap)
+            for x in batches[:at]:
+                dfl.distinct_flag(t, *x)
+            copies = _clones(batches[at], max(2, -(-cs.COLD_BYTES // (
+                18 * int(batches[at][0].shape[0])))))
+            got = [cs._cold_ms(lambda *x: dfl.distinct_flag(t, *x), copies,
+                               f"{name} late")[0]]
+            x = batches[0]
+            k = max(2, -(-cs.COLD_BYTES // (cap * 32 + 18 * int(
+                x[0].shape[0]))))
+            tables = [dfl.DistinctTable("cuda", cap) for _ in range(k)]
+            torch.cuda.synchronize()
+            got.append(cs._queued_ms(
+                [lambda t=t, x=x: dfl.distinct_flag(t, *x)
+                 for t, x in zip(tables, _clones(x, k))],
+                f"{name} fresh")[0])
+            del tables
+            ms[name] = got
+            del t
+        finally:
+            _use_df(None)
+    print(f"distinct_flag variants of this design, tables of {cap} slots, "
+          f"cold device ms a call (batch {at + 1}; first batch): " + ", ".join(
+              f"{k} " + "; ".join(f"{v:.4f}" for v in t)
+              for k, t in ms.items()), flush=True)
+    split = _host_split(batches[at])
+    print(f"distinct_flag host microseconds a call on batch {at + 1} "
+          "(median of 21 loops of 50 calls): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in split.items()), flush=True)
+
 def main() -> int:
     try:
         import torch
@@ -608,14 +1397,18 @@ def main() -> int:
         print("no CUDA device: chip_variants.py runs on the card",
               file=sys.stderr)
         return 2
-    sections = sys.argv[1:] or ["dense_groupby", "join_match"]
-    cs._check(set(sections) <= {"dense_groupby", "join_match"},
+    sections = sys.argv[1:] or ["dense_groupby", "join_match",
+                                "distinct_flag"]
+    cs._check(set(sections) <= {"dense_groupby", "join_match",
+                                "distinct_flag"},
               f"unknown sections {sections}")
     from spark_rapids_tpu_torch.exec import dense_groupby as dg
     cs.phase_device()
     started = _build_variants() if "dense_groupby" in sections else {}
     old_join = _build_join_843e714() if "join_match" in sections else None
     join_variants = _build_join_variants() if old_join else {}
+    df_builds = _build_df_04f2565() if "distinct_flag" in sections else {}
+    df_new = _build_df_variants() if df_builds else {}
     cs.phase_build()
     if "dense_groupby" in sections:
         for name, (proc, _) in started.items():
@@ -641,6 +1434,8 @@ def main() -> int:
                   flush=True)
     if old_join is not None:
         join_section(old_join, join_variants)
+    if df_builds:
+        distinct_section(df_builds, df_new)
     return 0
 
 

@@ -2,8 +2,9 @@
 // the normalisation of a key word, the hash, the slot compare and the
 // insert-or-find step of the open-addressing table.
 // Everything here is __host__ __device__, so g++ builds it on a machine
-// without CUDA and the tests run the kernel's two passes on the host,
-// each row's steps interleaved in shuffled thread orders
+// without CUDA and the tests run the kernel's two phases on the host,
+// the probing rows' steps interleaved in shuffled orders, the phases
+// split where the kernel's grid barrier splits them
 // (tests/test_torch_distinct.py).
 //
 // A key is (group word, group null bit, value word). A word is the
@@ -21,6 +22,16 @@
 // inserted the key (1, 2, ...; the host advances it every batch, so no
 // table is ever cleared between batches). ``first`` holds the lowest row
 // of that batch with the key (atomicMin).
+//
+// The slot protocol: a thread claims an EMPTY slot by compare-and-swap
+// to BUSY, writes the key words and its row with plain stores, and
+// publishes READY with a release store. A prober reads the state with an
+// acquire load: BUSY sends it back to read again (the owner is one step
+// from publishing), READY makes the owner's words visible to its next
+// loads. A compare-and-swap that loses sends the prober back to the
+// acquire load, so no key word is read after a relaxed operation alone.
+// On the host the three are plain operations: the test's one-step moves
+// stand in for the threads.
 #pragma once
 #include <stdint.h>
 #include <string.h>
@@ -118,13 +129,14 @@ enum DfStep { DF_AGAIN = 0, DF_DONE = 1, DF_FAIL = 2 };
 // key and ``first`` its row; ``copy`` (a rehash: every key is new)
 // fails on a key found. On DF_DONE, ``*slot`` is the key's slot when
 // the key is new in the epoch of ``ready`` (inserted now, or by another
-// row of this batch, whose ``first`` then takes the lower row), else -1.
-// DF_FAIL: every slot has been passed (the table is full) or a rehash
-// found its key.
+// row of this batch, whose ``first`` then takes the lower row), else -1;
+// ``p.owned`` is then 1 when this thread inserted the key. DF_FAIL:
+// every slot has been passed (the table is full) or a rehash found its
+// key.
 //
-// ``ops`` are the memory operations: on the card, volatile loads,
-// atomicCAS, a fence then atomicExch to publish, a fence after seeing
-// READY, and atomicMin; on the host, plain ones.
+// ``ops`` are the memory operations (the protocol above): on the card an
+// acquire load, atomicCAS, a release store, volatile loads of the key
+// words and atomicMin; on the host, plain ones.
 template <class Ops>
 DF_HD int df_step(DfSlot* table, int64_t mask, int64_t val, int64_t grp,
                   bool gnull, uint32_t ready, int32_t first, bool copy,
@@ -138,16 +150,13 @@ DF_HD int df_step(DfSlot* table, int64_t mask, int64_t val, int64_t grp,
     *slot = p.pos;
     return DF_DONE;
   }
-  uint32_t st = ops.load(&s->state);
+  const uint32_t st = ops.load(&s->state);
   if (st == kDfEmpty) {
-    st = ops.cas(&s->state, kDfEmpty, kDfBusy);
-    if (st == kDfEmpty) {
-      p.owned = 1;
-      return DF_AGAIN;
-    }
+    // claimed: write the key next; lost: read the state again
+    p.owned = ops.cas(&s->state, kDfEmpty, kDfBusy) == kDfEmpty;
+    return DF_AGAIN;
   }
   if (st == kDfBusy) return DF_AGAIN;  // the owner is writing: look again
-  ops.acquire();
   if (df_gnull(st) == gnull && ops.load64(&s->val) == val &&
       ops.load64(&s->grp) == grp) {
     if (copy) return DF_FAIL;
@@ -164,8 +173,20 @@ DF_HD int df_step(DfSlot* table, int64_t mask, int64_t val, int64_t grp,
   return DF_AGAIN;
 }
 
-// Pass 2's flag of row ``i`` whose pass 1 gave ``slot``: the row is the
-// first of its key in the stream.
+// Phase 2's flag of row ``i`` whose phase 1 gave ``slot``: the row is
+// the first of its key in the stream. ``first`` is read past the L1
+// (volatile): other SMs' atomicMin wrote it before the grid barrier.
 DF_HD bool df_flag(const DfSlot* table, int32_t slot, int64_t i) {
-  return slot >= 0 && (int64_t)table[slot].first == i;
+  return slot >= 0 &&
+         (int64_t)(*(const volatile int32_t*)&table[slot].first) == i;
+}
+
+// Blocks of ``threads`` the kernel's grid takes for ``n`` rows when at
+// most ``max_blocks`` are resident together: one row a thread when they
+// fit; else every resident block, each thread then walking rows a grid
+// apart (a thread holds its first row's slot in a register across the
+// barrier, the rows after it keep theirs in scratch).
+DF_HD int64_t df_grid_blocks(int64_t n, int64_t threads, int64_t max_blocks) {
+  const int64_t need = (n + threads - 1) / threads;
+  return need < max_blocks ? need : max_blocks;
 }

@@ -20,8 +20,9 @@ batches:
 * on CUDA tensors, the kernel ``csrc/distinct_flag.cu`` (replacing the
   reference's ``_probe_insert`` ``:83``, ``_flag_kernel`` ``:133`` and
   ``_rebuild_kernel`` ``:166``): an open-addressing table of 32-byte
-  slots on the card, two launches a batch (insert-or-find, then mark),
-  a rehash launch when the table grows (the source's doc);
+  slots on the card, one cooperative launch a batch (insert-or-find, a
+  grid barrier, mark), a rehash launch when the table grows (the
+  source's doc);
 * on CPU tensors, ``distinct_flag_reference``: the same normalisation,
   the batch's first rows by ``torch.unique(dim=0, return_inverse=True)``
   and a ``scatter_reduce(amin)`` of row ids, and the keys seen so far as
@@ -29,14 +30,22 @@ batches:
   batch's keys.
 
 Both give the same bits. ``distinct_flag.launches`` counts the kernel's
-launches (insert, mark and rehash).
+launches (one a batch, and each rehash).
+
+The table is sized from the keys it is known to hold, never with a host
+read that waits (``sized_table``): the kernel counts the keys it inserts
+and stores the count, with its batch's epoch, into one pinned host word;
+the host reads the word (``KeyCount``) and bounds the keys after the next
+batch by that count plus the rows given since that epoch. The reference
+sizes from the rows alone (``spark_rapids_tpu/exec/distinct_flag.py``
+``:230``); the flags are the same.
 """
 from __future__ import annotations
 
 import array
 import ctypes
 import threading
-from typing import Callable, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
 
@@ -45,7 +54,7 @@ from ..exprs.compiler import DeviceProjector, batch_device
 from ..types import BOOL, Schema, StructField
 from .base import ExecContext, TpuExec
 
-__all__ = ["DistinctTable", "SeenKeys", "HashDistinctFlagExec",
+__all__ = ["DistinctTable", "KeyCount", "SeenKeys", "HashDistinctFlagExec",
            "distinct_flag", "distinct_flag_reference", "normalize",
            "sized_table", "SLOT_BYTES"]
 
@@ -151,24 +160,77 @@ def distinct_flag_reference(seen: SeenKeys, value: torch.Tensor,
     return flags
 
 
+class KeyCount:
+    """A table's key count as the host knows it without waiting on the
+    card: one pinned host word, which each launch's kernel sets after its
+    barrier to ``(epoch << 32) | keys`` in one 8-byte store, and the
+    table's rows after each queued epoch. ``poll`` reads the word: its
+    epoch names the launch that wrote it, so the rows its count covers.
+    On a card an event recorded after the newest launch keeps the pinned
+    block from the allocator until that launch has stored."""
+
+    def __init__(self, cuda: bool):
+        self.host = torch.zeros(1, dtype=torch.int64, pin_memory=cuda)
+        self._word = self.host.numpy()
+        #: the table's rows after each epoch not yet read
+        self.rows_after: Dict[int, int] = {}
+        #: the newest count read, and the table's rows when it was taken
+        self.keys = 0
+        self.rows = 0
+        self._last = torch.cuda.Event() if cuda else None
+
+    def queued(self, epoch: int, rows: int, stream=None) -> None:
+        """The launch of ``epoch`` (the table's rows ``rows`` after it)
+        is queued on ``stream``."""
+        self.rows_after[epoch] = rows
+        if self._last is not None:
+            self._last.record(stream)
+
+    def poll(self) -> None:
+        word = int(self._word[0])
+        epoch = word >> 32
+        rows = self.rows_after.get(epoch)
+        if rows is not None:
+            self.keys, self.rows = word & 0xFFFFFFFF, rows
+            for e in [e for e in self.rows_after if e <= epoch]:
+                del self.rows_after[e]
+
+    def __del__(self):
+        # the newest launch may still store into ``host``: its pinned
+        # block must not go back to the allocator (and to another tensor)
+        # first
+        if self._last is not None and not self._last.query():
+            self._last.synchronize()
+
+
 class DistinctTable:
     """The keys of a stream's earlier batches: on a card the kernel's hash
     table (``capacity`` slots of SLOT_BYTES, zeroed; ``hashed``), on the
-    CPU the plain version's ``SeenKeys``. ``hashed`` may be forced to
-    give a CPU tensor the kernel's table (the tests run the kernel's
-    loops on the host over it)."""
+    CPU the plain version's ``SeenKeys``; with its key count (``keys``,
+    a device word the kernel adds to; ``count``, the host's view of it)
+    and the rows given to it so far. ``hashed`` may be forced to give a
+    CPU tensor the kernel's table (the tests run the kernel's loops on
+    the host over it)."""
 
     def __init__(self, device, capacity: int,
                  hashed: Optional[bool] = None):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.hashed = self.device.type == "cuda" if hashed is None \
             else hashed
         self.capacity = capacity
         #: the latest batch's epoch (csrc/distinct_flag_row.cuh)
         self.epoch = 0
+        #: rows of every batch flagged against the table
+        self.rows = 0
         self.seen = SeenKeys()
         self.slots: Optional[torch.Tensor] = None
         self.error: Optional[torch.Tensor] = None
+        self.keys = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self.count = KeyCount(self.device.type == "cuda")
+        if self.device.type == "cuda":
+            _check_host(self.count.host)
         if self.hashed:
             if capacity < 2 or capacity & (capacity - 1) \
                     or capacity > MAX_SLOTS:
@@ -205,6 +267,13 @@ class DistinctTable:
         """Whether an insert passed every slot (one host read)."""
         return self.error is not None and bool(self.error.item())
 
+    def key_bound(self, rows: int):
+        """(K, R): K keys known to be in the table (the newest count the
+        host has read) and R rows given to it since, ``rows`` more
+        included; the keys after those rows are at most K + R."""
+        self.count.poll()
+        return self.count.keys, self.rows - self.count.rows + rows
+
 
 def _pack(table: DistinctTable, value, value_valid, group, group_valid,
           slot_of_row, flags) -> list:
@@ -216,30 +285,31 @@ def _pack(table: DistinctTable, value, value_valid, group, group_valid,
             0 if group is None else group_valid.data_ptr(),
             value.shape[0], table.slots.data_ptr(), table.capacity,
             slot_of_row.data_ptr(), flags.data_ptr(),
-            table.error.data_ptr(), table.epoch]
+            table.error.data_ptr(), table.keys.data_ptr(),
+            table.count.host.data_ptr(), table.epoch]
 
 
 def _flag(table: DistinctTable, value, value_valid, group, group_valid,
-          insert: Callable[[list], None],
-          mark: Callable[[list], None]) -> torch.Tensor:
-    """The flags by the kernel's two passes: ``insert(v)`` and ``mark(v)``
-    run one pass over packed arguments (the kernel on the card; the
-    tests' host build of its loops), after the epoch advances."""
+          launch: Callable[[list], None], stream=None) -> torch.Tensor:
+    """The flags by the kernel's launch: ``launch(v)`` runs it over packed
+    arguments (on the card; the tests' host build of its loops), after
+    the epoch advances; the epoch's rows are noted for the count after,
+    with ``stream`` the launch's."""
     if table.epoch >= MAX_EPOCH:
         raise OverflowError(f"a distinct-flag table serves at most "
                             f"{MAX_EPOCH} batches")
     table.epoch += 1
     n = value.shape[0]
     flags = torch.empty(n, dtype=torch.bool, device=value.device)
-    slot_of_row = torch.empty(n, dtype=torch.int32, device=value.device)
     if n:
-        # the contiguous copies live until both passes are queued
+        slot_of_row = torch.empty(n, dtype=torch.int32, device=value.device)
+        # the contiguous copies live until the launch is queued
         cols = [value.contiguous(), value_valid.contiguous(),
                 None if group is None else group.contiguous(),
                 None if group is None else group_valid.contiguous()]
-        v = _pack(table, *cols, slot_of_row, flags)
-        insert(v)
-        mark(v)
+        launch(_pack(table, *cols, slot_of_row, flags))
+        table.rows += n
+        table.count.queued(table.epoch, table.rows, stream)
     return flags
 
 
@@ -257,22 +327,22 @@ def _kernel() -> dict:
         from .. import native
         lib = native.load("distinct_flag")
         p, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.distinct_flag_insert.argtypes = [p, p]
-        lib.distinct_flag_mark.argtypes = [p, p]
+        lib.distinct_flag_launch.argtypes = [p, p]
         lib.distinct_flag_rehash.argtypes = [p, i64, p, i64, p, p]
         lib.distinct_flag_describe.argtypes = [p]
-        for f in (lib.distinct_flag_insert, lib.distinct_flag_mark,
-                  lib.distinct_flag_rehash, lib.distinct_flag_describe):
+        lib.distinct_flag_host_ok.argtypes = [p]
+        for f in (lib.distinct_flag_launch, lib.distinct_flag_rehash,
+                  lib.distinct_flag_describe, lib.distinct_flag_host_ok):
             f.restype = ctypes.c_int
         lib.distinct_flag_slot_bytes.argtypes = []
         lib.distinct_flag_slot_bytes.restype = i64
         if lib.distinct_flag_slot_bytes() != SLOT_BYTES:
             raise RuntimeError("csrc/distinct_flag.cu's slot size differs "
                                f"from the wrapper's {SLOT_BYTES} bytes")
-        _KERNEL.update(insert=lib.distinct_flag_insert,
-                       mark=lib.distinct_flag_mark,
+        _KERNEL.update(launch=lib.distinct_flag_launch,
                        rehash=lib.distinct_flag_rehash,
-                       describe=lib.distinct_flag_describe)
+                       describe=lib.distinct_flag_describe,
+                       host_ok=lib.distinct_flag_host_ok)
         return _KERNEL
 
 
@@ -293,14 +363,21 @@ def _counted() -> None:
         distinct_flag.launches += 1
 
 
-def _card_pass(name: str, stream: int) -> Callable[[list], None]:
-    fn = _kernel()[name]
+def _card_launch(stream: int) -> Callable[[list], None]:
+    fn = _kernel()["launch"]
 
     def launch(v: list) -> None:
         packed = array.array("q", v)
-        _rc(fn(packed.buffer_info()[0], stream), name)
+        _rc(fn(packed.buffer_info()[0], stream), "cooperative")
         _counted()
     return launch
+
+
+def _check_host(host: torch.Tensor) -> None:
+    """The count's word must be host memory the kernel can store to."""
+    if not _kernel()["host_ok"](host.data_ptr()):
+        raise RuntimeError("distinct_flag: the count's word is not pinned "
+                           "host memory mapped for the card")
 
 
 def _card_rehash(old, old_capacity, new, capacity, error) -> None:
@@ -311,11 +388,14 @@ def _card_rehash(old, old_capacity, new, capacity, error) -> None:
 
 
 def kernel_shape() -> dict:
-    """The insert kernel's registers a thread and resident blocks an SM on
-    the current card (for reports)."""
-    out = (ctypes.c_int * 2)()
+    """The kernel's registers a thread, resident blocks an SM and its
+    largest grid's threads on the current card (for reports)."""
+    out = (ctypes.c_int * 3)()
     _rc(_kernel()["describe"](out), "describe")
-    return {"registers": out[0], "blocks_per_sm": out[1]}
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    return {"registers": out[0], "blocks_per_sm": out[1],
+            "grid_threads": out[1] * sms * out[2]}
 
 
 def distinct_flag(table: DistinctTable, value: torch.Tensor,
@@ -329,13 +409,19 @@ def distinct_flag(table: DistinctTable, value: torch.Tensor,
     if value.is_cuda:
         if not table.hashed or table.device != value.device:
             raise ValueError("the table was made for another device")
-        s = _stream(value)
         return _flag(table, value, value_valid, group, group_valid,
-                     _card_pass("insert", s), _card_pass("mark", s))
+                     _card_launch(_stream(value)),
+                     torch.cuda.current_stream(value.device))
     if value.device.type != "cpu":
         raise ValueError(f"distinct_flag has no kernel for {value.device}")
-    return distinct_flag_reference(table.seen, value, value_valid, group,
-                                   group_valid)
+    flags = distinct_flag_reference(table.seen, value, value_valid, group,
+                                    group_valid)
+    # the plain version's count is known at once
+    table.rows += value.shape[0]
+    table.count.keys = 0 if table.seen.keys is None \
+        else int(table.seen.keys.shape[0])
+    table.count.rows = table.rows
+    return flags
 
 
 #: kernel launches since the count was last set to 0
@@ -346,32 +432,44 @@ def _next_pow2(n: int) -> int:
     return 1 << max(int(n) - 1, 1).bit_length()
 
 
-#: table load is kept at or below 1/2: rows_seen * 2 <= slots (ref
-#: ``_LOAD_NUM``)
+#: the keys a table may hold are at most 1/LOAD_NUM of its slots (ref
+#: ``_LOAD_NUM``, which bounds every row so far instead)
 LOAD_NUM = 2
+
+
+def table_slots(keys: int, rows: int, min_slots: int) -> int:
+    """Slots for a table known to hold ``keys`` keys that takes ``rows``
+    rows more: ``next_pow2(LOAD_NUM * (keys + rows))``, at least
+    ``min_slots``. The keys after the rows (at most ``keys + rows``) load
+    it to at most 1/LOAD_NUM, as the reference's row bound does."""
+    return max(min_slots, _next_pow2(LOAD_NUM * (keys + rows)))
 
 
 def sized_table(table: Optional[DistinctTable], device, rows: int,
                 min_slots: int, rehash: Optional[Callable] = None,
                 hashed: Optional[bool] = None):
-    """(table, grew): ``table`` able to take ``rows`` rows inserted in
-    all at load 1/2 (ref ``HashDistinctFlagExec.do_execute``): made with
-    ``max(min_slots, need)`` slots, or grown to twice the need (so that
-    growth stays logarithmic) when it has fewer than the need."""
-    need = _next_pow2(LOAD_NUM * rows)
+    """(table, grew): ``table`` able to take a batch of ``rows`` rows, from
+    the keys it is known to hold (``DistinctTable.key_bound``; no host
+    read waits): made with ``table_slots(0, rows, min_slots)`` slots, or
+    grown by a rehash to ``table_slots(K, R, min_slots)`` when it has
+    fewer. A grown size is a power of two above the old, so growth is at
+    least twofold. No count known (K = 0) gives the reference's size
+    (twice the rows), and K + R never exceeds the rows."""
     if table is None:
-        return DistinctTable(device, max(min_slots, need), hashed), False
+        return DistinctTable(device, table_slots(0, rows, min_slots),
+                             hashed), False
+    need = table_slots(*table.key_bound(rows), min_slots)
     if table.capacity < need:
-        table.grow(2 * need, rehash)
+        table.grow(need, rehash)
         return table, True
     return table, False
 
 
 class HashDistinctFlagExec(TpuExec):
-    """Appends ``flag_name`` (module doc). The table is sized from a
-    host-known bound on the rows inserted (``sized_table``: the batches'
-    rows so far, at least ``_MIN_SLOTS`` slots). The kernel's error word
-    is read once, at the end of the stream, and raises if an insert
+    """Appends ``flag_name`` (module doc). The table is sized before each
+    batch from the keys it is known to hold and the rows since
+    (``sized_table``, at least ``_MIN_SLOTS`` slots). The kernel's error
+    word is read once, at the end of the stream, and raises if an insert
     failed."""
 
     _MIN_SLOTS = 1 << 16
@@ -388,8 +486,9 @@ class HashDistinctFlagExec(TpuExec):
         cs = child.output_schema()
         self._schema = Schema(list(cs.fields)
                               + [StructField(flag_name, BOOL, False)])
-        #: the latest execution's table growths
+        #: the latest execution's table growths and final slots
         self.last_growths = 0
+        self.last_slots = 0
 
     def output_schema(self) -> Schema:
         return self._schema
@@ -398,16 +497,15 @@ class HashDistinctFlagExec(TpuExec):
         proj = DeviceProjector(self.key_exprs + [self.value_expr],
                                self.children[0].output_schema())
         table: Optional[DistinctTable] = None
-        seen_ub = 0
         self.last_growths = 0
         for batch in self.children[0].execute(ctx):
-            seen_ub += batch.padded_len
             with ctx.semaphore.held():
-                table, grew = sized_table(table, batch_device(batch),
-                                          seen_ub, self._MIN_SLOTS)
-                self.last_growths += grew
                 cols = proj.run(batch)
                 v, g = cols[-1], (cols[0] if self.key_exprs else None)
+                table, grew = sized_table(table, batch_device(batch),
+                                          v.data.shape[0], self._MIN_SLOTS)
+                self.last_growths += grew
+                self.last_slots = table.capacity
                 flags = distinct_flag(
                     table, v.data, v.validity,
                     None if g is None else g.data,

@@ -14,11 +14,18 @@ reference, on the CPU.
 * the port's ``HashDistinctFlagExec`` flags equal to the reference's exec
   (run on XLA:CPU) over the same batches, row for row;
 * the kernel's row logic (csrc/distinct_flag_row.cuh) built by g++: its
-  normalisation equal to ``normalize``; its insert-or-find step run for
-  every row with the threads' steps interleaved in shuffled orders (so
-  probers meet claimed, unpublished slots), its mark pass and its rehash,
-  through the wrapper's own flow, equal to ``distinct_flag_reference``
-  bit for bit; a full table sets the error word.
+  normalisation equal to ``normalize``; its launch run on the host as the
+  kernel runs it: phase 1's rows' insert-or-find steps interleaved in
+  shuffled orders (so probers meet claimed, unpublished slots), the grid
+  barrier, phase 2's marks, with a thread's rows past its first through
+  scratch; and its rehash, through the wrapper's own flow, equal to
+  ``distinct_flag_reference`` bit for bit, with the key count equal to
+  the keys inserted; a full table sets the error word;
+* the count's pinned word: a word names the epoch that wrote it, and
+  only a queued epoch's word is taken;
+* the table's sizing from the key count with the kernel's stores to the
+  word landing at once, late or never: the keys after a batch load it
+  to at most half, and it is never above the reference's row-bound size.
 """
 import ctypes
 import shutil
@@ -357,8 +364,12 @@ struct Args {
   const void* val; int64_t vkind; const uint8_t* vvalid;
   const void* grp; int64_t gkind; const uint8_t* gvalid;
   int64_t n; DfSlot* table; int64_t capacity; int32_t* slot_of_row;
-  uint8_t* flags; int32_t* error; int64_t epoch;
+  uint8_t* flags; int32_t* error;
+  unsigned long long* keys; unsigned long long* host_keys; int64_t epoch;
 };
+
+// csrc/distinct_flag.cu's kThreads
+constexpr int64_t kThreads = 256;
 
 struct HostOps {
   uint32_t load(uint32_t* w) const { return *w; }
@@ -368,7 +379,6 @@ struct HostOps {
     return o;
   }
   void publish(uint32_t* w, uint32_t v) const { *w = v; }
-  void acquire() const {}
   int64_t load64(int64_t* w) const { return *w; }
   void min(int32_t* w, int32_t v) const { if (v < *w) *w = v; }
 };
@@ -399,6 +409,7 @@ static std::vector<Thread> run(std::vector<Thread> live, DfSlot* table,
     if (r == DF_FAIL) {
       *error |= 1;
       t.slot = -1;
+      t.p.owned = 0;
     }
     done.push_back(t);
     live[k] = live.back();
@@ -407,11 +418,19 @@ static std::vector<Thread> run(std::vector<Thread> live, DfSlot* table,
   return done;
 }
 
-// distinct_flag_insert_kernel: a thread a valid row
-extern "C" int df_host_insert(const Args* a, uint64_t seed) {
+// distinct_flag_kernel on a grid of at most ``max_threads`` threads:
+// phase 1 (every valid row's steps interleaved in a random order; the
+// count of keys inserted added), the grid barrier and the count's word,
+// phase 2 (rows in another random order), each row's slot held where
+// the kernel holds it (its thread's register for the thread's first
+// row, scratch at the row for the later ones).
+extern "C" int df_host_launch(const Args* a, int64_t max_threads,
+                              uint64_t seed) {
+  const int64_t n = a->n;
+  const int64_t stride =
+      df_grid_blocks(n, kThreads, max_threads / kThreads) * kThreads;
   std::vector<Thread> live;
-  for (int64_t i = 0; i < a->n; ++i) {
-    a->slot_of_row[i] = -1;
+  for (int64_t i = 0; i < n; ++i) {
     if (!a->vvalid[i]) continue;
     Thread t;
     t.row = i;
@@ -425,19 +444,29 @@ extern "C" int df_host_insert(const Args* a, uint64_t seed) {
     t.slot = -1;
     live.push_back(t);
   }
+  std::vector<int32_t> slot(n, -1), held(std::min(n, stride), -1);
+  unsigned long long added = 0;
   for (const Thread& t : run(live, a->table, a->capacity - 1, false,
-                             a->error, seed))
-    a->slot_of_row[t.row] = (int32_t)t.slot;
-  return 0;
-}
-
-// distinct_flag_mark_kernel, rows in a random order
-extern "C" int df_host_mark(const Args* a, uint64_t seed) {
-  std::vector<int64_t> order(a->n);
-  for (int64_t i = 0; i < a->n; ++i) order[i] = i;
-  std::shuffle(order.begin(), order.end(), std::mt19937_64(seed));
-  for (int64_t i : order)
-    a->flags[i] = df_flag(a->table, a->slot_of_row[i], i) ? 1 : 0;
+                             a->error, seed)) {
+    slot[t.row] = (int32_t)t.slot;
+    added += (unsigned long long)t.p.owned;
+  }
+  for (int64_t i = 0; i < n; ++i) {
+    if (i < stride)
+      held[i] = slot[i];
+    else
+      a->slot_of_row[i] = slot[i];
+  }
+  *a->keys += added;
+  // the grid barrier
+  *a->host_keys = ((unsigned long long)a->epoch << 32) | *a->keys;
+  std::vector<int64_t> order(n);
+  for (int64_t i = 0; i < n; ++i) order[i] = i;
+  std::shuffle(order.begin(), order.end(), std::mt19937_64(seed + 1));
+  for (int64_t i : order) {
+    const int32_t s = i < stride ? held[i] : a->slot_of_row[i];
+    a->flags[i] = df_flag(a->table, s, i) ? 1 : 0;
+  }
   return 0;
 }
 
@@ -484,28 +513,38 @@ def host_lib(tmp_path_factory):
                     str(CSRC), "-o", str(lib), str(src)], check=True)
     lib = ctypes.CDLL(str(lib))
     p, i64, u64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64
-    lib.df_host_insert.argtypes = [p, u64]
-    lib.df_host_mark.argtypes = [p, u64]
+    lib.df_host_launch.argtypes = [p, i64, u64]
+    lib.df_host_launch.restype = ctypes.c_int
     lib.df_host_rehash.argtypes = [p, i64, p, i64, p, u64]
     lib.df_host_norm.argtypes = [p, ctypes.c_int, i64, p]
     return lib
 
 
-def _host_passes(lib, seed):
+#: the count's word in csrc/distinct_flag.cu ``DistinctFlagArgs``
+_HOST_KEYS = 13
+
+
+def _host_launch(lib, seed, threads, late=None):
+    """The kernel's launch on a grid of at most ``threads`` threads and its
+    rehash, run on the host by the g++ build. With ``late`` (a list), the
+    launch stores the count's word elsewhere and appends (that word, the
+    table's word) to it: the store lands when the test copies it."""
     import array
 
-    def insert(v):
+    def launch(v):
+        if late is not None:
+            word = torch.zeros(1, dtype=torch.int64)
+            late.append((word, v[_HOST_KEYS]))
+            v = list(v)
+            v[_HOST_KEYS] = word.data_ptr()
         packed = array.array("q", v)     # alive through the call
-        lib.df_host_insert(packed.buffer_info()[0], seed)
-
-    def mark(v):
-        packed = array.array("q", v)
-        lib.df_host_mark(packed.buffer_info()[0], seed + 1)
+        assert lib.df_host_launch(packed.buffer_info()[0], threads,
+                                  seed) == 0
 
     def rehash(old, oc, new, c, err):
         lib.df_host_rehash(old.data_ptr(), oc, new.data_ptr(), c,
                            err.data_ptr(), seed + 2)
-    return insert, mark, rehash
+    return launch, rehash
 
 
 def _column(rng, kind, n):
@@ -549,11 +588,7 @@ def _stream_batches(rng, n_batches, rows, vkind, gkind, hi):
     return out
 
 
-@pytest.mark.parametrize("case", [
-    "nan_zero_null_group", "float32_int8", "one_key", "growth", "repeats",
-    "one_row"])
-def test_kernel_passes_built_by_gxx_equal_the_plain_version(host_lib,
-                                                            case):
+def _case_batches(case):
     rng = np.random.RandomState(len(case))
     if case == "nan_zero_null_group":
         batches = _stream_batches(rng, 3, 700, torch.float64, torch.int64,
@@ -568,33 +603,183 @@ def test_kernel_passes_built_by_gxx_equal_the_plain_version(host_lib,
                                   1 << 40)
     elif case == "repeats":
         batches = _stream_batches(rng, 5, 800, torch.int32, torch.int16, 60)
+    elif case == "warp_repeats":
+        # every 32-row piece holds keys repeated within it (its rows race
+        # for one slot and its first row), and NULLs
+        batches = _stream_batches(rng, 4, 900, torch.int64, torch.int8, 6)
     else:
         batches = [(torch.tensor([2.5]), torch.tensor([True]),
                     torch.tensor([1]), torch.tensor([False]))] * 2
-    for seed in (1, 2):
-        insert, mark, rehash = _host_passes(host_lib, seed)
-        seen = df.SeenKeys()
-        table, ub, growths = None, 0, 0
-        for v, vv, g, gv in batches:
-            ub += v.shape[0]
-            table, grew = df.sized_table(table, "cpu", ub, 64, rehash,
-                                         hashed=True)
-            growths += grew
-            got = df._flag(table, v, vv, g, gv, insert, mark)
-            want = df.distinct_flag_reference(seen, v, vv, g, gv)
-            assert torch.equal(got, want), case
-        assert not table.failed()
+    return batches
+
+
+def _host_stream(host_lib, batches, seed, threads):
+    """The host build's flags against the plain version's over
+    ``batches``, the table sized as the exec sizes it: (growths, table,
+    new keys a batch by the count, by the plain version)."""
+    launch, rehash = _host_launch(host_lib, seed, threads)
+    seen = df.SeenKeys()
+    table, growths, counted, want_new = None, 0, [], []
+    for v, vv, g, gv in batches:
+        table, grew = df.sized_table(table, "cpu", v.shape[0], 64, rehash,
+                                     hashed=True)
+        growths += grew
+        before = int(table.keys)
+        had = 0 if seen.keys is None else seen.keys.shape[0]
+        got = df._flag(table, v, vv, g, gv, launch)
+        want = df.distinct_flag_reference(seen, v, vv, g, gv)
+        assert torch.equal(got, want)
+        counted.append(int(table.keys) - before)
+        want_new.append(seen.keys.shape[0] - had if seen.keys is not None
+                        else 0)
+    assert not table.failed()
+    table.count.poll()
+    return growths, table, counted, want_new
+
+
+@pytest.mark.parametrize("case", [
+    "nan_zero_null_group", "float32_int8", "one_key", "growth", "repeats",
+    "one_row", "warp_repeats"])
+def test_kernel_passes_built_by_gxx_equal_the_plain_version(host_lib,
+                                                            case):
+    batches = _case_batches(case)
+    # a grid of one block (a thread's rows past its first through
+    # scratch), then one that holds every row in registers
+    for seed, threads in ((1, 256), (2, 1 << 20)):
+        growths, table, _, _ = _host_stream(host_lib, batches, seed,
+                                            threads)
+        assert table.count.keys == int(table.keys)
         if case == "growth":
             assert growths >= 2
 
 
+@pytest.mark.parametrize("case", ["repeats", "growth", "warp_repeats"])
+def test_key_count_equals_the_new_keys(host_lib, case):
+    """The kernel's count grows by the keys new in each batch, and its
+    pinned word hands the host the count after the last launch."""
+    _, table, counted, want_new = _host_stream(host_lib,
+                                               _case_batches(case), 3, 512)
+    assert counted == want_new
+    assert table.count.keys == sum(want_new) == int(table.keys)
+    assert table.count.rows == table.rows
+
+
+def _word(epoch, keys):
+    return (epoch << 32) | keys
+
+
+@pytest.mark.parametrize("case", ["unqueued_epoch", "newest", "in_order"])
+def test_count_word_names_its_epoch(case):
+    """The host takes the word's count with the rows of the epoch that
+    wrote it, and only when that epoch was queued; reading drops the
+    epochs up to it."""
+    count = df.KeyCount(cuda=False)
+    for e, rows in ((1, 100), (2, 250), (3, 300)):
+        count.queued(e, rows)
+    if case == "unqueued_epoch":
+        count.host[0] = _word(7, 40)
+        count.poll()
+        assert (count.keys, count.rows) == (0, 0)
+        assert sorted(count.rows_after) == [1, 2, 3]
+    elif case == "newest":
+        count.host[0] = _word(3, 90)
+        count.poll()
+        assert (count.keys, count.rows, count.rows_after) == (90, 300, {})
+    else:
+        for e, keys, rows in ((1, 60, 100), (2, 80, 250)):
+            count.host[0] = _word(e, keys)
+            count.poll()
+            assert (count.keys, count.rows) == (keys, rows)
+            assert min(count.rows_after) == e + 1
+        count.poll()     # the same word again changes nothing
+        assert (count.keys, count.rows) == (80, 250)
+
+
+@pytest.mark.parametrize("min_slots", [2, 64, 1 << 16])
+def test_table_slots_load_the_keys_to_at_most_half(min_slots):
+    """For any keys known and rows to come: the keys after the rows fill
+    at most 1/LOAD_NUM of the slots, the slots are a power of two at
+    least ``min_slots``, and no count known gives the reference's size
+    for the rows."""
+    rng = np.random.RandomState(min_slots)
+    for _ in range(500):
+        keys, rows = (int(x) for x in rng.randint(0, 1 << 22, 2))
+        slots = df.table_slots(keys, rows, min_slots)
+        assert slots & (slots - 1) == 0 and slots >= min_slots
+        assert df.LOAD_NUM * (keys + rows) <= slots
+        assert slots < 2 * max(min_slots, df.LOAD_NUM * (keys + rows))
+        assert df.table_slots(0, rows, min_slots) == max(
+            min_slots, df._next_pow2(df.LOAD_NUM * rows))
+
+
+def _reference_sizes(rows, min_slots):
+    """The reference's table after each batch of ``rows``: twice the rows
+    so far (spark_rapids_tpu/exec/distinct_flag.py), grown to twice the
+    need."""
+    cap, ub, out = None, 0, []
+    for n in rows:
+        ub += n
+        need = df._next_pow2(df.LOAD_NUM * ub)
+        if cap is None:
+            cap = max(min_slots, need)
+        elif cap < need:
+            cap = 2 * need
+        out.append(cap)
+    return out
+
+
+@pytest.mark.parametrize("events", ["completed", "pending", "lagging"])
+def test_sizing_from_the_key_count_with_a_fake_event_ring(host_lib,
+                                                          events):
+    """Before each batch the table has at least LOAD_NUM x (the keys known
+    plus the rows since) slots, so the keys after the batch load it to at
+    most half, and never more than the reference's row-bound size. The
+    kernel's stores to the count's word land at once (completed), two
+    launches late (lagging) or never (pending: the count stays unknown
+    and the size is the row bound)."""
+    rng = np.random.RandomState(21)
+    batches = _stream_batches(rng, 14, (200, 600), torch.int64, None, 3000)
+    late = [] if events != "completed" else None
+    launch, rehash = _host_launch(host_lib, 4, 512, late)
+    seen, table = df.SeenKeys(), None
+    ref = _reference_sizes([b[0].shape[0] for b in batches], 64)
+    for j, (v, vv, g, gv) in enumerate(batches):
+        n = v.shape[0]
+        if table is not None:
+            k, r = table.key_bound(n)
+            assert k <= int(table.keys) and r >= n
+        else:
+            k, r = 0, n
+        table, _ = df.sized_table(table, "cpu", n, 64, rehash, hashed=True)
+        df._flag(table, v, vv, g, gv, launch)
+        df.distinct_flag_reference(seen, v, vv, g, gv)
+        keys = seen.keys.shape[0]
+        assert table.capacity >= df.LOAD_NUM * (k + r) >= df.LOAD_NUM * keys
+        assert table.capacity <= ref[j]
+        if events == "lagging" and len(late) > 2:
+            word, dest = late.pop(0)
+            table.count.host[0] = word[0]
+            assert dest == table.count.host.data_ptr()
+    assert not table.failed()
+    if events == "pending":
+        assert table.count.keys == 0 and len(table.count.rows_after) == 14
+        assert table.capacity == df._next_pow2(df.LOAD_NUM * table.rows)
+    else:
+        table.count.poll()
+        assert table.count.keys > 0
+        if events == "completed":
+            assert table.count.keys == seen.keys.shape[0]
+            assert table.capacity < ref[-1]
+
+
 def test_full_table_sets_the_error_word(host_lib):
-    insert, mark, _ = _host_passes(host_lib, 5)
+    launch, _ = _host_launch(host_lib, 5, 256)
     table = df.DistinctTable("cpu", 4, hashed=True)
     v = torch.arange(6, dtype=torch.int64)
-    df._flag(table, v, torch.ones(6, dtype=torch.bool), None, None, insert,
-             mark)
+    df._flag(table, v, torch.ones(6, dtype=torch.bool), None, None, launch)
     assert table.failed()
+    # the count holds the keys inserted, not the row that failed
+    assert int(table.keys) == 4
 
 
 def test_wrapper_takes_the_plain_version_only_on_the_cpu():
