@@ -114,7 +114,18 @@ result line):
                 launch a batch plus its growths, the table's final size
                 and the peak allocation printed) at SF10 over phase 10's
                 store_sales, cold and warm, against numpy, each once
-                more under torch.profiler.
+                more under torch.profiler;
+ 12. sql     -- SQL texts through TorchSession.sql over phase 4's SF1
+                lineitem and phase 10's SF10 store_sales, date_dim and
+                item as temp views (TPC-H q1 and q6, TPC-DS q3, a q9
+                bucket and q28 as a UNION ALL of six SELECTs, a LIKE
+                count with the match kernel on, a CTE/HAVING/ORDER BY/
+                LIMIT text, INTERSECT and EXCEPT), each cold and warm,
+                equal to numpy and to the DataFrame form of the same
+                query in the same session (bit-equal where the plans
+                agree up to the top Project), with each kernel's
+                launches beside the DataFrame form's, the parse-and-
+                lower time apart, the broadcast sides and the plans.
 
 The data is generated here from a seed, with numpy only: this script
 imports neither JAX, pyarrow, pandas nor the JAX package. It prints a
@@ -2834,8 +2845,101 @@ def phase_tpcds(card: str, batch_rows: int) -> dict:
     res["joins_by_type"] = by_type
     for s in plans.values():
         s.close()
-    return res, ss, hosts[0]
+    return res, {"ss": ss, "dd": dd, "it": it, "hosts": hosts}
 
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the SQL texts (TPCH_Q1, TPCH_Q6, TPCDS_Q3 and TPCDS_Q9_BUCKET
+# are copies of benchmarks/queries_sql.py's, which tests/test_torch_sql.py
+# holds equal)
+# ---------------------------------------------------------------------------
+
+TPCH_Q1 = """
+SELECT l_returnflag, l_linestatus,
+       sum(l_quantity)                                      AS sum_qty,
+       sum(l_extendedprice)                                 AS sum_base_price,
+       sum(l_extendedprice * (1 - l_discount))              AS sum_disc_price,
+       sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) AS sum_charge,
+       avg(l_quantity)                                      AS avg_qty,
+       avg(l_extendedprice)                                 AS avg_price,
+       avg(l_discount)                                      AS avg_disc,
+       count(*)                                             AS count_order
+FROM lineitem
+WHERE l_shipdate <= date '1998-12-01' - interval '90' day
+GROUP BY l_returnflag, l_linestatus
+ORDER BY l_returnflag, l_linestatus
+"""
+
+TPCH_Q6 = """
+SELECT sum(l_extendedprice * l_discount) AS revenue
+FROM lineitem
+WHERE l_shipdate >= date '1994-01-01'
+  AND l_shipdate < date '1995-01-01'
+  AND l_discount BETWEEN 0.05 AND 0.07
+  AND l_quantity < 24
+"""
+
+TPCDS_Q3 = """
+SELECT d_year, i_brand_id, i_brand, sum(ss_ext_sales_price) AS sum_agg
+FROM date_dim, store_sales, item
+WHERE d_date_sk = ss_sold_date_sk
+  AND ss_item_sk = i_item_sk
+  AND i_manufact_id = 128
+  AND d_moy = 11
+GROUP BY d_year, i_brand_id, i_brand
+ORDER BY d_year, sum_agg DESC, i_brand_id
+"""
+
+TPCDS_Q9_BUCKET = """
+SELECT count(CASE WHEN ss_quantity BETWEEN {lo} AND {hi}
+                  THEN 1 ELSE NULL END)                        AS cnt,
+       avg(CASE WHEN ss_quantity BETWEEN {lo} AND {hi}
+                THEN ss_ext_sales_price ELSE NULL END)          AS avg_price,
+       avg(CASE WHEN ss_quantity BETWEEN {lo} AND {hi}
+                THEN ss_net_paid ELSE NULL END)                 AS avg_paid
+FROM store_sales
+"""
+
+
+def _q28_branch(lo, hi, lp, cp, wc) -> str:
+    return f"""SELECT avg(ss_list_price) AS b_avg,
+       count(ss_list_price) AS b_cnt,
+       count(DISTINCT ss_list_price) AS b_cntd
+FROM store_sales
+WHERE ss_quantity BETWEEN {lo} AND {hi}
+  AND (ss_list_price >= {float(lp)} OR ss_coupon_amt >= {float(cp)}
+       OR ss_wholesale_cost >= {float(wc)})"""
+
+
+#: q28 (phase 11's, the benchmark's six buckets) as a user writes it: a
+#: UNION ALL of six filtered keyless SELECTs
+TPCDS_Q28 = "\nUNION ALL\n".join(_q28_branch(*b) for b in (
+    (0, 5, 11, 460, 14930), (6, 10, 91, 1430, 32370),
+    (11, 15, 66, 1480, 3750), (16, 20, 142, 3270, 21910),
+    (21, 25, 135, 2450, 17300), (26, 30, 28, 2340, 33660)))
+
+SQL_LIKE = ("SELECT count(*) FROM lineitem "
+            "WHERE l_comment LIKE '%special%'")
+
+#: the CTE / HAVING / ORDER BY / LIMIT text of tests/test_sql.py
+SQL_CTE_LIMIT = """
+WITH big AS (
+    SELECT l_orderkey, sum(l_quantity) AS q
+    FROM lineitem GROUP BY l_orderkey HAVING sum(l_quantity) > 60
+)
+SELECT l_orderkey, q FROM big ORDER BY q DESC, l_orderkey
+LIMIT 10"""
+
+#: two filtered projections of store_sales, as INTERSECT and EXCEPT
+SQL_SETOP = """
+SELECT * FROM (
+    SELECT ss_item_sk, ss_quantity FROM store_sales
+    WHERE ss_quantity <= 10 AND ss_item_sk < 300
+    {op}
+    SELECT ss_item_sk, ss_quantity FROM store_sales
+    WHERE ss_net_paid > 19990.0) x
+ORDER BY ss_item_sk, ss_quantity"""
 
 
 # ---------------------------------------------------------------------------
@@ -3362,6 +3466,272 @@ def phase_tpcds2(card: str, batch_rows: int, ss: dict, ss_host) -> dict:
         "launch": times["launch"],
         "cases": {k: v["route"] for k, v in exact.items()},
     }
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the SQL front end
+# ---------------------------------------------------------------------------
+
+def q9_bucket(store_sales, F, lo: int, hi: int):
+    """One q9 bucket as TPCDS_Q9_BUCKET computes it."""
+    in_b = ((F.col("ss_quantity") >= F.lit(lo))
+            & (F.col("ss_quantity") <= F.lit(hi)))
+    return store_sales.agg(
+        F.count(F.when(in_b, F.lit(1)).otherwise(F.lit(None)))
+        .with_name("cnt"),
+        F.avg(F.when(in_b, F.col("ss_ext_sales_price"))
+              .otherwise(F.lit(None))).with_name("avg_price"),
+        F.avg(F.when(in_b, F.col("ss_net_paid")).otherwise(F.lit(None)))
+        .with_name("avg_paid"))
+
+
+def cte_limit(lineitem, F):
+    """SQL_CTE_LIMIT as DataFrame calls."""
+    return (lineitem.group_by("l_orderkey")
+            .agg(F.sum(F.col("l_quantity")).with_name("q"))
+            .filter(F.col("q") > F.lit(60))
+            .order_by(F.desc("q"), "l_orderkey").limit(10))
+
+
+def cte_limit_numpy(t: dict) -> list:
+    keys, inv = np.unique(t["l_orderkey"], return_inverse=True)
+    qty = np.bincount(inv, weights=t["l_quantity"])
+    sel = np.flatnonzero(qty > 60)
+    sel = sel[np.lexsort((keys[sel], -qty[sel]))][:10]
+    return [{"l_orderkey": int(keys[i]), "q": float(qty[i])} for i in sel]
+
+
+def _setop_sides(store_sales, F):
+    left = store_sales.filter((F.col("ss_quantity") <= F.lit(10))
+                              & (F.col("ss_item_sk") < F.lit(300)))
+    right = store_sales.filter(F.col("ss_net_paid") > F.lit(19990.0))
+    cols = ("ss_item_sk", "ss_quantity")
+    return left.select(*cols), right.select(*cols)
+
+
+def setop(store_sales, F, op: str):
+    """SQL_SETOP as DataFrame calls: ``op`` is intersect or subtract."""
+    a, b = _setop_sides(store_sales, F)
+    return getattr(a, op)(b).order_by("ss_item_sk", "ss_quantity")
+
+
+def setop_numpy(ss: dict, op: str) -> list:
+    q, i = ss["ss_quantity"], ss["ss_item_sk"]
+    code = i.astype(np.int64) * 101 + q
+    left = np.unique(code[(q <= 10) & (i < 300)])
+    right = np.unique(code[ss["ss_net_paid"] > 19990.0])
+    keep = np.isin(left, right, invert=op == "subtract")
+    return [{"ss_item_sk": int(c // 101), "ss_quantity": int(c % 101)}
+            for c in left[keep]]
+
+
+#: (SQL text, DataFrame form over the views, numpy rows, why the two
+#: forms' floats may differ (None: their plans agree up to the top
+#: Project, so they must be equal))
+def _sql_cases(table: dict, ds: dict) -> dict:
+    ss = ds["ss"]
+    q9w = q9_numpy(ss)[0]
+    return {
+        "q1": (TPCH_Q1, lambda s, F: q1(s.table("lineitem"), F),
+               q1_numpy(table), None),
+        "q6": (TPCH_Q6, lambda s, F: q6(s.table("lineitem"), F),
+               [{"revenue": q6_numpy(table)}], None),
+        "q3": (TPCDS_Q3, lambda s, F: q3(s.table("store_sales"),
+                                         s.table("date_dim"),
+                                         s.table("item"), F),
+               q3_numpy(ss, ds["dd"], ds["it"]),
+               "the SQL joins in FROM order (date_dim broadcast on the "
+               "left, the filters after both joins), so the rows reach "
+               "each group's sum in another order"),
+        "q9_bucket": (TPCDS_Q9_BUCKET.format(lo=21, hi=40),
+                      lambda s, F: q9_bucket(s.table("store_sales"), F,
+                                             21, 40),
+                      [{"cnt": q9w["cnt2"], "avg_price": q9w["avg_price2"],
+                        "avg_paid": q9w["avg_paid2"]}], None),
+        "q28": (TPCDS_Q28, lambda s, F: q28(s.table("store_sales"), F),
+                q28_numpy(ss),
+                "the SQL runs six passes (a Project over each branch's "
+                "aggregate keeps the union-of-aggregates rewrite off), the "
+                "DataFrame form one, so each average adds its rows in "
+                "another order"),
+        "like": (SQL_LIKE, lambda s, F: s.table("lineitem").filter(
+            F.col("l_comment").like("%special%")).agg(
+            F.count_star().with_name("__agg0")),
+            [{"__agg0": q_comment_numpy(table)[0]}], None),
+        "cte_limit": (SQL_CTE_LIMIT, lambda s, F: cte_limit(
+            s.table("lineitem"), F), cte_limit_numpy(table), None),
+        "intersect": (SQL_SETOP.format(op="INTERSECT"),
+                      lambda s, F: setop(s.table("store_sales"), F,
+                                         "intersect"),
+                      setop_numpy(ss, "intersect"), None),
+        "except": (SQL_SETOP.format(op="EXCEPT"),
+                   lambda s, F: setop(s.table("store_sales"), F,
+                                      "subtract"),
+                   setop_numpy(ss, "subtract"), None),
+    }
+
+
+#: the kernels each text's plan must launch
+SQL_KERNELS = {"q1": ("dense_groupby",), "q3": ("join_match",),
+               "q28": ("distinct_flag",), "like": ("rect_match",),
+               "intersect": ("join_match",), "except": ("join_match",)}
+
+
+def _kernel_counters():
+    from spark_rapids_tpu_torch.exec.dense_groupby import dense_groupby
+    from spark_rapids_tpu_torch.exec.distinct_flag import distinct_flag
+    from spark_rapids_tpu_torch.exec.join_match import join_match
+    from spark_rapids_tpu_torch.exprs.rect_match import rect_match
+    return (rect_match, dense_groupby, join_match, distinct_flag)
+
+
+def _sql_run(session, make) -> tuple:
+    """One run of ``make(session)`` (a SQL text's lowering, or a DataFrame
+    form's calls), then its collect: the rows, the ms of each part, and
+    every kernel's launches (counts set to 0 just before, read just
+    after)."""
+    import torch
+    counters = _kernel_counters()
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    df = make(session)
+    t1 = time.perf_counter()
+    rows = df.collect()
+    t2 = time.perf_counter()
+    return {"lower_ms": (t1 - t0) * 1e3, "exec_ms": (t2 - t1) * 1e3,
+            "wall_ms": (t2 - t0) * 1e3,
+            "launches": {k.__name__: k.launches for k in counters}}, rows
+
+
+def _rows_close(got: list, want: list, rel: float) -> bool:
+    """Same rows in order, by position within a row: floats within
+    ``rel`` (0: bit-equal), everything else exactly."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        gv, wv = list(g.values()), list(w.values())
+        if len(gv) != len(wv):
+            return False
+        for a, b in zip(gv, wv):
+            if isinstance(b, float) and isinstance(a, float):
+                if not (a == b or (rel and _rel(a, b) <= rel)):
+                    return False
+            elif a != b:
+                return False
+    return True
+
+
+def _broadcast_sides(plan: str) -> list:
+    return re.findall(r"BroadcastHashJoin\[(\w+),.*build=(\w+)\]", plan)
+
+
+def phase_sql(card: str, batch_rows: int, table: dict, host, ds: dict,
+              tpcds2: dict) -> dict:
+    """Phase 12: SQL texts through ``TorchSession.sql`` over phase 4's SF1
+    lineitem and phase 10's SF10 store_sales, date_dim and item as temp
+    views, each cold and warm: equal to the DataFrame form of the same
+    query in the same session (bit-equal where the plans agree up to the
+    top Project, else within REL_TOL, saying why) and to numpy, with
+    every kernel's launches beside the DataFrame form's; q3 and q28, whose
+    plans differ from their DataFrame forms', once more under
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from spark_rapids_tpu_torch.api import TorchSession
+    from spark_rapids_tpu_torch.api import functions as F
+    t_phase = time.perf_counter()
+    # 1,048,576-row batches under the keyless aggregates too, as phases
+    # 4-9: the per-batch launch counts rest on it
+    session = TorchSession({
+        "spark.rapids.tpu.sql.batchSizeRows": batch_rows,
+        "spark.rapids.tpu.sql.agg.wideBatchRows": batch_rows,
+        "spark.rapids.tpu.sql.pallas.enabled": True})
+    _check(session.device.type == "cuda", "session is not on cuda")
+    for name, h in (("lineitem", host), ("store_sales", ds["hosts"][0]),
+                    ("date_dim", ds["hosts"][1]), ("item", ds["hosts"][2])):
+        session.create_dataframe(h).create_or_replace_temp_view(name)
+    li_batches = math.ceil(SF1_ROWS / batch_rows)
+    ss_batches = math.ceil(SF10_STORE_SALES / batch_rows)
+    expect = {"q1": {"dense_groupby": li_batches},
+              "like": {"rect_match": li_batches}}
+    res = {"card": card}
+    for name, (text, frame, want, why) in _sql_cases(table, ds).items():
+        runs = {}
+        for label in ("cold", "warm"):
+            runs[label], rows = _sql_run(session, lambda s: s.sql(text))
+            _check(rows_equal(rows, want) if name not in ("q3", "q28")
+                   else (q3_equal(rows, want) if name == "q3"
+                         else stats_equal(rows, want)),
+                   f"SQL {name} {label}: {rows[:6]} != numpy {want[:6]}")
+        plan = session.last_plan.tree_string()
+        runs["dataframe"], df_rows = _sql_run(session,
+                                              lambda s: frame(s, F))
+        df_plan = session.last_plan.tree_string()
+        _check(_rows_close(rows, df_rows, REL_TOL if why else 0.0),
+               f"SQL {name} {rows[:6]} != its DataFrame form "
+               f"{df_rows[:6]}")
+        for label in ("cold", "warm"):
+            got = runs[label]["launches"]
+            for k in SQL_KERNELS.get(name, ()):
+                _check(got[k] > 0, f"SQL {name} {label}: {k} never "
+                       f"launched ({got})")
+            for k, n in expect.get(name, {}).items():
+                _check(got[k] == n, f"SQL {name} {label}: {k} launched "
+                       f"{got[k]} times, expected {n} (one a batch)")
+        if name == "q28":
+            for label in ("cold", "warm"):
+                n = runs[label]["launches"]["distinct_flag"]
+                _check(n >= 6 * ss_batches,
+                       f"SQL q28 {label}: distinct_flag launched {n} times, "
+                       f"fewer than 6 passes x {ss_batches} batches")
+            _check(plan.count("HashDistinctFlag") == 6
+                   and plan.count("InMemoryScan") == 6,
+                   f"SQL q28's plan is not six passes:\n{plan}")
+        if name in ("q3", "q28"):
+            # the two texts whose plans differ from their DataFrame
+            # forms: where their warm time goes
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run, _ = _sql_run(session, lambda s: s.sql(text))
+                torch.cuda.synchronize()
+            try:
+                runs["profile_warm"] = _profile_report(
+                    prof, run["wall_ms"], f"SQL {name}",
+                    SQL_KERNELS[name][0])
+            except Exception as e:  # read for information only
+                _log(f"profile: could not be read ({e!r})")
+                runs["profile_warm"] = {"device_time": False,
+                                        "error": repr(e)}
+        sides = _broadcast_sides(plan)
+        runs.update({"plan": plan, "dataframe_plan": df_plan,
+                     "broadcast": sides, "exact": why is None,
+                     "why_not_exact": why})
+        c, w, d = runs["cold"], runs["warm"], runs["dataframe"]
+        how = "bit-equal" if why is None else f"within {REL_TOL:g}: {why}"
+        _log(f"SQL {name}: equal to numpy and to its DataFrame form "
+             f"({how}); {len(rows)} rows; cold {c['wall_ms']:.1f} ms (parse and "
+             f"lower {c['lower_ms']:.2f} ms), warm {w['wall_ms']:.1f} ms "
+             f"(parse and lower {w['lower_ms']:.2f} ms); DataFrame form "
+             f"{d['wall_ms']:.1f} ms; launches cold {c['launches']}, warm "
+             f"{w['launches']}, DataFrame form {d['launches']}"
+             + (f"; broadcast joins (type, build side) {sides}"
+                if sides else "") + f" [{card}]")
+        _log(f"SQL {name} physical plan:\n{plan}")
+        if name in ("q3", "q28"):
+            _log(f"SQL {name}'s DataFrame form, physical plan:\n{df_plan}")
+        res[name] = runs
+    df28 = tpcds2["q28"]["warm"]["wall_ms"]
+    _log(f"SQL q28 warm {res['q28']['warm']['wall_ms']:.1f} ms (six passes, "
+         f"{res['q28']['warm']['launches']['distinct_flag']} distinct_flag "
+         f"launches) against the DataFrame q28 warm: "
+         f"{res['q28']['dataframe']['wall_ms']:.1f} ms in this session, "
+         f"{df28:.1f} ms in phase 11 (one pass) [{card}]")
+    session.close()
+    res["seconds"] = time.perf_counter() - t_phase
+    _log(f"phase 12 (sql): {res['seconds']:.1f} s [{card}]")
     return res
 
 
@@ -4119,9 +4489,10 @@ def main(argv=None) -> int:
             conf, host, table, mem["q18_partial_bytes"], mem["q18_budget"],
             card)
         parquet = phase_parquet(table, inmem, batch_rows, card)
-        tpcds, ss, ss_host = phase_tpcds(card, batch_rows)
-        tpcds2 = phase_tpcds2(card, batch_rows, ss, ss_host)
-        del ss, ss_host
+        tpcds, ds = phase_tpcds(card, batch_rows)
+        tpcds2 = phase_tpcds2(card, batch_rows, ds["ss"], ds["hosts"][0])
+        sql = phase_sql(card, batch_rows, table, host, ds, tpcds2)
+        del ds
         _log(json.dumps({"queries": {
             "q6": {"rows": SF1_ROWS, "wall_ms_cold": ms_cold,
                    "wall_ms_warm": ms_warm},
@@ -4136,7 +4507,7 @@ def main(argv=None) -> int:
                    "profile_warm_parent_operands": prof1_parent},
             **mem, **gaps, "parquet": parquet, "tpcds": tpcds,
             "tpcds2": {k: v for k, v in tpcds2.items()
-                       if k != "kernel"}}}))
+                       if k != "kernel"}, "sql": sql}}))
         main_t = times["main"]
         kernel = {
             "name": "rect_match", "route": "cuda",
@@ -4145,7 +4516,9 @@ def main(argv=None) -> int:
             "launches": launches, "max_abs_err": max_err,
             "paths": {"q_comment": launches,
                       "q_comment_filter": mem["q_comment_filter_on"]["cold"][
-                          "launches"]["rect_match"]},
+                          "launches"]["rect_match"],
+                      "sql_like": sql["like"]["cold"]["launches"][
+                          "rect_match"]},
             "exact": max_err == 0,
             "ms": main_t["ms"], "kernel_ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
@@ -4175,6 +4548,8 @@ def main(argv=None) -> int:
                       "q12_modes": mem["q12_modes"]["cold"]["launches"][
                           "dense_groupby"],
                       "q1_injected": mem["q1_injected"]["launches"][
+                          "dense_groupby"],
+                      "sql_q1": sql["q1"]["cold"]["launches"][
                           "dense_groupby"]},
             "tolerance": f"float sums within {DENSE_TOL:g} of the group's "
                          "sum of magnitudes; counts and int sums exact; "
@@ -4206,7 +4581,8 @@ def main(argv=None) -> int:
                       "q3_shuffled": tpcds["shuffled"]["cold"][
                           "join_match_launches"],
                       **{f"ss_{k}_item": v["join_match_launches"]
-                         for k, v in tpcds["joins_by_type"].items()}},
+                         for k, v in tpcds["joins_by_type"].items()},
+                      "sql_q3": sql["q3"]["cold"]["launches"]["join_match"]},
             "ms": join_t["ms"], "plain_ms": join_t["plain_ms"],
             "bound_ms": join_t["bound_ms"], "bound_by": join_t["bound_by"],
             "bound_bytes": join_t["bound_bytes"],
@@ -4227,6 +4603,8 @@ def main(argv=None) -> int:
         }
         dense["paths"]["q28"] = tpcds2["q28"]["cold"]["launches"][
             "dense_groupby"]
+        tpcds2["kernel"]["paths"]["sql_q28"] = sql["q28"]["cold"][
+            "launches"]["distinct_flag"]
         _log(json.dumps({"kernels": [kernel, dense, join,
                                      tpcds2["kernel"]]}))
     except Exception:

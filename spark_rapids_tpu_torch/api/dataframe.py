@@ -5,8 +5,10 @@ the part the slice reaches).
 caller names another. Inputs are a dict of numpy arrays, an Arrow
 table or pandas DataFrame when those packages are installed, or Parquet
 files (``read_parquet``, read by the port's own reader); results
-come back as rows (``collect``), numpy arrays (``collect_numpy``) or an
-Arrow table (``collect_arrow``).
+come back as rows (``collect``), numpy arrays (``collect_numpy``), an
+Arrow table (``collect_arrow``) or a pandas DataFrame (``to_pandas``).
+``session.sql(text)`` runs SQL over the session's temp views
+(``create_temp_view`` / ``df.create_or_replace_temp_view``; sql/).
 
 A session's queries share its memory manager (mem/manager.py, one per
 budget in the process) and one device semaphore
@@ -88,6 +90,8 @@ class TorchSession:
         self.last_retry_stats = None
         #: the physical plan of the session's latest query
         self.last_plan = None
+        #: temp views by lower-case name (``create_temp_view``)
+        self._views = {}
 
     def exec_context(self) -> ExecContext:
         """A query's context over the session's memory and semaphore."""
@@ -115,6 +119,27 @@ class TorchSession:
         # never mask the exception in flight with a leak assertion
         if exc_type is None:
             self.close()
+
+    def sql(self, text: str) -> "DataFrame":
+        """A SQL query over the session's temp views (the analytics
+        subset of sql/; ref ``TpuSession.sql``)."""
+        from ..sql import lower_statement
+        return lower_statement(self, text, self._views)
+
+    def create_temp_view(self, name: str, df: "DataFrame") -> None:
+        self._views[name.lower()] = df
+
+    def drop_temp_view(self, name: str) -> None:
+        self._views.pop(name.lower(), None)
+
+    def table(self, name: str) -> "DataFrame":
+        """A temp view by name. The warehouse catalog arrives with slice
+        10, so any other name is not found."""
+        v = self._views.get(name.lower())
+        if v is None:
+            from ..sql.parser import SqlError
+            raise SqlError(f"table or view not found: {name}")
+        return v
 
     def read_parquet(self, *paths: str,
                      columns: Optional[List[str]] = None) -> "DataFrame":
@@ -274,6 +299,70 @@ class DataFrame:
 
     unionAll = union
 
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(self.session, L.GlobalLimit(n, self.plan))
+
+    def drop(self, *names: str) -> "DataFrame":
+        return self.select(*[c for c in self.columns if c not in names])
+
+    def distinct(self) -> "DataFrame":
+        """The distinct rows: a group-by over every column with no
+        aggregate."""
+        return GroupedData(self, [ColumnRef(n) for n in self.columns]).agg()
+
+    def _nullsafe_key_pairs(self, other: "DataFrame") -> list:
+        """Join key pairs giving SQL set-operation equality (ref
+        ``_nullsafe_key_pairs``): per column an is-null flag and the value
+        with NULL filled by a default, so NULL matches NULL and never a
+        real default; NaN matches NaN and -0.0 matches 0.0 through the
+        join's key encoding. The columns pair by position."""
+        from ..exprs import Coalesce, IsNull, Literal
+        mine, theirs = self.plan.schema(), other.plan.schema()
+        if len(mine.fields) != len(theirs.fields):
+            raise ValueError(
+                "set operations require the same number of columns "
+                f"({len(mine.fields)} vs {len(theirs.fields)})")
+        defaults = {"string": "", "boolean": False, "float": 0.0,
+                    "double": 0.0}
+        pairs = []
+        for lf, rf in zip(mine.fields, theirs.fields):
+            d = defaults.get(lf.dtype.name, 0)
+            l, r = ColumnRef(lf.name), ColumnRef(rf.name)
+            pairs.append((IsNull(l), IsNull(r)))
+            pairs.append((Coalesce(l, Literal(d, lf.dtype)),
+                          Coalesce(r, Literal(d, rf.dtype))))
+        return pairs
+
+    def intersect(self, other: "DataFrame") -> "DataFrame":
+        """The distinct rows present in both (SQL INTERSECT): a leftsemi
+        join of the distinct rows on the null-safe keys."""
+        return self.distinct().join(other, how="leftsemi",
+                                    on=self._nullsafe_key_pairs(other))
+
+    def subtract(self, other: "DataFrame") -> "DataFrame":
+        """The distinct rows absent from ``other`` (SQL EXCEPT): a leftanti
+        join of the distinct rows on the null-safe keys."""
+        return self.distinct().join(other, how="leftanti",
+                                    on=self._nullsafe_key_pairs(other))
+
+    def intersect_all(self, other: "DataFrame") -> "DataFrame":
+        raise NotImplementedError(
+            "INTERSECT ALL replicates rows through explode(sequence(...)), "
+            "which arrives with slice 9 (generators)")
+
+    def except_all(self, other: "DataFrame") -> "DataFrame":
+        raise NotImplementedError(
+            "EXCEPT ALL replicates rows through explode(sequence(...)), "
+            "which arrives with slice 9 (generators)")
+
+    intersectAll = intersect_all
+    exceptAll = except_all
+
+    def create_or_replace_temp_view(self, name: str) -> None:
+        self.session.create_temp_view(name, self)
+
+    createOrReplaceTempView = create_or_replace_temp_view
+
     def order_by(self, *orders) -> "DataFrame":
         """Global sort: each order a SortOrder (``Col.asc``/``desc``), a
         column name or a Col (ascending, nulls first)."""
@@ -358,6 +447,11 @@ class DataFrame:
                 arr = pa.array(vals, mask=~valid, type=to_arrow(f.dtype))
             arrays.append(arr)
         return pa.Table.from_arrays(arrays, names=schema.names())
+
+    def to_pandas(self):
+        """The result as a pandas DataFrame (pandas and pyarrow are
+        imported here, and needed only here)."""
+        return self.collect_arrow().to_pandas()
 
 
 class GroupedData:

@@ -12,8 +12,12 @@ from typing import Optional
 from .. import exprs as E
 from ..exprs.aggregates import (Average, Count, CountStar, First, Last,
                                 Max, Min, Sum)
+from ..types import (BOOL, DATE, FLOAT32, FLOAT64, INT8, INT16, INT32, INT64,
+                     STRING, TIMESTAMP, DataType)
 
-__all__ = ["Col", "col", "lit", "asc", "desc", "when", "sum", "count",
+__all__ = ["Col", "col", "lit", "asc", "desc", "when", "coalesce",
+           "nullif", "isnull", "greatest", "least", "cast", "date_add",
+           "date_sub", "like", "sum", "count",
            "count_star", "avg", "min", "max", "first", "last",
            "count_distinct", "sum_distinct", "avg_distinct",
            "countDistinct", "sumDistinct", "broadcast",
@@ -60,6 +64,7 @@ class Col:
         return Col(E.BitwiseXor(self.expr, _to_expr(o)))
 
     def __eq__(self, o): return Col(E.EqualTo(self.expr, _to_expr(o)))
+    def __ne__(self, o): return Col(E.NotEqual(self.expr, _to_expr(o)))
     def __lt__(self, o): return Col(E.LessThan(self.expr, _to_expr(o)))
     def __le__(self, o): return Col(E.LessThanOrEqual(self.expr, _to_expr(o)))
     def __gt__(self, o): return Col(E.GreaterThan(self.expr, _to_expr(o)))
@@ -86,6 +91,7 @@ class Col:
         return Col(E.In(self.expr, vals))
 
     def alias(self, name: str): return Col(E.Alias(self.expr, name))
+    def cast(self, dtype): return Col(E.Cast(self.expr, _dtype_of(dtype)))
 
     def asc(self, nulls_first: Optional[bool] = None):
         from ..plan.logical import SortOrder
@@ -100,6 +106,19 @@ class Col:
 
     def __repr__(self):
         return f"Col<{self.expr.name_hint}>"
+
+
+_DTYPES = {"boolean": BOOL, "bool": BOOL, "tinyint": INT8, "byte": INT8,
+           "smallint": INT16, "short": INT16, "int": INT32, "integer": INT32,
+           "bigint": INT64, "long": INT64, "float": FLOAT32,
+           "double": FLOAT64, "string": STRING, "date": DATE,
+           "timestamp": TIMESTAMP}
+
+
+def _dtype_of(d) -> DataType:
+    if isinstance(d, DataType):
+        return d
+    return _DTYPES[str(d).lower()]
 
 
 def col(name: str) -> Col:
@@ -130,6 +149,36 @@ class _WhenBuilder:
 
 def when(cond, value) -> _WhenBuilder:
     return _WhenBuilder([(_to_expr(cond), _to_expr(value))])
+
+
+def coalesce(*cols) -> Col:
+    return Col(E.Coalesce(*[_to_expr(c) for c in cols]))
+
+
+def nullif(a, b) -> Col:
+    return Col(E.NullIf(_to_expr(a), _to_expr(b)))
+
+
+def isnull(c) -> Col: return Col(E.IsNull(_to_expr(c)))
+def greatest(*cols) -> Col: return Col(E.Greatest(*map(_to_expr, cols)))
+def least(*cols) -> Col: return Col(E.Least(*map(_to_expr, cols)))
+
+
+def cast(c, dtype) -> Col:
+    """A cast; the widening numeric ones run (exprs/cast.py), the others
+    are refused at planning until slice 9."""
+    return Col(E.Cast(_to_expr(c), _dtype_of(dtype)))
+
+
+def date_add(c, days) -> Col:
+    return Col(E.DateAdd(_to_expr(c), _to_expr(days)))
+
+
+def date_sub(c, days) -> Col:
+    return Col(E.DateSub(_to_expr(c), _to_expr(days)))
+
+
+def like(c, pattern) -> Col: return Col(E.Like(_to_expr(c), pattern))
 
 
 def asc(name: str):

@@ -216,8 +216,8 @@ class TpuHashAggregateExec(TpuExec):
         g = self.groupings[i]
         name = _column_ref(g)
         src = None
-        if name is not None and name in batch.schema.names() \
-                and self._passes_through(name):
+        name = self._source_column(name) if name is not None else None
+        if name is not None and name in batch.schema.names():
             src = batch.column_by_name(name)
         d = self._dicts[j]
         if isinstance(src, ByteRectColumn):
@@ -251,15 +251,17 @@ class TpuHashAggregateExec(TpuExec):
             return src
         return conv
 
-    def _passes_through(self, name: str) -> bool:
-        """True when every fused projection passes column ``name`` on
-        unchanged, so the input batch's column is the key."""
-        for st in self.pre_stages:
-            if st[0] == "project" and not any(
-                    e.name_hint == name and _column_ref(e) == name
-                    for e in st[1]):
-                return False
-        return True
+    def _source_column(self, name: str) -> Optional[str]:
+        """The input batch's column that the fused projections pass on
+        as column ``name`` (renamed or not), else None: that column is
+        the key."""
+        for st in reversed(self.pre_stages):
+            if st[0] == "project":
+                name = next((_column_ref(e) for e in st[1]
+                             if e.name_hint == name), None)
+                if name is None:
+                    return None
+        return name
 
     def _dense_keys(self) -> bool:
         """Every key is a dictionary key or a proven-cardinality integer

@@ -1,6 +1,6 @@
-"""Scan, project, filter, union, expand and branch-alignment operators
-(port of ``spark_rapids_tpu/exec/basic.py``: InMemoryScanExec,
-TpuProjectExec, TpuFilterExec, UnionExec, TpuExpandExec,
+"""Scan, project, filter, limit, union, expand and branch-alignment
+operators (port of ``spark_rapids_tpu/exec/basic.py``: InMemoryScanExec,
+TpuProjectExec, TpuFilterExec, LimitExec, UnionExec, TpuExpandExec,
 BranchAlignExec).
 """
 from __future__ import annotations
@@ -24,7 +24,7 @@ from ..types import Schema, StructField
 from .base import ExecContext, TpuExec
 
 __all__ = ["InMemoryScanExec", "TpuProjectExec", "TpuFilterExec",
-           "UnionExec", "TpuExpandExec", "BranchAlignExec",
+           "LimitExec", "UnionExec", "TpuExpandExec", "BranchAlignExec",
            "SCAN_CACHE_MAX_BYTES"]
 
 SCAN_CACHE_MAX_BYTES = register(
@@ -269,6 +269,33 @@ class TpuFilterExec(TpuExec):
     def describe(self):
         tag = " dict_eval" if self._dict_eval is not None else ""
         return f"Filter[{self.condition.name_hint}]{tag}"
+
+
+class LimitExec(TpuExec):
+    """The first ``n`` rows of the child (ref ``LimitExec``): it stops
+    pulling batches once it has them, and cuts the last one."""
+
+    def __init__(self, n: int, child: TpuExec):
+        super().__init__([child])
+        self.n = n
+
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema()
+
+    def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        remaining = self.n
+        if remaining <= 0:
+            return
+        for batch in self.children[0].execute(ctx):
+            if batch.num_rows < remaining:
+                remaining -= batch.num_rows
+                yield batch
+                continue
+            yield batch.slice(0, remaining)
+            return
+
+    def describe(self):
+        return f"Limit[{self.n}]"
 
 
 class UnionExec(TpuExec):

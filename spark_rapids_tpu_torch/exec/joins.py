@@ -6,7 +6,9 @@ Every equi-join matches through ``exec/join_match.py``: the stream side's
 and the build side's keys become int64 words (one a key column, both
 sides promoted to one type first; floats as the integers of their total
 order, so NaN matches NaN and -0.0 matches 0.0; a dictionary string key
-as its code in the union of both sides' dictionaries), a null key never
+as its code in the union of both sides' dictionaries, with its NULLs
+first set to the literal of a ``coalesce(column, 'literal')`` key, the
+null-safe key of INTERSECT and EXCEPT), a null key never
 matches, and the hash build and probe give the gather maps. The gathers
 keep a dictionary column a dictionary column (codes gathered, the
 dictionary kept), so a string key of the build side stays one for the
@@ -39,7 +41,8 @@ from ..columnar import (ByteRectColumn, ColumnarBatch, DeviceColumn,
                         DictColumn)
 from ..columnar.batch import concat_batches
 from ..config import JOIN_SUBPARTITION_SIZE
-from ..exprs.base import Alias, ColumnRef, EvalContext, Expression
+from ..exprs.base import Alias, ColumnRef, EvalContext, Expression, Literal
+from ..exprs.conditional import Coalesce
 from ..exprs.compiler import (DeviceProjector, batch_device, batch_dvals,
                               filter_batch_by_mask, gather_batch)
 from ..mem.retry import with_retry_no_split, wrap_spillable_sides
@@ -52,7 +55,7 @@ from .join_match import (MAX_OUTPUT_ROWS, BuildTable, build_table,
 
 __all__ = ["TpuHashJoinExec", "TpuNestedLoopJoinExec",
            "TpuBroadcastHashJoinExec", "empty_batch", "join_schema",
-           "encode_keys", "encode_one_side"]
+           "encode_keys", "encode_one_side", "string_key_column_name"]
 
 #: the join type seen from the other side (a left build side streams the
 #: right side)
@@ -93,18 +96,58 @@ def _column_ref(e) -> Optional[str]:
     return e.name if isinstance(e, ColumnRef) else None
 
 
+def _string_fill(e) -> Optional[tuple]:
+    """(column name, fill) of a string key ``coalesce(column, 'literal')``
+    (the null-safe key of INTERSECT and EXCEPT), else None."""
+    if isinstance(e, Alias):
+        e = e.children[0]
+    if isinstance(e, Coalesce) and len(e.children) == 2:
+        c, lit = e.children
+        if isinstance(c, ColumnRef) and isinstance(lit, Literal) \
+                and isinstance(lit.value, str):
+            return c.name, lit.value
+    return None
+
+
+def string_key_column_name(e) -> Optional[str]:
+    """The column a string join key reads: a column reference's, or the
+    column of ``coalesce(column, 'literal')``; None for other forms."""
+    fill = _string_fill(e)
+    return fill[0] if fill is not None else _column_ref(e)
+
+
+def _filled_dictionary(col: DictColumn, fill: str) -> DictColumn:
+    """``col`` with its NULLs set to ``fill``, which joins the (sorted)
+    dictionary if it is not there."""
+    words = col.dictionary.astype(str)
+    at = int(np.searchsorted(words, fill))
+    codes, dictionary = col.data, col.dictionary
+    if at == len(words) or words[at] != fill:
+        codes = codes + (codes >= at).to(codes.dtype)
+        dictionary = np.insert(dictionary, at, fill)
+    codes = torch.where(col.validity, codes, torch.full_like(codes, at))
+    return DictColumn(codes, torch.ones_like(col.validity), STRING,
+                      dictionary)
+
+
 def _key_values(batch: ColumnarBatch, exprs: Sequence[Expression]):
     """Per key, (DVal, the batch's column when the key passes one
-    through)."""
+    through); a string key gives no DVal and its column (for
+    ``coalesce(column, 'literal')`` with the NULLs filled)."""
     ctx = EvalContext(batch.schema, batch_dvals(batch), batch.num_rows,
                       batch.padded_len, batch_device(batch))
     names = batch.schema.names()
     out = []
     for e in exprs:
-        name = _column_ref(e)
+        name = string_key_column_name(e) \
+            if e.data_type(batch.schema) == STRING else _column_ref(e)
         col = batch.column_by_name(name) if name in names else None
-        out.append((e.eval_device(ctx) if not isinstance(
-            col, ByteRectColumn) else None, col))
+        fill = _string_fill(e)
+        if fill is not None and isinstance(col, DictColumn):
+            col = _filled_dictionary(col, fill[1])
+        out.append((e.eval_device(ctx) if col is None or not (
+            isinstance(col, ByteRectColumn) or col.dtype == STRING)
+            else None, col))
     return out
 
 

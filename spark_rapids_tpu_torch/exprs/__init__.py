@@ -9,15 +9,18 @@ from .base import (Alias, ColumnRef, DVal, EvalContext, Expression,
                    Literal, StrVal)
 from .cast import Cast
 from .comparison import (EqualTo, GreaterThan, GreaterThanOrEqual, In,
-                         IsNotNull, IsNull, LessThan, LessThanOrEqual)
-from .conditional import CaseWhen, Coalesce, If
+                         IsNotNull, IsNull, LessThan, LessThanOrEqual,
+                         NotEqual)
+from .conditional import CaseWhen, Coalesce, Greatest, If, Least, NullIf
+from .datetime_fns import DateAdd, DateSub
 from .logical import And, Not, Or
 from .string_fns import (Contains, EndsWith, Like, RLike, StartsWith,
                          StringInstr, StringLocate)
 
 __all__ = ["AggregateExpression", "Average", "Count", "CountStar", "Sum",
            "Min", "Max", "First", "Last", "In", "IsNull", "IsNotNull",
-           "Cast", "If", "CaseWhen", "Coalesce",
+           "Cast", "If", "CaseWhen", "Coalesce", "NullIf", "Greatest",
+           "Least", "DateAdd", "DateSub", "NotEqual",
            "Add", "Multiply", "Subtract", "Divide", "IntegralDivide",
            "Remainder", "Pmod", "UnaryMinus", "UnaryPositive", "Abs",
            "BitwiseAnd", "BitwiseOr", "BitwiseXor", "BitwiseNot",

@@ -1,6 +1,6 @@
 """Casts (port of ``spark_rapids_tpu/exprs/cast.py``, the widening numeric
 casts the plan rewrites make: any numeric or bool value to bigint or
-double). The other casts arrive with a later slice.
+double). The other casts arrive with slice 9.
 """
 from __future__ import annotations
 
@@ -28,8 +28,8 @@ class Cast(Expression):
         if self.to == FLOAT64 and src in _FROM or \
                 self.to == INT64 and src in _FROM[:5]:
             return None
-        return (f"cast from {src.name} to {self.to.name} arrives with a "
-                "later slice")
+        return (f"cast from {src.name} to {self.to.name} arrives with "
+                "slice 9 (the rest of exprs/cast.py)")
 
     def eval_device(self, ctx) -> DVal:
         c = self.children[0].eval_device(ctx)

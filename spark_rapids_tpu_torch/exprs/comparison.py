@@ -1,5 +1,5 @@
 """Comparison predicates (port of ``spark_rapids_tpu/exprs/comparison.py``:
-=, <, <=, >, >=, IN against literals, IS NULL and IS NOT NULL).
+=, !=, <, <=, >, >=, IN against literals, IS NULL and IS NOT NULL).
 
 Spark's float semantics: NaN == NaN is true and NaN is greater than every
 other value. ``=`` and ``IN`` over a STRING column have no row-wise form
@@ -12,11 +12,14 @@ import math
 
 import torch
 
-from ..types import BOOL, DataType, Schema, comparable, torch_dtype
-from .base import DVal, EvalContext, Expression, null_and, promote_types
+from ..types import (BOOL, STRING, DataType, Schema, comparable,
+                     torch_dtype)
+from .base import (ColumnRef, DVal, EvalContext, Expression, null_and,
+                   promote_types)
 
-__all__ = ["EqualTo", "LessThan", "LessThanOrEqual", "GreaterThan",
-           "GreaterThanOrEqual", "In", "IsNull", "IsNotNull", "in_null_rule"]
+__all__ = ["EqualTo", "NotEqual", "LessThan", "LessThanOrEqual",
+           "GreaterThan", "GreaterThanOrEqual", "In", "IsNull", "IsNotNull",
+           "in_null_rule"]
 
 
 def _nan_eq(l, r):
@@ -73,6 +76,14 @@ class EqualTo(BinaryComparison):
     def eval_device(self, ctx):
         l, r, v = self._operands(ctx)
         return DVal(_nan_eq(l, r), v, BOOL)
+
+
+class NotEqual(BinaryComparison):
+    symbol = "!="
+
+    def eval_device(self, ctx):
+        l, r, v = self._operands(ctx)
+        return DVal(torch.logical_not(_nan_eq(l, r)), v, BOOL)
 
 
 class LessThan(BinaryComparison):
@@ -154,6 +165,24 @@ class In(Expression):
         return f"({self.children[0].name_hint} IN ({vals}))"
 
 
+def _validity_only(e: Expression, schema: Schema):
+    """IS [NOT] NULL reads only its child's validity: a string column's
+    is on the device, whatever its layout."""
+    c = e.children[0]
+    if isinstance(c, ColumnRef) and c.data_type(schema) == STRING:
+        return None
+    return Expression.fully_device_supported(e, schema)
+
+
+def _child_validity(e: Expression, ctx) -> DVal:
+    c = e.children[0].eval_device(ctx)
+    if c is None:
+        raise NotImplementedError(
+            f"<{e.name_hint}> over a host string column (non-ASCII or "
+            "over-wide) arrives with slice 7 (strings)")
+    return c
+
+
 class IsNull(Expression):
     """``e IS NULL``: never null itself (ref ``comparison.py:IsNull``)."""
 
@@ -166,8 +195,11 @@ class IsNull(Expression):
     def device_unsupported_reason(self, schema: Schema):
         return None
 
+    def fully_device_supported(self, schema: Schema):
+        return _validity_only(self, schema)
+
     def eval_device(self, ctx):
-        c = self.children[0].eval_device(ctx)
+        c = _child_validity(self, ctx)
         # a padding row is no null row
         out = torch.logical_and(torch.logical_not(c.validity),
                                 ctx.row_mask())
@@ -194,8 +226,11 @@ class IsNotNull(Expression):
     def device_unsupported_reason(self, schema: Schema):
         return None
 
+    def fully_device_supported(self, schema: Schema):
+        return _validity_only(self, schema)
+
     def eval_device(self, ctx):
-        c = self.children[0].eval_device(ctx)
+        c = _child_validity(self, ctx)
         return DVal(c.validity, torch.ones_like(c.validity), BOOL)
 
     def key(self):

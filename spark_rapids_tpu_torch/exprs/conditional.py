@@ -1,5 +1,6 @@
 """Conditional expressions (port of ``spark_rapids_tpu/exprs/conditional.py``:
-``If``, ``CaseWhen`` and ``Coalesce``).
+``If``, ``CaseWhen``, ``Coalesce``, ``NullIf``, ``Greatest`` and
+``Least``).
 
 A NULL predicate picks the next branch (SQL: only TRUE selects), and the
 first matching branch wins. An untyped ``lit(None)`` else is the absent
@@ -9,6 +10,7 @@ refused at planning until the strings slice.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -16,7 +18,7 @@ import torch
 from ..types import NULLTYPE, STRING, DataType, Schema, torch_dtype
 from .base import DVal, Expression, promote_types
 
-__all__ = ["If", "CaseWhen", "Coalesce"]
+__all__ = ["If", "CaseWhen", "Coalesce", "NullIf", "Greatest", "Least"]
 
 
 def _common_type(schema: Schema, exprs) -> DataType:
@@ -135,16 +137,14 @@ class CaseWhen(Expression):
 
 
 class Coalesce(Expression):
-    """The first non-null of the children, row by row."""
+    """The first non-null of the children, row by row; untyped NULLs take
+    no part in the type."""
 
     def __init__(self, *exprs: Expression):
         self.children = list(exprs)
 
     def data_type(self, schema: Schema) -> DataType:
-        dt = self.children[0].data_type(schema)
-        for c in self.children[1:]:
-            dt = promote_types(dt, c.data_type(schema))
-        return dt
+        return _common_type(schema, self.children)
 
     def eval_device(self, ctx) -> DVal:
         dt = self.data_type(ctx.schema)
@@ -157,3 +157,97 @@ class Coalesce(Expression):
             data = torch.where(c.validity, c.data.to(tdt), data)
             valid = torch.logical_or(valid, c.validity)
         return DVal(data, valid, dt)
+
+
+class NullIf(Expression):
+    """``nullif(a, b)``: NULL where ``a = b`` (both non-null), else ``a``
+    (ref ``conditional.py:NullIf``). The test is Spark's ``=``: the types
+    promoted, NaN equal to NaN."""
+
+    def __init__(self, a: Expression, b: Expression):
+        self.children = [a, b]
+
+    def data_type(self, schema: Schema) -> DataType:
+        return self.children[0].data_type(schema)
+
+    def eval_device(self, ctx) -> DVal:
+        from .comparison import EqualTo
+        a = self.children[0].eval_device(ctx)
+        e = EqualTo(*self.children).eval_device(ctx)
+        eq = torch.logical_and(e.data, e.validity)
+        return DVal(a.data, torch.logical_and(a.validity,
+                                              torch.logical_not(eq)),
+                    self.data_type(ctx.schema))
+
+    def key(self):
+        return (f"nullif({self.children[0].key()},"
+                f"{self.children[1].key()})")
+
+
+class _NarySelect(Expression):
+    """``greatest``/``least`` (ref ``conditional.py:_NarySelect``): n-ary,
+    NULL operands skipped, NULL only where every operand is; NaN is the
+    greatest value (Spark's total order)."""
+
+    _is_max = True
+
+    def __init__(self, *children: Expression):
+        if len(children) < 2:
+            raise ValueError("greatest/least take at least two arguments")
+        self.children = list(children)
+
+    def data_type(self, schema: Schema) -> DataType:
+        return _common_type(schema, self.children)
+
+    def _skip(self, tdt: torch.dtype):
+        """The value an operand that takes no part holds."""
+        if tdt.is_floating_point:
+            return -math.inf if self._is_max else math.inf
+        if tdt == torch.bool:
+            return not self._is_max
+        info = torch.iinfo(tdt)
+        return info.min if self._is_max else info.max
+
+    def eval_device(self, ctx) -> DVal:
+        dt = self.data_type(ctx.schema)
+        tdt = torch_dtype(dt)
+        skip = self._skip(tdt)
+        acc = any_valid = any_nan = any_num = None
+        for c in self.children:
+            v = c.eval_device(ctx)
+            d = v.data.to(tdt)
+            if tdt.is_floating_point:
+                nan = torch.isnan(d)
+                nan_here = torch.logical_and(nan, v.validity)
+                num_here = torch.logical_and(torch.logical_not(nan),
+                                             v.validity)
+                any_nan = nan_here if any_nan is None else \
+                    torch.logical_or(any_nan, nan_here)
+                any_num = num_here if any_num is None else \
+                    torch.logical_or(any_num, num_here)
+                d = torch.where(nan, torch.full_like(d, skip), d)
+            d = torch.where(v.validity, d, torch.full_like(d, skip))
+            acc = d if acc is None else (torch.maximum(acc, d)
+                                         if self._is_max
+                                         else torch.minimum(acc, d))
+            any_valid = v.validity if any_valid is None else \
+                torch.logical_or(any_valid, v.validity)
+        if any_nan is not None:
+            # greatest: any NaN wins; least: NaN only where no operand is
+            # a number (a real +inf must not pass for the skip value)
+            take = any_nan if self._is_max else torch.logical_and(
+                any_nan, torch.logical_not(any_num))
+            acc = torch.where(take, torch.full_like(acc, math.nan), acc)
+        return DVal(acc, any_valid, dt)
+
+    def key(self):
+        kids = ",".join(c.key() for c in self.children)
+        return f"{type(self).__name__}({kids})"
+
+
+class Greatest(_NarySelect):
+    _is_max = True
+
+
+class Least(_NarySelect):
+    _is_max = False

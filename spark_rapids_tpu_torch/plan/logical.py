@@ -1,6 +1,6 @@
 """Logical plan nodes (port of ``spark_rapids_tpu/plan/logical.py``: scan,
-project, filter, aggregate, sort, join, union, and the nodes the plan
-rewrites make: expand, branch alignment and the distinct flag)."""
+project, filter, aggregate, sort, limit, join, union, and the nodes the
+plan rewrites make: expand, branch alignment and the distinct flag)."""
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
@@ -9,7 +9,8 @@ from ..exprs.base import Expression
 from ..types import BOOL, Schema, StructField
 
 __all__ = ["LogicalPlan", "LogicalScan", "ParquetScan", "Project",
-           "Filter", "Aggregate", "SortOrder", "Sort", "Join", "Union",
+           "Filter", "Aggregate", "SortOrder", "Sort", "GlobalLimit",
+           "LocalLimit", "Join", "Union",
            "Expand", "BranchAlign", "DistinctFlag"]
 
 
@@ -159,6 +160,25 @@ class Sort(LogicalPlan):
 
     def describe(self):
         return f"Sort[{', '.join(map(repr, self.orders))}]"
+
+
+class GlobalLimit(LogicalPlan):
+    """The first ``n`` rows of the child (ref ``GlobalLimit``)."""
+
+    def __init__(self, n: int, child: LogicalPlan):
+        self.n = n
+        self.children = [child]
+
+    def schema(self) -> Schema:
+        return self.children[0].schema()
+
+    def describe(self):
+        return f"GlobalLimit[{self.n}]"
+
+
+class LocalLimit(GlobalLimit):
+    def describe(self):
+        return f"LocalLimit[{self.n}]"
 
 
 class Join(LogicalPlan):

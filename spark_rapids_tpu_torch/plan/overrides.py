@@ -135,6 +135,8 @@ def prune_columns(plan: L.LogicalPlan,
             rreq = (set(required) | refs) & rnames
         return _rebuilt(plan, prune_columns(plan.children[0], lreq),
                         prune_columns(plan.children[1], rreq))
+    if isinstance(plan, L.GlobalLimit):
+        return _rebuilt(plan, prune_columns(plan.children[0], required))
     if isinstance(plan, L.Union):
         # the children's columns pair by position and share the names
         return _rebuilt(plan, *[prune_columns(c, required)
@@ -180,7 +182,7 @@ def estimated_size_bytes(plan: L.LogicalPlan) -> Optional[int]:
             return sum(os.path.getsize(p) for p in plan.paths)
         except OSError:
             return None
-    if isinstance(plan, (L.Filter, L.Sort, L.Project)):
+    if isinstance(plan, (L.Filter, L.Sort, L.Project, L.GlobalLimit)):
         return estimated_size_bytes(plan.children[0])
     return None
 
@@ -381,6 +383,17 @@ class SortMeta(PlanMeta):
         return S.TpuSortExec(self.plan.orders, children[0])
 
 
+@rule(L.GlobalLimit)
+class LimitMeta(PlanMeta):
+    def convert_to_tpu(self, children):
+        return B.LimitExec(self.plan.n, children[0])
+
+
+@rule(L.LocalLimit)
+class LocalLimitMeta(LimitMeta):
+    pass
+
+
 @rule(L.Union)
 class UnionMeta(PlanMeta):
     def convert_to_tpu(self, children):
@@ -428,8 +441,12 @@ class BranchAlignMeta(PlanMeta):
 
 def _join_key_reason(e: Expression, schema) -> Optional[str]:
     """Why a join key cannot run on the device; a string column passes
-    (the join takes it as a dictionary column)."""
-    if isinstance(e, ColumnRef) and e.data_type(schema) == STRING:
+    (the join takes it as a dictionary column), and so does the value key
+    of INTERSECT and EXCEPT over one: the column with NULL filled by a
+    string literal (exec/joins.py)."""
+    from ..exec.joins import string_key_column_name
+    if e.data_type(schema) == STRING and \
+            string_key_column_name(e) is not None:
         return None
     return e.fully_device_supported(schema)
 

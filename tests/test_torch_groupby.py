@@ -1232,3 +1232,40 @@ def test_repartitioned_merge_equals_reference(keys):
     for r in got:
         del r["mx"]
     _assert_rows_equal(got, want, keys)
+
+
+def _wrap64(v: int) -> int:
+    return (v + 2**63) % 2**64 - 2**63
+
+
+@pytest.mark.parametrize("keyed", [False, True])
+def test_int64_sum_that_wraps_is_sparks_non_ansi_answer(keyed):
+    """A bigint sum past the int64 range wraps (Spark without ANSI mode).
+    Held to a sum computed in Python integers and wrapped, not to the
+    reference: with a count of a string beside it, the reference's host
+    aggregate adds the values as floats and raises converting the result
+    (ROADMAP.md Queue C)."""
+    rng = np.random.RandomState(62)
+    n = 500
+    x = rng.randint(-2**62, 2**62, n, dtype=np.int64)
+    x_null = rng.rand(n) < 0.1
+    s = rng.choice(["a", "b", "c"], n).astype(object)
+    s_null = rng.rand(n) < 0.1
+    k = rng.randint(0, 3, n)
+    t = pa.table({"k": k, "x": pa.array(x, mask=x_null),
+                  "s": pa.array(s, mask=s_null)})
+    df = TorchSession(OFF, device="cpu").create_dataframe(t)
+    aggs = [PF.sum(PF.col("x")).with_name("sx"),
+            PF.count(PF.col("s")).with_name("cs")]
+    got = (df.group_by("k").agg(*aggs) if keyed else df.agg(*aggs)) \
+        .collect()
+    groups = sorted(set(k.tolist())) if keyed else [None]
+    want, wrapped = [], 0
+    for g in groups:
+        rows = np.ones(n, bool) if g is None else k == g
+        total = sum(int(v) for v in x[rows & ~x_null])
+        wrapped += total != _wrap64(total)
+        row = {"sx": _wrap64(total), "cs": int((rows & ~s_null).sum())}
+        want.append(row if g is None else {"k": g, **row})
+    assert wrapped, "no sum left the int64 range"
+    assert sorted(got, key=lambda r: r.get("k", 0)) == want
