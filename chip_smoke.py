@@ -8,8 +8,8 @@ result line):
 
   1. device  -- the card's name and power limit (nvidia-smi), CUDA version;
   2. build   -- every CUDA kernel of the port (rect_match, dense_groupby,
-                join_match, distinct_flag), built from csrc/ with one nvcc
-                each, started together;
+                join_match, distinct_flag, rect_transform), built from
+                csrc/ with one nvcc each, started together;
                 ptxas must report no stack frame and no spills for any
                 function. ``--compare NAME=DIR`` also builds
                 DIR/rect_match.cu and/or DIR/dense_groupby.cu (another
@@ -115,6 +115,17 @@ result line):
                 and the peak allocation printed) at SF10 over phase 10's
                 store_sales, cold and warm, against numpy, each once
                 more under torch.profiler;
+ 13. strings -- (after phase 12) rect_transform bit-identical to its
+                plain version on the card (every op alone, chains of 1-8
+                ops, widths 8-64, nulls, 1, 31 and 70,001 rows, replace
+                and pad that grow, delimiters that overlap, chains past
+                the cap refused by both) and on the rung's batch
+                (1,048,576 x 32), timed cold there beside its bound; then bench.py's strings rung (upper(trim(s)),
+                substring(s, 3, 4), grouped by both) at 6,001,215 rows
+                for 1,000 distinct s (a dictionary: rect_transform never
+                launches) and 100,000 (a 32-byte rectangle: once a chain
+                a batch, 12), cold, warm, with ORDER BY u and as SQL
+                text, against numpy, and one warm run profiled.
  12. sql     -- SQL texts through TorchSession.sql over phase 4's SF1
                 lineitem and phase 10's SF10 store_sales, date_dim and
                 item as temp views (TPC-H q1 and q6, TPC-DS q3, a q9
@@ -1153,7 +1164,8 @@ def _finish_compare_build(name, kernel, proc, out):
 
 
 #: the port's kernel libraries (csrc/<name>.cu), built side by side
-KERNELS = ("rect_match", "dense_groupby", "join_match", "distinct_flag")
+KERNELS = ("rect_match", "dense_groupby", "join_match", "distinct_flag",
+           "rect_transform")
 
 
 def phase_build(compare=()):
@@ -3582,8 +3594,10 @@ def _kernel_counters():
     from spark_rapids_tpu_torch.exec.dense_groupby import dense_groupby
     from spark_rapids_tpu_torch.exec.distinct_flag import distinct_flag
     from spark_rapids_tpu_torch.exec.join_match import join_match
+    from spark_rapids_tpu_torch.exec.rect_transform import rect_transform
     from spark_rapids_tpu_torch.exprs.rect_match import rect_match
-    return (rect_match, dense_groupby, join_match, distinct_flag)
+    return (rect_match, dense_groupby, join_match, distinct_flag,
+            rect_transform)
 
 
 def _sql_run(session, make) -> tuple:
@@ -4304,6 +4318,329 @@ def phase_parquet(table: dict, inmem: dict, batch_rows: int,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: string transforms (bench.py's strings rung) and rect_transform
+# ---------------------------------------------------------------------------
+
+#: the rung's distinct values (bench.py string_transforms and
+#: string_transforms_100k): the first ingests as a dictionary, the second,
+#: above DICT_ENCODE_MAX_CARD, as a 32-byte rectangle
+STRING_CARDS = (1000, 100_000)
+#: the transforms' width cap in phase 13 (rect.maxBytes, the default)
+RT_CAP = 64
+#: chains held bit-identical against the plain version: every op alone
+#: (substring past the end, from the end, of no length; replace and pad
+#: that grow; substring_index both ways, count 0 and a delimiter whose
+#: matches overlap), chains of 2-4 ops,
+#: the rung's two, and one of the kernel's 8
+RT_CHAINS = (
+    (("upper",),), (("lower",),), (("initcap",),), (("reverse",),),
+    (("trim", True, True),), (("trim", True, False),),
+    (("trim", False, True),),
+    (("substring", 3, 4),), (("substring", 0, None),),
+    (("substring", 2, None),), (("substring", -5, 3),),
+    (("substring", -3, None),), (("substring", 70, 2),),
+    (("substring", 1, 0),), (("substring", -80, 90),),
+    (("replace", b"ab", b"XYZW"),), (("replace", b" ", b""),),
+    (("replace", b"aa", b"a"),), (("replace", b"b", b"b"),),
+    (("pad", 12, b"*-", True),), (("pad", 12, b"*-", False),),
+    (("pad", 40, b"xy", True),), (("pad", 3, b"#", False),),
+    (("substring_index", b"a", 2),), (("substring_index", b"ab", -1),),
+    (("substring_index", b" ", -3),), (("substring_index", b"a", 0),),
+    (("substring_index", b"aa", 2),), (("substring_index", b"aa", -2),),
+    (("trim", True, True), ("upper",)),
+    (("lower",), ("replace", b"a", b"AA")),
+    (("trim", True, True), ("upper",), ("substring", 2, 5)),
+    (("initcap",), ("substring_index", b" ", 2), ("trim", False, True),
+     ("pad", 9, b"<>", True)),
+    (("lower",), ("replace", b"a", b"AA"), ("reverse",),
+     ("pad", 20, b".", False)),
+    (("trim", True, False), ("reverse",), ("trim", True, False),
+     ("reverse",), ("upper",), ("substring", 2, None),
+     ("replace", b"B", b"bb"), ("lower",)),
+)
+#: row counts of the exact cases: one row, part of a warp, more than a
+#: tile and off the grid's last one
+RT_ROWS = (1, 31, 70_001)
+
+
+def gen_strings(n_rows: int, card: int, seed: int = 13) -> dict:
+    """bench.py's ``gen_string_table`` in numpy: ``s`` drawn from ``card``
+    values ``"  Item-{i:05d}-{'x' * (i % 7)}  "`` (15-21 bytes) as an
+    ``S`` array, ``v`` uniform in [0, 10)."""
+    rng = np.random.RandomState(seed)
+    pool = np.array([f"  Item-{i:05d}-{'x' * (i % 7)}  ".encode()
+                     for i in range(card)])
+    idx = rng.randint(0, card, n_rows)
+    return {"s": pool[idx], "v": rng.uniform(0, 10, n_rows),
+            "_idx": idx, "_pool": pool}
+
+
+def q_strings(df, F):
+    """The strings rung (bench.py:369-380)."""
+    return (df.select(F.upper(F.trim(F.col("s"))).alias("u"),
+                      F.substring(F.col("s"), 3, 4).alias("pre"),
+                      F.col("v"))
+            .group_by("u", "pre")
+            .agg(F.sum(F.col("v")).with_name("sv"),
+                 F.count_star().with_name("n")))
+
+
+def q_strings_sorted(df, F):
+    return q_strings(df, F).order_by("u")
+
+
+#: the rung as SQL text
+STRINGS_SQL = ("SELECT upper(trim(s)) AS u, substring(s, 3, 4) AS pre, "
+               "sum(v) AS sv, count(*) AS n FROM strs "
+               "GROUP BY upper(trim(s)), substring(s, 3, 4) ORDER BY u")
+
+
+def strings_numpy(t: dict) -> list:
+    """The rung's rows in ``u`` order: each pool value is its own group
+    (its number makes ``u`` distinct); sums by ``np.bincount``."""
+    pool = t["_pool"]
+    sums = np.bincount(t["_idx"], weights=t["v"], minlength=len(pool))
+    counts = np.bincount(t["_idx"], minlength=len(pool))
+    rows = [{"u": p.decode().strip(" ").upper(), "pre": p.decode()[2:6],
+             "sv": float(sums[i]), "n": int(counts[i])}
+            for i, p in enumerate(pool) if counts[i]]
+    return sorted(rows, key=lambda r: r["u"])
+
+
+def _rt_rect(rng, rows: int, width: int, device: str = "cuda"):
+    """Rows over a small alphabet that makes the chains' literals match
+    often, with edge spaces, empty and all-space rows, and 10% nulls (zero
+    bytes, length 0), on ``device``."""
+    import torch
+    alphabet = np.frombuffer(b"aab  bxyAB-Q.", np.uint8)
+    rect = alphabet[rng.randint(0, len(alphabet), (rows, width))]
+    lens = rng.randint(0, width + 1, rows).astype(np.int32)
+    kind = rng.randint(0, 10, rows)
+    rect[kind == 1] = 32                          # all spaces
+    lens[kind == 2] = 0
+    valid = rng.rand(rows) >= 0.1
+    lens[~valid] = 0
+    rect[np.arange(width)[None, :] >= lens[:, None]] = 0
+    return (torch.from_numpy(rect).to(device),
+            torch.from_numpy(lens).to(device),
+            torch.from_numpy(valid).to(device))
+
+
+def _rt_err(got, want) -> float:
+    """The largest absolute difference between two rect_transform results,
+    bytes and lengths (inf where their shapes differ)."""
+    import torch
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape:
+            return math.inf
+        if g.numel():
+            err = max(err, float((g.to(torch.int64) - w.to(torch.int64))
+                                 .abs().max()))
+    return err
+
+
+def phase_rt_exact() -> dict:
+    """rect_transform against its plain version on the same tensors on
+    the card: bytes and lengths bit-identical for every chain of
+    RT_CHAINS, every width 8-64 and every row count of RT_ROWS; a chain
+    that outgrows the cap must raise on both."""
+    import torch
+    from spark_rapids_tpu_torch.exec.rect_transform import (
+        rect_transform, rect_transform_reference)
+    rng = np.random.RandomState(130)
+    cases = refused = 0
+    max_err = 0.0
+    for width in (8, 16, 32, 64):
+        for rows in RT_ROWS:
+            b, ln, v = _rt_rect(rng, rows, width)
+            for chain in RT_CHAINS:
+                try:
+                    want = rect_transform_reference(b, ln, v, chain, RT_CAP)
+                except NotImplementedError:
+                    try:
+                        rect_transform(b, ln, v, chain, RT_CAP)
+                    except NotImplementedError:
+                        refused += 1
+                        continue
+                    raise AssertionError(f"{chain} at W={width}: the kernel "
+                                         "took a chain past the cap")
+                got = rect_transform(b, ln, v, chain, RT_CAP)
+                torch.cuda.synchronize()
+                err = _rt_err(got, want)
+                max_err = max(max_err, err)
+                ok = torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                  want[1])
+                _check(ok, f"rect_transform {chain} at W={width}, {rows} "
+                           f"rows: differs from its plain version (max abs "
+                           f"err {err})")
+                cases += 1
+    _log(f"rect_transform exact: {cases} cases bit-identical to the plain "
+         f"version ({len(RT_CHAINS)} chains x widths 8-64 x rows "
+         f"{RT_ROWS}), max abs err {max_err}; {refused} past the "
+         f"{RT_CAP}-byte cap refused by both")
+    return {"cases": cases, "refused": refused, "max_abs_err": max_err}
+
+
+def rt_bound(rows: int, w_in: int, w_out: int) -> dict:
+    """The least time one rect_transform call needs: each input byte read
+    once (the rectangle, 4-byte lengths, the validity) and each output
+    byte written once (the rectangle and its lengths); the ops are a few
+    integer operations a byte, far under the 32-bit rate."""
+    nbytes = rows * (w_in + 4 + 1 + w_out + 4)
+    ops = rows * max(w_in, w_out) * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ms": max(bytes_ms, ops_ms),
+            "by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_rt_times(col) -> dict:
+    """rect_transform on the rung's batch (its byte rectangle ``col`` of
+    the 100,000-value table), both of the rung's chains: held
+    bit-identical to its plain version on that batch, then timed with the
+    L2 cold beside the bound, the plain version and the launch shape."""
+    import torch
+    from spark_rapids_tpu_torch import native
+    from spark_rapids_tpu_torch.exec.rect_transform import (
+        launch_shape, rect_transform, rect_transform_reference)
+    b, ln, v = col.data, col.lengths, col.validity
+    P, W = b.shape
+    n = max(2, -(-COLD_BYTES // (b.nbytes + ln.nbytes + v.nbytes)))
+    inputs = [(b, ln, v)] + [(b.clone(), ln.clone(), v.clone())
+                             for _ in range(n - 1)]
+    regs = re.findall(r"Used (\d+) registers",
+                      native.build_log("rect_transform"))
+    out = {"shape": [int(P), int(W)], "launch": launch_shape(P),
+           "registers": [int(r) for r in regs]}
+    for name, chain in (("upper_trim", (("trim", True, True), ("upper",))),
+                        ("substring", (("substring", 3, 4),))):
+        got = rect_transform(b, ln, v, chain, RT_CAP)
+        want = rect_transform_reference(b, ln, v, chain, RT_CAP)
+        torch.cuda.synchronize()
+        row = {"max_abs_err": _rt_err(got, want)}
+        _check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+               f"rect_transform {name} on the rung's {P} x {W} batch: "
+               f"differs from its plain version (max abs err "
+               f"{row['max_abs_err']})")
+        w_out = got[0].shape[1]
+        del got, want
+        row["ms"], row["host_ms"] = _cold_ms(
+            lambda b, ln, v: rect_transform(b, ln, v, chain, RT_CAP),
+            inputs, f"rect_transform {name}")
+        row["plain_ms"], _ = _cold_ms(
+            lambda b, ln, v: rect_transform_reference(b, ln, v, chain,
+                                                      RT_CAP),
+            inputs, f"rect_transform {name} plain", rounds=1, reps=1)
+        bd = rt_bound(P, W, w_out)
+        row.update({"bound_ms": bd["ms"], "bound_bytes": bd["bytes"],
+                    "bound_by": bd["by"], "w_out": int(w_out)})
+        _log(f"rect_transform {name} on the rung's batch ({P} x {W} -> "
+             f"{w_out}): bit-identical to the plain version (max abs err "
+             f"{row['max_abs_err']}); kernel {row['ms']:.4f} ms, plain "
+             f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
+             f"({bd['bytes']} B), {row['bound_ms'] / row['ms']:.0%} of "
+             f"bound; host {row['host_ms']:.4f} ms a call; library: none "
+             f"(no PyTorch call computes this function); launch "
+             f"{out['launch']}, ptxas registers {out['registers']}")
+        out[name] = row
+    return out
+
+
+def _strings_right(rows: list, want: list, ordered: bool) -> bool:
+    """Groups and counts exact, sums within REL_TOL; in ``u`` order when
+    ``ordered``."""
+    got = rows if ordered else sorted(rows, key=lambda r: r["u"])
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if (g["u"], g["pre"], g["n"]) != (w["u"], w["pre"], w["n"]) \
+                or _rel(g["sv"], w["sv"]) > REL_TOL:
+            return False
+    return True
+
+
+def phase_strings(card: str, batch_rows: int) -> dict:
+    """Phase 13 (module doc): rect_transform exact and timed, then the
+    strings rung at SF1 rows for 1,000 and 100,000 distinct values, cold
+    and warm, with ORDER BY u, as SQL, and profiled."""
+    import torch
+    from spark_rapids_tpu_torch.api import TorchSession
+    from spark_rapids_tpu_torch.columnar import (ByteRectColumn,
+                                                 ColumnarBatch, DictColumn,
+                                                 HostTable)
+    from spark_rapids_tpu_torch.exec.rect_transform import rect_transform
+    t_phase = time.perf_counter()
+    out = {"exact": phase_rt_exact()}
+    conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows,
+            "spark.rapids.tpu.sql.agg.wideBatchRows": batch_rows}
+    n_batches = math.ceil(SF1_ROWS / batch_rows)
+    for distinct in STRING_CARDS:
+        t0 = time.perf_counter()
+        t = gen_strings(SF1_ROWS, distinct)
+        host = HostTable.from_dict({"s": t["s"], "v": t["v"]})
+        want = strings_numpy(t)
+        first = ColumnarBatch.from_host(host.slice(0, batch_rows), "cuda",
+                                        RT_CAP).columns[0]
+        layout = type(first).__name__
+        _check(isinstance(first, DictColumn if distinct <= 65536
+                          else ByteRectColumn),
+               f"{distinct} distinct s ingested as {first!r}")
+        if distinct > 65536:
+            _check(first.width == 32, f"s ingested {first.width} wide")
+            out["times"] = phase_rt_times(first)
+        del first
+        _log(f"strings {distinct}: {SF1_ROWS} rows generated in "
+             f"{time.perf_counter() - t0:.2f} s, s ingests as {layout}")
+        session = TorchSession(conf)
+        runs = {}
+        for label, query, ordered in (("cold", q_strings, False),
+                                      ("warm", q_strings, False),
+                                      ("order_by_u", q_strings_sorted, True)):
+            torch.cuda.synchronize()
+            rect_transform.launches = 0
+            rows, ms = _run_query(session, host, query)
+            launches = rect_transform.launches
+            _check(_strings_right(rows, want, ordered),
+                   f"strings {distinct} {label}: {len(rows)} rows differ "
+                   f"from numpy's {len(want)}")
+            runs[label] = {"wall_ms": ms, "rect_transform": launches}
+        expect = 2 * n_batches if distinct > 65536 else 0
+        for label, r in runs.items():
+            _check(r["rect_transform"] == expect,
+                   f"strings {distinct} {label}: rect_transform launched "
+                   f"{r['rect_transform']} times, expected {expect} (one "
+                   "a chain a batch over the rectangle, none over the "
+                   "dictionary)")
+        session.create_dataframe(host).create_or_replace_temp_view("strs")
+        torch.cuda.synchronize()
+        rect_transform.launches = 0
+        t0 = time.perf_counter()
+        rows = session.sql(STRINGS_SQL).collect()
+        runs["sql"] = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                       "rect_transform": rect_transform.launches}
+        _check(_strings_right(rows, want, True),
+               f"strings {distinct} SQL: rows differ from numpy")
+        runs["profile_warm"] = phase_profile(
+            session, host, q_strings,
+            lambda r: _strings_right(r, want, False),
+            f"strings rung, {distinct} distinct", "rect_transform")
+        _log(f"strings {distinct} SF1 ({card}): {len(want)} groups equal to "
+             f"numpy (keys and counts exact, sums within {REL_TOL:g}); wall "
+             f"{runs['cold']['wall_ms']:.1f} ms cold, "
+             f"{runs['warm']['wall_ms']:.1f} ms warm, ORDER BY u "
+             f"{runs['order_by_u']['wall_ms']:.1f} ms, SQL "
+             f"{runs['sql']['wall_ms']:.1f} ms; rect_transform launches "
+             f"{runs['cold']['rect_transform']} over {n_batches} batches "
+             f"(SQL {runs['sql']['rect_transform']})")
+        out[str(distinct)] = runs
+        del host, t
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"phase 13 (strings) took {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", metavar="NAME=DIR", action="append",
@@ -4493,6 +4830,7 @@ def main(argv=None) -> int:
         tpcds2 = phase_tpcds2(card, batch_rows, ds["ss"], ds["hosts"][0])
         sql = phase_sql(card, batch_rows, table, host, ds, tpcds2)
         del ds
+        strings = phase_strings(card, batch_rows)
         _log(json.dumps({"queries": {
             "q6": {"rows": SF1_ROWS, "wall_ms_cold": ms_cold,
                    "wall_ms_warm": ms_warm},
@@ -4507,7 +4845,9 @@ def main(argv=None) -> int:
                    "profile_warm_parent_operands": prof1_parent},
             **mem, **gaps, "parquet": parquet, "tpcds": tpcds,
             "tpcds2": {k: v for k, v in tpcds2.items()
-                       if k != "kernel"}, "sql": sql}}))
+                       if k != "kernel"}, "sql": sql,
+            "strings": {k: v for k, v in strings.items()
+                        if k not in ("times", "exact")}}}))
         main_t = times["main"]
         kernel = {
             "name": "rect_match", "route": "cuda",
@@ -4605,8 +4945,36 @@ def main(argv=None) -> int:
             "dense_groupby"]
         tpcds2["kernel"]["paths"]["sql_q28"] = sql["q28"]["cold"][
             "launches"]["distinct_flag"]
+        rt = strings["times"]["upper_trim"]
+        rt_err = max(strings["exact"]["max_abs_err"],
+                     rt["max_abs_err"],
+                     strings["times"]["substring"]["max_abs_err"])
+        transform = {
+            "name": "rect_transform", "route": "cuda",
+            "source": "spark_rapids_tpu_torch/csrc/rect_transform.cu",
+            "replaces": "spark_rapids_tpu/exprs/string_rect.py:74",
+            "launches": strings["100000"]["cold"]["rect_transform"],
+            "max_abs_err": rt_err, "exact": rt_err == 0,
+            "exact_cases": strings["exact"]["cases"],
+            "paths": {"strings_1000": strings["1000"]["cold"][
+                          "rect_transform"],
+                      "strings_100000": strings["100000"]["cold"][
+                          "rect_transform"],
+                      "strings_100000_sql": strings["100000"]["sql"][
+                          "rect_transform"]},
+            "ms": rt["ms"], "plain_ms": rt["plain_ms"],
+            "bound_ms": rt["bound_ms"], "bound_by": rt["bound_by"],
+            "bound_bytes": rt["bound_bytes"], "library_ms": None,
+            "host_ms": rt["host_ms"],
+            "timing": "device time per launch, launches queued back to "
+                      "back over distinct inputs (L2 cold)",
+            "shape": strings["times"]["shape"],
+            "launch": strings["times"]["launch"],
+            "registers": strings["times"]["registers"],
+            "substring": strings["times"]["substring"],
+        }
         _log(json.dumps({"kernels": [kernel, dense, join,
-                                     tpcds2["kernel"]]}))
+                                     tpcds2["kernel"], transform]}))
     except Exception:
         traceback.print_exc()
         return 1

@@ -21,7 +21,9 @@ __all__ = ["Col", "col", "lit", "asc", "desc", "when", "coalesce",
            "count_star", "avg", "min", "max", "first", "last",
            "count_distinct", "sum_distinct", "avg_distinct",
            "countDistinct", "sumDistinct", "broadcast",
-           "startswith", "endswith", "locate", "instr",
+           "startswith", "endswith", "locate", "instr", "length", "upper",
+           "lower", "substring", "trim", "ltrim", "rtrim", "replace",
+           "lpad", "rpad", "reverse", "initcap", "substring_index",
            "abs", "div", "pmod", "negative", "positive", "bitwise_not",
            "shiftleft", "shiftright", "shiftrightunsigned"]
 
@@ -194,6 +196,25 @@ def endswith(c, s) -> Col: return Col(E.EndsWith(_to_expr(c), s))
 def locate(substr, c) -> Col: return Col(E.StringLocate(substr, _to_expr(c)))
 def instr(c, substr: str) -> Col:
     return Col(E.StringInstr(_to_expr(c), _to_expr(substr)))
+
+
+# --- string transforms (reference api/functions.py:187-222) ----------------
+def length(c) -> Col: return Col(E.Length(_to_expr(c)))
+def upper(c) -> Col: return Col(E.Upper(_to_expr(c)))
+def lower(c) -> Col: return Col(E.Lower(_to_expr(c)))
+def substring(c, pos, ln=None) -> Col:
+    return Col(E.Substring(_to_expr(c), pos, ln))
+def replace(c, search: str, replacement: str = "") -> Col:
+    return Col(E.StringReplace(_to_expr(c), search, replacement))
+def trim(c) -> Col: return Col(E.StringTrim(_to_expr(c)))
+def ltrim(c) -> Col: return Col(E.StringTrimLeft(_to_expr(c)))
+def rtrim(c) -> Col: return Col(E.StringTrimRight(_to_expr(c)))
+def lpad(c, ln, pad=" ") -> Col: return Col(E.Lpad(_to_expr(c), ln, pad))
+def rpad(c, ln, pad=" ") -> Col: return Col(E.Rpad(_to_expr(c), ln, pad))
+def reverse(c) -> Col: return Col(E.Reverse(_to_expr(c)))
+def initcap(c) -> Col: return Col(E.InitCap(_to_expr(c)))
+def substring_index(c, delim, count) -> Col:
+    return Col(E.SubstringIndex(_to_expr(c), delim, count))
 
 
 def abs(c) -> Col: return Col(E.Abs(_to_expr(c)))

@@ -23,7 +23,7 @@ from ..types import STRING
 from .column import DeviceColumn
 
 __all__ = ["ByteRectColumn", "RECT_MAX_BYTES", "rect_width_bucket",
-           "encode_string_rect", "utf8_bytes"]
+           "encode_string_rect", "utf8_bytes", "pack_words", "unpack_words"]
 
 RECT_MAX_BYTES = register(
     "spark.rapids.tpu.sql.string.rect.maxBytes", 64,
@@ -78,6 +78,28 @@ def encode_string_rect(values: np.ndarray, valid: np.ndarray,
     return rect, lengths, v, bool((rect < 0x80).all())
 
 
+_SIGN = -0x8000000000000000
+
+
+def pack_words(bytes_: torch.Tensor) -> torch.Tensor:
+    """uint8[P, W] (W a multiple of 8) -> int64[P, W/8] order-preserving
+    words: each 8 bytes read big-endian, the sign bit flipped, so that the
+    signed order of the words is the unsigned order of the bytes. Bytes
+    past a row's length are zero and compare below every real byte, so a
+    string sorts before its extensions. One byte flip and one view, not
+    eight shifts a word (the reference's ``pack_words``)."""
+    p, w = bytes_.shape
+    be = bytes_.reshape(p, w // 8, 8).flip(-1).contiguous()
+    return be.view(torch.int64).reshape(p, w // 8) ^ _SIGN
+
+
+def unpack_words(words: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``pack_words``: int64[P, K] -> uint8[P, 8K]."""
+    p, k = words.shape
+    raw = (words ^ _SIGN).contiguous().view(torch.uint8).reshape(p, k, 8)
+    return raw.flip(-1).reshape(p, 8 * k).contiguous()
+
+
 class ByteRectColumn(DeviceColumn):
     """STRING column on the device as a byte rectangle (module doc)."""
 
@@ -109,6 +131,8 @@ class ByteRectColumn(DeviceColumn):
         v = self.validity[:num_rows].cpu().numpy()
         w = rect.shape[1]
         vals = np.ascontiguousarray(rect).view(f"S{w}").reshape(num_rows)
+        if self.ascii_only:         # ASCII: numpy's cast decodes it
+            return vals.astype(f"U{w}").astype(object), v
         out = np.char.decode(vals, "utf-8", "replace").astype(object)
         return out, v
 

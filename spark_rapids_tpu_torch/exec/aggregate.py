@@ -27,8 +27,22 @@ Both give global codes (an integer key its own values), so batches on
 either path merge together
 (keyless or keyed) through ``segmented_groupby`` in merge mode.
 
-Memory (the reference's runtime, mem/): each batch's update runs under
-the device semaphore inside ``with_retry_no_split``, and its partials
+A string key groups on its bytes instead (rect key mode, the
+reference's ``_rect_key_mode``) when its first batch brings it as a byte
+rectangle (a high-cardinality column, or a computed string:
+``upper(trim(s))`` over one), or a later batch brings a rectangle whose
+values the exec's dictionary cannot take within the dictionary
+threshold. The mode holds for the rest of the execution: the partials
+made before are rebuilt with the key's values as a rectangle (their
+codes decoded through the dictionary), and a later batch that brings the
+key as a dictionary column is gathered into a rectangle
+(``dict_to_rect``). Such a key takes the sort path as its
+words and length (exec/encoding.py), its partial column is a byte
+rectangle, and partials of different widths merge padded with zeros.
+
+Memory (the reference's runtime, mem/): each batch's update, its string
+keys' conversions and rebuilds included, runs under the device semaphore
+inside ``with_retry_no_split``, and its partials
 become a ``SpillableBatch``, which the memory manager may move to the
 host or the disk while later batches arrive. The merge is the
 reference's bounded fan-in tree (``_merge``): chunks of partials whose
@@ -53,11 +67,12 @@ import torch
 
 from ..columnar import (ByteRectColumn, ColumnarBatch, DeviceColumn,
                         DictColumn)
-from ..columnar.batch import concat_batches, dict_limit, rect_to_dict
+from ..columnar.batch import (concat_batches, dict_limit, dict_to_rect,
+                              rect_to_dict)
 from ..columnar.segmented import bucket_segments
 from ..config import BATCH_SIZE_BYTES
 from ..exprs.aggregates import AggregateExpression
-from ..exprs.base import Alias, ColumnRef, DVal, EvalContext
+from ..exprs.base import Alias, ColumnRef, DVal, EvalContext, StrVal
 from ..exprs.compiler import batch_device, batch_dvals
 from ..mem.retry import with_retry_no_split
 from ..mem.spillable import SpillableBatch
@@ -164,17 +179,11 @@ class TpuHashAggregateExec(TpuExec):
                    for a in self.aggs]
         self._schema = Schema(fields)
         self._partial_types = [a.partial_types(cs) for a in self.aggs]
-        # partials: keys (string keys as int32 global codes), each
-        # aggregate's partial columns, the live mask
-        key_types = [INT32 if i in self._dict_keys else g.data_type(cs)
-                     for i, g in enumerate(self.groupings)]
-        pfields = [StructField(f"_k{i}", t, True)
-                   for i, t in enumerate(key_types)]
-        pfields += [StructField(f"_a{ai}_{pi}", t, True)
-                    for ai, types in enumerate(self._partial_types)
-                    for pi, t in enumerate(types)]
-        self._partial_schema = Schema(pfields
-                                      + [StructField(_LIVE, BOOL, True)])
+        #: string keys (ordinals into _dict_keys) grouping on their bytes
+        #: in this execution, and whether all their bytes are ASCII
+        self._rect_keys: set = set()
+        self._rect_ascii: Dict[int, bool] = {}
+        self._set_partial_schema()
         #: string -> global code, per dictionary key (one execution's)
         self._dicts: List[Dict[str, int]] = []
         #: rows of the input batches so far (one execution's)
@@ -187,6 +196,22 @@ class TpuHashAggregateExec(TpuExec):
 
     def output_schema(self) -> Schema:
         return self._schema
+
+    def _set_partial_schema(self) -> None:
+        """Partials: keys (a string key as int32 global codes, or as a
+        STRING byte rectangle in rect key mode), each aggregate's partial
+        columns, the live mask."""
+        cs = self._eval_schema
+        by_dict = {i: j for j, i in enumerate(self._dict_keys)}
+        pfields = [StructField(f"_k{i}", (
+            g.data_type(cs) if i not in by_dict else
+            STRING if by_dict[i] in self._rect_keys else INT32), True)
+            for i, g in enumerate(self.groupings)]
+        pfields += [StructField(f"_a{ai}_{pi}", t, True)
+                    for ai, types in enumerate(self._partial_types)
+                    for pi, t in enumerate(types)]
+        self._partial_schema = Schema(pfields
+                                      + [StructField(_LIVE, BOOL, True)])
 
     def _pre_stages(self, batch: ColumnarBatch):
         return _apply_pre_stages(self.pre_stages,
@@ -206,28 +231,97 @@ class TpuHashAggregateExec(TpuExec):
             out.append(DeviceColumn(final.data, final.validity, f.dtype))
         return out
 
-    # -- string keys through the exec-local dictionary ---------------------
-    def _encode_key(self, j: int, i: int, batch: ColumnarBatch):
-        """(codes, validity, remap of the batch dictionary's codes to
-        global codes) of dictionary key ordinal j (grouping i). Only a key
-        that passes a dictionary column of the input batch through is
-        taken (the reference's DictColumn branch), or a byte rectangle that
-        ``_rect_key`` can take into the exec's dictionary."""
-        g = self.groupings[i]
-        name = _column_ref(g)
-        src = None
+    # -- string keys through the exec-local dictionary, or on bytes -------
+    def _key_column(self, i: int, batch: ColumnarBatch):
+        """The input batch's column that string grouping ``i`` passes
+        through (renamed or not), else None."""
+        name = _column_ref(self.groupings[i])
         name = self._source_column(name) if name is not None else None
         if name is not None and name in batch.schema.names():
-            src = batch.column_by_name(name)
+            return batch.column_by_name(name)
+        return None
+
+    def _key_sources(self, ctx: ExecContext, batch: ColumnarBatch,
+                     partials: List[SpillableBatch]) -> list:
+        """Per string key, the column it groups on in this batch: a
+        dictionary column, or in rect key mode a byte rectangle. A key
+        that arrives as a byte rectangle the exec's dictionary cannot
+        take (``_rect_key``) switches to rect key mode here (module
+        doc). Runs inside the update's retried closure, under the
+        semaphore: an OOM part way through leaves what is done (the mode,
+        the partials rebuilt so far) and the retry goes on from there."""
+        self._rebuild_partials(ctx, partials)
+        out = []
+        for j, i in enumerate(self._dict_keys):
+            src = self._key_column(i, batch)
+            if j not in self._rect_keys and isinstance(src, ByteRectColumn):
+                # the first batch decides as the reference's does; a later
+                # one (a short batch of a dictionary column, fault C1)
+                # joins the dictionary when it fits
+                conv = self._rect_key(src, batch.num_rows,
+                                      self._dicts[j]) if partials else src
+                if conv is src:
+                    self._to_rect_mode(j, partials)
+                    self._rebuild_partials(ctx, partials)
+                else:
+                    src = conv
+            if j in self._rect_keys:
+                if isinstance(src, DictColumn):
+                    src = dict_to_rect(src, src.padded_len)
+                if isinstance(src, ByteRectColumn):
+                    self._rect_ascii[j] = self._rect_ascii.get(j, True) \
+                        and src.ascii_only
+            if not isinstance(src, (DictColumn, ByteRectColumn)):
+                g = self.groupings[i]
+                raise NotImplementedError(
+                    f"group key <{g.name_hint}> over {src!r}: string keys "
+                    "other than a column or a transform chain over one "
+                    "(host strings wider than rect.maxBytes, other string "
+                    "expressions) arrive with the next strings slice "
+                    "(ROADMAP.md Queue A item 3)")
+            out.append(src)
+        return out
+
+    def _to_rect_mode(self, j: int, partials: List[SpillableBatch]) -> None:
+        """String key ``j`` groups on its bytes from now on; the partials
+        made so far are left to ``_rebuild_partials``."""
+        inv = np.empty(len(self._dicts[j]), dtype=object)
+        for v, c in self._dicts[j].items():
+            inv[c] = v
+        self._rect_keys.add(j)
+        self._rect_ascii[j] = all(v.isascii() for v in inv)
+        self._set_partial_schema()
+        self._stale[j] = [inv, 0, len(partials)]
+
+    def _rebuild_partials(self, ctx: ExecContext,
+                          partials: List[SpillableBatch]) -> None:
+        """The partials made before a key switched to rect key mode get
+        its column as a byte rectangle, its global codes decoded through
+        the exec's dictionary on the device, one partial at a time; each
+        rebuilt one is recorded, so that after an OOM the retry goes on
+        with the next."""
+        for j in sorted(self._stale):
+            inv, first, end = self._stale[j]
+            at = self._dict_keys[j]
+            for n in range(first, end):
+                sb = partials[n]
+                b = sb.get()
+                codes = b.columns[at]
+                cols = list(b.columns)
+                cols[at] = dict_to_rect(DictColumn(
+                    codes.data, codes.validity, STRING, inv), b.padded_len)
+                partials[n] = SpillableBatch(
+                    ColumnarBatch(cols, b.num_rows, self._partial_schema),
+                    ctx.memory)
+                sb.close()
+                self._stale[j][1] = n + 1
+            del self._stale[j]
+
+    def _encode_key(self, j: int, src: DictColumn):
+        """(codes, validity, remap of the batch dictionary's codes to
+        global codes) of dictionary key ordinal j, over its dictionary
+        column ``src`` (``_key_sources``)."""
         d = self._dicts[j]
-        if isinstance(src, ByteRectColumn):
-            src = self._rect_key(src, batch.num_rows, d)
-        if not isinstance(src, DictColumn):
-            raise NotImplementedError(
-                f"group key <{g.name_hint}> over {src!r}: string keys other "
-                "than dictionary columns (byte rectangles of high "
-                "cardinality, computed strings) arrive with the strings "
-                "slice")
         gmap = np.asarray([d.setdefault(s, len(d)) for s in src.dictionary],
                           dtype=np.int32)
         dev = src.data.device
@@ -264,13 +358,15 @@ class TpuHashAggregateExec(TpuExec):
         return name
 
     def _dense_keys(self) -> bool:
-        """Every key is a dictionary key or a proven-cardinality integer
-        key, and the integer keys alone fit the dense kernel."""
-        return bool(self.groupings) and len(self._dict_keys) + len(
+        """Every key is a dictionary key (none grouping on bytes) or a
+        proven-cardinality integer key, and the integer keys alone fit
+        the dense kernel."""
+        return bool(self.groupings) and not self._rect_keys \
+            and len(self._dict_keys) + len(
             self._int_cards) == len(self.groupings) and math.prod(
             c + 1 for c in self._int_cards.values()) <= DIRECT_MAX_GROUPS
 
-    def _direct_operands(self, batch: ColumnarBatch, ectx):
+    def _direct_operands(self, srcs: list, ectx):
         """(key pairs, remaps, cardinalities, group bucket) when every key
         is a dictionary key or a proven-cardinality integer key and their
         product fits the dense kernel, else None. An integer key's values
@@ -281,7 +377,8 @@ class TpuHashAggregateExec(TpuExec):
         pairs, remaps, cards = [], [], []
         for i, g in enumerate(self.groupings):
             if i in by_dict:
-                codes, valid, remap = self._encode_key(by_dict[i], i, batch)
+                codes, valid, remap = self._encode_key(by_dict[i],
+                                                       srcs[by_dict[i]])
                 card = max(len(self._dicts[by_dict[i]]), 1)
             else:
                 card = self._int_cards[i]
@@ -336,15 +433,21 @@ class TpuHashAggregateExec(TpuExec):
                      for (c, v), t in zip(group_slots(cards, G), types)])
         return slots, partials, res.occupancy > 0
 
-    def _sort_keys(self, batch: ColumnarBatch, ectx) -> List[DVal]:
-        """Key values for the sort path: string keys as global codes."""
+    def _sort_keys(self, srcs: list, ectx) -> List[DVal]:
+        """Key values for the sort path: string keys as global codes, or
+        in rect key mode as their byte rectangles."""
         by_dict = {i: j for j, i in enumerate(self._dict_keys)}
         keys = []
         for i, g in enumerate(self.groupings):
             if i not in by_dict:
                 keys.append(g.eval_device(ectx))
                 continue
-            codes, valid, remap = self._encode_key(by_dict[i], i, batch)
+            src = srcs[by_dict[i]]
+            if by_dict[i] in self._rect_keys:
+                keys.append(DVal(StrVal(src.data, src.lengths), src.validity,
+                                 STRING))
+                continue
+            codes, valid, remap = self._encode_key(by_dict[i], src)
             if len(remap):
                 c = remap[codes.clamp(0, len(remap) - 1).long()]
                 c = torch.where(valid, c, torch.zeros_like(c))
@@ -353,45 +456,58 @@ class TpuHashAggregateExec(TpuExec):
             keys.append(DVal(c, valid, INT32))
         return keys
 
-    def _update(self, batch: ColumnarBatch,
-                row_offset: int = 0) -> ColumnarBatch:
+    def _update(self, batch: ColumnarBatch, row_offset: int = 0,
+                srcs: Optional[list] = None) -> ColumnarBatch:
         """One batch's partials (the partial schema, live column last);
-        ``row_offset`` is the batch's first row's position in the input."""
+        ``row_offset`` is the batch's first row's position in the input,
+        ``srcs`` the string keys' columns (``_key_sources``)."""
+        if srcs is None:
+            srcs = [self._key_column(i, batch) for i in self._dict_keys]
         ectx, keep = self._pre_stages(batch)
         vals = [[_value(e.eval_device(ectx)) for e in a.input_exprs()]
                 for a in self.aggs]
-        ops = self._direct_operands(batch, ectx) if self._dense_ok \
+        ops = self._direct_operands(srcs, ectx) if self._dense_ok \
             else None
         if ops is not None:
             keys, partials, live = self._dense_update(ops, keep, vals)
         else:
             keys, partials, n = segmented_groupby(
-                self._sort_keys(batch, ectx), vals, self.aggs, "update",
+                self._sort_keys(srcs, ectx), vals, self.aggs, "update",
                 keep, row_offset)
             live = torch.ones(n, dtype=torch.bool, device=keep.device)
         return self._partial_batch(keys, partials, live)
 
+    def _key_column_out(self, i: int, d, v) -> DeviceColumn:
+        """A string key of rect key mode as a byte-rectangle column."""
+        j = self._dict_keys.index(i)
+        return ByteRectColumn(d.bytes_, v, d.lengths,
+                              self._rect_ascii.get(j, True))
+
     def _partial_batch(self, keys, partials, live) -> ColumnarBatch:
-        cols = [DeviceColumn(d, v, f.dtype) for (d, v), f in
-                zip(keys + partials + [(live, live)],
-                    self._partial_schema.fields)]
+        cols = [self._key_column_out(i, d, v) if isinstance(d, StrVal)
+                else DeviceColumn(d, v, f.dtype) for i, ((d, v), f) in
+                enumerate(zip(keys + partials + [(live, live)],
+                              self._partial_schema.fields))]
         return ColumnarBatch(cols, int(live.shape[0]), self._partial_schema)
 
     def _empty_partials(self, device) -> ColumnarBatch:
-        cols = [DeviceColumn(torch.zeros(0, dtype=torch_dtype(f.dtype),
-                                         device=device),
-                             torch.zeros(0, dtype=torch.bool, device=device),
-                             f.dtype)
-                for f in self._partial_schema.fields]
-        return ColumnarBatch(cols, 0, self._partial_schema)
+        def empty(f):
+            v = torch.zeros(0, dtype=torch.bool, device=device)
+            if f.dtype == STRING:
+                return ByteRectColumn(
+                    torch.zeros((0, 8), dtype=torch.uint8, device=device), v,
+                    torch.zeros(0, dtype=torch.int32, device=device))
+            return DeviceColumn(torch.zeros(0, dtype=torch_dtype(f.dtype),
+                                            device=device), v, f.dtype)
+        return ColumnarBatch([empty(f) for f in self._partial_schema.fields],
+                             0, self._partial_schema)
 
     def _merge_batch(self, big: ColumnarBatch):
         """One ``segmented_groupby`` merge of partial rows: (keys, merged
         partials, groups)."""
         cols = big.columns
         nkeys = len(self.groupings)
-        keys = [DVal(c.data, c.validity, f.dtype) for c, f in
-                zip(cols[:nkeys], self._partial_schema.fields)]
+        keys = batch_dvals(big)[:nkeys]
         vals, pos = [], nkeys
         for types in self._partial_types:
             vals.append([DVal(cols[o].data, cols[o].validity, t)
@@ -476,6 +592,9 @@ class TpuHashAggregateExec(TpuExec):
         out = []
         by_dict = {i: j for j, i in enumerate(self._dict_keys)}
         for i, ((d, v), f) in enumerate(zip(keys, self._schema.fields)):
+            if isinstance(d, StrVal):
+                out.append(self._key_column_out(i, d, v))
+                continue
             if i not in by_dict:
                 out.append(DeviceColumn(d, v, f.dtype))
                 continue
@@ -497,6 +616,12 @@ class TpuHashAggregateExec(TpuExec):
     def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         self._dicts = [dict() for _ in self._dict_keys]
         self._rows_in = 0
+        self._rect_keys = set()
+        self._rect_ascii = {}
+        #: key ordinal -> [its decode table, the next partial to rebuild,
+        #: the partials made before it switched] (``_rebuild_partials``)
+        self._stale = {}
+        self._set_partial_schema()
         partials: List[SpillableBatch] = []
         try:
             for b in self.children[0].execute(ctx):
@@ -509,7 +634,8 @@ class TpuHashAggregateExec(TpuExec):
 
                 def update(b=b, offset=offset):
                     with ctx.semaphore.held():
-                        return SpillableBatch(self._update(b, offset),
+                        srcs = self._key_sources(ctx, b, partials)
+                        return SpillableBatch(self._update(b, offset, srcs),
                                               ctx.memory)
                 partials.append(with_retry_no_split(
                     update, ctx=ctx, op="HashAggregate.update"))

@@ -17,11 +17,12 @@ from ..columnar import (ByteRectColumn, ColumnarBatch, DeviceColumn,
 from ..columnar.strrect import RECT_MAX_BYTES
 from ..columnar.transfer import TRANSFER_ENCODE
 from ..config import register
-from ..exprs.base import Alias, ColumnRef, Expression
+from ..exprs.base import Alias, ColumnRef, Expression, StrVal
 from ..exprs.compiler import (DeviceProjector, compile_rect_chain,
                               filter_batch_by_mask)
-from ..types import Schema, StructField
+from ..types import STRING, Schema, StructField
 from .base import ExecContext, TpuExec
+from .rect_transform import MAX_LITERAL, MAX_WIDTH
 
 __all__ = ["InMemoryScanExec", "TpuProjectExec", "TpuFilterExec",
            "LimitExec", "UnionExec", "TpuExpandExec", "BranchAlignExec",
@@ -126,10 +127,25 @@ class InMemoryScanExec(TpuExec):
 
 
 class TpuProjectExec(TpuExec):
-    """Projection. Device-supported expressions evaluate as torch ops;
-    literal string predicates over a STRING column take the rect chain:
-    the match kernel over an ASCII byte rectangle, or over a dictionary
-    column one host match per dictionary entry, gathered by code."""
+    """Projection. Device-supported expressions evaluate as torch ops. A
+    string chain over one STRING column (value-wise transforms, then an
+    optional ``Length`` or literal match: exprs/string_rect.py) runs by
+    the column's layout in each batch:
+
+      * an ASCII byte rectangle: the chain's transforms as one
+        ``rect_transform`` launch (a STRING result stays a byte
+        rectangle), its terminal through the match kernel or the
+        lengths;
+      * a dictionary column: the chain over each dictionary entry once,
+        on the host. A STRING result is a dictionary column over the
+        transformed entries, de-duplicated and re-sorted (``upper('a') ==
+        upper('A')``), the codes remapped by one gather on the device;
+        an INT or BOOL result is a table of the entries' values gathered
+        by code."""
+
+    #: transformed dictionaries kept per exec (each batch of a scan has its
+    #: own dictionary object)
+    _DICT_CACHE_MAX = 64
 
     def __init__(self, exprs: Sequence[Expression], child: TpuExec):
         super().__init__([child])
@@ -140,9 +156,10 @@ class TpuProjectExec(TpuExec):
             for e in self.exprs])
         self.device_idx: List[int] = []
         self.passthrough: Dict[int, str] = {}
-        #: out ordinal -> (predicate, leaf column name)
-        self.rect_chain: Dict[int, tuple] = {}
-        from ..exprs.string_rect import rect_chain_leaf
+        #: out ordinal -> (chain, leaf column name, whether the byte
+        #: rectangle path takes it); the dictionary path takes them all
+        self.chains: Dict[int, tuple] = {}
+        from ..exprs.string_rect import chain_leaf, rect_chain_leaf
         for i, e in enumerate(self.exprs):
             inner = e.children[0] if isinstance(e, Alias) else e
             if isinstance(inner, ColumnRef):
@@ -150,43 +167,62 @@ class TpuProjectExec(TpuExec):
             elif e.fully_device_supported(in_schema) is None:
                 self.device_idx.append(i)
             else:
-                leaf = rect_chain_leaf(inner, in_schema)
+                leaf = chain_leaf(inner, in_schema)
                 if leaf is None:
                     raise NotImplementedError(
                         f"<{e.name_hint}> has no device form in the port")
-                self.rect_chain[i] = (inner, leaf)
+                self.chains[i] = (inner, leaf, rect_chain_leaf(
+                    inner, in_schema) is not None)
         self._projector: Optional[DeviceProjector] = None
-        #: out ordinal -> (dictionary, its match table on the device)
-        self._dict_cache: Dict[int, tuple] = {}
+        #: (out ordinal, id(dictionary)) -> (dictionary, its result)
+        self._dict_cache: Dict[tuple, tuple] = {}
 
     def output_schema(self) -> Schema:
         return self._schema
 
-    def _rect_eval(self, i: int, src, use_kernel: bool):
-        expr, leaf = self.rect_chain[i]
+    def _chain_eval(self, i: int, batch: ColumnarBatch, use_kernel: bool,
+                    cap: int):
+        expr, leaf, on_rect = self.chains[i]
+        src = batch.column_by_name(leaf)
         dt = self._schema.fields[i].dtype
-        if isinstance(src, ByteRectColumn) and src.ascii_only:
-            data, valid = compile_rect_chain(expr, use_kernel)(
-                src.data, src.lengths, src.validity)
-            return DeviceColumn(data, valid, dt)
         if isinstance(src, DictColumn):
-            return self._dict_eval(i, src, dt)
+            return self._dict_transform(i, src) if dt == STRING \
+                else self._dict_eval(i, src, dt)
+        if isinstance(src, ByteRectColumn) and src.ascii_only and on_rect:
+            data, valid = compile_rect_chain(expr, use_kernel, cap)(
+                src.data, src.lengths, src.validity)
+            if isinstance(data, StrVal):
+                return ByteRectColumn(data.bytes_, valid, data.lengths,
+                                      ascii_only=True)
+            return DeviceColumn(data, valid, dt)
         raise NotImplementedError(
             f"<{self.exprs[i].name_hint}> over {leaf} ({src!r}): string "
-            "predicates over non-ASCII or over-wide strings arrive with "
-            "the strings slice")
+            "expressions over non-ASCII strings or strings wider than "
+            "spark.rapids.tpu.sql.string.rect.maxBytes, and chains the "
+            f"byte-rectangle kernel does not take (a pad past its "
+            f"{MAX_WIDTH}-byte rows, a literal past {MAX_LITERAL} bytes, a "
+            "trim of other characters), arrive with the next strings "
+            "slice (ROADMAP.md Queue A item 3)")
+
+    def _entries(self, i: int, src: DictColumn, make):
+        """``make(values of the chain over the dictionary's entries)``,
+        kept for this dictionary object."""
+        from ..exprs.string_rect import dictionary_values
+        key = (i, id(src.dictionary))
+        got = self._dict_cache.get(key)
+        if got is None or got[0] is not src.dictionary:
+            if len(self._dict_cache) >= self._DICT_CACHE_MAX:
+                self._dict_cache.clear()
+            expr = self.chains[i][0]
+            got = self._dict_cache[key] = (src.dictionary, make(
+                dictionary_values(expr, src.dictionary)))
+        return got[1]
 
     def _dict_eval(self, i: int, src: DictColumn, dt):
-        """A low-cardinality column: the predicate over each dictionary
-        entry once, on the host, then gathered by code on the device."""
-        from ..exprs.string_rect import match_dictionary
-        expr, _ = self.rect_chain[i]
-        got = self._dict_cache.get(i)
-        if got is None or got[0] is not src.dictionary:
-            table = torch.from_numpy(match_dictionary(expr, src.dictionary))
-            got = self._dict_cache[i] = (src.dictionary,
-                                         table.to(src.data.device))
-        table = got[1]
+        """An INT or BOOL chain over a dictionary column: each entry's
+        value once, gathered by code on the device."""
+        table = self._entries(i, src, lambda v: torch.from_numpy(
+            np.ascontiguousarray(v)).to(src.data.device))
         if not len(table):           # no values: every row is null
             return DeviceColumn(torch.zeros(src.padded_len, dtype=table.dtype,
                                             device=table.device),
@@ -196,9 +232,27 @@ class TpuProjectExec(TpuExec):
                                         torch.zeros_like(vals)),
                             src.validity, dt)
 
+    def _dict_transform(self, i: int, src: DictColumn) -> DictColumn:
+        """A STRING chain over a dictionary column: a dictionary column
+        over the transformed entries, sorted and unique (the reference's
+        ``_dict_transform``), the codes remapped by one gather."""
+        def make(vals):
+            if not len(vals):
+                return np.zeros(0, object), None
+            uniq, inv = np.unique(vals, return_inverse=True)
+            rank = torch.from_numpy(inv.astype(np.int32).reshape(-1))
+            return uniq.astype(object), rank.to(src.data.device)
+        uniq, rank = self._entries(i, src, make)
+        if rank is None:
+            codes = torch.zeros_like(src.data)
+        else:
+            codes = rank[src.data.clamp(0, len(rank) - 1).long()]
+        return DictColumn(codes, src.validity, STRING, uniq)
+
     def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         from ..exprs.rect_match import PALLAS_ENABLED
         use_kernel = bool(ctx.conf.get(PALLAS_ENABLED))
+        cap = int(ctx.conf.get(RECT_MAX_BYTES))
         child_schema = self.children[0].output_schema()
         if self._projector is None and self.device_idx:
             self._projector = DeviceProjector(
@@ -212,18 +266,24 @@ class TpuProjectExec(TpuExec):
                     for i, c in zip(self.device_idx,
                                     self._projector.run(batch)):
                         out[i] = c
-                for i, (_, leaf) in self.rect_chain.items():
-                    out[i] = self._rect_eval(i, batch.column_by_name(leaf),
-                                             use_kernel)
+                for i in self.chains:
+                    out[i] = self._chain_eval(i, batch, use_kernel, cap)
             yield ColumnarBatch(out, batch.num_rows, self._schema)
 
     def describe(self):
-        tag = ""
-        if self.rect_chain:
-            tag = (" rect_device="
-                   f"{[self.exprs[i].name_hint for i in self.rect_chain]}")
+        tags = []
+        xf = [i for i in self.chains
+              if self._schema.fields[i].dtype == STRING]
+        if xf:
+            tags.append("dict_transform="
+                        f"{[self.exprs[i].name_hint for i in xf]}")
+        rect_only = [i for i, c in self.chains.items()
+                     if c[2] and i not in xf]
+        if rect_only:
+            tags.append("rect_device="
+                        f"{[self.exprs[i].name_hint for i in rect_only]}")
         return ("Project[" + ", ".join(e.name_hint for e in self.exprs)
-                + "]" + tag)
+                + "]" + (" " + " ".join(tags) if tags else ""))
 
 
 class TpuFilterExec(TpuExec):
@@ -256,10 +316,11 @@ class TpuFilterExec(TpuExec):
     def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         from ..exprs.rect_match import PALLAS_ENABLED
         use_kernel = bool(ctx.conf.get(PALLAS_ENABLED))
+        cap = int(ctx.conf.get(RECT_MAX_BYTES))
         for batch in self.children[0].execute(ctx):
             with ctx.semaphore.held():
                 if self._dict_eval is not None:
-                    keep = self._dict_eval.keep_mask(batch, use_kernel)
+                    keep = self._dict_eval.keep_mask(batch, use_kernel, cap)
                 else:
                     col = self._projector.run(batch)[0]
                     keep = torch.logical_and(col.data, col.validity)

@@ -15,8 +15,11 @@ signed integer of its bits with the lower bits of negative values
 flipped: integer order is then float total order, and a descending key
 is its bitwise complement, as for integers.
 
-Only scalar lanes are encoded here (int, float, bool, date, timestamp);
-a byte-rectangle string key arrives with the strings slice.
+A byte-rectangle string key (a ``StrVal``) becomes its order-preserving
+words (``columnar/strrect.py:pack_words``: big-endian, the sign bit
+flipped), then its length: the words decide, the length breaks the tie
+between a string and the same string with trailing NUL bytes, which the
+zero padding cannot tell apart (the reference's ``order_key_operands``).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import List
 
 import torch
 
+from ..columnar.strrect import pack_words
 from ..exprs.base import DVal, StrVal
 
 __all__ = ["order_key_operands", "grouping_operands", "operands_equal",
@@ -51,10 +55,9 @@ def order_key_operands(v: DVal, ascending: bool,
                        nulls_first: bool) -> List[torch.Tensor]:
     """One sort order -> [null_rank uint8, key]. A null row's key is 0,
     so nulls are equal to each other and ordered by their rank alone."""
+    ranked = v.validity if nulls_first else torch.logical_not(v.validity)
     if isinstance(v.data, StrVal):
-        raise NotImplementedError(
-            "sort or group key over a byte-rectangle string column: such "
-            "keys arrive with the strings slice (ROADMAP.md Queue A)")
+        return [ranked.to(torch.uint8)] + _string_key(v, ascending)
     d = v.data
     if d.is_floating_point():
         key = _float_order_key(d)
@@ -68,8 +71,21 @@ def order_key_operands(v: DVal, ascending: bool,
         key = d if ascending else torch.bitwise_not(d)
     key = torch.where(v.validity, key, torch.zeros_like(key))
     # nulls first: a null ranks 0 and a value 1; nulls last the reverse
-    ranked = v.validity if nulls_first else torch.logical_not(v.validity)
     return [ranked.to(torch.uint8), key]
+
+
+def _string_key(v: DVal, ascending: bool) -> List[torch.Tensor]:
+    """A byte-rectangle key's operands: its words, then its length; a
+    null row has the words of zero bytes and length 0. Descending inverts the words
+    and negates the length."""
+    sv: StrVal = v.data
+    keep = v.validity[:, None]
+    words = pack_words(torch.where(keep, sv.bytes_, 0))
+    ln = torch.where(v.validity, sv.lengths, 0)
+    if not ascending:
+        words = torch.bitwise_not(words)
+        ln = -ln
+    return [words[:, k] for k in range(words.shape[1])] + [ln]
 
 
 def grouping_operands(v: DVal) -> List[torch.Tensor]:

@@ -13,19 +13,24 @@ stages, as the reference does:
   * ``stage_pack``  -- each group's key from its last row. Float keys
     come out canonical (one NaN, 0.0 for -0.0), as the reference's exec
     rebuilds them from the sorted operands (Spark's
-    NormalizeFloatingNumbers).
+    NormalizeFloatingNumbers). A byte-rectangle string key (a
+    ``StrVal``) sorts as its words and length (exec/encoding.py) and is
+    rebuilt from those sorted operands, never gathered as bytes (the
+    reference's ``k_scan``, ``_reconstructible`` for STRING): its rows
+    come out as ``StrVal`` rectangles of the input's width.
 
 Results come back one row per group, in key order. The dense path for
 dictionary keys is ``exec/dense_groupby.py``.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, NamedTuple, Sequence
 
 import torch
 
 from ..columnar.segmented import GlobalSegments, SortedSegments
-from ..exprs.base import DVal
+from ..columnar.strrect import unpack_words
+from ..exprs.base import DVal, StrVal
 from .encoding import (canonicalize_floats, grouping_operands,
                        lexsort_permutation, operands_equal)
 
@@ -50,20 +55,37 @@ def global_groupby(vals: List[List[DVal]], aggs: Sequence, mode: str,
     return _run_aggs(aggs, vals, seg, mode)
 
 
+class _StringOperands(NamedTuple):
+    """A string key after the sort: its sorted operands."""
+    rank: torch.Tensor
+    words: List[torch.Tensor]
+    lengths: torch.Tensor
+
+
 def stage_sort(keys: List[DVal], vals: List[List[DVal]],
                row_mask: torch.Tensor):
     """Sort the rows by the keys' grouping operands, live rows first.
     Returns (sorted operands, sorted keys, sorted values, sorted live
-    mask, the permutation)."""
+    mask, the permutation); a string key's entry is its sorted operands
+    (``_StringOperands``)."""
     pad_flag = torch.logical_not(row_mask).to(torch.uint8)
     operands = [pad_flag]
+    spans = []
     for k in keys:
-        operands.extend(grouping_operands(k))
+        ops = grouping_operands(k)
+        spans.append((len(operands) - 1, len(ops)))
+        operands.extend(ops)
     perm = lexsort_permutation(operands)
     s_ops = [op[perm] for op in operands[1:]]
-    s_keys = [DVal((canonicalize_floats(k.data) if k.data.is_floating_point()
-                    else k.data)[perm], k.validity[perm], k.dtype)
-              for k in keys]
+    s_keys = []
+    for k, (at, n) in zip(keys, spans):
+        if isinstance(k.data, StrVal):
+            s_keys.append(_StringOperands(s_ops[at], s_ops[at + 1:at + n - 1],
+                                          s_ops[at + n - 1]))
+            continue
+        d = canonicalize_floats(k.data) if k.data.is_floating_point() \
+            else k.data
+        s_keys.append(DVal(d[perm], k.validity[perm], k.dtype))
     s_vals = [[DVal(None if v.data is None else v.data[perm],
                     v.validity[perm], v.dtype) for v in vs]
               for vs in vals]
@@ -88,8 +110,18 @@ def stage_scan(aggs: Sequence, mode: str, s_ops, s_vals, s_live,
 
 
 def stage_pack(seg: SortedSegments, s_keys: List[DVal]):
-    """Each group's key columns: (data, validity) at its last row."""
-    return [(k.data[seg.ends], k.validity[seg.ends]) for k in s_keys]
+    """Each group's key columns: (data, validity) at its last row; a
+    string key's rectangle rebuilt from its words (a ``StrVal``)."""
+    out = []
+    for k in s_keys:
+        if isinstance(k, _StringOperands):
+            words = torch.stack([w[seg.ends] for w in k.words], dim=1)
+            out.append((StrVal(unpack_words(words),
+                               k.lengths[seg.ends].to(torch.int32)),
+                        k.rank[seg.ends] == 0))
+        else:
+            out.append((k.data[seg.ends], k.validity[seg.ends]))
+    return out
 
 
 def segmented_groupby(keys: List[DVal], vals: List[List[DVal]],

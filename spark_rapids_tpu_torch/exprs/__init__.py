@@ -14,8 +14,11 @@ from .comparison import (EqualTo, GreaterThan, GreaterThanOrEqual, In,
 from .conditional import CaseWhen, Coalesce, Greatest, If, Least, NullIf
 from .datetime_fns import DateAdd, DateSub
 from .logical import And, Not, Or
-from .string_fns import (Contains, EndsWith, Like, RLike, StartsWith,
-                         StringInstr, StringLocate)
+from .string_fns import (Contains, EndsWith, InitCap, Length, Like, Lower,
+                         Lpad, Reverse, RLike, Rpad, StartsWith, StringInstr,
+                         StringLocate, StringReplace, StringTrim,
+                         StringTrimLeft, StringTrimRight, Substring,
+                         SubstringIndex, Upper)
 
 __all__ = ["AggregateExpression", "Average", "Count", "CountStar", "Sum",
            "Min", "Max", "First", "Last", "In", "IsNull", "IsNotNull",
@@ -28,4 +31,7 @@ __all__ = ["AggregateExpression", "Average", "Count", "CountStar", "Sum",
            "ColumnRef", "DVal", "EvalContext", "Expression", "Literal",
            "StrVal", "EqualTo", "GreaterThan", "GreaterThanOrEqual",
            "LessThan", "LessThanOrEqual", "And", "Or", "Not", "Contains",
-           "EndsWith", "Like", "RLike", "StartsWith", "StringInstr", "StringLocate"]
+           "EndsWith", "Like", "RLike", "StartsWith", "StringInstr", "StringLocate",
+           "Length", "Upper", "Lower", "Substring", "StringTrim",
+           "StringTrimLeft", "StringTrimRight", "StringReplace", "Lpad",
+           "Rpad", "Reverse", "InitCap", "SubstringIndex"]

@@ -17,6 +17,7 @@ import torch
 
 from ..columnar import (ByteRectColumn, ColumnarBatch, DeviceColumn,
                         DictColumn, HostColumn)
+from ..columnar.strrect import RECT_MAX_BYTES
 from ..types import BOOL, STRING, Schema
 from .base import ColumnRef, DVal, EvalContext, Expression, Literal, StrVal
 from .comparison import EqualTo, In, in_null_rule
@@ -135,14 +136,17 @@ def gather_batch(batch: ColumnarBatch, idx: torch.Tensor,
                          else batch.schema)
 
 
-def compile_rect_chain(expr: Expression, use_kernel: bool = False):
+def compile_rect_chain(expr: Expression, use_kernel: bool = False,
+                       cap: int = RECT_MAX_BYTES.default):
     """(bytes, lengths, validity) -> (data, validity) for a rect chain
-    over one byte-rectangle column."""
+    over one byte-rectangle column: data is a ``StrVal`` for a STRING
+    result (its transforms one ``rect_transform`` call), a tensor for a
+    terminal's INT or BOOL."""
     from .string_rect import eval_rect_chain
 
     def fn(bytes_, lengths, validity):
         out = eval_rect_chain(expr, DVal(StrVal(bytes_, lengths), validity,
-                                         STRING), use_kernel)
+                                         STRING), use_kernel, cap)
         return out.data, out.validity
     return fn
 
@@ -208,12 +212,12 @@ class DictFilterEvaluator:
 
     def _dict_operands(self, pred, form: str, col: DictColumn):
         """("range", lo, hi) or ("mask", bool table on the device)."""
-        from .string_rect import match_dictionary
+        from .string_rect import dictionary_values
         ck = (pred.key(), id(col.dictionary))
         got = self._mask_cache.get(ck)
         if got is not None and got[0] is col.dictionary:
             return got[1]
-        m = np.asarray(match_dictionary(pred, col.dictionary), dtype=bool)
+        m = np.asarray(dictionary_values(pred, col.dictionary), dtype=bool)
         idx = np.flatnonzero(m)
         if form == "range" and (not len(idx)
                                 or len(idx) == idx[-1] + 1 - idx[0]):
@@ -229,7 +233,8 @@ class DictFilterEvaluator:
         return ops
 
     def _slot_value(self, batch: ColumnarBatch, pred, ordinal: int,
-                    form: str, use_kernel: bool) -> DVal:
+                    form: str, use_kernel: bool, cap: int) -> DVal:
+        from .string_rect import eval_rect_chain, rect_chain_leaf
         col = batch.columns[ordinal]
         if isinstance(col, DictColumn):
             ops = self._dict_operands(pred, form, col)
@@ -249,20 +254,21 @@ class DictFilterEvaluator:
                 col.data, col.lengths), col.validity, STRING), use_kernel)
             return DVal(hit, in_null_rule(hit, col.validity, pred.values),
                         BOOL)
-        if isinstance(col, ByteRectColumn) and col.ascii_only:
-            from .string_rect import eval_rect_expr
-            return eval_rect_expr(pred, DVal(StrVal(col.data, col.lengths),
-                                             col.validity, STRING),
-                                  use_kernel)
+        if isinstance(col, ByteRectColumn) and col.ascii_only \
+                and rect_chain_leaf(pred, batch.schema) is not None:
+            return eval_rect_chain(pred, DVal(StrVal(col.data, col.lengths),
+                                              col.validity, STRING),
+                                   use_kernel, cap)
         raise DictFilterFallback(
             f"filter <{self.cond.name_hint}> over "
             f"{batch.schema.fields[ordinal].name} ({col!r}): string "
             "predicates over non-ASCII or over-wide strings arrive with "
-            "the strings slice")
+            "the next strings slice (ROADMAP.md Queue A item 3)")
 
-    def keep_mask(self, batch: ColumnarBatch,
-                  use_kernel: bool = False) -> torch.Tensor:
-        slots = [self._slot_value(batch, pred, ordinal, form, use_kernel)
+    def keep_mask(self, batch: ColumnarBatch, use_kernel: bool = False,
+                  cap: int = RECT_MAX_BYTES.default) -> torch.Tensor:
+        slots = [self._slot_value(batch, pred, ordinal, form, use_kernel,
+                                  cap)
                  for pred, ordinal, form in self.preds]
         col = self._projector.run(batch, slots)[0]
         return torch.logical_and(col.data, col.validity)
@@ -299,7 +305,7 @@ def build_dict_filter(cond: Expression,
     literals, as ``In`` in the mask form) with _DictSlot placeholders; an
     evaluator when the remainder is fully device-supported, else None."""
     from .string_fns import _PatternPredicate
-    from .string_rect import match_form
+    from .string_rect import chain_leaf, match_form
     names = schema.names()
     preds: list = []
 
@@ -310,14 +316,16 @@ def build_dict_filter(cond: Expression,
             preds.append((in_form, ordinal, "mask"))
             return _DictSlot(len(preds) - 1, ordinal, "mask")
         if isinstance(e, _PatternPredicate):
-            child = e.children[0]
-            if isinstance(child, ColumnRef) and child.name in names \
-                    and schema[child.name].dtype == STRING \
-                    and match_form(e) is not None:
-                ordinal = names.index(child.name)
-                preds.append((e, ordinal, e.dict_form))
-                return _DictSlot(len(preds) - 1, ordinal, e.dict_form)
-            return None
+            # over a STRING column or a chain of transforms of one
+            leaf = chain_leaf(e, schema) \
+                if match_form(e) is not None else None
+            if leaf is None:
+                return None
+            ordinal = names.index(leaf)
+            form = e.dict_form if isinstance(e.children[0], ColumnRef) \
+                else "mask"
+            preds.append((e, ordinal, form))
+            return _DictSlot(len(preds) - 1, ordinal, form)
         if not e.children:
             return e
         kids = [rewrite(c) for c in e.children]

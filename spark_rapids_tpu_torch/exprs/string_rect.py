@@ -1,28 +1,41 @@
-"""String predicates over byte rectangles (port of
-``spark_rapids_tpu/exprs/string_rect.py``, the literal match family).
+"""String expressions over byte rectangles and dictionaries (port of
+``spark_rapids_tpu/exprs/string_rect.py``: the transform chains and the
+literal match family).
 
 A high-cardinality STRING column lives on the device as a ``StrVal``
-rectangle (columnar/strrect.py). Contains / StartsWith / EndsWith, the
-literal LIKE and RLIKE forms, StringLocate and StringInstr each become one
-literal match (exprs/rect_match.py): the hand-written kernel when
-``spark.rapids.tpu.sql.pallas.enabled`` is on, otherwise its plain torch
-version, which stands for the reference's XLA ops ``_startswith``,
-``_endswith``, ``_contains``, ``_equals`` and ``_locate``. The ASCII gate stays with the caller: the project exec takes
-this path only for an ``ascii_only`` rectangle, where a byte is a
-character.
+rectangle (columnar/strrect.py). A chain of value-wise transforms over
+one such column (upper, lower, initcap, space trim, substring, replace,
+lpad/rpad, substring_index, reverse) evaluates as one ``rect_transform``
+call (exec/rect_transform.py: the hand-written kernel on a card, its
+plain torch version on the CPU), in place of the reference's jitted
+``jnp`` transforms. The chain may end in a terminal: ``Length``, or a
+literal match (Contains / StartsWith / EndsWith, the literal LIKE and
+RLIKE forms, StringLocate, StringInstr: exprs/rect_match.py, the
+hand-written kernel when ``spark.rapids.tpu.sql.pallas.enabled`` is on,
+otherwise its plain torch version). The ASCII gate stays with the
+caller: the project exec takes this path only for an ``ascii_only``
+rectangle, where a byte is a character.
+
+Over a dictionary column the same chains run once per dictionary entry
+on the host (``dictionary_values``), through each expression's
+``host_value``.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
+from ..columnar.strrect import RECT_MAX_BYTES
+from ..exec.rect_transform import MAX_LITERAL, MAX_WIDTH, rect_transform
 from ..types import BOOL, INT32, STRING, DataType, Schema
 from .base import ColumnRef, DVal, Expression, StrVal
 from .rect_match import rect_match, rect_match_reference
 
-__all__ = ["rect_supported_op", "rect_chain_leaf", "match_form",
-           "match_dictionary", "eval_rect_expr", "eval_rect_chain",
+__all__ = ["rect_chain_leaf", "chain_leaf",
+           "transform_op", "match_form", "match_dictionary",
+           "dictionary_values", "eval_rect_expr", "eval_rect_chain",
            "eval_rect_in"]
 
 _REGEX_META = set(".^$*+?{}[]\\|()")
@@ -101,24 +114,123 @@ def match_form(e: Expression) -> Optional[Tuple[str, str, DataType]]:
     return None
 
 
-def rect_supported_op(e: Expression) -> bool:
-    return match_form(e) is not None
+def transform_op(e: Expression) -> Optional[tuple]:
+    """The ``rect_transform`` op (exec/rect_transform.py) of a STRING ->
+    STRING transform the rectangle path evaluates, else None: the
+    reference's ``rect_supported_op`` conditions (space-only trim, ASCII
+    literals, a non-empty search and delimiter), with the kernel's bounds
+    (literals of at most 32 bytes, a pad target in (0, 64], the widest
+    row it writes); ``initcap`` and a negative substring ``pos`` too,
+    which the reference runs on its host engine."""
+    from .string_fns import (InitCap, Lower, Lpad, Reverse, StringReplace,
+                             SubstringIndex, Substring, Upper, _TrimBase)
 
-
-def rect_chain_leaf(e: Expression, schema: Schema) -> Optional[str]:
-    """Leaf column name when ``e`` is a rect-supported op over one STRING
-    ColumnRef, else None."""
-    if not rect_supported_op(e):
-        return None
-    leaf = e.children[0]
-    if isinstance(leaf, ColumnRef) and leaf.name in schema.names() \
-            and schema[leaf.name].dtype == STRING:
-        return leaf.name
+    def lit(v: str) -> Optional[bytes]:
+        b = _ascii(v)
+        return b if b is not None and 1 <= len(b) <= MAX_LITERAL else None
+    if isinstance(e, Upper):
+        return ("upper",)
+    if isinstance(e, Lower):
+        return ("lower",)
+    if isinstance(e, InitCap):
+        return ("initcap",)
+    if isinstance(e, Reverse):
+        return ("reverse",)
+    if isinstance(e, _TrimBase):
+        return ("trim", e.left, e.right) if e.chars is None else None
+    if isinstance(e, Substring):
+        return ("substring", e.pos, e.length)
+    if isinstance(e, StringReplace):
+        s, r = lit(e.search), _ascii(e.replace)
+        if s is None or r is None or len(r) > MAX_LITERAL:
+            return None
+        return ("replace", s, r)
+    if isinstance(e, Lpad):
+        p = lit(e.pad)
+        if p is None or not 0 < e.length <= MAX_WIDTH:
+            return None
+        return ("pad", e.length, p, e.left)
+    if isinstance(e, SubstringIndex):
+        d = lit(e.delim)
+        return None if d is None else ("substring_index", d, e.count)
     return None
 
 
+def _terminal(e: Expression) -> bool:
+    """A STRING -> INT or BOOL op that may end a chain."""
+    from .string_fns import Length
+    return isinstance(e, Length) or match_form(e) is not None
+
+
+def _chain_leaf(e: Expression, schema: Schema, link) -> Optional[str]:
+    """Leaf column name when ``e`` is ``link`` ops (an optional terminal
+    at the root) over one STRING ColumnRef, else None."""
+    cur = e
+    if _terminal(cur):
+        cur = cur.children[0]
+    hops = int(cur is not e)
+    while not isinstance(cur, ColumnRef):
+        if not link(cur) or len(cur.children) != 1:
+            return None
+        cur = cur.children[0]
+        hops += 1
+    if hops and cur.name in schema.names() \
+            and schema[cur.name].dtype == STRING:
+        return cur.name
+    return None
+
+
+def rect_chain_leaf(e: Expression, schema: Schema) -> Optional[str]:
+    """Leaf column name when ``e`` is a chain the rectangle path
+    evaluates (transforms, then an optional terminal) over one STRING
+    ColumnRef, else None."""
+    return _chain_leaf(e, schema, lambda x: transform_op(x) is not None)
+
+
+def chain_leaf(e: Expression, schema: Schema) -> Optional[str]:
+    """Leaf column name when ``e`` is a chain of value-wise transforms
+    (``dict_transform``), then an optional terminal, over one STRING
+    ColumnRef, else None: the port runs every such chain over a
+    dictionary column (once per entry), and over a byte rectangle the
+    chains of ``rect_chain_leaf``, a subset of these."""
+    return _chain_leaf(e, schema,
+                       lambda x: getattr(x, "dict_transform", False))
+
+
+def _split_chain(e: Expression):
+    """(terminal or None, the transforms from the leaf up); a filter's
+    ``In`` over a string column is a terminal too."""
+    from .comparison import In
+    term = e if _terminal(e) or isinstance(e, In) else None
+    cur = e.children[0] if term is not None else e
+    chain = []
+    while not isinstance(cur, ColumnRef):
+        chain.append(cur)
+        cur = cur.children[0]
+    chain.reverse()
+    return term, chain
+
+
+def dictionary_values(e: Expression, dictionary: np.ndarray) -> np.ndarray:
+    """A chain (``chain_leaf``) over every entry of a string
+    dictionary: an object array of str for a STRING result, int32 for
+    Length, bool (or int32 for locate) for a match."""
+    from .string_fns import Length
+    term, chain = _split_chain(e)
+    vals = list(np.asarray(dictionary, dtype=object))
+    for x in chain:
+        vals = [x.host_value(v) for v in vals]
+    if term is None:
+        out = np.empty(len(vals), dtype=object)
+        out[:] = vals
+        return out
+    if isinstance(term, Length):
+        return np.asarray([len(v) for v in vals], dtype=np.int32)
+    return match_dictionary(term, np.asarray(vals, dtype=object))
+
+
 def match_dictionary(e: Expression, dictionary: np.ndarray) -> np.ndarray:
-    """A literal-match op (``rect_supported_op``) over every entry of a
+    """A literal-match op (``match_form``, or ``In``) over every entry of a
     string dictionary, by character: bool per entry, or int32 1-based
     position for locate."""
     from .comparison import In
@@ -141,10 +253,15 @@ def match_dictionary(e: Expression, dictionary: np.ndarray) -> np.ndarray:
 
 def eval_rect_expr(e: Expression, child: DVal,
                    use_kernel: bool = False) -> DVal:
-    """Evaluate one literal-match op over a StrVal-typed DVal;
-    ``use_kernel`` routes it through the hand-written kernel."""
-    form, lit, out_dt = match_form(e)
+    """Evaluate a chain's terminal (``Length`` or a literal match) over a
+    StrVal-typed DVal; ``use_kernel`` routes a match through the
+    hand-written match kernel."""
+    from .string_fns import Length
     sv: StrVal = child.data
+    if isinstance(e, Length):
+        return DVal(torch.where(child.validity, sv.lengths, 0)
+                    .to(torch.int32), child.validity, INT32)
+    form, lit, out_dt = match_form(e)
     fn = rect_match if use_kernel else rect_match_reference
     return DVal(fn(sv.bytes_, sv.lengths, lit.encode(), form),
                 child.validity, out_dt)
@@ -167,10 +284,15 @@ def eval_rect_in(values, child: DVal, use_kernel: bool = False):
     return hit
 
 
-def eval_rect_chain(e: Expression, leaf_val: DVal,
-                    use_kernel: bool = False) -> DVal:
-    """Evaluate a rect chain (validated by rect_chain_leaf)."""
-    if isinstance(e, ColumnRef):
-        return leaf_val
-    return eval_rect_expr(e, eval_rect_chain(e.children[0], leaf_val,
-                                             use_kernel), use_kernel)
+def eval_rect_chain(e: Expression, leaf_val: DVal, use_kernel: bool = False,
+                    cap: int = RECT_MAX_BYTES.default) -> DVal:
+    """Evaluate a rect chain (validated by rect_chain_leaf): its
+    transforms as one ``rect_transform`` call, then its terminal."""
+    term, chain = _split_chain(e)
+    val = leaf_val
+    if chain:
+        sv: StrVal = val.data
+        b, ln = rect_transform(sv.bytes_, sv.lengths, val.validity,
+                               [transform_op(x) for x in chain], cap)
+        val = DVal(StrVal(b, ln), val.validity, STRING)
+    return val if term is None else eval_rect_expr(term, val, use_kernel)

@@ -208,16 +208,27 @@ class ParquetScanMeta(PlanMeta):
                                self.plan.columns, self.conf)
 
 
+def _computed_string(e, schema: Schema) -> bool:
+    """``e`` is a string chain over one STRING column (``upper(trim(s))``)
+    and not the column itself: a projection computes it below an
+    aggregate or a sort that keys on it."""
+    from ..exprs.string_rect import chain_leaf
+    return e.data_type(schema) == STRING and not isinstance(e, ColumnRef) \
+        and chain_leaf(e, schema) is not None
+
+
 @rule(L.Project)
 class ProjectMeta(PlanMeta):
     def tag_self(self):
-        from ..exprs.string_rect import rect_chain_leaf
+        from ..exprs.string_rect import chain_leaf
         schema = self.plan.children[0].schema()
         for e in self.plan.exprs:
             inner = e.children[0] if isinstance(e, Alias) else e
+            # a string chain over one STRING column runs over its byte
+            # rectangle or once per dictionary entry (exec/basic.py)
             if isinstance(inner, ColumnRef) \
                     or e.fully_device_supported(schema) is None \
-                    or rect_chain_leaf(inner, schema) is not None:
+                    or chain_leaf(inner, schema) is not None:
                 continue
             self.will_not_work_on_tpu(
                 f"<{e.name_hint}>: {e.fully_device_supported(schema)}")
@@ -292,13 +303,37 @@ class AggregateMeta(PlanMeta):
                     "device rewrite")
 
     def convert_to_tpu(self, children):
-        child, stages, eval_schema = self._fold_stages(children[0])
-        if not self.plan.groupings:
+        groupings, child = self._string_key_project(self.plan.groupings,
+                                                    children[0])
+        child, stages, eval_schema = self._fold_stages(child)
+        if not groupings:
             self._widen_scan_batches(child)
-        return A.TpuHashAggregateExec(self.plan.groupings, self.plan.aggs,
+        return A.TpuHashAggregateExec(groupings, self.plan.aggs,
                                       child, pre_stages=stages,
                                       eval_schema=eval_schema,
                                       int_key_cards=self.plan.int_key_cards)
+
+    @staticmethod
+    def _string_key_project(groupings, child: TpuExec):
+        """A computed STRING grouping (a chain over one string column:
+        ``GROUP BY upper(trim(s))``) becomes a column of a projection
+        below the aggregate, which groups on that column by its string
+        key modes (exec/aggregate.py); the reference encodes such a key
+        on the host. Returns (groupings, child)."""
+        schema = child.output_schema()
+        extra, out = [], []
+        for k, g in enumerate(groupings):
+            inner = g.children[0] if isinstance(g, Alias) else g
+            if not _computed_string(inner, schema):
+                out.append(g)
+                continue
+            name = f"__string_key{k}"
+            extra.append(Alias(inner, name))
+            out.append(Alias(ColumnRef(name), g.name_hint))
+        if not extra:
+            return groupings, child
+        return out, B.TpuProjectExec(
+            [ColumnRef(n) for n in schema.names()] + extra, child)
 
     def _widen_scan_batches(self, node) -> None:
         """A keyless aggregate has no group count to keep small, and pays
@@ -354,7 +389,9 @@ class AggregateMeta(PlanMeta):
                         node.children[0].output_schema()) is None):
                 stages.append(("filter", node.condition))
                 node = node.children[0]
-            elif isinstance(node, B.TpuProjectExec) and not node.rect_chain:
+            elif isinstance(node, B.TpuProjectExec) and not node.chains:
+                # a string chain stays its own exec: its result's layout
+                # (dictionary or rectangle) is known only per batch
                 stages.append(("project", node.exprs, node.output_schema()))
                 node = node.children[0]
             else:
@@ -380,7 +417,23 @@ class SortMeta(PlanMeta):
                     f"column {f.name}: {f.dtype.name} payload is host-only")
 
     def convert_to_tpu(self, children):
-        return S.TpuSortExec(self.plan.orders, children[0])
+        """A sort key that is a string chain over one column (``ORDER BY
+        upper(name)`` below the projection that names it) is computed by
+        a projection below the sort, and dropped by one above it."""
+        child = children[0]
+        schema = child.output_schema()
+        orders, extra = [], []
+        for k, o in enumerate(self.plan.orders):
+            if _computed_string(o.expr, schema):
+                name = f"__sort_key{k}"
+                extra.append(Alias(o.expr, name))
+                o = L.SortOrder(ColumnRef(name), o.ascending, o.nulls_first)
+            orders.append(o)
+        if not extra:
+            return S.TpuSortExec(self.plan.orders, child)
+        keep = [ColumnRef(n) for n in schema.names()]
+        return B.TpuProjectExec(keep, S.TpuSortExec(
+            orders, B.TpuProjectExec(keep + extra, child)))
 
 
 @rule(L.GlobalLimit)

@@ -30,18 +30,22 @@ _AGG_FNS = {
     "min": F.min, "max": F.max, "first": F.first, "last": F.last,
 }
 
-_SCALAR_FNS = {"abs": F.abs, "isnull": F.isnull}
+_SCALAR_FNS = {
+    "abs": F.abs, "isnull": F.isnull,
+    "upper": F.upper, "ucase": F.upper, "lower": F.lower, "lcase": F.lower,
+    "length": F.length, "char_length": F.length, "trim": F.trim,
+    "ltrim": F.ltrim, "rtrim": F.rtrim, "reverse": F.reverse,
+    "initcap": F.initcap,
+}
 
 _VARARG_FNS = {"coalesce": F.coalesce}
 
-_STRINGS = "slice 7 (string functions)"
+_STRINGS = "the next strings slice (slice 7: concat, parse_url)"
 _MATH = "slice 9 (math, datetime and statistics functions)"
 #: functions of the reference's tables that arrive with a later slice
 _LATER = {
     **{fn: _STRINGS for fn in (
-        "upper", "ucase", "lower", "lcase", "length", "char_length",
-        "trim", "ltrim", "rtrim", "reverse", "initcap", "concat",
-        "substring", "substr", "parse_url")},
+        "concat", "parse_url")},
     **{fn: _MATH for fn in (
         "sqrt", "exp", "ln", "log", "floor", "ceil", "ceiling", "round",
         "year", "month", "day", "dayofmonth", "hour", "minute", "second",
@@ -55,6 +59,18 @@ _LATER_AGGS = {"stddev", "stddev_samp", "stddev_pop", "variance",
 
 def _is_agg(fn: str) -> bool:
     return fn in _AGG_FNS or fn in _LATER_AGGS
+
+
+def _int_lit(ast, fn: str) -> int:
+    """An integer literal argument, negative ones included (the
+    reference's lowering takes the ``-`` of ``substr(s, -3)`` for the
+    position and fails)."""
+    if isinstance(ast, tuple) and ast[0] == "unary" and ast[1] == "-":
+        return -_int_lit(ast[2], fn)
+    if isinstance(ast, tuple) and ast[0] == "lit" \
+            and isinstance(ast[1], int) and not isinstance(ast[1], bool):
+        return ast[1]
+    raise SqlError(f"{fn}() takes integer literals after the string")
 
 
 def _refuse(fn: str):
@@ -571,6 +587,10 @@ class _Lowerer:
                     f"aggregate {fn}() not allowed in this context")
             if fn in _VARARG_FNS:
                 return _VARARG_FNS[fn](*[self._expr(a) for a in args])
+            if fn == "substring" or fn == "substr":
+                a = [self._expr(args[0])] + [_int_lit(x, fn)
+                                             for x in args[1:]]
+                return F.substring(*a)
             if fn == "date_add":
                 return F.date_add(self._expr(args[0]),
                                   self._expr(args[1]))
