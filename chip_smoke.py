@@ -12,10 +12,11 @@ result line):
                 csrc/ with one nvcc each, started together;
                 ptxas must report no stack frame and no spills for any
                 function. ``--compare NAME=DIR`` also builds
-                DIR/rect_match.cu and/or DIR/dense_groupby.cu (another
-                version of a kernel with its header, e.g. the parent
-                commit's; dense_groupby with the C interface of commit
-                645412c) alongside, to be timed beside the port's;
+                DIR/rect_match.cu, DIR/dense_groupby.cu and/or
+                DIR/rect_transform.cu (another version of a kernel with
+                its header, e.g. the parent commit's; dense_groupby with
+                the C interface of commit 645412c) alongside, to be timed
+                beside the port's (rect_transform in turns with it);
   3. kernels -- each kernel's wrapper on the card against its plain torch
                 version: rect_match exactly, in every mode and edge case;
                 dense_groupby with counts exact and float sums within a
@@ -117,15 +118,19 @@ result line):
                 more under torch.profiler;
  13. strings -- (after phase 12) rect_transform bit-identical to its
                 plain version on the card (every op alone, chains of 1-8
-                ops, widths 8-64, nulls, 1, 31 and 70,001 rows, replace
-                and pad that grow, delimiters that overlap, chains past
-                the cap refused by both) and on the rung's batch
-                (1,048,576 x 32), timed cold there beside its bound; then bench.py's strings rung (upper(trim(s)),
-                substring(s, 3, 4), grouped by both) at 6,001,215 rows
-                for 1,000 distinct s (a dictionary: rect_transform never
-                launches) and 100,000 (a 32-byte rectangle: once a chain
-                a batch, 12), cold, warm, with ORDER BY u and as SQL
-                text, against numpy, and one warm run profiled.
+                ops, widths 8-64, nulls, 0x00 bytes inside lengths, 1, 3,
+                31, 33 and 70,001 rows, replace and pad that grow,
+                delimiters that overlap, chains past the cap refused by
+                both) and on the rung's batch (1,048,576 x 32) and
+                1,048,576-row batches 8 and 64 bytes wide (RT_TIMED),
+                timed cold there beside its bound (and in turns with the
+                versions of --compare); then bench.py's strings rung
+                (upper(trim(s)), substring(s, 3, 4), grouped by both) at
+                6,001,215 rows for 1,000 distinct s (a dictionary:
+                rect_transform never launches) and 100,000 (a 32-byte
+                rectangle: once a chain a batch, 12), cold, warm, with
+                ORDER BY u and as SQL text, against numpy, and one warm
+                run profiled.
  12. sql     -- SQL texts through TorchSession.sql over phase 4's SF1
                 lineitem and phase 10's SF10 store_sales, date_dim and
                 item as temp views (TPC-H q1 and q6, TPC-DS q3, a q9
@@ -1071,8 +1076,8 @@ def _start_compare_build(name: str, src_dir: str):
             [native._nvcc(), *native.NVCC_FLAGS, "-I", str(src.parent),
              "-o", str(out), str(src)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), out))
-    _check(bool(started), f"no rect_match.cu or dense_groupby.cu in "
-                          f"{src_dir}")
+    _check(bool(started), f"no rect_match.cu, dense_groupby.cu or "
+                          f"rect_transform.cu in {src_dir}")
     return started
 
 
@@ -1148,6 +1153,37 @@ def _dense_groupby_compare(name, lib):
     return other
 
 
+def _rect_transform_compare(name, lib):
+    """rect_transform_launch of another build (the C signature and the
+    RtChain packing of the port's), with rect_transform's arguments (no
+    launch count: it is not on the port's path)."""
+    import ctypes
+
+    import torch
+    from spark_rapids_tpu_torch.exec import rect_transform as rt
+    fn = lib.rect_transform_launch
+    fn.argtypes = rt._ARGTYPES
+    fn.restype = ctypes.c_int
+    lib.rect_transform_chain_bytes.restype = ctypes.c_int
+    _check(lib.rect_transform_chain_bytes() == rt._CHAIN_BYTES,
+           f"{name} rect_transform packs its chain in another layout")
+
+    def other(b, ln, v, ops, cap):
+        widths = rt.chain_widths(ops, b.shape[1], cap)
+        chain = rt.pack_chain(ops, widths)
+        p = b.shape[0]
+        out = torch.empty((p, widths[-1]), dtype=torch.uint8, device=b.device)
+        out_len = torch.empty(p, dtype=torch.int32, device=b.device)
+        rc = fn(b.data_ptr(), ln.data_ptr(), v.data_ptr(), p, widths[0],
+                widths[-1], chain.ctypes.data, out.data_ptr(),
+                out_len.data_ptr(),
+                torch.cuda.current_stream(b.device).cuda_stream)
+        _check(rc == 0, f"{name} rect_transform launch failed: CUDA error "
+                        f"{rc}")
+        return out, out_len
+    return other
+
+
 def _finish_compare_build(name, kernel, proc, out):
     """The built kernel as a function with the port's wrapper's arguments
     (and no launch count: it is not on the port's path)."""
@@ -1160,6 +1196,8 @@ def _finish_compare_build(name, kernel, proc, out):
     lib = ctypes.CDLL(str(out))
     if kernel == "rect_match":
         return _rect_match_compare(name, lib)
+    if kernel == "rect_transform":
+        return _rect_transform_compare(name, lib)
     return _dense_groupby_compare(name, lib)
 
 
@@ -4359,9 +4397,10 @@ RT_CHAINS = (
      ("reverse",), ("upper",), ("substring", 2, None),
      ("replace", b"B", b"bb"), ("lower",)),
 )
-#: row counts of the exact cases: one row, part of a warp, more than a
-#: tile and off the grid's last one
-RT_ROWS = (1, 31, 70_001)
+#: row counts of the exact cases: one row, part of a lane group's set of
+#: rows at every width, part of a warp, a warp and one row, and many
+#: blocks ending part way through one
+RT_ROWS = (1, 3, 31, 33, 70_001)
 
 
 def gen_strings(n_rows: int, card: int, seed: int = 13) -> dict:
@@ -4410,8 +4449,9 @@ def strings_numpy(t: dict) -> list:
 
 def _rt_rect(rng, rows: int, width: int, device: str = "cuda"):
     """Rows over a small alphabet that makes the chains' literals match
-    often, with edge spaces, empty and all-space rows, and 10% nulls (zero
-    bytes, length 0), on ``device``."""
+    often, with edge spaces, empty and all-space rows, rows holding 0x00
+    bytes inside their length (the last byte among them), and 10% nulls
+    (zero bytes, length 0), on ``device``."""
     import torch
     alphabet = np.frombuffer(b"aab  bxyAB-Q.", np.uint8)
     rect = alphabet[rng.randint(0, len(alphabet), (rows, width))]
@@ -4419,6 +4459,10 @@ def _rt_rect(rng, rows: int, width: int, device: str = "cuda"):
     kind = rng.randint(0, 10, rows)
     rect[kind == 1] = 32                          # all spaces
     lens[kind == 2] = 0
+    nul = (kind == 3)[:, None] & (rng.rand(rows, width) < 0.3)
+    nul[(kind == 3) & (lens > 0), np.maximum(lens - 1, 0)[
+        (kind == 3) & (lens > 0)]] = True
+    rect[nul] = 0
     valid = rng.rand(rows) >= 0.1
     lens[~valid] = 0
     rect[np.arange(width)[None, :] >= lens[:, None]] = 0
@@ -4496,55 +4540,130 @@ def rt_bound(rows: int, w_in: int, w_out: int) -> dict:
             "by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def phase_rt_times(col) -> dict:
-    """rect_transform on the rung's batch (its byte rectangle ``col`` of
-    the 100,000-value table), both of the rung's chains: held
-    bit-identical to its plain version on that batch, then timed with the
-    L2 cold beside the bound, the plain version and the launch shape."""
+#: the kernel's timed chains, (label, input, chain): "rung" is the rung's
+#: 32-byte batch, "w8" and "w64" a 1,048,576-row _rt_rect of that width;
+#: the replaces and the pad grow their strings (32 -> 64 and 8 -> 16
+#: bytes wide, and up to 64 bytes long)
+RT_TIMED = (
+    ("upper_trim", "rung", (("trim", True, True), ("upper",))),
+    ("substring", "rung", (("substring", 3, 4),)),
+    ("replace_grow", "rung", (("replace", b"-", b"--"),)),
+    ("w8_upper_trim", "w8", (("trim", True, True), ("upper",))),
+    ("w8_replace_grow", "w8", (("replace", b"a", b"AA"),)),
+    ("w64_upper_trim", "w64", (("trim", True, True), ("upper",))),
+    ("w64_lpad", "w64", (("pad", 64, b"*-", True),)),
+)
+
+
+def _plain_ms(fn, inputs, label: str) -> float:
+    """A plain version's ms a call: queued cold as the kernels are
+    (``_cold_ms``, one pass), or, where its host enqueue outlasts any
+    sleep (a replace's column loop), each call alone between two
+    synchronisations, the median over the inputs."""
     import torch
-    from spark_rapids_tpu_torch import native
+    try:
+        return _cold_ms(fn, inputs, label, rounds=1, reps=1)[0]
+    except AssertionError:
+        ms = []
+        for x in inputs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*x)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ms))
+
+
+def _rt_timed_row(name, b, ln, v, chain, compare) -> dict:
+    """One chain on one batch: the kernel (and each version to compare)
+    held bit-identical to the plain version, then timed with the L2 cold
+    in turns (kernel, others, others reversed, kernel, ...), beside the
+    bound and the plain version."""
+    import torch
     from spark_rapids_tpu_torch.exec.rect_transform import (
-        launch_shape, rect_transform, rect_transform_reference)
-    b, ln, v = col.data, col.lengths, col.validity
+        rect_transform, rect_transform_reference)
     P, W = b.shape
+    want = rect_transform_reference(b, ln, v, chain, RT_CAP)
+    order = [("kernel", rect_transform)] + list(compare.items())
+    row = {"max_abs_err": 0.0}
+    for who, f in order:
+        got = f(b, ln, v, chain, RT_CAP)
+        torch.cuda.synchronize()
+        err = _rt_err(got, want)
+        if who == "kernel":
+            row["max_abs_err"] = err
+        _check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+               f"rect_transform {who} {name} on {P} x {W}: differs from "
+               f"the plain version (max abs err {err})")
+    w_out = want[0].shape[1]
+    del got, want
     n = max(2, -(-COLD_BYTES // (b.nbytes + ln.nbytes + v.nbytes)))
     inputs = [(b, ln, v)] + [(b.clone(), ln.clone(), v.clone())
                              for _ in range(n - 1)]
+    turns = {who: [] for who, _ in order}
+    hosts = []
+    for who, f in order + order[::-1] + order:
+        ms, host = _cold_ms(
+            lambda b, ln, v, f=f: f(b, ln, v, chain, RT_CAP), inputs,
+            f"rect_transform {name} {who}")
+        turns[who].append(ms)
+        if who == "kernel":
+            hosts.append(host)
+    row["ms"] = float(np.mean(turns["kernel"]))
+    row["turns_ms"] = turns
+    row["compare_ms"] = {who: float(np.mean(turns[who]))
+                         for who in compare}
+    row["host_ms"] = float(np.mean(hosts))
+    row["plain_ms"] = _plain_ms(
+        lambda b, ln, v: rect_transform_reference(b, ln, v, chain, RT_CAP),
+        inputs, f"rect_transform {name} plain")
+    bd = rt_bound(P, W, w_out)
+    row.update({"bound_ms": bd["ms"], "bound_bytes": bd["bytes"],
+                "bound_by": bd["by"], "shape": [int(P), int(W), int(w_out)]})
+    others = "".join(f"; {who} {row['compare_ms'][who]:.4f} ms (turns "
+                     f"{', '.join(f'{t:.4f}' for t in turns[who])}), "
+                     f"{row['bound_ms'] / row['compare_ms'][who]:.0%} of "
+                     f"bound" for who in compare)
+    _log(f"rect_transform {name} ({P} x {W} -> {w_out}, {chain}): "
+         f"bit-identical to the plain version (max abs err "
+         f"{row['max_abs_err']}); kernel {row['ms']:.4f} ms (turns "
+         f"{', '.join(f'{t:.4f}' for t in turns['kernel'])}), "
+         f"{row['bound_ms'] / row['ms']:.0%} of bound{others}; plain "
+         f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
+         f"({bd['bytes']} B, by {bd['by']}); host {row['host_ms']:.4f} ms "
+         f"a call; library: none (no PyTorch call computes this function)")
+    return row
+
+
+def phase_rt_times(col, compare=None) -> dict:
+    """rect_transform on the rung's batch (its byte rectangle ``col`` of
+    the 100,000-value table) and on 1,048,576-row rectangles 8 and 64
+    bytes wide, every chain of RT_TIMED: held bit-identical to its plain
+    version, then timed with the L2 cold beside the bound, the plain
+    version, the versions to compare (``compare``: name -> launch, timed
+    in turns with the kernel) and the launch shape."""
+    from spark_rapids_tpu_torch import native
+    from spark_rapids_tpu_torch.exec.rect_transform import launch_shape
+    compare = compare or {}
+    b, ln, v = col.data, col.lengths, col.validity
+    P, W = b.shape
     regs = re.findall(r"Used (\d+) registers",
                       native.build_log("rect_transform"))
-    out = {"shape": [int(P), int(W)], "launch": launch_shape(P),
-           "registers": [int(r) for r in regs]}
-    for name, chain in (("upper_trim", (("trim", True, True), ("upper",))),
-                        ("substring", (("substring", 3, 4),))):
-        got = rect_transform(b, ln, v, chain, RT_CAP)
-        want = rect_transform_reference(b, ln, v, chain, RT_CAP)
-        torch.cuda.synchronize()
-        row = {"max_abs_err": _rt_err(got, want)}
-        _check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-               f"rect_transform {name} on the rung's {P} x {W} batch: "
-               f"differs from its plain version (max abs err "
-               f"{row['max_abs_err']})")
-        w_out = got[0].shape[1]
-        del got, want
-        row["ms"], row["host_ms"] = _cold_ms(
-            lambda b, ln, v: rect_transform(b, ln, v, chain, RT_CAP),
-            inputs, f"rect_transform {name}")
-        row["plain_ms"], _ = _cold_ms(
-            lambda b, ln, v: rect_transform_reference(b, ln, v, chain,
-                                                      RT_CAP),
-            inputs, f"rect_transform {name} plain", rounds=1, reps=1)
-        bd = rt_bound(P, W, w_out)
-        row.update({"bound_ms": bd["ms"], "bound_bytes": bd["bytes"],
-                    "bound_by": bd["by"], "w_out": int(w_out)})
-        _log(f"rect_transform {name} on the rung's batch ({P} x {W} -> "
-             f"{w_out}): bit-identical to the plain version (max abs err "
-             f"{row['max_abs_err']}); kernel {row['ms']:.4f} ms, plain "
-             f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
-             f"({bd['bytes']} B), {row['bound_ms'] / row['ms']:.0%} of "
-             f"bound; host {row['host_ms']:.4f} ms a call; library: none "
-             f"(no PyTorch call computes this function); launch "
-             f"{out['launch']}, ptxas registers {out['registers']}")
+    out = {"shape": [int(P), int(W)], "registers": [int(r) for r in regs]}
+    rng = np.random.RandomState(131)
+    batches = {"rung": (b, ln, v)}
+    for name, src, chain in RT_TIMED:
+        if src not in batches:
+            batches = {"rung": batches["rung"],
+                       src: _rt_rect(rng, P, int(src[1:]))}
+        bb, bl, bv = batches[src]
+        row = _rt_timed_row(name, bb, bl, bv, chain, compare)
+        row["launch"] = launch_shape(chain, int(bb.shape[0]),
+                                     int(bb.shape[1]), RT_CAP)
         out[name] = row
+    out["launch"] = out["upper_trim"]["launch"]
+    _log(f"rect_transform launch {out['launch']}, ptxas registers "
+         f"{out['registers']}")
     return out
 
 
@@ -4561,7 +4680,7 @@ def _strings_right(rows: list, want: list, ordered: bool) -> bool:
     return True
 
 
-def phase_strings(card: str, batch_rows: int) -> dict:
+def phase_strings(card: str, batch_rows: int, compare=None) -> dict:
     """Phase 13 (module doc): rect_transform exact and timed, then the
     strings rung at SF1 rows for 1,000 and 100,000 distinct values, cold
     and warm, with ORDER BY u, as SQL, and profiled."""
@@ -4589,7 +4708,7 @@ def phase_strings(card: str, batch_rows: int) -> dict:
                f"{distinct} distinct s ingested as {first!r}")
         if distinct > 65536:
             _check(first.width == 32, f"s ingested {first.width} wide")
-            out["times"] = phase_rt_times(first)
+            out["times"] = phase_rt_times(first, compare)
         del first
         _log(f"strings {distinct}: {SF1_ROWS} rows generated in "
              f"{time.perf_counter() - t0:.2f} s, s ingests as {layout}")
@@ -4645,9 +4764,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", metavar="NAME=DIR", action="append",
                     default=[],
-                    help="also build DIR/rect_match.cu and/or "
-                    "DIR/dense_groupby.cu (another version of the kernel, "
-                    "such as the parent commit's: rect_match with the same "
+                    help="also build DIR/rect_match.cu, "
+                    "DIR/dense_groupby.cu and/or DIR/rect_transform.cu "
+                    "(another version of the kernel, such as the parent "
+                    "commit's: rect_match and rect_transform with the same "
                     "launch signature, dense_groupby with that of commit "
                     "645412c) and time it beside the port's; repeatable")
     args = ap.parse_args(argv)
@@ -4830,7 +4950,8 @@ def main(argv=None) -> int:
         tpcds2 = phase_tpcds2(card, batch_rows, ds["ss"], ds["hosts"][0])
         sql = phase_sql(card, batch_rows, table, host, ds, tpcds2)
         del ds
-        strings = phase_strings(card, batch_rows)
+        strings = phase_strings(card, batch_rows,
+                                compare["rect_transform"])
         _log(json.dumps({"queries": {
             "q6": {"rows": SF1_ROWS, "wall_ms_cold": ms_cold,
                    "wall_ms_warm": ms_warm},
@@ -4946,9 +5067,9 @@ def main(argv=None) -> int:
         tpcds2["kernel"]["paths"]["sql_q28"] = sql["q28"]["cold"][
             "launches"]["distinct_flag"]
         rt = strings["times"]["upper_trim"]
-        rt_err = max(strings["exact"]["max_abs_err"],
-                     rt["max_abs_err"],
-                     strings["times"]["substring"]["max_abs_err"])
+        rt_err = max([strings["exact"]["max_abs_err"]]
+                     + [strings["times"][name]["max_abs_err"]
+                        for name, _, _ in RT_TIMED])
         transform = {
             "name": "rect_transform", "route": "cuda",
             "source": "spark_rapids_tpu_torch/csrc/rect_transform.cu",
@@ -4965,13 +5086,17 @@ def main(argv=None) -> int:
             "ms": rt["ms"], "plain_ms": rt["plain_ms"],
             "bound_ms": rt["bound_ms"], "bound_by": rt["bound_by"],
             "bound_bytes": rt["bound_bytes"], "library_ms": None,
-            "host_ms": rt["host_ms"],
+            "host_ms": rt["host_ms"], "compare_ms": rt["compare_ms"],
+            "turns_ms": rt["turns_ms"],
             "timing": "device time per launch, launches queued back to "
                       "back over distinct inputs (L2 cold)",
             "shape": strings["times"]["shape"],
             "launch": strings["times"]["launch"],
             "registers": strings["times"]["registers"],
-            "substring": strings["times"]["substring"],
+            **{name: {k: strings["times"][name][k] for k in (
+                "ms", "compare_ms", "plain_ms", "bound_ms", "host_ms",
+                "shape", "max_abs_err")}
+               for name, _, _ in RT_TIMED if name != "upper_trim"},
         }
         _log(json.dumps({"kernels": [kernel, dense, join,
                                      tpcds2["kernel"], transform]}))

@@ -18,7 +18,8 @@ import torch
 from ..types import (DATE, STRING, TIMESTAMP, Schema, StructField,
                      from_arrow, from_numpy_dtype)
 from .column import DeviceColumn, DictColumn, HostColumn
-from .strrect import ByteRectColumn, encode_string_rect, utf8_bytes
+from .strrect import (ByteRectColumn, HostStrings, encode_string_rect,
+                      utf8_bytes)
 
 __all__ = ["ColumnarBatch", "HostTable", "DictStrings",
            "batch_from_reference",
@@ -34,15 +35,15 @@ DICT_ENCODE_MAX_CARD = 1 << 16
 
 class DictStrings:
     """A host string column as int32 ``indices`` into ``dictionary``, a
-    numpy ``S`` array of UTF-8 values (as a dictionary-encoded Parquet
-    chunk holds it; entries may repeat across chunks). Null rows hold
-    index 0. Sliced like an array; ``encode`` gives a batch's codes and
-    sorted dictionary from the entries it uses, without a pass over the
+    ``HostStrings`` of UTF-8 values (as a dictionary-encoded Parquet chunk
+    holds it; entries may repeat across chunks). Null rows hold index 0.
+    Sliced like an array; ``encode`` gives a batch's codes and sorted
+    dictionary from the entries it uses, without a pass over the
     strings."""
 
     __slots__ = ("indices", "dictionary")
 
-    def __init__(self, indices: np.ndarray, dictionary: np.ndarray):
+    def __init__(self, indices: np.ndarray, dictionary: HostStrings):
         self.indices = indices
         self.dictionary = dictionary
 
@@ -52,10 +53,11 @@ class DictStrings:
     def __getitem__(self, sl: slice) -> "DictStrings":
         return DictStrings(self.indices[sl], self.dictionary)
 
-    def decode(self) -> np.ndarray:
-        """The values as an ``S`` array."""
+    def decode(self) -> HostStrings:
+        """The values, row by row."""
         if not len(self.dictionary):
-            return np.zeros(len(self.indices), "S1")
+            return HostStrings(np.zeros(len(self.indices), "S1"),
+                               np.zeros(len(self.indices), np.int32))
         return self.dictionary[self.indices]
 
     @staticmethod
@@ -64,7 +66,7 @@ class DictStrings:
         return DictStrings(
             np.concatenate([p.indices + np.int32(o)
                             for p, o in zip(parts, offs)]),
-            np.concatenate([p.dictionary for p in parts]))
+            HostStrings.concat([p.dictionary for p in parts]))
 
     def encode(self, valid: np.ndarray, n: int):
         """(codes int32[n], sorted dictionary), exactly what
@@ -75,32 +77,56 @@ class DictStrings:
         limit = dict_limit(n)
         used = np.zeros(len(self.dictionary), bool)
         used[self.indices[valid]] = True
-        uniq, inv = np.unique(self.dictionary[used], return_inverse=True)
-        if len(uniq) > limit:
+        dictionary, inv = _unique_strings(self.dictionary[used])
+        if len(dictionary) > limit:
             return None
         remap = np.zeros(len(self.dictionary), np.int32)
         remap[used] = inv.astype(np.int32)
         codes = remap[self.indices] if len(remap) else \
             np.zeros(n, np.int32)
-        if len(uniq):
+        if len(dictionary):
             # null slots hold the first value's code, as the reference's do
             codes[~valid] = codes[np.argmax(valid)]
+        return codes, dictionary
+
+
+def _unique_strings(hs: HostStrings):
+    """(sorted distinct values as an object array of str, each value's
+    index among them): byte order, which is code point order. Values that
+    differ only in trailing 0x00 bytes, which numpy's ``unique`` over the
+    ``S`` array would merge, are told apart by a key of the value's bytes
+    and then its length (big-endian), whose order is byte order: equal
+    buffers differ only in trailing zeros, and the shorter sorts first."""
+    cut = hs.cut()
+    if cut is None:
+        uniq, inv = np.unique(hs.s, return_inverse=True)
         dictionary = np.char.decode(uniq, "utf-8").astype(object) \
             if len(uniq) else np.zeros(0, object)
-        return codes, dictionary
+        return dictionary, inv
+    n, k = len(hs), hs.s.dtype.itemsize
+    key = np.zeros((n, k + 4), np.uint8)
+    key[:, :k] = np.ascontiguousarray(hs.s).view(np.uint8).reshape(n, k)
+    key[:, k:] = hs.lengths.astype(">u4").view(np.uint8).reshape(n, 4)
+    _, first, inv = np.unique(key.view(f"S{k + 4}").reshape(n),
+                              return_index=True, return_inverse=True)
+    return hs[first].to_objects(), inv
 
 
 def _concat_values(parts: list) -> object:
     if all(isinstance(p, DictStrings) for p in parts):
         return DictStrings.concat(parts)
-    return np.concatenate([p.decode() if isinstance(p, DictStrings) else p
-                           for p in parts])
+    if any(isinstance(p, (DictStrings, HostStrings)) for p in parts):
+        return HostStrings.concat([
+            p.decode() if isinstance(p, DictStrings)
+            else utf8_bytes(p, np.ones(len(p), bool)) for p in parts])
+    return np.concatenate(parts)
 
 
 class HostTable:
     """A host table: per column numpy ``values`` and bool ``validity``.
     Values hold the device representation (DATE as int32 days, TIMESTAMP
-    as int64 microseconds); strings stay ``S``/``U``/object arrays."""
+    as int64 microseconds); strings stay ``S``/``U``/object arrays, or
+    ``HostStrings``/``DictStrings`` from a Parquet file."""
 
     def __init__(self, columns: Dict[str, Tuple[np.ndarray, np.ndarray]],
                  schema: Schema):
@@ -208,32 +234,32 @@ def dict_limit(rows: int) -> float:
     return min(rows * DICT_ENCODE_MAX_FRACTION + 1, DICT_ENCODE_MAX_CARD)
 
 
-def _try_dict_encode(s: np.ndarray, valid: np.ndarray, n: int,
+def _try_dict_encode(s: HostStrings, valid: np.ndarray, n: int,
                      limit: Optional[float] = None):
-    """UTF-8 ``S`` array -> (codes int32[n], sorted dictionary) or None
-    when the cardinality is above ``limit`` (default ``dict_limit(n)``).
-    Codes index the dictionary sorted in byte order, which is codepoint
-    order."""
+    """UTF-8 ``HostStrings`` -> (codes int32[n], sorted dictionary) or
+    None when the cardinality is above ``limit`` (default
+    ``dict_limit(n)``). Codes index the dictionary sorted in byte order,
+    which is codepoint order."""
     if n == 0 or DICT_ENCODE_MAX_FRACTION <= 0:
         return None
     if limit is None:
         limit = dict_limit(n)
     vals = s[valid]
     # cheap proof of high cardinality: count distinct hashes by a sort
-    # (np.unique may take a hash-table path that is far slower on 1M rows)
-    h = np.sort(_row_hashes(vals))
+    # (np.unique may take a hash-table path that is far slower on 1M rows);
+    # values apart only in trailing NULs hash alike, which only lowers
+    # the count
+    h = np.sort(_row_hashes(vals.s))
     if len(h) and 1 + np.count_nonzero(h[1:] != h[:-1]) > limit:
         return None
-    uniq, inv = np.unique(vals, return_inverse=True)
-    if len(uniq) > limit:
+    dictionary, inv = _unique_strings(vals)
+    if len(dictionary) > limit:
         return None
     codes = np.zeros(n, np.int32)
     codes[valid] = inv.astype(np.int32)
-    if len(uniq):
+    if len(dictionary):
         # null slots hold the first value's code, as the reference's do
         codes[~valid] = codes[np.argmax(valid)]
-    dictionary = np.char.decode(uniq, "utf-8").astype(object) \
-        if len(uniq) else np.zeros(0, object)
     return codes, dictionary
 
 
@@ -246,7 +272,8 @@ def rect_to_dict(col: ByteRectColumn, n: int,
     one that ``limit`` admits is a short batch."""
     rect = np.ascontiguousarray(col.data[:n].cpu().numpy())
     valid = col.validity[:n].cpu().numpy()
-    s = rect.view(f"S{col.width}").reshape(n)
+    s = HostStrings(rect.view(f"S{col.width}").reshape(n),
+                    col.lengths[:n].cpu().numpy().astype(np.int32))
     enc = _try_dict_encode(s, valid, n, limit)
     if enc is None:
         return None
@@ -260,7 +287,7 @@ def dict_to_rect(col: DictColumn, n: int) -> ByteRectColumn:
     the dictionary's entries encoded once, gathered by code."""
     d = col.dictionary
     ent = utf8_bytes(np.asarray(d, object), np.ones(len(d), bool)) \
-        if len(d) else np.zeros(1, "S1")
+        if len(d) else HostStrings(np.zeros(1, "S1"), np.zeros(1, np.int32))
     rect, lens, _, asc = encode_string_rect(ent, np.ones(len(ent), bool),
                                             len(ent), 1 << 30)
     dev = col.data.device
@@ -297,8 +324,8 @@ def _encode_string(values, valid, n, rect_cap):
     renc = encode_string_rect(s, valid, n, rect_cap)
     if renc is not None:
         return ("rect",) + renc
-    strs = np.array([x.decode("utf-8") for x in s], dtype=object) \
-        if values.dtype.kind == "S" else np.asarray(values, object)
+    strs = np.asarray(values, object) if isinstance(values, np.ndarray) \
+        and values.dtype.kind != "S" else s.to_objects()
     return ("host", strs)
 
 

@@ -10,6 +10,14 @@ A high-cardinality STRING column lives on the device as
 with W the smallest power of two >= the longest value (floor 8), up to
 ``rect.maxBytes``. ``ascii_only`` records whether every byte is below
 0x80, where a byte is a character.
+
+On the host a string column's UTF-8 bytes are a ``HostStrings``: a numpy
+``S`` array and each value's byte length. numpy drops a value's trailing
+0x00 bytes on every read of an ``S`` array (an item, ``np.char.str_len``,
+``np.unique``, ``np.char.decode``), so ``b"a"`` and ``b"a\x00"`` share a
+buffer and read alike; the lengths keep them apart from the point where
+they are known (a Python ``str`` or ``bytes``, an Arrow column, a Parquet
+page, a rectangle's ``lengths``) to the device and back.
 """
 from __future__ import annotations
 
@@ -22,8 +30,9 @@ from ..config import register
 from ..types import STRING
 from .column import DeviceColumn
 
-__all__ = ["ByteRectColumn", "RECT_MAX_BYTES", "rect_width_bucket",
-           "encode_string_rect", "utf8_bytes", "pack_words", "unpack_words"]
+__all__ = ["ByteRectColumn", "HostStrings", "RECT_MAX_BYTES",
+           "rect_width_bucket", "encode_string_rect", "utf8_bytes",
+           "pack_words", "unpack_words"]
 
 RECT_MAX_BYTES = register(
     "spark.rapids.tpu.sql.string.rect.maxBytes", 64,
@@ -40,32 +49,118 @@ def rect_width_bucket(max_len: int, cap: int) -> Optional[int]:
     return w if w <= cap else None
 
 
-def utf8_bytes(values: np.ndarray, valid: np.ndarray) -> np.ndarray:
-    """A string array (``S``, ``U`` or object) as a numpy ``S`` array of
-    UTF-8 bytes; invalid slots become b"". An ``S`` array is taken to be
-    UTF-8 already and passes through without a copy."""
-    if values.dtype.kind == "S":
+class HostStrings:
+    """UTF-8 strings on the host: ``s``, an ``S`` array whose buffer holds
+    each value zero-padded, and ``lengths``, each value's byte length
+    (int32). Built without lengths, the values are numpy's own (an ``S``
+    or ``U`` array handed in: none ends in 0x00, each length is
+    ``np.char.str_len``, computed when first asked). Sliced and indexed
+    like an array."""
+
+    __slots__ = ("s", "_lengths", "_cut")
+
+    def __init__(self, s: np.ndarray, lengths: Optional[np.ndarray] = None):
+        self.s = s
+        self._lengths = lengths
+        self._cut = None if lengths is None else False
+
+    def __len__(self) -> int:
+        return len(self.s)
+
+    def __getitem__(self, idx) -> "HostStrings":
+        out = HostStrings(self.s[idx], None if self._lengths is None
+                          else self._lengths[idx])
+        if self._cut is None:               # no value of a part has a cut
+            out._cut = None
+        elif self._cut is not False:
+            cut = self._cut[idx]
+            out._cut = cut if cut.any() else None
+        return out
+
+    @property
+    def lengths(self) -> np.ndarray:
+        if self._lengths is None:
+            self._lengths = np.char.str_len(self.s).astype(np.int32)
+        return self._lengths
+
+    @property
+    def nbytes(self) -> int:
+        return self.s.nbytes + (0 if self._lengths is None
+                                else self._lengths.nbytes)
+
+    def cut(self) -> Optional[np.ndarray]:
+        """Per value, the trailing 0x00 bytes that numpy's reads of ``s``
+        drop (int32), or None when no value has any."""
+        if self._cut is False:
+            cut = self._lengths - np.char.str_len(self.s).astype(np.int32)
+            self._cut = cut if cut.any() else None
+        return self._cut
+
+    @staticmethod
+    def concat(parts) -> "HostStrings":
+        if all(p._lengths is None for p in parts):
+            return HostStrings(np.concatenate([p.s for p in parts]))
+        return HostStrings(np.concatenate([p.s for p in parts]),
+                           np.concatenate([p.lengths for p in parts]))
+
+    def to_objects(self, errors: str = "strict",
+                   ascii_only: bool = False) -> np.ndarray:
+        """The values as an object array of ``str``, trailing 0x00 bytes
+        included (``ascii_only``: every byte is below 0x80, and numpy's
+        cast decodes it)."""
+        if ascii_only:
+            out = self.s.astype(f"U{self.s.dtype.itemsize}").astype(object)
+        elif len(self.s):
+            out = np.char.decode(self.s, "utf-8", errors).astype(object)
+        else:
+            out = np.zeros(0, object)
+        cut = self.cut()
+        if cut is not None:
+            for i in np.flatnonzero(cut):
+                out[i] = out[i] + "\x00" * int(cut[i])
+        return out
+
+
+def _encoded(values) -> list:
+    try:
+        return [v.encode("utf-8") for v in values]
+    except AttributeError:
+        return [v if isinstance(v, bytes) else v.encode("utf-8")
+                for v in values]
+
+
+def utf8_bytes(values, valid: np.ndarray) -> HostStrings:
+    """A string array (``S``, ``U`` or object of ``str``/``bytes``) as
+    ``HostStrings`` of UTF-8 bytes; invalid slots become b"". An ``S``
+    array is taken to be UTF-8 already and passes through without a copy,
+    as does a ``HostStrings``. Python strings keep their trailing NULs
+    (exact lengths); an ``S`` or ``U`` array's values are numpy's."""
+    if isinstance(values, HostStrings):
         return values
+    if values.dtype.kind == "S":
+        return HostStrings(values)
     if values.dtype.kind == "U":
         out = np.char.encode(values, "utf-8")
-    else:
-        out = np.array([v.encode("utf-8") if ok else b""
-                        for v, ok in zip(values, valid)], dtype=object)
-        out = out.astype("S") if len(out) else np.zeros(0, "S1")
-    if not valid.all():
-        out = np.where(valid, out, b"")
-    return out
+        if not valid.all():
+            out = np.where(valid, out, b"")
+        return HostStrings(out)
+    if not len(values):
+        return HostStrings(np.zeros(0, "S1"), np.zeros(0, np.int32))
+    enc = _encoded(values if valid.all() else
+                   np.where(valid, values, ""))
+    return HostStrings(np.array(enc, dtype="S"),
+                       np.fromiter(map(len, enc), np.int32, len(enc)))
 
 
-def encode_string_rect(values: np.ndarray, valid: np.ndarray,
+def encode_string_rect(values: HostStrings, valid: np.ndarray,
                        padded: int, cap: int):
-    """UTF-8 ``S`` array -> (rect uint8[P, W], lengths int32[P],
+    """UTF-8 ``HostStrings`` -> (rect uint8[P, W], lengths int32[P],
     valid bool[P], ascii_only), or None when the longest value is wider
     than ``cap``. Vectorised: the ``S`` array's buffer already is the
     rectangle, zero-padded past each value."""
-    n, k = len(values), values.dtype.itemsize
-    raw = np.ascontiguousarray(values).view(np.uint8).reshape(n, k)
-    lens = np.char.str_len(values).astype(np.int32)
+    n, k = len(values), values.s.dtype.itemsize
+    raw = np.ascontiguousarray(values.s).view(np.uint8).reshape(n, k)
+    lens = values.lengths
     w = rect_width_bucket(int(lens.max()) if n else 0, cap)
     if w is None:
         return None
@@ -131,10 +226,9 @@ class ByteRectColumn(DeviceColumn):
         v = self.validity[:num_rows].cpu().numpy()
         w = rect.shape[1]
         vals = np.ascontiguousarray(rect).view(f"S{w}").reshape(num_rows)
-        if self.ascii_only:         # ASCII: numpy's cast decodes it
-            return vals.astype(f"U{w}").astype(object), v
-        out = np.char.decode(vals, "utf-8", "replace").astype(object)
-        return out, v
+        lens = self.lengths[:num_rows].cpu().numpy().astype(np.int32)
+        return HostStrings(vals, lens).to_objects(
+            "replace", self.ascii_only), v
 
     def __repr__(self):
         return f"ByteRectColumn(width={self.width}, padded={self.padded_len})"

@@ -17,90 +17,188 @@
 // rung's batch (1,048,576 rows, W = 32, upper(trim(s)) keeping Wo = 32)
 // moves 76,546,048 bytes: 0.0228 ms at 3.35 TB/s.
 //
-// Design: a block of 256 threads owns a tile of 256 rows, one row a
-// thread. The block copies the tile (contiguous in device memory) into
-// shared memory with coalesced 8-byte loads, rows 68 bytes apart so
-// that a warp reading byte j of its 32 rows hits 32 banks. Each thread
-// then runs the chain over its row between two shared-memory buffers
-// (rect_transform_row.cuh: each op reads one and writes the other), and
-// the block writes the final buffer back with coalesced 8-byte stores;
-// each thread writes its row's length. A row's bytes are indexed at run
-// time, which in registers or a per-thread array would put them in local
-// memory; in shared memory they cost no stack frame and no spill. The
-// chain (at most 8 ops with their literals) is a __grid_constant__
-// parameter copied into shared memory once a block. The per-row loops
-// are sequential over the row's bytes: simple first, a warp a row with
-// ballots and shuffles would be the faster design.
+// Design (the kernel before this one walked each row byte by byte in one
+// thread through shared memory and was bound by instruction issue): a row
+// is spread over a group of G lanes of one warp, 16 bytes a lane, G = the
+// chain's widest width / 16 (1 lane for rows of 8-16 bytes, 2 for 32, 4
+// for 64). Each lane holds its 16 bytes as four 32-bit words in
+// registers, loaded straight from device memory with one 16-byte load:
+// rows are contiguous, so a warp's load is 512 contiguous bytes. The ops
+// work on words (rect_transform_row.cuh): the case maps by byte-wise range
+// masks within a word; initcap with the byte before each word (the
+// previous lane's last word by one shuffle); trim's first and last
+// non-space byte from per-byte space masks, one ballot for the lanes that
+// hold any and two shuffles for their positions; every realign (trim,
+// substring, lpad, substring_index) and reverse as a window of five words
+// (the two source lanes' words by eight shuffles, two steps of selects)
+// and a funnel shift or byte permute a word; literal matches as each lane
+// testing its own 16 start positions against the literal's words, the
+// group's 64 starts gathered by an OR across the lanes, then selected
+// (replace: greedy, leftmost, non-overlapping) or counted
+// (substring_index) on that mask; replace scatters the kept bytes and the
+// replacements through the group's 16G bytes of shared scratch, each
+// byte's output position from a running count of the chosen starts
+// before it. Every group of a warp makes the same exchanges whatever its
+// row holds. The grid is what the card holds at once; its warps walk the
+// row sets (32 / G rows each), and each issues the next set's loads before
+// it computes the current one. Chains without a literal match run an
+// instance without that code (fewer registers). Measured on the way
+// (PERF.md): 4 bytes a lane lost to the byte-loop kernel (the per-op
+// work of a lane, decode, lengths, masks, addresses, paid for 4 bytes);
+// occupancy then set the pace, so two sets in flight, or a window of five
+// shuffles with the word picked by its sender, were slower than this. The
+// chain (at most 8 ops with their literals) is copied into shared memory
+// once a block, with each pad op's pad repeated. No stack frame, no spill.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
 #include "rect_transform_row.cuh"
 
-__global__ void __launch_bounds__(kRtTileRows)
+constexpr int kRtBlock = 256;  // threads a block
+// Blocks an SM the registers must leave room for: the chains without a
+// literal match, and those with one (more registers, fewer blocks).
+constexpr int kRtBlocksLight = 3;
+constexpr int kRtBlocksMatch = 1;
+
+// A lane's 16 bytes of row `row` (zero past w bytes), and their store.
+__device__ __forceinline__ uint4 rt_load_lane(const uint8_t* base,
+                                              uint32_t row, int w, int k) {
+  const uint8_t* p = base + (size_t)row * (uint32_t)w;
+  if (16 * (k + 1) <= w) return reinterpret_cast<const uint4*>(p)[k];
+  if (k == 0 && w == 8) {
+    const uint2 v = reinterpret_cast<const uint2*>(p)[0];
+    return make_uint4(v.x, v.y, 0u, 0u);
+  }
+  return make_uint4(0u, 0u, 0u, 0u);
+}
+
+__device__ __forceinline__ void rt_store_lane(uint8_t* base, uint32_t row,
+                                              int w, int k,
+                                              const uint32_t (&v)[4]) {
+  uint8_t* p = base + (size_t)row * (uint32_t)w;
+  if (16 * (k + 1) <= w)
+    reinterpret_cast<uint4*>(p)[k] = make_uint4(v[0], v[1], v[2], v[3]);
+  else if (k == 0 && w == 8)
+    reinterpret_cast<uint2*>(p)[0] = make_uint2(v[0], v[1]);
+}
+
+template <int G, bool kMatch>
+__global__ void __launch_bounds__(kRtBlock,
+                                  kMatch ? kRtBlocksMatch : kRtBlocksLight)
     rect_transform_kernel(const uint8_t* __restrict__ bytes,
                           const int32_t* __restrict__ lengths,
-                          const bool* __restrict__ validity, int64_t rows,
+                          const bool* __restrict__ validity, int rows,
                           int w_in, int w_out, uint8_t* __restrict__ out,
                           int32_t* __restrict__ out_len,
                           const __grid_constant__ RtChain chain) {
   __shared__ RtOp ops[kRtMaxOps];
-  __shared__ __align__(16) uint8_t buf[2][kRtTileRows * kRtRowStride];
+  __shared__ __align__(16) uint8_t reps[kRtMaxOps * kRtRepBytes];
+  __shared__ __align__(16) uint8_t scratch[kRtBlock * 16];
   const int n_ops = chain.n_ops;
   {
     const uint32_t* src = reinterpret_cast<const uint32_t*>(chain.ops);
     uint32_t* dst = reinterpret_cast<uint32_t*>(ops);
     const int words = n_ops * (int)(sizeof(RtOp) / 4);
     for (int i = threadIdx.x; i < words; i += blockDim.x) dst[i] = src[i];
-  }
-  const int64_t row0 = (int64_t)blockIdx.x * kRtTileRows;
-  const int64_t left = rows - row0;
-  const int tile = left < kRtTileRows ? (int)left : kRtTileRows;
-
-  // the tile in: tile * w_in contiguous bytes as 8-byte words
-  const int in_words = w_in / 8;
-  const uint2* src = reinterpret_cast<const uint2*>(bytes + row0 * w_in);
-  for (int c = threadIdx.x; c < tile * in_words; c += blockDim.x) {
-    const uint2 v = src[c];
-    const int r = c / in_words;
-    const int k = c - r * in_words;
-    uint32_t* d =
-        reinterpret_cast<uint32_t*>(&buf[0][r * kRtRowStride + k * 8]);
-    d[0] = v.x;
-    d[1] = v.y;
+    for (int i = threadIdx.x; i < n_ops * kRtRepBytes; i += blockDim.x) {
+      const RtOp& op = chain.ops[i / kRtRepBytes];
+      reps[i] = op.code == RT_PAD ? rt_rep_byte(op, i % kRtRepBytes) : 0;
+    }
   }
   __syncthreads();
 
-  const int t = threadIdx.x;
-  if (t < tile) {
-    const int64_t row = row0 + t;
-    const int n = rt_row_chain(ops, n_ops, &buf[0][t * kRtRowStride],
-                               &buf[1][t * kRtRowStride], lengths[row],
-                               validity[row]);
-    out_len[row] = n;
-  }
-  __syncthreads();
+  constexpr int kRowsPerSet = 32 / G;
+  const int lane = threadIdx.x & 31;
+  const int k[1] = {lane & (G - 1)};
+  const int g = lane / G;
+  const RtWarpEx<G> ex{lane & ~(G - 1)};
+  uint8_t* scr = scratch + 16 * (threadIdx.x & ~(G - 1));
+  // the warps walk the row sets, a grid's worth of warps apart (the grid
+  // is what the card holds at once); the next set's loads are issued
+  // before a set is computed (rows < 2^31: 32-bit indices)
+  const uint32_t sets = ((uint32_t)rows + kRowsPerSet - 1) / kRowsPerSet;
+  const uint32_t stride = gridDim.x * (kRtBlock / 32);
+  const uint32_t first = blockIdx.x * (kRtBlock / 32) + threadIdx.x / 32;
+  uint4 a;
+  int l;
+  bool v;
+  auto load = [&](uint32_t set, uint4& x, int& n, bool& ok) {
+    const uint32_t row = set * kRowsPerSet + g;
+    x = make_uint4(0u, 0u, 0u, 0u);
+    n = 0;
+    ok = false;
+    if (row < (uint32_t)rows) {
+      n = lengths[row];
+      ok = validity[row];
+      x = rt_load_lane(bytes, row, w_in, k[0]);
+    }
+  };
+  load(first, a, l, v);
 
-  // the tile out, from the buffer the last op wrote
-  const uint8_t* fin = buf[n_ops & 1];
-  const int out_words = w_out / 8;
-  uint2* dst = reinterpret_cast<uint2*>(out + row0 * w_out);
-  for (int c = threadIdx.x; c < tile * out_words; c += blockDim.x) {
-    const int r = c / out_words;
-    const int k = c - r * out_words;
-    const uint32_t* s =
-        reinterpret_cast<const uint32_t*>(&fin[r * kRtRowStride + k * 8]);
-    dst[c] = make_uint2(s[0], s[1]);
+#pragma unroll 1
+  for (uint32_t set = first; set < sets; set += stride) {
+    uint32_t w[1][4] = {{a.x, a.y, a.z, a.w}};
+    const int len = l;
+    const bool valid = v;
+    load(set + stride, a, l, v);
+    const int n =
+        rt_group_chain<1, kMatch>(ops, n_ops, ex, w, k, len, valid, scr, reps);
+    const uint32_t row = set * kRowsPerSet + g;
+    if (row < (uint32_t)rows) {
+      rt_store_lane(out, row, w_out, k[0], w[0]);
+      if (k[0] == 0) out_len[row] = n;
+    }
   }
 }
 
 // sizeof(RtChain): the wrapper checks that its packing agrees.
 extern "C" int rect_transform_chain_bytes() { return (int)sizeof(RtChain); }
 
+// Lanes a row for a chain whose widest width is `widest`.
+static int rt_lanes(int widest) {
+  return widest > 16 ? widest / 16 : 1;
+}
+
+// The blocks of one instance the card holds at once (its SMs times the
+// blocks an SM takes at its registers and shared memory), asked once.
+template <int G, bool M>
+static int64_t rt_resident() {
+  static int64_t resident = 0;
+  if (!resident) {
+    int dev = 0, sms = 0, per = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per, rect_transform_kernel<G, M>, kRtBlock, 0);
+    resident = (int64_t)(sms > 0 ? sms : 1) * (per > 0 ? per : 1);
+  }
+  return resident;
+}
+
+static int64_t rt_resident_blocks(int lanes, bool match) {
+  if (lanes == 1)
+    return match ? rt_resident<1, true>() : rt_resident<1, false>();
+  if (lanes == 2)
+    return match ? rt_resident<2, true>() : rt_resident<2, false>();
+  return match ? rt_resident<4, true>() : rt_resident<4, false>();
+}
+
+// The grid of a launch over `rows` rows (the wrapper's launch_shape asks):
+// a block for each 8 warps' sets, at most what the card holds at once.
+extern "C" int64_t rect_transform_grid(int64_t rows, int widest, int match) {
+  const int lanes = rt_lanes(widest);
+  const int64_t sets = (rows + 32 / lanes - 1) / (32 / lanes);
+  const int64_t needed = (sets + kRtBlock / 32 - 1) / (kRtBlock / 32);
+  const int64_t resident = rt_resident_blocks(lanes, match != 0);
+  return needed < resident ? needed : resident;
+}
+
 // One launch on `stream` (PyTorch's current stream); returns
 // cudaGetLastError(). `chain` points to an RtChain in host memory, passed
-// to the kernel by value. bytes must be 8-byte aligned; w_in and w_out
-// multiples of 8 up to kRtMaxWidth; out is rows * w_out bytes.
+// to the kernel by value. rows below 2^31 - 2^6; bytes and out 16-byte
+// aligned; w_in and w_out powers of two from 8 to kRtMaxWidth, as every
+// op's widths; out is rows * w_out bytes.
 extern "C" int rect_transform_launch(const void* bytes, const void* lengths,
                                      const void* validity, int64_t rows,
                                      int w_in, int w_out, const void* chain,
@@ -109,14 +207,40 @@ extern "C" int rect_transform_launch(const void* bytes, const void* lengths,
   RtChain c;
   memcpy(&c, chain, sizeof(RtChain));
   if (rows <= 0) return 0;
-  if (c.n_ops < 1 || c.n_ops > kRtMaxOps || w_in % 8 || w_out % 8 ||
-      w_in < 8 || w_out < 8 || w_in > kRtMaxWidth || w_out > kRtMaxWidth)
+  auto width_ok = [](int w) {
+    return w >= 8 && w <= kRtMaxWidth && (w & (w - 1)) == 0;
+  };
+  if (rows > INT32_MAX - 64 || c.n_ops < 1 || c.n_ops > kRtMaxOps ||
+      !width_ok(w_in) ||
+      !width_ok(w_out) || (uintptr_t)bytes % 16 || (uintptr_t)out % 16)
     return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)((rows + kRtTileRows - 1) / kRtTileRows);
-  rect_transform_kernel<<<grid, kRtTileRows, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint8_t*>(bytes),
-      static_cast<const int32_t*>(lengths),
-      static_cast<const bool*>(validity), rows, w_in, w_out,
-      static_cast<uint8_t*>(out), static_cast<int32_t*>(out_len), c);
+  int widest = 8;
+  for (int i = 0; i < c.n_ops; ++i) {
+    const RtOp& op = c.ops[i];
+    if (!width_ok(op.w_in) || !width_ok(op.w_out))
+      return (int)cudaErrorInvalidValue;
+    widest = op.w_in > widest ? op.w_in : widest;
+    widest = op.w_out > widest ? op.w_out : widest;
+  }
+  // 1, 2 or 4 lanes a row (widest 8-16, 32, 64 bytes)
+  const int lanes = rt_lanes(widest);
+  const bool match = rt_chain_matches(c);
+  const unsigned grid = (unsigned)rect_transform_grid(rows, widest, match);
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint8_t* b = static_cast<const uint8_t*>(bytes);
+  const int32_t* ln = static_cast<const int32_t*>(lengths);
+  const bool* v = static_cast<const bool*>(validity);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  int32_t* ol = static_cast<int32_t*>(out_len);
+#define RT_LAUNCH(G, M)                                                    \
+  rect_transform_kernel<G, M><<<grid, kRtBlock, 0, s>>>(b, ln, v, (int)rows, \
+                                                       w_in, w_out, o, ol, c)
+  if (lanes == 1)
+    match ? RT_LAUNCH(1, true) : RT_LAUNCH(1, false);
+  else if (lanes == 2)
+    match ? RT_LAUNCH(2, true) : RT_LAUNCH(2, false);
+  else
+    match ? RT_LAUNCH(4, true) : RT_LAUNCH(4, false);
+#undef RT_LAUNCH
   return (int)cudaGetLastError();
 }

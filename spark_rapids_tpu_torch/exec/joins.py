@@ -119,7 +119,7 @@ def string_key_column_name(e) -> Optional[str]:
 def _filled_dictionary(col: DictColumn, fill: str) -> DictColumn:
     """``col`` with its NULLs set to ``fill``, which joins the (sorted)
     dictionary if it is not there."""
-    words = col.dictionary.astype(str)
+    words = np.asarray(col.dictionary, dtype=object)   # NULs kept
     at = int(np.searchsorted(words, fill))
     codes, dictionary = col.data, col.dictionary
     if at == len(words) or words[at] != fill:
@@ -160,12 +160,13 @@ def _string_words(lcol, rcol, what: str):
                 f"join key <{what}> over {c!r}: string join keys other than "
                 "dictionary columns (byte rectangles, computed strings) "
                 "arrive with the strings slice")
-    union = np.union1d(lcol.dictionary.astype(str),
-                       rcol.dictionary.astype(str))
+    # object arrays of str: a numpy U array would drop trailing NULs
+    union = np.union1d(np.asarray(lcol.dictionary, dtype=object),
+                       np.asarray(rcol.dictionary, dtype=object))
     out = []
     for c in (lcol, rcol):
-        remap = np.searchsorted(union, c.dictionary.astype(str)).astype(
-            np.int64)
+        remap = np.searchsorted(union, np.asarray(c.dictionary, dtype=object)
+                                ).astype(np.int64)
         if len(remap):
             t = torch.from_numpy(remap).to(c.data.device)
             out.append(t[c.data.clamp(0, len(remap) - 1).long()])

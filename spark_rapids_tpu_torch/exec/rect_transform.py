@@ -48,7 +48,7 @@ import torch
 
 from ..columnar.strrect import rect_width_bucket
 
-__all__ = ["OPCODES", "MAX_OPS", "MAX_LITERAL", "MAX_WIDTH", "TILE_ROWS",
+__all__ = ["OPCODES", "MAX_OPS", "MAX_LITERAL", "MAX_WIDTH", "BLOCK_THREADS",
            "chain_widths", "pack_chain", "rect_transform",
            "rect_transform_reference", "launch_shape"]
 
@@ -60,14 +60,14 @@ OPCODES = {"upper": 1, "lower": 2, "trim": 3, "substring": 4, "replace": 5,
 MAX_OPS = 8
 MAX_LITERAL = 32
 MAX_WIDTH = 64
-#: rows of a block's tile, one a thread (kRtTileRows)
-TILE_ROWS = 256
+#: threads of a block (csrc/rect_transform.cu kRtBlock)
+BLOCK_THREADS = 256
 #: bytes of one op and of the chain as the kernel reads them (RtOp,
 #: RtChain): 8 int32 fields and two literals; 4 int32 then the ops
 _OP_BYTES = 32 + 2 * MAX_LITERAL
 _CHAIN_BYTES = 16 + MAX_OPS * _OP_BYTES
-#: bytes between rows of a tile in shared memory (kRtRowStride)
-_ROW_STRIDE = 68
+#: bytes of one op's repeated pad in shared memory (kRtRepBytes)
+_REP_BYTES = 80
 
 _NOT_YET = "the next strings slice (ROADMAP.md Queue A item 3)"
 
@@ -404,11 +404,24 @@ def pack_chain(ops: Sequence[tuple], widths: Sequence[int]) -> np.ndarray:
     return buf
 
 
-def launch_shape(rows: int) -> dict:
-    """The launch: one block of TILE_ROWS threads a tile of rows, one row
-    a thread, two tiles of rows in static shared memory."""
-    return {"grid": -(-rows // TILE_ROWS), "block": TILE_ROWS,
-            "smem_bytes": 2 * TILE_ROWS * _ROW_STRIDE + MAX_OPS * _OP_BYTES}
+def launch_shape(ops: Sequence[tuple], rows: int, w: int, cap: int) -> dict:
+    """The launch of the chain ``ops`` over ``rows`` rows ``w`` bytes wide
+    (on the card: the grid comes from the kernel's library): a row on a
+    group of widest / 16 lanes (at least one; 16 bytes a lane), sets of 32
+    / lanes rows a warp, the next set loaded while one is computed,
+    BLOCK_THREADS threads a block, as many blocks as the card holds at
+    once (the warps walk the sets); static shared memory holds the chain,
+    each op's repeated pad and 16 bytes of scratch a thread. A chain with
+    a literal match runs the kernel's instance that has the match code."""
+    widest = max(chain_widths(ops, w, cap))
+    match = any(op[0] in ("replace", "substring_index") for op in ops)
+    lanes = max(1, widest // 16)
+    lib = _launcher()[1]
+    return {"grid": int(lib.rect_transform_grid(rows, widest, int(match))),
+            "block": BLOCK_THREADS, "lanes_per_row": lanes,
+            "rows_per_set": 32 // lanes, "match": match,
+            "smem_bytes": MAX_OPS * (_OP_BYTES + _REP_BYTES)
+            + 16 * BLOCK_THREADS}
 
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -417,18 +430,22 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 
 
 def _launcher():
+    """(the launch function, the library)."""
     from .. import native
     lib = native.load("rect_transform")
     fn = lib.rect_transform_launch
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
+        lib.rect_transform_grid.argtypes = [ctypes.c_int64, ctypes.c_int,
+                                            ctypes.c_int]
+        lib.rect_transform_grid.restype = ctypes.c_int64
         lib.rect_transform_chain_bytes.restype = ctypes.c_int
         got = lib.rect_transform_chain_bytes()
         if got != _CHAIN_BYTES:
             raise RuntimeError(f"RtChain is {got} bytes in the kernel, "
                                f"{_CHAIN_BYTES} here")
-    return fn
+    return fn, lib
 
 
 def rect_transform(bytes_: torch.Tensor, lengths: torch.Tensor,
@@ -456,11 +473,11 @@ def rect_transform(bytes_: torch.Tensor, lengths: torch.Tensor,
     out_len = torch.empty(p, dtype=torch.int32, device=dev)
     if p == 0:
         return out, out_len
-    if not bytes_.is_contiguous() or bytes_.data_ptr() % 8:
-        bytes_ = bytes_.clone()        # whole 8-byte words a row
+    if not bytes_.is_contiguous() or bytes_.data_ptr() % 16:
+        bytes_ = bytes_.clone()        # 16-byte aligned rows
     lengths = lengths.contiguous()
     validity = validity.contiguous()
-    fn = _launcher()
+    fn = _launcher()[0]
     rc = fn(bytes_.data_ptr(), lengths.data_ptr(), validity.data_ptr(), p,
             widths[0], widths[-1], chain.ctypes.data, out.data_ptr(),
             out_len.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)

@@ -234,21 +234,22 @@ def match_dictionary(e: Expression, dictionary: np.ndarray) -> np.ndarray:
     string dictionary, by character: bool per entry, or int32 1-based
     position for locate."""
     from .comparison import In
-    d = np.asarray(dictionary, dtype=str)
+    # Python strings, not a numpy U array: that would drop each entry's
+    # trailing NUL characters ("a\x00" == "a")
+    d = list(np.asarray(dictionary, dtype=object))
     if isinstance(e, In):
-        listed = [v for v in e.values if v is not None]
-        return np.isin(d, np.asarray(listed, dtype=str)) if listed \
-            else np.zeros(len(d), bool)
+        listed = {str(v) for v in e.values if v is not None}
+        return np.fromiter((v in listed for v in d), bool, len(d))
     form, lit, _ = match_form(e)
     if form == "contains":
-        return np.char.find(d, lit) >= 0
+        return np.fromiter((lit in v for v in d), bool, len(d))
     if form == "startswith":
-        return np.char.startswith(d, lit)
+        return np.fromiter((v.startswith(lit) for v in d), bool, len(d))
     if form == "endswith":
-        return np.char.endswith(d, lit)
+        return np.fromiter((v.endswith(lit) for v in d), bool, len(d))
     if form == "equals":
-        return d == lit
-    return (np.char.find(d, lit) + 1).astype(np.int32)
+        return np.fromiter((v == lit for v in d), bool, len(d))
+    return np.fromiter((v.find(lit) + 1 for v in d), np.int32, len(d))
 
 
 def eval_rect_expr(e: Expression, child: DVal,

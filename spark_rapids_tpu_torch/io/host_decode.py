@@ -31,6 +31,7 @@ import numpy as np
 
 from .. import native
 from ..columnar.batch import DictStrings
+from ..columnar.strrect import HostStrings
 from ..types import BOOL, INT8, INT16, STRING
 from . import parquet_meta as M
 from .thrift import ColumnMeta, parse_page_header
@@ -163,7 +164,7 @@ class _Chunk:
 
     def plain(self, data: np.ndarray, count: int) -> np.ndarray:
         """``count`` PLAIN values: the port's host dtype (INT96 as int64
-        microseconds, strings as an ``S`` array)."""
+        microseconds, strings as ``HostStrings``)."""
         t0 = time.perf_counter()
         p = self.col.physical
         if p == M.BOOLEAN:
@@ -221,7 +222,9 @@ class _Chunk:
         out = np.empty(count, f"S{w}")
         lib.pq_fill_fixed(_ptr(data), _ptr(starts), _ptr(lens), count, w,
                           _ptr(out.view(np.uint8)))
-        return out, used
+        # the page's lengths stay beside the values: an S array drops a
+        # value's trailing 0x00 bytes
+        return HostStrings(out, lens[:count].copy()), used
 
     def indices(self, data: np.ndarray, count: int) -> np.ndarray:
         """``count`` dictionary indices: a bit width byte, then the
@@ -236,7 +239,10 @@ class _Chunk:
         return out
 
 
-def _gather(dictionary: np.ndarray, idx: np.ndarray) -> np.ndarray:
+def _gather(dictionary, idx: np.ndarray):
+    if isinstance(dictionary, HostStrings):
+        s = _gather(dictionary.s, idx)
+        return HostStrings(s, dictionary.lengths[idx])
     out = np.empty(len(idx), dictionary.dtype)
     if not len(idx):
         return out
@@ -248,7 +254,12 @@ def _gather(dictionary: np.ndarray, idx: np.ndarray) -> np.ndarray:
     return out
 
 
-def _scatter(dense: np.ndarray, valid: np.ndarray) -> np.ndarray:
+def _scatter(dense, valid: np.ndarray):
+    if isinstance(dense, HostStrings):
+        s = _scatter(dense.s, valid)
+        lens = np.zeros(len(valid), np.int32)
+        lens[valid] = dense.lengths
+        return HostStrings(s, lens)
     out = np.empty(len(valid), dense.dtype)
     if not len(valid):
         return out
@@ -264,7 +275,7 @@ def _scatter(dense: np.ndarray, valid: np.ndarray) -> np.ndarray:
 
 def _empty(col: M.LeafColumn) -> np.ndarray:
     if col.dtype == STRING:
-        return np.zeros(0, "S1")
+        return HostStrings(np.zeros(0, "S1"), np.zeros(0, np.int32))
     if col.physical == M.BOOLEAN:
         return np.zeros(0, bool)
     return np.zeros(0, _FIXED.get(col.physical, np.dtype("<i8")))
@@ -275,7 +286,7 @@ def decode_chunk(raw: np.ndarray, cm: ColumnMeta, col: M.LeafColumn,
                  rates: Optional[Dict[str, list]] = None):
     """(values, validity) of a flat column chunk of ``num_rows`` rows, in
     the port's host layout (DATE as int32 days, TIMESTAMP as int64
-    microseconds, strings as an ``S`` array or ``DictStrings``).
+    microseconds, strings as ``HostStrings`` or ``DictStrings``).
     ``rates``, when given, gains [bytes, seconds] per encoding and codec
     (bytes out of the step: decompressed, decoded values, gathered and
     scattered rows; PLAIN steps count their input)."""
@@ -362,7 +373,12 @@ def decode_chunk(raw: np.ndarray, cm: ColumnMeta, col: M.LeafColumn,
     # the pages' values in one aligned array: concatenate promotes S
     # arrays to the widest, and copies a lone page out of the chunk's
     # bytes, where it may sit at any offset
-    dense = np.concatenate(pieces) if pieces else _empty(col)
+    if not pieces:
+        dense = _empty(col)
+    elif isinstance(pieces[0], HostStrings):
+        dense = HostStrings.concat(pieces)
+    else:
+        dense = np.concatenate(pieces)
     values = dense if valid.all() else _scatter(dense, valid)
     ch._rate("assembly (pages joined, gather, null scatter)", values.nbytes,
              t0)

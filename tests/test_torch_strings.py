@@ -8,10 +8,13 @@ CPU.
   a replace that grows, a pad above the width and a substring past the
   end. A negative substring position, which the reference runs on its
   host engine only, is held to the per-value function.
-* The kernel's row logic (``csrc/rect_transform_row.cuh``), built here
-  with g++ and run row by row as the kernel's threads run it (the bytes
-  past a row's width junk, as stale shared memory is), against the plain
-  version: every chain of ``chip_smoke.RT_CHAINS`` at widths 8-64.
+* The kernel's group logic (``csrc/rect_transform_row.cuh``: the words
+  and the exchanges between a row's lanes), built here with g++ and run
+  row group by row group as the kernel's warps run it (junk past each
+  row's length in the input and in the scratch), against the plain
+  version: every chain of ``chip_smoke.RT_CHAINS`` at widths 8-64, rows
+  with 0x00 bytes inside their length, row counts that cut a lane
+  group's set of rows and a warp; the word functions byte by byte.
 * Each transform's per-value host function (the dictionary path) against
   the reference's ``eval_host`` (pyarrow), non-ASCII entries included;
   where the reference departs from Spark (``upper('ß')``, ``lower('İ')``,
@@ -177,7 +180,7 @@ def test_chain_past_the_cap_is_refused():
 
 
 # ---------------------------------------------------------------------------
-# the kernel's row logic, built with g++
+# the kernel's group logic, built with g++
 # ---------------------------------------------------------------------------
 
 _HOST_SRC = r"""
@@ -185,29 +188,98 @@ _HOST_SRC = r"""
 #include <string.h>
 #include "rect_transform_row.cuh"
 
-// The kernel's per-row work (rect_transform.cu) on the host: each row
-// copied into a buffer row of kRtRowStride bytes whose bytes past the
-// row's width hold junk, as stale shared memory would, the chain run
-// between two such buffers, the one the last op wrote copied out.
-extern "C" void rt_rows_host(const uint8_t* bytes, const int32_t* lengths,
-                             const uint8_t* validity, int64_t rows,
-                             const void* chain, uint8_t* out,
-                             int32_t* out_len) {
+// The kernel's work (rect_transform.cu) on the host: a row on G lanes of
+// 16 bytes, rows taken in sets of 32 / G as a warp takes them (rows past
+// the end run as empty invalid rows and store nothing), the G lanes of a
+// row's group run together through RtHostEx, the input words read whole
+// (bytes past a row's length as the rectangle holds them), the scratch
+// starting as junk, as stale shared memory would. Returns false when
+// two rows made different exchanges (on the card the groups of a warp
+// exchange together).
+template <int G, bool kMatch>
+static bool rows_host(const RtChain& c, const uint8_t* bytes,
+                      const int32_t* lengths, const uint8_t* validity,
+                      int64_t rows, uint8_t* out, int32_t* out_len) {
+  const int w_in = c.ops[0].w_in, w_out = c.ops[c.n_ops - 1].w_out;
+  alignas(4) uint8_t reps[kRtMaxOps * kRtRepBytes];
+  for (int i = 0; i < c.n_ops * kRtRepBytes; ++i) {
+    const RtOp& op = c.ops[i / kRtRepBytes];
+    reps[i] = op.code == RT_PAD ? rt_rep_byte(op, i % kRtRepBytes) : 0;
+  }
+  alignas(4) uint8_t scr[16 * G];
+  memset(scr, 0xA5, sizeof scr);
+  const RtHostEx<G> ex;
+  int k[G];
+  for (int l = 0; l < G; ++l) k[l] = l;
+  const int per_set = 32 / G;
+  long calls = -1;
+  for (int64_t s = 0; s * per_set < rows; ++s) {
+    for (int g = 0; g < per_set; ++g) {
+      const int64_t row = s * per_set + g;
+      uint32_t w[G][4] = {};
+      int len = 0;
+      bool valid = false;
+      if (row < rows) {
+        len = lengths[row];
+        valid = validity[row] != 0;
+        for (int q = 0; 4 * q < w_in; ++q)
+          memcpy(&w[q / 4][q % 4], bytes + row * w_in + 4 * q, 4);
+      }
+      ex.calls = 0;
+      const int n = rt_group_chain<G, kMatch>(c.ops, c.n_ops, ex, w, k, len,
+                                              valid, scr, reps);
+      if (calls >= 0 && ex.calls != calls) return false;
+      calls = ex.calls;
+      if (row < rows) {
+        for (int q = 0; 4 * q < w_out; ++q)
+          memcpy(out + row * w_out + 4 * q, &w[q / 4][q % 4], 4);
+        out_len[row] = n;
+      }
+    }
+  }
+  return true;
+}
+
+extern "C" int rt_rows_host(const uint8_t* bytes, const int32_t* lengths,
+                            const uint8_t* validity, int64_t rows,
+                            const void* chain, uint8_t* out,
+                            int32_t* out_len) {
   RtChain c;
   memcpy(&c, chain, sizeof c);
-  const int w_in = c.ops[0].w_in, w_out = c.ops[c.n_ops - 1].w_out;
-  uint8_t a[kRtRowStride], b[kRtRowStride];
-  for (int64_t r = 0; r < rows; ++r) {
-    memset(a, 0xA5, sizeof a);
-    memset(b, 0x5A, sizeof b);
-    memcpy(a, bytes + r * w_in, w_in);
-    out_len[r] = rt_row_chain(c.ops, c.n_ops, a, b, lengths[r],
-                              validity[r] != 0);
-    memcpy(out + r * w_out, (c.n_ops & 1) ? b : a, w_out);
+  int widest = 8;
+  for (int i = 0; i < c.n_ops; ++i) {
+    widest = c.ops[i].w_in > widest ? c.ops[i].w_in : widest;
+    widest = c.ops[i].w_out > widest ? c.ops[i].w_out : widest;
   }
+  const int lanes = widest > 16 ? widest / 16 : 1;
+  // the kernel's two instances: chains with a literal match and without
+#define RT_HOST(G) (rt_chain_matches(c)                                      \
+    ? rows_host<G, true>(c, bytes, lengths, validity, rows, out, out_len)   \
+    : rows_host<G, false>(c, bytes, lengths, validity, rows, out, out_len))
+  const bool same = lanes == 1 ? RT_HOST(1) : lanes == 2 ? RT_HOST(2)
+                                                         : RT_HOST(4);
+#undef RT_HOST
+  return same ? lanes : -1;  // -1: rows made different exchanges
 }
 
 extern "C" int rt_chain_bytes() { return (int)sizeof(RtChain); }
+
+// The word functions on their own, for the byte-by-byte checks.
+extern "C" uint32_t rt_word(int which, uint32_t x, uint32_t arg) {
+  switch (which) {
+    case 0: return rt_upper_word(x);
+    case 1: return rt_lower_word(x);
+    case 2: return rt_initcap_word(x, arg);
+    case 3: return rt_eq_bytes(x, arg);
+    default: return rt_funnel(x, arg, 1) ^ rt_perm(x, arg, 0x3210);
+  }
+}
+
+extern "C" uint64_t rt_select(uint64_t m, int n) {
+  return rt_select_nonoverlap(m, n);
+}
+
+extern "C" int rt_nth(uint64_t m, int count) { return rt_nth_match(m, count); }
 """
 
 
@@ -226,36 +298,140 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(lib))
     lib.rt_rows_host.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] \
         + [ctypes.c_void_p] * 3
-    lib.rt_rows_host.restype = None
+    lib.rt_rows_host.restype = ctypes.c_int
     lib.rt_chain_bytes.restype = ctypes.c_int
+    lib.rt_word.argtypes = [ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32]
+    lib.rt_word.restype = ctypes.c_uint32
+    lib.rt_select.argtypes = [ctypes.c_uint64, ctypes.c_int]
+    lib.rt_select.restype = ctypes.c_uint64
+    lib.rt_nth.argtypes = [ctypes.c_uint64, ctypes.c_int]
+    lib.rt_nth.restype = ctypes.c_int
     return lib
+
+
+def _host_rows(host_lib, b, ln, v, chain, widths):
+    """The chain through the kernel's group logic on the host: (bytes,
+    lengths, lanes a row; -1 when two rows made different exchanges)."""
+    out = np.zeros((len(ln), widths[-1]), np.uint8)
+    out_len = np.zeros(len(ln), np.int32)
+    vv = v.astype(np.uint8)
+    lanes = host_lib.rt_rows_host(
+        b.ctypes.data, ln.ctypes.data, vv.ctypes.data, len(ln),
+        pack_chain(chain, widths).ctypes.data, out.ctypes.data,
+        out_len.ctypes.data)
+    return out, out_len, lanes
+
+
+#: row counts: one row, part of a lane group's set of rows at every width,
+#: a warp's rows at W = 64 and W = 8 and past them
+HOST_ROWS = (1, 3, 16, 31, 33, 301)
 
 
 @pytest.mark.parametrize("width", [8, 16, 32, 64])
 def test_row_logic_equals_plain_version(host_lib, width):
+    """Every chain of chip_smoke.RT_CHAINS through the kernel's group
+    logic (the words and the exchanges of csrc/rect_transform_row.cuh),
+    at each row count of HOST_ROWS: rows with 0x00 bytes inside their
+    length, and junk past every row's length in the input (the kernel
+    masks it), held bit-identical to the plain version."""
     assert host_lib.rt_chain_bytes() == len(pack_chain([("upper",)],
                                                        [8, 8]))
-    b, ln, v = _rect(100 + width, 301, width)
     checked = 0
-    for chain in chip_smoke.RT_CHAINS:
-        try:
-            widths = chain_widths(chain, width, CAP)
-        except NotImplementedError:
-            continue
-        want_b, want_ln = rect_transform_reference(
-            torch.from_numpy(b), torch.from_numpy(ln), torch.from_numpy(v),
-            chain, CAP)
-        out = np.zeros((len(ln), widths[-1]), np.uint8)
-        out_len = np.zeros(len(ln), np.int32)
-        vv = v.astype(np.uint8)
-        host_lib.rt_rows_host(b.ctypes.data, ln.ctypes.data, vv.ctypes.data,
-                              len(ln), pack_chain(chain, widths).ctypes.data,
-                              out.ctypes.data, out_len.ctypes.data)
-        np.testing.assert_array_equal(out, want_b.numpy(), err_msg=chain)
-        np.testing.assert_array_equal(out_len, want_ln.numpy(),
-                                      err_msg=chain)
-        checked += 1
-    assert checked >= len(chip_smoke.RT_CHAINS) - 4   # growth past 64
+    for rows in HOST_ROWS:
+        b, ln, v = _rect(100 + width + rows, rows, width)
+        assert (b[np.arange(width)[None, :] < ln[:, None]] == 0).any() \
+            or rows < 100
+        junk = b.copy()
+        past = np.arange(width)[None, :] >= ln[:, None]
+        junk[past] = np.random.RandomState(rows).randint(
+            0, 256, int(past.sum()))
+        for chain in chip_smoke.RT_CHAINS:
+            try:
+                widths = chain_widths(chain, width, CAP)
+            except NotImplementedError:
+                continue
+            want_b, want_ln = rect_transform_reference(
+                torch.from_numpy(b), torch.from_numpy(ln),
+                torch.from_numpy(v), chain, CAP)
+            out, out_len, lanes = _host_rows(host_lib, junk, ln, v, chain,
+                                             widths)
+            # every row the same exchanges (the warp's lanes exchange
+            # together), each on widest / 16 lanes (at least one)
+            assert lanes == max(1, max(widths) // 16), (chain, rows, lanes)
+            np.testing.assert_array_equal(out, want_b.numpy(),
+                                          err_msg=f"{chain} {rows}")
+            np.testing.assert_array_equal(out_len, want_ln.numpy(),
+                                          err_msg=f"{chain} {rows}")
+            checked += 1
+    assert checked >= len(HOST_ROWS) * (len(chip_smoke.RT_CHAINS) - 4)
+
+
+def _bytes_of(x: int) -> list:
+    return [(x >> (8 * j)) & 0xFF for j in range(4)]
+
+
+def _word(bs) -> int:
+    return sum(int(c) << (8 * j) for j, c in enumerate(bs))
+
+
+@pytest.mark.parametrize("which", ["upper", "lower", "initcap", "eq_space",
+                                   "funnel_perm"])
+def test_word_functions_hold_for_every_byte(host_lib, which):
+    """The within-word maps against the byte loop, every byte value in
+    every byte of a word (its neighbours random)."""
+    rng = np.random.RandomState(3)
+    up = lambda c: c - 32 if 97 <= c <= 122 else c
+    low = lambda c: c + 32 if 65 <= c <= 90 else c
+    for pos in range(4):
+        for c in range(256):
+            bs = list(rng.randint(0, 256, 4))
+            bs[pos] = c
+            x = _word(bs)
+            carry = int(rng.randint(0, 2)) * 0x80
+            if which == "upper":
+                got = host_lib.rt_word(0, x, 0)
+                want = _word([up(b) for b in bs])
+            elif which == "lower":
+                got = host_lib.rt_word(1, x, 0)
+                want = _word([low(b) for b in bs])
+            elif which == "initcap":
+                got = host_lib.rt_word(2, x, carry)
+                prev = [32 if carry else 0] + bs[:3]
+                want = _word([up(b) if p == 32 else low(b)
+                              for b, p in zip(bs, prev)])
+            elif which == "eq_space":
+                got = host_lib.rt_word(3, x, 32)
+                want = _word([0x80 if b == 32 else 0 for b in bs])
+            else:
+                y = _word(list(rng.randint(0, 256, 4)))
+                got = host_lib.rt_word(4, x, y)
+                want = ((x | y << 32) >> 8) & 0xFFFFFFFF ^ x
+            assert got == want, (which, pos, c, bs)
+
+
+def test_match_mask_selection_and_count(host_lib):
+    """The greedy non-overlapping choice (replace) and the n-th match from
+    either end (substring_index) on 64-position masks, against loops."""
+    rng = np.random.RandomState(4)
+    for _ in range(2000):
+        m = int(rng.randint(0, 1 << 32, dtype=np.uint64)) << 32 \
+            | int(rng.randint(0, 1 << 32, dtype=np.uint64))
+        m &= int(rng.randint(0, 1 << 32, dtype=np.uint64)) << 32 \
+            | int(rng.randint(0, 1 << 32, dtype=np.uint64))
+        n = int(rng.randint(1, 9))
+        sel, free = 0, 0
+        for p in range(64):
+            if (m >> p) & 1 and p >= free:
+                sel |= 1 << p
+                free = p + n
+        assert host_lib.rt_select(m, n) == sel
+        starts = [p for p in range(64) if (m >> p) & 1]
+        for count in (1, 2, 5, -1, -3, 70, -70, 0):
+            if count == 0 or abs(count) > len(starts):
+                want = -1
+            else:
+                want = starts[count - 1] if count > 0 else starts[count]
+            assert host_lib.rt_nth(m, count) == want, (m, count)
 
 
 # ---------------------------------------------------------------------------
@@ -396,12 +572,7 @@ def test_substring_index_with_an_overlapping_delimiter_follows_spark(
         [op], CAP)
     assert [bytes(got_b[r, :got_ln[r]].numpy())
             for r in range(len(rows))] == want
-    out = np.zeros((len(rows), 16), np.uint8)
-    out_ln = np.zeros(len(rows), np.int32)
-    vv = v.astype(np.uint8)
-    host_lib.rt_rows_host(b.ctypes.data, ln.ctypes.data, vv.ctypes.data,
-                          len(rows), pack_chain([op], [16, 16]).ctypes.data,
-                          out.ctypes.data, out_ln.ctypes.data)
+    out, out_ln, _ = _host_rows(host_lib, b, ln, v, [op], [16, 16])
     assert [bytes(out[r, :out_ln[r]]) for r in range(len(rows))] == want
     port = PE.SubstringIndex(PE.ColumnRef("s"), delim.decode(), count)
     assert [port.host_value(x.decode()).encode() for x in rows] == want
