@@ -8,7 +8,8 @@ result line):
 
   1. device  -- the card's name and power limit (nvidia-smi), CUDA version;
   2. build   -- every CUDA kernel of the port (rect_match, dense_groupby,
-                join_match, distinct_flag, rect_transform), built from
+                join_match, distinct_flag, rect_transform, window_frame,
+                sort_bucket), built from
                 csrc/ with one nvcc each, started together;
                 ptxas must report no stack frame and no spills for any
                 function. ``--compare NAME=DIR`` also builds
@@ -142,6 +143,24 @@ result line):
                 agree up to the top Project), with each kernel's
                 launches beside the DataFrame form's, the parse-and-
                 lower time apart, the broadcast sides and the plans.
+ 14. windows -- (after phase 13) bench.py's window_bounded rung (sum(v)
+                over ROWS BETWEEN 2 PRECEDING AND CURRENT ROW by p of
+                512 values, ordered by o) at 6,001,215 rows in one
+                batch, as a DataFrame and as SQL, every row
+                bit-identical to numpy's row-order frame sums, cold,
+                warm and profiled, window_frame once a run; window_frame
+                alone on that batch (sum and max at W = 3 and 101)
+                bit-identical to its plain version and timed cold
+                beside its bound; over SF10 store_sales by customer:
+                row_number, lag and the RANGE-default running sum
+                against numpy (exact cents), and q3's aggregate ranked
+                within each year as SQL; ORDER BY ss_net_paid DESC,
+                ss_item_sk over all of SF10 store_sales at the default
+                512 MiB batchSizeBytes (the out-of-core sort, at least
+                5 buckets, sort_bucket once a run), every column equal
+                to numpy's stable sort, and sort_bucket alone on a run's
+                operands at their own widths (and on one operand beside
+                torch.searchsorted).
 
 The data is generated here from a seed, with numpy only: this script
 imports neither JAX, pyarrow, pandas nor the JAX package. It prints a
@@ -1203,7 +1222,7 @@ def _finish_compare_build(name, kernel, proc, out):
 
 #: the port's kernel libraries (csrc/<name>.cu), built side by side
 KERNELS = ("rect_match", "dense_groupby", "join_match", "distinct_flag",
-           "rect_transform")
+           "rect_transform", "window_frame", "sort_bucket")
 
 
 def phase_build(compare=()):
@@ -2000,10 +2019,12 @@ def _profile_host_encode(fn, label: str, top: int = 6) -> None:
         for t, n, k in rows[:top]))
 
 
-def _run_query(session, table, query):
+def _run_query(session, table, query, collect: str = "collect"):
+    """``query(df, F)`` over ``table``, collected by ``collect``
+    (``collect`` or ``collect_numpy``): (its rows, its wall ms)."""
     from spark_rapids_tpu_torch.api import functions as F
     t0 = time.perf_counter()
-    rows = query(session.create_dataframe(table), F).collect()
+    rows = getattr(query(session.create_dataframe(table), F), collect)()
     return rows, (time.perf_counter() - t0) * 1e3
 
 
@@ -2098,7 +2119,7 @@ def _parent_operand_path():
 
 
 def phase_profile(session, host, query, right, label: str,
-                  kernel: str) -> dict:
+                  kernel: str, collect: str = "collect") -> dict:
     """One warm run of ``query`` under torch.profiler: where its wall goes
     on the card. The result must satisfy ``right`` as any other run's;
     only reading the trace may fail without failing the run."""
@@ -2106,9 +2127,10 @@ def phase_profile(session, host, query, right, label: str,
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        rows, wall = _run_query(session, host, query)
+        rows, wall = _run_query(session, host, query, collect)
         torch.cuda.synchronize()
-    _check(right(rows), f"{label} under the profiler: wrong result {rows}")
+    _check(right(rows), f"{label} under the profiler: wrong result "
+                        f"{str(rows)[:300]}")
     try:
         return _profile_report(prof, wall, label, kernel)
     except Exception as e:  # the trace is read for information only
@@ -3633,29 +3655,33 @@ def _kernel_counters():
     from spark_rapids_tpu_torch.exec.distinct_flag import distinct_flag
     from spark_rapids_tpu_torch.exec.join_match import join_match
     from spark_rapids_tpu_torch.exec.rect_transform import rect_transform
+    from spark_rapids_tpu_torch.exec.sort_bucket import sort_bucket
+    from spark_rapids_tpu_torch.exec.window_frame import window_frame
     from spark_rapids_tpu_torch.exprs.rect_match import rect_match
     return (rect_match, dense_groupby, join_match, distinct_flag,
-            rect_transform)
+            rect_transform, window_frame, sort_bucket)
 
 
-def _sql_run(session, make) -> tuple:
+def _sql_run(session, make, collect: str = "collect") -> tuple:
     """One run of ``make(session)`` (a SQL text's lowering, or a DataFrame
-    form's calls), then its collect: the rows, the ms of each part, and
-    every kernel's launches (counts set to 0 just before, read just
-    after)."""
+    form's calls), then its ``collect`` (``collect`` or ``collect_numpy``):
+    the rows, the ms of each part, every kernel's launches (counts set to
+    0 just before, read just after) and the allocator's peak."""
     import torch
     counters = _kernel_counters()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for k in counters:
         k.launches = 0
     t0 = time.perf_counter()
     df = make(session)
     t1 = time.perf_counter()
-    rows = df.collect()
+    rows = getattr(df, collect)()
     t2 = time.perf_counter()
     return {"lower_ms": (t1 - t0) * 1e3, "exec_ms": (t2 - t1) * 1e3,
             "wall_ms": (t2 - t0) * 1e3,
-            "launches": {k.__name__: k.launches for k in counters}}, rows
+            "launches": {k.__name__: k.launches for k in counters},
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}, rows
 
 
 def _rows_close(got: list, want: list, rel: float) -> bool:
@@ -4760,6 +4786,506 @@ def phase_strings(card: str, batch_rows: int, compare=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: windows and the out-of-core sort
+# ---------------------------------------------------------------------------
+
+#: bench.py's window_bounded rung: sum(v) over ROWS BETWEEN 2 PRECEDING
+#: AND CURRENT ROW, partitioned by p (512 values), ordered by o
+WINDOW_PARTS = 512
+WINDOW_SQL = """
+SELECT p, o, v, sum(v) OVER (PARTITION BY p ORDER BY o
+                             ROWS BETWEEN 2 PRECEDING AND CURRENT ROW) AS wsum
+FROM wtab
+"""
+#: window_frame timed alone on the rung's batch: (label, op, lo, hi)
+WF_TIMED = (("sum_w3", "sum", -2, 0), ("max_w3", "max", -2, 0),
+            ("sum_w101", "sum", -100, 0), ("max_w101", "max", -100, 0))
+#: the H100 SXM's float64 rate outside the tensor cores (NVIDIA data
+#: sheet), for window_frame's operation bound
+FP64_OPS_PER_S = 34e12
+#: TPC-DS q3's aggregate ranked within each year, as SQL with a subquery
+SQL_Q3_RANK = """
+SELECT d_year, i_brand_id, i_brand, sum_agg,
+       rank() OVER (PARTITION BY d_year ORDER BY sum_agg DESC) AS rk
+FROM (SELECT d_year, i_brand_id, i_brand, sum(ss_ext_sales_price) AS sum_agg
+      FROM date_dim, store_sales, item
+      WHERE d_date_sk = ss_sold_date_sk
+        AND ss_item_sk = i_item_sk
+        AND i_manufact_id = 128
+        AND d_moy = 11
+      GROUP BY d_year, i_brand_id, i_brand) t
+ORDER BY d_year, rk, i_brand_id
+"""
+
+
+def gen_window_table(n_rows: int, seed: int = 11) -> dict:
+    """bench.py's gen_window_table in numpy."""
+    rng = np.random.RandomState(seed)
+    return {"p": rng.randint(0, WINDOW_PARTS, n_rows),
+            "o": rng.randint(0, 1 << 30, n_rows),
+            "v": rng.uniform(-100.0, 100.0, n_rows)}
+
+
+def window_rung(df, F):
+    return df.with_window_column(
+        "wsum", F.sum(F.col("v")), partition_by=["p"],
+        order_by=[F.col("o").asc()], frame=("rows", -2, 0))
+
+
+def _runs(keys_sorted: np.ndarray):
+    """(first row, last row) of each sorted row's run of equal keys."""
+    n = len(keys_sorted)
+    idx = np.arange(n)
+    first = np.r_[True, keys_sorted[1:] != keys_sorted[:-1]]
+    last = np.r_[first[1:], True]
+    start = np.maximum.accumulate(np.where(first, idx, 0))
+    end = np.minimum.accumulate(np.where(last, idx, n - 1)[::-1])[::-1]
+    return start, end
+
+
+def window_rung_numpy(t: dict):
+    """The rung in numpy: the rows sorted stably by (p, o), each row's
+    three-term frame added in row order from 0, as Spark's sliding frame
+    adds it. Returns (sort order, partition start and end of each sorted
+    row, wsum in input order)."""
+    order = np.lexsort((t["o"], t["p"]))
+    start, end = _runs(t["p"][order])
+    vs = t["v"][order]
+    idx = np.arange(len(vs))
+    acc = np.zeros(len(vs))
+    for k in (-2, -1, 0):
+        acc = acc + np.where(idx + k >= start, vs[np.maximum(idx + k, 0)],
+                             0.0)
+    want = np.empty_like(acc)
+    want[order] = acc
+    return order, start, end, want
+
+
+def _bits_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.shape == b.shape and np.array_equal(
+        np.ascontiguousarray(a).view(np.int64),
+        np.ascontiguousarray(b).view(np.int64))
+
+
+def wf_bound(n: int, width: int, op: str) -> dict:
+    """The least time one window_frame call needs: each row's value,
+    validity and partition flag read once and its value and validity
+    written once; one float64 add or compare a frame row."""
+    from spark_rapids_tpu_torch.exec.window_frame import frame_bytes
+    nbytes = frame_bytes(n, op)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * width / FP64_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ms": max(bytes_ms, ops_ms),
+            "by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_wf_times(args, card: str) -> dict:
+    """window_frame alone on the rung's sorted batch (``args``: values,
+    validity and partition-start flags on the card), every frame of
+    WF_TIMED: bit-identical to its plain version with the launch's own
+    pick of the partition ends' search and with each search forced, then
+    timed with the L2 cold beside its bound and the plain version, and
+    each search forced in turns."""
+    import torch
+    from spark_rapids_tpu_torch.exec.window_frame import (
+        SEARCHES, describe, window_frame, window_frame_reference)
+    n = int(args[0].shape[0])
+    per = sum(a.nbytes for a in args)
+    inputs = [args] + [tuple(a.clone() for a in args)
+                       for _ in range(max(2, -(-COLD_BYTES // per)) - 1)]
+    out = {"shape": [n], "launch": describe()}
+    for name, op, lo, hi in WF_TIMED:
+        want = window_frame_reference(*args, lo, hi, op)
+        w = want[0].cpu().numpy()
+        err = 0.0
+        for search in SEARCHES:         # the launch's pick, then each
+            got = window_frame(*args, lo, hi, op, search)
+            torch.cuda.synchronize()
+            ok = torch.equal(got[1], want[1])
+            g = got[0].cpu().numpy()
+            err = max(err, float(np.max(np.abs(g - w), initial=0.0)))
+            _check(ok and _bits_equal(g, w),
+                   f"window_frame {name} ({search}): differs from its "
+                   f"plain version (max abs err {err})")
+        del got, want
+        ms, host = _cold_ms(
+            lambda v, k, f: window_frame(v, k, f, lo, hi, op), inputs,
+            f"window_frame {name}")
+        turns = {s: [] for s in SEARCHES if s != "frame"}
+        for _ in range(2):
+            for s in turns:
+                turns[s].append(_cold_ms(
+                    lambda v, k, f: window_frame(v, k, f, lo, hi, op, s),
+                    inputs, f"window_frame {name} {s}")[0])
+        plain = _plain_ms(
+            lambda v, k, f: window_frame_reference(v, k, f, lo, hi, op),
+            inputs[:2], f"window_frame {name} plain")
+        bd = wf_bound(n, hi - lo + 1, op)
+        out[name] = {"ms": ms, "host_ms": host, "plain_ms": plain,
+                     "bound_ms": bd["ms"], "bound_bytes": bd["bytes"],
+                     "bound_by": bd["by"], "max_abs_err": err,
+                     "frame": [lo, hi], "op": op,
+                     "search_turns_ms": turns}
+        _log(f"window_frame {name} ({op} over ROWS {lo}..{hi}, {n} rows, "
+             f"{card}): bit-identical to the plain version; kernel "
+             f"{ms:.4f} ms cold, {bd['ms'] / ms:.0%} of bound "
+             f"{bd['ms']:.4f} ({bd['bytes']} B, by {bd['by']}); plain "
+             f"{plain:.4f} ms; host {host:.4f} ms a call; library: none "
+             "(no PyTorch call computes this function); searches in "
+             f"turns: walk {turns['walk']}, chunks {turns['chunks']} ms")
+    return out
+
+
+def phase_window_rung(card: str, batch_rows: int) -> dict:
+    """(a) bench.py's window_bounded rung at SF1 rows in one batch, as a
+    DataFrame and as SQL, every row bit-identical to numpy; cold, warm,
+    profiled, with window_frame's launches and the peak allocation. (b)
+    window_frame alone on the rung's sorted batch."""
+    import torch
+    from spark_rapids_tpu_torch.api import TorchSession
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.columnar import HostTable
+    t0 = time.perf_counter()
+    t = gen_window_table(SF1_ROWS)
+    order, start, end, want = window_rung_numpy(t)
+    host = HostTable.from_dict(t)
+    _log(f"window rung: {SF1_ROWS} rows ({sum(v.nbytes for v in t.values())}"
+         f" B) and numpy's frames in {time.perf_counter() - t0:.2f} s on "
+         "the host")
+    # one batch: the rung's table is a window's one input batch
+    session = TorchSession({"spark.rapids.tpu.sql.batchSizeRows": SF1_ROWS})
+    session.create_dataframe(host).create_or_replace_temp_view("wtab")
+
+    def right(out):
+        return (_bits_equal(np.asarray(out["wsum"]), want)
+                and not np.ma.getmaskarray(out["wsum"]).any()
+                and all(np.array_equal(np.asarray(out[c]), t[c])
+                        for c in ("p", "o", "v")))
+
+    runs = {}
+    for label, make in (
+            ("cold", lambda s: window_rung(s.create_dataframe(host), F)),
+            ("warm", lambda s: window_rung(s.create_dataframe(host), F)),
+            ("warm2", lambda s: window_rung(s.create_dataframe(host), F)),
+            ("sql", lambda s: s.sql(WINDOW_SQL))):
+        runs[label], out = _sql_run(session, make, "collect_numpy")
+        _check(right(out), f"window rung {label}: wsum differs from numpy's "
+                           "row-order frame sums")
+        _check(runs[label]["launches"]["window_frame"] == 1,
+               f"window rung {label}: window_frame launched "
+               f"{runs[label]['launches']['window_frame']} times, not once")
+        del out
+    runs["profile_warm"] = phase_profile(
+        session, host, window_rung, right, f"window rung ({card})",
+        "window_frame", "collect_numpy")
+    _log(f"window rung SF1 ({card}): {SF1_ROWS} rows bit-identical to "
+         f"numpy (DataFrame and SQL); wall {runs['cold']['wall_ms']:.1f} ms "
+         f"cold, {runs['warm']['wall_ms']:.1f} / "
+         f"{runs['warm2']['wall_ms']:.1f} ms warm, SQL "
+         f"{runs['sql']['wall_ms']:.1f} ms; window_frame launches "
+         f"{runs['cold']['launches']['window_frame']} a run; peak allocated "
+         f"{runs['warm']['max_memory_allocated']} B warm, "
+         f"{runs['cold']['max_memory_allocated']} B cold")
+    args = (torch.from_numpy(t["v"][order]).cuda(),
+            torch.ones(SF1_ROWS, dtype=torch.bool).cuda(),
+            torch.from_numpy(start == np.arange(SF1_ROWS)).cuda())
+    runs["times"] = phase_wf_times(args, card)
+    del args, host, t
+    return runs
+
+
+def ss_windows(df, F):
+    """row_number, lag(ss_net_paid) and the default-frame running
+    sum(ss_net_paid) per customer, by date and amount."""
+    spec = {"partition_by": ["ss_customer_sk"],
+            "order_by": [F.col("ss_sold_date_sk").asc(),
+                         F.col("ss_net_paid").asc()]}
+    return (df.with_window_column("rn", F.row_number(), **spec)
+            .with_window_column("lg", F.lag(F.col("ss_net_paid")), **spec)
+            .with_window_column("rs", F.sum(F.col("ss_net_paid")), **spec)
+            .select("ss_customer_sk", "ss_sold_date_sk", "ss_net_paid",
+                    "rn", "lg", "rs"))
+
+
+def ss_windows_numpy(ss: dict) -> dict:
+    """ss_windows in numpy, in input order. The amounts are whole cents,
+    so each running sum is exact in int64 cents; Spark's default frame
+    (RANGE UNBOUNDED PRECEDING .. CURRENT ROW) runs to the row's last
+    peer (same customer, date and amount)."""
+    cust, date = ss["ss_customer_sk"], ss["ss_sold_date_sk"]
+    paid = ss["ss_net_paid"]
+    cents = np.rint(paid * 100).astype(np.int64)
+    _check(int(cust.max()) < (1 << 31) and int(date.max()) < (1 << 11)
+           and int(cents.max()) < (1 << 21), "ss_windows_numpy: keys too wide")
+    key = (cust.astype(np.int64) << 32) | (date.astype(np.int64) << 21) \
+        | cents
+    order = np.argsort(key, kind="stable")
+    pstart, _ = _runs(cust[order])
+    _, peer_end = _runs(key[order])
+    n = len(key)
+    idx = np.arange(n)
+    cs = np.cumsum(cents[order])
+    before = np.where(pstart > 0, cs[np.maximum(pstart - 1, 0)], 0)
+    sorted_out = {
+        "rn": (idx - pstart + 1).astype(np.int32),
+        "lg": np.where(idx > pstart, paid[order][np.maximum(idx - 1, 0)],
+                       0.0),
+        "lg_valid": idx > pstart,
+        "rs": (cs[peer_end] - before) / 100.0}
+    out = {}
+    for k, v in sorted_out.items():
+        out[k] = np.empty_like(v)
+        out[k][order] = v
+    return out
+
+
+def q3_rank_numpy(ss: dict, dd: dict, it: dict) -> list:
+    """q3's rows ranked by sum_agg within each year (ties share a rank),
+    ordered by year, rank and brand id."""
+    rows = q3_numpy(ss, dd, it)
+    out = []
+    for i, r in enumerate(rows):
+        if i == 0 or rows[i - 1]["d_year"] != r["d_year"]:
+            year_start = run_start = i
+        elif rows[i - 1]["sum_agg"] != r["sum_agg"]:
+            run_start = i
+        out.append({**r, "rk": run_start - year_start + 1})
+    out.sort(key=lambda r: (r["d_year"], r["rk"], r["i_brand_id"]))
+    return out
+
+
+def phase_ss_windows(card: str, batch_rows: int, ds: dict) -> dict:
+    """(c) windows over TPC-DS SF10 store_sales (28,800,991 rows, about
+    3.6 M customers) against numpy, cold and warm; and q3's aggregate
+    ranked within each year as SQL with a subquery."""
+    from spark_rapids_tpu_torch.api import TorchSession
+    from spark_rapids_tpu_torch.api import functions as F
+    ss, host = ds["ss"], ds["hosts"][0]
+    t0 = time.perf_counter()
+    want = ss_windows_numpy(ss)
+    _log(f"store_sales windows: numpy in {time.perf_counter() - t0:.2f} s")
+    session = TorchSession({"spark.rapids.tpu.sql.batchSizeRows": batch_rows})
+
+    def rel_err(out) -> float:
+        return float(np.max(np.abs(np.asarray(out["rs"]) - want["rs"])
+                            / np.maximum(np.abs(want["rs"]), 1e-300)))
+
+    def right(out) -> bool:
+        lg, ok = out["lg"], want["lg_valid"]
+        return (np.array_equal(np.asarray(out["rn"]), want["rn"])
+                and np.array_equal(~np.ma.getmaskarray(lg), ok)
+                and np.array_equal(np.asarray(lg)[ok], want["lg"][ok])
+                and rel_err(out) <= REL_TOL
+                and np.array_equal(np.asarray(out["ss_net_paid"]),
+                                   ss["ss_net_paid"]))
+
+    def make(s):
+        return ss_windows(s.create_dataframe(host), F)
+
+    runs = {}
+    for label in ("cold", "warm"):
+        runs[label], out = _sql_run(session, make, "collect_numpy")
+        runs[label]["rs_rel_err"] = rel_err(out)
+        _check(right(out), f"store_sales windows {label}: differ from "
+                           f"numpy (running sum rel err "
+                           f"{runs[label]['rs_rel_err']:.3e})")
+        _check(runs[label]["launches"]["window_frame"] == 0,
+               "store_sales windows: no bounded frame, yet window_frame "
+               "launched")
+        del out
+    runs["profile_warm"] = phase_profile(session, host, ss_windows, right,
+                                         f"store_sales windows ({card})",
+                                         "window_frame", "collect_numpy")
+    for name, h in (("store_sales", host), ("date_dim", ds["hosts"][1]),
+                    ("item", ds["hosts"][2])):
+        session.create_dataframe(h).create_or_replace_temp_view(name)
+    want_q3 = q3_rank_numpy(ss, ds["dd"], ds["it"])
+    runs["q3_rank"], rows = _sql_run(session,
+                                     lambda s: s.sql(SQL_Q3_RANK))
+    _check(len(rows) == len(want_q3) and all(
+        (g["d_year"], g["rk"], g["i_brand_id"], g["i_brand"])
+        == (w["d_year"], w["rk"], w["i_brand_id"], w["i_brand"])
+        and _rel(g["sum_agg"], w["sum_agg"]) <= REL_TOL
+        for g, w in zip(rows, want_q3)),
+        f"q3 rank SQL: rows differ from numpy ({rows[:3]} / {want_q3[:3]})")
+    _log(f"store_sales windows SF10 ({card}): row_number, lag and the "
+         f"RANGE-default running sum over {SF10_STORE_SALES} rows equal "
+         f"numpy (running sum within {runs['cold']['rs_rel_err']:.2e} "
+         f"relative); wall {runs['cold']['wall_ms']:.1f} ms cold, "
+         f"{runs['warm']['wall_ms']:.1f} ms warm; peak allocated "
+         f"{runs['warm']['max_memory_allocated']} B; q3 ranked by year "
+         f"(SQL): {len(rows)} rows equal numpy, "
+         f"{runs['q3_rank']['wall_ms']:.1f} ms")
+    return runs
+
+
+def sort_bucket_bound(n: int, itemsizes: list, s: int) -> dict:
+    """The least time one sort_bucket call needs: each row's operands read
+    at their own widths and its bucket written once, the splitters read
+    once; the search is a few integer compares a row."""
+    from spark_rapids_tpu_torch.exec.sort_bucket import bucket_bytes
+    nbytes = bucket_bytes(n, itemsizes, s)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * len(itemsizes) * max(1, math.ceil(math.log2(s + 1))) \
+        / SCALAR_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ms": max(bytes_ms, ops_ms),
+            "by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_sort_bucket_times(host, orders, batch_rows: int, n_buckets: int,
+                            card: str) -> dict:
+    """sort_bucket alone on one store_sales run's encoded operands (K = 4:
+    two orders' uint8 null ranks and keys, each at its own width) against
+    ``n_buckets - 1`` splitters picked as the sort picks them:
+    bit-identical to its plain version, timed cold beside its bound and
+    the plain version; then on the one amount key against
+    torch.searchsorted, the library call that computes the same function
+    there."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import ColumnarBatch
+    from spark_rapids_tpu_torch.exec.sort import TpuSortExec, sort_operands
+    from spark_rapids_tpu_torch.exec.sort_bucket import (
+        describe, key_words, sort_bucket, sort_bucket_reference)
+    batch = ColumnarBatch.from_host(host.slice(0, batch_rows), "cuda", 64)
+    ops = [op.contiguous() for op in sort_operands(orders, batch)]
+    del batch
+    K, n = len(ops), int(ops[0].shape[0])
+    pick = torch.from_numpy(np.linspace(0, n - 1, num=8 * n_buckets)
+                            .astype(np.int64)).cuda()
+    sp = TpuSortExec._splitters([key_words([op[pick] for op in ops])
+                                 .cpu().numpy()], n_buckets).cuda()
+    S = int(sp.shape[1])
+    out = {"shape": [n, K, S], "dtypes": [str(op.dtype) for op in ops],
+           "launch": describe()}
+    cases = (("operands", ops, sp), ("one_operand", ops[1:2],
+                                     sp[1:2].contiguous()))
+    for name, o, s in cases:
+        got = sort_bucket(o, s, n)
+        want = sort_bucket_reference(o, s, n)
+        torch.cuda.synchronize()
+        err = float((got.to(torch.int64) - want.to(torch.int64)).abs()
+                    .max().item())
+        _check(torch.equal(got, want),
+               f"sort_bucket {name}: differs from its plain version")
+        per = sum(x.nbytes for x in o)
+        inputs = [(o, s)] + [([x.clone() for x in o], s.clone())
+                             for _ in range(max(2, -(-COLD_BYTES // per))
+                                            - 1)]
+        ms, host_ms = _cold_ms(lambda a, b: sort_bucket(a, b, n), inputs,
+                               f"sort_bucket {name}")
+        plain = _plain_ms(lambda a, b: sort_bucket_reference(a, b, n),
+                          inputs[:2], f"sort_bucket {name} plain")
+        sizes = [x.element_size() for x in o]
+        bd = sort_bucket_bound(n, sizes, S)
+        row = {"ms": ms, "host_ms": host_ms, "plain_ms": plain,
+               "bound_ms": bd["ms"], "bound_bytes": bd["bytes"],
+               "bound_by": bd["by"], "max_abs_err": err,
+               "library_ms": None, "operands": len(o),
+               "row_bytes": sum(sizes) + 4}
+        if name == "operands":
+            # the int64 stack the kernel no longer needs: what widening
+            # the operands first would cost on top of it
+            row["widen_ms"] = _cold_ms(lambda a, b: key_words(a), inputs,
+                                       "sort_bucket widening")[0]
+        if name == "one_operand":
+            key = s[0].to(o[0].dtype)
+            lib = torch.searchsorted(key, o[0], right=True)
+            torch.cuda.synchronize()
+            _check(torch.equal(lib.to(torch.int32), got),
+                   "torch.searchsorted differs from sort_bucket on one "
+                   "operand")
+            row["library_ms"] = _cold_ms(
+                lambda a, b: torch.searchsorted(b, a[0], right=True),
+                [(a, key) for a, _ in inputs],
+                "sort_bucket one_operand searchsorted")[0]
+        out[name] = row
+        lib = (f"; library torch.searchsorted {row['library_ms']:.4f} ms"
+               if row["library_ms"] is not None else "; library: none with "
+               "more than one operand; widening the operands to an int64 "
+               f"stack {row['widen_ms']:.4f} ms")
+        _log(f"sort_bucket {name} ({n} rows x {len(o)} operands of "
+             f"{sum(sizes)} B, {S} splitters, {card}): equal to the plain "
+             f"version; kernel {ms:.4f} ms cold, {bd['ms'] / ms:.0%} of "
+             f"bound {bd['ms']:.4f} ({bd['bytes']} B, by {bd['by']}); plain "
+             f"{plain:.4f} ms; host {host_ms:.4f} ms a call{lib}")
+    return out
+
+
+def phase_ooc_sort(card: str, batch_rows: int, ds: dict) -> dict:
+    """(d) ORDER BY ss_net_paid DESC, ss_item_sk over all of SF10
+    store_sales at the default batchSizeBytes: the out-of-core sort,
+    every column equal to a stable numpy sort; sort_bucket's launches;
+    then the kernel alone."""
+    from spark_rapids_tpu_torch.api import TorchSession
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.exec.sort import TpuSortExec
+    ss, host = ds["ss"], ds["hosts"][0]
+    t0 = time.perf_counter()
+    order = np.lexsort((ss["ss_item_sk"], -ss["ss_net_paid"]))
+    _log(f"store_sales ORDER BY: numpy's stable sort in "
+         f"{time.perf_counter() - t0:.2f} s")
+    session = TorchSession({"spark.rapids.tpu.sql.batchSizeRows": batch_rows})
+
+    def order_by(df, F):
+        return df.order_by(F.col("ss_net_paid").desc(),
+                           F.col("ss_item_sk").asc())
+
+    def make(s):
+        return order_by(s.create_dataframe(host), F)
+
+    def wrong(out) -> list:
+        return [c for c in ss
+                if not np.array_equal(np.asarray(out[c]), ss[c][order])]
+
+    runs = {}
+    for label in ("cold", "warm"):
+        runs[label], out = _sql_run(session, make, "collect_numpy")
+        plan = session.last_plan
+        _check(isinstance(plan, TpuSortExec) and plan.last_buckets >= 5,
+               f"store_sales ORDER BY: {getattr(plan, 'last_buckets', 0)} "
+               "buckets, expected at least 5 (2.53 GB over 512 MiB)")
+        runs[label]["buckets"] = plan.last_buckets
+        bad = wrong(out)
+        _check(not bad, f"store_sales ORDER BY {label}: columns {bad} "
+                        "differ from numpy's stable sort")
+        n_runs = math.ceil(SF10_STORE_SALES / batch_rows)
+        _check(runs[label]["launches"]["sort_bucket"] == n_runs,
+               f"store_sales ORDER BY: sort_bucket launched "
+               f"{runs[label]['launches']['sort_bucket']} times, not once a "
+               f"run ({n_runs})")
+        del out
+    _log(f"store_sales ORDER BY ss_net_paid DESC, ss_item_sk SF10 ({card}): "
+         f"{SF10_STORE_SALES} rows in {runs['cold']['buckets']} buckets, "
+         f"every column equal to numpy's stable sort; wall "
+         f"{runs['cold']['wall_ms']:.1f} ms cold, "
+         f"{runs['warm']['wall_ms']:.1f} ms warm; sort_bucket launches "
+         f"{runs['cold']['launches']['sort_bucket']}; peak allocated "
+         f"{runs['warm']['max_memory_allocated']} B")
+    runs["profile_warm"] = phase_profile(session, host, order_by,
+                                         lambda out: not wrong(out),
+                                         f"store_sales ORDER BY ({card})",
+                                         "sort_bucket", "collect_numpy")
+    orders = session.last_plan.orders
+    runs["times"] = phase_sort_bucket_times(host, orders, batch_rows,
+                                            runs["cold"]["buckets"], card)
+    return runs
+
+
+def phase_windows(card: str, batch_rows: int, ds: dict) -> dict:
+    """Phase 14 (module doc): the window rung at SF1, window_frame alone,
+    windows over SF10 store_sales and q3's ranked aggregate, and the
+    out-of-core ORDER BY over SF10 store_sales with sort_bucket alone."""
+    t0 = time.perf_counter()
+    out = {"rung": phase_window_rung(card, batch_rows),
+           "store_sales": phase_ss_windows(card, batch_rows, ds),
+           "order_by": phase_ooc_sort(card, batch_rows, ds)}
+    out["phase_s"] = time.perf_counter() - t0
+    _log(f"phase 14 (windows and the out-of-core sort) took "
+         f"{out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", metavar="NAME=DIR", action="append",
@@ -4949,9 +5475,10 @@ def main(argv=None) -> int:
         tpcds, ds = phase_tpcds(card, batch_rows)
         tpcds2 = phase_tpcds2(card, batch_rows, ds["ss"], ds["hosts"][0])
         sql = phase_sql(card, batch_rows, table, host, ds, tpcds2)
-        del ds
         strings = phase_strings(card, batch_rows,
                                 compare["rect_transform"])
+        windows = phase_windows(card, batch_rows, ds)
+        del ds
         _log(json.dumps({"queries": {
             "q6": {"rows": SF1_ROWS, "wall_ms_cold": ms_cold,
                    "wall_ms_warm": ms_warm},
@@ -4968,7 +5495,14 @@ def main(argv=None) -> int:
             "tpcds2": {k: v for k, v in tpcds2.items()
                        if k != "kernel"}, "sql": sql,
             "strings": {k: v for k, v in strings.items()
-                        if k not in ("times", "exact")}}}))
+                        if k not in ("times", "exact")},
+            "windows": {"rung": {k: v for k, v in windows["rung"].items()
+                                 if k != "times"},
+                        "store_sales": windows["store_sales"],
+                        "order_by": {k: v for k, v in
+                                     windows["order_by"].items()
+                                     if k != "times"},
+                        "phase_s": windows["phase_s"]}}}))
         main_t = times["main"]
         kernel = {
             "name": "rect_match", "route": "cuda",
@@ -5098,8 +5632,68 @@ def main(argv=None) -> int:
                 "shape", "max_abs_err")}
                for name, _, _ in RT_TIMED if name != "upper_trim"},
         }
+        wt = windows["rung"]["times"]
+        wf_err = max(wt[name]["max_abs_err"] for name, _, _, _ in WF_TIMED)
+        frame = {
+            "name": "window_frame", "route": "cuda",
+            "source": "spark_rapids_tpu_torch/csrc/window_frame.cu",
+            "replaces": "spark_rapids_tpu/exec/window.py:209",
+            "replaces_also": "spark_rapids_tpu/exec/window.py:559",
+            "launches": windows["rung"]["cold"]["launches"]["window_frame"],
+            "max_abs_err": wf_err, "exact": wf_err == 0,
+            "paths": {"window_rung": windows["rung"]["cold"]["launches"][
+                          "window_frame"],
+                      "window_rung_sql": windows["rung"]["sql"]["launches"][
+                          "window_frame"],
+                      "store_sales_windows": windows["store_sales"]["cold"][
+                          "launches"]["window_frame"]},
+            "ms": wt["sum_w3"]["ms"], "plain_ms": wt["sum_w3"]["plain_ms"],
+            "bound_ms": wt["sum_w3"]["bound_ms"],
+            "bound_by": wt["sum_w3"]["bound_by"],
+            "bound_bytes": wt["sum_w3"]["bound_bytes"], "library_ms": None,
+            "host_ms": wt["sum_w3"]["host_ms"],
+            "search_turns_ms": wt["sum_w3"]["search_turns_ms"],
+            "timing": "device time per launch, launches queued back to "
+                      "back over distinct inputs (L2 cold)",
+            "shape": wt["shape"], "launch": wt["launch"],
+            **{name: {k: wt[name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "host_ms", "max_abs_err",
+                "frame", "op", "search_turns_ms")}
+               for name, _, _, _ in WF_TIMED if name != "sum_w3"},
+        }
+        bt = windows["order_by"]["times"]
+        bucket = {
+            "name": "sort_bucket", "route": "cuda",
+            "source": "spark_rapids_tpu_torch/csrc/sort_bucket.cu",
+            "replaces": "spark_rapids_tpu/exec/sort.py:164",
+            "launches": windows["order_by"]["cold"]["launches"][
+                "sort_bucket"],
+            "max_abs_err": max(bt["operands"]["max_abs_err"],
+                               bt["one_operand"]["max_abs_err"]),
+            "exact": bt["operands"]["max_abs_err"] == 0
+            and bt["one_operand"]["max_abs_err"] == 0,
+            "paths": {"store_sales_order_by": windows["order_by"]["cold"][
+                "launches"]["sort_bucket"]},
+            "buckets": windows["order_by"]["cold"]["buckets"],
+            "ms": bt["operands"]["ms"],
+            "plain_ms": bt["operands"]["plain_ms"],
+            "bound_ms": bt["operands"]["bound_ms"],
+            "bound_by": bt["operands"]["bound_by"],
+            "bound_bytes": bt["operands"]["bound_bytes"],
+            "library_ms": bt["one_operand"]["library_ms"],
+            "library": "torch.searchsorted(right=True) on the one amount "
+                       "key (one_operand); no PyTorch call takes the "
+                       "four-operand key",
+            "host_ms": bt["operands"]["host_ms"],
+            "widen_ms": bt["operands"]["widen_ms"],
+            "timing": "device time per launch, launches queued back to "
+                      "back over distinct inputs (L2 cold)",
+            "shape": bt["shape"], "launch": bt["launch"],
+            "dtypes": bt["dtypes"], "one_operand": bt["one_operand"],
+        }
         _log(json.dumps({"kernels": [kernel, dense, join,
-                                     tpcds2["kernel"], transform]}))
+                                     tpcds2["kernel"], transform, frame,
+                                     bucket]}))
     except Exception:
         traceback.print_exc()
         return 1

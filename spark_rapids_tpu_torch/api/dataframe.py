@@ -380,6 +380,32 @@ class DataFrame:
 
     orderBy = sort = order_by
 
+    def sort_within_partitions(self, *orders) -> "DataFrame":
+        """Each batch sorted alone (Spark's sortWithinPartitions)."""
+        df = self.order_by(*orders)
+        df.plan.global_sort = False
+        return df
+
+    def with_window_column(self, name: str, fn, partition_by=(),
+                           order_by=(), frame=None) -> "DataFrame":
+        """Add a window-function column (ref ``with_window_column``).
+        ``fn`` is a window function (``functions.row_number()`` ...) or
+        an aggregate; ``partition_by`` names or Cols; ``order_by``
+        SortOrders, names or Cols (ascending); ``frame`` None (Spark's
+        default) or ("rows", lo, hi) with None for unbounded."""
+        pks = [_as_expr(c) for c in partition_by]
+        obs = []
+        for o in order_by:
+            if isinstance(o, L.SortOrder):
+                obs.append(o)
+            elif isinstance(o, str):
+                obs.append(L.SortOrder(ColumnRef(o), True))
+            else:
+                obs.append(L.SortOrder(_to_expr(o), True))
+        spec = L.WindowSpec(pks, obs, frame)
+        return DataFrame(self.session,
+                         L.Window([(fn, spec, name)], self.plan))
+
     def schema(self) -> Schema:
         return self.plan.schema()
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Optional
 
 from .. import exprs as E
+from ..exprs import window_fns as WF
 from ..exprs.aggregates import (Average, Count, CountStar, First, Last,
                                 Max, Min, Sum)
 from ..types import (BOOL, DATE, FLOAT32, FLOAT64, INT8, INT16, INT32, INT64,
@@ -259,6 +260,19 @@ def first(c, ignorenulls: bool = True):
 def last(c, ignorenulls: bool = True):
     """The value of the last row in input order (as ``first``)."""
     return Last(_to_expr(c), ignorenulls)
+
+
+# --- window ------------------------------------------------------------------
+def row_number(): return WF.RowNumber()
+def rank(): return WF.Rank()
+def dense_rank(): return WF.DenseRank()
+def ntile(n): return WF.NTile(n)
+def nth_value(c, n): return WF.NthValue(_to_expr(c), n)
+def percent_rank(): return WF.PercentRank()
+def lag(c, offset=1, default=None):
+    return WF.Lag(_to_expr(c), offset, default)
+def lead(c, offset=1, default=None):
+    return WF.Lead(_to_expr(c), offset, default)
 
 
 def broadcast(df):

@@ -24,6 +24,7 @@ from .strrect import (ByteRectColumn, HostStrings, encode_string_rect,
 __all__ = ["ColumnarBatch", "HostTable", "DictStrings",
            "batch_from_reference",
            "concat_batches", "dict_limit", "rect_to_dict", "dict_to_rect",
+           "union_dictionary", "to_dictionary", "pad_rect",
            "DICT_ENCODE_MAX_FRACTION", "DICT_ENCODE_MAX_CARD"]
 
 #: dictionary-encode a string column when its cardinality is at most
@@ -475,28 +476,50 @@ def batch_from_reference(columns: Sequence[dict], schema: Schema, device,
     return ColumnarBatch(cols, num_rows, schema)
 
 
+def union_dictionary(dictionaries: Sequence[np.ndarray]) -> np.ndarray:
+    """The sorted union of sorted dictionaries (the first itself when
+    they are all one object)."""
+    first = dictionaries[0]
+    if all(d is first for d in dictionaries):
+        return first
+    return np.unique(np.concatenate(list(dictionaries)))
+
+
+def to_dictionary(col: DictColumn, union: np.ndarray) -> DictColumn:
+    """``col`` over ``union``, a sorted superset of its dictionary: its
+    codes remapped on the device."""
+    if col.dictionary is union:
+        return col
+    remap = np.searchsorted(union, col.dictionary).astype(np.int32)
+    c = col.data
+    if len(remap):
+        c = torch.from_numpy(remap).to(c.device)[c.clamp(0, len(remap) - 1)
+                                                 .long()]
+    else:
+        c = torch.zeros_like(c)
+    return DictColumn(c, col.validity, col.dtype, union)
+
+
+def pad_rect(col: ByteRectColumn, width: int) -> ByteRectColumn:
+    """``col`` padded with zero bytes to ``width`` (at least its own)."""
+    if width == col.width:
+        return col
+    if width < col.width:
+        raise ValueError(f"a {col.width}-byte rectangle cannot pad to "
+                         f"{width} bytes")
+    return ByteRectColumn(
+        torch.nn.functional.pad(col.data, (0, width - col.width)),
+        col.validity, col.lengths, ascii_only=col.ascii_only)
+
+
 def _concat_dict(parts: List[DictColumn], rows: List[int]) -> DictColumn:
     """Dictionary columns over one dictionary: the sorted union of theirs,
     each part's codes remapped into it."""
-    first = parts[0].dictionary
-    if all(p.dictionary is first for p in parts):
-        union, remaps = first, [None] * len(parts)
-    else:
-        union = np.unique(np.concatenate([p.dictionary for p in parts]))
-        remaps = [np.searchsorted(union, p.dictionary).astype(np.int32)
-                  for p in parts]
-    codes = []
-    for p, n, remap in zip(parts, rows, remaps):
-        c = p.data[:n]
-        if remap is not None:
-            if len(remap):
-                table = torch.from_numpy(remap).to(c.device)
-                c = table[c.clamp(0, len(remap) - 1).long()]
-            else:
-                c = torch.zeros_like(c)
-        codes.append(c)
-    return DictColumn(torch.cat(codes),
-                      torch.cat([p.validity[:n] for p, n in zip(parts, rows)]),
+    union = union_dictionary([p.dictionary for p in parts])
+    parts = [to_dictionary(p.with_arrays(p.data[:n], p.validity[:n]), union)
+             for p, n in zip(parts, rows)]
+    return DictColumn(torch.cat([p.data for p in parts]),
+                      torch.cat([p.validity for p in parts]),
                       parts[0].dtype, union)
 
 
@@ -504,12 +527,13 @@ def _concat_rect(parts: List[ByteRectColumn],
                  rows: List[int]) -> ByteRectColumn:
     """Byte rectangles, narrower ones padded with zeros to the widest."""
     w = max(p.width for p in parts)
-    data = [torch.nn.functional.pad(p.data[:n], (0, w - p.width))
-            for p, n in zip(parts, rows)]
+    parts = [pad_rect(ByteRectColumn(p.data[:n], p.validity[:n],
+                                     p.lengths[:n], p.ascii_only), w)
+             for p, n in zip(parts, rows)]
     return ByteRectColumn(
-        torch.cat(data), torch.cat([p.validity[:n] for p, n in zip(parts,
-                                                                   rows)]),
-        torch.cat([p.lengths[:n] for p, n in zip(parts, rows)]),
+        torch.cat([p.data for p in parts]),
+        torch.cat([p.validity for p in parts]),
+        torch.cat([p.lengths for p in parts]),
         ascii_only=all(p.ascii_only for p in parts))
 
 

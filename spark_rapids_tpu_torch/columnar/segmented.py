@@ -11,6 +11,14 @@ Three contexts an aggregate's ``_seg_sum`` reduces over:
     reduction over at most ``DENSE_MAX`` segments, the plain form of the
     dense groupby kernel (``exec/dense_groupby.py``).
 
+``SegmentScan`` is the windows' form (exec/window.py): per row, the sum,
+minimum or maximum of its run's rows up to itself, forward or in
+reverse, restarting at each run's first row (the counterparts of the
+reference's ``last_valid_scan``, ``reverse_last_valid_scan`` and
+``exec/window.py:_seg_combine_scan``). It is the same Hillis-Steele scan:
+each pass one shifted combine, so a float sum is deterministic and no
+frame result is a difference of two prefixes.
+
 Every form is deterministic on the card. Float sums over sorted
 segments are the reference's Hillis-Steele segmented scan (elementwise
 passes, read at each segment's last row), with no atomics; integer sums
@@ -26,7 +34,7 @@ from typing import List, Optional
 
 import torch
 
-__all__ = ["DENSE_MAX", "GlobalSegments", "SortedSegments",
+__all__ = ["DENSE_MAX", "GlobalSegments", "SortedSegments", "SegmentScan",
            "bucket_segments", "prefix_sum", "seg_sum", "seg_count",
            "seg_min", "seg_max", "select_by_rank"]
 
@@ -145,11 +153,46 @@ class SortedSegments:
         return self.sum(pred.to(dtype), ones)
 
 
+class SegmentScan:
+    """Inclusive scans over runs of rows: ``starts`` marks each run's
+    first row (row 0 must be one). With ``reverse`` the scans run from
+    the end and ``starts`` marks each run's LAST row: a row's result
+    covers itself to its run's end. The flags' passes are built once and
+    shared by every scan."""
+
+    _COMBINE = {"sum": torch.add, "min": torch.minimum,
+                "max": torch.maximum}
+
+    def __init__(self, starts: torch.Tensor, reverse: bool = False):
+        self.reverse = reverse
+        f = torch.flip(starts, (0,)) if reverse else starts
+        n, d, steps = f.shape[0], 1, []
+        while d < n:
+            steps.append((d, f))
+            f = torch.logical_or(f, _shift(f, d, True))
+            d <<= 1
+        self._steps = steps
+
+    def scan(self, v: torch.Tensor, how: str, neutral=0) -> torch.Tensor:
+        """The scan of ``v`` by ``how`` ("sum", "min" or "max"); rows to
+        leave out carry ``neutral`` (0 for a sum, the type's greatest for
+        a minimum, its least for a maximum). A sum adds the earlier rows'
+        partial before the later's, pass by pass."""
+        combine = self._COMBINE[how]
+        if self.reverse:
+            v = torch.flip(v, (0,))
+        for d, f in self._steps:
+            v = torch.where(f, v, combine(_shift(v, d, neutral), v))
+        return torch.flip(v, (0,)) if self.reverse else v
+
+
 def _shift(a: torch.Tensor, d: int, fill) -> torch.Tensor:
     """``a`` moved ``d`` rows towards the end, the first ``d`` rows
-    ``fill`` (one op)."""
+    ``fill`` (exact for an int64 extreme, which ``pad``'s float value
+    does not hold)."""
     k = min(d, a.shape[0])
-    return torch.nn.functional.pad(a[:a.shape[0] - k], (k, 0), value=fill)
+    head = torch.full((k,), fill, dtype=a.dtype, device=a.device)
+    return torch.cat([head, a[:a.shape[0] - k]])
 
 
 def seg_sum(data: torch.Tensor, gid, num_segments: int) -> torch.Tensor:

@@ -76,8 +76,8 @@ BATCH_SIZE_ROWS = register(
 BATCH_SIZE_BYTES = register(
     "spark.rapids.tpu.sql.batchSizeBytes", 512 * 1024 * 1024,
     "Largest input, in device bytes, that the global sort takes in memory "
-    "(the reference's batch-size goal); the out-of-core sort is not "
-    "ported yet.")
+    "(the reference's batch-size goal); a larger input takes the "
+    "out-of-core sample sort.")
 
 
 AGG_WIDE_BATCH_ROWS = register(

@@ -1,16 +1,17 @@
 """Logical plan nodes (port of ``spark_rapids_tpu/plan/logical.py``: scan,
-project, filter, aggregate, sort, limit, join, union, and the nodes the
-plan rewrites make: expand, branch alignment and the distinct flag)."""
+project, filter, aggregate, sort, limit, join, union, window, and the
+nodes the plan rewrites make: expand, branch alignment and the distinct
+flag)."""
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 from ..exprs.base import Expression
 from ..types import BOOL, Schema, StructField
 
 __all__ = ["LogicalPlan", "LogicalScan", "ParquetScan", "Project",
            "Filter", "Aggregate", "SortOrder", "Sort", "GlobalLimit",
-           "LocalLimit", "Join", "Union",
+           "LocalLimit", "Join", "Union", "WindowSpec", "Window",
            "Expand", "BranchAlign", "DistinctFlag"]
 
 
@@ -149,17 +150,21 @@ class SortOrder:
 
 
 class Sort(LogicalPlan):
-    """A global sort."""
+    """A global sort, or with ``global_sort`` False each batch sorted
+    alone (``sort_within_partitions``)."""
 
-    def __init__(self, orders: Sequence[SortOrder], child: LogicalPlan):
+    def __init__(self, orders: Sequence[SortOrder], child: LogicalPlan,
+                 global_sort: bool = True):
         self.orders = list(orders)
+        self.global_sort = global_sort
         self.children = [child]
 
     def schema(self) -> Schema:
         return self.children[0].schema()
 
     def describe(self):
-        return f"Sort[{', '.join(map(repr, self.orders))}]"
+        g = "" if self.global_sort else ", local"
+        return f"Sort[{', '.join(map(repr, self.orders))}{g}]"
 
 
 class GlobalLimit(LogicalPlan):
@@ -235,6 +240,48 @@ class Union(LogicalPlan):
 
     def describe(self):
         return f"Union[{len(self.children)}]"
+
+
+class WindowSpec:
+    """PARTITION BY, ORDER BY and the frame of a window: ``frame`` is
+    None (Spark's default) or (kind, lower, upper), kind "rows" or
+    "range", a bound None for unbounded and an int offset otherwise."""
+
+    def __init__(self, partition_by: Sequence[Expression] = (),
+                 order_by: Sequence[SortOrder] = (),
+                 frame: Optional[Tuple] = None):
+        self.partition_by = list(partition_by)
+        self.order_by = list(order_by)
+        self.frame = frame
+
+    def key(self) -> str:
+        """Equal for specs that order rows the same way (the frame
+        aside): window expressions with one key share one sort."""
+        ps = ",".join(e.key() for e in self.partition_by)
+        os = ",".join(f"{o.expr.key()}|{o.ascending}|{o.nulls_first}"
+                      for o in self.order_by)
+        return f"[{ps}][{os}]"
+
+
+class Window(LogicalPlan):
+    """Appends one column per window expression (ref
+    window/GpuWindowExec.scala:146). ``window_exprs``: (window function or
+    AggregateExpression, WindowSpec, output name)."""
+
+    def __init__(self, window_exprs, child: LogicalPlan):
+        self.window_exprs = list(window_exprs)
+        self.children = [child]
+
+    def schema(self) -> Schema:
+        cs = self.children[0].schema()
+        fields = list(cs.fields)
+        for e, spec, name in self.window_exprs:
+            fields.append(StructField(name, e.data_type(cs), True))
+        return Schema(fields)
+
+    def describe(self):
+        return "Window[" + ", ".join(n for _, _, n in self.window_exprs) \
+            + "]"
 
 
 class Expand(LogicalPlan):

@@ -14,7 +14,9 @@ measured sizes wait for the adaptivity slice). An aggregate, keyless or
 keyed, folds the device filters and projections below it into its update
 (``_fold_stages``), as the reference's does. String group and sort keys plan onto the device:
 the execs take them as dictionary columns and refuse other forms when
-the batch arrives.
+the batch arrives. A window prunes its child to the columns its
+expressions and its parent read; where the reference tags a window for
+its host engine (list payloads or keys), the port raises at planning.
 """
 from __future__ import annotations
 
@@ -157,7 +159,33 @@ def prune_columns(plan: L.LogicalPlan,
         return _rebuilt(plan, prune_columns(plan.children[0], child_req))
     if isinstance(plan, L.BranchAlign):
         return _rebuilt(plan, prune_columns(plan.children[0], None))
+    if isinstance(plan, L.Window):
+        return _prune_window(plan, required)
     return plan
+
+
+def _prune_window(plan: L.Window, required: Optional[set]) -> L.LogicalPlan:
+    """A window keeps the child's columns in front of its own, so its
+    child is pruned to what the parent reads of them and what the window
+    expressions read; window columns nobody reads are dropped (the
+    reference keeps every column below a window)."""
+    exprs = plan.window_exprs
+    if required is not None:
+        exprs = [w for w in exprs if w[2] in required]
+    child_req = None
+    if required is not None:
+        child_req = set(required) - {w[2] for w in plan.window_exprs}
+        for fn, spec, _ in exprs:
+            for e in [getattr(fn, "child", None)] + list(spec.partition_by) \
+                    + [o.expr for o in spec.order_by]:
+                if e is not None:
+                    _expr_refs(e, child_req)
+    child = prune_columns(plan.children[0], child_req)
+    if not exprs:
+        return child
+    if exprs == plan.window_exprs and child is plan.children[0]:
+        return plan
+    return L.Window(exprs, child)
 
 
 def _rebuilt(node, *kids):
@@ -429,11 +457,48 @@ class SortMeta(PlanMeta):
                 extra.append(Alias(o.expr, name))
                 o = L.SortOrder(ColumnRef(name), o.ascending, o.nulls_first)
             orders.append(o)
+        g = self.plan.global_sort
         if not extra:
-            return S.TpuSortExec(self.plan.orders, child)
+            return S.TpuSortExec(self.plan.orders, child, g)
         keep = [ColumnRef(n) for n in schema.names()]
         return B.TpuProjectExec(keep, S.TpuSortExec(
-            orders, B.TpuProjectExec(keep + extra, child)))
+            orders, B.TpuProjectExec(keep + extra, child), g))
+
+
+@rule(L.Window)
+class WindowMeta(PlanMeta):
+    """(ref ``WindowMeta``, ``plan/overrides.py:823``.) Where the
+    reference tags a window for its host window exec (a list payload or
+    list key) and a frame or function the port's window exec does not
+    take, the port raises at planning, naming the slice."""
+
+    def tag_self(self):
+        from ..exec.window import frame_reason
+        schema = self.plan.children[0].schema()
+        for f in schema.fields:
+            if not f.dtype.device_backed and f.dtype != STRING:
+                self.will_not_work_on_tpu(
+                    f"column {f.name}: {f.dtype.name} payload in a window "
+                    "arrives with slice 9 (collections)")
+        for fn, spec, name in self.plan.window_exprs:
+            for pk in spec.partition_by:
+                r = _key_reason(pk, schema)
+                if r:
+                    self.will_not_work_on_tpu(
+                        f"window partition key <{pk.name_hint}>: {r}")
+            for o in spec.order_by:
+                r = _key_reason(o.expr, schema)
+                if r:
+                    self.will_not_work_on_tpu(
+                        f"window order key <{o.expr.name_hint}>: {r}")
+            r = fn.device_unsupported_reason(schema) or \
+                frame_reason(fn, spec)
+            if r:
+                self.will_not_work_on_tpu(f"window <{name}>: {r}")
+
+    def convert_to_tpu(self, children):
+        from ..exec.window import TpuWindowExec
+        return TpuWindowExec(self.plan.window_exprs, children[0])
 
 
 @rule(L.GlobalLimit)

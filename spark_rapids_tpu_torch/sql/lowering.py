@@ -7,12 +7,17 @@ names, and the surrounding expression becomes a Project over the aggregate
 output. GROUP BY accepts expressions, select aliases, and 1-based
 ordinals.
 
+Window calls (``f(...) OVER (...)``) are hoisted into one Window node
+under generated names (``_hoist_windows``, the reference's): ROWS frames,
+no RANGE frames and no DISTINCT inside OVER, and a window over an
+aggregate only through a subquery, as in the reference.
+
 The function tables name only what the port has. A function the
 reference knows and the port does not yet have raises NotImplementedError
-naming the slice that brings it (``_LATER``), as do window functions
-(slice 8), INTERSECT ALL / EXCEPT ALL (slice 9), and DML and catalog
-statements (slice 10); a name the reference does not know either stays
-an "unknown function" SqlError.
+naming the slice that brings it (``_LATER``), as do INTERSECT ALL /
+EXCEPT ALL (slice 9), and DML and catalog statements (slice 10); a name
+the reference does not know either stays an "unknown function"
+SqlError.
 """
 from __future__ import annotations
 
@@ -182,8 +187,7 @@ class _Lowerer:
                 raise SqlError(
                     "window functions over aggregates need a subquery "
                     "(SELECT ... OVER ... FROM (SELECT ... GROUP BY ...))")
-            raise NotImplementedError(
-                "window functions (OVER) arrive with slice 8 (windows)")
+            df, sel = self._hoist_windows(df, sel)
 
         if select_has_agg:
             df, alias_map, order_handled = self._lower_aggregate(df, sel)
@@ -224,6 +228,108 @@ class _Lowerer:
         if sel.limit is not None:
             df = df.limit(sel.limit)
         return df
+
+    # -- window functions -------------------------------------------------
+    def _hoist_windows(self, df, sel: Select):
+        """Replace window-call subtrees (in SELECT, HAVING, ORDER BY) with
+        refs to computed columns; all hoisted calls land in ONE Window
+        plan node (ref ``_hoist_windows``): the exec sorts once per
+        partition and order keys, whatever the calls."""
+        import copy
+        from ..plan.logical import SortOrder, Window, WindowSpec
+
+        def int_lit(ast, what):
+            if isinstance(ast, tuple) and ast[0] == "lit" \
+                    and isinstance(ast[1], int):
+                return ast[1]
+            if isinstance(ast, tuple) and ast[0] == "unary" \
+                    and ast[1] == "-" and isinstance(ast[2], tuple) \
+                    and ast[2][0] == "lit":
+                return -ast[2][1]
+            raise SqlError(f"{what} must be an integer literal")
+
+        def scalar_lit(ast, what):
+            if ast is None:
+                return None
+            if isinstance(ast, tuple) and ast[0] == "lit":
+                return ast[1]
+            if isinstance(ast, tuple) and ast[0] == "unary" \
+                    and ast[1] == "-" and isinstance(ast[2], tuple) \
+                    and ast[2][0] == "lit":
+                return -ast[2][1]
+            raise SqlError(f"{what} must be a literal")
+
+        wins = []    # (fn, WindowSpec, name)
+
+        def lower_win(ast):
+            _, fn_node, parts, orders, frame = ast
+            fname, args, distinct = fn_node[1], fn_node[2], fn_node[3]
+            if distinct:
+                raise SqlError(
+                    f"DISTINCT is not supported in window {fname}()")
+            if fname == "count" and (not args or args[0] == ("star",)):
+                f = F.count_star()
+            elif fname in _AGG_FNS:
+                f = _AGG_FNS[fname](self._expr(args[0]))
+            elif fname in _LATER:
+                _refuse(fname)
+            elif fname == "row_number":
+                f = F.row_number()
+            elif fname == "rank":
+                f = F.rank()
+            elif fname == "dense_rank":
+                f = F.dense_rank()
+            elif fname == "ntile":
+                f = F.ntile(int_lit(args[0], "ntile bucket count"))
+            elif fname in ("lag", "lead"):
+                off = int_lit(args[1], f"{fname} offset") \
+                    if len(args) > 1 else 1
+                default = scalar_lit(args[2] if len(args) > 2 else None,
+                                     f"{fname} default")
+                mk = F.lag if fname == "lag" else F.lead
+                f = mk(self._expr(args[0]), off, default)
+            else:
+                raise SqlError(f"{fname}() is not a window function")
+            pks = [self._expr(p).expr for p in parts]
+            obs = [SortOrder(self._expr(e).expr, asc, nf)
+                   for e, asc, nf in orders]
+            lframe = None
+            if frame is not None:
+                kind, lo, hi = frame
+                if kind != "rows":
+                    raise SqlError("only ROWS frames are supported")
+                lframe = ("rows", lo, hi)
+            name = f"__win{len(wins)}"
+            fn = f.expr if hasattr(f, "expr") else f
+            wins.append((fn, WindowSpec(pks, obs, lframe), name))
+            return name
+
+        def walk(ast):
+            if ast is None or not isinstance(ast, tuple):
+                return ast
+            if ast[0] == "window":
+                return ("col", (lower_win(ast),))
+            if ast[0] == "fn":
+                return ("fn", ast[1], [walk(a) for a in ast[2]], ast[3])
+            if ast[0] == "case":
+                return ("case", [(walk(c), walk(v)) for c, v in ast[1]],
+                        walk(ast[2]) if ast[2] is not None else None)
+            if ast[0] == "in":
+                return ("in", walk(ast[1]), [walk(v) for v in ast[2]],
+                        ast[3])
+            return tuple(walk(x) if isinstance(x, tuple) else x
+                         for x in ast)
+
+        new_sel = copy.copy(sel)
+        new_sel.items = [(walk(e), a) for e, a in sel.items]
+        new_sel.having = walk(sel.having)
+        new_sel.order_by = [OrderItem(walk(o.expr), o.ascending,
+                                      o.nulls_first)
+                            for o in sel.order_by]
+        if wins:
+            from ..api.dataframe import DataFrame
+            df = DataFrame(df.session, Window(wins, df.plan))
+        return df, new_sel
 
     # -- joins ----------------------------------------------------------
     def _side_of(self, ast, lcols, rcols, alias_cols, ralias=None):

@@ -1053,11 +1053,16 @@ def test_sort_of_a_byte_rectangle_key_is_refused():
 
 
 def test_sort_larger_than_batch_size_bytes_is_refused():
+    """Refused until the out-of-core sort arrived (slice 8): an input over
+    batchSizeBytes now takes it, and gives the in-memory sort's rows."""
     t = _table(1000)
     conf = {**OFF, "spark.rapids.tpu.sql.batchSizeBytes": 1000}
-    df = TorchSession(conf, device="cpu").create_dataframe(t)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        df.order_by("x").collect()
+    s = TorchSession(conf, device="cpu")
+    got = s.create_dataframe(t).order_by("x").collect()
+    assert s.last_plan.last_buckets > 1
+    want = TorchSession(OFF, device="cpu").create_dataframe(t) \
+        .order_by("x").collect()
+    assert repr(got) == repr(want)      # NaN equal to NaN, -0.0 apart
 
 
 def test_column_pruning_reaches_through_sort():
