@@ -13,11 +13,13 @@ result line):
                 csrc/ with one nvcc each, started together;
                 ptxas must report no stack frame and no spills for any
                 function. ``--compare NAME=DIR`` also builds
-                DIR/rect_match.cu, DIR/dense_groupby.cu and/or
-                DIR/rect_transform.cu (another version of a kernel with
-                its header, e.g. the parent commit's; dense_groupby with
-                the C interface of commit 645412c) alongside, to be timed
-                beside the port's (rect_transform in turns with it);
+                DIR/rect_match.cu, DIR/dense_groupby.cu,
+                DIR/rect_transform.cu, DIR/window_frame.cu and/or
+                DIR/sort_bucket.cu (another version of a kernel with its
+                headers, e.g. an earlier commit's; dense_groupby with the
+                C interface of commit 645412c) alongside, to be timed
+                beside the port's (rect_transform, window_frame and
+                sort_bucket in turns with it);
   3. kernels -- each kernel's wrapper on the card against its plain torch
                 version: rect_match exactly, in every mode and edge case;
                 dense_groupby with counts exact and float sums within a
@@ -149,9 +151,15 @@ result line):
                 batch, as a DataFrame and as SQL, every row
                 bit-identical to numpy's row-order frame sums, cold,
                 warm and profiled, window_frame once a run; window_frame
-                alone on that batch (sum and max at W = 3 and 101)
-                bit-identical to its plain version and timed cold
-                beside its bound; over SF10 store_sales by customer:
+                alone on that batch (WF_TIMED: sum and max at W = 3;
+                float sum, max, min, avg, count and int64 sum at W =
+                101; a frame ahead of the row; the widest tiled frame
+                and one past the tiled instance's halo), bit-identical
+                to its plain version with the launch's own pick of
+                instance and with each instance forced, timed cold
+                beside its bound, each instance forced in turns, and in
+                turns with the versions of --compare; over SF10
+                store_sales by customer:
                 row_number, lag and the RANGE-default running sum
                 against numpy (exact cents), and q3's aggregate ranked
                 within each year as SQL; ORDER BY ss_net_paid DESC,
@@ -159,8 +167,9 @@ result line):
                 512 MiB batchSizeBytes (the out-of-core sort, at least
                 5 buckets, sort_bucket once a run), every column equal
                 to numpy's stable sort, and sort_bucket alone on a run's
-                operands at their own widths (and on one operand beside
-                torch.searchsorted).
+                operands at their own widths and on one operand, in
+                turns with the versions of --compare and (one operand)
+                torch.searchsorted.
 
 The data is generated here from a seed, with numpy only: this script
 imports neither JAX, pyarrow, pandas nor the JAX package. It prints a
@@ -187,6 +196,11 @@ SEED = 42
 #: the H100 SXM's published memory rate and its 32-bit non-tensor rate
 #: (NVIDIA data sheet), for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
+#: the H100 SXM's float64 adds or compares a second outside the tensor
+#: cores: 64 a clock on each of its 132 SMs at 1.98 GHz. (NVIDIA's data
+#: sheet says 34 TFLOP/s, which counts a fused multiply-add as two
+#: operations; a lone add or compare issues at half that.)
+FP64_OPS_PER_S = 64 * 132 * 1.98e9
 SCALAR_OPS_PER_S = 67e12
 #: relative tolerance of float sums against numpy: torch.sum and numpy
 #: add the same values in different orders
@@ -1080,9 +1094,10 @@ def _ptxas_frames(log: str) -> list:
 
 def _start_compare_build(name: str, src_dir: str):
     """nvcc for other versions of the port's kernels (``src_dir`` holds a
-    rect_match.cu and/or a dense_groupby.cu with their headers: the parent
-    commit's, or a variant), started now and built like the port's own
-    into build/. Returns [(name, kernel, process, library)]."""
+    rect_match.cu, dense_groupby.cu, rect_transform.cu, window_frame.cu
+    and/or sort_bucket.cu with their headers: the parent commit's, or a
+    variant), started now and built like the port's own into build/.
+    Returns [(name, kernel, process, library)]."""
     from spark_rapids_tpu_torch import native
     native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = []
@@ -1095,8 +1110,8 @@ def _start_compare_build(name: str, src_dir: str):
             [native._nvcc(), *native.NVCC_FLAGS, "-I", str(src.parent),
              "-o", str(out), str(src)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), out))
-    _check(bool(started), f"no rect_match.cu, dense_groupby.cu or "
-                          f"rect_transform.cu in {src_dir}")
+    _check(bool(started), f"no kernel source of {', '.join(KERNELS)} in "
+                          f"{src_dir}")
     return started
 
 
@@ -1203,6 +1218,58 @@ def _rect_transform_compare(name, lib):
     return other
 
 
+def _window_frame_compare(name, lib):
+    """window_frame_launch of another build (the C signature of the
+    port's; commit 8a644d5's has it), with window_frame's
+    arguments and that build's own pick of instance (no launch count: it
+    is not on the port's path)."""
+    import ctypes
+
+    import torch
+    from spark_rapids_tpu_torch.exec import window_frame as wf
+    fn = lib.window_frame_launch
+    fn.argtypes = wf._ARGTYPES
+    fn.restype = ctypes.c_int
+
+    def other(values, valid, flags, lo, hi, op):
+        n = values.shape[0]
+        out = torch.empty(n, dtype=wf._out_dtype(values, op),
+                          device=values.device)
+        ok = torch.empty(n, dtype=torch.bool, device=values.device)
+        rc = fn(values.data_ptr(), valid.data_ptr(), flags.data_ptr(),
+                out.data_ptr(), ok.data_ptr(), n, wf._clamp(lo, n),
+                wf._clamp(hi, n), wf.OPS[op],
+                int(values.is_floating_point()), wf.SEARCHES["frame"],
+                torch.cuda.current_stream(values.device).cuda_stream)
+        _check(rc == 0, f"{name} window_frame launch failed: CUDA error "
+                        f"{rc}")
+        return out, ok
+    return other
+
+
+def _sort_bucket_compare(name, lib):
+    """sort_bucket_launch of another build (the C signature and the
+    SbOperands packing of the port's; commit 8a644d5's has them),
+    with sort_bucket's arguments (no launch count)."""
+    import ctypes
+
+    import torch
+    from spark_rapids_tpu_torch.exec import sort_bucket as sb
+    fn = lib.sort_bucket_launch
+    fn.argtypes = sb._ARGTYPES
+    fn.restype = ctypes.c_int
+
+    def other(operands, splitters, num_rows):
+        n, dev = operands[0].shape[0], operands[0].device
+        out = torch.empty(n, dtype=torch.int32, device=dev)
+        rc = fn(ctypes.byref(sb._pack(operands)), n, num_rows,
+                splitters.data_ptr(), splitters.shape[1], len(operands),
+                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _check(rc == 0, f"{name} sort_bucket launch failed: CUDA error {rc}")
+        return out
+    return other
+
+
 def _finish_compare_build(name, kernel, proc, out):
     """The built kernel as a function with the port's wrapper's arguments
     (and no launch count: it is not on the port's path)."""
@@ -1217,6 +1284,10 @@ def _finish_compare_build(name, kernel, proc, out):
         return _rect_match_compare(name, lib)
     if kernel == "rect_transform":
         return _rect_transform_compare(name, lib)
+    if kernel == "window_frame":
+        return _window_frame_compare(name, lib)
+    if kernel == "sort_bucket":
+        return _sort_bucket_compare(name, lib)
     return _dense_groupby_compare(name, lib)
 
 
@@ -1600,9 +1671,6 @@ def _sector_copy_ms() -> dict:
 #: same values in different orders; each order's rounding error is at
 #: most about (rows a group) x 2^-53 of that scale.
 DENSE_TOL = 1e-12
-#: the H100 SXM's float64 rate outside the tensor cores (NVIDIA data
-#: sheet), for the dense kernel's additions
-FP64_OPS_PER_S = 34e12
 #: TPC-H Q1's ship-date cutoff
 Q1_CUTOFF = np.datetime64("1998-12-01") - np.timedelta64(90, "D")
 
@@ -4581,23 +4649,31 @@ RT_TIMED = (
 )
 
 
+#: a plain version slower than this a call is timed call by call
+PLAIN_SYNC_MS = 20.0
+
+
 def _plain_ms(fn, inputs, label: str) -> float:
     """A plain version's ms a call: queued cold as the kernels are
-    (``_cold_ms``, one pass), or, where its host enqueue outlasts any
-    sleep (a replace's column loop), each call alone between two
+    (``_cold_ms``, one pass), or, where one call takes over PLAIN_SYNC_MS
+    (a wide frame's thousands of launches) or its host enqueue outlasts
+    any sleep (a replace's column loop), each call alone between two
     synchronisations, the median over the inputs."""
     import torch
+
+    def alone(x) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*x)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    first = alone(inputs[0])
     try:
+        if first > PLAIN_SYNC_MS:
+            raise AssertionError(f"{label}: {first:.1f} ms a call")
         return _cold_ms(fn, inputs, label, rounds=1, reps=1)[0]
     except AssertionError:
-        ms = []
-        for x in inputs:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn(*x)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(ms))
+        return float(np.median([alone(x) for x in inputs]))
 
 
 def _rt_timed_row(name, b, ln, v, chain, compare) -> dict:
@@ -4798,12 +4874,21 @@ SELECT p, o, v, sum(v) OVER (PARTITION BY p ORDER BY o
                              ROWS BETWEEN 2 PRECEDING AND CURRENT ROW) AS wsum
 FROM wtab
 """
-#: window_frame timed alone on the rung's batch: (label, op, lo, hi)
-WF_TIMED = (("sum_w3", "sum", -2, 0), ("max_w3", "max", -2, 0),
-            ("sum_w101", "sum", -100, 0), ("max_w101", "max", -100, 0))
-#: the H100 SXM's float64 rate outside the tensor cores (NVIDIA data
-#: sheet), for window_frame's operation bound
-FP64_OPS_PER_S = 34e12
+#: window_frame timed alone on the rung's batch: (label, op, lo, hi,
+#: values: the rung's float64 v, or "int" for v in int64 cents); the
+#: last two frames lie just inside and just past the tiled instance's
+#: halo (exec/window_frame.py HALO_MAX = 1,024 rows)
+WF_TIMED = (("sum_w3", "sum", -2, 0, "float"),
+            ("max_w3", "max", -2, 0, "float"),
+            ("sum_w101", "sum", -100, 0, "float"),
+            ("max_w101", "max", -100, 0, "float"),
+            ("isum_w101", "sum", -100, 0, "int"),
+            ("count_w101", "count", -100, 0, "float"),
+            ("avg_w101", "avg", -100, 0, "float"),
+            ("min_w101", "min", -100, 0, "float"),
+            ("sum_ahead", "sum", 1, 3, "float"),
+            ("sum_halo", "sum", -1024, 0, "float"),
+            ("sum_past_halo", "sum", -1025, 0, "float"))
 #: TPC-DS q3's aggregate ranked within each year, as SQL with a subquery
 SQL_Q3_RANK = """
 SELECT d_year, i_brand_id, i_brand, sum_agg,
@@ -4868,76 +4953,118 @@ def _bits_equal(a: np.ndarray, b: np.ndarray) -> bool:
         np.ascontiguousarray(b).view(np.int64))
 
 
-def wf_bound(n: int, width: int, op: str) -> dict:
+def wf_bound(n: int, width: int, op: str, kind: str = "float") -> dict:
     """The least time one window_frame call needs: each row's value,
     validity and partition flag read once and its value and validity
-    written once; one float64 add or compare a frame row."""
+    written once; a float64 sum or average adds its frame's W values in
+    row order (W adds a row), the rest take three operations a row
+    (prefix differences, sliding extremes)."""
     from spark_rapids_tpu_torch.exec.window_frame import frame_bytes
     nbytes = frame_bytes(n, op)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n * width / FP64_OPS_PER_S * 1e3
+    per_row = width if kind == "float" and op in ("sum", "avg") else 3
+    ops_ms = n * per_row / FP64_OPS_PER_S * 1e3
     return {"bytes": nbytes, "ms": max(bytes_ms, ops_ms),
             "by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def phase_wf_times(args, card: str) -> dict:
+def _wf_values(v, kind: str):
+    """The rung's sorted values as a WF_TIMED case reads them: float64, or
+    in int64 cents."""
+    import torch
+    return v if kind == "float" else torch.round(v * 100).to(torch.int64)
+
+
+def phase_wf_times(args, card: str, compare=None) -> dict:
     """window_frame alone on the rung's sorted batch (``args``: values,
     validity and partition-start flags on the card), every frame of
     WF_TIMED: bit-identical to its plain version with the launch's own
-    pick of the partition ends' search and with each search forced, then
-    timed with the L2 cold beside its bound and the plain version, and
-    each search forced in turns."""
+    pick of instance, with each instance forced (the tiled one within its
+    halo) and in each version of ``compare`` (name -> launch, its own
+    pick); then timed with the L2 cold in turns with those versions
+    (kernel, others, others, kernel, kernel, others), each instance
+    forced in turns, beside its bound and the plain version."""
     import torch
     from spark_rapids_tpu_torch.exec.window_frame import (
-        SEARCHES, describe, window_frame, window_frame_reference)
+        SEARCHES, describe, tiled, window_frame, window_frame_reference)
+    compare = compare or {}
     n = int(args[0].shape[0])
-    per = sum(a.nbytes for a in args)
-    inputs = [args] + [tuple(a.clone() for a in args)
-                       for _ in range(max(2, -(-COLD_BYTES // per)) - 1)]
     out = {"shape": [n], "launch": describe()}
-    for name, op, lo, hi in WF_TIMED:
-        want = window_frame_reference(*args, lo, hi, op)
+    for name, op, lo, hi, kind in WF_TIMED:
+        case = (_wf_values(args[0], kind),) + tuple(args[1:])
+        per = sum(a.nbytes for a in case)
+        inputs = [case] + [tuple(a.clone() for a in case)
+                           for _ in range(max(2, -(-COLD_BYTES // per)) - 1)]
+        searches = [s for s in SEARCHES if s != "tile" or tiled(lo, hi)]
+
+        def forced(s):
+            return lambda v, k, f: window_frame(v, k, f, lo, hi, op, s)
+
+        def other(c):
+            return lambda v, k, f: compare[c](v, k, f, lo, hi, op)
+        versions = [(s, forced(s)) for s in searches] + \
+            [(c, other(c)) for c in compare]
+        want = window_frame_reference(*case, lo, hi, op)
         w = want[0].cpu().numpy()
         err = 0.0
-        for search in SEARCHES:         # the launch's pick, then each
-            got = window_frame(*args, lo, hi, op, search)
+        for who, fn in versions:
+            got = fn(*case)
             torch.cuda.synchronize()
-            ok = torch.equal(got[1], want[1])
             g = got[0].cpu().numpy()
-            err = max(err, float(np.max(np.abs(g - w), initial=0.0)))
-            _check(ok and _bits_equal(g, w),
-                   f"window_frame {name} ({search}): differs from its "
-                   f"plain version (max abs err {err})")
+            e = float(np.max(np.abs(g.astype(np.float64)
+                                    - w.astype(np.float64)), initial=0.0))
+            if who in SEARCHES:
+                err = max(err, e)
+            _check(torch.equal(got[1], want[1]) and _bits_equal(g, w),
+                   f"window_frame {name} ({who}): differs from its plain "
+                   f"version (max abs err {e})")
         del got, want
-        ms, host = _cold_ms(
-            lambda v, k, f: window_frame(v, k, f, lo, hi, op), inputs,
-            f"window_frame {name}")
-        turns = {s: [] for s in SEARCHES if s != "frame"}
+        order = [("kernel", forced("frame"))] + \
+            [(c, other(c)) for c in compare]
+        turns = {who: [] for who, _ in order}
+        hosts = []
+        for who, fn in order + order[::-1] + order:
+            ms, host = _cold_ms(fn, inputs, f"window_frame {name} {who}")
+            turns[who].append(ms)
+            if who == "kernel":
+                hosts.append(host)
+        ms = float(np.mean(turns["kernel"]))
+        inst = {s: [] for s in searches if s != "frame"}
         for _ in range(2):
-            for s in turns:
-                turns[s].append(_cold_ms(
-                    lambda v, k, f: window_frame(v, k, f, lo, hi, op, s),
-                    inputs, f"window_frame {name} {s}")[0])
+            for s in inst:
+                inst[s].append(_cold_ms(forced(s), inputs,
+                                        f"window_frame {name} {s}")[0])
         plain = _plain_ms(
             lambda v, k, f: window_frame_reference(v, k, f, lo, hi, op),
             inputs[:2], f"window_frame {name} plain")
-        bd = wf_bound(n, hi - lo + 1, op)
-        out[name] = {"ms": ms, "host_ms": host, "plain_ms": plain,
+        bd = wf_bound(n, max(hi - lo + 1, 0), op, kind)
+        out[name] = {"ms": ms, "turns_ms": turns,
+                     "compare_ms": {c: float(np.mean(turns[c]))
+                                    for c in compare},
+                     "host_ms": float(np.mean(hosts)), "plain_ms": plain,
                      "bound_ms": bd["ms"], "bound_bytes": bd["bytes"],
                      "bound_by": bd["by"], "max_abs_err": err,
-                     "frame": [lo, hi], "op": op,
-                     "search_turns_ms": turns}
-        _log(f"window_frame {name} ({op} over ROWS {lo}..{hi}, {n} rows, "
-             f"{card}): bit-identical to the plain version; kernel "
-             f"{ms:.4f} ms cold, {bd['ms'] / ms:.0%} of bound "
-             f"{bd['ms']:.4f} ({bd['bytes']} B, by {bd['by']}); plain "
-             f"{plain:.4f} ms; host {host:.4f} ms a call; library: none "
-             "(no PyTorch call computes this function); searches in "
-             f"turns: walk {turns['walk']}, chunks {turns['chunks']} ms")
+                     "frame": [lo, hi], "op": op, "values": kind,
+                     "tiled": tiled(lo, hi), "instance_turns_ms": inst}
+        others = "".join(
+            f"; {c} {out[name]['compare_ms'][c]:.4f} ms (turns "
+            f"{', '.join(f'{t:.4f}' for t in turns[c])}), "
+            f"{bd['ms'] / out[name]['compare_ms'][c]:.0%} of bound"
+            for c in compare)
+        _log(f"window_frame {name} ({op} over ROWS {lo}..{hi}, {kind} "
+             f"values, {n} rows, {card}): bit-identical to the plain "
+             f"version ({', '.join(w for w, _ in versions)}); kernel "
+             f"{ms:.4f} ms cold (turns "
+             f"{', '.join(f'{t:.4f}' for t in turns['kernel'])}), "
+             f"{bd['ms'] / ms:.0%} of bound {bd['ms']:.4f} ({bd['bytes']} "
+             f"B, by {bd['by']}){others}; plain {plain:.4f} ms; host "
+             f"{out[name]['host_ms']:.4f} ms a call; library: none (no "
+             f"PyTorch call computes this function); instances in turns: "
+             + ", ".join(f"{s} {v}" for s, v in inst.items()) + " ms")
     return out
 
 
-def phase_window_rung(card: str, batch_rows: int) -> dict:
+def phase_window_rung(card: str, batch_rows: int, compare=None) -> dict:
     """(a) bench.py's window_bounded rung at SF1 rows in one batch, as a
     DataFrame and as SQL, every row bit-identical to numpy; cold, warm,
     profiled, with window_frame's launches and the peak allocation. (b)
@@ -4990,7 +5117,7 @@ def phase_window_rung(card: str, batch_rows: int) -> dict:
     args = (torch.from_numpy(t["v"][order]).cuda(),
             torch.ones(SF1_ROWS, dtype=torch.bool).cuda(),
             torch.from_numpy(start == np.arange(SF1_ROWS)).cuda())
-    runs["times"] = phase_wf_times(args, card)
+    runs["times"] = phase_wf_times(args, card, compare)
     del args, host, t
     return runs
 
@@ -5134,19 +5261,21 @@ def sort_bucket_bound(n: int, itemsizes: list, s: int) -> dict:
 
 
 def phase_sort_bucket_times(host, orders, batch_rows: int, n_buckets: int,
-                            card: str) -> dict:
+                            card: str, compare=None) -> dict:
     """sort_bucket alone on one store_sales run's encoded operands (K = 4:
     two orders' uint8 null ranks and keys, each at its own width) against
     ``n_buckets - 1`` splitters picked as the sort picks them:
-    bit-identical to its plain version, timed cold beside its bound and
-    the plain version; then on the one amount key against
-    torch.searchsorted, the library call that computes the same function
-    there."""
+    bit-identical to its plain version (and so is each version of
+    ``compare``, name -> launch), timed cold in turns with those versions
+    beside its bound and the plain version; then on the one amount key,
+    in turns also with torch.searchsorted, the library call that computes
+    the same function there."""
     import torch
     from spark_rapids_tpu_torch.columnar import ColumnarBatch
     from spark_rapids_tpu_torch.exec.sort import TpuSortExec, sort_operands
     from spark_rapids_tpu_torch.exec.sort_bucket import (
         describe, key_words, sort_bucket, sort_bucket_reference)
+    compare = compare or {}
     batch = ColumnarBatch.from_host(host.slice(0, batch_rows), "cuda", 64)
     ops = [op.contiguous() for op in sort_operands(orders, batch)]
     del batch
@@ -5168,51 +5297,72 @@ def phase_sort_bucket_times(host, orders, batch_rows: int, n_buckets: int,
                     .max().item())
         _check(torch.equal(got, want),
                f"sort_bucket {name}: differs from its plain version")
+        for c, f in compare.items():
+            _check(torch.equal(f(o, s, n), want),
+                   f"sort_bucket {name} ({c}): differs from the plain "
+                   "version")
         per = sum(x.nbytes for x in o)
         inputs = [(o, s)] + [([x.clone() for x in o], s.clone())
                              for _ in range(max(2, -(-COLD_BYTES // per))
                                             - 1)]
-        ms, host_ms = _cold_ms(lambda a, b: sort_bucket(a, b, n), inputs,
-                               f"sort_bucket {name}")
-        plain = _plain_ms(lambda a, b: sort_bucket_reference(a, b, n),
-                          inputs[:2], f"sort_bucket {name} plain")
-        sizes = [x.element_size() for x in o]
-        bd = sort_bucket_bound(n, sizes, S)
-        row = {"ms": ms, "host_ms": host_ms, "plain_ms": plain,
-               "bound_ms": bd["ms"], "bound_bytes": bd["bytes"],
-               "bound_by": bd["by"], "max_abs_err": err,
-               "library_ms": None, "operands": len(o),
-               "row_bytes": sum(sizes) + 4}
-        if name == "operands":
-            # the int64 stack the kernel no longer needs: what widening
-            # the operands first would cost on top of it
-            row["widen_ms"] = _cold_ms(lambda a, b: key_words(a), inputs,
-                                       "sort_bucket widening")[0]
+        order = [("kernel", lambda a, b: sort_bucket(a, b, n))] + [
+            (c, lambda a, b, f=f: f(a, b, n)) for c, f in compare.items()]
         if name == "one_operand":
-            key = s[0].to(o[0].dtype)
-            lib = torch.searchsorted(key, o[0], right=True)
+            lib = torch.searchsorted(s[0], o[0], right=True)
             torch.cuda.synchronize()
             _check(torch.equal(lib.to(torch.int32), got),
                    "torch.searchsorted differs from sort_bucket on one "
                    "operand")
-            row["library_ms"] = _cold_ms(
-                lambda a, b: torch.searchsorted(b, a[0], right=True),
-                [(a, key) for a, _ in inputs],
-                "sort_bucket one_operand searchsorted")[0]
+            order.append(("library", lambda a, b: torch.searchsorted(
+                b[0], a[0], right=True)))
+        turns = {who: [] for who, _ in order}
+        hosts = []
+        for who, fn in order + order[::-1] + order:
+            ms, host_ms = _cold_ms(fn, inputs, f"sort_bucket {name} {who}")
+            turns[who].append(ms)
+            if who == "kernel":
+                hosts.append(host_ms)
+        ms = float(np.mean(turns["kernel"]))
+        plain = _plain_ms(lambda a, b: sort_bucket_reference(a, b, n),
+                          inputs[:2], f"sort_bucket {name} plain")
+        sizes = [x.element_size() for x in o]
+        bd = sort_bucket_bound(n, sizes, S)
+        row = {"ms": ms, "turns_ms": turns, "host_ms": float(np.mean(hosts)),
+               "compare_ms": {c: float(np.mean(turns[c])) for c in compare},
+               "plain_ms": plain, "bound_ms": bd["ms"],
+               "bound_bytes": bd["bytes"], "bound_by": bd["by"],
+               "max_abs_err": err, "library_ms": None, "operands": len(o),
+               "row_bytes": sum(sizes) + 4}
+        if "library" in turns:
+            row["library_ms"] = float(np.mean(turns["library"]))
+        if name == "operands":
+            # the int64 stack the kernel does not need: what widening the
+            # operands first would cost on top of it
+            row["widen_ms"] = _cold_ms(lambda a, b: key_words(a), inputs,
+                                       "sort_bucket widening")[0]
         out[name] = row
-        lib = (f"; library torch.searchsorted {row['library_ms']:.4f} ms"
+        lib = (f"; library torch.searchsorted {row['library_ms']:.4f} ms "
+               f"(turns {', '.join(f'{t:.4f}' for t in turns['library'])})"
                if row["library_ms"] is not None else "; library: none with "
                "more than one operand; widening the operands to an int64 "
                f"stack {row['widen_ms']:.4f} ms")
+        others = "".join(
+            f"; {c} {row['compare_ms'][c]:.4f} ms (turns "
+            f"{', '.join(f'{t:.4f}' for t in turns[c])}), "
+            f"{bd['ms'] / row['compare_ms'][c]:.0%} of bound"
+            for c in compare)
         _log(f"sort_bucket {name} ({n} rows x {len(o)} operands of "
              f"{sum(sizes)} B, {S} splitters, {card}): equal to the plain "
-             f"version; kernel {ms:.4f} ms cold, {bd['ms'] / ms:.0%} of "
-             f"bound {bd['ms']:.4f} ({bd['bytes']} B, by {bd['by']}); plain "
-             f"{plain:.4f} ms; host {host_ms:.4f} ms a call{lib}")
+             f"version; kernel {ms:.4f} ms cold (turns "
+             f"{', '.join(f'{t:.4f}' for t in turns['kernel'])}), "
+             f"{bd['ms'] / ms:.0%} of bound {bd['ms']:.4f} ({bd['bytes']} B, "
+             f"by {bd['by']}){others}; plain {plain:.4f} ms; host "
+             f"{row['host_ms']:.4f} ms a call{lib}")
     return out
 
 
-def phase_ooc_sort(card: str, batch_rows: int, ds: dict) -> dict:
+def phase_ooc_sort(card: str, batch_rows: int, ds: dict,
+                   compare=None) -> dict:
     """(d) ORDER BY ss_net_paid DESC, ss_item_sk over all of SF10
     store_sales at the default batchSizeBytes: the out-of-core sort,
     every column equal to a stable numpy sort; sort_bucket's launches;
@@ -5268,18 +5418,25 @@ def phase_ooc_sort(card: str, batch_rows: int, ds: dict) -> dict:
                                          "sort_bucket", "collect_numpy")
     orders = session.last_plan.orders
     runs["times"] = phase_sort_bucket_times(host, orders, batch_rows,
-                                            runs["cold"]["buckets"], card)
+                                            runs["cold"]["buckets"], card,
+                                            compare)
     return runs
 
 
-def phase_windows(card: str, batch_rows: int, ds: dict) -> dict:
+def phase_windows(card: str, batch_rows: int, ds: dict,
+                  compare=None) -> dict:
     """Phase 14 (module doc): the window rung at SF1, window_frame alone,
     windows over SF10 store_sales and q3's ranked aggregate, and the
-    out-of-core ORDER BY over SF10 store_sales with sort_bucket alone."""
+    out-of-core ORDER BY over SF10 store_sales with sort_bucket alone
+    (``compare``: {kernel: {name: launch}}, the versions timed in turns
+    with window_frame and sort_bucket)."""
+    compare = compare or {}
     t0 = time.perf_counter()
-    out = {"rung": phase_window_rung(card, batch_rows),
+    out = {"rung": phase_window_rung(card, batch_rows,
+                                     compare.get("window_frame")),
            "store_sales": phase_ss_windows(card, batch_rows, ds),
-           "order_by": phase_ooc_sort(card, batch_rows, ds)}
+           "order_by": phase_ooc_sort(card, batch_rows, ds,
+                                      compare.get("sort_bucket"))}
     out["phase_s"] = time.perf_counter() - t0
     _log(f"phase 14 (windows and the out-of-core sort) took "
          f"{out['phase_s']:.1f} s")
@@ -5291,11 +5448,12 @@ def main(argv=None) -> int:
     ap.add_argument("--compare", metavar="NAME=DIR", action="append",
                     default=[],
                     help="also build DIR/rect_match.cu, "
-                    "DIR/dense_groupby.cu and/or DIR/rect_transform.cu "
-                    "(another version of the kernel, such as the parent "
-                    "commit's: rect_match and rect_transform with the same "
-                    "launch signature, dense_groupby with that of commit "
-                    "645412c) and time it beside the port's; repeatable")
+                    "DIR/dense_groupby.cu, DIR/rect_transform.cu, "
+                    "DIR/window_frame.cu and/or DIR/sort_bucket.cu "
+                    "(another version of the kernel, such as an earlier "
+                    "commit's: each with the port's launch signature, "
+                    "dense_groupby with that of commit 645412c) and time "
+                    "it beside the port's; repeatable")
     args = ap.parse_args(argv)
     compare = [c.split("=", 1) for c in args.compare]
     if any(len(c) != 2 for c in compare):
@@ -5477,7 +5635,7 @@ def main(argv=None) -> int:
         sql = phase_sql(card, batch_rows, table, host, ds, tpcds2)
         strings = phase_strings(card, batch_rows,
                                 compare["rect_transform"])
-        windows = phase_windows(card, batch_rows, ds)
+        windows = phase_windows(card, batch_rows, ds, compare)
         del ds
         _log(json.dumps({"queries": {
             "q6": {"rows": SF1_ROWS, "wall_ms_cold": ms_cold,
@@ -5633,7 +5791,7 @@ def main(argv=None) -> int:
                for name, _, _ in RT_TIMED if name != "upper_trim"},
         }
         wt = windows["rung"]["times"]
-        wf_err = max(wt[name]["max_abs_err"] for name, _, _, _ in WF_TIMED)
+        wf_err = max(wt[name]["max_abs_err"] for name, *_ in WF_TIMED)
         frame = {
             "name": "window_frame", "route": "cuda",
             "source": "spark_rapids_tpu_torch/csrc/window_frame.cu",
@@ -5652,14 +5810,18 @@ def main(argv=None) -> int:
             "bound_by": wt["sum_w3"]["bound_by"],
             "bound_bytes": wt["sum_w3"]["bound_bytes"], "library_ms": None,
             "host_ms": wt["sum_w3"]["host_ms"],
-            "search_turns_ms": wt["sum_w3"]["search_turns_ms"],
+            "compare_ms": wt["sum_w3"]["compare_ms"],
+            "turns_ms": wt["sum_w3"]["turns_ms"],
+            "instance_turns_ms": wt["sum_w3"]["instance_turns_ms"],
             "timing": "device time per launch, launches queued back to "
-                      "back over distinct inputs (L2 cold)",
+                      "back over distinct inputs (L2 cold), in turns with "
+                      "the versions of --compare",
             "shape": wt["shape"], "launch": wt["launch"],
             **{name: {k: wt[name][k] for k in (
-                "ms", "plain_ms", "bound_ms", "host_ms", "max_abs_err",
-                "frame", "op", "search_turns_ms")}
-               for name, _, _, _ in WF_TIMED if name != "sum_w3"},
+                "ms", "compare_ms", "plain_ms", "bound_ms", "bound_by",
+                "host_ms", "max_abs_err", "frame", "op", "values", "tiled",
+                "instance_turns_ms")}
+               for name, *_ in WF_TIMED if name != "sum_w3"},
         }
         bt = windows["order_by"]["times"]
         bucket = {
@@ -5685,6 +5847,8 @@ def main(argv=None) -> int:
                        "key (one_operand); no PyTorch call takes the "
                        "four-operand key",
             "host_ms": bt["operands"]["host_ms"],
+            "compare_ms": bt["operands"]["compare_ms"],
+            "turns_ms": bt["operands"]["turns_ms"],
             "widen_ms": bt["operands"]["widen_ms"],
             "timing": "device time per launch, launches queued back to "
                       "back over distinct inputs (L2 cold)",

@@ -9,39 +9,54 @@
 // clamped-scan candidates and three more prefix sums for the counts). A
 // difference of prefixes is not the frame's sum: after one +inf every
 // later frame reads inf - inf = NaN, in every later partition, and a
-// large prefix loses a small frame's low bits. Here each row sums its
-// own frame in ascending row order, as Spark's sliding frame does.
+// large prefix loses a small frame's low bits. Here a float64 frame is
+// summed in ascending row order, as Spark's sliding frame sums it.
 //
-// What bounds it on an H100: bytes, for a narrow frame. A row reads its
-// value, validity and partition-start flag once (its neighbours' values
-// and flags come from L1 and L2) and writes a value and a validity: 19
-// bytes, 114 MB for bench.py's window rung at 6,001,215 rows, 0.034 ms
-// at 3.35 TB/s. A wide frame costs W loads and adds a row, so the time
-// grows with W past the byte bound.
+// What bounds it on an H100: bytes, 19 a row (value, validity and
+// partition flag read once, value and validity written once), 114 MB
+// for bench.py's window rung at 6,001,215 rows, 0.034 ms at 3.35 TB/s;
+// for a wide float64 sum, the W adds a row that row order forces (W =
+// 101: 606 M adds, 0.036 ms at 64 adds a clock an SM).
 //
-// Design: the simple form. One thread a row over a grid-stride loop,
-// 256 threads a block, the row's frame summed in a loop
-// (csrc/window_frame_row.cuh, which the CPU tests build with g++). The
-// frame's bounds come from the partition flags. A frame that reaches at
-// most 32 rows back and forward has each row walk them, a load a flag;
-// a wider one has the warp search them in chunks of its 32 rows, a
-// chunk one byte load a lane and a ballot, about W / 32 of them for W
-// rows. On an H100 the walk is the faster at W = 3 and the chunks at
-// W = 101 (chip_smoke.py times both in turns; PERF.md section 6), so
-// the launch picks by the frame's offsets (``wf_chunked``); ``search``
-// can force either, for that timing. An instance per (value type, op,
-// search) keeps the op's branches out of the loop.
+// Design (the tiled instance, csrc/window_frame_tile.cuh): persistent
+// blocks of 256 threads (as many as the card holds at once), each walking
+// tiles of 1,280 rows. A tile and its halo (-lo rows before, hi after,
+// each rounded up to 16) are copied into shared memory by 16-byte
+// asynchronous copies into one of two buffers, the next tile's while this
+// one is computed, so each byte is read from device memory about once. A
+// tile whose staged rows hold no partition start and no NULL (the
+// barrier's OR after the copies) computes every frame whole; else it
+// builds bitmasks of the starts and valid rows (ballots) and scans their
+// words, which give every row's partition clamps and count in O(1). A
+// thread's 5 consecutive rows walk the union of their frames once (a
+// float64 sum in row order: a value loaded once for 5 rows); an int64
+// sum is a prefix difference, an extreme wider than 16 rows van Herk /
+// Gil-Werman segments, O(1) a row whatever W; the tile's results go out
+// in 16-byte stores.
+//
+// Dispatch by the frame's offsets (``search`` "frame", the port's path):
+// the tiled instance takes a frame reaching at most WF_HALO_MAX = 1,024
+// rows back and forward. Past that, the thread-a-row instances
+// (csrc/window_frame_row.cuh): the flags walked one by one where the
+// frame reaches at most 32 rows, else searched by the warp in chunks of
+// 32, and the row's frame summed in a loop. ``search`` can force an
+// instance, for chip_smoke.py to time each. An instance per (value type,
+// op) keeps the op's branches out of the loops.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "window_frame_row.cuh"
+#include "window_frame_tile.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr unsigned kAll = 0xffffffffu;
+// Blocks of the tiled instance an SM holds at least (ptxas keeps its
+// registers to 65536 / (256 * WF_MIN_BLOCKS) a thread)
+#define WF_MIN_BLOCKS 4
 
 template <typename T, int OP, bool CHUNKED>
 __global__ void window_frame_kernel(const T* __restrict__ values,
@@ -92,15 +107,117 @@ __global__ void window_frame_kernel(const T* __restrict__ values,
   }
 }
 
+// Persistent blocks, each walking tiles of WF_TILE_R * blockDim.x rows
+// (window_frame_tile.cuh: a tile's copies staged a tile ahead, then its
+// steps, a barrier between each two).
+template <typename T, int OP, bool SEG>
+__global__ void __launch_bounds__(WF_TILE_THREADS, WF_MIN_BLOCKS)
+    window_frame_tile_kernel(const T* __restrict__ values,
+                             const uint8_t* __restrict__ valid,
+                             const uint8_t* __restrict__ flags,
+                             void* __restrict__ out,
+                             uint8_t* __restrict__ out_valid, int64_t n,
+                             int32_t lo, int32_t hi, int64_t tiles) {
+  typedef WfKind<T, OP, SEG> K;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x;
+  const WfGeo geo = wf_geo(n, lo, hi, blockDim.x);
+  const WfSmem s = wf_carve<T, OP, SEG>(smem, geo, values, valid, flags);
+  int64_t tile = blockIdx.x;
+  wf_stage<OP>(wf_at(geo, tile), wf_buf(s, 0), values, valid, flags, tid);
+  tc_commit();
+  for (int b = 0; tile < tiles; tile += gridDim.x, b ^= 1) {
+    const WfGeo g = wf_at(geo, tile);
+    const int64_t next = tile + gridDim.x;
+    if (next < tiles)
+      wf_stage<OP>(wf_at(geo, next), wf_buf(s, b ^ 1), values, valid, flags,
+                   tid);
+    tc_commit();
+    tc_wait_prior();  // this tile's copies have landed, the next in flight
+    const WfBuf bf = wf_buf(s, b);
+    const bool masks =
+        __syncthreads_or(wf_clamps(g, bf, valid, flags, tid));
+    if (masks) wf_masks(g, s, bf, tid);
+    if (K::kRowScans) wf_reduce<T, OP, SEG>(g, s, bf, tid);
+    if (masks || K::kRowScans) __syncthreads();
+    if (masks) wf_words(g, s, tid);
+    if (K::kRowScans) wf_carries<T, OP, SEG>(g, s, tid);
+    if (masks || K::kRowScans) __syncthreads();
+    if (K::kRowScans) {
+      wf_rescan<T, OP, SEG>(g, s, bf, tid);
+      __syncthreads();
+    }
+    wf_rows<T, OP, SEG>(g, s, bf, tid, masks);
+    __syncthreads();
+    wf_store(g, s, out, out_valid, tid);
+  }
+}
+
+// The multiprocessors of the current device, read once.
+int sm_count(int* sms) {
+  static int cached = 0;
+  if (!cached) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  *sms = cached;
+  return 0;
+}
+
+template <typename T, int OP, bool SEG>
+int launch_tile(const void* values, const uint8_t* valid,
+                const uint8_t* flags, void* out, uint8_t* out_valid,
+                int64_t n, int32_t lo, int32_t hi, cudaStream_t stream) {
+  const WfGeo g = wf_geo(n, lo, hi, WF_TILE_THREADS);
+  const int64_t smem = wf_smem_bytes<T, OP, SEG>(g);
+  int sms = 0, per_sm = 0;
+  const int rc = sm_count(&sms);
+  if (rc) return rc;
+  // blocks an SM, for the last shared-memory size asked
+  static int64_t last_smem = -1;
+  static int last_per_sm = 0;
+  cudaError_t err = cudaSuccess;
+  if (smem != last_smem) {
+    if (smem > 48 * 1024)
+      err = cudaFuncSetAttribute(window_frame_tile_kernel<T, OP, SEG>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, window_frame_tile_kernel<T, OP, SEG>, WF_TILE_THREADS,
+          (size_t)smem);
+    if (err != cudaSuccess) return (int)err;
+    last_per_sm = per_sm;
+    last_smem = smem;
+  }
+  per_sm = last_per_sm;
+  const int64_t tiles = (n + g.rows - 1) / g.rows;
+  int64_t blocks = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  if (blocks > tiles) blocks = tiles;
+  window_frame_tile_kernel<T, OP, SEG><<<(unsigned)blocks, WF_TILE_THREADS,
+                                         (size_t)smem, stream>>>(
+      (const T*)values, valid, flags, out, out_valid, n, lo, hi, tiles);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int OP>
 int launch(const void* values, const uint8_t* valid, const uint8_t* flags,
            void* out, uint8_t* out_valid, int64_t n,
            int32_t lo, int32_t hi, int search, cudaStream_t stream) {
-  int sms = 0, dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
+  if (search == WF_SEARCH_TILE ||
+      (search == WF_SEARCH_FRAME && wf_tiled(lo, hi)))
+    return wf_segmented(OP, lo, hi)
+               ? launch_tile<T, OP, true>(values, valid, flags, out,
+                                          out_valid, n, lo, hi, stream)
+               : launch_tile<T, OP, false>(values, valid, flags, out,
+                                           out_valid, n, lo, hi, stream);
+  int sms = 0;
+  const int rc = sm_count(&sms);
+  if (rc) return rc;
   int64_t blocks = (n + kThreads - 1) / kThreads;
   const int64_t cap = (int64_t)sms * (2048 / kThreads) * 4;
   if (blocks > cap) blocks = cap;
@@ -144,14 +261,18 @@ int launch_op(int op, const void* values, const uint8_t* valid,
 // One launch on ``stream``: out[i] and out_valid[i] for rows 0..n-1.
 // ``flags`` marks each partition's first row. ``is_float``: values are
 // doubles (else int64). An average takes doubles. ``search``: a
-// WfSearchKind. Returns the launch's CUDA error (0 on success).
+// WfSearchKind (the tiled instance only within its halo). ``out`` and
+// ``out_valid`` are 16-byte aligned. Returns the launch's CUDA error (0
+// on success).
 extern "C" int window_frame_launch(const void* values, const uint8_t* valid,
                                    const uint8_t* flags, void* out,
                                    uint8_t* out_valid, int64_t n,
                                    int32_t lo, int32_t hi, int op,
                                    int is_float, int search, void* stream) {
   if (n <= 0) return 0;
-  if (search < WF_SEARCH_FRAME || search > WF_SEARCH_CHUNKS)
+  if (search < WF_SEARCH_FRAME || search > WF_SEARCH_TILE ||
+      (search == WF_SEARCH_TILE && !wf_tiled(lo, hi)) ||
+      ((uintptr_t)out & 15) || ((uintptr_t)out_valid & 15))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (op == WF_AVG) {
@@ -165,14 +286,19 @@ extern "C" int window_frame_launch(const void* values, const uint8_t* valid,
                                        out_valid, n, lo, hi, search, s);
 }
 
-// Registers a thread of the sum instance over doubles that walks the
-// flags, and its threads a block.
+// Registers a thread of the tiled sum instance over doubles, its threads
+// a block, registers a thread of the flag-walking one, and the halo limit.
 extern "C" int window_frame_describe(int* out) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(
-      &attr, window_frame_kernel<double, WF_SUM, false>);
+      &attr, window_frame_tile_kernel<double, WF_SUM, false>);
   if (err != cudaSuccess) return (int)err;
   out[0] = attr.numRegs;
-  out[1] = kThreads;
+  out[1] = WF_TILE_THREADS;
+  err = cudaFuncGetAttributes(&attr,
+                              window_frame_kernel<double, WF_SUM, false>);
+  if (err != cudaSuccess) return (int)err;
+  out[2] = attr.numRegs;
+  out[3] = WF_HALO_MAX;
   return 0;
 }

@@ -1,5 +1,7 @@
-// The per-row logic of the window_frame kernel (csrc/window_frame.cu):
-// one row's aggregate over its bounded ROWS frame.
+// The per-row logic of the window_frame kernel's thread-a-row instances
+// (csrc/window_frame.cu), which take frames past the tiled instance's
+// halo (csrc/window_frame_tile.cuh): one row's aggregate over its bounded
+// ROWS frame.
 // Everything here is __host__ __device__, so g++ builds it on a machine
 // without CUDA and the tests hold it to the plain version
 // (tests/test_torch_window.py).
@@ -70,10 +72,12 @@ WF_HD double wf_add(double a, double b) { return a + b; }
 // The longest search, back or forward, done flag by flag
 #define WF_WALK_ROWS 32
 
-// How a launch finds the partition ends (exec/window_frame.py SEARCHES):
-// picked by the frame (``wf_chunked``), or forced
+// The kernel instance a launch takes (exec/window_frame.py SEARCHES):
+// picked by the frame (the tiled one within its halo, csrc/
+// window_frame_tile.cuh ``wf_tiled``; past it the walk or the chunks,
+// ``wf_chunked``), or forced
 enum WfSearchKind { WF_SEARCH_FRAME = 0, WF_SEARCH_WALK = 1,
-                    WF_SEARCH_CHUNKS = 2 };
+                    WF_SEARCH_CHUNKS = 2, WF_SEARCH_TILE = 3 };
 
 // Whether the frame's search goes by chunks.
 WF_HD bool wf_chunked(int32_t lo, int32_t hi) {

@@ -16,11 +16,15 @@ Replaces the reference's jitted ``_bucket_id_kernel``
 (``spark_rapids_tpu/exec/sort.py:164-187``), which compares every row
 with every splitter in a ``fori_loop``.
 
-* On CUDA tensors: one launch of ``csrc/sort_bucket.cu`` (row logic
-  ``csrc/sort_bucket_row.cuh``): the splitters in shared memory, a
-  thread a row, a binary search, each operand read from its own vector
-  at its own width. Bound: a row's operands read and its bucket written
-  once, the sum of the operands' widths plus 4 bytes (``bucket_bytes``).
+* On CUDA tensors: one launch of ``csrc/sort_bucket.cu`` (row and tile
+  logic ``csrc/sort_bucket_row.cuh``): persistent blocks, each warp
+  walking tiles of 128 rows on its own, the splitters in shared memory,
+  each operand's slice of the next tile copied into the warp's shared
+  memory at its own width by 16-byte asynchronous copies while this tile
+  is searched, a lane's 4 rows binary searched side by side, the buckets
+  out in 16-byte stores. Bound: a row's
+  operands read and its bucket written once, the sum of the operands'
+  widths plus 4 bytes (``bucket_bytes``).
 * On CPU tensors: ``sort_bucket_reference``, the reference's loop over
   the splitters as eager torch.
 
@@ -56,6 +60,19 @@ _KINDS = ctypes.c_int32 * MAX_OPERANDS
 class _Operands(ctypes.Structure):
     """csrc/sort_bucket_row.cuh SbOperands."""
     _fields_ = [("ptr", _PTRS), ("type", _KINDS)]
+
+
+#: csrc/sort_bucket.cu sort_bucket_launch's arguments
+_ARGTYPES = [ctypes.POINTER(_Operands), ctypes.c_int64, ctypes.c_int64,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p]
+
+
+def _pack(operands: List[torch.Tensor]) -> _Operands:
+    """The operands' pointers and element types as the launch takes them
+    (contiguous vectors)."""
+    return _Operands(_PTRS(*[op.data_ptr() for op in operands]),
+                     _KINDS(*[_TYPES[op.dtype] for op in operands]))
 
 
 def key_words(operands: List[torch.Tensor]) -> torch.Tensor:
@@ -127,11 +144,8 @@ def _launcher():
         if not _LIB:
             from .. import native
             lib = native.load("sort_bucket")
-            p = ctypes.c_void_p
             fn = lib.sort_bucket_launch
-            fn.argtypes = [ctypes.POINTER(_Operands), ctypes.c_int64,
-                           ctypes.c_int64, p, ctypes.c_int, ctypes.c_int, p,
-                           p]
+            fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
             for name, want in (("max_words", MAX_SPLITTER_WORDS),
                                ("max_operands", MAX_OPERANDS)):
@@ -140,19 +154,20 @@ def _launcher():
                 if f() != want:
                     raise RuntimeError(f"csrc/sort_bucket.cu takes {f()} "
                                        f"{name[4:]}, the wrapper {want}")
-            lib.sort_bucket_describe.argtypes = [p]
+            lib.sort_bucket_describe.argtypes = [ctypes.c_void_p]
             lib.sort_bucket_describe.restype = ctypes.c_int
             _LIB.update(launch=fn, describe=lib.sort_bucket_describe)
         return _LIB
 
 
 def describe() -> dict:
-    """The kernel's registers a thread and threads a block."""
-    out = (ctypes.c_int * 2)()
+    """The kernel's registers a thread, threads a block and rows of a
+    warp's tile at most."""
+    out = (ctypes.c_int * 3)()
     rc = _launcher()["describe"](ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"sort_bucket_describe failed: CUDA error {rc}")
-    return {"registers": out[0], "threads": out[1]}
+    return {"registers": out[0], "threads": out[1], "tile_rows": out[2]}
 
 
 def sort_bucket(operands: List[torch.Tensor], splitters: torch.Tensor,
@@ -177,11 +192,9 @@ def sort_bucket(operands: List[torch.Tensor], splitters: torch.Tensor,
         return out
     operands = [op.contiguous() for op in operands]
     splitters = splitters.contiguous()
-    ops = _Operands(_PTRS(*[op.data_ptr() for op in operands]),
-                    _KINDS(*[_TYPES[op.dtype] for op in operands]))
     rc = _launcher()["launch"](
-        ctypes.byref(ops), n, num_rows, splitters.data_ptr(), S, K,
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        ctypes.byref(_pack(operands)), n, num_rows, splitters.data_ptr(), S,
+        K, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sort_bucket kernel launch failed: CUDA error "
                            f"{rc}")

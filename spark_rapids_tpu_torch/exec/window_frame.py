@@ -19,14 +19,26 @@ frames that hold them and a small frame keeps its low bits. Minimum and
 maximum follow Spark's float order (NaN greatest, -0.0 as 0.0, results
 canonical); a frame with no valid value is NULL, a count never is.
 
-* On CUDA tensors: one launch of ``csrc/window_frame.cu`` (row logic
-  ``csrc/window_frame_row.cuh``): a thread a row, its frame summed in a
-  loop; its partition's ends found among the flags (at most -lo back
-  and hi forward), walked one by one when those reach at most 32 rows,
-  else searched by the warp in chunks of 32 rows. Bound: 19 bytes a row
-  (value, validity and flag read once, value and validity written;
-  ``frame_bytes``), so bytes for a narrow frame; its cost grows with the
-  frame's width W.
+* On CUDA tensors: one launch of ``csrc/window_frame.cu``, its instance
+  picked by the frame's offsets (``search`` "frame"; the others force
+  one). Within the halo, -lo and hi at most ``HALO_MAX`` = 1,024 rows
+  (``tiled``), the tiled instance (``csrc/window_frame_tile.cuh``):
+  persistent blocks walk tiles of 1,280 sorted rows, each staged with its
+  halo into shared memory by 16-byte asynchronous copies, the next tile
+  while this one is computed; bitmasks of the partition starts and valid
+  rows, and scans over their words, give every row's partition clamps
+  and count (a tile with neither a start nor a NULL needs none); a
+  float64 sum adds the frame in row order with a thread's 5 rows walking
+  the union of their frames once; an int64 sum is a prefix difference;
+  min and max wider than 16 rows come from van Herk / Gil-Werman
+  segments, O(1) a row. Past the
+  halo, a documented dispatch by shape and not a fallback, the
+  thread-a-row instances (``csrc/window_frame_row.cuh``): the partition's
+  ends walked flag by flag up to 32 rows a side ("walk"), else searched
+  by the warp in chunks of 32 ("chunks"), the frame summed in a loop.
+  Bound: 19 bytes a row (value, validity and flag read once, value and
+  validity written; ``frame_bytes``), or for a wide float64 sum its W
+  adds a row.
 * On CPU tensors: ``window_frame_reference``, W shifted, masked passes in
   the same row order, so both give the same bits.
 
@@ -40,16 +52,26 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["OPS", "SEARCHES", "window_frame", "window_frame_reference",
-           "frame_bytes"]
+__all__ = ["OPS", "SEARCHES", "HALO_MAX", "tiled", "window_frame",
+           "window_frame_reference", "frame_bytes"]
 
 #: op name -> csrc/window_frame_row.cuh WfOp
 OPS = {"sum": 0, "count": 1, "avg": 2, "min": 3, "max": 4}
-#: how the kernel finds the partition ends -> WfSearchKind: "frame"
-#: picks by the offsets (the port's path), "walk" and "chunks" force
-#: one, for chip_smoke.py to time both
-SEARCHES = {"frame": 0, "walk": 1, "chunks": 2}
+#: the kernel instance a launch takes -> WfSearchKind: "frame" picks by
+#: the offsets (the port's path: "tile" within the halo, else "walk" up to
+#: 32 rows a side, else "chunks"); the others force one, for
+#: chip_smoke.py to time each
+SEARCHES = {"frame": 0, "walk": 1, "chunks": 2, "tile": 3}
+#: the farthest the tiled instance's frame reaches back (-lo) or forward
+#: (hi) (csrc/window_frame_tile.cuh WF_HALO_MAX)
+HALO_MAX = 1024
 _VALUE_TYPES = (torch.int64, torch.float64)
+
+
+def tiled(lo: int, hi: int) -> bool:
+    """Whether the tiled instance takes the frame ``[lo, hi]`` (within its
+    halo)."""
+    return -lo <= HALO_MAX and hi <= HALO_MAX
 
 
 def frame_bytes(n: int, op: str) -> int:
@@ -157,30 +179,40 @@ _LIB: dict = {}
 _LOCK = threading.Lock()
 
 
+#: csrc/window_frame.cu window_frame_launch's arguments
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int32,
+                                     ctypes.c_int32, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p]
+
+
 def _launcher():
     with _LOCK:
         if not _LIB:
             from .. import native
             lib = native.load("window_frame")
-            p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
             fn = lib.window_frame_launch
-            fn.argtypes = [p, p, p, p, p, i64, i32, i32, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, p]
+            fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
-            lib.window_frame_describe.argtypes = [p]
+            lib.window_frame_describe.argtypes = [ctypes.c_void_p]
             lib.window_frame_describe.restype = ctypes.c_int
             _LIB.update(launch=fn, describe=lib.window_frame_describe)
         return _LIB
 
 
 def describe() -> dict:
-    """The sum instance's registers a thread and threads a block, from
-    the built library."""
-    out = (ctypes.c_int * 2)()
+    """From the built library: the tiled sum instance's registers a thread
+    and threads a block, the flag-walking instance's registers, and the
+    tiled instance's halo."""
+    out = (ctypes.c_int * 4)()
     rc = _launcher()["describe"](ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"window_frame_describe failed: CUDA error {rc}")
-    return {"registers": out[0], "threads": out[1]}
+    if out[3] != HALO_MAX:
+        raise RuntimeError(f"csrc/window_frame_tile.cuh's halo is {out[3]} "
+                           f"rows, the wrapper's {HALO_MAX}")
+    return {"registers": out[0], "threads": out[1],
+            "walk_registers": out[2], "halo_max": out[3]}
 
 
 def window_frame(values: torch.Tensor, valid: torch.Tensor,
@@ -195,6 +227,10 @@ def window_frame(values: torch.Tensor, valid: torch.Tensor,
     if search not in SEARCHES:
         raise ValueError(f"window_frame search is one of "
                          f"{sorted(SEARCHES)}, not {search!r}")
+    if search == "tile" and not tiled(lo, hi):
+        raise ValueError(f"window_frame's tiled instance reaches at most "
+                         f"{HALO_MAX} rows back and forward (its halo), "
+                         f"not ROWS {lo}..{hi}")
     if values.device.type == "cpu":
         return window_frame_reference(values, valid, flags, lo, hi, op)
     if values.device.type != "cuda":

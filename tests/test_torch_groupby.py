@@ -1052,9 +1052,9 @@ def test_sort_of_a_byte_rectangle_key_is_refused():
     assert len(got) == len({v for v in vals if v is not None}) + 1
 
 
-def test_sort_larger_than_batch_size_bytes_is_refused():
-    """Refused until the out-of-core sort arrived (slice 8): an input over
-    batchSizeBytes now takes it, and gives the in-memory sort's rows."""
+def test_sort_larger_than_batch_size_bytes_runs_out_of_core():
+    """An input over batchSizeBytes takes the out-of-core sort (more than
+    one bucket) and gives the in-memory sort's rows."""
     t = _table(1000)
     conf = {**OFF, "spark.rapids.tpu.sql.batchSizeBytes": 1000}
     s = TorchSession(conf, device="cpu")

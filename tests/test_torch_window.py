@@ -680,8 +680,13 @@ def test_plain_window_frame_matches_reference_bounded_branch(how, lo, hi,
 
 
 _HOST_SRC = r"""
+#include <algorithm>
 #include <cstdint>
+#include <numeric>
+#include <random>
+#include <vector>
 #include "window_frame_row.cuh"
+#include "window_frame_tile.cuh"
 
 static int chunked = 0;  // the search the next call takes
 
@@ -727,6 +732,122 @@ extern "C" int wf_chunked_for(int32_t lo, int32_t hi) {
   return wf_chunked(lo, hi);
 }
 
+// The instance a launch with search "frame" takes: WF_SEARCH_TILE,
+// WF_SEARCH_CHUNKS or WF_SEARCH_WALK.
+extern "C" int wf_pick(int32_t lo, int32_t hi) {
+  return wf_tiled(lo, hi) ? WF_SEARCH_TILE
+                          : wf_chunked(lo, hi) ? WF_SEARCH_CHUNKS
+                                               : WF_SEARCH_WALK;
+}
+
+// The tiled kernel on the host: ``blocks`` persistent blocks in a
+// shuffled order, each walking its tiles as the kernel does (the next
+// tile staged into the other buffer before this one is computed), each
+// step's nt threads in a shuffled order, a barrier between steps, in a
+// shared memory of junk bytes with a guard after it.
+template <typename T, int OP, bool SEG>
+static int tiles(const void* v, const uint8_t* valid, const uint8_t* f,
+                 void* out, uint8_t* ok, int64_t n, int32_t lo, int32_t hi,
+                 int nt, int blocks, unsigned seed) {
+  typedef WfKind<T, OP, SEG> K;
+  if (!wf_tiled(lo, hi) || nt % 16 || ((uintptr_t)out & 15) ||
+      ((uintptr_t)ok & 15))
+    return 1;
+  const WfGeo geo = wf_geo(n, lo, hi, nt);
+  const int64_t bytes = wf_smem_bytes<T, OP, SEG>(geo);
+  const int64_t ntiles = (n + geo.rows - 1) / geo.rows;
+  if (blocks > ntiles) blocks = (int)ntiles;
+  std::vector<uint8_t> mem(bytes + 16 + 64);
+  uint8_t* base = mem.data() + ((16 - ((uintptr_t)mem.data() & 15)) & 15);
+  std::vector<int> order(blocks), th(nt);
+  std::iota(order.begin(), order.end(), 0);
+  std::iota(th.begin(), th.end(), 0);
+  std::mt19937 rng(seed);
+  std::shuffle(order.begin(), order.end(), rng);
+  for (int blk : order) {
+    for (auto& b : mem) b = (uint8_t)rng();
+    std::vector<uint8_t> guard(base + bytes, base + bytes + 48);
+    const WfSmem s = wf_carve<T, OP, SEG>(base, geo, v, valid, f);
+    auto step = [&](auto fn) {
+      std::shuffle(th.begin(), th.end(), rng);
+      for (int t : th) fn(t);
+    };
+    int64_t tile = blk;
+    step([&](int t) {
+      wf_stage<OP>(wf_at(geo, tile), wf_buf(s, 0), v, valid, f, t);
+    });
+    for (int b = 0; tile < ntiles; tile += blocks, b ^= 1) {
+      const WfGeo g = wf_at(geo, tile);
+      const int64_t next = tile + blocks;
+      if (next < ntiles)
+        step([&](int t) {
+          wf_stage<OP>(wf_at(geo, next), wf_buf(s, b ^ 1), v, valid, f, t);
+        });
+      const WfBuf bf = wf_buf(s, b);
+      bool masks = false;  // the barrier's OR
+      step([&](int t) {
+        masks = wf_clamps(g, bf, valid, f, t) || masks;
+      });
+      step([&](int t) {
+        if (masks) wf_masks(g, s, bf, t);
+        if (K::kRowScans) wf_reduce<T, OP, SEG>(g, s, bf, t);
+      });
+      step([&](int t) {
+        if (masks) wf_words(g, s, t);
+        if (K::kRowScans) wf_carries<T, OP, SEG>(g, s, t);
+      });
+      if (K::kRowScans)
+        step([&](int t) { wf_rescan<T, OP, SEG>(g, s, bf, t); });
+      step([&](int t) { wf_rows<T, OP, SEG>(g, s, bf, t, masks); });
+      step([&](int t) { wf_store(g, s, out, ok, t); });
+    }
+    if (!std::equal(guard.begin(), guard.end(), base + bytes)) return 2;
+  }
+  return 0;
+}
+
+template <typename T, int OP>
+static int tiles_seg(const void* v, const uint8_t* valid, const uint8_t* f,
+                     void* out, uint8_t* ok, int64_t n, int32_t lo,
+                     int32_t hi, int nt, int blocks, unsigned seed) {
+  return wf_segmented(OP, lo, hi)
+             ? tiles<T, OP, true>(v, valid, f, out, ok, n, lo, hi, nt,
+                                  blocks, seed)
+             : tiles<T, OP, false>(v, valid, f, out, ok, n, lo, hi, nt,
+                                   blocks, seed);
+}
+
+template <typename T>
+static int tiles_op(int op, const void* v, const uint8_t* valid,
+                    const uint8_t* f, void* out, uint8_t* ok, int64_t n,
+                    int32_t lo, int32_t hi, int nt, int blocks,
+                    unsigned seed) {
+  switch (op) {
+    case WF_SUM: return tiles_seg<T, WF_SUM>(v, valid, f, out, ok, n, lo,
+                                             hi, nt, blocks, seed);
+    case WF_COUNT: return tiles_seg<T, WF_COUNT>(v, valid, f, out, ok, n,
+                                                 lo, hi, nt, blocks, seed);
+    case WF_AVG: return tiles_seg<T, WF_AVG>(v, valid, f, out, ok, n, lo,
+                                             hi, nt, blocks, seed);
+    case WF_MIN: return tiles_seg<T, WF_MIN>(v, valid, f, out, ok, n, lo,
+                                             hi, nt, blocks, seed);
+    case WF_MAX: return tiles_seg<T, WF_MAX>(v, valid, f, out, ok, n, lo,
+                                             hi, nt, blocks, seed);
+  }
+  return 3;
+}
+
+extern "C" int wf_tile_host(const void* v, const uint8_t* valid,
+                            const uint8_t* f, void* out, uint8_t* ok,
+                            int64_t n, int32_t lo, int32_t hi, int op,
+                            int is_float, int nt, int blocks,
+                            unsigned seed) {
+  return is_float ? tiles_op<double>(op, v, valid, f, out, ok, n, lo, hi,
+                                     nt, blocks, seed)
+                  : tiles_op<int64_t>(op, v, valid, f, out, ok, n, lo, hi,
+                                      nt, blocks, seed);
+}
+
 extern "C" int wf_host(const void* v, const uint8_t* valid,
                        const uint8_t* f, void* out, uint8_t* ok, int64_t n,
                        int32_t lo, int32_t hi, int op, int is_float,
@@ -754,7 +875,12 @@ def host_lib(tmp_path_factory):
     lib.wf_host.argtypes = [p, p, p, p, p, ctypes.c_int64, i32, i32,
                             ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.wf_chunked_for.argtypes = [i32, i32]
+    lib.wf_pick.argtypes = [i32, i32]
     lib.wf_host.restype = ctypes.c_int
+    lib.wf_tile_host.argtypes = [p, p, p, p, p, ctypes.c_int64, i32, i32,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_uint]
+    lib.wf_tile_host.restype = ctypes.c_int
     return lib
 
 
@@ -812,6 +938,150 @@ def test_row_logic_matches_plain_window_frame(host_lib, how, lo, hi, kind,
     assert rc == 0
     np.testing.assert_array_equal(ok.astype(bool), wok.numpy())
     np.testing.assert_array_equal(_bits(out), _bits(want.numpy()))
+
+
+#: the tiled instance's halo (csrc/window_frame_tile.cuh WF_HALO_MAX)
+HALO_MAX = 1024
+
+
+def _tile_case(n: int, seed: int, kind: str, tile_rows: int):
+    """n sorted rows in partitions mostly shorter than 32 rows, with a
+    partition start on every third tile edge and on the row after one,
+    and the special values of ``_special_values``."""
+    rng = np.random.RandomState(seed)
+    _, _, flags = _sorted_partitions(rng, n, max(n // 12, 1)) if n > 1 \
+        else (None, None, np.ones(1, bool))
+    flags[::3 * tile_rows] = True
+    flags[tile_rows + 1::5 * tile_rows] = True
+    return _special_values(rng, n, kind), rng.rand(n) > 0.1, flags
+
+
+def _aligned16(n: int, dtype) -> np.ndarray:
+    """A zeroed vector of n elements whose data is 16-byte aligned."""
+    raw = np.zeros(n + 16, dtype=dtype)
+    off = (-raw.ctypes.data % 16) // raw.itemsize
+    return raw[off:off + n]
+
+
+def _tile_run(host_lib, vd, vv, flags, lo, hi, how, kind, nt, seed=0,
+              blocks=3, aligned=False):
+    """The tile logic on the host; its flags 5 bytes off a 16-byte
+    boundary (every tile then builds its bitmasks), or every input
+    16-byte aligned (``aligned``: interior tiles without a clamp skip
+    them)."""
+    n = len(vd)
+    out_t = np.int64 if how == "count" or (kind == "int" and how != "avg") \
+        else np.float64
+    out = _aligned16(n, out_t)
+    ok = _aligned16(n, np.uint8)
+    vd_c = _aligned16(n, vd.dtype)
+    vd_c[:] = vd
+    vv_c = _aligned16(n, np.uint8)
+    vv_c[:] = vv
+    fl_c = _aligned16(n, np.uint8) if aligned \
+        else np.zeros(n + 8, np.uint8)[5:5 + n]
+    fl_c[:] = flags
+    rc = host_lib.wf_tile_host(vd_c.ctypes.data, vv_c.ctypes.data,
+                               fl_c.ctypes.data, out.ctypes.data,
+                               ok.ctypes.data, n, lo, hi, OPS[how],
+                               int(kind == "float"), nt, blocks, seed)
+    return rc, out, ok.astype(bool)
+
+
+@pytest.mark.parametrize("how,kind", [
+    (how, kind) for how in sorted(OPS) for kind in ("int", "float")
+    if not (how == "avg" and kind == "int")])
+@pytest.mark.parametrize("lo,hi", [(-2, 0), (-100, 0), (-3, 2), (2, 5),
+                                   (3, 1), (-4, -1), (-1, 40),
+                                   (-HALO_MAX, 2)])
+@pytest.mark.parametrize("nt", [16, 256])
+def test_tile_logic_matches_plain_window_frame(host_lib, how, kind, lo, hi,
+                                               nt):
+    """csrc/window_frame_tile.cuh built by g++ and run as the tiled
+    kernel runs it (tiles in a shuffled order, each step's threads in a
+    shuffled order, shared memory full of junk), against the plain
+    version bit for bit: tiles of 80 rows (16 threads) and 1,280 (the
+    card's 256), partitions shorter than the frame, partition starts on
+    tile edges, lo > 0 and hi < 0, an empty frame (lo > hi), the widest
+    halo, a ragged last tile, NULLs, NaN, +-inf, -0.0 and int64 sums
+    that wrap."""
+    n = 2500
+    vd, vv, flags = _tile_case(n, abs(lo * 7 + hi) + nt, kind, nt * 5)
+    args = [torch.from_numpy(x) for x in (vd, vv, flags)]
+    want, wok = window_frame_reference(*args, lo, hi, how)
+    rc, out, ok = _tile_run(host_lib, vd, vv, flags, lo, hi, how, kind, nt,
+                            seed=nt + lo)
+    assert rc == 0
+    np.testing.assert_array_equal(ok, wok.numpy())
+    np.testing.assert_array_equal(_bits(out), _bits(want.numpy()))
+
+
+@pytest.mark.parametrize("how,kind", [
+    (how, kind) for how in sorted(OPS) for kind in ("int", "float")
+    if not (how == "avg" and kind == "int")])
+@pytest.mark.parametrize("lo,hi", [(-2, 0), (-100, 0), (2, 5), (-4, -1),
+                                   (-16, 0)])
+@pytest.mark.parametrize("nulls", [False, True])
+def test_tile_logic_without_clamps(host_lib, how, kind, lo, hi, nulls):
+    """Tiles with no NULL and no partition start (a block skips its
+    bitmasks: 16-byte aligned inputs) beside tiles with one, on 16
+    threads (80-row tiles): six partitions in 3,000 rows, one starting
+    at the second staged row of the tile from row 2,400 for lo = -16
+    (row 2,385), special values, and every row valid or three NULLs."""
+    rng = np.random.RandomState(abs(lo) + hi)
+    n = 3000
+    vd = _special_values(rng, n, kind)
+    flags = np.zeros(n, bool)
+    flags[[0, 700, 1601, 1602, 2385, 2689]] = True
+    vv = np.ones(n, bool)
+    if nulls:
+        vv[[150, 1234, 2950]] = False
+    args = [torch.from_numpy(x) for x in (vd, vv, flags)]
+    want, wok = window_frame_reference(*args, lo, hi, how)
+    rc, out, ok = _tile_run(host_lib, vd, vv, flags, lo, hi, how, kind, 16,
+                            aligned=True)
+    assert rc == 0
+    np.testing.assert_array_equal(ok, wok.numpy())
+    np.testing.assert_array_equal(_bits(out), _bits(want.numpy()))
+
+
+@pytest.mark.parametrize("n", [1, 7, 80, 81, 1281])
+@pytest.mark.parametrize("how", ["sum", "max", "count"])
+def test_tile_logic_on_short_inputs(host_lib, n, how):
+    """Inputs shorter than a tile, or a row past a whole tile (16 and 256
+    threads: 80 and 1,280 rows), bit for bit against the plain
+    version."""
+    for nt in (16, 256):
+        vd, vv, flags = _tile_case(n, n, "float", nt * 5)
+        args = [torch.from_numpy(x) for x in (vd, vv, flags)]
+        want, wok = window_frame_reference(*args, -3, 1, how)
+        rc, out, ok = _tile_run(host_lib, vd, vv, flags, -3, 1, how,
+                                "float", nt)
+        assert rc == 0
+        np.testing.assert_array_equal(ok, wok.numpy())
+        np.testing.assert_array_equal(_bits(out), _bits(want.numpy()))
+
+
+def test_tiled_instance_stops_at_the_halo(host_lib):
+    """The launch tiles a frame reaching at most HALO_MAX rows back and
+    forward; past it, the flag walk (up to 32 rows) or the chunked
+    search. The tile logic refuses a frame past the halo, and so does the
+    wrapper asked for the tiled instance there."""
+    lim = HALO_MAX
+    for lo, hi, want in ((-2, 0, 3), (-lim, lim, 3), (5000, 3, 3),
+                         (-40, -lim - 33, 3), (-lim - 1, 0, 2),
+                         (0, lim + 1, 2), (-lim - 20, -lim - 1, 2)):
+        assert host_lib.wf_pick(lo, hi) == want, (lo, hi)
+    vd, vv, flags = _tile_case(300, 1, "float", 80)
+    assert _tile_run(host_lib, vd, vv, flags, -lim - 1, 0, "sum", "float",
+                     16)[0] == 1
+    args = [torch.from_numpy(x) for x in (vd, vv, flags)]
+    with pytest.raises(ValueError, match="halo"):
+        window_frame(*args, -lim - 1, 0, "sum", "tile")
+    got, ok = window_frame(*args, -lim, 0, "sum", "tile")
+    want, wok = window_frame_reference(*args, -lim, 0, "sum")
+    assert torch.equal(ok, wok)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want.numpy()))
 
 
 def _bits(x: np.ndarray) -> np.ndarray:
