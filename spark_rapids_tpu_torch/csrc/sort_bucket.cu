@@ -8,27 +8,22 @@
 //
 // What bounds it on an H100: bytes. A row's K operands are read once at
 // their own widths (a 1-byte null rank, a key of 1 to 8 bytes) and its
-// 4-byte bucket written once; the splitters (at most 255 of K words) are
-// read once a block. The search is log2(S + 1) steps of one compare,
-// almost always decided by the first operand or two.
+// 4-byte bucket written once; the splitters (at most 6,144 words) are
+// read from L1. The search is log2(S + 1) steps of one compare, almost
+// always decided by the first operand or two.
 //
-// Design: persistent blocks of 256 threads (as many as the card holds
-// at once), each warp walking tiles of 128 rows on its own (fewer where
-// wide keys would pass 160 KB of shared memory a block;
-// csrc/sort_bucket_row.cuh, which the CPU tests build with g++). Each
-// operand's slice of a warp's tile is copied into the warp's shared
-// memory at the operand's own width by 16-byte asynchronous copies
-// (cp.async), into one of two buffers: the next tile's copies are in
-// flight while this tile is searched, so the copy engine, not the
-// searching threads, keeps the loads in flight (one-byte null ranks
-// loaded a lane at a time left the thread-a-row design of commit
-// 8a644d5 latency-bound). A block reads the splitters into shared
-// memory once its warps' first copies are in flight (its one barrier);
-// after that a warp waits for no other. A lane binary searches its rows
-// from shared memory, four side by side in steps of one length (their
-// first two operands read once into registers), writes the buckets to
-// the warp's shared memory, and the warp's tile goes out in 16-byte
-// stores.
+// Design: one thread a row, 256 threads a block, a block for every 256
+// rows. The operands are the sort's own vectors, passed as pointers with
+// their element types, so nothing widens or stacks them first. A thread
+// reads its row's first four operands (a sort by two orders: null rank,
+// key, null rank, key) into registers, column by column, so a warp's
+// loads are coalesced, then binary searches the splitters
+// (csrc/sort_bucket_row.cuh, which the CPU tests build with g++),
+// reading them where the sort keeps them, through the read-only cache.
+// No block stages them in shared memory: that puts a read of device
+// memory and a barrier ahead of every block's first row load, which at
+// ten microseconds a launch costs more than the search's L1 reads
+// (PERF.md section 6 has the designs timed against this one).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -37,98 +32,37 @@
 namespace {
 
 constexpr int kThreads = 256;
-// Rows a warp's tile at most (a multiple of 16), and the shared memory a
-// block keeps within (the splitters, each warp's two buffers of the
-// operands' slices and its buckets): wide keys take shorter tiles
-constexpr int kWarpRows = 128;
-constexpr int64_t kSmemBudget = 160 * 1024;
-// Splitter words a block holds in shared memory
+// Splitter words a launch takes (48 KB, within L1)
 constexpr int kMaxSplitterWords = 6144;
 
-__global__ void __launch_bounds__(kThreads)
-    sort_bucket_kernel(const SbOperands ops, int64_t n, int64_t num_rows,
-                       const int64_t* __restrict__ splitters, int S, int K,
-                       int rows, int64_t tiles, int64_t buf,
-                       int32_t* __restrict__ out) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int warps = blockDim.x >> 5;
-  const SbShared s = sb_carve(smem, S, K, rows, buf);
-  const int64_t stride = (int64_t)gridDim.x * warps;
-  int64_t tile = (int64_t)blockIdx.x * warps + w;
-  // a warp's first two tiles in flight before the block's one barrier
-  if (tile < tiles) sb_stage(s, ops, K, n, rows, tile, w, 0, lane);
-  tc_commit();
-  if (tile + stride < tiles)
-    sb_stage(s, ops, K, n, rows, tile + stride, w, 1, lane);
-  tc_commit();
-  sb_prologue(s, ops, splitters, S, K, rows, tid, blockDim.x);
-  __syncthreads();
-  for (int b = 0; tile < tiles; tile += stride, b ^= 1) {
-    tc_wait_prior();  // this tile's copies have landed, the next in flight
-    __syncwarp();
-    sb_search_tile(s, S, K, n, num_rows, rows, tile, w, b, lane);
-    __syncwarp();
-    sb_store(s, out, n, rows, tile, w, lane);
-    // buffer b, searched, takes the tile after the next
-    if (tile + 2 * stride < tiles)
-      sb_stage(s, ops, K, n, rows, tile + 2 * stride, w, b, lane);
-    tc_commit();
-  }
+__global__ void sort_bucket_kernel(const SbOperands ops, int64_t n,
+                                   int64_t num_rows,
+                                   const int64_t* __restrict__ splitters,
+                                   int S, int K, int32_t* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = sb_bucket(splitters, S, K, ops, i, num_rows);
 }
 
 }  // namespace
 
 // One launch on ``stream``: out[i] for rows 0..n-1. ``ops`` holds the K
 // operands' vectors of n rows each and their element types,
-// ``splitters`` is int64 [K][S] (ascending), ``out`` 16-byte aligned.
-// Returns the launch's CUDA error (0 on success).
+// ``splitters`` is int64 [K][S] (ascending). Returns the launch's CUDA
+// error (0 on success).
 extern "C" int sort_bucket_launch(const SbOperands* ops, int64_t n,
                                   int64_t num_rows, const int64_t* splitters,
                                   int S, int K, int32_t* out, void* stream) {
   if (n <= 0) return 0;
   if (K <= 0 || K > SB_MAX_OPERANDS || S < 0 ||
-      (int64_t)S * K > kMaxSplitterWords || ((uintptr_t)out & 15))
+      (int64_t)S * K > kMaxSplitterWords)
     return (int)cudaErrorInvalidValue;
   for (int k = 0; k < K; ++k)
     if (ops->type[k] < SB_U8 || ops->type[k] > SB_I64)
       return (int)cudaErrorInvalidValue;
-  // the multiprocessors, read once; blocks an SM, for the last
-  // shared-memory size asked
-  static int sms = 0;
-  static int64_t last_shared = -1;
-  static int per_sm = 0;
-  cudaError_t err = cudaSuccess;
-  if (!sms) {
-    int dev = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   dev);
-  }
-  const int warps = kThreads / 32;
-  const int rows = sb_tile_rows(*ops, S, K, warps, kWarpRows, kSmemBudget);
-  const int64_t buf = sb_buf_bytes(*ops, K, rows);
-  const int64_t shared = sb_smem_bytes(S, K, warps, rows, buf);
-  if (err == cudaSuccess && shared != last_shared) {
-    if (shared > 48 * 1024)
-      err = cudaFuncSetAttribute(sort_bucket_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)shared);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, sort_bucket_kernel, kThreads, (size_t)shared);
-    if (err == cudaSuccess) last_shared = shared;
-  }
-  if (err != cudaSuccess) return (int)err;
-  const int64_t tiles = (n + rows - 1) / rows;
-  const int64_t need = (tiles + warps - 1) / warps;
-  int64_t blocks = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-  if (blocks > need) blocks = need;
-  sort_bucket_kernel<<<(unsigned)blocks, kThreads, (size_t)shared,
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  sort_bucket_kernel<<<(unsigned)blocks, kThreads, 0,
                        (cudaStream_t)stream>>>(*ops, n, num_rows, splitters,
-                                               S, K, rows, tiles, buf,
-                                               out);
+                                               S, K, out);
   return (int)cudaGetLastError();
 }
 
@@ -138,14 +72,12 @@ extern "C" int sort_bucket_max_words() { return kMaxSplitterWords; }
 // The operands a launch takes.
 extern "C" int sort_bucket_max_operands() { return SB_MAX_OPERANDS; }
 
-// Registers a thread of the kernel, its threads a block, and the rows of
-// a warp's tile at most.
+// Registers a thread of the kernel, and its threads a block.
 extern "C" int sort_bucket_describe(int* out) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, sort_bucket_kernel);
   if (err != cudaSuccess) return (int)err;
   out[0] = attr.numRegs;
   out[1] = kThreads;
-  out[2] = kWarpRows;
   return 0;
 }

@@ -1,39 +1,25 @@
-// The row and tile logic of the sort_bucket kernel (csrc/sort_bucket.cu):
-// a row's bucket in the out-of-core sample sort, found by a binary search
-// over the splitters, for every row of a tile staged in shared memory.
+// The per-row logic of the sort_bucket kernel (csrc/sort_bucket.cu): a
+// row's bucket in the out-of-core sample sort, found by a binary search
+// over the splitters.
 // Everything here is __host__ __device__, so g++ builds it on a machine
-// without CUDA and the tests run a block's steps thread by thread between
-// its barriers, against the plain version (tests/test_torch_sort_ooc.py).
+// without CUDA and the tests hold it to the plain version
+// (tests/test_torch_sort_ooc.py).
 //
 // A row's sort key is its K encoded sort operands in order
 // (exec/encoding.py ``order_key_operands``: each order's null rank, then
 // its key), each a column of its own width: operand k is the vector at
-// ops.ptr[k] of the element type ops.type[k], widened to int64 when read
-// (uint8 zero-extended, the signed types sign-extended, so the widened
-// values keep the operands' order). The S splitters are keys of the same
-// operands widened to int64, sorted ascending, stored splitter by
-// splitter in ``sp``: word k of splitter s at sp[s * K + k]. A row's
+// ops.ptr[k] of the element type ops.type[k], read at row i and widened
+// to int64 (uint8 zero-extended, the signed types sign-extended, so the
+// widened values keep the operands' order); a row's first SB_CACHED
+// operands are read once, into registers, the rest only at the compares
+// that reach them. The S splitters are keys of the same operands
+// widened to int64, sorted ascending, operand by operand in ``sp``:
+// word k of splitter s at sp[k * S + s]. A row's
 // bucket is the number of splitters lexicographically <= its key (the
 // reference's ``_bucket_id_kernel``, spark_rapids_tpu/exec/sort.py:164);
 // a padding row (i >= num_rows) goes to bucket S + 1.
-//
-// Every warp of a block walks tiles of ``rows`` rows (a multiple of 16)
-// on its own: warp w of block k takes tile k * warps + w, then every
-// (blocks * warps)-th after it. For each tile every operand's slice is
-// copied into one of the warp's two buffers of shared memory
-// (tile_copy.cuh: 16-byte asynchronous copies, at the column's phase
-// modulo 16), the next tile's while this one is searched; a warp's first
-// two tiles' copies go out before the block reads the splitters (the
-// block's one barrier), and a buffer once searched takes the tile after
-// the next. Lane l searches rows l, l + 32, ... of the tile from shared
-// memory, SB_LANE_ROWS of them side by side (a row's first two operands
-// read once into registers, the rest at the compares that reach them),
-// writes the buckets to the warp's shared memory, and the tile goes out
-// in 16-byte stores. A warp waits for no other warp.
 #pragma once
 #include <stdint.h>
-
-#include "tile_copy.cuh"
 
 #ifdef __CUDACC__
 #define SB_HD __host__ __device__ __forceinline__
@@ -53,221 +39,96 @@ struct SbOperands {
   int32_t type[SB_MAX_OPERANDS];
 };
 
-SB_HD int sb_width(int32_t type) {
-  return type == SB_I64 ? 8 : type == SB_I32 ? 4 : type == SB_I16 ? 2 : 1;
-}
-
-// Element j of a column of ``type`` at ``col``, widened to int64.
-SB_HD int64_t sb_load(const uint8_t* col, int32_t type, int64_t j) {
-  switch (type) {
+// Operand k of row i, widened to int64.
+SB_HD int64_t sb_load(const SbOperands& ops, int k, int64_t i) {
+  const void* p = ops.ptr[k];
+  switch (ops.type[k]) {
     case SB_U8:
-      return col[j];
+      return ((const uint8_t*)p)[i];
     case SB_I8:
-      return ((const int8_t*)col)[j];
+      return ((const int8_t*)p)[i];
     case SB_I16:
-      return ((const int16_t*)col)[j];
+      return ((const int16_t*)p)[i];
     case SB_I32:
-      return ((const int32_t*)col)[j];
+      return ((const int32_t*)p)[i];
     default:
-      return ((const int64_t*)col)[j];
+      return ((const int64_t*)p)[i];
   }
 }
 
-SB_HD int64_t sb_up16(int64_t b) { return (b + 15) & ~(int64_t)15; }
+// Operands of a row read once, into registers, before the search (the
+// search's first steps are decided by the first operands; the rest are
+// read at the compares that reach them)
+#define SB_CACHED 4
 
-// Shared-memory bytes of one operand's slice of a tile (with room for its
-// phase), and of one buffer of every operand's.
-SB_HD int64_t sb_slot(int32_t type, int rows) {
-  return (int64_t)rows * sb_width(type) + 16;
-}
-
-SB_HD int64_t sb_buf_bytes(const SbOperands& ops, int K, int rows) {
-  int64_t b = 0;
-  for (int k = 0; k < K; ++k) b += sb_slot(ops.type[k], rows);
-  return b;
-}
-
-// A block's shared memory: the splitters, each operand's offset in a
-// buffer and type, then each warp's region: its two buffers and its
-// tile's buckets.
-struct SbShared {
-  int64_t* sp;
-  int32_t* off;    // operand k's first row in a buffer, bytes from it
-  int32_t* type;
-  uint8_t* warps;  // warp w's region at warps + w * region
-  int64_t buf;     // a buffer's bytes (buffer b at b * buf in a region)
-  int64_t region;  // a warp's bytes: two buffers, ``rows`` buckets
+// A row's first SB_CACHED operands, widened (0 past K).
+struct SbRow {
+  int64_t v[SB_CACHED];
 };
 
-SB_HD int64_t sb_region(int rows, int64_t buf) {
-  return 2 * buf + sb_up16(4 * (int64_t)rows);
+SB_HD SbRow sb_row(const SbOperands& ops, int K, int64_t i) {
+  SbRow r;
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+  for (int k = 0; k < SB_CACHED; ++k)
+    r.v[k] = k < K ? sb_load(ops, k, i) : 0;
+  return r;
 }
 
-SB_HD int64_t sb_smem_bytes(int S, int K, int warps, int rows,
-                            int64_t buf) {
-  return sb_up16(8 * (int64_t)S * K) + 2 * sb_up16(4 * (int64_t)K) +
-         warps * sb_region(rows, buf);
+// Word k of splitter s (``sp`` int64 [K][S]), through the card's
+// read-only cache.
+SB_HD int64_t sb_word(const int64_t* sp, int S, int k, int s) {
+#ifdef __CUDA_ARCH__
+  return __ldg(sp + (int64_t)k * S + s);
+#else
+  return sp[(int64_t)k * S + s];
+#endif
 }
 
-SB_HD SbShared sb_carve(uint8_t* base, int S, int K, int rows,
-                        int64_t buf) {
-  SbShared s;
-  s.sp = (int64_t*)base;
-  base += sb_up16(8 * (int64_t)S * K);
-  s.off = (int32_t*)base;
-  base += sb_up16(4 * (int64_t)K);
-  s.type = (int32_t*)base;
-  base += sb_up16(4 * (int64_t)K);
-  s.warps = base;
-  s.buf = buf;
-  s.region = sb_region(rows, buf);
-  return s;
-}
-
-// Buffer b of warp w, and the warp's buckets.
-SB_HD uint8_t* sb_buffer(const SbShared& s, int w, int b) {
-  return s.warps + w * s.region + b * s.buf;
-}
-
-SB_HD int32_t* sb_buckets(const SbShared& s, int w) {
-  return (int32_t*)(s.warps + w * s.region + 2 * s.buf);
-}
-
-// The block's step: the splitters (int64 [K][S] in device memory) into
-// shared memory splitter by splitter; the operands' offsets and types
-// (thread 0).
-SB_HD void sb_prologue(const SbShared& s, const SbOperands& ops,
-                       const int64_t* splitters, int S, int K, int rows,
-                       int tid, int nt) {
-  for (int t = tid; t < S * K; t += nt) {
-    const int i = t / K, k = t - i * K;
-    s.sp[t] = splitters[(int64_t)k * S + i];
+// Whether splitter s is lexicographically <= row i (its first operands
+// in ``r``).
+SB_HD bool sb_splitter_le_row(const int64_t* sp, int S, int K, int s,
+                              const SbOperands& ops, const SbRow& r,
+                              int64_t i) {
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+  for (int k = 0; k < SB_CACHED; ++k) {
+    if (k >= K) return true;
+    const int64_t a = sb_word(sp, S, k, s);
+    if (a != r.v[k]) return a < r.v[k];
   }
-  if (tid != 0) return;
-  int64_t off = 0;
-  for (int k = 0; k < K; ++k) {
-    s.off[k] = (int32_t)(off + tc_phase(ops.ptr[k]));
-    s.type[k] = ops.type[k];
-    off += sb_slot(ops.type[k], rows);
-  }
-}
-
-// Warp w's lane ``lane``: copy every operand's slice of ``tile`` into the
-// warp's buffer ``b`` (in flight until the lane waits for its group).
-SB_HD void sb_stage(const SbShared& s, const SbOperands& ops, int K,
-                    int64_t n, int rows, int64_t tile, int w, int b,
-                    int lane) {
-  const int64_t r0 = tile * rows;
-  const int64_t r1 = r0 + rows < n ? r0 + rows : n;
-  uint8_t* dst = sb_buffer(s, w, b);
-  for (int k = 0; k < K; ++k) {
-    const int wd = sb_width(ops.type[k]);
-    // rows * wd is a multiple of 16: the slice keeps the column's phase
-    tc_stage(dst + tc_phase(ops.ptr[k]),
-             (const uint8_t*)ops.ptr[k] + wd * r0, wd * (int)(r1 - r0), lane,
-             32);
-    dst += sb_slot(ops.type[k], rows);
-  }
-}
-
-// Rows a lane searches side by side (their steps interleave)
-#define SB_LANE_ROWS 4
-
-// Operand k of row j of a tile staged at ``col0``, widened.
-SB_HD int64_t sb_operand(const SbShared& s, const uint8_t* col0, int k,
-                         int j) {
-  return sb_load(col0 + s.off[k], s.type[k], j);
-}
-
-// Whether splitter i is lexicographically <= row j, whose first two
-// operands (0 past K) are v0, v1: those decide all but a tie, without a
-// branch (a warp's rows take one path); a tie reads the rest.
-SB_HD bool sb_le(const SbShared& s, int K, int i, int64_t v0, int64_t v1,
-                 const uint8_t* col0, int j) {
-  const int64_t* a = s.sp + (int64_t)i * K;
-  const int64_t a0 = a[0], a1 = K > 1 ? a[1] : v1;
-  const bool eq = (a0 == v0) & (a1 == v1);
-  if (!eq || K <= 2) return (a0 < v0) | ((a0 == v0) & (a1 < v1)) | eq;
-  for (int k = 2; k < K; ++k) {
-    const int64_t b = sb_operand(s, col0, k, j);
-    if (a[k] != b) return a[k] < b;
+  for (int k = SB_CACHED; k < K; ++k) {
+    const int64_t a = sb_word(sp, S, k, s), b = sb_load(ops, k, i);
+    if (a != b) return a < b;
   }
   return true;
 }
 
-// Warp w's lane ``lane``: its rows of ``tile`` (staged in the warp's
-// buffer b), buckets into the warp's shared memory (S + 1 for a padding
-// row). A row's bucket is the count of splitters <= it: a binary search
-// of fixed steps (``top``, top / 2, ..., 1: the highest power of two <= S
-// first), the same for every row, so that a lane's SB_LANE_ROWS rows
-// advance together.
-SB_HD void sb_search_tile(const SbShared& s, int S, int K, int64_t n,
-                          int64_t num_rows, int rows, int64_t tile, int w,
-                          int b, int lane) {
-  const int64_t r0 = tile * rows;
-  const int64_t live = (num_rows < n ? num_rows : n) - r0;
-  int32_t* bucket = sb_buckets(s, w);
-  const uint8_t* col0 = sb_buffer(s, w, b);
-  // the first two operands' columns and types (a second as the first
-  // where K is 1: its value is then unused)
-  const uint8_t* c0 = col0 + s.off[0];
-  const uint8_t* c1 = col0 + s.off[K > 1 ? 1 : 0];
-  const int32_t t0 = s.type[0], t1 = s.type[K > 1 ? 1 : 0];
-  int top = 1;
-  while (2 * top <= S) top *= 2;
-  for (int j0 = lane; j0 < rows && j0 < live; j0 += 32 * SB_LANE_ROWS) {
-    int64_t v0[SB_LANE_ROWS], v1[SB_LANE_ROWS];
-    int lo[SB_LANE_ROWS];
-#ifdef __CUDACC__
-#pragma unroll
-#endif
-    for (int q = 0; q < SB_LANE_ROWS; ++q) {
-      const int j = j0 + 32 * q;
-      const bool in = j < rows && j < live;
-      v0[q] = in ? sb_load(c0, t0, j) : 0;
-      v1[q] = in && K > 1 ? sb_load(c1, t1, j) : 0;
-      lo[q] = 0;
-    }
-    for (int step = S ? top : 0; step > 0; step >>= 1) {
-#ifdef __CUDACC__
-#pragma unroll
-#endif
-      for (int q = 0; q < SB_LANE_ROWS; ++q)
-        if (lo[q] + step <= S &&
-            sb_le(s, K, lo[q] + step - 1, v0[q], v1[q], col0, j0 + 32 * q))
-          lo[q] += step;
-    }
-#ifdef __CUDACC__
-#pragma unroll
-#endif
-    for (int q = 0; q < SB_LANE_ROWS; ++q)
-      if (j0 + 32 * q < rows && j0 + 32 * q < live)
-        bucket[j0 + 32 * q] = lo[q];
+// Row i's bucket (its first operands in ``r``): the first splitter
+// greater than the row (an upper bound over the sorted splitters), S + 1
+// for a padding row.
+SB_HD int32_t sb_search(const int64_t* sp, int S, int K,
+                        const SbOperands& ops, const SbRow& r, int64_t i,
+                        int64_t num_rows) {
+  if (i >= num_rows) return S + 1;
+  int lo = 0, hi = S;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (sb_splitter_le_row(sp, S, K, mid, ops, r, i))
+      lo = mid + 1;
+    else
+      hi = mid;
   }
-  // padding rows (num_rows <= row < n)
-  for (int j = (live > 0 ? (int)live : 0) + lane; j < rows && r0 + j < n;
-       j += 32)
-    bucket[j] = S + 1;
+  return lo;
 }
 
-// Warp w's lane ``lane``: the tile's buckets to device memory (``out``
-// 16-byte aligned; 4 * rows is a multiple of 16).
-SB_HD void sb_store(const SbShared& s, int32_t* out, int64_t n, int rows,
-                    int64_t tile, int w, int lane) {
-  const int64_t r0 = tile * rows;
-  const int64_t r1 = r0 + rows < n ? r0 + rows : n;
-  tc_store((uint8_t*)(out + r0), (const uint8_t*)sb_buckets(s, w),
-           4 * (int)(r1 - r0), lane, 32);
-}
-
-// The rows a warp's tile: ``most`` (a multiple of 16), halved while a
-// block of ``warps`` warps would pass ``budget`` bytes of shared memory
-// (at least 16).
-SB_HD int sb_tile_rows(const SbOperands& ops, int S, int K, int warps,
-                       int most, int64_t budget) {
-  int rows = most;
-  while (rows > 16 && sb_smem_bytes(S, K, warps, rows,
-                                    sb_buf_bytes(ops, K, rows)) > budget)
-    rows /= 2;
-  return rows;
+// Row i's bucket, its operands read here.
+SB_HD int32_t sb_bucket(const int64_t* sp, int S, int K,
+                        const SbOperands& ops, int64_t i,
+                        int64_t num_rows) {
+  SbRow r = {};
+  if (i < num_rows) r = sb_row(ops, K, i);
+  return sb_search(sp, S, K, ops, r, i, num_rows);
 }

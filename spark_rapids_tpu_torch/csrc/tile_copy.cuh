@@ -1,6 +1,6 @@
 // Staging a range of rows of a column into shared memory, and a tile of
-// results back to device memory, for the tiled kernels (window_frame,
-// sort_bucket). Everything is __host__ __device__: on the card a 16-byte
+// results back to device memory, for window_frame's tiled instance
+// (csrc/window_frame_tile.cuh). Everything is __host__ __device__: on the card a 16-byte
 // piece goes by an asynchronous copy (cp.async.cg, through L2 only), and
 // the ragged ends by ordinary loads; g++ builds the same code for the
 // CPU tests, where a piece is a memcpy and the waits do nothing.
@@ -26,7 +26,7 @@ TC_HD int tc_phase(const void* a, int64_t off = 0) {
 }
 
 // One 16-byte piece, both addresses 16-byte aligned: asynchronous on the
-// card (complete after tc_wait_all, or tc_wait_prior for a later group).
+// card (complete after tc_wait_prior, once a later group is committed).
 TC_HD void tc_copy16(void* smem, const void* global) {
 #ifdef __CUDA_ARCH__
   const unsigned d = (unsigned)__cvta_generic_to_shared(smem);
@@ -42,13 +42,6 @@ TC_HD void tc_copy16(void* smem, const void* global) {
 TC_HD void tc_commit() {
 #ifdef __CUDA_ARCH__
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-#endif
-}
-
-// Wait for every copy the thread issued.
-TC_HD void tc_wait_all() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 #endif
 }
 

@@ -36,12 +36,12 @@
 //
 // Dispatch by the frame's offsets (``search`` "frame", the port's path):
 // the tiled instance takes a frame reaching at most WF_HALO_MAX = 1,024
-// rows back and forward. Past that, the thread-a-row instances
-// (csrc/window_frame_row.cuh): the flags walked one by one where the
-// frame reaches at most 32 rows, else searched by the warp in chunks of
-// 32, and the row's frame summed in a loop. ``search`` can force an
-// instance, for chip_smoke.py to time each. An instance per (value type,
-// op) keeps the op's branches out of the loops.
+// rows back and forward. Past that, the chunked instance
+// (csrc/window_frame_row.cuh), a thread a row: the partition's ends
+// searched by the warp in chunks of 32 flags, the row's frame summed in
+// a loop. ``search`` can force an instance, for chip_smoke.py to time
+// each. An instance per (value type, op) keeps the op's branches out of
+// the loops.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,7 +58,7 @@ constexpr unsigned kAll = 0xffffffffu;
 // registers to 65536 / (256 * WF_MIN_BLOCKS) a thread)
 #define WF_MIN_BLOCKS 4
 
-template <typename T, int OP, bool CHUNKED>
+template <typename T, int OP>
 __global__ void window_frame_kernel(const T* __restrict__ values,
                                     const uint8_t* __restrict__ valid,
                                     const uint8_t* __restrict__ flags,
@@ -69,19 +69,6 @@ __global__ void window_frame_kernel(const T* __restrict__ values,
       OP == WF_COUNT, int64_t,
       typename std::conditional<OP == WF_AVG, double, T>::type>::type Out;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  if (!CHUNKED) {
-    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-         i += stride) {
-      int64_t a, b;
-      wf_walk_bounds(flags, n, i, lo, hi, &a, &b);
-      Out r;
-      uint8_t ok;
-      wf_row<T, OP>(values, valid, a, b, &r, &ok);
-      ((Out*)out)[i] = r;
-      out_valid[i] = ok;
-    }
-    return;
-  }
   const int lane = threadIdx.x & 31;
   // a warp's 32 rows from base (a multiple of 32: so are blockDim and the
   // stride); every lane runs the search, the rows past n as well
@@ -153,19 +140,13 @@ __global__ void __launch_bounds__(WF_TILE_THREADS, WF_MIN_BLOCKS)
   }
 }
 
-// The multiprocessors of the current device, read once.
+// The multiprocessors of the current device.
 int sm_count(int* sms) {
-  static int cached = 0;
-  if (!cached) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount,
-                                   dev);
-    if (err != cudaSuccess) return (int)err;
-  }
-  *sms = cached;
-  return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)err;
 }
 
 template <typename T, int OP, bool SEG>
@@ -174,27 +155,22 @@ int launch_tile(const void* values, const uint8_t* valid,
                 int64_t n, int32_t lo, int32_t hi, cudaStream_t stream) {
   const WfGeo g = wf_geo(n, lo, hi, WF_TILE_THREADS);
   const int64_t smem = wf_smem_bytes<T, OP, SEG>(g);
+  // The instance may take as much shared memory as its widest frame
+  // needs (about 111 KB), set on every launch: one size, so launches on
+  // other threads and devices never see it lowered.
+  const int64_t most = wf_smem_bytes<T, OP, SEG>(
+      wf_geo(n, -WF_HALO_MAX, WF_HALO_MAX, WF_TILE_THREADS));
   int sms = 0, per_sm = 0;
-  const int rc = sm_count(&sms);
+  int rc = sm_count(&sms);
   if (rc) return rc;
-  // blocks an SM, for the last shared-memory size asked
-  static int64_t last_smem = -1;
-  static int last_per_sm = 0;
-  cudaError_t err = cudaSuccess;
-  if (smem != last_smem) {
-    if (smem > 48 * 1024)
-      err = cudaFuncSetAttribute(window_frame_tile_kernel<T, OP, SEG>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, window_frame_tile_kernel<T, OP, SEG>, WF_TILE_THREADS,
-          (size_t)smem);
-    if (err != cudaSuccess) return (int)err;
-    last_per_sm = per_sm;
-    last_smem = smem;
-  }
-  per_sm = last_per_sm;
+  cudaError_t err = cudaFuncSetAttribute(
+      window_frame_tile_kernel<T, OP, SEG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, window_frame_tile_kernel<T, OP, SEG>, WF_TILE_THREADS,
+        (size_t)smem);
+  if (err != cudaSuccess) return (int)err;
   const int64_t tiles = (n + g.rows - 1) / g.rows;
   int64_t blocks = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
   if (blocks > tiles) blocks = tiles;
@@ -221,15 +197,8 @@ int launch(const void* values, const uint8_t* valid, const uint8_t* flags,
   int64_t blocks = (n + kThreads - 1) / kThreads;
   const int64_t cap = (int64_t)sms * (2048 / kThreads) * 4;
   if (blocks > cap) blocks = cap;
-  if (search == WF_SEARCH_FRAME ? wf_chunked(lo, hi)
-                               : search == WF_SEARCH_CHUNKS)
-    window_frame_kernel<T, OP, true><<<(unsigned)blocks, kThreads, 0,
-                                       stream>>>(
-        (const T*)values, valid, flags, out, out_valid, n, lo, hi);
-  else
-    window_frame_kernel<T, OP, false><<<(unsigned)blocks, kThreads, 0,
-                                        stream>>>(
-        (const T*)values, valid, flags, out, out_valid, n, lo, hi);
+  window_frame_kernel<T, OP><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      (const T*)values, valid, flags, out, out_valid, n, lo, hi);
   return (int)cudaGetLastError();
 }
 
@@ -287,7 +256,7 @@ extern "C" int window_frame_launch(const void* values, const uint8_t* valid,
 }
 
 // Registers a thread of the tiled sum instance over doubles, its threads
-// a block, registers a thread of the flag-walking one, and the halo limit.
+// a block, registers a thread of the chunked one, and the halo limit.
 extern "C" int window_frame_describe(int* out) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(
@@ -295,8 +264,7 @@ extern "C" int window_frame_describe(int* out) {
   if (err != cudaSuccess) return (int)err;
   out[0] = attr.numRegs;
   out[1] = WF_TILE_THREADS;
-  err = cudaFuncGetAttributes(&attr,
-                              window_frame_kernel<double, WF_SUM, false>);
+  err = cudaFuncGetAttributes(&attr, window_frame_kernel<double, WF_SUM>);
   if (err != cudaSuccess) return (int)err;
   out[2] = attr.numRegs;
   out[3] = WF_HALO_MAX;

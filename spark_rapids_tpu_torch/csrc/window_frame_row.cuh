@@ -1,5 +1,5 @@
-// The per-row logic of the window_frame kernel's thread-a-row instances
-// (csrc/window_frame.cu), which take frames past the tiled instance's
+// The per-row logic of the window_frame kernel's chunked instance
+// (csrc/window_frame.cu), which takes frames past the tiled instance's
 // halo (csrc/window_frame_tile.cuh): one row's aggregate over its bounded
 // ROWS frame.
 // Everything here is __host__ __device__, so g++ builds it on a machine
@@ -10,10 +10,9 @@
 // partition (flags[0] is 1). Row i's partition runs from start to end
 // (inclusive) and its frame is [max(start, i + lo), min(end, i + hi)].
 // The partition's ends are searched among the flags at most -lo rows
-// back and hi forward: flag by flag (``wf_walk_bounds``) where those
-// are at most WF_WALK_ROWS, else in chunks of 32 rows
-// (``wf_chunk_bounds``), a chunk's flags as a 32-bit mask, which on the
-// card is one load a lane and a ballot for the warp's 32 rows at once.
+// back and hi forward, in chunks of 32 rows (``wf_chunk_bounds``), a
+// chunk's flags as a 32-bit mask, which on the card is one load a lane
+// and a ballot for the warp's 32 rows at once.
 // Values are int64 or double (the wrapper widens narrower types; an
 // average takes doubles). NULL rows (valid 0) are
 // skipped. The sum adds the frame's valid values in ascending row order
@@ -69,41 +68,11 @@ WF_HD int64_t wf_add(int64_t a, int64_t b) {
 }
 WF_HD double wf_add(double a, double b) { return a + b; }
 
-// The longest search, back or forward, done flag by flag
-#define WF_WALK_ROWS 32
-
 // The kernel instance a launch takes (exec/window_frame.py SEARCHES):
 // picked by the frame (the tiled one within its halo, csrc/
-// window_frame_tile.cuh ``wf_tiled``; past it the walk or the chunks,
-// ``wf_chunked``), or forced
-enum WfSearchKind { WF_SEARCH_FRAME = 0, WF_SEARCH_WALK = 1,
-                    WF_SEARCH_CHUNKS = 2, WF_SEARCH_TILE = 3 };
-
-// Whether the frame's search goes by chunks.
-WF_HD bool wf_chunked(int32_t lo, int32_t hi) {
-  return -(int64_t)lo > WF_WALK_ROWS || hi > WF_WALK_ROWS;
-}
-
-// Row i's frame bounds [*a, *b], flag by flag; empty when *a > *b. The
-// partition's start clamps the frame's first row only when it lies in
-// (i + lo, i], the next partition's start (or n) its last only when it
-// lies in (i, i + hi].
-WF_HD void wf_walk_bounds(const uint8_t* flags, int64_t n, int64_t i,
-                          int32_t lo, int32_t hi, int64_t* a, int64_t* b) {
-  int64_t x = i + lo, y = i + hi;
-  for (int64_t j = i; j > x && j >= 0; --j)
-    if (flags[j]) {
-      x = j;
-      break;
-    }
-  for (int64_t j = i + 1; j <= y; ++j)
-    if (j >= n || flags[j]) {
-      y = j - 1;
-      break;
-    }
-  *a = x;
-  *b = y;
-}
+// window_frame_tile.cuh ``wf_tiled``, else the chunked one), or forced
+enum WfSearchKind { WF_SEARCH_FRAME = 0, WF_SEARCH_CHUNKS = 1,
+                    WF_SEARCH_TILE = 2 };
 
 // The partition ends' search, in chunks of 32 rows. The 32 rows from
 // ``base`` (a multiple of 32) are a warp's on the card. Chunk c of the

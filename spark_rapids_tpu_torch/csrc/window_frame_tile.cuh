@@ -67,8 +67,7 @@
 // so a half-warp's 16 loads never share a bank)
 #define WF_TILE_R 5
 // The farthest a tiled frame reaches back (-lo) or forward (hi); past it
-// the launch takes the flag walk or the chunked search
-// (exec/window_frame.py)
+// the launch takes the chunked instance (exec/window_frame.py)
 #define WF_HALO_MAX 1024
 // Threads a block on the card
 #define WF_TILE_THREADS 256

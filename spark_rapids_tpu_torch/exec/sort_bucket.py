@@ -16,15 +16,12 @@ Replaces the reference's jitted ``_bucket_id_kernel``
 (``spark_rapids_tpu/exec/sort.py:164-187``), which compares every row
 with every splitter in a ``fori_loop``.
 
-* On CUDA tensors: one launch of ``csrc/sort_bucket.cu`` (row and tile
-  logic ``csrc/sort_bucket_row.cuh``): persistent blocks, each warp
-  walking tiles of 128 rows on its own, the splitters in shared memory,
-  each operand's slice of the next tile copied into the warp's shared
-  memory at its own width by 16-byte asynchronous copies while this tile
-  is searched, a lane's 4 rows binary searched side by side, the buckets
-  out in 16-byte stores. Bound: a row's
-  operands read and its bucket written once, the sum of the operands'
-  widths plus 4 bytes (``bucket_bytes``).
+* On CUDA tensors: one launch of ``csrc/sort_bucket.cu`` (row logic
+  ``csrc/sort_bucket_row.cuh``): a thread a row, each operand read from
+  its own vector at its own width, a binary search over the splitters
+  read through the read-only cache. Bound: a row's operands read and its
+  bucket written once, the sum of the operands' widths plus 4 bytes
+  (``bucket_bytes``).
 * On CPU tensors: ``sort_bucket_reference``, the reference's loop over
   the splitters as eager torch.
 
@@ -161,13 +158,12 @@ def _launcher():
 
 
 def describe() -> dict:
-    """The kernel's registers a thread, threads a block and rows of a
-    warp's tile at most."""
-    out = (ctypes.c_int * 3)()
+    """The kernel's registers a thread and threads a block."""
+    out = (ctypes.c_int * 2)()
     rc = _launcher()["describe"](ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"sort_bucket_describe failed: CUDA error {rc}")
-    return {"registers": out[0], "threads": out[1], "tile_rows": out[2]}
+    return {"registers": out[0], "threads": out[1]}
 
 
 def sort_bucket(operands: List[torch.Tensor], splitters: torch.Tensor,

@@ -32,10 +32,10 @@ canonical); a frame with no valid value is NULL, a count never is.
   the union of their frames once; an int64 sum is a prefix difference;
   min and max wider than 16 rows come from van Herk / Gil-Werman
   segments, O(1) a row. Past the
-  halo, a documented dispatch by shape and not a fallback, the
-  thread-a-row instances (``csrc/window_frame_row.cuh``): the partition's
-  ends walked flag by flag up to 32 rows a side ("walk"), else searched
-  by the warp in chunks of 32 ("chunks"), the frame summed in a loop.
+  halo, a documented dispatch by shape and not a fallback, the chunked
+  instance ("chunks", ``csrc/window_frame_row.cuh``), a thread a row: the
+  partition's ends searched by the warp in chunks of 32 flags, the frame
+  summed in a loop.
   Bound: 19 bytes a row (value, validity and flag read once, value and
   validity written; ``frame_bytes``), or for a wide float64 sum its W
   adds a row.
@@ -58,10 +58,9 @@ __all__ = ["OPS", "SEARCHES", "HALO_MAX", "tiled", "window_frame",
 #: op name -> csrc/window_frame_row.cuh WfOp
 OPS = {"sum": 0, "count": 1, "avg": 2, "min": 3, "max": 4}
 #: the kernel instance a launch takes -> WfSearchKind: "frame" picks by
-#: the offsets (the port's path: "tile" within the halo, else "walk" up to
-#: 32 rows a side, else "chunks"); the others force one, for
-#: chip_smoke.py to time each
-SEARCHES = {"frame": 0, "walk": 1, "chunks": 2, "tile": 3}
+#: the offsets (the port's path: "tile" within the halo, else "chunks");
+#: the others force one, for chip_smoke.py to time each
+SEARCHES = {"frame": 0, "chunks": 1, "tile": 2}
 #: the farthest the tiled instance's frame reaches back (-lo) or forward
 #: (hi) (csrc/window_frame_tile.cuh WF_HALO_MAX)
 HALO_MAX = 1024
@@ -202,8 +201,8 @@ def _launcher():
 
 def describe() -> dict:
     """From the built library: the tiled sum instance's registers a thread
-    and threads a block, the flag-walking instance's registers, and the
-    tiled instance's halo."""
+    and threads a block, the chunked instance's registers, and the tiled
+    instance's halo."""
     out = (ctypes.c_int * 4)()
     rc = _launcher()["describe"](ctypes.addressof(out))
     if rc != 0:
@@ -212,7 +211,7 @@ def describe() -> dict:
         raise RuntimeError(f"csrc/window_frame_tile.cuh's halo is {out[3]} "
                            f"rows, the wrapper's {HALO_MAX}")
     return {"registers": out[0], "threads": out[1],
-            "walk_registers": out[2], "halo_max": out[3]}
+            "chunk_registers": out[2], "halo_max": out[3]}
 
 
 def window_frame(values: torch.Tensor, valid: torch.Tensor,

@@ -259,85 +259,23 @@ def test_plain_sort_bucket_matches_reference_kernel(k, s):
 
 
 _HOST_SRC = r"""
-#include <algorithm>
 #include <cstdint>
-#include <numeric>
-#include <random>
-#include <vector>
 #include "sort_bucket_row.cuh"
 
 // The kernel on the host: the operands' pointers and types as the launch
-// packs them; ``blocks`` persistent blocks of ``warps`` warps, in a
-// shuffled order: each block's first step (every warp staging its first
-// two tiles, then the splitters), then each warp, in a shuffled order,
-// walking its tiles as on the card (a buffer, once searched, staged with
-// the tile after the next), each step's 32 lanes in a shuffled order; in
-// a shared memory of junk bytes with a guard after it.
-extern "C" int sb_tile_host(const void* const* ptrs, const int32_t* types,
-                            int64_t n, int64_t num_rows,
-                            const int64_t* splitters, int S, int K,
-                            int32_t* out, int rows, int warps, int blocks,
-                            unsigned seed) {
+// packs them, then every row's search over the splitters as the sort
+// keeps them ([K][S]).
+extern "C" void sb_host(const void* const* ptrs, const int32_t* types,
+                        int64_t n, int64_t num_rows,
+                        const int64_t* splitters, int S, int K,
+                        int32_t* out) {
   SbOperands ops = {};
   for (int k = 0; k < K; ++k) {
     ops.ptr[k] = ptrs[k];
     ops.type[k] = types[k];
   }
-  if (rows % 16 || ((uintptr_t)out & 15)) return 1;
-  const int64_t buf = sb_buf_bytes(ops, K, rows);
-  const int64_t bytes = sb_smem_bytes(S, K, warps, rows, buf);
-  std::vector<uint8_t> mem(bytes + 16 + 64);
-  uint8_t* base = mem.data() + ((16 - ((uintptr_t)mem.data() & 15)) & 15);
-  const int64_t tiles = (n + rows - 1) / rows;
-  const int64_t stride = (int64_t)blocks * warps;
-  std::vector<int> order(blocks), wo(warps), th(warps * 32), ln(32);
-  std::iota(order.begin(), order.end(), 0);
-  std::iota(wo.begin(), wo.end(), 0);
-  std::iota(th.begin(), th.end(), 0);
-  std::iota(ln.begin(), ln.end(), 0);
-  std::mt19937 rng(seed);
-  std::shuffle(order.begin(), order.end(), rng);
-  for (int blk : order) {
-    for (auto& b : mem) b = (uint8_t)rng();
-    std::vector<uint8_t> guard(base + bytes, base + bytes + 48);
-    const SbShared s = sb_carve(base, S, K, rows, buf);
-    std::shuffle(th.begin(), th.end(), rng);
-    for (int t : th) {
-      const int64_t tile = (int64_t)blk * warps + t / 32;
-      if (tile < tiles) sb_stage(s, ops, K, n, rows, tile, t / 32, 0, t % 32);
-      if (tile + stride < tiles)
-        sb_stage(s, ops, K, n, rows, tile + stride, t / 32, 1, t % 32);
-      sb_prologue(s, ops, splitters, S, K, rows, t, warps * 32);
-    }
-    std::shuffle(wo.begin(), wo.end(), rng);
-    for (int w : wo) {
-      auto step = [&](auto fn) {
-        std::shuffle(ln.begin(), ln.end(), rng);
-        for (int l : ln) fn(l);
-      };
-      int64_t tile = (int64_t)blk * warps + w;
-      for (int b = 0; tile < tiles; tile += stride, b ^= 1) {
-        step([&](int l) {
-          sb_search_tile(s, S, K, n, num_rows, rows, tile, w, b, l);
-        });
-        step([&](int l) {
-          sb_store(s, out, n, rows, tile, w, l);
-          if (tile + 2 * stride < tiles)
-            sb_stage(s, ops, K, n, rows, tile + 2 * stride, w, b, l);
-        });
-      }
-    }
-    if (!std::equal(guard.begin(), guard.end(), base + bytes)) return 2;
-  }
-  return 0;
-}
-
-// The rows of a warp's tile of the launch's (128 at most, a block of 8
-// warps within 160 KB).
-extern "C" int sb_rows_host(const int32_t* types, int K, int S) {
-  SbOperands ops = {};
-  for (int k = 0; k < K; ++k) ops.type[k] = types[k];
-  return sb_tile_rows(ops, S, K, 8, 128, 160 * 1024);
+  for (int64_t i = 0; i < n; ++i)
+    out[i] = sb_bucket(splitters, S, K, ops, i, num_rows);
 }
 """
 
@@ -354,35 +292,21 @@ def host_lib(tmp_path_factory):
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-I",
                     str(CSRC), "-o", str(lib), str(src)], check=True)
     lib = ctypes.CDLL(str(lib))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.sb_tile_host.argtypes = [p, p, ctypes.c_int64, ctypes.c_int64, p,
-                                 i, i, p, i, i, i, ctypes.c_uint]
-    lib.sb_tile_host.restype = i
-    lib.sb_rows_host.argtypes = [p, i, i]
-    lib.sb_rows_host.restype = i
+    p = ctypes.c_void_p
+    lib.sb_host.argtypes = [p, p, ctypes.c_int64, ctypes.c_int64, p,
+                            ctypes.c_int, ctypes.c_int, p]
     return lib
 
 
-def _aligned16(n: int, dtype) -> np.ndarray:
-    """A zeroed vector of n elements whose data is 16-byte aligned."""
-    raw = np.zeros(n + 16, dtype=dtype)
-    off = (-raw.ctypes.data % 16) // raw.itemsize
-    return raw[off:off + n]
-
-
-def _tile_buckets(host_lib, ops, splitters, live: int, rows: int,
-                  warps: int, blocks: int, seed: int) -> np.ndarray:
+def _host_buckets(host_lib, ops, splitters, live: int) -> np.ndarray:
     n, k = len(ops[0]), len(ops)
-    out = _aligned16(n, np.int32)
-    out[:] = -7
+    out = np.full(n, -7, dtype=np.int32)
     ptrs = (ctypes.c_void_p * k)(*[o.ctypes.data for o in ops])
     types = np.array([_TYPES[torch.from_numpy(o).dtype] for o in ops],
                      dtype=np.int32)
     spn = np.ascontiguousarray(splitters.numpy())
-    rc = host_lib.sb_tile_host(ptrs, types.ctypes.data, n, live,
-                               spn.ctypes.data, splitters.shape[1], k,
-                               out.ctypes.data, rows, warps, blocks, seed)
-    assert rc == 0
+    host_lib.sb_host(ptrs, types.ctypes.data, n, live, spn.ctypes.data,
+                     splitters.shape[1], k, out.ctypes.data)
     return out
 
 
@@ -395,56 +319,30 @@ def _sorted_splitters(rng, ops, s: int, k: int):
 @pytest.mark.parametrize("k,s", [(1, 0), (1, 5), (3, 9), (4, 255),
                                  (8, 31), (2, 4), (3, 128)])
 def test_row_logic_matches_plain_sort_bucket(host_lib, k, s):
-    """csrc/sort_bucket_row.cuh built by g++ and run as the kernel runs it
-    (blocks of 8 warps, tiles of 128 rows, 2 persistent blocks over 20
-    tiles), against the plain version."""
+    """csrc/sort_bucket_row.cuh built by g++ and run row by row as the
+    kernel runs it, against the plain version."""
     rng = np.random.RandomState(k * 1000 + s)
     n, live = 2500, 2400
     ops = _operands(rng, n, k)
     operands = [torch.from_numpy(o) for o in ops]
     splitters = _sorted_splitters(rng, ops, s, k)
     want = sort_bucket_reference(operands, splitters, live).numpy()
-    out = _tile_buckets(host_lib, ops, splitters, live, 128, 8, 2, k + s)
+    out = _host_buckets(host_lib, ops, splitters, live)
     np.testing.assert_array_equal(out, want)
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("s", [0, 1, 255])
-@pytest.mark.parametrize("rows,warps,blocks", [(32, 2, 3), (128, 8, 2)])
-def test_tile_logic_matches_plain_sort_bucket(host_lib, k, s, rows, warps,
-                                              blocks):
-    """The tile logic with K = 1..5 operands of mixed widths (uint8 null
-    ranks, int64, int32, int16 keys), each starting off a 16-byte
-    boundary; 0, 1 and 255 splitters; padding rows; a ragged last tile;
-    more tiles than warps (a warp's next tile staged while it searches
-    one): tiles of 32 rows on 3 blocks of 2 warps, of 128 rows on 2 of
-    8."""
+def test_row_logic_on_mixed_widths_matches_plain_sort_bucket(host_lib, k,
+                                                             s):
+    """The row logic with K = 1..5 operands of mixed widths (uint8 null
+    ranks and keys of every width in turns), 0, 1 and 255 splitters, and
+    padding rows past ``live``."""
     rng = np.random.RandomState(k * 31 + s)
     n, live = 1000 + 3 * k, 990
-    ops = []
-    for j, o in enumerate(_operands(rng, n, k)):
-        raw = _aligned16(n + 8, o.dtype)
-        at = 1 if o.itemsize == 8 else 1 + j % 3    # 1-12 bytes off
-        mis = raw[at:at + n]
-        mis[:] = o
-        ops.append(mis)
-    assert all(o.ctypes.data % 16 for o in ops)
+    ops = _operands(rng, n, k)
     operands = [torch.from_numpy(o) for o in ops]
     splitters = _sorted_splitters(rng, ops, s, k)
     want = sort_bucket_reference(operands, splitters, live).numpy()
-    out = _tile_buckets(host_lib, ops, splitters, live, rows, warps,
-                        blocks, k * 7 + s)
+    out = _host_buckets(host_lib, ops, splitters, live)
     np.testing.assert_array_equal(out, want)
-
-
-def test_tile_rows_keep_within_shared_memory(host_lib):
-    """A warp's tiles hold 128 rows of the path's four operands (18 bytes
-    a row), and fewer of 32 int64 operands against 192 splitters, so that
-    a block's shared memory (8 warps) stays within 160 KB."""
-    def rows(types, s):
-        t = np.array(types, dtype=np.int32)
-        return host_lib.sb_rows_host(t.ctypes.data, len(types), s)
-    u8, i64 = _TYPES[torch.uint8], _TYPES[torch.int64]
-    assert rows([u8, i64, u8, i64], 5) == 128
-    assert rows([u8], 255) == 128
-    assert rows([i64] * 32, 192) == 16

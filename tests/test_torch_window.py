@@ -51,8 +51,8 @@ from spark_rapids_tpu.exprs import window_fns as RW
 from spark_rapids_tpu.sql.parser import SqlError as RefSqlError
 from spark_rapids_tpu_torch.api import TorchSession
 from spark_rapids_tpu_torch.api import functions as PF
-from spark_rapids_tpu_torch.exec.window_frame import (OPS, window_frame,
-                                                      window_frame_reference)
+from spark_rapids_tpu_torch.exec.window_frame import (
+    OPS, SEARCHES, window_frame, window_frame_reference)
 from spark_rapids_tpu_torch.exprs import ColumnRef as PCol
 from spark_rapids_tpu_torch.exprs import aggregates as PA
 from spark_rapids_tpu_torch.exprs import window_fns as PW
@@ -688,17 +688,12 @@ _HOST_SRC = r"""
 #include "window_frame_row.cuh"
 #include "window_frame_tile.cuh"
 
-static int chunked = 0;  // the search the next call takes
-
 template <typename T, int OP, typename Out>
 static void rows(const T* v, const uint8_t* valid, const uint8_t* flags,
                  Out* out, uint8_t* ok, int64_t n, int32_t lo, int32_t hi) {
   for (int64_t i = 0; i < n; ++i) {      // the kernel's body, a row a time
     int64_t a, b;
-    if (chunked)
-      wf_chunk_bounds(flags, n, i, lo, hi, &a, &b);
-    else
-      wf_walk_bounds(flags, n, i, lo, hi, &a, &b);
+    wf_chunk_bounds(flags, n, i, lo, hi, &a, &b);
     Out r;
     uint8_t k;
     wf_row<T, OP>(v, valid, a, b, &r, &k);
@@ -728,16 +723,10 @@ static int by_op(int op, const void* v, const uint8_t* valid,
   return 1;
 }
 
-extern "C" int wf_chunked_for(int32_t lo, int32_t hi) {
-  return wf_chunked(lo, hi);
-}
-
-// The instance a launch with search "frame" takes: WF_SEARCH_TILE,
-// WF_SEARCH_CHUNKS or WF_SEARCH_WALK.
+// The instance a launch with search "frame" takes: WF_SEARCH_TILE or
+// WF_SEARCH_CHUNKS.
 extern "C" int wf_pick(int32_t lo, int32_t hi) {
-  return wf_tiled(lo, hi) ? WF_SEARCH_TILE
-                          : wf_chunked(lo, hi) ? WF_SEARCH_CHUNKS
-                                               : WF_SEARCH_WALK;
+  return wf_tiled(lo, hi) ? WF_SEARCH_TILE : WF_SEARCH_CHUNKS;
 }
 
 // The tiled kernel on the host: ``blocks`` persistent blocks in a
@@ -850,9 +839,7 @@ extern "C" int wf_tile_host(const void* v, const uint8_t* valid,
 
 extern "C" int wf_host(const void* v, const uint8_t* valid,
                        const uint8_t* f, void* out, uint8_t* ok, int64_t n,
-                       int32_t lo, int32_t hi, int op, int is_float,
-                       int by_chunks) {
-  chunked = by_chunks;
+                       int32_t lo, int32_t hi, int op, int is_float) {
   return is_float ? by_op<double>(op, v, valid, f, out, ok, n, lo, hi)
                   : by_op<int64_t>(op, v, valid, f, out, ok, n, lo, hi);
 }
@@ -873,8 +860,7 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(lib))
     p, i32 = ctypes.c_void_p, ctypes.c_int32
     lib.wf_host.argtypes = [p, p, p, p, p, ctypes.c_int64, i32, i32,
-                            ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    lib.wf_chunked_for.argtypes = [i32, i32]
+                            ctypes.c_int, ctypes.c_int]
     lib.wf_pick.argtypes = [i32, i32]
     lib.wf_host.restype = ctypes.c_int
     lib.wf_tile_host.argtypes = [p, p, p, p, p, ctypes.c_int64, i32, i32,
@@ -903,15 +889,12 @@ def _special_values(rng, n: int, kind: str):
     if not (how == "avg" and kind == "int")])    # avg takes doubles
 @pytest.mark.parametrize("lo,hi", [(-2, 0), (-100, 0), (-3, 2), (2, 5),
                                    (3, 1), (-4, -1), (-1, 40)])
-@pytest.mark.parametrize("search", ["walk", "chunks"])
-def test_row_logic_matches_plain_window_frame(host_lib, how, lo, hi, kind,
-                                              search):
+def test_row_logic_matches_plain_window_frame(host_lib, how, lo, hi, kind):
     """csrc/window_frame_row.cuh built by g++ and run row by row as the
-    kernel runs it, against the plain version and the wrapper on the
-    CPU, bit for bit: +-inf, NaN, -0.0, NULLs, int64 sums that wrap,
-    empty frames (lo > hi), frames wholly before or after the row, and
-    frames past a partition's ends, found both ways the kernel finds
-    them: walking the flags one by one, and by chunks of 32 rows (the
+    chunked instance runs it, against the plain version and the wrapper
+    on the CPU, bit for bit: +-inf, NaN, -0.0, NULLs, int64 sums that
+    wrap, empty frames (lo > hi), frames wholly before or after the row,
+    and frames past a partition's ends, found by chunks of 32 rows (the
     flags start off an 8-byte boundary)."""
     rng = np.random.RandomState(abs(lo * 13 + hi))
     n = 2500
@@ -933,8 +916,7 @@ def test_row_logic_matches_plain_window_frame(host_lib, how, lo, hi, kind,
     fl_c[:] = flags
     rc = host_lib.wf_host(vd_c.ctypes.data, vv_c.ctypes.data,
                           fl_c.ctypes.data, out.ctypes.data, ok.ctypes.data,
-                          n, lo, hi, OPS[how], int(kind == "float"),
-                          int(search == "chunks"))
+                          n, lo, hi, OPS[how], int(kind == "float"))
     assert rc == 0
     np.testing.assert_array_equal(ok.astype(bool), wok.numpy())
     np.testing.assert_array_equal(_bits(out), _bits(want.numpy()))
@@ -1064,13 +1046,15 @@ def test_tile_logic_on_short_inputs(host_lib, n, how):
 
 def test_tiled_instance_stops_at_the_halo(host_lib):
     """The launch tiles a frame reaching at most HALO_MAX rows back and
-    forward; past it, the flag walk (up to 32 rows) or the chunked
-    search. The tile logic refuses a frame past the halo, and so does the
-    wrapper asked for the tiled instance there."""
+    forward, and takes the chunked instance past it. The tile logic
+    refuses a frame past the halo, and so does the wrapper asked for the
+    tiled instance there."""
     lim = HALO_MAX
-    for lo, hi, want in ((-2, 0, 3), (-lim, lim, 3), (5000, 3, 3),
-                         (-40, -lim - 33, 3), (-lim - 1, 0, 2),
-                         (0, lim + 1, 2), (-lim - 20, -lim - 1, 2)):
+    tile, chunks = SEARCHES["tile"], SEARCHES["chunks"]
+    for lo, hi, want in ((-2, 0, tile), (-lim, lim, tile), (5000, 3, tile),
+                         (-40, -lim - 33, tile), (-lim - 1, 0, chunks),
+                         (0, lim + 1, chunks),
+                         (-lim - 20, -lim - 1, chunks)):
         assert host_lib.wf_pick(lo, hi) == want, (lo, hi)
     vd, vv, flags = _tile_case(300, 1, "float", 80)
     assert _tile_run(host_lib, vd, vv, flags, -lim - 1, 0, "sum", "float",
@@ -1156,12 +1140,3 @@ def test_column_pruning_reaches_through_window():
     full = df.collect_numpy()
     np.testing.assert_array_equal(np.asarray(got["w"]), np.asarray(full["w"]))
     np.testing.assert_array_equal(np.asarray(got["x"]), t["x"])
-
-
-def test_kernel_searches_by_chunks_past_32_rows(host_lib):
-    """The launch walks the flags for a frame reaching at most 32 rows
-    back and forward, and searches by chunks past that (bench.py's
-    rung, W = 3, walks)."""
-    for lo, hi, want in ((-2, 0, 0), (-32, 32, 0), (-33, 0, 1), (0, 33, 1),
-                         (-100, 0, 1), (3, 1, 0)):
-        assert host_lib.wf_chunked_for(lo, hi) == want, (lo, hi)
