@@ -170,6 +170,26 @@ result line):
                 operands at their own widths and on one operand, in
                 turns with the versions of --compare and (one operand)
                 torch.searchsorted.
+ 15. slice 9a -- (after phase 14) the math, date, cast, conditional,
+                statistics and hash functions, rand, range and sample
+                through the normal entry points, against numpy: (a)
+                grouped statistics over SF1 lineitem (stddev_samp,
+                var_pop, stddev_pop, avg of datediff, a CASE count and a
+                rounded revenue by l_returnflag, l_linestatus, filtered
+                on year and dayofweek) as a DataFrame and as SQL, cold
+                and warm, dense_groupby twice a batch (the values, then
+                each moment's value less its group's mean and its
+                square), one warm run profiled;
+                (b) a keyless SQL sum of sqrt, ln, exp, floor, ceil,
+                round, CAST AS INT, quarter and dayofyear; (c) the
+                wrapped sums of xxhash64 and hash against numpy's uint64
+                forms, exactly; (d) stddev_samp and var_samp by
+                ss_item_sk over SF10 store_sales (2,000 groups, the sort
+                route); (e) sample(0.01, 42), rand(7) < 0.01 and
+                max(monotonically_increasing_id()) over SF10 store_sales
+                against RandomState(42), splitmix64 and n - 1; (f)
+                range(0, 100,000,000) with the sum and stddev_pop of
+                id % 7 against closed forms.
 
 The data is generated here from a seed, with numpy only: this script
 imports neither JAX, pyarrow, pandas nor the JAX package. It prints a
@@ -5443,6 +5463,396 @@ def phase_windows(card: str, batch_rows: int, ds: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: slice 9a -- math, date, cast, conditional, statistics and hash
+# functions, rand, range and sample
+# ---------------------------------------------------------------------------
+
+STATS_SQL = """
+SELECT l_returnflag, l_linestatus, count(*) AS n,
+       stddev_samp(l_quantity) AS sd_qty, var_pop(l_extendedprice) AS var_price,
+       stddev_pop(l_discount) AS sd_disc,
+       avg(datediff(l_receiptdate, l_shipdate)) AS avg_transit,
+       sum(CASE WHEN l_discount >= 0.05 THEN 1 ELSE 0 END) AS n_disc,
+       round(sum(l_extendedprice * (1 - l_discount)), 2) AS revenue
+FROM lineitem
+WHERE year(l_shipdate) BETWEEN 1994 AND 1996 AND dayofweek(l_shipdate) <> 1
+GROUP BY l_returnflag, l_linestatus ORDER BY l_returnflag, l_linestatus
+"""
+
+SCALAR_SQL = """
+SELECT count(*) AS n, sum(sqrt(l_extendedprice)) AS s_sqrt,
+       sum(ln(l_extendedprice)) AS s_ln, sum(exp(-l_discount)) AS s_exp,
+       sum(floor(l_extendedprice / 7)) AS s_floor,
+       sum(ceil(l_extendedprice / 7)) AS s_ceil,
+       sum(round(l_extendedprice * 1.1, 1)) AS s_round,
+       sum(CAST(l_extendedprice AS INT)) AS s_int,
+       sum(quarter(l_shipdate)) AS s_quarter,
+       sum(dayofyear(l_receiptdate)) AS s_doy
+FROM lineitem WHERE month(l_shipdate) IN (1, 2, 3)
+"""
+
+#: the statistics against numpy: a relative 1e-9. numpy takes two passes
+#: (the mean, then the squared deviations); the port sums values shifted
+#: by one constant, in another order, and its m2 = q - s*s/n loses about
+#: log10(((mean - shift)^2) / var) digits, none here
+STATS_TOL = 1e-9
+#: the lineitem columns phase 15 reads
+STATS_COLS = ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount",
+              "l_returnflag", "l_linestatus", "l_shipdate", "l_receiptdate"]
+
+
+def q_stats(df, F):
+    """STATS_SQL as a DataFrame."""
+    ship = F.col("l_shipdate")
+    yr = F.year(ship)
+    return (df.filter((yr >= F.lit(1994)) & (yr <= F.lit(1996))
+                      & (F.dayofweek(ship) != F.lit(1)))
+            .group_by("l_returnflag", "l_linestatus")
+            .agg(F.count_star().with_name("n"),
+                 F.stddev(F.col("l_quantity")).with_name("sd_qty"),
+                 F.var_pop(F.col("l_extendedprice")).with_name("var_price"),
+                 F.stddev_pop(F.col("l_discount")).with_name("sd_disc"),
+                 F.avg(F.datediff(F.col("l_receiptdate"), ship))
+                 .with_name("avg_transit"),
+                 F.sum(F.when(F.col("l_discount") >= F.lit(0.05), F.lit(1))
+                       .otherwise(F.lit(0))).with_name("n_disc"),
+                 F.sum(F.col("l_extendedprice")
+                       * (F.lit(1) - F.col("l_discount"))).with_name("rev"))
+            .select(F.col("l_returnflag"), F.col("l_linestatus"),
+                    F.col("n"), F.col("sd_qty"), F.col("var_price"),
+                    F.col("sd_disc"), F.col("avg_transit"), F.col("n_disc"),
+                    F.round(F.col("rev"), 2).alias("revenue"))
+            .order_by("l_returnflag", "l_linestatus"))
+
+
+def _days(d: np.ndarray) -> np.ndarray:
+    return d.astype("datetime64[D]").astype(np.int64)
+
+
+def grouped_stats_numpy(t: dict) -> list:
+    """STATS_SQL in numpy: the groups in key order, ``revenue`` unrounded
+    (its round is compared as a round)."""
+    ship = _days(t["l_shipdate"])
+    year = t["l_shipdate"].astype("datetime64[Y]").astype(np.int64) + 1970
+    keep = (year >= 1994) & (year <= 1996) & ((ship + 4) % 7 != 0)
+    rf, ls = t["l_returnflag"][keep], t["l_linestatus"][keep]
+    q, p = t["l_quantity"][keep], t["l_extendedprice"][keep]
+    d = t["l_discount"][keep]
+    transit = (_days(t["l_receiptdate"]) - ship)[keep]
+    out = []
+    for a in sorted(set(rf.tolist())):
+        for b in sorted(set(ls.tolist())):
+            g = (rf == a) & (ls == b)
+            if not g.any():
+                continue
+            out.append({
+                "l_returnflag": a, "l_linestatus": b, "n": int(g.sum()),
+                "sd_qty": float(np.std(q[g], ddof=1)),
+                "var_price": float(np.var(p[g])),
+                "sd_disc": float(np.std(d[g])),
+                "avg_transit": float(np.mean(transit[g])),
+                "n_disc": int((d[g] >= 0.05).sum()),
+                "revenue": float(np.sum(p[g] * (1 - d[g])))})
+    return out
+
+
+def grouped_stats_equal(got: list, want: list) -> bool:
+    """Keys, order and the integers exactly; the statistics within
+    STATS_TOL; the revenue within a rounding step of numpy's sum."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if any(g[k] != w[k] for k in ("l_returnflag", "l_linestatus", "n",
+                                      "n_disc")):
+            return False
+        if any(_rel(g[k], w[k]) > STATS_TOL for k in (
+                "sd_qty", "var_price", "sd_disc", "avg_transit")):
+            return False
+        if abs(g["revenue"] - w["revenue"]) > 0.005 + 1e-10 * abs(
+                w["revenue"]):
+            return False
+    return True
+
+
+def scalar_numpy(t: dict) -> dict:
+    """SCALAR_SQL in numpy."""
+    keep = np.isin(t["l_shipdate"].astype("datetime64[M]").astype(np.int64)
+                   % 12 + 1, (1, 2, 3))
+    p, d = t["l_extendedprice"][keep], t["l_discount"][keep]
+    ship = t["l_shipdate"][keep]
+    rec = t["l_receiptdate"][keep]
+    r = p * 1.1
+    month = ship.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    jan1 = rec.astype("datetime64[Y]").astype("datetime64[D]")
+    return {"n": int(keep.sum()), "s_sqrt": float(np.sum(np.sqrt(p))),
+            "s_ln": float(np.sum(np.log(p))),
+            "s_exp": float(np.sum(np.exp(-d))),
+            "s_floor": int(np.floor(p / 7).astype(np.int64).sum()),
+            "s_ceil": int(np.ceil(p / 7).astype(np.int64).sum()),
+            "s_round": float(np.sum(np.sign(r) * np.floor(np.abs(r) * 10.0
+                                                          + 0.5) / 10.0)),
+            "s_int": int(np.trunc(p).astype(np.int64).sum()),
+            "s_quarter": int(((month + 2) // 3).sum()),
+            "s_doy": int((_days(rec) - _days(jan1) + 1).sum())}
+
+
+def scalar_equal(got: dict, want: dict) -> bool:
+    """Integers exactly; float sums within REL_TOL (every row within a few
+    ulps of numpy's, added in another order)."""
+    return all(got[k] == v if isinstance(v, int) else _rel(got[k], v)
+               <= REL_TOL for k, v in want.items())
+
+
+def q_hashes(df, F):
+    """The wrapped int64 sums of xxhash64(l_orderkey, l_quantity) and
+    hash(l_orderkey)."""
+    return (df.select(F.xxhash64(F.col("l_orderkey"), F.col("l_quantity"))
+                      .alias("x"),
+                      F.hash(F.col("l_orderkey")).alias("h"))
+            .agg(F.sum(F.col("x")).with_name("sum_xx"),
+                 F.sum(F.col("h")).with_name("sum_hash")))
+
+
+_U64 = np.uint64
+_XX = [_U64(c) for c in (0x9E3779B185EBCA87, 0xC2B2AE3D27D4EB4F,
+                         0x165667B19E3779F9, 0x85EBCA77C2B2AE63,
+                         0x27D4EB2F165667C5)]
+
+
+def _rotl64_np(x, r: int):
+    return (x << _U64(r)) | (x >> _U64(64 - r))
+
+
+def xxhash64_long_np(v: np.ndarray, seed: np.ndarray) -> np.ndarray:
+    """Spark's XXH64.hashLong over uint64 words and seeds (numpy)."""
+    p1, p2, p3, p4, p5 = _XX
+    with np.errstate(over="ignore"):
+        h = seed + p5 + _U64(8)
+        k = _rotl64_np(v * p2, 31) * p1
+        h = _rotl64_np(h ^ k, 27) * p1 + p4
+        h = (h ^ (h >> _U64(33))) * p2
+        h = (h ^ (h >> _U64(29))) * p3
+        return h ^ (h >> _U64(32))
+
+
+def murmur3_long_np(v: np.ndarray, seed: int) -> np.ndarray:
+    """Spark's Murmur3 hashLong over uint64 words (numpy uint32 lanes)."""
+    u32 = np.uint32
+
+    def rotl(x, r):
+        return (x << u32(r)) | (x >> u32(32 - r))
+
+    def k1(k):
+        return rotl(k * u32(0xcc9e2d51), 15) * u32(0x1b873593)
+
+    def h1(h, k):
+        return rotl(h ^ k, 13) * u32(5) + u32(0xe6546b64)
+    with np.errstate(over="ignore"):
+        h = np.full(v.shape, seed, u32)
+        h = h1(h, k1((v & _U64(0xffffffff)).astype(u32)))
+        h = h1(h, k1((v >> _U64(32)).astype(u32))) ^ u32(8)
+        h = (h ^ (h >> u32(16))) * u32(0x85ebca6b)
+        h = (h ^ (h >> u32(13))) * u32(0xc2b2ae35)
+        return (h ^ (h >> u32(16))).view(np.int32)
+
+
+def hashes_numpy(t: dict) -> dict:
+    key = t["l_orderkey"].astype(np.int64).view(np.uint64)
+    qty = t["l_quantity"].astype(np.float64)
+    qty = np.where(qty == 0, 0.0, qty)             # -0.0 as 0.0
+    xx = xxhash64_long_np(qty.view(np.uint64), xxhash64_long_np(
+        key, np.full(key.shape, 42, np.uint64)))
+    with np.errstate(over="ignore"):
+        sum_xx = int(xx.sum(dtype=np.uint64).view(np.int64))
+    return {"sum_xx": sum_xx,
+            "sum_hash": int(murmur3_long_np(key, 42).astype(np.int64).sum())}
+
+
+def splitmix64_np(x: np.ndarray) -> np.ndarray:
+    """The reference's splitmix64 (exprs/nondeterministic.py), numpy."""
+    with np.errstate(over="ignore"):
+        x = x + _U64(0x9E3779B97F4A7C15)
+        x = (x ^ (x >> _U64(30))) * _U64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> _U64(27))) * _U64(0x94D049BB133111EB)
+        return x ^ (x >> _U64(31))
+
+
+def rand_numpy(n: int, seed: int) -> np.ndarray:
+    """rand(seed) over the n rows of one partition (the reference's
+    formula)."""
+    key = splitmix64_np(np.asarray([seed], np.uint64))[0]
+    mixed = splitmix64_np(np.arange(n, dtype=np.uint64) ^ key)
+    return (mixed >> _U64(11)).astype(np.float64) / float(1 << 53)
+
+
+def q_ss_stats(df, F):
+    return (df.group_by("ss_item_sk")
+            .agg(F.stddev(F.col("ss_net_paid")).with_name("sd_paid"),
+                 F.var_samp(F.col("ss_quantity")).with_name("var_qty"),
+                 F.count_star().with_name("n"))
+            .order_by("ss_item_sk"))
+
+
+def ss_stats_numpy(ss: dict) -> dict:
+    """q_ss_stats in numpy, two passes a group."""
+    g = ss["ss_item_sk"]
+    n = np.bincount(g)
+    out = {"ss_item_sk": np.flatnonzero(n), "n": n[n > 0]}
+    for col, name in (("ss_net_paid", "sd_paid"), ("ss_quantity", "var_qty")):
+        x = ss[col].astype(np.float64)
+        mean = np.bincount(g, x) / np.maximum(n, 1)
+        m2 = np.bincount(g, (x - mean[g]) ** 2)[n > 0]
+        var = m2 / np.maximum(n[n > 0] - 1, 1)
+        out[name] = np.sqrt(var) if name == "sd_paid" else var
+    return out
+
+
+def phase_stats(card: str, batch_rows: int, table: dict, host,
+                ds: dict) -> dict:
+    """Phase 15 (module doc): slice 9a through the normal entry points at
+    full size, against numpy."""
+    from spark_rapids_tpu_torch.api import TorchSession
+    from spark_rapids_tpu_torch.api import functions as F
+    t_phase = time.perf_counter()
+    n_batches = math.ceil(SF1_ROWS / batch_rows)
+    conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows,
+            "spark.rapids.tpu.sql.agg.wideBatchRows": batch_rows}
+    session = TorchSession(conf)
+    li = host.select(STATS_COLS)
+    session.create_dataframe(li).create_or_replace_temp_view("lineitem")
+    out = {}
+
+    # (a) grouped statistics, DataFrame and SQL
+    t0 = time.perf_counter()
+    want_a = grouped_stats_numpy(table)
+    _log(f"phase 15 (a): numpy in {time.perf_counter() - t0:.2f} s")
+    forms = {"dataframe": lambda s: q_stats(s.create_dataframe(li), F),
+             "sql": lambda s: s.sql(STATS_SQL)}
+    for form, make in forms.items():
+        for label in ("cold", "warm"):
+            run, rows = _sql_run(session, make)
+            _check(grouped_stats_equal(rows, want_a),
+                   f"(a) {form} {label}: {rows} != numpy {want_a}")
+            k = run["launches"]["dense_groupby"]
+            _check(k == 2 * n_batches, f"(a) {form} {label}: "
+                   f"dense_groupby launched {k} times, expected "
+                   f"{2 * n_batches} (two a batch: the values, then the "
+                   "moments' shifted sums)")
+            out[f"a_{form}_{label}"] = run
+    out["a_profile_warm"] = phase_profile(
+        session, li, q_stats, lambda r: grouped_stats_equal(r, want_a),
+        f"phase 15 (a) grouped statistics ({card})", "dense_groupby")
+    _log(f"phase 15 (a) grouped statistics over SF1 lineitem ({card}): "
+         f"{len(want_a)} groups equal numpy (n and n_disc exact, statistics "
+         f"within {STATS_TOL:g}); DataFrame "
+         f"{out['a_dataframe_cold']['wall_ms']:.1f} ms cold, "
+         f"{out['a_dataframe_warm']['wall_ms']:.1f} ms warm; SQL "
+         f"{out['a_sql_cold']['wall_ms']:.1f} ms cold, "
+         f"{out['a_sql_warm']['wall_ms']:.1f} ms warm; dense_groupby "
+         f"launches {out['a_dataframe_warm']['launches']['dense_groupby']} "
+         f"over {n_batches} batches; idle "
+         f"{out['a_profile_warm'].get('idle_share', float('nan')):.1%}")
+
+    # (b) a keyless sum of scalar functions, SQL
+    want_b = scalar_numpy(table)
+    for label in ("cold", "warm"):
+        run, rows = _sql_run(session, lambda s: s.sql(SCALAR_SQL))
+        _check(len(rows) == 1 and scalar_equal(rows[0], want_b),
+               f"(b) {label}: {rows} != numpy {want_b}")
+        out[f"b_{label}"] = run
+    _log(f"phase 15 (b) scalar functions over SF1 ({card}): {rows[0]} equal "
+         f"numpy; {out['b_cold']['wall_ms']:.1f} ms cold, "
+         f"{out['b_warm']['wall_ms']:.1f} ms warm")
+
+    # (c) hashes, DataFrame
+    want_c = hashes_numpy(table)
+    for label in ("cold", "warm"):
+        run, rows = _sql_run(session,
+                             lambda s: q_hashes(s.create_dataframe(li), F))
+        _check(rows == [want_c], f"(c) {label}: {rows} != numpy {want_c}")
+        out[f"c_{label}"] = run
+    _log(f"phase 15 (c) xxhash64 and hash over SF1 ({card}): {rows[0]} "
+         f"equal numpy's uint64 forms; {out['c_cold']['wall_ms']:.1f} ms "
+         f"cold, {out['c_warm']['wall_ms']:.1f} ms warm")
+
+    # (d) statistics over SF10 store_sales by item: the sort route
+    ss, ss_host = ds["ss"], ds["hosts"][0]
+    want_d = ss_stats_numpy(ss)
+    for label in ("cold", "warm"):
+        run, got = _sql_run(session, lambda s: q_ss_stats(
+            s.create_dataframe(ss_host), F), "collect_numpy")
+        ok = (np.array_equal(np.asarray(got["ss_item_sk"]),
+                             want_d["ss_item_sk"])
+              and np.array_equal(np.asarray(got["n"]), want_d["n"])
+              and all(np.max(np.abs(np.asarray(got[k]) - want_d[k])
+                             / np.abs(want_d[k])) <= STATS_TOL
+                      for k in ("sd_paid", "var_qty")))
+        _check(ok, f"(d) {label}: store_sales statistics differ from numpy")
+        _check(run["launches"]["dense_groupby"] == 0,
+               "(d): 2,000 integer keys launched dense_groupby")
+        out[f"d_{label}"] = run
+    _log(f"phase 15 (d) stddev_samp/var_samp by ss_item_sk over SF10 "
+         f"store_sales ({card}): {len(want_d['n'])} groups equal numpy "
+         f"within {STATS_TOL:g} (the sort route); "
+         f"{out['d_cold']['wall_ms']:.1f} ms cold, "
+         f"{out['d_warm']['wall_ms']:.1f} ms warm")
+
+    # (e) sample, rand and the row ids over SF10 store_sales
+    n_ss = len(ss["ss_net_paid"])
+    keep = np.random.RandomState(42).random_sample(n_ss) < 0.01
+    want_e = {"n": int(keep.sum()),
+              "paid": float(ss["ss_net_paid"][keep].sum())}
+    run, rows = _sql_run(session, lambda s: s.create_dataframe(ss_host)
+                         .sample(0.01, 42)
+                         .agg(F.count_star().with_name("n"),
+                              F.sum(F.col("ss_net_paid")).with_name("paid")))
+    _check(rows[0]["n"] == want_e["n"]
+           and _rel(rows[0]["paid"], want_e["paid"]) <= REL_TOL,
+           f"(e) sample: {rows} != numpy {want_e}")
+    out["e_sample"] = run
+    want_r = int((rand_numpy(n_ss, 7) < 0.01).sum())
+    run, rows = _sql_run(session, lambda s: s.create_dataframe(ss_host)
+                         .filter(F.rand(7) < F.lit(0.01))
+                         .agg(F.count_star().with_name("n")))
+    _check(rows == [{"n": want_r}], f"(e) rand: {rows} != numpy {want_r}")
+    out["e_rand"] = run
+    run, rows = _sql_run(session, lambda s: s.create_dataframe(ss_host)
+                         .select(F.monotonically_increasing_id().alias("i"))
+                         .agg(F.max(F.col("i")).with_name("m")))
+    _check(rows == [{"m": n_ss - 1}], f"(e) ids: {rows}, expected "
+                                      f"{n_ss - 1}")
+    out["e_ids"] = run
+    _log(f"phase 15 (e) over SF10 store_sales ({card}): sample(0.01, 42) "
+         f"kept {want_e['n']} rows, RandomState(42)'s, sum equal; "
+         f"rand(7) < 0.01 on {want_r} rows, splitmix64's; max id "
+         f"{n_ss - 1}; {out['e_sample']['wall_ms']:.1f}, "
+         f"{out['e_rand']['wall_ms']:.1f}, {out['e_ids']['wall_ms']:.1f} ms")
+
+    # (f) range(0, 100,000,000): sum and stddev_pop of id % 7
+    n_r = 100_000_000
+    q, r = divmod(n_r, 7)
+    s1 = q * 21 + sum(range(r))
+    s2 = q * 91 + sum(k * k for k in range(r))
+    want_f = {"s": s1, "sd": math.sqrt(s2 / n_r - (s1 / n_r) ** 2)}
+    for label in ("cold", "warm"):
+        run, rows = _sql_run(session, lambda s: s.range(0, n_r).select(
+            (F.col("id") % F.lit(7)).alias("m")).agg(
+            F.sum(F.col("m")).with_name("s"),
+            F.stddev_pop(F.col("m")).with_name("sd")))
+        _check(rows[0]["s"] == want_f["s"]
+               and _rel(rows[0]["sd"], want_f["sd"]) <= STATS_TOL,
+               f"(f) range {label}: {rows} != {want_f}")
+        out[f"f_{label}"] = run
+    _log(f"phase 15 (f) range(0, {n_r}) ({card}): sum and stddev_pop of "
+         f"id % 7 {rows[0]} equal the closed forms; "
+         f"{out['f_cold']['wall_ms']:.1f} ms cold, "
+         f"{out['f_warm']['wall_ms']:.1f} ms warm")
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"phase 15 (slice 9a) took {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", metavar="NAME=DIR", action="append",
@@ -5636,6 +6046,7 @@ def main(argv=None) -> int:
         strings = phase_strings(card, batch_rows,
                                 compare["rect_transform"])
         windows = phase_windows(card, batch_rows, ds, compare)
+        stats = phase_stats(card, batch_rows, table, host, ds)
         del ds
         _log(json.dumps({"queries": {
             "q6": {"rows": SF1_ROWS, "wall_ms_cold": ms_cold,
@@ -5660,7 +6071,10 @@ def main(argv=None) -> int:
                         "order_by": {k: v for k, v in
                                      windows["order_by"].items()
                                      if k != "times"},
-                        "phase_s": windows["phase_s"]}}}))
+                        "phase_s": windows["phase_s"]},
+            "slice9a": {k: v for k, v in stats.items()
+                        if not k.endswith("profile_warm")},
+            "slice9a_profile_a": stats["a_profile_warm"]}}))
         main_t = times["main"]
         kernel = {
             "name": "rect_match", "route": "cuda",
@@ -5703,6 +6117,10 @@ def main(argv=None) -> int:
                       "q1_injected": mem["q1_injected"]["launches"][
                           "dense_groupby"],
                       "sql_q1": sql["q1"]["cold"]["launches"][
+                          "dense_groupby"],
+                      "stats_a": stats["a_dataframe_cold"]["launches"][
+                          "dense_groupby"],
+                      "stats_a_sql": stats["a_sql_cold"]["launches"][
                           "dense_groupby"]},
             "tolerance": f"float sums within {DENSE_TOL:g} of the group's "
                          "sum of magnitudes; counts and int sums exact; "

@@ -157,6 +157,17 @@ class TorchSession:
                 raise KeyError(f"columns {missing} are not in {files[0]}")
         return DataFrame(self, L.ParquetScan(files, schema, columns))
 
+    def range(self, start: int, end: Optional[int] = None,
+              step: int = 1) -> "DataFrame":
+        """One bigint column ``id``: ``start``, ``start + step``, ... up to
+        ``end`` exclusive (``range(n)`` is 0 .. n-1), made on the device.
+        A negative step counts down, as Spark's does."""
+        if end is None:
+            start, end = 0, start
+        if int(step) == 0:
+            raise ValueError("the step of a range cannot be 0")
+        return DataFrame(self, L.RangeRel(int(start), int(end), int(step)))
+
     def create_dataframe(self, data, num_partitions: int = 1) -> "DataFrame":
         table = _host_table(data)
         if num_partitions <= 1:
@@ -348,12 +359,27 @@ class DataFrame:
     def intersect_all(self, other: "DataFrame") -> "DataFrame":
         raise NotImplementedError(
             "INTERSECT ALL replicates rows through explode(sequence(...)), "
-            "which arrives with slice 9 (generators)")
+            "which arrives with slice 9b (generators)")
 
     def except_all(self, other: "DataFrame") -> "DataFrame":
         raise NotImplementedError(
             "EXCEPT ALL replicates rows through explode(sequence(...)), "
-            "which arrives with slice 9 (generators)")
+            "which arrives with slice 9b (generators)")
+
+    def sample(self, fraction: float, seed: int = 42) -> "DataFrame":
+        """A Bernoulli sample without replacement: each row kept with
+        probability ``fraction``, by the reference's draw (one numpy
+        RandomState(seed) stream over the rows in order)."""
+        if not 0.0 <= float(fraction) <= 1.0:
+            raise ValueError(f"a sample's fraction must lie in [0, 1], not "
+                             f"{fraction}")
+        return DataFrame(self.session,
+                         L.Sample(float(fraction), int(seed), self.plan))
+
+    def repartition(self, n: Optional[int] = None, *cols) -> "DataFrame":
+        raise NotImplementedError(
+            "repartition is an exchange, which arrives with slice 12 "
+            "(multi-device and multi-process, ROADMAP.md Queue A)")
 
     intersectAll = intersect_all
     exceptAll = except_all

@@ -11,8 +11,13 @@ from typing import Optional
 
 from .. import exprs as E
 from ..exprs import window_fns as WF
+from ..exprs import datetime_fns as DT
+from ..exprs import hash_fns as HF
+from ..exprs import math_fns as M
+from ..exprs import nondeterministic as ND
 from ..exprs.aggregates import (Average, Count, CountStar, First, Last,
-                                Max, Min, Sum)
+                                Max, Min, StddevPop, StddevSamp, Sum,
+                                VariancePop, VarianceSamp)
 from ..types import (BOOL, DATE, FLOAT32, FLOAT64, INT8, INT16, INT32, INT64,
                      STRING, TIMESTAMP, DataType)
 
@@ -26,8 +31,20 @@ __all__ = ["Col", "col", "lit", "asc", "desc", "when", "coalesce",
            "lower", "substring", "trim", "ltrim", "rtrim", "replace",
            "lpad", "rpad", "reverse", "initcap", "substring_index",
            "abs", "div", "pmod", "negative", "positive", "bitwise_not",
-           "shiftleft", "shiftright", "shiftrightunsigned"]
-
+           "shiftleft", "shiftright", "shiftrightunsigned",
+           "isnan", "nanvl", "sqrt", "cbrt", "exp", "expm1", "log", "ln",
+           "log10", "log2", "log1p", "sin", "cos", "tan", "asin", "acos",
+           "atan", "atan2", "sinh", "cosh", "tanh", "asinh", "acosh",
+           "atanh", "cot", "degrees", "radians", "rint", "signum", "floor",
+           "ceil", "round", "bround", "pow", "power", "hypot",
+           "year", "month", "dayofmonth", "hour", "minute", "second",
+           "dayofweek", "weekday", "dayofyear", "quarter", "datediff",
+           "unix_date", "last_day", "add_months", "months_between",
+           "timestamp_seconds", "timestamp_millis", "timestamp_micros",
+           "to_unix_timestamp", "unix_timestamp", "trunc", "stddev",
+           "stddev_samp", "stddev_pop", "variance", "var_samp", "var_pop",
+           "rand", "monotonically_increasing_id", "spark_partition_id",
+           "hash", "xxhash64"]
 
 
 def _to_expr(v) -> E.Expression:
@@ -121,7 +138,11 @@ _DTYPES = {"boolean": BOOL, "bool": BOOL, "tinyint": INT8, "byte": INT8,
 def _dtype_of(d) -> DataType:
     if isinstance(d, DataType):
         return d
-    return _DTYPES[str(d).lower()]
+    name = str(d).lower()
+    if name.startswith("decimal"):
+        raise NotImplementedError(
+            f"{d}: decimals arrive with their own item (ROADMAP.md Queue A)")
+    return _DTYPES[name]
 
 
 def col(name: str) -> Col:
@@ -168,8 +189,9 @@ def least(*cols) -> Col: return Col(E.Least(*map(_to_expr, cols)))
 
 
 def cast(c, dtype) -> Col:
-    """A cast; the widening numeric ones run (exprs/cast.py), the others
-    are refused at planning until slice 9."""
+    """A cast (exprs/cast.py): numeric, boolean, date and timestamp types
+    run; casts from or to strings and decimals are refused at planning,
+    naming the slice that brings them."""
     return Col(E.Cast(_to_expr(c), _dtype_of(dtype)))
 
 
@@ -273,6 +295,110 @@ def lag(c, offset=1, default=None):
     return WF.Lag(_to_expr(c), offset, default)
 def lead(c, offset=1, default=None):
     return WF.Lead(_to_expr(c), offset, default)
+
+
+# --- math (reference api/functions.py:153-165, :498-504) ------------------
+def isnan(c) -> Col: return Col(E.IsNaN(_to_expr(c)))
+def nanvl(a, b) -> Col: return Col(E.NaNvl(_to_expr(a), _to_expr(b)))
+def sqrt(c) -> Col: return Col(M.Sqrt(_to_expr(c)))
+def cbrt(c) -> Col: return Col(M.Cbrt(_to_expr(c)))
+def exp(c) -> Col: return Col(M.Exp(_to_expr(c)))
+def expm1(c) -> Col: return Col(M.Expm1(_to_expr(c)))
+
+
+def log(a, b=None) -> Col:
+    """``log(x)``, the natural logarithm, or ``log(base, x)``."""
+    if b is None:
+        return Col(M.Log(_to_expr(a)))
+    return Col(M.Logarithm(_to_expr(a), _to_expr(b)))
+
+
+def ln(c) -> Col: return Col(M.Log(_to_expr(c)))
+def log10(c) -> Col: return Col(M.Log10(_to_expr(c)))
+def log2(c) -> Col: return Col(M.Log2(_to_expr(c)))
+def log1p(c) -> Col: return Col(M.Log1p(_to_expr(c)))
+def sin(c) -> Col: return Col(M.Sin(_to_expr(c)))
+def cos(c) -> Col: return Col(M.Cos(_to_expr(c)))
+def tan(c) -> Col: return Col(M.Tan(_to_expr(c)))
+def asin(c) -> Col: return Col(M.Asin(_to_expr(c)))
+def acos(c) -> Col: return Col(M.Acos(_to_expr(c)))
+def atan(c) -> Col: return Col(M.Atan(_to_expr(c)))
+def atan2(a, b) -> Col: return Col(M.Atan2(_to_expr(a), _to_expr(b)))
+def sinh(c) -> Col: return Col(M.Sinh(_to_expr(c)))
+def cosh(c) -> Col: return Col(M.Cosh(_to_expr(c)))
+def tanh(c) -> Col: return Col(M.Tanh(_to_expr(c)))
+def asinh(c) -> Col: return Col(M.Asinh(_to_expr(c)))
+def acosh(c) -> Col: return Col(M.Acosh(_to_expr(c)))
+def atanh(c) -> Col: return Col(M.Atanh(_to_expr(c)))
+def cot(c) -> Col: return Col(M.Cot(_to_expr(c)))
+def degrees(c) -> Col: return Col(M.ToDegrees(_to_expr(c)))
+def radians(c) -> Col: return Col(M.ToRadians(_to_expr(c)))
+def rint(c) -> Col: return Col(M.Rint(_to_expr(c)))
+def signum(c) -> Col: return Col(M.Signum(_to_expr(c)))
+def floor(c) -> Col: return Col(M.Floor(_to_expr(c)))
+def ceil(c) -> Col: return Col(M.Ceil(_to_expr(c)))
+def round(c, scale: int = 0) -> Col: return Col(M.Round(_to_expr(c), scale))
+def bround(c, scale: int = 0) -> Col:
+    return Col(M.BRound(_to_expr(c), scale))
+def pow(a, b) -> Col: return Col(M.Pow(_to_expr(a), _to_expr(b)))
+def hypot(a, b) -> Col: return Col(M.Hypot(_to_expr(a), _to_expr(b)))
+
+
+power = pow
+
+
+# --- dates and times (reference api/functions.py:170-183, :505-524) --------
+def year(c) -> Col: return Col(DT.Year(_to_expr(c)))
+def month(c) -> Col: return Col(DT.Month(_to_expr(c)))
+def dayofmonth(c) -> Col: return Col(DT.DayOfMonth(_to_expr(c)))
+def hour(c) -> Col: return Col(DT.Hour(_to_expr(c)))
+def minute(c) -> Col: return Col(DT.Minute(_to_expr(c)))
+def second(c) -> Col: return Col(DT.Second(_to_expr(c)))
+def dayofweek(c) -> Col: return Col(DT.DayOfWeek(_to_expr(c)))
+def weekday(c) -> Col: return Col(DT.WeekDay(_to_expr(c)))
+def dayofyear(c) -> Col: return Col(DT.DayOfYear(_to_expr(c)))
+def quarter(c) -> Col: return Col(DT.Quarter(_to_expr(c)))
+def datediff(end, start) -> Col:
+    return Col(DT.DateDiff(_to_expr(end), _to_expr(start)))
+def unix_date(c) -> Col: return Col(DT.UnixDate(_to_expr(c)))
+def last_day(c) -> Col: return Col(DT.LastDay(_to_expr(c)))
+def add_months(c, n) -> Col:
+    return Col(DT.AddMonths(_to_expr(c), _to_expr(n)))
+def months_between(end, start, round_off: bool = True) -> Col:
+    return Col(DT.MonthsBetween(_to_expr(end), _to_expr(start), round_off))
+def timestamp_seconds(c) -> Col:
+    return Col(DT.SecondsToTimestamp(_to_expr(c)))
+def timestamp_millis(c) -> Col:
+    return Col(DT.MillisToTimestamp(_to_expr(c)))
+def timestamp_micros(c) -> Col:
+    return Col(DT.MicrosToTimestamp(_to_expr(c)))
+def to_unix_timestamp(c, fmt: str = "yyyy-MM-dd HH:mm:ss") -> Col:
+    return Col(DT.ToUnixTimestamp(_to_expr(c), fmt))
+def unix_timestamp(c, fmt: str = "yyyy-MM-dd HH:mm:ss") -> Col:
+    return Col(DT.UnixTimestamp(_to_expr(c), fmt))
+def trunc(c, fmt: str) -> Col: return Col(DT.TruncDate(_to_expr(c), fmt))
+
+
+# --- statistics (reference api/functions.py:437-440) -----------------------
+def stddev(c): return StddevSamp(_to_expr(c))
+def stddev_pop(c): return StddevPop(_to_expr(c))
+def var_samp(c): return VarianceSamp(_to_expr(c))
+def var_pop(c): return VariancePop(_to_expr(c))
+
+
+stddev_samp = stddev
+variance = var_samp
+
+
+# --- task context and hashes (reference api/functions.py:345-398) ----------
+def rand(seed: int = 0) -> Col: return Col(ND.Rand(seed))
+def monotonically_increasing_id() -> Col:
+    return Col(ND.MonotonicallyIncreasingID())
+def spark_partition_id() -> Col: return Col(ND.SparkPartitionID())
+def hash(*cols) -> Col:
+    return Col(HF.Murmur3Hash([_to_expr(c) for c in cols]))
+def xxhash64(*cols) -> Col:
+    return Col(HF.XxHash64([_to_expr(c) for c in cols]))
 
 
 def broadcast(df):

@@ -331,13 +331,17 @@ def _encode_string(values, valid, n, rect_cap):
 
 
 class ColumnarBatch:
-    __slots__ = ("columns", "num_rows", "schema")
+    __slots__ = ("columns", "num_rows", "schema", "partition_id")
 
-    def __init__(self, columns: Sequence, num_rows: int, schema: Schema):
+    def __init__(self, columns: Sequence, num_rows: int, schema: Schema,
+                 partition_id: int = 0):
         assert len(columns) == len(schema), (len(columns), len(schema))
         self.columns = list(columns)
         self.num_rows = int(num_rows)
         self.schema = schema
+        #: the input partition the rows came from (a scan's table or
+        #: file); projections and filters pass it on
+        self.partition_id = partition_id
 
     @property
     def padded_len(self) -> int:
@@ -433,7 +437,7 @@ class ColumnarBatch:
             else:
                 cols.append(HostColumn(c.values[offset:end],
                                        c.validity[offset:end], c.dtype))
-        return ColumnarBatch(cols, length, self.schema)
+        return ColumnarBatch(cols, length, self.schema, self.partition_id)
 
     def to_numpy(self) -> List[Tuple[np.ndarray, np.ndarray]]:
         """(values, validity) per column, truncated to num_rows."""

@@ -19,6 +19,10 @@ reference's ``last_valid_scan``, ``reverse_last_valid_scan`` and
 each pass one shifted combine, so a float sum is deterministic and no
 frame result is a difference of two prefixes.
 
+``first`` finds each segment's first row where a mask holds: an argmax
+over one segment, a search of the mask's rows for each sorted
+segment's start.
+
 Every form is deterministic on the card. Float sums over sorted
 segments are the reference's Hillis-Steele segmented scan (elementwise
 passes, read at each segment's last row), with no atomics; integer sums
@@ -89,6 +93,16 @@ class GlobalSegments:
     def count(self, pred: torch.Tensor, dtype=torch.int64) -> torch.Tensor:
         return torch.logical_and(pred, self.live).sum(dtype=dtype).reshape(1)
 
+    def first(self, ok: torch.Tensor):
+        """(the first live row where ``ok`` holds, 0 if none; whether
+        there is one), each of shape (1,)."""
+        ok = torch.logical_and(ok, self.live)
+        if not ok.shape[0]:
+            return (torch.zeros(1, dtype=torch.int64, device=ok.device),
+                    torch.zeros(1, dtype=torch.bool, device=ok.device))
+        return (torch.argmax(ok.to(torch.int32)).reshape(1),
+                ok.any().reshape(1))
+
 
 class SortedSegments:
     """Segments over rows sorted by group key. ``flags`` marks each
@@ -151,6 +165,21 @@ class SortedSegments:
     def count(self, pred: torch.Tensor, dtype=torch.int64) -> torch.Tensor:
         ones = torch.ones_like(pred, dtype=torch.bool)
         return self.sum(pred.to(dtype), ones)
+
+    def first(self, ok: torch.Tensor):
+        """Per segment, (its first live row where ``ok`` holds, 0 if
+        none; whether it has one): the rows where ``ok`` holds, in order,
+        searched for each segment's start."""
+        pos = torch.nonzero(torch.logical_and(ok, self.live),
+                            as_tuple=True)[0]
+        G = self.num_segments
+        if not pos.shape[0] or not G:
+            return (torch.zeros(G, dtype=torch.int64, device=ok.device),
+                    torch.zeros(G, dtype=torch.bool, device=ok.device))
+        i = torch.searchsorted(pos, self.starts)
+        row = pos[i.clamp(max=pos.shape[0] - 1)]
+        has = torch.logical_and(i < pos.shape[0], row <= self.ends)
+        return torch.where(has, row, 0), has
 
 
 class SegmentScan:

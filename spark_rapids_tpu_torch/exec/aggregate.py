@@ -17,8 +17,10 @@ reference:
     codes go through the exec-local dictionary (batch code -> global
     code), an integer key's values are its codes (an identity remap),
     and one ``dense_groupby`` kernel launch reduces all of the batch's
-    aggregates (exec/dense_groupby.py). Its partials are one row per
-    group slot, with a live mask for the occupied ones;
+    aggregates (exec/dense_groupby.py), a second the values of the
+    moment aggregates less each group's mean (exprs/aggregates.py).
+    Its partials are one row per group slot, with a live mask for the
+    occupied ones;
   * sort: anything else (other numeric keys, larger products):
     ``segmented_groupby`` (exec/groupby_core.py), string keys as their
     global codes.
@@ -71,7 +73,8 @@ from ..columnar.batch import (concat_batches, dict_limit, dict_to_rect,
                               rect_to_dict)
 from ..columnar.segmented import bucket_segments
 from ..config import BATCH_SIZE_BYTES
-from ..exprs.aggregates import AggregateExpression
+from ..exprs.aggregates import (AggregateExpression, group_shift,
+                                less_shift)
 from ..exprs.base import Alias, ColumnRef, DVal, EvalContext, StrVal
 from ..exprs.compiler import batch_device, batch_dvals
 from ..mem.retry import with_retry_no_split
@@ -79,7 +82,8 @@ from ..mem.spillable import SpillableBatch
 from ..types import (BOOL, INT8, INT16, INT32, INT64, STRING, Schema,
                      StructField, torch_dtype)
 from .base import ExecContext, TpuExec
-from .dense_groupby import BUCKETS, dense_groupby, group_slots
+from .dense_groupby import (BUCKETS, MAX_COLS, dense_groupby, group_slots,
+                            packed_ids)
 from .groupby_core import segmented_groupby
 
 __all__ = ["TpuHashAggregateExec", "DIRECT_MAX_GROUPS"]
@@ -120,11 +124,14 @@ def _device_operand(key: tuple, make: Callable[[], object]):
 
 
 def _apply_pre_stages(stages, in_schema: Schema, base_dvals, num_rows: int,
-                      padded_len: int, device):
+                      padded_len: int, device, partition_id: int = 0,
+                      task_state: Optional[dict] = None):
     """Run the fused ("filter", cond) / ("project", exprs, schema)
     pre-stages; returns (EvalContext over the last stage's schema, keep
-    mask)."""
-    ctx = EvalContext(in_schema, base_dvals, num_rows, padded_len, device)
+    mask). ``partition_id`` and ``task_state`` are the batch's partition
+    and the exec's task state (exprs/base.py EvalContext)."""
+    ctx = EvalContext(in_schema, base_dvals, num_rows, padded_len, device,
+                      partition_id=partition_id, task_state=task_state)
     keep = ctx.row_mask()
     for st in stages:
         if st[0] == "filter":
@@ -134,7 +141,9 @@ def _apply_pre_stages(stages, in_schema: Schema, base_dvals, num_rows: int,
         else:
             _, exprs, out_schema = st
             ctx = EvalContext(out_schema, [e.eval_device(ctx) for e in exprs],
-                              num_rows, padded_len, device)
+                              num_rows, padded_len, device,
+                              partition_id=partition_id,
+                              task_state=task_state)
     return ctx, keep
 
 
@@ -193,6 +202,7 @@ class TpuHashAggregateExec(TpuExec):
         #: partitions of the latest execution's repartitioned merge (0:
         #: it merged in one tree)
         self.last_repartitions = 0
+        self._task_state: dict = {}
 
     def output_schema(self) -> Schema:
         return self._schema
@@ -217,7 +227,8 @@ class TpuHashAggregateExec(TpuExec):
         return _apply_pre_stages(self.pre_stages,
                                  self.children[0].output_schema(),
                                  batch_dvals(batch), batch.num_rows,
-                                 batch.padded_len, batch_device(batch))
+                                 batch.padded_len, batch_device(batch),
+                                 batch.partition_id, self._task_state)
 
     def _finalize_aggs(self, merged) -> List[DeviceColumn]:
         out, pos = [], 0
@@ -398,29 +409,53 @@ class TpuHashAggregateExec(TpuExec):
         return pairs, remaps, cards, bucket_segments(prod)
 
     def _dense_update(self, ops, keep, vals):
-        """One dense_groupby launch for every aggregate of the batch:
-        (key columns, partials, live) over the group slots."""
+        """One dense_groupby launch for every aggregate of the batch, and
+        for the moment aggregates a second, of their values less each
+        group's mean from the first (exprs/aggregates.py): (key columns,
+        partials, live) over the group slots; None when the aggregates
+        need more value columns than the kernel takes (the sort path
+        takes the batch)."""
         pairs, remaps, cards, G = ops
         wants = [a.sum_inputs(vs) for a, vs in zip(self.aggs, vals)]
+        shifts = [a.shifted_inputs(vs) for a, vs in zip(self.aggs, vals)]
         columns, index = [], {}
-        for want in wants:
+
+        def key(d, v):
+            return (None if d is None else id(d), None if v is None
+                    else id(v))
+        for want in wants + shifts:
             for d, v in want:
-                k = (None if d is None else id(d), None if v is None
-                     else id(v))
-                if v is not None and k not in index:
-                    index[k] = len(columns)
+                if v is not None and key(d, v) not in index:
+                    index[key(d, v)] = len(columns)
                     columns.append((d, v))
+        # the columns the second launch takes shifted: two columns each
+        second = list(dict.fromkeys(index[key(d, v)] for want in shifts
+                                    for d, v in want))
+        if max(len(columns), 2 * len(second)) > MAX_COLS:
+            return None
         res = dense_groupby(pairs, remaps, cards, keep, columns, G)
+        shifted = {}
+        if second:
+            ids = packed_ids(pairs, remaps, cards, keep, G)
+            cs = [group_shift(res.sums[k], res.counts[k]) for k in second]
+            cols2 = []
+            for k, c in zip(second, cs):
+                cols2 += [(x, columns[k][1])
+                          for x in less_shift(columns[k][0], c, ids)]
+            res2 = dense_groupby(pairs, remaps, cards, keep, cols2, G)
+            shifted = {k: (c, res2.sums[2 * j], res2.sums[2 * j + 1])
+                       for j, (k, c) in enumerate(zip(second, cs))}
         partials = []
-        for a, want in zip(self.aggs, wants):
+        for a, want, shift in zip(self.aggs, wants, shifts):
             sums = []
             for d, v in want:
                 if v is None:                    # every live row
                     sums.append((None, res.occupancy))
                 else:
-                    k = index[(None if d is None else id(d), id(v))]
+                    k = index[key(d, v)]
                     sums.append((res.sums[k], res.counts[k]))
-            partials.extend(a.from_sums(sums))
+            partials.extend(a.from_sums(sums, [shifted[index[key(d, v)]]
+                                               for d, v in shift]))
         # a key's slots as the partials carry it: global codes, an
         # integer key's values in its own type
         types = tuple(torch_dtype(f.dtype) if i in self._int_cards
@@ -468,8 +503,10 @@ class TpuHashAggregateExec(TpuExec):
                 for a in self.aggs]
         ops = self._direct_operands(srcs, ectx) if self._dense_ok \
             else None
-        if ops is not None:
-            keys, partials, live = self._dense_update(ops, keep, vals)
+        dense = self._dense_update(ops, keep, vals) if ops is not None \
+            else None
+        if dense is not None:
+            keys, partials, live = dense
         else:
             keys, partials, n = segmented_groupby(
                 self._sort_keys(srcs, ectx), vals, self.aggs, "update",
@@ -614,6 +651,9 @@ class TpuHashAggregateExec(TpuExec):
         return out
 
     def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        #: the row counts of rand/monotonically_increasing_id in the
+        #: fused stages and inputs (exprs/nondeterministic.py)
+        self._task_state = {}
         self._dicts = [dict() for _ in self._dict_keys]
         self._rows_in = 0
         self._rect_keys = set()
@@ -631,8 +671,13 @@ class TpuHashAggregateExec(TpuExec):
                     continue
                 offset = self._rows_in
                 self._rows_in += b.num_rows
+                counts = {e: dict(c) for e, c in self._task_state.items()}
 
-                def update(b=b, offset=offset):
+                def update(b=b, offset=offset, counts=counts):
+                    # a retry counts the batch's rows once
+                    self._task_state.clear()
+                    self._task_state.update(
+                        {e: dict(c) for e, c in counts.items()})
                     with ctx.semaphore.held():
                         srcs = self._key_sources(ctx, b, partials)
                         return SpillableBatch(self._update(b, offset, srcs),

@@ -1,7 +1,11 @@
-"""Scan, project, filter, limit, union, expand and branch-alignment
-operators (port of ``spark_rapids_tpu/exec/basic.py``: InMemoryScanExec,
-TpuProjectExec, TpuFilterExec, LimitExec, UnionExec, TpuExpandExec,
-BranchAlignExec).
+"""Scan, range, project, filter, sample, limit, union, expand and
+branch-alignment operators (port of ``spark_rapids_tpu/exec/basic.py``:
+InMemoryScanExec, TpuRangeExec, TpuProjectExec, TpuFilterExec,
+TpuSampleExec, LimitExec, UnionExec, TpuExpandExec, BranchAlignExec).
+
+A projection and a filter keep a task state for the expressions that
+number their rows (``rand``, ``monotonically_increasing_id``:
+exprs/nondeterministic.py), made anew at the start of each execution.
 """
 from __future__ import annotations
 
@@ -20,13 +24,14 @@ from ..config import register
 from ..exprs.base import Alias, ColumnRef, Expression, StrVal
 from ..exprs.compiler import (DeviceProjector, compile_rect_chain,
                               filter_batch_by_mask)
-from ..types import STRING, Schema, StructField
+from ..types import INT64, STRING, Schema, StructField
 from .base import ExecContext, TpuExec
 from .rect_transform import MAX_LITERAL, MAX_WIDTH
 
-__all__ = ["InMemoryScanExec", "TpuProjectExec", "TpuFilterExec",
-           "LimitExec", "UnionExec", "TpuExpandExec", "BranchAlignExec",
-           "SCAN_CACHE_MAX_BYTES"]
+__all__ = ["InMemoryScanExec", "TpuRangeExec", "TpuProjectExec",
+           "TpuFilterExec", "TpuSampleExec", "LimitExec", "UnionExec",
+           "TpuExpandExec", "BranchAlignExec", "SCAN_CACHE_MAX_BYTES",
+           "range_count"]
 
 SCAN_CACHE_MAX_BYTES = register(
     "spark.rapids.tpu.sql.scanCache.maxBytes", 2 * 1024 * 1024 * 1024,
@@ -85,6 +90,14 @@ def _cache_put(table, key, batches, limit: int) -> None:
         _SCAN_LRU[k] = _TICK[0]
 
 
+def _in_partition(b: ColumnarBatch, pid: int) -> ColumnarBatch:
+    """``b`` as a batch of partition ``pid`` (a cached batch is shared
+    by the queries that scan its table, so it is not changed)."""
+    if b.partition_id == pid:
+        return b
+    return ColumnarBatch(b.columns, b.num_rows, b.schema, pid)
+
+
 class InMemoryScanExec(TpuExec):
     """Scan over host tables (one per partition), cut into batches of at
     most ``batch_rows`` rows and moved to the device."""
@@ -106,11 +119,11 @@ class InMemoryScanExec(TpuExec):
         cap = int(ctx.conf.get(RECT_MAX_BYTES))
         limit = int(ctx.conf.get(SCAN_CACHE_MAX_BYTES))
         encode = bool(ctx.conf.get(TRANSFER_ENCODE))
-        for t in self.tables:
+        for pid, t in enumerate(self.tables):
             key = (self.batch_rows, names, str(ctx.device), cap)
             cached = _cache_get(t, key)
             if cached is not None:
-                yield from cached
+                yield from (_in_partition(b, pid) for b in cached)
                 continue
             src = t.select(names)
             built = []
@@ -119,7 +132,7 @@ class InMemoryScanExec(TpuExec):
                     src.slice(off, self.batch_rows), ctx.device, cap,
                     encode=encode)
                 built.append(b)
-                yield b
+                yield _in_partition(b, pid)
             _cache_put(t, key, built, limit)
 
     def describe(self):
@@ -257,18 +270,20 @@ class TpuProjectExec(TpuExec):
         if self._projector is None and self.device_idx:
             self._projector = DeviceProjector(
                 [self.exprs[i] for i in self.device_idx], child_schema)
+        task_state: dict = {}
         for batch in self.children[0].execute(ctx):
             out: List = [None] * len(self.exprs)
             for i, name in self.passthrough.items():
                 out[i] = batch.column_by_name(name)
             with ctx.semaphore.held():
                 if self.device_idx:
-                    for i, c in zip(self.device_idx,
-                                    self._projector.run(batch)):
+                    for i, c in zip(self.device_idx, self._projector.run(
+                            batch, task_state=task_state)):
                         out[i] = c
                 for i in self.chains:
                     out[i] = self._chain_eval(i, batch, use_kernel, cap)
-            yield ColumnarBatch(out, batch.num_rows, self._schema)
+            yield ColumnarBatch(out, batch.num_rows, self._schema,
+                                batch.partition_id)
 
     def describe(self):
         tags = []
@@ -317,12 +332,14 @@ class TpuFilterExec(TpuExec):
         from ..exprs.rect_match import PALLAS_ENABLED
         use_kernel = bool(ctx.conf.get(PALLAS_ENABLED))
         cap = int(ctx.conf.get(RECT_MAX_BYTES))
+        task_state: dict = {}
         for batch in self.children[0].execute(ctx):
             with ctx.semaphore.held():
                 if self._dict_eval is not None:
                     keep = self._dict_eval.keep_mask(batch, use_kernel, cap)
                 else:
-                    col = self._projector.run(batch)[0]
+                    col = self._projector.run(batch,
+                                              task_state=task_state)[0]
                     keep = torch.logical_and(col.data, col.validity)
                 out = filter_batch_by_mask(batch, keep)
             yield out
@@ -330,6 +347,82 @@ class TpuFilterExec(TpuExec):
     def describe(self):
         tag = " dict_eval" if self._dict_eval is not None else ""
         return f"Filter[{self.condition.name_hint}]{tag}"
+
+
+def range_count(start: int, end: int, step: int) -> int:
+    """How many values ``range(start, end, step)`` holds (Spark's: the
+    step's sign decides the direction; none when it points away)."""
+    if step == 0:
+        raise ValueError("the step of a range cannot be 0")
+    if step > 0:
+        return max(0, -(-(end - start) // step))
+    return max(0, -(-(start - end) // -step))
+
+
+class TpuRangeExec(TpuExec):
+    """``range(start, end, step)`` made on the device with ``torch.arange``
+    in batches of ``batch_rows`` (ref ``TpuRangeExec``): one int64 column
+    ``id``; an empty range is one batch of no rows. The reference counts
+    no values for a negative step; the port follows Spark (ROADMAP.md
+    Queue C)."""
+
+    def __init__(self, start: int, end: int, step: int, name: str = "id",
+                 batch_rows: int = 1 << 20):
+        super().__init__([])
+        self.start, self.end, self.step = int(start), int(end), int(step)
+        self.name = name
+        self.batch_rows = max(int(batch_rows), 1)
+        self._schema = Schema([StructField(name, INT64, False)])
+
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        total = range_count(self.start, self.end, self.step)
+        for first in range(0, max(total, 1), self.batch_rows):
+            n = min(self.batch_rows, total - first)
+            with ctx.semaphore.held():
+                ids = torch.arange(n, dtype=torch.int64, device=ctx.device)
+                data = ids * self.step + (self.start + first * self.step)
+                col = DeviceColumn(data, torch.ones(n, dtype=torch.bool,
+                                                    device=ctx.device),
+                                   INT64)
+            yield ColumnarBatch([col], n, self._schema)
+
+    def describe(self):
+        return f"Range[{self.start},{self.end},{self.step}]"
+
+
+class TpuSampleExec(TpuExec):
+    """A Bernoulli sample (ref ``TpuSampleExec``): a row is kept where the
+    next draw of one ``numpy.random.RandomState(seed)`` stream, drawn
+    across the batches in order, is below ``fraction``, so the port keeps
+    the reference's rows. The draws are made on the host and copied to
+    the device as one mask a batch."""
+
+    def __init__(self, fraction: float, seed: int, child: TpuExec):
+        super().__init__([child])
+        self.fraction = float(fraction)
+        self.seed = int(seed)
+
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema()
+
+    def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        rng = np.random.RandomState(self.seed)
+        for batch in self.children[0].execute(ctx):
+            draw = rng.random_sample(batch.num_rows) < self.fraction
+            mask = np.zeros(batch.padded_len, dtype=bool)
+            mask[:batch.num_rows] = draw
+            keep = torch.from_numpy(mask)
+            if ctx.device.type == "cuda":
+                keep = keep.pin_memory().to(ctx.device, non_blocking=True)
+            with ctx.semaphore.held():
+                out = filter_batch_by_mask(batch, keep.to(ctx.device))
+            yield out
+
+    def describe(self):
+        return f"Sample[{self.fraction}, seed={self.seed}]"
 
 
 class LimitExec(TpuExec):
@@ -370,7 +463,8 @@ class UnionExec(TpuExec):
         for c in self.children:
             for b in c.execute(ctx):
                 # the later children's names give way to the first's
-                yield ColumnarBatch(b.columns, b.num_rows, schema)
+                yield ColumnarBatch(b.columns, b.num_rows, schema,
+                                    b.partition_id)
 
     def describe(self):
         return f"Union[{len(self.children)}]"

@@ -31,8 +31,8 @@ import torch
 
 from ..columnar.segmented import seg_count, seg_sum
 
-__all__ = ["BUCKETS", "MAX_KEYS", "MAX_COLS", "DenseGroups",
-           "dense_groupby", "dense_groupby_reference", "group_slots"]
+__all__ = ["BUCKETS", "MAX_KEYS", "MAX_COLS", "DenseGroups", "dense_groupby",
+           "dense_groupby_reference", "group_slots", "packed_ids"]
 
 #: the group counts the kernel is built for (csrc/dense_groupby.cu)
 BUCKETS = (16, 64)
@@ -72,6 +72,23 @@ def group_slots(cards: Sequence[int], num_groups: int):
         valid = code < c
         out.append((torch.where(valid, code, 0).to(torch.int32), valid))
     return out
+
+
+def packed_ids(keys, remaps, cards, keep: torch.Tensor,
+               num_groups: int) -> torch.Tensor:
+    """The group slot of every row (int64), ``num_groups`` for a row
+    outside ``keep``: the kernel's packed id in plain PyTorch."""
+    G = num_groups
+    gid = torch.zeros(keep.shape[0], dtype=torch.int64, device=keep.device)
+    for (codes, valid), remap, card, stride in zip(keys, remaps, cards,
+                                                   _strides(cards)):
+        if len(remap):
+            g = remap[codes.clamp(0, len(remap) - 1).long()].to(torch.int64)
+            g = torch.where(valid, g, card)
+        else:
+            g = torch.full_like(gid, card)
+        gid += g * stride
+    return torch.where(keep & (gid >= 0) & (gid < G), gid, G)
 
 
 def _check(keys, remaps, cards, keep, values, num_groups) -> None:
@@ -122,16 +139,7 @@ def dense_groupby_reference(keys: Sequence[Tuple[torch.Tensor,
     ``seg_sum``/``seg_count`` of each column (the reference's form)."""
     _check(keys, remaps, cards, keep, values, num_groups)
     G = num_groups
-    gid = torch.zeros(keep.shape[0], dtype=torch.int64, device=keep.device)
-    for (codes, valid), remap, card, stride in zip(keys, remaps, cards,
-                                                   _strides(cards)):
-        if len(remap):
-            g = remap[codes.clamp(0, len(remap) - 1).long()].to(torch.int64)
-            g = torch.where(valid, g, card)
-        else:
-            g = torch.full_like(gid, card)
-        gid += g * stride
-    gid = torch.where(keep & (gid >= 0) & (gid < G), gid, G)
+    gid = packed_ids(keys, remaps, cards, keep, G)
     sums, counts = [], []
     for data, valid in values:
         if data is None:

@@ -1,6 +1,7 @@
 """Aggregate functions (port of ``spark_rapids_tpu/exprs/aggregates.py``:
-Sum, Count, CountStar, Average, Min, Max, First, Last, keyless and
-keyed).
+Sum, Count, CountStar, Average, Min, Max, First, Last, and the moment
+aggregates VariancePop, VarianceSamp, StddevPop and StddevSamp, keyless
+and keyed).
 
 Each aggregate declares
   update   : per-row values  -> partials     (per batch)
@@ -17,6 +18,21 @@ over a segment context (columnar/segmented.py); the dense groupby path
 reduces every aggregate's columns in one kernel launch and hands each
 aggregate its pairs (exec/aggregate.py).
 
+The moment aggregates are sums too, of their values less a shift ``c``
+per group (``shifted_inputs``): per group the count and the sums of
+``x - c`` and of its square. On the sort and keyless routes ``c`` is the
+group's first finite value (``first_finite``); on the dense route it is
+the group's mean from a first kernel launch (``group_shift``), and a
+second launch sums the shifted values (exec/aggregate.py). No scatter
+runs. A partial is (count, shifted sum, shifted sum of squares, shift);
+the merge moves each of a group's partials to one shift near their mean
+(``s + n*d``, ``q + d*(2*s + n*d)``, ``d`` a difference of two nearby
+doubles, so exact) before it adds them. The finalize takes
+``m2 = q - s*s/n``, which does not cancel as the reference's
+``s2 - n*mean^2`` does for a group far from zero (``var_pop`` of 1e9+1,
+1e9+2, 1e9+3 is 2/3, as in Spark, whatever the other groups hold). The
+sample forms are NULL for n <= 1; m2 is clamped at 0 before ``sqrt``.
+
 Min, Max, First and Last are no sums (``dense_ok`` False): an aggregate
 holding one takes the sort path. Min and Max follow Spark's float order
 (NaN greatest, -0.0 equal to 0.0, both come out canonical). First and
@@ -27,16 +43,17 @@ row's position in the input, so partials merge in any order.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from ..columnar.segmented import seg_max, seg_min, select_by_rank
-from ..types import DataType, FLOAT64, INT64, STRING, Schema
+from ..types import DataType, FLOAT64, INT64, STRING, Schema, numeric
 from .base import ColumnRef, DVal, Expression, Literal
 
 __all__ = ["AggregateExpression", "Sum", "Count", "CountStar", "Average",
-           "Min", "Max", "First", "Last"]
+           "Min", "Max", "First", "Last", "VariancePop", "VarianceSamp",
+           "StddevPop", "StddevSamp"]
 
 #: a column to reduce: (data or None, validity or None). No data: only
 #: the count is needed. No validity: every live row counts.
@@ -107,16 +124,29 @@ class AggregateExpression:
         """The columns whose per-group (sum, count) the update needs."""
         raise NotImplementedError
 
-    def from_sums(self, sums: list) -> list:
-        """(sum, count) per column of ``sum_inputs`` -> list of
-        (data, validity) partials."""
+    def shifted_inputs(self, vals: List[DVal]) -> List[SumInput]:
+        """The columns whose per-group sums of ``x - c`` and of its
+        square, ``c`` a shift per group, the update needs too; the moment
+        aggregates'."""
+        return []
+
+    def from_sums(self, sums: list, shifted: Sequence = ()) -> list:
+        """(sum, count) per column of ``sum_inputs``, and (shift, sum of
+        ``x - shift``, sum of its square) per column of
+        ``shifted_inputs`` -> list of (data, validity) partials."""
         raise NotImplementedError
 
     def update(self, vals: List[DVal], seg):
         """per-row DVals -> list of (data, validity) partials over the
         segments of ``seg`` (its live rows)."""
-        return self.from_sums([_seg_sum(d, v, seg)
-                               for d, v in self.sum_inputs(vals)])
+        sums = [_seg_sum(d, v, seg) for d, v in self.sum_inputs(vals)]
+        shifted = []
+        for d, v in self.shifted_inputs(vals):
+            c = first_finite(d, v, seg)
+            x, x2 = less_shift(d, c, seg.seg_ids)
+            shifted.append((c, _seg_sum(x, v, seg)[0],
+                            _seg_sum(x2, v, seg)[0]))
+        return self.from_sums(sums, shifted)
 
     def merge(self, partials: List[DVal], seg):
         raise NotImplementedError
@@ -146,7 +176,7 @@ class Sum(AggregateExpression):
             else torch.float64
         return [(v.data.to(acc), v.validity)]
 
-    def from_sums(self, sums):
+    def from_sums(self, sums, shifted=()):
         s, cnt = sums[0]
         return [(s, cnt > 0)]
 
@@ -177,7 +207,7 @@ class Count(AggregateExpression):
     def sum_inputs(self, vals):
         return [(None, vals[0].validity)]
 
-    def from_sums(self, sums):
+    def from_sums(self, sums, shifted=()):
         cnt = sums[0][1]
         return [(cnt, torch.ones_like(cnt, dtype=torch.bool))]
 
@@ -218,7 +248,7 @@ class Average(AggregateExpression):
         v = vals[0]
         return [(v.data.to(torch.float64), v.validity)]
 
-    def from_sums(self, sums):
+    def from_sums(self, sums, shifted=()):
         s, cnt = sums[0]
         return [(s, cnt > 0), (cnt, torch.ones_like(cnt, dtype=torch.bool))]
 
@@ -311,3 +341,114 @@ class First(AggregateExpression):
 
 class Last(First):
     mode = "max"
+
+
+def group_shift(s: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """The mean ``s / n`` per group, 0 where there are no rows or it is
+    not finite."""
+    mean = s / torch.clamp(n, min=1).to(torch.float64)
+    return torch.where(torch.isfinite(mean), mean, torch.zeros_like(mean))
+
+
+def first_finite(data: torch.Tensor, valid: torch.Tensor, seg):
+    """Per segment of ``seg``, ``data`` at its first live row where it is
+    valid and finite, 0 where there is none."""
+    rows, has = seg.first(torch.logical_and(valid, torch.isfinite(data)))
+    return torch.where(has, _take(data, rows), torch.zeros_like(
+        rows, dtype=data.dtype))
+
+
+def less_shift(data: torch.Tensor, shift: torch.Tensor, ids: torch.Tensor):
+    """(``data`` less its group's ``shift``, its square) per row (``ids``:
+    each row's group; a row outside every group takes the last)."""
+    G = shift.shape[0]
+    d = data - shift[ids.clamp(0, G - 1)] if G else data
+    return d, d * d
+
+
+def _per_row(per_group: torch.Tensor, seg) -> torch.Tensor:
+    """A per-segment value at every row of ``seg``."""
+    G = per_group.shape[0]
+    if not G:
+        return torch.zeros(seg.live.shape, dtype=per_group.dtype,
+                           device=per_group.device)
+    return per_group[seg.seg_ids.clamp(0, G - 1)]
+
+
+class _MomentAgg(AggregateExpression):
+    """variance/stddev: partials (count, shifted sum, shifted sum of
+    squares, shift) per group (module doc)."""
+
+    def data_type(self, schema):
+        return FLOAT64
+
+    def device_unsupported_reason(self, schema):
+        r = numeric.reason_not_supported(self.child.data_type(schema))
+        if r:
+            return f"{self.name_hint}: input {r}"
+        return super().device_unsupported_reason(schema)
+
+    def partial_types(self, schema):
+        return [INT64, FLOAT64, FLOAT64, FLOAT64]
+
+    def sum_inputs(self, vals):
+        return [(None, vals[0].validity)]
+
+    def shifted_inputs(self, vals):
+        v = vals[0]
+        return [(v.data.to(torch.float64), v.validity)]
+
+    def from_sums(self, sums, shifted=()):
+        (_, n), = sums
+        c, s, q = shifted[0]
+        ones = torch.ones_like(n, dtype=torch.bool)
+        return [(n, ones), (s, ones), (q, ones), (c, ones)]
+
+    def merge(self, partials, seg):
+        """Each of a group's partials moved to one shift, the group's
+        mean (rounded), then added."""
+        n, s, q, c = (p.data for p in partials)
+        valid = partials[0].validity
+        has = n > 0
+        nf = n.to(torch.float64)
+        zero = torch.zeros((), dtype=torch.float64, device=nf.device)
+        N, _ = _seg_sum(n, valid, seg)
+        T, _ = _seg_sum(torch.where(has, nf * c + s, zero), valid, seg)
+        target = group_shift(T, N)
+        d = c - _per_row(target, seg)
+        s2 = torch.where(has, s + nf * d, zero)
+        q2 = torch.where(has, q + d * (2.0 * s + nf * d), zero)
+        out = [N, _seg_sum(s2, valid, seg)[0], _seg_sum(q2, valid, seg)[0],
+               target]
+        return [(x, torch.ones_like(x, dtype=torch.bool)) for x in out]
+
+    def _variance(self, partials, ddof: int) -> DVal:
+        n = partials[0].data.to(torch.float64)
+        s, q = partials[1].data, partials[2].data
+        m2 = q - s * s / torch.where(n > 0, n, torch.ones_like(n))
+        ok = n > ddof
+        out = m2 / torch.where(ok, n - ddof, torch.ones_like(n))
+        return DVal(torch.clamp(out, min=0.0), ok, FLOAT64)
+
+
+class VariancePop(_MomentAgg):
+    def finalize(self, partials):
+        return self._variance(partials, 0)
+
+
+class VarianceSamp(_MomentAgg):
+    def finalize(self, partials):
+        # n <= 1 is NULL (Spark 3.1+, SPARK-33726)
+        return self._variance(partials, 1)
+
+
+class StddevPop(_MomentAgg):
+    def finalize(self, partials):
+        v = self._variance(partials, 0)
+        return DVal(torch.sqrt(v.data), v.validity, FLOAT64)
+
+
+class StddevSamp(_MomentAgg):
+    def finalize(self, partials):
+        v = self._variance(partials, 1)
+        return DVal(torch.sqrt(v.data), v.validity, FLOAT64)

@@ -28,6 +28,7 @@ import torch
 from ..types import (DataType, FLOAT32, FLOAT64, INT32, INT64, Schema,
                      TypeSig, integral, numeric, torch_dtype)
 from .base import DVal, EvalContext, Expression, null_and, promote_types
+from .cast import float_to_int_java
 
 __all__ = ["Add", "Subtract", "Multiply", "Divide", "IntegralDivide",
            "Remainder", "Pmod", "UnaryMinus", "UnaryPositive", "Abs",
@@ -129,12 +130,7 @@ def _to_long(d: torch.Tensor) -> torch.Tensor:
     the card)."""
     if not d.is_floating_point():
         return d.to(torch.int64)
-    d = d.to(torch.float64)
-    hi, lo = 2.0 ** 63, -(2.0 ** 63)
-    out = torch.where(torch.isnan(d) | (d >= hi) | (d <= lo),
-                      torch.zeros_like(d), d).to(torch.int64)
-    out = torch.where(d >= hi, torch.full_like(out, 2 ** 63 - 1), out)
-    return torch.where(d <= lo, torch.full_like(out, -2 ** 63), out)
+    return float_to_int_java(d, torch.int64)
 
 
 class IntegralDivide(BinaryArithmetic):

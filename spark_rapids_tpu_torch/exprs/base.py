@@ -43,18 +43,25 @@ class DVal(NamedTuple):
 
 class EvalContext:
     """Context handed to Expression.eval_device: the input DVals by
-    ordinal, the true row count and the padded length, the device, and
-    the values of a filter's dictionary slots (compiler.py _DictSlot)."""
+    ordinal, the true row count and the padded length, the device, the
+    values of a filter's dictionary slots (compiler.py _DictSlot), the
+    batch's partition and the hosting operator's task state (a dict the
+    operator makes anew for each execution, where ``rand`` and the row
+    ids keep their running row counts: exprs/nondeterministic.py; None
+    where no operator hosts them)."""
 
     def __init__(self, schema: Schema, columns: Sequence[Optional[DVal]],
                  num_rows: int, padded_len: int, device,
-                 slots: Sequence[DVal] = ()):
+                 slots: Sequence[DVal] = (), partition_id: int = 0,
+                 task_state: Optional[dict] = None):
         self.schema = schema
         self.columns = list(columns)
         self.num_rows = num_rows
         self.padded_len = padded_len
         self.device = device
         self.slots = slots
+        self.partition_id = partition_id
+        self.task_state = task_state
 
     def row_mask(self) -> torch.Tensor:
         """bool[P]: True for real rows, False for padding."""

@@ -19,7 +19,7 @@ from .base import (ColumnRef, DVal, EvalContext, Expression, null_and,
 
 __all__ = ["EqualTo", "NotEqual", "LessThan", "LessThanOrEqual",
            "GreaterThan", "GreaterThanOrEqual", "In", "IsNull", "IsNotNull",
-           "in_null_rule"]
+           "IsNaN", "in_null_rule"]
 
 
 def _nan_eq(l, r):
@@ -239,3 +239,23 @@ class IsNotNull(Expression):
     @property
     def name_hint(self):
         return f"({self.children[0].name_hint} IS NOT NULL)"
+
+
+class IsNaN(Expression):
+    """``isnan(e)``: whether a float is NaN (false for other numerics);
+    NULL where ``e`` is (ref ``comparison.py:IsNaN``)."""
+
+    def __init__(self, child: Expression):
+        self.children = [child]
+
+    def data_type(self, schema: Schema) -> DataType:
+        return BOOL
+
+    def eval_device(self, ctx):
+        c = self.children[0].eval_device(ctx)
+        out = torch.isnan(c.data) if c.data.is_floating_point() \
+            else torch.zeros_like(c.validity)
+        return DVal(out, c.validity, BOOL)
+
+    def key(self):
+        return f"isnan({self.children[0].key()})"

@@ -51,10 +51,11 @@ class DeviceProjector:
         self.schema = schema
         self.out_types = [e.data_type(schema) for e in self.exprs]
 
-    def run(self, batch: ColumnarBatch,
-            slots: Sequence[DVal] = ()) -> List[DeviceColumn]:
+    def run(self, batch: ColumnarBatch, slots: Sequence[DVal] = (),
+            task_state: Optional[dict] = None) -> List[DeviceColumn]:
         ctx = EvalContext(self.schema, batch_dvals(batch), batch.num_rows,
-                          batch.padded_len, batch_device(batch), slots)
+                          batch.padded_len, batch_device(batch), slots,
+                          batch.partition_id, task_state)
         mask = ctx.row_mask()
         out = []
         for e, dt in zip(self.exprs, self.out_types):
@@ -89,7 +90,8 @@ def filter_batch_by_mask(batch: ColumnarBatch,
                 np_idx = idx.cpu().numpy()
             cols.append(HostColumn(c.values[np_idx], c.validity[np_idx],
                                    c.dtype))
-    return ColumnarBatch(cols, int(idx.shape[0]), batch.schema)
+    return ColumnarBatch(cols, int(idx.shape[0]), batch.schema,
+                         batch.partition_id)
 
 
 def gather_batch(batch: ColumnarBatch, idx: torch.Tensor,

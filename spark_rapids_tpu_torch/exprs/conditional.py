@@ -1,6 +1,7 @@
 """Conditional expressions (port of ``spark_rapids_tpu/exprs/conditional.py``:
-``If``, ``CaseWhen``, ``Coalesce``, ``NullIf``, ``Greatest`` and
-``Least``).
+``If``, ``CaseWhen``, ``Coalesce``, ``NullIf``, ``Greatest``, ``Least``,
+``NaNvl``, ``AtLeastNNonNulls``, the optimizer's hints ``KnownNotNull``
+and ``KnownFloatingPointNormalized``, and ``NormalizeNaNAndZero``).
 
 A NULL predicate picks the next branch (SQL: only TRUE selects), and the
 first matching branch wins. An untyped ``lit(None)`` else is the absent
@@ -15,10 +16,12 @@ from typing import Optional
 
 import torch
 
-from ..types import NULLTYPE, STRING, DataType, Schema, torch_dtype
+from ..types import BOOL, NULLTYPE, STRING, DataType, Schema, torch_dtype
 from .base import DVal, Expression, promote_types
 
-__all__ = ["If", "CaseWhen", "Coalesce", "NullIf", "Greatest", "Least"]
+__all__ = ["If", "CaseWhen", "Coalesce", "NullIf", "Greatest", "Least",
+           "NaNvl", "AtLeastNNonNulls", "KnownNotNull",
+           "KnownFloatingPointNormalized", "NormalizeNaNAndZero"]
 
 
 def _common_type(schema: Schema, exprs) -> DataType:
@@ -251,3 +254,104 @@ class Greatest(_NarySelect):
 
 class Least(_NarySelect):
     _is_max = False
+
+
+class NaNvl(Expression):
+    """``nanvl(a, b)``: ``b`` where ``a`` is NaN, else ``a``."""
+
+    def __init__(self, left: Expression, right: Expression):
+        self.children = [left, right]
+
+    def data_type(self, schema: Schema) -> DataType:
+        return _common_type(schema, self.children)
+
+    def eval_device(self, ctx) -> DVal:
+        dt = self.data_type(ctx.schema)
+        tdt = torch_dtype(dt)
+        l = self.children[0].eval_device(ctx)
+        r = self.children[1].eval_device(ctx)
+        ld, rd = l.data.to(tdt), r.data.to(tdt)
+        nan = torch.isnan(ld)
+        return DVal(torch.where(nan, rd, ld),
+                    torch.where(nan, r.validity, l.validity), dt)
+
+    def key(self):
+        return f"nanvl({self.children[0].key()},{self.children[1].key()})"
+
+
+class AtLeastNNonNulls(Expression):
+    """True where at least ``n`` children are non-null and not NaN
+    (``df.na.drop``'s predicate); never NULL."""
+
+    def __init__(self, n: int, *children: Expression):
+        self.n = int(n)
+        self.children = list(children)
+
+    def data_type(self, schema: Schema) -> DataType:
+        return BOOL
+
+    def eval_device(self, ctx) -> DVal:
+        cnt = torch.zeros(ctx.padded_len, dtype=torch.int32,
+                          device=ctx.device)
+        for c in self.children:
+            v = c.eval_device(ctx)
+            good = v.validity
+            if isinstance(v.data, torch.Tensor) \
+                    and v.data.is_floating_point():
+                good = torch.logical_and(good,
+                                         torch.logical_not(
+                                             torch.isnan(v.data)))
+            cnt = cnt + good.to(torch.int32)
+        return DVal(cnt >= self.n, torch.ones(ctx.padded_len,
+                                              dtype=torch.bool,
+                                              device=ctx.device), BOOL)
+
+    def key(self):
+        kids = ",".join(c.key() for c in self.children)
+        return f"AtLeastNNonNulls({self.n};{kids})"
+
+
+class _IdentityHint(Expression):
+    """An optimizer hint: the child's value unchanged."""
+
+    def __init__(self, child: Expression):
+        self.children = [child]
+
+    def data_type(self, schema: Schema) -> DataType:
+        return self.children[0].data_type(schema)
+
+    def eval_device(self, ctx) -> DVal:
+        return self.children[0].eval_device(ctx)
+
+    def key(self):
+        return f"{type(self).__name__}({self.children[0].key()})"
+
+
+class KnownNotNull(_IdentityHint):
+    pass
+
+
+class KnownFloatingPointNormalized(_IdentityHint):
+    pass
+
+
+class NormalizeNaNAndZero(Expression):
+    """-0.0 as 0.0 and every NaN as one NaN, so that keys compare as
+    Spark's do."""
+
+    def __init__(self, child: Expression):
+        self.children = [child]
+
+    def data_type(self, schema: Schema) -> DataType:
+        return self.children[0].data_type(schema)
+
+    def eval_device(self, ctx) -> DVal:
+        v = self.children[0].eval_device(ctx)
+        d = v.data
+        if d.is_floating_point():
+            d = torch.where(torch.isnan(d), torch.full_like(d, math.nan),
+                            torch.where(d == 0, torch.zeros_like(d), d))
+        return DVal(d, v.validity, v.dtype)
+
+    def key(self):
+        return f"normnanzero({self.children[0].key()})"

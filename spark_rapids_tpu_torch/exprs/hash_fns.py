@@ -1,5 +1,7 @@
-"""Spark-exact Murmur3 (port of ``spark_rapids_tpu/exprs/hash_fns.py``: the
-host forms and ``murmur3_fold_device``).
+"""Spark-exact Murmur3 and xxHash64 (port of
+``spark_rapids_tpu/exprs/hash_fns.py``: the host forms,
+``murmur3_fold_device``, ``xxhash64_fold_device`` and the ``Murmur3Hash``
+and ``XxHash64`` expressions).
 
 Murmur3_x86_32 as Spark's ``Murmur3Hash`` computes it, with Spark's type
 normalizations: bool -> 1/0 int; byte/short/int/date -> the 4-byte path;
@@ -8,25 +10,33 @@ doubleToLongBits, each with -0.0 as 0.0 and one canonical NaN; a NULL
 leaves the running hash as it is; columns fold from the seed
 (``seed = hash(col_i, seed)``).
 
-The device form is eager torch over int64 lanes holding 32-bit words:
-torch has no full uint32 arithmetic, but a product of two words wraps
-modulo 2**64 and keeps its low 32 bits, so every step masks to 32 bits.
-The reference hashes doubles only on the host (its device emulates f64);
+The device forms are eager torch over int64 lanes. Murmur3's lanes hold
+32-bit words: torch has no full uint32 arithmetic, but a product of two
+words wraps modulo 2**64 and keeps its low 32 bits, so every step masks
+to 32 bits. xxHash64's lanes hold 64-bit words: int64 products and sums
+wrap as uint64 ones do, left shifts are products by powers of two, and
+every right shift is masked (torch's ``>>`` is arithmetic). The
+reference hashes doubles only on the host (its device emulates f64);
 torch bitcasts float64 on every device, so doubles hash here too.
-xxhash64, HiveHash and the ``Murmur3Hash`` expression wait for a later
-slice.
+
+``hash`` and ``xxhash64`` of a string run on the reference's host
+engine: the port refuses them at planning, naming the strings slice.
+HiveHash, the digests (md5, sha1, sha2) and crc32 are host-only in the
+reference and are refused too.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
-from ..types import TypeEnum, TypeSig
-from .base import DVal
+from ..types import INT32, INT64, STRING, Schema, TypeEnum, TypeSig
+from .base import DVal, Expression
 
 __all__ = ["device_hashable", "spark_murmur3_bytes", "murmur3_int",
-           "murmur3_long", "murmur3_fold_device"]
+           "murmur3_long", "murmur3_fold_device", "xxhash64_int",
+           "xxhash64_long", "xxhash64_fold_device", "Murmur3Hash",
+           "XxHash64", "HiveHash", "Md5", "Sha1", "Sha2", "Crc32"]
 
 _M3_C1 = 0xcc9e2d51
 _M3_C2 = 0x1b873593
@@ -160,3 +170,178 @@ def murmur3_fold_device(vals: List[DVal], seed: int) -> torch.Tensor:
             nh = _fmix_dev(_mix_h1_dev(nh, _mix_k1_dev((w >> 32) & _M32)), 8)
         h = torch.where(v.validity, nh, h)     # a NULL skips the column
     return torch.where(h >= (1 << 31), h - (1 << 32), h).to(torch.int32)
+
+
+
+# ---------------------------------------------------------------------------
+# xxHash64: host forms (the tests' oracle) and the device form
+# ---------------------------------------------------------------------------
+
+_XX_P1 = 0x9E3779B185EBCA87
+_XX_P2 = 0xC2B2AE3D27D4EB4F
+_XX_P3 = 0x165667B19E3779F9
+_XX_P4 = 0x85EBCA77C2B2AE63
+_XX_P5 = 0x27D4EB2F165667C5
+_M64 = (1 << 64) - 1
+
+
+def _rotl64(x, r):
+    return ((x << r) | (x >> (64 - r))) & _M64
+
+
+def _xx_fmix(h):
+    h ^= h >> 33
+    h = (h * _XX_P2) & _M64
+    h ^= h >> 29
+    h = (h * _XX_P3) & _M64
+    return h ^ (h >> 32)
+
+
+def _signed64(h: int) -> int:
+    h &= _M64
+    return h - (1 << 64) if h >= (1 << 63) else h
+
+
+def xxhash64_int(v: int, seed: int) -> int:
+    """Spark's XXH64.hashInt(v, seed) as a signed int64."""
+    h = (seed + _XX_P5 + 4) & _M64
+    h ^= ((v & _M32) * _XX_P1) & _M64
+    h = (_rotl64(h, 23) * _XX_P2 + _XX_P3) & _M64
+    return _signed64(_xx_fmix(h))
+
+
+def xxhash64_long(v: int, seed: int) -> int:
+    """Spark's XXH64.hashLong(v, seed) as a signed int64."""
+    v &= _M64
+    h = (seed + _XX_P5 + 8) & _M64
+    h ^= (_rotl64((v * _XX_P2) & _M64, 31) * _XX_P1) & _M64
+    h = (_rotl64(h, 27) * _XX_P1 + _XX_P4) & _M64
+    return _signed64(_xx_fmix(h))
+
+
+_P1, _P2, _P3, _P4, _P5 = (_signed64(p) for p in (_XX_P1, _XX_P2, _XX_P3,
+                                                   _XX_P4, _XX_P5))
+
+
+def _lsr64(x, k: int):
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def _rotl64_dev(x, r: int):
+    return (x * (1 << r)) | _lsr64(x, 64 - r)
+
+
+def _xx_fmix_dev(h):
+    h = (h ^ _lsr64(h, 33)) * _P2
+    h = (h ^ _lsr64(h, 29)) * _P3
+    return h ^ _lsr64(h, 32)
+
+
+def xxhash64_fold_device(vals: List[DVal], seed: int) -> torch.Tensor:
+    """Spark's xxhash64 folded over the columns from ``seed`` (each
+    column's hash seeds the next): int64 per row."""
+    h = torch.full(vals[0].validity.shape, _signed64(seed),
+                   dtype=torch.int64, device=vals[0].validity.device)
+    for v in vals:
+        kind, w = _normalize_to_words(v)
+        if kind == "int":
+            nh = (h + (_P5 + 4)) ^ (w * _P1)
+            nh = _rotl64_dev(nh, 23) * _P2 + _P3
+        else:
+            k = _rotl64_dev(w * _P2, 31) * _P1
+            nh = _rotl64_dev((h + (_P5 + 8)) ^ k, 27) * _P1 + _P4
+        h = torch.where(v.validity, _xx_fmix_dev(nh), h)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# expressions
+# ---------------------------------------------------------------------------
+
+class _HashBase(Expression):
+    """hash/xxhash64 over columns of fixed-width types; never NULL (a NULL
+    column leaves the running hash as it is)."""
+
+    def __init__(self, children, seed: int = 42):
+        self.children = list(children)
+        self.seed = seed
+
+    def device_unsupported_reason(self, schema: Schema) -> Optional[str]:
+        if not self.children:
+            return f"{type(self).__name__} needs at least one column"
+        for c in self.children:
+            dt = c.data_type(schema)
+            if dt == STRING:
+                return (f"{type(self).__name__} of a string hashes on the "
+                        "reference's host engine; it arrives with the "
+                        "strings slice (ROADMAP.md Queue A, slice 7)")
+            r = device_hashable.reason_not_supported(dt)
+            if r is not None:
+                return f"{type(self).__name__}: input {r}"
+        return None
+
+    def _vals(self, ctx):
+        return [c.eval_device(ctx) for c in self.children]
+
+    def key(self):
+        kids = ",".join(c.key() for c in self.children)
+        return f"{type(self).__name__}({kids},seed={self.seed})"
+
+
+class Murmur3Hash(_HashBase):
+    """hash(cols...): Spark's Murmur3 with seed 42 (HashPartitioning's)."""
+
+    def data_type(self, schema):
+        return INT32
+
+    def eval_device(self, ctx) -> DVal:
+        h = murmur3_fold_device(self._vals(ctx), self.seed)
+        return DVal(h, torch.ones_like(h, dtype=torch.bool), INT32)
+
+
+class XxHash64(_HashBase):
+    """xxhash64(cols...): Spark's XXH64 with seed 42."""
+
+    def data_type(self, schema):
+        return INT64
+
+    def eval_device(self, ctx) -> DVal:
+        h = xxhash64_fold_device(self._vals(ctx), self.seed)
+        return DVal(h, torch.ones_like(h, dtype=torch.bool), INT64)
+
+
+class _HostOnlyHash(Expression):
+    """A hash the reference computes on its host engine only."""
+    result = INT32
+
+    def __init__(self, *children):
+        self.children = list(children)
+
+    def data_type(self, schema):
+        return self.result
+
+    def device_unsupported_reason(self, schema: Schema) -> Optional[str]:
+        return (f"{type(self).__name__} runs on the reference's host engine "
+                "only; the port has no host engine (ROADMAP.md Queue A, "
+                "the host-only functions: queued with the strings slice, "
+                "slice 7)")
+
+
+class HiveHash(_HostOnlyHash):
+    pass
+
+
+class Md5(_HostOnlyHash):
+    result = STRING
+
+
+class Sha1(_HostOnlyHash):
+    result = STRING
+
+
+class Sha2(_HostOnlyHash):
+    result = STRING
+
+
+class Crc32(_HostOnlyHash):
+    result = INT64

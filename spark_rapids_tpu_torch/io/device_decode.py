@@ -137,11 +137,11 @@ def device_decode_scan(scan, ctx):
     the others through the standard one."""
     schema = scan.output_schema()
     batch_rows = ctx.conf.batch_size_rows
-    for path in scan.paths:
+    for pid, path in enumerate(scan.paths):
         with ctx.semaphore.held():
             cols = _device_columns(scan, path, ctx.device)
         if cols is None:
-            yield from scan._emit_file(ctx, scan._read_file(path))
+            yield from scan._emit_file(ctx, scan._read_file(path), pid)
             continue
         n = int(cols[0].shape[0]) if cols else 0
         for off in range(0, max(n, 1), batch_rows):
@@ -150,4 +150,4 @@ def device_decode_scan(scan, ctx):
                 [DeviceColumn(c[off:off + cnt],
                               torch.ones(cnt, dtype=torch.bool,
                                          device=ctx.device), f.dtype)
-                 for c, f in zip(cols, schema.fields)], cnt, schema)
+                 for c, f in zip(cols, schema.fields)], cnt, schema, pid)

@@ -148,14 +148,16 @@ class FileScanBase(TpuExec):
         elif self.mode == "MULTITHREADED":
             yield from self._multithreaded(ctx)
         else:
-            for path in self.paths:
-                yield from self._emit_file(ctx, self._read_file(path))
+            for pid, path in enumerate(self.paths):
+                yield from self._emit_file(ctx, self._read_file(path), pid)
 
-    def _emit_file(self, ctx, tables: List[HostTable]):
+    def _emit_file(self, ctx, tables: List[HostTable], pid: int = 0):
+        """A file's batches, as partition ``pid`` (the file's place in
+        the scan)."""
         if not tables:
             tables = [self._empty_table()]
         for t in tables:
-            yield from self._emit(ctx, t)
+            yield from self._emit(ctx, t, pid)
 
     def _empty_table(self) -> HostTable:
         import numpy as np
@@ -164,7 +166,7 @@ class FileScanBase(TpuExec):
                                else "S1"), np.zeros(0, bool))
              for f in self._schema.fields}, self._schema)
 
-    def _emit(self, ctx, table: HostTable):
+    def _emit(self, ctx, table: HostTable, pid: int = 0):
         batch_rows = ctx.conf.batch_size_rows
         cap = int(ctx.conf.get(RECT_MAX_BYTES))
         encode = bool(ctx.conf.get(TRANSFER_ENCODE))
@@ -176,6 +178,7 @@ class FileScanBase(TpuExec):
                     table.slice(off, batch_rows), ctx.device, cap,
                     encode=encode, timings=part)
             self._add_timings(part)
+            b.partition_id = pid
             yield b
 
     def _coalescing(self, ctx):
@@ -197,8 +200,8 @@ class FileScanBase(TpuExec):
         with cf.ThreadPoolExecutor(max_workers=nthreads) as pool:
             futures = [pool.submit(self._read_file, p) for p in self.paths]
             try:
-                for fut in futures:     # file order; reads overlap
-                    yield from self._emit_file(ctx, fut.result())
+                for pid, fut in enumerate(futures):  # file order
+                    yield from self._emit_file(ctx, fut.result(), pid)
             finally:
                 for fut in futures:
                     fut.cancel()

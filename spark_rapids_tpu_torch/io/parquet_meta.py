@@ -44,10 +44,11 @@ _LT_TIMESTAMP, _LT_INTEGER, _LT_JSON = 8, 10, 12
 _OPTIONAL, _REPEATED = 1, 2
 
 #: where each refused kind of column arrives (ROADMAP.md Queue A)
-_DECIMAL_SLICE = ("decimal columns arrive with slice 9 (ROADMAP.md Queue A "
-                  "item 8, exprs/cast.py and the decimal type)")
-_NESTED_SLICE = ("nested and map columns arrive with slice 9 (ROADMAP.md "
-                 "Queue A item 8, exprs/collection_fns.py with "
+_DECIMAL_SLICE = ("decimal columns arrive with the decimals item (ROADMAP.md "
+                  "Queue A: DecimalType through types.py, aggregates.py, "
+                  "arithmetic.py, cast.py and Parquet)")
+_NESTED_SLICE = ("nested and map columns arrive with slice 9b, the nested "
+                 "types (ROADMAP.md Queue A: exprs/collection_fns.py with "
                  "columnar/nested.py)")
 _OTHER_SLICE = ("arrives with slice 10 (ROADMAP.md Queue A item 9, other "
                 "I/O)")

@@ -1,18 +1,18 @@
 """Logical plan nodes (port of ``spark_rapids_tpu/plan/logical.py``: scan,
-project, filter, aggregate, sort, limit, join, union, window, and the
-nodes the plan rewrites make: expand, branch alignment and the distinct
-flag)."""
+range, project, filter, sample, aggregate, sort, limit, join, union,
+window, and the nodes the plan rewrites make: expand, branch alignment
+and the distinct flag)."""
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
 from ..exprs.base import Expression
-from ..types import BOOL, Schema, StructField
+from ..types import BOOL, INT64, Schema, StructField
 
-__all__ = ["LogicalPlan", "LogicalScan", "ParquetScan", "Project",
-           "Filter", "Aggregate", "SortOrder", "Sort", "GlobalLimit",
-           "LocalLimit", "Join", "Union", "WindowSpec", "Window",
-           "Expand", "BranchAlign", "DistinctFlag"]
+__all__ = ["LogicalPlan", "LogicalScan", "ParquetScan", "RangeRel",
+           "Project", "Filter", "Sample", "Aggregate", "SortOrder", "Sort",
+           "GlobalLimit", "LocalLimit", "Join", "Union", "WindowSpec",
+           "Window", "Expand", "BranchAlign", "DistinctFlag"]
 
 
 class LogicalPlan:
@@ -72,6 +72,38 @@ class ParquetScan(LogicalPlan):
 
     def describe(self):
         return f"ParquetScan[{len(self.paths)} files]({self.schema()})"
+
+
+class RangeRel(LogicalPlan):
+    """``range(start, end, step)``: one non-null bigint column (ref
+    ``RangeRel``)."""
+
+    def __init__(self, start: int, end: int, step: int = 1,
+                 name: str = "id"):
+        self.start, self.end, self.step = start, end, step
+        self.name = name
+        self.children = []
+
+    def schema(self) -> Schema:
+        return Schema([StructField(self.name, INT64, False)])
+
+    def describe(self):
+        return f"Range[{self.start},{self.end},{self.step}]"
+
+
+class Sample(LogicalPlan):
+    """A Bernoulli sample of the child's rows (ref ``Sample``)."""
+
+    def __init__(self, fraction: float, seed: int, child: LogicalPlan):
+        self.fraction = fraction
+        self.seed = seed
+        self.children = [child]
+
+    def schema(self) -> Schema:
+        return self.children[0].schema()
+
+    def describe(self):
+        return f"Sample[{self.fraction}, seed={self.seed}]"
 
 
 class Project(LogicalPlan):

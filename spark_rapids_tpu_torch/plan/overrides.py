@@ -12,7 +12,12 @@ hint names, or else the smaller side whose plan-time size estimate is
 within ``spark.rapids.tpu.sql.autoBroadcastJoinThreshold`` (estimates only:
 measured sizes wait for the adaptivity slice). An aggregate, keyless or
 keyed, folds the device filters and projections below it into its update
-(``_fold_stages``), as the reference's does. String group and sort keys plan onto the device:
+(``_fold_stages``), as the reference's does, except a stage (or the
+aggregate's own inputs) holding ``rand`` or a row id above a folded
+filter: those number the rows they see, so they stay below with the
+filter compacting before them. Elsewhere than in a projection, a filter
+or an aggregate, such an expression is refused at planning. String group
+and sort keys plan onto the device:
 the execs take them as dictionary columns and refuse other forms when
 the batch arrives. A window prunes its child to the columns its
 expressions and its parent read; where the reference tags a window for
@@ -137,7 +142,7 @@ def prune_columns(plan: L.LogicalPlan,
             rreq = (set(required) | refs) & rnames
         return _rebuilt(plan, prune_columns(plan.children[0], lreq),
                         prune_columns(plan.children[1], rreq))
-    if isinstance(plan, L.GlobalLimit):
+    if isinstance(plan, (L.GlobalLimit, L.Sample)):
         return _rebuilt(plan, prune_columns(plan.children[0], required))
     if isinstance(plan, L.Union):
         # the children's columns pair by position and share the names
@@ -210,7 +215,8 @@ def estimated_size_bytes(plan: L.LogicalPlan) -> Optional[int]:
             return sum(os.path.getsize(p) for p in plan.paths)
         except OSError:
             return None
-    if isinstance(plan, (L.Filter, L.Sort, L.Project, L.GlobalLimit)):
+    if isinstance(plan, (L.Filter, L.Sort, L.Project, L.GlobalLimit,
+                         L.Sample)):
         return estimated_size_bytes(plan.children[0])
     return None
 
@@ -221,6 +227,44 @@ class ScanMeta(PlanMeta):
         return B.InMemoryScanExec(self.plan.tables, self.plan._schema,
                                   batch_rows=self.conf.batch_size_rows,
                                   columns=self.plan.columns)
+
+
+@rule(L.RangeRel)
+class RangeMeta(PlanMeta):
+    def convert_to_tpu(self, children):
+        p = self.plan
+        return B.TpuRangeExec(p.start, p.end, p.step, p.name,
+                              batch_rows=self.conf.batch_size_rows)
+
+
+@rule(L.Sample)
+class SampleMeta(PlanMeta):
+    def convert_to_tpu(self, children):
+        return B.TpuSampleExec(self.plan.fraction, self.plan.seed,
+                               children[0])
+
+
+def _numbers_rows(exprs) -> Optional[Expression]:
+    """The first of ``exprs`` holding ``rand`` or a row id (an
+    expression that numbers the rows it sees), else None."""
+    from ..exprs.nondeterministic import TaskContextExpression
+    for e in exprs:
+        stack = [e]
+        while stack:
+            x = stack.pop()
+            if isinstance(x, TaskContextExpression):
+                return e
+            stack.extend(x.children)
+    return None
+
+
+def _row_numbering_reason(exprs, where: str) -> Optional[str]:
+    e = _numbers_rows(exprs)
+    if e is None:
+        return None
+    return (f"<{e.name_hint}> in {where}: rand and the row ids run in a "
+            "projection, a filter or an aggregate here; project the value "
+            "into a column below (ROADMAP.md Queue A, slice 9b)")
 
 
 @rule(L.ParquetScan)
@@ -291,6 +335,8 @@ class FilterMeta(PlanMeta):
         filter itself still runs; pruning is conservative."""
         from ..io.file_scan import FileScanBase
         cond = self.plan.condition
+        if _numbers_rows([cond]) is not None:
+            return
         refs = set(cond.references())
         node = child_exec
         while isinstance(node, B.TpuProjectExec):
@@ -333,7 +379,10 @@ class AggregateMeta(PlanMeta):
     def convert_to_tpu(self, children):
         groupings, child = self._string_key_project(self.plan.groupings,
                                                     children[0])
-        child, stages, eval_schema = self._fold_stages(child)
+        own = list(groupings) + [e for a in self.plan.aggs
+                                 for e in a.input_exprs()]
+        child, stages, eval_schema = self._fold_stages(
+            child, _numbers_rows(own) is not None)
         if not groupings:
             self._widen_scan_batches(child)
         return A.TpuHashAggregateExec(groupings, self.plan.aggs,
@@ -405,29 +454,47 @@ class AggregateMeta(PlanMeta):
         return max(1, (budget // 2) // max(1, row_bytes))
 
     @staticmethod
-    def _fold_stages(child: TpuExec):
+    def _fold_stages(child: TpuExec, own_numbers_rows: bool = False):
         """Fold the chain of device-only filters and projections below
         the aggregate into its update: (new child, stages bottom-up,
-        eval schema), or (child, None, None) when nothing folds."""
+        eval schema), or (child, None, None) when nothing folds. A stage
+        that numbers its rows (``rand``, a row id) folds only with no
+        filter folded below it, and the aggregate's own expressions
+        (``own_numbers_rows``) only with no filter folded at all: a
+        folded filter masks rows without compacting them."""
         eval_schema = child.output_schema()
-        stages, node = [], child
+        stages, nodes, node = [], [child], child
         while True:
             if (isinstance(node, B.TpuFilterExec)
                     and node.condition.fully_device_supported(
                         node.children[0].output_schema()) is None):
                 stages.append(("filter", node.condition))
-                node = node.children[0]
             elif isinstance(node, B.TpuProjectExec) and not node.chains:
                 # a string chain stays its own exec: its result's layout
                 # (dictionary or rectangle) is known only per batch
                 stages.append(("project", node.exprs, node.output_schema()))
-                node = node.children[0]
             else:
                 break
-        if not stages:
+            node = node.children[0]
+            nodes.append(node)
+
+        def numbers_rows(st):
+            return _numbers_rows([st[1]] if st[0] == "filter"
+                                 else st[1]) is not None
+
+        def foldable(m):
+            top = stages[:m]                # top-down
+            filters = [st[0] == "filter" for st in top]
+            if own_numbers_rows and any(filters):
+                return False
+            return not any(numbers_rows(st) and any(filters[i + 1:])
+                           for i, st in enumerate(top))
+        m = len(stages)
+        while m and not foldable(m):
+            m -= 1
+        if not m:
             return child, None, None
-        stages.reverse()
-        return node, stages, eval_schema
+        return nodes[m], stages[:m][::-1], eval_schema
 
 
 @rule(L.Sort)
@@ -443,6 +510,10 @@ class SortMeta(PlanMeta):
             if not f.dtype.device_backed and f.dtype != STRING:
                 self.will_not_work_on_tpu(
                     f"column {f.name}: {f.dtype.name} payload is host-only")
+        r = _row_numbering_reason([o.expr for o in self.plan.orders],
+                                  "a sort key")
+        if r:
+            self.will_not_work_on_tpu(r)
 
     def convert_to_tpu(self, children):
         """A sort key that is a string chain over one column (``ORDER BY
@@ -479,7 +550,7 @@ class WindowMeta(PlanMeta):
             if not f.dtype.device_backed and f.dtype != STRING:
                 self.will_not_work_on_tpu(
                     f"column {f.name}: {f.dtype.name} payload in a window "
-                    "arrives with slice 9 (collections)")
+                    "arrives with slice 9b (collections)")
         for fn, spec, name in self.plan.window_exprs:
             for pk in spec.partition_by:
                 r = _key_reason(pk, schema)
@@ -492,7 +563,10 @@ class WindowMeta(PlanMeta):
                     self.will_not_work_on_tpu(
                         f"window order key <{o.expr.name_hint}>: {r}")
             r = fn.device_unsupported_reason(schema) or \
-                frame_reason(fn, spec)
+                frame_reason(fn, spec) or _row_numbering_reason(
+                    list(spec.partition_by) + [o.expr for o in spec.order_by]
+                    + [e for e in [getattr(fn, "child", None)]
+                       if e is not None], "a window")
             if r:
                 self.will_not_work_on_tpu(f"window <{name}>: {r}")
 
@@ -524,7 +598,8 @@ class ExpandMeta(PlanMeta):
         schema = self.plan.children[0].schema()
         for p in self.plan.projections:
             for e in p:
-                r = e.fully_device_supported(schema)
+                r = e.fully_device_supported(schema) or \
+                    _row_numbering_reason([e], "an expand")
                 if r:
                     self.will_not_work_on_tpu(f"expand <{e.name_hint}>: {r}")
 
@@ -538,7 +613,8 @@ class DistinctFlagMeta(PlanMeta):
     def tag_self(self):
         schema = self.plan.children[0].schema()
         for e in self.plan.key_exprs + [self.plan.value_expr]:
-            r = e.fully_device_supported(schema)
+            r = e.fully_device_supported(schema) or \
+                _row_numbering_reason([e], "a distinct flag")
             if r:
                 self.will_not_work_on_tpu(
                     f"distinct-flag <{e.name_hint}>: {r}")
@@ -581,6 +657,12 @@ class JoinMeta(PlanMeta):
                 if r:
                     self.will_not_work_on_tpu(
                         f"{side} key <{k.name_hint}>: {r}")
+        r = _row_numbering_reason(
+            self.plan.left_keys + self.plan.right_keys
+            + ([self.plan.condition] if self.plan.condition is not None
+               else []), "a join")
+        if r:
+            self.will_not_work_on_tpu(r)
         if self.plan.condition is not None:
             joined = Schema(list(ls.fields) + list(rs.fields))
             r = self.plan.condition.fully_device_supported(joined)

@@ -15,9 +15,11 @@ aggregate only through a subquery, as in the reference.
 The function tables name only what the port has. A function the
 reference knows and the port does not yet have raises NotImplementedError
 naming the slice that brings it (``_LATER``), as do INTERSECT ALL /
-EXCEPT ALL (slice 9), and DML and catalog statements (slice 10); a name
+EXCEPT ALL (slice 9b), and DML and catalog statements (slice 10); a name
 the reference does not know either stays an "unknown function"
-SqlError.
+SqlError. ``log(base, x)`` with two arguments is Spark's logarithm to a
+base, where the reference's lowering takes the log of its first argument
+(ROADMAP.md Queue C).
 """
 from __future__ import annotations
 
@@ -33,37 +35,40 @@ __all__ = ["lower_statement"]
 _AGG_FNS = {
     "sum": F.sum, "count": F.count, "avg": F.avg, "mean": F.avg,
     "min": F.min, "max": F.max, "first": F.first, "last": F.last,
+    "stddev": F.stddev, "stddev_samp": F.stddev,
+    "stddev_pop": F.stddev_pop, "variance": F.var_samp,
+    "var_samp": F.var_samp, "var_pop": F.var_pop,
 }
 
 _SCALAR_FNS = {
-    "abs": F.abs, "isnull": F.isnull,
+    "abs": F.abs, "sqrt": F.sqrt, "exp": F.exp, "ln": F.log, "log": F.log,
+    "floor": F.floor, "ceil": F.ceil, "ceiling": F.ceil,
     "upper": F.upper, "ucase": F.upper, "lower": F.lower, "lcase": F.lower,
     "length": F.length, "char_length": F.length, "trim": F.trim,
     "ltrim": F.ltrim, "rtrim": F.rtrim, "reverse": F.reverse,
-    "initcap": F.initcap,
+    "initcap": F.initcap, "year": F.year, "month": F.month,
+    "day": F.dayofmonth, "dayofmonth": F.dayofmonth, "hour": F.hour,
+    "minute": F.minute, "second": F.second, "quarter": F.quarter,
+    "dayofweek": F.dayofweek, "dayofyear": F.dayofyear,
+    "isnan": F.isnan, "isnull": F.isnull,
 }
 
 _VARARG_FNS = {"coalesce": F.coalesce}
 
 _STRINGS = "the next strings slice (slice 7: concat, parse_url)"
-_MATH = "slice 9 (math, datetime and statistics functions)"
+_TIME_ZONES = ("the time-zone functions, which the reference runs on its "
+               "host engine (ROADMAP.md Queue A, the host-only functions: "
+               "queued with slice 13)")
 #: functions of the reference's tables that arrive with a later slice
 _LATER = {
-    **{fn: _STRINGS for fn in (
-        "concat", "parse_url")},
-    **{fn: _MATH for fn in (
-        "sqrt", "exp", "ln", "log", "floor", "ceil", "ceiling", "round",
-        "year", "month", "day", "dayofmonth", "hour", "minute", "second",
-        "quarter", "dayofweek", "dayofyear", "isnan", "datediff",
-        "from_utc_timestamp", "to_utc_timestamp", "stddev", "stddev_samp",
-        "stddev_pop", "variance", "var_samp", "var_pop")},
+    **{fn: _STRINGS for fn in ("concat", "parse_url")},
+    **{fn: _TIME_ZONES for fn in ("from_utc_timestamp",
+                                  "to_utc_timestamp")},
 }
-_LATER_AGGS = {"stddev", "stddev_samp", "stddev_pop", "variance",
-               "var_samp", "var_pop"}
 
 
 def _is_agg(fn: str) -> bool:
-    return fn in _AGG_FNS or fn in _LATER_AGGS
+    return fn in _AGG_FNS
 
 
 def _int_lit(ast, fn: str) -> int:
@@ -697,6 +702,15 @@ class _Lowerer:
                 a = [self._expr(args[0])] + [_int_lit(x, fn)
                                              for x in args[1:]]
                 return F.substring(*a)
+            if fn == "round":
+                scale = _int_lit(args[1], fn) if len(args) > 1 else 0
+                return F.round(self._expr(args[0]), scale)
+            if fn == "log" and len(args) == 2:
+                return F.log(self._expr(args[0]), self._expr(args[1]))
+            if fn == "datediff":
+                if len(args) != 2:
+                    raise SqlError("datediff requires (end, start)")
+                return F.datediff(self._expr(args[0]), self._expr(args[1]))
             if fn == "date_add":
                 return F.date_add(self._expr(args[0]),
                                   self._expr(args[1]))
