@@ -190,6 +190,29 @@ result line):
                 against RandomState(42), splitmix64 and n - 1; (f)
                 range(0, 100,000,000) with the sum and stddev_pop of
                 id % 7 against closed forms.
+ 16. slice 9b -- (after phase 15) list columns, collection and
+                higher-order functions, generators and INTERSECT ALL /
+                EXCEPT ALL through the normal entry points, against
+                numpy. SF1 lineitem grouped by l_orderkey into nested
+                orders (about 1.5 M rows, each with its l_quantity,
+                l_extendedprice, l_discount and l_shipdate as lists in
+                lineitem order; the width and device bytes printed),
+                1,048,576-row batches: (a) keyless sums of size,
+                array_max, element_at(.., -1), element_at(sort_array(..,
+                false), 1), size(slice(.., 2, 3)), array_position and
+                array_contains (in cents or counts: exact), and a count
+                filtered on array_contains; (b) each order's
+                aggregate(zip_with(price, discount, p * (1 - d)), 0D,
+                acc + x) bit-equal to numpy's fold in element order,
+                and size(filter(l_shipdate, ...)) and exists(l_quantity,
+                ...) counts; (c) posexplode(l_extendedprice) grouped by
+                pos (dense_groupby once a batch) and explode_outer over
+                a list column with NULL and empty lists; (d) INTERSECT
+                ALL and EXCEPT ALL of 1994's and 1995's (l_shipmode,
+                l_quantity) lineitems as DataFrames and as SQL, the
+                per-key counts against numpy's multisets (join_match
+                launches printed). Each cold and warm; (a) and (c) once
+                more under torch.profiler.
 
 The data is generated here from a seed, with numpy only: this script
 imports neither JAX, pyarrow, pandas nor the JAX package. It prints a
@@ -2145,11 +2168,15 @@ def _profile_report(prof, wall_ms: float, label: str, kernel: str) -> dict:
     kernel's share of device time (operations whose name holds
     ``kernel``), and the device's idle share of the profiled window (the
     union of its operations' intervals against the span of every
-    event)."""
+    event). Device time is summed over the rows of the card's own
+    operations (kernels, copies, fills): an ``aten::`` row's self device
+    time is that of the kernels it launched, which have rows of their
+    own."""
     from torch.autograd import DeviceType
     avg = prof.key_averages()
     dev = sorted(((_device_time_us(e), e.key, e.count) for e in avg
-                  if _device_time_us(e) > 0), reverse=True)
+                  if getattr(e, "device_type", None) == DeviceType.CUDA
+                  and _device_time_us(e) > 0), reverse=True)
     if not dev:
         _log("profile: key_averages() shows no device time; the CUDA-event "
              "numbers above stand")
@@ -5853,6 +5880,360 @@ def phase_stats(card: str, batch_rows: int, table: dict, host,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: slice 9b -- list columns, collection and higher-order
+# functions, generators and INTERSECT ALL / EXCEPT ALL
+# ---------------------------------------------------------------------------
+
+NESTED_LISTS = ("l_quantity", "l_extendedprice", "l_discount", "l_shipdate")
+#: l_quantity again, with NULL and empty lists put in (case c)
+HOLES = "q_holes"
+DATE_1994 = int(np.datetime64("1994-01-01", "D").astype(np.int64))
+SETOP_COLS = ["l_shipmode", "l_quantity"]
+SETOP_SQL = """
+SELECT l_shipmode, l_quantity FROM lineitem WHERE year(l_shipdate) = 1994
+{verb}
+SELECT l_shipmode, l_quantity FROM lineitem WHERE year(l_shipdate) = 1995
+"""
+
+
+def gen_nested_orders(t: dict) -> dict:
+    """TPC-H orders denormalized with their lineitems (the layout nested
+    data users query): one row an l_orderkey, and for each of
+    ``NESTED_LISTS`` the order's values in lineitem row order, as
+    (offsets, flat values); ``HOLES`` is l_quantity's lists with every
+    17th order NULL and every 19th empty."""
+    key = t["l_orderkey"]
+    order = np.argsort(key, kind="stable")
+    keys, starts, counts = np.unique(key[order], return_index=True,
+                                     return_counts=True)
+    offsets = np.zeros(len(keys) + 1, np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    out = {"o_orderkey": keys, "offsets": offsets, "counts": counts}
+    for name in NESTED_LISTS:
+        out[name] = t[name][order]
+    n = len(keys)
+    null = np.arange(n) % 17 == 5
+    empty = (np.arange(n) % 19 == 7) & ~null
+    hcounts = np.where(null | empty, 0, counts)
+    hoff = np.zeros(n + 1, np.int64)
+    np.cumsum(hcounts, out=hoff[1:])
+    keep = np.repeat(hcounts > 0, counts)
+    out[HOLES] = (hoff, out["l_quantity"][keep], ~null)
+    return out
+
+
+def nested_host_table(o: dict):
+    from spark_rapids_tpu_torch.columnar import HostList, HostTable
+    cols = {"o_orderkey": o["o_orderkey"]}
+    for name in NESTED_LISTS:
+        cols[name] = HostList(o["offsets"], o[name])
+    hoff, hvals, hvalid = o[HOLES]
+    cols[HOLES] = (HostList(hoff, hvals), hvalid)
+    return HostTable.from_dict(cols)
+
+
+def _per_order(o: dict, values: np.ndarray, reduce) -> np.ndarray:
+    return reduce.reduceat(values, o["offsets"][:-1])
+
+
+def q_nested_a(df, F):
+    q, p = F.col("l_quantity"), F.col("l_extendedprice")
+    d = F.col("l_discount")
+    cents = F.lit(100.0)
+    return df.select(
+        F.size(q).alias("n"),
+        F.round(F.array_max(p) * cents).cast("bigint").alias("pmax"),
+        F.round(F.element_at(p, -1) * cents).cast("bigint").alias("plast"),
+        F.element_at(F.sort_array(q, False), 1).cast("bigint")
+        .alias("qtop"),
+        F.size(F.slice(d, 2, 3)).alias("nslice"),
+        F.array_position(q, 50.0).alias("pos50"),
+        F.when(F.array_contains(d, 0.1), F.lit(1)).otherwise(F.lit(0))
+        .alias("has10")).agg(*[F.sum(F.col(c)).with_name(c) for c in (
+            "n", "pmax", "plast", "qtop", "nslice", "pos50", "has10")])
+
+
+def q_nested_a_count(df, F):
+    return df.filter(F.array_contains(F.col("l_discount"), 0.1)) \
+        .agg(F.count_star().with_name("orders"))
+
+
+def nested_a_numpy(o: dict) -> dict:
+    cnt = o["counts"]
+    last = o["offsets"][1:] - 1
+    p, q, d = o["l_extendedprice"], o["l_quantity"], o["l_discount"]
+    row = np.repeat(np.arange(len(cnt)), cnt)
+    hit = np.flatnonzero(q == 50.0)
+    none = np.iinfo(np.int64).max
+    best = np.full(len(cnt), none, np.int64)
+    np.minimum.at(best, row[hit], hit - o["offsets"][row[hit]] + 1)
+    first50 = np.where(best == none, 0, best)
+    has10 = np.zeros(len(cnt), bool)
+    has10[row[d == 0.1]] = True
+    return {"n": int(cnt.sum()),
+            "pmax": int(np.round(_per_order(o, p, np.maximum) * 100.0)
+                        .astype(np.int64).sum()),
+            "plast": int(np.round(p[last] * 100.0).astype(np.int64).sum()),
+            "qtop": int(_per_order(o, q, np.maximum).astype(np.int64).sum()),
+            "nslice": int(np.clip(cnt - 1, 0, 3).sum()),
+            "pos50": int(first50.sum()), "has10": int(has10.sum())}
+
+
+def q_nested_b_fold(df, F):
+    return df.select("o_orderkey", F.aggregate(
+        F.zip_with(F.col("l_extendedprice"), F.col("l_discount"),
+                   lambda p, d: p * (F.lit(1.0) - d)),
+        F.lit(0.0), lambda acc, x: acc + x).alias("revenue"))
+
+
+def q_nested_b_counts(df, F):
+    return df.select(
+        F.size(F.filter(F.col("l_shipdate"), lambda d: d >= F.lit(
+            np.datetime64("1994-01-01", "D")))).alias("late"),
+        F.when(F.exists(F.col("l_quantity"), lambda q: q > F.lit(49.0)),
+               F.lit(1)).otherwise(F.lit(0)).alias("big")).agg(
+        F.sum(F.col("late")).with_name("late"),
+        F.sum(F.col("big")).with_name("big"))
+
+
+def nested_b_numpy(o: dict) -> dict:
+    """Each order's revenue folded in element order, as the port folds it
+    (bit-equal), their sum, and the two counts."""
+    v = o["l_extendedprice"] * (1.0 - o["l_discount"])
+    cnt, start = o["counts"], o["offsets"][:-1]
+    rev = np.zeros(len(cnt))
+    for j in range(int(cnt.max())):
+        m = cnt > j
+        rev[m] = rev[m] + v[start[m] + j]
+    days = o["l_shipdate"].astype("datetime64[D]").astype(np.int64)
+    row = np.repeat(np.arange(len(cnt)), cnt)
+    big = np.zeros(len(cnt), bool)
+    big[row[o["l_quantity"] > 49.0]] = True
+    return {"revenue": rev, "late": int((days >= DATE_1994).sum()),
+            "big": int(big.sum())}
+
+
+def q_nested_c(df, F):
+    return df.select(F.posexplode(F.col("l_extendedprice"))) \
+        .group_by("pos").agg(F.sum(F.col("col")).with_name("s"),
+                             F.count_star().with_name("n")).order_by("pos")
+
+
+def q_nested_c_outer(df, F):
+    return df.select(F.explode_outer(F.col(HOLES))).agg(
+        F.count_star().with_name("rows"),
+        F.count(F.col("col")).with_name("values"),
+        F.sum(F.col("col")).with_name("s"))
+
+
+def nested_c_numpy(o: dict) -> dict:
+    cnt, start = o["counts"], o["offsets"][:-1]
+    p = o["l_extendedprice"]
+    rows = []
+    for j in range(int(cnt.max())):
+        m = cnt > j
+        rows.append({"pos": j, "s": float(p[start[m] + j].sum()),
+                     "n": int(m.sum())})
+    hoff, hvals, hvalid = o[HOLES]
+    hcnt = np.diff(hoff)
+    return {"by_pos": rows, "outer": {
+        "rows": int(np.where(hcnt > 0, hcnt, 1).sum()),
+        "values": int(len(hvals)), "s": float(hvals.sum())}}
+
+
+def setop_all_numpy(t: dict) -> dict:
+    """The (l_shipmode, l_quantity) multisets of 1994 and 1995 lineitems:
+    per key the INTERSECT ALL count (the least of the two) and the EXCEPT
+    ALL count (the first less the second, at least 0)."""
+    year = t["l_shipdate"].astype("datetime64[Y]").astype(np.int64) + 1970
+    modes, mode = np.unique(t["l_shipmode"], return_inverse=True)
+    code = mode.astype(np.int64) * 1000 + t["l_quantity"].astype(np.int64)
+    counts = [dict(zip(*(x.tolist() for x in np.unique(
+        code[year == y], return_counts=True)))) for y in (1994, 1995)]
+    out = {"intersect_all": {}, "except_all": {}}
+    for c in set(counts[0]) | set(counts[1]):
+        a, b = counts[0].get(c, 0), counts[1].get(c, 0)
+        key = (str(modes[c // 1000]), float(c % 1000))
+        if min(a, b):
+            out["intersect_all"][key] = min(a, b)
+        if a > b:
+            out["except_all"][key] = a - b
+    return out
+
+
+def _setop_counts(got: dict) -> dict:
+    """Per (l_shipmode, l_quantity) the rows of a collected result."""
+    modes = np.asarray(got["l_shipmode"], dtype=object)
+    qty = np.asarray(got["l_quantity"], dtype=np.float64)
+    out: dict = {}
+    for m, q in zip(modes.tolist(), qty.tolist()):
+        out[(m, q)] = out.get((m, q), 0) + 1
+    return out
+
+
+def phase_nested(card: str, batch_rows: int, table: dict, host) -> dict:
+    """Phase 16 (module doc): slice 9b through the normal entry points at
+    full size, against numpy."""
+    import torch
+    from spark_rapids_tpu_torch.api import TorchSession
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.columnar import ColumnarBatch
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    o = gen_nested_orders(table)
+    orders = nested_host_table(o)
+    n_orders = len(o["o_orderkey"])
+    longest = int(o["counts"].max())
+    built = [ColumnarBatch.from_host(orders.slice(i, batch_rows), "cuda",
+                                     64)
+             for i in range(0, n_orders, batch_rows)]
+    torch.cuda.synchronize()
+    widths = [{f.name: c.width for f, c in zip(orders.schema.fields,
+                                               b.columns)
+               if hasattr(c, "width")} for b in built]
+    n_batches = len(built)
+    table_bytes = sum(b.device_size_bytes() for b in built)
+    del built
+    _log(f"phase 16: nested orders from SF1 lineitem in "
+         f"{time.perf_counter() - t0:.2f} s: {n_orders} orders of 1-"
+         f"{longest} lineitems in {n_batches} batches of up to "
+         f"{batch_rows} orders, list widths by batch {widths}, "
+         f"{table_bytes / 2**30:.2f} GiB on the card (the batches' "
+         "device_size_bytes)")
+    conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows,
+            "spark.rapids.tpu.sql.agg.wideBatchRows": batch_rows}
+    session = TorchSession(conf)
+    out = {"orders": n_orders, "longest": longest, "widths": widths,
+           "device_bytes": table_bytes, "batches": n_batches}
+
+    def runs(label, make, right, collect="collect"):
+        for phase in ("cold", "warm"):
+            run, rows = _sql_run(session, make, collect)
+            _check(right(rows), f"{label} {phase}: {str(rows)[:300]}")
+            out[f"{label}_{phase}"] = run
+        return rows
+
+    # (a) collection functions, keyless sums over the orders
+    want_a = nested_a_numpy(o)
+    runs("a", lambda s: q_nested_a(s.create_dataframe(orders), F),
+         lambda r: r == [want_a])
+    runs("a_count",
+         lambda s: q_nested_a_count(s.create_dataframe(orders), F),
+         lambda r: r == [{"orders": want_a["has10"]}])
+    out["a_profile_warm"] = phase_profile(
+        session, orders, q_nested_a, lambda r: r == [want_a],
+        f"phase 16 (a) collection functions ({card})", "dense_groupby")
+    _log(f"phase 16 (a) collection functions over {n_orders} orders "
+         f"({card}): {want_a} equal numpy exactly; "
+         f"{out['a_cold']['wall_ms']:.1f} ms cold, "
+         f"{out['a_warm']['wall_ms']:.1f} ms warm; the filtered count "
+         f"{out['a_count_cold']['wall_ms']:.1f} / "
+         f"{out['a_count_warm']['wall_ms']:.1f} ms; idle "
+         f"{out['a_profile_warm'].get('idle_share', float('nan')):.1%}, "
+         f"cudaLaunchKernel "
+         f"{out['a_profile_warm'].get('host_calls', {}).get('cudaLaunchKernel')}")
+
+    # (b) higher-order functions: each order's fold bit-equal to numpy's
+    # fold in element order; the sum over the orders within 1e-12 (torch
+    # and numpy add the 1.5 M folds in different orders)
+    want_b = nested_b_numpy(o)
+
+    def right_fold(got):
+        rev = np.asarray(got["revenue"])
+        return (np.array_equal(np.asarray(got["o_orderkey"]),
+                               o["o_orderkey"])
+                and np.array_equal(rev, want_b["revenue"])
+                and _rel(float(rev.sum()), float(want_b["revenue"].sum()))
+                <= 1e-12)
+    runs("b_fold", lambda s: q_nested_b_fold(s.create_dataframe(orders), F),
+         right_fold, "collect_numpy")
+    runs("b_counts",
+         lambda s: q_nested_b_counts(s.create_dataframe(orders), F),
+         lambda r: r == [{"late": want_b["late"], "big": want_b["big"]}])
+    _log(f"phase 16 (b) aggregate(zip_with(...)) over {n_orders} orders "
+         f"({card}): every order's revenue bit-equal to numpy's fold, sum "
+         f"{want_b['revenue'].sum()!r}; filter/exists counts "
+         f"{want_b['late']}, {want_b['big']} exact; fold "
+         f"{out['b_fold_cold']['wall_ms']:.1f} ms cold, "
+         f"{out['b_fold_warm']['wall_ms']:.1f} ms warm; counts "
+         f"{out['b_counts_cold']['wall_ms']:.1f} / "
+         f"{out['b_counts_warm']['wall_ms']:.1f} ms")
+
+    # (c) posexplode grouped by position (dense_groupby), explode_outer
+    want_c = nested_c_numpy(o)
+
+    def right_c(rows):
+        w = want_c["by_pos"]
+        return len(rows) == len(w) and all(
+            g["pos"] == x["pos"] and g["n"] == x["n"]
+            and _rel(g["s"], x["s"]) <= REL_TOL for g, x in zip(rows, w))
+    runs("c", lambda s: q_nested_c(s.create_dataframe(orders), F), right_c)
+    k = out["c_warm"]["launches"]["dense_groupby"]
+    _check(k == n_batches, f"(c): dense_groupby launched {k} times, "
+           f"expected {n_batches} (once a generated batch)")
+    wo = want_c["outer"]
+    runs("c_outer",
+         lambda s: q_nested_c_outer(s.create_dataframe(orders), F),
+         lambda r: len(r) == 1 and r[0]["rows"] == wo["rows"]
+         and r[0]["values"] == wo["values"]
+         and _rel(r[0]["s"], wo["s"]) <= REL_TOL)
+    out["c_profile_warm"] = phase_profile(
+        session, orders, q_nested_c, right_c,
+        f"phase 16 (c) posexplode by position ({card})", "dense_groupby")
+    _log(f"phase 16 (c) posexplode(l_extendedprice) by pos ({card}): "
+         f"{int(o['counts'].sum())} exploded rows, {len(want_c['by_pos'])} "
+         f"positions equal numpy (counts exact, sums within {REL_TOL:g}); "
+         f"{out['c_cold']['wall_ms']:.1f} ms cold, "
+         f"{out['c_warm']['wall_ms']:.1f} ms warm; dense_groupby "
+         f"launches {k}; idle "
+         f"{out['c_profile_warm'].get('idle_share', float('nan')):.1%}, "
+         f"cudaLaunchKernel "
+         f"{out['c_profile_warm'].get('host_calls', {}).get('cudaLaunchKernel')}"
+         f"; explode_outer over {HOLES} {wo['rows']} rows "
+         f"{out['c_outer_cold']['wall_ms']:.1f} / "
+         f"{out['c_outer_warm']['wall_ms']:.1f} ms")
+
+    # (d) INTERSECT ALL / EXCEPT ALL of 1994's (l_shipmode, l_quantity)
+    # rows against 1995's
+    want_d = setop_all_numpy(table)
+    li = host.select(SETOP_COLS + ["l_shipdate"])
+    session.create_dataframe(li).create_or_replace_temp_view("lineitem")
+
+    def frame(s, year):
+        return s.create_dataframe(li).filter(
+            F.year(F.col("l_shipdate")) == F.lit(year)).select(*SETOP_COLS)
+    for verb, op in (("INTERSECT ALL", "intersect_all"),
+                     ("EXCEPT ALL", "except_all")):
+        want = want_d[op]
+        n_want = sum(want.values())
+        forms = {"dataframe": lambda s, op=op: getattr(frame(s, 1994), op)(
+                     frame(s, 1995)),
+                 "sql": lambda s, verb=verb: s.sql(
+                     SETOP_SQL.format(verb=verb))}
+        for form, make in forms.items():
+            runs(f"d_{op}_{form}", make,
+                 lambda got, want=want: _setop_counts(got) == want,
+                 "collect_numpy")
+        k = out[f"d_{op}_dataframe_warm"]["launches"]["join_match"]
+        _check(k > 0 and out[f"d_{op}_sql_warm"]["launches"]["join_match"]
+               > 0, f"(d) {verb}: join_match did not launch")
+        _log(f"phase 16 (d) {verb} of 1994's and 1995's (l_shipmode, "
+             f"l_quantity) ({card}): {n_want} rows over {len(want)} keys "
+             f"(multiplicities up to {max(want.values())}) equal numpy's "
+             "multisets; DataFrame "
+             f"{out[f'd_{op}_dataframe_cold']['wall_ms']:.1f} ms cold, "
+             f"{out[f'd_{op}_dataframe_warm']['wall_ms']:.1f} ms warm; SQL "
+             f"{out[f'd_{op}_sql_cold']['wall_ms']:.1f} / "
+             f"{out[f'd_{op}_sql_warm']['wall_ms']:.1f} ms; join_match "
+             f"launches {out[f'd_{op}_dataframe_warm']['launches']['join_match']}"
+             f" (SQL {out[f'd_{op}_sql_warm']['launches']['join_match']})")
+        out[f"d_{op}_rows"] = n_want
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"phase 16 (slice 9b) took {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", metavar="NAME=DIR", action="append",
@@ -6048,6 +6429,7 @@ def main(argv=None) -> int:
         windows = phase_windows(card, batch_rows, ds, compare)
         stats = phase_stats(card, batch_rows, table, host, ds)
         del ds
+        nested = phase_nested(card, batch_rows, table, host)
         _log(json.dumps({"queries": {
             "q6": {"rows": SF1_ROWS, "wall_ms_cold": ms_cold,
                    "wall_ms_warm": ms_warm},
@@ -6074,7 +6456,11 @@ def main(argv=None) -> int:
                         "phase_s": windows["phase_s"]},
             "slice9a": {k: v for k, v in stats.items()
                         if not k.endswith("profile_warm")},
-            "slice9a_profile_a": stats["a_profile_warm"]}}))
+            "slice9a_profile_a": stats["a_profile_warm"],
+            "slice9b": {k: v for k, v in nested.items()
+                        if not k.endswith("profile_warm")},
+            "slice9b_profile_a": nested["a_profile_warm"],
+            "slice9b_profile_c": nested["c_profile_warm"]}}))
         main_t = times["main"]
         kernel = {
             "name": "rect_match", "route": "cuda",
@@ -6121,6 +6507,8 @@ def main(argv=None) -> int:
                       "stats_a": stats["a_dataframe_cold"]["launches"][
                           "dense_groupby"],
                       "stats_a_sql": stats["a_sql_cold"]["launches"][
+                          "dense_groupby"],
+                      "nested_c": nested["c_cold"]["launches"][
                           "dense_groupby"]},
             "tolerance": f"float sums within {DENSE_TOL:g} of the group's "
                          "sum of magnitudes; counts and int sums exact; "
@@ -6153,7 +6541,11 @@ def main(argv=None) -> int:
                           "join_match_launches"],
                       **{f"ss_{k}_item": v["join_match_launches"]
                          for k, v in tpcds["joins_by_type"].items()},
-                      "sql_q3": sql["q3"]["cold"]["launches"]["join_match"]},
+                      "sql_q3": sql["q3"]["cold"]["launches"]["join_match"],
+                      **{f"nested_{k}": nested[f"d_{k}_cold"]["launches"][
+                          "join_match"] for k in (
+                          "intersect_all_dataframe", "except_all_dataframe",
+                          "intersect_all_sql", "except_all_sql")}},
             "ms": join_t["ms"], "plain_ms": join_t["plain_ms"],
             "bound_ms": join_t["bound_ms"], "bound_by": join_t["bound_by"],
             "bound_bytes": join_t["bound_bytes"],

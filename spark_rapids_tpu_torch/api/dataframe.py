@@ -6,7 +6,10 @@ caller names another. Inputs are a dict of numpy arrays, an Arrow
 table or pandas DataFrame when those packages are installed, or Parquet
 files (``read_parquet``, read by the port's own reader); results
 come back as rows (``collect``), numpy arrays (``collect_numpy``), an
-Arrow table (``collect_arrow``) or a pandas DataFrame (``to_pandas``).
+Arrow table (``collect_arrow``) or a pandas DataFrame (``to_pandas``); a
+list column as Python lists, its (offsets, values, element validity, row
+validity) and an Arrow ListArray. A ``select`` holding a generator
+(``explode``, ``posexplode``, ``stack``) plans a ``Generate``.
 ``session.sql(text)`` runs SQL over the session's temp views
 (``create_temp_view`` / ``df.create_or_replace_temp_view``; sql/).
 
@@ -34,7 +37,7 @@ from ..exprs.base import Alias, ColumnRef, Expression
 from ..mem.manager import MemoryManager
 from ..plan import logical as L
 from ..plan.overrides import plan_query
-from ..types import DATE, TIMESTAMP, Schema
+from ..types import DATE, TIMESTAMP, ArrayType, Schema
 from .functions import Col, _to_expr
 
 __all__ = ["TorchSession", "DataFrame", "GroupedData"]
@@ -180,6 +183,8 @@ class TorchSession:
 
 
 def _py_values(vals: np.ndarray, valid: np.ndarray, dtype) -> list:
+    if isinstance(dtype, ArrayType):
+        return vals.to_pylist(valid, dtype.element)
     if dtype == DATE:
         epoch = datetime.date(1970, 1, 1)
         out = [epoch + datetime.timedelta(days=int(x)) for x in vals]
@@ -267,8 +272,46 @@ class DataFrame:
         return DataFrame(self.session, L.Project(exprs, joined))
 
     def select(self, *cols) -> "DataFrame":
-        return DataFrame(self.session,
-                         L.Project([_as_expr(c) for c in cols], self.plan))
+        exprs = [_as_expr(c) for c in cols]
+        gen = self._extract_generator(exprs)
+        if gen is not None:
+            return gen
+        return DataFrame(self.session, L.Project(exprs, self.plan))
+
+    def _extract_generator(self, exprs) -> Optional["DataFrame"]:
+        """Spark's ExtractGenerator (ref ``_extract_generator``): a select
+        list holding explode/posexplode/stack plans a Generate node, with
+        the other expressions evaluated over its pass-through columns."""
+        from ..exprs.generators import Generator
+
+        def gen_of(e):
+            inner = e.children[0] if isinstance(e, Alias) else e
+            return inner if isinstance(inner, Generator) else None
+        gen_idx = [i for i, e in enumerate(exprs) if gen_of(e) is not None]
+        if not gen_idx:
+            return None
+        if len(gen_idx) > 1:
+            raise ValueError("only one generator allowed per select clause")
+        i = gen_idx[0]
+        generator = gen_of(exprs[i])
+        alias = exprs[i].name if isinstance(exprs[i], Alias) else None
+        others = [x for j, x in enumerate(exprs) if j != i]
+        needed: List[str] = []
+        for o in others:
+            for r in o.references():
+                if r not in needed:
+                    needed.append(r)
+        out_names = None
+        if alias is not None:
+            if len(generator.generator_output(self.plan.schema())) != 1:
+                raise ValueError(
+                    "single alias on a multi-column generator; use the "
+                    "default names instead")
+            out_names = [alias]
+        plan = L.Generate(generator, needed, self.plan, out_names)
+        gen_names = plan.schema().names()[len(needed):]
+        top = others[:i] + [ColumnRef(n) for n in gen_names] + others[i:]
+        return DataFrame(self.session, L.Project(top, plan))
 
     def with_column(self, name: str, c) -> "DataFrame":
         exprs: List[Expression] = []
@@ -356,15 +399,53 @@ class DataFrame:
         return self.distinct().join(other, how="leftanti",
                                     on=self._nullsafe_key_pairs(other))
 
+    def _counted_setop(self, other: "DataFrame",
+                       all_kind: str) -> "DataFrame":
+        """INTERSECT ALL / EXCEPT ALL (ref ``_counted_setop``): each side's
+        rows counted by a group-by, the counts joined on the null-safe
+        keys, each row's multiplicity (the least of the two counts, or
+        the left's less the right's) and the row replicated that many
+        times by ``explode(sequence(1, m))``, which the Generate exec runs
+        from the counts alone (no list rectangle)."""
+        from . import functions as F
+        from ..exprs import Coalesce, Least, Literal, Subtract
+        from ..exprs.aggregates import CountStar
+        names = self.plan.schema().names()
+        rnames = other.plan.schema().names()
+        lc = GroupedData(self, [ColumnRef(n) for n in names]).agg(
+            CountStar().with_name("__so_l"))
+        rc = GroupedData(other, [ColumnRef(n) for n in rnames]).agg(
+            CountStar().with_name("__so_r"))
+        # the right side renamed wholesale: its columns pair by position,
+        # and the join's output must not repeat a name
+        rmap = {rn: f"__so_r_{i}" for i, rn in enumerate(rnames)}
+        rc = rc.select(*([Col(Alias(ColumnRef(rn), rmap[rn]))
+                          for rn in rnames] + ["__so_r"]))
+        pairs = [(le, _renamed(re, rmap))
+                 for le, re in self._nullsafe_key_pairs(other)]
+        if all_kind == "intersect":
+            j = lc.join(rc, on=pairs, how="inner")
+            m = Least(ColumnRef("__so_l"), ColumnRef("__so_r"))
+        else:
+            j = lc.join(rc, on=pairs, how="left")
+            m = Subtract(ColumnRef("__so_l"),
+                         Coalesce(ColumnRef("__so_r"), Literal(0)))
+        j = j.with_column("__so_m", Col(m)) \
+             .filter(F.col("__so_m") > F.lit(0))
+        j = j.select(*(names + [F.explode(F.sequence(
+            F.lit(1), F.col("__so_m"))).alias("__so_i")]))
+        return j.select(*names)
+
     def intersect_all(self, other: "DataFrame") -> "DataFrame":
-        raise NotImplementedError(
-            "INTERSECT ALL replicates rows through explode(sequence(...)), "
-            "which arrives with slice 9b (generators)")
+        """The rows of both as multisets (SQL INTERSECT ALL): each row as
+        often as the fewer of its two counts."""
+        return self._counted_setop(other, "intersect")
 
     def except_all(self, other: "DataFrame") -> "DataFrame":
-        raise NotImplementedError(
-            "EXCEPT ALL replicates rows through explode(sequence(...)), "
-            "which arrives with slice 9b (generators)")
+        """This frame's rows less ``other``'s as multisets (SQL EXCEPT
+        ALL): each row as often as its count here exceeds its count
+        there."""
+        return self._counted_setop(other, "except")
 
     def sample(self, fraction: float, seed: int = 42) -> "DataFrame":
         """A Bernoulli sample without replacement: each row kept with
@@ -464,10 +545,21 @@ class DataFrame:
 
     def collect_numpy(self) -> dict:
         """name -> numpy masked array (masked where null); DATE columns as
-        datetime64[D], TIMESTAMP as datetime64[us]."""
+        datetime64[D], TIMESTAMP as datetime64[us]; a list column as
+        (int64 offsets from 0, element values, element validity, row
+        validity)."""
         schema, cols = self._collect_columns()
         out = {}
         for f, (vals, valid) in zip(schema.fields, cols):
+            if isinstance(f.dtype, ArrayType):
+                c = vals.compact()
+                elem = c.values
+                if f.dtype.element == DATE:
+                    elem = elem.astype("datetime64[D]")
+                elif f.dtype.element == TIMESTAMP:
+                    elem = elem.astype("datetime64[us]")
+                out[f.name] = (c.offsets, elem, c.elem_valid, valid)
+                continue
             if f.dtype == DATE:
                 vals = vals.astype("datetime64[D]")
             elif f.dtype == TIMESTAMP:
@@ -489,7 +581,9 @@ class DataFrame:
         schema, cols = self._collect_columns()
         arrays = []
         for f, (vals, valid) in zip(schema.fields, cols):
-            if f.dtype == DATE:
+            if isinstance(f.dtype, ArrayType):
+                arr = vals.to_arrow(valid, f.dtype.element)
+            elif f.dtype == DATE:
                 arr = pa.array(vals.astype(np.int32), mask=~valid,
                                type=pa.int32()).cast(pa.date32())
             elif f.dtype == TIMESTAMP:
@@ -504,6 +598,18 @@ class DataFrame:
         """The result as a pandas DataFrame (pandas and pyarrow are
         imported here, and needed only here)."""
         return self.collect_arrow().to_pandas()
+
+
+def _renamed(e: Expression, names: dict) -> Expression:
+    """``e`` with its column references renamed by ``names``."""
+    import copy
+    if isinstance(e, ColumnRef):
+        return ColumnRef(names.get(e.name, e.name))
+    if not e.children:
+        return e
+    out = copy.copy(e)
+    out.children = [_renamed(c, names) for c in e.children]
+    return out
 
 
 class GroupedData:

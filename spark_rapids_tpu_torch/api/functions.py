@@ -44,7 +44,12 @@ __all__ = ["Col", "col", "lit", "asc", "desc", "when", "coalesce",
            "to_unix_timestamp", "unix_timestamp", "trunc", "stddev",
            "stddev_samp", "stddev_pop", "variance", "var_samp", "var_pop",
            "rand", "monotonically_increasing_id", "spark_partition_id",
-           "hash", "xxhash64"]
+           "hash", "xxhash64", "size", "array_contains", "array_position",
+           "element_at", "get", "sort_array", "array_min", "array_max",
+           "slice", "array_reverse", "array", "sequence", "transform",
+           "filter", "exists", "forall", "aggregate", "zip_with",
+           "explode", "explode_outer", "posexplode", "posexplode_outer",
+           "stack"]
 
 
 def _to_expr(v) -> E.Expression:
@@ -399,6 +404,71 @@ def hash(*cols) -> Col:
     return Col(HF.Murmur3Hash([_to_expr(c) for c in cols]))
 def xxhash64(*cols) -> Col:
     return Col(HF.XxHash64([_to_expr(c) for c in cols]))
+
+
+# --- collections (exprs/collection_fns.py) ---------------------------------
+def size(c) -> Col: return Col(E.Size(_to_expr(c)))
+def array_contains(c, value) -> Col:
+    return Col(E.ArrayContains(_to_expr(c), _to_expr(value)))
+def array_position(c, value) -> Col:
+    return Col(E.ArrayPosition(_to_expr(c), _to_expr(value)))
+def element_at(c, extraction) -> Col:
+    return Col(E.ElementAt(_to_expr(c), _to_expr(extraction)))
+def get(c, index) -> Col:
+    return Col(E.GetArrayItem(_to_expr(c), _to_expr(index)))
+def sort_array(c, asc: bool = True) -> Col:
+    return Col(E.SortArray(_to_expr(c), E.Literal(asc)))
+def array_min(c) -> Col: return Col(E.ArrayMin(_to_expr(c)))
+def array_max(c) -> Col: return Col(E.ArrayMax(_to_expr(c)))
+def slice(c, start, length) -> Col:
+    return Col(E.Slice(_to_expr(c), _to_expr(start), _to_expr(length)))
+def array_reverse(c) -> Col: return Col(E.ArrayReverse(_to_expr(c)))
+def array(*cols) -> Col: return Col(E.CreateArray(*map(_to_expr, cols)))
+def sequence(start, stop, step=None) -> Col:
+    return Col(E.Sequence(_to_expr(start), _to_expr(stop),
+                          _to_expr(step) if step is not None else None))
+
+
+# --- higher-order functions (exprs/higher_order.py) -------------------------
+def _make_lambda(fn, hints, min_args=1):
+    """A Python callable over Cols -> (its variables, its body); the arity
+    is the callable's, between ``min_args`` and ``len(hints)``."""
+    import inspect
+    n = len(inspect.signature(fn).parameters)
+    if not min_args <= n <= len(hints):
+        raise TypeError(f"lambda must take between {min_args} and "
+                        f"{len(hints)} arguments, got {n}")
+    args = [E.NamedLambdaVariable(hints[i]) for i in range(n)]
+    return args, _to_expr(fn(*[Col(a) for a in args]))
+
+
+def transform(c, fn) -> Col:
+    return Col(E.ArrayTransform(_to_expr(c), *_make_lambda(fn, ["x", "i"])))
+def filter(c, fn) -> Col:
+    return Col(E.ArrayFilter(_to_expr(c), *_make_lambda(fn, ["x", "i"])))
+def exists(c, fn) -> Col:
+    return Col(E.ArrayExists(_to_expr(c), *_make_lambda(fn, ["x"])))
+def forall(c, fn) -> Col:
+    return Col(E.ArrayForAll(_to_expr(c), *_make_lambda(fn, ["x"])))
+def aggregate(c, initial, merge, finish=None) -> Col:
+    margs, mbody = _make_lambda(merge, ["acc", "x"], min_args=2)
+    fargs, fbody = _make_lambda(finish, ["acc"]) if finish is not None \
+        else (None, None)
+    return Col(E.ArrayAggregate(_to_expr(c), _to_expr(initial), margs, mbody,
+                                fargs, fbody))
+def zip_with(a, b, fn) -> Col:
+    return Col(E.ZipWith(_to_expr(a), _to_expr(b),
+                         *_make_lambda(fn, ["x", "y"], min_args=2)))
+
+
+# --- generators, planned as Generate by DataFrame.select --------------------
+def explode(c) -> Col: return Col(E.Explode(_to_expr(c)))
+def explode_outer(c) -> Col: return Col(E.Explode(_to_expr(c), outer=True))
+def posexplode(c) -> Col: return Col(E.PosExplode(_to_expr(c)))
+def posexplode_outer(c) -> Col:
+    return Col(E.PosExplode(_to_expr(c), outer=True))
+def stack(n: int, *cols) -> Col:
+    return Col(E.Stack(n, *map(_to_expr, cols)))
 
 
 def broadcast(df):

@@ -2,8 +2,10 @@
 from .batch import (ColumnarBatch, HostTable, batch_from_reference,
                     concat_batches)
 from .column import DeviceColumn, DictColumn, HostColumn
+from .nested import HostList, ListColumn
 from .strrect import ByteRectColumn
 
 __all__ = ["ColumnarBatch", "HostTable", "batch_from_reference",
            "concat_batches",
-           "DeviceColumn", "DictColumn", "HostColumn", "ByteRectColumn"]
+           "DeviceColumn", "DictColumn", "HostColumn", "ByteRectColumn",
+           "ListColumn", "HostList"]

@@ -6,6 +6,9 @@ and pandas are optional inputs (imported only when given). Ingest is one
 host->device copy per column. Batches are not padded to shape buckets:
 ``padded_len`` equals ``num_rows`` after ingest, and exceeds it only for
 batches carried across from the reference (``batch_from_reference``).
+A list column is a ``HostList`` on the host (from numpy offsets, Python
+lists or an Arrow ListArray) and a ``ListColumn`` rectangle on the
+device (columnar/nested.py).
 """
 from __future__ import annotations
 
@@ -15,9 +18,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..types import (DATE, STRING, TIMESTAMP, Schema, StructField,
-                     from_arrow, from_numpy_dtype)
+from ..types import (DATE, NESTED_REST, STRING, TIMESTAMP, ArrayType,
+                     MapType, Schema, StructField, StructType,
+                     device_list_ok, from_arrow, from_numpy_dtype)
 from .column import DeviceColumn, DictColumn, HostColumn
+from .column import to_device as _to_device
+from .nested import HostList, ListColumn, concat_lists, to_device_list
 from .strrect import (ByteRectColumn, HostStrings, encode_string_rect,
                       utf8_bytes)
 
@@ -114,6 +120,8 @@ def _unique_strings(hs: HostStrings):
 
 
 def _concat_values(parts: list) -> object:
+    if isinstance(parts[0], HostList):
+        return HostList.concat(parts)
     if all(isinstance(p, DictStrings) for p in parts):
         return DictStrings.concat(parts)
     if any(isinstance(p, (DictStrings, HostStrings)) for p in parts):
@@ -127,7 +135,8 @@ class HostTable:
     """A host table: per column numpy ``values`` and bool ``validity``.
     Values hold the device representation (DATE as int32 days, TIMESTAMP
     as int64 microseconds); strings stay ``S``/``U``/object arrays, or
-    ``HostStrings``/``DictStrings`` from a Parquet file."""
+    ``HostStrings``/``DictStrings`` from a Parquet file; a list column is
+    a ``HostList``, its validity the rows'."""
 
     def __init__(self, columns: Dict[str, Tuple[np.ndarray, np.ndarray]],
                  schema: Schema):
@@ -138,8 +147,18 @@ class HostTable:
 
     @staticmethod
     def from_dict(data: dict) -> "HostTable":
+        """Columns from numpy arrays (masked arrays give NULLs), a
+        ``HostList`` (every row valid) or a (``HostList``, row validity)
+        pair, or an object array of Python lists (NULL rows and elements
+        as None)."""
         cols, fields = {}, []
         for name, v in data.items():
+            lst = _as_host_list(v)
+            if lst is not None:
+                cols[name] = lst
+                fields.append(StructField(name, ArrayType(lst[0].element),
+                                          True))
+                continue
             valid = None
             if isinstance(v, np.ma.MaskedArray):
                 valid = ~np.ma.getmaskarray(v)
@@ -169,7 +188,13 @@ class HostTable:
                 col = col.combine_chunks()
             dt = from_arrow(col.type)
             valid = ~np.asarray(col.is_null())
-            if dt.device_backed:
+            if isinstance(dt, ArrayType):
+                v, valid = HostList.from_arrow(col)
+            elif isinstance(dt, (MapType, StructType)):
+                raise NotImplementedError(
+                    f"column {name}: {dt.name} columns arrive with "
+                    f"{NESTED_REST}")
+            elif dt.device_backed:
                 if dt == DATE:
                     col = col.cast(pa.int32())
                 elif dt == TIMESTAMP:
@@ -210,6 +235,20 @@ class HostTable:
                           for n, (v, m) in self.columns.items()},
                          self.schema)
 
+
+def _as_host_list(v):
+    """(HostList, row validity) when ``v`` is a list column (module doc
+    of ``from_dict``), else None."""
+    if isinstance(v, tuple) and len(v) == 2 and isinstance(v[0], HostList):
+        return v[0], np.asarray(v[1], bool)
+    if isinstance(v, HostList):
+        return v, np.ones(len(v), bool)
+    if isinstance(v, np.ndarray) and v.dtype != object:
+        return None
+    if isinstance(v, (list, np.ndarray)) and any(x is not None for x in v) \
+            and all(x is None or isinstance(x, (list, tuple)) for x in v):
+        return HostList.from_pylist(list(v))
+    return None
 
 
 def _row_hashes(s: np.ndarray) -> np.ndarray:
@@ -301,13 +340,6 @@ def dict_to_rect(col: DictColumn, n: int) -> ByteRectColumn:
         ascii_only=asc)
 
 
-def _to_device(a: np.ndarray, device) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
-    if not a.flags.writeable:
-        a = a.copy()
-    return torch.from_numpy(a).to(device)
-
-
 def _encode_string(values, valid, n, rect_cap):
     """A host string column's device layout, still on the host:
     ("dict", codes, dictionary) at low cardinality, ("rect", rect,
@@ -374,7 +406,7 @@ class ColumnarBatch:
         t0 = time.perf_counter()
         n = table.num_rows
         cols: List = [None] * len(table.schema)
-        staged, pairs, rects = [], [], []
+        staged, pairs, rects, lists = [], [], [], []
         for i, f in enumerate(table.schema.fields):
             values, valid = table.columns[f.name]
             if f.dtype.device_backed:
@@ -383,6 +415,8 @@ class ColumnarBatch:
                     d = np.where(valid, d, f.dtype.np_dtype.type(0))
                 staged.append((i, f.dtype, None))
                 pairs.append((d, valid))
+            elif device_list_ok(f.dtype):
+                lists.append((i, values, valid))
             elif f.dtype == STRING:
                 enc = _encode_string(values, valid, n, rect_cap)
                 if enc[0] == "dict":
@@ -412,6 +446,10 @@ class ColumnarBatch:
                                      _to_device(v, device),
                                      _to_device(lens, device),
                                      ascii_only=asc)
+        for i, values, valid in lists:
+            f = table.schema.fields[i]
+            cols[i] = to_device_list(values, valid, f.dtype, device,
+                                     f"column {f.name}")
         if timings is not None:
             if torch.device(device).type == "cuda":
                 torch.cuda.synchronize(device)
@@ -431,6 +469,8 @@ class ColumnarBatch:
                                            c.validity[offset:end],
                                            c.lengths[offset:end],
                                            c.ascii_only))
+            elif isinstance(c, ListColumn):
+                cols.append(c.slice(offset, end))
             elif isinstance(c, DeviceColumn):
                 cols.append(c.with_arrays(c.data[offset:end],
                                           c.validity[offset:end]))
@@ -563,7 +603,8 @@ def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
     one batch (port of the reference's ``concat_batches``): device columns
     concatenate on the device; dictionary columns over the sorted union of
     their dictionaries; byte rectangles at the widest width; a string column
-    in both layouts as one of them (``_concat_mixed``)."""
+    in both layouts as one of them (``_concat_mixed``); list rectangles at
+    the widest W."""
     if not batches:
         raise ValueError("concat_batches needs at least one batch")
     if len(batches) == 1:
@@ -578,6 +619,8 @@ def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
             cols.append(_concat_dict(parts, rows))
         elif kinds == {ByteRectColumn}:
             cols.append(_concat_rect(parts, rows))
+        elif kinds == {ListColumn}:
+            cols.append(concat_lists(parts, rows))
         elif kinds == {DeviceColumn}:
             cols.append(DeviceColumn(
                 torch.cat([p.data[:n] for p, n in zip(parts, rows)]),

@@ -8,6 +8,9 @@
     dictionary: code order is string order.
   * ``HostColumn`` -- numpy values + validity for a column with no device
     layout (a string column wider than ``rect.maxBytes``).
+
+A list column (columnar/nested.py) comes back to the host through
+``packed_to_host``: its four tensors in one copy.
 """
 from __future__ import annotations
 
@@ -16,7 +19,39 @@ import torch
 
 from ..types import DataType
 
-__all__ = ["DeviceColumn", "DictColumn", "HostColumn"]
+__all__ = ["DeviceColumn", "DictColumn", "HostColumn", "packed_to_host",
+           "to_device"]
+
+
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A numpy array as a tensor on ``device`` (copied first when
+    read-only: torch takes no read-only buffer)."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
+
+
+def packed_to_host(tensors):
+    """numpy copies of ``tensors`` (one device) through one device-to-host
+    copy: their bytes packed into one buffer on the device first."""
+    if not tensors:
+        return []
+    flat = [t.contiguous().reshape(-1).view(torch.uint8)
+            if t.dtype != torch.bool else
+            t.contiguous().reshape(-1).to(torch.uint8) for t in tensors]
+    raw = torch.cat(flat).cpu().numpy()
+    out, pos = [], 0
+    for t, f in zip(tensors, flat):
+        n = f.numel()
+        a = raw[pos:pos + n]
+        pos += n
+        if t.dtype == torch.bool:
+            a = a.astype(bool)
+        else:
+            a = a.view(str(t.dtype).replace("torch.", ""))
+        out.append(a.reshape(tuple(t.shape)))
+    return out
 
 
 class DeviceColumn:

@@ -98,16 +98,25 @@ class TpuExec:
     def collect(self, ctx: Optional[ExecContext] = None):
         """Drive the pipeline; per output column the (values, validity)
         numpy arrays of all batches concatenated (device representation:
-        DATE as int32 days)."""
+        DATE as int32 days; a list column's values a ``HostList``)."""
         import numpy as np
+        from ..columnar.nested import HostList
+        from ..types import ArrayType
         ctx = ctx or ExecContext()
         parts = [b.to_numpy() for b in self.execute(ctx)]
         schema = self.output_schema()
         out = []
         for i, f in enumerate(schema.fields):
             if parts:
-                out.append((np.concatenate([p[i][0] for p in parts]),
+                vals = [p[i][0] for p in parts]
+                out.append((HostList.concat(vals)
+                            if isinstance(vals[0], HostList)
+                            else np.concatenate(vals),
                             np.concatenate([p[i][1] for p in parts])))
+            elif isinstance(f.dtype, ArrayType):
+                out.append((HostList(np.zeros(1, np.int64), np.zeros(
+                    0, f.dtype.element.np_dtype), None, f.dtype.element),
+                            np.zeros(0, bool)))
             else:
                 dt = f.dtype.np_dtype if f.dtype.np_dtype is not None \
                     else object

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from ..columnar import (ByteRectColumn, ColumnarBatch, DeviceColumn,
-                        DictColumn, HostColumn)
+                        DictColumn, HostColumn, ListColumn)
 from ..columnar.batch import (concat_batches, dict_to_rect, pad_rect,
                               to_dictionary, union_dictionary)
 from ..columnar.strrect import rect_width_bucket
@@ -97,7 +97,7 @@ def _gather(batch: ColumnarBatch, perm: torch.Tensor, schema: Schema
     cols: List = []
     np_perm = None
     for c in batch.columns[:len(schema)]:
-        if isinstance(c, ByteRectColumn):
+        if isinstance(c, (ByteRectColumn, ListColumn)):
             cols.append(c.gather(perm))
         elif isinstance(c, DeviceColumn):
             cols.append(c.with_arrays(c.data[perm], c.validity[perm]))

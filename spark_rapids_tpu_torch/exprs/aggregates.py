@@ -53,7 +53,7 @@ from .base import ColumnRef, DVal, Expression, Literal
 
 __all__ = ["AggregateExpression", "Sum", "Count", "CountStar", "Average",
            "Min", "Max", "First", "Last", "VariancePop", "VarianceSamp",
-           "StddevPop", "StddevSamp"]
+           "StddevPop", "StddevSamp", "CollectList", "CollectSet"]
 
 #: a column to reduce: (data or None, validity or None). No data: only
 #: the count is needed. No validity: every live row counts.
@@ -452,3 +452,22 @@ class StddevSamp(_MomentAgg):
     def finalize(self, partials):
         v = self._variance(partials, 1)
         return DVal(torch.sqrt(v.data), v.validity, FLOAT64)
+
+
+class CollectList(AggregateExpression):
+    """collect_list(e): the reference builds the lists on its host engine
+    only; the port refuses it at planning."""
+
+    dense_ok = False
+
+    def data_type(self, schema: Schema) -> DataType:
+        from ..types import ArrayType
+        return ArrayType(self.child.data_type(schema))
+
+    def device_unsupported_reason(self, schema: Schema) -> Optional[str]:
+        from ..types import NESTED_REST
+        return f"{type(self).__name__.lower()} arrives with {NESTED_REST}"
+
+
+class CollectSet(CollectList):
+    """collect_set(e): refused at planning, as ``collect_list``."""

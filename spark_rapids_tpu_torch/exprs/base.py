@@ -18,7 +18,8 @@ from ..types import (BOOL, DATE, DataType, FLOAT32, FLOAT64, INT8, INT16,
                      INT32, INT64, NULLTYPE, STRING, Schema, TIMESTAMP,
                      TypeSig, deviceNative, from_numpy_dtype, torch_dtype)
 
-__all__ = ["DVal", "StrVal", "EvalContext", "Expression", "ColumnRef",
+__all__ = ["DVal", "StrVal", "ListVal", "EvalContext", "Expression",
+           "ColumnRef",
            "Literal", "Alias", "Unsupported",
            "promote_types", "null_and"]
 
@@ -34,8 +35,17 @@ class StrVal(NamedTuple):
     lengths: torch.Tensor
 
 
+class ListVal(NamedTuple):
+    """An ARRAY value as a rectangle (columnar/nested.py): values[P, W],
+    elem_valid[P, W] (False past each row's length), lengths[P] int32."""
+    values: torch.Tensor
+    elem_valid: torch.Tensor
+    lengths: torch.Tensor
+
+
 class DVal(NamedTuple):
-    """A device value: data (or a StrVal) + validity mask + dtype."""
+    """A device value: data (or a StrVal or ListVal) + validity mask +
+    dtype."""
     data: object
     validity: torch.Tensor
     dtype: DataType
@@ -48,12 +58,15 @@ class EvalContext:
     batch's partition and the hosting operator's task state (a dict the
     operator makes anew for each execution, where ``rand`` and the row
     ids keep their running row counts: exprs/nondeterministic.py; None
-    where no operator hosts them)."""
+    where no operator hosts them). ``live``, when given, marks the rows
+    that are real where they are not a prefix (a lambda's element rows,
+    exprs/higher_order.py)."""
 
     def __init__(self, schema: Schema, columns: Sequence[Optional[DVal]],
                  num_rows: int, padded_len: int, device,
                  slots: Sequence[DVal] = (), partition_id: int = 0,
-                 task_state: Optional[dict] = None):
+                 task_state: Optional[dict] = None,
+                 live: Optional[torch.Tensor] = None):
         self.schema = schema
         self.columns = list(columns)
         self.num_rows = num_rows
@@ -62,9 +75,12 @@ class EvalContext:
         self.slots = slots
         self.partition_id = partition_id
         self.task_state = task_state
+        self.live = live
 
     def row_mask(self) -> torch.Tensor:
         """bool[P]: True for real rows, False for padding."""
+        if self.live is not None:
+            return self.live
         return torch.arange(self.padded_len,
                             device=self.device) < self.num_rows
 
@@ -138,8 +154,9 @@ class ColumnRef(Expression):
         return [self.name]
 
     def device_unsupported_reason(self, schema: Schema) -> Optional[str]:
+        from ..types import device_list_ok
         dt = schema[self.name].dtype
-        if dt.device_backed:
+        if dt.device_backed or device_list_ok(dt):
             return None
         return f"column {self.name}: {dt.name} is host-only"
 

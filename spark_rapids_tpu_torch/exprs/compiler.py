@@ -5,7 +5,8 @@ rect-chain entry and the filter over string predicates).
 The reference traces an operator's expressions into one jitted XLA kernel
 per shape bucket; here they run eagerly as torch ops on the batch's
 device, with no kernel cache. Compaction keeps the surviving rows in
-order with one index gather per column.
+order with one index gather per column; a list column's rows move as
+rows of its rectangle (columnar/nested.py).
 """
 from __future__ import annotations
 
@@ -16,10 +17,12 @@ import numpy as np
 import torch
 
 from ..columnar import (ByteRectColumn, ColumnarBatch, DeviceColumn,
-                        DictColumn, HostColumn)
+                        DictColumn, HostColumn, ListColumn)
+from ..columnar.nested import list_column
 from ..columnar.strrect import RECT_MAX_BYTES
 from ..types import BOOL, STRING, Schema
-from .base import ColumnRef, DVal, EvalContext, Expression, Literal, StrVal
+from .base import (ColumnRef, DVal, EvalContext, Expression, ListVal,
+                   Literal, StrVal)
 from .comparison import EqualTo, In, in_null_rule
 
 __all__ = ["DeviceProjector", "batch_dvals", "filter_batch_by_mask",
@@ -29,11 +32,14 @@ __all__ = ["DeviceProjector", "batch_dvals", "filter_batch_by_mask",
 
 
 def batch_dvals(batch: ColumnarBatch) -> List:
-    """Per column a DVal (a StrVal for a byte rectangle), None for host
-    columns."""
+    """Per column a DVal (a StrVal for a byte rectangle, a ListVal for a
+    list column), None for host columns."""
     out = []
     for c in batch.columns:
-        if isinstance(c, ByteRectColumn):
+        if isinstance(c, ListColumn):
+            out.append(DVal(ListVal(c.data, c.elem_valid, c.lengths),
+                            c.validity, c.dtype))
+        elif isinstance(c, ByteRectColumn):
             out.append(DVal(StrVal(c.data, c.lengths), c.validity, STRING))
         elif isinstance(c, DeviceColumn):
             out.append(DVal(c.data, c.validity, c.dtype))
@@ -61,8 +67,11 @@ class DeviceProjector:
         for e, dt in zip(self.exprs, self.out_types):
             v = e.eval_device(ctx)
             # padding rows are always invalid
-            out.append(DeviceColumn(v.data, torch.logical_and(v.validity,
-                                                              mask), dt))
+            valid = torch.logical_and(v.validity, mask)
+            if isinstance(v.data, ListVal):
+                out.append(list_column(*v.data, valid, dt))
+            else:
+                out.append(DeviceColumn(v.data, valid, dt))
         return out
 
 
@@ -81,7 +90,7 @@ def filter_batch_by_mask(batch: ColumnarBatch,
     np_idx = None
     cols = []
     for c in batch.columns:
-        if isinstance(c, ByteRectColumn):
+        if isinstance(c, (ByteRectColumn, ListColumn)):
             cols.append(c.gather(idx))
         elif isinstance(c, DeviceColumn):
             cols.append(c.with_arrays(c.data[idx], c.validity[idx]))
@@ -98,8 +107,8 @@ def gather_batch(batch: ColumnarBatch, idx: torch.Tensor,
                  schema: Optional[Schema] = None) -> ColumnarBatch:
     """The rows ``idx`` (int64, on the batch's device) of ``batch``; -1
     gives a null row: validity false, the dtype's default value, a
-    dictionary code or rectangle row that is in range. Dictionary columns
-    keep their dictionary."""
+    dictionary code or rectangle row that is in range (a list row of
+    length 0). Dictionary columns keep their dictionary."""
     n = int(idx.shape[0])
     null = idx < 0
     src_rows = batch.num_rows
@@ -127,11 +136,18 @@ def gather_batch(batch: ColumnarBatch, idx: torch.Tensor,
             keep = valid.reshape((n,) + (1,) * (data.dim() - 1))
             data = torch.where(keep, data, torch.zeros((), dtype=data.dtype,
                                                        device=data.device))
-        if isinstance(c, ByteRectColumn):
+        if isinstance(c, (ByteRectColumn, ListColumn)):
             lens = c.lengths[safe] if src_rows else torch.zeros(
                 n, dtype=c.lengths.dtype, device=c.lengths.device)
-            cols.append(ByteRectColumn(data, valid, torch.where(
-                valid, lens, torch.zeros_like(lens)), c.ascii_only))
+            lens = torch.where(valid, lens, torch.zeros_like(lens))
+            if isinstance(c, ListColumn):
+                ev = c.elem_valid[safe] if src_rows else torch.zeros(
+                    data.shape, dtype=torch.bool, device=data.device)
+                cols.append(ListColumn(data, valid, c.dtype,
+                                       torch.logical_and(ev, valid[:, None]),
+                                       lens))
+            else:
+                cols.append(ByteRectColumn(data, valid, lens, c.ascii_only))
         else:
             cols.append(c.with_arrays(data, valid))
     return ColumnarBatch(cols, n, schema if schema is not None

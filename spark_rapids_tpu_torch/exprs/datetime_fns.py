@@ -21,8 +21,8 @@ from typing import Optional
 
 import torch
 
-from ..types import (DATE, FLOAT64, INT32, INT64, STRING, TIMESTAMP,
-                     DataType, Schema, TypeEnum, TypeSig)
+from ..types import (DATE, FLOAT64, INT32, INT64, NESTED_REST, STRING,
+                     TIMESTAMP, DataType, Schema, TypeEnum, TypeSig)
 from .base import DVal, Expression, null_and
 
 __all__ = ["DateAdd", "DateSub", "DateAddInterval", "Year", "Month",
@@ -326,7 +326,7 @@ class _HostOnly(Expression):
 class MonthsBetween(_HostOnly):
     """months_between(end, start[, roundOff]) (the reference has no device
     form)."""
-    queued = "queued with slice 9b"
+    queued = "queued with " + NESTED_REST
 
     def __init__(self, end, start, round_off: bool = True):
         self.children = [end, start]

@@ -1,0 +1,401 @@
+"""Higher-order functions over device list rectangles (port of
+``spark_rapids_tpu/exprs/higher_order.py``): ``transform``, ``filter``,
+``exists``, ``forall``, ``zip_with`` and ``aggregate``.
+
+A lambda's body is evaluated once, vectorised, over the rectangle's P·W
+slots flattened into element rows: each lambda variable is a column of
+that scope (the element, its index), and every column the body reads
+from outside is repeated once a slot. Slots past a row's length are
+evaluated too (no host read to compact them) and are masked out of the
+result; the scope's ``live`` rows say which are real, for the functions
+that raise on a value. A nested higher-order function binds its own
+variables; an enclosing lambda's variable it reads is a column of the
+enclosing scope like any other (``_outer_refs``).
+
+``aggregate`` folds over the W positions in element order, one body
+evaluation over the P rows a position, each row's accumulator left as
+it is past its length: a row's fold adds its elements in the order the
+reference's does. Its merge must give the zero's type, as Spark's
+analyzer requires. The map forms (``transform_keys``,
+``transform_values``, ``map_filter``) are refused at planning
+(``NESTED_REST``).
+"""
+from __future__ import annotations
+
+import itertools
+from typing import List, Optional
+
+import torch
+
+from ..types import (BOOL, INT32, NESTED_REST, ArrayType, DataType, MapType,
+                     Schema, StructField, device_list_ok)
+from .base import ColumnRef, DVal, EvalContext, Expression, ListVal, StrVal
+from .collection_fns import _elem_type, in_list
+
+__all__ = ["NamedLambdaVariable", "ArrayTransform", "ArrayFilter",
+           "ArrayExists", "ArrayForAll", "ArrayAggregate", "ZipWith",
+           "TransformKeys", "TransformValues", "MapFilter"]
+
+_VARIABLE_IDS = itertools.count(1)
+
+
+class NamedLambdaVariable(ColumnRef):
+    """A lambda's variable: a column of its scope, by a name no column of
+    a table has. Its type is set by the function that binds it."""
+
+    def __init__(self, hint: str, dtype: Optional[DataType] = None):
+        super().__init__(f"`lambda_{hint}_{next(_VARIABLE_IDS)}`")
+        self._dtype = dtype
+
+    def data_type(self, schema: Schema) -> DataType:
+        assert self._dtype is not None, "unbound lambda variable"
+        return self._dtype
+
+    def device_unsupported_reason(self, schema):
+        return None
+
+
+def _repeat(v: DVal, w: int) -> DVal:
+    """``v`` with each row repeated ``w`` times."""
+    d = v.data
+    if isinstance(d, (ListVal, StrVal)):
+        d = type(d)(*(t.repeat_interleave(w, dim=0) for t in d))
+    else:
+        d = d.repeat_interleave(w, dim=0)
+    return DVal(d, v.validity.repeat_interleave(w, dim=0), v.dtype)
+
+
+class _HigherOrder(Expression):
+    """Binding, the scope of a lambda and its free columns."""
+
+    args: List[NamedLambdaVariable]
+    body: Expression
+
+    def _bind_types(self, schema: Schema) -> None:
+        raise NotImplementedError
+
+    def _bodies(self) -> list:
+        return [self.body]
+
+    def _bound(self) -> set:
+        """The variables bound here or in a nested higher-order function."""
+        bound = {a.name for a in self.args}
+        stack = list(self._bodies())
+        while stack:
+            e = stack.pop()
+            if isinstance(e, _HigherOrder):
+                bound.update(a.name for a in e.args)
+                if isinstance(e, ArrayAggregate) and e.finish_args:
+                    bound.update(a.name for a in e.finish_args)
+            stack.extend(e.children)
+        return bound
+
+    def _outer_refs(self) -> List[str]:
+        """The columns the lambda reads from outside (an enclosing lambda's
+        variables among them), each once."""
+        bound = self._bound()
+        return list(dict.fromkeys(
+            r for b in self._bodies() for r in b.references()
+            if r not in bound))
+
+    def references(self):
+        bodies = [id(b) for b in self._bodies()]
+        out = [r for c in self.children if id(c) not in bodies
+               for r in c.references()]
+        return out + self._outer_refs()
+
+    def device_unsupported_reason(self, schema):
+        self._bind_types(schema)
+        for c in self.children[:self._n_lists]:
+            dt = c.data_type(schema)
+            if isinstance(dt, MapType) or not device_list_ok(dt):
+                return (f"{type(self).__name__} over {dt.name} arrives with "
+                        f"{NESTED_REST}")
+        return self._result_reason(schema)
+
+    _n_lists = 1
+
+    def _result_reason(self, schema) -> Optional[str]:
+        dt = self.body.data_type(schema)
+        if dt.np_dtype is None:
+            return (f"{type(self).__name__}: a lambda giving {dt.name} "
+                    f"arrives with {NESTED_REST}")
+        return None
+
+    def _scope(self, ctx, bound, repeat: int, n: int,
+               live: torch.Tensor) -> EvalContext:
+        """The lambda's scope over ``n`` rows: the outer columns (each row
+        repeated ``repeat`` times), then the (variable, DVal) pairs of
+        ``bound``."""
+        fields, cols = [], []
+        for name in self._outer_refs():
+            i = ctx.schema.index_of(name)
+            v = ctx.columns[i]
+            fields.append(ctx.schema.fields[i])
+            cols.append(_repeat(v, repeat) if repeat > 1 else v)
+        for var, v in bound:
+            fields.append(StructField(var.name, var._dtype))
+            cols.append(v)
+        return EvalContext(Schema(fields), cols, n, n, ctx.device,
+                           partition_id=ctx.partition_id, live=live)
+
+    def _elements(self, ctx, lv: ListVal, validity, with_index: bool):
+        """The element scope of ``lv`` (P·W rows) and the slots' mask."""
+        p, w = lv.values.shape
+        inside = in_list(lv)
+        live = (inside & (ctx.row_mask() & validity)[:, None]).reshape(-1)
+        bound = [(self.args[0], DVal(lv.values.reshape(-1),
+                                     lv.elem_valid.reshape(-1),
+                                     self.args[0]._dtype))]
+        if with_index and len(self.args) > 1:
+            idx = torch.arange(w, dtype=torch.int32,
+                               device=lv.values.device).repeat(p)
+            bound.append((self.args[1], DVal(idx, inside.reshape(-1),
+                                             INT32)))
+        return self._scope(ctx, bound, w, p * w, live), inside
+
+
+class _OverElements(_HigherOrder):
+    """transform / filter / exists / forall: (array, lambda body)."""
+
+    def __init__(self, array, args, body):
+        self.children = [array, body]
+        self.args = args
+        self.body = body
+
+    def _bind_types(self, schema):
+        self.args[0]._dtype = _elem_type(self.children[0].data_type(schema))
+        if len(self.args) > 1:
+            self.args[1]._dtype = INT32
+
+    def _results(self, ctx):
+        """(array DVal, the body's DVal as [P, W] tensors, slots mask)."""
+        arr = self.children[0].eval_device(ctx)
+        lv = arr.data
+        scope, inside = self._elements(ctx, lv, arr.validity, True)
+        res = self.body.eval_device(scope)
+        shape = lv.values.shape
+        return arr, res.data.reshape(shape), res.validity.reshape(shape), \
+            inside
+
+
+class ArrayTransform(_OverElements):
+    """transform(array, x -> f) / transform(array, (x, i) -> f)."""
+
+    def data_type(self, schema):
+        self._bind_types(schema)
+        return ArrayType(self.body.data_type(schema))
+
+    def eval_device(self, ctx):
+        arr, data, valid, inside = self._results(ctx)
+        return DVal(ListVal(data, valid & inside, arr.data.lengths),
+                    arr.validity, self.data_type(ctx.schema))
+
+
+class ArrayFilter(_OverElements):
+    """filter(array, x -> p) / filter(array, (x, i) -> p): the elements
+    whose predicate is TRUE, in order."""
+
+    def data_type(self, schema):
+        return self.children[0].data_type(schema)
+
+    def _result_reason(self, schema):
+        if self.body.data_type(schema) != BOOL:
+            return "ArrayFilter: the lambda must give a boolean"
+        return None
+
+    def eval_device(self, ctx):
+        arr, data, valid, inside = self._results(ctx)
+        lv = arr.data
+        keep = data & valid & inside
+        w = lv.values.shape[1]
+        dest = torch.where(keep, torch.cumsum(keep, dim=1) - 1, w)
+        p = lv.values.shape[0]
+        vals = torch.zeros((p, w + 1), dtype=lv.values.dtype,
+                           device=lv.values.device)
+        ev = torch.zeros((p, w + 1), dtype=torch.bool,
+                         device=lv.values.device)
+        vals.scatter_(1, dest, lv.values)
+        ev.scatter_(1, dest, lv.elem_valid & keep)
+        return DVal(ListVal(vals[:, :w], ev[:, :w],
+                            keep.sum(dim=1).to(torch.int32)),
+                    arr.validity, self.data_type(ctx.schema))
+
+
+class _ArrayPredicate(_OverElements):
+    """exists / forall, three-valued over the elements' results."""
+
+    _decides = True              # the value that decides: TRUE for exists
+
+    def data_type(self, schema):
+        return BOOL
+
+    def _result_reason(self, schema):
+        if self.body.data_type(schema) != BOOL:
+            return f"{type(self).__name__}: the lambda must give a boolean"
+        return None
+
+    def eval_device(self, ctx):
+        arr, data, valid, inside = self._results(ctx)
+        decided = ((data == self._decides) & valid & inside).any(dim=1)
+        unknown = (~valid & inside).any(dim=1)
+        out = decided if self._decides else ~decided
+        return DVal(out, arr.validity & (decided | ~unknown), BOOL)
+
+
+class ArrayExists(_ArrayPredicate):
+    """TRUE if a result is TRUE; else NULL if one is NULL; else FALSE."""
+    _decides = True
+
+
+class ArrayForAll(_ArrayPredicate):
+    """FALSE if a result is FALSE; else NULL if one is NULL; else TRUE."""
+    _decides = False
+
+
+class ZipWith(_HigherOrder):
+    """zip_with(a, b, (x, y) -> f): the shorter list padded with NULLs."""
+
+    _n_lists = 2
+
+    def __init__(self, left, right, args, body):
+        self.children = [left, right, body]
+        self.args = args
+        self.body = body
+
+    def _bind_types(self, schema):
+        self.args[0]._dtype = _elem_type(self.children[0].data_type(schema))
+        self.args[1]._dtype = _elem_type(self.children[1].data_type(schema))
+
+    def data_type(self, schema):
+        self._bind_types(schema)
+        return ArrayType(self.body.data_type(schema))
+
+    def eval_device(self, ctx):
+        a = self.children[0].eval_device(ctx)
+        b = self.children[1].eval_device(ctx)
+        w = max(a.data.values.shape[1], b.data.values.shape[1])
+
+        def padded(lv):
+            pad = (0, w - lv.values.shape[1])
+            return (torch.nn.functional.pad(lv.values, pad),
+                    torch.nn.functional.pad(lv.elem_valid, pad))
+        (av, ae), (bv, be) = padded(a.data), padded(b.data)
+        validity = a.validity & b.validity
+        lengths = torch.where(validity, torch.maximum(a.data.lengths,
+                                                      b.data.lengths), 0)
+        p = av.shape[0]
+        inside = torch.arange(w, device=av.device)[None, :] \
+            < lengths[:, None]
+        live = (inside & ctx.row_mask()[:, None]).reshape(-1)
+        scope = self._scope(ctx, [
+            (self.args[0], DVal(av.reshape(-1), ae.reshape(-1),
+                                self.args[0]._dtype)),
+            (self.args[1], DVal(bv.reshape(-1), be.reshape(-1),
+                                self.args[1]._dtype))], w, p * w, live)
+        res = self.body.eval_device(scope)
+        return DVal(ListVal(res.data.reshape(p, w),
+                            res.validity.reshape(p, w) & inside,
+                            lengths.to(torch.int32)),
+                    validity, self.data_type(ctx.schema))
+
+
+class ArrayAggregate(_HigherOrder):
+    """aggregate(array, zero, (acc, x) -> merge[, acc -> finish])."""
+
+    def __init__(self, array, zero, merge_args, merge_body,
+                 finish_args=None, finish_body=None):
+        self.children = [array, zero, merge_body] + (
+            [finish_body] if finish_body is not None else [])
+        self.args = merge_args
+        self.body = merge_body
+        self.finish_args = finish_args
+        self.finish_body = finish_body
+
+    def _bodies(self):
+        return [self.body] + ([self.finish_body]
+                              if self.finish_body is not None else [])
+
+    def _bound(self):
+        return super()._bound() | {a.name for a in self.finish_args or ()}
+
+    def _bind_types(self, schema):
+        self.args[0]._dtype = self.children[1].data_type(schema)
+        self.args[1]._dtype = _elem_type(self.children[0].data_type(schema))
+        if self.finish_args:
+            self.finish_args[0]._dtype = self.args[0]._dtype
+
+    def data_type(self, schema):
+        self._bind_types(schema)
+        if self.finish_body is not None:
+            return self.finish_body.data_type(schema)
+        return self.children[1].data_type(schema)
+
+    def _result_reason(self, schema):
+        zero = self.children[1].data_type(schema)
+        merged = self.body.data_type(schema)
+        if merged != zero:
+            raise TypeError(
+                f"aggregate: argument 3 requires {zero.name} type, however "
+                f"'{self.body.name_hint}' is of {merged.name} type")
+        dt = self.data_type(schema)
+        if dt.np_dtype is None:
+            return (f"ArrayAggregate: a result of {dt.name} arrives with "
+                    f"{NESTED_REST}")
+        return None
+
+    def eval_device(self, ctx):
+        arr = self.children[0].eval_device(ctx)
+        lv = arr.data
+        zero = self.children[1].eval_device(ctx)
+        acc_t = self.args[0]._dtype
+        acc = zero
+        rows = ctx.row_mask() & arr.validity
+        n = lv.values.shape[0]
+        for j in range(lv.values.shape[1]):
+            step = rows & (lv.lengths > j)
+            scope = self._scope(ctx, [
+                (self.args[0], acc),
+                (self.args[1], DVal(lv.values[:, j], lv.elem_valid[:, j],
+                                    self.args[1]._dtype))], 1, n, step)
+            r = self.body.eval_device(scope)
+            acc = DVal(torch.where(step, r.data.to(acc.data.dtype), acc.data),
+                       torch.where(step, r.validity, acc.validity), acc_t)
+        if self.finish_body is not None:
+            acc = self.finish_body.eval_device(self._scope(
+                ctx, [(self.finish_args[0], acc)], 1, n, rows))
+        return DVal(acc.data, acc.validity & arr.validity,
+                    self.data_type(ctx.schema))
+
+
+class _MapHigherOrder(_HigherOrder):
+    """A higher-order function over a map: refused at planning."""
+
+    def __init__(self, m, args, body):
+        self.children = [m, body]
+        self.args = args
+        self.body = body
+
+    def _bind_types(self, schema):
+        dt = self.children[0].data_type(schema)
+        if isinstance(dt, MapType):
+            self.args[0]._dtype = dt.key
+            self.args[1]._dtype = dt.value
+
+    def data_type(self, schema):
+        return self.children[0].data_type(schema)
+
+    def device_unsupported_reason(self, schema):
+        return f"{type(self).__name__} arrives with {NESTED_REST}"
+
+
+class TransformKeys(_MapHigherOrder):
+    pass
+
+
+class TransformValues(_MapHigherOrder):
+    pass
+
+
+class MapFilter(_MapHigherOrder):
+    pass

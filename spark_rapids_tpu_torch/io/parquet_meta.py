@@ -22,7 +22,8 @@ import struct
 from typing import Dict, List, Optional, Tuple
 
 from ..types import (BOOL, DATE, DataType, FLOAT32, FLOAT64, INT8, INT16,
-                     INT32, INT64, STRING, Schema, StructField, TIMESTAMP)
+                     INT32, INT64, NESTED_REST, STRING, Schema, StructField,
+                     TIMESTAMP)
 from .thrift import FileMetaData, SchemaElement, parse_file_metadata
 
 __all__ = ["MAGIC", "ParquetFooter", "LeafColumn", "UnsupportedType",
@@ -47,9 +48,7 @@ _OPTIONAL, _REPEATED = 1, 2
 _DECIMAL_SLICE = ("decimal columns arrive with the decimals item (ROADMAP.md "
                   "Queue A: DecimalType through types.py, aggregates.py, "
                   "arithmetic.py, cast.py and Parquet)")
-_NESTED_SLICE = ("nested and map columns arrive with slice 9b, the nested "
-                 "types (ROADMAP.md Queue A: exprs/collection_fns.py with "
-                 "columnar/nested.py)")
+_NESTED_SLICE = f"nested and map columns arrive with {NESTED_REST}"
 _OTHER_SLICE = ("arrives with slice 10 (ROADMAP.md Queue A item 9, other "
                 "I/O)")
 

@@ -8,8 +8,9 @@ the host tier the same batch with every tensor copied to host memory
 (pinned when it comes from a card); the disk tier the host batch in the
 port's own byte layout (``_encode``), written through the native slab
 store (mem/native_spill.py) or, where no g++ built it, to one file a
-batch. A dictionary column's dictionary and a byte rectangle's lengths
-and ``ascii_only`` flag survive both tiers.
+batch. A dictionary column's dictionary, a byte rectangle's lengths
+and ``ascii_only`` flag, and a list column's element validity, lengths
+and element type survive both tiers.
 """
 from __future__ import annotations
 
@@ -23,9 +24,9 @@ import numpy as np
 import torch
 
 from ..columnar import (ByteRectColumn, ColumnarBatch, DeviceColumn,
-                        DictColumn, HostColumn)
+                        DictColumn, HostColumn, ListColumn)
 from ..types import (BOOL, DATE, FLOAT32, FLOAT64, INT8, INT16, INT32, INT64,
-                     STRING, TIMESTAMP)
+                     STRING, TIMESTAMP, ArrayType)
 from .manager import MemoryManager
 
 __all__ = ["SpillableBatch", "SpillPriorities"]
@@ -51,6 +52,9 @@ def _move_batch(batch: ColumnarBatch, move) -> ColumnarBatch:
         if isinstance(c, ByteRectColumn):
             cols.append(ByteRectColumn(move(c.data), move(c.validity),
                                        move(c.lengths), c.ascii_only))
+        elif isinstance(c, ListColumn):
+            cols.append(ListColumn(move(c.data), move(c.validity), c.dtype,
+                                   move(c.elem_valid), move(c.lengths)))
         elif isinstance(c, DeviceColumn):
             cols.append(c.with_arrays(move(c.data), move(c.validity)))
         else:
@@ -87,6 +91,10 @@ def _encode(batch: ColumnarBatch) -> np.ndarray:
             cols.append({"kind": "rect", "ascii_only": c.ascii_only,
                          "arrays": [put(c.data), put(c.validity),
                                     put(c.lengths)]})
+        elif isinstance(c, ListColumn):
+            cols.append({"kind": "list", "dtype": c.dtype.element.name,
+                         "arrays": [put(c.data), put(c.validity),
+                                    put(c.elem_valid), put(c.lengths)]})
         elif isinstance(c, DictColumn):
             cols.append({"kind": "dict", "dtype": c.dtype.name,
                          "dictionary": [str(x) for x in c.dictionary],
@@ -135,6 +143,9 @@ def _decode(buf, schema) -> ColumnarBatch:
         t = [torch.from_numpy(a) for a in arrs]
         if c["kind"] == "rect":
             cols.append(ByteRectColumn(t[0], t[1], t[2], c["ascii_only"]))
+        elif c["kind"] == "list":
+            cols.append(ListColumn(t[0], t[1], ArrayType(_TYPES[c["dtype"]]),
+                                   t[2], t[3]))
         elif c["kind"] == "dict":
             cols.append(DictColumn(t[0], t[1], _TYPES[c["dtype"]],
                                    np.array(c["dictionary"], dtype=object)))

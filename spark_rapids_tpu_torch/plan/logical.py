@@ -1,7 +1,7 @@
 """Logical plan nodes (port of ``spark_rapids_tpu/plan/logical.py``: scan,
 range, project, filter, sample, aggregate, sort, limit, join, union,
-window, and the nodes the plan rewrites make: expand, branch alignment
-and the distinct flag)."""
+window, generate, and the nodes the plan rewrites make: expand, branch
+alignment and the distinct flag)."""
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
@@ -12,7 +12,7 @@ from ..types import BOOL, INT64, Schema, StructField
 __all__ = ["LogicalPlan", "LogicalScan", "ParquetScan", "RangeRel",
            "Project", "Filter", "Sample", "Aggregate", "SortOrder", "Sort",
            "GlobalLimit", "LocalLimit", "Join", "Union", "WindowSpec",
-           "Window", "Expand", "BranchAlign", "DistinctFlag"]
+           "Window", "Expand", "BranchAlign", "DistinctFlag", "Generate"]
 
 
 class LogicalPlan:
@@ -376,3 +376,30 @@ class DistinctFlag(LogicalPlan):
         k = ", ".join(e.name_hint for e in self.key_exprs)
         return (f"DistinctFlag[keys=[{k}], value="
                 f"{self.value_expr.name_hint}]")
+
+
+class Generate(LogicalPlan):
+    """A generator's rows (explode, posexplode, stack; ref ``Generate``):
+    the child's ``required_cols`` repeated for each row the generator
+    gives its input row, then the generator's columns (named
+    ``output_names`` when given)."""
+
+    def __init__(self, generator, required_cols: Sequence[str],
+                 child: LogicalPlan,
+                 output_names: Optional[Sequence[str]] = None):
+        self.generator = generator
+        self.required_cols = list(required_cols)
+        self.output_names = list(output_names) if output_names else None
+        self.children = [child]
+
+    def schema(self) -> Schema:
+        cs = self.children[0].schema()
+        gen = self.generator.generator_output(cs)
+        if self.output_names:
+            gen = [StructField(n, f.dtype, f.nullable)
+                   for n, f in zip(self.output_names, gen)]
+        return Schema([cs[c] for c in self.required_cols] + gen)
+
+    def describe(self):
+        return (f"Generate[{self.generator.key()}, "
+                f"required={self.required_cols}]")

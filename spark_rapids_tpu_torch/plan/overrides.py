@@ -22,6 +22,9 @@ the execs take them as dictionary columns and refuse other forms when
 the batch arrives. A window prunes its child to the columns its
 expressions and its parent read; where the reference tags a window for
 its host engine (list payloads or keys), the port raises at planning.
+List columns ride through projections, filters, joins, sorts and
+generators as payloads; a list as a group, sort, join or window key is
+refused at planning (``NESTED_REST``).
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from ..exec import basic as B
 from ..exec import sort as S
 from ..exec.base import TpuExec
 from ..exprs.base import Alias, ColumnRef, Expression
-from ..types import STRING, Schema
+from ..types import NESTED_REST, STRING, ArrayType, Schema, device_list_ok
 from . import logical as L
 from .meta import PlanMeta
 
@@ -166,6 +169,16 @@ def prune_columns(plan: L.LogicalPlan,
         return _rebuilt(plan, prune_columns(plan.children[0], None))
     if isinstance(plan, L.Window):
         return _prune_window(plan, required)
+    if isinstance(plan, L.Generate):
+        # the generator runs whatever reads its columns: it sets the rows
+        keep = [c for c in plan.required_cols
+                if required is None or c in required]
+        child_req = set(keep)
+        _expr_refs(plan.generator, child_req)
+        child = prune_columns(plan.children[0], child_req)
+        if keep == plan.required_cols and child is plan.children[0]:
+            return plan
+        return L.Generate(plan.generator, keep, child, plan.output_names)
     return plan
 
 
@@ -264,7 +277,7 @@ def _row_numbering_reason(exprs, where: str) -> Optional[str]:
         return None
     return (f"<{e.name_hint}> in {where}: rand and the row ids run in a "
             "projection, a filter or an aggregate here; project the value "
-            "into a column below (ROADMAP.md Queue A, slice 9b)")
+            f"into a column below (elsewhere they arrive with {NESTED_REST})")
 
 
 @rule(L.ParquetScan)
@@ -350,9 +363,18 @@ class FilterMeta(PlanMeta):
             node.set_predicate(cond)
 
 
+def _list_key_reason(e: Expression, schema) -> Optional[str]:
+    if isinstance(e.data_type(schema), ArrayType):
+        return f"a list as a key arrives with {NESTED_REST}"
+    return None
+
+
 def _key_reason(e: Expression, schema) -> Optional[str]:
     """Why a group or sort key cannot run on the device; a string key
     passes (the exec takes it as a dictionary column)."""
+    r = _list_key_reason(e, schema)
+    if r:
+        return r
     r = e.fully_device_supported(schema)
     return None if r is None or e.data_type(schema) == STRING else r
 
@@ -388,7 +410,19 @@ class AggregateMeta(PlanMeta):
         return A.TpuHashAggregateExec(groupings, self.plan.aggs,
                                       child, pre_stages=stages,
                                       eval_schema=eval_schema,
-                                      int_key_cards=self.plan.int_key_cards)
+                                      int_key_cards=self._key_cards())
+
+    def _key_cards(self) -> list:
+        """The plan's proven key cardinalities, and for a key that is the
+        ``pos`` of a posexplode over a list column of an in-memory scan,
+        the scan's longest list: its values lie in [0, that length), so
+        the dense route can address it directly."""
+        cards = list(self.plan.int_key_cards)
+        for i, g in enumerate(self.plan.groupings):
+            inner = g.children[0] if isinstance(g, Alias) else g
+            if cards[i] is None and isinstance(inner, ColumnRef):
+                cards[i] = _position_card(self.plan.children[0], inner.name)
+        return cards
 
     @staticmethod
     def _string_key_project(groupings, child: TpuExec):
@@ -497,6 +531,46 @@ class AggregateMeta(PlanMeta):
         return nodes[m], stages[:m][::-1], eval_schema
 
 
+def _source_column(plan: L.LogicalPlan, name: str):
+    """(plan, name) of the column ``name`` of ``plan`` followed down
+    through filters and pass-through projections."""
+    while True:
+        if isinstance(plan, L.Filter):
+            plan = plan.children[0]
+        elif isinstance(plan, L.Project):
+            e = next((x for x in plan.exprs if x.name_hint == name), None)
+            inner = e.children[0] if isinstance(e, Alias) else e
+            if not isinstance(inner, ColumnRef):
+                return plan, name
+            plan, name = plan.children[0], inner.name
+        else:
+            return plan, name
+
+
+def _position_card(plan: L.LogicalPlan, name: str) -> Optional[int]:
+    """The longest list an exploded position ``name`` of ``plan`` can come
+    from, when it is a posexplode's ``pos`` over a list column of an
+    in-memory scan (each host list keeps its longest row), else None: a
+    list computed in the query takes the sort route."""
+    from ..columnar.nested import HostList
+    from ..exprs.generators import PosExplode
+    plan, name = _source_column(plan, name)
+    if not isinstance(plan, L.Generate) or not isinstance(
+            plan.generator, PosExplode):
+        return None
+    names = plan.output_names or ["pos"]
+    src = plan.generator.children[0]
+    if name != names[0] or not isinstance(src, ColumnRef):
+        return None
+    scan, col = _source_column(plan.children[0], src.name)
+    if not isinstance(scan, L.LogicalScan):
+        return None
+    lists = [t.columns[col][0] for t in scan.tables]
+    if not all(isinstance(hl, HostList) for hl in lists):
+        return None
+    return max([hl.longest for hl in lists] + [1])
+
+
 @rule(L.Sort)
 class SortMeta(PlanMeta):
     def tag_self(self):
@@ -507,7 +581,8 @@ class SortMeta(PlanMeta):
                 self.will_not_work_on_tpu(
                     f"sort key <{o.expr.name_hint}>: {r}")
         for f in schema.fields:
-            if not f.dtype.device_backed and f.dtype != STRING:
+            if not (f.dtype.device_backed or f.dtype == STRING
+                    or device_list_ok(f.dtype)):
                 self.will_not_work_on_tpu(
                     f"column {f.name}: {f.dtype.name} payload is host-only")
         r = _row_numbering_reason([o.expr for o in self.plan.orders],
@@ -550,7 +625,8 @@ class WindowMeta(PlanMeta):
             if not f.dtype.device_backed and f.dtype != STRING:
                 self.will_not_work_on_tpu(
                     f"column {f.name}: {f.dtype.name} payload in a window "
-                    "arrives with slice 9b (collections)")
+                    "arrives with a later windows slice (ROADMAP.md Queue "
+                    "A: windows, the rest)")
         for fn, spec, name in self.plan.window_exprs:
             for pk in spec.partition_by:
                 r = _key_reason(pk, schema)
@@ -573,6 +649,27 @@ class WindowMeta(PlanMeta):
     def convert_to_tpu(self, children):
         from ..exec.window import TpuWindowExec
         return TpuWindowExec(self.plan.window_exprs, children[0])
+
+
+@rule(L.Generate)
+class GenerateMeta(PlanMeta):
+    """(ref ``GenerateMeta``.) The generator runs on the device; a map to
+    explode, or a generator over a value without a device layout, is
+    refused naming the slice that brings it."""
+
+    def tag_self(self):
+        schema = self.plan.children[0].schema()
+        gen = self.plan.generator
+        r = gen.fully_device_supported(schema) or \
+            _row_numbering_reason([gen], "a generator")
+        if r:
+            self.will_not_work_on_tpu(f"generator <{gen.key()}>: {r}")
+
+    def convert_to_tpu(self, children):
+        from ..exec.generate import TpuGenerateExec
+        p = self.plan
+        return TpuGenerateExec(p.generator, p.required_cols, children[0],
+                               p.output_names)
 
 
 @rule(L.GlobalLimit)
@@ -642,7 +739,7 @@ def _join_key_reason(e: Expression, schema) -> Optional[str]:
     if e.data_type(schema) == STRING and \
             string_key_column_name(e) is not None:
         return None
-    return e.fully_device_supported(schema)
+    return _list_key_reason(e, schema) or e.fully_device_supported(schema)
 
 
 @rule(L.Join)

@@ -14,12 +14,12 @@ aggregate only through a subquery, as in the reference.
 
 The function tables name only what the port has. A function the
 reference knows and the port does not yet have raises NotImplementedError
-naming the slice that brings it (``_LATER``), as do INTERSECT ALL /
-EXCEPT ALL (slice 9b), and DML and catalog statements (slice 10); a name
-the reference does not know either stays an "unknown function"
-SqlError. ``log(base, x)`` with two arguments is Spark's logarithm to a
-base, where the reference's lowering takes the log of its first argument
-(ROADMAP.md Queue C).
+naming the slice that brings it (``_LATER``), as do DML and catalog
+statements (slice 10); a name the reference does not know either stays
+an "unknown function" SqlError. INTERSECT ALL / EXCEPT ALL lower onto
+``intersect_all`` / ``except_all``. ``log(base, x)`` with two arguments
+is Spark's logarithm to a base, where the reference's lowering takes the
+log of its first argument (ROADMAP.md Queue C).
 """
 from __future__ import annotations
 

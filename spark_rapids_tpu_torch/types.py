@@ -4,7 +4,9 @@ Port of ``spark_rapids_tpu/types.py`` (the parts the port's slice needs).
 A device column is a torch tensor per column plus a bool validity tensor;
 STRING and BINARY have no fixed-width device layout of their own (strings
 ride as dictionary codes or byte rectangles, columnar/), and decimals wait
-for a later slice.
+for a later slice. An ARRAY of a fixed-width element lives on the device
+as a rectangle (columnar/nested.py); maps, structs and arrays of other
+elements are types the planner refuses (``NESTED_REST``).
 """
 from __future__ import annotations
 
@@ -19,7 +21,13 @@ __all__ = [
     "INT32", "INT64", "FLOAT32", "FLOAT64", "STRING", "BINARY", "DATE",
     "TIMESTAMP", "NULLTYPE", "StructField", "Schema", "TypeSig", "TypeEnum",
     "from_numpy_dtype", "from_arrow", "to_arrow", "torch_dtype",
+    "ArrayType", "MapType", "StructType", "device_list_ok", "NESTED_REST",
 ]
+
+#: where the nested constructs the port refuses arrive (maps, structs,
+#: the host-only array functions, collect_list/collect_set, JSON, nested
+#: Parquet columns, lists past the rectangle's caps)
+NESTED_REST = "slice 9b, the rest (ROADMAP.md Queue A)"
 
 
 class DataType:
@@ -86,6 +94,53 @@ class StructField:
     name: str
     dtype: DataType
     nullable: bool = True
+
+
+class StructType(DataType):
+    def __init__(self, fields: Iterable[StructField]):
+        self.fields: Tuple[StructField, ...] = tuple(fields)
+        self.name = "struct<" + ",".join(f"{f.name}:{f.dtype.name}"
+                                         for f in self.fields) + ">"
+        self.np_dtype = None
+
+    def __eq__(self, other):
+        return isinstance(other, StructType) and other.fields == self.fields
+
+    def __hash__(self):
+        return hash(("struct", self.fields))
+
+
+class ArrayType(DataType):
+    def __init__(self, element: DataType):
+        self.element = element
+        self.name = f"array<{element.name}>"
+        self.np_dtype = None     # a rectangle of several tensors
+
+    def __eq__(self, other):
+        return isinstance(other, ArrayType) and other.element == self.element
+
+    def __hash__(self):
+        return hash(("array", self.element))
+
+
+class MapType(DataType):
+    def __init__(self, key: DataType, value: DataType):
+        self.key = key
+        self.value = value
+        self.name = f"map<{key.name},{value.name}>"
+        self.np_dtype = None
+
+    def __eq__(self, other):
+        return isinstance(other, MapType) and other.key == self.key \
+            and other.value == self.value
+
+    def __hash__(self):
+        return hash(("map", self.key, self.value))
+
+
+def device_list_ok(dt: DataType) -> bool:
+    """``dt`` is an array of a fixed-width element: a device rectangle."""
+    return isinstance(dt, ArrayType) and dt.element.np_dtype is not None
 
 
 class TypeEnum:
@@ -175,6 +230,14 @@ def from_arrow(at) -> DataType:
     for check, dt in checks:
         if check(at):
             return dt
+    if pa.types.is_list(at) or pa.types.is_large_list(at):
+        return ArrayType(from_arrow(at.value_type))
+    if pa.types.is_map(at):
+        return MapType(from_arrow(at.key_type), from_arrow(at.item_type))
+    if pa.types.is_struct(at):
+        return StructType(StructField(at.field(i).name,
+                                      from_arrow(at.field(i).type))
+                          for i in range(at.num_fields))
     raise TypeError(f"unsupported arrow type {at}")
 
 
@@ -185,6 +248,8 @@ def to_arrow(dt: DataType):
          "double": pa.float64(), "date": pa.date32(),
          "timestamp": pa.timestamp("us", tz="UTC"), "string": pa.string(),
          "binary": pa.binary(), "void": pa.null()}
+    if isinstance(dt, ArrayType):
+        return pa.list_(to_arrow(dt.element))
     return m[dt.name]
 
 

@@ -16,6 +16,11 @@ against the reference, on the CPU.
 * q9's keyless aggregate reading one widened batch, the widening's cap
   from the memory budget and ``agg.wideBatchRows``, and the scan cache
   keeping a widened scan's batches apart from a normal one's.
+* INTERSECT ALL / EXCEPT ALL (slice 9b): ``intersect_all``/``except_all``
+  and their SQL over int, double and string columns with NULLs, NaN and
+  +-0.0, multiplicities from 1 to dozens, 64-row batches, against the
+  reference row for row after sorting, and against a multiset model; the
+  reference's own cases (tests/test_setops.py).
 """
 import math
 
@@ -300,3 +305,78 @@ def test_scan_cache_keys_on_the_batch_width():
     assert sum(r["n"] for r in keyed) == 4000
     assert wide == tpcds.q9(session.create_dataframe(tab), PF).collect()
     assert math.isfinite(wide[0]["avg_price1"])
+
+
+# ---------------------------------------------------------------------------
+# INTERSECT ALL / EXCEPT ALL
+# ---------------------------------------------------------------------------
+
+def _multiset_table(n, seed):
+    rng = np.random.RandomState(seed)
+    i = rng.randint(0, 6, n).astype(np.int64)
+    d = rng.choice([np.nan, -0.0, 0.0, 1.5, 2.5], n)
+    s = rng.choice(["x", "y", "zz"], n)
+    return pa.table({"i": pa.array(i, mask=rng.rand(n) < 0.1),
+                     "d": pa.array(d, mask=rng.rand(n) < 0.1),
+                     "s": pa.array(s, mask=rng.rand(n) < 0.1)})
+
+
+def _key(row):
+    """A sortable, comparable key of a row: NULL apart from NaN, -0.0 as
+    0.0 (set operations take them as equal, and either may come out)."""
+    out = []
+    for v in row.values():
+        if v is None:
+            out.append((0, ""))
+        elif isinstance(v, float) and math.isnan(v):
+            out.append((1, ""))
+        else:
+            out.append((2, repr(v + 0.0) if isinstance(v, float) else
+                        repr(v)))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("op", ["intersect_all", "except_all"])
+@pytest.mark.parametrize("form", ["dataframe", "sql"])
+def test_all_set_operations_equal_reference_and_the_multiset(op, form):
+    a, b = _multiset_table(300, 1), _multiset_table(200, 2)
+    conf = {"spark.rapids.tpu.sql.batchSizeRows": 64}
+    out = []
+    for s in (_ref(conf), _port(conf)):
+        x, y = s.create_dataframe(a), s.create_dataframe(b)
+        if form == "sql":
+            x.create_or_replace_temp_view("x")
+            y.create_or_replace_temp_view("y")
+            verb = "INTERSECT ALL" if op == "intersect_all" else "EXCEPT ALL"
+            df = s.sql(f"SELECT i, d, s FROM x {verb} SELECT i, d, s FROM y")
+        else:
+            df = getattr(x, op)(y)
+        out.append(sorted(_key(r) for r in df.collect()))
+    want, got = out
+    assert got == want
+    from collections import Counter
+    ca = Counter(_key(r) for r in a.to_pylist())
+    cb = Counter(_key(r) for r in b.to_pylist())
+    model = ca & cb if op == "intersect_all" else ca - cb
+    assert got == sorted(model.elements())
+    assert len(got) > 10
+
+
+def test_all_set_operations_reference_cases():
+    """tests/test_setops.py's INTERSECT ALL / EXCEPT ALL cases, on the
+    port."""
+    s = _port()
+    l = s.create_dataframe(pa.table({
+        "k": pa.array([1, 1, 2, 2, 3, None, None, 4], pa.int64()),
+        "v": pa.array(["a", "a", "b", "b", "c", None, None, "d"])}))
+    r = s.create_dataframe(pa.table({
+        "k": pa.array([1, 2, 2, None, 5], pa.int64()),
+        "v": pa.array(["a", "b", "b", None, "e"])}))
+
+    def rows(df):
+        return sorted(((x["k"], x["v"]) for x in df.collect()),
+                      key=lambda x: (x[0] is None, x))
+    assert rows(l.intersect_all(r)) == [(1, "a"), (2, "b"), (2, "b"),
+                                        (None, None)]
+    assert rows(l.except_all(r)) == [(1, "a"), (3, "c"), (4, "d"),
+                                     (None, None)]
