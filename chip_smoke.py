@@ -213,6 +213,37 @@ result line):
                 per-key counts against numpy's multisets (join_match
                 launches printed). Each cold and warm; (a) and (c) once
                 more under torch.profiler.
+ 17. maps and structs -- (after phase 16) slice 9b's map and struct
+                half through the normal entry points at SF1, against
+                numpy: (a) collect_list of l_quantity, l_linenumber (each
+                lineitem's place in its order) and l_extendedprice and
+                collect_set(l_quantity) by l_orderkey (about 1.5 M
+                groups; lists in arrival order, sets sorted); (b) maps
+                from (a)'s lists (map_from_arrays, create_map,
+                map_concat of disjoint keys) and keyless sums of
+                element_at, size(map_filter), array_max(map_keys), the
+                values of transform_values and size(map_entries), in
+                cents or counts: exact; (c) struct(l_quantity,
+                l_extendedprice, l_discount, l_shipmode) over lineitem,
+                filtered on get_field(s, "l_quantity") > 45, with
+                keyless sums of its fields; (d) phase 16's orders with a
+                map column o_lines (linenumber -> extendedprice, NULL
+                and empty maps) at ingest: posexplode by pos
+                (dense_groupby once a batch), explode by key (the sort
+                route), explode_outer; (e) q1's groups with percentile,
+                approx_percentile, min_by and max_by, each against
+                Spark's definition in numpy; (f) the orders with o_lines
+                and a struct column o_info ordered by o_totalprice DESC,
+                o_orderkey out of core (sort_bucket launches and buckets
+                printed), every row's map and struct equal after the
+                sort; (g) percentile of l_extendedprice and l_quantity
+                by l_orderkey at a 4 MiB batchSizeBytes: the partials
+                of about 1.5 M groups outgrow it, so they and the value
+                streams are hash-split alike and each partition merges,
+                sorts and picks alone (partitions and buckets printed),
+                every group equal to Spark's definition in numpy. Each
+                cold and warm; (a) and (e) once more under
+                torch.profiler.
 
 The data is generated here from a seed, with numpy only: this script
 imports neither JAX, pyarrow, pandas nor the JAX package. It prints a
@@ -6234,6 +6265,502 @@ def phase_nested(card: str, batch_rows: int, table: dict, host) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: slice 9b's map and struct half -- struct and map columns, the
+# map functions and lambdas, explode of a map, collect_list / collect_set
+# / min_by / max_by / percentile
+# ---------------------------------------------------------------------------
+
+#: case (f)'s batchSizeBytes: the orders' sort goes out of core
+NESTED_SORT_BYTES = 64 << 20
+#: case (g)'s batchSizeBytes: the partials of every order outgrow it, so
+#: the order statistics merge partition by partition
+ORDER_STATS_SPLIT_BYTES = 4 << 20
+Q1_CUTOFF = np.datetime64("1998-12-01") - np.timedelta64(90, "D")
+
+
+def gen_order_maps(o: dict, t: dict) -> dict:
+    """Phase 16's orders (``gen_nested_orders``) with ``o_lines``, a
+    map<int, double> of linenumber -> extendedprice (every 17th order's
+    NULL, every 19th empty), ``o_info``, a struct<lines: int, qty:
+    double, mode: string> (the order's first lineitem's l_shipmode; every
+    23rd NULL), and ``o_totalprice``; ``row_linenumber`` is each
+    lineitem's 1-based place in its order, in lineitem row order (the
+    TPC-H l_linenumber of the generated rows)."""
+    n = len(o["o_orderkey"])
+    cnt, off = o["counts"], o["offsets"]
+    price = o["l_extendedprice"]
+    ln = (np.arange(off[-1]) - np.repeat(off[:-1], cnt) + 1).astype(
+        np.int32)
+    null = np.arange(n) % 17 == 5
+    empty = (np.arange(n) % 19 == 7) & ~null
+    hcnt = np.where(null | empty, 0, cnt)
+    hoff = np.zeros(n + 1, np.int64)
+    np.cumsum(hcnt, out=hoff[1:])
+    keep = np.repeat(hcnt > 0, cnt)
+    order = np.argsort(t["l_orderkey"], kind="stable")
+    row_ln = np.empty(len(ln), np.int32)
+    row_ln[order] = ln
+    return {**o, "linenumber": ln, "row_linenumber": row_ln,
+            "o_lines": (hoff, ln[keep], price[keep], ~null),
+            "o_info": {"lines": cnt.astype(np.int32),
+                       "qty": np.add.reduceat(o["l_quantity"], off[:-1]),
+                       "mode": t["l_shipmode"][order][off[:-1]],
+                       "valid": np.arange(n) % 23 != 4},
+            "o_totalprice": np.add.reduceat(price, off[:-1])}
+
+
+def order_maps_table(om: dict):
+    from spark_rapids_tpu_torch.columnar import (HostMap, HostStruct,
+                                                 HostTable)
+    hoff, keys, vals, valid = om["o_lines"]
+    info = om["o_info"]
+    return HostTable.from_dict({
+        "o_orderkey": om["o_orderkey"], "o_totalprice": om["o_totalprice"],
+        "o_lines": (HostMap(hoff, keys, vals), valid),
+        "o_info": (HostStruct(HostTable.from_dict(
+            {k: info[k] for k in ("lines", "qty", "mode")})),
+            info["valid"])})
+
+
+def q17_collect(df, F):
+    return df.group_by("l_orderkey").agg(
+        F.collect_list(F.col("l_quantity")).with_name("q"),
+        F.collect_list(F.col("l_linenumber")).with_name("ln"),
+        F.collect_list(F.col("l_extendedprice")).with_name("p"),
+        F.collect_set(F.col("l_quantity")).with_name("qs"))
+
+
+def _cents(c, F):
+    return F.round(c * F.lit(100.0)).cast("bigint")
+
+
+def q17_maps(df, F):
+    lists = df.group_by("l_orderkey").agg(
+        F.collect_list(F.col("l_linenumber")).with_name("ln"),
+        F.collect_list(F.col("l_extendedprice")).with_name("p"))
+    m = F.map_from_arrays(F.col("ln"), F.col("p"))
+    cm = F.create_map(F.lit(0), F.size(F.col("p")).cast("double"),
+                      F.lit(-1), F.element_at(F.col("p"), 1))
+    both = F.map_concat(F.col("m"), F.col("cm"))
+    twice = F.transform_values(F.col("m"), lambda k, v: v * F.lit(2.0))
+    cols = {
+        "first": _cents(F.element_at(F.col("m"), 1), F),
+        "big": F.size(F.map_filter(F.col("m"),
+                                   lambda k, v: v > F.lit(50000.0))),
+        "lines": F.array_max(F.map_keys(F.col("m"))),
+        "twice": F.aggregate(
+            F.transform(F.map_values(twice), lambda x: _cents(x, F)),
+            F.lit(0).cast("bigint"), lambda acc, x: acc + x),
+        "entries": F.size(F.map_entries(F.col("m"))),
+        "joined": F.size(both),
+        "last": _cents(F.element_at(both, -1), F)}
+    return lists.select(m.alias("m"), cm.alias("cm")).select(
+        *[c.alias(n) for n, c in cols.items()]).agg(
+        *[F.sum(F.col(n)).with_name(n) for n in cols])
+
+
+def q17_structs(df, F):
+    s = F.col("s")
+    return df.select(F.struct(
+        F.col("l_quantity"), F.col("l_extendedprice"), F.col("l_discount"),
+        F.col("l_shipmode")).alias("s")).filter(
+        F.get_field(s, "l_quantity") > F.lit(45.0)).agg(
+        F.sum(F.get_field(s, "l_quantity")).with_name("qty"),
+        F.sum(_cents(F.get_field(s, "l_extendedprice"), F))
+        .with_name("price_cents"),
+        F.sum(_cents(F.get_field(s, "l_discount"), F))
+        .with_name("discount_cents"),
+        F.count(F.get_field(s, "l_shipmode")).with_name("n"))
+
+
+def q17_by_pos(df, F):
+    return df.select(F.posexplode(F.col("o_lines"))).group_by("pos").agg(
+        F.sum(F.col("value")).with_name("s"),
+        F.count_star().with_name("n")).order_by("pos")
+
+
+def q17_by_key(df, F):
+    return df.select(F.explode(F.col("o_lines"))).group_by("key").agg(
+        F.sum(F.col("value")).with_name("s"),
+        F.count_star().with_name("n")).order_by("key")
+
+
+def q17_outer(df, F):
+    return df.select(F.explode_outer(F.col("o_lines"))).agg(
+        F.count_star().with_name("rows"),
+        F.count(F.col("value")).with_name("values"),
+        F.sum(F.col("value")).with_name("s"))
+
+
+def q17_stats(df, F):
+    from spark_rapids_tpu_torch.exprs.aggregates import \
+        ApproximatePercentile
+    return df.filter(F.col("l_shipdate") <= F.lit(Q1_CUTOFF)).group_by(
+        "l_returnflag", "l_linestatus").agg(
+        F.percentile(F.col("l_extendedprice"), 0.5).with_name("p50_price"),
+        F.percentile(F.col("l_quantity"), 0.9).with_name("p90_qty"),
+        ApproximatePercentile(F.col("l_discount").expr, 0.25)
+        .with_name("p25_disc"),
+        F.min_by(F.col("l_orderkey"), F.col("l_extendedprice"))
+        .with_name("cheapest"),
+        F.max_by(F.col("l_orderkey"), F.col("l_extendedprice"))
+        .with_name("dearest")).order_by("l_returnflag", "l_linestatus")
+
+
+def q17_split_stats(df, F):
+    return df.group_by("l_orderkey").agg(
+        F.percentile(F.col("l_extendedprice"), 0.5).with_name("p50_price"),
+        F.percentile(F.col("l_quantity"), 0.75).with_name("p75_qty"))
+
+
+def q17_sorted(df, F):
+    return df.order_by(F.desc("o_totalprice"), F.asc("o_orderkey"))
+
+
+def _list_rows(lst, order: np.ndarray):
+    """(lengths, flat values) of a collected list column's rows taken in
+    ``order``."""
+    off, vals = lst[0], lst[1]
+    lens = np.diff(off)[order]
+    starts = off[:-1][order]
+    idx = np.repeat(starts - (np.cumsum(lens) - lens), lens) \
+        + np.arange(int(lens.sum()))
+    return lens, vals[idx]
+
+
+def _sorted_sets(lens: np.ndarray, vals: np.ndarray):
+    """Each row's distinct values, sorted: (lengths, flat values)."""
+    row = np.repeat(np.arange(len(lens)), lens)
+    o = np.lexsort((vals, row))
+    r, v = row[o], vals[o]
+    keep = np.r_[True, (r[1:] != r[:-1]) | (v[1:] != v[:-1])]
+    return np.bincount(r[keep], minlength=len(lens)), v[keep]
+
+
+def collect17_right(got: dict, om: dict) -> bool:
+    keys = np.asarray(got["l_orderkey"])
+    order = np.argsort(keys, kind="stable")
+    if not np.array_equal(keys[order], om["o_orderkey"]):
+        return False
+    cnt = om["counts"]
+    for name, want in (("q", om["l_quantity"]), ("ln", om["linenumber"]),
+                       ("p", om["l_extendedprice"])):
+        lens, vals = _list_rows(got[name], order)
+        if not (np.array_equal(lens, cnt) and np.array_equal(vals, want)):
+            return False
+    lens, vals = _list_rows(got["qs"], order)
+    wl, wv = _sorted_sets(cnt, om["l_quantity"])
+    gl, gv = _sorted_sets(lens, vals)
+    return np.array_equal(lens, wl) and np.array_equal(gl, wl) \
+        and np.array_equal(gv, wv)
+
+
+def maps17_numpy(om: dict) -> dict:
+    p, cnt, off = om["l_extendedprice"], om["counts"], om["offsets"]
+    first = np.round(p[off[:-1]] * 100.0).astype(np.int64).sum()
+    return {"first": int(first), "big": int((p > 50000.0).sum()),
+            "lines": int(cnt.sum()),
+            "twice": int(np.round((p * 2.0) * 100.0).astype(np.int64).sum()),
+            "entries": int(cnt.sum()),
+            "joined": int(cnt.sum() + 2 * len(cnt)), "last": int(first)}
+
+
+def structs17_numpy(t: dict) -> dict:
+    m = t["l_quantity"] > 45.0
+    return {"qty": float(t["l_quantity"][m].sum()),
+            "price_cents": int(np.round(t["l_extendedprice"][m] * 100.0)
+                               .astype(np.int64).sum()),
+            "discount_cents": int(np.round(t["l_discount"][m] * 100.0)
+                                  .astype(np.int64).sum()),
+            "n": int(m.sum())}
+
+
+def lines17_numpy(om: dict) -> dict:
+    hoff, keys, vals, valid = om["o_lines"]
+    hcnt = np.diff(hoff)
+    pos = np.arange(len(keys)) - np.repeat(hoff[:-1], hcnt)
+    by_pos = [{"pos": j, "s": float(vals[pos == j].sum()),
+               "n": int((pos == j).sum())} for j in range(int(hcnt.max()))]
+    return {"by_pos": by_pos, "outer": {
+        "rows": int(np.where(hcnt > 0, hcnt, 1).sum()),
+        "values": int(len(vals)), "s": float(vals.sum())}}
+
+
+def _spark_percentile(vals: np.ndarray, p: float) -> float:
+    """Spark's Percentile over sorted values: ``(hi - pos) * v[lo] +
+    (pos - lo) * v[hi]``, ``pos = p * (n - 1)``."""
+    pos = p * (len(vals) - 1)
+    lo, hi = math.floor(pos), math.ceil(pos)
+    if lo == hi:
+        return float(vals[lo])
+    return float((hi - pos) * vals[lo] + (pos - lo) * vals[hi])
+
+
+def stats17_numpy(t: dict) -> list:
+    m = t["l_shipdate"] <= Q1_CUTOFF
+    out = []
+    for f in ("A", "N", "R"):
+        for s in ("F", "O"):
+            g = m & (t["l_returnflag"] == f) & (t["l_linestatus"] == s)
+            if not g.any():
+                continue
+            price, key = t["l_extendedprice"][g], t["l_orderkey"][g]
+            out.append({
+                "l_returnflag": f, "l_linestatus": s,
+                "p50_price": _spark_percentile(np.sort(price), 0.5),
+                "p90_qty": _spark_percentile(np.sort(t["l_quantity"][g]),
+                                             0.9),
+                "p25_disc": _spark_percentile(np.sort(t["l_discount"][g]),
+                                              0.25),
+                "cheapest": int(key[np.argmin(price)]),
+                "dearest": int(key[np.argmax(price)])})
+    return out
+
+
+def split_stats17_right(got: dict, t: dict) -> bool:
+    """(g): each order's percentiles against Spark's definition in numpy,
+    computed as the port computes it (float64, ``pos = p * (n - 1)``)."""
+    keys = np.asarray(got["l_orderkey"])
+    order = np.argsort(keys, kind="stable")
+    k = t["l_orderkey"]
+    uniq, counts = np.unique(k, return_counts=True)
+    if not np.array_equal(keys[order], uniq):
+        return False
+    start = np.cumsum(counts) - counts
+    for name, col, p in (("p50_price", "l_extendedprice", 0.5),
+                         ("p75_qty", "l_quantity", 0.75)):
+        if np.ma.getmaskarray(got[name]).any():
+            return False
+        v = t[col][np.lexsort((t[col], k))]
+        pos = p * (counts - 1).astype(np.float64)
+        lo = np.floor(pos).astype(np.int64)
+        hi = np.ceil(pos).astype(np.int64)
+        a, b = v[start + lo], v[start + hi]
+        want = np.where(lo == hi, a, (hi - pos) * a + (pos - lo) * b)
+        if not np.array_equal(np.asarray(got[name])[order], want):
+            return False
+    return True
+
+
+def sorted17_right(got: dict, om: dict) -> bool:
+    """The sorted orders' keys, prices, maps and structs against numpy's
+    order (price descending, then key)."""
+    order = np.lexsort((om["o_orderkey"], -om["o_totalprice"]))
+    if not (np.array_equal(np.asarray(got["o_orderkey"]),
+                           om["o_orderkey"][order])
+            and np.array_equal(np.asarray(got["o_totalprice"]),
+                               om["o_totalprice"][order])):
+        return False
+    hoff, keys, vals, valid = om["o_lines"]
+    off, gk, gv, gvv, gvalid = got["o_lines"]
+    if not np.array_equal(gvalid, valid[order]) or not gvv.all():
+        return False
+    lens, wk = _list_rows((hoff, keys), order)
+    _, wv = _list_rows((hoff, vals), order)
+    if not (np.array_equal(np.diff(off), lens) and np.array_equal(gk, wk)
+            and np.array_equal(gv, wv)):
+        return False
+    fields, svalid = got["o_info"]
+    info = om["o_info"]
+    ok = info["valid"][order]
+    return np.array_equal(svalid, ok) and all(
+        np.array_equal(np.asarray(fields[k])[ok], info[k][order][ok])
+        for k in ("lines", "qty", "mode"))
+
+
+def _find_exec(node, name: str):
+    while node is not None and type(node).__name__ != name:
+        node = node.children[0] if node.children else None
+    return node
+
+
+def phase_maps_structs(card: str, batch_rows: int, table: dict,
+                       host) -> dict:
+    """Phase 17 (module doc): maps, structs and the collect and order
+    aggregates through the normal entry points at full size, against
+    numpy."""
+    import torch
+    from spark_rapids_tpu_torch.api import TorchSession
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.columnar import ColumnarBatch, HostTable
+    from spark_rapids_tpu_torch.types import INT32, Schema, StructField
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    om = gen_order_maps(gen_nested_orders(table), table)
+    orders = order_maps_table(om)
+    li = host.select(["l_orderkey", "l_quantity", "l_extendedprice",
+                      "l_discount", "l_shipmode", "l_shipdate",
+                      "l_returnflag", "l_linestatus"])
+    li = HostTable({**li.columns, "l_linenumber": (
+        om["row_linenumber"], np.ones(li.num_rows, bool))},
+        Schema(list(li.schema.fields)
+               + [StructField("l_linenumber", INT32, True)]))
+    n_orders = len(om["o_orderkey"])
+    built = [ColumnarBatch.from_host(orders.slice(i, batch_rows), "cuda",
+                                     64)
+             for i in range(0, n_orders, batch_rows)]
+    torch.cuda.synchronize()
+    n_batches = len(built)
+    sizes = [{f.name: c.nbytes() for f, c in zip(orders.schema.fields,
+                                                 b.columns)} for b in built]
+    widths = [b.columns[2].width for b in built]
+    table_bytes = sum(b.device_size_bytes() for b in built)
+    del built
+    _log(f"phase 17: orders with o_lines and o_info from SF1 lineitem in "
+         f"{time.perf_counter() - t0:.2f} s: {n_orders} orders in "
+         f"{n_batches} batches, map widths {widths}, device_size_bytes "
+         f"{table_bytes} ({table_bytes / 2**30:.3f} GiB; by column and "
+         f"batch {sizes})")
+    conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows,
+            "spark.rapids.tpu.sql.agg.wideBatchRows": batch_rows}
+    session = TorchSession(conf)
+    out = {"orders": n_orders, "device_bytes": table_bytes,
+           "map_widths": widths, "batches": n_batches}
+
+    def runs(label, make, right, collect="collect", s=session):
+        for phase in ("cold", "warm"):
+            run, rows = _sql_run(s, make, collect)
+            _check(right(rows), f"{label} {phase}: {str(rows)[:300]}")
+            out[f"{label}_{phase}"] = run
+        return rows
+
+    def walls(label):
+        return (f"{out[f'{label}_cold']['wall_ms']:.1f} ms cold, "
+                f"{out[f'{label}_warm']['wall_ms']:.1f} ms warm")
+
+    # (a) collect_list / collect_set by l_orderkey
+    runs("a", lambda s: q17_collect(s.create_dataframe(li), F),
+         lambda got: collect17_right(got, om), "collect_numpy")
+    agg = _find_exec(session.last_plan, "TpuHashAggregateExec")
+    out["a_repartitions"] = agg.last_repartitions if agg else None
+    out["a_profile_warm"] = phase_profile(
+        session, li, q17_collect, lambda got: collect17_right(got, om),
+        f"phase 17 (a) collect_list/collect_set ({card})", "sort",
+        "collect_numpy")
+    _log(f"phase 17 (a) collect_list x3 and collect_set by l_orderkey "
+         f"({card}): {n_orders} groups, every list equal to numpy's in "
+         f"arrival order and every set sorted; {walls('a')}; merge "
+         f"repartitions {out['a_repartitions']}; peak "
+         f"{out['a_warm']['max_memory_allocated'] / 2**30:.2f} GiB; idle "
+         f"{out['a_profile_warm'].get('idle_share', float('nan')):.1%}, "
+         f"cudaLaunchKernel "
+         f"{out['a_profile_warm'].get('host_calls', {}).get('cudaLaunchKernel')}")
+
+    # (b) maps from (a)'s lists
+    want_b = maps17_numpy(om)
+    runs("b", lambda s: q17_maps(s.create_dataframe(li), F),
+         lambda r: r == [want_b])
+    _log(f"phase 17 (b) map_from_arrays / create_map / map_concat and "
+         f"the map functions over {n_orders} maps ({card}): {want_b} "
+         f"equal numpy exactly; {walls('b')}")
+
+    # (c) structs over lineitem
+    want_c = structs17_numpy(table)
+    runs("c", lambda s: q17_structs(s.create_dataframe(li), F),
+         lambda r: r == [want_c])
+    _log(f"phase 17 (c) struct(l_quantity, l_extendedprice, l_discount, "
+         f"l_shipmode) filtered on get_field > 45 over {SF1_ROWS} rows "
+         f"({card}): {want_c} equal numpy exactly; {walls('c')}")
+
+    # (d) a map column at ingest: posexplode by pos, explode by key,
+    # explode_outer
+    want_d = lines17_numpy(om)
+
+    def right_d(rows, key="pos"):
+        w = want_d["by_pos"]
+        return len(rows) == len(w) and all(
+            g[key] == x["pos"] + (key == "key") and g["n"] == x["n"]
+            and _rel(g["s"], x["s"]) <= REL_TOL for g, x in zip(rows, w))
+    runs("d_pos", lambda s: q17_by_pos(s.create_dataframe(orders), F),
+         right_d)
+    k = out["d_pos_warm"]["launches"]["dense_groupby"]
+    _check(k == n_batches, f"(d): dense_groupby launched {k} times, "
+           f"expected {n_batches} (once a generated batch)")
+    runs("d_key", lambda s: q17_by_key(s.create_dataframe(orders), F),
+         lambda rows: right_d(rows, "key"))
+    kk = out["d_key_warm"]["launches"]["dense_groupby"]
+    _check(kk == 0, f"(d) by key launched dense_groupby {kk} times: a "
+           "map's keys take the sort route")
+    wo = want_d["outer"]
+    runs("d_outer", lambda s: q17_outer(s.create_dataframe(orders), F),
+         lambda r: len(r) == 1 and r[0]["rows"] == wo["rows"]
+         and r[0]["values"] == wo["values"]
+         and _rel(r[0]["s"], wo["s"]) <= REL_TOL)
+    _log(f"phase 17 (d) o_lines (map<int, double>, NULL and empty maps) "
+         f"({card}): {len(om['o_lines'][1])} entries; posexplode by pos "
+         f"{walls('d_pos')}, dense_groupby launches {k} over {n_batches} "
+         f"batches; explode by key (sort route, 0 launches) "
+         f"{walls('d_key')}; explode_outer {wo['rows']} rows "
+         f"{walls('d_outer')}; sums within {REL_TOL:g}, counts exact")
+
+    # (e) order statistics in q1's groups
+    want_e = stats17_numpy(table)
+    runs("e", lambda s: q17_stats(s.create_dataframe(li), F),
+         lambda r: r == want_e)
+    agg = _find_exec(session.last_plan, "TpuHashAggregateExec")
+    out["e_stream_buckets"] = list(agg.last_stream_buckets) if agg else None
+    out["e_profile_warm"] = phase_profile(
+        session, li, q17_stats, lambda r: r == want_e,
+        f"phase 17 (e) percentile / min_by / max_by ({card})", "sort")
+    _log(f"phase 17 (e) percentile(l_extendedprice, 0.5), percentile("
+         f"l_quantity, 0.9), approx_percentile(l_discount, 0.25), min_by "
+         f"and max_by(l_orderkey, l_extendedprice) by l_returnflag, "
+         f"l_linestatus over SF1 ({card}): {len(want_e)} groups equal "
+         f"Spark's definitions in numpy exactly: {want_e}; {walls('e')}; "
+         f"value-stream sorts' buckets {out['e_stream_buckets']} (0: in "
+         f"memory); peak "
+         f"{out['e_warm']['max_memory_allocated'] / 2**30:.2f} GiB; idle "
+         f"{out['e_profile_warm'].get('idle_share', float('nan')):.1%}, "
+         f"cudaLaunchKernel "
+         f"{out['e_profile_warm'].get('host_calls', {}).get('cudaLaunchKernel')}")
+
+    # (f) the orders with their map and struct, out of core
+    ooc = TorchSession({**conf, "spark.rapids.tpu.sql.batchSizeBytes":
+                        NESTED_SORT_BYTES})
+    runs("f", lambda s: q17_sorted(s.create_dataframe(orders), F),
+         lambda got: sorted17_right(got, om), "collect_numpy", ooc)
+    sorter = _find_exec(ooc.last_plan, "TpuSortExec")
+    out["f_buckets"] = sorter.last_buckets if sorter else None
+    kf = out["f_warm"]["launches"]["sort_bucket"]
+    _check(kf > 0 and out["f_buckets"] and out["f_buckets"] > 1,
+           f"(f): sort_bucket launched {kf} times over "
+           f"{out['f_buckets']} buckets: not out of core")
+    _log(f"phase 17 (f) ORDER BY o_totalprice DESC, o_orderkey of "
+         f"{n_orders} orders with o_lines and o_info, batchSizeBytes "
+         f"{NESTED_SORT_BYTES} ({card}): every row's key, price, map and "
+         f"struct equal numpy's after the sort; {walls('f')}; "
+         f"{out['f_buckets']} buckets, sort_bucket launches {kf}; peak "
+         f"{out['f_warm']['max_memory_allocated'] / 2**30:.2f} GiB")
+
+    # (g) order statistics of every order: the merge split by partition
+    split = TorchSession({**conf, "spark.rapids.tpu.sql.batchSizeBytes":
+                          ORDER_STATS_SPLIT_BYTES})
+    runs("g", lambda s: q17_split_stats(s.create_dataframe(li), F),
+         lambda got: split_stats17_right(got, table), "collect_numpy",
+         split)
+    agg = _find_exec(split.last_plan, "TpuHashAggregateExec")
+    out["g_repartitions"] = agg.last_repartitions if agg else None
+    out["g_stream_buckets"] = list(agg.last_stream_buckets) if agg \
+        else None
+    gb = out["g_stream_buckets"] or []
+    _check(bool(out["g_repartitions"]) and out["g_repartitions"] > 1,
+           f"(g): the merge was split into {out['g_repartitions']} "
+           "partitions, expected more than 1")
+    _log(f"phase 17 (g) percentile(l_extendedprice, 0.5), percentile("
+         f"l_quantity, 0.75) by l_orderkey, batchSizeBytes "
+         f"{ORDER_STATS_SPLIT_BYTES} ({card}): {n_orders} groups equal "
+         f"Spark's definition in numpy exactly; {walls('g')}; merge "
+         f"partitions {out['g_repartitions']}, {len(gb)} value-stream "
+         f"sorts, {sum(b > 1 for b in gb)} of them out of core, buckets "
+         f"at most {max(gb, default=0)}; sort_bucket launches "
+         f"{out['g_warm']['launches']['sort_bucket']}; peak "
+         f"{out['g_warm']['max_memory_allocated'] / 2**30:.2f} GiB")
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"phase 17 (maps and structs) took {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", metavar="NAME=DIR", action="append",
@@ -6430,6 +6957,7 @@ def main(argv=None) -> int:
         stats = phase_stats(card, batch_rows, table, host, ds)
         del ds
         nested = phase_nested(card, batch_rows, table, host)
+        maps = phase_maps_structs(card, batch_rows, table, host)
         _log(json.dumps({"queries": {
             "q6": {"rows": SF1_ROWS, "wall_ms_cold": ms_cold,
                    "wall_ms_warm": ms_warm},
@@ -6460,7 +6988,11 @@ def main(argv=None) -> int:
             "slice9b": {k: v for k, v in nested.items()
                         if not k.endswith("profile_warm")},
             "slice9b_profile_a": nested["a_profile_warm"],
-            "slice9b_profile_c": nested["c_profile_warm"]}}))
+            "slice9b_profile_c": nested["c_profile_warm"],
+            "slice9b_maps": {k: v for k, v in maps.items()
+                             if not k.endswith("profile_warm")},
+            "slice9b_maps_profile_a": maps["a_profile_warm"],
+            "slice9b_maps_profile_e": maps["e_profile_warm"]}}))
         main_t = times["main"]
         kernel = {
             "name": "rect_match", "route": "cuda",
@@ -6509,6 +7041,8 @@ def main(argv=None) -> int:
                       "stats_a_sql": stats["a_sql_cold"]["launches"][
                           "dense_groupby"],
                       "nested_c": nested["c_cold"]["launches"][
+                          "dense_groupby"],
+                      "maps_d_pos": maps["d_pos_cold"]["launches"][
                           "dense_groupby"]},
             "tolerance": f"float sums within {DENSE_TOL:g} of the group's "
                          "sum of magnitudes; counts and int sums exact; "
@@ -6645,7 +7179,11 @@ def main(argv=None) -> int:
             "exact": bt["operands"]["max_abs_err"] == 0
             and bt["one_operand"]["max_abs_err"] == 0,
             "paths": {"store_sales_order_by": windows["order_by"]["cold"][
-                "launches"]["sort_bucket"]},
+                "launches"]["sort_bucket"],
+                      "maps_f_order_by": maps["f_cold"]["launches"][
+                          "sort_bucket"],
+                      "maps_g_split_percentile": maps["g_cold"][
+                          "launches"]["sort_bucket"]},
             "buckets": windows["order_by"]["cold"]["buckets"],
             "ms": bt["operands"]["ms"],
             "plain_ms": bt["operands"]["plain_ms"],

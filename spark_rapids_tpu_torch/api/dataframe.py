@@ -37,7 +37,8 @@ from ..exprs.base import Alias, ColumnRef, Expression
 from ..mem.manager import MemoryManager
 from ..plan import logical as L
 from ..plan.overrides import plan_query
-from ..types import DATE, TIMESTAMP, ArrayType, Schema
+from ..types import (DATE, TIMESTAMP, ArrayType, Schema, StructType,
+                     map_parts, to_arrow)
 from .functions import Col, _to_expr
 
 __all__ = ["TorchSession", "DataFrame", "GroupedData"]
@@ -183,6 +184,13 @@ class TorchSession:
 
 
 def _py_values(vals: np.ndarray, valid: np.ndarray, dtype) -> list:
+    """Python values of a collected column: a struct row as a dict, a map
+    row as a list of (key, value) tuples, a map's entries as a list of
+    ``{"key": k, "value": v}`` dicts (the reference's ``to_pylist``)."""
+    if map_parts(dtype) is not None:
+        return vals.to_pylist(valid, entries=isinstance(dtype, ArrayType))
+    if isinstance(dtype, StructType):
+        return vals.to_pylist(valid)
     if isinstance(dtype, ArrayType):
         return vals.to_pylist(valid, dtype.element)
     if dtype == DATE:
@@ -194,6 +202,46 @@ def _py_values(vals: np.ndarray, valid: np.ndarray, dtype) -> list:
     else:
         out = vals.tolist()
     return [x if ok else None for x, ok in zip(out, valid.tolist())]
+
+
+def _numpy_values(vals, valid: np.ndarray, dtype):
+    """A collected column in ``collect_numpy``'s forms."""
+    def elems(c, element):
+        if element == DATE:
+            return c.astype("datetime64[D]")
+        if element == TIMESTAMP:
+            return c.astype("datetime64[us]")
+        return c
+    if map_parts(dtype) is not None:
+        k, v = vals.keys.compact(), vals.values.compact()
+        return (k.offsets, elems(k.values, k.element),
+                elems(v.values, v.element), v.elem_valid, valid)
+    if isinstance(dtype, StructType):
+        return ({f.name: _numpy_values(*vals.table.columns[f.name], f.dtype)
+                 for f in dtype.fields}, valid)
+    if isinstance(dtype, ArrayType):
+        c = vals.compact()
+        return (c.offsets, elems(c.values, dtype.element), c.elem_valid,
+                valid)
+    return np.ma.MaskedArray(elems(vals, dtype), mask=~valid)
+
+
+def _arrow_values(vals, valid: np.ndarray, dtype):
+    """A collected column as an Arrow array."""
+    import pyarrow as pa
+    if map_parts(dtype) is not None:
+        return vals.to_arrow(valid, dtype)
+    if isinstance(dtype, StructType):
+        return vals.to_arrow(valid, dtype)
+    if isinstance(dtype, ArrayType):
+        return vals.to_arrow(valid, dtype.element)
+    if dtype == DATE:
+        return pa.array(vals.astype(np.int32), mask=~valid,
+                        type=pa.int32()).cast(pa.date32())
+    if dtype == TIMESTAMP:
+        return pa.array(vals.astype(np.int64), mask=~valid,
+                        type=pa.int64()).cast(to_arrow(dtype))
+    return pa.array(vals, mask=~valid, type=to_arrow(dtype))
 
 
 class DataFrame:
@@ -547,25 +595,12 @@ class DataFrame:
         """name -> numpy masked array (masked where null); DATE columns as
         datetime64[D], TIMESTAMP as datetime64[us]; a list column as
         (int64 offsets from 0, element values, element validity, row
-        validity)."""
+        validity); a map column as (offsets, keys, values, value
+        validity, row validity); a struct column as (name -> its field in
+        these forms, row validity)."""
         schema, cols = self._collect_columns()
-        out = {}
-        for f, (vals, valid) in zip(schema.fields, cols):
-            if isinstance(f.dtype, ArrayType):
-                c = vals.compact()
-                elem = c.values
-                if f.dtype.element == DATE:
-                    elem = elem.astype("datetime64[D]")
-                elif f.dtype.element == TIMESTAMP:
-                    elem = elem.astype("datetime64[us]")
-                out[f.name] = (c.offsets, elem, c.elem_valid, valid)
-                continue
-            if f.dtype == DATE:
-                vals = vals.astype("datetime64[D]")
-            elif f.dtype == TIMESTAMP:
-                vals = vals.astype("datetime64[us]")
-            out[f.name] = np.ma.MaskedArray(vals, mask=~valid)
-        return out
+        return {f.name: _numpy_values(vals, valid, f.dtype)
+                for f, (vals, valid) in zip(schema.fields, cols)}
 
     def collect(self) -> list:
         """Rows as dicts, nulls as None (the reference's collect)."""
@@ -577,21 +612,9 @@ class DataFrame:
 
     def collect_arrow(self):
         import pyarrow as pa
-        from ..types import to_arrow
         schema, cols = self._collect_columns()
-        arrays = []
-        for f, (vals, valid) in zip(schema.fields, cols):
-            if isinstance(f.dtype, ArrayType):
-                arr = vals.to_arrow(valid, f.dtype.element)
-            elif f.dtype == DATE:
-                arr = pa.array(vals.astype(np.int32), mask=~valid,
-                               type=pa.int32()).cast(pa.date32())
-            elif f.dtype == TIMESTAMP:
-                arr = pa.array(vals.astype(np.int64), mask=~valid,
-                               type=pa.int64()).cast(to_arrow(f.dtype))
-            else:
-                arr = pa.array(vals, mask=~valid, type=to_arrow(f.dtype))
-            arrays.append(arr)
+        arrays = [_arrow_values(vals, valid, f.dtype)
+                  for f, (vals, valid) in zip(schema.fields, cols)]
         return pa.Table.from_arrays(arrays, names=schema.names())
 
     def to_pandas(self):

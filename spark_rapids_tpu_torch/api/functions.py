@@ -15,9 +15,10 @@ from ..exprs import datetime_fns as DT
 from ..exprs import hash_fns as HF
 from ..exprs import math_fns as M
 from ..exprs import nondeterministic as ND
-from ..exprs.aggregates import (Average, Count, CountStar, First, Last,
-                                Max, Min, StddevPop, StddevSamp, Sum,
-                                VariancePop, VarianceSamp)
+from ..exprs.aggregates import (Average, CollectList, CollectSet, Count,
+                                CountStar, First, Last, Max, MaxBy, Min,
+                                MinBy, Percentile, StddevPop, StddevSamp,
+                                Sum, VariancePop, VarianceSamp)
 from ..types import (BOOL, DATE, FLOAT32, FLOAT64, INT8, INT16, INT32, INT64,
                      STRING, TIMESTAMP, DataType)
 
@@ -49,7 +50,11 @@ __all__ = ["Col", "col", "lit", "asc", "desc", "when", "coalesce",
            "slice", "array_reverse", "array", "sequence", "transform",
            "filter", "exists", "forall", "aggregate", "zip_with",
            "explode", "explode_outer", "posexplode", "posexplode_outer",
-           "stack"]
+           "stack", "struct", "named_struct", "get_field", "create_map",
+           "map_keys", "map_values", "map_entries", "map_concat",
+           "map_from_arrays", "transform_keys", "transform_values",
+           "map_filter", "collect_list", "collect_set", "min_by", "max_by",
+           "percentile"]
 
 
 def _to_expr(v) -> E.Expression:
@@ -389,6 +394,11 @@ def stddev(c): return StddevSamp(_to_expr(c))
 def stddev_pop(c): return StddevPop(_to_expr(c))
 def var_samp(c): return VarianceSamp(_to_expr(c))
 def var_pop(c): return VariancePop(_to_expr(c))
+def collect_list(c): return CollectList(_to_expr(c))
+def collect_set(c): return CollectSet(_to_expr(c))
+def min_by(c, ordering): return MinBy(_to_expr(c), _to_expr(ordering))
+def max_by(c, ordering): return MaxBy(_to_expr(c), _to_expr(ordering))
+def percentile(c, p: float): return Percentile(_to_expr(c), p)
 
 
 stddev_samp = stddev
@@ -429,6 +439,28 @@ def sequence(start, stop, step=None) -> Col:
                           _to_expr(step) if step is not None else None))
 
 
+# --- structs and maps (exprs/collection_fns.py) -----------------------------
+def struct(*cols) -> Col:
+    """A struct of ``cols``, each field named as its column is."""
+    pairs = []
+    for c in cols:
+        pairs.append(E.Literal(c.expr.name_hint if isinstance(c, Col)
+                               else str(c)))
+        pairs.append(_to_expr(c))
+    return Col(E.CreateNamedStruct(*pairs))
+def named_struct(*name_col_pairs) -> Col:
+    return Col(E.CreateNamedStruct(*map(_to_expr, name_col_pairs)))
+def get_field(c, name: str) -> Col:
+    return Col(E.GetStructField(_to_expr(c), name))
+def create_map(*cols) -> Col: return Col(E.CreateMap(*map(_to_expr, cols)))
+def map_keys(c) -> Col: return Col(E.MapKeys(_to_expr(c)))
+def map_values(c) -> Col: return Col(E.MapValues(_to_expr(c)))
+def map_entries(c) -> Col: return Col(E.MapEntries(_to_expr(c)))
+def map_concat(*cols) -> Col: return Col(E.MapConcat(*map(_to_expr, cols)))
+def map_from_arrays(keys, values) -> Col:
+    return Col(E.MapFromArrays(_to_expr(keys), _to_expr(values)))
+
+
 # --- higher-order functions (exprs/higher_order.py) -------------------------
 def _make_lambda(fn, hints, min_args=1):
     """A Python callable over Cols -> (its variables, its body); the arity
@@ -459,6 +491,15 @@ def aggregate(c, initial, merge, finish=None) -> Col:
 def zip_with(a, b, fn) -> Col:
     return Col(E.ZipWith(_to_expr(a), _to_expr(b),
                          *_make_lambda(fn, ["x", "y"], min_args=2)))
+def transform_keys(c, fn) -> Col:
+    return Col(E.TransformKeys(_to_expr(c),
+                               *_make_lambda(fn, ["k", "v"], min_args=2)))
+def transform_values(c, fn) -> Col:
+    return Col(E.TransformValues(_to_expr(c),
+                                 *_make_lambda(fn, ["k", "v"], min_args=2)))
+def map_filter(c, fn) -> Col:
+    return Col(E.MapFilter(_to_expr(c),
+                           *_make_lambda(fn, ["k", "v"], min_args=2)))
 
 
 # --- generators, planned as Generate by DataFrame.select --------------------

@@ -8,7 +8,11 @@ host->device copy per column. Batches are not padded to shape buckets:
 batches carried across from the reference (``batch_from_reference``).
 A list column is a ``HostList`` on the host (from numpy offsets, Python
 lists or an Arrow ListArray) and a ``ListColumn`` rectangle on the
-device (columnar/nested.py).
+device; a map column a ``HostMap`` (numpy offsets, Python dicts or lists
+of (key, value) pairs, an Arrow MapArray) and a ``MapColumn``; a struct
+column a ``HostStruct`` (a ``HostTable`` of its fields, Python dicts, an
+Arrow StructArray) and a ``StructColumn`` of its fields' device columns
+(columnar/nested.py).
 """
 from __future__ import annotations
 
@@ -20,15 +24,18 @@ import torch
 
 from ..types import (DATE, NESTED_REST, STRING, TIMESTAMP, ArrayType,
                      MapType, Schema, StructField, StructType,
-                     device_list_ok, from_arrow, from_numpy_dtype)
+                     device_list_ok, from_arrow, from_numpy_dtype,
+                     nested_reason)
 from .column import DeviceColumn, DictColumn, HostColumn
 from .column import to_device as _to_device
-from .nested import HostList, ListColumn, concat_lists, to_device_list
+from .nested import (HostList, HostMap, HostStruct, ListColumn, MapColumn,
+                     StructColumn, concat_lists, concat_maps, slice_rows,
+                     to_device_list, to_device_map)
 from .strrect import (ByteRectColumn, HostStrings, encode_string_rect,
                       utf8_bytes)
 
 __all__ = ["ColumnarBatch", "HostTable", "DictStrings",
-           "batch_from_reference",
+           "batch_from_reference", "py_column",
            "concat_batches", "dict_limit", "rect_to_dict", "dict_to_rect",
            "union_dictionary", "to_dictionary", "pad_rect",
            "DICT_ENCODE_MAX_FRACTION", "DICT_ENCODE_MAX_CARD"]
@@ -120,8 +127,8 @@ def _unique_strings(hs: HostStrings):
 
 
 def _concat_values(parts: list) -> object:
-    if isinstance(parts[0], HostList):
-        return HostList.concat(parts)
+    if isinstance(parts[0], (HostList, HostMap, HostStruct)):
+        return type(parts[0]).concat(parts)
     if all(isinstance(p, DictStrings) for p in parts):
         return DictStrings.concat(parts)
     if any(isinstance(p, (DictStrings, HostStrings)) for p in parts):
@@ -136,7 +143,8 @@ class HostTable:
     Values hold the device representation (DATE as int32 days, TIMESTAMP
     as int64 microseconds); strings stay ``S``/``U``/object arrays, or
     ``HostStrings``/``DictStrings`` from a Parquet file; a list column is
-    a ``HostList``, its validity the rows'."""
+    a ``HostList``, a map column a ``HostMap`` and a struct column a
+    ``HostStruct``, each with the rows' validity."""
 
     def __init__(self, columns: Dict[str, Tuple[np.ndarray, np.ndarray]],
                  schema: Schema):
@@ -147,17 +155,18 @@ class HostTable:
 
     @staticmethod
     def from_dict(data: dict) -> "HostTable":
-        """Columns from numpy arrays (masked arrays give NULLs), a
-        ``HostList`` (every row valid) or a (``HostList``, row validity)
-        pair, or an object array of Python lists (NULL rows and elements
-        as None)."""
+        """Columns from numpy arrays (masked arrays give NULLs); a
+        ``HostList``, ``HostMap`` or ``HostStruct`` (every row valid) or
+        such a (column, row validity) pair; or an object array (or list)
+        of Python values, NULL rows and elements as None: lists, maps as
+        lists of (key, value) tuples or as dicts of non-string keys,
+        structs as dicts of string keys."""
         cols, fields = {}, []
         for name, v in data.items():
-            lst = _as_host_list(v)
-            if lst is not None:
-                cols[name] = lst
-                fields.append(StructField(name, ArrayType(lst[0].element),
-                                          True))
+            nested = _as_host_nested(v)
+            if nested is not None:
+                cols[name] = nested
+                fields.append(StructField(name, _host_type(nested[0]), True))
                 continue
             valid = None
             if isinstance(v, np.ma.MaskedArray):
@@ -190,10 +199,11 @@ class HostTable:
             valid = ~np.asarray(col.is_null())
             if isinstance(dt, ArrayType):
                 v, valid = HostList.from_arrow(col)
-            elif isinstance(dt, (MapType, StructType)):
-                raise NotImplementedError(
-                    f"column {name}: {dt.name} columns arrive with "
-                    f"{NESTED_REST}")
+            elif isinstance(dt, MapType):
+                v, valid = HostMap.from_arrow(col)
+            elif isinstance(dt, StructType):
+                v, valid = HostStruct.from_arrow(col)
+                dt = v.dtype
             elif dt.device_backed:
                 if dt == DATE:
                     col = col.cast(pa.int32())
@@ -236,19 +246,58 @@ class HostTable:
                          self.schema)
 
 
-def _as_host_list(v):
-    """(HostList, row validity) when ``v`` is a list column (module doc
-    of ``from_dict``), else None."""
-    if isinstance(v, tuple) and len(v) == 2 and isinstance(v[0], HostList):
+_HOST_NESTED = (HostList, HostMap, HostStruct)
+
+
+def _host_type(v):
+    return ArrayType(v.element) if isinstance(v, HostList) else v.dtype
+
+
+def _is_pair(x) -> bool:
+    return isinstance(x, tuple) and len(x) == 2
+
+
+def _as_host_nested(v):
+    """(HostList, HostMap or HostStruct, row validity) when ``v`` is a
+    nested column (module doc of ``from_dict``), else None."""
+    if isinstance(v, tuple) and len(v) == 2 and isinstance(v[0],
+                                                           _HOST_NESTED):
         return v[0], np.asarray(v[1], bool)
-    if isinstance(v, HostList):
+    if isinstance(v, _HOST_NESTED):
         return v, np.ones(len(v), bool)
     if isinstance(v, np.ndarray) and v.dtype != object:
         return None
-    if isinstance(v, (list, np.ndarray)) and any(x is not None for x in v) \
-            and all(x is None or isinstance(x, (list, tuple)) for x in v):
+    if not isinstance(v, (list, np.ndarray)):
+        return None
+    rows = [x for x in v if x is not None]
+    if not rows:
+        return None
+    if all(isinstance(x, dict) for x in rows):
+        if all(isinstance(k, str) for x in rows for k in x):
+            return HostStruct.from_pylist(list(v))
+        return HostMap.from_pylist(list(v))
+    if all(isinstance(x, (list, tuple)) for x in rows):
+        elems = [e for x in rows for e in x]
+        if elems and all(_is_pair(e) for e in elems):
+            return HostMap.from_pylist(list(v))
         return HostList.from_pylist(list(v))
     return None
+
+
+def py_column(values: list):
+    """A column of ``from_dict`` from Python values (None for NULL):
+    nested values as ``_as_host_nested`` takes them, numbers as a masked
+    numpy array of their type, strings as an object array."""
+    nested = _as_host_nested(values)
+    if nested is not None:
+        return nested
+    present = [x for x in values if x is not None]
+    kind = np.asarray(present).dtype if present else np.dtype(np.int64)
+    if kind.kind in "OUS":
+        return np.array(values, dtype=object)
+    fill = kind.type(0) if kind.kind != "M" else np.datetime64(0, "D")
+    data = np.array([fill if x is None else x for x in values], kind)
+    return np.ma.MaskedArray(data, mask=[x is None for x in values])
 
 
 def _row_hashes(s: np.ndarray) -> np.ndarray:
@@ -362,6 +411,29 @@ def _encode_string(values, valid, n, rect_cap):
     return ("host", strs)
 
 
+def _nested_to_device(f: StructField, values, valid: np.ndarray, device,
+                      rect_cap: int):
+    """A map or struct host column on ``device``: a map as its two list
+    rectangles, a struct as its fields' columns, each laid out as ingest
+    lays out a column of its type. Refused, naming the queue, where the
+    type or a field has no device column."""
+    r = nested_reason(f.dtype)
+    if r:
+        raise NotImplementedError(f"column {f.name}: {r}")
+    if isinstance(f.dtype, MapType):
+        return to_device_map(values, valid, f.dtype, device,
+                             f"column {f.name}")
+    kids = ColumnarBatch.from_host(values.table, device, rect_cap,
+                                   encode=False)
+    for sf, c in zip(f.dtype.fields, kids.columns):
+        if isinstance(c, HostColumn):
+            raise NotImplementedError(
+                f"column {f.name}: field {sf.name} holds strings past the "
+                f"byte rectangle's {rect_cap} bytes; a struct of host "
+                f"strings arrives with {NESTED_REST}")
+    return StructColumn(kids.columns, _to_device(valid, device), f.dtype)
+
+
 class ColumnarBatch:
     __slots__ = ("columns", "num_rows", "schema", "partition_id")
 
@@ -406,7 +478,7 @@ class ColumnarBatch:
         t0 = time.perf_counter()
         n = table.num_rows
         cols: List = [None] * len(table.schema)
-        staged, pairs, rects, lists = [], [], [], []
+        staged, pairs, rects, lists, nested = [], [], [], [], []
         for i, f in enumerate(table.schema.fields):
             values, valid = table.columns[f.name]
             if f.dtype.device_backed:
@@ -417,6 +489,8 @@ class ColumnarBatch:
                 pairs.append((d, valid))
             elif device_list_ok(f.dtype):
                 lists.append((i, values, valid))
+            elif isinstance(f.dtype, (MapType, StructType)):
+                nested.append((i, values, valid))
             elif f.dtype == STRING:
                 enc = _encode_string(values, valid, n, rect_cap)
                 if enc[0] == "dict":
@@ -450,6 +524,9 @@ class ColumnarBatch:
             f = table.schema.fields[i]
             cols[i] = to_device_list(values, valid, f.dtype, device,
                                      f"column {f.name}")
+        for i, values, valid in nested:
+            cols[i] = _nested_to_device(table.schema.fields[i], values,
+                                        valid, device, rect_cap)
         if timings is not None:
             if torch.device(device).type == "cuda":
                 torch.cuda.synchronize(device)
@@ -464,16 +541,8 @@ class ColumnarBatch:
         end = offset + length
         cols: List = []
         for c in self.columns:
-            if isinstance(c, ByteRectColumn):
-                cols.append(ByteRectColumn(c.data[offset:end],
-                                           c.validity[offset:end],
-                                           c.lengths[offset:end],
-                                           c.ascii_only))
-            elif isinstance(c, ListColumn):
-                cols.append(c.slice(offset, end))
-            elif isinstance(c, DeviceColumn):
-                cols.append(c.with_arrays(c.data[offset:end],
-                                          c.validity[offset:end]))
+            if isinstance(c, DeviceColumn):
+                cols.append(slice_rows(c, offset, end))
             else:
                 cols.append(HostColumn(c.values[offset:end],
                                        c.validity[offset:end], c.dtype))
@@ -495,9 +564,21 @@ def batch_from_reference(columns: Sequence[dict], schema: Schema, device,
     ``dictionary`` (DictColumn) or ``lengths`` (ByteRectColumn, whose
     rectangle is ``bytes_``, or ``data`` as the reference stores it).
     Padding rows are kept, with validity False; ``num_rows`` is the
-    reference batch's row count (default: every row)."""
+    reference batch's row count (default: every row). A list, map or
+    struct column, which the reference keeps on its host as Arrow, is
+    given as ``arrow`` (its Arrow array) and laid out as ingest lays it
+    out, padding rows NULL."""
+    padded = next((len(c["validity"]) for c in columns if "validity" in c),
+                  None)
+    if padded is None:
+        # every column is Arrow (or there are none): its length is the
+        # batch's, padding included
+        padded = next((len(c["arrow"]) for c in columns), num_rows)
     cols = []
     for c, f in zip(columns, schema.fields):
+        if "arrow" in c:
+            cols.append(_arrow_column(c["arrow"], f, device, padded))
+            continue
         data = np.asarray(c["bytes_"] if "bytes_" in c else c["data"])
         valid = np.asarray(c["validity"], bool)
         if "lengths" in c:
@@ -516,8 +597,24 @@ def batch_from_reference(columns: Sequence[dict], schema: Schema, device,
                 _to_device(data.astype(f.dtype.np_dtype), device),
                 _to_device(valid, device), f.dtype))
     if num_rows is None:
-        num_rows = len(np.asarray(columns[0]["validity"])) if columns else 0
+        if padded is None:
+            raise ValueError("batch_from_reference: a batch of no columns "
+                             "needs num_rows")
+        num_rows = padded
     return ColumnarBatch(cols, num_rows, schema)
+
+
+def _arrow_column(arr, f: StructField, device, padded: Optional[int]):
+    """One Arrow column, padded with NULL rows to ``padded``, as ingest
+    lays it out on ``device``."""
+    import pyarrow as pa
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    if padded is not None and padded > len(arr):
+        arr = pa.concat_arrays([arr, pa.nulls(padded - len(arr), arr.type)])
+    table = HostTable.from_arrow(pa.table({f.name: arr}))
+    return ColumnarBatch.from_host(table, device, 1 << 30,
+                                   encode=False).columns[0]
 
 
 def union_dictionary(dictionaries: Sequence[np.ndarray]) -> np.ndarray:
@@ -604,40 +701,50 @@ def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
     concatenate on the device; dictionary columns over the sorted union of
     their dictionaries; byte rectangles at the widest width; a string column
     in both layouts as one of them (``_concat_mixed``); list rectangles at
-    the widest W."""
+    the widest W; maps as their two rectangles; structs field by
+    field."""
     if not batches:
         raise ValueError("concat_batches needs at least one batch")
     if len(batches) == 1:
         return batches[0]
     schema = batches[0].schema
     rows = [b.num_rows for b in batches]
-    cols: List = []
-    for i, f in enumerate(schema.fields):
-        parts = [b.columns[i] for b in batches]
-        kinds = {type(p) for p in parts}
-        if kinds == {DictColumn}:
-            cols.append(_concat_dict(parts, rows))
-        elif kinds == {ByteRectColumn}:
-            cols.append(_concat_rect(parts, rows))
-        elif kinds == {ListColumn}:
-            cols.append(concat_lists(parts, rows))
-        elif kinds == {DeviceColumn}:
-            cols.append(DeviceColumn(
-                torch.cat([p.data[:n] for p, n in zip(parts, rows)]),
-                torch.cat([p.validity[:n] for p, n in zip(parts, rows)]),
-                f.dtype))
-        elif kinds == {DictColumn, ByteRectColumn}:
-            cols.append(_concat_mixed(parts, rows))
-        elif kinds == {HostColumn}:
-            cols.append(HostColumn(
-                np.concatenate([p.values[:n] for p, n in zip(parts, rows)]),
-                np.concatenate([p.validity[:n] for p, n in zip(parts,
-                                                               rows)]),
-                f.dtype))
-        else:
-            raise NotImplementedError(
-                f"column {f.name} arrives in different layouts "
-                f"({sorted(k.__name__ for k in kinds)}); concatenating "
-                "host strings with device strings arrives with the strings "
-                "slice")
+    cols = [_concat_column([b.columns[i] for b in batches], rows, f)
+            for i, f in enumerate(schema.fields)]
     return ColumnarBatch(cols, sum(rows), schema)
+
+
+def _concat_column(parts: List, rows: List[int], f: StructField):
+    """One column's parts (``rows`` each) in one column."""
+    kinds = {type(p) for p in parts}
+    if kinds == {DictColumn}:
+        return _concat_dict(parts, rows)
+    if kinds == {ByteRectColumn}:
+        return _concat_rect(parts, rows)
+    if kinds == {ListColumn}:
+        return concat_lists(parts, rows)
+    if kinds == {MapColumn}:
+        return concat_maps(parts, rows)
+    if kinds == {StructColumn}:
+        return StructColumn(
+            [_concat_column([p.children[k] for p in parts], rows, sf)
+             for k, sf in enumerate(f.dtype.fields)],
+            torch.cat([p.validity[:n] for p, n in zip(parts, rows)]),
+            f.dtype)
+    if kinds == {DeviceColumn}:
+        return DeviceColumn(
+            torch.cat([p.data[:n] for p, n in zip(parts, rows)]),
+            torch.cat([p.validity[:n] for p, n in zip(parts, rows)]),
+            f.dtype)
+    if kinds == {DictColumn, ByteRectColumn}:
+        return _concat_mixed(parts, rows)
+    if kinds == {HostColumn}:
+        return HostColumn(
+            np.concatenate([p.values[:n] for p, n in zip(parts, rows)]),
+            np.concatenate([p.validity[:n] for p, n in zip(parts, rows)]),
+            f.dtype)
+    raise NotImplementedError(
+        f"column {f.name} arrives in different layouts "
+        f"({sorted(k.__name__ for k in kinds)}); concatenating "
+        "host strings with device strings arrives with the strings "
+        "slice")

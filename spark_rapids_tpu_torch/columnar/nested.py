@@ -1,4 +1,4 @@
-"""Device list columns as rectangles (port of
+"""Device list, map and struct columns (port of
 ``spark_rapids_tpu/columnar/nested.py``).
 
 An ARRAY of a fixed-width element lives on the device as
@@ -17,10 +17,30 @@ On the host a list column is a ``HostList``: int64 ``offsets`` into flat
 ``values`` and their ``elem_valid`` (the numpy form of an Arrow
 ListArray), beside the table's row validity. Ingest copies the flat
 values and offsets and builds the rectangle on the device; the way back
-is one packed copy of the rectangle a column, compacted on the host.
+compacts the rectangle's slots on the device and brings them, the
+lengths and the row validity back in one packed copy a column.
 A list longer than the widest bucket, or a batch of more than 2^26
 element slots, is refused at ingest (``NESTED_REST``): the port has no
 host engine to keep it on.
+
+A MAP is what Arrow and Spark make it, a list of ``struct<key, value>``:
+a ``MapColumn`` is two list rectangles, the keys' and the values', over
+one ``lengths`` and one row validity (keys are never NULL). The same
+layout typed ``array<struct<key, value>>`` is ``map_entries``' result.
+On the host a ``HostMap`` is the two ``HostList``s over one offsets.
+
+A STRUCT is its fields' device columns (numbers, dates, dictionary or
+byte-rectangle strings, lists, maps, structs) and a row validity: a
+``StructColumn``. A field keeps its own validity; a NULL struct row
+does not null its fields' slots, ``get_field`` does (exprs/). On the
+host a ``HostStruct`` is a ``HostTable`` of its fields.
+
+Every device column is a list of tensors a row (``parts``) and a
+``meta`` to rebuild it from them (``from_parts``): rows of any column
+move by moving each tensor (``take_rows``, ``slice_rows``, ``null_rows``),
+a spilled batch keeps the tensors and the meta (mem/spillable.py), and
+a struct comes back to the host in one packed copy
+(``to_host_column``).
 """
 from __future__ import annotations
 
@@ -29,12 +49,16 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..types import (NESTED_REST, ArrayType, DATE, DataType, TIMESTAMP,
-                     from_numpy_dtype, torch_dtype)
-from .column import DeviceColumn, packed_to_host, to_device
+from ..types import (NESTED_REST, ArrayType, DATE, DataType, MapType,
+                     StructType, TIMESTAMP, from_numpy_dtype, map_parts,
+                     torch_dtype)
+from .column import DeviceColumn, DictColumn, packed_to_host, to_device
 
 __all__ = ["ListColumn", "HostList", "WIDTH_BUCKETS", "MAX_ELEMENT_SLOTS",
-           "width_bucket", "list_column", "pad_list"]
+           "width_bucket", "list_column", "pad_list", "MapColumn",
+           "StructColumn", "HostMap", "HostStruct", "map_column", "parts",
+           "from_parts", "take_rows", "slice_rows", "null_rows",
+           "to_host_column", "concat_maps", "zero_rows"]
 
 #: list widths snap to this ladder (the reference's)
 WIDTH_BUCKETS = (4, 8, 16, 32, 64, 128, 256)
@@ -162,15 +186,7 @@ class HostList:
                 f"a list of {element.name} has no device layout; it "
                 f"arrives with {NESTED_REST}")
         valid = ~np.asarray(arr.is_null())
-        flat = arr.values
-        ev = ~np.asarray(flat.is_null())
-        if element == DATE:
-            flat = flat.cast(pa.int32())
-        elif element == TIMESTAMP:
-            flat = flat.cast(pa.int64())
-        fill = False if element.np_dtype == np.bool_ else 0
-        vals = flat.fill_null(fill).to_numpy(zero_copy_only=False) \
-            .astype(element.np_dtype, copy=False)
+        vals, ev = _flat_values(arr.values, element)
         return HostList(np.asarray(arr.offsets), vals, ev, element), valid
 
     def to_pylist(self, valid: np.ndarray, element: DataType) -> list:
@@ -197,6 +213,21 @@ class HostList:
         return f"HostList(rows={len(self)}, elements={len(self.values)})"
 
 
+def _flat_values(flat, element: DataType):
+    """(values in the device representation, validity) of a flat Arrow
+    array of a fixed-width ``element``."""
+    import pyarrow as pa
+    ev = ~np.asarray(flat.is_null())
+    if element == DATE:
+        flat = flat.cast(pa.int32())
+    elif element == TIMESTAMP:
+        flat = flat.cast(pa.int64())
+    fill = False if element.np_dtype == np.bool_ else 0
+    vals = flat.fill_null(fill).to_numpy(zero_copy_only=False) \
+        .astype(element.np_dtype, copy=False)
+    return vals, ev
+
+
 class ListColumn(DeviceColumn):
     """A list column on the device in the rectangle layout (module doc)."""
 
@@ -220,34 +251,38 @@ class ListColumn(DeviceColumn):
 
     def with_arrays(self, data, validity):
         raise TypeError("ListColumn rows move with their element validity "
-                        "and lengths: use gather()")
-
-    def gather(self, idx: torch.Tensor) -> "ListColumn":
-        return ListColumn(self.data[idx], self.validity[idx], self.dtype,
-                          self.elem_valid[idx], self.lengths[idx])
-
-    def slice(self, start: int, stop: int) -> "ListColumn":
-        return ListColumn(self.data[start:stop], self.validity[start:stop],
-                          self.dtype, self.elem_valid[start:stop],
-                          self.lengths[start:stop])
+                        "and lengths: use take_rows()")
 
     def to_numpy(self, num_rows: int) -> Tuple[HostList, np.ndarray]:
         """(HostList, row validity) of the first ``num_rows`` rows: the
-        rectangle comes back in one packed copy and is compacted here."""
+        slots inside each row, compacted on the device, come back in one
+        packed copy with the lengths and the row validity."""
         n = num_rows
+        inside, lens = _inside(self.lengths[:n], self.validity[:n],
+                               self.width)
         vals, ev, lens, rv = packed_to_host([
-            self.data[:n], self.elem_valid[:n], self.lengths[:n],
+            self.data[:n][inside], self.elem_valid[:n][inside], lens,
             self.validity[:n]])
-        lens = np.where(rv, lens, 0).astype(np.int64)
-        inside = np.arange(self.width)[None, :] < lens[:, None]
-        offsets = np.zeros(n + 1, np.int64)
-        np.cumsum(lens, out=offsets[1:])
-        return HostList(offsets, vals[inside], ev[inside],
-                        self.dtype.element), rv
+        return HostList(_offsets(lens), vals, ev, self.dtype.element), rv
 
     def __repr__(self):
         return (f"ListColumn({self.dtype.element.name}[{self.width}], "
                 f"padded={self.padded_len})")
+
+
+def _inside(lengths: torch.Tensor, validity: torch.Tensor, width: int):
+    """(the slots inside each row [n, width], each row's length: 0 for a
+    NULL row), on the device."""
+    lens = torch.where(validity, lengths, 0)
+    inside = torch.arange(width, device=lens.device)[None, :] \
+        < lens[:, None]
+    return inside, lens
+
+
+def _offsets(lens: np.ndarray) -> np.ndarray:
+    offsets = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    return offsets
 
 
 def list_column(values: torch.Tensor, elem_valid: torch.Tensor,
@@ -322,9 +357,447 @@ def to_device_list(hl: HostList, valid: np.ndarray, dtype: ArrayType,
 def concat_lists(parts: List[ListColumn], rows: List[int]) -> ListColumn:
     """List columns' first ``rows`` rows, in order, at the widest W."""
     w = max(p.width for p in parts)
-    parts = [pad_list(p.slice(0, n), w) for p, n in zip(parts, rows)]
+    parts = [pad_list(slice_rows(p, 0, n), w) for p, n in zip(parts, rows)]
     return ListColumn(torch.cat([p.data for p in parts]),
                       torch.cat([p.validity for p in parts]),
                       parts[0].dtype,
                       torch.cat([p.elem_valid for p in parts]),
                       torch.cat([p.lengths for p in parts]))
+
+
+# ---------------------------------------------------------------------------
+# maps: two list rectangles over one lengths and row validity
+# ---------------------------------------------------------------------------
+
+def _key_value_types(dtype: DataType):
+    kv = map_parts(dtype)
+    if kv is None:
+        raise TypeError(f"{dtype.name} is not a map")
+    return kv
+
+
+class HostMap:
+    """A host map column without its row validity: the keys' and the
+    values' ``HostList`` over one int64 ``offsets`` (n + 1). Keys are
+    never NULL; ``value_valid`` marks the values that are (all valid when
+    not given). Sliced like an array."""
+
+    __slots__ = ("keys", "values")
+
+    def __init__(self, offsets: np.ndarray, keys: np.ndarray,
+                 values: np.ndarray,
+                 value_valid: Optional[np.ndarray] = None,
+                 key_type: Optional[DataType] = None,
+                 value_type: Optional[DataType] = None):
+        self.keys = HostList(offsets, keys, None, key_type)
+        self.values = HostList(offsets, values, value_valid, value_type)
+
+    @staticmethod
+    def of(keys: HostList, values: HostList) -> "HostMap":
+        m = HostMap.__new__(HostMap)
+        m.keys, m.values = keys, values
+        return m
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    def __getitem__(self, sl: slice) -> "HostMap":
+        return HostMap.of(self.keys[sl], self.values[sl])
+
+    @property
+    def dtype(self) -> MapType:
+        return MapType(self.keys.element, self.values.element)
+
+    @property
+    def offsets(self) -> np.ndarray:
+        return self.keys.offsets
+
+    @property
+    def longest(self) -> int:
+        return self.keys.longest
+
+    @property
+    def nbytes(self) -> int:
+        return self.keys.nbytes + self.values.values.nbytes \
+            + self.values.elem_valid.nbytes
+
+    @staticmethod
+    def concat(parts: Sequence["HostMap"]) -> "HostMap":
+        return HostMap.of(HostList.concat([p.keys for p in parts]),
+                          HostList.concat([p.values for p in parts]))
+
+    @staticmethod
+    def from_pylist(rows, key_type: Optional[DataType] = None,
+                    value_type: Optional[DataType] = None):
+        """(HostMap, row validity) of Python maps: dicts or lists of
+        (key, value) pairs, None for a NULL row. A NULL key raises, as
+        Spark's does."""
+        items = [None if r is None else list(
+            r.items() if isinstance(r, dict) else r) for r in rows]
+        if any(k is None for r in items if r is not None for k, _ in r):
+            raise ValueError("Cannot use null as map key")
+        keys, valid = HostList.from_pylist(
+            [None if r is None else [k for k, _ in r] for r in items],
+            key_type)
+        values, _ = HostList.from_pylist(
+            [None if r is None else [v for _, v in r] for r in items],
+            value_type)
+        return HostMap.of(keys, values), valid
+
+    @staticmethod
+    def from_arrow(arr):
+        """(HostMap, row validity) of an Arrow MapArray."""
+        import pyarrow as pa
+        from ..types import from_arrow
+        if isinstance(arr, pa.ChunkedArray):
+            arr = arr.combine_chunks()
+        kt, vt = from_arrow(arr.type.key_type), from_arrow(arr.type.item_type)
+        if kt.np_dtype is None or vt.np_dtype is None:
+            raise NotImplementedError(
+                f"a map of {kt.name} keys and {vt.name} values has no device "
+                f"layout; it arrives with {NESTED_REST}")
+        valid = ~np.asarray(arr.is_null())
+        kv, _ = _flat_values(arr.keys, kt)
+        vv, vev = _flat_values(arr.items, vt)
+        return HostMap(np.asarray(arr.offsets), kv, vv, vev, kt, vt), valid
+
+    def to_pylist(self, valid: np.ndarray, entries: bool = False) -> list:
+        """Each row's (key, value) tuples (``entries``: ``{"key": k,
+        "value": v}`` dicts, as Arrow gives a list of structs), None for
+        a NULL row."""
+        ks = self.keys.to_pylist(valid, self.keys.element)
+        vs = self.values.to_pylist(valid, self.values.element)
+        if entries:
+            return [None if k is None else [{"key": a, "value": b}
+                                            for a, b in zip(k, v)]
+                    for k, v in zip(ks, vs)]
+        return [None if k is None else list(zip(k, v))
+                for k, v in zip(ks, vs)]
+
+    def to_arrow(self, valid: np.ndarray, dtype: DataType):
+        import pyarrow as pa
+        keys = self.keys.to_arrow(valid, self.keys.element)
+        vals = self.values.to_arrow(valid, self.values.element)
+        if isinstance(dtype, MapType):
+            return pa.MapArray.from_arrays(keys.offsets, keys.values,
+                                           vals.values,
+                                           mask=pa.array(~valid))
+        entries = pa.StructArray.from_arrays(
+            [keys.values, vals.values], ["key", "value"])
+        return pa.ListArray.from_arrays(keys.offsets, entries,
+                                        mask=pa.array(~valid))
+
+    def __repr__(self):
+        return f"HostMap(rows={len(self)}, entries={len(self.keys.values)})"
+
+
+class MapColumn(DeviceColumn):
+    """A map (or a map's entries) on the device: the keys' and the
+    values' ``ListColumn`` over one ``lengths`` and row validity (module
+    doc). ``data`` is the keys' rectangle."""
+
+    __slots__ = ("keys", "values")
+
+    def __init__(self, keys: ListColumn, values: ListColumn,
+                 dtype: DataType):
+        super().__init__(keys.data, keys.validity, dtype)
+        self.keys = keys
+        self.values = values
+
+    @property
+    def lengths(self) -> torch.Tensor:
+        return self.keys.lengths
+
+    @property
+    def width(self) -> int:
+        return self.keys.width
+
+    def nbytes(self) -> int:
+        v = self.values
+        return self.keys.nbytes() + v.data.numel() * v.data.element_size() \
+            + v.elem_valid.numel()
+
+    def with_arrays(self, data, validity):
+        raise TypeError("MapColumn rows move with their values and "
+                        "lengths: use take_rows()")
+
+    def to_numpy(self, num_rows: int) -> Tuple[HostMap, np.ndarray]:
+        """(HostMap, row validity) of the first ``num_rows`` rows: the
+        entries compacted on the device, one packed copy."""
+        n = num_rows
+        inside, lens = _inside(self.lengths[:n], self.validity[:n],
+                               self.width)
+        kd, vd, vev, lens, rv = packed_to_host([
+            self.keys.data[:n][inside], self.values.data[:n][inside],
+            self.values.elem_valid[:n][inside], lens, self.validity[:n]])
+        kt, vt = _key_value_types(self.dtype)
+        return HostMap(_offsets(lens), kd, vd, vev, kt, vt), rv
+
+    def __repr__(self):
+        return (f"MapColumn({self.dtype.name}[{self.width}], "
+                f"padded={self.padded_len})")
+
+
+def map_column(keys: torch.Tensor, key_valid: torch.Tensor,
+               values: torch.Tensor, value_valid: torch.Tensor,
+               lengths: torch.Tensor, validity: torch.Tensor,
+               dtype: DataType) -> MapColumn:
+    """A MapColumn in the canonical form of both rectangles
+    (``list_column``)."""
+    kt, vt = _key_value_types(dtype)
+    return MapColumn(
+        list_column(keys, key_valid, lengths, validity, ArrayType(kt)),
+        list_column(values, value_valid, lengths, validity, ArrayType(vt)),
+        dtype)
+
+
+def to_device_map(hm: HostMap, valid: np.ndarray, dtype: DataType, device,
+                  what: str = "a map column") -> MapColumn:
+    """A ``HostMap`` and its row validity as a MapColumn on ``device``
+    (the caps of ``to_device_list``)."""
+    kt, vt = _key_value_types(dtype)
+    return MapColumn(
+        to_device_list(hm.keys, valid, ArrayType(kt), device, what),
+        to_device_list(hm.values, valid, ArrayType(vt), device, what),
+        dtype)
+
+
+def concat_maps(parts: List[MapColumn], rows: List[int]) -> MapColumn:
+    """Map columns' first ``rows`` rows, in order, at the widest W."""
+    return MapColumn(concat_lists([p.keys for p in parts], rows),
+                     concat_lists([p.values for p in parts], rows),
+                     parts[0].dtype)
+
+
+# ---------------------------------------------------------------------------
+# structs: the fields' columns and a row validity
+# ---------------------------------------------------------------------------
+
+class HostStruct:
+    """A host struct column without its row validity: a ``HostTable`` of
+    its fields (each with its own validity). Sliced like an array."""
+
+    __slots__ = ("table",)
+
+    def __init__(self, table):
+        self.table = table
+
+    def __len__(self) -> int:
+        return self.table.num_rows
+
+    def __getitem__(self, sl: slice) -> "HostStruct":
+        start, stop, step = sl.indices(len(self))
+        assert step == 1, "a HostStruct slices by a range of rows"
+        return HostStruct(self.table.slice(start, max(stop - start, 0)))
+
+    @property
+    def dtype(self) -> StructType:
+        return StructType(self.table.schema.fields)
+
+    @property
+    def nbytes(self) -> int:
+        return self.table.nbytes
+
+    @staticmethod
+    def concat(parts: Sequence["HostStruct"]) -> "HostStruct":
+        from .batch import HostTable
+        return HostStruct(HostTable.concat([p.table for p in parts]))
+
+    @staticmethod
+    def from_pylist(rows):
+        """(HostStruct, row validity) of Python dicts (None for a NULL
+        row), each field typed from its values (module doc of
+        ``HostTable.from_dict``)."""
+        from .batch import HostTable, py_column
+        valid = np.array([r is not None for r in rows], bool)
+        names: List[str] = []
+        for r in rows:
+            for k in (r or {}):
+                if k not in names:
+                    names.append(k)
+        return HostStruct(HostTable.from_dict({
+            n: py_column([None if r is None else r.get(n) for r in rows])
+            for n in names})), valid
+
+    @staticmethod
+    def from_arrow(arr):
+        """(HostStruct, row validity) of an Arrow StructArray."""
+        import pyarrow as pa
+        from .batch import HostTable
+        if isinstance(arr, pa.ChunkedArray):
+            arr = arr.combine_chunks()
+        valid = ~np.asarray(arr.is_null())
+        names = [arr.type.field(i).name for i in range(arr.type.num_fields)]
+        kids = [arr.field(i) for i in range(arr.type.num_fields)]
+        if arr.offset:
+            kids = [k.slice(arr.offset, len(arr)) for k in kids]
+        return HostStruct(HostTable.from_arrow(
+            pa.Table.from_arrays(kids, names=names))), valid
+
+    def to_pylist(self, valid: np.ndarray) -> list:
+        from ..api.dataframe import _py_values
+        names = self.table.schema.names()
+        cols = [_py_values(*self.table.columns[n], f.dtype)
+                for n, f in zip(names, self.table.schema.fields)]
+        return [dict(zip(names, row)) if ok else None
+                for ok, row in zip(valid.tolist(), zip(*cols))] \
+            if cols else [{} if ok else None for ok in valid.tolist()]
+
+    def to_arrow(self, valid: np.ndarray, dtype: DataType):
+        import pyarrow as pa
+        from ..api.dataframe import _arrow_values
+        fields = self.table.schema.fields
+        kids = [_arrow_values(*self.table.columns[f.name], f.dtype)
+                for f in fields]
+        from ..types import to_arrow
+        return pa.StructArray.from_arrays(
+            kids, fields=[pa.field(f.name, to_arrow(f.dtype))
+                          for f in fields], mask=pa.array(~valid))
+
+    def __repr__(self):
+        return f"HostStruct(rows={len(self)}, {self.table.schema})"
+
+
+class StructColumn(DeviceColumn):
+    """A struct on the device: its fields' device columns and a row
+    validity (module doc). ``data`` is the validity itself, so the
+    column has a length and a device like any other."""
+
+    __slots__ = ("children",)
+
+    def __init__(self, children: Sequence, validity: torch.Tensor,
+                 dtype: StructType):
+        super().__init__(validity, validity, dtype)
+        self.children = list(children)
+
+    def nbytes(self) -> int:
+        return self.validity.numel() + sum(c.nbytes() for c in self.children)
+
+    def with_arrays(self, data, validity):
+        raise TypeError("StructColumn rows move with their fields: use "
+                        "take_rows()")
+
+    def to_numpy(self, num_rows: int) -> Tuple[HostStruct, np.ndarray]:
+        """(HostStruct, row validity) of the first ``num_rows`` rows,
+        through one packed copy of every field's tensors."""
+        from .batch import HostTable
+        from ..types import Schema
+        host = to_host_column(self, num_rows)
+        return HostStruct(HostTable(
+            {f.name: c.to_numpy(num_rows)
+             for f, c in zip(self.dtype.fields, host.children)},
+            Schema(self.dtype.fields))), host.validity.numpy()
+
+    def __repr__(self):
+        return (f"StructColumn({self.dtype.name}, "
+                f"padded={self.padded_len})")
+
+
+# ---------------------------------------------------------------------------
+# any device column as tensors a row and a meta
+# ---------------------------------------------------------------------------
+
+def parts(c) -> Tuple[List[torch.Tensor], tuple]:
+    """(the column's tensors, each with a row per row; a meta that
+    ``from_parts`` rebuilds the column from with its type)."""
+    from .strrect import ByteRectColumn
+    if isinstance(c, MapColumn):
+        k, v = c.keys, c.values
+        return [k.data, c.validity, k.elem_valid, v.data, v.elem_valid,
+                c.lengths], ("map",)
+    if isinstance(c, StructColumn):
+        tensors, metas = [c.validity], []
+        for child in c.children:
+            t, m = parts(child)
+            tensors += t
+            metas.append(m)
+        return tensors, ("struct", metas)
+    if isinstance(c, ListColumn):
+        return [c.data, c.validity, c.elem_valid, c.lengths], ("list",)
+    if isinstance(c, ByteRectColumn):
+        return [c.data, c.validity, c.lengths], ("rect", c.ascii_only)
+    if isinstance(c, DictColumn):
+        return [c.data, c.validity], ("dict", c.dictionary)
+    if isinstance(c, DeviceColumn):
+        return [c.data, c.validity], ("dev",)
+    raise NotImplementedError(
+        f"{c!r}: a host column inside a nested column arrives with "
+        f"{NESTED_REST}")
+
+
+def from_parts(meta: tuple, dtype: DataType, tensors):
+    """The column ``parts`` gave ``meta`` for, around the next tensors of
+    the iterator ``tensors``."""
+    from .strrect import ByteRectColumn
+    kind = meta[0]
+    if kind == "dev":
+        return DeviceColumn(next(tensors), next(tensors), dtype)
+    if kind == "dict":
+        return DictColumn(next(tensors), next(tensors), dtype, meta[1])
+    if kind == "rect":
+        d, v, ln = next(tensors), next(tensors), next(tensors)
+        return ByteRectColumn(d, v, ln, meta[1])
+    if kind == "list":
+        d, v, ev, ln = (next(tensors) for _ in range(4))
+        return ListColumn(d, v, dtype, ev, ln)
+    if kind == "map":
+        k, v, kev, vd, vev, ln = (next(tensors) for _ in range(6))
+        kt, vt = _key_value_types(dtype)
+        return MapColumn(ListColumn(k, v, ArrayType(kt), kev, ln),
+                         ListColumn(vd, v, ArrayType(vt), vev, ln), dtype)
+    v = next(tensors)
+    return StructColumn([from_parts(m, f.dtype, tensors)
+                         for m, f in zip(meta[1], dtype.fields)], v, dtype)
+
+
+def _rebuilt(c, fn):
+    tensors, meta = parts(c)
+    return from_parts(meta, c.dtype, iter([fn(t) for t in tensors]))
+
+
+def take_rows(c, idx: torch.Tensor):
+    """Rows ``idx`` (in range) of a device column of any kind."""
+    return _rebuilt(c, lambda t: t[idx])
+
+
+def slice_rows(c, start: int, stop: int):
+    return _rebuilt(c, lambda t: t[start:stop])
+
+
+def null_rows(c, keep: torch.Tensor):
+    """``c`` with the rows where ``keep`` is False NULL, in the layout's
+    canonical form: a NULL row's slots hold the dtype's default value (a
+    dictionary code 0, a rectangle row of zero bytes and length 0), a
+    NULL list or map row has length 0; a NULL struct row keeps its
+    fields' slots."""
+    if isinstance(c, MapColumn):
+        return map_column(c.keys.data, c.keys.elem_valid, c.values.data,
+                          c.values.elem_valid, c.lengths,
+                          c.validity & keep, c.dtype)
+    if isinstance(c, ListColumn):
+        return list_column(c.data, c.elem_valid, c.lengths,
+                           c.validity & keep, c.dtype)
+    if isinstance(c, StructColumn):
+        return StructColumn(c.children, c.validity & keep, c.dtype)
+    tensors, meta = parts(c)
+    valid = tensors[1] & keep
+    out = [torch.where(valid.reshape((-1,) + (1,) * (t.dim() - 1)), t,
+                       torch.zeros((), dtype=t.dtype, device=t.device))
+           for t in tensors]
+    out[1] = valid
+    return from_parts(meta, c.dtype, iter(out))
+
+
+def zero_rows(c, n: int):
+    """``n`` NULL rows in ``c``'s layout (every tensor zero)."""
+    return _rebuilt(c, lambda t: torch.zeros((n,) + tuple(t.shape[1:]),
+                                             dtype=t.dtype, device=t.device))
+
+
+def to_host_column(c, num_rows: int):
+    """The first ``num_rows`` rows of a device column as the same column
+    on the CPU, through one packed device-to-host copy."""
+    tensors, meta = parts(c)
+    host = packed_to_host([t[:num_rows] for t in tensors])
+    return from_parts(meta, c.dtype, iter([torch.from_numpy(a)
+                                           for a in host]))

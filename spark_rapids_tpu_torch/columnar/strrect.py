@@ -215,11 +215,8 @@ class ByteRectColumn(DeviceColumn):
                 + 4 * self.lengths.numel())
 
     def with_arrays(self, data, validity):
-        raise TypeError("ByteRectColumn rows move with their lengths")
-
-    def gather(self, idx: torch.Tensor) -> "ByteRectColumn":
-        return ByteRectColumn(self.data[idx], self.validity[idx],
-                              self.lengths[idx], self.ascii_only)
+        raise TypeError("ByteRectColumn rows move with their lengths: use "
+                        "columnar.nested.take_rows()")
 
     def to_numpy(self, num_rows: int):
         rect = self.data[:num_rows].cpu().numpy()

@@ -56,6 +56,26 @@ partitions instead, and each partition merges and finalizes alone
 (``_repartitioned_merge``): a group's rows all land in one partition.
 Finalize turns the codes back into a dictionary column whose dictionary
 is sorted, so that ORDER BY over a string key orders as the strings do.
+
+``collect_list``/``collect_set`` partials are list rectangles, one list a
+group (exprs/aggregates.py): partial columns of ``ListColumn``s, which
+concatenate, spill and split as any list column does. ``min_by``/
+``max_by`` partials are the value, the ordering and the row's position.
+An order statistic (``percentile``) keeps the count of a group's values
+as its partial and, beside the partials, a value stream: each batch's
+(keys, value) rows that hold a value, spillable. After the merge the
+stream is sorted by the keys, then the value, by the port's sort (in
+core, or out of core past ``batchSizeBytes``: exec/sort.py), so that a
+group's values lie in order however many batches it spanned; the merged
+groups come out in the same key order, so group g's values start where
+the counts of the groups before it end, and the two values at its ranks
+are picked from the sorted batches as they stream past (``_pick``); the
+stream's key at each group's first position is picked too and held to
+the group's key, so that a change to either order raises rather than
+giving a group another's values. The merged partials stay spillable
+while the streams sort. Past ``batchSizeBytes`` of partials, the
+partials and the value streams are hash-split on the keys alike, and
+each partition merges, sorts and picks alone.
 """
 from __future__ import annotations
 
@@ -68,19 +88,21 @@ import numpy as np
 import torch
 
 from ..columnar import (ByteRectColumn, ColumnarBatch, DeviceColumn,
-                        DictColumn)
+                        DictColumn, ListColumn)
+from ..columnar.nested import list_column
 from ..columnar.batch import (concat_batches, dict_limit, dict_to_rect,
                               rect_to_dict)
 from ..columnar.segmented import bucket_segments
 from ..config import BATCH_SIZE_BYTES
 from ..exprs.aggregates import (AggregateExpression, group_shift,
                                 less_shift)
-from ..exprs.base import Alias, ColumnRef, DVal, EvalContext, StrVal
+from ..exprs.base import (Alias, ColumnRef, DVal, EvalContext, ListVal,
+                          StrVal)
 from ..exprs.compiler import batch_device, batch_dvals
 from ..mem.retry import with_retry_no_split
 from ..mem.spillable import SpillableBatch
-from ..types import (BOOL, INT8, INT16, INT32, INT64, STRING, Schema,
-                     StructField, torch_dtype)
+from ..types import (BOOL, INT8, INT16, INT32, INT64, STRING, ArrayType,
+                     Schema, StructField, torch_dtype)
 from .base import ExecContext, TpuExec
 from .dense_groupby import (BUCKETS, MAX_COLS, dense_groupby, group_slots,
                             packed_ids)
@@ -153,6 +175,43 @@ def _value(v: DVal) -> DVal:
     return DVal(None, v.validity, v.dtype) if v.dtype == STRING else v
 
 
+def _agg_column(d, v, dtype) -> DeviceColumn:
+    """A partial or result column: a list rectangle for a ``ListVal``."""
+    if isinstance(d, ListVal):
+        return list_column(*d, v, dtype)
+    return DeviceColumn(d, v, dtype)
+
+
+def _pick(got: torch.Tensor, want: torch.Tensor, values: torch.Tensor,
+          base: int, m: int) -> torch.Tensor:
+    """``got`` with the entries whose position ``want`` falls in a sorted
+    batch of ``m`` rows starting at ``base`` taken from its ``values``."""
+    inb = (want >= base) & (want < base + m)
+    return torch.where(inb, values[(want - base).clamp(0, m - 1)], got)
+
+
+class _StreamSource(TpuExec):
+    """The spillable batches of an order statistic's value stream as an
+    exec, each taken back to the device and closed as it is read (the
+    sort over it wraps it again)."""
+
+    def __init__(self, spillables: List[SpillableBatch], schema: Schema):
+        super().__init__([])
+        self.spillables = spillables
+        self._schema = schema
+
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        for sb in self.spillables:
+            try:
+                b = sb.get()
+            finally:
+                sb.close()
+            yield b
+
+
 def _column_ref(e) -> Optional[str]:
     """The column name an expression passes through, else None."""
     if isinstance(e, Alias):
@@ -203,6 +262,16 @@ class TpuHashAggregateExec(TpuExec):
         #: it merged in one tree)
         self.last_repartitions = 0
         self._task_state: dict = {}
+        #: the order statistics (their ordinals) and, per distinct input
+        #: of theirs, its value stream's spillable batches
+        self._order_aggs = [i for i, a in enumerate(self.aggs)
+                            if getattr(a, "order_statistic", False)]
+        self._stream_keys = list(dict.fromkeys(
+            self.aggs[i].child.key() for i in self._order_aggs))
+        self._streams: Dict[str, List[SpillableBatch]] = {}
+        #: buckets of the latest execution's value-stream sorts (0: in
+        #: memory)
+        self.last_stream_buckets: List[int] = []
 
     def output_schema(self) -> Schema:
         return self._schema
@@ -230,16 +299,22 @@ class TpuHashAggregateExec(TpuExec):
                                  batch.padded_len, batch_device(batch),
                                  batch.partition_id, self._task_state)
 
-    def _finalize_aggs(self, merged) -> List[DeviceColumn]:
+    def _finalize_aggs(self, merged, picks=None) -> List[DeviceColumn]:
+        """The output columns from the merged partials; an order
+        statistic's from its count and the values ``picks`` holds for it
+        (``_order_stats``)."""
         out, pos = [], 0
         nkeys = len(self.groupings)
-        for a, types, f in zip(self.aggs, self._partial_types,
-                               self._schema.fields[nkeys:]):
+        for ai, (a, types, f) in enumerate(zip(
+                self.aggs, self._partial_types, self._schema.fields[nkeys:])):
             parts = [DVal(d, v, t) for (d, v), t
                      in zip(merged[pos:pos + len(types)], types)]
             pos += len(types)
-            final = a.finalize(parts)
-            out.append(DeviceColumn(final.data, final.validity, f.dtype))
+            if ai in self._order_aggs:
+                final = a.finalize_picked(parts[0].data, *picks[ai])
+            else:
+                final = a.finalize(parts)
+            out.append(_agg_column(final.data, final.validity, f.dtype))
         return out
 
     # -- string keys through the exec-local dictionary, or on bytes -------
@@ -496,11 +571,18 @@ class TpuHashAggregateExec(TpuExec):
         """One batch's partials (the partial schema, live column last);
         ``row_offset`` is the batch's first row's position in the input,
         ``srcs`` the string keys' columns (``_key_sources``)."""
+        return self._update_streams(batch, row_offset, srcs)[0]
+
+    def _update_streams(self, batch: ColumnarBatch, row_offset: int = 0,
+                        srcs: Optional[list] = None):
+        """``_update``'s partials and the batch's value streams' batches
+        (``_stream_batches``)."""
         if srcs is None:
             srcs = [self._key_column(i, batch) for i in self._dict_keys]
         ectx, keep = self._pre_stages(batch)
         vals = [[_value(e.eval_device(ectx)) for e in a.input_exprs()]
                 for a in self.aggs]
+        streams = self._stream_batches(srcs, ectx, keep, vals)
         ops = self._direct_operands(srcs, ectx) if self._dense_ok \
             else None
         dense = self._dense_update(ops, keep, vals) if ops is not None \
@@ -512,7 +594,197 @@ class TpuHashAggregateExec(TpuExec):
                 self._sort_keys(srcs, ectx), vals, self.aggs, "update",
                 keep, row_offset)
             live = torch.ones(n, dtype=torch.bool, device=keep.device)
-        return self._partial_batch(keys, partials, live)
+        return self._partial_batch(keys, partials, live), streams
+
+    def _stream_batches(self, srcs, ectx, keep, vals) -> list:
+        """Per value stream, the batch's rows that hold a value: their
+        keys as the sort path takes them (global codes) and the value."""
+        if not self._order_aggs:
+            return []
+        if self._rect_keys:
+            from ..types import NESTED_REST
+            raise NotImplementedError(
+                "an order statistic grouped by a string key of many "
+                "distinct values (grouped on its bytes) arrives with "
+                f"{NESTED_REST}")
+        keys = self._sort_keys(srcs, ectx) if self.groupings else []
+        out = []
+        for k in self._stream_keys:
+            ai = next(i for i in self._order_aggs
+                      if self.aggs[i].child.key() == k)
+            v = vals[ai][0]
+            idx = torch.nonzero(keep & v.validity, as_tuple=True)[0]
+            schema = Schema(
+                list(self._partial_schema.fields[:len(self.groupings)])
+                + [StructField("_v", v.dtype, False)])
+            cols = [DeviceColumn(d.data[idx], d.validity[idx], f.dtype)
+                    for d, f in zip(keys, schema.fields)]
+            cols.append(DeviceColumn(v.data[idx], v.validity[idx], v.dtype))
+            out.append(ColumnarBatch(cols, int(idx.shape[0]), schema))
+        return out
+
+    def _order_stats(self, ctx: ExecContext, merged_sb: SpillableBatch,
+                     streams: Dict[str, List[SpillableBatch]]):
+        """Per order statistic, its values at its two ranks in each group
+        of the merged partials (``merged_sb``, groups in key order): each
+        value stream sorted by the keys and then the value, and the wanted
+        positions picked from its batches as they pass. The merged
+        partials stay spillable while the streams sort; what is held on
+        the device meanwhile is a few values a group. Returns (picks, per
+        stream (counts, the stream's keys at each group's first position,
+        the stream's rows)) for ``_check_group_order``."""
+        from ..plan.logical import SortOrder
+        from .sort import TpuSortExec
+        nkeys = len(self.groupings)
+        pos, at = 0, {}
+        for ai, types in enumerate(self._partial_types):
+            at[ai] = nkeys + pos
+            pos += len(types)
+        mine = {k: [i for i in self._order_aggs
+                    if self.aggs[i].child.key() == k]
+                for k in self._stream_keys}
+
+        def plan():
+            with ctx.semaphore.held():
+                merged = merged_sb.get()
+                out = {}
+                for k, ais in mine.items():
+                    # a copy: the merged batch may spill meanwhile
+                    counts = merged.columns[at[ais[0]]].data.to(
+                        torch.int64, copy=True)
+                    start = torch.cumsum(counts, 0) - counts
+                    wanted = []
+                    for i in ais:
+                        lo, hi, _ = self.aggs[i].ranks(counts)
+                        wanted += [start + lo, start + hi]
+                    out[k] = (counts, start, torch.cat(wanted))
+                return out
+        plans = with_retry_no_split(plan, ctx=ctx, op="HashAggregate.merge")
+        picks, checks = {}, {}
+        for k, ais in mine.items():
+            counts, start, want = plans[k]
+            vt = self.aggs[ais[0]].child.data_type(self._eval_schema)
+            got = torch.zeros(want.shape, dtype=torch_dtype(vt),
+                              device=want.device)
+            keys_at = None
+            base = 0
+            if streams[k]:
+                schema = streams[k][0].schema
+                orders = [SortOrder(ColumnRef(f.name), True, False)
+                          for f in schema.fields]
+                sorter = TpuSortExec(orders,
+                                     _StreamSource(streams[k], schema))
+                for b in sorter.execute(ctx):
+                    m = b.num_rows
+                    if m:
+                        with ctx.semaphore.held():
+                            got = _pick(got, want, b.columns[-1].data, base,
+                                        m)
+                            if keys_at is None:
+                                keys_at = [(torch.zeros_like(
+                                    start, dtype=c.data.dtype),
+                                    torch.zeros_like(start, dtype=torch.bool))
+                                    for c in b.columns[:nkeys]]
+                            keys_at = [
+                                (_pick(d, start, c.data, base, m),
+                                 _pick(v, start, c.validity, base, m))
+                                for (d, v), c in zip(keys_at,
+                                                     b.columns[:nkeys])]
+                    base += m
+                self.last_stream_buckets.append(sorter.last_buckets)
+            checks[k] = (counts, keys_at, base)
+            G = counts.shape[0]
+            for j, i in enumerate(ais):
+                picks[i] = (got[2 * j * G:(2 * j + 1) * G],
+                            got[(2 * j + 1) * G:(2 * j + 2) * G])
+        return picks, checks
+
+    def _check_group_order(self, merged: ColumnarBatch, checks) -> None:
+        """Raise unless each value stream's sorted rows fall into the
+        merged groups as ``_order_stats`` assumed: the stream holds as many
+        rows as the counts add up to, and the key at each group's first
+        position is the group's key. Both orders are the keys ascending,
+        NULLs last (segmented_groupby's merge and the sort's SortOrder);
+        this holds them to it, one read of one flag."""
+        nkeys = len(self.groupings)
+        bad = None
+        for counts, keys_at, rows in checks.values():
+            flag = counts.sum() != rows
+            if keys_at is not None:
+                for c, (d, v) in zip(merged.columns[:nkeys], keys_at):
+                    same = (c.validity == v) & (~v | (c.data == d) | (
+                        torch.isnan(c.data) & torch.isnan(d)
+                        if d.is_floating_point() else False))
+                    flag = flag | ((counts > 0) & ~same).any()
+            bad = flag if bad is None else bad | flag
+        if bad is not None and bool(bad):
+            raise RuntimeError(
+                "an order statistic's sorted value stream and the merged "
+                "groups disagree on the groups' order: each group would "
+                "take another's values")
+
+    def _merge_order_stats(self, ctx: ExecContext,
+                           partials: List[SpillableBatch],
+                           streams: Dict[str, List[SpillableBatch]]
+                           ) -> ColumnarBatch:
+        """The merge of an aggregation holding an order statistic: the
+        partials into one spillable merged batch, the statistics' values
+        picked from the sorted streams, the groups' order checked, then
+        the finalize."""
+        merged_sb = self._merge(ctx, partials, finalize=False)
+        try:
+            picks, checks = self._order_stats(ctx, merged_sb, streams)
+
+            def finish():
+                with ctx.semaphore.held():
+                    merged = merged_sb.get()
+                    self._check_group_order(merged, checks)
+                    nkeys = len(self.groupings)
+                    keys = [(c.data, c.validity)
+                            for c in merged.columns[:nkeys]]
+                    parts = [(d.data, c.validity) for d, c in zip(
+                        batch_dvals(merged)[nkeys:-1],
+                        merged.columns[nkeys:-1])]
+                    return ColumnarBatch(
+                        self._decode_keys(keys)
+                        + self._finalize_aggs(parts, picks),
+                        merged.num_rows, self._schema)
+            return with_retry_no_split(finish, ctx=ctx,
+                                       op="HashAggregate.merge")
+        finally:
+            merged_sb.close()
+
+    def _order_stats_merge(self, ctx: ExecContext,
+                           partials: List[SpillableBatch],
+                           total: int) -> Iterator[ColumnarBatch]:
+        """``_merge_order_stats`` over all the partials and streams, or,
+        when the partials hold more than ``batchSizeBytes``, over each
+        partition of a hash split on the keys: the partials and the value
+        streams split alike, so a group's partials and values land in one
+        partition, which merges, sorts and picks alone. One output batch
+        a partition."""
+        if not self._split_merge(ctx, partials, total):
+            yield self._merge_order_stats(ctx, partials, self._streams)
+            return
+        n_parts = self._n_parts(ctx, total)
+        slots = self._hash_split(ctx, partials, n_parts)
+        held = [slots]
+        try:
+            split = {}
+            for k in self._stream_keys:
+                split[k] = self._hash_split(ctx, self._streams[k], n_parts)
+                held.append(split[k])
+            for p in range(n_parts):
+                if slots[p]:
+                    yield self._merge_order_stats(
+                        ctx, slots[p], {k: s[p] for k, s in split.items()})
+        finally:
+            # an error or an abandoned consumer: later partitions' slices
+            # must not outlive the query (close() is idempotent)
+            for got in held:
+                for slot in got:
+                    for sb in slot:
+                        sb.close()
 
     def _key_column_out(self, i: int, d, v) -> DeviceColumn:
         """A string key of rect key mode as a byte-rectangle column."""
@@ -522,7 +794,7 @@ class TpuHashAggregateExec(TpuExec):
 
     def _partial_batch(self, keys, partials, live) -> ColumnarBatch:
         cols = [self._key_column_out(i, d, v) if isinstance(d, StrVal)
-                else DeviceColumn(d, v, f.dtype) for i, ((d, v), f) in
+                else _agg_column(d, v, f.dtype) for i, ((d, v), f) in
                 enumerate(zip(keys + partials + [(live, live)],
                               self._partial_schema.fields))]
         return ColumnarBatch(cols, int(live.shape[0]), self._partial_schema)
@@ -530,6 +802,12 @@ class TpuHashAggregateExec(TpuExec):
     def _empty_partials(self, device) -> ColumnarBatch:
         def empty(f):
             v = torch.zeros(0, dtype=torch.bool, device=device)
+            if isinstance(f.dtype, ArrayType):
+                e = torch.zeros((0, 4), dtype=torch_dtype(f.dtype.element),
+                                device=device)
+                return ListColumn(e, v, f.dtype, e.bool(),
+                                  torch.zeros(0, dtype=torch.int32,
+                                              device=device))
             if f.dtype == STRING:
                 return ByteRectColumn(
                     torch.zeros((0, 8), dtype=torch.uint8, device=device), v,
@@ -545,18 +823,20 @@ class TpuHashAggregateExec(TpuExec):
         cols = big.columns
         nkeys = len(self.groupings)
         keys = batch_dvals(big)[:nkeys]
+        dvals = batch_dvals(big)
         vals, pos = [], nkeys
         for types in self._partial_types:
-            vals.append([DVal(cols[o].data, cols[o].validity, t)
+            vals.append([DVal(dvals[o].data, cols[o].validity, t)
                          for o, t in zip(range(pos, pos + len(types)),
                                          types)])
             pos += len(types)
         return segmented_groupby(keys, vals, self.aggs, "merge",
                                  cols[-1].data)
 
-    def _merge(self, ctx: ExecContext,
-               partials: List[SpillableBatch]) -> ColumnarBatch:
-        """Merge the partials into the final batch, closing every one
+    def _merge(self, ctx: ExecContext, partials: List[SpillableBatch],
+               finalize: bool = True):
+        """Merge the partials into the final batch (without ``finalize``:
+        into one spillable batch of merged partials), closing every one
         (ref ``_merge``, aggregate.py:1445-1565). While their rows add up
         to more than the cap (``batchSizeRows``, never below the largest
         partial), chunks of partials whose rows fit it merge into one
@@ -613,6 +893,11 @@ class TpuHashAggregateExec(TpuExec):
                     big = concat_batches([s.get() for s in level]) \
                         if level else self._empty_partials(ctx.device)
                     keys, merged, n = self._merge_batch(big)
+                    if not finalize:
+                        return SpillableBatch(self._partial_batch(
+                            keys, merged, torch.ones(
+                                n, dtype=torch.bool, device=ctx.device)),
+                            ctx.memory)
                     return ColumnarBatch(self._decode_keys(keys)
                                          + self._finalize_aggs(merged), n,
                                          self._schema)
@@ -662,6 +947,8 @@ class TpuHashAggregateExec(TpuExec):
         #: the partials made before it switched] (``_rebuild_partials``)
         self._stale = {}
         self._set_partial_schema()
+        self._streams = {k: [] for k in self._stream_keys}
+        self.last_stream_buckets = []
         partials: List[SpillableBatch] = []
         try:
             for b in self.children[0].execute(ctx):
@@ -680,21 +967,40 @@ class TpuHashAggregateExec(TpuExec):
                         {e: dict(c) for e, c in counts.items()})
                     with ctx.semaphore.held():
                         srcs = self._key_sources(ctx, b, partials)
-                        return SpillableBatch(self._update(b, offset, srcs),
-                                              ctx.memory)
-                partials.append(with_retry_no_split(
-                    update, ctx=ctx, op="HashAggregate.update"))
+                        part, streams = self._update_streams(b, offset,
+                                                             srcs)
+                        made = [SpillableBatch(part, ctx.memory)]
+                        try:
+                            for sbatch in streams:
+                                made.append(SpillableBatch(sbatch,
+                                                           ctx.memory))
+                        except BaseException:
+                            for sb in made:
+                                sb.close()
+                            raise
+                        return made
+                made = with_retry_no_split(update, ctx=ctx,
+                                           op="HashAggregate.update")
+                partials.append(made[0])
+                for k, sb in zip(self._stream_keys, made[1:]):
+                    self._streams[k].append(sb)
         except BaseException:
             # a fatal error or QueryTimeout mid-update: the partials must
             # not outlive the query (the zero-leak audit)
-            for sb in partials:
+            for sb in partials + [x for v in self._streams.values()
+                                  for x in v]:
                 sb.close()
             raise
         total = sum(sb.device_bytes() for sb in partials)
         self.last_repartitions = 0
-        if self.groupings and partials \
-                and total > int(ctx.conf.get(BATCH_SIZE_BYTES)) \
-                and self._repartitionable():
+        if self._order_aggs:
+            try:
+                yield from self._order_stats_merge(ctx, partials, total)
+            finally:
+                for sb in [x for v in self._streams.values() for x in v]:
+                    sb.close()
+            return
+        if self._split_merge(ctx, partials, total):
             yield from self._repartitioned_merge(ctx, partials, total)
             return
         yield self._merge(ctx, partials)
@@ -703,11 +1009,34 @@ class TpuHashAggregateExec(TpuExec):
     #: already partitioned on the keys does not fall into one partition
     REPARTITION_SEED = 1879048201
 
-    def _repartitionable(self) -> bool:
+    def _split_merge(self, ctx: ExecContext, partials: List[SpillableBatch],
+                     total: int) -> bool:
+        """The keyed partials hold more than ``batchSizeBytes`` and their
+        keys hash on the device: the merge goes partition by partition."""
         from ..exprs.hash_fns import device_hashable
-        return not any(
-            device_hashable.reason_not_supported(f.dtype)
-            for f in self._partial_schema.fields[:len(self.groupings)])
+        return bool(self.groupings and partials) \
+            and total > int(ctx.conf.get(BATCH_SIZE_BYTES)) and not any(
+                device_hashable.reason_not_supported(f.dtype)
+                for f in self._partial_schema.fields[:len(self.groupings)])
+
+    def _n_parts(self, ctx: ExecContext, total: int) -> int:
+        """2-64 partitions, about ``batchSizeBytes`` of partials each."""
+        n = min(1 << max(1, (int(total) // int(ctx.conf.get(
+            BATCH_SIZE_BYTES))).bit_length()), 64)
+        self.last_repartitions = n
+        return n
+
+    def _hash_split(self, ctx: ExecContext, spillables: List[SpillableBatch],
+                    n_parts: int) -> List[List[SpillableBatch]]:
+        """Spillable batches whose first columns are the partial keys (the
+        partials, a value stream) hash-split on them into ``n_parts``
+        slots; the inputs close as they are split."""
+        from ..shuffle.partitioning import (partition_batch,
+                                            scatter_spillables)
+        keys = [ColumnRef(f.name) for f in
+                self._partial_schema.fields[:len(self.groupings)]]
+        return scatter_spillables(ctx, spillables, lambda b: partition_batch(
+            b, keys, n_parts, self.REPARTITION_SEED), n_parts)
 
     def _repartitioned_merge(self, ctx: ExecContext,
                              partials: List[SpillableBatch],
@@ -715,16 +1044,7 @@ class TpuHashAggregateExec(TpuExec):
         """Hash-split the partials on their keys into 2-64 partitions
         (ref ``_repartitioned_merge``) and merge and finalize each alone;
         one output batch a partition."""
-        from ..shuffle.partitioning import (partition_batch,
-                                            scatter_spillables)
-        keys = [ColumnRef(f.name) for f in
-                self._partial_schema.fields[:len(self.groupings)]]
-        n_parts = min(1 << max(1, (int(total) // int(ctx.conf.get(
-            BATCH_SIZE_BYTES))).bit_length()), 64)
-        self.last_repartitions = n_parts
-        slots = scatter_spillables(
-            ctx, partials, lambda b: partition_batch(
-                b, keys, n_parts, self.REPARTITION_SEED), n_parts)
+        slots = self._hash_split(ctx, partials, self._n_parts(ctx, total))
         try:
             for parts in slots:
                 if not parts:

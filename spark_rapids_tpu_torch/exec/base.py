@@ -98,27 +98,48 @@ class TpuExec:
     def collect(self, ctx: Optional[ExecContext] = None):
         """Drive the pipeline; per output column the (values, validity)
         numpy arrays of all batches concatenated (device representation:
-        DATE as int32 days; a list column's values a ``HostList``)."""
+        DATE as int32 days; a list, map or struct column's values a
+        ``HostList``, ``HostMap`` or ``HostStruct``)."""
         import numpy as np
-        from ..columnar.nested import HostList
-        from ..types import ArrayType
+        from ..columnar.batch import _concat_values
         ctx = ctx or ExecContext()
         parts = [b.to_numpy() for b in self.execute(ctx)]
         schema = self.output_schema()
         out = []
         for i, f in enumerate(schema.fields):
             if parts:
-                vals = [p[i][0] for p in parts]
-                out.append((HostList.concat(vals)
-                            if isinstance(vals[0], HostList)
-                            else np.concatenate(vals),
+                out.append((_concat_values([p[i][0] for p in parts]),
                             np.concatenate([p[i][1] for p in parts])))
-            elif isinstance(f.dtype, ArrayType):
-                out.append((HostList(np.zeros(1, np.int64), np.zeros(
-                    0, f.dtype.element.np_dtype), None, f.dtype.element),
-                            np.zeros(0, bool)))
+            elif f.dtype.np_dtype is None and f.dtype.name != "string":
+                out.append(_empty_nested(f.dtype))
             else:
                 dt = f.dtype.np_dtype if f.dtype.np_dtype is not None \
                     else object
                 out.append((np.zeros(0, dt), np.zeros(0, bool)))
         return out
+
+
+def _empty_nested(dtype):
+    """(no rows of a list, map or struct column, no validity)."""
+    import numpy as np
+    from ..columnar.batch import HostTable
+    from ..columnar.nested import HostList, HostMap, HostStruct
+    from ..types import ArrayType, Schema, StructType, map_parts
+
+    def empty_list(t):
+        return HostList(np.zeros(1, np.int64), np.zeros(0, t.np_dtype),
+                        None, t)
+    kv = map_parts(dtype)
+    if kv is not None:
+        out = HostMap.of(*(empty_list(t) for t in kv))
+    elif isinstance(dtype, ArrayType):
+        out = empty_list(dtype.element)
+    elif isinstance(dtype, StructType):
+        out = HostStruct(HostTable(
+            {f.name: _empty_nested(f.dtype) if f.dtype.np_dtype is None
+             and f.dtype.name != "string" else
+             (np.zeros(0, f.dtype.np_dtype or object), np.zeros(0, bool))
+             for f in dtype.fields}, Schema(dtype.fields)))
+    else:
+        raise TypeError(f"{dtype.name} has no empty host form")
+    return out, np.zeros(0, bool)

@@ -6,8 +6,9 @@ Per input batch: the generator's counts (a list's lengths, or one row for
 size read to the host once, the repeat index ``rep`` (output row -> input
 row) by ``torch.repeat_interleave`` and each output row's place ``pos``
 within its input row; the generated columns come from the generator
-(a list flattened by its slots), the pass-through columns through
-``gather_batch``. The output can far outgrow its input, so each batch
+(a list flattened by its slots, a map's keys and values by the same
+slots), the pass-through columns (lists, maps and structs among them)
+through ``gather_batch``. The output can far outgrow its input, so each batch
 runs under the split-and-retry ladder (mem/retry.py), as the
 reference's does: on a SplitAndRetryOOM the input halves and the halves
 run again.

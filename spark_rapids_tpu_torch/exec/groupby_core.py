@@ -30,7 +30,7 @@ import torch
 
 from ..columnar.segmented import GlobalSegments, SortedSegments
 from ..columnar.strrect import unpack_words
-from ..exprs.base import DVal, StrVal
+from ..exprs.base import DVal, ListVal, StrVal
 from .encoding import (canonicalize_floats, grouping_operands,
                        lexsort_permutation, operands_equal)
 
@@ -86,10 +86,19 @@ def stage_sort(keys: List[DVal], vals: List[List[DVal]],
         d = canonicalize_floats(k.data) if k.data.is_floating_point() \
             else k.data
         s_keys.append(DVal(d[perm], k.validity[perm], k.dtype))
-    s_vals = [[DVal(None if v.data is None else v.data[perm],
-                    v.validity[perm], v.dtype) for v in vs]
-              for vs in vals]
+    s_vals = [[DVal(_take_rows(v.data, perm), v.validity[perm], v.dtype)
+               for v in vs] for vs in vals]
     return s_ops, s_keys, s_vals, row_mask[perm], perm
+
+
+def _take_rows(data, perm):
+    """``data``'s rows ``perm``: a tensor's, or a list rectangle's
+    (a ListVal partial of collect_list); None stays None."""
+    if data is None:
+        return None
+    if isinstance(data, ListVal):
+        return ListVal(*(t[perm] for t in data))
+    return data[perm]
 
 
 def stage_scan(aggs: Sequence, mode: str, s_ops, s_vals, s_live,

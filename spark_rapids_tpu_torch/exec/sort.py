@@ -48,9 +48,10 @@ import numpy as np
 import torch
 
 from ..columnar import (ByteRectColumn, ColumnarBatch, DeviceColumn,
-                        DictColumn, HostColumn, ListColumn)
+                        DictColumn, HostColumn)
 from ..columnar.batch import (concat_batches, dict_to_rect, pad_rect,
                               to_dictionary, union_dictionary)
+from ..columnar.nested import take_rows
 from ..columnar.strrect import rect_width_bucket
 from ..config import BATCH_SIZE_BYTES
 from ..exprs.base import ColumnRef, EvalContext
@@ -97,10 +98,8 @@ def _gather(batch: ColumnarBatch, perm: torch.Tensor, schema: Schema
     cols: List = []
     np_perm = None
     for c in batch.columns[:len(schema)]:
-        if isinstance(c, (ByteRectColumn, ListColumn)):
-            cols.append(c.gather(perm))
-        elif isinstance(c, DeviceColumn):
-            cols.append(c.with_arrays(c.data[perm], c.validity[perm]))
+        if isinstance(c, DeviceColumn):
+            cols.append(take_rows(c, perm))
         else:
             if np_perm is None:
                 np_perm = perm.cpu().numpy()

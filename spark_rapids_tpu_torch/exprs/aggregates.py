@@ -1,7 +1,8 @@
 """Aggregate functions (port of ``spark_rapids_tpu/exprs/aggregates.py``:
-Sum, Count, CountStar, Average, Min, Max, First, Last, and the moment
-aggregates VariancePop, VarianceSamp, StddevPop and StddevSamp, keyless
-and keyed).
+Sum, Count, CountStar, Average, Min, Max, First, Last, the moment
+aggregates VariancePop, VarianceSamp, StddevPop and StddevSamp, and
+CollectList, CollectSet, MinBy, MaxBy, Percentile and
+ApproximatePercentile, keyless and keyed).
 
 Each aggregate declares
   update   : per-row values  -> partials     (per batch)
@@ -40,6 +41,13 @@ Last pick the value of the first or last row in input order, over the
 valid rows with ``ignore_nulls`` (the reference's only form and the
 default here) or over every row without it; their partial keeps the
 row's position in the input, so partials merge in any order.
+
+CollectList and CollectSet build a list rectangle a group
+(``segment_lists``) and concatenate a group's lists when they merge;
+MinBy and MaxBy keep the extreme ordering, its value and its row's
+position; Percentile's partial is the count of values, and the exec
+orders the values themselves (exec/aggregate.py). The reference runs
+these on its host engine only (``_HostOnlyAgg``).
 """
 from __future__ import annotations
 
@@ -48,12 +56,15 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..columnar.segmented import seg_max, seg_min, select_by_rank
-from ..types import DataType, FLOAT64, INT64, STRING, Schema, numeric
-from .base import ColumnRef, DVal, Expression, Literal
+from ..types import (ArrayType, DataType, FLOAT64, INT64, STRING, Schema,
+                     numeric)
+from .base import ColumnRef, DVal, Expression, ListVal, Literal
 
 __all__ = ["AggregateExpression", "Sum", "Count", "CountStar", "Average",
            "Min", "Max", "First", "Last", "VariancePop", "VarianceSamp",
-           "StddevPop", "StddevSamp", "CollectList", "CollectSet"]
+           "StddevPop", "StddevSamp", "CollectList", "CollectSet", "MinBy",
+           "MaxBy", "Percentile", "ApproximatePercentile", "segment_lists",
+           "distinct_elements"]
 
 #: a column to reduce: (data or None, validity or None). No data: only
 #: the count is needed. No validity: every live row counts.
@@ -195,9 +206,12 @@ class Count(AggregateExpression):
 
     def device_unsupported_reason(self, schema):
         # count(<string column>) reads only the validity, which every
-        # string layout holds on the device
-        if isinstance(self.child, ColumnRef) \
-                and self.child.data_type(schema) == STRING:
+        # string layout holds on the device (a string field of a struct
+        # too)
+        if self.child is not None \
+                and self.child.data_type(schema) == STRING and (
+                isinstance(self.child, ColumnRef)
+                or self.child.fully_device_supported(schema) is None):
             return None
         return super().device_unsupported_reason(schema)
 
@@ -454,20 +468,262 @@ class StddevSamp(_MomentAgg):
         return DVal(torch.sqrt(v.data), v.validity, FLOAT64)
 
 
+# ---------------------------------------------------------------------------
+# collect_list / collect_set, min_by / max_by, percentile
+# ---------------------------------------------------------------------------
+
+def _nested_agg_reason(agg, dt: DataType, what: str) -> Optional[str]:
+    if dt.np_dtype is None:
+        from ..types import NESTED_REST
+        return (f"{agg.name_hint}: {what} of {dt.name} arrives with "
+                f"{NESTED_REST}")
+    return None
+
+
+def segment_lists(values: torch.Tensor, lens: torch.Tensor,
+                  ids: torch.Tensor, G: int, what: str) -> ListVal:
+    """Per segment, the first ``lens[r]`` slots of every row ``r`` of
+    ``values`` ([N, Wi]) whose segment ``ids[r]`` it is, in row order, as
+    a list rectangle [G, W]. A segment's rows are contiguous and the
+    segments in order (rows sorted by group, or one segment); a row that
+    adds nothing has ``lens`` 0. One host read: the longest list, which
+    past the rectangle's widest bucket raises (the lists are never
+    truncated)."""
+    from ..columnar.nested import WIDTH_BUCKETS, width_bucket
+    from ..types import NESTED_REST
+    dev = values.device
+    lens = lens.to(torch.int64)
+    ids = torch.where(lens > 0, ids, G).to(torch.int64)
+    total = torch.zeros(G + 1, dtype=torch.int64, device=dev) \
+        .scatter_add_(0, ids, lens)[:G]
+    longest = int(total.max().item()) if G else 0
+    w = width_bucket(max(longest, 1))
+    if w is None:
+        raise NotImplementedError(
+            f"{what}: a group of {longest} values is longer than the device "
+            f"list rectangle ({WIDTH_BUCKETS[-1]}); such groups arrive with "
+            f"{NESTED_REST}")
+    before = torch.cumsum(total, 0) - total
+    first = torch.cumsum(lens, 0) - lens \
+        - torch.cat([before, before.new_zeros(1)])[ids]
+    wi = values.shape[1]
+    j = torch.arange(wi, device=dev)[None, :]
+    col = torch.where(j < lens[:, None], first[:, None] + j, w)
+    row = ids[:, None].expand(-1, wi)
+    out = torch.zeros((G + 1) * (w + 1), dtype=values.dtype, device=dev)
+    ev = torch.zeros((G + 1) * (w + 1), dtype=torch.bool, device=dev)
+    flat = (row * (w + 1) + col).reshape(-1)
+    out[flat] = values.reshape(-1)
+    ev[flat] = (j < lens[:, None]).reshape(-1)
+    shape = (G + 1, w + 1)
+    return ListVal(out.reshape(shape)[:G, :w], ev.reshape(shape)[:G, :w],
+                   total.to(torch.int32))
+
+
+def distinct_elements(lv: ListVal) -> ListVal:
+    """Each row's elements with every repeat after the first dropped,
+    the first occurrences in their order; equal as Spark's ordering has
+    it (NaN equal to NaN, -0.0 to 0.0)."""
+    from .collection_fns import _stable_sort_rows, element_key, in_list
+    inside = in_list(lv) & lv.elem_valid
+    k = torch.where(inside, element_key(lv.values), 0)
+    perm = _stable_sort_rows([(~inside).to(torch.int8), k], lv.values)
+    ks, ins = k.gather(1, perm), inside.gather(1, perm)
+    first = ins.clone()
+    first[:, 1:] &= ~((ks[:, 1:] == ks[:, :-1]) & ins[:, :-1])
+    keep = torch.zeros_like(first).scatter_(1, perm, first)
+    p, w = lv.values.shape
+    dest = torch.where(keep, torch.cumsum(keep, dim=1) - 1, w)
+    vals = torch.zeros((p, w + 1), dtype=lv.values.dtype,
+                       device=lv.values.device).scatter_(1, dest, lv.values)
+    ev = torch.zeros((p, w + 1), dtype=torch.bool,
+                     device=lv.values.device).scatter_(1, dest, keep)
+    return ListVal(vals[:, :w], ev[:, :w], keep.sum(dim=1).to(torch.int32))
+
+
 class CollectList(AggregateExpression):
-    """collect_list(e): the reference builds the lists on its host engine
-    only; the port refuses it at planning."""
+    """collect_list(e): a group's non-NULL values in arrival order, an
+    empty list where it has none. The partial is a list a group (a list
+    rectangle, ``segment_lists``); the merge concatenates a group's
+    partials in order. A group past the rectangle's 256 values raises at
+    its batch, naming the queue: a list is never cut short."""
 
     dense_ok = False
+    _distinct = False
 
     def data_type(self, schema: Schema) -> DataType:
-        from ..types import ArrayType
         return ArrayType(self.child.data_type(schema))
 
     def device_unsupported_reason(self, schema: Schema) -> Optional[str]:
-        from ..types import NESTED_REST
-        return f"{type(self).__name__.lower()} arrives with {NESTED_REST}"
+        return _nested_agg_reason(self, self.child.data_type(schema),
+                                  "a list") or \
+            super().device_unsupported_reason(schema)
+
+    def partial_types(self, schema):
+        return [self.data_type(schema)]
+
+    def _lists(self, values, lens, seg):
+        lv = segment_lists(values, lens, seg.seg_ids, seg.num_segments,
+                           self.name_hint)
+        if self._distinct:
+            lv = distinct_elements(lv)
+        return [(lv, torch.ones(seg.num_segments, dtype=torch.bool,
+                                device=lv.lengths.device))]
+
+    def update(self, vals, seg):
+        v = vals[0]
+        ok = v.validity & seg.live
+        return self._lists(v.data[:, None], ok.to(torch.int64), seg)
+
+    def merge(self, partials, seg):
+        p = partials[0]
+        ok = p.validity & seg.live
+        lv = p.data
+        return self._lists(lv.values, torch.where(ok, lv.lengths, 0), seg)
+
+    def finalize(self, partials):
+        return partials[0]
 
 
 class CollectSet(CollectList):
-    """collect_set(e): refused at planning, as ``collect_list``."""
+    """collect_set(e): a group's distinct non-NULL values (the first of
+    each, in arrival order; Spark leaves the order unspecified), equal as
+    Spark's ordering has it: NaN equal to NaN, -0.0 to 0.0. Each partial
+    is de-duplicated after its update and after every merge."""
+
+    _distinct = True
+
+
+def _order_key(d: torch.Tensor) -> torch.Tensor:
+    from .collection_fns import element_key
+    return element_key(d)
+
+
+class MinBy(AggregateExpression):
+    """min_by(value, ordering): the value of the row whose ordering is
+    least by Spark's ordering (NaN greatest, -0.0 equal to 0.0), NULL
+    orderings skipped; the first such row in arrival order where several
+    tie; NULL where the value there is NULL or no ordering is valid. The
+    partials are (value, ordering, the row's position in the input)."""
+
+    dense_ok = False
+    mode = "min"
+
+    def __init__(self, child, ordering, name: Optional[str] = None):
+        super().__init__(child, name)
+        self.ordering = ordering
+
+    def data_type(self, schema):
+        return self.child.data_type(schema)
+
+    def device_unsupported_reason(self, schema):
+        for e, what in ((self.child, "a value"),
+                        (self.ordering, "an ordering")):
+            dt = e.data_type(schema)
+            r = _nested_agg_reason(self, dt, what) or \
+                e.fully_device_supported(schema)
+            if r:
+                return r
+        return None
+
+    def input_exprs(self):
+        return [self.child, self.ordering]
+
+    def partial_types(self, schema):
+        return [self.data_type(schema), self.ordering.data_type(schema),
+                INT64]
+
+    def _pick(self, value: DVal, order: DVal, rank, ok, seg):
+        key = _order_key(order.data)
+        how = "amin" if self.mode == "min" else "amax"
+        from ..columnar.segmented import _extreme
+        G = seg.num_segments
+        best = _extreme(key, ok, seg, how)
+        ids = seg.seg_ids
+        hit = ok & seg.live & (key == best[ids.clamp(0, max(G - 1, 0))]) \
+            if G else ok
+        rows, has = select_by_rank(rank, hit, seg, "min")
+        return [(_take(value.data, rows), _take(value.validity, rows) & has),
+                (_take(order.data, rows), has), (_take(rank, rows), has)]
+
+    def update(self, vals, seg):
+        value, order = vals
+        return self._pick(value, order, seg.orig_index, order.validity, seg)
+
+    def merge(self, partials, seg):
+        value, order, rank = partials
+        return self._pick(value, order, rank.data, order.validity, seg)
+
+    def finalize(self, partials):
+        return partials[0]
+
+    def key(self):
+        return (f"{type(self).__name__}({self.child.key()},"
+                f"{self.ordering.key()})")
+
+
+class MaxBy(MinBy):
+    """max_by(value, ordering): as ``min_by``, the greatest ordering."""
+
+    mode = "max"
+
+
+class Percentile(Count):
+    """percentile(e, p): the exact percentile of a group's non-NULL
+    values, interpolated as Spark's is: with n values in order and
+    ``pos = p * (n - 1)``, ``(hi - pos) * v[lo] + (pos - lo) * v[hi]``
+    for ``lo``/``hi`` the floor and ceiling of ``pos``; NaN sorts
+    greatest and is a value (the reference drops NaN and interpolates
+    through ``np.percentile``: ROADMAP.md Queue C). The partial is the
+    count of values; the values themselves are ordered by the port's
+    sort, however many batches a group spans (exec/aggregate.py), and
+    ``finalize_picked`` takes the two picked."""
+
+    #: the exec orders this aggregate's values and hands
+    #: ``finalize_picked`` the ones at its ranks
+    order_statistic = True
+
+    def __init__(self, child, percentage: float,
+                 name: Optional[str] = None):
+        super().__init__(child, name)
+        self.percentage = float(percentage)
+        if not 0.0 <= self.percentage <= 1.0:
+            raise ValueError(f"percentile: the percentage {percentage} "
+                             "must lie in [0, 1]")
+
+    def data_type(self, schema):
+        return FLOAT64
+
+    def device_unsupported_reason(self, schema):
+        r = numeric.reason_not_supported(self.child.data_type(schema))
+        if r:
+            return f"{self.name_hint}: input {r}"
+        return super().device_unsupported_reason(schema)
+
+    def ranks(self, counts: torch.Tensor):
+        """(lo, hi, pos) per group of ``counts`` values: the ranks to pick
+        and the interpolation point."""
+        n = counts.to(torch.int64)
+        pos = self.percentage * (n - 1).clamp(min=0).to(torch.float64)
+        lo = torch.floor(pos).to(torch.int64)
+        hi = torch.ceil(pos).to(torch.int64)
+        return lo, hi, pos
+
+    def finalize_picked(self, counts: torch.Tensor, lo_v: torch.Tensor,
+                        hi_v: torch.Tensor) -> DVal:
+        """The result from each group's count and its values at ``lo`` and
+        ``hi`` (``ranks``)."""
+        lo, hi, pos = self.ranks(counts)
+        a, b = lo_v.to(torch.float64), hi_v.to(torch.float64)
+        mixed = (hi.to(torch.float64) - pos) * a \
+            + (pos - lo.to(torch.float64)) * b
+        return DVal(torch.where(lo == hi, a, mixed), counts > 0, FLOAT64)
+
+    def key(self):
+        return f"{type(self).__name__}({self.child.key()},{self.percentage})"
+
+
+class ApproximatePercentile(Percentile):
+    """approx_percentile(e, p): computed exactly, as the reference's is
+    (Spark's t-digest answer is within its accuracy of this one). It takes
+    no accuracy: a path that would read one does not exist."""

@@ -18,7 +18,8 @@ from ..types import (BOOL, DATE, DataType, FLOAT32, FLOAT64, INT8, INT16,
                      INT32, INT64, NULLTYPE, STRING, Schema, TIMESTAMP,
                      TypeSig, deviceNative, from_numpy_dtype, torch_dtype)
 
-__all__ = ["DVal", "StrVal", "ListVal", "EvalContext", "Expression",
+__all__ = ["DVal", "StrVal", "ListVal", "MapVal", "StructVal", "EvalContext",
+           "Expression",
            "ColumnRef",
            "Literal", "Alias", "Unsupported",
            "promote_types", "null_and"]
@@ -43,12 +44,32 @@ class ListVal(NamedTuple):
     lengths: torch.Tensor
 
 
+class MapVal(NamedTuple):
+    """A MAP value (or a map's entries) as two rectangles over one set of
+    lengths (columnar/nested.py): the keys' ListVal, whose slots are all
+    valid up to each row's length, and the values'."""
+    keys: ListVal
+    values: ListVal
+
+
+class StructVal(NamedTuple):
+    """A STRUCT value: its fields' device columns (columnar/nested.py),
+    each in its own layout and validity; the struct's row validity is the
+    DVal's."""
+    fields: tuple
+
+
 class DVal(NamedTuple):
-    """A device value: data (or a StrVal or ListVal) + validity mask +
-    dtype."""
+    """A device value: data (or a StrVal, ListVal, MapVal or StructVal) +
+    validity mask + dtype. ``column`` is the string column a STRING value
+    was read from (a column reference, a string field of a struct), for
+    what needs its layout and not its value: a string put into a struct
+    keeps its dictionary or byte rectangle (exprs/compiler.py
+    ``column_dval``, ``dval_column``)."""
     data: object
     validity: torch.Tensor
     dtype: DataType
+    column: object = None
 
 
 class EvalContext:
@@ -154,11 +175,14 @@ class ColumnRef(Expression):
         return [self.name]
 
     def device_unsupported_reason(self, schema: Schema) -> Optional[str]:
-        from ..types import device_list_ok
+        from ..types import (device_list_ok, device_map_ok,
+                             device_struct_ok, nested_reason)
         dt = schema[self.name].dtype
-        if dt.device_backed or device_list_ok(dt):
+        if dt.device_backed or device_list_ok(dt) or device_map_ok(dt) \
+                or device_struct_ok(dt):
             return None
-        return f"column {self.name}: {dt.name} is host-only"
+        return f"column {self.name}: " + (nested_reason(dt) or
+                                          f"{dt.name} is host-only")
 
     def eval_device(self, ctx: EvalContext) -> DVal:
         return ctx.columns[ctx.schema.index_of(self.name)]

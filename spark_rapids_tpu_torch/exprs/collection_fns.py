@@ -19,9 +19,16 @@ Null semantics are Spark 3.4's with ANSI off:
     ``sort_array``, ``array_min``/``array_max``), where the reference
     compares with ``==`` (ROADMAP.md Queue C).
 
-The other classes of the reference's file (maps, structs, and the array
-functions it runs only on its host engine) are refused at planning
-(``NESTED_REST``).
+Structs (``named_struct``/``struct``, ``get_field``) are their fields'
+device columns; maps (``map``, ``map_from_arrays``, ``map_concat``,
+``map_keys``, ``map_values``, ``map_entries``, ``map[key]``,
+``element_at`` and ``size`` of a map) are two rectangles over one set of
+lengths, keys compared as the elements are. A map built here follows
+Spark's ``mapKeyDedupPolicy`` EXCEPTION, its default: a key twice in a
+row raises, as does a NULL key; the reference keeps the last value
+(``map``, ``map_concat``) or both (``map_from_arrays``) (ROADMAP.md Queue
+C). The array functions the reference runs only on its host engine and
+``str_to_map`` (string keys) are refused at planning (``NESTED_REST``).
 """
 from __future__ import annotations
 
@@ -32,14 +39,17 @@ import torch
 from ..columnar.nested import WIDTH_BUCKETS, width_bucket
 from ..types import (BOOL, INT32, INT64, NESTED_REST, NULLTYPE, STRING,
                      ArrayType, DataType, MapType, Schema, StructField,
-                     StructType, device_list_ok, torch_dtype)
-from .base import DVal, Expression, ListVal, Literal, Unsupported, \
-    promote_types
+                     StructType, device_column_ok, device_list_ok,
+                     device_map_ok, device_struct_ok, entries_type,
+                     map_parts, nested_reason, torch_dtype)
+from .base import (ColumnRef, DVal, Expression, ListVal, Literal, MapVal,
+                   StructVal, Unsupported, promote_types)
 
 __all__ = [
     "Size", "ArrayContains", "ArrayPosition", "ElementAt", "GetArrayItem",
     "SortArray", "ArrayMin", "ArrayMax", "Slice", "ArrayReverse",
     "CreateArray", "Sequence", "GetMapValue", "GetStructField",
+    "duplicate_keys", "check_map_keys",
     "ArrayJoin", "ArrayRepeat", "ArraysZip", "Concat", "Flatten",
     "ArrayDistinct", "ArrayUnion", "ArrayIntersect", "ArrayExcept",
     "ArrayRemove", "ArraysOverlap", "MapKeys", "MapValues", "MapEntries",
@@ -106,8 +116,8 @@ class _ListExpr(Expression):
 
 
 class Size(_ListExpr):
-    """size(array): a NULL list's size is -1 (Spark's default with ANSI
-    off)."""
+    """size(array) or size(map): a NULL one's size is -1 (Spark's default
+    with ANSI off)."""
 
     def __init__(self, child):
         self.children = [child]
@@ -115,9 +125,15 @@ class Size(_ListExpr):
     def data_type(self, schema):
         return INT32
 
+    def device_unsupported_reason(self, schema):
+        if device_map_ok(self.children[0].data_type(schema)):
+            return None
+        return super().device_unsupported_reason(schema)
+
     def eval_device(self, ctx):
         v = self._list(ctx)
-        lens = v.data.lengths.to(torch.int32)
+        lv = v.data.keys if isinstance(v.data, MapVal) else v.data
+        lens = lv.lengths.to(torch.int32)
         return DVal(torch.where(v.validity, lens, -1),
                     torch.ones_like(v.validity), INT32)
 
@@ -190,19 +206,31 @@ class _Extract(_ListExpr):
 
 class ElementAt(_Extract):
     """element_at(array, index): 1-based, negative from the end, NULL out
-    of range; index 0 raises, as Spark's does."""
+    of range; index 0 raises, as Spark's does. element_at(map, key): the
+    key's value, NULL where it is absent (``GetMapValue``)."""
 
     def __init__(self, child, key):
         self.children = [child, key]
 
+    def _on_map(self, schema) -> bool:
+        return isinstance(self.children[0].data_type(schema), MapType)
+
+    def data_type(self, schema):
+        if self._on_map(schema):
+            return self.children[0].data_type(schema).value
+        return super().data_type(schema)
+
     def device_unsupported_reason(self, schema):
-        if isinstance(self.children[0].data_type(schema), MapType):
-            return f"element_at of a map arrives with {NESTED_REST}"
+        if self._on_map(schema):
+            return GetMapValue(*self.children).device_unsupported_reason(
+                schema)
         if _int_literal(self.children[1]) == 0:
             raise ValueError("SQL array indices start at 1")
         return super().device_unsupported_reason(schema)
 
     def eval_device(self, ctx):
+        if self._on_map(ctx.schema):
+            return GetMapValue(*self.children).eval_device(ctx)
         arr = self._list(ctx)
         k = self.children[1].eval_device(ctx)
         both = arr.validity & k.validity
@@ -525,21 +553,6 @@ class _Refused(Expression):
         return f"{type(self).__name__} arrives with {NESTED_REST}"
 
 
-class GetMapValue(_Refused):
-    def data_type(self, schema):
-        return self.children[0].data_type(schema).value
-
-
-class GetStructField(_Refused):
-    def __init__(self, child, field_name: str):
-        super().__init__(child)
-        self.field = field_name
-
-    def data_type(self, schema):
-        dt = self.children[0].data_type(schema)
-        return dt.fields[[f.name for f in dt.fields].index(self.field)].dtype
-
-
 class ArrayJoin(_Refused):
     def data_type(self, schema):
         return STRING
@@ -591,48 +604,434 @@ class ArraysOverlap(_Refused):
         return BOOL
 
 
-class MapKeys(_Refused):
-    def data_type(self, schema):
-        return ArrayType(self.children[0].data_type(schema).key)
-
-
-class MapValues(_Refused):
-    def data_type(self, schema):
-        return ArrayType(self.children[0].data_type(schema).value)
-
-
-class MapEntries(_Refused):
-    def data_type(self, schema):
-        dt = self.children[0].data_type(schema)
-        return ArrayType(StructType([StructField("key", dt.key),
-                                     StructField("value", dt.value)]))
-
-
-class MapConcat(_Refused):
-    pass
-
-
-class MapFromArrays(_Refused):
-    def data_type(self, schema):
-        return MapType(_elem_type(self.children[0].data_type(schema)),
-                       _elem_type(self.children[1].data_type(schema)))
-
-
 class StringToMap(_Refused):
     def data_type(self, schema):
         return MapType(STRING, STRING)
 
 
-class CreateMap(_Refused):
+
+
+# ---------------------------------------------------------------------------
+# structs: named_struct / struct and get_field
+# ---------------------------------------------------------------------------
+
+def _column_reason(dt: DataType, what: str) -> Optional[str]:
+    if device_column_ok(dt):
+        return None
+    return f"{what}: " + (nested_reason(dt) or
+                          f"{dt.name} has no device column")
+
+
+class CreateNamedStruct(Expression):
+    """named_struct(name1, value1, ...): names are string literals; never
+    NULL itself, each field its expression's value in its own layout (a
+    string column keeps its dictionary or byte rectangle, a list its
+    rectangle)."""
+
+    def __init__(self, *name_value_pairs):
+        assert len(name_value_pairs) % 2 == 0, "named_struct takes pairs"
+        self.names = [n.value if isinstance(n, Literal) else str(n)
+                      for n in name_value_pairs[::2]]
+        self.children = list(name_value_pairs[1::2])
+
     def data_type(self, schema):
-        return MapType(self.children[0].data_type(schema),
-                       self.children[1].data_type(schema))
+        return StructType([StructField(n, c.data_type(schema))
+                           for n, c in zip(self.names, self.children)])
+
+    def device_unsupported_reason(self, schema):
+        if not self.children:
+            return f"an empty struct arrives with {NESTED_REST}"
+        for n, c in zip(self.names, self.children):
+            r = _column_reason(c.data_type(schema), f"struct field {n}")
+            if r:
+                return r
+        return None
+
+    def fully_device_supported(self, schema):
+        r = self.device_unsupported_reason(schema)
+        if r:
+            return r
+        for n, c in zip(self.names, self.children):
+            if c.data_type(schema) == STRING and not isinstance(
+                    c, (ColumnRef, GetStructField)):
+                return (f"struct field {n}: a computed string in a struct "
+                        f"arrives with {NESTED_REST}")
+            if c.data_type(schema) != STRING or isinstance(
+                    c, GetStructField):
+                r = c.fully_device_supported(schema)
+                if r:
+                    return r
+        return None
+
+    def _field(self, ctx, c, dt):
+        """The field's column: a string as the column it was read from
+        (``DVal.column``), any other value as the column of its layout."""
+        from .compiler import dval_column
+        v = c.eval_device(ctx)
+        if dt == STRING and v.column is None:
+            raise NotImplementedError(
+                f"struct field {c.name_hint}: a string that is not a device "
+                f"string column; such a struct arrives with {NESTED_REST}")
+        return dval_column(v, v.validity, dt)
+
+    def eval_device(self, ctx):
+        dt = self.data_type(ctx.schema)
+        fields = [self._field(ctx, c, f.dtype)
+                  for c, f in zip(self.children, dt.fields)]
+        return DVal(StructVal(tuple(fields)),
+                    torch.ones(ctx.padded_len, dtype=torch.bool,
+                               device=ctx.device), dt)
+
+    def key(self):
+        kids = ",".join(f"{n}={c.key()}"
+                        for n, c in zip(self.names, self.children))
+        return f"CreateNamedStruct({kids})"
 
 
-class CreateNamedStruct(_Refused):
-    """named_struct(name1, value1, ...): names are string literals."""
+class GetStructField(Expression):
+    """get_field(struct, name): the field, NULL where the struct is (as
+    ``pc.struct_field`` carries the parent's NULLs); a string field's value
+    carries its column, which a projection keeps."""
+
+    def __init__(self, child, field_name: str):
+        self.children = [child]
+        self.field = field_name
 
     def data_type(self, schema):
-        kids = self.children
-        return StructType(StructField(str(n.value), v.data_type(schema))
-                          for n, v in zip(kids[::2], kids[1::2]))
+        dt = self.children[0].data_type(schema)
+        if not isinstance(dt, StructType):
+            raise Unsupported(f"get_field expects a struct, got {dt}")
+        return dt.fields[dt.index_of(self.field)].dtype
+
+    def device_unsupported_reason(self, schema):
+        dt = self.children[0].data_type(schema)
+        if not device_struct_ok(dt):
+            return _column_reason(dt, "GetStructField") or \
+                f"GetStructField over {dt.name}"
+        return None
+
+    def eval_device(self, ctx):
+        from ..columnar.nested import null_rows
+        from .compiler import column_dval
+        v = self.children[0].eval_device(ctx)
+        return column_dval(null_rows(
+            v.data.fields[v.dtype.index_of(self.field)], v.validity))
+
+    def key(self):
+        return f"GetStructField({self.children[0].key()},{self.field})"
+
+
+# ---------------------------------------------------------------------------
+# maps: two rectangles over one set of lengths (columnar/nested.py)
+# ---------------------------------------------------------------------------
+
+_DUPLICATE_KEY = ("Duplicate map key was found, please check the input "
+                  "data. If you want to remove the duplicated keys, you can "
+                  "set spark.sql.mapKeyDedupPolicy to LAST_WIN so that the "
+                  "key inserted at last takes precedence.")
+_NULL_KEY = "Cannot use null as map key"
+
+
+def _map_reason(dt: DataType, what: str) -> Optional[str]:
+    if device_map_ok(dt):
+        return None
+    if map_parts(dt) is not None:
+        return f"{what}: {nested_reason(dt) or dt.name}"
+    return f"{what}: expected a map, got {dt.name}"
+
+
+def duplicate_keys(keys: torch.Tensor, inside: torch.Tensor) -> torch.Tensor:
+    """bool[P]: the rows holding two equal keys among their ``inside``
+    slots, keys equal by Spark's ordering (NaN equal to NaN, -0.0 to
+    0.0)."""
+    if keys.shape[1] < 2:
+        return torch.zeros(keys.shape[0], dtype=torch.bool,
+                           device=keys.device)
+    k = element_key(keys)
+    k = torch.where(inside, k, torch.zeros_like(k))
+    perm = _stable_sort_rows([(~inside).to(torch.int8), k], keys)
+    ks, ins = k.gather(1, perm), inside.gather(1, perm)
+    return ((ks[:, 1:] == ks[:, :-1]) & ins[:, 1:] & ins[:, :-1]).any(dim=1)
+
+
+def check_map_keys(key_valid: torch.Tensor, inside: torch.Tensor,
+                   keys: torch.Tensor, live: torch.Tensor) -> None:
+    """Raise as Spark does (``mapKeyDedupPolicy`` EXCEPTION, its
+    default) where a live row holds a NULL key or a key twice: one host
+    read."""
+    null_key = (inside & ~key_valid).any(dim=1)
+    dup = duplicate_keys(keys, inside & key_valid)
+    n_null, n_dup = torch.stack([(null_key & live).any(),
+                                 (dup & live).any()]).tolist()
+    if n_null:
+        raise ValueError(_NULL_KEY)
+    if n_dup:
+        raise ValueError(_DUPLICATE_KEY)
+
+
+def _map_val(keys, values, value_valid, lengths) -> MapVal:
+    """A MapVal of rectangles whose keys are valid up to each length."""
+    w = keys.shape[1]
+    inside = torch.arange(w, device=keys.device)[None, :] \
+        < lengths[:, None]
+    return MapVal(ListVal(keys, inside, lengths),
+                  ListVal(values, value_valid & inside, lengths))
+
+
+def _lookup(mv: MapVal, key: torch.Tensor):
+    """(value[P], found and valid[P]) of ``key`` in each row's map."""
+    keys = mv.keys
+    common = torch.promote_types(keys.values.dtype, key.dtype)
+    eq = (element_key(keys.values.to(common))
+          == element_key(key.to(common))[:, None]) & keys.elem_valid
+    j = eq.to(torch.int8).argmax(dim=1, keepdim=True)
+    data = mv.values.values.gather(1, j)[:, 0]
+    ok = eq.any(dim=1) & mv.values.elem_valid.gather(1, j)[:, 0]
+    return data, ok
+
+
+class _MapExpr(Expression):
+    """An expression whose first child is a device map."""
+
+    def device_unsupported_reason(self, schema):
+        r = _map_reason(self.children[0].data_type(schema),
+                        type(self).__name__)
+        if r:
+            return r
+        for c in self.children[1:]:
+            cdt = c.data_type(schema)
+            if cdt.np_dtype is None and cdt != NULLTYPE:
+                return f"{type(self).__name__}: argument type {cdt.name} " \
+                       "is not a fixed-width type"
+        return None
+
+
+class GetMapValue(_MapExpr):
+    """map[key]: the key's value, NULL where the key is absent (Spark's
+    default with ANSI off)."""
+
+    def __init__(self, child, key):
+        self.children = [child, key]
+
+    def data_type(self, schema):
+        return map_parts(self.children[0].data_type(schema))[1]
+
+    def eval_device(self, ctx):
+        m = self.children[0].eval_device(ctx)
+        k = self.children[1].eval_device(ctx)
+        data, ok = _lookup(m.data, k.data)
+        return DVal(data, m.validity & k.validity & ok,
+                    self.data_type(ctx.schema))
+
+
+class MapKeys(_MapExpr):
+    def __init__(self, child):
+        self.children = [child]
+
+    def data_type(self, schema):
+        return ArrayType(map_parts(self.children[0].data_type(schema))[0])
+
+    def eval_device(self, ctx):
+        m = self.children[0].eval_device(ctx)
+        return DVal(m.data.keys, m.validity, self.data_type(ctx.schema))
+
+
+class MapValues(_MapExpr):
+    def __init__(self, child):
+        self.children = [child]
+
+    def data_type(self, schema):
+        return ArrayType(map_parts(self.children[0].data_type(schema))[1])
+
+    def eval_device(self, ctx):
+        m = self.children[0].eval_device(ctx)
+        return DVal(m.data.values, m.validity, self.data_type(ctx.schema))
+
+
+class MapEntries(_MapExpr):
+    """map_entries(map): the same rectangles, typed as an array of
+    ``struct<key, value>``."""
+
+    def __init__(self, child):
+        self.children = [child]
+
+    def data_type(self, schema):
+        return entries_type(*map_parts(self.children[0].data_type(schema)))
+
+    def device_unsupported_reason(self, schema):
+        if not isinstance(self.children[0].data_type(schema), MapType):
+            return "MapEntries: expected a map"
+        return super().device_unsupported_reason(schema)
+
+    def eval_device(self, ctx):
+        m = self.children[0].eval_device(ctx)
+        return DVal(m.data, m.validity, self.data_type(ctx.schema))
+
+
+class MapConcat(Expression):
+    """map_concat(m1, ..., mk): NULL if any map is; a key in two maps
+    raises (Spark's ``mapKeyDedupPolicy`` EXCEPTION, where the reference
+    keeps the last value: ROADMAP.md Queue C). One host read of the
+    widest row."""
+
+    def __init__(self, *children):
+        self.children = list(children)
+
+    def data_type(self, schema):
+        """The maps' key and value types widened to one (Spark's
+        coercion)."""
+        kvs = [map_parts(c.data_type(schema)) for c in self.children]
+        if any(kv is None for kv in kvs):
+            raise TypeError("map_concat takes maps")
+        k, v = kvs[0]
+        for k2, v2 in kvs[1:]:
+            k, v = promote_types(k, k2), promote_types(v, v2)
+        return MapType(k, v)
+
+    def device_unsupported_reason(self, schema):
+        if not self.children:
+            return f"an empty map_concat() arrives with {NESTED_REST}"
+        for c in self.children:
+            r = _map_reason(c.data_type(schema), "MapConcat")
+            if r:
+                return r
+        return None
+
+    def eval_device(self, ctx):
+        maps = [c.eval_device(ctx) for c in self.children]
+        valid = maps[0].validity
+        for m in maps[1:]:
+            valid = valid & m.validity
+        lens = [torch.where(valid, m.data.keys.lengths, 0).to(torch.int64)
+                for m in maps]
+        total = lens[0]
+        for ln in lens[1:]:
+            total = total + ln
+        live = ctx.row_mask()
+        widest = int(torch.where(live, total, 0).max().item()) \
+            if total.numel() else 0
+        w = width_bucket(max(widest, 1))
+        if w is None:
+            raise NotImplementedError(
+                f"map_concat: a map of {widest} entries is wider than the "
+                f"device rectangle ({WIDTH_BUCKETS[-1]}); it arrives with "
+                f"{NESTED_REST}")
+        p = valid.shape[0]
+        dev = valid.device
+        dt = self.data_type(ctx.schema)
+        kt, vt = torch_dtype(dt.key), torch_dtype(dt.value)
+        keys = torch.zeros((p, w + 1), dtype=kt, device=dev)
+        vals = torch.zeros((p, w + 1), dtype=vt, device=dev)
+        vv = torch.zeros((p, w + 1), dtype=torch.bool, device=dev)
+        base = torch.zeros(p, dtype=torch.int64, device=dev)
+        for m, ln in zip(maps, lens):
+            mv = m.data
+            mw = mv.keys.values.shape[1]
+            j = torch.arange(mw, device=dev)[None, :]
+            dest = torch.where(j < ln[:, None], base[:, None] + j, w)
+            keys.scatter_(1, dest, mv.keys.values.to(kt))
+            vals.scatter_(1, dest, mv.values.values.to(vt))
+            vv.scatter_(1, dest, mv.values.elem_valid)
+            base = base + ln
+        out = _map_val(keys[:, :w], vals[:, :w], vv[:, :w],
+                       total.to(torch.int32))
+        check_map_keys(out.keys.elem_valid, out.keys.elem_valid,
+                       out.keys.values, live & valid)
+        return DVal(out, valid, dt)
+
+
+class MapFromArrays(Expression):
+    """map_from_arrays(keys, values): NULL where either array is; arrays
+    of different lengths, a NULL key or a key twice raise (Spark's
+    defaults; the reference keeps duplicate keys: ROADMAP.md Queue C)."""
+
+    def __init__(self, keys, values):
+        self.children = [keys, values]
+
+    def data_type(self, schema):
+        return MapType(_elem_type(self.children[0].data_type(schema)),
+                       _elem_type(self.children[1].data_type(schema)))
+
+    def device_unsupported_reason(self, schema):
+        for c in self.children:
+            dt = c.data_type(schema)
+            if not device_list_ok(dt):
+                return f"MapFromArrays over {dt.name} arrives with " \
+                       f"{NESTED_REST}"
+        return None
+
+    def eval_device(self, ctx):
+        a = self.children[0].eval_device(ctx)
+        b = self.children[1].eval_device(ctx)
+        valid = a.validity & b.validity
+        live = ctx.row_mask() & valid
+        ka, vb = a.data, b.data
+        bad = (ka.lengths != vb.lengths) & live
+        if bool(bad.any().item()):
+            raise ValueError("The key array and value array of MapData "
+                             "must have the same length.")
+        w = max(ka.values.shape[1], vb.values.shape[1])
+        pad = (0, w - ka.values.shape[1])
+        keys = torch.nn.functional.pad(ka.values, pad)
+        kev = torch.nn.functional.pad(ka.elem_valid, pad)
+        pad = (0, w - vb.values.shape[1])
+        lengths = torch.where(valid, ka.lengths, 0)
+        out = _map_val(keys, torch.nn.functional.pad(vb.values, pad),
+                       torch.nn.functional.pad(vb.elem_valid, pad), lengths)
+        check_map_keys(kev, out.keys.elem_valid, keys, live)
+        return DVal(out, valid, self.data_type(ctx.schema))
+
+
+class CreateMap(Expression):
+    """map(k1, v1, ..., kn, vn): never NULL itself; a NULL key or a key
+    twice raises (Spark's defaults; the reference keeps the last value of
+    a repeated key: ROADMAP.md Queue C)."""
+
+    def __init__(self, *children):
+        assert len(children) % 2 == 0, "CreateMap needs key/value pairs"
+        self.children = list(children)
+
+    def _types(self, schema):
+        def common(exprs):
+            t = NULLTYPE
+            for c in exprs:
+                d = c.data_type(schema)
+                if d != NULLTYPE:
+                    t = d if t == NULLTYPE else promote_types(t, d)
+            return t
+        return common(self.children[::2]), common(self.children[1::2])
+
+    def data_type(self, schema):
+        return MapType(*self._types(schema))
+
+    def device_unsupported_reason(self, schema):
+        if not self.children:
+            return f"an empty map() arrives with {NESTED_REST}"
+        if width_bucket(len(self.children) // 2) is None:
+            return (f"map() of {len(self.children) // 2} entries is wider "
+                    f"than the device rectangle ({WIDTH_BUCKETS[-1]}); it "
+                    f"arrives with {NESTED_REST}")
+        return _map_reason(self.data_type(schema), "CreateMap")
+
+    def eval_device(self, ctx):
+        kt, vt = self._types(ctx.schema)
+        ks = [c.eval_device(ctx) for c in self.children[::2]]
+        vs = [c.eval_device(ctx) for c in self.children[1::2]]
+        k = len(ks)
+        w = width_bucket(k)
+        p = ctx.padded_len
+
+        def rect(vals, dt, fill):
+            tdt = torch_dtype(dt)
+            cols = [v.data.to(tdt).expand(p) for v in vals]
+            cols += [torch.zeros(p, dtype=tdt, device=ctx.device)] * (w - k)
+            oks = [v.validity.expand(p) for v in vals]
+            oks += [torch.full((p,), fill, device=ctx.device)] * (w - k)
+            return torch.stack(cols, dim=1), torch.stack(oks, dim=1)
+        keys, kev = rect(ks, kt, False)
+        vals, vev = rect(vs, vt if vt != NULLTYPE else INT32, False)
+        lengths = torch.full((p,), k, dtype=torch.int32, device=ctx.device)
+        out = _map_val(keys, vals, vev, lengths)
+        check_map_keys(kev, out.keys.elem_valid, keys, ctx.row_mask())
+        return DVal(out, torch.ones(p, dtype=torch.bool, device=ctx.device),
+                    self.data_type(ctx.schema))

@@ -6,7 +6,8 @@ The reference traces an operator's expressions into one jitted XLA kernel
 per shape bucket; here they run eagerly as torch ops on the batch's
 device, with no kernel cache. Compaction keeps the surviving rows in
 order with one index gather per column; a list column's rows move as
-rows of its rectangle (columnar/nested.py).
+rows of its rectangle, a map's as rows of its two, a struct's as its
+fields' rows (columnar/nested.py).
 """
 from __future__ import annotations
 
@@ -18,34 +19,64 @@ import torch
 
 from ..columnar import (ByteRectColumn, ColumnarBatch, DeviceColumn,
                         DictColumn, HostColumn, ListColumn)
-from ..columnar.nested import list_column
+from ..columnar.nested import (MapColumn, StructColumn, list_column,
+                               map_column, null_rows, take_rows, zero_rows)
 from ..columnar.strrect import RECT_MAX_BYTES
 from ..types import BOOL, STRING, Schema
 from .base import (ColumnRef, DVal, EvalContext, Expression, ListVal,
-                   Literal, StrVal)
+                   Literal, MapVal, StrVal, StructVal)
 from .comparison import EqualTo, In, in_null_rule
 
 __all__ = ["DeviceProjector", "batch_dvals", "filter_batch_by_mask",
-           "gather_batch",
+           "gather_batch", "dval_column", "column_dval",
            "compile_rect_chain", "DictFilterFallback", "DictFilterEvaluator",
            "build_dict_filter"]
 
 
+def column_dval(c) -> Optional[DVal]:
+    """A column's DVal: a StrVal for a byte rectangle, a ListVal for a
+    list column, a MapVal for a map, a StructVal (its fields' columns)
+    for a struct; None for a host column. A string column's DVal carries
+    the column too."""
+    if isinstance(c, MapColumn):
+        k, v = c.keys, c.values
+        return DVal(MapVal(ListVal(k.data, k.elem_valid, k.lengths),
+                           ListVal(v.data, v.elem_valid, v.lengths)),
+                    c.validity, c.dtype)
+    if isinstance(c, StructColumn):
+        return DVal(StructVal(tuple(c.children)), c.validity, c.dtype)
+    if isinstance(c, ListColumn):
+        return DVal(ListVal(c.data, c.elem_valid, c.lengths), c.validity,
+                    c.dtype)
+    if isinstance(c, ByteRectColumn):
+        return DVal(StrVal(c.data, c.lengths), c.validity, STRING, c)
+    if isinstance(c, DictColumn):
+        return DVal(c.data, c.validity, STRING, c)
+    if isinstance(c, DeviceColumn):
+        return DVal(c.data, c.validity, c.dtype)
+    return None
+
+
 def batch_dvals(batch: ColumnarBatch) -> List:
-    """Per column a DVal (a StrVal for a byte rectangle, a ListVal for a
-    list column), None for host columns."""
-    out = []
-    for c in batch.columns:
-        if isinstance(c, ListColumn):
-            out.append(DVal(ListVal(c.data, c.elem_valid, c.lengths),
-                            c.validity, c.dtype))
-        elif isinstance(c, ByteRectColumn):
-            out.append(DVal(StrVal(c.data, c.lengths), c.validity, STRING))
-        elif isinstance(c, DeviceColumn):
-            out.append(DVal(c.data, c.validity, c.dtype))
-        else:
-            out.append(None)
-    return out
+    """Per column its DVal (``column_dval``), None for host columns."""
+    return [column_dval(c) for c in batch.columns]
+
+
+def dval_column(v: DVal, valid: torch.Tensor, dtype):
+    """The column of a value (validity ``valid``): a list, map or struct
+    value as its nested column, a string value's column (``DVal.column``)
+    with its validity, else a DeviceColumn."""
+    d = v.data
+    if isinstance(d, ListVal):
+        return list_column(*d, valid, dtype)
+    if isinstance(d, MapVal):
+        return map_column(d.keys.values, d.keys.elem_valid, d.values.values,
+                          d.values.elem_valid, d.keys.lengths, valid, dtype)
+    if isinstance(d, StructVal):
+        return StructColumn(list(d.fields), valid, dtype)
+    if v.column is not None:
+        return null_rows(v.column, valid)
+    return DeviceColumn(d, valid, dtype)
 
 
 class DeviceProjector:
@@ -67,11 +98,8 @@ class DeviceProjector:
         for e, dt in zip(self.exprs, self.out_types):
             v = e.eval_device(ctx)
             # padding rows are always invalid
-            valid = torch.logical_and(v.validity, mask)
-            if isinstance(v.data, ListVal):
-                out.append(list_column(*v.data, valid, dt))
-            else:
-                out.append(DeviceColumn(v.data, valid, dt))
+            out.append(dval_column(v, torch.logical_and(v.validity, mask),
+                                   dt))
         return out
 
 
@@ -90,10 +118,8 @@ def filter_batch_by_mask(batch: ColumnarBatch,
     np_idx = None
     cols = []
     for c in batch.columns:
-        if isinstance(c, (ByteRectColumn, ListColumn)):
-            cols.append(c.gather(idx))
-        elif isinstance(c, DeviceColumn):
-            cols.append(c.with_arrays(c.data[idx], c.validity[idx]))
+        if isinstance(c, DeviceColumn):
+            cols.append(take_rows(c, idx))
         else:
             if np_idx is None:
                 np_idx = idx.cpu().numpy()
@@ -126,30 +152,10 @@ def gather_batch(batch: ColumnarBatch, idx: torch.Tensor,
             valid = (c.validity[take] if src_rows else
                      np.zeros(n, bool)) & ok
             cols.append(HostColumn(vals, valid, c.dtype))
-            continue
-        if not src_rows:
-            data = torch.zeros((n,) + tuple(c.data.shape[1:]),
-                               dtype=c.data.dtype, device=c.data.device)
-            valid = torch.zeros(n, dtype=torch.bool, device=c.data.device)
+        elif not src_rows:
+            cols.append(zero_rows(c, n))
         else:
-            data, valid = c.data[safe], c.validity[safe] & ~null
-            keep = valid.reshape((n,) + (1,) * (data.dim() - 1))
-            data = torch.where(keep, data, torch.zeros((), dtype=data.dtype,
-                                                       device=data.device))
-        if isinstance(c, (ByteRectColumn, ListColumn)):
-            lens = c.lengths[safe] if src_rows else torch.zeros(
-                n, dtype=c.lengths.dtype, device=c.lengths.device)
-            lens = torch.where(valid, lens, torch.zeros_like(lens))
-            if isinstance(c, ListColumn):
-                ev = c.elem_valid[safe] if src_rows else torch.zeros(
-                    data.shape, dtype=torch.bool, device=data.device)
-                cols.append(ListColumn(data, valid, c.dtype,
-                                       torch.logical_and(ev, valid[:, None]),
-                                       lens))
-            else:
-                cols.append(ByteRectColumn(data, valid, lens, c.ascii_only))
-        else:
-            cols.append(c.with_arrays(data, valid))
+            cols.append(null_rows(take_rows(c, safe), ~null))
     return ColumnarBatch(cols, n, schema if schema is not None
                          else batch.schema)
 

@@ -9,13 +9,14 @@ among that row's outputs (``pos``):
 
   * ``explode(list)``: a row's elements, flattened out of the rectangle
     by their slots (``outer``: one all-NULL row for a NULL or empty list);
+  * ``explode(map)``: a row's entries as ``key, value`` columns, out of
+    the map's two rectangles by the same slots (``posexplode``: ``pos,
+    key, value``);
   * ``explode(sequence(a, b[, step]))``: the values ``a + pos * step``
     straight from each row's count, with no rectangle and no width cap;
     INTERSECT ALL / EXCEPT ALL replicate rows by it;
   * ``stack(n, e1, ..., ek)``: n rows of ceil(k / n) columns a row, the
     values taken from the expressions evaluated once over the batch.
-
-``explode`` of a map is refused at planning (``NESTED_REST``).
 """
 from __future__ import annotations
 
@@ -24,8 +25,9 @@ from typing import List, Optional
 import torch
 
 from ..types import (INT32, NESTED_REST, NULLTYPE, ArrayType, DataType,
-                     MapType, Schema, StructField, device_list_ok)
-from .base import DVal, Expression, Unsupported
+                     MapType, Schema, StructField, device_list_ok,
+                     device_map_ok, nested_reason)
+from .base import DVal, Expression, MapVal, Unsupported
 from .collection_fns import Sequence, sequence_counts, sequence_error
 
 __all__ = ["Generator", "Explode", "PosExplode", "Stack"]
@@ -79,9 +81,11 @@ class Explode(Generator):
 
     def device_unsupported_reason(self, schema: Schema) -> Optional[str]:
         dt = self.children[0].data_type(schema)
+        if isinstance(dt, MapType) and device_map_ok(dt):
+            return None
         if isinstance(dt, MapType) or not device_list_ok(dt):
-            return (f"{type(self).__name__} of {dt.name} arrives with "
-                    f"{NESTED_REST}")
+            return (f"{type(self).__name__} of {dt.name}: "
+                    + (nested_reason(dt) or f"arrives with {NESTED_REST}"))
         return None
 
     def fully_device_supported(self, schema: Schema) -> Optional[str]:
@@ -109,7 +113,8 @@ class Explode(Generator):
             n_bad = bad.sum()
         else:
             v = self.children[0].eval_device(ctx)
-            count = torch.where(v.validity & live, v.data.lengths, 0) \
+            lv = v.data.keys if isinstance(v.data, MapVal) else v.data
+            count = torch.where(v.validity & live, lv.lengths, 0) \
                 .to(torch.int64)
             state = ("list", v.data, count)
             n_bad = torch.zeros((), dtype=torch.int64, device=count.device)
@@ -120,21 +125,23 @@ class Explode(Generator):
     def error(self) -> Exception:
         return sequence_error(self._sequence().children)
 
-    def _element(self, state, rep, pos) -> List[DVal]:
-        """(value, pos) DVals of the output rows."""
+    def _element(self, state, rep, pos):
+        """(the output rows' values: the element, or a map's key and
+        value; which rows hold one)."""
         if state[0] == "seq":
             _, start, step, count = state
             inside = pos < count[rep]
-            return [DVal(start[rep] + pos * step[rep], inside, None), inside]
-        _, lv, count = state
+            return [DVal(start[rep] + pos * step[rep], inside, None)], \
+                inside
+        _, val, count = state
         inside = pos < count[rep]
-        j = pos.clamp(0, lv.values.shape[1] - 1)
+        lvs = val if isinstance(val, MapVal) else [val]
+        j = pos.clamp(0, lvs[0].values.shape[1] - 1)
         return [DVal(lv.values[rep, j], lv.elem_valid[rep, j] & inside,
-                     None), inside]
+                     None) for lv in lvs], inside
 
     def outputs(self, state, rep, pos) -> List[DVal]:
-        v, _ = self._element(state, rep, pos)
-        return [v]
+        return self._element(state, rep, pos)[0]
 
     def key(self):
         return f"Explode({self.children[0].key()},outer={self.outer})"
@@ -152,8 +159,8 @@ class PosExplode(Explode):
             + super().generator_output(schema)
 
     def outputs(self, state, rep, pos) -> List[DVal]:
-        v, inside = self._element(state, rep, pos)
-        return [DVal(pos.to(torch.int32), inside, INT32), v]
+        vals, inside = self._element(state, rep, pos)
+        return [DVal(pos.to(torch.int32), inside, INT32)] + vals
 
     def key(self):
         return f"PosExplode({self.children[0].key()},outer={self.outer})"

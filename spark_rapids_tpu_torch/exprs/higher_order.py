@@ -16,9 +16,13 @@ enclosing scope like any other (``_outer_refs``).
 evaluation over the P rows a position, each row's accumulator left as
 it is past its length: a row's fold adds its elements in the order the
 reference's does. Its merge must give the zero's type, as Spark's
-analyzer requires. The map forms (``transform_keys``,
-``transform_values``, ``map_filter``) are refused at planning
-(``NESTED_REST``).
+analyzer requires.
+
+The map forms (``transform_keys``, ``transform_values``, ``map_filter``)
+bind ``(k, v)`` to the map's two rectangles over the same P·W slots and
+``live`` mask. ``transform_keys`` raises where a new key is NULL or
+repeats in a row (Spark's ``mapKeyDedupPolicy`` EXCEPTION; the
+reference does not check repeats: ROADMAP.md Queue C).
 """
 from __future__ import annotations
 
@@ -28,9 +32,12 @@ from typing import List, Optional
 import torch
 
 from ..types import (BOOL, INT32, NESTED_REST, ArrayType, DataType, MapType,
-                     Schema, StructField, device_list_ok)
-from .base import ColumnRef, DVal, EvalContext, Expression, ListVal, StrVal
-from .collection_fns import _elem_type, in_list
+                     Schema, StructField, device_list_ok, device_map_ok,
+                     nested_reason)
+from ..columnar.nested import take_rows
+from .base import (ColumnRef, DVal, EvalContext, Expression, ListVal, MapVal,
+                   StrVal, StructVal)
+from .collection_fns import _elem_type, _map_val, check_map_keys, in_list
 
 __all__ = ["NamedLambdaVariable", "ArrayTransform", "ArrayFilter",
            "ArrayExists", "ArrayForAll", "ArrayAggregate", "ZipWith",
@@ -58,7 +65,14 @@ class NamedLambdaVariable(ColumnRef):
 def _repeat(v: DVal, w: int) -> DVal:
     """``v`` with each row repeated ``w`` times."""
     d = v.data
-    if isinstance(d, (ListVal, StrVal)):
+    if isinstance(d, StructVal):
+        idx = torch.arange(v.validity.shape[0], device=v.validity.device) \
+            .repeat_interleave(w)
+        d = StructVal(tuple(take_rows(c, idx) for c in d.fields))
+    elif isinstance(d, MapVal):
+        d = MapVal(*(ListVal(*(t.repeat_interleave(w, dim=0) for t in lv))
+                     for lv in d))
+    elif isinstance(d, (ListVal, StrVal)):
         d = type(d)(*(t.repeat_interleave(w, dim=0) for t in d))
     else:
         d = d.repeat_interleave(w, dim=0)
@@ -369,7 +383,8 @@ class ArrayAggregate(_HigherOrder):
 
 
 class _MapHigherOrder(_HigherOrder):
-    """A higher-order function over a map: refused at planning."""
+    """A higher-order function over a map: ``(k, v)`` bound to the keys'
+    and the values' slots (module doc)."""
 
     def __init__(self, m, args, body):
         self.children = [m, body]
@@ -386,16 +401,87 @@ class _MapHigherOrder(_HigherOrder):
         return self.children[0].data_type(schema)
 
     def device_unsupported_reason(self, schema):
-        return f"{type(self).__name__} arrives with {NESTED_REST}"
+        self._bind_types(schema)
+        dt = self.children[0].data_type(schema)
+        if not isinstance(dt, MapType) or not device_map_ok(dt):
+            return (f"{type(self).__name__} over {dt.name}: "
+                    + (nested_reason(dt) or "expected a map"))
+        return self._result_reason(schema)
+
+    def _results(self, ctx):
+        """(map DVal, the body's data and validity as [P, W] tensors, the
+        slots inside each row)."""
+        m = self.children[0].eval_device(ctx)
+        keys, vals = m.data
+        p, w = keys.values.shape
+        inside = in_list(keys)
+        live = (inside & (ctx.row_mask() & m.validity)[:, None]).reshape(-1)
+        scope = self._scope(ctx, [
+            (self.args[0], DVal(keys.values.reshape(-1),
+                                keys.elem_valid.reshape(-1),
+                                self.args[0]._dtype)),
+            (self.args[1], DVal(vals.values.reshape(-1),
+                                vals.elem_valid.reshape(-1),
+                                self.args[1]._dtype))], w, p * w, live)
+        res = self.body.eval_device(scope)
+        return m, res.data.reshape(p, w), res.validity.reshape(p, w), \
+            inside, live.reshape(p, w)
 
 
 class TransformKeys(_MapHigherOrder):
-    pass
+    """transform_keys(map, (k, v) -> f): a NULL new key or a repeated one
+    raises (module doc)."""
+
+    def data_type(self, schema):
+        self._bind_types(schema)
+        return MapType(self.body.data_type(schema),
+                       self.children[0].data_type(schema).value)
+
+    def eval_device(self, ctx):
+        m, data, valid, inside, live = self._results(ctx)
+        check_map_keys(valid, inside, data, live.any(dim=1))
+        vals = m.data.values
+        return DVal(_map_val(data, vals.values, vals.elem_valid,
+                             m.data.keys.lengths),
+                    m.validity, self.data_type(ctx.schema))
 
 
 class TransformValues(_MapHigherOrder):
-    pass
+    """transform_values(map, (k, v) -> f)."""
+
+    def data_type(self, schema):
+        self._bind_types(schema)
+        return MapType(self.children[0].data_type(schema).key,
+                       self.body.data_type(schema))
+
+    def eval_device(self, ctx):
+        m, data, valid, inside, _ = self._results(ctx)
+        keys = m.data.keys
+        return DVal(_map_val(keys.values, data, valid & inside,
+                             keys.lengths),
+                    m.validity, self.data_type(ctx.schema))
 
 
 class MapFilter(_MapHigherOrder):
-    pass
+    """map_filter(map, (k, v) -> p): the entries whose predicate is TRUE,
+    in order."""
+
+    def _result_reason(self, schema):
+        if self.body.data_type(schema) != BOOL:
+            return "MapFilter: the lambda must give a boolean"
+        return None
+
+    def eval_device(self, ctx):
+        m, data, valid, inside, _ = self._results(ctx)
+        keys, vals = m.data
+        keep = data & valid & inside
+        p, w = keys.values.shape
+        dest = torch.where(keep, torch.cumsum(keep, dim=1) - 1, w)
+
+        def packed(t):
+            out = torch.zeros((p, w + 1), dtype=t.dtype, device=t.device)
+            return out.scatter_(1, dest, t)[:, :w]
+        return DVal(_map_val(packed(keys.values), packed(vals.values),
+                             packed(vals.elem_valid),
+                             keep.sum(dim=1).to(torch.int32)),
+                    m.validity, self.data_type(ctx.schema))

@@ -8,9 +8,10 @@ the host tier the same batch with every tensor copied to host memory
 (pinned when it comes from a card); the disk tier the host batch in the
 port's own byte layout (``_encode``), written through the native slab
 store (mem/native_spill.py) or, where no g++ built it, to one file a
-batch. A dictionary column's dictionary, a byte rectangle's lengths
-and ``ascii_only`` flag, and a list column's element validity, lengths
-and element type survive both tiers.
+batch. Every device column moves as its tensors and the meta that
+rebuilds it (columnar/nested.py ``parts``: a dictionary, a byte
+rectangle's ``ascii_only`` flag, a struct's fields), so a column of any
+layout survives both tiers.
 """
 from __future__ import annotations
 
@@ -23,10 +24,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..columnar import (ByteRectColumn, ColumnarBatch, DeviceColumn,
-                        DictColumn, HostColumn, ListColumn)
+from ..columnar import ColumnarBatch, DeviceColumn, HostColumn
+from ..columnar.nested import from_parts, parts
 from ..types import (BOOL, DATE, FLOAT32, FLOAT64, INT8, INT16, INT32, INT64,
-                     STRING, TIMESTAMP, ArrayType)
+                     STRING, TIMESTAMP)
 from .manager import MemoryManager
 
 __all__ = ["SpillableBatch", "SpillPriorities"]
@@ -46,17 +47,13 @@ class SpillPriorities:
 
 def _move_batch(batch: ColumnarBatch, move) -> ColumnarBatch:
     """``batch`` with ``move`` applied to every tensor of its columns;
-    dictionaries, lengths and flags ride along."""
+    dictionaries and flags ride along in the meta."""
     cols = []
     for c in batch.columns:
-        if isinstance(c, ByteRectColumn):
-            cols.append(ByteRectColumn(move(c.data), move(c.validity),
-                                       move(c.lengths), c.ascii_only))
-        elif isinstance(c, ListColumn):
-            cols.append(ListColumn(move(c.data), move(c.validity), c.dtype,
-                                   move(c.elem_valid), move(c.lengths)))
-        elif isinstance(c, DeviceColumn):
-            cols.append(c.with_arrays(move(c.data), move(c.validity)))
+        if isinstance(c, DeviceColumn):
+            tensors, meta = parts(c)
+            cols.append(from_parts(meta, c.dtype,
+                                   iter([move(t) for t in tensors])))
         else:
             cols.append(c)
     return ColumnarBatch(cols, batch.num_rows, batch.schema)
@@ -74,9 +71,9 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
 
 def _encode(batch: ColumnarBatch) -> np.ndarray:
     """A host batch as one uint8 buffer: an 8-byte little-endian header
-    length, the JSON header (per column its kind, dtype, arrays' dtype,
-    shape and offset, dictionary or values), then every array at a
-    64-byte aligned offset."""
+    length, the JSON header (per column its dtype, its meta or a host
+    column's values, and its arrays' dtype and shape; every array's
+    offset), then every array at a 64-byte aligned offset."""
     arrays: List[np.ndarray] = []
     cols = []
 
@@ -87,21 +84,11 @@ def _encode(batch: ColumnarBatch) -> np.ndarray:
         return [a.dtype.str, list(a.shape)]
 
     for c in batch.columns:
-        if isinstance(c, ByteRectColumn):
-            cols.append({"kind": "rect", "ascii_only": c.ascii_only,
-                         "arrays": [put(c.data), put(c.validity),
-                                    put(c.lengths)]})
-        elif isinstance(c, ListColumn):
-            cols.append({"kind": "list", "dtype": c.dtype.element.name,
-                         "arrays": [put(c.data), put(c.validity),
-                                    put(c.elem_valid), put(c.lengths)]})
-        elif isinstance(c, DictColumn):
-            cols.append({"kind": "dict", "dtype": c.dtype.name,
-                         "dictionary": [str(x) for x in c.dictionary],
-                         "arrays": [put(c.data), put(c.validity)]})
-        elif isinstance(c, DeviceColumn):
+        if isinstance(c, DeviceColumn):
+            tensors, meta = parts(c)
             cols.append({"kind": "device", "dtype": c.dtype.name,
-                         "arrays": [put(c.data), put(c.validity)]})
+                         "meta": _json_meta(meta),
+                         "arrays": [put(t) for t in tensors]})
         else:
             cols.append({"kind": "host", "dtype": c.dtype.name,
                          "values": [None if not ok else x for x, ok in
@@ -123,6 +110,24 @@ def _encode(batch: ColumnarBatch) -> np.ndarray:
     return buf
 
 
+def _json_meta(meta: tuple):
+    """A nested column's meta (columnar/nested.py ``parts``) in JSON: a
+    dictionary as its strings."""
+    if meta[0] == "struct":
+        return ["struct", [_json_meta(m) for m in meta[1]]]
+    if meta[0] == "dict":
+        return ["dict", [str(x) for x in meta[1]]]
+    return list(meta)
+
+
+def _meta_from_json(meta: list) -> tuple:
+    if meta[0] == "struct":
+        return ("struct", [_meta_from_json(m) for m in meta[1]])
+    if meta[0] == "dict":
+        return ("dict", np.array(meta[1], dtype=object))
+    return tuple(meta)
+
+
 def _decode(buf, schema) -> ColumnarBatch:
     """``_encode``'s buffer back to a host batch of ``schema``."""
     raw = np.frombuffer(buf, dtype=np.uint8)
@@ -138,19 +143,13 @@ def _decode(buf, schema) -> ColumnarBatch:
         return raw[off:off + n].view(dt).reshape(shape)
 
     cols = []
-    for c in header["columns"]:
+    for c, f in zip(header["columns"], schema.fields):
         arrs = [take(s) for s in c["arrays"]]
-        t = [torch.from_numpy(a) for a in arrs]
-        if c["kind"] == "rect":
-            cols.append(ByteRectColumn(t[0], t[1], t[2], c["ascii_only"]))
-        elif c["kind"] == "list":
-            cols.append(ListColumn(t[0], t[1], ArrayType(_TYPES[c["dtype"]]),
-                                   t[2], t[3]))
-        elif c["kind"] == "dict":
-            cols.append(DictColumn(t[0], t[1], _TYPES[c["dtype"]],
-                                   np.array(c["dictionary"], dtype=object)))
-        elif c["kind"] == "device":
-            cols.append(DeviceColumn(t[0], t[1], _TYPES[c["dtype"]]))
+        if c["kind"] == "device":
+            # a nested column's type is the schema's; a flat one's its own
+            cols.append(from_parts(
+                _meta_from_json(c["meta"]), _TYPES.get(c["dtype"], f.dtype),
+                iter([torch.from_numpy(a) for a in arrs])))
         else:
             cols.append(HostColumn(np.array(c["values"], dtype=object),
                                    arrs[0], _TYPES[c["dtype"]]))

@@ -22,9 +22,9 @@ the execs take them as dictionary columns and refuse other forms when
 the batch arrives. A window prunes its child to the columns its
 expressions and its parent read; where the reference tags a window for
 its host engine (list payloads or keys), the port raises at planning.
-List columns ride through projections, filters, joins, sorts and
-generators as payloads; a list as a group, sort, join or window key is
-refused at planning (``NESTED_REST``).
+List, map and struct columns ride through projections, filters, joins,
+sorts and generators as payloads; a list, map or struct as a group,
+sort, join or window key is refused at planning (``NESTED_REST``).
 """
 from __future__ import annotations
 
@@ -37,7 +37,8 @@ from ..exec import basic as B
 from ..exec import sort as S
 from ..exec.base import TpuExec
 from ..exprs.base import Alias, ColumnRef, Expression
-from ..types import NESTED_REST, STRING, ArrayType, Schema, device_list_ok
+from ..types import (NESTED_REST, STRING, ArrayType, MapType, Schema,
+                     StructType, device_column_ok, nested_reason)
 from . import logical as L
 from .meta import PlanMeta
 
@@ -295,11 +296,14 @@ class ParquetScanMeta(PlanMeta):
 
 def _computed_string(e, schema: Schema) -> bool:
     """``e`` is a string chain over one STRING column (``upper(trim(s))``)
-    and not the column itself: a projection computes it below an
-    aggregate or a sort that keys on it."""
+    or a string field of a struct, and not a column itself: a projection
+    computes it below an aggregate or a sort that keys on it, so that
+    its batches' dictionaries are unified as a column's are."""
+    from ..exprs.collection_fns import GetStructField
     from ..exprs.string_rect import chain_leaf
     return e.data_type(schema) == STRING and not isinstance(e, ColumnRef) \
-        and chain_leaf(e, schema) is not None
+        and (isinstance(e, GetStructField)
+             or chain_leaf(e, schema) is not None)
 
 
 @rule(L.Project)
@@ -364,8 +368,11 @@ class FilterMeta(PlanMeta):
 
 
 def _list_key_reason(e: Expression, schema) -> Optional[str]:
-    if isinstance(e.data_type(schema), ArrayType):
-        return f"a list as a key arrives with {NESTED_REST}"
+    dt = e.data_type(schema)
+    if isinstance(dt, (ArrayType, MapType, StructType)):
+        kind = {ArrayType: "list", MapType: "map",
+                StructType: "struct"}[type(dt)]
+        return f"a {kind} as a key arrives with {NESTED_REST}"
     return None
 
 
@@ -503,9 +510,14 @@ class AggregateMeta(PlanMeta):
                     and node.condition.fully_device_supported(
                         node.children[0].output_schema()) is None):
                 stages.append(("filter", node.condition))
-            elif isinstance(node, B.TpuProjectExec) and not node.chains:
-                # a string chain stays its own exec: its result's layout
-                # (dictionary or rectangle) is known only per batch
+            elif isinstance(node, B.TpuProjectExec) and not node.chains \
+                    and not any(_computed_string(
+                        e.children[0] if isinstance(e, Alias) else e,
+                        node.children[0].output_schema())
+                        for e in node.exprs):
+                # a string chain, or a string field of a struct, stays its
+                # own exec: its result's layout (dictionary or rectangle)
+                # is known only per batch
                 stages.append(("project", node.exprs, node.output_schema()))
             else:
                 break
@@ -548,11 +560,11 @@ def _source_column(plan: L.LogicalPlan, name: str):
 
 
 def _position_card(plan: L.LogicalPlan, name: str) -> Optional[int]:
-    """The longest list an exploded position ``name`` of ``plan`` can come
-    from, when it is a posexplode's ``pos`` over a list column of an
-    in-memory scan (each host list keeps its longest row), else None: a
-    list computed in the query takes the sort route."""
-    from ..columnar.nested import HostList
+    """The longest list or map an exploded position ``name`` of ``plan``
+    can come from, when it is a posexplode's ``pos`` over a list or map
+    column of an in-memory scan (each host list or map keeps its longest
+    row), else None: one computed in the query takes the sort route."""
+    from ..columnar.nested import HostList, HostMap
     from ..exprs.generators import PosExplode
     plan, name = _source_column(plan, name)
     if not isinstance(plan, L.Generate) or not isinstance(
@@ -566,7 +578,7 @@ def _position_card(plan: L.LogicalPlan, name: str) -> Optional[int]:
     if not isinstance(scan, L.LogicalScan):
         return None
     lists = [t.columns[col][0] for t in scan.tables]
-    if not all(isinstance(hl, HostList) for hl in lists):
+    if not all(isinstance(hl, (HostList, HostMap)) for hl in lists):
         return None
     return max([hl.longest for hl in lists] + [1])
 
@@ -581,10 +593,10 @@ class SortMeta(PlanMeta):
                 self.will_not_work_on_tpu(
                     f"sort key <{o.expr.name_hint}>: {r}")
         for f in schema.fields:
-            if not (f.dtype.device_backed or f.dtype == STRING
-                    or device_list_ok(f.dtype)):
+            if not device_column_ok(f.dtype):
                 self.will_not_work_on_tpu(
-                    f"column {f.name}: {f.dtype.name} payload is host-only")
+                    f"column {f.name}: {f.dtype.name} payload: "
+                    + (nested_reason(f.dtype) or "host-only"))
         r = _row_numbering_reason([o.expr for o in self.plan.orders],
                                   "a sort key")
         if r:

@@ -5,8 +5,10 @@ A device column is a torch tensor per column plus a bool validity tensor;
 STRING and BINARY have no fixed-width device layout of their own (strings
 ride as dictionary codes or byte rectangles, columnar/), and decimals wait
 for a later slice. An ARRAY of a fixed-width element lives on the device
-as a rectangle (columnar/nested.py); maps, structs and arrays of other
-elements are types the planner refuses (``NESTED_REST``).
+as a rectangle, a MAP of fixed-width keys and values as two rectangles
+over one set of lengths, and a STRUCT as its fields' device columns
+(columnar/nested.py); string-keyed maps, lists of strings or lists and
+the other nested forms are types the planner refuses (``NESTED_REST``).
 """
 from __future__ import annotations
 
@@ -22,11 +24,13 @@ __all__ = [
     "TIMESTAMP", "NULLTYPE", "StructField", "Schema", "TypeSig", "TypeEnum",
     "from_numpy_dtype", "from_arrow", "to_arrow", "torch_dtype",
     "ArrayType", "MapType", "StructType", "device_list_ok", "NESTED_REST",
+    "device_map_ok", "device_struct_ok", "device_column_ok", "map_parts",
+    "entries_type", "nested_reason",
 ]
 
-#: where the nested constructs the port refuses arrive (maps, structs,
-#: the host-only array functions, collect_list/collect_set, JSON, nested
-#: Parquet columns, lists past the rectangle's caps)
+#: where the nested constructs the port refuses arrive (string-keyed maps,
+#: lists of strings or lists, the host-only array functions, JSON, nested
+#: Parquet columns, lists past the rectangle's caps, nested keys)
 NESTED_REST = "slice 9b, the rest (ROADMAP.md Queue A)"
 
 
@@ -103,6 +107,12 @@ class StructType(DataType):
                                          for f in self.fields) + ">"
         self.np_dtype = None
 
+    def names(self):
+        return [f.name for f in self.fields]
+
+    def index_of(self, name: str) -> int:
+        return self.names().index(name)
+
     def __eq__(self, other):
         return isinstance(other, StructType) and other.fields == self.fields
 
@@ -141,6 +151,60 @@ class MapType(DataType):
 def device_list_ok(dt: DataType) -> bool:
     """``dt`` is an array of a fixed-width element: a device rectangle."""
     return isinstance(dt, ArrayType) and dt.element.np_dtype is not None
+
+
+def entries_type(key: DataType, value: DataType) -> "ArrayType":
+    """``map_entries``' type: an array of (key, value) structs."""
+    return ArrayType(StructType([StructField("key", key, False),
+                                 StructField("value", value)]))
+
+
+def map_parts(dt: DataType):
+    """(key type, value type) of a map, or of a map's entries (an array of
+    ``struct<key, value>``, which the device holds as a map); else None."""
+    if isinstance(dt, MapType):
+        return dt.key, dt.value
+    if isinstance(dt, ArrayType) and isinstance(dt.element, StructType) \
+            and [f.name for f in dt.element.fields] == ["key", "value"]:
+        return dt.element.fields[0].dtype, dt.element.fields[1].dtype
+    return None
+
+
+def device_map_ok(dt: DataType) -> bool:
+    """``dt`` is a map (or a map's entries) whose keys and values are
+    fixed-width: two rectangles over one set of lengths."""
+    kv = map_parts(dt)
+    return kv is not None and all(t.np_dtype is not None for t in kv)
+
+
+def device_struct_ok(dt: DataType) -> bool:
+    """``dt`` is a struct whose every field has a device column."""
+    return isinstance(dt, StructType) and all(
+        device_column_ok(f.dtype) for f in dt.fields)
+
+
+def device_column_ok(dt: DataType) -> bool:
+    """``dt`` has a device column: a fixed-width type, a string (a
+    dictionary or a byte rectangle), a list, a map or a struct of them."""
+    return (dt.device_backed or dt == STRING or device_list_ok(dt)
+            or device_map_ok(dt) or device_struct_ok(dt))
+
+
+def nested_reason(dt: DataType) -> Optional[str]:
+    """Why a nested type has no device column (naming its queue entry),
+    None when it has one or is not nested."""
+    if isinstance(dt, MapType) and not device_map_ok(dt):
+        return (f"a map of {dt.key.name} keys and {dt.value.name} values "
+                f"arrives with {NESTED_REST}")
+    if isinstance(dt, ArrayType) and not (device_list_ok(dt)
+                                          or device_map_ok(dt)):
+        return f"an array of {dt.element.name} arrives with {NESTED_REST}"
+    if isinstance(dt, StructType):
+        for f in dt.fields:
+            r = nested_reason(f.dtype)
+            if r:
+                return f"struct field {f.name}: {r}"
+    return None
 
 
 class TypeEnum:
@@ -250,6 +314,11 @@ def to_arrow(dt: DataType):
          "binary": pa.binary(), "void": pa.null()}
     if isinstance(dt, ArrayType):
         return pa.list_(to_arrow(dt.element))
+    if isinstance(dt, MapType):
+        return pa.map_(to_arrow(dt.key), to_arrow(dt.value))
+    if isinstance(dt, StructType):
+        return pa.struct([pa.field(f.name, to_arrow(f.dtype), f.nullable)
+                          for f in dt.fields])
     return m[dt.name]
 
 
