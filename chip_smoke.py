@@ -244,6 +244,36 @@ result line):
                 every group equal to Spark's definition in numpy. Each
                 cold and warm; (a) and (e) once more under
                 torch.profiler.
+ 18. strings in lists -- (after phase 17) slice 9b's rest, first part:
+                (a) words = split(l_comment, ' ') over SF1 lineitem, a
+                byte rectangle [P, W, B] a batch: sum(size(words)), the
+                rows where array_contains(words, 'special'), where
+                exists(words, w -> w LIKE 'furious%'), the words LIKE
+                '%ly' (filter), each equal to numpy's bytes.split(b' ')
+                (rect_match at least three times a batch), and
+                array_join(transform(words, w -> upper(w)), '-'): its
+                lengths summed over SF1 and its first batch byte-equal
+                (rect_transform once a batch); (b) by l_orderkey
+                collect_list(l_shipmode), collect_set(l_shipinstruct),
+                collect_list(struct(l_linenumber, l_quantity,
+                l_shipmode)), max_by(l_shipmode, l_extendedprice), each
+                list equal to numpy in arrival order; over them
+                array_distinct, array_union, array_intersect,
+                array_except against array('AIR', 'REG AIR'),
+                array_remove, arrays_overlap, arrays_zip, concat_arrays
+                with array_repeat, and a group-by on
+                array_join(sort_array(array_distinct(modes)), ','); (c)
+                phase 16's orders with o_modes (dictionary strings),
+                o_comments (a 64-byte rectangle) and o_items (structs)
+                at ingest, NULL and empty rows as its holes: posexplode
+                by pos (dense_groupby once a batch), exists(o_comments,
+                c -> c LIKE '%special%') (rect_match), explode(o_items)
+                filtered on a field; (d) str_to_map of a per-row text of
+                three pairs, grouped by element_at(m, 'mode'); (e) (c)'s
+                orders ORDER BY o_orderkey DESC out of core (sort_bucket
+                launches and buckets printed), every row's lists equal
+                after the sort. Each cold and warm; (a) and (b) once
+                more under torch.profiler.
 
 The data is generated here from a seed, with numpy only: this script
 imports neither JAX, pyarrow, pandas nor the JAX package. It prints a
@@ -6761,6 +6791,616 @@ def phase_maps_structs(card: str, batch_rows: int, table: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: slice 9b's rest, first part -- strings and structs inside lists
+# and maps, split, str_to_map and the host-engine array functions
+# ---------------------------------------------------------------------------
+
+#: TPC-H's l_shipinstruct domain (the spec's 4.2.2.13); gen_lineitem has no
+#: such column, so phase 18 draws one from its own seed
+SHIPINSTRUCT = ["COLLECT COD", "DELIVER IN PERSON", "NONE",
+                "TAKE BACK RETURN"]
+#: l_shipmode's domain, sorted (gen_lineitem's draws)
+SHIPMODES = sorted(["AIR", "MAIL", "RAIL", "SHIP", "TRUCK", "REG AIR",
+                    "FOB"])
+#: the literal list (b) sets the collected modes against
+MODE_PAIR = ("AIR", "REG AIR")
+#: phase 18 (e)'s batchSizeBytes: the orders with their lists (about
+#: 1.1 GB on the card) sort out of core
+NESTED18_SORT_BYTES = 128 << 20
+#: phase 18's scan cache: (c)'s orders (about 3.7 GB on the card) stay
+#: on the card between its queries, so a warm run reads no host table
+SCAN18_CACHE_BYTES = 16 << 30
+
+
+def gen_shipinstruct(n_rows: int, seed: int = SEED + 18) -> np.ndarray:
+    return np.array(SHIPINSTRUCT, "S17")[
+        np.random.RandomState(seed).randint(0, len(SHIPINSTRUCT), n_rows)]
+
+
+def _comment_rect(comment: np.ndarray):
+    """(uint8 [n, 64] rectangle, byte lengths) of ``gen_comment``'s
+    comments (none holds a 0x00 byte)."""
+    rect = np.ascontiguousarray(comment).view(np.uint8).reshape(
+        len(comment), -1)
+    return rect, (rect != 0).sum(axis=1)
+
+
+def _windows(rows: np.ndarray, pat: bytes) -> np.ndarray:
+    """bool [n, positions]: where ``pat`` starts in each row."""
+    m = rows.shape[1] - len(pat) + 1
+    hit = np.ones((rows.shape[0], m), bool)
+    for t, ch in enumerate(pat):
+        hit &= rows[:, t:t + m] == ch
+    return hit
+
+
+def _word_spans(comment: np.ndarray):
+    """``bytes.split(b' ')`` of every comment at once: (the comments'
+    bytes joined with one space after each, each word's start and
+    length in them, each word's row)."""
+    rect, lens = _comment_rect(comment)
+    n, w = rect.shape
+    keep = np.ones((n, w + 1), bool)
+    keep[:, :w] = np.arange(w)[None, :] < lens[:, None]
+    flat = np.concatenate([rect, np.full((n, 1), 32, np.uint8)],
+                          axis=1)[keep]
+    cut = np.flatnonzero(flat == 32)          # every word ends at one
+    start = np.concatenate([[0], cut[:-1] + 1])
+    row = np.searchsorted(np.cumsum(lens + 1) - 1, cut)
+    return flat, start, cut - start, row
+
+
+def _word_is(flat, start, length, word: bytes, prefix: bool = False,
+             at_end: bool = False) -> np.ndarray:
+    """bool per word: it equals ``word`` (``prefix``: starts with it;
+    ``at_end``: ends with it)."""
+    n = len(word)
+    at = np.flatnonzero(length >= n if (prefix or at_end)
+                        else length == n)
+    base = start[at] + (length[at] - n if at_end else 0)
+    for t, ch in enumerate(word):
+        keep = flat[base + t] == ch
+        at, base = at[keep], base[keep]
+    out = np.zeros(len(start), bool)
+    out[at] = True
+    return out
+
+
+def words18_numpy(comment: np.ndarray) -> dict:
+    """Case (a) in numpy, by ``bytes.split(b' ')``'s rules: a row's words
+    are the pieces between spaces (empty ones at a leading or trailing
+    space, or between two)."""
+    flat, start, length, row = _word_spans(comment)
+    n = len(comment)
+
+    def rows_with(hit):
+        return int(np.bincount(row[hit], minlength=n).astype(bool).sum())
+    return {"n_words": int(len(start)),
+            "special": rows_with(_word_is(flat, start, length,
+                                          b"special")),
+            "furious": rows_with(_word_is(flat, start, length, b"furious",
+                                          prefix=True)),
+            "ly": int(_word_is(flat, start, length, b"ly",
+                               at_end=True).sum()),
+            "bytes": int(len(flat) - n)}
+
+
+def joined18_numpy(comment: np.ndarray) -> np.ndarray:
+    """``array_join(transform(split(c, ' '), w -> upper(w)), '-')`` in
+    numpy: the comment upper-cased with every space made '-' (an ``S64``
+    array)."""
+    rect, _ = _comment_rect(comment)
+    up = np.where((rect >= 97) & (rect <= 122), rect - 32, rect) \
+        .astype(np.uint8)
+    up[up == 32] = ord("-")
+    return np.ascontiguousarray(up).view(f"S{rect.shape[1]}").reshape(-1)
+
+
+def q18_words(df, F):
+    w = F.col("words")
+    return df.select(F.split(F.col("l_comment"), " ").alias("words")).agg(
+        F.sum(F.size(w)).with_name("n_words"),
+        F.sum(F.array_contains(w, "special").cast("bigint"))
+        .with_name("special"),
+        F.sum(F.exists(w, lambda x: x.like("furious%")).cast("bigint"))
+        .with_name("furious"),
+        F.sum(F.size(F.filter(w, lambda x: x.like("%ly")))).with_name("ly"))
+
+
+def _joined(F):
+    return F.array_join(F.transform(F.split(F.col("l_comment"), " "),
+                                    lambda x: F.upper(x)), "-")
+
+
+def q18_joined(df, F):
+    return df.select(_joined(F).alias("j"))
+
+
+def q18_joined_bytes(df, F):
+    return df.select(_joined(F).alias("j")).select(
+        F.length(F.col("j")).alias("n")).agg(
+        F.sum(F.col("n")).with_name("bytes"),
+        F.count(F.col("n")).with_name("rows"))
+
+
+def q18_lists(df, F):
+    return df.group_by("l_orderkey").agg(
+        F.collect_list(F.col("l_shipmode")).with_name("modes"),
+        F.collect_set(F.col("l_shipinstruct")).with_name("instr"),
+        F.collect_list(F.struct(F.col("l_linenumber"), F.col("l_quantity"),
+                                F.col("l_shipmode"))).with_name("items"),
+        F.collect_list(F.col("l_linenumber")).with_name("lns"),
+        F.max_by(F.col("l_shipmode"), F.col("l_extendedprice"))
+        .with_name("dear"))
+
+
+def _size_sum(c, name, F):
+    return F.sum(F.size(c)).with_name(name)
+
+
+def q18_setops(df, F):
+    m, lns = F.col("modes"), F.col("lns")
+    pair = F.array(*[F.lit(x) for x in MODE_PAIR])
+    return q18_lists(df, F).agg(
+        _size_sum(F.array_distinct(m), "distinct", F),
+        _size_sum(F.array_union(m, pair), "union", F),
+        _size_sum(F.array_intersect(m, pair), "intersect", F),
+        _size_sum(F.array_except(m, pair), "except", F),
+        _size_sum(F.array_remove(m, "MAIL"), "removed", F),
+        F.sum(F.arrays_overlap(m, pair).cast("bigint")).with_name("overlap"),
+        _size_sum(F.arrays_zip(lns, m), "zipped", F),
+        _size_sum(F.concat_arrays(lns, F.array_repeat(F.size(lns), 2)),
+                  "concat", F))
+
+
+def q18_mode_sets(df, F):
+    key = F.array_join(F.sort_array(F.array_distinct(F.col("modes"))), ",")
+    return q18_lists(df, F).group_by(key.alias("modes")).agg(
+        F.count_star().with_name("n")).order_by("modes")
+
+
+def lists18_numpy(om: dict, t: dict, instr: np.ndarray) -> dict:
+    """Case (b) in numpy: each order's lines in arrival order (phase 16's
+    ``gen_nested_orders``), the mode sets as bit masks."""
+    order = np.argsort(t["l_orderkey"], kind="stable")
+    off, cnt = om["offsets"], om["counts"]
+    modes = t["l_shipmode"][order].astype("S7")
+    code = np.searchsorted(np.array(SHIPMODES, "S7"), modes)
+    mask = np.bitwise_or.reduceat(1 << code, off[:-1])
+    pair = sum(1 << SHIPMODES.index(x) for x in MODE_PAIR)
+    price = t["l_extendedprice"][order]
+    best = np.maximum.reduceat(price, off[:-1])
+    first = np.minimum.reduceat(np.where(price == np.repeat(best, cnt),
+                                         np.arange(len(price)), len(price)),
+                                off[:-1])
+
+    def bits(x):
+        return np.array([bin(v).count("1") for v in range(128)])[x]
+    sets = {}
+    for m, n in zip(*np.unique(mask, return_counts=True)):
+        sets[",".join(s for i, s in enumerate(SHIPMODES)
+                      if m >> i & 1)] = int(n)
+    return {"order": order, "modes": modes, "instr": instr[order],
+            "dear": modes[first], "mask": mask,
+            "sums": {"distinct": int(bits(mask).sum()),
+                     "union": int(bits(mask | pair).sum()),
+                     "intersect": int(bits(mask & pair).sum()),
+                     "except": int(bits(mask & ~pair).sum()),
+                     "removed": int((modes != b"MAIL").sum()),
+                     "overlap": int(((mask & pair) != 0).sum()),
+                     "zipped": int(cnt.sum()),
+                     "concat": int(cnt.sum() + 2 * len(cnt))},
+            "sets": sorted(sets.items())}
+
+
+def _flat_rows(lst, order: np.ndarray):
+    """(lengths, flat element index) of a collected list column's rows
+    taken in ``order`` (``collect_numpy``'s (offsets, values, ...))."""
+    off = lst[0]
+    lens = np.diff(off)[order]
+    idx = np.repeat(off[:-1][order] - (np.cumsum(lens) - lens), lens) \
+        + np.arange(int(lens.sum()))
+    return lens, idx
+
+
+def lists18_right(got: dict, om: dict, want: dict) -> bool:
+    keys = np.asarray(got["l_orderkey"])
+    order = np.argsort(keys, kind="stable")
+    if not np.array_equal(keys[order], om["o_orderkey"]):
+        return False
+    cnt = om["counts"]
+    lens, idx = _flat_rows(got["modes"], order)
+    if not (np.array_equal(lens, cnt) and np.array_equal(
+            np.asarray(got["modes"][1], object)[idx].astype("S7"),
+            want["modes"])):
+        return False
+    lens, idx = _flat_rows(got["lns"], order)
+    if not (np.array_equal(lens, cnt) and np.array_equal(
+            got["lns"][1][idx], om["linenumber"])):
+        return False
+    lens, idx = _flat_rows(got["items"], order)
+    fields = got["items"][1].table.columns
+    if not (np.array_equal(lens, cnt)
+            and np.array_equal(fields["l_linenumber"][0][idx],
+                               om["linenumber"])
+            and np.array_equal(fields["l_quantity"][0][idx],
+                               om["l_quantity"])
+            and np.array_equal(fields["l_shipmode"][0][idx].astype("S7"),
+                               want["modes"])):
+        return False
+    lens, idx = _flat_rows(got["instr"], order)
+    codes = np.searchsorted(np.array(SHIPINSTRUCT, "S17"),
+                            np.asarray(got["instr"][1], object)[idx]
+                            .astype("S17"))
+    wl, wv = _sorted_sets(cnt, np.searchsorted(np.array(SHIPINSTRUCT, "S17"),
+                                               want["instr"]))
+    gl, gv = _sorted_sets(lens, codes)
+    dear = np.asarray(got["dear"], object)[order].astype("S7")
+    return np.array_equal(lens, wl) and np.array_equal(gl, wl) \
+        and np.array_equal(gv, wv) and np.array_equal(dear, want["dear"])
+
+
+def gen_order_lists(o: dict, t: dict) -> dict:
+    """Phase 16's orders (``gen_nested_orders``) with three list columns,
+    every 17th order's NULL and every 19th empty (its ``HOLES``):
+    ``o_modes`` (array<string>: the lines' l_shipmode, a dictionary of 7
+    values), ``o_comments`` (array<string>: the lines' l_comment, near
+    unique, B = 64) and ``o_items`` (array<struct<l_linenumber int,
+    l_quantity double, l_shipmode string>>)."""
+    from spark_rapids_tpu_torch.columnar import (HostList, HostStruct,
+                                                 HostTable)
+    n = len(o["o_orderkey"])
+    cnt = o["counts"]
+    null = np.arange(n) % 17 == 5
+    empty = (np.arange(n) % 19 == 7) & ~null
+    hcnt = np.where(null | empty, 0, cnt)
+    hoff = np.zeros(n + 1, np.int64)
+    np.cumsum(hcnt, out=hoff[1:])
+    keep = np.repeat(hcnt > 0, cnt)
+    order = np.argsort(t["l_orderkey"], kind="stable")
+    ln = (np.arange(len(order)) - np.repeat(o["offsets"][:-1], cnt) + 1) \
+        .astype(np.int32)
+    modes = t["l_shipmode"][order].astype("S7")[keep]
+    comments = t["l_comment"][order][keep]
+    items = HostStruct(HostTable.from_dict({
+        "l_linenumber": ln[keep], "l_quantity": o["l_quantity"][keep],
+        "l_shipmode": modes}))
+    return {"valid": ~null, "offsets": hoff, "counts": hcnt,
+            "modes": modes, "comments": comments, "ln": ln[keep],
+            "qty": o["l_quantity"][keep],
+            "table": HostTable.from_dict({
+                "o_orderkey": o["o_orderkey"],
+                "o_modes": (HostList(hoff, modes), ~null),
+                "o_comments": (HostList(hoff, comments), ~null),
+                "o_items": (HostList(hoff, items), ~null)})}
+
+
+def q18_modes_by_pos(df, F):
+    return df.select(F.posexplode(F.col("o_modes"))).group_by("pos").agg(
+        F.count_star().with_name("n")).order_by("pos")
+
+
+def q18_special(df, F):
+    return df.filter(F.exists(F.col("o_comments"),
+                              lambda c: c.like("%special%"))).agg(
+        F.count_star().with_name("n"))
+
+
+def q18_items(df, F):
+    it = F.col("col")
+    return df.select(F.explode(F.col("o_items"))).filter(
+        F.get_field(it, "l_quantity") > F.lit(45.0)).agg(
+        F.sum(F.get_field(it, "l_linenumber")).with_name("lines"),
+        F.sum(F.get_field(it, "l_quantity")).with_name("qty"),
+        F.count(F.get_field(it, "l_shipmode")).with_name("modes"),
+        F.count_star().with_name("n"))
+
+
+def orders18_numpy(ol: dict) -> dict:
+    cnt, valid = ol["counts"], ol["valid"]
+    by_pos = [(p, int((cnt > p).sum())) for p in range(int(cnt.max()))]
+    rect, lens = _comment_rect(ol["comments"])
+    line = _windows(rect, b"special").any(axis=1)
+    starts = ol["offsets"][:-1]
+    has = np.zeros(len(cnt), bool)
+    nz = cnt > 0
+    has[nz] = np.logical_or.reduceat(line, starts[nz])
+    big = ol["qty"] > 45.0
+    return {"by_pos": by_pos, "special": int((has & valid).sum()),
+            "items": {"lines": int(ol["ln"][big].sum()),
+                      "qty": float(ol["qty"][big].sum()),
+                      "modes": int(big.sum()), "n": int(big.sum())}}
+
+
+def gen_attr_text(t: dict) -> np.ndarray:
+    """Per lineitem row 'ok:<l_orderkey, 7 digits>,mode:<l_shipmode>,
+    flag:<l_returnflag>' as an ``S64`` array (near unique, at most 30
+    bytes): the key's digits by arithmetic, the rest one of the (mode,
+    flag) tails gathered, no per-row loop."""
+    n = len(t["l_orderkey"])
+    out = np.zeros((n, 64), np.uint8)
+    out[:, :3] = np.frombuffer(b"ok:", np.uint8)
+    k = t["l_orderkey"].astype(np.int64)
+    out[:, 3:10] = (k[:, None] // 10 ** np.arange(6, -1, -1)) % 10 + 48
+    modes = sorted(set(t["l_shipmode"].tolist()))
+    flags = sorted(set(t["l_returnflag"].tolist()))
+    tails = np.array([f",mode:{m},flag:{f}".encode() for m in modes
+                      for f in flags], "S24")
+    combo = np.searchsorted(modes, t["l_shipmode"]) * len(flags) \
+        + np.searchsorted(flags, t["l_returnflag"])
+    out[:, 10:34] = tails.view(np.uint8).reshape(len(tails), 24)[combo]
+    return out.view("S64").reshape(n)
+
+
+def q18_attr_modes(df, F):
+    m = F.str_to_map(F.col("attrs"))
+    return df.select(m.alias("m")).group_by(
+        F.element_at(F.col("m"), "mode").alias("mode")).agg(
+        F.count_star().with_name("n")).order_by("mode")
+
+
+def q18_attr_size(df, F):
+    return df.select(F.str_to_map(F.col("attrs")).alias("m")).agg(
+        F.sum(F.size(F.col("m"))).with_name("entries"))
+
+
+def q18_sorted(df, F):
+    return df.order_by(F.desc("o_orderkey"))
+
+
+def sorted18_right(got: dict, om: dict, ol: dict) -> bool:
+    keys = np.asarray(got["o_orderkey"])
+    want_keys = om["o_orderkey"][::-1]
+    if not np.array_equal(keys, want_keys):
+        return False
+    rev = np.arange(len(keys))[::-1]
+    cnt = ol["counts"][rev]
+    ok = np.array_equal(got["o_modes"][3], ol["valid"][rev])
+    for name, want in (("o_modes", ol["modes"]),
+                       ("o_comments", ol["comments"])):
+        off = got[name][0]
+        lens = np.diff(off)
+        woff = ol["offsets"]
+        idx = np.repeat(woff[:-1][rev] - (np.cumsum(cnt) - cnt), cnt) \
+            + np.arange(int(cnt.sum()))
+        ok = ok and np.array_equal(lens, cnt) and np.array_equal(
+            np.asarray(got[name][1], object).astype(want.dtype),
+            want[idx])
+    fields = got["o_items"][1].table.columns
+    ok = ok and np.array_equal(np.diff(got["o_items"][0]), cnt) \
+        and np.array_equal(fields["l_linenumber"][0], ol["ln"][idx]) \
+        and np.array_equal(fields["l_quantity"][0], ol["qty"][idx]) \
+        and np.array_equal(np.asarray(fields["l_shipmode"][0], object)
+                           .astype("S7"), ol["modes"][idx])
+    return bool(ok)
+
+
+def phase_string_lists(card: str, batch_rows: int, table: dict,
+                       host) -> dict:
+    """Phase 18 (module doc): strings and structs inside lists and maps,
+    ``split``, ``str_to_map`` and the host-engine array functions through
+    the normal entry points at full size, against numpy."""
+    import torch
+    from spark_rapids_tpu_torch.api import TorchSession
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.columnar import ColumnarBatch, HostTable
+    from spark_rapids_tpu_torch.columnar.strrect import HostStrings
+    from spark_rapids_tpu_torch.types import (INT32, STRING, Schema,
+                                              StructField)
+    t_phase = time.perf_counter()
+    conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows,
+            "spark.rapids.tpu.sql.agg.wideBatchRows": batch_rows,
+            "spark.rapids.tpu.sql.pallas.enabled": True,
+            "spark.rapids.tpu.sql.scanCache.maxBytes": SCAN18_CACHE_BYTES}
+    session = TorchSession(conf)
+    out = {}
+
+    def runs(label, make, right, collect="collect", s=session):
+        for phase in ("cold", "warm"):
+            run, rows = _sql_run(s, make, collect)
+            _check(right(rows), f"{label} {phase}: {str(rows)[:300]}")
+            out[f"{label}_{phase}"] = run
+        return rows
+
+    def walls(label):
+        return (f"{out[f'{label}_cold']['wall_ms']:.1f} ms cold, "
+                f"{out[f'{label}_warm']['wall_ms']:.1f} ms warm")
+
+    def launches(label, kernel):
+        return out[f"{label}_warm"]["launches"][kernel]
+
+    n_batches = math.ceil(SF1_ROWS / batch_rows)
+    # (a) words of l_comment
+    t0 = time.perf_counter()
+    want_a = words18_numpy(table["l_comment"])
+    comments = host.select(["l_comment"])
+    _log(f"phase 18 (a) numpy reference in {time.perf_counter() - t0:.2f} "
+         f"s: {want_a}")
+    first = ColumnarBatch.from_host(comments.slice(0, batch_rows), "cuda",
+                                    64)
+    from spark_rapids_tpu_torch.exprs.base import EvalContext
+    from spark_rapids_tpu_torch.exprs.compiler import batch_dvals
+    ctx = EvalContext(first.schema, batch_dvals(first), first.num_rows,
+                      first.padded_len, torch.device("cuda"))
+    words = F.split(F.col("l_comment"), " ").expr.eval_device(ctx).data
+    wshape = (words.values.width, words.values.col.width)
+    wbytes = words.values.nbytes()
+    del ctx, words, first
+    runs("a", lambda s: q18_words(s.create_dataframe(comments), F),
+         lambda r: r == [{k: want_a[k] for k in
+                          ("n_words", "special", "furious", "ly")}])
+    ka = launches("a", "rect_match")
+    _check(ka >= 3 * n_batches, f"(a) rect_match launched {ka} times, "
+           f"expected at least {3 * n_batches} (three a batch)")
+    runs("a_bytes", lambda s: q18_joined_bytes(
+        s.create_dataframe(comments), F),
+        lambda r: r == [{"bytes": want_a["bytes"], "rows": SF1_ROWS}])
+    kt = launches("a_bytes", "rect_transform")
+    _check(kt >= n_batches, f"(a) rect_transform launched {kt} times, "
+           f"expected at least {n_batches} (one a batch)")
+    one = comments.slice(0, batch_rows)
+    want_j = joined18_numpy(table["l_comment"][:batch_rows])
+
+    def right_j(got):
+        j = np.asarray(got["j"], object)
+        return len(j) == batch_rows and not np.ma.getmaskarray(
+            got["j"]).any() and np.array_equal(j.astype("S64"), want_j)
+    runs("a_first", lambda s: q18_joined(s.create_dataframe(one), F),
+         right_j, "collect_numpy")
+    out["a_profile_warm"] = phase_profile(
+        session, comments, q18_words,
+        lambda r: r[0]["n_words"] == want_a["n_words"],
+        f"phase 18 (a) words of l_comment ({card})", "rect_match")
+    _log(f"phase 18 (a) split(l_comment, ' ') over {SF1_ROWS} rows in "
+         f"{n_batches} batches ({card}): words [P, W, B] = [{batch_rows}, "
+         f"{wshape[0]}, {wshape[1]}], {wbytes} device bytes a batch; "
+         f"{want_a['n_words']} words, {want_a['special']} rows holding "
+         f"'special', {want_a['furious']} a word LIKE 'furious%', "
+         f"{want_a['ly']} words LIKE '%ly': equal to numpy; "
+         f"{walls('a')}; rect_match launches {ka}; array_join(transform("
+         f"upper)) bytes {want_a['bytes']} equal, {walls('a_bytes')}, "
+         f"rect_transform launches {kt}; its first batch byte-equal "
+         f"({walls('a_first')}); idle "
+         f"{out['a_profile_warm'].get('idle_share', float('nan')):.1%}, "
+         f"cudaLaunchKernel "
+         f"{out['a_profile_warm'].get('host_calls', {}).get('cudaLaunchKernel')}")
+    out["a_shape"] = [batch_rows, *wshape]
+    out["a_device_bytes"] = wbytes
+
+    # (b) collected orders
+    t0 = time.perf_counter()
+    om = gen_order_maps(gen_nested_orders(table), table)
+    instr = gen_shipinstruct(SF1_ROWS)
+    li = host.select(["l_orderkey", "l_quantity", "l_extendedprice",
+                      "l_shipmode"])
+    li = HostTable({**li.columns,
+                    "l_shipmode": (table["l_shipmode"].astype("S7"),
+                                   np.ones(SF1_ROWS, bool)),
+                    "l_linenumber": (om["row_linenumber"],
+                                     np.ones(SF1_ROWS, bool)),
+                    "l_shipinstruct": (instr, np.ones(SF1_ROWS, bool))},
+                   Schema(list(li.schema.fields)
+                          + [StructField("l_linenumber", INT32, True),
+                             StructField("l_shipinstruct", STRING, True)]))
+    want_b = lists18_numpy(om, table, instr)
+    n_orders = len(om["o_orderkey"])
+    _log(f"phase 18 (b) data and numpy reference in "
+         f"{time.perf_counter() - t0:.2f} s: {n_orders} orders; "
+         f"{want_b['sums']}; {len(want_b['sets'])} mode sets")
+    runs("b", lambda s: q18_lists(s.create_dataframe(li), F),
+         lambda got: lists18_right(got, om, want_b), "collect_numpy")
+    runs("b_sums", lambda s: q18_setops(s.create_dataframe(li), F),
+         lambda r: r == [want_b["sums"]])
+    runs("b_sets", lambda s: q18_mode_sets(s.create_dataframe(li), F),
+         lambda r: [(x["modes"], x["n"]) for x in r] == want_b["sets"])
+    longest = max(len(k) for k, _ in want_b["sets"])
+    out["b_profile_warm"] = phase_profile(
+        session, li, q18_lists, lambda got: lists18_right(got, om, want_b),
+        f"phase 18 (b) collected orders ({card})", "sort", "collect_numpy")
+    _log(f"phase 18 (b) collect_list(l_shipmode), collect_set("
+         f"l_shipinstruct), collect_list(struct(l_linenumber, l_quantity, "
+         f"l_shipmode)), max_by(l_shipmode, l_extendedprice) by l_orderkey "
+         f"({card}): {n_orders} groups equal to numpy (lists in arrival "
+         f"order, sets sorted); {walls('b')}; peak "
+         f"{out['b_warm']['max_memory_allocated'] / 2**30:.2f} GiB; idle "
+         f"{out['b_profile_warm'].get('idle_share', float('nan')):.1%}, "
+         f"cudaLaunchKernel "
+         f"{out['b_profile_warm'].get('host_calls', {}).get('cudaLaunchKernel')}"
+         f"; set operations {want_b['sums']} equal, {walls('b_sums')}; "
+         f"group-by on array_join(sort_array(array_distinct(modes))): "
+         f"{len(want_b['sets'])} keys, the longest {longest} bytes, equal, "
+         f"{walls('b_sets')}")
+    out["b_sets"] = len(want_b["sets"])
+    out["b_longest_key"] = longest
+
+    # (c) nested orders at ingest
+    t0 = time.perf_counter()
+    ol = gen_order_lists(om, table)
+    orders = ol["table"]
+    want_c = orders18_numpy(ol)
+    built = [ColumnarBatch.from_host(orders.slice(i, batch_rows), "cuda",
+                                     64)
+             for i in range(0, n_orders, batch_rows)]
+    torch.cuda.synchronize()
+    nb = len(built)
+    sizes = [{f.name: c.nbytes() for f, c in zip(orders.schema.fields,
+                                                 b.columns)} for b in built]
+    forms = [repr(c.data) for c in built[0].columns[1:]]
+    table_bytes = sum(b.device_size_bytes() for b in built)
+    del built
+    _log(f"phase 18 (c) orders with o_modes, o_comments and o_items in "
+         f"{time.perf_counter() - t0:.2f} s: {n_orders} orders in {nb} "
+         f"batches, the lists' elements {forms}, device_size_bytes "
+         f"{table_bytes} ({table_bytes / 2**30:.3f} GiB; by column and "
+         f"batch {sizes})")
+    runs("c_pos", lambda s: q18_modes_by_pos(s.create_dataframe(orders), F),
+         lambda r: [(x["pos"], x["n"]) for x in r] == want_c["by_pos"])
+    kd = launches("c_pos", "dense_groupby")
+    _check(kd == nb, f"(c): dense_groupby launched {kd} times, expected "
+           f"{nb} (once a generated batch)")
+    runs("c_special", lambda s: q18_special(s.create_dataframe(orders), F),
+         lambda r: r == [{"n": want_c["special"]}])
+    kc = launches("c_special", "rect_match")
+    _check(kc >= nb, f"(c): rect_match launched {kc} times in exists(), "
+           f"expected at least {nb}")
+    wi = want_c["items"]
+    runs("c_items", lambda s: q18_items(s.create_dataframe(orders), F),
+         lambda r: len(r) == 1 and r[0]["lines"] == wi["lines"]
+         and _rel(r[0]["qty"], wi["qty"]) <= REL_TOL
+         and r[0]["modes"] == wi["modes"] and r[0]["n"] == wi["n"])
+    _log(f"phase 18 (c) ({card}): posexplode(o_modes) by pos "
+         f"{want_c['by_pos']} equal, {walls('c_pos')}, dense_groupby "
+         f"launches {kd} over {nb} batches; exists(o_comments, c -> c LIKE "
+         f"'%special%') {want_c['special']} orders equal, "
+         f"{walls('c_special')}, rect_match launches {kc}; explode(o_items) "
+         f"with l_quantity > 45: {wi} equal, {walls('c_items')}")
+    out.update(orders=n_orders, device_bytes=table_bytes, batches=nb)
+
+    # (d) attribute maps
+    t0 = time.perf_counter()
+    attrs = gen_attr_text(table)
+    alen = (attrs.view(np.uint8).reshape(SF1_ROWS, -1) != 0).sum(axis=1)
+    at = HostTable({"attrs": (HostStrings(attrs, alen.astype(np.int32)),
+                              np.ones(SF1_ROWS, bool))},
+                   Schema([StructField("attrs", STRING, True)]))
+    modes, counts = np.unique(table["l_shipmode"], return_counts=True)
+    want_d = [(str(m), int(c)) for m, c in zip(modes, counts)]
+    _log(f"phase 18 (d) attribute text in {time.perf_counter() - t0:.2f} s: "
+         f"at most {int(alen.max())} bytes, e.g. {attrs[0]!r}")
+    runs("d", lambda s: q18_attr_modes(s.create_dataframe(at), F),
+         lambda r: [(x["mode"], x["n"]) for x in r] == want_d)
+    runs("d_size", lambda s: q18_attr_size(s.create_dataframe(at), F),
+         lambda r: r == [{"entries": 3 * SF1_ROWS}])
+    kd2 = launches("d", "rect_match")
+    _log(f"phase 18 (d) str_to_map of {SF1_ROWS} texts ({card}): "
+         f"group_by(element_at(m, 'mode')) {want_d} equal, {walls('d')}, "
+         f"rect_match launches {kd2}; sum(size(m)) {3 * SF1_ROWS} equal, "
+         f"{walls('d_size')}")
+    del at, attrs
+
+    # (e) the orders' lists out of core
+    s_ooc = TorchSession({**conf, "spark.rapids.tpu.sql.batchSizeBytes":
+                          NESTED18_SORT_BYTES})
+    runs("e", lambda s: q18_sorted(s.create_dataframe(orders), F),
+         lambda got: sorted18_right(got, om, ol), "collect_numpy", s=s_ooc)
+    sort = _find_exec(s_ooc.last_plan, "TpuSortExec")
+    out["e_buckets"] = getattr(sort, "last_buckets", None)
+    ke = launches("e", "sort_bucket")
+    _check(ke >= 1, f"(e): sort_bucket launched {ke} times, expected at "
+           "least one (the sort goes out of core)")
+    _log(f"phase 18 (e) ORDER BY o_orderkey DESC of {n_orders} orders "
+         f"carrying o_modes, o_comments and o_items at batchSizeBytes "
+         f"{NESTED18_SORT_BYTES} ({card}): {out['e_buckets']} buckets, "
+         f"sort_bucket launches {ke}; every row's lists equal numpy's; "
+         f"{walls('e')}; peak "
+         f"{out['e_warm']['max_memory_allocated'] / 2**30:.2f} GiB")
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"phase 18 (strings and structs in lists and maps) took "
+         f"{out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", metavar="NAME=DIR", action="append",
@@ -6958,6 +7598,7 @@ def main(argv=None) -> int:
         del ds
         nested = phase_nested(card, batch_rows, table, host)
         maps = phase_maps_structs(card, batch_rows, table, host)
+        lists = phase_string_lists(card, batch_rows, table, host)
         _log(json.dumps({"queries": {
             "q6": {"rows": SF1_ROWS, "wall_ms_cold": ms_cold,
                    "wall_ms_warm": ms_warm},
@@ -6992,7 +7633,11 @@ def main(argv=None) -> int:
             "slice9b_maps": {k: v for k, v in maps.items()
                              if not k.endswith("profile_warm")},
             "slice9b_maps_profile_a": maps["a_profile_warm"],
-            "slice9b_maps_profile_e": maps["e_profile_warm"]}}))
+            "slice9b_maps_profile_e": maps["e_profile_warm"],
+            "slice9b_rest": {k: v for k, v in lists.items()
+                             if not k.endswith("profile_warm")},
+            "slice9b_rest_profile_a": lists["a_profile_warm"],
+            "slice9b_rest_profile_b": lists["b_profile_warm"]}}))
         main_t = times["main"]
         kernel = {
             "name": "rect_match", "route": "cuda",
@@ -7003,7 +7648,10 @@ def main(argv=None) -> int:
                       "q_comment_filter": mem["q_comment_filter_on"]["cold"][
                           "launches"]["rect_match"],
                       "sql_like": sql["like"]["cold"]["launches"][
-                          "rect_match"]},
+                          "rect_match"],
+                      **{f"string_lists_{k}": lists[f"{k}_cold"][
+                          "launches"]["rect_match"]
+                         for k in ("a", "c_special", "d")}},
             "exact": max_err == 0,
             "ms": main_t["ms"], "kernel_ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
@@ -7043,7 +7691,9 @@ def main(argv=None) -> int:
                       "nested_c": nested["c_cold"]["launches"][
                           "dense_groupby"],
                       "maps_d_pos": maps["d_pos_cold"]["launches"][
-                          "dense_groupby"]},
+                          "dense_groupby"],
+                      "string_lists_c_pos": lists["c_pos_cold"][
+                          "launches"]["dense_groupby"]},
             "tolerance": f"float sums within {DENSE_TOL:g} of the group's "
                          "sum of magnitudes; counts and int sums exact; "
                          "two launches bit-identical",
@@ -7118,7 +7768,10 @@ def main(argv=None) -> int:
                       "strings_100000": strings["100000"]["cold"][
                           "rect_transform"],
                       "strings_100000_sql": strings["100000"]["sql"][
-                          "rect_transform"]},
+                          "rect_transform"],
+                      **{f"string_lists_{k}": lists[f"{k}_cold"][
+                          "launches"]["rect_transform"]
+                         for k in ("a_bytes", "a_first")}},
             "ms": rt["ms"], "plain_ms": rt["plain_ms"],
             "bound_ms": rt["bound_ms"], "bound_by": rt["bound_by"],
             "bound_bytes": rt["bound_bytes"], "library_ms": None,
@@ -7183,6 +7836,8 @@ def main(argv=None) -> int:
                       "maps_f_order_by": maps["f_cold"]["launches"][
                           "sort_bucket"],
                       "maps_g_split_percentile": maps["g_cold"][
+                          "launches"]["sort_bucket"],
+                      "string_lists_e_order_by": lists["e_cold"][
                           "launches"]["sort_bucket"]},
             "buckets": windows["order_by"]["cold"]["buckets"],
             "ms": bt["operands"]["ms"],

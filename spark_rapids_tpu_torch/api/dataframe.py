@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..columnar.batch import HostTable
+from ..columnar.strrect import HostStrings
 from ..config import LEAK_DETECTION, QUERY_TIMEOUT, TpuConf
 from ..exec.base import ExecContext
 from ..exprs.aggregates import AggregateExpression
@@ -37,8 +38,8 @@ from ..exprs.base import Alias, ColumnRef, Expression
 from ..mem.manager import MemoryManager
 from ..plan import logical as L
 from ..plan.overrides import plan_query
-from ..types import (DATE, TIMESTAMP, ArrayType, Schema, StructType,
-                     map_parts, to_arrow)
+from ..types import (DATE, NULLTYPE, TIMESTAMP, ArrayType, Schema,
+                     StructType, map_parts, to_arrow)
 from .functions import Col, _to_expr
 
 __all__ = ["TorchSession", "DataFrame", "GroupedData"]
@@ -188,11 +189,13 @@ def _py_values(vals: np.ndarray, valid: np.ndarray, dtype) -> list:
     row as a list of (key, value) tuples, a map's entries as a list of
     ``{"key": k, "value": v}`` dicts (the reference's ``to_pylist``)."""
     if map_parts(dtype) is not None:
-        return vals.to_pylist(valid, entries=isinstance(dtype, ArrayType))
+        return vals.to_pylist(valid)
     if isinstance(dtype, StructType):
         return vals.to_pylist(valid)
     if isinstance(dtype, ArrayType):
         return vals.to_pylist(valid, dtype.element)
+    if isinstance(vals, HostStrings):
+        vals = vals.to_objects()
     if dtype == DATE:
         epoch = datetime.date(1970, 1, 1)
         out = [epoch + datetime.timedelta(days=int(x)) for x in vals]
@@ -235,6 +238,10 @@ def _arrow_values(vals, valid: np.ndarray, dtype):
         return vals.to_arrow(valid, dtype)
     if isinstance(dtype, ArrayType):
         return vals.to_arrow(valid, dtype.element)
+    if isinstance(vals, HostStrings):
+        vals = vals.to_objects()
+    if dtype == NULLTYPE:
+        return pa.nulls(len(valid))
     if dtype == DATE:
         return pa.array(vals.astype(np.int32), mask=~valid,
                         type=pa.int32()).cast(pa.date32())

@@ -54,7 +54,10 @@ __all__ = ["Col", "col", "lit", "asc", "desc", "when", "coalesce",
            "map_keys", "map_values", "map_entries", "map_concat",
            "map_from_arrays", "transform_keys", "transform_values",
            "map_filter", "collect_list", "collect_set", "min_by", "max_by",
-           "percentile"]
+           "percentile", "split", "array_join", "array_repeat",
+           "arrays_zip", "concat_arrays", "flatten", "array_distinct",
+           "array_union", "array_intersect", "array_except", "array_remove",
+           "arrays_overlap", "str_to_map"]
 
 
 def _to_expr(v) -> E.Expression:
@@ -437,6 +440,35 @@ def array(*cols) -> Col: return Col(E.CreateArray(*map(_to_expr, cols)))
 def sequence(start, stop, step=None) -> Col:
     return Col(E.Sequence(_to_expr(start), _to_expr(stop),
                           _to_expr(step) if step is not None else None))
+def split(c, pattern: str, limit: int = -1) -> Col:
+    return Col(E.StringSplit(_to_expr(c), pattern, limit))
+def array_join(c, delimiter: str, null_replacement=None) -> Col:
+    rep = E.Literal(null_replacement) if null_replacement is not None \
+        else None
+    return Col(E.ArrayJoin(_to_expr(c), E.Literal(delimiter), rep))
+def array_repeat(c, count) -> Col:
+    return Col(E.ArrayRepeat(_to_expr(c), _to_expr(count)))
+def arrays_zip(*cols) -> Col:
+    """A list of structs, each field named as its column is."""
+    names = [c.expr.name_hint if isinstance(c, Col) else str(i)
+             for i, c in enumerate(cols)]
+    return Col(E.ArraysZip(*map(_to_expr, cols), names=names))
+def concat_arrays(*cols) -> Col: return Col(E.Concat(*map(_to_expr, cols)))
+def flatten(c) -> Col: return Col(E.Flatten(_to_expr(c)))
+def array_distinct(c) -> Col: return Col(E.ArrayDistinct(_to_expr(c)))
+def array_union(a, b) -> Col:
+    return Col(E.ArrayUnion(_to_expr(a), _to_expr(b)))
+def array_intersect(a, b) -> Col:
+    return Col(E.ArrayIntersect(_to_expr(a), _to_expr(b)))
+def array_except(a, b) -> Col:
+    return Col(E.ArrayExcept(_to_expr(a), _to_expr(b)))
+def array_remove(c, element) -> Col:
+    return Col(E.ArrayRemove(_to_expr(c), _to_expr(element)))
+def arrays_overlap(a, b) -> Col:
+    return Col(E.ArraysOverlap(_to_expr(a), _to_expr(b)))
+def str_to_map(c, pair_delim: str = ",", kv_delim: str = ":") -> Col:
+    return Col(E.StringToMap(_to_expr(c), E.Literal(pair_delim),
+                             E.Literal(kv_delim)))
 
 
 # --- structs and maps (exprs/collection_fns.py) -----------------------------

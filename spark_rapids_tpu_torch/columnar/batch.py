@@ -129,6 +129,9 @@ def _unique_strings(hs: HostStrings):
 def _concat_values(parts: list) -> object:
     if isinstance(parts[0], (HostList, HostMap, HostStruct)):
         return type(parts[0]).concat(parts)
+    if all(isinstance(p, np.ndarray) and p.dtype.kind == "O"
+           for p in parts):
+        return np.concatenate(parts)
     if all(isinstance(p, DictStrings) for p in parts):
         return DictStrings.concat(parts)
     if any(isinstance(p, (DictStrings, HostStrings)) for p in parts):
@@ -422,7 +425,7 @@ def _nested_to_device(f: StructField, values, valid: np.ndarray, device,
         raise NotImplementedError(f"column {f.name}: {r}")
     if isinstance(f.dtype, MapType):
         return to_device_map(values, valid, f.dtype, device,
-                             f"column {f.name}")
+                             f"column {f.name}", rect_cap)
     kids = ColumnarBatch.from_host(values.table, device, rect_cap,
                                    encode=False)
     for sf, c in zip(f.dtype.fields, kids.columns):
@@ -523,7 +526,7 @@ class ColumnarBatch:
         for i, values, valid in lists:
             f = table.schema.fields[i]
             cols[i] = to_device_list(values, valid, f.dtype, device,
-                                     f"column {f.name}")
+                                     f"column {f.name}", rect_cap)
         for i, values, valid in nested:
             cols[i] = _nested_to_device(table.schema.fields[i], values,
                                         valid, device, rect_cap)
@@ -709,14 +712,16 @@ def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
         return batches[0]
     schema = batches[0].schema
     rows = [b.num_rows for b in batches]
-    cols = [_concat_column([b.columns[i] for b in batches], rows, f)
+    cols = [_concat_column([b.columns[i] for b in batches], rows, f.name)
             for i, f in enumerate(schema.fields)]
     return ColumnarBatch(cols, sum(rows), schema)
 
 
-def _concat_column(parts: List, rows: List[int], f: StructField):
-    """One column's parts (``rows`` each) in one column."""
+def _concat_column(parts: List, rows: List[int], name: Optional[str]):
+    """One column's parts (``rows`` each) in one column (``name`` for an
+    error; a list's flat elements have none)."""
     kinds = {type(p) for p in parts}
+    dtype = parts[0].dtype
     if kinds == {DictColumn}:
         return _concat_dict(parts, rows)
     if kinds == {ByteRectColumn}:
@@ -727,24 +732,25 @@ def _concat_column(parts: List, rows: List[int], f: StructField):
         return concat_maps(parts, rows)
     if kinds == {StructColumn}:
         return StructColumn(
-            [_concat_column([p.children[k] for p in parts], rows, sf)
-             for k, sf in enumerate(f.dtype.fields)],
+            [_concat_column([p.children[k] for p in parts], rows,
+                            f"{name}.{sf.name}")
+             for k, sf in enumerate(dtype.fields)],
             torch.cat([p.validity[:n] for p, n in zip(parts, rows)]),
-            f.dtype)
+            dtype)
     if kinds == {DeviceColumn}:
         return DeviceColumn(
             torch.cat([p.data[:n] for p, n in zip(parts, rows)]),
             torch.cat([p.validity[:n] for p, n in zip(parts, rows)]),
-            f.dtype)
+            dtype)
     if kinds == {DictColumn, ByteRectColumn}:
         return _concat_mixed(parts, rows)
     if kinds == {HostColumn}:
         return HostColumn(
             np.concatenate([p.values[:n] for p, n in zip(parts, rows)]),
             np.concatenate([p.validity[:n] for p, n in zip(parts, rows)]),
-            f.dtype)
+            dtype)
     raise NotImplementedError(
-        f"column {f.name} arrives in different layouts "
+        f"column {name} arrives in different layouts "
         f"({sorted(k.__name__ for k in kinds)}); concatenating "
         "host strings with device strings arrives with the strings "
         "slice")

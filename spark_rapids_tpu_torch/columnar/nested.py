@@ -25,8 +25,8 @@ host engine to keep it on.
 
 A MAP is what Arrow and Spark make it, a list of ``struct<key, value>``:
 a ``MapColumn`` is two list rectangles, the keys' and the values', over
-one ``lengths`` and one row validity (keys are never NULL). The same
-layout typed ``array<struct<key, value>>`` is ``map_entries``' result.
+one ``lengths`` and one row validity (keys are never NULL).
+``map_entries``' result is a list of ``struct<key, value>`` (below).
 On the host a ``HostMap`` is the two ``HostList``s over one offsets.
 
 A STRUCT is its fields' device columns (numbers, dates, dictionary or
@@ -41,6 +41,20 @@ move by moving each tensor (``take_rows``, ``slice_rows``, ``null_rows``),
 a spilled batch keeps the tensors and the meta (mem/spillable.py), and
 a struct comes back to the host in one packed copy
 (``to_host_column``).
+
+An ARRAY (or a map's keys or values) of an element with no fixed width
+-- a STRING, or a STRUCT of fixed-width and string fields -- keeps its
+elements as ``Slots``: a flat device column of P·W rows, slot (i, j) at
+row i·W + j, in the layout ingest gives such a column: dictionary codes
+with one sorted dictionary, or a byte rectangle [P·W, B] with each
+element's byte length (columnar/strrect.py), or a struct of those. The
+flat column is what a lambda binds and what ``rect_match`` and
+``rect_transform`` take, with no copy; its tensors viewed [P, W, ...]
+are the list's parts, so its rows move, spill and concatenate as any
+list's do (``slot_*`` below are the slot ops over either form). Strings
+order by their dictionary codes, or by the rank of their packed words
+in the batch (``slot_key``). On the host such a list keeps its
+elements as ``HostStrings`` (or ``str`` objects) or a ``HostStruct``.
 """
 from __future__ import annotations
 
@@ -49,21 +63,41 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..types import (NESTED_REST, ArrayType, DATE, DataType, MapType,
-                     StructType, TIMESTAMP, from_numpy_dtype, map_parts,
-                     torch_dtype)
+from ..types import (NESTED_REST, NULLTYPE, STRING, ArrayType, DATE,
+                     DataType, MapType, StructType, TIMESTAMP,
+                     from_numpy_dtype, map_parts, nested_reason, torch_dtype)
 from .column import DeviceColumn, DictColumn, packed_to_host, to_device
 
 __all__ = ["ListColumn", "HostList", "WIDTH_BUCKETS", "MAX_ELEMENT_SLOTS",
            "width_bucket", "list_column", "pad_list", "MapColumn",
            "StructColumn", "HostMap", "HostStruct", "map_column", "parts",
            "from_parts", "take_rows", "slice_rows", "null_rows",
-           "to_host_column", "concat_maps", "zero_rows"]
+           "to_host_column", "concat_maps", "zero_rows", "Slots",
+           "slot_take", "slot_rows", "slot_zero", "slot_pad", "slot_pick",
+           "slot_key", "slot_hcat", "flat_key", "joint_keys",
+           "elem_torch_dtype", "too_long", "with_validity"]
 
 #: list widths snap to this ladder (the reference's)
 WIDTH_BUCKETS = (4, 8, 16, 32, 64, 128, 256)
 #: the most element slots (rows x W) one batch's rectangle may hold
 MAX_ELEMENT_SLOTS = 1 << 26
+
+
+def too_long(what: str, longest: int, rows: int = 0) -> NotImplementedError:
+    """The refusal of a list past the rectangle's caps, naming the
+    queue."""
+    over = f" over {rows} rows" if rows else ""
+    return NotImplementedError(
+        f"{what}: a list of {longest} elements{over} exceeds the device "
+        f"rectangle (at most {WIDTH_BUCKETS[-1]} elements a list and "
+        f"{MAX_ELEMENT_SLOTS} slots a batch); longer lists arrive with "
+        f"{NESTED_REST}")
+
+
+def elem_torch_dtype(dt: DataType) -> torch.dtype:
+    """The torch dtype of a fixed-width element's slots (a NULL-typed
+    element, as in ``array()``, keeps int8 zeros)."""
+    return torch.int8 if dt == NULLTYPE else torch_dtype(dt)
 
 
 def width_bucket(w: int) -> Optional[int]:
@@ -74,23 +108,44 @@ def width_bucket(w: int) -> Optional[int]:
     return None
 
 
+def _host_elements(values):
+    """A list's flat host elements as they are kept: ``HostStrings``, a
+    ``HostStruct`` or an object array as given, anything else a numpy
+    array."""
+    from .strrect import HostStrings
+    if isinstance(values, (HostStrings, HostStruct)):
+        return values
+    return np.asarray(values)
+
+
+def _element_type(values) -> DataType:
+    from .strrect import HostStrings
+    if isinstance(values, HostStrings):
+        return STRING
+    if isinstance(values, HostStruct):
+        return values.dtype
+    return from_numpy_dtype(values.dtype)
+
+
 class HostList:
     """A host list column without its row validity: int64 ``offsets``
     (n + 1, absolute into ``values``), the flat element ``values`` and
     their ``elem_valid`` (all valid when not given). ``element`` is the
     element type, by default the values' (``datetime64[D]`` values are
-    DATE elements, kept as int32 days). Sliced like an array (the offsets
-    slice, the values stay shared)."""
+    DATE elements, kept as int32 days; an ``S``/``U``/object array or a
+    ``HostStrings`` holds STRING elements, a ``HostStruct`` STRUCT
+    ones). Sliced like an array (the offsets slice, the values stay
+    shared)."""
 
     __slots__ = ("offsets", "values", "elem_valid", "element", "_longest")
 
-    def __init__(self, offsets: np.ndarray, values: np.ndarray,
+    def __init__(self, offsets: np.ndarray, values,
                  elem_valid: Optional[np.ndarray] = None,
                  element: Optional[DataType] = None):
-        values = np.asarray(values)
+        values = _host_elements(values)
         if element is None:
-            element = from_numpy_dtype(values.dtype)
-        if values.dtype.kind == "M":
+            element = _element_type(values)
+        if isinstance(values, np.ndarray) and values.dtype.kind == "M":
             unit = "D" if element == DATE else "us"
             values = values.astype(f"datetime64[{unit}]").astype(np.int64) \
                 .astype(element.np_dtype)
@@ -135,29 +190,45 @@ class HostList:
 
     @staticmethod
     def concat(parts: Sequence["HostList"]) -> "HostList":
+        from .batch import _concat_values
         parts = [p.compact() for p in parts]
         base = np.cumsum([0] + [len(p.values) for p in parts[:-1]])
         return HostList(
             np.concatenate([parts[0].offsets[:1]]
                            + [p.offsets[1:] + b
                               for p, b in zip(parts, base)]),
-            np.concatenate([p.values for p in parts]),
+            _concat_values([p.values for p in parts]),
             np.concatenate([p.elem_valid for p in parts]), parts[0].element)
 
     @staticmethod
     def from_pylist(rows, element: Optional[DataType] = None):
         """(HostList, row validity) of Python lists (None for a NULL row
         or element). The element type is inferred from the values unless
-        given (int -> bigint, float -> double)."""
+        given (int -> bigint, float -> double, str -> string, a dict of
+        string keys -> a struct of its values' types)."""
         valid = np.array([r is not None for r in rows], bool)
         lens = np.array([len(r) if r is not None else 0 for r in rows],
                         np.int64)
         flat = [x for r in rows if r is not None for x in r]
+        offsets = np.zeros(len(rows) + 1, np.int64)
+        np.cumsum(lens, out=offsets[1:])
+        seen = [x for x in flat if x is not None]
+        if any(isinstance(x, (list, tuple)) for x in seen):
+            raise NotImplementedError(
+                f"a list of lists has no device layout; it arrives with "
+                f"{NESTED_REST}")
+        if (element is None or isinstance(element, StructType)) and seen \
+                and all(isinstance(x, dict) for x in seen):
+            vals, ev = HostStruct.from_pylist(flat)
+            return HostList(offsets, vals, ev), valid
         ev = np.array([x is not None for x in flat], bool)
         if element is None:
-            seen = [x for x in flat if x is not None]
             element = from_numpy_dtype(np.asarray(seen).dtype) if seen \
                 else from_numpy_dtype(np.int64)
+        if element == STRING:
+            vals = np.array([x if x is not None else "" for x in flat],
+                            object)
+            return HostList(offsets, vals, ev, STRING), valid
         np_dt = element.np_dtype
         if element == DATE:
             vals = np.array([int(np.datetime64(x, "D").astype(np.int64))
@@ -168,8 +239,6 @@ class HostList:
         else:
             vals = np.array([x if x is not None else 0 for x in flat],
                             np_dt)
-        offsets = np.zeros(len(rows) + 1, np.int64)
-        np.cumsum(lens, out=offsets[1:])
         return HostList(offsets, vals, ev, element), valid
 
     @staticmethod
@@ -181,10 +250,10 @@ class HostList:
         if isinstance(arr, pa.ChunkedArray):
             arr = arr.combine_chunks()
         element = from_arrow(arr.type.value_type)
-        if element.np_dtype is None:
-            raise NotImplementedError(
-                f"a list of {element.name} has no device layout; it "
-                f"arrives with {NESTED_REST}")
+        r = nested_reason(ArrayType(element))
+        if r:
+            raise NotImplementedError(f"a list of {element.name} has no "
+                                      f"device layout: {r}")
         valid = ~np.asarray(arr.is_null())
         vals, ev = _flat_values(arr.values, element)
         return HostList(np.asarray(arr.offsets), vals, ev, element), valid
@@ -198,13 +267,9 @@ class HostList:
 
     def to_arrow(self, valid: np.ndarray, element: DataType):
         import pyarrow as pa
-        from ..types import to_arrow
+        from ..api.dataframe import _arrow_values
         c = self.compact()
-        vals = pa.array(c.values, mask=~c.elem_valid)
-        if element == DATE:
-            vals = vals.cast(pa.int32()).cast(pa.date32())
-        else:
-            vals = vals.cast(to_arrow(element))
+        vals = _arrow_values(c.values, c.elem_valid, element)
         offs = pa.array(c.offsets.astype(np.int32),
                         mask=np.concatenate([~valid, [False]]))
         return pa.ListArray.from_arrays(offs, vals)
@@ -215,9 +280,17 @@ class HostList:
 
 def _flat_values(flat, element: DataType):
     """(values in the device representation, validity) of a flat Arrow
-    array of a fixed-width ``element``."""
+    array of a fixed-width, string or struct ``element``."""
     import pyarrow as pa
     ev = ~np.asarray(flat.is_null())
+    if isinstance(element, StructType):
+        return HostStruct.from_arrow(flat)
+    if element == STRING:
+        vals = flat.fill_null("").to_numpy(zero_copy_only=False) \
+            .astype(object)
+        return vals, ev
+    if element == NULLTYPE:
+        return np.zeros(len(flat), np.int8), ev
     if element == DATE:
         flat = flat.cast(pa.int32())
     elif element == TIMESTAMP:
@@ -228,12 +301,186 @@ def _flat_values(flat, element: DataType):
     return vals, ev
 
 
+class Slots:
+    """The elements of a [P, W] list rectangle that have no fixed width
+    (strings, structs): a flat device column ``col`` of P·W rows, slot
+    (i, j) at row i·W + j (module doc)."""
+
+    __slots__ = ("col", "width")
+
+    def __init__(self, col, width: int):
+        self.col = col
+        self.width = int(width)
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.col.padded_len // self.width, self.width)
+
+    @property
+    def device(self):
+        return self.col.validity.device
+
+    def nbytes(self) -> int:
+        return self.col.nbytes()
+
+    def map(self, fn) -> "Slots":
+        """``fn`` over each tensor of the column viewed [P, W, ...], giving
+        [P', W', ...]: the slots rearranged."""
+        p, w = self.shape
+        tensors, meta = parts(self.col)
+        out = [fn(t.reshape((p, w) + tuple(t.shape[1:]))) for t in tensors]
+        p2, w2 = out[0].shape[:2]
+        return Slots(from_parts(meta, self.col.dtype, iter(
+            t.reshape((p2 * w2,) + tuple(t.shape[2:])) for t in out)), w2)
+
+    def __repr__(self):
+        return f"Slots({self.col!r}, width={self.width})"
+
+
+def slot_take(values, idx: torch.Tensor):
+    """Each row's slots ``idx`` ([P, W'], in [0, W))."""
+    if isinstance(values, Slots):
+        rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
+        return values.map(lambda t: t[rows, idx])
+    return values.gather(1, idx)
+
+
+def slot_rows(values, idx: torch.Tensor):
+    """Rows ``idx`` of the rectangle."""
+    if isinstance(values, Slots):
+        return values.map(lambda t: t[idx])
+    return values[idx]
+
+
+def slot_zero(values, keep: torch.Tensor):
+    """The slots where ``keep`` [P, W] is False zeroed (a NULL string
+    element of length 0, a NULL struct)."""
+    if isinstance(values, Slots):
+        def z(t):
+            k = keep.reshape(tuple(keep.shape) + (1,) * (t.dim() - 2))
+            return torch.where(k, t, torch.zeros((), dtype=t.dtype,
+                                                 device=t.device))
+        return values.map(z)
+    return torch.where(keep, values, torch.zeros((), dtype=values.dtype,
+                                                 device=values.device))
+
+
+def slot_pad(values, width: int):
+    """The rectangle widened to ``width`` slots with zeros."""
+    w = values.shape[1]
+    if width == w:
+        return values
+    if isinstance(values, Slots):
+        return values.map(lambda t: torch.cat([t, t.new_zeros(
+            (t.shape[0], width - w) + tuple(t.shape[2:]))], 1))
+    return torch.nn.functional.pad(values, (0, width - w))
+
+
+def slot_pick(values, rows: torch.Tensor, j: torch.Tensor):
+    """The slots (rows[k], j[k]) (in range): a tensor, or a flat column
+    for ``Slots``."""
+    if isinstance(values, Slots):
+        return take_rows(values.col, rows * values.width + j)
+    return values[rows, j]
+
+
+def slot_hcat(parts_: Sequence):
+    """Rectangles of one row count side by side: the slots of the first,
+    then of the second, ... (their columns merged as concatenation
+    merges them: one dictionary, the widest byte rectangle)."""
+    if not isinstance(parts_[0], Slots):
+        return torch.cat(list(parts_), dim=1)
+    from .batch import _concat_column
+    p = parts_[0].shape[0]
+    ws = [x.width for x in parts_]
+    col = _concat_column([x.col for x in parts_], [p * w for w in ws],
+                         None)
+    dev = parts_[0].device
+    w = sum(ws)
+    idx = torch.empty((p, w), dtype=torch.int64, device=dev)
+    base = col_base = 0
+    for x in ws:
+        idx[:, base:base + x] = col_base + torch.arange(
+            p, device=dev)[:, None] * x + torch.arange(x, device=dev)[None, :]
+        base += x
+        col_base += p * x
+    return Slots(take_rows(col, idx.reshape(-1)), w)
+
+
+def flat_key(c) -> torch.Tensor:
+    """int64 per row of a flat column, whose ``==`` and order are Spark's
+    for its values (NULLs aside): a number's order key, a dictionary
+    string's code, a byte string's rank among the column's values (by
+    its packed words, then its length), a struct's rank by its fields in
+    order, a NULL field first."""
+    from ..exprs.collection_fns import element_key
+    from .strrect import ByteRectColumn, pack_words
+    if isinstance(c, StructColumn):
+        cols = []
+        for f in c.children:
+            cols.append((~f.validity).to(torch.int64))
+            cols.append(torch.where(f.validity, flat_key(f), 0))
+        if not cols:
+            return torch.zeros(c.padded_len, dtype=torch.int64,
+                               device=c.validity.device)
+        return _rank(torch.stack(cols, dim=1))
+    if isinstance(c, ByteRectColumn):
+        words = pack_words(c.data)
+        return _rank(torch.cat([words, c.lengths.to(torch.int64)[:, None]],
+                               dim=1))
+    if isinstance(c, DictColumn):
+        return c.data.to(torch.int64)
+    return element_key(c.data).to(torch.int64)
+
+
+def _rank(rows: torch.Tensor) -> torch.Tensor:
+    """Each row's rank among the distinct rows of ``rows`` [N, K] int64 in
+    lexicographic order."""
+    if not rows.shape[0]:
+        return torch.zeros(0, dtype=torch.int64, device=rows.device)
+    return torch.unique(rows, dim=0, return_inverse=True)[1]
+
+
+def slot_key(values) -> torch.Tensor:
+    """[P, W] keys whose ``==`` and order are Spark's for the elements
+    (``flat_key``; a fixed-width element's ``element_key``)."""
+    if isinstance(values, Slots):
+        return flat_key(values.col).reshape(values.shape)
+    from ..exprs.collection_fns import element_key
+    return element_key(values)
+
+
+def joint_keys(values: Sequence) -> List[torch.Tensor]:
+    """``slot_key`` of several rectangles (or flat columns, a needle a
+    row) over one ordering, so that keys compare across them: their
+    elements ranked together."""
+    from ..exprs.collection_fns import element_key
+    if not any(isinstance(v, Slots) or isinstance(v, DeviceColumn)
+               for v in values):
+        common = values[0].dtype
+        for v in values[1:]:
+            common = torch.promote_types(common, v.dtype)
+        return [element_key(v.to(common)) for v in values]
+    from .batch import _concat_column
+    cols = [v.col if isinstance(v, Slots) else v for v in values]
+    rows = [c.padded_len for c in cols]
+    key = flat_key(_concat_column(cols, rows, None))
+    out, pos = [], 0
+    for v, n in zip(values, rows):
+        k = key[pos:pos + n]
+        out.append(k.reshape(v.shape) if isinstance(v, Slots) else k)
+        pos += n
+    return out
+
+
 class ListColumn(DeviceColumn):
-    """A list column on the device in the rectangle layout (module doc)."""
+    """A list column on the device in the rectangle layout (module doc):
+    ``data`` is the [P, W] tensor of fixed-width elements, or the
+    ``Slots`` of strings or structs."""
 
     __slots__ = ("elem_valid", "lengths")
 
-    def __init__(self, data: torch.Tensor, validity: torch.Tensor,
+    def __init__(self, data, validity: torch.Tensor,
                  dtype: ArrayType, elem_valid: torch.Tensor,
                  lengths: torch.Tensor):
         super().__init__(data, validity, dtype)
@@ -245,8 +492,10 @@ class ListColumn(DeviceColumn):
         return int(self.data.shape[1])
 
     def nbytes(self) -> int:
-        return (self.data.numel() * self.data.element_size()
-                + self.elem_valid.numel() + self.validity.numel()
+        d = self.data
+        size = d.nbytes() if isinstance(d, Slots) \
+            else d.numel() * d.element_size()
+        return (size + self.elem_valid.numel() + self.validity.numel()
                 + 4 * self.lengths.numel())
 
     def with_arrays(self, data, validity):
@@ -256,10 +505,17 @@ class ListColumn(DeviceColumn):
     def to_numpy(self, num_rows: int) -> Tuple[HostList, np.ndarray]:
         """(HostList, row validity) of the first ``num_rows`` rows: the
         slots inside each row, compacted on the device, come back in one
-        packed copy with the lengths and the row validity."""
+        packed copy with the lengths and the row validity (strings or
+        structs: their flat column's copy, then that one)."""
         n = num_rows
         inside, lens = _inside(self.lengths[:n], self.validity[:n],
                                self.width)
+        if isinstance(self.data, Slots):
+            idx = torch.nonzero(inside.reshape(-1), as_tuple=True)[0]
+            lens, rv = packed_to_host([lens, self.validity[:n]])
+            elems = take_rows(self.data.col, idx)
+            vals, ev = to_host_column(elems, len(idx)).to_numpy(len(idx))
+            return HostList(_offsets(lens), vals, ev, self.dtype.element), rv
         vals, ev, lens, rv = packed_to_host([
             self.data[:n][inside], self.elem_valid[:n][inside], lens,
             self.validity[:n]])
@@ -285,7 +541,7 @@ def _offsets(lens: np.ndarray) -> np.ndarray:
     return offsets
 
 
-def list_column(values: torch.Tensor, elem_valid: torch.Tensor,
+def list_column(values, elem_valid: torch.Tensor,
                 lengths: torch.Tensor, validity: torch.Tensor,
                 dtype: ArrayType) -> ListColumn:
     """A ListColumn in the layout's canonical form: a NULL row has length
@@ -293,12 +549,10 @@ def list_column(values: torch.Tensor, elem_valid: torch.Tensor,
     is not valid holds 0."""
     lengths = torch.where(validity, lengths.to(torch.int32), 0)
     w = values.shape[1]
-    inside = torch.arange(w, device=values.device)[None, :] \
+    inside = torch.arange(w, device=validity.device)[None, :] \
         < lengths[:, None]
     ev = torch.logical_and(elem_valid, inside)
-    data = torch.where(ev, values, torch.zeros((), dtype=values.dtype,
-                                               device=values.device))
-    return ListColumn(data, validity, dtype, ev, lengths)
+    return ListColumn(slot_zero(values, ev), validity, dtype, ev, lengths)
 
 
 def pad_list(col: ListColumn, width: int) -> ListColumn:
@@ -308,58 +562,112 @@ def pad_list(col: ListColumn, width: int) -> ListColumn:
     if width < col.width:
         raise ValueError(f"a list column of width {col.width} cannot pad "
                          f"to {width}")
-    pad = (0, width - col.width)
-    return ListColumn(torch.nn.functional.pad(col.data, pad),
-                      col.validity, col.dtype,
-                      torch.nn.functional.pad(col.elem_valid, pad),
+    return ListColumn(slot_pad(col.data, width), col.validity, col.dtype,
+                      torch.nn.functional.pad(col.elem_valid,
+                                              (0, width - col.width)),
                       col.lengths)
 
 
+def _slot_of_elements(c: HostList, valid: np.ndarray, n: int, w: int,
+                      device):
+    """(each flat element's row, its slot in the rectangle: ``w`` for one
+    that is cut off -- a NULL row's, or one past ``w``), on the device."""
+    raw = to_device(c.lengths, device)
+    total = len(c.values)
+    rv = to_device(valid, device)
+    row = torch.repeat_interleave(
+        torch.arange(n, device=device), raw, output_size=total)
+    start = torch.cumsum(raw, 0) - raw
+    pos = torch.arange(total, device=device) - start[row]
+    return row, torch.where(torch.logical_and(rv[row], pos < w), pos, w)
+
+
 def to_device_list(hl: HostList, valid: np.ndarray, dtype: ArrayType,
-                   device, what: str = "a list column") -> ListColumn:
+                   device, what: str = "a list column",
+                   rect_cap: int = 64) -> ListColumn:
     """A ``HostList`` and its row validity as a ListColumn on ``device``:
     the flat values and offsets are copied, the rectangle is built there
     (a row's elements scattered into its row; a NULL row's and any
-    element past W into a slot that is cut off). Refuses a list past the
-    widest bucket or a rectangle past ``MAX_ELEMENT_SLOTS``."""
+    element past W into a slot that is cut off). Strings and structs
+    are laid out first as a flat column of the elements (as ingest lays
+    out a column: dictionary codes, or a byte rectangle up to
+    ``rect_cap`` bytes wide), then gathered into their slots. Refuses a
+    list past the widest bucket or a rectangle past
+    ``MAX_ELEMENT_SLOTS``."""
     n = len(hl)
     lens = np.where(valid, hl.lengths, 0)
     longest = int(lens.max()) if n else 0
     w = width_bucket(max(longest, 1))
     if w is None or w * n > MAX_ELEMENT_SLOTS:
-        raise NotImplementedError(
-            f"{what}: a list of {longest} elements over {n} rows exceeds "
-            f"the device rectangle (at most {WIDTH_BUCKETS[-1]} elements a "
-            f"list and {MAX_ELEMENT_SLOTS} slots a batch); longer lists "
-            f"arrive with {NESTED_REST}")
+        raise too_long(what, longest, n)
     c = hl.compact()
-    tdt = torch_dtype(dtype.element)
-    raw = to_device(c.lengths, device)
-    total = len(c.values)
-    vals = to_device(c.values.astype(dtype.element.np_dtype, copy=False),
-                   device)
-    ev = to_device(c.elem_valid, device)
     rv = to_device(valid, device)
+    total = len(c.values)
+    lengths = to_device(lens.astype(np.int32), device)
+    if dtype.element.np_dtype is None and dtype.element != NULLTYPE:
+        flat = _flat_device_column(c.values, c.elem_valid, dtype.element,
+                                   device, rect_cap, what)
+        src = torch.full((n * w + 1,), -1, dtype=torch.int64, device=device)
+        if total:
+            row, pos = _slot_of_elements(c, valid, n, w, device)
+            src[torch.where(pos < w, row * w + pos, n * w)] = torch.arange(
+                total, device=device)
+        src = src[:n * w]
+        taken = take_rows(flat, src.clamp(min=0)) if total \
+            else zero_rows(flat, n * w)
+        ev = (src >= 0).reshape(n, w) & to_device(
+            c.elem_valid, device)[src.clamp(min=0)].reshape(n, w) \
+            if total else torch.zeros((n, w), dtype=torch.bool,
+                                      device=device)
+        return list_column(Slots(null_rows(taken, ev.reshape(-1)), w), ev,
+                           lengths, rv, dtype)
+    tdt = elem_torch_dtype(dtype.element)
+    vals = to_device(np.asarray(c.values).astype(
+        str(tdt).replace("torch.", ""), copy=False), device)
+    ev = to_device(c.elem_valid, device)
     data = torch.zeros((n, w + 1), dtype=tdt, device=device)
     evr = torch.zeros((n, w + 1), dtype=torch.bool, device=device)
     if total:
-        row = torch.repeat_interleave(
-            torch.arange(n, device=device), raw, output_size=total)
-        start = torch.cumsum(raw, 0) - raw
-        pos = torch.arange(total, device=device) - start[row]
-        pos = torch.where(torch.logical_and(rv[row], pos < w), pos, w)
+        row, pos = _slot_of_elements(c, valid, n, w, device)
         data[row, pos] = vals
         evr[row, pos] = ev
-    return list_column(data[:, :w], evr[:, :w],
-                       to_device(lens.astype(np.int32), device), rv, dtype)
+    return list_column(data[:, :w], evr[:, :w], lengths, rv, dtype)
+
+
+def _flat_device_column(values, elem_valid: np.ndarray, element: DataType,
+                        device, rect_cap: int, what: str):
+    """A list's flat host elements as a device column, laid out as ingest
+    lays out a column of their type; refused, naming the queue, where a
+    string is past the byte rectangle's ``rect_cap`` bytes (or, not
+    being ASCII, has no device form here)."""
+    from .batch import ColumnarBatch, HostTable
+    from .column import HostColumn
+    from ..types import Schema, StructField
+    table = HostTable({"e": (values, elem_valid)},
+                      Schema([StructField("e", element)]))
+    col = ColumnarBatch.from_host(table, device, rect_cap,
+                                  encode=False).columns[0]
+    if isinstance(col, HostColumn):
+        raise NotImplementedError(
+            f"{what}: a string element past the byte rectangle's "
+            f"{rect_cap} bytes (spark.rapids.tpu.sql.string.rect.maxBytes) "
+            f"arrives with {NESTED_REST}")
+    return col
 
 
 def concat_lists(parts: List[ListColumn], rows: List[int]) -> ListColumn:
-    """List columns' first ``rows`` rows, in order, at the widest W."""
+    """List columns' first ``rows`` rows, in order, at the widest W
+    (strings and structs: their flat columns concatenated as columns
+    are, dictionaries merged and byte rectangles widened)."""
     w = max(p.width for p in parts)
     parts = [pad_list(slice_rows(p, 0, n), w) for p, n in zip(parts, rows)]
-    return ListColumn(torch.cat([p.data for p in parts]),
-                      torch.cat([p.validity for p in parts]),
+    if isinstance(parts[0].data, Slots):
+        from .batch import _concat_column
+        data = Slots(_concat_column([p.data.col for p in parts],
+                                    [n * w for n in rows], None), w)
+    else:
+        data = torch.cat([p.data for p in parts])
+    return ListColumn(data, torch.cat([p.validity for p in parts]),
                       parts[0].dtype,
                       torch.cat([p.elem_valid for p in parts]),
                       torch.cat([p.lengths for p in parts]))
@@ -452,25 +760,18 @@ class HostMap:
         if isinstance(arr, pa.ChunkedArray):
             arr = arr.combine_chunks()
         kt, vt = from_arrow(arr.type.key_type), from_arrow(arr.type.item_type)
-        if kt.np_dtype is None or vt.np_dtype is None:
-            raise NotImplementedError(
-                f"a map of {kt.name} keys and {vt.name} values has no device "
-                f"layout; it arrives with {NESTED_REST}")
+        r = nested_reason(MapType(kt, vt))
+        if r:
+            raise NotImplementedError(r)
         valid = ~np.asarray(arr.is_null())
         kv, _ = _flat_values(arr.keys, kt)
         vv, vev = _flat_values(arr.items, vt)
         return HostMap(np.asarray(arr.offsets), kv, vv, vev, kt, vt), valid
 
-    def to_pylist(self, valid: np.ndarray, entries: bool = False) -> list:
-        """Each row's (key, value) tuples (``entries``: ``{"key": k,
-        "value": v}`` dicts, as Arrow gives a list of structs), None for
-        a NULL row."""
+    def to_pylist(self, valid: np.ndarray) -> list:
+        """Each row's (key, value) tuples, None for a NULL row."""
         ks = self.keys.to_pylist(valid, self.keys.element)
         vs = self.values.to_pylist(valid, self.values.element)
-        if entries:
-            return [None if k is None else [{"key": a, "value": b}
-                                            for a, b in zip(k, v)]
-                    for k, v in zip(ks, vs)]
         return [None if k is None else list(zip(k, v))
                 for k, v in zip(ks, vs)]
 
@@ -478,21 +779,15 @@ class HostMap:
         import pyarrow as pa
         keys = self.keys.to_arrow(valid, self.keys.element)
         vals = self.values.to_arrow(valid, self.values.element)
-        if isinstance(dtype, MapType):
-            return pa.MapArray.from_arrays(keys.offsets, keys.values,
-                                           vals.values,
-                                           mask=pa.array(~valid))
-        entries = pa.StructArray.from_arrays(
-            [keys.values, vals.values], ["key", "value"])
-        return pa.ListArray.from_arrays(keys.offsets, entries,
-                                        mask=pa.array(~valid))
+        return pa.MapArray.from_arrays(keys.offsets, keys.values,
+                                       vals.values, mask=pa.array(~valid))
 
     def __repr__(self):
         return f"HostMap(rows={len(self)}, entries={len(self.keys.values)})"
 
 
 class MapColumn(DeviceColumn):
-    """A map (or a map's entries) on the device: the keys' and the
+    """A map on the device: the keys' and the
     values' ``ListColumn`` over one ``lengths`` and row validity (module
     doc). ``data`` is the keys' rectangle."""
 
@@ -514,8 +809,8 @@ class MapColumn(DeviceColumn):
 
     def nbytes(self) -> int:
         v = self.values
-        return self.keys.nbytes() + v.data.numel() * v.data.element_size() \
-            + v.elem_valid.numel()
+        return self.keys.nbytes() + v.nbytes() - v.validity.numel() \
+            - 4 * v.lengths.numel()
 
     def with_arrays(self, data, validity):
         raise TypeError("MapColumn rows move with their values and "
@@ -525,6 +820,10 @@ class MapColumn(DeviceColumn):
         """(HostMap, row validity) of the first ``num_rows`` rows: the
         entries compacted on the device, one packed copy."""
         n = num_rows
+        if isinstance(self.keys.data, Slots) or isinstance(self.values.data,
+                                                          Slots):
+            keys, rv = self.keys.to_numpy(n)
+            return HostMap.of(keys, self.values.to_numpy(n)[0]), rv
         inside, lens = _inside(self.lengths[:n], self.validity[:n],
                                self.width)
         kd, vd, vev, lens, rv = packed_to_host([
@@ -552,14 +851,15 @@ def map_column(keys: torch.Tensor, key_valid: torch.Tensor,
 
 
 def to_device_map(hm: HostMap, valid: np.ndarray, dtype: DataType, device,
-                  what: str = "a map column") -> MapColumn:
+                  what: str = "a map column",
+                  rect_cap: int = 64) -> MapColumn:
     """A ``HostMap`` and its row validity as a MapColumn on ``device``
     (the caps of ``to_device_list``)."""
     kt, vt = _key_value_types(dtype)
     return MapColumn(
-        to_device_list(hm.keys, valid, ArrayType(kt), device, what),
-        to_device_list(hm.values, valid, ArrayType(vt), device, what),
-        dtype)
+        to_device_list(hm.keys, valid, ArrayType(kt), device, what, rect_cap),
+        to_device_list(hm.values, valid, ArrayType(vt), device, what,
+                       rect_cap), dtype)
 
 
 def concat_maps(parts: List[MapColumn], rows: List[int]) -> MapColumn:
@@ -702,9 +1002,9 @@ def parts(c) -> Tuple[List[torch.Tensor], tuple]:
     ``from_parts`` rebuilds the column from with its type)."""
     from .strrect import ByteRectColumn
     if isinstance(c, MapColumn):
-        k, v = c.keys, c.values
-        return [k.data, c.validity, k.elem_valid, v.data, v.elem_valid,
-                c.lengths], ("map",)
+        kt, km = parts(c.keys)
+        vt, vm = parts(c.values)
+        return kt + vt, ("map", km, vm)
     if isinstance(c, StructColumn):
         tensors, metas = [c.validity], []
         for child in c.children:
@@ -713,7 +1013,13 @@ def parts(c) -> Tuple[List[torch.Tensor], tuple]:
             metas.append(m)
         return tensors, ("struct", metas)
     if isinstance(c, ListColumn):
-        return [c.data, c.validity, c.elem_valid, c.lengths], ("list",)
+        rest = [c.validity, c.elem_valid, c.lengths]
+        if isinstance(c.data, Slots):
+            p, w = c.data.shape
+            t, m = parts(c.data.col)
+            return [x.reshape((p, w) + tuple(x.shape[1:])) for x in t] \
+                + rest, ("slots", m, len(t))
+        return [c.data] + rest, ("list",)
     if isinstance(c, ByteRectColumn):
         return [c.data, c.validity, c.lengths], ("rect", c.ascii_only)
     if isinstance(c, DictColumn):
@@ -740,14 +1046,30 @@ def from_parts(meta: tuple, dtype: DataType, tensors):
     if kind == "list":
         d, v, ev, ln = (next(tensors) for _ in range(4))
         return ListColumn(d, v, dtype, ev, ln)
+    if kind == "slots":
+        ts = [next(tensors) for _ in range(meta[2])]
+        v, ev, ln = next(tensors), next(tensors), next(tensors)
+        p, w = ev.shape
+        flat = from_parts(meta[1], dtype.element, iter(
+            x.reshape((p * w,) + tuple(x.shape[2:])) for x in ts))
+        return ListColumn(Slots(flat, w), v, dtype, ev, ln)
     if kind == "map":
-        k, v, kev, vd, vev, ln = (next(tensors) for _ in range(6))
         kt, vt = _key_value_types(dtype)
-        return MapColumn(ListColumn(k, v, ArrayType(kt), kev, ln),
-                         ListColumn(vd, v, ArrayType(vt), vev, ln), dtype)
+        keys = from_parts(meta[1], ArrayType(kt), tensors)
+        return MapColumn(keys, from_parts(meta[2], ArrayType(vt), tensors),
+                         dtype)
     v = next(tensors)
     return StructColumn([from_parts(m, f.dtype, tensors)
                          for m, f in zip(meta[1], dtype.fields)], v, dtype)
+
+
+def with_validity(c, valid: torch.Tensor):
+    """``c`` with its row validity ``valid`` and every other tensor as it
+    is (no copy of the data: the caller knows the rows that turn NULL
+    need no canonical value)."""
+    tensors, meta = parts(c)
+    tensors[0 if meta[0] == "struct" else 1] = valid
+    return from_parts(meta, c.dtype, iter(tensors))
 
 
 def _rebuilt(c, fn):

@@ -88,8 +88,8 @@ import numpy as np
 import torch
 
 from ..columnar import (ByteRectColumn, ColumnarBatch, DeviceColumn,
-                        DictColumn, ListColumn)
-from ..columnar.nested import list_column
+                        DictColumn)
+from ..columnar.nested import list_column, null_rows, to_device_list
 from ..columnar.batch import (concat_batches, dict_limit, dict_to_rect,
                               rect_to_dict)
 from ..columnar.segmented import bucket_segments
@@ -147,13 +147,16 @@ def _device_operand(key: tuple, make: Callable[[], object]):
 
 def _apply_pre_stages(stages, in_schema: Schema, base_dvals, num_rows: int,
                       padded_len: int, device, partition_id: int = 0,
-                      task_state: Optional[dict] = None):
+                      task_state: Optional[dict] = None,
+                      use_kernel: bool = False):
     """Run the fused ("filter", cond) / ("project", exprs, schema)
     pre-stages; returns (EvalContext over the last stage's schema, keep
-    mask). ``partition_id`` and ``task_state`` are the batch's partition
-    and the exec's task state (exprs/base.py EvalContext)."""
+    mask). ``partition_id``, ``task_state`` and ``use_kernel`` are the
+    batch's partition, the exec's task state and whether string
+    predicates take the match kernel (exprs/base.py EvalContext)."""
     ctx = EvalContext(in_schema, base_dvals, num_rows, padded_len, device,
-                      partition_id=partition_id, task_state=task_state)
+                      partition_id=partition_id, task_state=task_state,
+                      use_kernel=use_kernel)
     keep = ctx.row_mask()
     for st in stages:
         if st[0] == "filter":
@@ -165,20 +168,27 @@ def _apply_pre_stages(stages, in_schema: Schema, base_dvals, num_rows: int,
             ctx = EvalContext(out_schema, [e.eval_device(ctx) for e in exprs],
                               num_rows, padded_len, device,
                               partition_id=partition_id,
-                              task_state=task_state)
+                              task_state=task_state, use_kernel=use_kernel)
     return ctx, keep
 
 
-def _value(v: DVal) -> DVal:
-    """An aggregate's input; a string's data is dropped (only count reads
-    a string column, and only its validity)."""
-    return DVal(None, v.validity, v.dtype) if v.dtype == STRING else v
+def _value(v: DVal, agg) -> DVal:
+    """An aggregate's input; a string's data is dropped, and its column
+    too unless the aggregate reads the strings (``reads_strings``:
+    collect_list, min_by; count reads only the validity)."""
+    if v.dtype != STRING:
+        return v
+    return DVal(None, v.validity, v.dtype,
+                v.column if agg.reads_strings else None)
 
 
 def _agg_column(d, v, dtype) -> DeviceColumn:
-    """A partial or result column: a list rectangle for a ``ListVal``."""
+    """A partial or result column: a list rectangle for a ``ListVal``, a
+    string's column (collect's, min_by's) with validity ``v``."""
     if isinstance(d, ListVal):
         return list_column(*d, v, dtype)
+    if isinstance(d, DeviceColumn):
+        return null_rows(d, v)
     return DeviceColumn(d, v, dtype)
 
 
@@ -250,6 +260,7 @@ class TpuHashAggregateExec(TpuExec):
         #: string keys (ordinals into _dict_keys) grouping on their bytes
         #: in this execution, and whether all their bytes are ASCII
         self._rect_keys: set = set()
+        self._use_kernel = False
         self._rect_ascii: Dict[int, bool] = {}
         self._set_partial_schema()
         #: string -> global code, per dictionary key (one execution's)
@@ -297,7 +308,8 @@ class TpuHashAggregateExec(TpuExec):
                                  self.children[0].output_schema(),
                                  batch_dvals(batch), batch.num_rows,
                                  batch.padded_len, batch_device(batch),
-                                 batch.partition_id, self._task_state)
+                                 batch.partition_id, self._task_state,
+                                 self._use_kernel)
 
     def _finalize_aggs(self, merged, picks=None) -> List[DeviceColumn]:
         """The output columns from the merged partials; an order
@@ -580,7 +592,7 @@ class TpuHashAggregateExec(TpuExec):
         if srcs is None:
             srcs = [self._key_column(i, batch) for i in self._dict_keys]
         ectx, keep = self._pre_stages(batch)
-        vals = [[_value(e.eval_device(ectx)) for e in a.input_exprs()]
+        vals = [[_value(e.eval_device(ectx), a) for e in a.input_exprs()]
                 for a in self.aggs]
         streams = self._stream_batches(srcs, ectx, keep, vals)
         ops = self._direct_operands(srcs, ectx) if self._dense_ok \
@@ -803,11 +815,9 @@ class TpuHashAggregateExec(TpuExec):
         def empty(f):
             v = torch.zeros(0, dtype=torch.bool, device=device)
             if isinstance(f.dtype, ArrayType):
-                e = torch.zeros((0, 4), dtype=torch_dtype(f.dtype.element),
-                                device=device)
-                return ListColumn(e, v, f.dtype, e.bool(),
-                                  torch.zeros(0, dtype=torch.int32,
-                                              device=device))
+                from .base import _empty_nested
+                return to_device_list(*_empty_nested(f.dtype), f.dtype,
+                                      device)
             if f.dtype == STRING:
                 return ByteRectColumn(
                     torch.zeros((0, 8), dtype=torch.uint8, device=device), v,
@@ -826,7 +836,8 @@ class TpuHashAggregateExec(TpuExec):
         dvals = batch_dvals(big)
         vals, pos = [], nkeys
         for types in self._partial_types:
-            vals.append([DVal(dvals[o].data, cols[o].validity, t)
+            vals.append([DVal(dvals[o].data, cols[o].validity, t,
+                              dvals[o].column)
                          for o, t in zip(range(pos, pos + len(types)),
                                          types)])
             pos += len(types)
@@ -939,6 +950,8 @@ class TpuHashAggregateExec(TpuExec):
         #: the row counts of rand/monotonically_increasing_id in the
         #: fused stages and inputs (exprs/nondeterministic.py)
         self._task_state = {}
+        from ..exprs.rect_match import PALLAS_ENABLED
+        self._use_kernel = bool(ctx.conf.get(PALLAS_ENABLED))
         self._dicts = [dict() for _ in self._dict_keys]
         self._rows_in = 0
         self._rect_keys = set()

@@ -127,8 +127,11 @@ def _empty_nested(dtype):
     from ..types import ArrayType, Schema, StructType, map_parts
 
     def empty_list(t):
-        return HostList(np.zeros(1, np.int64), np.zeros(0, t.np_dtype),
-                        None, t)
+        if t.np_dtype is None and t.name not in ("string", "void"):
+            vals = _empty_nested(t)[0]
+        else:
+            vals = np.zeros(0, t.np_dtype or object)
+        return HostList(np.zeros(1, np.int64), vals, None, t)
     kv = map_parts(dtype)
     if kv is not None:
         out = HostMap.of(*(empty_list(t) for t in kv))

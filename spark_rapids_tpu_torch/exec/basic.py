@@ -278,7 +278,8 @@ class TpuProjectExec(TpuExec):
             with ctx.semaphore.held():
                 if self.device_idx:
                     for i, c in zip(self.device_idx, self._projector.run(
-                            batch, task_state=task_state)):
+                            batch, task_state=task_state,
+                            use_kernel=use_kernel)):
                         out[i] = c
                 for i in self.chains:
                     out[i] = self._chain_eval(i, batch, use_kernel, cap)
@@ -338,8 +339,8 @@ class TpuFilterExec(TpuExec):
                 if self._dict_eval is not None:
                     keep = self._dict_eval.keep_mask(batch, use_kernel, cap)
                 else:
-                    col = self._projector.run(batch,
-                                              task_state=task_state)[0]
+                    col = self._projector.run(batch, task_state=task_state,
+                                              use_kernel=use_kernel)[0]
                     keep = torch.logical_and(col.data, col.validity)
                 out = filter_batch_by_mask(batch, keep)
             yield out

@@ -20,6 +20,7 @@ from typing import Iterator, List, Optional
 import torch
 
 from ..columnar import ColumnarBatch, DeviceColumn
+from ..columnar.nested import null_rows
 from ..exprs.base import EvalContext
 from ..exprs.compiler import batch_device, batch_dvals, gather_batch
 from ..exprs.generators import Generator
@@ -29,6 +30,17 @@ from ..types import Schema, StructField, torch_dtype
 from .base import ExecContext, TpuExec
 
 __all__ = ["TpuGenerateExec"]
+
+
+def _value_bytes(dt) -> int:
+    """Device bytes of one generated value and its validity."""
+    from ..columnar.strrect import RECT_MAX_BYTES
+    from ..types import STRING, StructType
+    if dt == STRING:
+        return RECT_MAX_BYTES.default + 5
+    if isinstance(dt, StructType):
+        return 1 + sum(_value_bytes(f.dtype) for f in dt.fields)
+    return dt.np_dtype.itemsize + 1
 
 
 class TpuGenerateExec(TpuExec):
@@ -43,6 +55,7 @@ class TpuGenerateExec(TpuExec):
             gen_fields = [StructField(n, f.dtype, f.nullable)
                           for n, f in zip(output_names, gen_fields)]
         self._gen_fields = gen_fields
+        self._use_kernel = False
         self._schema = Schema([child_schema[c] for c in self.required_cols]
                               + gen_fields)
 
@@ -51,10 +64,11 @@ class TpuGenerateExec(TpuExec):
 
     def _row_bytes(self, sub: ColumnarBatch) -> int:
         """Device bytes of one output row: the pass-through columns' a row
-        and the generated columns' values and validity."""
+        and the generated columns' values and validity (a string's at the
+        byte rectangle's widest, a struct's its fields')."""
         return sum(c.nbytes() // max(c.padded_len, 1) for c in sub.columns
                    if isinstance(c, DeviceColumn)) + sum(
-            f.dtype.np_dtype.itemsize + 1 for f in self._gen_fields)
+            _value_bytes(f.dtype) for f in self._gen_fields)
 
     def _generate(self, ctx: ExecContext,
                   sb: SpillableBatch) -> ColumnarBatch:
@@ -63,7 +77,8 @@ class TpuGenerateExec(TpuExec):
             device = batch_device(batch)
             ectx = EvalContext(batch.schema, batch_dvals(batch),
                                batch.num_rows, batch.padded_len, device,
-                               partition_id=batch.partition_id)
+                               partition_id=batch.partition_id,
+                               use_kernel=self._use_kernel)
             counts, n_bad, state = self.generator.counts(ectx)
             # the one host read of a batch: the output's size (and whether
             # a sequence's step cannot reach its stop)
@@ -88,6 +103,9 @@ class TpuGenerateExec(TpuExec):
                 out = list(gather_batch(sub, rep).columns)
                 for v, f in zip(self.generator.outputs(state, rep, pos),
                                 self._gen_fields):
+                    if isinstance(v.data, DeviceColumn):
+                        out.append(null_rows(v.data, v.validity))
+                        continue
                     data = v.data.to(torch_dtype(f.dtype))
                     out.append(DeviceColumn(torch.where(
                         v.validity, data, torch.zeros_like(data)),
@@ -98,6 +116,8 @@ class TpuGenerateExec(TpuExec):
         return ColumnarBatch(out, total, self._schema, batch.partition_id)
 
     def do_execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        from ..exprs.rect_match import PALLAS_ENABLED
+        self._use_kernel = bool(ctx.conf.get(PALLAS_ENABLED))
         for batch in self.children[0].execute(ctx):
             sb = SpillableBatch(batch, ctx.memory)
             yield from with_retry([sb], lambda b: self._generate(ctx, b),

@@ -30,7 +30,8 @@ import torch
 
 from ..columnar.segmented import GlobalSegments, SortedSegments
 from ..columnar.strrect import unpack_words
-from ..exprs.base import DVal, ListVal, StrVal
+from ..columnar.nested import slot_rows, take_rows
+from ..exprs.base import DVal, ListVal, StrVal, StructVal
 from .encoding import (canonicalize_floats, grouping_operands,
                        lexsort_permutation, operands_equal)
 
@@ -86,18 +87,25 @@ def stage_sort(keys: List[DVal], vals: List[List[DVal]],
         d = canonicalize_floats(k.data) if k.data.is_floating_point() \
             else k.data
         s_keys.append(DVal(d[perm], k.validity[perm], k.dtype))
-    s_vals = [[DVal(_take_rows(v.data, perm), v.validity[perm], v.dtype)
+    s_vals = [[DVal(_take_rows(v.data, perm), v.validity[perm], v.dtype,
+                    None if v.column is None else take_rows(v.column, perm))
                for v in vs] for vs in vals]
     return s_ops, s_keys, s_vals, row_mask[perm], perm
 
 
 def _take_rows(data, perm):
-    """``data``'s rows ``perm``: a tensor's, or a list rectangle's
-    (a ListVal partial of collect_list); None stays None."""
+    """``data``'s rows ``perm``: a tensor's, a list rectangle's (a
+    ListVal partial of collect_list), a struct's or a string's; None
+    stays None."""
     if data is None:
         return None
     if isinstance(data, ListVal):
-        return ListVal(*(t[perm] for t in data))
+        return ListVal(slot_rows(data.values, perm), data.elem_valid[perm],
+                       data.lengths[perm])
+    if isinstance(data, StructVal):
+        return StructVal(tuple(take_rows(c, perm) for c in data.fields))
+    if isinstance(data, StrVal):
+        return StrVal(*(t[perm] for t in data))
     return data[perm]
 
 

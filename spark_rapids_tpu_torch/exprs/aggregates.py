@@ -43,7 +43,8 @@ default here) or over every row without it; their partial keeps the
 row's position in the input, so partials merge in any order.
 
 CollectList and CollectSet build a list rectangle a group
-(``segment_lists``) and concatenate a group's lists when they merge;
+(``segment_lists``; a string's or a struct's values as ``Slots`` of
+their column's rows) and concatenate a group's lists when they merge;
 MinBy and MaxBy keep the extreme ordering, its value and its row's
 position; Percentile's partial is the count of values, and the exec
 orders the values themselves (exec/aggregate.py). The reference runs
@@ -58,7 +59,7 @@ import torch
 from ..columnar.segmented import seg_max, seg_min, select_by_rank
 from ..types import (ArrayType, DataType, FLOAT64, INT64, STRING, Schema,
                      numeric)
-from .base import ColumnRef, DVal, Expression, ListVal, Literal
+from .base import ColumnRef, DVal, Expression, ListVal, Literal, StructVal
 
 __all__ = ["AggregateExpression", "Sum", "Count", "CountStar", "Average",
            "Min", "Max", "First", "Last", "VariancePop", "VarianceSamp",
@@ -89,6 +90,9 @@ class AggregateExpression:
     #: the DISTINCT modifier (``agg(DISTINCT e)``): the planner rewrites
     #: it away (plan/rewrites.py) before any exec sees it
     distinct: bool = False
+    #: its update reads a string input's values (its column), not only
+    #: their validity
+    reads_strings: bool = False
 
     def __init__(self, child: Optional[Expression],
                  name: Optional[str] = None):
@@ -472,26 +476,50 @@ class StddevSamp(_MomentAgg):
 # collect_list / collect_set, min_by / max_by, percentile
 # ---------------------------------------------------------------------------
 
-def _nested_agg_reason(agg, dt: DataType, what: str) -> Optional[str]:
-    if dt.np_dtype is None:
-        from ..types import NESTED_REST
+def _nested_agg_reason(agg, e: Expression, schema: Schema, what: str,
+                       structs: bool = False) -> Optional[str]:
+    """Why a collected (or min_by/max_by) value has no device form: it
+    must be fixed-width or a string (or, with ``structs``, a struct of
+    such fields); lists arrive with the queue."""
+    from ..types import NESTED_REST, StructType, device_list_ok
+    from .collection_fns import string_arg_reason
+    dt = e.data_type(schema)
+    if dt == STRING:
+        r = string_arg_reason(e, schema)
+        return f"{agg.name_hint}: {r}" if r else None
+    if dt.np_dtype is None and not (
+            structs and isinstance(dt, StructType)
+            and device_list_ok(ArrayType(dt))):
         return (f"{agg.name_hint}: {what} of {dt.name} arrives with "
                 f"{NESTED_REST}")
-    return None
+    return e.fully_device_supported(schema)
 
 
-def segment_lists(values: torch.Tensor, lens: torch.Tensor,
+def _slots_of(v: DVal):
+    """A collected value's rows as a [N, 1] rectangle: a tensor, or the
+    ``Slots`` of its column (a string's, a struct's)."""
+    from ..columnar.nested import Slots
+    if v.column is not None or isinstance(v.data, StructVal):
+        from .compiler import dval_column
+        col = v.column if v.column is not None else \
+            dval_column(v, v.validity, v.dtype)
+        return Slots(col, 1)
+    return v.data[:, None]
+
+
+def segment_lists(values, lens: torch.Tensor,
                   ids: torch.Tensor, G: int, what: str) -> ListVal:
     """Per segment, the first ``lens[r]`` slots of every row ``r`` of
-    ``values`` ([N, Wi]) whose segment ``ids[r]`` it is, in row order, as
-    a list rectangle [G, W]. A segment's rows are contiguous and the
-    segments in order (rows sorted by group, or one segment); a row that
-    adds nothing has ``lens`` 0. One host read: the longest list, which
-    past the rectangle's widest bucket raises (the lists are never
-    truncated)."""
-    from ..columnar.nested import WIDTH_BUCKETS, width_bucket
+    ``values`` ([N, Wi]: a tensor, or ``Slots`` of strings or structs)
+    whose segment ``ids[r]`` it is, in row order, as a list rectangle
+    [G, W]. A segment's rows are contiguous and the segments in order
+    (rows sorted by group, or one segment); a row that adds nothing has
+    ``lens`` 0. One host read: the longest list, which past the
+    rectangle's widest bucket raises (the lists are never truncated)."""
+    from ..columnar.nested import (WIDTH_BUCKETS, Slots, null_rows,
+                                   take_rows, width_bucket, zero_rows)
     from ..types import NESTED_REST
-    dev = values.device
+    dev = lens.device
     lens = lens.to(torch.int64)
     ids = torch.where(lens > 0, ids, G).to(torch.int64)
     total = torch.zeros(G + 1, dtype=torch.int64, device=dev) \
@@ -510,12 +538,22 @@ def segment_lists(values: torch.Tensor, lens: torch.Tensor,
     j = torch.arange(wi, device=dev)[None, :]
     col = torch.where(j < lens[:, None], first[:, None] + j, w)
     row = ids[:, None].expand(-1, wi)
+    flat = (row * (w + 1) + col).reshape(-1)
+    shape = (G + 1, w + 1)
+    if isinstance(values, Slots):
+        src = torch.full(((G + 1) * (w + 1),), -1, dtype=torch.int64,
+                         device=dev)
+        src[flat] = torch.arange(flat.shape[0], device=dev)
+        src = src.reshape(shape)[:G, :w].reshape(-1)
+        ok = src >= 0
+        got = take_rows(values.col, src.clamp(min=0)) if flat.shape[0] \
+            else zero_rows(values.col, G * w)
+        return ListVal(Slots(null_rows(got, ok), w), ok.reshape(G, w),
+                       total.to(torch.int32))
     out = torch.zeros((G + 1) * (w + 1), dtype=values.dtype, device=dev)
     ev = torch.zeros((G + 1) * (w + 1), dtype=torch.bool, device=dev)
-    flat = (row * (w + 1) + col).reshape(-1)
     out[flat] = values.reshape(-1)
     ev[flat] = (j < lens[:, None]).reshape(-1)
-    shape = (G + 1, w + 1)
     return ListVal(out.reshape(shape)[:G, :w], ev.reshape(shape)[:G, :w],
                    total.to(torch.int32))
 
@@ -523,41 +561,34 @@ def segment_lists(values: torch.Tensor, lens: torch.Tensor,
 def distinct_elements(lv: ListVal) -> ListVal:
     """Each row's elements with every repeat after the first dropped,
     the first occurrences in their order; equal as Spark's ordering has
-    it (NaN equal to NaN, -0.0 to 0.0)."""
-    from .collection_fns import _stable_sort_rows, element_key, in_list
+    it (NaN equal to NaN, -0.0 to 0.0; strings by their bytes)."""
+    from ..columnar.nested import slot_key
+    from .collection_fns import compact_slots, distinct_keep, in_list
     inside = in_list(lv) & lv.elem_valid
-    k = torch.where(inside, element_key(lv.values), 0)
-    perm = _stable_sort_rows([(~inside).to(torch.int8), k], lv.values)
-    ks, ins = k.gather(1, perm), inside.gather(1, perm)
-    first = ins.clone()
-    first[:, 1:] &= ~((ks[:, 1:] == ks[:, :-1]) & ins[:, :-1])
-    keep = torch.zeros_like(first).scatter_(1, perm, first)
-    p, w = lv.values.shape
-    dest = torch.where(keep, torch.cumsum(keep, dim=1) - 1, w)
-    vals = torch.zeros((p, w + 1), dtype=lv.values.dtype,
-                       device=lv.values.device).scatter_(1, dest, lv.values)
-    ev = torch.zeros((p, w + 1), dtype=torch.bool,
-                     device=lv.values.device).scatter_(1, dest, keep)
-    return ListVal(vals[:, :w], ev[:, :w], keep.sum(dim=1).to(torch.int32))
+    keep = distinct_keep(slot_key(lv.values), inside, inside)
+    return ListVal(*compact_slots(lv.values, lv.elem_valid, keep,
+                                  lv.values.shape[1]))
 
 
 class CollectList(AggregateExpression):
     """collect_list(e): a group's non-NULL values in arrival order, an
     empty list where it has none. The partial is a list a group (a list
-    rectangle, ``segment_lists``); the merge concatenates a group's
-    partials in order. A group past the rectangle's 256 values raises at
-    its batch, naming the queue: a list is never cut short."""
+    rectangle, ``segment_lists``: a string's or a struct's as ``Slots``,
+    their columns' rows gathered); the merge concatenates a group's
+    partials in order (dictionaries merged, byte rectangles widened, as
+    their batches concatenate). A group past the rectangle's 256 values
+    raises at its batch, naming the queue: a list is never cut short."""
 
     dense_ok = False
+    reads_strings = True
     _distinct = False
 
     def data_type(self, schema: Schema) -> DataType:
         return ArrayType(self.child.data_type(schema))
 
     def device_unsupported_reason(self, schema: Schema) -> Optional[str]:
-        return _nested_agg_reason(self, self.child.data_type(schema),
-                                  "a list") or \
-            super().device_unsupported_reason(schema)
+        return _nested_agg_reason(self, self.child, schema, "a list",
+                                  structs=not self._distinct)
 
     def partial_types(self, schema):
         return [self.data_type(schema)]
@@ -573,7 +604,7 @@ class CollectList(AggregateExpression):
     def update(self, vals, seg):
         v = vals[0]
         ok = v.validity & seg.live
-        return self._lists(v.data[:, None], ok.to(torch.int64), seg)
+        return self._lists(_slots_of(v), ok.to(torch.int64), seg)
 
     def merge(self, partials, seg):
         p = partials[0]
@@ -594,19 +625,37 @@ class CollectSet(CollectList):
     _distinct = True
 
 
-def _order_key(d: torch.Tensor) -> torch.Tensor:
+def _order_key(v: DVal) -> torch.Tensor:
+    """An ordering's key, Spark's order: a number's, a string's rank among
+    the batch's values (``flat_key``)."""
     from .collection_fns import element_key
-    return element_key(d)
+    if v.column is not None:
+        from ..columnar.nested import flat_key
+        return flat_key(v.column)
+    return element_key(v.data)
+
+
+def _take_value(v: DVal, rows: torch.Tensor):
+    """``v``'s rows ``rows``: a tensor, or a string's column."""
+    if v.column is None:
+        return _take(v.data, rows)
+    from ..columnar.nested import take_rows, zero_rows
+    if not v.column.padded_len:
+        return zero_rows(v.column, rows.shape[0])
+    return take_rows(v.column, rows)
 
 
 class MinBy(AggregateExpression):
     """min_by(value, ordering): the value of the row whose ordering is
-    least by Spark's ordering (NaN greatest, -0.0 equal to 0.0), NULL
-    orderings skipped; the first such row in arrival order where several
-    tie; NULL where the value there is NULL or no ordering is valid. The
-    partials are (value, ordering, the row's position in the input)."""
+    least by Spark's ordering (NaN greatest, -0.0 equal to 0.0; strings
+    by their bytes), NULL orderings skipped; the first such row in
+    arrival order where several tie; NULL where the value there is NULL
+    or no ordering is valid. The partials are (value, ordering, the
+    row's position in the input); a string's partial is its column's
+    rows."""
 
     dense_ok = False
+    reads_strings = True
     mode = "min"
 
     def __init__(self, child, ordering, name: Optional[str] = None):
@@ -619,9 +668,7 @@ class MinBy(AggregateExpression):
     def device_unsupported_reason(self, schema):
         for e, what in ((self.child, "a value"),
                         (self.ordering, "an ordering")):
-            dt = e.data_type(schema)
-            r = _nested_agg_reason(self, dt, what) or \
-                e.fully_device_supported(schema)
+            r = _nested_agg_reason(self, e, schema, what)
             if r:
                 return r
         return None
@@ -634,7 +681,7 @@ class MinBy(AggregateExpression):
                 INT64]
 
     def _pick(self, value: DVal, order: DVal, rank, ok, seg):
-        key = _order_key(order.data)
+        key = _order_key(order)
         how = "amin" if self.mode == "min" else "amax"
         from ..columnar.segmented import _extreme
         G = seg.num_segments
@@ -643,8 +690,8 @@ class MinBy(AggregateExpression):
         hit = ok & seg.live & (key == best[ids.clamp(0, max(G - 1, 0))]) \
             if G else ok
         rows, has = select_by_rank(rank, hit, seg, "min")
-        return [(_take(value.data, rows), _take(value.validity, rows) & has),
-                (_take(order.data, rows), has), (_take(rank, rows), has)]
+        return [(_take_value(value, rows), _take(value.validity, rows) & has),
+                (_take_value(order, rows), has), (_take(rank, rows), has)]
 
     def update(self, vals, seg):
         value, order = vals

@@ -81,13 +81,17 @@ class EvalContext:
     ids keep their running row counts: exprs/nondeterministic.py; None
     where no operator hosts them). ``live``, when given, marks the rows
     that are real where they are not a prefix (a lambda's element rows,
-    exprs/higher_order.py)."""
+    exprs/higher_order.py). ``use_kernel``: a string predicate over a
+    byte rectangle takes the hand-written match kernel
+    (``spark.rapids.tpu.sql.pallas.enabled``, exprs/rect_match.py)."""
 
     def __init__(self, schema: Schema, columns: Sequence[Optional[DVal]],
                  num_rows: int, padded_len: int, device,
                  slots: Sequence[DVal] = (), partition_id: int = 0,
                  task_state: Optional[dict] = None,
-                 live: Optional[torch.Tensor] = None):
+                 live: Optional[torch.Tensor] = None,
+                 use_kernel: bool = False):
+        self.use_kernel = use_kernel
         self.schema = schema
         self.columns = list(columns)
         self.num_rows = num_rows

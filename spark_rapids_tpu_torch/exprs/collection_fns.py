@@ -1,9 +1,13 @@
 """Collection expressions over device list rectangles (port of
 ``spark_rapids_tpu/exprs/collection_fns.py``, its device path).
 
-A list value is a ``ListVal`` (values[P, W], elem_valid[P, W], lengths[P],
+A list value is a ``ListVal`` (values[P, W] -- a tensor, or the
+``Slots`` of string or struct elements --, elem_valid[P, W], lengths[P],
 columnar/nested.py) and every function below is ops over axis 1, masked
-past each row's length: ``size``, ``array_contains``, ``array_position``,
+past each row's length (the ``slot_*`` helpers rearrange either form;
+strings order by their codes or by their rank in the batch,
+``slot_key``; a string literal is sought by its code or by
+``rect_match``'s equals mode): ``size``, ``array_contains``, ``array_position``,
 ``element_at``, ``get``, ``sort_array``, ``array_min``/``array_max``,
 ``slice``, ``array_reverse``, ``array`` and ``sequence`` (a rectangle as
 wide as its widest row, which the reference runs on its host engine).
@@ -27,21 +31,34 @@ lengths, keys compared as the elements are. A map built here follows
 Spark's ``mapKeyDedupPolicy`` EXCEPTION, its default: a key twice in a
 row raises, as does a NULL key; the reference keeps the last value
 (``map``, ``map_concat``) or both (``map_from_arrays``) (ROADMAP.md Queue
-C). The array functions the reference runs only on its host engine and
-``str_to_map`` (string keys) are refused at planning (``NESTED_REST``).
+C). ``map_entries`` is a list of ``struct<key, value>``.
+
+The array functions the reference runs only on its host engine run here
+on the device: ``array_join`` (of strings, over their bytes),
+``array_repeat``, ``arrays_zip`` (a list of structs), ``concat`` of
+arrays, ``array_distinct``, ``array_union``/``array_intersect``/
+``array_except`` (NaN equal to NaN, as Spark's; the reference compares
+with ``==``), ``array_remove``, ``arrays_overlap``, and ``str_to_map``
+(literal delimiters, a repeated key raising). A result wider than the
+rectangle raises at its batch, naming the queue. ``flatten`` waits for
+lists of lists (``NESTED_REST``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
+import numpy as np
 import torch
 
-from ..columnar.nested import WIDTH_BUCKETS, width_bucket
+from ..columnar.nested import (WIDTH_BUCKETS, Slots, StructColumn,
+                               elem_torch_dtype, joint_keys, null_rows,
+                               slot_hcat, slot_key, slot_pad, slot_pick,
+                               slot_take, take_rows, too_long, width_bucket)
 from ..types import (BOOL, INT32, INT64, NESTED_REST, NULLTYPE, STRING,
                      ArrayType, DataType, MapType, Schema, StructField,
                      StructType, device_column_ok, device_list_ok,
                      device_map_ok, device_struct_ok, entries_type,
-                     map_parts, nested_reason, torch_dtype)
+                     map_parts, nested_reason)
 from .base import (ColumnRef, DVal, Expression, ListVal, Literal, MapVal,
                    StructVal, Unsupported, promote_types)
 
@@ -55,13 +72,19 @@ __all__ = [
     "ArrayRemove", "ArraysOverlap", "MapKeys", "MapValues", "MapEntries",
     "MapConcat", "MapFromArrays", "StringToMap", "CreateMap",
     "CreateNamedStruct", "in_list", "element_key", "sequence_counts",
+    "string_arg_reason", "string_column", "value_dval", "compact_slots",
+    "distinct_keep", "STRINGS_REST",
 ]
+
+#: where the string work the port does not take arrives: regex patterns,
+#: casts to string, results past the byte rectangle
+STRINGS_REST = "slice 7, strings, the rest (ROADMAP.md Queue A)"
 
 
 def in_list(lv: ListVal) -> torch.Tensor:
     """bool[P, W]: the slots before each row's length."""
     w = lv.values.shape[1]
-    return torch.arange(w, device=lv.values.device)[None, :] \
+    return torch.arange(w, device=lv.lengths.device)[None, :] \
         < lv.lengths[:, None]
 
 
@@ -95,20 +118,159 @@ def _any_valid(mask: torch.Tensor) -> bool:
     return bool(mask.any().item())
 
 
+def _string_literal(e) -> bool:
+    return isinstance(e, Literal) and (e.value is None
+                                       or isinstance(e.value, str))
+
+
+def string_arg_reason(e: Expression, schema: Schema) -> Optional[str]:
+    """Why a STRING argument has no device column, None when it has one:
+    a string literal, a string column or struct field, a string chain
+    over one (exprs/string_rect.py), or an expression giving a string
+    column (``element_at`` of a list of strings, ``array_join``...)."""
+    from .string_rect import chain_leaf
+    if _string_literal(e) or chain_leaf(e, schema) is not None:
+        return None
+    if isinstance(e, ColumnRef):
+        return None if e.data_type(schema) == STRING else \
+            e.fully_device_supported(schema)
+    return e.fully_device_supported(schema)
+
+
+def _arg_reason(e: Expression, schema: Schema, what: str) -> Optional[str]:
+    """Why an argument (a value, not a list) has no device form."""
+    dt = e.data_type(schema)
+    if dt == STRING:
+        r = string_arg_reason(e, schema)
+    elif dt.np_dtype is not None or dt == NULLTYPE:
+        r = e.fully_device_supported(schema)
+    elif isinstance(dt, StructType) and device_list_ok(ArrayType(dt)):
+        r = e.fully_device_supported(schema)
+    else:
+        r = nested_reason(ArrayType(dt)) or f"a {dt.name} argument"
+    return f"{what}: {r}" if r else None
+
+
+def string_column(e: Expression, ctx):
+    """A STRING expression's value as a flat device column of the batch's
+    rows: a literal as a dictionary of its one value, else the column its
+    value carries (``DVal.column``)."""
+    from ..columnar import DictColumn
+    from .compiler import dval_column
+    p = ctx.padded_len
+    if _string_literal(e):
+        ok = e.value is not None
+        return DictColumn(
+            torch.zeros(p, dtype=torch.int32, device=ctx.device),
+            torch.full((p,), ok, dtype=torch.bool, device=ctx.device),
+            STRING, np.array([e.value] if ok else [], dtype=object))
+    v = e.eval_device(ctx)
+    if v.column is None:
+        raise NotImplementedError(
+            f"<{e.name_hint}>: a string with no device column arrives with "
+            f"{STRINGS_REST}")
+    return dval_column(v, v.validity, STRING)
+
+
+def _arg_column(e: Expression, ctx, dtype: DataType):
+    """An argument's value as a flat column (a string's or a struct's), or
+    a tensor with its validity (a fixed-width value)."""
+    from .compiler import dval_column
+    if dtype == STRING:
+        return string_column(e, ctx)
+    v = e.eval_device(ctx)
+    if isinstance(v.data, StructVal):
+        return dval_column(v, v.validity, dtype)
+    return v
+
+
+def value_dval(value, valid: torch.Tensor, dtype: DataType) -> DVal:
+    """An element taken out of a list (``slot_pick``): a tensor's DVal,
+    or a flat column's (a string keeps its column)."""
+    if isinstance(value, torch.Tensor):
+        return DVal(value, valid, dtype)
+    from .compiler import column_dval
+    v = column_dval(null_rows(value, valid))
+    return DVal(v.data, valid, dtype, v.column)
+
+
+def _literal_eq(values: Slots, lit: str, use_kernel: bool) -> torch.Tensor:
+    """bool[P, W]: the string slots equal to ``lit``: its code in the
+    elements' dictionary, or ``rect_match``'s equals mode over the
+    [P·W, B] byte rectangle (the hand-written kernel with
+    ``use_kernel``)."""
+    from ..columnar import ByteRectColumn, DictColumn
+    from .rect_match import rect_match, rect_match_reference
+    col = values.col
+    if isinstance(col, DictColumn):
+        d = col.dictionary
+        i = int(np.searchsorted(d, lit)) if len(d) else 0
+        if i < len(d) and d[i] == lit:
+            return (col.data == i).reshape(values.shape)
+        return torch.zeros(values.shape, dtype=torch.bool,
+                           device=values.device)
+    assert isinstance(col, ByteRectColumn)
+    fn = rect_match if use_kernel else rect_match_reference
+    return fn(col.data, col.lengths, lit.encode("utf-8"),
+              "equals").reshape(values.shape)
+
+
+def _needle_eq(ctx, lv: ListVal, value_expr):
+    """(the value's validity, eq[P, W]): the live elements of ``lv`` equal
+    to the value by Spark's ordering (a string literal by
+    ``_literal_eq``, any other value keyed with the elements)."""
+    if isinstance(lv.values, Slots) and _string_literal(value_expr):
+        ok = value_expr.value is not None
+        valid = torch.full((ctx.padded_len,), ok, dtype=torch.bool,
+                           device=ctx.device)
+        eq = _literal_eq(lv.values, value_expr.value, ctx.use_kernel) if ok \
+            else torch.zeros(lv.values.shape, dtype=torch.bool,
+                             device=ctx.device)
+        return valid, eq & lv.elem_valid
+    if isinstance(lv.values, Slots):
+        col = _arg_column(value_expr, ctx, value_expr.data_type(ctx.schema))
+        valid, needle = col.validity, col
+    else:
+        v = value_expr.eval_device(ctx)
+        valid, needle = v.validity, v.data
+    ka, kb = joint_keys([lv.values, needle])
+    return valid, (ka == kb[:, None]) & lv.elem_valid
+
+
 class _ListExpr(Expression):
     """An expression whose first child is a device list and whose other
-    children are fixed-width values."""
+    children are values: fixed-width ones, or strings (and structs)
+    where the list's elements are."""
 
     def device_unsupported_reason(self, schema: Schema) -> Optional[str]:
         dt = self.children[0].data_type(schema)
         if not device_list_ok(dt):
             return (f"{type(self).__name__}: {dt.name} has no device "
-                    f"layout; it arrives with {NESTED_REST}")
+                    f"layout; " + (nested_reason(dt)
+                                   or f"it arrives with {NESTED_REST}"))
         for c in self.children[1:]:
             cdt = c.data_type(schema)
-            if cdt.np_dtype is None and cdt != NULLTYPE:
-                return f"{type(self).__name__}: argument type {cdt.name} " \
-                       "is not a fixed-width type"
+            if cdt == NULLTYPE or cdt == dt.element:
+                continue
+            if cdt.np_dtype is None or (self._needle and
+                                        dt.element.np_dtype is None):
+                return (f"{type(self).__name__}: a {cdt.name} argument "
+                        f"against {dt.element.name} elements")
+        return None
+
+    #: its second child is a value sought among the elements, of their
+    #: type (a number of another width is widened)
+    _needle = False
+
+    def fully_device_supported(self, schema: Schema) -> Optional[str]:
+        r = self.device_unsupported_reason(schema) or \
+            self.children[0].fully_device_supported(schema)
+        if r:
+            return r
+        for c in self.children[1:]:
+            r = _arg_reason(c, schema, type(self).__name__)
+            if r:
+                return r
         return None
 
     def _list(self, ctx) -> DVal:
@@ -138,19 +300,9 @@ class Size(_ListExpr):
                     torch.ones_like(v.validity), INT32)
 
 
-def _needle_eq(ctx, array_expr, value_expr):
-    """(array DVal, value DVal, eq[P, W]): the live elements equal to the
-    value by Spark's ordering."""
-    arr = array_expr.eval_device(ctx)
-    val = value_expr.eval_device(ctx)
-    lv = arr.data
-    common = torch.promote_types(lv.values.dtype, val.data.dtype)
-    eq = element_key(lv.values.to(common)) \
-        == element_key(val.data.to(common))[:, None]
-    return arr, val, torch.logical_and(eq, lv.elem_valid)
-
-
 class ArrayContains(_ListExpr):
+    _needle = True
+
     def __init__(self, array, value):
         self.children = [array, value]
 
@@ -158,16 +310,19 @@ class ArrayContains(_ListExpr):
         return BOOL
 
     def eval_device(self, ctx):
-        arr, val, eq = _needle_eq(ctx, *self.children)
+        arr = self._list(ctx)
+        vvalid, eq = _needle_eq(ctx, arr.data, self.children[1])
         lv = arr.data
         found = eq.any(dim=1)
         has_null = torch.logical_and(in_list(lv), ~lv.elem_valid).any(dim=1)
-        valid = arr.validity & val.validity & (found | ~has_null)
+        valid = arr.validity & vvalid & (found | ~has_null)
         return DVal(found, valid, BOOL)
 
 
 class ArrayPosition(_ListExpr):
     """1-based position of the first match, 0 if absent."""
+
+    _needle = True
 
     def __init__(self, array, value):
         self.children = [array, value]
@@ -176,19 +331,21 @@ class ArrayPosition(_ListExpr):
         return INT64
 
     def eval_device(self, ctx):
-        arr, val, eq = _needle_eq(ctx, *self.children)
+        arr = self._list(ctx)
+        vvalid, eq = _needle_eq(ctx, arr.data, self.children[1])
         first = eq.to(torch.int8).argmax(dim=1) + 1
         data = torch.where(eq.any(dim=1), first, 0)
-        return DVal(data, arr.validity & val.validity, INT64)
+        return DVal(data, arr.validity & vvalid, INT64)
 
 
 def _element(lv: ListVal, idx: torch.Tensor):
-    """(value[P], in range and valid[P]) at 0-based ``idx`` per row."""
+    """(value[P] -- a tensor, or a flat column of strings or structs --,
+    in range and valid[P]) at 0-based ``idx`` per row."""
     w = lv.values.shape[1]
     ok = (idx >= 0) & (idx < lv.lengths)
-    j = idx.clamp(0, w - 1).to(torch.int64)[:, None]
-    data = lv.values.gather(1, j)[:, 0]
-    return data, ok & lv.elem_valid.gather(1, j)[:, 0]
+    j = idx.clamp(0, w - 1).to(torch.int64)
+    rows = torch.arange(j.shape[0], device=j.device)
+    return slot_pick(lv.values, rows, j), ok & lv.elem_valid[rows, j]
 
 
 class _Extract(_ListExpr):
@@ -228,6 +385,11 @@ class ElementAt(_Extract):
             raise ValueError("SQL array indices start at 1")
         return super().device_unsupported_reason(schema)
 
+    def fully_device_supported(self, schema):
+        if self._on_map(schema):
+            return GetMapValue(*self.children).fully_device_supported(schema)
+        return super().fully_device_supported(schema)
+
     def eval_device(self, ctx):
         if self._on_map(ctx.schema):
             return GetMapValue(*self.children).eval_device(ctx)
@@ -240,7 +402,7 @@ class ElementAt(_Extract):
         kk = k.data.to(torch.int64)
         idx = torch.where(kk > 0, kk - 1, arr.data.lengths + kk)
         data, ok = _element(arr.data, idx)
-        return DVal(data, both & ok, self.data_type(ctx.schema))
+        return value_dval(data, both & ok, self.data_type(ctx.schema))
 
 
 class GetArrayItem(_Extract):
@@ -253,15 +415,16 @@ class GetArrayItem(_Extract):
         arr = self._list(ctx)
         k = self.children[1].eval_device(ctx)
         data, ok = _element(arr.data, k.data.to(torch.int64))
-        return DVal(data, arr.validity & k.validity & ok,
-                    self.data_type(ctx.schema))
+        return value_dval(data, arr.validity & k.validity & ok,
+                          self.data_type(ctx.schema))
 
 
-def _stable_sort_rows(keys, values: torch.Tensor):
+def _stable_sort_rows(keys):
     """The permutation [P, W] sorting each row by ``keys`` (first decides
     first), stably: one stable sort a key, last key first."""
-    perm = torch.arange(values.shape[1], device=values.device) \
-        .expand(values.shape).contiguous()
+    k0 = keys[0]
+    perm = torch.arange(k0.shape[1], device=k0.device) \
+        .expand(k0.shape).contiguous()
     for k in reversed(keys):
         order = torch.sort(k.gather(1, perm), dim=1, stable=True).indices
         perm = perm.gather(1, order)
@@ -271,7 +434,7 @@ def _stable_sort_rows(keys, values: torch.Tensor):
 class SortArray(_ListExpr):
     """sort_array(array, asc): NULLs first ascending, last descending;
     equal elements keep their order (Spark sorts stably by its ordering,
-    NaN greatest, -0.0 equal to 0.0)."""
+    NaN greatest, -0.0 equal to 0.0; strings by their bytes)."""
 
     def __init__(self, array, ascending=None):
         self.children = [array, ascending if ascending is not None
@@ -294,7 +457,7 @@ class SortArray(_ListExpr):
         lv = arr.data
         asc = bool(self.children[1].value)
         inside = in_list(lv)
-        key = element_key(lv.values)
+        key = slot_key(lv.values)
         if not asc:
             key = torch.bitwise_not(key)
         # asc: NULLs, values, padding; desc: values, NULLs, padding
@@ -302,8 +465,8 @@ class SortArray(_ListExpr):
         rank = torch.where(inside, torch.where(lv.elem_valid, value_rank,
                                                null_rank), 2)
         key = torch.where(lv.elem_valid, key, torch.zeros_like(key))
-        perm = _stable_sort_rows([rank.to(torch.int8), key], lv.values)
-        return DVal(ListVal(lv.values.gather(1, perm),
+        perm = _stable_sort_rows([rank.to(torch.int8), key])
+        return DVal(ListVal(slot_take(lv.values, perm),
                             lv.elem_valid.gather(1, perm), lv.lengths),
                     arr.validity, self.data_type(ctx.schema))
 
@@ -324,16 +487,17 @@ class _ArrayExtreme(_ListExpr):
     def eval_device(self, ctx):
         arr = self._list(ctx)
         lv = arr.data
-        key = element_key(lv.values)
+        key = slot_key(lv.values)
         info = torch.iinfo(key.dtype)
         fill = info.min if self._max else info.max
         masked = torch.where(lv.elem_valid, key, fill)
         best = masked.amax(dim=1) if self._max else masked.amin(dim=1)
         hit = lv.elem_valid & (masked == best[:, None])
-        j = hit.to(torch.int8).argmax(dim=1, keepdim=True)
-        data = lv.values.gather(1, j)[:, 0]
-        return DVal(data, arr.validity & lv.elem_valid.any(dim=1),
-                    self.data_type(ctx.schema))
+        j = hit.to(torch.int8).argmax(dim=1)
+        rows = torch.arange(j.shape[0], device=j.device)
+        return value_dval(slot_pick(lv.values, rows, j),
+                          arr.validity & lv.elem_valid.any(dim=1),
+                          self.data_type(ctx.schema))
 
 
 class ArrayMin(_ArrayExtreme):
@@ -377,16 +541,17 @@ class Slice(_ListExpr):
                 _any_valid(live & (ln < 0)):
             raise ValueError(_SLICE_LENGTH)
         lv = arr.data
+        w = lv.values.shape[1]
         lens = lv.lengths.to(torch.int64)
         start = torch.where(s > 0, s - 1, lens + s)
         neg = start < 0
-        j = torch.arange(lv.values.shape[1], device=s.device)[None, :]
+        j = torch.arange(w, device=s.device)[None, :]
         src = start[:, None] + j
         take = (j < ln[:, None]) & (src < lens[:, None]) & ~neg[:, None]
-        srcc = src.clamp(0, lv.values.shape[1] - 1)
+        srcc = src.clamp(0, w - 1)
         out_len = torch.where(neg, 0, (lens - start).clamp(min=0)
                               .minimum(ln.clamp(min=0)))
-        return DVal(ListVal(lv.values.gather(1, srcc),
+        return DVal(ListVal(slot_take(lv.values, srcc),
                             lv.elem_valid.gather(1, srcc) & take,
                             out_len.to(torch.int32)),
                     valid, self.data_type(ctx.schema))
@@ -409,54 +574,82 @@ class ArrayReverse(_ListExpr):
         arr = self._list(ctx)
         lv = arr.data
         w = lv.values.shape[1]
-        j = torch.arange(w, device=lv.values.device)[None, :]
+        j = torch.arange(w, device=lv.lengths.device)[None, :]
         src = (lv.lengths[:, None].to(torch.int64) - 1 - j).clamp(0, w - 1)
         ok = in_list(lv)
-        return DVal(ListVal(lv.values.gather(1, src),
+        return DVal(ListVal(slot_take(lv.values, src),
                             lv.elem_valid.gather(1, src) & ok, lv.lengths),
                     arr.validity, self.data_type(ctx.schema))
 
 
+def _common_type(schema, exprs) -> DataType:
+    t = NULLTYPE
+    for c in exprs:
+        d = c.data_type(schema)
+        if d != NULLTYPE:
+            t = d if t == NULLTYPE else promote_types(t, d)
+    return t
+
+
+def _stacked(ctx, exprs, dt: DataType, w: int):
+    """The values of ``exprs`` (one a slot) in a rectangle of ``w`` slots
+    a row, padded with NULL slots: (values, validity [P, w])."""
+    p = ctx.padded_len
+    k = len(exprs)
+    off = torch.zeros(p, dtype=torch.bool, device=ctx.device)
+    if dt.np_dtype is None and dt != NULLTYPE:
+        cols = [_arg_column(e, ctx, dt) for e in exprs]
+        values = slot_pad(slot_hcat([Slots(c, 1) for c in cols]), w)
+        ev = torch.stack([c.validity for c in cols] + [off] * (w - k), dim=1)
+        return values, ev
+    tdt = elem_torch_dtype(dt)
+    vals = [e.eval_device(ctx) for e in exprs]
+    zeros = torch.zeros(p, dtype=tdt, device=ctx.device)
+    values = torch.stack([v.data.to(tdt).expand(p) for v in vals]
+                         + [zeros] * (w - k), dim=1)
+    ev = torch.stack([v.validity.expand(p) for v in vals] + [off] * (w - k),
+                     dim=1)
+    return values, ev
+
+
 class CreateArray(Expression):
     """array(e1, ..., ek): never NULL itself; each element is its
-    expression's value."""
+    expression's value (strings and structs as their columns' slots).
+    ``array()`` is an empty array of NULL-typed elements, as Spark's is."""
 
     def __init__(self, *children):
         self.children = list(children)
 
     def data_type(self, schema):
-        et = NULLTYPE
-        for c in self.children:
-            d = c.data_type(schema)
-            if d != NULLTYPE:
-                et = d if et == NULLTYPE else promote_types(et, d)
-        return ArrayType(et)
+        return ArrayType(_common_type(schema, self.children))
 
     def device_unsupported_reason(self, schema):
-        if not self.children:
-            return f"an empty array() arrives with {NESTED_REST}"
-        if width_bucket(len(self.children)) is None:
+        if width_bucket(max(len(self.children), 1)) is None:
             return (f"array() of {len(self.children)} elements is wider "
                     f"than the device rectangle ({WIDTH_BUCKETS[-1]}); it "
                     f"arrives with {NESTED_REST}")
-        if not device_list_ok(self.data_type(schema)):
-            return (f"array of {self.data_type(schema).element.name} "
-                    f"arrives with {NESTED_REST}")
+        dt = self.data_type(schema)
+        if not device_list_ok(dt):
+            return (f"array of {dt.element.name}: "
+                    + (nested_reason(dt) or f"arrives with {NESTED_REST}"))
+        return None
+
+    def fully_device_supported(self, schema):
+        r = self.device_unsupported_reason(schema)
+        if r:
+            return r
+        for c in self.children:
+            r = _arg_reason(c, schema, "CreateArray")
+            if r:
+                return r
         return None
 
     def eval_device(self, ctx):
         dt = self.data_type(ctx.schema)
-        tdt = torch_dtype(dt.element)
         k = len(self.children)
-        w = width_bucket(k)
-        vals = [c.eval_device(ctx) for c in self.children]
-        pad = w - k
         p = ctx.padded_len
-        zeros = torch.zeros(p, dtype=tdt, device=ctx.device)
-        off = torch.zeros(p, dtype=torch.bool, device=ctx.device)
-        values = torch.stack([v.data.to(tdt) for v in vals] + [zeros] * pad,
-                             dim=1)
-        ev = torch.stack([v.validity for v in vals] + [off] * pad, dim=1)
+        values, ev = _stacked(ctx, self.children, dt.element,
+                              width_bucket(max(k, 1)))
         lengths = torch.full((p,), k, dtype=torch.int32, device=ctx.device)
         return DVal(ListVal(values, ev, lengths),
                     torch.ones(p, dtype=torch.bool, device=ctx.device), dt)
@@ -529,86 +722,527 @@ class Sequence(Expression):
                 f"rectangle ({WIDTH_BUCKETS[-1]}); it arrives with "
                 f"{NESTED_REST}")
         j = torch.arange(w, device=ctx.device)[None, :]
-        values = (start[:, None] + j * step[:, None]).to(torch_dtype(
+        values = (start[:, None] + j * step[:, None]).to(elem_torch_dtype(
             dt.element))
         return DVal(ListVal(values, j < count[:, None],
                             count.to(torch.int32)), valid, dt)
 
 
 # ---------------------------------------------------------------------------
-# refused at planning: maps, structs and the host-only array functions
+# the array functions the reference runs on its host engine only
 # ---------------------------------------------------------------------------
 
-class _Refused(Expression):
-    """A nested-type function the port does not run: the reference runs
-    it on its host engine only, or it takes a map or a struct."""
+def _widest(count: torch.Tensor, live: torch.Tensor, what: str) -> int:
+    """One host read: the bucket holding the longest live row's
+    ``count``; past the widest, the refusal naming the queue."""
+    longest = int(torch.where(live, count, 0).max().item()) \
+        if count.numel() else 0
+    w = width_bucket(max(longest, 1))
+    if w is None:
+        raise too_long(what, longest)
+    return w
+
+
+def compact_slots(values, ev: torch.Tensor, keep: torch.Tensor, w: int):
+    """Each row's slots where ``keep`` holds, moved to its front in order,
+    in a rectangle of ``w`` slots: (values, element validity, lengths)."""
+    count = keep.sum(dim=1)
+    perm = torch.sort((~keep).to(torch.int8), dim=1, stable=True).indices
+    perm = perm[:, :w] if perm.shape[1] >= w else torch.nn.functional.pad(
+        perm, (0, w - perm.shape[1]))
+    inside = torch.arange(w, device=keep.device)[None, :] < count[:, None]
+    return slot_take(values, perm), ev.gather(1, perm) & inside, \
+        count.to(torch.int32)
+
+
+def distinct_keep(key: torch.Tensor, inside: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """bool[P, W]: the first of each row's equal elements among its
+    ``inside`` slots (``key`` as ``slot_key`` gives it), NULLs equal to
+    each other."""
+    null = (inside & ~valid).to(torch.int8)
+    k = torch.where(inside & valid, key, torch.zeros_like(key))
+    perm = _stable_sort_rows([(~inside).to(torch.int8), null, k])
+    ks, ns, ins = k.gather(1, perm), null.gather(1, perm), \
+        inside.gather(1, perm)
+    first = ins.clone()
+    first[:, 1:] &= ~((ks[:, 1:] == ks[:, :-1]) & (ns[:, 1:] == ns[:, :-1])
+                      & ins[:, :-1])
+    return torch.zeros_like(first).scatter_(1, perm, first)
+
+
+def _rows_of(lists: List[DVal]):
+    """The lists' validity (all valid) and their [P, Wi] slots side by
+    side: (validity, values, element validity, inside, each one's width);
+    element keys compare across the lists."""
+    valid = lists[0].validity
+    for v in lists[1:]:
+        valid = valid & v.validity
+    vals = [v.data.values for v in lists]
+    if not isinstance(vals[0], Slots):
+        common = vals[0].dtype
+        for x in vals[1:]:
+            common = torch.promote_types(common, x.dtype)
+        vals = [x.to(common) for x in vals]
+    hv = slot_hcat(vals)
+    ev = torch.cat([v.data.elem_valid for v in lists], dim=1)
+    inside = torch.cat([in_list(v.data) for v in lists], dim=1)
+    return valid, hv, ev, inside, [x.shape[1] for x in vals]
+
+
+class _ListsExpr(Expression):
+    """A function of several lists of one element type."""
 
     def __init__(self, *children):
-        self.children = [c for c in children if c is not None]
+        self.children = list(children)
 
     def data_type(self, schema):
         return self.children[0].data_type(schema)
 
     def device_unsupported_reason(self, schema):
-        return f"{type(self).__name__} arrives with {NESTED_REST}"
+        types = [c.data_type(schema) for c in self.children]
+        for dt in types:
+            if not device_list_ok(dt):
+                return (f"{type(self).__name__} over {dt.name}: "
+                        + (nested_reason(dt)
+                           or f"it arrives with {NESTED_REST}"))
+        elems = {t.element for t in types}
+        if len(elems) > 1 and not all(e.np_dtype is not None
+                                      and e.np_dtype.kind in "iuf"
+                                      for e in elems):
+            return (f"{type(self).__name__}: lists of "
+                    f"{', '.join(sorted(e.name for e in elems))} elements")
+        return None
+
+    def _result_type(self, schema) -> ArrayType:
+        """The lists' element types widened to one."""
+        et = _elem_type(self.children[0].data_type(schema))
+        for c in self.children[1:]:
+            et = promote_types(et, _elem_type(c.data_type(schema)))
+        return ArrayType(et)
 
 
-class ArrayJoin(_Refused):
+class ArrayJoin(Expression):
+    """array_join(array<string>, delimiter[, null_replacement]): the
+    elements joined by the delimiter, NULL elements skipped unless a
+    replacement is given (then in their place). The delimiter and the
+    replacement are literals. Over the elements' bytes on the device (a
+    dictionary's decoded first): each element's place in the row from a
+    scan of the lengths, one scatter a slot. A result past
+    ``rect.maxBytes`` raises at its batch, naming the strings slice, as
+    ``rect_transform`` does. Spark takes only ``array<string>``; the
+    reference's ``str(v)`` of any element is not followed (ROADMAP.md
+    Queue C): another element type needs a cast to string."""
+
+    def __init__(self, array, delimiter, null_replacement=None):
+        self.children = [array, delimiter] + (
+            [null_replacement] if null_replacement is not None else [])
+
     def data_type(self, schema):
         return STRING
 
+    def device_unsupported_reason(self, schema):
+        dt = self.children[0].data_type(schema)
+        if isinstance(dt, ArrayType) and not device_list_ok(dt):
+            return f"ArrayJoin: {nested_reason(dt)}"
+        if not isinstance(dt, ArrayType) or dt.element != STRING:
+            return (f"ArrayJoin of {dt.name}: a cast of the elements to "
+                    f"string arrives with {STRINGS_REST}")
+        if not all(_string_literal(c) for c in self.children[1:]):
+            return (f"ArrayJoin: a delimiter or replacement that is not a "
+                    f"literal arrives with {STRINGS_REST}")
+        return None
 
-class ArrayRepeat(_Refused):
+    def fully_device_supported(self, schema):
+        return self.device_unsupported_reason(schema) or \
+            self.children[0].fully_device_supported(schema)
+
+    def eval_device(self, ctx):
+        from ..columnar import ByteRectColumn
+        from ..columnar.strrect import RECT_MAX_BYTES, rect_width_bucket
+        from .compiler import column_dval
+        arr = self.children[0].eval_device(ctx)
+        lv = arr.data
+        delim = self.children[1].value
+        rep = self.children[2].value if len(self.children) > 2 else None
+        p, w = lv.values.shape
+        dev = ctx.device
+        rect = _as_rect(lv.values.col)
+        b = rect.width
+        data = rect.data.reshape(p, w, b)
+        blen = rect.lengths.reshape(p, w).to(torch.int64)
+        inside = in_list(lv)
+        ascii_only = rect.ascii_only
+        if rep is not None:
+            rb = rep.encode("utf-8")
+            ascii_only = ascii_only and max(rb, default=0) < 0x80
+            if len(rb) > b:
+                data = torch.nn.functional.pad(data, (0, len(rb) - b))
+                b = len(rb)
+            fill = torch.zeros(b, dtype=torch.uint8, device=dev)
+            fill[:len(rb)] = torch.tensor(list(rb), dtype=torch.uint8,
+                                          device=dev)
+            null = inside & ~lv.elem_valid
+            data = torch.where(null[..., None], fill, data)
+            blen = torch.where(null, len(rb), blen)
+            incl = inside
+        else:
+            incl = inside & lv.elem_valid
+        db = (delim or "").encode("utf-8")
+        ascii_only = ascii_only and max(db, default=0) < 0x80
+        L = len(db)
+        plen = torch.where(incl, blen, 0)
+        prior = torch.cumsum(incl.to(torch.int64), dim=1) - incl.to(
+            torch.int64)
+        start = torch.cumsum(plen, dim=1) - plen + L * prior
+        total = plen.sum(dim=1) + L * (incl.sum(dim=1) - 1).clamp(min=0)
+        valid = arr.validity & torch.full((p,), delim is not None,
+                                          dtype=torch.bool, device=dev)
+        live = valid & ctx.row_mask()
+        longest = int(torch.where(live, total, 0).max().item()) if p else 0
+        cap = RECT_MAX_BYTES.default
+        wout = rect_width_bucket(longest, cap)
+        if wout is None:
+            raise NotImplementedError(
+                f"array_join: a result of {longest} bytes is wider than "
+                f"spark.rapids.tpu.sql.string.rect.maxBytes ({cap}); wider "
+                f"strings arrive with {STRINGS_REST}")
+        out = torch.zeros((p, wout + 1), dtype=torch.uint8, device=dev)
+        jb = torch.arange(b, device=dev)[None, :]
+        jd = torch.arange(L, device=dev)[None, :]
+        dbytes = torch.tensor(list(db), dtype=torch.uint8,
+                              device=dev).expand(p, L) if L else None
+        for k in range(w):
+            put = incl[:, k:k + 1] & (jb < plen[:, k:k + 1])
+            out.scatter_(1, torch.where(put, start[:, k:k + 1] + jb, wout),
+                         data[:, k])
+            if L:
+                dput = incl[:, k:k + 1] & (prior[:, k:k + 1] > 0)
+                out.scatter_(1, torch.where(
+                    dput, start[:, k:k + 1] - L + jd, wout), dbytes)
+        lengths = torch.where(valid, total, 0).to(torch.int32)
+        col = ByteRectColumn(
+            torch.where(valid[:, None], out[:, :wout], 0), valid, lengths,
+            ascii_only=ascii_only)
+        v = column_dval(col)
+        return DVal(v.data, valid, STRING, col)
+
+
+def _as_rect(col):
+    """A flat string column as a byte rectangle (a dictionary's entries
+    decoded once and gathered by code)."""
+    from ..columnar import DictColumn
+    from ..columnar.batch import dict_to_rect
+    if isinstance(col, DictColumn):
+        return dict_to_rect(col, col.padded_len)
+    return col
+
+
+class ArrayRepeat(Expression):
+    """array_repeat(element, count): ``count`` copies of the element (a
+    NULL element gives NULL elements); NULL where the count is NULL,
+    empty where it is not positive. One host read of the widest count,
+    which past the rectangle's 256 raises, naming the queue."""
+
+    def __init__(self, element, count):
+        self.children = [element, count]
+
     def data_type(self, schema):
         return ArrayType(self.children[0].data_type(schema))
 
+    def device_unsupported_reason(self, schema):
+        cdt = self.children[1].data_type(schema)
+        if cdt.np_dtype is None or cdt.np_dtype.kind not in "iu":
+            return "ArrayRepeat: the count must be integral"
+        dt = self.data_type(schema)
+        if not device_list_ok(dt):
+            return f"ArrayRepeat of {dt.element.name}: " + (
+                nested_reason(dt) or f"arrives with {NESTED_REST}")
+        return None
 
-class ArraysZip(_Refused):
+    def fully_device_supported(self, schema):
+        return self.device_unsupported_reason(schema) or _arg_reason(
+            self.children[0], schema, "ArrayRepeat") or \
+            self.children[1].fully_device_supported(schema)
+
+    def eval_device(self, ctx):
+        dt = self.data_type(ctx.schema)
+        c = self.children[1].eval_device(ctx)
+        count = torch.where(c.validity, c.data.to(torch.int64).clamp(min=0),
+                            0).expand(ctx.padded_len)
+        w = _widest(count, ctx.row_mask(), "array_repeat")
+        p = ctx.padded_len
+        j = torch.arange(w, device=ctx.device)[None, :]
+        inside = j < count[:, None]
+        if dt.element.np_dtype is None and dt.element != NULLTYPE:
+            col = _arg_column(self.children[0], ctx, dt.element)
+            rows = torch.arange(p, device=ctx.device).repeat_interleave(w)
+            values = Slots(take_rows(col, rows), w)
+            ev = col.validity[:, None] & inside
+        else:
+            v = self.children[0].eval_device(ctx)
+            values = v.data.to(elem_torch_dtype(dt.element)).expand(
+                p)[:, None].expand(p, w).contiguous()
+            ev = v.validity.expand(p)[:, None] & inside
+        return DVal(ListVal(values, ev, count.to(torch.int32)),
+                    c.validity.expand(p), dt)
+
+
+class ArraysZip(Expression):
+    """arrays_zip(a1, ..., ak): a list of structs, the i-th holding each
+    list's i-th element, as long as the longest list, the shorter ones'
+    fields NULL past their ends; NULL if any list is. Each field is its
+    list's flat column (strings keep their layout), the struct elements
+    never NULL."""
+
+    def __init__(self, *arrays, names=None):
+        self.children = list(arrays)
+        self.names = list(names) if names else \
+            [str(i) for i in range(len(arrays))]
+
     def data_type(self, schema):
         return ArrayType(StructType(
-            StructField(str(i), _elem_type(c.data_type(schema)))
-            for i, c in enumerate(self.children)))
+            StructField(n, _elem_type(c.data_type(schema)))
+            for n, c in zip(self.names, self.children)))
+
+    def device_unsupported_reason(self, schema):
+        if not self.children:
+            return f"an empty arrays_zip() arrives with {NESTED_REST}"
+        dt = self.data_type(schema)
+        if not device_list_ok(dt):
+            return "ArraysZip: " + (nested_reason(dt)
+                                    or f"arrives with {NESTED_REST}")
+        return None
+
+    def eval_device(self, ctx):
+        from ..columnar import DeviceColumn
+        dt = self.data_type(ctx.schema)
+        lists = [c.eval_device(ctx) for c in self.children]
+        valid = lists[0].validity
+        for v in lists[1:]:
+            valid = valid & v.validity
+        w = max(v.data.values.shape[1] for v in lists)
+        lengths = lists[0].data.lengths
+        for v in lists[1:]:
+            lengths = torch.maximum(lengths, v.data.lengths)
+        fields = []
+        for v, f in zip(lists, dt.element.fields):
+            lv = v.data
+            ev = torch.nn.functional.pad(lv.elem_valid,
+                                         (0, w - lv.elem_valid.shape[1]))
+            vals = slot_pad(lv.values, w)
+            if isinstance(vals, Slots):
+                fields.append(null_rows(vals.col, ev.reshape(-1)))
+            else:
+                fields.append(DeviceColumn(vals.reshape(-1), ev.reshape(-1),
+                                           f.dtype))
+        p = valid.shape[0]
+        inside = torch.arange(w, device=ctx.device)[None, :] \
+            < lengths[:, None]
+        elems = StructColumn(fields, inside.reshape(-1), dt.element)
+        return DVal(ListVal(Slots(elems, w), inside, lengths), valid, dt)
 
 
-class Concat(_Refused):
-    pass
+class Concat(_ListsExpr):
+    """concat(a1, ..., ak) of arrays: each row's elements in order; NULL
+    if any list is. One host read of the longest result."""
+
+    def data_type(self, schema):
+        return self._result_type(schema)
+
+    def eval_device(self, ctx):
+        lists = [c.eval_device(ctx) for c in self.children]
+        valid, hv, ev, inside, _ = _rows_of(lists)
+        w = _widest(inside.sum(dim=1), valid & ctx.row_mask(),
+                    "concat")
+        vals, ev, lens = compact_slots(hv, ev, inside, w)
+        return DVal(ListVal(vals, ev, lens), valid,
+                    self.data_type(ctx.schema))
 
 
-class Flatten(_Refused):
+class Flatten(Expression):
+    """flatten(array<array<T>>): lists of lists have no device layout
+    yet; refused at planning, naming the queue."""
+
+    def __init__(self, child):
+        self.children = [child]
+
     def data_type(self, schema):
         return _elem_type(self.children[0].data_type(schema))
 
-
-class ArrayDistinct(_Refused):
-    pass
-
-
-class ArrayUnion(_Refused):
-    pass
+    def device_unsupported_reason(self, schema):
+        return (f"Flatten: a list of lists arrives with {NESTED_REST}")
 
 
-class ArrayIntersect(_Refused):
-    pass
+class ArrayDistinct(_ListsExpr):
+    """array_distinct(a): each row's elements with every repeat after the
+    first dropped, a NULL kept once; equal by Spark's ordering (NaN equal
+    to NaN, -0.0 to 0.0), where the reference compares with ``==``
+    (ROADMAP.md Queue C)."""
+
+    def eval_device(self, ctx):
+        lst = self.children[0].eval_device(ctx)
+        lv = lst.data
+        inside = in_list(lv)
+        keep = distinct_keep(slot_key(lv.values), inside, lv.elem_valid)
+        vals, ev, lens = compact_slots(lv.values, lv.elem_valid, keep,
+                                       lv.values.shape[1])
+        return DVal(ListVal(vals, ev, lens), lst.validity,
+                    self.data_type(ctx.schema))
 
 
-class ArrayExcept(_Refused):
-    pass
+def _in_other(key: torch.Tensor, valid: torch.Tensor, wa: int,
+              inside: torch.Tensor) -> torch.Tensor:
+    """bool[P, Wa]: each slot of the first list (its first ``wa`` of the
+    side-by-side slots) equal to a slot of the second, NULL equal to
+    NULL."""
+    ka, kb = key[:, :wa], key[:, wa:]
+    va, vb = valid[:, :wa], valid[:, wa:]
+    ib = inside[:, wa:]
+    same = ((ka[:, :, None] == kb[:, None, :]) & va[:, :, None]
+            & vb[:, None, :]) | (~va[:, :, None] & ~vb[:, None, :])
+    return (same & ib[:, None, :]).any(dim=2)
 
 
-class ArrayRemove(_Refused):
-    pass
+class _ArraySetOp(_ListsExpr):
+    """array_union / array_intersect / array_except: NULL if either list
+    is; each element once (a NULL too), in the order of its first
+    occurrence; equal by Spark's ordering, NaN equal to NaN, where the
+    reference compares with ``==`` (ROADMAP.md Queue C)."""
+
+    def data_type(self, schema):
+        return self._result_type(schema)
+
+    def _keep(self, first, inside, in_b, wa):
+        raise NotImplementedError
+
+    def eval_device(self, ctx):
+        lists = [c.eval_device(ctx) for c in self.children]
+        valid, hv, ev, inside, widths = _rows_of(lists)
+        wa = widths[0]
+        key = slot_key(hv)
+        keep = self._keep(key, ev, inside, wa)
+        w = _widest(keep.sum(dim=1), valid & ctx.row_mask(),
+                    type(self).__name__)
+        vals, ev2, lens = compact_slots(hv, ev, keep, w)
+        return DVal(ListVal(vals, ev2, lens), valid,
+                    self.data_type(ctx.schema))
 
 
-class ArraysOverlap(_Refused):
+class ArrayUnion(_ArraySetOp):
+    def _keep(self, key, ev, inside, wa):
+        return distinct_keep(key, inside, ev)
+
+
+class ArrayIntersect(_ArraySetOp):
+    def _keep(self, key, ev, inside, wa):
+        first = distinct_keep(key[:, :wa], inside[:, :wa], ev[:, :wa])
+        keep = first & _in_other(key, ev, wa, inside)
+        return torch.nn.functional.pad(keep, (0, key.shape[1] - wa))
+
+
+class ArrayExcept(_ArraySetOp):
+    def _keep(self, key, ev, inside, wa):
+        first = distinct_keep(key[:, :wa], inside[:, :wa], ev[:, :wa])
+        keep = first & ~_in_other(key, ev, wa, inside)
+        return torch.nn.functional.pad(keep, (0, key.shape[1] - wa))
+
+
+class ArrayRemove(_ListExpr):
+    """array_remove(a, e): the elements not equal to ``e`` (NULL elements
+    kept); NULL where ``e`` is NULL."""
+
+    _needle = True
+
+    def __init__(self, array, element):
+        self.children = [array, element]
+
+    def data_type(self, schema):
+        return self.children[0].data_type(schema)
+
+    def eval_device(self, ctx):
+        arr = self._list(ctx)
+        vvalid, eq = _needle_eq(ctx, arr.data, self.children[1])
+        lv = arr.data
+        keep = in_list(lv) & ~eq
+        vals, ev, lens = compact_slots(lv.values, lv.elem_valid, keep,
+                                       lv.values.shape[1])
+        return DVal(ListVal(vals, ev, lens), arr.validity & vvalid,
+                    self.data_type(ctx.schema))
+
+
+class ArraysOverlap(_ListsExpr):
+    """arrays_overlap(a, b): TRUE where a non-NULL element is in both;
+    else NULL where both are non-empty and either holds a NULL; else
+    FALSE. NULL if either list is."""
+
     def data_type(self, schema):
         return BOOL
 
+    def eval_device(self, ctx):
+        lists = [c.eval_device(ctx) for c in self.children]
+        valid, hv, ev, inside, widths = _rows_of(lists)
+        wa = widths[0]
+        key = slot_key(hv)
+        live = ev & inside
+        ka, kb = key[:, :wa], key[:, wa:]
+        hit = ((ka[:, :, None] == kb[:, None, :]) & live[:, :wa, None]
+               & live[:, None, wa:]).any(dim=(1, 2))
+        la, lb = lists[0].data.lengths, lists[1].data.lengths
+        nulls = (inside & ~ev).any(dim=1)
+        unknown = ~hit & (la > 0) & (lb > 0) & nulls
+        return DVal(hit, valid & ~unknown, BOOL)
 
-class StringToMap(_Refused):
+
+class StringToMap(Expression):
+    """str_to_map(text[, pair_delim, key_value_delim]): ``text`` split on
+    the pair delimiter (every part kept), each part split at its first
+    key-value delimiter into a key and a value (NULL where the part has
+    none). The delimiters are literals, as in ``split`` (Spark's are
+    regexes; the two agree for literal ones). A key twice in a row raises
+    (Spark's ``mapKeyDedupPolicy`` EXCEPTION), where the reference keeps
+    the last value (ROADMAP.md Queue C)."""
+
+    def __init__(self, text, pair_delim=None, kv_delim=None):
+        self.children = [text, pair_delim if pair_delim is not None
+                         else Literal(","),
+                         kv_delim if kv_delim is not None else Literal(":")]
+
     def data_type(self, schema):
         return MapType(STRING, STRING)
 
+    def device_unsupported_reason(self, schema):
+        from .string_fns import literal_pattern
+        for c in self.children[1:]:
+            if not (isinstance(c, Literal) and isinstance(c.value, str)
+                    and literal_pattern(c.value) is not None):
+                return (f"StringToMap: a delimiter that is not a literal "
+                        f"string arrives with {STRINGS_REST}")
+        return None
 
+    def fully_device_supported(self, schema):
+        return self.device_unsupported_reason(schema) or \
+            string_arg_reason(self.children[0], schema)
+
+    def eval_device(self, ctx):
+        from .string_fns import split_strings
+        text = string_column(self.children[0], ctx)
+        pairs = split_strings(text, self.children[1].value, -1,
+                              "str_to_map")
+        p, w = pairs.values.shape
+        kv = split_strings(pairs.values.col, self.children[2].value, 2,
+                           "str_to_map")
+        rows = torch.arange(p * w, device=ctx.device)
+        zero = torch.zeros_like(rows)
+        keys = Slots(null_rows(slot_pick(kv.values, rows, zero),
+                               pairs.elem_valid.reshape(-1)), w)
+        has_value = pairs.elem_valid.reshape(-1) & (kv.lengths >= 2)
+        vals = Slots(null_rows(slot_pick(kv.values, rows, zero + 1),
+                               has_value), w)
+        out = _map_val(keys, vals, has_value.reshape(p, w), pairs.lengths)
+        check_map_keys(out.keys.elem_valid, out.keys.elem_valid, keys,
+                       ctx.row_mask() & text.validity)
+        return DVal(out, text.validity, self.data_type(ctx.schema))
 
 
 # ---------------------------------------------------------------------------
@@ -625,8 +1259,9 @@ def _column_reason(dt: DataType, what: str) -> Optional[str]:
 class CreateNamedStruct(Expression):
     """named_struct(name1, value1, ...): names are string literals; never
     NULL itself, each field its expression's value in its own layout (a
-    string column keeps its dictionary or byte rectangle, a list its
-    rectangle)."""
+    string keeps its column's dictionary or byte rectangle, a literal is
+    a dictionary of its value, a list its rectangle); ``struct()`` has no
+    fields."""
 
     def __init__(self, *name_value_pairs):
         assert len(name_value_pairs) % 2 == 0, "named_struct takes pairs"
@@ -639,8 +1274,6 @@ class CreateNamedStruct(Expression):
                            for n, c in zip(self.names, self.children)])
 
     def device_unsupported_reason(self, schema):
-        if not self.children:
-            return f"an empty struct arrives with {NESTED_REST}"
         for n, c in zip(self.names, self.children):
             r = _column_reason(c.data_type(schema), f"struct field {n}")
             if r:
@@ -652,26 +1285,20 @@ class CreateNamedStruct(Expression):
         if r:
             return r
         for n, c in zip(self.names, self.children):
-            if c.data_type(schema) == STRING and not isinstance(
-                    c, (ColumnRef, GetStructField)):
-                return (f"struct field {n}: a computed string in a struct "
-                        f"arrives with {NESTED_REST}")
-            if c.data_type(schema) != STRING or isinstance(
-                    c, GetStructField):
-                r = c.fully_device_supported(schema)
-                if r:
-                    return r
+            r = string_arg_reason(c, schema) \
+                if c.data_type(schema) == STRING \
+                else c.fully_device_supported(schema)
+            if r:
+                return f"struct field {n}: {r}"
         return None
 
     def _field(self, ctx, c, dt):
-        """The field's column: a string as the column it was read from
-        (``DVal.column``), any other value as the column of its layout."""
+        """The field's column: a string as its column (``string_column``),
+        any other value as the column of its layout."""
         from .compiler import dval_column
+        if dt == STRING:
+            return string_column(c, ctx)
         v = c.eval_device(ctx)
-        if dt == STRING and v.column is None:
-            raise NotImplementedError(
-                f"struct field {c.name_hint}: a string that is not a device "
-                f"string column; such a struct arrives with {NESTED_REST}")
         return dval_column(v, v.validity, dt)
 
     def eval_device(self, ctx):
@@ -711,7 +1338,6 @@ class GetStructField(Expression):
         return None
 
     def eval_device(self, ctx):
-        from ..columnar.nested import null_rows
         from .compiler import column_dval
         v = self.children[0].eval_device(ctx)
         return column_dval(null_rows(
@@ -740,22 +1366,21 @@ def _map_reason(dt: DataType, what: str) -> Optional[str]:
     return f"{what}: expected a map, got {dt.name}"
 
 
-def duplicate_keys(keys: torch.Tensor, inside: torch.Tensor) -> torch.Tensor:
+def duplicate_keys(keys, inside: torch.Tensor) -> torch.Tensor:
     """bool[P]: the rows holding two equal keys among their ``inside``
     slots, keys equal by Spark's ordering (NaN equal to NaN, -0.0 to
-    0.0)."""
+    0.0; strings by their bytes)."""
     if keys.shape[1] < 2:
         return torch.zeros(keys.shape[0], dtype=torch.bool,
-                           device=keys.device)
-    k = element_key(keys)
-    k = torch.where(inside, k, torch.zeros_like(k))
-    perm = _stable_sort_rows([(~inside).to(torch.int8), k], keys)
+                           device=inside.device)
+    k = torch.where(inside, slot_key(keys), 0)
+    perm = _stable_sort_rows([(~inside).to(torch.int8), k])
     ks, ins = k.gather(1, perm), inside.gather(1, perm)
     return ((ks[:, 1:] == ks[:, :-1]) & ins[:, 1:] & ins[:, :-1]).any(dim=1)
 
 
 def check_map_keys(key_valid: torch.Tensor, inside: torch.Tensor,
-                   keys: torch.Tensor, live: torch.Tensor) -> None:
+                   keys, live: torch.Tensor) -> None:
     """Raise as Spark does (``mapKeyDedupPolicy`` EXCEPTION, its
     default) where a live row holds a NULL key or a key twice: one host
     read."""
@@ -772,22 +1397,10 @@ def check_map_keys(key_valid: torch.Tensor, inside: torch.Tensor,
 def _map_val(keys, values, value_valid, lengths) -> MapVal:
     """A MapVal of rectangles whose keys are valid up to each length."""
     w = keys.shape[1]
-    inside = torch.arange(w, device=keys.device)[None, :] \
+    inside = torch.arange(w, device=lengths.device)[None, :] \
         < lengths[:, None]
     return MapVal(ListVal(keys, inside, lengths),
                   ListVal(values, value_valid & inside, lengths))
-
-
-def _lookup(mv: MapVal, key: torch.Tensor):
-    """(value[P], found and valid[P]) of ``key`` in each row's map."""
-    keys = mv.keys
-    common = torch.promote_types(keys.values.dtype, key.dtype)
-    eq = (element_key(keys.values.to(common))
-          == element_key(key.to(common))[:, None]) & keys.elem_valid
-    j = eq.to(torch.int8).argmax(dim=1, keepdim=True)
-    data = mv.values.values.gather(1, j)[:, 0]
-    ok = eq.any(dim=1) & mv.values.elem_valid.gather(1, j)[:, 0]
-    return data, ok
 
 
 class _MapExpr(Expression):
@@ -798,17 +1411,30 @@ class _MapExpr(Expression):
                         type(self).__name__)
         if r:
             return r
+        kt = map_parts(self.children[0].data_type(schema))[0]
         for c in self.children[1:]:
             cdt = c.data_type(schema)
-            if cdt.np_dtype is None and cdt != NULLTYPE:
+            if cdt.np_dtype is None and cdt != NULLTYPE and cdt != kt:
                 return f"{type(self).__name__}: argument type {cdt.name} " \
                        "is not a fixed-width type"
+        return None
+
+    def fully_device_supported(self, schema):
+        r = self.device_unsupported_reason(schema) or \
+            self.children[0].fully_device_supported(schema)
+        if r:
+            return r
+        for c in self.children[1:]:
+            r = _arg_reason(c, schema, type(self).__name__)
+            if r:
+                return r
         return None
 
 
 class GetMapValue(_MapExpr):
     """map[key]: the key's value, NULL where the key is absent (Spark's
-    default with ANSI off)."""
+    default with ANSI off); a string key literal is looked up by its code
+    or by ``rect_match``'s equals over the keys' byte rectangle."""
 
     def __init__(self, child, key):
         self.children = [child, key]
@@ -818,10 +1444,14 @@ class GetMapValue(_MapExpr):
 
     def eval_device(self, ctx):
         m = self.children[0].eval_device(ctx)
-        k = self.children[1].eval_device(ctx)
-        data, ok = _lookup(m.data, k.data)
-        return DVal(data, m.validity & k.validity & ok,
-                    self.data_type(ctx.schema))
+        mv = m.data
+        kvalid, eq = _needle_eq(ctx, mv.keys, self.children[1])
+        j = eq.to(torch.int8).argmax(dim=1)
+        rows = torch.arange(j.shape[0], device=j.device)
+        ok = eq.any(dim=1) & mv.values.elem_valid[rows, j]
+        return value_dval(slot_pick(mv.values.values, rows, j),
+                          m.validity & kvalid & ok,
+                          self.data_type(ctx.schema))
 
 
 class MapKeys(_MapExpr):
@@ -848,9 +1478,18 @@ class MapValues(_MapExpr):
         return DVal(m.data.values, m.validity, self.data_type(ctx.schema))
 
 
+def _flat_field(lv: ListVal, dtype: DataType):
+    """A rectangle's slots as a flat column (validity: the elements')."""
+    from ..columnar import DeviceColumn
+    ev = lv.elem_valid.reshape(-1)
+    if isinstance(lv.values, Slots):
+        return null_rows(lv.values.col, ev)
+    return DeviceColumn(lv.values.reshape(-1), ev, dtype)
+
+
 class MapEntries(_MapExpr):
-    """map_entries(map): the same rectangles, typed as an array of
-    ``struct<key, value>``."""
+    """map_entries(map): a list of ``struct<key, value>``, the struct
+    elements' fields the map's two rectangles' slots."""
 
     def __init__(self, child):
         self.children = [child]
@@ -858,14 +1497,28 @@ class MapEntries(_MapExpr):
     def data_type(self, schema):
         return entries_type(*map_parts(self.children[0].data_type(schema)))
 
-    def device_unsupported_reason(self, schema):
-        if not isinstance(self.children[0].data_type(schema), MapType):
-            return "MapEntries: expected a map"
-        return super().device_unsupported_reason(schema)
-
     def eval_device(self, ctx):
         m = self.children[0].eval_device(ctx)
-        return DVal(m.data, m.validity, self.data_type(ctx.schema))
+        dt = self.data_type(ctx.schema)
+        keys, vals = m.data
+        st = dt.element
+        inside = in_list(keys)
+        elems = StructColumn([_flat_field(keys, st.fields[0].dtype),
+                              _flat_field(vals, st.fields[1].dtype)],
+                             inside.reshape(-1), st)
+        return DVal(ListVal(Slots(elems, inside.shape[1]), inside,
+                            keys.lengths), m.validity, dt)
+
+
+def _map_types(schema, children):
+    """The maps' key and value types widened to one (Spark's coercion)."""
+    kvs = [map_parts(c.data_type(schema)) for c in children]
+    if any(kv is None for kv in kvs):
+        raise TypeError("map_concat takes maps")
+    k, v = kvs[0]
+    for k2, v2 in kvs[1:]:
+        k, v = promote_types(k, k2), promote_types(v, v2)
+    return k, v
 
 
 class MapConcat(Expression):
@@ -878,15 +1531,7 @@ class MapConcat(Expression):
         self.children = list(children)
 
     def data_type(self, schema):
-        """The maps' key and value types widened to one (Spark's
-        coercion)."""
-        kvs = [map_parts(c.data_type(schema)) for c in self.children]
-        if any(kv is None for kv in kvs):
-            raise TypeError("map_concat takes maps")
-        k, v = kvs[0]
-        for k2, v2 in kvs[1:]:
-            k, v = promote_types(k, k2), promote_types(v, v2)
-        return MapType(k, v)
+        return MapType(*_map_types(schema, self.children))
 
     def device_unsupported_reason(self, schema):
         if not self.children:
@@ -899,45 +1544,18 @@ class MapConcat(Expression):
 
     def eval_device(self, ctx):
         maps = [c.eval_device(ctx) for c in self.children]
-        valid = maps[0].validity
-        for m in maps[1:]:
-            valid = valid & m.validity
-        lens = [torch.where(valid, m.data.keys.lengths, 0).to(torch.int64)
-                for m in maps]
-        total = lens[0]
-        for ln in lens[1:]:
-            total = total + ln
+        keys = [DVal(m.data.keys, m.validity, None) for m in maps]
+        vals = [DVal(m.data.values, m.validity, None) for m in maps]
+        valid, kh, _, inside, _ = _rows_of(keys)
+        _, vh, vev, _, _ = _rows_of(vals)
         live = ctx.row_mask()
-        widest = int(torch.where(live, total, 0).max().item()) \
-            if total.numel() else 0
-        w = width_bucket(max(widest, 1))
-        if w is None:
-            raise NotImplementedError(
-                f"map_concat: a map of {widest} entries is wider than the "
-                f"device rectangle ({WIDTH_BUCKETS[-1]}); it arrives with "
-                f"{NESTED_REST}")
-        p = valid.shape[0]
-        dev = valid.device
-        dt = self.data_type(ctx.schema)
-        kt, vt = torch_dtype(dt.key), torch_dtype(dt.value)
-        keys = torch.zeros((p, w + 1), dtype=kt, device=dev)
-        vals = torch.zeros((p, w + 1), dtype=vt, device=dev)
-        vv = torch.zeros((p, w + 1), dtype=torch.bool, device=dev)
-        base = torch.zeros(p, dtype=torch.int64, device=dev)
-        for m, ln in zip(maps, lens):
-            mv = m.data
-            mw = mv.keys.values.shape[1]
-            j = torch.arange(mw, device=dev)[None, :]
-            dest = torch.where(j < ln[:, None], base[:, None] + j, w)
-            keys.scatter_(1, dest, mv.keys.values.to(kt))
-            vals.scatter_(1, dest, mv.values.values.to(vt))
-            vv.scatter_(1, dest, mv.values.elem_valid)
-            base = base + ln
-        out = _map_val(keys[:, :w], vals[:, :w], vv[:, :w],
-                       total.to(torch.int32))
+        w = _widest(inside.sum(dim=1), valid & live, "map_concat")
+        k2, _, lens = compact_slots(kh, inside, inside, w)
+        v2, vev2, _ = compact_slots(vh, vev, inside, w)
+        out = _map_val(k2, v2, vev2, lens)
         check_map_keys(out.keys.elem_valid, out.keys.elem_valid,
                        out.keys.values, live & valid)
-        return DVal(out, valid, dt)
+        return DVal(out, valid, self.data_type(ctx.schema))
 
 
 class MapFromArrays(Expression):
@@ -953,12 +1571,7 @@ class MapFromArrays(Expression):
                        _elem_type(self.children[1].data_type(schema)))
 
     def device_unsupported_reason(self, schema):
-        for c in self.children:
-            dt = c.data_type(schema)
-            if not device_list_ok(dt):
-                return f"MapFromArrays over {dt.name} arrives with " \
-                       f"{NESTED_REST}"
-        return None
+        return _map_reason(self.data_type(schema), "MapFromArrays")
 
     def eval_device(self, ctx):
         a = self.children[0].eval_device(ctx)
@@ -971,12 +1584,12 @@ class MapFromArrays(Expression):
             raise ValueError("The key array and value array of MapData "
                              "must have the same length.")
         w = max(ka.values.shape[1], vb.values.shape[1])
-        pad = (0, w - ka.values.shape[1])
-        keys = torch.nn.functional.pad(ka.values, pad)
-        kev = torch.nn.functional.pad(ka.elem_valid, pad)
+        keys = slot_pad(ka.values, w)
+        kev = torch.nn.functional.pad(ka.elem_valid,
+                                      (0, w - ka.values.shape[1]))
         pad = (0, w - vb.values.shape[1])
         lengths = torch.where(valid, ka.lengths, 0)
-        out = _map_val(keys, torch.nn.functional.pad(vb.values, pad),
+        out = _map_val(keys, slot_pad(vb.values, w),
                        torch.nn.functional.pad(vb.elem_valid, pad), lengths)
         check_map_keys(kev, out.keys.elem_valid, keys, live)
         return DVal(out, valid, self.data_type(ctx.schema))
@@ -985,51 +1598,45 @@ class MapFromArrays(Expression):
 class CreateMap(Expression):
     """map(k1, v1, ..., kn, vn): never NULL itself; a NULL key or a key
     twice raises (Spark's defaults; the reference keeps the last value of
-    a repeated key: ROADMAP.md Queue C)."""
+    a repeated key: ROADMAP.md Queue C). ``map()`` is an empty map of
+    NULL-typed keys and values."""
 
     def __init__(self, *children):
         assert len(children) % 2 == 0, "CreateMap needs key/value pairs"
         self.children = list(children)
 
     def _types(self, schema):
-        def common(exprs):
-            t = NULLTYPE
-            for c in exprs:
-                d = c.data_type(schema)
-                if d != NULLTYPE:
-                    t = d if t == NULLTYPE else promote_types(t, d)
-            return t
-        return common(self.children[::2]), common(self.children[1::2])
+        return _common_type(schema, self.children[::2]), \
+            _common_type(schema, self.children[1::2])
 
     def data_type(self, schema):
         return MapType(*self._types(schema))
 
     def device_unsupported_reason(self, schema):
-        if not self.children:
-            return f"an empty map() arrives with {NESTED_REST}"
-        if width_bucket(len(self.children) // 2) is None:
+        if width_bucket(max(len(self.children) // 2, 1)) is None:
             return (f"map() of {len(self.children) // 2} entries is wider "
                     f"than the device rectangle ({WIDTH_BUCKETS[-1]}); it "
                     f"arrives with {NESTED_REST}")
         return _map_reason(self.data_type(schema), "CreateMap")
 
+    def fully_device_supported(self, schema):
+        r = self.device_unsupported_reason(schema)
+        if r:
+            return r
+        for c in self.children:
+            r = _arg_reason(c, schema, "CreateMap")
+            if r:
+                return r
+        return None
+
     def eval_device(self, ctx):
         kt, vt = self._types(ctx.schema)
-        ks = [c.eval_device(ctx) for c in self.children[::2]]
-        vs = [c.eval_device(ctx) for c in self.children[1::2]]
-        k = len(ks)
-        w = width_bucket(k)
+        k = len(self.children) // 2
+        w = width_bucket(max(k, 1))
         p = ctx.padded_len
-
-        def rect(vals, dt, fill):
-            tdt = torch_dtype(dt)
-            cols = [v.data.to(tdt).expand(p) for v in vals]
-            cols += [torch.zeros(p, dtype=tdt, device=ctx.device)] * (w - k)
-            oks = [v.validity.expand(p) for v in vals]
-            oks += [torch.full((p,), fill, device=ctx.device)] * (w - k)
-            return torch.stack(cols, dim=1), torch.stack(oks, dim=1)
-        keys, kev = rect(ks, kt, False)
-        vals, vev = rect(vs, vt if vt != NULLTYPE else INT32, False)
+        keys, kev = _stacked(ctx, self.children[::2], kt, w)
+        vals, vev = _stacked(ctx, self.children[1::2],
+                             vt if vt != NULLTYPE else INT32, w)
         lengths = torch.full((p,), k, dtype=torch.int32, device=ctx.device)
         out = _map_val(keys, vals, vev, lengths)
         check_map_keys(kev, out.keys.elem_valid, keys, ctx.row_mask())

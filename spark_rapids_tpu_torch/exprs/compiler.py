@@ -89,10 +89,12 @@ class DeviceProjector:
         self.out_types = [e.data_type(schema) for e in self.exprs]
 
     def run(self, batch: ColumnarBatch, slots: Sequence[DVal] = (),
-            task_state: Optional[dict] = None) -> List[DeviceColumn]:
+            task_state: Optional[dict] = None,
+            use_kernel: bool = False) -> List[DeviceColumn]:
         ctx = EvalContext(self.schema, batch_dvals(batch), batch.num_rows,
                           batch.padded_len, batch_device(batch), slots,
-                          batch.partition_id, task_state)
+                          batch.partition_id, task_state,
+                          use_kernel=use_kernel)
         mask = ctx.row_mask()
         out = []
         for e, dt in zip(self.exprs, self.out_types):
@@ -294,7 +296,7 @@ class DictFilterEvaluator:
         slots = [self._slot_value(batch, pred, ordinal, form, use_kernel,
                                   cap)
                  for pred, ordinal, form in self.preds]
-        col = self._projector.run(batch, slots)[0]
+        col = self._projector.run(batch, slots, use_kernel=use_kernel)[0]
         return torch.logical_and(col.data, col.validity)
 
 

@@ -9,6 +9,8 @@ among that row's outputs (``pos``):
 
   * ``explode(list)``: a row's elements, flattened out of the rectangle
     by their slots (``outer``: one all-NULL row for a NULL or empty list);
+    strings and structs come out as their flat column's rows (a struct
+    column for a list of structs);
   * ``explode(map)``: a row's entries as ``key, value`` columns, out of
     the map's two rectangles by the same slots (``posexplode``: ``pos,
     key, value``);
@@ -27,6 +29,7 @@ import torch
 from ..types import (INT32, NESTED_REST, NULLTYPE, ArrayType, DataType,
                      MapType, Schema, StructField, device_list_ok,
                      device_map_ok, nested_reason)
+from ..columnar.nested import slot_pick
 from .base import DVal, Expression, MapVal, Unsupported
 from .collection_fns import Sequence, sequence_counts, sequence_error
 
@@ -137,8 +140,9 @@ class Explode(Generator):
         inside = pos < count[rep]
         lvs = val if isinstance(val, MapVal) else [val]
         j = pos.clamp(0, lvs[0].values.shape[1] - 1)
-        return [DVal(lv.values[rep, j], lv.elem_valid[rep, j] & inside,
-                     None) for lv in lvs], inside
+        return [DVal(slot_pick(lv.values, rep, j),
+                     lv.elem_valid[rep, j] & inside, None)
+                for lv in lvs], inside
 
     def outputs(self, state, rep, pos) -> List[DVal]:
         return self._element(state, rep, pos)[0]

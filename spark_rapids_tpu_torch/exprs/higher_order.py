@@ -4,8 +4,10 @@
 
 A lambda's body is evaluated once, vectorised, over the rectangle's P·W
 slots flattened into element rows: each lambda variable is a column of
-that scope (the element, its index), and every column the body reads
-from outside is repeated once a slot. Slots past a row's length are
+that scope (the element, its index; a string or struct element is its
+flat column, so a string chain in the body runs over it by its layout,
+``rect_match`` and ``rect_transform`` over a byte rectangle), and every
+column the body reads from outside is repeated once a slot. Slots past a row's length are
 evaluated too (no host read to compact them) and are masked out of the
 result; the scope's ``live`` rows say which are real, for the functions
 that raise on a value. A nested higher-order function binds its own
@@ -31,13 +33,15 @@ from typing import List, Optional
 
 import torch
 
-from ..types import (BOOL, INT32, NESTED_REST, ArrayType, DataType, MapType,
-                     Schema, StructField, device_list_ok, device_map_ok,
-                     nested_reason)
-from ..columnar.nested import take_rows
+from ..types import (BOOL, INT32, NESTED_REST, STRING, ArrayType, DataType,
+                     MapType, Schema, StructField, StructType,
+                     device_list_ok, device_map_ok, nested_reason)
+from ..columnar.nested import (Slots, slot_pad, slot_pick, slot_rows,
+                               take_rows, with_validity)
 from .base import (ColumnRef, DVal, EvalContext, Expression, ListVal, MapVal,
                    StrVal, StructVal)
-from .collection_fns import _elem_type, _map_val, check_map_keys, in_list
+from .collection_fns import (_elem_type, _map_val, check_map_keys,
+                             compact_slots, in_list, value_dval)
 
 __all__ = ["NamedLambdaVariable", "ArrayTransform", "ArrayFilter",
            "ArrayExists", "ArrayForAll", "ArrayAggregate", "ZipWith",
@@ -65,18 +69,44 @@ class NamedLambdaVariable(ColumnRef):
 def _repeat(v: DVal, w: int) -> DVal:
     """``v`` with each row repeated ``w`` times."""
     d = v.data
+    idx = torch.arange(v.validity.shape[0], device=v.validity.device) \
+        .repeat_interleave(w)
+
+    def lst(lv):
+        return ListVal(slot_rows(lv.values, idx), lv.elem_valid[idx],
+                       lv.lengths[idx])
     if isinstance(d, StructVal):
-        idx = torch.arange(v.validity.shape[0], device=v.validity.device) \
-            .repeat_interleave(w)
         d = StructVal(tuple(take_rows(c, idx) for c in d.fields))
     elif isinstance(d, MapVal):
-        d = MapVal(*(ListVal(*(t.repeat_interleave(w, dim=0) for t in lv))
-                     for lv in d))
-    elif isinstance(d, (ListVal, StrVal)):
-        d = type(d)(*(t.repeat_interleave(w, dim=0) for t in d))
+        d = MapVal(*(lst(lv) for lv in d))
+    elif isinstance(d, ListVal):
+        d = lst(d)
+    elif isinstance(d, StrVal):
+        d = StrVal(*(t[idx] for t in d))
     else:
-        d = d.repeat_interleave(w, dim=0)
-    return DVal(d, v.validity.repeat_interleave(w, dim=0), v.dtype)
+        d = d[idx]
+    col = None if v.column is None else take_rows(v.column, idx)
+    return DVal(d, v.validity[idx], v.dtype, col)
+
+
+def _slot_dval(values, valid: torch.Tensor, dtype: DataType) -> DVal:
+    """A rectangle's slots flattened into element rows: a DVal of P·W
+    rows (strings and structs as their flat column's, which they carry,
+    its validity the elements': the bytes are not copied)."""
+    if isinstance(values, Slots):
+        from .compiler import column_dval
+        v = column_dval(with_validity(values.col, valid))
+        return DVal(v.data, valid, dtype, v.column)
+    return DVal(values.reshape(-1), valid, dtype)
+
+
+def _slot_result(res: DVal, dtype: DataType, p: int, w: int):
+    """A lambda's result over P·W element rows as a [P, W] rectangle's
+    values (``Slots`` for a string or a struct)."""
+    if dtype == STRING or isinstance(dtype, StructType):
+        from .compiler import dval_column
+        return Slots(dval_column(res, res.validity, dtype), w)
+    return res.data.reshape(p, w)
 
 
 class _HigherOrder(Expression):
@@ -123,15 +153,37 @@ class _HigherOrder(Expression):
         for c in self.children[:self._n_lists]:
             dt = c.data_type(schema)
             if isinstance(dt, MapType) or not device_list_ok(dt):
-                return (f"{type(self).__name__} over {dt.name} arrives with "
-                        f"{NESTED_REST}")
+                return (f"{type(self).__name__} over {dt.name}: "
+                        + (nested_reason(dt)
+                           or f"arrives with {NESTED_REST}"))
         return self._result_reason(schema)
+
+    def fully_device_supported(self, schema):
+        """The lists and the other arguments over ``schema``; the bodies
+        over their scope, whose variables are columns: a string chain over
+        a string variable runs (string_fns.py ``eval_device``)."""
+        r = self.device_unsupported_reason(schema)
+        if r:
+            return r
+        bodies = [id(b) for b in self._bodies()]
+        scope = Schema(list(schema.fields) + [
+            StructField(a.name, a._dtype) for a in self._all_args()])
+        for c in self.children:
+            r = c.fully_device_supported(scope if id(c) in bodies
+                                         else schema)
+            if r:
+                return r
+        return None
+
+    def _all_args(self) -> list:
+        return list(self.args) + list(getattr(self, "finish_args", None)
+                                      or [])
 
     _n_lists = 1
 
     def _result_reason(self, schema) -> Optional[str]:
         dt = self.body.data_type(schema)
-        if dt.np_dtype is None:
+        if dt.np_dtype is None and dt != STRING:
             return (f"{type(self).__name__}: a lambda giving {dt.name} "
                     f"arrives with {NESTED_REST}")
         return None
@@ -151,19 +203,20 @@ class _HigherOrder(Expression):
             fields.append(StructField(var.name, var._dtype))
             cols.append(v)
         return EvalContext(Schema(fields), cols, n, n, ctx.device,
-                           partition_id=ctx.partition_id, live=live)
+                           partition_id=ctx.partition_id, live=live,
+                           use_kernel=ctx.use_kernel)
 
     def _elements(self, ctx, lv: ListVal, validity, with_index: bool):
         """The element scope of ``lv`` (P·W rows) and the slots' mask."""
         p, w = lv.values.shape
         inside = in_list(lv)
         live = (inside & (ctx.row_mask() & validity)[:, None]).reshape(-1)
-        bound = [(self.args[0], DVal(lv.values.reshape(-1),
-                                     lv.elem_valid.reshape(-1),
-                                     self.args[0]._dtype))]
+        bound = [(self.args[0], _slot_dval(lv.values,
+                                           lv.elem_valid.reshape(-1),
+                                           self.args[0]._dtype))]
         if with_index and len(self.args) > 1:
             idx = torch.arange(w, dtype=torch.int32,
-                               device=lv.values.device).repeat(p)
+                               device=ctx.device).repeat(p)
             bound.append((self.args[1], DVal(idx, inside.reshape(-1),
                                              INT32)))
         return self._scope(ctx, bound, w, p * w, live), inside
@@ -183,14 +236,15 @@ class _OverElements(_HigherOrder):
             self.args[1]._dtype = INT32
 
     def _results(self, ctx):
-        """(array DVal, the body's DVal as [P, W] tensors, slots mask)."""
+        """(array DVal, the body's values and validity as [P, W]
+        rectangles, slots mask)."""
         arr = self.children[0].eval_device(ctx)
         lv = arr.data
         scope, inside = self._elements(ctx, lv, arr.validity, True)
         res = self.body.eval_device(scope)
-        shape = lv.values.shape
-        return arr, res.data.reshape(shape), res.validity.reshape(shape), \
-            inside
+        p, w = lv.values.shape
+        return arr, _slot_result(res, self.body.data_type(scope.schema), p,
+                                 w), res.validity.reshape(p, w), inside
 
 
 class ArrayTransform(_OverElements):
@@ -222,18 +276,10 @@ class ArrayFilter(_OverElements):
         arr, data, valid, inside = self._results(ctx)
         lv = arr.data
         keep = data & valid & inside
-        w = lv.values.shape[1]
-        dest = torch.where(keep, torch.cumsum(keep, dim=1) - 1, w)
-        p = lv.values.shape[0]
-        vals = torch.zeros((p, w + 1), dtype=lv.values.dtype,
-                           device=lv.values.device)
-        ev = torch.zeros((p, w + 1), dtype=torch.bool,
-                         device=lv.values.device)
-        vals.scatter_(1, dest, lv.values)
-        ev.scatter_(1, dest, lv.elem_valid & keep)
-        return DVal(ListVal(vals[:, :w], ev[:, :w],
-                            keep.sum(dim=1).to(torch.int32)),
-                    arr.validity, self.data_type(ctx.schema))
+        vals, ev, lens = compact_slots(lv.values, lv.elem_valid, keep,
+                                       lv.values.shape[1])
+        return DVal(ListVal(vals, ev, lens), arr.validity,
+                    self.data_type(ctx.schema))
 
 
 class _ArrayPredicate(_OverElements):
@@ -292,23 +338,24 @@ class ZipWith(_HigherOrder):
 
         def padded(lv):
             pad = (0, w - lv.values.shape[1])
-            return (torch.nn.functional.pad(lv.values, pad),
+            return (slot_pad(lv.values, w),
                     torch.nn.functional.pad(lv.elem_valid, pad))
         (av, ae), (bv, be) = padded(a.data), padded(b.data)
         validity = a.validity & b.validity
         lengths = torch.where(validity, torch.maximum(a.data.lengths,
                                                       b.data.lengths), 0)
-        p = av.shape[0]
-        inside = torch.arange(w, device=av.device)[None, :] \
+        p = validity.shape[0]
+        inside = torch.arange(w, device=ctx.device)[None, :] \
             < lengths[:, None]
         live = (inside & ctx.row_mask()[:, None]).reshape(-1)
         scope = self._scope(ctx, [
-            (self.args[0], DVal(av.reshape(-1), ae.reshape(-1),
-                                self.args[0]._dtype)),
-            (self.args[1], DVal(bv.reshape(-1), be.reshape(-1),
-                                self.args[1]._dtype))], w, p * w, live)
+            (self.args[0], _slot_dval(av, ae.reshape(-1),
+                                      self.args[0]._dtype)),
+            (self.args[1], _slot_dval(bv, be.reshape(-1),
+                                      self.args[1]._dtype))], w, p * w, live)
         res = self.body.eval_device(scope)
-        return DVal(ListVal(res.data.reshape(p, w),
+        return DVal(ListVal(_slot_result(res, self.body.data_type(
+                                scope.schema), p, w),
                             res.validity.reshape(p, w) & inside,
                             lengths.to(torch.int32)),
                     validity, self.data_type(ctx.schema))
@@ -366,12 +413,14 @@ class ArrayAggregate(_HigherOrder):
         acc = zero
         rows = ctx.row_mask() & arr.validity
         n = lv.values.shape[0]
+        every = torch.arange(n, device=ctx.device)
         for j in range(lv.values.shape[1]):
             step = rows & (lv.lengths > j)
-            scope = self._scope(ctx, [
-                (self.args[0], acc),
-                (self.args[1], DVal(lv.values[:, j], lv.elem_valid[:, j],
-                                    self.args[1]._dtype))], 1, n, step)
+            x = value_dval(slot_pick(lv.values, every,
+                                     torch.full_like(every, j)),
+                           lv.elem_valid[:, j], self.args[1]._dtype)
+            scope = self._scope(ctx, [(self.args[0], acc),
+                                      (self.args[1], x)], 1, n, step)
             r = self.body.eval_device(scope)
             acc = DVal(torch.where(step, r.data.to(acc.data.dtype), acc.data),
                        torch.where(step, r.validity, acc.validity), acc_t)
@@ -417,15 +466,16 @@ class _MapHigherOrder(_HigherOrder):
         inside = in_list(keys)
         live = (inside & (ctx.row_mask() & m.validity)[:, None]).reshape(-1)
         scope = self._scope(ctx, [
-            (self.args[0], DVal(keys.values.reshape(-1),
-                                keys.elem_valid.reshape(-1),
-                                self.args[0]._dtype)),
-            (self.args[1], DVal(vals.values.reshape(-1),
-                                vals.elem_valid.reshape(-1),
-                                self.args[1]._dtype))], w, p * w, live)
+            (self.args[0], _slot_dval(keys.values,
+                                      keys.elem_valid.reshape(-1),
+                                      self.args[0]._dtype)),
+            (self.args[1], _slot_dval(vals.values,
+                                      vals.elem_valid.reshape(-1),
+                                      self.args[1]._dtype))], w, p * w, live)
         res = self.body.eval_device(scope)
-        return m, res.data.reshape(p, w), res.validity.reshape(p, w), \
-            inside, live.reshape(p, w)
+        return m, _slot_result(res, self.body.data_type(scope.schema), p,
+                               w), res.validity.reshape(p, w), inside, \
+            live.reshape(p, w)
 
 
 class TransformKeys(_MapHigherOrder):
@@ -475,13 +525,8 @@ class MapFilter(_MapHigherOrder):
         m, data, valid, inside, _ = self._results(ctx)
         keys, vals = m.data
         keep = data & valid & inside
-        p, w = keys.values.shape
-        dest = torch.where(keep, torch.cumsum(keep, dim=1) - 1, w)
-
-        def packed(t):
-            out = torch.zeros((p, w + 1), dtype=t.dtype, device=t.device)
-            return out.scatter_(1, dest, t)[:, :w]
-        return DVal(_map_val(packed(keys.values), packed(vals.values),
-                             packed(vals.elem_valid),
-                             keep.sum(dim=1).to(torch.int32)),
-                    m.validity, self.data_type(ctx.schema))
+        w = keys.values.shape[1]
+        k2, _, lens = compact_slots(keys.values, keep, keep, w)
+        v2, vev, _ = compact_slots(vals.values, vals.elem_valid, keep, w)
+        return DVal(_map_val(k2, v2, vev, lens), m.validity,
+                    self.data_type(ctx.schema))

@@ -14,6 +14,9 @@ routes them by the column's layout:
     names), and each transform's ``host_value`` (a ``dict_transform``
     chain in the project exec re-encodes the dictionary).
 
+``StringSplit`` (``split``) runs on the device: a literal pattern,
+Java's ``limit`` semantics, a list of strings as its result.
+
 ``host_value`` maps one Python ``str`` to its result with Spark's
 semantics: numpy and Python only, as the card's machine has no pyarrow.
 Where the reference's pyarrow kernels depart from Spark (``upper('ß')``),
@@ -30,7 +33,8 @@ __all__ = ["Contains", "StartsWith", "EndsWith", "Like", "RLike",
            "StringLocate", "StringInstr", "Length", "Upper", "Lower",
            "Substring", "StringTrim", "StringTrimLeft", "StringTrimRight",
            "StringReplace", "Lpad", "Rpad", "Reverse", "InitCap",
-           "SubstringIndex"]
+           "SubstringIndex", "StringSplit", "literal_pattern",
+           "split_strings"]
 
 
 class _HostStringExpr(Expression):
@@ -40,6 +44,24 @@ class _HostStringExpr(Expression):
 
     def device_unsupported_reason(self, schema: Schema) -> Optional[str]:
         return f"{type(self).__name__}: string expressions run on host"
+
+    def fully_device_supported(self, schema: Schema) -> Optional[str]:
+        """A chain over a lambda's string variable runs on the device
+        (``eval_device``); elsewhere the project and filter execs route
+        string chains by the column's layout themselves."""
+        from .string_rect import chain_leaf
+        leaf = chain_leaf(self, schema)
+        if leaf is not None and leaf.startswith("`lambda_"):
+            return None
+        return super().fully_device_supported(schema)
+
+    def eval_device(self, ctx):
+        """A string chain over one string column of ``ctx`` (a lambda's
+        element, exprs/higher_order.py), by the column's layout: over a
+        dictionary once per entry, over an ASCII byte rectangle through
+        ``rect_transform`` and ``rect_match`` (string_rect.py)."""
+        from .string_rect import eval_string_chain
+        return eval_string_chain(self, ctx)
 
     def key(self):
         kids = ",".join(c.key() for c in self.children)
@@ -329,3 +351,192 @@ class SubstringIndex(_HostStringExpr):
     def key(self):
         return (f"substring_index({self.children[0].key()},"
                 f"{self.delim!r},{self.count})")
+
+
+# ---------------------------------------------------------------------------
+# split (reference string_fns.py:645-700)
+# ---------------------------------------------------------------------------
+
+_REGEX_META = set(".$|()[]{}^?*+\\")
+
+
+def literal_pattern(pattern: str) -> Optional[str]:
+    """The literal a Java-regex ``pattern`` matches, when it is one: no
+    metacharacter, or one escaped character (``\\|``); else None."""
+    if len(pattern) == 2 and pattern[0] == "\\" and not pattern[1].isalnum():
+        return pattern[1]
+    if pattern and not any(c in _REGEX_META for c in pattern):
+        return pattern
+    return None
+
+
+def _split_host(v: str, d: str, limit: int) -> list:
+    """Java's ``String.split(d, limit)`` of a literal ``d``: at most
+    ``limit`` parts when positive; trailing empty parts dropped when 0;
+    the string itself when ``d`` is not in it."""
+    if d not in v:
+        return [v]
+    parts = v.split(d, limit - 1) if limit > 0 else v.split(d)
+    if limit == 0:
+        while parts and parts[-1] == "":
+            parts.pop()
+    return parts
+
+
+def _split_dictionary(col, d: str, limit: int, what: str):
+    """Each dictionary entry split once on the host; rows gather their
+    entry's token codes over the tokens' sorted dictionary."""
+    import numpy as np
+    import torch
+    from ..columnar import DictColumn
+    from ..columnar.nested import Slots, too_long, width_bucket
+    from .base import ListVal
+    split = [_split_host(v, d, limit) for v in col.dictionary]
+    longest = max((len(t) for t in split), default=1)
+    w = width_bucket(max(longest, 1))
+    if w is None:
+        raise too_long(what, longest)
+    toks = sorted({t for ts in split for t in ts})
+    code = {t: i for i, t in enumerate(toks)}
+    table = np.zeros((max(len(split), 1), w), np.int32)
+    counts = np.zeros(max(len(split), 1), np.int32)
+    for i, ts in enumerate(split):
+        table[i, :len(ts)] = [code[t] for t in ts]
+        counts[i] = len(ts)
+    dev = col.data.device
+    idx = col.data.clamp(0, max(len(split) - 1, 0)).long()
+    lengths = torch.where(col.validity, torch.from_numpy(counts).to(dev)[idx],
+                          0)
+    inside = torch.arange(w, device=dev)[None, :] < lengths[:, None]
+    codes = torch.where(inside, torch.from_numpy(table).to(dev)[idx], 0)
+    elems = DictColumn(codes.reshape(-1), inside.reshape(-1), STRING,
+                       np.array(toks, dtype=object))
+    return ListVal(Slots(elems, w), inside, lengths.to(torch.int32))
+
+
+def _split_rect(col, d: bytes, limit: int, what: str):
+    """Each row of a byte rectangle split on the device: the delimiter's
+    matches, left to right and not overlapping, then each token's bytes
+    gathered into a [P·W, B] rectangle of the tokens' widest bucket. One
+    host read: the most tokens and the longest token."""
+    import torch
+    from ..columnar import ByteRectColumn
+    from ..columnar.nested import Slots, too_long, width_bucket
+    from ..columnar.strrect import rect_width_bucket
+    from .base import ListVal
+    n, b = col.data.shape
+    dev = col.data.device
+    L = len(d)
+    lens = torch.where(col.validity, col.lengths, 0).to(torch.int64)
+    m = max(b - L + 1, 0)
+    j = torch.arange(m, device=dev)
+    match = (j[None, :] + L <= lens[:, None])
+    for t, ch in enumerate(d):
+        match = match & (col.data[:, t:t + m] == ch)
+    if L > 1 and m:
+        free = torch.zeros(n, dtype=torch.int64, device=dev)
+        cols = []
+        for i in range(m):
+            hit = match[:, i] & (free <= i)
+            free = torch.where(hit, i + L, free)
+            cols.append(hit)
+        match = torch.stack(cols, dim=1)
+    if limit > 0:
+        match = match & (torch.cumsum(match.to(torch.int32), dim=1)
+                         <= limit - 1)
+    count = match.sum(dim=1)
+    ntok = count + 1
+    most = int(ntok.max().item()) if n else 1
+    w = width_bucket(max(most, 1))
+    if w is None:
+        raise too_long(what, most)
+    k = w - 1
+    # the match positions of each row in order (past the last, ``b``):
+    # the matches in row-major order, each row's from its first
+    pos = torch.full((n, k + 1), b, dtype=torch.int64, device=dev)
+    at = torch.nonzero(match.reshape(-1), as_tuple=True)[0]
+    if at.numel():
+        row = at // m
+        first = torch.cumsum(count, 0) - count
+        pos[row, torch.arange(at.numel(), device=dev) - first[row]] = at % m
+    pos = pos[:, :k]
+    starts = torch.cat([torch.zeros((n, 1), dtype=torch.int64, device=dev),
+                        pos + L], dim=1)
+    slot = torch.arange(w, device=dev)[None, :]
+    ends = torch.where(slot < count[:, None], torch.cat(
+        [pos, lens[:, None]], dim=1), lens[:, None])
+    tok = torch.where(slot < ntok[:, None], (ends - starts).clamp(min=0), 0)
+    if limit == 0:
+        # trailing empty tokens dropped, where the delimiter was found
+        nonempty = (tok > 0) & (slot < ntok[:, None])
+        last = torch.where(nonempty, slot, -1).amax(dim=1) + 1
+        ntok = torch.where(count > 0, last, ntok)
+        tok = torch.where(slot < ntok[:, None], tok, 0)
+    ntok = torch.where(col.validity, ntok, 0)
+    inside = slot < ntok[:, None]
+    tok = torch.where(inside, tok, 0)
+    longest = int(tok.max().item()) if tok.numel() else 0
+    bt = rect_width_bucket(longest, 1 << 30)
+    out = torch.zeros((n, w, bt), dtype=torch.uint8, device=dev)
+    for c in range(bt):
+        src = (starts + c).clamp(0, max(b - 1, 0))
+        out[:, :, c] = torch.where(c < tok, col.data.gather(1, src), 0) \
+            if b else 0
+    elems = ByteRectColumn(out.reshape(n * w, bt), inside.reshape(-1),
+                           tok.reshape(-1).to(torch.int32),
+                           ascii_only=col.ascii_only)
+    return ListVal(Slots(elems, w), inside, ntok.to(torch.int32))
+
+
+def split_strings(col, pattern: str, limit: int, what: str):
+    """A flat string column's rows split on a literal pattern (Java's
+    ``limit`` semantics): a ``ListVal`` of string slots, a dictionary's
+    tokens over their own dictionary, a rectangle's as a rectangle."""
+    from ..columnar import DictColumn
+    d = literal_pattern(pattern)
+    if isinstance(col, DictColumn):
+        return _split_dictionary(col, d, limit, what)
+    return _split_rect(col, d.encode("utf-8"), limit, what)
+
+
+class StringSplit(Expression):
+    """split(str, pattern[, limit]) -> array<string>: Java's
+    ``String.split`` of a literal pattern (one with no regex
+    metacharacter, or one escaped character); ``limit`` > 0 gives at most
+    that many parts, 0 drops trailing empty parts, < 0 (the default)
+    keeps them all. A dictionary column splits each entry once and
+    gathers by code; a byte rectangle finds the delimiters on the device
+    (``split_strings``). A regex pattern is refused, naming the strings
+    slice; a row of more than 256 parts raises at its batch."""
+
+    def __init__(self, child, pattern: str, limit: int = -1):
+        self.children = [child]
+        self.pattern = pattern
+        self.limit = int(limit)
+
+    def data_type(self, schema):
+        from ..types import ArrayType
+        return ArrayType(STRING)
+
+    def device_unsupported_reason(self, schema):
+        from .collection_fns import STRINGS_REST
+        if literal_pattern(self.pattern) is None:
+            return (f"split by the regex {self.pattern!r} arrives with "
+                    f"{STRINGS_REST}")
+        return None
+
+    def fully_device_supported(self, schema):
+        from .collection_fns import string_arg_reason
+        return self.device_unsupported_reason(schema) or \
+            string_arg_reason(self.children[0], schema)
+
+    def eval_device(self, ctx):
+        from .base import DVal
+        from .collection_fns import string_column
+        col = string_column(self.children[0], ctx)
+        lv = split_strings(col, self.pattern, self.limit, "split")
+        return DVal(lv, col.validity, self.data_type(ctx.schema))
+
+    def key(self):
+        return (f"split({self.children[0].key()},{self.pattern!r},"
+                f"{self.limit})")

@@ -297,3 +297,55 @@ def eval_rect_chain(e: Expression, leaf_val: DVal, use_kernel: bool = False,
                                [transform_op(x) for x in chain], cap)
         val = DVal(StrVal(b, ln), val.validity, STRING)
     return val if term is None else eval_rect_expr(term, val, use_kernel)
+
+
+def eval_string_chain(e: Expression, ctx) -> DVal:
+    """A chain (``chain_leaf``) over one string column of ``ctx``,
+    evaluated by the column's layout: over a dictionary once per entry
+    (a STRING result a dictionary column over the sorted distinct
+    results, an INT or BOOL one a table gathered by code); over an ASCII
+    byte rectangle through ``eval_rect_chain`` (``rect_transform``, then
+    the match kernel with ``ctx.use_kernel``). A STRING result carries
+    its column."""
+    from ..columnar import ByteRectColumn, DictColumn
+    from .compiler import column_dval
+    leaf = chain_leaf(e, ctx.schema)
+    if leaf is None:
+        raise NotImplementedError(
+            f"<{e.name_hint}> is not a string chain over one column")
+    v = ctx.columns[ctx.schema.index_of(leaf)]
+    col = v.column
+    dt = e.data_type(ctx.schema)
+    if isinstance(col, DictColumn):
+        vals = dictionary_values(e, col.dictionary)
+        dev = col.data.device
+        if dt == STRING:
+            if len(vals):
+                uniq, inv = np.unique(vals, return_inverse=True)
+                uniq = uniq.astype(object)
+                rank = torch.from_numpy(inv.astype(np.int32).reshape(-1))
+                codes = rank.to(dev)[col.data.clamp(0, len(rank) - 1).long()]
+            else:
+                uniq, codes = np.zeros(0, object), torch.zeros_like(col.data)
+            out = DictColumn(torch.where(col.validity, codes, 0),
+                             col.validity, STRING, uniq)
+            return column_dval(out)
+        table = torch.from_numpy(np.ascontiguousarray(vals)).to(dev)
+        data = table[col.data.clamp(0, max(len(table) - 1, 0)).long()] \
+            if len(table) else torch.zeros(col.padded_len, dtype=table.dtype,
+                                           device=dev)
+        return DVal(torch.where(col.validity, data, 0), col.validity, dt)
+    if isinstance(col, ByteRectColumn) and col.ascii_only \
+            and rect_chain_leaf(e, ctx.schema) is not None:
+        out = eval_rect_chain(e, DVal(StrVal(col.data, col.lengths),
+                                      col.validity, STRING),
+                              ctx.use_kernel)
+        if isinstance(out.data, StrVal):
+            return column_dval(ByteRectColumn(
+                out.data.bytes_, out.validity, out.data.lengths, True))
+        return out
+    from .collection_fns import STRINGS_REST
+    raise NotImplementedError(
+        f"<{e.name_hint}> over {col!r}: string expressions over non-ASCII "
+        f"or host strings, and chains the byte-rectangle kernel does not "
+        f"take, arrive with {STRINGS_REST}")

@@ -117,6 +117,10 @@ def _json_meta(meta: tuple):
         return ["struct", [_json_meta(m) for m in meta[1]]]
     if meta[0] == "dict":
         return ["dict", [str(x) for x in meta[1]]]
+    if meta[0] == "map":
+        return ["map", _json_meta(meta[1]), _json_meta(meta[2])]
+    if meta[0] == "slots":
+        return ["slots", _json_meta(meta[1]), meta[2]]
     return list(meta)
 
 
@@ -125,6 +129,10 @@ def _meta_from_json(meta: list) -> tuple:
         return ("struct", [_meta_from_json(m) for m in meta[1]])
     if meta[0] == "dict":
         return ("dict", np.array(meta[1], dtype=object))
+    if meta[0] == "map":
+        return ("map", _meta_from_json(meta[1]), _meta_from_json(meta[2]))
+    if meta[0] == "slots":
+        return ("slots", _meta_from_json(meta[1]), meta[2])
     return tuple(meta)
 
 

@@ -296,14 +296,15 @@ class ParquetScanMeta(PlanMeta):
 
 def _computed_string(e, schema: Schema) -> bool:
     """``e`` is a string chain over one STRING column (``upper(trim(s))``)
-    or a string field of a struct, and not a column itself: a projection
-    computes it below an aggregate or a sort that keys on it, so that
-    its batches' dictionaries are unified as a column's are."""
-    from ..exprs.collection_fns import GetStructField
+    or another device expression giving a string (a string field of a
+    struct, ``element_at`` of a list or map of strings, ``array_join``),
+    and not a column itself: a projection computes it below an aggregate
+    or a sort that keys on it, so that its batches' dictionaries are
+    unified as a column's are."""
     from ..exprs.string_rect import chain_leaf
     return e.data_type(schema) == STRING and not isinstance(e, ColumnRef) \
-        and (isinstance(e, GetStructField)
-             or chain_leaf(e, schema) is not None)
+        and (chain_leaf(e, schema) is not None
+             or e.fully_device_supported(schema) is None)
 
 
 @rule(L.Project)

@@ -5,10 +5,12 @@ A device column is a torch tensor per column plus a bool validity tensor;
 STRING and BINARY have no fixed-width device layout of their own (strings
 ride as dictionary codes or byte rectangles, columnar/), and decimals wait
 for a later slice. An ARRAY of a fixed-width element lives on the device
-as a rectangle, a MAP of fixed-width keys and values as two rectangles
-over one set of lengths, and a STRUCT as its fields' device columns
-(columnar/nested.py); string-keyed maps, lists of strings or lists and
-the other nested forms are types the planner refuses (``NESTED_REST``).
+as a rectangle, and so does an ARRAY of strings or of structs of
+fixed-width and string fields (its elements a flat column of the
+rectangle's slots); a MAP of such keys and values is two rectangles over
+one set of lengths, and a STRUCT its fields' device columns
+(columnar/nested.py). Lists of lists, and the other nested forms, are
+types the planner refuses (``NESTED_REST``).
 """
 from __future__ import annotations
 
@@ -28,9 +30,9 @@ __all__ = [
     "entries_type", "nested_reason",
 ]
 
-#: where the nested constructs the port refuses arrive (string-keyed maps,
-#: lists of strings or lists, the host-only array functions, JSON, nested
-#: Parquet columns, lists past the rectangle's caps, nested keys)
+#: where the nested constructs the port refuses arrive (lists of lists and
+#: ``flatten``, lists past the rectangle's caps, a struct of host strings,
+#: nested keys, JSON, nested Parquet columns)
 NESTED_REST = "slice 9b, the rest (ROADMAP.md Queue A)"
 
 
@@ -148,9 +150,22 @@ class MapType(DataType):
         return hash(("map", self.key, self.value))
 
 
+def _flat_element_ok(dt: DataType) -> bool:
+    """A list element, map key or value, or a struct element's field that
+    has a device slot: fixed-width, a string or NULL-typed."""
+    return dt.np_dtype is not None or dt == STRING or dt == NULLTYPE
+
+
 def device_list_ok(dt: DataType) -> bool:
-    """``dt`` is an array of a fixed-width element: a device rectangle."""
-    return isinstance(dt, ArrayType) and dt.element.np_dtype is not None
+    """``dt`` is an array of a fixed-width or string element, or of a
+    struct whose fields are fixed-width or strings: a device rectangle
+    (columnar/nested.py)."""
+    if not isinstance(dt, ArrayType):
+        return False
+    e = dt.element
+    if isinstance(e, StructType):
+        return all(_flat_element_ok(f.dtype) for f in e.fields)
+    return _flat_element_ok(e)
 
 
 def entries_type(key: DataType, value: DataType) -> "ArrayType":
@@ -160,21 +175,17 @@ def entries_type(key: DataType, value: DataType) -> "ArrayType":
 
 
 def map_parts(dt: DataType):
-    """(key type, value type) of a map, or of a map's entries (an array of
-    ``struct<key, value>``, which the device holds as a map); else None."""
+    """(key type, value type) of a map, else None."""
     if isinstance(dt, MapType):
         return dt.key, dt.value
-    if isinstance(dt, ArrayType) and isinstance(dt.element, StructType) \
-            and [f.name for f in dt.element.fields] == ["key", "value"]:
-        return dt.element.fields[0].dtype, dt.element.fields[1].dtype
     return None
 
 
 def device_map_ok(dt: DataType) -> bool:
-    """``dt`` is a map (or a map's entries) whose keys and values are
-    fixed-width: two rectangles over one set of lengths."""
+    """``dt`` is a map whose keys and values are fixed-width or strings:
+    two rectangles over one set of lengths."""
     kv = map_parts(dt)
-    return kv is not None and all(t.np_dtype is not None for t in kv)
+    return kv is not None and all(_flat_element_ok(t) for t in kv)
 
 
 def device_struct_ok(dt: DataType) -> bool:
@@ -196,8 +207,7 @@ def nested_reason(dt: DataType) -> Optional[str]:
     if isinstance(dt, MapType) and not device_map_ok(dt):
         return (f"a map of {dt.key.name} keys and {dt.value.name} values "
                 f"arrives with {NESTED_REST}")
-    if isinstance(dt, ArrayType) and not (device_list_ok(dt)
-                                          or device_map_ok(dt)):
+    if isinstance(dt, ArrayType) and not device_list_ok(dt):
         return f"an array of {dt.element.name} arrives with {NESTED_REST}"
     if isinstance(dt, StructType):
         for f in dt.fields:

@@ -474,42 +474,44 @@ def test_list_past_the_width_cap_is_refused_at_ingest():
 # refusals: what now waits for "slice 9b, the rest", and the old sites
 # ---------------------------------------------------------------------------
 
-def _map_col(c):
-    """A string-keyed map: maps and structs run since slice 9b's map and
-    struct half, string keys still wait for the rest of slice 9b."""
-    return PE.CreateMap(Literal("x"), c)
+def _map_col(a, k):
+    """A map of list values: maps of numbers and strings run since slice
+    9b's rest, first part; lists inside maps wait for its next part."""
+    return PE.CreateMap(k, a)
 
 
-def _strings():
-    return PE.CreateArray(Literal("x"))
+def _lists(a):
+    """A list of lists: no device layout until the next part of slice
+    9b's rest (strings inside lists run since its first part)."""
+    return PE.CreateArray(a)
 
 
 REFUSED = {
-    "GetMapValue": lambda a, k: PE.GetMapValue(_map_col(k), Literal(1)),
+    "GetMapValue": lambda a, k: PE.GetMapValue(_map_col(a, k), Literal(1)),
     "GetStructField": lambda a, k: PE.GetStructField(
-        PE.CreateNamedStruct(Literal("f"), _strings()), "f"),
-    "MapKeys": lambda a, k: PE.MapKeys(_map_col(k)),
-    "MapValues": lambda a, k: PE.MapValues(_map_col(k)),
-    "MapEntries": lambda a, k: PE.MapEntries(_map_col(k)),
-    "MapConcat": lambda a, k: PE.MapConcat(_map_col(k), _map_col(k)),
-    "MapFromArrays": lambda a, k: PE.MapFromArrays(_strings(), a),
-    "CreateMap": lambda a, k: _map_col(k),
+        PE.CreateNamedStruct(Literal("f"), _lists(a)), "f"),
+    "MapKeys": lambda a, k: PE.MapKeys(_map_col(a, k)),
+    "MapValues": lambda a, k: PE.MapValues(_map_col(a, k)),
+    "MapEntries": lambda a, k: PE.MapEntries(_map_col(a, k)),
+    "MapConcat": lambda a, k: PE.MapConcat(_map_col(a, k), _map_col(a, k)),
+    "MapFromArrays": lambda a, k: PE.MapFromArrays(_lists(a), a),
+    "CreateMap": lambda a, k: _map_col(a, k),
     "CreateNamedStruct": lambda a, k: PE.CreateNamedStruct(Literal("f"),
-                                                           _strings()),
+                                                           _lists(a)),
     "TransformValues": lambda a, k: PE.TransformValues(
-        _map_col(k), [PE.NamedLambdaVariable("k"),
-                      PE.NamedLambdaVariable("v")], Literal(1)),
-    "ArrayJoin": lambda a, k: PE.ArrayJoin(a, Literal(",")),
-    "ArrayRepeat": lambda a, k: PE.ArrayRepeat(k, Literal(2)),
-    "ArraysZip": lambda a, k: PE.ArraysZip(a, a),
-    "Concat": lambda a, k: PE.Concat(a, a),
+        _map_col(a, k), [PE.NamedLambdaVariable("k"),
+                         PE.NamedLambdaVariable("v")], Literal(1)),
+    "ArrayJoin": lambda a, k: PE.ArrayJoin(_lists(a), Literal(",")),
+    "ArrayRepeat": lambda a, k: PE.ArrayRepeat(a, Literal(2)),
+    "ArraysZip": lambda a, k: PE.ArraysZip(_lists(a), a),
+    "Concat": lambda a, k: PE.Concat(_lists(a), _lists(a)),
     "Flatten": lambda a, k: PE.Flatten(PE.CreateArray(a)),
-    "ArrayDistinct": lambda a, k: PE.ArrayDistinct(a),
-    "ArrayUnion": lambda a, k: PE.ArrayUnion(a, a),
-    "ArrayIntersect": lambda a, k: PE.ArrayIntersect(a, a),
-    "ArrayExcept": lambda a, k: PE.ArrayExcept(a, a),
-    "ArrayRemove": lambda a, k: PE.ArrayRemove(a, Literal(1)),
-    "ArraysOverlap": lambda a, k: PE.ArraysOverlap(a, a),
+    "ArrayDistinct": lambda a, k: PE.ArrayDistinct(_lists(a)),
+    "ArrayUnion": lambda a, k: PE.ArrayUnion(_lists(a), _lists(a)),
+    "ArrayIntersect": lambda a, k: PE.ArrayIntersect(_lists(a), _lists(a)),
+    "ArrayExcept": lambda a, k: PE.ArrayExcept(_lists(a), _lists(a)),
+    "ArrayRemove": lambda a, k: PE.ArrayRemove(_lists(a), a),
+    "ArraysOverlap": lambda a, k: PE.ArraysOverlap(_lists(a), _lists(a)),
     "GetJsonObject": lambda a, k: PE.GetJsonObject(Literal("{}"),
                                                    Literal("$.x")),
     "MonthsBetween": lambda a, k: PE.MonthsBetween(Literal(
@@ -531,10 +533,12 @@ def test_refused_constructs_name_the_rest_of_slice_9b(name):
 @pytest.mark.parametrize("agg", [CollectList, CollectSet])
 def test_collect_aggregates_are_refused(agg):
     """collect_list/collect_set run since slice 9b's map and struct half
-    (tests/test_torch_collect.py); a list of strings still waits."""
+    (tests/test_torch_collect.py), of strings since its rest's first part
+    (tests/test_torch_string_lists.py); a list of lists still waits."""
     s = TorchSession(OFF, device="cpu")
-    df = s.create_dataframe(pa.table({"k": pa.array([1, 1], pa.int64()),
-                                      "s": pa.array(["a", "b"])}))
+    df = s.create_dataframe(pa.table({
+        "k": pa.array([1, 1], pa.int64()),
+        "s": pa.array([[1], [2]], pa.list_(pa.int64()))}))
     with pytest.raises(NotImplementedError, match="slice 9b, the rest"):
         df.group_by("k").agg(agg(ColumnRef("s")).with_name("c")).collect()
 
@@ -562,7 +566,8 @@ def test_refusal_sites_name_their_items(tmp_path):
         df.group_by("a").agg(PF.count_star().with_name("n")).collect()
     # months_between (exprs/datetime_fns.py), a map to explode
     with pytest.raises(NotImplementedError, match="slice 9b, the rest"):
-        df.select(PF.explode(PF.Col(_map_col(ColumnRef("k"))))).collect()
+        df.select(PF.explode(PF.Col(_map_col(ColumnRef("a"),
+                                             ColumnRef("k"))))).collect()
     # intersect_all / except_all (api/dataframe.py) and their SQL
     # (sql/lowering.py) now run
     df.create_or_replace_temp_view("t")

@@ -268,4 +268,5 @@ def test_struct_refusals_name_their_queue():
     with pytest.raises(NotImplementedError, match="slice 9b, the rest"):
         s.create_dataframe(wide).collect()
     with pytest.raises(NotImplementedError, match="slice 9b, the rest"):
-        df.select(PF.struct(PF.array(PF.col("w"))).alias("s")).collect()
+        df.select(PF.struct(PF.array(PF.array(PF.col("w")))).alias("s")) \
+            .collect()
