@@ -9,7 +9,7 @@ result line):
   1. device  -- the card's name and power limit (nvidia-smi), CUDA version;
   2. build   -- every CUDA kernel of the port (rect_match, dense_groupby,
                 join_match, distinct_flag, rect_transform, window_frame,
-                sort_bucket), built from
+                sort_bucket, decimal_arith), built from
                 csrc/ with one nvcc each, started together;
                 ptxas must report no stack frame and no spills for any
                 function. ``--compare NAME=DIR`` also builds
@@ -274,6 +274,27 @@ result line):
                 launches and buckets printed), every row's lists equal
                 after the sort. Each cold and warm; (a) and (b) once
                 more under torch.profiler.
+ 19. decimals -- (after phase 18) DecimalType as scaled int64 lanes:
+                (a) TPC-H q1 and q6 unmodified over SF1 lineitem with
+                l_quantity, l_extendedprice, l_discount and l_tax as
+                decimal(15,2), in memory, over Parquet (INT64 with the
+                DECIMAL type, the script's writer) and as the SQL texts
+                of phase 12, each decimal total and average exact
+                against numpy int64 over the unscaled values (Spark's
+                types and HALF_UP), the double sums within REL_TOL
+                (dense_groupby once a batch, decimal_arith launches
+                printed); (b) TPC-DS q3 at SF10 with ss_ext_sales_price
+                as decimal(7,2), in memory and over Parquet (INT32),
+                exact (join_match launches printed); (c) phase 14's
+                out-of-core ORDER BY keyed on ss_net_paid decimal(7,2)
+                DESC (sort_bucket), equal to numpy's lexsort; (d)
+                decimal_arith against its plain version bit for bit on
+                1,048,576 rows of each function (q1's decimal(15,2) by
+                decimal(16,2); decimal(38,10) / decimal(18,4) with
+                overflows and zero divisors; decimal(38,0) + and %
+                decimal(38,10), a rescale past int64), timed with the
+                L2 cold beside its bound and the plain version. Each
+                query cold and warm.
 
 The data is generated here from a seed, with numpy only: this script
 imports neither JAX, pyarrow, pandas nor the JAX package. It prints a
@@ -284,6 +305,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import decimal
 import json
 import math
 import re
@@ -789,7 +811,7 @@ def _gzip(b: bytes) -> bytes:
 
 # physical types, converted types, encodings, page kinds
 _PQ_INT32, _PQ_INT64, _PQ_DOUBLE, _PQ_BYTE_ARRAY = 1, 2, 5, 6
-_PQ_UTF8, _PQ_DATE = 0, 6
+_PQ_UTF8, _PQ_DECIMAL, _PQ_DATE = 0, 5, 6
 _PQ_PLAIN, _PQ_RLE, _PQ_RLE_DICT = 0, 3, 8
 
 
@@ -798,6 +820,13 @@ def _parquet_column(name: str, values):
     or dictionary + indices, validity, statistics) of a lineitem
     column."""
     valid = None
+    if isinstance(values, DecCol):
+        # Spark's layout: precision up to 9 as INT32, up to 18 as INT64
+        small = values.precision <= 9
+        return dict(ptype=_PQ_INT32 if small else _PQ_INT64,
+                    conv=_PQ_DECIMAL, enc=_PQ_PLAIN,
+                    values=values.unscaled.astype("<i4" if small else "<i8"),
+                    valid=valid, decimal=(values.precision, values.scale))
     if isinstance(values, np.ma.MaskedArray):
         valid = ~np.ma.getmaskarray(values)
         values = values.data
@@ -908,7 +937,8 @@ def write_parquet(path: str, table: dict, group_rows: int, v2: bool = False,
     """Write ``table`` (name -> numpy array; a masked array is a nullable
     column with definition levels) as one Parquet file of row groups of
     ``group_rows`` rows: PLAIN numbers and dates (INT64, DOUBLE, INT32
-    DATE), RLE_DICTIONARY for ``U`` strings, PLAIN BYTE_ARRAY for ``S``
+    DATE; a ``DecCol`` as INT32 or INT64 with the DECIMAL converted and
+    logical types), RLE_DICTIONARY for ``U`` strings, PLAIN BYTE_ARRAY for ``S``
     strings, data pages v1 or v2 of ``page_rows`` rows, UNCOMPRESSED or
     GZIP, min/max statistics for fixed-width columns. Returns the
     number of row groups."""
@@ -942,6 +972,13 @@ def write_parquet(path: str, table: dict, group_rows: int, v2: bool = False,
                   (4, "bin", spec["name"].encode())]
             if spec["conv"] is not None:
                 el.append((6, "i32", spec["conv"]))
+            if "decimal" in spec:
+                # the DECIMAL converted type's scale and precision, and the
+                # logical type (union member 5: {1: scale, 2: precision})
+                prec, scale = spec["decimal"]
+                el += [(7, "i32", scale), (8, "i32", prec),
+                       (10, "struct", [(5, "struct", [(1, "i32", scale),
+                                                      (2, "i32", prec)])])]
             schema.append(el)
         footer = _thrift([(1, "i32", 1), (2, ("list", "struct"), schema),
                           (3, "i64", rows),
@@ -1397,7 +1434,7 @@ def _finish_compare_build(name, kernel, proc, out):
 
 #: the port's kernel libraries (csrc/<name>.cu), built side by side
 KERNELS = ("rect_match", "dense_groupby", "join_match", "distinct_flag",
-           "rect_transform", "window_frame", "sort_bucket")
+           "rect_transform", "window_frame", "sort_bucket", "decimal_arith")
 
 
 def phase_build(compare=()):
@@ -3833,9 +3870,10 @@ def _kernel_counters():
     from spark_rapids_tpu_torch.exec.rect_transform import rect_transform
     from spark_rapids_tpu_torch.exec.sort_bucket import sort_bucket
     from spark_rapids_tpu_torch.exec.window_frame import window_frame
+    from spark_rapids_tpu_torch.exprs.decimal_arith import decimal_arith
     from spark_rapids_tpu_torch.exprs.rect_match import rect_match
     return (rect_match, dense_groupby, join_match, distinct_flag,
-            rect_transform, window_frame, sort_bucket)
+            rect_transform, window_frame, sort_bucket, decimal_arith)
 
 
 def _sql_run(session, make, collect: str = "collect") -> tuple:
@@ -3862,7 +3900,8 @@ def _sql_run(session, make, collect: str = "collect") -> tuple:
 
 def _rows_close(got: list, want: list, rel: float) -> bool:
     """Same rows in order, by position within a row: floats within
-    ``rel`` (0: bit-equal), everything else exactly."""
+    ``rel`` (0: bit-equal), Decimals equal at the same scale (Spark's
+    result type's), everything else exactly."""
     if len(got) != len(want):
         return False
     for g, w in zip(got, want):
@@ -3874,6 +3913,10 @@ def _rows_close(got: list, want: list, rel: float) -> bool:
                 if not (a == b or (rel and _rel(a, b) <= rel)):
                     return False
             elif a != b:
+                return False
+            elif isinstance(b, decimal.Decimal) and (
+                    not isinstance(a, decimal.Decimal)
+                    or a.as_tuple().exponent != b.as_tuple().exponent):
                 return False
     return True
 
@@ -7401,6 +7444,483 @@ def phase_string_lists(card: str, batch_rows: int, table: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: decimals -- DecimalType as scaled int64 lanes through ingest,
+# Parquet, arithmetic, comparisons, casts, keys and exact SUM/AVG, and the
+# decimal_arith kernel
+# ---------------------------------------------------------------------------
+
+#: lineitem's quantity and money columns, decimal(15,2) as Spark's TPC-H
+#: schema types them
+DEC_LINEITEM = ("l_quantity", "l_extendedprice", "l_discount", "l_tax")
+#: store_sales' money columns, decimal(7,2) as TPC-DS types them
+DEC_STORE_SALES = ("ss_ext_sales_price", "ss_net_paid")
+#: the decimal_arith kernel phase's rows a function
+DA_ROWS = 1 << 20
+#: phase 19 (c)'s batchSizeBytes: the default, as phase 14's ORDER BY
+DEC_SORT_BYTES = 512 << 20
+#: 32-bit integer multiply-adds a row at least (the kernel's bound from
+#: operations): a 64 by 64 bit product into 128 bits is four 32 by 32 bit
+#: products, each a low and a high multiply-add (the remainder's product
+#: of two residues too); add scales one side by 10^6, a 64 by 32 bit
+#: product; rescale and the cast to double need no product of two
+#: operands
+DA_MIN_OPS = {"mul": 8, "div": 8, "avg": 8, "rescale": 0, "to_double": 0,
+              "add": 4, "rem": 8}
+
+
+class DecCol:
+    """A decimal column for the script's Parquet writer and its host
+    tables: unscaled int64 values at (precision, scale)."""
+
+    def __init__(self, unscaled: np.ndarray, precision: int, scale: int):
+        self.unscaled = np.asarray(unscaled, np.int64)
+        self.precision = precision
+        self.scale = scale
+
+    def slice(self, lo: int, hi: int) -> "DecCol":
+        return DecCol(self.unscaled[lo:hi], self.precision, self.scale)
+
+
+def unscaled_cents(x: np.ndarray) -> np.ndarray:
+    """Two-decimal doubles (``np.round(v, 2)``) as unscaled int64 cents."""
+    return np.round(np.asarray(x) * 100.0).astype(np.int64)
+
+
+def decimal_host(t: dict, names, decimals, precision: int):
+    """A HostTable of ``names`` from ``t``, the ``decimals`` among them as
+    decimal(precision, 2) of their unscaled cents."""
+    from spark_rapids_tpu_torch.columnar import HostTable
+    from spark_rapids_tpu_torch.types import DecimalType, Schema, StructField
+    plain = HostTable.from_dict({n: t[n] for n in names
+                                 if n not in decimals})
+    cols, fields = {}, []
+    for n in names:
+        if n in decimals:
+            u = unscaled_cents(t[n])
+            cols[n] = (u, np.ones(len(u), bool))
+            fields.append(StructField(n, DecimalType(precision, 2), True))
+        else:
+            cols[n] = plain.columns[n]
+            fields.append(plain.schema[n])
+    return HostTable(cols, Schema(fields))
+
+
+def _half_up(n: int, d: int) -> int:
+    q, r = divmod(n, d)
+    return q + (2 * r >= d)
+
+
+def spark_avg(total: int, count: int, p: int, s: int):
+    """Spark's avg of a decimal(p, s) whose unscaled values sum to
+    ``total`` over ``count`` rows: its Divide of the sum, typed
+    decimal(min(p + 10, 38), s), by the count as decimal(20,0) (rounded at
+    scale 38, then at the division's scale), cast HALF_UP to
+    decimal(p + 4, s + 4); a Decimal."""
+    sp = min(p + 10, 38)
+    scale = max(6, s + 21)
+    prec = sp - s + scale
+    if prec > 38:
+        scale = max(38 - (prec - scale), min(scale, 6))
+    q = _half_up(abs(total) * 10 ** (38 - s), count)
+    q = _half_up(q, 10 ** (38 - scale))
+    out_s = min(s + 4, 38)
+    q = _half_up(q, 10 ** (scale - out_s))
+    return decimal.Decimal(-q if total < 0 else q).scaleb(-out_s)
+
+
+def decimal_cents(u) -> "object":
+    return decimal.Decimal(int(u)).scaleb(-2)
+
+
+def q1_decimal_numpy(t: dict) -> tuple:
+    """TPC-H Q1's rows over decimal(15,2) lineitem, (the DataFrame form's,
+    the SQL text's): the decimal sums and averages exact from the
+    unscaled int64 (Spark's types and rounding); the DataFrame form's
+    disc_price and charge are doubles (its ``F.lit(1.0)``), as q1_numpy
+    computes them; SQL's ``1 - l_discount`` stays decimal, so its two are
+    exact at scales 4 and 6."""
+    want = q1_numpy(t)
+    keep = t["l_shipdate"] <= (np.datetime64("1998-12-01")
+                               - np.timedelta64(90, "D"))
+    flag, status = t["l_returnflag"][keep], t["l_linestatus"][keep]
+    u = {c: unscaled_cents(t[c][keep]) for c in DEC_LINEITEM}
+    disc_price = u["l_extendedprice"] * (100 - u["l_discount"])
+    charge = disc_price * (100 + u["l_tax"])
+    rows, sql = [], []
+    for w in want:
+        g = (flag == w["l_returnflag"]) & (status == w["l_linestatus"])
+        n = int(g.sum())
+        sq, sp = int(u["l_quantity"][g].sum()), \
+            int(u["l_extendedprice"][g].sum())
+        r = dict(w)
+        r.update(sum_qty=decimal_cents(sq),
+                 sum_base_price=decimal_cents(sp),
+                 avg_qty=spark_avg(sq, n, 15, 2),
+                 avg_price=spark_avg(sp, n, 15, 2),
+                 avg_disc=spark_avg(int(u["l_discount"][g].sum()), n, 15, 2))
+        rows.append(r)
+        sql.append({**r, "sum_disc_price": decimal.Decimal(int(
+            disc_price[g].sum())).scaleb(-4), "sum_charge": decimal.Decimal(
+                int(charge[g].sum())).scaleb(-6)})
+    return rows, sql
+
+
+def q6_decimal_numpy(t: dict):
+    """TPC-H Q6's revenue over decimal(15,2) lineitem, exact: the
+    discount's bounds compare as doubles and the quantity's as a decimal
+    (both equal the unscaled comparisons here)."""
+    sd = t["l_shipdate"]
+    d, q = unscaled_cents(t["l_discount"]), unscaled_cents(t["l_quantity"])
+    keep = ((sd >= np.datetime64("1994-01-01"))
+            & (sd < np.datetime64("1995-01-01")) & (d >= 5) & (d <= 7)
+            & (q < 2400))
+    p = unscaled_cents(t["l_extendedprice"])
+    return decimal.Decimal(int((p[keep] * d[keep]).sum())).scaleb(-4)
+
+
+def q3_decimal_numpy(ss: dict, dd: dict, it: dict,
+                     manufact_id: int = 128) -> list:
+    """q3's rows with ss_ext_sales_price as decimal(7,2): each group's sum
+    exact from the unscaled cents (q3_numpy's groups and order)."""
+    year = np.full(len(dd["d_date_sk"]), -1, np.int64)
+    nov = dd["d_moy"] == 11
+    year[dd["d_date_sk"][nov]] = dd["d_year"][nov]
+    item = np.full(len(it["i_item_sk"]), -1, np.int64)
+    sel = it["i_manufact_id"] == manufact_id
+    item[it["i_item_sk"][sel]] = np.flatnonzero(sel)
+    y = year[ss["ss_sold_date_sk"]]
+    i = item[ss["ss_item_sk"]]
+    keep = (y >= 0) & (i >= 0)
+    y, i = y[keep], i[keep]
+    p = unscaled_cents(ss["ss_ext_sales_price"][keep])
+    bid = it["i_brand_id"].astype(np.int64)
+    _, bcode = np.unique(it["i_brand"].astype(str), return_inverse=True)
+    code = (y * 61 + bid[i]) * len(BRANDS) + bcode[i]
+    groups, gid = np.unique(code, return_inverse=True)
+    sums = np.zeros(len(groups), np.int64)
+    np.add.at(sums, gid, p)
+    first = np.zeros(len(groups), np.int64)
+    first[gid[::-1]] = np.arange(len(gid))[::-1]
+    rows = [{"d_year": int(y[f]), "i_brand_id": int(bid[i[f]]),
+             "i_brand": str(it["i_brand"][i[f]]),
+             "sum_agg": decimal_cents(s)}
+            for f, s in zip(first, sums)]
+    rows.sort(key=lambda r: (r["d_year"], -r["sum_agg"], r["i_brand_id"]))
+    return rows
+
+
+def _da_inputs(rng, n: int, which: str):
+    """One decimal_arith function's operands on the card (module doc of
+    phase 19 (d)): (operands, validity, second validity or None, k, t, m,
+    p, bytes a row)."""
+    import torch
+
+    def dev(a, dt=torch.int64):
+        return torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dt)
+    valid = dev(rng.rand(n) > 0.02, torch.bool)
+    if which in ("mul", "rescale", "to_double"):
+        # q1's decimal(15,2) price and decimal(16,2) (1 - discount)
+        price = rng.randint(90000, 10500001, n)
+        one_minus = 100 - rng.randint(0, 11, n)
+        if which == "mul":
+            return ([dev(price), dev(one_minus)], valid,
+                    dev(rng.rand(n) > 0.02, torch.bool), 0, 0, 0, 32, 27)
+        if which == "rescale":      # the product to scale 2, HALF_UP
+            return ([dev(price * one_minus)], valid, None, -2, 0, 0, 32, 18)
+        # decimal(38,10) values past 2^53 (the exact slow path) among
+        # q1's prices
+        x = np.where(rng.rand(n) < 0.5, price,
+                     rng.randint(-2**62, 2**62, n, dtype=np.int64))
+        return [dev(x)], valid, None, 10, 0, 0, 38, 18
+    if which in ("add", "rem"):
+        # decimal(38,0) + decimal(38,10) -> decimal(38,6), and % ->
+        # decimal(38,10): the left side rescaled 10 digits (past int64
+        # for most rows), the sum 4 digits lower; results past int64 and,
+        # for %, zero divisors among them
+        l = np.where(rng.rand(n) < 0.5, rng.randint(-10**12, 10**12, n),
+                     rng.randint(-2**62, 2**62, n, dtype=np.int64))
+        r = rng.randint(-2**62, 2**62, n, dtype=np.int64)
+        r[rng.rand(n) < 0.01] = 0
+        return ([dev(l), dev(r)], valid, dev(rng.rand(n) > 0.02,
+                                              torch.bool), 10, 0,
+                4 if which == "add" else 0, 38, 27)
+    if which == "div":
+        # decimal(38,10) / decimal(18,4) -> decimal(38,6): e = 6 + 4 - 10,
+        # t = 38 - 6; zero divisors and overflows among them
+        l = rng.randint(-2**62, 2**62, n, dtype=np.int64)
+        r = rng.randint(-10**8, 10**8, n)
+        r[rng.rand(n) < 0.01] = 0
+        r[rng.rand(n) < 0.01] = 1
+        return ([dev(l), dev(r)], valid, dev(rng.rand(n) > 0.02,
+                                              torch.bool), 0, 32, 0, 38, 27)
+    # avg of decimal(15,2): limbs of group totals of up to 2^20 rows,
+    # the counts, e = 15 - 2, t = 38 - 15, m = 15 - 6, precision 19
+    tot = rng.randint(-10**13, 10**13, n).astype(object) * \
+        rng.randint(1, 1 << 20, n).astype(object)
+    L = 10 ** 12
+    l0 = np.array([t % L for t in tot], np.int64)
+    l1 = np.array([(t // L) % L for t in tot], np.int64)
+    l2 = np.array([t // L // L for t in tot], np.int64)
+    cnt = rng.randint(1, 1 << 20, n)
+    return ([dev(l0), dev(l1), dev(l2), dev(cnt)], valid, None, 13, 23, 9,
+            19, 42)
+
+
+def phase_decimal_kernel(card: str) -> dict:
+    """Phase 19 (d): decimal_arith on the card against its plain version,
+    bit for bit, on DA_ROWS rows of each function, then timed with the L2
+    cold beside its bound and the plain version's time."""
+    import torch
+    from spark_rapids_tpu_torch.exprs import decimal_arith as DA
+    rng = np.random.RandomState(19)
+    out, worst = {}, 0
+    for which in ("mul", "div", "rescale", "avg", "to_double", "add", "rem"):
+        ops, valid, valid2, k, t, m, p, row_bytes = _da_inputs(
+            rng, DA_ROWS, which)
+        n_ops = len(ops)
+        ops = ops + [valid] + ([valid2] if valid2 is not None else [])
+
+        def kern(*x, which=which, n_ops=n_ops, k=k, t=t, m=m, p=p):
+            return DA.decimal_arith(which, x[:n_ops], x[n_ops],
+                                    x[n_ops + 1] if len(x) > n_ops + 1
+                                    else None, k, t, m, p)
+
+        def plain(*x, which=which, n_ops=n_ops, k=k, t=t, m=m, p=p):
+            both = x[n_ops] if len(x) == n_ops + 1 \
+                else x[n_ops] & x[n_ops + 1]
+            return DA.decimal_arith_reference(which, x[:n_ops], both, k, t,
+                                              m, p)
+        got, ok = kern(*ops)
+        want, wok = plain(*ops)
+        torch.cuda.synchronize()
+        _check(torch.equal(ok, wok), f"decimal_arith {which}: validity "
+               f"differs from the plain version in "
+               f"{int((ok != wok).sum())} rows")
+        diff = int((got != want).sum())
+        err = 0 if diff == 0 else int((got - want).abs().max())
+        if diff:
+            rows = torch.nonzero(got != want)[:5, 0].tolist()
+            _log(f"decimal_arith {which}: rows {rows}: operands "
+                 f"{[[int(o[r]) for o in ops[:n_ops]] for r in rows]}, "
+                 f"kernel {[int(got[r]) for r in rows]}, plain "
+                 f"{[int(want[r]) for r in rows]}")
+        _check(diff == 0, f"decimal_arith {which}: {diff} results differ "
+               "from the plain version's bits")
+        worst = max(worst, err)
+        n_copies = max(2, -(-COLD_BYTES // (row_bytes * DA_ROWS)))
+        inputs = [tuple(ops)] + [tuple(o.clone() for o in ops)
+                                 for _ in range(n_copies - 1)]
+        ms, host_ms = _cold_ms(kern, inputs, f"decimal_arith {which}")
+        plain_ms = _plain_ms(plain, inputs[:2], f"plain {which}")
+        bytes_ms = row_bytes * DA_ROWS / HBM_BYTES_PER_S * 1e3
+        ops_ms = DA_MIN_OPS[which] * DA_ROWS / SCALAR_OPS_PER_S * 1e3
+        out[which] = {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                      "bound_ms": max(bytes_ms, ops_ms),
+                      "bound_by": "bytes" if bytes_ms >= ops_ms
+                      else "operations",
+                      "bound_bytes": row_bytes * DA_ROWS,
+                      "valid_rows": int(ok.sum()), "max_abs_err": err,
+                      "k": k, "t": t, "m": m, "p": p}
+        _log(f"decimal_arith {which} ({card}): {DA_ROWS} rows bit-equal to "
+             f"the plain version ({out[which]['valid_rows']} valid); "
+             f"{ms:.4f} ms a launch (L2 cold), bound {out[which]['bound_ms']:.4f} "
+             f"ms ({out[which]['bound_by']}, {row_bytes} bytes a row at "
+             f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), plain {plain_ms:.2f} ms, "
+             f"host {host_ms:.4f} ms a call")
+        del ops, inputs
+    out["describe"] = DA.describe()
+    out["max_abs_err"] = worst
+    return out
+
+
+def phase_decimals(card: str, batch_rows: int, table: dict,
+                   ds19: dict) -> dict:
+    """Phase 19 (module doc): decimals through the normal entry points at
+    full TPC scale, exact against numpy, and the decimal_arith kernel."""
+    import shutil
+    import tempfile
+
+    import torch
+    from spark_rapids_tpu_torch.api import TorchSession
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.exec.sort import TpuSortExec
+    t_phase = time.perf_counter()
+    conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows,
+            "spark.rapids.tpu.sql.agg.wideBatchRows": batch_rows}
+    session = TorchSession(conf)
+    out = {}
+
+    def runs(label, make, right, collect="collect", s=session,
+             phases=("cold", "warm")):
+        for phase in phases:
+            out[f"{label}_{phase}"], got = _sql_run(s, make, collect)
+            _check(right(got), f"phase 19 {label} {phase}: wrong result "
+                               f"{str(got)[:400]}")
+        return got
+
+    def launches(label, kernel):
+        return out[f"{label}_cold"]["launches"][kernel]
+
+    def walls(label):
+        return (f"wall {out[label + '_cold']['wall_ms']:.1f} ms cold, "
+                f"{out[label + '_warm']['wall_ms']:.1f} ms warm")
+
+    # (a) TPC-H q1 and q6 at SF1 over decimal(15,2) lineitem: in memory,
+    # over Parquet (INT64 with the DECIMAL type) and as SQL
+    t0 = time.perf_counter()
+    names = ("l_returnflag", "l_linestatus", "l_shipdate") + DEC_LINEITEM
+    li = decimal_host(table, names, DEC_LINEITEM, 15)
+    want1, want1_sql = q1_decimal_numpy(table)
+    want6 = q6_decimal_numpy(table)
+    _log(f"phase 19 (a) data and numpy reference in "
+         f"{time.perf_counter() - t0:.2f} s")
+    n_batches = math.ceil(SF1_ROWS / batch_rows)
+
+    def q1_right(got, want=want1):
+        return _rows_close(got, want, REL_TOL)
+
+    runs("q1", lambda s: q1(s.create_dataframe(li), F), q1_right)
+    runs("q6", lambda s: q6(s.create_dataframe(li), F),
+         lambda got: _rows_close(got, [{"revenue": want6}], 0.0))
+    for label in ("q1", "q6"):
+        _check(launches(label, "decimal_arith") >= 1,
+               f"phase 19 {label}: decimal_arith never launched")
+    _check(launches("q1", "dense_groupby") == n_batches,
+           f"phase 19 q1 launched dense_groupby "
+           f"{launches('q1', 'dense_groupby')} times, expected {n_batches}")
+    for label in ("q1", "q6"):
+        _log(f"phase 19 (a) {label} over decimal(15,2) lineitem SF1 "
+             f"({card}): equal to numpy (decimal totals and averages "
+             f"exact); {walls(label)}; dense_groupby launches "
+             f"{launches(label, 'dense_groupby')}, decimal_arith launches "
+             f"{launches(label, 'decimal_arith')}")
+    pq_dir = Path(tempfile.mkdtemp(prefix="decimals_", dir=str(
+        Path(__file__).resolve().parent / "build")))
+    t0 = time.perf_counter()
+    cols = {n: (DecCol(unscaled_cents(table[n]), 15, 2)
+                if n in DEC_LINEITEM else table[n]) for n in names}
+    files = []
+    for i in range(n_batches):
+        lo, hi = i * batch_rows, min((i + 1) * batch_rows, SF1_ROWS)
+        f = pq_dir / f"lineitem_{i}.parquet"
+        write_parquet(str(f), {n: (c.slice(lo, hi) if isinstance(c, DecCol)
+                                   else c[lo:hi]) for n, c in cols.items()},
+                      batch_rows)
+        files.append(str(f))
+    _log(f"phase 19 (a) {len(files)} Parquet files of decimal(15,2) "
+         f"lineitem (INT64, DECIMAL) in {time.perf_counter() - t0:.2f} s")
+    runs("q1_parquet", lambda s: q1(s.read_parquet(*files), F), q1_right)
+    runs("q6_parquet", lambda s: q6(s.read_parquet(*files), F),
+         lambda got: _rows_close(got, [{"revenue": want6}], 0.0))
+    session.create_dataframe(li).create_or_replace_temp_view("lineitem")
+    runs("q1_sql", lambda s: s.sql(TPCH_Q1),
+         lambda got: q1_right(got, want1_sql))
+    runs("q6_sql", lambda s: s.sql(TPCH_Q6),
+         lambda got: _rows_close(got, [{"revenue": want6}], 0.0))
+    for label in ("q1_parquet", "q6_parquet", "q1_sql", "q6_sql"):
+        _check(launches(label, "decimal_arith") >= 1,
+               f"phase 19 {label}: decimal_arith never launched")
+        _log(f"phase 19 (a) {label} ({card}): equal to numpy; "
+             f"{walls(label)}; dense_groupby launches "
+             f"{launches(label, 'dense_groupby')}, decimal_arith launches "
+             f"{launches(label, 'decimal_arith')}")
+    _check(launches("q1_sql", "dense_groupby") == n_batches,
+           "phase 19 SQL q1 did not take the dense route once a batch "
+           "(seven decimal aggregates at two limbs: 14 columns)")
+    del li
+
+    # (b) TPC-DS q3 at SF10 over decimal(7,2) ss_ext_sales_price, in
+    # memory and over Parquet (INT32 with the DECIMAL type)
+    t0 = time.perf_counter()
+    ss, dd, it = ds19["ss"], ds19["dd"], ds19["it"]
+    ss_names = ("ss_sold_date_sk", "ss_item_sk", "ss_ext_sales_price")
+    ss_host = decimal_host(ss, ss_names, DEC_STORE_SALES, 7)
+    from spark_rapids_tpu_torch.columnar import HostTable
+    dd_host, it_host = HostTable.from_dict(dd), HostTable.from_dict(it)
+    want3 = q3_decimal_numpy(ss, dd, it)
+    _log(f"phase 19 (b) data and numpy reference in "
+         f"{time.perf_counter() - t0:.2f} s")
+
+    def q3_make(src):
+        return lambda s: q3(src(s), s.create_dataframe(dd_host),
+                            s.create_dataframe(it_host), F)
+    runs("q3", q3_make(lambda s: s.create_dataframe(ss_host)),
+         lambda got: _rows_close(got, want3, 0.0))
+    t0 = time.perf_counter()
+    ss_file = pq_dir / "store_sales.parquet"
+    write_parquet(str(ss_file), {
+        "ss_sold_date_sk": ss["ss_sold_date_sk"],
+        "ss_item_sk": ss["ss_item_sk"],
+        "ss_ext_sales_price": DecCol(unscaled_cents(
+            ss["ss_ext_sales_price"]), 7, 2)}, batch_rows)
+    _log(f"phase 19 (b) store_sales as Parquet (decimal(7,2) as INT32) in "
+         f"{time.perf_counter() - t0:.2f} s")
+    runs("q3_parquet", q3_make(lambda s: s.read_parquet(str(ss_file))),
+         lambda got: _rows_close(got, want3, 0.0))
+    for label in ("q3", "q3_parquet"):
+        _check(launches(label, "join_match") >= 1,
+               f"phase 19 {label}: join_match never launched")
+        _log(f"phase 19 (b) {label} SF10 over decimal(7,2) ({card}): "
+             f"{len(want3)} rows equal to numpy (sum_agg exact); "
+             f"{walls(label)}; join_match launches "
+             f"{launches(label, 'join_match')}, dense_groupby launches "
+             f"{launches(label, 'dense_groupby')}")
+    del ss_host
+
+    # (c) the out-of-core ORDER BY of phase 14 keyed on ss_net_paid
+    # decimal(7,2) DESC
+    t0 = time.perf_counter()
+    sort_names = ("ss_net_paid", "ss_item_sk", "ss_sold_date_sk",
+                  "ss_ext_sales_price")
+    sort_host = decimal_host(ss, sort_names, DEC_STORE_SALES, 7)
+    paid = unscaled_cents(ss["ss_net_paid"])
+    # numpy's lexsort by (-paid, item) as one stable argsort of a combined
+    # key (paid below 2^40 cents, items below 2^20)
+    _check(int(ss["ss_item_sk"].max()) < 1 << 20 and
+           int(paid.max()) < 1 << 40, "phase 19 (c): keys too wide")
+    order = np.argsort(((paid.max() - paid) << 20) + ss["ss_item_sk"],
+                       kind="stable")
+    want_sort = {"ss_net_paid": paid[order],
+                 "ss_item_sk": ss["ss_item_sk"][order],
+                 "ss_sold_date_sk": ss["ss_sold_date_sk"][order],
+                 "ss_ext_sales_price": unscaled_cents(
+                     ss["ss_ext_sales_price"])[order]}
+    del order
+    _log(f"phase 19 (c) numpy's stable sort in "
+         f"{time.perf_counter() - t0:.2f} s")
+
+    def sort_right(got):
+        return all(np.array_equal(np.asarray(got[c]), want_sort[c])
+                   for c in want_sort)
+    s_sort = TorchSession({**conf, "spark.rapids.tpu.sql.batchSizeBytes":
+                           DEC_SORT_BYTES})
+    runs("order_by", lambda s: s.create_dataframe(sort_host).order_by(
+        F.col("ss_net_paid").desc(), F.col("ss_item_sk").asc()),
+        sort_right, "collect_numpy", s=s_sort)
+    plan = s_sort.last_plan
+    buckets = getattr(plan, "last_buckets", 0)
+    _check(isinstance(plan, TpuSortExec) and buckets >= 2,
+           f"phase 19 ORDER BY: {buckets} buckets, expected the sort out of "
+           "core")
+    _check(launches("order_by", "sort_bucket") >= 1,
+           "phase 19 ORDER BY: sort_bucket never launched")
+    out["order_by_buckets"] = buckets
+    _log(f"phase 19 (c) ORDER BY ss_net_paid DESC (decimal(7,2)), "
+         f"ss_item_sk over SF10 store_sales ({card}): {buckets} buckets, "
+         f"every column equal to numpy's stable sort; {walls('order_by')}; "
+         f"sort_bucket launches {launches('order_by', 'sort_bucket')}")
+    del sort_host, want_sort
+    shutil.rmtree(pq_dir, ignore_errors=True)
+
+    # (d) the kernel alone
+    out["kernel"] = phase_decimal_kernel(card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"phase 19 (decimals) took {out['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", metavar="NAME=DIR", action="append",
@@ -7595,10 +8115,15 @@ def main(argv=None) -> int:
                                 compare["rect_transform"])
         windows = phase_windows(card, batch_rows, ds, compare)
         stats = phase_stats(card, batch_rows, table, host, ds)
+        ds19 = {"ss": {c: ds["ss"][c] for c in (
+            "ss_sold_date_sk", "ss_item_sk") + DEC_STORE_SALES},
+            "dd": ds["dd"], "it": ds["it"]}
         del ds
         nested = phase_nested(card, batch_rows, table, host)
         maps = phase_maps_structs(card, batch_rows, table, host)
         lists = phase_string_lists(card, batch_rows, table, host)
+        decimals = phase_decimals(card, batch_rows, table, ds19)
+        del ds19
         _log(json.dumps({"queries": {
             "q6": {"rows": SF1_ROWS, "wall_ms_cold": ms_cold,
                    "wall_ms_warm": ms_warm},
@@ -7637,7 +8162,9 @@ def main(argv=None) -> int:
             "slice9b_rest": {k: v for k, v in lists.items()
                              if not k.endswith("profile_warm")},
             "slice9b_rest_profile_a": lists["a_profile_warm"],
-            "slice9b_rest_profile_b": lists["b_profile_warm"]}}))
+            "slice9b_rest_profile_b": lists["b_profile_warm"],
+            "decimals": {k: v for k, v in decimals.items()
+                         if k != "kernel"}}}))
         main_t = times["main"]
         kernel = {
             "name": "rect_match", "route": "cuda",
@@ -7693,7 +8220,10 @@ def main(argv=None) -> int:
                       "maps_d_pos": maps["d_pos_cold"]["launches"][
                           "dense_groupby"],
                       "string_lists_c_pos": lists["c_pos_cold"][
-                          "launches"]["dense_groupby"]},
+                          "launches"]["dense_groupby"],
+                      **{f"decimal_{k}": decimals[f"{k}_cold"]["launches"][
+                          "dense_groupby"] for k in ("q1", "q1_parquet",
+                                                     "q1_sql")}},
             "tolerance": f"float sums within {DENSE_TOL:g} of the group's "
                          "sum of magnitudes; counts and int sums exact; "
                          "two launches bit-identical",
@@ -7858,9 +8388,41 @@ def main(argv=None) -> int:
             "shape": bt["shape"], "launch": bt["launch"],
             "dtypes": bt["dtypes"], "one_operand": bt["one_operand"],
         }
+        join["paths"].update({f"decimal_{k}": decimals[f"{k}_cold"][
+            "launches"]["join_match"] for k in ("q3", "q3_parquet")})
+        bucket["paths"]["decimal_order_by"] = decimals["order_by_cold"][
+            "launches"]["sort_bucket"]
+        dk = decimals["kernel"]
+        dec = {
+            "name": "decimal_arith", "route": "cuda",
+            "source": "spark_rapids_tpu_torch/csrc/decimal_arith.cu",
+            "replaces": "spark_rapids_tpu/exprs/arithmetic.py:130",
+            "replaces_also": "spark_rapids_tpu/exprs/aggregates.py:366",
+            "launches": decimals["q1_cold"]["launches"]["decimal_arith"],
+            "max_abs_err": dk["max_abs_err"],
+            "exact": dk["max_abs_err"] == 0,
+            "paths": {k: decimals[f"{k}_cold"]["launches"]["decimal_arith"]
+                      for k in ("q1", "q6", "q1_parquet", "q6_parquet",
+                                "q1_sql", "q6_sql", "q3", "q3_parquet",
+                                "order_by")},
+            "ms": dk["mul"]["ms"], "plain_ms": dk["mul"]["plain_ms"],
+            "bound_ms": dk["mul"]["bound_ms"],
+            "bound_by": dk["mul"]["bound_by"],
+            "bound_bytes": dk["mul"]["bound_bytes"], "library_ms": None,
+            "library": "none: torch has no int128",
+            "host_ms": dk["mul"]["host_ms"],
+            "timing": "device time per launch, launches queued back to "
+                      "back over distinct inputs (L2 cold)",
+            "shape": [DA_ROWS], "registers": dk["describe"],
+            **{name: {k: dk[name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "host_ms",
+                "valid_rows", "max_abs_err")}
+               for name in ("div", "rescale", "avg", "to_double", "add",
+                            "rem")},
+        }
         _log(json.dumps({"kernels": [kernel, dense, join,
                                      tpcds2["kernel"], transform, frame,
-                                     bucket]}))
+                                     bucket, dec]}))
     except Exception:
         traceback.print_exc()
         return 1

@@ -23,6 +23,7 @@ threads they run on; each query runs under
 from __future__ import annotations
 
 import datetime
+import decimal
 import time
 from typing import List, Optional
 
@@ -38,8 +39,8 @@ from ..exprs.base import Alias, ColumnRef, Expression
 from ..mem.manager import MemoryManager
 from ..plan import logical as L
 from ..plan.overrides import plan_query
-from ..types import (DATE, NULLTYPE, TIMESTAMP, ArrayType, Schema,
-                     StructType, map_parts, to_arrow)
+from ..types import (DATE, NULLTYPE, TIMESTAMP, ArrayType, DecimalType,
+                     Schema, StructType, map_parts, to_arrow)
 from .functions import Col, _to_expr
 
 __all__ = ["TorchSession", "DataFrame", "GroupedData"]
@@ -202,9 +203,17 @@ def _py_values(vals: np.ndarray, valid: np.ndarray, dtype) -> list:
     elif dtype == TIMESTAMP:
         epoch = datetime.datetime(1970, 1, 1, tzinfo=datetime.timezone.utc)
         out = [epoch + datetime.timedelta(microseconds=int(x)) for x in vals]
+    elif isinstance(dtype, DecimalType):
+        out = _decimals(vals, dtype)
     else:
         out = vals.tolist()
     return [x if ok else None for x, ok in zip(out, valid.tolist())]
+
+
+def _decimals(vals: np.ndarray, dtype: DecimalType) -> list:
+    """Unscaled int64 values as Python ``Decimal``s at the type's scale
+    (the reference's ``to_pylist``)."""
+    return [decimal.Decimal(x).scaleb(-dtype.scale) for x in vals.tolist()]
 
 
 def _numpy_values(vals, valid: np.ndarray, dtype):
@@ -242,6 +251,10 @@ def _arrow_values(vals, valid: np.ndarray, dtype):
         vals = vals.to_objects()
     if dtype == NULLTYPE:
         return pa.nulls(len(valid))
+    if isinstance(dtype, DecimalType):
+        return pa.array([d if ok else None for d, ok in
+                         zip(_decimals(vals, dtype), valid.tolist())],
+                        type=to_arrow(dtype))
     if dtype == DATE:
         return pa.array(vals.astype(np.int32), mask=~valid,
                         type=pa.int32()).cast(pa.date32())

@@ -7,6 +7,7 @@ signatures).
 """
 from __future__ import annotations
 
+import re
 from typing import Optional
 
 from .. import exprs as E
@@ -20,7 +21,7 @@ from ..exprs.aggregates import (Average, CollectList, CollectSet, Count,
                                 MinBy, Percentile, StddevPop, StddevSamp,
                                 Sum, VariancePop, VarianceSamp)
 from ..types import (BOOL, DATE, FLOAT32, FLOAT64, INT8, INT16, INT32, INT64,
-                     STRING, TIMESTAMP, DataType)
+                     STRING, TIMESTAMP, DataType, DecimalType)
 
 __all__ = ["Col", "col", "lit", "asc", "desc", "when", "coalesce",
            "nullif", "isnull", "greatest", "least", "cast", "date_add",
@@ -151,10 +152,12 @@ _DTYPES = {"boolean": BOOL, "bool": BOOL, "tinyint": INT8, "byte": INT8,
 def _dtype_of(d) -> DataType:
     if isinstance(d, DataType):
         return d
-    name = str(d).lower()
-    if name.startswith("decimal"):
-        raise NotImplementedError(
-            f"{d}: decimals arrive with their own item (ROADMAP.md Queue A)")
+    name = str(d).lower().replace(" ", "")
+    if name in ("decimal", "dec", "numeric"):
+        return DecimalType(10, 0)
+    m = re.fullmatch(r"(?:decimal|dec|numeric)\((\d+)(?:,(\d+))?\)", name)
+    if m:
+        return DecimalType(int(m.group(1)), int(m.group(2) or 0))
     return _DTYPES[name]
 
 
@@ -202,8 +205,8 @@ def least(*cols) -> Col: return Col(E.Least(*map(_to_expr, cols)))
 
 
 def cast(c, dtype) -> Col:
-    """A cast (exprs/cast.py): numeric, boolean, date and timestamp types
-    run; casts from or to strings and decimals are refused at planning,
+    """A cast (exprs/cast.py): numeric, boolean, decimal, date and
+    timestamp types run; casts from or to strings are refused at planning,
     naming the slice that brings them."""
     return Col(E.Cast(_to_expr(c), _dtype_of(dtype)))
 

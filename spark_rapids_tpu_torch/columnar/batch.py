@@ -16,6 +16,7 @@ Arrow StructArray) and a ``StructColumn`` of its fields' device columns
 """
 from __future__ import annotations
 
+import decimal
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from ..types import (DATE, NESTED_REST, STRING, TIMESTAMP, ArrayType,
-                     MapType, Schema, StructField, StructType,
+                     DecimalType, MapType, Schema, StructField, StructType,
                      device_list_ok, from_arrow, from_numpy_dtype,
                      nested_reason)
 from .column import DeviceColumn, DictColumn, HostColumn
@@ -35,7 +36,8 @@ from .strrect import (ByteRectColumn, HostStrings, encode_string_rect,
                       utf8_bytes)
 
 __all__ = ["ColumnarBatch", "HostTable", "DictStrings",
-           "batch_from_reference", "py_column",
+           "batch_from_reference", "py_column", "decimal_unscaled_int64",
+           "decimal_values",
            "concat_batches", "dict_limit", "rect_to_dict", "dict_to_rect",
            "union_dictionary", "to_dictionary", "pad_rect",
            "DICT_ENCODE_MAX_FRACTION", "DICT_ENCODE_MAX_CARD"]
@@ -126,6 +128,60 @@ def _unique_strings(hs: HostStrings):
     return hs[first].to_objects(), inv
 
 
+_UNSCALED_RANGE = ("decimal value exceeds the device's 64-bit unscaled "
+                   "range (|unscaled| >= 2^63); such magnitudes arrive with "
+                   "a decimal128 lane (the decimals item's leftovers, "
+                   "ROADMAP.md Queue A)")
+
+
+def decimal_unscaled_range_error() -> ValueError:
+    """The error of a decimal value past the int64 lane, at ingest."""
+    return ValueError(_UNSCALED_RANGE)
+
+
+def decimal_unscaled_int64(arr, valid: np.ndarray) -> np.ndarray:
+    """A decimal Arrow array -> its unscaled int64 values (invalid rows
+    0), from the decimal128 buffer (a narrower decimal widens first): a
+    value fits the lane where the high word is the sign extension of the
+    low one; past that it raises, as the reference's ingest does
+    (spark_rapids_tpu/columnar/batch.py:43)."""
+    import pyarrow as pa
+    if arr.type.bit_width != 128:
+        arr = arr.cast(pa.decimal128(38, arr.type.scale))
+    words = np.frombuffer(arr.buffers()[1], dtype=np.int64)
+    off = arr.offset
+    lo = words[2 * off::2][:len(arr)]
+    hi = words[2 * off + 1::2][:len(arr)]
+    if not (hi == np.where(lo < 0, -1, 0))[valid].all():
+        raise ValueError(_UNSCALED_RANGE)
+    return np.where(valid, lo, 0)
+
+
+def decimal_values(values) -> Optional[Tuple[np.ndarray, np.ndarray,
+                                             DecimalType]]:
+    """(unscaled int64 values, validity, type) of a column of Python
+    ``Decimal``s and Nones, typed as pyarrow infers it (the largest scale,
+    and the integral digits of the widest value beside it); None where
+    the values are not all decimals."""
+    present = [x for x in values if x is not None]
+    if not present or not all(isinstance(x, decimal.Decimal)
+                              for x in present):
+        return None
+    if not all(x.is_finite() for x in present):
+        raise ValueError("non-finite decimal values cannot be ingested")
+    scale = max(max(-x.as_tuple().exponent, 0) for x in present)
+    exact = decimal.Context(prec=80)
+    units = [int(x.scaleb(scale, exact)) for x in present]
+    digits = max(len(str(abs(u))) for u in units)
+    prec = max(digits, scale, 1)
+    if prec > 38 or any(not -2 ** 63 <= u < 2 ** 63 for u in units):
+        raise ValueError(_UNSCALED_RANGE)
+    valid = np.array([x is not None for x in values], bool)
+    out = np.zeros(len(values), np.int64)
+    out[valid] = units
+    return out, valid, DecimalType(prec, scale)
+
+
 def _concat_values(parts: list) -> object:
     if isinstance(parts[0], (HostList, HostMap, HostStruct)):
         return type(parts[0]).concat(parts)
@@ -171,6 +227,12 @@ class HostTable:
                 cols[name] = nested
                 fields.append(StructField(name, _host_type(nested[0]), True))
                 continue
+            dec = decimal_values(v) if isinstance(v, (list, np.ndarray)) \
+                and np.asarray(v).dtype.kind == "O" else None
+            if dec is not None:
+                cols[name] = dec[:2]
+                fields.append(StructField(name, dec[2], True))
+                continue
             valid = None
             if isinstance(v, np.ma.MaskedArray):
                 valid = ~np.ma.getmaskarray(v)
@@ -207,6 +269,8 @@ class HostTable:
             elif isinstance(dt, StructType):
                 v, valid = HostStruct.from_arrow(col)
                 dt = v.dtype
+            elif isinstance(dt, DecimalType):
+                v = decimal_unscaled_int64(col, valid)
             elif dt.device_backed:
                 if dt == DATE:
                     col = col.cast(pa.int32())

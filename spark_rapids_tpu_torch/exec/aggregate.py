@@ -101,8 +101,8 @@ from ..exprs.base import (Alias, ColumnRef, DVal, EvalContext, ListVal,
 from ..exprs.compiler import batch_device, batch_dvals
 from ..mem.retry import with_retry_no_split
 from ..mem.spillable import SpillableBatch
-from ..types import (BOOL, INT8, INT16, INT32, INT64, STRING, ArrayType,
-                     Schema, StructField, torch_dtype)
+from ..types import (BOOL, INT8, INT16, INT32, INT64, NESTED_REST, STRING,
+                     ArrayType, Schema, StructField, torch_dtype)
 from .base import ExecContext, TpuExec
 from .dense_groupby import (BUCKETS, MAX_COLS, dense_groupby, group_slots,
                             packed_ids)
@@ -175,7 +175,19 @@ def _apply_pre_stages(stages, in_schema: Schema, base_dvals, num_rows: int,
 def _value(v: DVal, agg) -> DVal:
     """An aggregate's input; a string's data is dropped, and its column
     too unless the aggregate reads the strings (``reads_strings``:
-    collect_list, min_by; count reads only the validity)."""
+    collect_list, min_by; count reads only the validity). A host string
+    column (None: wider than rect.maxBytes, not dictionary-shaped) is
+    refused at the batch, naming where it arrives."""
+    if v is None:
+        if agg.reads_strings:
+            raise NotImplementedError(
+                f"{agg.name_hint}: host strings (past the byte rectangle, "
+                f"not dictionary-shaped) inside nested values arrive with "
+                f"{NESTED_REST}")
+        raise NotImplementedError(
+            f"{agg.name_hint}: an aggregate over a host string column "
+            "(non-ASCII or over-wide) arrives with slice 7 (strings, "
+            "ROADMAP.md Queue A)")
     if v.dtype != STRING:
         return v
     return DVal(None, v.validity, v.dtype,
@@ -375,8 +387,8 @@ class TpuHashAggregateExec(TpuExec):
                     f"group key <{g.name_hint}> over {src!r}: string keys "
                     "other than a column or a transform chain over one "
                     "(host strings wider than rect.maxBytes, other string "
-                    "expressions) arrive with the next strings slice "
-                    "(ROADMAP.md Queue A item 3)")
+                    "expressions) arrive with slice 7 (strings, ROADMAP.md "
+                    "Queue A)")
             out.append(src)
         return out
 

@@ -47,7 +47,10 @@ from ..exprs.compiler import (DeviceProjector, batch_device, batch_dvals,
                               filter_batch_by_mask, gather_batch)
 from ..mem.retry import with_retry_no_split, wrap_spillable_sides
 from ..mem.spillable import SpillableBatch
-from ..types import BOOL, STRING, Schema, StructField, torch_dtype
+from ..exprs.cast import as_double
+from ..exprs.decimal_arith import scale_up
+from ..types import (BOOL, FLOAT32, FLOAT64, STRING, DecimalType, Schema,
+                     StructField, torch_dtype)
 from .base import ExecContext, TpuExec
 from .encoding import _float_order_key
 from .join_match import (MAX_OUTPUT_ROWS, BuildTable, build_table,
@@ -194,9 +197,7 @@ def encode_keys(lb: ColumnarBatch, lkeys, rb: ColumnarBatch, rkeys):
             lw, rw = _string_words(lcol, rcol, lk.name_hint)
             pairs = [(lw, lcol.validity), (rw, rcol.validity)]
         else:
-            common = torch.promote_types(torch_dtype(ldt), torch_dtype(rdt))
-            pairs = [(_number_words(v, common), v.validity)
-                     for v in (la, ra)]
+            pairs = [_key_word(la, ldt, rdt), _key_word(ra, rdt, ldt)]
         for (words, null), (w, valid), b in zip(sides, pairs, (lb, rb)):
             _add_word(words, null, w, valid, b.num_rows)
     return _stack(*sides[0]) + _stack(*sides[1])
@@ -219,9 +220,27 @@ def encode_one_side(batch: ColumnarBatch, keys, other_schema: Schema,
                        device=batch_device(batch))
     words: list = []
     for (v, _), (dt, odt) in zip(_key_values(batch, keys), types):
-        _add_word(words, null, _number_words(v, torch.promote_types(
-            torch_dtype(dt), torch_dtype(odt))), v.validity, batch.num_rows)
+        _add_word(words, null, *_key_word(v, dt, odt), batch.num_rows)
     return _stack(words, null)
+
+
+def _key_word(v, dt, odt):
+    """(int64 word, validity) of a non-string key beside the other side's
+    key type ``odt``: both promoted to their common type. Decimals (or a
+    decimal beside an integral key) compare at the larger scale, each
+    side's unscaled value rescaled exactly; a value whose rescale passes
+    int64 equals nothing on the other side, so it joins as a NULL key
+    does. A decimal beside a float is its nearest double (Spark's
+    cast)."""
+    if isinstance(dt, DecimalType) or isinstance(odt, DecimalType):
+        if dt in (FLOAT32, FLOAT64) or odt in (FLOAT32, FLOAT64):
+            return _float_order_key(as_double(v)), v.validity
+        top = max(t.scale for t in (dt, odt) if isinstance(t, DecimalType))
+        k = top - (dt.scale if isinstance(dt, DecimalType) else 0)
+        d, fits = scale_up(v.data.to(torch.int64), k)
+        return d, v.validity & fits
+    common = torch.promote_types(torch_dtype(dt), torch_dtype(odt))
+    return _number_words(v, common), v.validity
 
 
 def _number_words(v, common: torch.dtype) -> torch.Tensor:
@@ -383,7 +402,9 @@ class TpuHashJoinExec(TpuExec):
         for lk, rk in zip(self.left_keys, self.right_keys):
             ldt, rdt = lk.data_type(ls), rk.data_type(rs)
             if device_hashable.reason_not_supported(ldt) \
-                    or ldt.np_dtype != rdt.np_dtype:
+                    or ldt.np_dtype != rdt.np_dtype \
+                    or (ldt != rdt and (isinstance(ldt, DecimalType)
+                                        or isinstance(rdt, DecimalType))):
                 return False
         return True
 

@@ -67,7 +67,7 @@ from ..exprs.compiler import batch_device, batch_dvals
 from ..exprs.window_fns import (DenseRank, Lag, NthValue, NTile,
                                 PercentRank, Rank, RowNumber)
 from ..mem.retry import with_retry_no_split, wrap_spillables
-from ..types import Schema, StructField, torch_dtype
+from ..types import DecimalType, Schema, StructField, torch_dtype
 from .base import ExecContext, TpuExec
 from .encoding import (grouping_operands, lexsort_permutation,
                        order_key_operands)
@@ -96,9 +96,16 @@ def resolve_frame(spec) -> Tuple[str, Optional[int], Optional[int]]:
     return kind, lo, hi
 
 
-def frame_reason(fn, spec) -> Optional[str]:
-    """Why the port cannot compute ``fn`` over ``spec``'s frame, or
-    None."""
+def frame_reason(fn, spec, schema: Schema) -> Optional[str]:
+    """Why the port cannot compute ``fn`` over ``spec``'s frame over
+    ``schema``, or None. A decimal window value is refused: the reference
+    takes it through float64 (spark_rapids_tpu/exec/window.py:940-951);
+    Spark keeps it a decimal."""
+    child = getattr(fn, "child", None)
+    if child is not None and isinstance(child.data_type(schema),
+                                        DecimalType):
+        return (f"a decimal window value ({child.data_type(schema).name}) "
+                f"arrives with {_LATER}")
     kind, lo, hi = resolve_frame(spec)
     if kind not in ("rows", "peers"):
         return (f"RANGE frame ({lo}, {hi}) with offsets arrives with "

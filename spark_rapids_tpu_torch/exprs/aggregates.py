@@ -57,9 +57,11 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..columnar.segmented import seg_max, seg_min, select_by_rank
-from ..types import (ArrayType, DataType, FLOAT64, INT64, STRING, Schema,
+from ..types import (ArrayType, DataType, DecimalType, FLOAT64, INT64,
+                     NESTED_REST, STRING, Schema, adjust_precision_scale,
                      numeric)
 from .base import ColumnRef, DVal, Expression, ListVal, Literal, StructVal
+from .decimal_arith import DEC_LIMB
 
 __all__ = ["AggregateExpression", "Sum", "Count", "CountStar", "Average",
            "Min", "Max", "First", "Last", "VariancePop", "VarianceSamp",
@@ -175,32 +177,118 @@ class AggregateExpression:
         return f"{type(self).__name__}({d}{c})"
 
 
+#: a decimal's value as a batch's sums take it: two int64 limbs, ``x mod
+#: 10^9`` in [0, 10^9) and ``floor(x / 10^9)``, below 9.3e9 in magnitude.
+#: Each limb's sum fits int64 over the widest batch the port makes (q9's
+#: keyless batch of 28.8 M rows: 28.8e6 * 9.3e9 < 2^63), so the dense
+#: kernel adds them exactly as int64 columns
+IN_LIMB = 10 ** 9
+#: a decimal SUM's partials are three normalized limbs in base DEC_LIMB
+#: (l0, l1 in [0, 10^12), l2 signed), the reference's (aggregates.py:172);
+#: they merge as int64 sums and normalize
+
+
+def decimal_limbs(v: DVal) -> List[SumInput]:
+    """A decimal value's two summed limbs (``IN_LIMB``)."""
+    hi = torch.div(v.data, IN_LIMB, rounding_mode="floor")
+    return [(v.data - hi * IN_LIMB, v.validity), (hi, v.validity)]
+
+
+def dec_normalize(l0, l1, l2):
+    """Limb sums carried back into canonical form (l0, l1 in [0, 10^12),
+    the sign carried by l2), as the reference's ``_dec_normalize``."""
+    c = torch.div(l0, DEC_LIMB, rounding_mode="floor")
+    l0, l1 = l0 - c * DEC_LIMB, l1 + c
+    c = torch.div(l1, DEC_LIMB, rounding_mode="floor")
+    return l0, l1 - c * DEC_LIMB, l2 + c
+
+
+def limbs_of_sums(s0: torch.Tensor, s1: torch.Tensor):
+    """The total ``s1 * 10^9 + s0`` of the summed limbs as the three
+    partial limbs: ``s1 = 1000 a + b`` gives ``a * 10^12 + (b * 10^9 +
+    s0)``, each part within int64."""
+    a = torch.div(s1, 1000, rounding_mode="floor")
+    return dec_normalize((s1 - a * 1000) * IN_LIMB + s0, a,
+                         torch.zeros_like(a))
+
+
+def _merge_limbs(partials, seg):
+    sums = [_seg_sum(p.data, p.validity, seg)[0] for p in partials[:3]]
+    return dec_normalize(*sums)
+
+
+def _limb_total(l0, l1, l2, precision: int):
+    """(the int64 total of three partial limbs, whether it fits int64 and
+    ``precision`` digits): exact bounds, no float."""
+    # a total within int64 has l2 of -1 or 0
+    small = torch.abs(l2) <= 1
+    hi = torch.where(small, l2, 0) * DEC_LIMB + l1
+    top = 9223372
+    fits = small & ((hi.abs() < top) | ((hi == top) & (l0 <= 36854775807))
+                    | (hi == -top)
+                    | ((hi == -top - 1) & (l0 >= 963145224192)))
+    total = torch.where(fits, hi, 0) * DEC_LIMB + torch.where(fits, l0, 0)
+    if precision < 19:
+        fits = fits & (total.abs() < 10 ** precision)
+    return torch.where(fits, total, 0), fits
+
+
+def _sum_type(dt: DecimalType) -> DecimalType:
+    """Spark's SUM of a decimal: decimal(min(p + 10, 38), s)."""
+    return DecimalType(min(dt.precision + 10, 38), dt.scale)
+
+
 class Sum(AggregateExpression):
+    """sum(x); a decimal's is exact (module doc of ``IN_LIMB``), its total
+    NULL where it passes int64 or its result precision, as the
+    reference's (aggregates.py:191)."""
+
     def data_type(self, schema):
         dt = self.child.data_type(schema)
         if dt.name in ("tinyint", "smallint", "int", "bigint"):
             return INT64
+        if isinstance(dt, DecimalType):
+            return _sum_type(dt)
         return FLOAT64 if dt.name in ("float", "double") else dt
 
     def partial_types(self, schema):
+        dt = self.child.data_type(schema)
+        if isinstance(dt, DecimalType):
+            # the top limb carries the input's type, which finalize reads
+            return [INT64, INT64, dt]
         return [self.data_type(schema)]
 
     def sum_inputs(self, vals):
         v = vals[0]
+        if isinstance(v.dtype, DecimalType):
+            return decimal_limbs(v)
         acc = torch.int64 if not v.data.is_floating_point() \
             else torch.float64
         return [(v.data.to(acc), v.validity)]
 
     def from_sums(self, sums, shifted=()):
+        if len(sums) == 2:
+            (s0, cnt), (s1, _) = sums
+            ok = cnt > 0
+            return [(x, ok) for x in limbs_of_sums(s0, s1)]
         s, cnt = sums[0]
         return [(s, cnt > 0)]
 
     def merge(self, partials, seg):
+        if len(partials) == 3:
+            _, cnt = _seg_sum(None, partials[0].validity, seg)
+            ok = cnt > 0
+            return [(x, ok) for x in _merge_limbs(partials, seg)]
         p = partials[0]
         s, cnt = _seg_sum(p.data, p.validity, seg)
         return [(s, cnt > 0)]
 
     def finalize(self, partials):
+        if len(partials) == 3:
+            out = _sum_type(partials[2].dtype)
+            total, fits = _limb_total(*(p.data for p in partials),
+                                      out.precision)
+            return DVal(total, partials[0].validity & fits, out)
         return partials[0]
 
 
@@ -255,27 +343,71 @@ class CountStar(Count):
         return [(None, None)]
 
 
+def average_type(dt: DecimalType) -> DecimalType:
+    """Spark's AVG of a decimal: decimal(min(p + 4, 38), min(s + 4, 38))."""
+    return DecimalType(min(dt.precision + 4, 38), min(dt.scale + 4, 38))
+
+
+def average_division(dt: DecimalType) -> DecimalType:
+    """The type of Spark's Divide inside AVG of a decimal: the SUM's type
+    over the count as decimal(20,0), with precision loss allowed."""
+    st = _sum_type(dt)
+    scale = max(6, st.scale + 20 + 1)
+    return adjust_precision_scale(st.precision - st.scale + scale, scale)
+
+
 class Average(AggregateExpression):
+    """avg(x): a double, or for a decimal Spark's decimal average, its
+    exact total over the count (``decimal_arith``'s ``avg``)."""
+
     def data_type(self, schema):
+        dt = self.child.data_type(schema)
+        if isinstance(dt, DecimalType):
+            return average_type(dt)
         return FLOAT64
 
     def partial_types(self, schema):
+        dt = self.child.data_type(schema)
+        if isinstance(dt, DecimalType):
+            return [INT64, INT64, dt, INT64]     # limbs (Sum's), count
         return [FLOAT64, INT64]      # sum, count
 
     def sum_inputs(self, vals):
         v = vals[0]
+        if isinstance(v.dtype, DecimalType):
+            return decimal_limbs(v)
         return [(v.data.to(torch.float64), v.validity)]
 
     def from_sums(self, sums, shifted=()):
+        ones = torch.ones_like(sums[0][1], dtype=torch.bool)
+        if len(sums) == 2:
+            (s0, cnt), (s1, _) = sums
+            return [(x, cnt > 0) for x in limbs_of_sums(s0, s1)] \
+                + [(cnt, ones)]
         s, cnt = sums[0]
-        return [(s, cnt > 0), (cnt, torch.ones_like(cnt, dtype=torch.bool))]
+        return [(s, cnt > 0), (cnt, ones)]
 
     def merge(self, partials, seg):
+        c, _ = _seg_sum(partials[-1].data, partials[-1].validity, seg)
+        ones = torch.ones_like(c, dtype=torch.bool)
+        if len(partials) == 4:
+            return [(x, c > 0) for x in _merge_limbs(partials, seg)] \
+                + [(c, ones)]
         s, _ = _seg_sum(partials[0].data, partials[0].validity, seg)
-        c, _ = _seg_sum(partials[1].data, partials[1].validity, seg)
-        return [(s, c > 0), (c, torch.ones_like(c, dtype=torch.bool))]
+        return [(s, c > 0), (c, ones)]
 
     def finalize(self, partials):
+        if len(partials) == 4:
+            from . import decimal_arith as DA
+            dt = partials[2].dtype
+            div, out = average_division(dt), average_type(dt)
+            c = partials[3].data
+            data, ok = DA.avg(partials[0].data, partials[1].data,
+                              partials[2].data, c,
+                              partials[0].validity & (c > 0),
+                              e=div.scale - dt.scale, t=38 - div.scale,
+                              m=div.scale - out.scale, p=out.precision)
+            return DVal(data, ok, out)
         s, c = partials[0], partials[1]
         ok = torch.logical_and(s.validity, c.data > 0)
         denom = torch.where(c.data > 0, c.data, torch.ones_like(c.data))
@@ -587,6 +719,10 @@ class CollectList(AggregateExpression):
         return ArrayType(self.child.data_type(schema))
 
     def device_unsupported_reason(self, schema: Schema) -> Optional[str]:
+        dt = self.child.data_type(schema)
+        if isinstance(dt, DecimalType):
+            return (f"{self.name_hint}: a list of {dt.name} arrives with "
+                    f"{NESTED_REST}")
         return _nested_agg_reason(self, self.child, schema, "a list",
                                   structs=not self._distinct)
 

@@ -9,20 +9,23 @@ the children's); AND/OR use Kleene logic (logical.py).
 from __future__ import annotations
 
 import datetime
+import decimal
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..types import (BOOL, DATE, DataType, FLOAT32, FLOAT64, INT8, INT16,
-                     INT32, INT64, NULLTYPE, STRING, Schema, TIMESTAMP,
-                     TypeSig, deviceNative, from_numpy_dtype, torch_dtype)
+from ..types import (BOOL, DATE, DataType, DecimalType, FLOAT32, FLOAT64,
+                     INT8, INT16, INT32, INT64, NULLTYPE, STRING, Schema,
+                     TIMESTAMP, TypeSig, deviceNative, from_numpy_dtype,
+                     integral_decimal, torch_dtype)
 
 __all__ = ["DVal", "StrVal", "ListVal", "MapVal", "StructVal", "EvalContext",
            "Expression",
            "ColumnRef",
            "Literal", "Alias", "Unsupported",
-           "promote_types", "null_and"]
+           "promote_types", "null_and", "wider_decimal",
+           "decimal_literal_type", "unscaled"]
 
 
 class Unsupported(Exception):
@@ -208,6 +211,8 @@ def _literal_type(value) -> DataType:
         return INT32 if -(2**31) <= value < 2**31 else INT64
     if isinstance(value, float):
         return FLOAT64
+    if isinstance(value, decimal.Decimal):
+        return decimal_literal_type(value)
     if isinstance(value, str):
         return STRING
     if isinstance(value, np.datetime64):
@@ -222,11 +227,46 @@ def _literal_type(value) -> DataType:
     raise TypeError(f"cannot infer literal type for {value!r}")
 
 
+def decimal_literal_type(value: decimal.Decimal) -> DecimalType:
+    """Spark's type of a ``BigDecimal`` literal: decimal(max(digits,
+    scale), scale); an exponent above 0 is scale 0."""
+    if not value.is_finite():
+        raise ValueError(f"a decimal literal must be finite: {value!r}")
+    sign, digits, exp = value.as_tuple()
+    scale = max(-exp, 0)
+    ndigits = len(digits) + max(exp, 0)
+    return DecimalType(min(max(ndigits, scale, 1), 38), scale)
+
+
+def unscaled(value, scale: int) -> Optional[int]:
+    """A number's unscaled value at ``scale``, or None where it has more
+    fractional digits than the scale holds (it equals no decimal of that
+    scale)."""
+    d = decimal.Decimal(value) if not isinstance(value, float) \
+        else decimal.Decimal(repr(value))
+    if not d.is_finite():
+        return None
+    q = d.scaleb(scale, decimal.Context(prec=80))
+    if q != q.to_integral_value():
+        return None
+    return int(q)
+
+
 def _canonical_literal(value, dtype: DataType):
     """Date/timestamp literals as their device value (DATE int32 days,
-    TIMESTAMP int64 microseconds)."""
+    TIMESTAMP int64 microseconds), a decimal as its unscaled int."""
     if value is None:
         return None
+    if isinstance(dtype, DecimalType):
+        u = unscaled(value, dtype.scale)
+        if u is None or abs(u) >= 10 ** dtype.precision:
+            raise ValueError(f"{value!r} is no {dtype.name}")
+        if not -2 ** 63 <= u < 2 ** 63:
+            from ..types import DECIMAL128
+            raise NotImplementedError(
+                f"decimal literal {value!r} passes the 64-bit unscaled "
+                f"lane: {DECIMAL128}")
+        return u
     if dtype == DATE and not isinstance(value, (int, np.integer)):
         return int(np.datetime64(value, "D").astype(np.int64))
     if dtype == TIMESTAMP and not isinstance(value, (int, np.integer)):
@@ -270,6 +310,8 @@ class Literal(Expression):
 
     @property
     def name_hint(self):
+        if isinstance(self.dtype, DecimalType) and self.value is not None:
+            return str(decimal.Decimal(self.value).scaleb(-self.dtype.scale))
         return repr(self.value)
 
 
@@ -298,9 +340,29 @@ class Alias(Expression):
 _NUMERIC_ORDER = [INT8, INT16, INT32, INT64, FLOAT32, FLOAT64]
 
 
+def wider_decimal(l: DecimalType, r: DecimalType) -> DecimalType:
+    """Spark's ``widerDecimalType``: the integral digits of the wider and
+    the larger scale, bounded at 38 digits."""
+    scale = max(l.scale, r.scale)
+    rng = max(l.precision - l.scale, r.precision - r.scale)
+    return DecimalType(min(rng + scale, 38), min(scale, 38))
+
+
 def promote_types(l: DataType, r: DataType) -> DataType:
+    """The common type of two operands (Spark's type coercion): numeric
+    types widen; a decimal with a float or double gives double, with an
+    integral type or another decimal the wider decimal (an integral type
+    as decimal(3,0), (5,0), (10,0) or (20,0))."""
     if l == r:
         return l
+    if isinstance(l, DecimalType) or isinstance(r, DecimalType):
+        if l in (FLOAT32, FLOAT64) or r in (FLOAT32, FLOAT64):
+            return FLOAT64
+        ld = l if isinstance(l, DecimalType) else integral_decimal(l)
+        rd = r if isinstance(r, DecimalType) else integral_decimal(r)
+        if ld is None or rd is None:
+            raise TypeError(f"cannot promote {l} and {r}")
+        return wider_decimal(ld, rd)
     try:
         li, ri = _NUMERIC_ORDER.index(l), _NUMERIC_ORDER.index(r)
     except ValueError:

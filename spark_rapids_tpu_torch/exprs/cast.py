@@ -20,19 +20,36 @@ reference runs on its device path), non-ANSI Spark semantics:
   * date <-> numeric carry the days since the epoch, as the reference's
     do.
 
+  * decimal <-> numeric, as Spark 3.5's non-ANSI ``Cast``: a decimal to
+    an integral type truncates toward zero, then narrows as Java does (the
+    low bits); to boolean it is ``x != 0``; to double it is Java's
+    ``BigDecimal.doubleValue``, the nearest double (``decimal_arith``'s
+    ``to_double``), and to float that double rounded to float (Java
+    rounds once: the two differ only where the double lands on a float
+    tie). An integral or boolean value, or another decimal, rescales
+    HALF_UP to the target's scale (``decimal_arith``'s ``rescale``); a
+    float or double takes Spark's ``Decimal(d)``, which reads the
+    double's shortest decimal form (``Double.toString``), rounded HALF_UP:
+    the result ``k`` is the integer whose midpoints bracket the double,
+    ``fl((2k - 1) / 2P) <= |x| < fl((2k + 1) / 2P)`` (``P = 10^s``; one
+    IEEE division each, exact operands), which equals rounding the
+    shortest form while ``|x| P < 10^14``; a value past that raises at its
+    batch, naming the decimals item. NaN, infinities and every overflow
+    of the target's precision give NULL.
+
 Casts from or to strings run on the reference's host engine; the port
-refuses them at planning, naming the strings slice. Decimals are refused
-naming their own item (ROADMAP.md Queue A).
+refuses them at planning, naming the strings slice.
 """
 from __future__ import annotations
 
 import torch
 
-from ..types import (BOOL, DATE, FLOAT32, FLOAT64, INT8, INT16, INT32, INT64,
-                     STRING, TIMESTAMP, DataType, Schema, torch_dtype)
+from ..types import (BOOL, DATE, DECIMAL_ITEM, FLOAT32, FLOAT64, INT8, INT16,
+                     INT32, INT64, STRING, TIMESTAMP, DataType, DecimalType,
+                     Schema, torch_dtype)
 from .base import DVal, Expression
 
-__all__ = ["Cast", "float_to_int_java"]
+__all__ = ["Cast", "float_to_int_java", "as_double", "to_decimal"]
 
 _MICROS_PER_DAY = 86_400_000_000
 _MICROS_PER_SECOND = 1_000_000
@@ -58,9 +75,76 @@ def float_to_int_java(d: torch.Tensor, to: torch.dtype) -> torch.Tensor:
 
 
 def _slice_for(src: DataType, dst: DataType) -> str:
-    if "decimal" in src.name or "decimal" in dst.name:
-        return "the decimals item (ROADMAP.md Queue A)"
     return "the strings slice (ROADMAP.md Queue A, slice 7)"
+
+
+#: a float cast to a decimal is exact to Spark while |x| 10^s is below
+#: this (module doc)
+_SHORTEST_EXACT = 1e14
+
+
+def as_double(v: DVal) -> torch.Tensor:
+    """A numeric value as float64: a decimal as the nearest double (Java's
+    ``BigDecimal.doubleValue``), anything else converted."""
+    if isinstance(v.dtype, DecimalType):
+        from .decimal_arith import to_double
+        return to_double(v.data, v.validity, v.dtype.scale)[0]
+    return v.data.to(torch.float64)
+
+
+def _float_to_decimal(d: torch.Tensor, valid: torch.Tensor,
+                      dst: DecimalType):
+    """Spark's cast of a double to ``dst`` (module doc): (unscaled int64,
+    validity)."""
+    d = d.to(torch.float64)
+    valid = torch.logical_and(valid, torch.isfinite(d))
+    a = torch.where(valid, torch.abs(d), torch.zeros_like(d))
+    P = 10.0 ** dst.scale
+    if bool(torch.any(a * P >= _SHORTEST_EXACT)):
+        raise NotImplementedError(
+            f"cast of a double of {_SHORTEST_EXACT:g} or more units of "
+            f"{dst.name}'s scale to {dst.name}: Spark rounds the double's "
+            f"shortest decimal form, which arrives with {DECIMAL_ITEM}")
+    k = torch.floor(a * P + 0.5)
+    # one IEEE division each: a tensor divisor (torch divides a CUDA
+    # tensor by a Python number through its reciprocal)
+    two_p = torch.full_like(a, 2.0 * P)
+    up = a >= (2.0 * k + 1.0) / two_p
+    down = a < (2.0 * k - 1.0) / two_p
+    k = k + up.to(torch.float64) - down.to(torch.float64)
+    u = k.to(torch.int64)
+    ok = valid & (u < 10 ** min(dst.precision, 18)) \
+        if dst.precision <= 18 else valid
+    u = torch.where(d < 0, -u, u)
+    return torch.where(ok, u, 0), ok
+
+
+def to_decimal(v: DVal, dst: DecimalType):
+    """(unscaled int64 at ``dst``, validity) of a numeric or boolean value
+    cast to ``dst``; NULL past its precision."""
+    from .decimal_arith import rescale
+    src = v.dtype
+    if isinstance(src, DecimalType):
+        return rescale(v.data, v.validity, dst.scale - src.scale,
+                       dst.precision)
+    if v.data.is_floating_point():
+        return _float_to_decimal(v.data, v.validity, dst)
+    return rescale(v.data.to(torch.int64), v.validity, dst.scale,
+                   dst.precision)
+
+
+def _from_decimal(d: torch.Tensor, valid: torch.Tensor, src: DecimalType,
+                  dst: DataType):
+    """A decimal cast to a numeric or boolean type (module doc)."""
+    if dst == BOOL:
+        return d != 0, valid
+    if dst in (FLOAT32, FLOAT64):
+        from .decimal_arith import to_double
+        out, _ = to_double(d, valid, src.scale)
+        return out.to(torch_dtype(dst)), valid
+    q = torch.div(d, 10 ** src.scale, rounding_mode="trunc") \
+        if src.scale <= 18 else torch.zeros_like(d)
+    return q.to(torch_dtype(dst)), valid
 
 
 class Cast(Expression):
@@ -78,6 +162,24 @@ class Cast(Expression):
         fixed = _NUMERIC + (DATE, TIMESTAMP)
         if src in fixed and self.to in fixed:
             return None
+        dec_src, dec_dst = isinstance(src, DecimalType), \
+            isinstance(self.to, DecimalType)
+        if dec_src or dec_dst:
+            other = self.to if dec_src else src
+            if other == STRING:
+                return (f"cast from {src.name} to {self.to.name} arrives "
+                        f"with {_slice_for(src, self.to)}: casts between "
+                        "strings and decimals are left from the decimals "
+                        "item")
+            if not (isinstance(other, DecimalType) or other in _NUMERIC
+                    or other.name == "void"):
+                return (f"cast from {src.name} to {self.to.name} has no "
+                        "device form (Spark's neither)")
+            if dec_dst and other in (FLOAT32, FLOAT64) \
+                    and self.to.scale > 22:
+                return (f"cast from {src.name} to {self.to.name}: a scale "
+                        f"past 22 arrives with {DECIMAL_ITEM}")
+            return None
         if src.name == "void" and self.to.device_backed:
             return None
         if src == STRING or self.to == STRING or \
@@ -92,6 +194,13 @@ class Cast(Expression):
         src, dst = c.dtype, self.to
         if src == dst:
             return c
+        if isinstance(dst, DecimalType):
+            if src.name == "void":
+                return DVal(torch.zeros_like(c.validity, dtype=torch.int64),
+                            c.validity, dst)
+            return DVal(*to_decimal(c, dst), dst)
+        if isinstance(src, DecimalType):
+            return DVal(*_from_decimal(c.data, c.validity, src, dst), dst)
         d, valid = c.data, c.validity
         tdt = torch_dtype(dst)
         if dst == BOOL:

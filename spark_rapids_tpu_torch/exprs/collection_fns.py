@@ -165,6 +165,13 @@ def string_column(e: Expression, ctx):
             torch.full((p,), ok, dtype=torch.bool, device=ctx.device),
             STRING, np.array([e.value] if ok else [], dtype=object))
     v = e.eval_device(ctx)
+    if v is None:
+        # a host string column: wider than rect.maxBytes, not
+        # dictionary-shaped
+        raise NotImplementedError(
+            f"<{e.name_hint}>: host strings (past the byte rectangle, not "
+            f"dictionary-shaped) inside nested values arrive with "
+            f"{NESTED_REST}")
     if v.column is None:
         raise NotImplementedError(
             f"<{e.name_hint}>: a string with no device column arrives with "

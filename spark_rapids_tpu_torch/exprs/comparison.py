@@ -2,7 +2,13 @@
 =, !=, <, <=, >, >=, IN against literals, IS NULL and IS NOT NULL).
 
 Spark's float semantics: NaN == NaN is true and NaN is greater than every
-other value. ``=`` and ``IN`` over a STRING column have no row-wise form
+other value. Decimals compare exactly: both sides are cast to Spark's wider
+decimal (``wider_decimal``; an integral side as the decimal of its digits)
+and compared as int64 at its scale; a side whose cast passes the wider
+type's precision makes the row NULL, as the cast does in Spark, and one
+that passes int64 only is decided by its sign (no float is involved). A
+decimal beside a float or double compares as its nearest double, as Spark
+casts it. ``=`` and ``IN`` over a STRING column have no row-wise form
 here: a filter runs them over the column's dictionary or byte rectangle
 (``compiler.build_dict_filter``).
 """
@@ -12,10 +18,11 @@ import math
 
 import torch
 
-from ..types import (BOOL, STRING, DataType, Schema, comparable,
-                     torch_dtype)
+from ..types import (BOOL, FLOAT32, FLOAT64, STRING, DataType, DecimalType,
+                     Schema, comparable, torch_dtype)
 from .base import (ColumnRef, DVal, EvalContext, Expression, null_and,
-                   promote_types)
+                   promote_types, unscaled, wider_decimal)
+from .decimal_arith import scale_up
 
 __all__ = ["EqualTo", "NotEqual", "LessThan", "LessThanOrEqual",
            "GreaterThan", "GreaterThanOrEqual", "In", "IsNull", "IsNotNull",
@@ -39,6 +46,42 @@ def _nan_lt(l, r):
     return l < r
 
 
+def _cast_scaled(x: torch.Tensor, k: int, p: int):
+    """``x`` (unscaled) cast up ``k`` digits into a type of precision
+    ``p``: (int64 value where it fits, fits int64, passes the precision
+    (Spark's cast gives NULL))."""
+    val, fits = scale_up(x, k)
+    over = torch.zeros_like(fits)
+    if p - k <= 18:
+        cap = 10 ** max(p - k, 0)                  # |x| 10^k >= 10^p
+        over = (x >= cap) | (x <= -cap)
+    return val, fits, over
+
+
+def _compare_decimals(e, l: DVal, r: DVal, v: torch.Tensor, schema):
+    """A comparison's operands where a decimal meets another type (module
+    doc): int64 operands whose order is the values' order, or doubles."""
+    from .arithmetic import decimal_side
+    from .cast import as_double
+    ldt, rdt = l.dtype, r.dtype
+    if ldt in (FLOAT32, FLOAT64) or rdt in (FLOAT32, FLOAT64):
+        return as_double(l), as_double(r), v
+    ld, rd = decimal_side(e.children[0], schema), \
+        decimal_side(e.children[1], schema)
+    w = wider_decimal(ld, rd)
+    a, fa, oa = _cast_scaled(l.data.to(torch.int64), w.scale - ld.scale,
+                             w.precision)
+    b, fb, ob = _cast_scaled(r.data.to(torch.int64), w.scale - rd.scale,
+                             w.precision)
+    v = v & ~oa & ~ob
+    # a side past int64 (the other, at the wider scale already, fits):
+    # its sign against 0 decides
+    a = torch.where(fa, a, torch.sign(l.data))
+    b = torch.where(fa, torch.where(fb, b, torch.sign(r.data)), 0)
+    a = torch.where(fb, a, 0)
+    return a, b, v
+
+
 class BinaryComparison(Expression):
     device_type_sig = comparable
     symbol = "?"
@@ -55,6 +98,9 @@ class BinaryComparison(Expression):
         ldt = self.children[0].data_type(ctx.schema)
         rdt = self.children[1].data_type(ctx.schema)
         v = null_and(l.validity, r.validity)
+        if ldt != rdt and (isinstance(ldt, DecimalType)
+                           or isinstance(rdt, DecimalType)):
+            return _compare_decimals(self, l, r, v, ctx.schema)
         if ldt != rdt:
             wide = torch_dtype(promote_types(ldt, rdt))
             return l.data.to(wide), r.data.to(wide), v
@@ -145,6 +191,8 @@ class In(Expression):
         c = self.children[0].eval_device(ctx)
         out = torch.zeros(ctx.padded_len, dtype=torch.bool,
                           device=ctx.device)
+        if isinstance(c.dtype, DecimalType):
+            return self._decimal_in(c, out)
         fl = c.data.is_floating_point()
         for v in self.values:
             if v is None:
@@ -154,6 +202,26 @@ class In(Expression):
                 out = torch.logical_or(out, torch.isnan(c.data))
             else:
                 out = torch.logical_or(out, c.data == v)
+        return DVal(out, in_null_rule(out, c.validity, self.values), BOOL)
+
+    def _decimal_in(self, c: DVal, out: torch.Tensor) -> DVal:
+        """A decimal IN a list: an integer or decimal value equals the rows
+        of its unscaled value at the column's scale (none where it has
+        more fractional digits); a float compares with the nearest
+        double."""
+        from .cast import as_double
+        dbl = None
+        for v in self.values:
+            if v is None:
+                continue
+            if isinstance(v, float):
+                if dbl is None:
+                    dbl = as_double(c)
+                out = torch.logical_or(out, dbl == v)
+                continue
+            u = unscaled(v, c.dtype.scale)
+            if u is not None and -2 ** 63 <= u < 2 ** 63:
+                out = torch.logical_or(out, c.data == u)
         return DVal(out, in_null_rule(out, c.validity, self.values), BOOL)
 
     def key(self):

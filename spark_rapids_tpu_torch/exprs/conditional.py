@@ -6,8 +6,11 @@ and ``KnownFloatingPointNormalized``, and ``NormalizeNaNAndZero``).
 A NULL predicate picks the next branch (SQL: only TRUE selects), and the
 first matching branch wins. An untyped ``lit(None)`` else is the absent
 else: every row no branch takes is NULL. ``If`` and ``CaseWhen`` take
-numeric, bool, date and timestamp results here; a string-typed one is
-refused at planning until the strings slice.
+numeric, bool, decimal, date and timestamp results here; a string-typed
+one is refused at planning until the strings slice. A decimal result
+takes each branch rescaled to the common decimal type (NULL past its
+precision); a double result takes a decimal branch as its nearest
+double.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ from typing import Optional
 
 import torch
 
-from ..types import BOOL, NULLTYPE, STRING, DataType, Schema, torch_dtype
+from ..types import (BOOL, NULLTYPE, STRING, DataType, DecimalType, Schema,
+                     TypeSig, decimal_sig, deviceNative, torch_dtype)
 from .base import DVal, Expression, promote_types
 
 __all__ = ["If", "CaseWhen", "Coalesce", "NullIf", "Greatest", "Least",
@@ -45,20 +49,38 @@ def _result_reason(expr: Expression, schema: Schema) -> Optional[str]:
     return None
 
 
-def _select(branches, data, validity, tdt, ctx):
+#: the types a conditional takes and gives on the device
+_SIG: TypeSig = deviceNative + decimal_sig
+
+
+def _as(v: DVal, dt: DataType, tdt: torch.dtype):
+    """(data, validity) of a branch's value in the result type ``dt``: a
+    decimal result rescales it (NULL past the precision), a decimal
+    branch of a numeric result is its nearest double."""
+    from .cast import as_double, to_decimal
+    if isinstance(dt, DecimalType) and v.dtype != dt:
+        return to_decimal(v, dt)
+    if isinstance(v.dtype, DecimalType) and not isinstance(dt, DecimalType):
+        return as_double(v).to(tdt), v.validity
+    return v.data.to(tdt), v.validity
+
+
+def _select(branches, data, validity, dt, tdt, ctx):
     """Apply (predicate, value) branches in reverse, so the first match
     wins; a NULL predicate selects nothing."""
     for pred, val in reversed(branches):
         p = pred.eval_device(ctx)
-        v = val.eval_device(ctx)
+        vd, vv = _as(val.eval_device(ctx), dt, tdt)
         cond = torch.logical_and(p.data, p.validity)
-        data = torch.where(cond, v.data.to(tdt), data)
-        validity = torch.where(cond, v.validity, validity)
+        data = torch.where(cond, vd, data)
+        validity = torch.where(cond, vv, validity)
     return data, validity
 
 
 class If(Expression):
     """``if(pred, t, f)`` (ref ``conditional.py:If``)."""
+
+    device_type_sig = _SIG
 
     def __init__(self, pred: Expression, if_true: Expression,
                  if_false: Expression):
@@ -76,7 +98,7 @@ class If(Expression):
         tdt = torch_dtype(dt)
         f = self.children[2].eval_device(ctx)
         data, validity = _select([(self.children[0], self.children[1])],
-                                 f.data.to(tdt), f.validity, tdt, ctx)
+                                 *_as(f, dt, tdt), dt, tdt, ctx)
         return DVal(data, validity, dt)
 
     def key(self):
@@ -86,6 +108,8 @@ class If(Expression):
 class CaseWhen(Expression):
     """``CASE WHEN p1 THEN v1 ... [ELSE e] END`` (ref
     ``conditional.py:CaseWhen``)."""
+
+    device_type_sig = _SIG
 
     def __init__(self, branches, else_value: Optional[Expression] = None):
         self.branches = [tuple(b) for b in branches]
@@ -115,13 +139,13 @@ class CaseWhen(Expression):
         tdt = torch_dtype(dt)
         ev = self._typed_else(ctx.schema)
         if ev is not None:
-            e = ev.eval_device(ctx)
-            data, validity = e.data.to(tdt), e.validity
+            data, validity = _as(ev.eval_device(ctx), dt, tdt)
         else:
             data = torch.zeros(ctx.padded_len, dtype=tdt, device=ctx.device)
             validity = torch.zeros(ctx.padded_len, dtype=torch.bool,
                                    device=ctx.device)
-        data, validity = _select(self.branches, data, validity, tdt, ctx)
+        data, validity = _select(self.branches, data, validity, dt, tdt,
+                                 ctx)
         return DVal(data, validity, dt)
 
     def key(self):
@@ -143,6 +167,8 @@ class Coalesce(Expression):
     """The first non-null of the children, row by row; untyped NULLs take
     no part in the type."""
 
+    device_type_sig = _SIG
+
     def __init__(self, *exprs: Expression):
         self.children = list(exprs)
 
@@ -156,9 +182,9 @@ class Coalesce(Expression):
         valid = torch.zeros(ctx.padded_len, dtype=torch.bool,
                             device=ctx.device)
         for child in reversed(self.children):
-            c = child.eval_device(ctx)
-            data = torch.where(c.validity, c.data.to(tdt), data)
-            valid = torch.logical_or(valid, c.validity)
+            cd, cv = _as(child.eval_device(ctx), dt, tdt)
+            data = torch.where(cv, cd, data)
+            valid = torch.logical_or(valid, cv)
         return DVal(data, valid, dt)
 
 
@@ -166,6 +192,8 @@ class NullIf(Expression):
     """``nullif(a, b)``: NULL where ``a = b`` (both non-null), else ``a``
     (ref ``conditional.py:NullIf``). The test is Spark's ``=``: the types
     promoted, NaN equal to NaN."""
+
+    device_type_sig = _SIG
 
     def __init__(self, a: Expression, b: Expression):
         self.children = [a, b]
@@ -192,6 +220,7 @@ class _NarySelect(Expression):
     NULL operands skipped, NULL only where every operand is; NaN is the
     greatest value (Spark's total order)."""
 
+    device_type_sig = _SIG
     _is_max = True
 
     def __init__(self, *children: Expression):
@@ -217,8 +246,8 @@ class _NarySelect(Expression):
         skip = self._skip(tdt)
         acc = any_valid = any_nan = any_num = None
         for c in self.children:
-            v = c.eval_device(ctx)
-            d = v.data.to(tdt)
+            d, vv = _as(c.eval_device(ctx), dt, tdt)
+            v = DVal(d, vv, dt)
             if tdt.is_floating_point:
                 nan = torch.isnan(d)
                 nan_here = torch.logical_and(nan, v.validity)

@@ -30,7 +30,8 @@ from typing import List, Optional
 
 import torch
 
-from ..types import INT32, INT64, STRING, Schema, TypeEnum, TypeSig
+from ..types import (INT32, INT64, STRING, DecimalType, Schema, TypeEnum,
+                     TypeSig)
 from .base import DVal, Expression
 
 __all__ = ["device_hashable", "spark_murmur3_bytes", "murmur3_int",
@@ -46,7 +47,7 @@ _M32 = 0xffffffff
 device_hashable = TypeSig([TypeEnum.BOOLEAN, TypeEnum.BYTE, TypeEnum.SHORT,
                            TypeEnum.INT, TypeEnum.LONG, TypeEnum.FLOAT,
                            TypeEnum.DOUBLE, TypeEnum.DATE,
-                           TypeEnum.TIMESTAMP])
+                           TypeEnum.TIMESTAMP, TypeEnum.DECIMAL])
 
 
 # ---------------------------------------------------------------------------
@@ -141,8 +142,12 @@ def _fmix_dev(h1, length: int):
 
 def _normalize_to_words(val: DVal):
     """A DVal as ("int", 32-bit word) or ("long", 64-bit word), both in
-    int64 lanes, with Spark's normalization."""
+    int64 lanes, with Spark's normalization (a decimal of precision up to
+    18 is its unscaled long; a wider one is hashed as bytes:
+    ``_decimal_bytes``)."""
     d, name = val.data, val.dtype.name
+    if isinstance(val.dtype, DecimalType):
+        return "long", d.to(torch.int64)
     if name in ("boolean", "tinyint", "smallint", "int", "date"):
         return "int", d.to(torch.int64) & _M32
     if name in ("bigint", "timestamp"):
@@ -156,12 +161,80 @@ def _normalize_to_words(val: DVal):
     raise TypeError(f"cannot hash {name} on the device")
 
 
+def _wide_decimal(v: DVal) -> bool:
+    return isinstance(v.dtype, DecimalType) and v.dtype.precision > 18
+
+
+def _decimal_bytes(x: torch.Tensor):
+    """A wide decimal's unscaled value as Java's
+    ``BigInteger.toByteArray``: (its length L in 1..8 per row, and per L a
+    function giving byte j of the big-endian minimal two's complement as
+    an int64 in [0, 256))."""
+    L = torch.ones_like(x)
+    for n in range(1, 8):
+        lim = 1 << (8 * n - 1)
+        L = torch.where((x < -lim) | (x >= lim), n + 1, L)
+
+    def byte(n: int, j: int) -> torch.Tensor:
+        return (x >> (8 * (n - 1 - j))) & 0xFF
+    return L, byte
+
+
+def _murmur3_decimal(h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Spark's ``hashUnsafeBytes`` of a wide decimal's bytes
+    (``_decimal_bytes``): little-endian 4-byte words, then each trailing
+    byte, signed, through the full mix; one pass per length."""
+    L, byte = _decimal_bytes(x)
+    out = h
+    for n in range(1, 9):
+        nh = h
+        for i in range(n // 4):
+            w = byte(n, 4 * i) | (byte(n, 4 * i + 1) << 8) \
+                | (byte(n, 4 * i + 2) << 16) | (byte(n, 4 * i + 3) << 24)
+            nh = _mix_h1_dev(nh, _mix_k1_dev(w))
+        for j in range(n - n % 4, n):
+            b = byte(n, j)
+            nh = _mix_h1_dev(nh, _mix_k1_dev(torch.where(
+                b >= 128, b - 256, b) & _M32))
+        out = torch.where(L == n, _fmix_dev(nh, n), out)
+    return out
+
+
+def _xxhash64_decimal(h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Spark's XXH64 ``hashUnsafeBytes`` of a wide decimal's bytes (fewer
+    than 32: an 8-byte word, a 4-byte word, then single bytes)."""
+    L, byte = _decimal_bytes(x)
+    out = h
+    for n in range(1, 9):
+        nh = h + _P5 + n
+        j = 0
+        if n == 8:
+            k = torch.zeros_like(x)
+            for b in range(8):
+                k = k | (byte(n, b) << (8 * b))
+            nh = _rotl64_dev(nh ^ (_rotl64_dev(k * _P2, 31) * _P1), 27) \
+                * _P1 + _P4
+            j = 8
+        if n - j >= 4:
+            w = byte(n, j) | (byte(n, j + 1) << 8) | (byte(n, j + 2) << 16) \
+                | (byte(n, j + 3) << 24)
+            nh = _rotl64_dev(nh ^ (w * _P1), 23) * _P2 + _P3
+            j += 4
+        for b in range(j, n):
+            nh = _rotl64_dev(nh ^ (byte(n, b) * _P5), 11) * _P1
+        out = torch.where(L == n, _xx_fmix_dev(nh), out)
+    return out
+
+
 def murmur3_fold_device(vals: List[DVal], seed: int) -> torch.Tensor:
     """Spark's murmur3 folded over the columns from ``seed``: int32 per
     row."""
     h = torch.full(vals[0].validity.shape, seed & _M32, dtype=torch.int64,
                    device=vals[0].validity.device)
     for v in vals:
+        if _wide_decimal(v):
+            h = torch.where(v.validity, _murmur3_decimal(h, v.data), h)
+            continue
         kind, w = _normalize_to_words(v)
         if kind == "int":
             nh = _fmix_dev(_mix_h1_dev(h, _mix_k1_dev(w)), 4)
@@ -243,6 +316,9 @@ def xxhash64_fold_device(vals: List[DVal], seed: int) -> torch.Tensor:
     h = torch.full(vals[0].validity.shape, _signed64(seed),
                    dtype=torch.int64, device=vals[0].validity.device)
     for v in vals:
+        if _wide_decimal(v):
+            h = torch.where(v.validity, _xxhash64_decimal(h, v.data), h)
+            continue
         kind, w = _normalize_to_words(v)
         if kind == "int":
             nh = (h + (_P5 + 4)) ^ (w * _P1)

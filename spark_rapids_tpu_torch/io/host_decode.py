@@ -11,6 +11,11 @@ naming the file, the column and the codec. Data pages v1 and v2 (v2
 levels never compressed), PLAIN and both dictionary encodings, and a
 chunk that falls back from its dictionary to PLAIN partway are read.
 
+A DECIMAL chunk becomes its unscaled int64 values: INT32 and INT64
+widen; FIXED_LEN_BYTE_ARRAY and BYTE_ARRAY values, big-endian two's
+complement, are right-aligned into 8-byte words (a wider value must be the
+sign extension of its low 8 bytes, else it raises, as ingest does).
+
 A string chunk whose every data page is dictionary-encoded stays in its
 dictionary form (``DictStrings``): ingest takes a batch's codes from the
 entries it uses rather than from the strings.
@@ -32,7 +37,7 @@ import numpy as np
 from .. import native
 from ..columnar.batch import DictStrings
 from ..columnar.strrect import HostStrings
-from ..types import BOOL, INT8, INT16, STRING
+from ..types import BOOL, INT8, INT16, STRING, DecimalType
 from . import parquet_meta as M
 from .thrift import ColumnMeta, parse_page_header
 
@@ -191,9 +196,24 @@ class _Chunk:
             out = (rec["jd"].astype(np.int64) - 2440588) * 86_400_000_000 \
                 + rec["ns"] // 1000
             what = "PLAIN int96"
+        elif p == M.BYTE_ARRAY and isinstance(self.col.dtype, DecimalType):
+            hs, nbytes = self._byte_array(data, count)
+            out = _be_decimals(hs.s.view(np.uint8).reshape(count, -1)
+                               if count else np.zeros((0, 1), np.uint8),
+                               hs.lengths)
+            what = "PLAIN byte array decimal"
         elif p == M.BYTE_ARRAY:
             out, nbytes = self._byte_array(data, count)
             what = "PLAIN byte array"
+        elif p == M.FIXED_LEN_BYTE_ARRAY and isinstance(self.col.dtype,
+                                                        DecimalType):
+            w = self.col.element.type_length or 0
+            nbytes = count * w
+            if w < 1 or len(data) < nbytes:
+                raise ChunkError("short FIXED_LEN_BYTE_ARRAY page")
+            out = _be_decimals(data[:nbytes].reshape(count, w),
+                               np.full(count, w, np.int32))
+            what = "PLAIN fixed decimal"
         else:
             raise ChunkError(f"physical type {p}")
         self._rate(what, nbytes, t0)
@@ -239,6 +259,30 @@ class _Chunk:
         return out
 
 
+def _be_decimals(raw: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """Big-endian two's complement values (row i: the first ``lens[i]``
+    bytes of ``raw[i]``) as int64; raises where one passes int64."""
+    from ..columnar.batch import decimal_unscaled_range_error
+    n, w = raw.shape
+    W = max(w, 8)
+    lens = lens.astype(np.int64)
+    neg = (lens > 0) & ((raw[:, 0] & 0x80) != 0) if n else \
+        np.zeros(0, bool)
+    k = np.arange(W)[None, :] - (W - lens[:, None])  # source byte
+    inside = (k >= 0) & (k < lens[:, None])
+    src = np.take_along_axis(np.pad(raw, ((0, 0), (0, W - w))),
+                             np.clip(k, 0, W - 1), axis=1)
+    fill = np.where(neg, 0xFF, 0).astype(np.uint8)[:, None]
+    aligned = np.where(inside, src, fill).astype(np.uint8)
+    if W > 8 and not (aligned[:, :W - 8] == fill).all():
+        raise decimal_unscaled_range_error()
+    out = np.ascontiguousarray(aligned[:, W - 8:]).view(">i8") \
+        .reshape(n).astype(np.int64)
+    if not ((out < 0) == neg).all():
+        raise decimal_unscaled_range_error()
+    return out
+
+
 def _gather(dictionary, idx: np.ndarray):
     if isinstance(dictionary, HostStrings):
         s = _gather(dictionary.s, idx)
@@ -274,6 +318,8 @@ def _scatter(dense, valid: np.ndarray):
 
 
 def _empty(col: M.LeafColumn) -> np.ndarray:
+    if isinstance(col.dtype, DecimalType):
+        return np.zeros(0, np.int64)
     if col.dtype == STRING:
         return HostStrings(np.zeros(0, "S1"), np.zeros(0, np.int32))
     if col.physical == M.BOOLEAN:
@@ -390,7 +436,7 @@ def _port_values(v: np.ndarray, col: M.LeafColumn) -> np.ndarray:
     """Physical values -> the port's host representation."""
     if col.dtype == BOOL:
         return v.astype(bool, copy=False)
-    if col.dtype in (INT8, INT16):
+    if col.dtype in (INT8, INT16) or isinstance(col.dtype, DecimalType):
         return v.astype(col.dtype.np_dtype)
     if col.ts_unit == "ms":
         return v.astype(np.int64) * 1000

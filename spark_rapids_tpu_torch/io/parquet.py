@@ -17,7 +17,10 @@ Against the reference: it compares DATE and TIMESTAMP statistics too
 compare with its literals, so it keeps every row group there); and it
 never drops a float column's group on ``>`` or ``>=`` or a NaN literal,
 since NaN is greater than every value in Spark and the statistics leave
-NaN out (the reference drops such groups).
+NaN out (the reference drops such groups). Decimal statistics compare
+with a decimal or integral literal exactly and with a double as their
+nearest doubles (a double column's with a decimal literal as its nearest
+double), as the card compares the rows.
 
 With ``spark.rapids.tpu.io.parquet.deviceDecode.enabled`` (off by
 default) a file whose every requested column qualifies takes the raw
@@ -25,6 +28,7 @@ bitcast of io/device_decode.py instead.
 """
 from __future__ import annotations
 
+import decimal
 import time
 from typing import Dict, List, Optional
 
@@ -35,7 +39,7 @@ from ..config import PARQUET_READER_TYPE
 from ..exprs import (And, ColumnRef, EqualTo, GreaterThan,
                      GreaterThanOrEqual, LessThan, LessThanOrEqual, Literal,
                      Or)
-from ..types import Schema
+from ..types import DecimalType, Schema
 from .file_scan import FileScanBase, apply_path_rules, expand_paths
 from .host_decode import decode_chunk
 from .parquet_meta import (ParquetFooter, UnsupportedType, read_footer,
@@ -161,6 +165,17 @@ def _maybe_matches(pred, stats) -> bool:
         return True
     if isinstance(v, str):
         v = v.encode("utf-8")          # string statistics are UTF-8 bytes
+    if isinstance(r.dtype, DecimalType):
+        # a decimal literal holds its unscaled value; decimal statistics
+        # are Decimals, which compare exactly with ints
+        v = decimal.Decimal(v).scaleb(-r.dtype.scale)
+    if isinstance(mn, decimal.Decimal) and isinstance(v, float):
+        # the card compares a decimal with a double as its nearest double
+        # (Spark's cast); float(Decimal) is correctly rounded, as Java's
+        # doubleValue is
+        mn, mx = float(mn), float(mx)
+    elif isinstance(mn, float) and isinstance(v, decimal.Decimal):
+        v = float(v)
     try:
         if isinstance(pred, EqualTo):
             return mn <= v <= mx

@@ -9,21 +9,26 @@ to the port's types as pyarrow and the reference's ``from_arrow`` map it:
   * BOOLEAN, FLOAT, DOUBLE; INT32 (INT_8, INT_16 and DATE annotations
     included), INT64; BYTE_ARRAY with a UTF8/STRING annotation;
   * INT64 timestamps in millis, micros or nanos and INT96 (Spark's
-    default ``outputTimestampType``) as TIMESTAMP in microseconds.
+    default ``outputTimestampType``) as TIMESTAMP in microseconds;
+  * a DECIMAL (converted or logical type) in each physical type Parquet
+    allows for it, as its unscaled int64: INT32 and INT64 (Spark writes
+    precision up to 9 and 18 so), FIXED_LEN_BYTE_ARRAY and BYTE_ARRAY of
+    big-endian two's complement (a value past int64 raises, as ingest
+    does). Its statistics compare as ``Decimal``s at the column's scale.
 
-Anything else (decimals, unsigned ints, times, binary, nested and map
-columns) keeps its place in the schema as an ``UnsupportedType`` that
-names the slice which brings it; the planner refuses a scan that selects
-one.
+Anything else (unsigned ints, times, binary, nested and map columns)
+keeps its place in the schema as an ``UnsupportedType`` that names the
+slice which brings it; the planner refuses a scan that selects one.
 """
 from __future__ import annotations
 
+import decimal
 import struct
 from typing import Dict, List, Optional, Tuple
 
-from ..types import (BOOL, DATE, DataType, FLOAT32, FLOAT64, INT8, INT16,
-                     INT32, INT64, NESTED_REST, STRING, Schema, StructField,
-                     TIMESTAMP)
+from ..types import (BOOL, DATE, DECIMAL128, DataType, DecimalType, FLOAT32,
+                     FLOAT64, INT8, INT16, INT32, INT64, NESTED_REST, STRING,
+                     Schema, StructField, TIMESTAMP)
 from .thrift import FileMetaData, SchemaElement, parse_file_metadata
 
 __all__ = ["MAGIC", "ParquetFooter", "LeafColumn", "UnsupportedType",
@@ -32,7 +37,8 @@ __all__ = ["MAGIC", "ParquetFooter", "LeafColumn", "UnsupportedType",
 MAGIC = b"PAR1"
 
 # physical types (parquet.thrift Type)
-BOOLEAN, INT32_, INT64_, INT96, FLOAT, DOUBLE, BYTE_ARRAY = range(7)
+BOOLEAN, INT32_, INT64_, INT96, FLOAT, DOUBLE, BYTE_ARRAY, \
+    FIXED_LEN_BYTE_ARRAY = range(8)
 # converted types (ConvertedType)
 _UTF8, _ENUM, _DECIMAL, _DATE = 0, 4, 5, 6
 _TS_MILLIS, _TS_MICROS = 9, 10
@@ -45,12 +51,8 @@ _LT_TIMESTAMP, _LT_INTEGER, _LT_JSON = 8, 10, 12
 _OPTIONAL, _REPEATED = 1, 2
 
 #: where each refused kind of column arrives (ROADMAP.md Queue A)
-_DECIMAL_SLICE = ("decimal columns arrive with the decimals item (ROADMAP.md "
-                  "Queue A: DecimalType through types.py, aggregates.py, "
-                  "arithmetic.py, cast.py and Parquet)")
 _NESTED_SLICE = f"nested and map columns arrive with {NESTED_REST}"
-_OTHER_SLICE = ("arrives with slice 10 (ROADMAP.md Queue A item 9, other "
-                "I/O)")
+_OTHER_SLICE = "arrives with slice 10 (other I/O, ROADMAP.md Queue A)"
 
 
 class UnsupportedType(DataType):
@@ -101,11 +103,27 @@ def _timestamp_unit(e: SchemaElement) -> Optional[str]:
     return {_TS_MILLIS: "ms", _TS_MICROS: "us"}.get(e.converted_type)
 
 
+def _decimal_type(e: SchemaElement) -> DataType:
+    """A DECIMAL column's type: precision and scale from its logical type
+    (``DecimalType`` {1: scale, 2: precision}), else from the element."""
+    lt = e.logical
+    if lt and lt[0] == _LT_DECIMAL:
+        scale, prec = lt[1].get(1, 0), lt[1].get(2)
+    else:
+        scale, prec = e.scale or 0, e.precision
+    if e.type not in (INT32_, INT64_, FIXED_LEN_BYTE_ARRAY, BYTE_ARRAY):
+        return UnsupportedType(f"decimal in physical type {e.type}",
+                               _OTHER_SLICE)
+    if prec is None or not 1 <= prec <= 38 or not 0 <= scale <= prec:
+        return UnsupportedType(f"decimal({prec},{scale})", DECIMAL128)
+    return DecimalType(prec, scale)
+
+
 def _leaf_type(e: SchemaElement) -> Tuple[DataType, Optional[str]]:
     """(port type, timestamp unit) of a flat column."""
     lt = e.logical[0] if e.logical else None
     if e.converted_type == _DECIMAL or lt == _LT_DECIMAL:
-        return UnsupportedType("decimal", _DECIMAL_SLICE), None
+        return _decimal_type(e), None
     p = e.type
     if p == BOOLEAN:
         return BOOL, None
@@ -137,8 +155,8 @@ def _leaf_type(e: SchemaElement) -> Tuple[DataType, Optional[str]]:
         if e.converted_type in (_UTF8, _ENUM, _JSON) or lt in (
                 _LT_STRING, _LT_ENUM, _LT_JSON):
             return STRING, None
-        return UnsupportedType("binary", "binary columns arrive with the "
-                               "strings slice (ROADMAP.md Queue A item 6)"
+        return UnsupportedType("binary", "binary columns arrive with "
+                               "slice 7 (strings, ROADMAP.md Queue A)"
                                ), None
     return UnsupportedType(f"physical type {p}", _OTHER_SLICE), None
 
@@ -224,8 +242,19 @@ _PLAIN_FMT = {INT32_: "<i", INT64_: "<q", FLOAT: "<f", DOUBLE: "<d"}
 def _stat_value(raw: bytes, col: LeafColumn):
     """A statistic's bytes as a value comparable with the port's literals
     (ints, floats, bools, UTF-8 bytes for strings, days for DATE,
-    microseconds for TIMESTAMP), or None."""
+    microseconds for TIMESTAMP, a ``Decimal`` at its scale for a decimal),
+    or None."""
     p = col.physical
+    if isinstance(col.dtype, DecimalType):
+        if p in (INT32_, INT64_):
+            if len(raw) != struct.calcsize(_PLAIN_FMT[p]):
+                return None
+            (u,) = struct.unpack(_PLAIN_FMT[p], raw)
+        elif raw:
+            u = int.from_bytes(bytes(raw), "big", signed=True)
+        else:
+            return None
+        return decimal.Decimal(u).scaleb(-col.dtype.scale)
     if p == BOOLEAN:
         return bool(raw[0]) if raw else None
     if p in _PLAIN_FMT:

@@ -652,7 +652,7 @@ class WindowMeta(PlanMeta):
                     self.will_not_work_on_tpu(
                         f"window order key <{o.expr.name_hint}>: {r}")
             r = fn.device_unsupported_reason(schema) or \
-                frame_reason(fn, spec) or _row_numbering_reason(
+                frame_reason(fn, spec, schema) or _row_numbering_reason(
                     list(spec.partition_by) + [o.expr for o in spec.order_by]
                     + [e for e in [getattr(fn, "child", None)]
                        if e is not None], "a window")

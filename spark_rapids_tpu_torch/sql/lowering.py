@@ -20,6 +20,13 @@ an "unknown function" SqlError. INTERSECT ALL / EXCEPT ALL lower onto
 ``intersect_all`` / ``except_all``. ``log(base, x)`` with two arguments
 is Spark's logarithm to a base, where the reference's lowering takes the
 log of its first argument (ROADMAP.md Queue C).
+
+Numeric literals keep the reference's typing: an integer is an int (a
+bigint past 2^31) and a number with a point or an exponent a double, where
+Spark types ``0.05`` as DECIMAL(2,2) (ROADMAP.md Queue C). So a decimal
+column beside ``1`` stays decimal (``1 - l_discount``), and beside
+``0.05`` it compares as a double. ``CAST(x AS DECIMAL(p, s))`` casts to
+that decimal, and a bare ``DECIMAL`` is DECIMAL(10,0), as in Spark.
 """
 from __future__ import annotations
 

@@ -3,8 +3,9 @@
 Port of ``spark_rapids_tpu/types.py`` (the parts the port's slice needs).
 A device column is a torch tensor per column plus a bool validity tensor;
 STRING and BINARY have no fixed-width device layout of their own (strings
-ride as dictionary codes or byte rectangles, columnar/), and decimals wait
-for a later slice. An ARRAY of a fixed-width element lives on the device
+ride as dictionary codes or byte rectangles, columnar/). A DECIMAL is its
+unscaled value in an int64 lane, for every declared precision up to 38
+(``DecimalType``, as the reference holds it). An ARRAY of a fixed-width element lives on the device
 as a rectangle, and so does an ARRAY of strings or of structs of
 fixed-width and string fields (its elements a flat column of the
 rectangle's slots); a MAP of such keys and values is two rectangles over
@@ -27,8 +28,16 @@ __all__ = [
     "from_numpy_dtype", "from_arrow", "to_arrow", "torch_dtype",
     "ArrayType", "MapType", "StructType", "device_list_ok", "NESTED_REST",
     "device_map_ok", "device_struct_ok", "device_column_ok", "map_parts",
-    "entries_type", "nested_reason",
+    "entries_type", "nested_reason", "DecimalType", "DECIMAL_ITEM",
+    "DECIMAL128", "integral_decimal", "adjust_precision_scale",
 ]
+
+#: where the decimals the port refuses arrive (Queue A's decimals item,
+#: its leftovers)
+DECIMAL_ITEM = "the decimals item (ROADMAP.md Queue A)"
+#: decimals whose unscaled value passes int64 need a 128-bit lane
+DECIMAL128 = ("a decimal128 lane, for unscaled values past int64 (the "
+              "decimals item's leftovers, ROADMAP.md Queue A)")
 
 #: where the nested constructs the port refuses arrive (lists of lists and
 #: ``flatten``, lists past the rectangle's caps, a struct of host strings,
@@ -79,6 +88,53 @@ TIMESTAMP = _Simple("timestamp", np.int64)
 STRING = _Simple("string", None)
 BINARY = _Simple("binary", None)
 NULLTYPE = _Simple("void", None)
+
+
+class DecimalType(DataType):
+    """DECIMAL(precision, scale) held as its unscaled value in one int64
+    lane, for every declared precision up to 38 (the reference's
+    ``DecimalType``, spark_rapids_tpu/types.py:95): exact for unscaled
+    magnitudes below 2^63, a loud error at ingest past that. Arithmetic
+    whose result passes its precision or int64 is NULL
+    (exprs/decimal_arith.py)."""
+
+    def __init__(self, precision: int = 10, scale: int = 0):
+        if precision < 1 or precision > 38:
+            raise ValueError(f"bad decimal precision {precision}")
+        if scale < 0 or scale > precision:
+            raise ValueError(f"bad decimal scale {scale} for precision "
+                             f"{precision}")
+        self.precision = precision
+        self.scale = scale
+        self.name = f"decimal({precision},{scale})"
+        self.np_dtype = np.dtype(np.int64)
+
+    def __eq__(self, other):
+        return (isinstance(other, DecimalType)
+                and other.precision == self.precision
+                and other.scale == self.scale)
+
+    def __hash__(self):
+        return hash(("decimal", self.precision, self.scale))
+
+
+def integral_decimal(dt: DataType) -> Optional[DecimalType]:
+    """The decimal an integral type widens to beside a decimal (Spark's
+    ``DecimalType.forType``), else None."""
+    return {"tinyint": DecimalType(3, 0), "smallint": DecimalType(5, 0),
+            "int": DecimalType(10, 0),
+            "bigint": DecimalType(20, 0)}.get(dt.name)
+
+
+def adjust_precision_scale(precision: int, scale: int) -> DecimalType:
+    """Spark's ``DecimalType.adjustPrecisionScale`` (allowPrecisionLoss):
+    past 38 digits, keep the integral digits and at least
+    min(scale, 6) of the scale."""
+    if precision <= 38:
+        return DecimalType(precision, scale)
+    int_digits = precision - scale
+    min_scale = min(scale, 6)
+    return DecimalType(38, max(38 - int_digits, min_scale))
 
 _TORCH = {
     np.dtype(np.bool_): torch.bool, np.dtype(np.int8): torch.int8,
@@ -152,8 +208,10 @@ class MapType(DataType):
 
 def _flat_element_ok(dt: DataType) -> bool:
     """A list element, map key or value, or a struct element's field that
-    has a device slot: fixed-width, a string or NULL-typed."""
-    return dt.np_dtype is not None or dt == STRING or dt == NULLTYPE
+    has a device slot: fixed-width (decimals aside), a string or
+    NULL-typed."""
+    return (dt.np_dtype is not None and not isinstance(dt, DecimalType)) \
+        or dt == STRING or dt == NULLTYPE
 
 
 def device_list_ok(dt: DataType) -> bool:
@@ -204,6 +262,9 @@ def device_column_ok(dt: DataType) -> bool:
 def nested_reason(dt: DataType) -> Optional[str]:
     """Why a nested type has no device column (naming its queue entry),
     None when it has one or is not nested."""
+    if _holds_decimal(dt):
+        return f"{dt.name}: decimals inside nested values arrive with " \
+            f"{NESTED_REST}"
     if isinstance(dt, MapType) and not device_map_ok(dt):
         return (f"a map of {dt.key.name} keys and {dt.value.name} values "
                 f"arrives with {NESTED_REST}")
@@ -215,6 +276,20 @@ def nested_reason(dt: DataType) -> Optional[str]:
             if r:
                 return f"struct field {f.name}: {r}"
     return None
+
+
+def _holds_decimal(dt: DataType) -> bool:
+    """A list, map or struct with a decimal somewhere inside."""
+    if isinstance(dt, ArrayType):
+        return isinstance(dt.element, DecimalType) \
+            or _holds_decimal(dt.element)
+    if isinstance(dt, MapType):
+        return any(isinstance(t, DecimalType) or _holds_decimal(t)
+                   for t in (dt.key, dt.value))
+    if isinstance(dt, StructType):
+        return any(isinstance(f.dtype, DecimalType)
+                   or _holds_decimal(f.dtype) for f in dt.fields)
+    return False
 
 
 class TypeEnum:
@@ -229,6 +304,7 @@ class TypeEnum:
     TIMESTAMP = "TIMESTAMP"
     STRING = "STRING"
     BINARY = "BINARY"
+    DECIMAL = "DECIMAL"
     NULL = "NULL"
 
 
@@ -242,9 +318,15 @@ _ENUM = {
 }
 
 
+def _enum_of(dt: DataType) -> Optional[str]:
+    if isinstance(dt, DecimalType):
+        return TypeEnum.DECIMAL
+    return _ENUM.get(dt.name)
+
+
 class TypeSig:
     """The set of type enums an expression supports on the device (the
-    reference's TypeSig, without nesting, notes or decimals)."""
+    reference's TypeSig, without nesting or notes)."""
 
     def __init__(self, initial: Iterable[str] = ()):
         self.types: FrozenSet[str] = frozenset(initial)
@@ -253,7 +335,7 @@ class TypeSig:
         return TypeSig(self.types | other.types)
 
     def reason_not_supported(self, dt: DataType) -> Optional[str]:
-        enum = _ENUM.get(dt.name)
+        enum = _enum_of(dt)
         if enum is None or enum not in self.types:
             return f"{enum or dt.name} is not supported"
         return None
@@ -263,8 +345,10 @@ integral = TypeSig([TypeEnum.BYTE, TypeEnum.SHORT, TypeEnum.INT,
                     TypeEnum.LONG])
 fp = TypeSig([TypeEnum.FLOAT, TypeEnum.DOUBLE])
 numeric = integral + fp
-comparable = numeric + TypeSig([TypeEnum.BOOLEAN, TypeEnum.DATE,
-                                TypeEnum.TIMESTAMP, TypeEnum.STRING])
+decimal_sig = TypeSig([TypeEnum.DECIMAL])
+comparable = numeric + decimal_sig + TypeSig([TypeEnum.BOOLEAN, TypeEnum.DATE,
+                                          TypeEnum.TIMESTAMP,
+                                          TypeEnum.STRING])
 #: types with a dense device layout
 deviceNative = numeric + TypeSig([TypeEnum.BOOLEAN, TypeEnum.DATE,
                                   TypeEnum.TIMESTAMP])
@@ -304,6 +388,8 @@ def from_arrow(at) -> DataType:
     for check, dt in checks:
         if check(at):
             return dt
+    if pa.types.is_decimal(at):
+        return DecimalType(at.precision, at.scale)
     if pa.types.is_list(at) or pa.types.is_large_list(at):
         return ArrayType(from_arrow(at.value_type))
     if pa.types.is_map(at):
@@ -322,6 +408,8 @@ def to_arrow(dt: DataType):
          "double": pa.float64(), "date": pa.date32(),
          "timestamp": pa.timestamp("us", tz="UTC"), "string": pa.string(),
          "binary": pa.binary(), "void": pa.null()}
+    if isinstance(dt, DecimalType):
+        return pa.decimal128(dt.precision, dt.scale)
     if isinstance(dt, ArrayType):
         return pa.list_(to_arrow(dt.element))
     if isinstance(dt, MapType):

@@ -465,7 +465,7 @@ def test_errors_equal_reference(sessions, text, match):
 REFUSED = [
     ("SELECT name || 'x' FROM people", "slice 7"),
     ("SELECT CAST(v AS STRING) FROM people", "slice 7"),
-    ("SELECT CAST(v AS DECIMAL) FROM people", "decimals"),
+    ("SELECT CAST(name AS DECIMAL) FROM people", "decimals"),
     ("SELECT from_utc_timestamp(l_shipdate, 'UTC') FROM lineitem",
      "time-zone"),
     ("SELECT to_utc_timestamp(l_shipdate, 'UTC') FROM lineitem",

@@ -390,6 +390,34 @@ def test_list_refusals_name_their_queue():
         many.select(PF.split(PF.col("s"), " ").alias("w")).collect()
 
 
+#: fault C3's shapes (ROADMAP.md Queue C): each over a host string column
+C3_CASES = {
+    "split": lambda df: df.select(PF.split(PF.col("t"), ",").alias("o")),
+    "str_to_map": lambda df: df.select(PF.str_to_map(PF.col("t"))
+                                       .alias("o")),
+    "array": lambda df: df.select(PF.array(PF.col("t")).alias("o")),
+    "collect_list": lambda df: df.group_by("k").agg(
+        PF.collect_list(PF.col("t")).with_name("o")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(C3_CASES))
+def test_host_strings_into_nested_paths_are_refused_by_name(case):
+    """Fault C3: 200 distinct texts of ~80 bytes, past rect.maxBytes = 64
+    and not dictionary-shaped, stay host strings; split, str_to_map,
+    array() and collect_list over them raise the named NotImplementedError
+    (host strings inside nested values, slice 9b's rest), not an
+    AttributeError."""
+    rng = np.random.RandomState(3)
+    texts = np.array([f"k{i}:v{i}," + "".join(rng.choice(list("abcdef"), 72))
+                      for i in range(200)], object)
+    df = TorchSession(OFF, device="cpu").create_dataframe(
+        {"t": texts, "k": np.arange(200) % 4})
+    with pytest.raises(NotImplementedError,
+                       match="host strings.*slice 9b, the rest"):
+        C3_CASES[case](df).collect()
+
+
 # ---------------------------------------------------------------------------
 # chip_smoke.py phase 18 at a small size
 # ---------------------------------------------------------------------------
