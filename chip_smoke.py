@@ -14,12 +14,13 @@ result line):
                 ptxas must report no stack frame and no spills for any
                 function. ``--compare NAME=DIR`` also builds
                 DIR/rect_match.cu, DIR/dense_groupby.cu,
-                DIR/rect_transform.cu, DIR/window_frame.cu and/or
-                DIR/sort_bucket.cu (another version of a kernel with its
-                headers, e.g. an earlier commit's; dense_groupby with the
-                C interface of commit 645412c) alongside, to be timed
-                beside the port's (rect_transform, window_frame and
-                sort_bucket in turns with it);
+                DIR/rect_transform.cu, DIR/window_frame.cu,
+                DIR/sort_bucket.cu and/or DIR/decimal_arith.cu (another
+                version of a kernel with its headers, e.g. an earlier
+                commit's; dense_groupby with the C interface of commit
+                645412c) alongside, to be timed beside the port's
+                (rect_transform, window_frame, sort_bucket and
+                decimal_arith in turns with it);
   3. kernels -- each kernel's wrapper on the card against its plain torch
                 version: rect_match exactly, in every mode and edge case;
                 dense_groupby with counts exact and float sums within a
@@ -292,9 +293,14 @@ result line):
                 1,048,576 rows of each function (q1's decimal(15,2) by
                 decimal(16,2); decimal(38,10) / decimal(18,4) with
                 overflows and zero divisors; decimal(38,0) + and %
-                decimal(38,10), a rescale past int64), timed with the
-                L2 cold beside its bound and the plain version. Each
-                query cold and warm.
+                decimal(38,10), a rescale past int64; to_double at
+                q1's own shape), timed with the L2 cold in turns with
+                the versions of --compare, beside its bound, the plain
+                version and (q1's to_double) torch's cast and divide;
+                bit for bit on edge rows at every launch constant's
+                boundary, from aligned and unaligned views; no integer
+                division in its SASS (cuobjdump). Each query cold and
+                warm.
 
 The data is generated here from a seed, with numpy only: this script
 imports neither JAX, pyarrow, pandas nor the JAX package. It prints a
@@ -1411,6 +1417,34 @@ def _sort_bucket_compare(name, lib):
     return other
 
 
+def _decimal_arith_compare(name, lib):
+    """decimal_arith_launch of another build (the C signature of the
+    port's; commit 6c800d3's has it), with decimal_arith's arguments and
+    result (no launch count: it is not on the port's path)."""
+    import ctypes
+
+    import torch
+    from spark_rapids_tpu_torch.exprs import decimal_arith as da
+    fn = lib.decimal_arith_launch
+    fn.argtypes = da._ARGTYPES
+    fn.restype = ctypes.c_int
+
+    def other(op, operands, valid, valid2=None, k=0, t=0, m=0, p=38):
+        n, dev = valid.shape[0], valid.device
+        out = torch.empty(n, dtype=torch.int64, device=dev)
+        ok = torch.empty(n, dtype=torch.bool, device=dev)
+        ptrs = [o.data_ptr() for o in operands] + [None] * (
+            4 - len(operands))
+        rc = fn(da.OPS[op], *ptrs, valid.data_ptr(),
+                None if valid2 is None else valid2.data_ptr(), n, k, t, m,
+                p, out.data_ptr(), ok.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _check(rc == 0, f"{name} decimal_arith launch failed: CUDA error "
+                        f"{rc}")
+        return out, ok
+    return other
+
+
 def _finish_compare_build(name, kernel, proc, out):
     """The built kernel as a function with the port's wrapper's arguments
     (and no launch count: it is not on the port's path)."""
@@ -1429,6 +1463,10 @@ def _finish_compare_build(name, kernel, proc, out):
         return _window_frame_compare(name, lib)
     if kernel == "sort_bucket":
         return _sort_bucket_compare(name, lib)
+    if kernel == "decimal_arith":
+        other = _decimal_arith_compare(name, lib)
+        other.library = out
+        return other
     return _dense_groupby_compare(name, lib)
 
 
@@ -7619,6 +7657,11 @@ def _da_inputs(rng, n: int, which: str):
     def dev(a, dt=torch.int64):
         return torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dt)
     valid = dev(rng.rand(n) > 0.02, torch.bool)
+    if which == "to_double_q1":
+        # q1's cast of decimal(15,2) l_extendedprice to double: cents
+        # below 2^53, s = 2, every row on the one-division path
+        return ([dev(rng.randint(90000, 10500001, n))], valid, None, 2, 0,
+                0, 15, 18)
     if which in ("mul", "rescale", "to_double"):
         # q1's decimal(15,2) price and decimal(16,2) (1 - discount)
         price = rng.randint(90000, 10500001, n)
@@ -7667,77 +7710,321 @@ def _da_inputs(rng, n: int, which: str):
             19, 42)
 
 
-def phase_decimal_kernel(card: str) -> dict:
-    """Phase 19 (d): decimal_arith on the card against its plain version,
-    bit for bit, on DA_ROWS rows of each function, then timed with the L2
-    cold beside its bound and the plain version's time."""
+#: the functions phase 19 (d) times at DA_ROWS rows (_da_inputs);
+#: "to_double_q1" is to_double at q1's own shape
+DA_TIMED = ("mul", "div", "rescale", "avg", "to_double", "add", "rem",
+            "to_double_q1")
+#: the launch constants' boundaries held bit for bit on edge rows: where a
+#: power of ten passes one limb (10^19 < 2^64 < 10^20) and where a double
+#: stops holding it exactly (10^22)
+DA_BOUNDS = (0, 19, 20, 22, 23, 38)
+#: operands whose every pair phase 19 (d)'s edge rows take
+DA_EDGE = (0, 1, -1, 5, -5, 99, 10 ** 9, -10 ** 18, 2 ** 63 - 1, -2 ** 63,
+           -2 ** 63 + 1, 2 ** 53 + 1, -(2 ** 53), 123456789012345, 10 ** 18,
+           7)
+
+
+def _da_edge_cases():
+    """(function, k, t, m, p) of phase 19 (d)'s edge rows: every function
+    at each of DA_BOUNDS (both signs where the constant may be negative),
+    avg with m of 0 and 32 and add/sub with m of 0 and 32, at precisions
+    38 and 15."""
+    cases = []
+    for p in (38, 15):
+        cases += [("mul", k, 0, 0, p) for k in DA_BOUNDS + (-19, -20, -38)]
+        cases += [("rescale", k, 0, 0, p)
+                  for k in DA_BOUNDS + (-19, -20, -22, -23, -38)]
+        cases += [("div", e, 32, 0, p) for e in DA_BOUNDS + (-19, -20, -38)]
+        cases += [("avg", e, 20, m, p) for e in DA_BOUNDS for m in (0, 32)]
+        cases += [("add", k, 0, m, p) for k in DA_BOUNDS for m in (0, 32)]
+        cases += [("sub", 0, k, m, p) for k in DA_BOUNDS for m in (0, 32)]
+        cases += [("rem", k, 0, 0, p) for k in DA_BOUNDS]
+        cases += [("rem", 0, k, 0, p) for k in DA_BOUNDS]
+    cases += [("to_double", s, 0, 0, 38) for s in DA_BOUNDS]
+    return cases
+
+
+def _da_edge_rows(rng, op: str):
+    """Edge operands of ``op`` as numpy columns: every pair of DA_EDGE and
+    61 random rows (an odd row count: a partial last group); avg
+    takes limbs at their ends and counts of 1 to INT64_MAX."""
+    if op == "avg":
+        L = 10 ** 12
+        rows = [(l0, l1, l2, c) for l0 in (0, 1, L - 1) for l1 in (0, L - 1)
+                for l2 in (0, -1, 7, 2 ** 40 - 1, -(2 ** 40 - 1), 2 ** 40)
+                for c in (1, 3, 7, 0, 2 ** 63 - 1)]
+        rows += [(rng.randint(0, L), rng.randint(0, L),
+                  rng.randint(-2 ** 40 + 1, 2 ** 40), rng.randint(1, 2 ** 62))
+                 for _ in range(61)]
+        return [np.array(c, np.int64) for c in zip(*rows)]
+    a = [x for x in DA_EDGE for _ in DA_EDGE]
+    b = [y for _ in DA_EDGE for y in DA_EDGE]
+    a += rng.randint(-2 ** 63, 2 ** 63 - 1, 61, dtype=np.int64).tolist()
+    b += rng.randint(-10 ** 9, 10 ** 9, 61).tolist()
+    cols = [np.array(a, np.int64), np.array(b, np.int64)]
+    return cols[:1] if op in ("rescale", "to_double") else cols
+
+
+def phase_decimal_edges() -> int:
+    """decimal_arith bit for bit against its plain version on edge rows
+    (_da_edge_cases, _da_edge_rows, 2% of each validity false), each case
+    twice: from aligned vectors (the vector instance, its last partial
+    group a row a thread) and from views one int64 into larger
+    vectors (not 16-byte aligned: the scalar instance). Returns the
+    cases held."""
     import torch
     from spark_rapids_tpu_torch.exprs import decimal_arith as DA
+    rng = np.random.RandomState(1919)
+    cases = _da_edge_cases()
+    for op, k, t, m, p in cases:
+        cols = _da_edge_rows(rng, op)
+        n = len(cols[0])
+        vals = [rng.rand(n) > 0.02 for _ in range(2)]
+        two = DA._ARITY[op] == 2
+        want, wok = DA.decimal_arith_reference(
+            op, [torch.from_numpy(c).cuda() for c in cols],
+            torch.from_numpy(vals[0] & vals[1] if two else vals[0]).cuda(),
+            k, t, m, p)
+        for shift in (0, 1):
+            def put(x, dt):
+                buf = torch.zeros(n + shift, dtype=dt, device="cuda")
+                buf[shift:] = torch.from_numpy(x).to("cuda", dt)
+                return buf[shift:]
+            ops = [put(c, torch.int64) for c in cols]
+            got, ok = DA.decimal_arith(
+                op, ops, put(vals[0], torch.bool),
+                put(vals[1], torch.bool) if two else None, k, t, m, p)
+            torch.cuda.synchronize()
+            bad = (got != want) | (ok != wok)
+            if bool(bad.any()):
+                r = torch.nonzero(bad)[:4, 0].tolist()
+                _log(f"decimal_arith {op} k={k} t={t} m={m} p={p} "
+                     f"shift={shift}: rows {r}: operands "
+                     f"{[[int(c[i]) for c in cols] for i in r]}, kernel "
+                     f"{[(int(got[i]), bool(ok[i])) for i in r]}, plain "
+                     f"{[(int(want[i]), bool(wok[i])) for i in r]}")
+            _check(not bool(bad.any()),
+                   f"decimal_arith {op} (k={k}, t={t}, m={m}, p={p}, "
+                   f"view shift {shift}): {int(bad.sum())} edge rows differ "
+                   "from the plain version")
+    return len(cases)
+
+
+def _sass_calls(lib_path) -> dict:
+    """cuobjdump -sass of a built library, kernel by kernel: the
+    subroutines each calls and its I2F conversions rounded toward +inf
+    (.RP, the mark of an inlined integer division)."""
+    from spark_rapids_tpu_torch import native
+    tool = Path(native._nvcc()).with_name("cuobjdump")
+    _check(tool.exists(), f"no cuobjdump beside nvcc ({tool})")
+    proc = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300)
+    _check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr[:400]}")
+    out, fn = {}, None
+    for ln in proc.stdout.splitlines():
+        mf = re.search(r"Function : (\S+)", ln)
+        if mf:
+            fn = mf.group(1)
+            out[fn] = {"calls": set(), "rp": 0, "instructions": 0}
+            continue
+        if fn is None or not re.search(r"/\*[0-9a-f]{4,}\*/", ln):
+            continue
+        out[fn]["instructions"] += 1
+        mc = re.search(r"CALL\S*\s+`?\(?([^`)\s;]+)", ln)
+        if mc:
+            out[fn]["calls"].add(mc.group(1))
+        if re.search(r"I2F\S*\.RP\b", ln):
+            out[fn]["rp"] += 1
+    return out
+
+
+def _integer_division_calls(sass: dict) -> dict:
+    """{kernel: [subroutines that divide integers]}: a name with div or
+    rem that is not a float routine (f32, f64, rcp), or any .RP
+    conversion."""
+    bad = {}
+    for fn, info in sass.items():
+        names = [c for c in info["calls"]
+                 if re.search(r"div|rem", c, re.I)
+                 and not re.search(r"f32|f64|rcp", c, re.I)]
+        if names or info["rp"]:
+            bad[fn] = names + ([f"{info['rp']} I2F .RP"] if info["rp"]
+                               else [])
+    return bad
+
+
+def phase_decimal_sass(compare) -> dict:
+    """The built decimal_arith library's SASS (and each version to
+    compare, recorded only): no kernel of the port's may call an integer
+    division routine or inline one."""
+    from spark_rapids_tpu_torch import native
+    sass = _sass_calls(native.library_path("decimal_arith"))
+    kernels = {fn: v for fn, v in sass.items() if "decimal_arith" in fn}
+    _check(len(kernels) == 16, f"decimal_arith SASS: {len(kernels)} kernels, "
+                               "expected 16 (8 functions, 2 instances)")
+    bad = _integer_division_calls(kernels)
+    calls = sorted({c for v in kernels.values() for c in v["calls"]})
+    _log(f"decimal_arith SASS (cuobjdump -sass): {len(kernels)} kernels, "
+         f"{sum(v['instructions'] for v in kernels.values())} instructions; "
+         f"subroutines called: {calls or 'none'}; integer division: "
+         f"{bad or 'none'}")
+    _check(not bad, f"decimal_arith kernels divide integers in software: "
+                    f"{bad}")
+    out = {"kernels": len(kernels), "calls": calls,
+           "instructions": {fn: v["instructions"]
+                            for fn, v in kernels.items()}}
+    for name, f in (compare or {}).items():
+        theirs = _sass_calls(f.library)
+        theirs = {fn: v for fn, v in theirs.items() if "decimal_arith" in fn}
+        out[name] = {"calls": sorted({c for v in theirs.values()
+                                      for c in v["calls"]}),
+                     "integer_division": {fn: v for fn, v in
+                                          _integer_division_calls(
+                                              theirs).items()}}
+        _log(f"decimal_arith SASS of {name}: subroutines called "
+             f"{out[name]['calls'] or 'none'}; integer division in "
+             f"{len(out[name]['integer_division'])} of {len(theirs)} "
+             "kernels")
+    return out
+
+
+def phase_decimal_kernel(card: str, compare=None) -> dict:
+    """Phase 19 (d): decimal_arith on the card against its plain version,
+    bit for bit, on DA_ROWS rows of each function of DA_TIMED (and each
+    version of ``compare``, name -> launch), then timed with the L2 cold
+    in turns with those versions (kernel, others, others, kernel, kernel,
+    others) beside its bound and the plain version's time; to_double at
+    q1's shape beside torch's cast and divide (the same function on its
+    domain). Then the edge rows (phase_decimal_edges) and the SASS
+    (phase_decimal_sass)."""
+    import torch
+    from spark_rapids_tpu_torch.exprs import decimal_arith as DA
+    compare = compare or {}
     rng = np.random.RandomState(19)
-    out, worst = {}, 0
-    for which in ("mul", "div", "rescale", "avg", "to_double", "add", "rem"):
+    out = {}
+    for which in DA_TIMED:
+        op = "to_double" if which == "to_double_q1" else which
         ops, valid, valid2, k, t, m, p, row_bytes = _da_inputs(
             rng, DA_ROWS, which)
         n_ops = len(ops)
         ops = ops + [valid] + ([valid2] if valid2 is not None else [])
 
-        def kern(*x, which=which, n_ops=n_ops, k=k, t=t, m=m, p=p):
-            return DA.decimal_arith(which, x[:n_ops], x[n_ops],
+        def kern(*x, op=op, n_ops=n_ops, k=k, t=t, m=m, p=p):
+            return DA.decimal_arith(op, x[:n_ops], x[n_ops],
                                     x[n_ops + 1] if len(x) > n_ops + 1
                                     else None, k, t, m, p)
 
-        def plain(*x, which=which, n_ops=n_ops, k=k, t=t, m=m, p=p):
+        def plain(*x, op=op, n_ops=n_ops, k=k, t=t, m=m, p=p):
             both = x[n_ops] if len(x) == n_ops + 1 \
                 else x[n_ops] & x[n_ops + 1]
-            return DA.decimal_arith_reference(which, x[:n_ops], both, k, t,
+            return DA.decimal_arith_reference(op, x[:n_ops], both, k, t,
                                               m, p)
-        got, ok = kern(*ops)
+
+        def other(f, op=op, n_ops=n_ops, k=k, t=t, m=m, p=p):
+            return lambda *x: f(op, x[:n_ops], x[n_ops],
+                                x[n_ops + 1] if len(x) > n_ops + 1
+                                else None, k, t, m, p)
         want, wok = plain(*ops)
-        torch.cuda.synchronize()
-        _check(torch.equal(ok, wok), f"decimal_arith {which}: validity "
-               f"differs from the plain version in "
-               f"{int((ok != wok).sum())} rows")
-        diff = int((got != want).sum())
-        err = 0 if diff == 0 else int((got - want).abs().max())
-        if diff:
-            rows = torch.nonzero(got != want)[:5, 0].tolist()
-            _log(f"decimal_arith {which}: rows {rows}: operands "
-                 f"{[[int(o[r]) for o in ops[:n_ops]] for r in rows]}, "
-                 f"kernel {[int(got[r]) for r in rows]}, plain "
-                 f"{[int(want[r]) for r in rows]}")
-        _check(diff == 0, f"decimal_arith {which}: {diff} results differ "
-               "from the plain version's bits")
-        worst = max(worst, err)
+        versions = [("kernel", kern)] + [(c, other(f))
+                                         for c, f in compare.items()]
+        for who, f in versions:
+            got, ok = f(*ops)
+            torch.cuda.synchronize()
+            _check(torch.equal(ok, wok), f"decimal_arith {which} ({who}): "
+                   f"validity differs from the plain version in "
+                   f"{int((ok != wok).sum())} rows")
+            diff = int((got != want).sum())
+            if diff:
+                rows = torch.nonzero(got != want)[:5, 0].tolist()
+                _log(f"decimal_arith {which} ({who}): rows {rows}: operands "
+                     f"{[[int(o[r]) for o in ops[:n_ops]] for r in rows]}, "
+                     f"kernel {[int(got[r]) for r in rows]}, plain "
+                     f"{[int(want[r]) for r in rows]}")
+            _check(diff == 0, f"decimal_arith {which} ({who}): {diff} "
+                   "results differ from the plain version's bits")
         n_copies = max(2, -(-COLD_BYTES // (row_bytes * DA_ROWS)))
         inputs = [tuple(ops)] + [tuple(o.clone() for o in ops)
                                  for _ in range(n_copies - 1)]
-        ms, host_ms = _cold_ms(kern, inputs, f"decimal_arith {which}")
+        turns = {who: [] for who, _ in versions}
+        hosts = []
+        for who, f in versions + versions[::-1] + versions:
+            ms, host = _cold_ms(f, inputs, f"decimal_arith {which} {who}")
+            turns[who].append(ms)
+            if who == "kernel":
+                hosts.append(host)
+        ms = float(np.mean(turns["kernel"]))
         plain_ms = _plain_ms(plain, inputs[:2], f"plain {which}")
+        library_ms = None
+        if valid2 is not None and which == "mul":
+            # the two validities' AND the wrapper no longer launches on the
+            # card (its plain version alone takes it)
+            and_ms, and_host = _cold_ms(lambda *x: x[n_ops] & x[n_ops + 1],
+                                        inputs, "validity AND")
+        if which == "to_double_q1":
+            # torch's exact cast and one IEEE division by 10^s: the same
+            # function where every |x| < 2^53 and s <= 22 (validity aside)
+            scale = torch.full((), 10.0 ** k, dtype=torch.float64,
+                               device="cuda")
+
+            def library(*x):
+                return x[0].to(torch.float64).div(scale)
+            lib = library(*ops)
+            _check(torch.equal(lib.view(torch.int64)[wok], want[wok]),
+                   "to_double at q1's shape differs from torch's cast and "
+                   "divide")
+            library_ms, _ = _cold_ms(library, inputs,
+                                     "to_double q1 cast and divide")
         bytes_ms = row_bytes * DA_ROWS / HBM_BYTES_PER_S * 1e3
-        ops_ms = DA_MIN_OPS[which] * DA_ROWS / SCALAR_OPS_PER_S * 1e3
-        out[which] = {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+        ops_ms = DA_MIN_OPS[op] * DA_ROWS / SCALAR_OPS_PER_S * 1e3
+        out[which] = {"ms": ms, "host_ms": float(np.mean(hosts)),
+                      "turns_ms": turns,
+                      "compare_ms": {c: float(np.mean(turns[c]))
+                                     for c in compare},
+                      "plain_ms": plain_ms, "library_ms": library_ms,
                       "bound_ms": max(bytes_ms, ops_ms),
                       "bound_by": "bytes" if bytes_ms >= ops_ms
                       else "operations",
                       "bound_bytes": row_bytes * DA_ROWS,
-                      "valid_rows": int(ok.sum()), "max_abs_err": err,
+                      "valid_rows": int(wok.sum()), "max_abs_err": 0,
                       "k": k, "t": t, "m": m, "p": p}
+        row = out[which]
+        if which == "mul":
+            row.update(and_ms=and_ms, and_host_ms=and_host)
+            _log(f"the two validities' AND the wrapper no longer launches: "
+                 f"{and_ms:.4f} ms of device time, {and_host:.4f} ms of host "
+                 "time a call")
+        others = "".join(
+            f"; {c} {row['compare_ms'][c]:.4f} ms (turns "
+            f"{', '.join(f'{x:.4f}' for x in turns[c])}, "
+            f"{row['bound_ms'] / row['compare_ms'][c]:.0%} of bound)"
+            for c in compare)
+        lib_txt = "" if library_ms is None else \
+            f", torch cast and divide {library_ms:.4f} ms"
         _log(f"decimal_arith {which} ({card}): {DA_ROWS} rows bit-equal to "
-             f"the plain version ({out[which]['valid_rows']} valid); "
-             f"{ms:.4f} ms a launch (L2 cold), bound {out[which]['bound_ms']:.4f} "
-             f"ms ({out[which]['bound_by']}, {row_bytes} bytes a row at "
-             f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), plain {plain_ms:.2f} ms, "
-             f"host {host_ms:.4f} ms a call")
+             f"the plain version ({row['valid_rows']} valid); "
+             f"{ms:.4f} ms a launch (L2 cold; turns "
+             f"{', '.join(f'{x:.4f}' for x in turns['kernel'])}), "
+             f"{row['bound_ms'] / ms:.0%} of bound {row['bound_ms']:.4f} "
+             f"ms ({row['bound_by']}, {row_bytes} bytes a row at "
+             f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s){others}{lib_txt}; plain "
+             f"{plain_ms:.2f} ms, host {row['host_ms']:.4f} ms a call")
         del ops, inputs
+    out["edge_cases"] = phase_decimal_edges()
+    _log(f"decimal_arith ({card}): {out['edge_cases']} edge cases bit-equal "
+         "to the plain version, aligned and from unaligned views")
+    out["sass"] = phase_decimal_sass(compare)
     out["describe"] = DA.describe()
-    out["max_abs_err"] = worst
+    _log(f"decimal_arith registers (vector / scalar instances): "
+         f"{out['describe']}")
+    out["max_abs_err"] = 0         # every check above is bit for bit
     return out
 
 
 def phase_decimals(card: str, batch_rows: int, table: dict,
-                   ds19: dict) -> dict:
+                   ds19: dict, compare=None) -> dict:
     """Phase 19 (module doc): decimals through the normal entry points at
-    full TPC scale, exact against numpy, and the decimal_arith kernel."""
+    full TPC scale, exact against numpy, and the decimal_arith kernel
+    (``compare``: name -> another build's launch, timed in turns)."""
     import shutil
     import tempfile
 
@@ -7914,7 +8201,7 @@ def phase_decimals(card: str, batch_rows: int, table: dict,
     shutil.rmtree(pq_dir, ignore_errors=True)
 
     # (d) the kernel alone
-    out["kernel"] = phase_decimal_kernel(card)
+    out["kernel"] = phase_decimal_kernel(card, compare)
     out["phase_s"] = time.perf_counter() - t_phase
     _log(f"phase 19 (decimals) took {out['phase_s']:.1f} s")
     torch.cuda.empty_cache()
@@ -7927,7 +8214,8 @@ def main(argv=None) -> int:
                     default=[],
                     help="also build DIR/rect_match.cu, "
                     "DIR/dense_groupby.cu, DIR/rect_transform.cu, "
-                    "DIR/window_frame.cu and/or DIR/sort_bucket.cu "
+                    "DIR/window_frame.cu, DIR/sort_bucket.cu and/or "
+                    "DIR/decimal_arith.cu "
                     "(another version of the kernel, such as an earlier "
                     "commit's: each with the port's launch signature, "
                     "dense_groupby with that of commit 645412c) and time "
@@ -8122,7 +8410,8 @@ def main(argv=None) -> int:
         nested = phase_nested(card, batch_rows, table, host)
         maps = phase_maps_structs(card, batch_rows, table, host)
         lists = phase_string_lists(card, batch_rows, table, host)
-        decimals = phase_decimals(card, batch_rows, table, ds19)
+        decimals = phase_decimals(card, batch_rows, table, ds19,
+                                  compare["decimal_arith"])
         del ds19
         _log(json.dumps({"queries": {
             "q6": {"rows": SF1_ROWS, "wall_ms_cold": ms_cold,
@@ -8409,16 +8698,24 @@ def main(argv=None) -> int:
             "bound_ms": dk["mul"]["bound_ms"],
             "bound_by": dk["mul"]["bound_by"],
             "bound_bytes": dk["mul"]["bound_bytes"], "library_ms": None,
-            "library": "none: torch has no int128",
+            "library": "none: torch has no int128 (to_double_q1: "
+                       "torch's cast and divide, the same function where "
+                       "|x| < 2^53)",
             "host_ms": dk["mul"]["host_ms"],
+            "validity_and_ms": dk["mul"]["and_ms"],
+            "validity_and_host_ms": dk["mul"]["and_host_ms"],
+            "compare_ms": dk["mul"]["compare_ms"],
+            "turns_ms": dk["mul"]["turns_ms"],
             "timing": "device time per launch, launches queued back to "
-                      "back over distinct inputs (L2 cold)",
+                      "back over distinct inputs (L2 cold), in turns with "
+                      "the versions of --compare",
             "shape": [DA_ROWS], "registers": dk["describe"],
+            "edge_cases": dk["edge_cases"], "sass": dk["sass"],
             **{name: {k: dk[name][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "host_ms",
-                "valid_rows", "max_abs_err")}
-               for name in ("div", "rescale", "avg", "to_double", "add",
-                            "rem")},
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "host_ms", "valid_rows", "max_abs_err", "compare_ms",
+                "turns_ms")}
+               for name in DA_TIMED if name != "mul"},
         }
         _log(json.dumps({"kernels": [kernel, dense, join,
                                      tpcds2["kernel"], transform, frame,

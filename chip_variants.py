@@ -4,6 +4,7 @@ two-kernel design of commit 843e714, and distinct_flag against the
 two-launch design of commit 04f2565, on one NVIDIA card.
 
     python3 chip_variants.py [dense_groupby] [join_match] [distinct_flag]
+                             [decimal_arith]
 
 (every section when none is named)
 
@@ -52,11 +53,21 @@ launches apart, with an 8-byte count copy and event after them, and
 without its fences (DF_VARIANTS); and the port's kernel beside its
 variants (DF_NEW_VARIANTS: 04f2565's fences, no grid barrier), and the
 host microseconds a call of the port's wrapper and of its parts.
+
+decimal_arith (~60 s): variants of csrc/decimal_arith.cu made by text
+substitution (DA_VARIANTS: one or four rows a thread in place of two,
+grids of one, four or 32 waves of resident blocks in place of two (a
+thread loads its next group while it computes one), registers bounded
+for 4 blocks an SM (a variant that then spills is reported and not
+timed), the loads and stores alone, no reciprocal a row), each built into build/variants/ and timed cold beside the kernel
+on chip_smoke.py's phase 19 (d) shapes, in turns; the variants that keep
+the kernel's results are checked against it bit for bit first.
 """
 from __future__ import annotations
 
 import array
 import ctypes
+import re
 import subprocess
 import sys
 
@@ -1387,6 +1398,126 @@ def distinct_section(builds, new_builds) -> None:
           "(median of 21 loops of 50 calls): " + ", ".join(
               f"{k} {v:.2f}" for k, v in split.items()), flush=True)
 
+#: decimal_arith variants, each the kernel with one part changed by a text
+#: substitution in csrc/decimal_arith.cu: (substitutions, whether its
+#: results are the kernel's own)
+DA_VARIANTS = {
+    "rows_1": ([("constexpr int kRows = 2;", "constexpr int kRows = 1;")],
+               True),
+    "rows_4": ([("constexpr int kRows = 2;", "constexpr int kRows = 4;")],
+               True),
+    "waves_1": ([("constexpr int kWaves = 2;", "constexpr int kWaves = 1;")],
+                True),
+    "waves_4": ([("constexpr int kWaves = 2;", "constexpr int kWaves = 4;")],
+                True),
+    "waves_32": ([("constexpr int kWaves = 2;",
+                   "constexpr int kWaves = 32;")], True),
+    "blocks_4": ([("__global__ void __launch_bounds__(kThreads) "
+                   "decimal_arith_kernel(",
+                   "__global__ void __launch_bounds__(kThreads, 4) "
+                   "decimal_arith_kernel(")], True),
+    "rows_1_blocks_4": ([("constexpr int kRows = 2;",
+                          "constexpr int kRows = 1;"),
+                         ("__global__ void __launch_bounds__(kThreads) "
+                          "decimal_arith_kernel(",
+                          "__global__ void __launch_bounds__(kThreads, 4) "
+                          "decimal_arith_kernel(")], True),
+    "loads_only": ([("          da_row_c(OP, k, cur.x[0][j], cur.x[1][j], "
+                     "cur.x[2][j],\n                   cur.x[3][j], &v) &&",
+                     "          ((v = cur.x[0][j] ^ cur.x[1][j] ^ "
+                     "cur.x[2][j] ^ cur.x[3][j]), true) &&")], False),
+    # what a row's reciprocal costs (div, avg, rem): none built
+    "no_reciprocal": ([("H:DA_HD uint64_t da_recip(uint64_t d) {\n",
+                        "DA_HD uint64_t da_recip(uint64_t d) {\n"
+                        "  if (d != 1) return ~d;\n")], False),
+}
+
+
+def _build_da_variants():
+    """Start one nvcc a variant of the port's decimal_arith; {name:
+    (process, library)}."""
+    from spark_rapids_tpu_torch import native
+    src = (native.CSRC / "decimal_arith.cu").read_text()
+    hdr = (native.CSRC / "decimal_arith_row.cuh").read_text()
+    started = {}
+    for name, (subs, _) in DA_VARIANTS.items():
+        s, h = src, hdr
+        for old, new in subs:
+            if old.startswith("H:"):
+                cs._check(old[2:] in h, f"{name}: no {old[2:]!r} in header")
+                h = h.replace(old[2:], new)
+            else:
+                cs._check(old in s, f"{name}: no {old!r} in the kernel")
+                s = s.replace(old, new)
+        d = native.BUILD_DIR / "variants" / f"decimal_arith_{name}"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "decimal_arith.cu").write_text(s)
+        (d / "decimal_arith_row.cuh").write_text(h)
+        lib = d / "libdecimal_arith.so"
+        started[name] = (subprocess.Popen(
+            [native._nvcc(), *native.NVCC_FLAGS, "-I", str(d),
+             "-o", str(lib), str(d / "decimal_arith.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    return started
+
+
+def decimal_section(builds) -> None:
+    """decimal_arith beside its variants (DA_VARIANTS) on chip_smoke.py's
+    phase 19 (d) shapes, cold, in turns (kernel, variants, variants in
+    reverse, kernel); the variants that keep the kernel's results are
+    checked bit for bit against it first."""
+    import torch
+    from spark_rapids_tpu_torch.exprs import decimal_arith as DA
+    fns = {}
+    for name, (proc, path) in builds.items():
+        log, _ = proc.communicate(timeout=600)
+        cs._check(proc.returncode == 0, f"nvcc failed for {name}:\n{log}")
+        frames = cs._ptxas_frames(log)
+        regs = sorted({int(m) for m in re.findall(r"Used (\d+) registers",
+                                                   log)})
+        if any(f[1:] != (0, 0, 0) for f in frames):
+            print(f"ptxas decimal_arith {name}: a stack frame or spills "
+                  f"{sorted({f[1:] for f in frames})}, registers {regs}: "
+                  "not timed", flush=True)
+            continue
+        print(f"ptxas decimal_arith {name}: registers {regs}", flush=True)
+        fns[name] = cs._decimal_arith_compare(name, ctypes.CDLL(str(path)))
+    rng = np.random.RandomState(19)
+    for which in cs.DA_TIMED:
+        op = "to_double" if which == "to_double_q1" else which
+        ops, valid, valid2, k, t, m, p, row_bytes = cs._da_inputs(
+            rng, cs.DA_ROWS, which)
+        n_ops = len(ops)
+        ops = ops + [valid] + ([valid2] if valid2 is not None else [])
+
+        def call(f, op=op, n_ops=n_ops, k=k, t=t, m=m, p=p):
+            return lambda *x: f(op, x[:n_ops], x[n_ops],
+                                x[n_ops + 1] if len(x) > n_ops + 1
+                                else None, k, t, m, p)
+        kern = call(DA.decimal_arith)
+        want, wok = kern(*ops)
+        for name, f in fns.items():
+            if DA_VARIANTS[name][1]:
+                got, ok = call(f)(*ops)
+                cs._check(torch.equal(got, want) and torch.equal(ok, wok),
+                          f"decimal_arith {which}: variant {name} differs")
+        n = max(2, -(-cs.COLD_BYTES // (row_bytes * cs.DA_ROWS)))
+        inputs = [tuple(ops)] + [tuple(o.clone() for o in ops)
+                                 for _ in range(n - 1)]
+        order = [("kernel", kern)] + [(name, call(f))
+                                      for name, f in fns.items()]
+        turns = {name: [] for name, _ in order}
+        for name, f in order + order[::-1]:
+            turns[name].append(cs._cold_ms(f, inputs,
+                                           f"{which} {name}")[0])
+        bound = row_bytes * cs.DA_ROWS / cs.HBM_BYTES_PER_S * 1e3
+        print(f"decimal_arith variants, {which} ({cs.DA_ROWS} rows, bound "
+              f"{bound:.4f} ms), device ms a call, cold: " + ", ".join(
+                  f"{name} {np.mean(v):.4f} ({v[0]:.4f}/{v[1]:.4f})"
+                  for name, v in turns.items()), flush=True)
+        del ops, inputs
+
+
 def main() -> int:
     try:
         import torch
@@ -1398,9 +1529,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sections = sys.argv[1:] or ["dense_groupby", "join_match",
-                                "distinct_flag"]
+                                "distinct_flag", "decimal_arith"]
     cs._check(set(sections) <= {"dense_groupby", "join_match",
-                                "distinct_flag"},
+                                "distinct_flag", "decimal_arith"},
               f"unknown sections {sections}")
     from spark_rapids_tpu_torch.exec import dense_groupby as dg
     cs.phase_device()
@@ -1409,6 +1540,7 @@ def main() -> int:
     join_variants = _build_join_variants() if old_join else {}
     df_builds = _build_df_04f2565() if "distinct_flag" in sections else {}
     df_new = _build_df_variants() if df_builds else {}
+    da_builds = _build_da_variants() if "decimal_arith" in sections else {}
     cs.phase_build()
     if "dense_groupby" in sections:
         for name, (proc, _) in started.items():
@@ -1436,6 +1568,8 @@ def main() -> int:
         join_section(old_join, join_variants)
     if df_builds:
         distinct_section(df_builds, df_new)
+    if da_builds:
+        decimal_section(da_builds)
     return 0
 
 

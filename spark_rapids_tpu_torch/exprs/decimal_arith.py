@@ -27,7 +27,9 @@ where the result fits int64; torch has no int128. The functions
 * ``rescale(x; k, p)``: ``x`` at a scale ``k`` digits higher (``k < 0``:
   lower, HALF_UP);
 * ``avg(l0, l1, l2, count; e, t, m, p)``: Spark's average, its Divide
-  and then its cast: the total ``(l2 * 10^12 + l1) * 10^12 + l0`` scaled
+  and then its cast: the total ``(l2 * 10^12 + l1) * 10^12 + l0`` (a
+  SUM's limbs: ``l0``, ``l1`` in ``[0, 10^12)``, which the plain version
+  assumes; the kernel's row logic takes any int64 limbs) scaled
   by ``10^e`` over the count, rounded as ``div`` rounds (``t = 38 -`` the
   division's scale), then ``m`` digits lower, HALF_UP
   (exprs/aggregates.py ``Average``);
@@ -38,8 +40,10 @@ Every integer result is NULL where its magnitude passes its declared
 precision ``p`` or int64. The row arithmetic is
 ``csrc/decimal_arith_row.cuh``.
 
-* On CUDA tensors: one launch of ``csrc/decimal_arith.cu`` (a thread a
-  row); ``decimal_arith.launches`` counts them.
+* On CUDA tensors: one launch of ``csrc/decimal_arith.cu`` (two rows a
+  thread, the launch's powers of ten and their reciprocals computed once
+  on the host; a row a thread for views that are not aligned for its
+  vector loads); ``decimal_arith.launches`` counts them.
 * On CPU tensors: ``decimal_arith_reference``, the same arithmetic in
   torch int64 ops over numbers held as base-2^16 digits (a [rows,
   digits] tensor): schoolbook products, division by powers of ten in
@@ -491,14 +495,16 @@ def _launcher():
 
 
 def describe() -> dict:
-    """Registers a thread of the multiply's and the division's
-    instances, and threads a block."""
-    out = (ctypes.c_int * 3)()
+    """Registers a thread of every function's vector instance (several
+    rows a thread) and of its scalar instance (a row a thread, for
+    unaligned views), threads a block and rows a thread."""
+    out = (ctypes.c_int * 18)()
     rc = _launcher()["describe"](ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"decimal_arith_describe failed: CUDA error {rc}")
-    return {"mul_registers": out[0], "div_registers": out[1],
-            "threads": out[2]}
+    return {"registers": {op: out[i] for op, i in OPS.items()},
+            "scalar_registers": {op: out[8 + i] for op, i in OPS.items()},
+            "threads": out[16], "rows_per_thread": out[17]}
 
 
 def _check(op: str, operands, valid, second) -> None:
@@ -530,8 +536,8 @@ def decimal_arith(op: str, operands, valid: torch.Tensor,
     bits (``.view(torch.float64)``)."""
     _check(op, operands, valid, valid2)
     dev = valid.device
-    both = valid if valid2 is None else valid & valid2
     if dev.type == "cpu":
+        both = valid if valid2 is None else valid & valid2
         return decimal_arith_reference(op, operands, both, k, t, m, p)
     if dev.type != "cuda":
         raise ValueError(f"decimal_arith has no kernel for {dev}")

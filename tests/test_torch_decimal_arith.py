@@ -32,6 +32,7 @@ CTX = decimal.Context(prec=76, rounding=decimal.ROUND_HALF_UP)
 
 _HOST_SRC = r"""
 #include <cstdint>
+#include <cstring>
 #include "decimal_arith_row.cuh"
 
 // The kernel on the host: every row through da_row, invalid rows 0.
@@ -45,6 +46,68 @@ extern "C" void da_host(int op, const int64_t* a, const int64_t* b,
                     k, t, m, p, &r);
     out[i] = v ? r : 0;
     ok[i] = v ? 1 : 0;
+  }
+}
+
+// The division core on the host, each value as two limbs (low, high).
+// path 0: n / d with the divisor's reciprocal built for the row (one limb:
+// two 2-by-1 steps; two limbs: one 3-by-2 step); path 1: the same over
+// n's low limb alone (da_divrem64); path 2: n / 10^j with the divisor a
+// launch's constant, as da_consts makes it for a cast to double of scale
+// j (d's low limb is j); path 3: one 2-by-1 step, for n's high limb below
+// d < 2^64 (da_divrem_narrow).
+extern "C" void da_host_divmod(int path, const uint64_t* n,
+                               const uint64_t* d, int64_t rows, uint64_t* q,
+                               uint64_t* r) {
+  for (int64_t i = 0; i < rows; ++i) {
+    const da_u128 nn = ((da_u128)n[2 * i + 1] << 64) | n[2 * i];
+    const da_u128 dd = ((da_u128)d[2 * i + 1] << 64) | d[2 * i];
+    da_u128 qq, rr;
+    if (path == 0) {
+      qq = da_divrem(nn, da_divider(dd), &rr);
+    } else if (path == 1) {
+      qq = da_divrem64((uint64_t)nn, da_divider(dd), &rr);
+    } else if (path == 3) {
+      qq = da_divrem_narrow(nn, da_divider(dd), &rr);
+    } else {
+      qq = da_divrem(nn,
+                     da_consts(DA_TO_DOUBLE, (int)d[2 * i], 0, 0, 38).down,
+                     &rr);
+    }
+    q[2 * i] = (uint64_t)qq;
+    q[2 * i + 1] = (uint64_t)(qq >> 64);
+    r[2 * i] = (uint64_t)rr;
+    r[2 * i + 1] = (uint64_t)(rr >> 64);
+  }
+}
+
+// to_double's integer path (da_to_double_int) for each x != 0 at scale s,
+// the double's bits
+extern "C" void da_host_to_double_int(const int64_t* x, int64_t rows, int s,
+                                      int64_t* out) {
+  const DaConsts c = da_consts(DA_TO_DOUBLE, s, 0, 0, 38);
+  for (int64_t i = 0; i < rows; ++i) {
+    const double v = x[i] < 0 ? -da_to_double_int(da_mag(x[i]), c)
+                              : da_to_double_int(da_mag(x[i]), c);
+    memcpy(out + i, &v, sizeof v);
+  }
+}
+
+// The reciprocal of each d in [2^63, 2^64)
+extern "C" void da_host_recip(const uint64_t* d, int64_t rows, uint64_t* v) {
+  for (int64_t i = 0; i < rows; ++i) v[i] = da_recip(d[i]);
+}
+
+// One 3-by-2 step (da_div32) over any three-limb n = (n2, n1, n0) with
+// n2 < d1 and d = (d1, d0), d1's top bit set: quotient, remainder limbs
+extern "C" void da_host_div32(const uint64_t* n, const uint64_t* d,
+                              int64_t rows, uint64_t* q, uint64_t* r) {
+  for (int64_t i = 0; i < rows; ++i) {
+    da_u128 rr;
+    q[i] = da_div32(n[3 * i], n[3 * i + 1], n[3 * i + 2], d[2 * i],
+                    d[2 * i + 1], da_recip(d[2 * i]), &rr);
+    r[2 * i] = (uint64_t)rr;
+    r[2 * i + 1] = (uint64_t)(rr >> 64);
   }
 }
 """
@@ -66,6 +129,11 @@ def host_lib(tmp_path_factory):
     lib.da_host.argtypes = [ctypes.c_int, p, p, p, p, ctypes.c_int64,
                             ctypes.c_int, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int, p, p]
+    lib.da_host_divmod.argtypes = [ctypes.c_int, p, p, ctypes.c_int64, p, p]
+    lib.da_host_recip.argtypes = [p, ctypes.c_int64, p]
+    lib.da_host_div32.argtypes = [p, p, ctypes.c_int64, p, p]
+    lib.da_host_to_double_int.argtypes = [p, ctypes.c_int64, ctypes.c_int,
+                                          p]
     return lib
 
 
@@ -329,3 +397,298 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     assert decimal_arith.launches == before
     with pytest.raises(TypeError):
         decimal_arith("mul", (l.to(torch.int32), r), lv)
+
+
+# ---------------------------------------------------------------------------
+# the division core (csrc/decimal_arith_row.cuh da_divrem with a row's
+# da_divider, da_divrem64, da_divrem_narrow, da_divrem by a launch
+# constant, da_div32, da_recip) against Python's divmod
+# ---------------------------------------------------------------------------
+
+U64 = 2 ** 64
+U128 = 2 ** 128
+
+
+def _limbs(vals) -> np.ndarray:
+    return np.array([[v % U64, v // U64] for v in vals], np.uint64).ravel()
+
+
+def _divmod_core(lib, path: int, ns, ds):
+    """(quotients, remainders) of the core's ``path`` as Python ints."""
+    n, d = _limbs(ns), _limbs(ds)
+    q, r = np.zeros_like(n), np.zeros_like(n)
+    lib.da_host_divmod(path, n.ctypes.data, d.ctypes.data, len(ns),
+                       q.ctypes.data, r.ctypes.data)
+    back = [int(lo) + int(hi) * U64 for lo, hi in
+            zip(q[0::2].tolist(), q[1::2].tolist())], \
+        [int(lo) + int(hi) * U64 for lo, hi in
+         zip(r[0::2].tolist(), r[1::2].tolist())]
+    return back
+
+
+def _hold_divmod(lib, ns, ds):
+    """Every path that takes these operands equals divmod: the row's own
+    reciprocal always, the one-limb dividend where n < 2^64, the launch
+    constant where d is a power of ten."""
+    want = [divmod(n, d) for n, d in zip(ns, ds)]
+    got = _divmod_core(lib, 0, ns, ds)
+    for i, (n, d) in enumerate(zip(ns, ds)):
+        assert (got[0][i], got[1][i]) == want[i], ("row reciprocal", n, d)
+    narrow = [i for i, (n, d) in enumerate(zip(ns, ds))
+              if d < U64 and n // U64 < d]
+    if narrow:
+        got = _divmod_core(lib, 3, [ns[i] for i in narrow],
+                           [ds[i] for i in narrow])
+        for j, i in enumerate(narrow):
+            assert (got[0][j], got[1][j]) == want[i], ("narrow", ns[i],
+                                                       ds[i])
+    small = [i for i, n in enumerate(ns) if n < U64]
+    if small:
+        got = _divmod_core(lib, 1, [ns[i] for i in small],
+                           [ds[i] for i in small])
+        for j, i in enumerate(small):
+            assert (got[0][j], got[1][j]) == want[i], ("64-bit", ns[i],
+                                                       ds[i])
+    pows = [i for i, d in enumerate(ds) if d in POW10]
+    if pows:
+        got = _divmod_core(lib, 2, [ns[i] for i in pows],
+                           [POW10[ds[i]] for i in pows])
+        for j, i in enumerate(pows):
+            assert (got[0][j], got[1][j]) == want[i], ("constant", ns[i],
+                                                       ds[i])
+
+
+#: 10^j -> j, j in [0, 38]
+POW10 = {10 ** j: j for j in range(39)}
+#: the divisors held on their edges: 1, 2, every power of ten a decimal
+#: takes, both sides of 2^64, 2^63 and 2^127 - 1
+EDGE_DIVISORS = sorted({1, 2, 2 ** 63, U64 - 1, U64, 2 ** 127 - 1}
+                       | set(POW10))
+
+
+@pytest.mark.parametrize("d", EDGE_DIVISORS)
+def test_division_core_on_divisor_edges(host_lib, d):
+    """n = d q + d - 1 (the largest remainder) across the quotient's
+    range, n whose high limb is d - 1 (for d < 2^64: the first 2-by-1 step
+    at its bound), and 0, d - 1, d, 2^64 +- 1 and 2^128 - 1."""
+    rng = np.random.RandomState(d % 1000003)
+    top = (U128 - 1) // d
+    qs = {0, 1, 2, top, max(top - 1, 0), top // 2, top // 3}
+    qs |= {int(rng.randint(0, 2 ** 62)) % (top + 1) for _ in range(8)}
+    qs |= {(int(rng.randint(0, 2 ** 62)) << 64 | int(rng.randint(0, 2 ** 62)))
+           % (top + 1) for _ in range(8)}
+    ns = {d * q + d - 1 for q in qs if d * q + d - 1 < U128}
+    ns |= {0, d - 1, d, U64 - 1, U64, U64 + 1, U128 - 1}
+    if d < U64:
+        ns |= {(d - 1) * U64 + x for x in (0, 1, U64 - 1,
+                                           int(rng.randint(0, 2 ** 62)))}
+    ns = sorted(n for n in ns if 0 <= n < U128)
+    _hold_divmod(host_lib, ns, [d] * len(ns))
+
+
+u128 = st.one_of(st.integers(0, U128 - 1), st.integers(0, U64 - 1),
+                 st.integers(0, 2 ** 70), st.sampled_from(
+                     [0, 1, U64 - 1, U64, U128 - 1, 2 ** 127, 2 ** 127 - 1]))
+divisor = st.one_of(st.integers(1, U128 - 1), st.integers(1, U64 - 1),
+                    st.integers(1, 2 ** 20), st.integers(U64, 2 ** 80),
+                    st.sampled_from(EDGE_DIVISORS))
+
+
+@SETTINGS
+@given(rows=st.lists(st.tuples(u128, divisor), min_size=1, max_size=32))
+def test_division_core_matches_python_divmod(host_lib, rows):
+    _hold_divmod(host_lib, [n for n, _ in rows], [d for _, d in rows])
+
+
+@SETTINGS
+@given(ds=st.lists(st.one_of(st.integers(2 ** 63, U64 - 1), st.sampled_from(
+    [2 ** 63, 2 ** 63 + 1, U64 - 1, U64 - 2, 3 * 2 ** 62,
+     10 ** 19, (10 ** 18) << 4])), min_size=1, max_size=32))
+def test_reciprocal_is_exact(host_lib, ds):
+    """da_recip's double estimate and corrections give the exact
+    floor((2^128 - 1) / d) - 2^64."""
+    d = np.array(ds, np.uint64)
+    v = np.zeros_like(d)
+    host_lib.da_host_recip(d.ctypes.data, len(ds), v.ctypes.data)
+    for x, got in zip(ds, v.tolist()):
+        assert got == (U128 - 1) // x - U64, x
+
+
+def _divisors_of_b2_minus_1():
+    """The divisors of 2^128 - 1 in [2^63, 2^64): for them the remainder
+    da_recip estimates over d is a whole multiple of d, so its estimate
+    may fall just below the integer and take the upward correction."""
+    primes = [3, 5, 17, 257, 641, 65537, 274177, 6700417, 67280421310721]
+    out = set()
+    for mask in range(1, 1 << len(primes)):
+        v = 1
+        for i, q in enumerate(primes):
+            if mask >> i & 1:
+                v *= q
+        if 2 ** 63 <= v < U64:
+            out.add(v)
+    return sorted(out)
+
+
+def test_reciprocal_where_its_remainder_is_a_multiple(host_lib):
+    ds = _divisors_of_b2_minus_1() + [2 ** 63]
+    assert len(ds) > 5
+    d = np.array(ds, np.uint64)
+    v = np.zeros_like(d)
+    host_lib.da_host_recip(d.ctypes.data, len(ds), v.ctypes.data)
+    for x, got in zip(ds, v.tolist()):
+        assert got == (U128 - 1) // x - U64, x
+
+
+def _div32(lib, rows):
+    n = np.array([[x // U128, x // U64 % U64, x % U64] for x, _ in rows],
+                 np.uint64).ravel()
+    d = np.array([[y // U64, y % U64] for _, y in rows], np.uint64).ravel()
+    q = np.zeros(len(rows), np.uint64)
+    r = np.zeros(2 * len(rows), np.uint64)
+    lib.da_host_div32(n.ctypes.data, d.ctypes.data, len(rows), q.ctypes.data,
+                      r.ctypes.data)
+    for i, (x, y) in enumerate(rows):
+        got = (int(q[i]), int(r[2 * i]) + int(r[2 * i + 1]) * U64)
+        assert got == divmod(x, y), (x, y, got)
+
+
+norm_d = st.one_of(st.integers(2 ** 127, U128 - 1), st.sampled_from(
+    [2 ** 127, 2 ** 127 + U64 - 1, U128 - 1, 2 ** 127 + 1]))
+
+
+@SETTINGS
+@given(rows=st.lists(st.tuples(norm_d, st.integers(0, U128 - 1),
+                               st.integers(0, U64 - 1)),
+                     min_size=1, max_size=32))
+def test_three_by_two_step_matches_python_divmod(host_lib, rows):
+    """da_div32 over any dividend whose top limb is below d1: wider than
+    the kernel's own dividends, so the estimate from d1 can be 2 too large
+    (Knuth's bound) and both corrections run."""
+    _div32(host_lib, [(min(hi * U64 + lo, (d // U64) * U128 - 1), d)
+                      for d, hi, lo in rows])
+
+
+def test_three_by_two_step_takes_two_corrections(host_lib):
+    """Knuth's worst case: d1 near 2^63, d0 near 2^64 and the quotient
+    near 2^64, where the estimate from d1 is q + 2 (found by a search),
+    and its neighbours."""
+    d = 0x8000000000000002fffffffffffffff1
+    x = 0x8000000000000001ffffffffffffffcea448585c23e6fb80
+    assert ((x // U64) // (d // U64)) - x // d == 2
+    rows = [(x + e, d) for e in (-1, 0, 1, U64, -d)]
+    rows += [(2 ** 63 * U128 - 1 - e, 2 ** 127 + U64 - 1)
+             for e in (0, 1, U64 - 1, U64)]
+    _div32(host_lib, rows)
+
+
+# ---------------------------------------------------------------------------
+# every function at the launch constants' boundaries: one limb of 10^j
+# (j <= 19) or two (j >= 20), to_double's exact double 10^s (s <= 22)
+# ---------------------------------------------------------------------------
+
+BOUNDS = (0, 19, 20, 22, 23, 38)
+_PAIR_EDGE = [0, 1, -1, 5, -5, 99, 10 ** 9, -10 ** 18, I64_MAX, I64_MIN,
+              I64_MIN + 1, 2 ** 53 + 1, -(2 ** 53), 123456789012345,
+              10 ** 18, 7]
+
+
+def _pairs(seed: int):
+    """Every pair of _PAIR_EDGE and 64 random pairs: two columns."""
+    rng = np.random.RandomState(seed)
+    a = [x for x in _PAIR_EDGE for _ in _PAIR_EDGE]
+    b = [y for _ in _PAIR_EDGE for y in _PAIR_EDGE]
+    for _ in range(64):
+        a.append(int(rng.randint(I64_MIN, I64_MAX, dtype=np.int64)))
+        b.append(int(rng.randint(-10 ** 9, 10 ** 9)))
+    return [a, b]
+
+
+BOUNDARY_CASES = (
+    [("mul", k, 0, 0) for k in BOUNDS + (-19, -20, -38)]
+    + [("rescale", k, 0, 0) for k in BOUNDS + (-19, -20, -22, -23, -38)]
+    + [("div", e, 38 - 6, 0) for e in BOUNDS + (-19, -20, -38)]
+    + [("avg", e, 20, m) for e in BOUNDS for m in (0, 32)]
+    + [(op, k, 0, m) for op in ("add", "sub") for k in BOUNDS
+       for m in (0, 32)]
+    + [("rem", k, 0, 0) for k in BOUNDS] + [("rem", 0, k, 0) for k in BOUNDS]
+    + [("to_double", s, 0, 0) for s in BOUNDS])
+
+
+@pytest.mark.parametrize("op,k,t,m", BOUNDARY_CASES)
+def test_function_at_launch_constant_boundary(host_lib, op, k, t, m):
+    """Each function with k (s, e), t and m where its powers of ten change
+    form, over every pair of edge operands: the g++-built row logic and
+    the plain version equal the exact answers."""
+    seed = abs(hash((op, k, t, m))) % 2 ** 31
+    if op == "to_double":
+        xs = sorted(set(_pairs(seed)[0]))
+        _both(host_lib, op, [xs], [want_double(x, k) for x in xs], k=k,
+              double=True)
+        return
+    if op == "rescale":
+        xs = sorted(set(_pairs(seed)[0]))
+        _both(host_lib, op, [xs], [want_rescale(x, k, 38) for x in xs],
+              k=k, p=38)
+        return
+    if op == "avg":
+        rng = np.random.RandomState(seed)
+        rows = [(l0, l1, l2, c) for l0 in (0, 1, DEC_LIMB - 1)
+                for l1 in (0, DEC_LIMB - 1) for l2 in (0, -1, 7, 2 ** 40 - 1,
+                                                       -(2 ** 40 - 1))
+                for c in (1, 3, 7, I64_MAX)]
+        rows += [(int(rng.randint(0, DEC_LIMB)), int(rng.randint(0, DEC_LIMB)),
+                  int(rng.randint(-2 ** 40 + 1, 2 ** 40)),
+                  int(rng.randint(1, 2 ** 62))) for _ in range(64)]
+        cols = [list(c) for c in zip(*rows)]
+        _both(host_lib, op, cols, [want_avg(*r, k, t, m, 38) for r in rows],
+              k=k, t=t, p=38, m=m)
+        return
+    a, b = _pairs(seed)
+    if op == "mul":
+        want = [want_mul(x, y, k, 38) for x, y in zip(a, b)]
+    elif op == "div":
+        want = [want_div(x, y, k, t, 38) for x, y in zip(a, b)]
+    elif op in ("add", "sub"):
+        kl, kr = (k, 0) if op == "add" else (0, k)
+        want = [want_add(x, y, kl, kr, m, 38, op == "sub")
+                for x, y in zip(a, b)]
+        _both(host_lib, op, [a, b], want, k=kl, t=kr, p=38, m=m)
+        return
+    else:
+        want = [want_rem(x, y, k, t, 38) for x, y in zip(a, b)]
+    _both(host_lib, op, [a, b], want, k=k, t=t, p=38, m=m)
+
+
+@SETTINGS
+@given(xs=st.lists(st.one_of(i64, st.integers(-2 ** 53, 2 ** 53)),
+                   min_size=1, max_size=24), s=st.integers(0, 38))
+def test_to_double_integer_path_is_correctly_rounded_everywhere(host_lib,
+                                                                xs, s):
+    """The integer path alone, also over the exact doubles (|x| < 2^53,
+    s <= 22) that a row takes one IEEE division for: the kernel sends a
+    warp with any row past them down the integer path, so it must give
+    the same nearest double."""
+    xs = [x for x in xs if x != 0] or [1]
+    x = np.array(xs, np.int64)
+    out = np.zeros(len(xs), np.int64)
+    host_lib.da_host_to_double_int(x.ctypes.data, len(xs), s,
+                                   out.ctypes.data)
+    for v, got in zip(xs, out.view(np.float64).tolist()):
+        assert got == want_double(v, s), (v, s, got)
+
+
+@SETTINGS
+@given(rows=st.lists(st.tuples(i64, i64, high, count), min_size=1,
+                     max_size=16),
+       e=st.integers(0, 30), t=st.integers(0, 32), m=st.integers(-6, 30))
+def test_avg_of_limbs_outside_a_sums_range(host_lib, rows, e, t, m):
+    """Low limbs that no SUM makes (negative, or past 10^12) take the row
+    logic's signed total, and still equal the exact answers. (The plain
+    version takes a SUM's limbs, l0 and l1 in [0, 10^12), alone.)"""
+    cols = [list(c) for c in zip(*rows)]
+    out, ok = _host(host_lib, "avg", cols, e, t, 38, m)
+    for i, r in enumerate(rows):
+        w = want_avg(*r, e, t, m, 38)
+        assert (w is None) == (not ok[i]) and (w is None or out[i] == w), \
+            (r, e, t, m, out[i], w)
