@@ -9,7 +9,7 @@ result line):
   1. device  -- the card's name and power limit (nvidia-smi), CUDA version;
   2. build   -- every CUDA kernel of the port (rect_match, dense_groupby,
                 join_match, distinct_flag, rect_transform, window_frame,
-                sort_bucket, decimal_arith), built from
+                sort_bucket, decimal_arith, rect_dfa), built from
                 csrc/ with one nvcc each, started together;
                 ptxas must report no stack frame and no spills for any
                 function. ``--compare NAME=DIR`` also builds
@@ -301,6 +301,24 @@ result line):
                 boundary, from aligned and unaligned views; no integer
                 division in its SASS (cuobjdump). Each query cold and
                 warm.
+ 20. patterns -- (after phase 19) slice 7's patterns and string
+                building: (a) rect_dfa against its plain version bit for
+                bit on one SF1 l_comment batch (1,048,576 x 64) for
+                TPC-H Q13's and Q16's LIKE patterns, a '_', an escaped
+                '%', three RLIKE patterns and the empty ones, each timed
+                with the L2 cold beside its bound, the plain version and
+                the host's ms a call, with its states, classes and shared
+                memory; (b) Q13's NOT LIKE '%special%requests%' (count
+                and revenue) and Q16's LIKE '%Customer%Complaints%' over
+                SF1 lineitem, as DataFrames and SQL (rect_dfa once a
+                batch, rect_match never), and l_shipmode RLIKE
+                '^(REG )?AIR$' over the dictionary (no rect_dfa), each
+                against numpy, Q13 once more under torch.profiler; (c)
+                concat(l_returnflag, '|', l_linestatus) grouped with
+                count and sum, as a DataFrame and as SQL ||, and
+                concat_ws('-', substring(l_comment, 1, 12), l_shipmode),
+                translate, repeat, ascii, octet_length and chr over one
+                batch, every value against numpy. Each cold and warm.
 
 The data is generated here from a seed, with numpy only: this script
 imports neither JAX, pyarrow, pandas nor the JAX package. It prints a
@@ -1472,7 +1490,8 @@ def _finish_compare_build(name, kernel, proc, out):
 
 #: the port's kernel libraries (csrc/<name>.cu), built side by side
 KERNELS = ("rect_match", "dense_groupby", "join_match", "distinct_flag",
-           "rect_transform", "window_frame", "sort_bucket", "decimal_arith")
+           "rect_transform", "window_frame", "sort_bucket", "decimal_arith",
+           "rect_dfa")
 
 
 def phase_build(compare=()):
@@ -3905,13 +3924,15 @@ def _kernel_counters():
     from spark_rapids_tpu_torch.exec.dense_groupby import dense_groupby
     from spark_rapids_tpu_torch.exec.distinct_flag import distinct_flag
     from spark_rapids_tpu_torch.exec.join_match import join_match
+    from spark_rapids_tpu_torch.exec.rect_dfa import rect_dfa
     from spark_rapids_tpu_torch.exec.rect_transform import rect_transform
     from spark_rapids_tpu_torch.exec.sort_bucket import sort_bucket
     from spark_rapids_tpu_torch.exec.window_frame import window_frame
     from spark_rapids_tpu_torch.exprs.decimal_arith import decimal_arith
     from spark_rapids_tpu_torch.exprs.rect_match import rect_match
     return (rect_match, dense_groupby, join_match, distinct_flag,
-            rect_transform, window_frame, sort_bucket, decimal_arith)
+            rect_transform, window_frame, sort_bucket, decimal_arith,
+            rect_dfa)
 
 
 def _sql_run(session, make, collect: str = "collect") -> tuple:
@@ -4653,7 +4674,9 @@ RT_CAP = 64
 #: (substring past the end, from the end, of no length; replace and pad
 #: that grow; substring_index both ways, count 0 and a delimiter whose
 #: matches overlap), chains of 2-4 ops,
-#: the rung's two, and one of the kernel's 8
+#: the rung's two, one of the kernel's 8, and repeat and translate (0 and
+#: 1 times, growing to 24 and 40 bytes; a repeated source byte, deletions
+#: past the end of ``to`` and by a 0x00 in it)
 RT_CHAINS = (
     (("upper",),), (("lower",),), (("initcap",),), (("reverse",),),
     (("trim", True, True),), (("trim", True, False),),
@@ -4679,6 +4702,13 @@ RT_CHAINS = (
     (("trim", True, False), ("reverse",), ("trim", True, False),
      ("reverse",), ("upper",), ("substring", 2, None),
      ("replace", b"B", b"bb"), ("lower",)),
+    (("repeat", 0),), (("repeat", 1), ("upper",)),
+    (("substring", 1, 8), ("repeat", 3)), (("substring", 2, 4),
+                                            ("repeat", 5)),
+    (("translate", b"ab ", b"X"),), (("translate", b"aab", b"xyz"),),
+    (("translate", b"a-\x00", b"\x00Q"),),
+    (("trim", True, True), ("translate", b" Q", b"_"),
+     ("substring", 1, 6), ("repeat", 2)),
 )
 #: row counts of the exact cases: one row, part of a lane group's set of
 #: rows at every width, part of a warp, a warp and one row, and many
@@ -4842,34 +4872,46 @@ RT_TIMED = (
 PLAIN_SYNC_MS = 20.0
 
 
+def _alone_ms(fn, x) -> float:
+    """ms of one call of ``fn(*x)`` alone between two synchronisations."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*x)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def _plain_ms(fn, inputs, label: str) -> float:
     """A plain version's ms a call: queued cold as the kernels are
     (``_cold_ms``, one pass), or, where one call takes over PLAIN_SYNC_MS
     (a wide frame's thousands of launches) or its host enqueue outlasts
     any sleep (a replace's column loop), each call alone between two
     synchronisations, the median over the inputs."""
-    import torch
-
-    def alone(x) -> float:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(*x)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-    first = alone(inputs[0])
+    first = _alone_ms(fn, inputs[0])
     try:
         if first > PLAIN_SYNC_MS:
             raise AssertionError(f"{label}: {first:.1f} ms a call")
         return _cold_ms(fn, inputs, label, rounds=1, reps=1)[0]
     except AssertionError:
-        return float(np.median([alone(x) for x in inputs]))
+        return float(np.median([_alone_ms(fn, x) for x in inputs]))
 
 
-def _rt_timed_row(name, b, ln, v, chain, compare) -> dict:
+def _plain_alone_ms(fn, inputs, label: str) -> float:
+    """A plain version's ms a call, each call alone between two
+    synchronisations, the median over the inputs: for plain versions
+    whose host enqueue always outlasts the sleep (hundreds of launches a
+    call past the launch queue's depth, or a copy from pageable memory),
+    where ``_plain_ms`` would first grow the sleep eight times."""
+    return float(np.median([_alone_ms(fn, x) for x in inputs]))
+
+
+def _rt_timed_row(name, b, ln, v, chain, compare,
+                  plain_timer=_plain_ms) -> dict:
     """One chain on one batch: the kernel (and each version to compare)
     held bit-identical to the plain version, then timed with the L2 cold
     in turns (kernel, others, others reversed, kernel, ...), beside the
-    bound and the plain version."""
+    bound and the plain version (timed by ``plain_timer``)."""
     import torch
     from spark_rapids_tpu_torch.exec.rect_transform import (
         rect_transform, rect_transform_reference)
@@ -4905,7 +4947,7 @@ def _rt_timed_row(name, b, ln, v, chain, compare) -> dict:
     row["compare_ms"] = {who: float(np.mean(turns[who]))
                          for who in compare}
     row["host_ms"] = float(np.mean(hosts))
-    row["plain_ms"] = _plain_ms(
+    row["plain_ms"] = plain_timer(
         lambda b, ln, v: rect_transform_reference(b, ln, v, chain, RT_CAP),
         inputs, f"rect_transform {name} plain")
     bd = rt_bound(P, W, w_out)
@@ -8208,6 +8250,350 @@ def phase_decimals(card: str, batch_rows: int, table: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: slice 7's patterns and string building -- LIKE of any pattern
+# and RLIKE through rect_dfa, then concat / concat_ws / ||, repeat,
+# translate, ascii, chr and octet_length
+# ---------------------------------------------------------------------------
+
+#: the kernel check's patterns over one l_comment batch: TPC-H Q13's and
+#: Q16's, a '_', an escaped '%', three regular expressions and the empty
+#: patterns (kind, pattern)
+DFA_PATTERNS = (("like", "%special%requests%"),
+                ("like", "%Customer%Complaints%"), ("like", "%sly_y %"),
+                ("like", "%\\%%"), ("like", ""),
+                ("rlike", "^[a-z]+ (pending|final) "),
+                ("rlike", "(ly|ing)$"), ("rlike", "[0-9]{2,}"),
+                ("rlike", ""))
+#: Q13's filter (NOT LIKE) and Q16's (LIKE), over l_comment
+Q13_PATTERN = "%special%requests%"
+Q16_PATTERN = "%Customer%Complaints%"
+SQL_Q13 = ("SELECT count(*) AS n, sum(l_extendedprice) AS revenue FROM "
+           "lineitem WHERE l_comment NOT LIKE '%special%requests%'")
+SQL_Q16 = ("SELECT count(*) AS n FROM lineitem WHERE l_comment LIKE "
+           "'%Customer%Complaints%'")
+SQL_FLAGS = ("SELECT l_returnflag || '|' || l_linestatus AS k, count(*) AS "
+             "n, sum(l_extendedprice) AS s FROM lineitem GROUP BY "
+             "l_returnflag || '|' || l_linestatus ORDER BY k")
+
+
+def two_words_numpy(comment: np.ndarray, a: bytes, b: bytes) -> np.ndarray:
+    """bool per row: ``a`` then, after it, ``b`` (LIKE '%a%b%')."""
+    i = np.char.find(comment, a)
+    j = np.char.find(comment, b, np.where(i >= 0, i + len(a), 0))
+    return (i >= 0) & (j >= 0)
+
+
+def dfa_walked(b, ln, v, dfa):
+    """int64 per row: the bytes a DFA walk reads, up to the row's length
+    or the byte that takes it into a sink (0 for a NULL row), on the
+    card."""
+    import torch
+    from spark_rapids_tpu_torch.exec.rect_dfa import _tables
+    classes, table, _ = (t.long() for t in _tables(dfa, b.device))
+    state = torch.full(ln.shape, dfa.start, dtype=torch.int64,
+                       device=b.device)
+    walked = torch.zeros_like(state)
+    for j in range(b.shape[1]):
+        live = (j < ln) & (state < dfa.first_sink) & v
+        walked += live
+        state = torch.where(live, table[state * dfa.n_classes
+                                        + classes[b[:, j].long()]], state)
+    return walked
+
+
+def dfa_bound(walked) -> dict:
+    """The least time one rect_dfa call needs over these rows: each row's
+    bytes up to where its walk stops (its length, or a sink), in 32-byte
+    sectors (rect_match's ``contains`` rule), 4-byte lengths, the
+    validity and one bool out; the walk is a few integer operations a
+    byte, far under the 32-bit rate."""
+    w = walked.cpu().numpy().astype(np.int64)
+    n = len(w)
+    nbytes = int((-(-w // 32) * 32).sum()) + 4 * n + n + n
+    ops = int(w.sum()) * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ms": max(bytes_ms, ops_ms),
+            "by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "walked_bytes": int(w.sum())}
+
+
+def phase_dfa_kernel(card: str, comments) -> dict:
+    """rect_dfa against its plain version bit for bit on one SF1 l_comment
+    batch, every pattern of DFA_PATTERNS, each timed with the L2 cold
+    beside its bound, the plain version and the host's ms a call, with
+    its states, classes and shared-memory bytes."""
+    import torch
+    from spark_rapids_tpu_torch.exec import rect_dfa as RDK
+    from spark_rapids_tpu_torch.exprs.regex_dfa import (compile_like,
+                                                        compile_rlike)
+    b, ln, v = comments.data, comments.lengths, comments.validity
+    P, W = b.shape
+    n = max(2, -(-COLD_BYTES // (b.nbytes + ln.nbytes + v.nbytes)))
+    inputs = [(b, ln, v)] + [(b.clone(), ln.clone(), v.clone())
+                             for _ in range(n - 1)]
+    out = {"shape": [int(P), int(W)], "patterns": {}}
+    max_err = 0
+    for kind, pat in DFA_PATTERNS:
+        t0 = time.perf_counter()
+        dfa = compile_like(pat) if kind == "like" else compile_rlike(pat)
+        got = RDK.rect_dfa(b, ln, v, dfa)
+        want = RDK.rect_dfa_reference(b, ln, v, dfa)
+        torch.cuda.synchronize()
+        err = int((got != want).sum())
+        max_err = max(max_err, err)
+        bd = dfa_bound(dfa_walked(b, ln, v, dfa))
+        _check(torch.equal(got, want),
+               f"rect_dfa {kind} {pat!r}: {err} rows differ from the plain "
+               "version")
+        ms, host = _cold_ms(lambda b, ln, v, d=dfa: RDK.rect_dfa(b, ln, v, d),
+                            inputs, f"rect_dfa {pat!r}")
+        plain = _plain_alone_ms(lambda b, ln, v, d=dfa:
+                                RDK.rect_dfa_reference(b, ln, v, d),
+                                inputs, f"rect_dfa {pat!r} plain")
+        info = RDK.describe(dfa, int(P))
+        row = {"kind": kind, "matches": int(got.sum()), "ms": ms,
+               "plain_ms": plain, "host_ms": host, "bound_ms": bd["ms"],
+               "bound_by": bd["by"], "bound_bytes": bd["bytes"],
+               "walked_bytes": bd["walked_bytes"], "max_abs_err": err,
+               **info}
+        out["patterns"][f"{kind} {pat}"] = row
+        _log(f"rect_dfa {kind} {pat!r} on {P} x {W} ({card}): bit-identical "
+             f"to the plain version ({row['matches']} rows match); kernel "
+             f"{ms:.4f} ms, {bd['ms'] / ms:.0%} of bound {bd['ms']:.4f} ms "
+             f"({bd['bytes']} B, by {bd['by']}; {bd['walked_bytes']} bytes "
+             f"walked before a length or a sink); plain {plain:.4f} ms; host "
+             f"{host:.4f} ms a call; {info['states']} states, "
+             f"{info['classes']} classes, {info['sinks']} sinks, "
+             f"{info['shared_bytes']} B shared, grid {info['grid']}, "
+             f"{info['registers']} registers; library: none (no PyTorch "
+             f"call matches a pattern); {time.perf_counter() - t0:.1f} s")
+    out["max_abs_err"] = max_err
+    out["main"] = out["patterns"][f"like {Q13_PATTERN}"]
+    return out
+
+
+#: rect_transform's repeat and translate, timed on phase 20's l_comment
+#: batch: (label, chain)
+RT_NEW_TIMED = (("translate", (("translate", b"aeiou", b"AEI"),)),
+                ("repeat", (("substring", 1, 5), ("repeat", 3))))
+
+
+def q13_filter(df, F):
+    return (df.filter(~F.col("l_comment").like(Q13_PATTERN))
+            .agg(F.count_star().with_name("n"),
+                 F.sum(F.col("l_extendedprice")).with_name("revenue")))
+
+
+def q16_filter(df, F):
+    return df.filter(F.col("l_comment").like(Q16_PATTERN)).agg(
+        F.count_star().with_name("n"))
+
+
+def q_air_modes(df, F):
+    return df.filter(F.col("l_shipmode").rlike("^(REG )?AIR$")).agg(
+        F.count_star().with_name("n"))
+
+
+def q_flags(df, F):
+    k = F.concat(F.col("l_returnflag"), F.lit("|"), F.col("l_linestatus"))
+    return (df.group_by(k.alias("k"))
+            .agg(F.count_star().with_name("n"),
+                 F.sum(F.col("l_extendedprice")).with_name("s"))
+            .order_by("k"))
+
+
+def flags_numpy(t: dict) -> list:
+    key = np.char.add(np.char.add(t["l_returnflag"].astype("U1"), "|"),
+                      t["l_linestatus"].astype("U1"))
+    keys, inv = np.unique(key, return_inverse=True)
+    n = np.bincount(inv, minlength=len(keys))
+    s = np.bincount(inv, weights=t["l_extendedprice"], minlength=len(keys))
+    return [{"k": str(k), "n": int(n[i]), "s": float(s[i])}
+            for i, k in enumerate(keys)]
+
+
+def flags_right(got: list, want: list) -> bool:
+    return len(got) == len(want) and all(
+        g["k"] == w["k"] and g["n"] == w["n"]
+        and _rel(g["s"], w["s"]) <= REL_TOL for g, w in zip(got, want))
+
+
+def q_building(df, F):
+    """concat_ws, translate, repeat, ascii, chr and octet_length over one
+    batch."""
+    c = F.col("l_comment")
+    return df.select(
+        F.concat_ws("-", F.substring(c, 1, 12), F.col("l_shipmode"))
+        .alias("ws"),
+        F.translate(c, "aeiou", "AEI").alias("tr"),
+        F.repeat(F.substring(c, 1, 5), 3).alias("rp"),
+        F.ascii(c).alias("asc"), F.octet_length(c).alias("oct"),
+        F.chr_(F.col("l_orderkey") % 300 - 20).alias("ch"))
+
+
+def building_numpy(t: dict, rows: int) -> dict:
+    """q_building's columns in numpy: S arrays, int32 and the chr's
+    strings."""
+    rect = t["l_comment"][:rows].view(np.uint8).reshape(rows, -1)
+    lens = np.char.str_len(t["l_comment"][:rows]).astype(np.int32)
+    cut = np.ascontiguousarray(rect[:, :12]).view("S12").reshape(rows)
+    modes = t["l_shipmode"][:rows].astype("S7")
+    ws = np.char.add(np.char.add(cut, b"-"), modes)
+    table = np.arange(256, dtype=np.uint8)
+    table[[ord("a"), ord("e"), ord("i")]] = [ord("A"), ord("E"), ord("I")]
+    gone = np.zeros(256, bool)
+    gone[[ord("o"), ord("u")]] = True
+    live = np.arange(rect.shape[1])[None, :] < lens[:, None]
+    keep = live & ~gone[rect]
+    tr = np.zeros_like(rect)
+    pos = np.cumsum(keep, axis=1) - keep
+    r_idx = np.nonzero(keep)
+    tr[r_idx[0], pos[keep]] = table[rect[keep]]
+    five = np.ascontiguousarray(rect[:, :5]).view("S5").reshape(rows)
+    n = t["l_orderkey"][:rows] % 300 - 20
+    return {"ws": ws, "tr": np.ascontiguousarray(tr).view(
+                f"S{rect.shape[1]}").reshape(rows),
+            "rp": np.char.multiply(five, 3),
+            "asc": np.where(lens > 0, rect[:, 0], 0).astype(np.int32),
+            "oct": lens,
+            "ch": np.where(n < 0, "", np.array([chr(i) for i in range(256)],
+                                               object)[n & 255])}
+
+
+def building_right(got: dict, want: dict) -> bool:
+    def s_of(col):
+        return np.array([x.encode("latin-1") for x in
+                         np.asarray(col, object)], dtype=object)
+    ok = True
+    for k in ("ws", "tr", "rp"):
+        ok &= not np.ma.getmaskarray(got[k]).any() and np.array_equal(
+            s_of(got[k]), want[k].astype(object))
+    for k in ("asc", "oct"):
+        ok &= np.array_equal(np.asarray(got[k]), want[k])
+    ok &= np.array_equal(np.asarray(got["ch"], object), want["ch"])
+    return bool(ok)
+
+
+def phase_patterns(card: str, batch_rows: int, table: dict, host) -> dict:
+    """Phase 20 (module doc): rect_dfa exact and timed on one l_comment
+    batch; TPC-H Q13's and Q16's comment filters and an RLIKE over the
+    ship-mode dictionary at SF1, as DataFrames and SQL; then the string
+    building functions, each against numpy."""
+    import torch
+    from spark_rapids_tpu_torch.api import TorchSession
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.columnar import ColumnarBatch
+    t_phase = time.perf_counter()
+    conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows,
+            "spark.rapids.tpu.sql.agg.wideBatchRows": batch_rows,
+            "spark.rapids.tpu.sql.pallas.enabled": True}
+    session = TorchSession(conf)
+    session.create_dataframe(host).create_or_replace_temp_view("lineitem")
+    out = {}
+    n_batches = math.ceil(SF1_ROWS / batch_rows)
+
+    def runs(label, make, right, collect="collect"):
+        for phase in ("cold", "warm"):
+            run, rows = _sql_run(session, make, collect)
+            _check(right(rows), f"phase 20 {label} {phase}: "
+                                f"{str(rows)[:300]}")
+            out[f"{label}_{phase}"] = run
+        return rows
+
+    def summary(label, kernel):
+        return (f"{out[f'{label}_cold']['wall_ms']:.1f} ms cold, "
+                f"{out[f'{label}_warm']['wall_ms']:.1f} ms warm; {kernel} "
+                f"launches {out[f'{label}_warm']['launches'][kernel]}")
+
+    # (a) the kernel alone, on the first l_comment batch
+    first = ColumnarBatch.from_host(host.select(["l_comment"]).slice(
+        0, batch_rows), "cuda", 64).columns[0]
+    _check(first.width == 64 and first.ascii_only,
+           f"l_comment ingested as {first!r}")
+    out["kernel"] = phase_dfa_kernel(card, first)
+    # rect_transform's new ops on the same batch (no other version has
+    # them, so none is timed in turns)
+    out["rt_times"] = {name: _rt_timed_row(
+        name, first.data, first.lengths, first.validity, chain, {},
+        _plain_alone_ms) for name, chain in RT_NEW_TIMED}
+    del first
+    _log(f"phase 20 (a) done at {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) Q13 and Q16 over SF1 lineitem, and RLIKE over the dictionary
+    t0 = time.perf_counter()
+    comment = table["l_comment"]
+    special = two_words_numpy(comment, b"special", b"requests")
+    want13 = [{"n": int((~special).sum()), "revenue": float(
+        np.sum(table["l_extendedprice"][~special]))}]
+    want16 = [{"n": int(two_words_numpy(comment, b"Customer",
+                                        b"Complaints").sum())}]
+    modes = table["l_shipmode"]
+    want_air = [{"n": int(((modes == "AIR") | (modes == "REG AIR")).sum())}]
+    _log(f"phase 20 (b) numpy answers in {time.perf_counter() - t0:.2f} s: "
+         f"Q13 {want13}, Q16 {want16}, AIR modes {want_air}")
+
+    def q13_right(rows):
+        return len(rows) == 1 and rows[0]["n"] == want13[0]["n"] and _rel(
+            rows[0]["revenue"], want13[0]["revenue"]) <= REL_TOL
+    runs("q13", lambda s: q13_filter(s.table("lineitem"), F), q13_right)
+    runs("q13_sql", lambda s: s.sql(SQL_Q13), q13_right)
+    runs("q16", lambda s: q16_filter(s.table("lineitem"), F),
+         lambda r: r == want16)
+    runs("q16_sql", lambda s: s.sql(SQL_Q16), lambda r: r == want16)
+    runs("air", lambda s: q_air_modes(s.table("lineitem"), F),
+         lambda r: r == want_air)
+    for label in ("q13", "q13_sql", "q16", "q16_sql"):
+        for phase in ("cold", "warm"):
+            k = out[f"{label}_{phase}"]["launches"]
+            _check(k["rect_dfa"] == n_batches and k["rect_match"] == 0,
+                   f"phase 20 {label} {phase}: rect_dfa launched "
+                   f"{k['rect_dfa']} times, rect_match {k['rect_match']}; "
+                   f"expected {n_batches} and 0 (one a batch)")
+        _log(f"phase 20 (b) {label} SF1 ({card}): equal to numpy; "
+             f"{summary(label, 'rect_dfa')} over {n_batches} batches")
+    _check(out["air_warm"]["launches"]["rect_dfa"] == 0,
+           "phase 20 RLIKE over the ship-mode dictionary launched rect_dfa")
+    _log(f"phase 20 (b) l_shipmode RLIKE '^(REG )?AIR$' ({card}): "
+         f"{want_air[0]['n']} rows, equal to numpy, over the dictionary; "
+         f"{summary('air', 'rect_dfa')}")
+    out["q13_profile_warm"] = phase_profile(
+        session, host, q13_filter, q13_right,
+        f"phase 20 Q13 NOT LIKE over SF1 l_comment ({card})", "rect_dfa")
+
+    _log(f"phase 20 (b) done at {time.perf_counter() - t_phase:.1f} s")
+
+    # (c) string building
+    want_f = flags_numpy(table)
+    runs("flags", lambda s: q_flags(s.table("lineitem"), F),
+         lambda r: flags_right(r, want_f))
+    runs("flags_sql", lambda s: s.sql(SQL_FLAGS),
+         lambda r: flags_right(r, want_f))
+    for label in ("flags", "flags_sql"):
+        _log(f"phase 20 (c) {label} ({card}): {len(want_f)} groups equal "
+             f"to numpy; {summary(label, 'dense_groupby')}")
+    one = host.slice(0, batch_rows)
+    t0 = time.perf_counter()
+    want_b = building_numpy(table, batch_rows)
+    _log(f"phase 20 (c) flags done at {t0 - t_phase:.1f} s; numpy's "
+         f"building columns in {time.perf_counter() - t0:.1f} s")
+    runs("building", lambda s: q_building(s.create_dataframe(one), F),
+         lambda r: building_right(r, want_b), "collect_numpy")
+    kt = out["building_warm"]["launches"]["rect_transform"]
+    _check(kt >= 3, f"phase 20 (c) building: rect_transform launched {kt} "
+                    "times, expected 3 (translate, repeat's chain and the "
+                    "substring under concat_ws)")
+    _log(f"phase 20 (c) concat_ws, translate, repeat, ascii, octet_length "
+         f"and chr over {batch_rows} rows ({card}): every value equal to "
+         f"numpy; {summary('building', 'rect_transform')}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"phase 20 (patterns and string building) took "
+         f"{out['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", metavar="NAME=DIR", action="append",
@@ -8413,6 +8799,7 @@ def main(argv=None) -> int:
         decimals = phase_decimals(card, batch_rows, table, ds19,
                                   compare["decimal_arith"])
         del ds19
+        patterns = phase_patterns(card, batch_rows, table, host)
         _log(json.dumps({"queries": {
             "q6": {"rows": SF1_ROWS, "wall_ms_cold": ms_cold,
                    "wall_ms_warm": ms_warm},
@@ -8453,6 +8840,8 @@ def main(argv=None) -> int:
             "slice9b_rest_profile_a": lists["a_profile_warm"],
             "slice9b_rest_profile_b": lists["b_profile_warm"],
             "decimals": {k: v for k, v in decimals.items()
+                         if k != "kernel"},
+            "patterns": {k: v for k, v in patterns.items()
                          if k != "kernel"}}}))
         main_t = times["main"]
         kernel = {
@@ -8717,9 +9106,44 @@ def main(argv=None) -> int:
                 "turns_ms")}
                for name in DA_TIMED if name != "mul"},
         }
+        pk = patterns["kernel"]
+        pm = pk["main"]
+        dfa = {
+            "name": "rect_dfa", "route": "cuda",
+            "source": "spark_rapids_tpu_torch/csrc/rect_dfa.cu",
+            "replaces": "none: the JAX package runs these patterns on its "
+                        "host engine (spark_rapids_tpu/exprs/"
+                        "string_fns.py:236, :257)",
+            "launches": patterns["q13_cold"]["launches"]["rect_dfa"],
+            "max_abs_err": pk["max_abs_err"],
+            "exact": pk["max_abs_err"] == 0,
+            "paths": {k: patterns[f"{k}_cold"]["launches"]["rect_dfa"]
+                      for k in ("q13", "q13_sql", "q16", "q16_sql", "air")},
+            "ms": pm["ms"], "plain_ms": pm["plain_ms"],
+            "bound_ms": pm["bound_ms"], "bound_by": pm["bound_by"],
+            "bound_bytes": pm["bound_bytes"], "library_ms": None,
+            "library": "none: no PyTorch call matches a pattern",
+            "host_ms": pm["host_ms"],
+            "timing": "device time per launch, launches queued back to "
+                      "back over distinct inputs (L2 cold)",
+            "shape": pk["shape"],
+            "per_pattern": {k: {f: r[f] for f in (
+                "ms", "plain_ms", "host_ms", "bound_ms", "states",
+                "classes", "sinks", "shared_bytes", "grid", "registers",
+                "matches")} for k, r in pk["patterns"].items()},
+        }
+        transform["paths"]["patterns_building"] = patterns[
+            "building_cold"]["launches"]["rect_transform"]
+        transform.update({name: {k: row[k] for k in (
+            "ms", "plain_ms", "bound_ms", "host_ms", "shape",
+            "max_abs_err")} for name, row in patterns["rt_times"].items()})
+        transform["max_abs_err"] = max(
+            [transform["max_abs_err"]] + [
+                row["max_abs_err"] for row in patterns["rt_times"].values()])
+        transform["exact"] = transform["max_abs_err"] == 0
         _log(json.dumps({"kernels": [kernel, dense, join,
                                      tpcds2["kernel"], transform, frame,
-                                     bucket, dec]}))
+                                     bucket, dec, dfa]}))
     except Exception:
         traceback.print_exc()
         return 1

@@ -32,6 +32,8 @@ __all__ = ["Col", "col", "lit", "asc", "desc", "when", "coalesce",
            "startswith", "endswith", "locate", "instr", "length", "upper",
            "lower", "substring", "trim", "ltrim", "rtrim", "replace",
            "lpad", "rpad", "reverse", "initcap", "substring_index",
+           "concat", "concat_ws", "repeat", "translate", "ascii", "chr_",
+           "bit_length", "octet_length", "rlike",
            "abs", "div", "pmod", "negative", "positive", "bitwise_not",
            "shiftleft", "shiftright", "shiftrightunsigned",
            "isnan", "nanvl", "sqrt", "cbrt", "exp", "expm1", "log", "ln",
@@ -252,6 +254,18 @@ def lpad(c, ln, pad=" ") -> Col: return Col(E.Lpad(_to_expr(c), ln, pad))
 def rpad(c, ln, pad=" ") -> Col: return Col(E.Rpad(_to_expr(c), ln, pad))
 def reverse(c) -> Col: return Col(E.Reverse(_to_expr(c)))
 def initcap(c) -> Col: return Col(E.InitCap(_to_expr(c)))
+def concat(*cols) -> Col:
+    return Col(E.ConcatStrings(*[_to_expr(c) for c in cols]))
+def concat_ws(sep, *cols) -> Col:
+    return Col(E.ConcatWs(_to_expr(sep), *[_to_expr(c) for c in cols]))
+def repeat(c, n) -> Col: return Col(E.StringRepeat(_to_expr(c), n))
+def translate(c, src: str, dst: str) -> Col:
+    return Col(E.StringTranslate(_to_expr(c), src, dst))
+def ascii(c) -> Col: return Col(E.Ascii(_to_expr(c)))
+def chr_(c) -> Col: return Col(E.Chr(_to_expr(c)))
+def bit_length(c) -> Col: return Col(E.BitLength(_to_expr(c)))
+def octet_length(c) -> Col: return Col(E.OctetLength(_to_expr(c)))
+def rlike(c, pattern) -> Col: return Col(E.RLike(_to_expr(c), pattern))
 def substring_index(c, delim, count) -> Col:
     return Col(E.SubstringIndex(_to_expr(c), delim, count))
 

@@ -1,6 +1,7 @@
 // rect_transform: a chain of string transforms (upper, lower, initcap,
-// trim, substring, replace, lpad/rpad, substring_index, reverse) over
-// every row of an ASCII byte rectangle, for an NVIDIA H100 (sm_90a).
+// trim, substring, replace, lpad/rpad, substring_index, reverse, repeat,
+// translate) over every row of an ASCII byte rectangle, for an NVIDIA
+// H100 (sm_90a).
 //
 // Replaces the jitted jax.numpy transforms of the JAX package's
 // spark_rapids_tpu/exprs/string_rect.py (_upper :74, _lower :80, _trim
@@ -42,7 +43,10 @@
 // row holds. The grid is what the card holds at once; its warps walk the
 // row sets (32 / G rows each), and each issues the next set's loads before
 // it computes the current one. Chains without a literal match run an
-// instance without that code (fewer registers). Measured on the way
+// instance without that code (fewer registers); repeat (each byte's
+// copies) and translate (each byte mapped within its word, the kept
+// ones scattered to their running count) go through the scratch in the
+// instance with it. Measured on the way
 // (PERF.md): 4 bytes a lane lost to the byte-loop kernel (the per-op
 // work of a lane, decode, lengths, masks, addresses, paid for 4 bytes);
 // occupancy then set the pace, so two sets in flight, or a window of five

@@ -25,6 +25,11 @@
 //   SUBSTRING_INDEX   lit1 = delimiter (n1 >= 1), a = count; every match
 //                     counts, overlapping ones too (Spark's search starts
 //                     one byte past the last match)
+//   REPEAT            a = times (>= 0)
+//   TRANSLATE         lit1 = from (n1), lit2 = to (n2): each byte of from
+//                     maps to the byte of to at its position, the first
+//                     occurrence winning; one past the end of to, or
+//                     mapped to 0x00, is deleted (Spark's translate)
 // The host computes each op's output width before the launch (w_out);
 // the width rules guarantee that every output fits it. Any byte value,
 // 0x00 included, is a byte of the string when it lies below the length.
@@ -55,6 +60,8 @@ enum RtOpCode {
   RT_SUBSTRING_INDEX = 7,
   RT_REVERSE = 8,
   RT_INITCAP = 9,
+  RT_REPEAT = 10,
+  RT_TRANSLATE = 11,
 };
 
 constexpr int kRtMaxOps = 8;       // ops a launch takes
@@ -640,6 +647,85 @@ RT_INLINE __host__ __device__ int rt_apply(const RtOp& op, const Ex& ex,
       rt_mask(w, k, n);
       return n;
     }
+    case RT_REPEAT: {
+      if (!kMatch) break;
+      // every copy of each byte to the scratch, t * len bytes on
+      const int64_t total = (int64_t)len * (op.a > 0 ? op.a : 0);
+      const int n = total > op.w_out ? op.w_out : (int)total;
+      for (int l = 0; l < L; ++l)
+        for (int j = 0; j < 4; ++j) rt_st32(scr, 4 * k[l] + j, 0);
+      ex.sync();
+      RT_UNROLL
+      for (int l = 0; l < L; ++l) {
+        RT_UNROLL
+        for (int j = 0; j < 4; ++j) {
+          RT_UNROLL
+          for (int b = 0; b < 4; ++b) {
+            const int q = 16 * k[l] + 4 * j + b;
+            if (q < len)
+              for (int o = q; o < n; o += len)
+                scr[o] = (uint8_t)(w[l][j] >> (8 * b));
+          }
+        }
+      }
+      ex.sync();
+      for (int l = 0; l < L; ++l)
+        for (int j = 0; j < 4; ++j) w[l][j] = rt_ld32(scr, 4 * k[l] + j);
+      rt_mask(w, k, n);
+      return n;
+    }
+    case RT_TRANSLATE: {
+      if (!kMatch) break;
+      // each byte mapped within its word; the kept bytes' positions from
+      // the group's 64-bit mask of them, then scattered to the scratch
+      uint64_t part[L];
+      for (int l = 0; l < L; ++l) {
+        uint32_t keep16 = 0;
+        RT_UNROLL
+        for (int j = 0; j < 4; ++j) {
+          uint32_t done = 0, to = 0, del = 0;
+          for (int i = 0; i < op.n1; ++i) {
+            const uint32_t m = rt_eq_bytes(w[l][j], op.lit1[i]) & ~done;
+            done |= m;
+            if (i < op.n2 && op.lit2[i] != 0)
+              to |= ((m >> 7) * 0xffu) & (op.lit2[i] * kRtOnes);
+            else
+              del |= m;
+          }
+          w[l][j] = (w[l][j] & ~((done >> 7) * 0xffu)) | to;
+          const uint32_t live = rt_keep(4 * k[l] + j, len);
+          RT_UNROLL
+          for (int b = 0; b < 4; ++b)
+            keep16 |= (uint32_t)(((live >> (8 * b)) & 1u) &&
+                                 !((del >> (8 * b + 7)) & 1u))
+                      << (4 * j + b);
+        }
+        part[l] = (uint64_t)keep16 << (16 * k[l]);
+      }
+      const uint64_t keep = ex.or64(part);
+      const int n = rt_popc64(keep);
+      for (int l = 0; l < L; ++l)
+        for (int j = 0; j < 4; ++j) rt_st32(scr, 4 * k[l] + j, 0);
+      ex.sync();
+      RT_UNROLL
+      for (int l = 0; l < L; ++l) {
+        RT_UNROLL
+        for (int j = 0; j < 4; ++j) {
+          RT_UNROLL
+          for (int b = 0; b < 4; ++b) {
+            const int q = 16 * k[l] + 4 * j + b;
+            if ((keep >> q) & 1)
+              scr[rt_popc64(keep & rt_below(q))] =
+                  (uint8_t)(w[l][j] >> (8 * b));
+          }
+        }
+      }
+      ex.sync();
+      for (int l = 0; l < L; ++l)
+        for (int j = 0; j < 4; ++j) w[l][j] = rt_ld32(scr, 4 * k[l] + j);
+      rt_mask(w, k, n);
+      return n;
+    }
     case RT_PAD: {
       const int length = op.a;
       // lpad moves the row right by `shift` (0 where it is long enough)
@@ -676,8 +762,8 @@ RT_INLINE __host__ __device__ int rt_apply(const RtOp& op, const Ex& ex,
 // and length 0 (its lanes still take part in every exchange). `reps`
 // holds each op's repeated pad, kRtRepBytes apart. Without kMatch the
 // literal-match ops (REPLACE, SUBSTRING_INDEX) are compiled out, and a
-// chain must not hold one (rt_chain_matches): the kernel for the other
-// chains needs fewer registers.
+// chain must not hold one (rt_chain_matches; REPEAT and TRANSLATE too):
+// the kernel for the other chains needs fewer registers.
 template <int L, bool kMatch, class Ex>
 RT_INLINE __host__ __device__ int rt_group_chain(const RtOp* ops, int n_ops,
                                                  const Ex& ex,
@@ -698,10 +784,13 @@ RT_INLINE __host__ __device__ int rt_group_chain(const RtOp* ops, int n_ops,
   return len;
 }
 
-// Whether a chain holds a literal-match op (REPLACE, SUBSTRING_INDEX).
+// Whether a chain holds an op of the heavier instance: a literal match
+// (REPLACE, SUBSTRING_INDEX), or a scatter through the scratch (REPEAT,
+// TRANSLATE).
 RT_INLINE __host__ __device__ bool rt_chain_matches(const RtChain& c) {
   for (int i = 0; i < c.n_ops; ++i)
-    if (c.ops[i].code == RT_REPLACE || c.ops[i].code == RT_SUBSTRING_INDEX)
+    if (c.ops[i].code == RT_REPLACE || c.ops[i].code == RT_SUBSTRING_INDEX ||
+        c.ops[i].code == RT_REPEAT || c.ops[i].code == RT_TRANSLATE)
       return true;
   return false;
 }

@@ -22,6 +22,7 @@ from ..columnar.strrect import RECT_MAX_BYTES
 from ..columnar.transfer import TRANSFER_ENCODE
 from ..config import register
 from ..exprs.base import Alias, ColumnRef, Expression, StrVal
+from ..exprs.collection_fns import STRINGS_REST
 from ..exprs.compiler import (DeviceProjector, compile_rect_chain,
                               filter_batch_by_mask)
 from ..types import INT64, STRING, Schema, StructField
@@ -214,8 +215,8 @@ class TpuProjectExec(TpuExec):
             "spark.rapids.tpu.sql.string.rect.maxBytes, and chains the "
             f"byte-rectangle kernel does not take (a pad past its "
             f"{MAX_WIDTH}-byte rows, a literal past {MAX_LITERAL} bytes, a "
-            "trim of other characters), arrive with the next strings "
-            "slice (ROADMAP.md Queue A item 3)")
+            f"trim of other characters), arrive with the strings slice: "
+            f"{STRINGS_REST}")
 
     def _entries(self, i: int, src: DictColumn, make):
         """``make(values of the chain over the dictionary's entries)``,

@@ -25,6 +25,10 @@ A chain is a list of ops, each a tuple:
   ("pad", length, pad, left)              length >= 1, pad bytes >= 1
   ("substring_index", delim, count)       bytes; len(delim) >= 1; matches
                                           may overlap (Spark's search)
+  ("repeat", times)                       times >= 0
+  ("translate", from, to)                 bytes; from's first occurrence
+                                          wins; past to's end, or to a
+                                          0x00 byte, deleted (Spark)
 
 over an ASCII rectangle ``bytes_`` uint8[P, W] (zero past each row's
 length), ``lengths`` int32[P], ``validity`` bool[P]. The output is a
@@ -48,13 +52,16 @@ import torch
 
 from ..columnar.strrect import rect_width_bucket
 
-__all__ = ["OPCODES", "MAX_OPS", "MAX_LITERAL", "MAX_WIDTH", "BLOCK_THREADS",
+__all__ = ["OPCODES", "HEAVY_OPS", "MAX_OPS", "MAX_LITERAL", "MAX_WIDTH", "BLOCK_THREADS",
            "chain_widths", "pack_chain", "rect_transform",
            "rect_transform_reference", "launch_shape"]
 
 #: op name -> the kernel's op code (csrc/rect_transform_row.cuh RtOpCode)
 OPCODES = {"upper": 1, "lower": 2, "trim": 3, "substring": 4, "replace": 5,
-           "pad": 6, "substring_index": 7, "reverse": 8, "initcap": 9}
+           "pad": 6, "substring_index": 7, "reverse": 8, "initcap": 9,
+           "repeat": 10, "translate": 11}
+#: ops the kernel runs in its heavier instance (rt_chain_matches)
+HEAVY_OPS = ("replace", "substring_index", "repeat", "translate")
 #: ops a launch takes, literal bytes an op takes, widest row (in or out);
 #: csrc/rect_transform_row.cuh kRtMaxOps, kRtMaxLiteral, kRtMaxWidth
 MAX_OPS = 8
@@ -69,7 +76,7 @@ _CHAIN_BYTES = 16 + MAX_OPS * _OP_BYTES
 #: bytes of one op's repeated pad in shared memory (kRtRepBytes)
 _REP_BYTES = 80
 
-_NOT_YET = "the next strings slice (ROADMAP.md Queue A item 3)"
+_NOT_YET = "slice 7, strings, the rest (ROADMAP.md Queue A)"
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +104,15 @@ def _op_width(op: tuple, w: int, cap: int) -> int:
                 f"replace({op[1]!r}, {op[2]!r}) grows a {w}-byte rectangle "
                 f"to {need} bytes, past spark.rapids.tpu.sql.string.rect."
                 f"maxBytes ({cap}): such batches arrive with {_NOT_YET}")
+        return wo
+    if name == "repeat":
+        need = w * max(op[1], 0)
+        wo = rect_width_bucket(max(need, 1), max(cap, w))
+        if wo is None:
+            raise NotImplementedError(
+                f"repeat({op[1]}) grows a {w}-byte rectangle to {need} "
+                f"bytes, past spark.rapids.tpu.sql.string.rect.maxBytes "
+                f"({cap}): such batches arrive with {_NOT_YET}")
         return wo
     if name == "pad":
         wo = rect_width_bucket(max(op[1], 1), max(cap, w))
@@ -304,6 +320,43 @@ def _reverse(b, ln):
     return _zero_tail(out, ln), ln
 
 
+def _repeat(b, ln, times: int, wo: int):
+    """The row ``times`` times over: output byte j is row byte j mod
+    len, below len x times."""
+    ln64 = ln.to(torch.int64)[:, None]
+    j = _cols(wo, b.device)
+    src = torch.where(ln64 > 0, j % ln64.clamp(min=1), -1)
+    new_len = (ln.to(torch.int64) * max(times, 0)).clamp(max=wo)
+    return _zero_tail(_take(b, src), new_len), new_len.to(torch.int32)
+
+
+def _translate(b, ln, src: bytes, dst: bytes):
+    """Each byte of ``src`` to the byte of ``dst`` at its position, the
+    first occurrence winning; past ``dst``'s end, or to 0x00, deleted, and
+    the kept bytes moved together."""
+    to = np.arange(256, dtype=np.uint8)
+    gone = np.zeros(256, bool)
+    seen = set()
+    for i, c in enumerate(src):
+        if c in seen:
+            continue
+        seen.add(c)
+        if i < len(dst) and dst[i] != 0:
+            to[c] = dst[i]
+        else:
+            gone[c] = True
+    p, w = b.shape
+    idx = b.long()
+    mapped = torch.from_numpy(to).to(b.device)[idx]
+    live = _cols(w, b.device) < ln.to(torch.int64)[:, None]
+    keep = live & ~torch.from_numpy(gone).to(b.device)[idx]
+    pos = torch.cumsum(keep.to(torch.int64), dim=1) - keep.to(torch.int64)
+    out = torch.zeros((p, w + 1), dtype=torch.uint8, device=b.device)
+    out.scatter_(1, torch.where(keep, pos, w), mapped)
+    new_len = keep.sum(dim=1)
+    return _zero_tail(out[:, :w], new_len), new_len.to(torch.int32)
+
+
 def _apply(op: tuple, b, ln, wo: int):
     name = op[0]
     if name == "upper":
@@ -324,6 +377,10 @@ def _apply(op: tuple, b, ln, wo: int):
         return _pad(b, ln, op[1], op[2], op[3], wo)
     if name == "substring_index":
         return _substring_index(b, ln, op[1], op[2])
+    if name == "repeat":
+        return _repeat(b, ln, op[1], wo)
+    if name == "translate":
+        return _translate(b, ln, op[1], op[2])
     raise ValueError(f"unknown rect transform {name!r}")
 
 
@@ -389,6 +446,10 @@ def pack_chain(ops: Sequence[tuple], widths: Sequence[int]) -> np.ndarray:
             a, b, lit1 = int(op[1]), int(op[3]), op[2]
         elif name == "substring_index":
             lit1, a = op[1], int(op[2])
+        elif name == "repeat":
+            a = int(min(max(op[1], 0), (1 << 31) - 1))
+        elif name == "translate":
+            lit1, lit2 = op[1], op[2]
         for lit in (lit1, lit2):
             if len(lit) > MAX_LITERAL:
                 raise NotImplementedError(
@@ -414,7 +475,7 @@ def launch_shape(ops: Sequence[tuple], rows: int, w: int, cap: int) -> dict:
     each op's repeated pad and 16 bytes of scratch a thread. A chain with
     a literal match runs the kernel's instance that has the match code."""
     widest = max(chain_widths(ops, w, cap))
-    match = any(op[0] in ("replace", "substring_index") for op in ops)
+    match = any(op[0] in HEAVY_OPS for op in ops)
     lanes = max(1, widest // 16)
     lib = _launcher()[1]
     return {"grid": int(lib.rect_transform_grid(rows, widest, int(match))),

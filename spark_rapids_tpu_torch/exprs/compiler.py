@@ -222,8 +222,9 @@ class DictFilterEvaluator:
         device a code range (``dict_form == "range"``, a prefix over the
         sorted dictionary) or one lookup in the entries' mask;
       * an ASCII byte rectangle: the literal match over every row, the
-        hand-written kernel when ``use_kernel`` (the reference's per-batch
-        host fallback, on the device here)."""
+        hand-written kernel when ``use_kernel``; any other LIKE or RLIKE
+        through its DFA and ``rect_dfa`` (the reference's per-batch host
+        fallback, on the device here)."""
 
     def __init__(self, cond: Expression, schema: Schema, rewritten,
                  preds):
@@ -260,6 +261,7 @@ class DictFilterEvaluator:
 
     def _slot_value(self, batch: ColumnarBatch, pred, ordinal: int,
                     form: str, use_kernel: bool, cap: int) -> DVal:
+        from .collection_fns import STRINGS_REST
         from .string_rect import eval_rect_chain, rect_chain_leaf
         col = batch.columns[ordinal]
         if isinstance(col, DictColumn):
@@ -288,8 +290,8 @@ class DictFilterEvaluator:
         raise DictFilterFallback(
             f"filter <{self.cond.name_hint}> over "
             f"{batch.schema.fields[ordinal].name} ({col!r}): string "
-            "predicates over non-ASCII or over-wide strings arrive with "
-            "the next strings slice (ROADMAP.md Queue A item 3)")
+            f"predicates over non-ASCII or over-wide strings arrive with "
+            f"the strings slice: {STRINGS_REST}")
 
     def keep_mask(self, batch: ColumnarBatch, use_kernel: bool = False,
                   cap: int = RECT_MAX_BYTES.default) -> torch.Tensor:

@@ -1,13 +1,15 @@
 """String expressions (port of ``spark_rapids_tpu/exprs/string_fns.py``:
-the literal match family and the value-wise transforms, their types, keys
-and tagging).
+the match family, LIKE and RLIKE, the value-wise transforms and the INT32
+functions, their types, keys and tagging; ``concat``, ``concat_ws`` and
+``chr`` are in string_concat.py).
 
 They have no row-wise device form of their own. A projection or a filter
 routes them by the column's layout:
 
   * over a byte-rectangle column through ``string_rect.eval_rect_chain``:
     a chain of transforms is one ``rect_transform`` launch
-    (exec/rect_transform.py), a match terminal one ``rect_match``;
+    (exec/rect_transform.py), a literal match terminal one
+    ``rect_match``, any other LIKE or RLIKE one ``rect_dfa``;
   * over a dictionary column once per dictionary entry on the host:
     ``string_rect.match_dictionary`` for the match family (in a filter:
     ``compiler.py`` ``DictFilterEvaluator``, in the form ``dict_form``
@@ -30,10 +32,11 @@ from ..types import BOOL, INT32, STRING, Schema
 from .base import Expression
 
 __all__ = ["Contains", "StartsWith", "EndsWith", "Like", "RLike",
-           "StringLocate", "StringInstr", "Length", "Upper", "Lower",
-           "Substring", "StringTrim", "StringTrimLeft", "StringTrimRight",
-           "StringReplace", "Lpad", "Rpad", "Reverse", "InitCap",
-           "SubstringIndex", "StringSplit", "literal_pattern",
+           "StringLocate", "StringInstr", "Length", "Ascii", "BitLength",
+           "OctetLength", "Upper", "Lower", "Substring", "StringTrim",
+           "StringTrimLeft", "StringTrimRight", "StringReplace", "Lpad",
+           "Rpad", "Reverse", "InitCap", "SubstringIndex", "StringRepeat",
+           "StringTranslate", "StringSplit", "literal_pattern",
            "split_strings"]
 
 
@@ -46,12 +49,19 @@ class _HostStringExpr(Expression):
         return f"{type(self).__name__}: string expressions run on host"
 
     def fully_device_supported(self, schema: Schema) -> Optional[str]:
-        """A chain over a lambda's string variable runs on the device
-        (``eval_device``); elsewhere the project and filter execs route
-        string chains by the column's layout themselves."""
-        from .string_rect import chain_leaf
+        """A chain over a lambda's string variable, or over another device
+        expression giving a string (``upper(concat(a, b))``), runs on the
+        device (``eval_device``); elsewhere the project and filter execs
+        route string chains by the column's layout themselves."""
+        from .base import ColumnRef
+        from .string_rect import chain_bottom, chain_leaf
         leaf = chain_leaf(self, schema)
         if leaf is not None and leaf.startswith("`lambda_"):
+            return None
+        bottom = chain_bottom(self)
+        if bottom is not None and not isinstance(bottom, ColumnRef) \
+                and bottom.data_type(schema) == STRING \
+                and bottom.fully_device_supported(schema) is None:
             return None
         return super().fully_device_supported(schema)
 
@@ -99,11 +109,30 @@ class EndsWith(_PatternPredicate):
 
 
 class Like(_PatternPredicate):
-    """SQL LIKE."""
+    """SQL LIKE, Spark's: a whole-string match where ``_`` is any
+    character and ``%`` any run, a newline included (Spark compiles it
+    with DOTALL; the JAX package's regex engine stops ``_`` and ``%`` at a
+    newline: ROADMAP.md Queue C)."""
 
     def __init__(self, child, pattern: str, escape: str = "\\"):
         super().__init__(child, pattern)
         self.escape = escape
+        self._dfa = None
+
+    def dfa(self):
+        """The pattern's DFA over bytes (exprs/regex_dfa.py), built once."""
+        if self._dfa is None:
+            from .regex_dfa import compile_like
+            self._dfa = compile_like(self.pattern, self.escape)
+        return self._dfa
+
+    def host_matcher(self):
+        """str -> bool: the match over one dictionary entry."""
+        import re
+        from .regex_transpiler import sql_like_to_regex
+        rx = re.compile(sql_like_to_regex(self.pattern, self.escape),
+                        re.DOTALL)
+        return lambda v: rx.fullmatch(v) is not None
 
     def key(self):
         return (f"Like({self.children[0].key()},{self.pattern!r},"
@@ -111,7 +140,35 @@ class Like(_PatternPredicate):
 
 
 class RLike(_PatternPredicate):
-    """Java-regex RLIKE (the port evaluates literal patterns only)."""
+    """Java-regex RLIKE: ``Matcher.find()``, the pattern anywhere in the
+    string. A literal pattern (optionally after ``^``) runs as a literal
+    match, any other through its DFA (exprs/regex_dfa.py, which refuses
+    what it cannot take). Over a dictionary each entry is matched by
+    Python's ``re`` with the transpiled pattern, ASCII case folding as
+    Java's default (the JAX package's engine folds Unicode: ROADMAP.md
+    Queue C)."""
+
+    def __init__(self, child, pattern: str):
+        super().__init__(child, pattern)
+        self._dfa = None
+
+    def dfa(self):
+        """The pattern's DFA over bytes (exprs/regex_dfa.py), built once."""
+        if self._dfa is None:
+            from .regex_dfa import compile_rlike
+            self._dfa = compile_rlike(self.pattern)
+        return self._dfa
+
+    def host_matcher(self):
+        """str -> bool: the match over one dictionary entry (the empty
+        string through the DFA: Python's ``\\B`` never matches it, Java's
+        does)."""
+        import re
+        from .regex_dfa import dfa_match
+        from .regex_transpiler import transpile_java_regex
+        rx = re.compile(transpile_java_regex(self.pattern), re.ASCII)
+        empty = dfa_match(self.dfa(), b"")
+        return lambda v: rx.search(v) is not None if v else empty
 
 
 class StringLocate(_HostStringExpr):
@@ -152,8 +209,10 @@ class _Unary(_HostStringExpr):
         return STRING
 
 
-class Length(_HostStringExpr):
-    """Characters (code points) of the string."""
+class _IntTerminal(_HostStringExpr):
+    """A STRING -> INT32 function that may end a chain: ``host_value``
+    over one entry, ``rect_value`` over an ASCII byte rectangle (a byte a
+    character)."""
 
     def __init__(self, child):
         self.children = [child]
@@ -161,9 +220,57 @@ class Length(_HostStringExpr):
     def data_type(self, schema):
         return INT32
 
+
+class Length(_IntTerminal):
+    """Characters (code points) of the string."""
+
     @staticmethod
     def host_value(v: str) -> int:
         return len(v)
+
+    @staticmethod
+    def rect_value(sv):
+        return sv.lengths
+
+
+class Ascii(_IntTerminal):
+    """ascii(s): the code point of the first character, 0 for ''."""
+
+    @staticmethod
+    def host_value(v: str) -> int:
+        return ord(v[0]) if v else 0
+
+    @staticmethod
+    def rect_value(sv):
+        import torch
+        if not sv.bytes_.shape[1]:
+            return torch.zeros_like(sv.lengths)
+        return torch.where(sv.lengths > 0, sv.bytes_[:, 0].to(torch.int32),
+                           0)
+
+
+class OctetLength(_IntTerminal):
+    """octet_length(s): bytes of the UTF-8 string."""
+
+    @staticmethod
+    def host_value(v: str) -> int:
+        return len(v.encode("utf-8"))
+
+    @staticmethod
+    def rect_value(sv):
+        return sv.lengths
+
+
+class BitLength(_IntTerminal):
+    """bit_length(s): 8 x its bytes."""
+
+    @staticmethod
+    def host_value(v: str) -> int:
+        return 8 * len(v.encode("utf-8"))
+
+    @staticmethod
+    def rect_value(sv):
+        return sv.lengths * 8
 
 
 class Upper(_Unary):
@@ -300,6 +407,64 @@ class Reverse(_Unary):
     @staticmethod
     def host_value(v: str) -> str:
         return v[::-1]
+
+
+class StringRepeat(_HostStringExpr):
+    """repeat(str, n): the string n times; '' for n <= 0."""
+    dict_transform = True
+
+    def __init__(self, child, times: int):
+        self.children = [child]
+        self.times = int(times)
+
+    def data_type(self, schema):
+        return STRING
+
+    def host_value(self, v: str) -> str:
+        return v * max(self.times, 0)
+
+    def key(self):
+        return f"repeat({self.children[0].key()},{self.times})"
+
+
+def _literal_str(v) -> str:
+    from .base import Literal
+    if isinstance(v, Literal):
+        v = v.value
+    if not isinstance(v, str):
+        raise TypeError(f"translate takes string literals, not {v!r}")
+    return v
+
+
+class StringTranslate(_HostStringExpr):
+    """translate(str, from, to), Spark's ``StringTranslate``: each
+    character of ``from`` maps to the character of ``to`` at its position
+    (the first occurrence wins); one past the end of ``to``, or mapped to
+    ``'\\0'``, is deleted."""
+    dict_transform = True
+
+    def __init__(self, child, src, dst):
+        self.children = [child]
+        self.src = _literal_str(src)
+        self.dst = _literal_str(dst)
+
+    def data_type(self, schema):
+        return STRING
+
+    def table(self) -> dict:
+        """code point -> its replacement, None to delete."""
+        out = {}
+        for i, ch in enumerate(self.src):
+            rep = self.dst[i] if i < len(self.dst) else "\0"
+            out.setdefault(ord(ch), None if rep == "\0" else rep)
+        return out
+
+    def host_value(self, v: str) -> str:
+        return v.translate(self.table())
+
+    def key(self):
+        return (f"translate({self.children[0].key()},{self.src!r},"
+                f"{self.dst!r})")
 
 
 class InitCap(_Unary):

@@ -8,17 +8,22 @@ one such column (upper, lower, initcap, space trim, substring, replace,
 lpad/rpad, substring_index, reverse) evaluates as one ``rect_transform``
 call (exec/rect_transform.py: the hand-written kernel on a card, its
 plain torch version on the CPU), in place of the reference's jitted
-``jnp`` transforms. The chain may end in a terminal: ``Length``, or a
-literal match (Contains / StartsWith / EndsWith, the literal LIKE and
-RLIKE forms, StringLocate, StringInstr: exprs/rect_match.py, the
-hand-written kernel when ``spark.rapids.tpu.sql.pallas.enabled`` is on,
-otherwise its plain torch version). The ASCII gate stays with the
-caller: the project exec takes this path only for an ``ascii_only``
-rectangle, where a byte is a character.
+``jnp`` transforms. The chain may end in a terminal: an INT32 function
+(``Length``, ``Ascii``, ``OctetLength``, ``BitLength``), a literal match
+(Contains / StartsWith / EndsWith, the literal LIKE and RLIKE forms,
+StringLocate, StringInstr: exprs/rect_match.py, the hand-written kernel
+when ``spark.rapids.tpu.sql.pallas.enabled`` is on, otherwise its plain
+torch version), or any other LIKE or RLIKE, the ``"dfa"`` form: the
+pattern's DFA (exprs/regex_dfa.py) walked by ``rect_dfa``
+(exec/rect_dfa.py, on a card always the kernel). The ASCII gate stays
+with the caller: the project exec takes this path only for an
+``ascii_only`` rectangle, where a byte is a character.
 
 Over a dictionary column the same chains run once per dictionary entry
 on the host (``dictionary_values``), through each expression's
-``host_value``.
+``host_value`` (a pattern's ``host_matcher``). A chain may also stand on
+another expression giving a string (``upper(concat(a, b))``,
+``chain_bottom``), evaluated first into a column.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ from ..types import BOOL, INT32, STRING, DataType, Schema
 from .base import ColumnRef, DVal, Expression, StrVal
 from .rect_match import rect_match, rect_match_reference
 
-__all__ = ["rect_chain_leaf", "chain_leaf",
+__all__ = ["rect_chain_leaf", "chain_leaf", "chain_bottom",
            "transform_op", "match_form", "match_dictionary",
            "dictionary_values", "eval_rect_expr", "eval_rect_chain",
            "eval_rect_in"]
@@ -49,22 +54,18 @@ def _ascii(s: str) -> Optional[bytes]:
 
 
 def _rlike_literal_parts(pattern: str):
-    """(form, literal) when a Java-regex RLIKE pattern is an (optionally
-    anchored) literal; None otherwise."""
-    if not pattern:
+    """(form, literal) when a Java-regex RLIKE pattern is a literal,
+    optionally after ``^``; None otherwise. A trailing ``$`` goes to the
+    DFA: Java's ``$`` also matches before a final line terminator, which
+    no literal form says (the JAX package takes ``lit$`` as endswith:
+    ROADMAP.md Queue C)."""
+    if not pattern or pattern.endswith("$"):
         return None
     lead = pattern.startswith("^")
-    trail = pattern.endswith("$")
-    body = pattern[1 if lead else 0: len(pattern) - (1 if trail else 0)]
+    body = pattern[1 if lead else 0:]
     if any(c in _REGEX_META for c in body) or _ascii(body) is None:
         return None
-    if lead and trail:
-        return ("equals", body)
-    if lead:
-        return ("startswith", body)
-    if trail:
-        return ("endswith", body)
-    return ("contains", body)
+    return ("startswith", body) if lead else ("contains", body)
 
 
 def _like_parts(pattern: str):
@@ -86,18 +87,20 @@ def _like_parts(pattern: str):
     return ("equals", mid)
 
 
-def match_form(e: Expression) -> Optional[Tuple[str, str, DataType]]:
-    """(form, literal, output type) of a literal-match expression, or None
-    when ``e`` is not one the rectangle path evaluates."""
+def match_form(e: Expression) -> Optional[Tuple[str, object, DataType]]:
+    """(form, literal, output type) of a match expression, or None when
+    ``e`` is not one. A LIKE or RLIKE that no literal form takes is
+    ``("dfa", its DFA, BOOL)`` (exprs/regex_dfa.py, built here, at
+    planning: a pattern it refuses raises ``NotImplementedError``)."""
     from .base import Literal
     from .string_fns import (Contains, EndsWith, Like, RLike, StartsWith,
                              StringInstr, StringLocate)
     if isinstance(e, Like):
         parts = _like_parts(e.pattern) if e.escape == "\\" else None
-        return None if parts is None else (*parts, BOOL)
+        return ("dfa", e.dfa(), BOOL) if parts is None else (*parts, BOOL)
     if isinstance(e, RLike):
         parts = _rlike_literal_parts(e.pattern)
-        return None if parts is None else (*parts, BOOL)
+        return ("dfa", e.dfa(), BOOL) if parts is None else (*parts, BOOL)
     for cls, form in ((Contains, "contains"), (StartsWith, "startswith"),
                       (EndsWith, "endswith")):
         if isinstance(e, cls):
@@ -121,9 +124,11 @@ def transform_op(e: Expression) -> Optional[tuple]:
     literals, a non-empty search and delimiter), with the kernel's bounds
     (literals of at most 32 bytes, a pad target in (0, 64], the widest
     row it writes); ``initcap`` and a negative substring ``pos`` too,
-    which the reference runs on its host engine."""
-    from .string_fns import (InitCap, Lower, Lpad, Reverse, StringReplace,
-                             SubstringIndex, Substring, Upper, _TrimBase)
+    which the reference runs on its host engine, and ``repeat`` and
+    ``translate`` (ASCII literals of at most 32 bytes)."""
+    from .string_fns import (InitCap, Lower, Lpad, Reverse, StringRepeat,
+                             StringReplace, StringTranslate, SubstringIndex,
+                             Substring, Upper, _TrimBase)
 
     def lit(v: str) -> Optional[bytes]:
         b = _ascii(v)
@@ -153,13 +158,38 @@ def transform_op(e: Expression) -> Optional[tuple]:
     if isinstance(e, SubstringIndex):
         d = lit(e.delim)
         return None if d is None else ("substring_index", d, e.count)
+    if isinstance(e, StringRepeat):
+        return ("repeat", max(e.times, 0))
+    if isinstance(e, StringTranslate):
+        src, dst = _ascii(e.src), _ascii(e.dst)
+        if src is None or dst is None or max(len(src), len(dst)) \
+                > MAX_LITERAL:
+            return None
+        return ("translate", src, dst)
     return None
 
 
 def _terminal(e: Expression) -> bool:
     """A STRING -> INT or BOOL op that may end a chain."""
-    from .string_fns import Length
-    return isinstance(e, Length) or match_form(e) is not None
+    from .string_fns import _IntTerminal
+    return isinstance(e, _IntTerminal) or match_form(e) is not None
+
+
+def _link(e: Expression) -> bool:
+    """A value-wise STRING -> STRING transform of one child."""
+    return getattr(e, "dict_transform", False) and len(e.children) == 1
+
+
+def chain_bottom(e: Expression) -> Optional[Expression]:
+    """What a chain (value-wise transforms, then an optional terminal)
+    stands on: a ColumnRef, or another expression giving a string
+    (``upper(concat(a, b))``); None when ``e`` is no chain."""
+    cur = e.children[0] if _terminal(e) else e
+    hops = int(cur is not e)
+    while _link(cur):
+        cur = cur.children[0]
+        hops += 1
+    return cur if hops else None
 
 
 def _chain_leaf(e: Expression, schema: Schema, link) -> Optional[str]:
@@ -198,24 +228,31 @@ def chain_leaf(e: Expression, schema: Schema) -> Optional[str]:
 
 
 def _split_chain(e: Expression):
-    """(terminal or None, the transforms from the leaf up); a filter's
+    """(terminal or None, the transforms from the bottom up); a filter's
     ``In`` over a string column is a terminal too."""
     from .comparison import In
     term = e if _terminal(e) or isinstance(e, In) else None
     cur = e.children[0] if term is not None else e
     chain = []
-    while not isinstance(cur, ColumnRef):
+    while not isinstance(cur, ColumnRef) and _link(cur):
         chain.append(cur)
         cur = cur.children[0]
     chain.reverse()
     return term, chain
 
 
+def _rect_chain(e: Expression) -> bool:
+    """Whether the byte-rectangle path takes the chain ``e`` (its
+    transforms ``rect_transform`` ops, its terminal one it evaluates)."""
+    term, chain = _split_chain(e)
+    return all(transform_op(x) is not None for x in chain)
+
+
 def dictionary_values(e: Expression, dictionary: np.ndarray) -> np.ndarray:
     """A chain (``chain_leaf``) over every entry of a string
     dictionary: an object array of str for a STRING result, int32 for
     Length, bool (or int32 for locate) for a match."""
-    from .string_fns import Length
+    from .string_fns import _IntTerminal
     term, chain = _split_chain(e)
     vals = list(np.asarray(dictionary, dtype=object))
     for x in chain:
@@ -224,9 +261,12 @@ def dictionary_values(e: Expression, dictionary: np.ndarray) -> np.ndarray:
         out = np.empty(len(vals), dtype=object)
         out[:] = vals
         return out
-    if isinstance(term, Length):
-        return np.asarray([len(v) for v in vals], dtype=np.int32)
-    return match_dictionary(term, np.asarray(vals, dtype=object))
+    if isinstance(term, _IntTerminal):
+        return np.asarray([term.host_value(v) for v in vals],
+                          dtype=np.int32)
+    out = np.empty(len(vals), dtype=object)
+    out[:] = vals
+    return match_dictionary(term, out)
 
 
 def match_dictionary(e: Expression, dictionary: np.ndarray) -> np.ndarray:
@@ -241,6 +281,9 @@ def match_dictionary(e: Expression, dictionary: np.ndarray) -> np.ndarray:
         listed = {str(v) for v in e.values if v is not None}
         return np.fromiter((v in listed for v in d), bool, len(d))
     form, lit, _ = match_form(e)
+    if form == "dfa":
+        match = e.host_matcher()
+        return np.fromiter((match(v) for v in d), bool, len(d))
     if form == "contains":
         return np.fromiter((lit in v for v in d), bool, len(d))
     if form == "startswith":
@@ -254,15 +297,20 @@ def match_dictionary(e: Expression, dictionary: np.ndarray) -> np.ndarray:
 
 def eval_rect_expr(e: Expression, child: DVal,
                    use_kernel: bool = False) -> DVal:
-    """Evaluate a chain's terminal (``Length`` or a literal match) over a
-    StrVal-typed DVal; ``use_kernel`` routes a match through the
-    hand-written match kernel."""
-    from .string_fns import Length
+    """Evaluate a chain's terminal (an INT32 function or a match) over a
+    StrVal-typed DVal. A literal match runs the hand-written match kernel
+    with ``use_kernel``, its plain version without; a pattern the literal
+    forms do not take runs ``rect_dfa`` (on a card always the kernel)."""
+    from .string_fns import _IntTerminal
     sv: StrVal = child.data
-    if isinstance(e, Length):
-        return DVal(torch.where(child.validity, sv.lengths, 0)
+    if isinstance(e, _IntTerminal):
+        return DVal(torch.where(child.validity, e.rect_value(sv), 0)
                     .to(torch.int32), child.validity, INT32)
     form, lit, out_dt = match_form(e)
+    if form == "dfa":
+        from ..exec.rect_dfa import rect_dfa
+        return DVal(rect_dfa(sv.bytes_, sv.lengths, child.validity, lit),
+                    child.validity, out_dt)
     fn = rect_match if use_kernel else rect_match_reference
     return DVal(fn(sv.bytes_, sv.lengths, lit.encode(), form),
                 child.validity, out_dt)
@@ -300,21 +348,25 @@ def eval_rect_chain(e: Expression, leaf_val: DVal, use_kernel: bool = False,
 
 
 def eval_string_chain(e: Expression, ctx) -> DVal:
-    """A chain (``chain_leaf``) over one string column of ``ctx``,
-    evaluated by the column's layout: over a dictionary once per entry
-    (a STRING result a dictionary column over the sorted distinct
-    results, an INT or BOOL one a table gathered by code); over an ASCII
-    byte rectangle through ``eval_rect_chain`` (``rect_transform``, then
-    the match kernel with ``ctx.use_kernel``). A STRING result carries
+    """A chain over one string column of ``ctx`` (``chain_leaf``), or
+    over another expression giving a string (``chain_bottom``: its column
+    through ``string_column``), evaluated by the column's layout: over a
+    dictionary once per entry (a STRING result a dictionary column over
+    the sorted distinct results, an INT or BOOL one a table gathered by
+    code); over an ASCII byte rectangle through ``eval_rect_chain``
+    (``rect_transform``, then the match kernels). A STRING result carries
     its column."""
     from ..columnar import ByteRectColumn, DictColumn
+    from .collection_fns import string_column
     from .compiler import column_dval
-    leaf = chain_leaf(e, ctx.schema)
-    if leaf is None:
+    bottom = chain_bottom(e)
+    if bottom is None:
         raise NotImplementedError(
-            f"<{e.name_hint}> is not a string chain over one column")
-    v = ctx.columns[ctx.schema.index_of(leaf)]
-    col = v.column
+            f"<{e.name_hint}> is not a string chain")
+    if isinstance(bottom, ColumnRef):
+        col = ctx.columns[ctx.schema.index_of(bottom.name)].column
+    else:
+        col = string_column(bottom, ctx)
     dt = e.data_type(ctx.schema)
     if isinstance(col, DictColumn):
         vals = dictionary_values(e, col.dictionary)
@@ -336,7 +388,7 @@ def eval_string_chain(e: Expression, ctx) -> DVal:
                                            device=dev)
         return DVal(torch.where(col.validity, data, 0), col.validity, dt)
     if isinstance(col, ByteRectColumn) and col.ascii_only \
-            and rect_chain_leaf(e, ctx.schema) is not None:
+            and _rect_chain(e):
         out = eval_rect_chain(e, DVal(StrVal(col.data, col.lengths),
                                       col.validity, STRING),
                               ctx.use_kernel)

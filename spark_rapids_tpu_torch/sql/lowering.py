@@ -60,15 +60,15 @@ _SCALAR_FNS = {
     "isnan": F.isnan, "isnull": F.isnull,
 }
 
-_VARARG_FNS = {"coalesce": F.coalesce}
+_VARARG_FNS = {"coalesce": F.coalesce, "concat": F.concat}
 
-_STRINGS = "the next strings slice (slice 7: concat, parse_url)"
+_STRINGS = "slice 7, strings, the rest (ROADMAP.md Queue A)"
 _TIME_ZONES = ("the time-zone functions, which the reference runs on its "
                "host engine (ROADMAP.md Queue A, the host-only functions: "
                "queued with slice 13)")
 #: functions of the reference's tables that arrive with a later slice
 _LATER = {
-    **{fn: _STRINGS for fn in ("concat", "parse_url")},
+    **{fn: _STRINGS for fn in ("parse_url",)},
     **{fn: _TIME_ZONES for fn in ("from_utc_timestamp",
                                   "to_utc_timestamp")},
 }
@@ -648,9 +648,9 @@ class _Lowerer:
             if op == "+" and isinstance(ast[3], tuple) \
                     and ast[3][0] == "interval":
                 return self._interval_shift(ast[2], ast[3], +1)
-            if op == "||":
-                _refuse("concat")
             l, r = self._expr(ast[2]), self._expr(ast[3])
+            if op == "||":
+                return F.concat(l, r)
             return {
                 "and": lambda: l & r, "or": lambda: l | r,
                 "=": lambda: l == r, "<>": lambda: l != r,

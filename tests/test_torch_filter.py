@@ -206,10 +206,16 @@ def test_dictionary_masks_are_made_once_per_dictionary():
 
 
 def test_condition_the_port_cannot_rewrite_is_refused():
+    """A LIKE with ``_`` runs since slice 7's patterns (equal to the
+    reference); a pattern no DFA takes (a backreference) is refused,
+    naming the slice."""
     table = _mode_table(100, 1)
+    _assert_equal(lambda df, F: df.filter(F.col("l_shipmode").like("M_IL"))
+                  .select("l_shipmode", "v"), table)
     df = _port().create_dataframe(table).filter(
-        PF.col("l_shipmode").like("M_IL"))
-    with pytest.raises(NotImplementedError, match="cannot run on the device"):
+        PF.col("l_shipmode").rlike("(A)\\1"))
+    with pytest.raises(NotImplementedError,
+                       match="slice 7, strings, the rest"):
         df.collect()
 
 

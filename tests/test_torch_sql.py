@@ -463,7 +463,7 @@ def test_errors_equal_reference(sessions, text, match):
 
 #: texts the port refuses, and the slice each names
 REFUSED = [
-    ("SELECT name || 'x' FROM people", "slice 7"),
+    ("SELECT name || v FROM people", "slice 7"),
     ("SELECT CAST(v AS STRING) FROM people", "slice 7"),
     ("SELECT CAST(name AS DECIMAL) FROM people", "decimals"),
     ("SELECT from_utc_timestamp(l_shipdate, 'UTC') FROM lineitem",
