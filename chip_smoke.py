@@ -15,12 +15,14 @@ result line):
                 function. ``--compare NAME=DIR`` also builds
                 DIR/rect_match.cu, DIR/dense_groupby.cu,
                 DIR/rect_transform.cu, DIR/window_frame.cu,
-                DIR/sort_bucket.cu and/or DIR/decimal_arith.cu (another
-                version of a kernel with its headers, e.g. an earlier
-                commit's; dense_groupby with the C interface of commit
-                645412c) alongside, to be timed beside the port's
-                (rect_transform, window_frame, sort_bucket and
-                decimal_arith in turns with it);
+                DIR/sort_bucket.cu, DIR/decimal_arith.cu and/or
+                DIR/rect_dfa.cu (another version of a kernel with its
+                headers, e.g. an earlier commit's; dense_groupby with the
+                C interface of commit 645412c) alongside, to be timed
+                beside the port's (rect_transform, window_frame,
+                sort_bucket, decimal_arith and rect_dfa in turns with
+                it); rect_dfa with its class-indexed instance alone
+                (kRdByteStates 0) is built beside the port's too;
   3. kernels -- each kernel's wrapper on the card against its plain torch
                 version: rect_match exactly, in every mode and edge case;
                 dense_groupby with counts exact and float sums within a
@@ -305,11 +307,19 @@ result line):
                 building: (a) rect_dfa against its plain version bit for
                 bit on one SF1 l_comment batch (1,048,576 x 64) for
                 TPC-H Q13's and Q16's LIKE patterns, a '_', an escaped
-                '%', three RLIKE patterns and the empty ones, each timed
-                with the L2 cold beside its bound, the plain version and
-                the host's ms a call, with its states, classes and shared
-                memory; (b) Q13's NOT LIKE '%special%requests%' (count
-                and revenue) and Q16's LIKE '%Customer%Complaints%' over
+                '%', three RLIKE patterns, the empty ones and DFAs of
+                66, 130 and 192 states, through the wrapper, the
+                byte-indexed instance handed the class table, the
+                class-indexed instance's own build and the versions of
+                --compare, each timed with the L2 cold in turns with
+                those builds beside its bound, the plain version and
+                the host's ms a call, with its instance, states, classes,
+                shared memory and registers; every version bit for bit
+                on random rectangles 8 to 128 bytes wide with junk past
+                the lengths; rect_dfa and rect_transform over a
+                transposed (dense, not row-major) rectangle; (b)
+                Q13's NOT LIKE '%special%requests%' (count and revenue)
+                and Q16's LIKE '%Customer%Complaints%' over
                 SF1 lineitem, as DataFrames and SQL (rect_dfa once a
                 batch, rect_match never), and l_shipmode RLIKE
                 '^(REG )?AIR$' over the dictionary (no rect_dfa), each
@@ -1259,10 +1269,11 @@ def _ptxas_frames(log: str) -> list:
 
 def _start_compare_build(name: str, src_dir: str):
     """nvcc for other versions of the port's kernels (``src_dir`` holds a
-    rect_match.cu, dense_groupby.cu, rect_transform.cu, window_frame.cu
-    and/or sort_bucket.cu with their headers: the parent commit's, or a
-    variant), started now and built like the port's own into build/.
-    Returns [(name, kernel, process, library)]."""
+    rect_match.cu, dense_groupby.cu, rect_transform.cu, window_frame.cu,
+    sort_bucket.cu, decimal_arith.cu and/or rect_dfa.cu with their
+    headers: the parent commit's, or a variant), started now and built
+    like the port's own into build/. Returns [(name, kernel, process,
+    library, source directory)]."""
     from spark_rapids_tpu_torch import native
     native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = []
@@ -1274,7 +1285,7 @@ def _start_compare_build(name: str, src_dir: str):
         started.append((name, kernel, subprocess.Popen(
             [native._nvcc(), *native.NVCC_FLAGS, "-I", str(src.parent),
              "-o", str(out), str(src)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), out))
+            stderr=subprocess.STDOUT, text=True), out, src.parent))
     _check(bool(started), f"no kernel source of {', '.join(KERNELS)} in "
                           f"{src_dir}")
     return started
@@ -1463,7 +1474,58 @@ def _decimal_arith_compare(name, lib):
     return other
 
 
-def _finish_compare_build(name, kernel, proc, out):
+def _rect_dfa_compare(name, lib, form):
+    """rect_dfa_launch of another build (the port's C signature; commit
+    3444cf9's has it), with rect_dfa's arguments: the DFA's tables in
+    ``form`` (None: as the port's wrapper hands them over; "class": its
+    class-indexed table, the only one a build without the byte-indexed
+    instance takes). No launch count: it is not on the port's path."""
+    import ctypes
+
+    from spark_rapids_tpu_torch.exec import rect_dfa as rd
+    fn = lib.rect_dfa_launch
+    fn.argtypes = rd._ARGTYPES
+    fn.restype = ctypes.c_int
+
+    def other(b, ln, v, dfa):
+        return rd.launch(fn, b, ln, v, dfa, form)
+    return other
+
+
+_BYTE_STATES_LINE = r"constexpr int kRdByteStates = (\d+);"
+
+
+def _rect_dfa_form(src_dir) -> str:
+    """The tables a rect_dfa build in ``src_dir`` takes: the wrapper's
+    (None) where its header has the byte-indexed instance, else the
+    class-indexed table."""
+    hdr = Path(src_dir) / "rect_dfa_row.cuh"
+    m = hdr.exists() and re.search(_BYTE_STATES_LINE, hdr.read_text())
+    return None if m and int(m.group(1)) > 0 else "class"
+
+
+def _start_instance_builds():
+    """rect_dfa with its class-indexed instance alone (kRdByteStates 0),
+    from this checkout's sources into build/instances/rect_dfa_class/:
+    checked and timed beside the kernel on every pattern, as a version
+    of --compare is. Returns [(name, kernel, process, library, source
+    directory)]."""
+    from spark_rapids_tpu_torch import native
+    d = native.BUILD_DIR / "instances" / "rect_dfa_class"
+    d.mkdir(parents=True, exist_ok=True)
+    hdr, n = re.subn(_BYTE_STATES_LINE, "constexpr int kRdByteStates = 0;",
+                     (native.CSRC / "rect_dfa_row.cuh").read_text())
+    _check(n == 1, "rect_dfa_row.cuh has no kRdByteStates line")
+    (d / "rect_dfa_row.cuh").write_text(hdr)
+    (d / "rect_dfa.cu").write_text((native.CSRC / "rect_dfa.cu").read_text())
+    out = native.BUILD_DIR / "librect_dfa_class_instance.so"
+    return [("class instance", "rect_dfa", subprocess.Popen(
+        [native._nvcc(), *native.NVCC_FLAGS, "-I", str(d), "-o", str(out),
+         str(d / "rect_dfa.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True), out, d)]
+
+
+def _finish_compare_build(name, kernel, proc, out, src_dir):
     """The built kernel as a function with the port's wrapper's arguments
     (and no launch count: it is not on the port's path)."""
     import ctypes
@@ -1485,6 +1547,8 @@ def _finish_compare_build(name, kernel, proc, out):
         other = _decimal_arith_compare(name, lib)
         other.library = out
         return other
+    if kernel == "rect_dfa":
+        return _rect_dfa_compare(name, lib, _rect_dfa_form(src_dir))
     return _dense_groupby_compare(name, lib)
 
 
@@ -1504,6 +1568,7 @@ def phase_build(compare=()):
     from spark_rapids_tpu_torch import native
     t0 = time.perf_counter()
     started = [b for n, d in compare for b in _start_compare_build(n, d)]
+    started += _start_instance_builds()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         logs = dict(zip(KERNELS, pool.map(native.build_log, KERNELS)))
     _log(f"build: {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s")
@@ -1519,11 +1584,11 @@ def phase_build(compare=()):
         _log(f"  ptxas {name}: {len(frames)} functions, every one with a "
              "0-byte stack frame and 0 spill bytes")
     fns = {k: {} for k in KERNELS}
-    for name, kernel, proc, out in started:
-        fns[kernel][name] = _finish_compare_build(name, kernel, proc, out)
-    if started:
-        _log(f"build: {', '.join(f'{n} {k}' for n, k, _, _ in started)} "
-             f"(to compare) done in {time.perf_counter() - t0:.2f} s")
+    for name, kernel, proc, out, src in started:
+        fns[kernel][name] = _finish_compare_build(name, kernel, proc, out,
+                                                  src)
+    _log(f"build: {', '.join(f'{n} {k}' for n, k, *_ in started)} "
+         f"(to compare) done in {time.perf_counter() - t0:.2f} s")
     return fns
 
 
@@ -8257,14 +8322,23 @@ def phase_decimals(card: str, batch_rows: int, table: dict,
 # ---------------------------------------------------------------------------
 
 #: the kernel check's patterns over one l_comment batch: TPC-H Q13's and
-#: Q16's, a '_', an escaped '%', three regular expressions and the empty
-#: patterns (kind, pattern)
+#: Q16's, a '_', an escaped '%', three regular expressions, the empty
+#: patterns, the byte-indexed instance's DFAs of 66 and 130 states and a
+#: 192-state one (the class-indexed instance) (kind, pattern)
 DFA_PATTERNS = (("like", "%special%requests%"),
                 ("like", "%Customer%Complaints%"), ("like", "%sly_y %"),
                 ("like", "%\\%%"), ("like", ""),
                 ("rlike", "^[a-z]+ (pending|final) "),
                 ("rlike", "(ly|ing)$"), ("rlike", "[0-9]{2,}"),
-                ("rlike", ""))
+                ("rlike", ""), ("rlike", "a(a|b){5}$"),
+                ("rlike", "a(a|b){6}$"), ("rlike", "a(a|b){6}c|d(a|b){5}e"))
+#: the alphabet of phase_dfa_random's rectangles: the patterns' letters,
+#: digits, '_', '%', '\\', a space, '\r' and '\n'
+DFA_RANDOM_ALPHABET = (b"abcdeilnpqrsty CRSTUmo012345_%\\\r\n"
+                       b"special requests Customer Complaints lying ")
+#: lengths on and around the 16-byte chunks' and 64-byte groups' edges
+DFA_EDGE_LENGTHS = (0, 1, 15, 16, 17, 31, 32, 33, 47, 48, 49, 63, 64, 65,
+                    127, 128, -3)
 #: Q13's filter (NOT LIKE) and Q16's (LIKE), over l_comment
 Q13_PATTERN = "%special%requests%"
 Q16_PATTERN = "%Customer%Complaints%"
@@ -8319,59 +8393,184 @@ def dfa_bound(walked) -> dict:
             "walked_bytes": int(w.sum())}
 
 
-def phase_dfa_kernel(card: str, comments) -> dict:
-    """rect_dfa against its plain version bit for bit on one SF1 l_comment
-    batch, every pattern of DFA_PATTERNS, each timed with the L2 cold
-    beside its bound, the plain version and the host's ms a call, with
-    its states, classes and shared-memory bytes."""
-    import torch
-    from spark_rapids_tpu_torch.exec import rect_dfa as RDK
+def _dfa_compile(kind: str, pat: str):
     from spark_rapids_tpu_torch.exprs.regex_dfa import (compile_like,
                                                         compile_rlike)
+    return compile_like(pat) if kind == "like" else compile_rlike(pat)
+
+
+def _dfa_versions(dfa, compare) -> list:
+    """[(name, f(b, ln, v))]: the port's wrapper (the instance the host's
+    rule picks), the byte-indexed instance handed the class table (its
+    prologue makes the byte-indexed one) where the DFA is small enough,
+    and each version of ``compare`` (the class-indexed instance's build
+    among them)."""
+    from spark_rapids_tpu_torch.exec import rect_dfa as RDK
+    out = [("kernel", lambda b, ln, v: RDK.rect_dfa(b, ln, v, dfa))]
+    if RDK.instance(dfa) == "byte":
+        fn = RDK._launcher()["launch"]
+        out.append(("byte instance from the class table",
+                    lambda b, ln, v: RDK.launch(fn, b, ln, v, dfa, "class")))
+    return out + [(who, lambda b, ln, v, f=f: f(b, ln, v, dfa))
+                  for who, f in compare.items()]
+
+
+def phase_dfa_kernel(card: str, comments, compare=None) -> dict:
+    """rect_dfa against its plain version bit for bit on one SF1 l_comment
+    batch, every pattern of DFA_PATTERNS, through every version of
+    _dfa_versions; then timed with the L2 cold in turns (kernel, others,
+    others reversed, kernel, ...) beside its bound, the plain version and
+    the host's ms a call, with its instance, states, classes, shared
+    memory, grid and registers. Then phase_dfa_random and phase_dfa_c4."""
+    import torch
+    from spark_rapids_tpu_torch.exec import rect_dfa as RDK
+    compare = compare or {}
     b, ln, v = comments.data, comments.lengths, comments.validity
     P, W = b.shape
     n = max(2, -(-COLD_BYTES // (b.nbytes + ln.nbytes + v.nbytes)))
     inputs = [(b, ln, v)] + [(b.clone(), ln.clone(), v.clone())
                              for _ in range(n - 1)]
-    out = {"shape": [int(P), int(W)], "patterns": {}}
+    out = {"shape": [int(P), int(W)], "patterns": {},
+           "instances": RDK.describe()["instances"]}
     max_err = 0
     for kind, pat in DFA_PATTERNS:
         t0 = time.perf_counter()
-        dfa = compile_like(pat) if kind == "like" else compile_rlike(pat)
-        got = RDK.rect_dfa(b, ln, v, dfa)
+        dfa = _dfa_compile(kind, pat)
         want = RDK.rect_dfa_reference(b, ln, v, dfa)
-        torch.cuda.synchronize()
-        err = int((got != want).sum())
-        max_err = max(max_err, err)
+        versions = _dfa_versions(dfa, compare)
+        for who, f in versions:
+            got = f(b, ln, v)
+            torch.cuda.synchronize()
+            err = int((got != want).sum())
+            if who == "kernel":
+                max_err = max(max_err, err)
+                matches = int(got.sum())
+            _check(err == 0, f"rect_dfa {kind} {pat!r} ({who}): {err} rows "
+                             "differ from the plain version")
         bd = dfa_bound(dfa_walked(b, ln, v, dfa))
-        _check(torch.equal(got, want),
-               f"rect_dfa {kind} {pat!r}: {err} rows differ from the plain "
-               "version")
-        ms, host = _cold_ms(lambda b, ln, v, d=dfa: RDK.rect_dfa(b, ln, v, d),
-                            inputs, f"rect_dfa {pat!r}")
+        timed = [(who, f) for who, f in versions
+                 if who == "kernel" or who in compare]
+        turns = {who: [] for who, _ in timed}
+        hosts = []
+        for who, f in timed + timed[::-1] + timed:
+            ms, host = _cold_ms(f, inputs, f"rect_dfa {pat!r} {who}")
+            turns[who].append(ms)
+            if who == "kernel":
+                hosts.append(host)
+        ms = float(np.mean(turns["kernel"]))
         plain = _plain_alone_ms(lambda b, ln, v, d=dfa:
                                 RDK.rect_dfa_reference(b, ln, v, d),
                                 inputs, f"rect_dfa {pat!r} plain")
         info = RDK.describe(dfa, int(P))
-        row = {"kind": kind, "matches": int(got.sum()), "ms": ms,
-               "plain_ms": plain, "host_ms": host, "bound_ms": bd["ms"],
-               "bound_by": bd["by"], "bound_bytes": bd["bytes"],
-               "walked_bytes": bd["walked_bytes"], "max_abs_err": err,
-               **info}
+        row = {"kind": kind, "matches": matches, "ms": ms,
+               "turns_ms": turns,
+               "compare_ms": {who: float(np.mean(turns[who]))
+                              for who in compare},
+               "plain_ms": plain, "host_ms": float(np.mean(hosts)),
+               "bound_ms": bd["ms"], "bound_by": bd["by"],
+               "bound_bytes": bd["bytes"],
+               "walked_bytes": bd["walked_bytes"], "max_abs_err": 0,
+               "checked": [who for who, _ in versions],
+               **{k: x for k, x in info.items() if k != "instances"}}
         out["patterns"][f"{kind} {pat}"] = row
-        _log(f"rect_dfa {kind} {pat!r} on {P} x {W} ({card}): bit-identical "
-             f"to the plain version ({row['matches']} rows match); kernel "
-             f"{ms:.4f} ms, {bd['ms'] / ms:.0%} of bound {bd['ms']:.4f} ms "
+        others = "".join(
+            f"; {who} {row['compare_ms'][who]:.4f} ms (turns "
+            f"{', '.join(f'{t:.4f}' for t in turns[who])}), "
+            f"{bd['ms'] / row['compare_ms'][who]:.0%} of bound"
+            for who in compare)
+        _log(f"rect_dfa {kind} {pat!r} on {P} x {W} ({card}): every version "
+             f"bit-identical to the plain version ({', '.join(row['checked'])}"
+             f"; {matches} rows match); kernel {ms:.4f} ms (turns "
+             f"{', '.join(f'{t:.4f}' for t in turns['kernel'])}), "
+             f"{bd['ms'] / ms:.0%} of bound {bd['ms']:.4f} ms "
              f"({bd['bytes']} B, by {bd['by']}; {bd['walked_bytes']} bytes "
-             f"walked before a length or a sink); plain {plain:.4f} ms; host "
-             f"{host:.4f} ms a call; {info['states']} states, "
+             f"walked before a length or a sink){others}; plain "
+             f"{plain:.4f} ms; host {row['host_ms']:.4f} ms a call; "
+             f"{info['instance']}-indexed instance, {info['states']} states, "
              f"{info['classes']} classes, {info['sinks']} sinks, "
              f"{info['shared_bytes']} B shared, grid {info['grid']}, "
              f"{info['registers']} registers; library: none (no PyTorch "
              f"call matches a pattern); {time.perf_counter() - t0:.1f} s")
+    _log(f"rect_dfa instances ({card}): " + "; ".join(
+        f"{k}-indexed {x['registers']} registers, {x['threads']} threads, "
+        f"{x['stack_bytes']} B stack" for k, x in out["instances"].items()))
     out["max_abs_err"] = max_err
     out["main"] = out["patterns"][f"like {Q13_PATTERN}"]
+    del inputs
+    out["random"] = phase_dfa_random(card, compare)
+    out["c4"] = phase_dfa_c4(card, b, ln, v)
     return out
+
+
+def phase_dfa_random(card: str, compare=None, rows: int = 65_537) -> dict:
+    """Every version of _dfa_versions against the plain version bit for
+    bit, every pattern of DFA_PATTERNS, on random rectangles 8, 16, 32, 64
+    and 128 bytes wide: bytes of DFA_RANDOM_ALPHABET over the whole width
+    (junk past every length), lengths from -3 to past the width with
+    DFA_EDGE_LENGTHS first, a tenth of the rows NULL."""
+    import torch
+    from spark_rapids_tpu_torch.exec import rect_dfa as RDK
+    compare = compare or {}
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(20)
+    alpha = np.frombuffer(DFA_RANDOM_ALPHABET, np.uint8)
+    cases = 0
+    for width in (8, 16, 32, 64, 128):
+        rect = alpha[rng.randint(0, len(alpha), (rows, width))]
+        lens = rng.randint(-3, width + 20, rows).astype(np.int32)
+        lens[:len(DFA_EDGE_LENGTHS)] = DFA_EDGE_LENGTHS
+        valid = rng.rand(rows) >= 0.1
+        valid[:len(DFA_EDGE_LENGTHS)] = True
+        b, ln, v = (torch.from_numpy(x).cuda() for x in (rect, lens, valid))
+        for kind, pat in DFA_PATTERNS:
+            dfa = _dfa_compile(kind, pat)
+            want = RDK.rect_dfa_reference(b, ln, v, dfa)
+            for who, f in _dfa_versions(dfa, compare):
+                got = f(b, ln, v)
+                torch.cuda.synchronize()
+                err = int((got != want).sum())
+                _check(err == 0, f"rect_dfa {kind} {pat!r} ({who}) on random "
+                                 f"{rows} x {width} rows: {err} rows differ "
+                                 "from the plain version")
+                cases += 1
+    _log(f"rect_dfa on random rectangles ({card}): {cases} cases (widths 8 "
+         f"to 128, {rows} rows each, junk past the lengths, edge lengths, "
+         f"NULLs; {len(DFA_PATTERNS)} patterns, every version) "
+         f"bit-identical to the plain version in "
+         f"{time.perf_counter() - t0:.1f} s")
+    return {"cases": cases, "rows": rows}
+
+
+def phase_dfa_c4(card: str, b, ln, v) -> dict:
+    """Fault C4: a rectangle that is dense but not row-major (the batch's
+    transpose, transposed back: strides (1, P)) through rect_dfa and
+    rect_transform, each against its plain version over the row-major
+    batch."""
+    import torch
+    from spark_rapids_tpu_torch.exec import rect_dfa as RDK
+    from spark_rapids_tpu_torch.exec.rect_transform import (
+        rect_transform, rect_transform_reference)
+    P, W = b.shape
+    tb = b.t().contiguous().t()
+    _check(tb.stride() == (1, P) and not tb.is_contiguous(),
+           f"the transposed rectangle has strides {tb.stride()}")
+    dfa = _dfa_compile("like", Q13_PATTERN)
+    got = RDK.rect_dfa(tb, ln, v, dfa)
+    want = RDK.rect_dfa_reference(b, ln, v, dfa)
+    chain = RT_NEW_TIMED[0][1]
+    got_t = rect_transform(tb, ln, v, chain, RT_CAP)
+    want_t = rect_transform_reference(b, ln, v, chain, RT_CAP)
+    torch.cuda.synchronize()
+    _check(torch.equal(got, want), "rect_dfa over a transposed-dense "
+           f"rectangle: {int((got != want).sum())} rows differ")
+    _check(torch.equal(got_t[0], want_t[0]) and torch.equal(got_t[1],
+                                                            want_t[1]),
+           "rect_transform over a transposed-dense rectangle differs from "
+           "its plain version")
+    _log(f"C4 ({card}): a {P} x {W} rectangle with strides {tb.stride()} "
+         f"through rect_dfa ({Q13_PATTERN!r}) and rect_transform "
+         f"({chain}): both bit-identical to their plain versions")
+    return {"strides": list(tb.stride()), "exact": True}
 
 
 #: rect_transform's repeat and translate, timed on phase 20's l_comment
@@ -8476,11 +8675,13 @@ def building_right(got: dict, want: dict) -> bool:
     return bool(ok)
 
 
-def phase_patterns(card: str, batch_rows: int, table: dict, host) -> dict:
+def phase_patterns(card: str, batch_rows: int, table: dict, host,
+                   compare=None) -> dict:
     """Phase 20 (module doc): rect_dfa exact and timed on one l_comment
-    batch; TPC-H Q13's and Q16's comment filters and an RLIKE over the
-    ship-mode dictionary at SF1, as DataFrames and SQL; then the string
-    building functions, each against numpy."""
+    batch (in turns with the versions of ``compare``, name -> launch);
+    TPC-H Q13's and Q16's comment filters and an RLIKE over the ship-mode
+    dictionary at SF1, as DataFrames and SQL; then the string building
+    functions, each against numpy."""
     import torch
     from spark_rapids_tpu_torch.api import TorchSession
     from spark_rapids_tpu_torch.api import functions as F
@@ -8512,7 +8713,7 @@ def phase_patterns(card: str, batch_rows: int, table: dict, host) -> dict:
         0, batch_rows), "cuda", 64).columns[0]
     _check(first.width == 64 and first.ascii_only,
            f"l_comment ingested as {first!r}")
-    out["kernel"] = phase_dfa_kernel(card, first)
+    out["kernel"] = phase_dfa_kernel(card, first, compare)
     # rect_transform's new ops on the same batch (no other version has
     # them, so none is timed in turns)
     out["rt_times"] = {name: _rt_timed_row(
@@ -8600,8 +8801,8 @@ def main(argv=None) -> int:
                     default=[],
                     help="also build DIR/rect_match.cu, "
                     "DIR/dense_groupby.cu, DIR/rect_transform.cu, "
-                    "DIR/window_frame.cu, DIR/sort_bucket.cu and/or "
-                    "DIR/decimal_arith.cu "
+                    "DIR/window_frame.cu, DIR/sort_bucket.cu, "
+                    "DIR/decimal_arith.cu and/or DIR/rect_dfa.cu "
                     "(another version of the kernel, such as an earlier "
                     "commit's: each with the port's launch signature, "
                     "dense_groupby with that of commit 645412c) and time "
@@ -8799,7 +9000,8 @@ def main(argv=None) -> int:
         decimals = phase_decimals(card, batch_rows, table, ds19,
                                   compare["decimal_arith"])
         del ds19
-        patterns = phase_patterns(card, batch_rows, table, host)
+        patterns = phase_patterns(card, batch_rows, table, host,
+                                  compare["rect_dfa"])
         _log(json.dumps({"queries": {
             "q6": {"rows": SF1_ROWS, "wall_ms_cold": ms_cold,
                    "wall_ms_warm": ms_warm},
@@ -9125,12 +9327,17 @@ def main(argv=None) -> int:
             "library": "none: no PyTorch call matches a pattern",
             "host_ms": pm["host_ms"],
             "timing": "device time per launch, launches queued back to "
-                      "back over distinct inputs (L2 cold)",
-            "shape": pk["shape"],
+                      "back over distinct inputs (L2 cold), in turns with "
+                      "the class-indexed instance's build and the versions "
+                      "of --compare",
+            "shape": pk["shape"], "instances": pk["instances"],
+            "compare_ms": pm["compare_ms"], "turns_ms": pm["turns_ms"],
+            "random_cases": pk["random"]["cases"], "c4": pk["c4"],
             "per_pattern": {k: {f: r[f] for f in (
-                "ms", "plain_ms", "host_ms", "bound_ms", "states",
-                "classes", "sinks", "shared_bytes", "grid", "registers",
-                "matches")} for k, r in pk["patterns"].items()},
+                "ms", "compare_ms", "plain_ms", "host_ms", "bound_ms",
+                "instance", "states", "classes", "sinks", "shared_bytes",
+                "grid", "registers", "matches")}
+                for k, r in pk["patterns"].items()},
         }
         transform["paths"]["patterns_building"] = patterns[
             "building_cold"]["launches"]["rect_transform"]

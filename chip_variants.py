@@ -4,7 +4,7 @@ two-kernel design of commit 843e714, and distinct_flag against the
 two-launch design of commit 04f2565, on one NVIDIA card.
 
     python3 chip_variants.py [dense_groupby] [join_match] [distinct_flag]
-                             [decimal_arith]
+                             [decimal_arith] [rect_dfa[=DIR]]
 
 (every section when none is named)
 
@@ -62,6 +62,21 @@ for 4 blocks an SM (a variant that then spills is reported and not
 timed), the loads and stores alone, no reciprocal a row), each built into build/variants/ and timed cold beside the kernel
 on chip_smoke.py's phase 19 (d) shapes, in turns; the variants that keep
 the kernel's results are checked against it bit for bit first.
+
+rect_dfa (~1 min): variants of csrc/rect_dfa.cu and rect_dfa_row.cuh
+made by text substitution (RD_VARIANTS: the class-indexed instance for
+every DFA, the length and sink tests on every byte of commit 3444cf9's
+kernel, no loads ahead, a block's rows staged in shared memory by
+cp.async, two rows a thread in step, a nibble table for at most 16
+states, registers bounded for 5 blocks an SM, the next row's first 32
+bytes ahead in place of 64, each warp's tiles staged in shared memory by
+cp.async in two stages, the rows' loads cached as by default or in L2
+only in place of streaming, L2 prefetch hints of 128 or 256 bytes, the
+loads alone), and with ``rect_dfa=DIR`` that directory's rect_dfa.cu and
+header (commit 3444cf9's kernel: the class-indexed table), each built
+into build/variants/, checked bit for bit against the kernel and timed
+cold beside it in turns on an SF1 l_comment batch for RD_TIMED's
+patterns (loads_only unchecked: its answers are not the kernel's).
 """
 from __future__ import annotations
 
@@ -70,6 +85,7 @@ import ctypes
 import re
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 
@@ -1518,6 +1534,420 @@ def decimal_section(builds) -> None:
         del ops, inputs
 
 
+#: rect_dfa variants, each the kernel with one part changed by a text
+#: substitution in csrc/rect_dfa.cu ("K:" or no prefix; a triple replaces
+#: the kernel's text from its first string to its second) or
+#: csrc/rect_dfa_row.cuh ("H:"): (substitutions, the tables it is handed:
+#: None as the wrapper hands them, "class" the class-indexed table).
+#: Every variant but RD_INEXACT's keeps the kernel's answers.
+_RD_GROUP_BODY = """  const int whole = n >= 16 * kRdGroup ? kRdGroup : n >> 4;
+  RD_UNROLL
+  for (int c = 0; c < kRdGroup; ++c)
+    if (c < whole && s < first_sink) s = rd_full(step, s, g[c]);
+  const int rest = n - 16 * whole;
+  if (whole < kRdGroup && rest > 0 && s < first_sink) {
+    uint32_t w[4] = {g[0][0], g[0][1], g[0][2], g[0][3]};
+    RD_UNROLL
+    for (int c = 1; c < kRdGroup; ++c)
+      if (c == whole) {
+        RD_UNROLL
+        for (int k = 0; k < 4; ++k) w[k] = g[c][k];
+      }
+    s = rd_part(step, s, w, rest);
+  }
+  return s;
+"""
+_RD_KERNEL_WALK = """  if (kByte)
+    rd_thread(RdByteStep{s_table}, s_accept, start, first_sink, width, first,
+              stride, (uint32_t)rows, span, valid, load, store);
+  else
+    rd_thread(RdClassStep{s_classes, s_table, n_classes}, s_accept, start,
+              first_sink, width, first, stride, (uint32_t)rows, span, valid,
+              load, store);
+}
+"""
+_RD_SMEM = "static int rd_smem(int n_states, int n_classes) {\n  return 512 + "
+# commit 3444cf9's tests: the length and the sink on every byte
+_RD_BYTE_TESTS = """  RD_UNROLL
+  for (int c = 0; c < kRdGroup; ++c) {
+    RD_UNROLL
+    for (int j = 0; j < 16; ++j)
+      if (16 * c + j < n && s < first_sink)
+        s = step(s, rd_byte(g[c][j >> 2], j & 3));
+  }
+  return s;
+"""
+# a block's rows staged in shared memory by cp.async (only the chunks
+# below each length, 16 bytes a copy, rows 80 bytes apart so that a
+# quarter-warp's 16-byte reads hit distinct banks), then walked from there;
+# 64-byte rectangles only
+_RD_STAGED = """  uint8_t* s_rows = smem + ((512 + (kByte ? n_states * kRdNextStride
+                                          : n_states * n_classes) + 15) & ~15);
+  const auto walk = [&](int n, uint32_t(&g)[kRdGroup][4]) {
+    const auto from = [&](int i, uint32_t(&h)[kRdGroup][4]) {
+      for (int c = 0; c < kRdGroup; ++c)
+        if (16 * (kRdGroup * i + c) < n) {
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              s_rows + t * 80 + 16 * (kRdGroup * i + c));
+          h[c][0] = v.x;
+          h[c][1] = v.y;
+          h[c][2] = v.z;
+          h[c][3] = v.w;
+        }
+    };
+    from(0, g);
+    return kByte ? rd_walk(RdByteStep{s_table}, start, first_sink, n, width,
+                           g, from)
+                 : rd_walk(RdClassStep{s_classes, s_table, n_classes}, start,
+                           first_sink, n, width, g, from);
+  };
+  for (uint32_t base = blockIdx.x * kRdBlock; base < (uint32_t)rows;
+       base += gridDim.x * kRdBlock) {
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t lr = (t >> 2) + 64 * k, r = base + lr;
+      const int c = t & 3;
+      if (r < (uint32_t)rows &&
+          16 * c < rd_span(lengths[r], validity[r], width)) {
+        const uint32_t dst = (uint32_t)__cvta_generic_to_shared(
+            s_rows + lr * 80 + 16 * c);
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+                     "l"(bytes + (size_t)r * 64 + 16 * c));
+      }
+    }
+    asm volatile("cp.async.commit_group;" ::);
+    asm volatile("cp.async.wait_group 0;" ::);
+    __syncthreads();
+    const uint32_t r = base + t;
+    if (r < (uint32_t)rows) {
+      const int n = rd_span(lengths[r], validity[r], width);
+      bool hit = false;
+      if (n >= 0) {
+        uint32_t g[kRdGroup][4] = {};
+        hit = s_accept[walk(n, g)] != 0;
+      }
+      out[r] = hit;
+    }
+    __syncthreads();
+  }
+}
+"""
+# each warp's 32-row tiles staged in shared memory by cp.async, two
+# stages (the next tile's copies in flight while a tile is walked), only
+# the chunks below each length, rows 80 bytes apart; the lengths two
+# tiles ahead; 64-byte rectangles only
+_RD_STAGED_WARP = """  const int lane = t & 31;
+  uint8_t* s_rows = smem + ((512 + (kByte ? n_states * kRdNextStride
+                                          : n_states * n_classes) + 15) & ~15)
+                    + (t >> 5) * 2 * 2560;
+  const uint32_t warps = gridDim.x * (kRdBlock / 32);
+  const uint32_t tiles = ((uint32_t)rows + 31) / 32;
+  uint32_t tile = blockIdx.x * (kRdBlock / 32) + (t >> 5);
+  const auto len_of = [&](uint32_t tl) {
+    const uint32_t r = tl * 32 + lane;
+    return r < (uint32_t)rows ? rd_span(lengths[r], validity[r], width) : -1;
+  };
+  const auto issue = [&](uint32_t tl, int n_lane, uint8_t* buf) {
+    RD_UNROLL
+    for (int j = 0; j < 4; ++j) {
+      const int row = 8 * j + (lane >> 2), c = lane & 3;
+      const int n = __shfl_sync(0xffffffffu, n_lane, row);
+      if (16 * c < n) {
+        const uint32_t dst =
+            (uint32_t)__cvta_generic_to_shared(buf + row * 80 + 16 * c);
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+                     "l"(bytes + (size_t)(tl * 32 + row) * 64 + 16 * c));
+      }
+    }
+    asm volatile("cp.async.commit_group;" ::);
+  };
+  const auto none = [](int, uint32_t(&)[kRdGroup][4]) {};
+  int n0 = len_of(tile), n1 = len_of(tile + warps);
+  issue(tile, n0, s_rows);
+  for (int p = 0; tile < tiles; tile += warps, p ^= 1) {
+    const int n2 = len_of(tile + 2 * warps);
+    issue(tile + warps, n1, s_rows + (p ^ 1) * 2560);
+    asm volatile("cp.async.wait_group 1;" ::);
+    __syncwarp();
+    const uint8_t* mine = s_rows + p * 2560 + lane * 80;
+    bool hit = false;
+    if (n0 >= 0) {
+      uint32_t g[kRdGroup][4] = {};
+      RD_UNROLL
+      for (int c = 0; c < kRdGroup; ++c)
+        if (16 * c < n0) {
+          const uint4 v = *reinterpret_cast<const uint4*>(mine + 16 * c);
+          g[c][0] = v.x;
+          g[c][1] = v.y;
+          g[c][2] = v.z;
+          g[c][3] = v.w;
+        }
+      const int s = kByte ? rd_walk(RdByteStep{s_table}, start, first_sink,
+                                    n0, width, g, none)
+                          : rd_walk(RdClassStep{s_classes, s_table,
+                                                n_classes},
+                                    start, first_sink, n0, width, g, none);
+      hit = s_accept[s] != 0;
+    }
+    const uint32_t r = tile * 32 + lane;
+    if (r < (uint32_t)rows) out[r] = hit;
+    __syncwarp();
+    n0 = n1;
+    n1 = n2;
+  }
+  asm volatile("cp.async.wait_group 0;" ::);
+}
+"""
+# two rows a thread, walked in step (two independent chains), loaded
+# together at the top of each pair; 64-byte rectangles only
+_RD_TWO_ROWS = """  for (uint32_t r0 = first; r0 < (uint32_t)rows; r0 += 2 * stride) {
+    const uint32_t r1 = r0 + stride;
+    const int n0 = span(r0), n1 = span(r1);
+    uint32_t g0[4][4] = {}, g1[4][4] = {};
+    const uint4* q0 = reinterpret_cast<const uint4*>(bytes + (size_t)r0 * 64);
+    const uint4* q1 = reinterpret_cast<const uint4*>(bytes + (size_t)r1 * 64);
+    RD_UNROLL
+    for (int c = 0; c < 4; ++c) {
+      if (16 * c < n0) {
+        const uint4 v = __ldcs(q0 + c);
+        g0[c][0] = v.x, g0[c][1] = v.y, g0[c][2] = v.z, g0[c][3] = v.w;
+      }
+      if (16 * c < n1) {
+        const uint4 v = __ldcs(q1 + c);
+        g1[c][0] = v.x, g1[c][1] = v.y, g1[c][2] = v.z, g1[c][3] = v.w;
+      }
+    }
+    const int w0 = n0 >= 64 ? 4 : n0 >> 4, w1 = n1 >= 64 ? 4 : n1 >> 4;
+    int s0 = start, s1 = start;
+    const auto step = [&](int s, uint32_t b) {
+      return kByte ? RdByteStep{s_table}(s, b)
+                   : RdClassStep{s_classes, s_table, n_classes}(s, b);
+    };
+    RD_UNROLL
+    for (int c = 0; c < 4; ++c) {
+      const bool a0 = c < w0 && s0 < first_sink;
+      const bool a1 = c < w1 && s1 < first_sink;
+      RD_UNROLL
+      for (int j = 0; j < 16; ++j) {
+        if (a0) s0 = step(s0, rd_byte(g0[c][j >> 2], j & 3));
+        if (a1) s1 = step(s1, rd_byte(g1[c][j >> 2], j & 3));
+      }
+    }
+    uint32_t p0[4], p1[4];
+    RD_UNROLL
+    for (int k = 0; k < 4; ++k) {
+      p0[k] = g0[0][k];
+      p1[k] = g1[0][k];
+    }
+    RD_UNROLL
+    for (int c = 1; c < 4; ++c)
+      RD_UNROLL
+      for (int k = 0; k < 4; ++k) {
+        if (c == w0) p0[k] = g0[c][k];
+        if (c == w1) p1[k] = g1[c][k];
+      }
+    const int e0 = w0 < 4 && s0 < first_sink ? n0 - 16 * w0 : 0;
+    const int e1 = w1 < 4 && s1 < first_sink ? n1 - 16 * w1 : 0;
+    RD_UNROLL
+    for (int j = 0; j < 15; ++j) {
+      if (j < e0) s0 = step(s0, rd_byte(p0[j >> 2], j & 3));
+      if (j < e1) s1 = step(s1, rd_byte(p1[j >> 2], j & 3));
+    }
+    store(r0, n0 >= 0 && s_accept[s0] != 0);
+    if (r1 < (uint32_t)rows) store(r1, n1 >= 0 && s_accept[s1] != 0);
+  }
+}
+"""
+# at most 16 states: a 64-bit word a byte of its 16 next states as
+# nibbles, so a byte's load does not wait on the state
+_RD_NIBBLE = """  if (kByte) {
+    uint64_t* s_nib = reinterpret_cast<uint64_t*>(
+        smem + ((512 + n_states * kRdNextStride + 15) & ~15));
+    uint64_t word = 0;
+    for (int s = 0; s < n_states; ++s)
+      word |= (uint64_t)s_table[s * kRdNextStride + t] << (4 * s);
+    s_nib[t] = word;
+    __syncthreads();
+    const auto nib = [&](int s, uint32_t b) {
+      return (int)((s_nib[b] >> (4 * s)) & 15u);
+    };
+    rd_thread(nib, s_accept, start, first_sink, width, first, stride,
+              (uint32_t)rows, span, valid, load, store);
+  } else
+    rd_thread(RdClassStep{s_classes, s_table, n_classes}, s_accept, start,
+              first_sink, width, first, stride, (uint32_t)rows, span, valid,
+              load, store);
+}
+"""
+RD_VARIANTS = {
+    "class_table": ([("H:constexpr int kRdByteStates = ",
+                      "constexpr int kRdByteStates = 0 * ")], "class"),
+    "byte_tests": ([("H:" + _RD_GROUP_BODY, _RD_BYTE_TESTS)], None),
+    "no_ahead": ([("H:    load(next, len_next, 0, ahead);\n", ""),
+                  ("H:      const int n = len;\n",
+                   "      const int n = len;\n      load(r, n, 0, g);\n")],
+                 None),
+    "staged": ([(_RD_SMEM, _RD_SMEM + "20480 + 16 + "),
+                ("  const auto span = [&](uint32_t r) {",
+                 "              load, store);\n}\n", _RD_STAGED)], None),
+    "rows_2": ([("K:" + _RD_KERNEL_WALK, _RD_TWO_ROWS)], None),
+    "nibble": ([(_RD_SMEM, _RD_SMEM + "2048 + 16 + "),
+                ("K:" + _RD_KERNEL_WALK, _RD_NIBBLE)], None),
+    "bounds_5": ([("__global__ void __launch_bounds__(kRdBlock)\n",
+                   "__global__ void __launch_bounds__(kRdBlock, 5)\n")],
+                 None),
+    # a group of two chunks: the next row's first 32 bytes ahead, its
+    # second sector read when its walk gets there
+    "group_2": ([("H:constexpr int kRdGroup = 4;",
+                  "constexpr int kRdGroup = 2;")], None),
+    # three chunks (48 bytes: an l_comment row whole) ahead, fewer
+    # registers; and with registers bounded for 5 blocks an SM
+    "group_3": ([("H:constexpr int kRdGroup = 4;",
+                  "constexpr int kRdGroup = 3;")], None),
+    "group_3_bounds_5": ([("H:constexpr int kRdGroup = 4;",
+                           "constexpr int kRdGroup = 3;"),
+                          ("__global__ void __launch_bounds__(kRdBlock)\n",
+                           "__global__ void __launch_bounds__(kRdBlock, 5)\n")],
+                         None),
+    "staged_warp": ([(_RD_SMEM, _RD_SMEM + "40960 + 16 + "),
+                     ("  const auto span = [&](uint32_t r) {",
+                      "              load, store);\n}\n", _RD_STAGED_WARP)],
+                    None),
+    # the rows' loads cached in L1 and L2 as by default, or in L2 only
+    "cached": ([("      const uint4 v = __ldcs(q + c);",
+                 "      const uint4 v = q[c];")], None),
+    "l2_only": ([("      const uint4 v = __ldcs(q + c);",
+                  "      const uint4 v = __ldcg(q + c);")], None),
+    # the rows' loads with L2 prefetch hints of 128 or 256 bytes
+    "l2_128": ([("      const uint4 v = __ldcs(q + c);",
+                 "      uint4 v;\n      asm(\"ld.global.cs.L2::128B.v4.u32 "
+                 "{%0, %1, %2, %3}, [%4];\" : \"=r\"(v.x), \"=r\"(v.y), "
+                 "\"=r\"(v.z), \"=r\"(v.w) : \"l\"(q + c));")], None),
+    "l2_256": ([("      const uint4 v = __ldcs(q + c);",
+                 "      uint4 v;\n      asm(\"ld.global.cs.L2::256B.v4.u32 "
+                 "{%0, %1, %2, %3}, [%4];\" : \"=r\"(v.x), \"=r\"(v.y), "
+                 "\"=r\"(v.z), \"=r\"(v.w) : \"l\"(q + c));")], None),
+    # the loads alone: each group folded into a 0/1 state, no walk
+    "loads_only": ([("H:" + _RD_GROUP_BODY,
+                     "  return (s + (int)(g[0][0] ^ g[kRdGroup - 1][3])) & "
+                     "1;\n")], None),
+}
+#: variants whose answers are not the kernel's (timed unchecked)
+RD_INEXACT = {"loads_only"}
+#: the patterns the variants are timed on: TPC-H Q13's and an anchored
+#: RLIKE whose rows mostly reach the dead sink at their first space
+RD_TIMED = (("like", "%special%requests%"),
+            ("rlike", "^[a-z]+ (pending|final) "))
+
+
+def _build_rd_variants(old_dir=None):
+    """Start one nvcc a variant of the port's rect_dfa (and, with
+    ``old_dir``, that directory's rect_dfa.cu and header, such as commit
+    3444cf9's kernel); {name: (process, library, form)}."""
+    from spark_rapids_tpu_torch import native
+    src = (native.CSRC / "rect_dfa.cu").read_text()
+    hdr = (native.CSRC / "rect_dfa_row.cuh").read_text()
+    started = {}
+    builds = dict(RD_VARIANTS)
+    if old_dir:
+        builds["old"] = ("dir", "class")
+    for name, (subs, form) in builds.items():
+        if subs == "dir":
+            d = Path(old_dir)
+        else:
+            s, h = src, hdr
+            for old, *new in subs:
+                if len(new) == 2:       # the kernel's text from old to end
+                    end, new = new
+                    i = s.find(old)
+                    j = s.find(end, i)
+                    cs._check(i >= 0 and j >= 0, f"{name}: no {old!r} .. "
+                                                 f"{end!r} in the kernel")
+                    s = s[:i] + new + s[j + len(end):]
+                    continue
+                new = new[0]
+                if old.startswith("H:"):
+                    cs._check(old[2:] in h, f"{name}: no {old[2:]!r} in the "
+                                            "header")
+                    h = h.replace(old[2:], new)
+                else:
+                    old = old[2:] if old.startswith("K:") else old
+                    cs._check(old in s, f"{name}: no {old!r} in the kernel")
+                    s = s.replace(old, new)
+            d = native.BUILD_DIR / "variants" / f"rect_dfa_{name}"
+            d.mkdir(parents=True, exist_ok=True)
+            (d / "rect_dfa.cu").write_text(s)
+            (d / "rect_dfa_row.cuh").write_text(h)
+        lib = native.BUILD_DIR / "variants" / f"librect_dfa_{name}.so"
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        started[name] = (subprocess.Popen(
+            [native._nvcc(), *native.NVCC_FLAGS, "-I", str(d),
+             "-o", str(lib), str(d / "rect_dfa.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib,
+            form)
+    return started
+
+
+def rect_dfa_section(builds) -> None:
+    """rect_dfa beside its variants (RD_VARIANTS) on an SF1 l_comment
+    batch (1,048,576 x 64), cold, in turns (kernel, variants, variants in
+    reverse, kernel), on RD_TIMED; each variant is checked bit for bit
+    against the kernel first."""
+    import torch
+    from spark_rapids_tpu_torch.exec import rect_dfa as RDK
+    fns = {}
+    for name, (proc, path, form) in builds.items():
+        log, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            print(f"nvcc failed for rect_dfa {name}: not timed\n{log}",
+                  flush=True)
+            continue
+        frames = cs._ptxas_frames(log)
+        regs = sorted({int(m) for m in re.findall(r"Used (\d+) registers",
+                                                   log)})
+        if any(f[1:] != (0, 0, 0) for f in frames):
+            print(f"ptxas rect_dfa {name}: a stack frame or spills "
+                  f"{sorted({f[1:] for f in frames})}, registers {regs}: "
+                  "not timed", flush=True)
+            continue
+        print(f"ptxas rect_dfa {name}: registers {regs}", flush=True)
+        fns[name] = cs._rect_dfa_compare(name, ctypes.CDLL(str(path)), form)
+    rows = 1 << 20
+    text = cs.gen_comment(rows)
+    rect = torch.from_numpy(text.view(np.uint8).reshape(rows, -1).copy())
+    lens = torch.from_numpy(np.char.str_len(text).astype(np.int32))
+    b, ln, v = rect.cuda(), lens.cuda(), torch.ones(rows, dtype=torch.bool,
+                                                    device="cuda")
+    n = max(2, -(-cs.COLD_BYTES // (b.nbytes + ln.nbytes + v.nbytes)))
+    inputs = [(b, ln, v)] + [(b.clone(), ln.clone(), v.clone())
+                             for _ in range(n - 1)]
+    for kind, pat in RD_TIMED:
+        dfa = cs._dfa_compile(kind, pat)
+        want = RDK.rect_dfa(b, ln, v, dfa)
+        ok = {}
+        for name, f in fns.items():
+            got = f(b, ln, v, dfa)
+            torch.cuda.synchronize()
+            ok[name] = name in RD_INEXACT or torch.equal(got, want)
+            if not ok[name]:
+                print(f"rect_dfa {pat!r}: variant {name} differs from the "
+                      f"kernel in {int((got != want).sum())} rows: not "
+                      "timed", flush=True)
+        order = [("kernel", lambda b, ln, v: RDK.rect_dfa(b, ln, v, dfa))] + [
+            (name, lambda b, ln, v, f=f: f(b, ln, v, dfa))
+            for name, f in fns.items() if ok[name]]
+        turns = {name: [] for name, _ in order}
+        for name, f in order + order[::-1]:
+            turns[name].append(cs._cold_ms(f, inputs, f"{pat} {name}")[0])
+        bd = cs.dfa_bound(cs.dfa_walked(b, ln, v, dfa))
+        print(f"rect_dfa variants, {kind} {pat!r} ({rows} x 64 l_comment, "
+              f"{dfa.n_states} states, bound {bd['ms']:.4f} ms), device ms "
+              "a call, cold: " + ", ".join(
+                  f"{name} {np.mean(t):.4f} ({t[0]:.4f}/{t[1]:.4f}, "
+                  f"{bd['ms'] / np.mean(t):.0%} of bound)"
+                  for name, t in turns.items()), flush=True)
+    del inputs
+
+
 def main() -> int:
     try:
         import torch
@@ -1528,10 +1958,14 @@ def main() -> int:
         print("no CUDA device: chip_variants.py runs on the card",
               file=sys.stderr)
         return 2
-    sections = sys.argv[1:] or ["dense_groupby", "join_match",
-                                "distinct_flag", "decimal_arith"]
+    args = sys.argv[1:] or ["dense_groupby", "join_match",
+                            "distinct_flag", "decimal_arith", "rect_dfa"]
+    sections = [a.split("=", 1)[0] for a in args]
+    rd_old = next((a.split("=", 1)[1] for a in args
+                   if a.startswith("rect_dfa=")), None)
     cs._check(set(sections) <= {"dense_groupby", "join_match",
-                                "distinct_flag", "decimal_arith"},
+                                "distinct_flag", "decimal_arith",
+                                "rect_dfa"},
               f"unknown sections {sections}")
     from spark_rapids_tpu_torch.exec import dense_groupby as dg
     cs.phase_device()
@@ -1541,6 +1975,8 @@ def main() -> int:
     df_builds = _build_df_04f2565() if "distinct_flag" in sections else {}
     df_new = _build_df_variants() if df_builds else {}
     da_builds = _build_da_variants() if "decimal_arith" in sections else {}
+    rd_builds = (_build_rd_variants(rd_old) if "rect_dfa" in sections
+                 else {})
     cs.phase_build()
     if "dense_groupby" in sections:
         for name, (proc, _) in started.items():
@@ -1570,6 +2006,8 @@ def main() -> int:
         distinct_section(df_builds, df_new)
     if da_builds:
         decimal_section(da_builds)
+    if rd_builds:
+        rect_dfa_section(rd_builds)
     return 0
 
 

@@ -32,7 +32,7 @@ from .column import DeviceColumn
 
 __all__ = ["ByteRectColumn", "HostStrings", "RECT_MAX_BYTES",
            "rect_width_bucket", "encode_string_rect", "utf8_bytes",
-           "pack_words", "unpack_words"]
+           "pack_words", "unpack_words", "kernel_rows"]
 
 RECT_MAX_BYTES = register(
     "spark.rapids.tpu.sql.string.rect.maxBytes", 64,
@@ -47,6 +47,15 @@ def rect_width_bucket(max_len: int, cap: int) -> Optional[int]:
     while w < max_len:
         w <<= 1
     return w if w <= cap else None
+
+
+def kernel_rows(bytes_: torch.Tensor) -> torch.Tensor:
+    """A rectangle as the kernels read it: row-major and 16-byte aligned;
+    the tensor itself where it is, else a row-major copy (``clone()``
+    alone keeps the strides of a dense tensor that is not row-major)."""
+    if bytes_.is_contiguous() and bytes_.data_ptr() % 16 == 0:
+        return bytes_
+    return bytes_.clone(memory_format=torch.contiguous_format)
 
 
 class HostStrings:

@@ -9,7 +9,9 @@ has no call that matches a regular expression, so the pattern is compiled
 once on the host to a DFA over bytes (exprs/regex_dfa.py) and each row of
 an ASCII rectangle is walked through it: ``csrc/rect_dfa.cu``, its row
 logic ``csrc/rect_dfa_row.cuh`` (the source's note gives the bound and the
-design).
+design). A DFA of at most ``BYTE_STATES`` states runs on the kernel's
+byte-indexed instance, handed its table as ``next_table`` builds it (once a
+DFA and device); a larger one on the class-indexed instance.
 
 ``rect_dfa(bytes_, lengths, validity, dfa)`` over a uint8[P, W] rectangle
 (zero past each row's length), int32[P] lengths and bool[P] validity
@@ -23,12 +25,22 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import Optional
 
+import numpy as np
 import torch
 
+from ..columnar.strrect import kernel_rows
 from ..exprs.regex_dfa import Dfa
 
-__all__ = ["rect_dfa", "rect_dfa_reference", "describe", "shared_bytes"]
+__all__ = ["rect_dfa", "rect_dfa_reference", "describe", "shared_bytes",
+           "next_table", "instance", "BYTE_STATES"]
+
+#: the most states the byte-indexed instance takes (csrc/rect_dfa_row.cuh
+#: kRdByteStates), and the bytes between two states' rows of its table in
+#: shared memory (kRdNextStride)
+BYTE_STATES = 168
+NEXT_STRIDE = 280
 
 
 def _check(bytes_, lengths, validity) -> None:
@@ -56,6 +68,35 @@ def _tables(dfa: Dfa, device) -> tuple:
     return got
 
 
+def next_table(dfa: Dfa) -> np.ndarray:
+    """The byte-indexed table: uint8[states, 256], ``next[s, b] =
+    table[s, classes[b]]``."""
+    return np.ascontiguousarray(dfa.table[:, dfa.classes])
+
+
+def instance(dfa: Dfa) -> str:
+    """The kernel's instance that walks ``dfa``: ``"byte"`` (one lookup a
+    byte) up to ``BYTE_STATES`` states, else ``"class"`` (two)."""
+    return "byte" if dfa.n_states <= BYTE_STATES else "class"
+
+
+def _kernel_tables(dfa: Dfa, device, form: str) -> tuple:
+    """(classes, table, accept, n_classes) as the kernel takes them:
+    ``form`` "class" the DFA's own tables, "byte" the identity classes and
+    ``next_table`` (256 classes), copied once a device beside
+    ``_tables``."""
+    if form == "class":
+        return _tables(dfa, device) + (dfa.n_classes,)
+    key = f"{device} next"
+    got = dfa.device_tables.get(key)
+    if got is None:
+        got = dfa.device_tables[key] = (
+            torch.arange(256, dtype=torch.uint8).to(device),
+            torch.from_numpy(next_table(dfa).reshape(-1)).to(device),
+            _tables(dfa, device)[2])
+    return got + (256,)
+
+
 def rect_dfa_reference(bytes_: torch.Tensor, lengths: torch.Tensor,
                        validity: torch.Tensor, dfa: Dfa) -> torch.Tensor:
     """Plain PyTorch version: one step over all rows for each of the W
@@ -75,6 +116,8 @@ def rect_dfa_reference(bytes_: torch.Tensor, lengths: torch.Tensor,
 
 def shared_bytes(dfa: Dfa) -> int:
     """Shared memory of a block (csrc/rect_dfa.cu rd_smem)."""
+    if instance(dfa) == "byte":
+        return 512 + dfa.n_states * NEXT_STRIDE
     return 512 + dfa.n_states * dfa.n_classes
 
 
@@ -106,22 +149,56 @@ def _launcher() -> dict:
 
 
 def describe(dfa: Dfa = None, rows: int = 0) -> dict:
-    """The kernel's registers a thread, threads a block and stack bytes;
-    with a DFA, its states, classes, shared-memory bytes and the grid of
-    a launch over ``rows`` rows."""
-    out = (ctypes.c_int * 3)()
+    """Registers a thread, threads a block and stack bytes of each
+    instance (``instances``); with a DFA, the instance it runs on (and its
+    registers at the top level), its states, classes, sinks,
+    shared-memory bytes and the grid of a launch over ``rows`` rows."""
+    out = (ctypes.c_int * 6)()
     lib = _launcher()
     rc = lib["describe"](ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"rect_dfa_describe failed: CUDA error {rc}")
-    info = {"registers": out[0], "threads": out[1], "stack_bytes": out[2]}
+    info = {"instances": {
+        name: {"registers": out[3 * k], "threads": out[3 * k + 1],
+               "stack_bytes": out[3 * k + 2]}
+        for k, name in enumerate(("byte", "class"))}}
     if dfa is not None:
-        info.update(states=dfa.n_states, classes=dfa.n_classes,
+        which = instance(dfa)
+        info.update(info["instances"][which], instance=which,
+                    states=dfa.n_states, classes=dfa.n_classes,
                     sinks=dfa.n_states - dfa.first_sink,
                     shared_bytes=shared_bytes(dfa),
                     grid=int(lib["grid"](rows, dfa.n_states,
                                          dfa.n_classes)))
     return info
+
+
+def launch(fn, bytes_: torch.Tensor, lengths: torch.Tensor,
+           validity: torch.Tensor, dfa: Dfa,
+           form: Optional[str] = None) -> torch.Tensor:
+    """One launch of ``fn`` (a build's ``rect_dfa_launch``) over CUDA
+    tensors, the DFA's tables in ``form`` ("byte" or "class"; by default
+    the form of its instance): bool[P]. No launch count."""
+    p, w = bytes_.shape
+    if not (w == 8 or (w >= 16 and w % 16 == 0)):
+        raise ValueError(f"rect_dfa takes rows of 8 bytes or a multiple of "
+                         f"16, not {w}")
+    dev = bytes_.device
+    out = torch.empty(p, dtype=torch.bool, device=dev)
+    if p == 0:
+        return out
+    bytes_ = kernel_rows(bytes_)
+    lengths = lengths.contiguous()
+    validity = validity.contiguous()
+    classes, table, accept, n_cls = _kernel_tables(
+        dfa, dev, form or instance(dfa))
+    rc = fn(bytes_.data_ptr(), lengths.data_ptr(), validity.data_ptr(), p, w,
+            classes.data_ptr(), table.data_ptr(), accept.data_ptr(),
+            dfa.n_states, n_cls, dfa.start, dfa.first_sink, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rect_dfa kernel launch failed: CUDA error {rc}")
+    return out
 
 
 def rect_dfa(bytes_: torch.Tensor, lengths: torch.Tensor,
@@ -135,27 +212,10 @@ def rect_dfa(bytes_: torch.Tensor, lengths: torch.Tensor,
         return rect_dfa_reference(bytes_, lengths, validity, dfa)
     if dev.type != "cuda":
         raise ValueError(f"rect_dfa has no kernel for {dev}")
-    p, w = bytes_.shape
-    if not (w == 8 or (w >= 16 and w % 16 == 0)):
-        raise ValueError(f"rect_dfa takes rows of 8 bytes or a multiple of "
-                         f"16, not {w}")
-    out = torch.empty(p, dtype=torch.bool, device=dev)
-    if p == 0:
-        return out
-    if not bytes_.is_contiguous() or bytes_.data_ptr() % 16:
-        bytes_ = bytes_.clone()        # 16-byte aligned rows
-    lengths = lengths.contiguous()
-    validity = validity.contiguous()
-    classes, table, accept = _tables(dfa, dev)
-    rc = _launcher()["launch"](
-        bytes_.data_ptr(), lengths.data_ptr(), validity.data_ptr(), p, w,
-        classes.data_ptr(), table.data_ptr(), accept.data_ptr(),
-        dfa.n_states, dfa.n_classes, dfa.start, dfa.first_sink,
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"rect_dfa kernel launch failed: CUDA error {rc}")
-    with _COUNT_LOCK:           # queries on several threads launch it
-        rect_dfa.launches += 1
+    out = launch(_launcher()["launch"], bytes_, lengths, validity, dfa)
+    if bytes_.shape[0]:
+        with _COUNT_LOCK:           # queries on several threads launch it
+            rect_dfa.launches += 1
     return out
 
 

@@ -50,7 +50,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..columnar.strrect import rect_width_bucket
+from ..columnar.strrect import kernel_rows, rect_width_bucket
 
 __all__ = ["OPCODES", "HEAVY_OPS", "MAX_OPS", "MAX_LITERAL", "MAX_WIDTH", "BLOCK_THREADS",
            "chain_widths", "pack_chain", "rect_transform",
@@ -534,8 +534,7 @@ def rect_transform(bytes_: torch.Tensor, lengths: torch.Tensor,
     out_len = torch.empty(p, dtype=torch.int32, device=dev)
     if p == 0:
         return out, out_len
-    if not bytes_.is_contiguous() or bytes_.data_ptr() % 16:
-        bytes_ = bytes_.clone()        # 16-byte aligned rows
+    bytes_ = kernel_rows(bytes_)
     lengths = lengths.contiguous()
     validity = validity.contiguous()
     fn = _launcher()[0]
